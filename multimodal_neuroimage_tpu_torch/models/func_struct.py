@@ -3,7 +3,9 @@
 Dual temporal BERTs over the low/ultralow bands -> CLS concat + projection
 -> the fused vector embedded on the diagonal of an S x S matrix (+ the ROI
 functional-connectivity matrix with ``use_FC``) -> SwinFusion with the
-struct matrix -> SwinV2 head.
+struct matrix -> SwinV2 head. ``forward(batch, generator)``: in training
+(``model.train()``) every dropout seed and DropPath factor is drawn from the
+host ``generator`` in module order; at inference the generator is unused.
 """
 
 from __future__ import annotations
@@ -40,7 +42,9 @@ class FmriDiagEmbed(nn.Module):
                  num_heads_2DBert: int = 12, sequence_length: int = 368,
                  bert_intermediate_size: int = 3072,
                  concat_method: str = "concat", use_FC: bool = False,
-                 use_merge_loss: bool = False):
+                 use_merge_loss: bool = False,
+                 transformer_dropout_rate: float = 0.1,
+                 bert_attn_dropout: float = 0.1):
         super().__init__()
         self.concat_method = concat_method
         self.use_FC = use_FC
@@ -48,7 +52,8 @@ class FmriDiagEmbed(nn.Module):
         def bert():
             return TemporalBert(intermediate_vec, transformer_hidden_layers,
                                 num_heads_2DBert, sequence_length + 1,
-                                bert_intermediate_size)
+                                bert_intermediate_size,
+                                transformer_dropout_rate, bert_attn_dropout)
 
         self.transformer_raw = bert() if use_merge_loss else None
         self.transformer_low = bert()
@@ -57,12 +62,13 @@ class FmriDiagEmbed(nn.Module):
                            if concat_method == "concat" else None)
 
     def forward(self, x_raw: Optional[torch.Tensor], x_l: torch.Tensor,
-                x_u: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                x_u: torch.Tensor, generator=None) -> Tuple[torch.Tensor, Dict]:
         aux: Dict[str, torch.Tensor] = {}
         if self.transformer_raw is not None and x_raw is not None:
-            aux["processed_raw"] = self.transformer_raw(x_raw)["cls"]
-        low = self.transformer_low(x_l)["cls"]
-        ul = self.transformer_ultralow(x_u)["cls"]
+            aux["processed_raw"] = self.transformer_raw(x_raw,
+                                                        generator)["cls"]
+        low = self.transformer_low(x_l, generator)["cls"]
+        ul = self.transformer_ultralow(x_u, generator)["cls"]
         if self.proj_layer is not None:
             cls = self.proj_layer(torch.cat([low, ul], dim=1))
         else:
@@ -89,22 +95,29 @@ class FuncStructCross(nn.Module):
                  window_size: int = 6, mlp_ratio: float = 4.0,
                  size_of_model: str = "large", swin_embed_dim: int = 12,
                  patch_size: int = 7,
-                 fine_tune_task: str = "binary_classification"):
+                 fine_tune_task: str = "binary_classification",
+                 transformer_dropout_rate: float = 0.1,
+                 bert_attn_dropout: float = 0.1, fusion_drop: float = 0.1,
+                 fusion_drop_path: float = 0.1):
         super().__init__()
         self.fine_tune_task = fine_tune_task
         self.fmri_embed = FmriDiagEmbed(
             intermediate_vec, transformer_hidden_layers, num_heads_2DBert,
             sequence_length, bert_intermediate_size, concat_method, use_FC,
-            use_merge_loss)
+            use_merge_loss, transformer_dropout_rate, bert_attn_dropout)
+        # models/func_struct.py _fusion: attention dropout runs at the
+        # fusion drop rate too (model.py:1591)
         self.fusion = SwinFusionBackbone(
             fusion_embed_dim, fusion_ex_depths, fusion_depths,
             fusion_re_depths, fusion_ex_heads, fusion_heads, fusion_re_heads,
             img_size=intermediate_vec, window_size=window_size,
-            mlp_ratio=mlp_ratio)
+            mlp_ratio=mlp_ratio, drop_rate=fusion_drop,
+            attn_drop_rate=fusion_drop, drop_path_rate=fusion_drop_path)
         depths, heads = size_preset(size_of_model)
         self.swin = SwinTransformerV2(
             (intermediate_vec, intermediate_vec), patch_size, swin_embed_dim,
-            depths, heads, window_size, mlp_ratio)
+            depths, heads, window_size, mlp_ratio,
+            drop_path_rate=fusion_drop_path)
 
     @classmethod
     def from_config(cls, cfg) -> "FuncStructCross":
@@ -129,11 +142,20 @@ class FuncStructCross(nn.Module):
             window_size=cfg.window_size, mlp_ratio=cfg.mlp_ratio,
             size_of_model=cfg.size_of_model,
             swin_embed_dim=cfg.swin_embed_dim, patch_size=cfg.patch_size,
-            fine_tune_task=cfg.fine_tune_task)
+            fine_tune_task=cfg.fine_tune_task,
+            transformer_dropout_rate=cfg.transformer_dropout_rate,
+            bert_attn_dropout=cfg.bert_attn_dropout,
+            fusion_drop=cfg.fusion_drop_rate,
+            fusion_drop_path=cfg.fusion_drop_path_rate)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict:
+        if self.training and generator is None:
+            raise ValueError("a training forward draws its dropout from an "
+                             "explicit torch.Generator; pass generator=")
         embed, aux = self.fmri_embed(batch.get("fmri_raw_sequence"),
                                      batch["fmri_lowfreq_sequence"],
-                                     batch["fmri_ultralowfreq_sequence"])
-        fused = self.fusion(embed, batch["struct"].float())
-        return {self.fine_tune_task: self.swin(fused), **aux}
+                                     batch["fmri_ultralowfreq_sequence"],
+                                     generator)
+        fused = self.fusion(embed, batch["struct"].float(), generator)
+        return {self.fine_tune_task: self.swin(fused, generator), **aux}

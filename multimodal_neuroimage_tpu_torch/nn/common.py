@@ -1,7 +1,10 @@
 """Shared building blocks (counterpart of multimodal_neuroimage_tpu/nn/common.py).
 
-The port is inference-only, so dropout and DropPath are the identity and
-appear nowhere in its modules.
+Randomness is explicit: a training forward takes one ``torch.Generator`` on
+the host, from which every dropout seed and every DropPath factor is drawn
+in a fixed order, so that the same generator state gives the same step on
+the CPU and on the card. Dropout masks are the JAX kernels' coordinate hash
+(ops/fusion_block.py ``mix_keep``), not torch's RNG.
 """
 
 from __future__ import annotations
@@ -46,17 +49,61 @@ def TorchConv(in_channels: int, out_channels: int,
     return nn.Conv2d(in_channels, out_channels, kernel_size, padding=1)
 
 
+def draw_seed(generator: torch.Generator) -> int:
+    """One int32 dropout seed in [0, 2^31 - 1), as the JAX modules draw."""
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
+
+
+def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Dropout of a (..., C) tensor with the hash masks (draw 0), rows
+    numbered over the leading axes. Used where the JAX package runs
+    ``nn.Dropout`` outside a kernel (BERT embeddings, SwinFusion pos_drop),
+    whose jax.random stream the port cannot reproduce anyway."""
+    if rate <= 0.0:
+        return x
+    from multimodal_neuroimage_tpu_torch.ops.fusion_block import mix_keep
+    C = x.shape[-1]
+    rows = torch.arange(x.numel() // C, dtype=torch.int64,
+                        device=x.device).reshape(*x.shape[:-1], 1)
+    cols = torch.arange(C, dtype=torch.int64, device=x.device)
+    return x * mix_keep(rows, cols, rate, seed, 0)
+
+
+def drop_path_factors(shape, rate: float, generator: torch.Generator,
+                      device=None) -> torch.Tensor:
+    """DropPath factors bernoulli(1 - rate) / (1 - rate) of ``shape`` (the
+    fusion kernels' (B, 2)), drawn on the host and moved to ``device``."""
+    keep = 1.0 - rate
+    u = torch.rand(tuple(shape), generator=generator)
+    return ((u < keep).to(torch.float32) / keep).to(device)
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: torch.Generator) -> torch.Tensor:
+    """timm DropPath (nn/common.py DropPath): whole samples zeroed, the
+    rest divided by the keep probability."""
+    if rate <= 0.0:
+        return x
+    return x * drop_path_factors((x.shape[0],) + (1,) * (x.ndim - 1), rate,
+                                 generator, x.device)
+
+
 class Mlp(nn.Module):
-    """fc1 -> erf-GELU -> fc2 (dropout is the identity at inference)."""
+    """fc1 -> erf-GELU -> dropout -> fc2 -> dropout (swin_v2_module.py:16-32;
+    the flagship's SwinV2 head runs drop 0)."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 out_features: Optional[int] = None):
+                 out_features: Optional[int] = None, drop: float = 0.0):
         super().__init__()
+        self.drop = drop
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features or in_features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        if not self.training or self.drop <= 0.0:
+            return self.fc2(F.gelu(self.fc1(x)))
+        h = dropout(F.gelu(self.fc1(x)), self.drop, draw_seed(generator))
+        return dropout(self.fc2(h), self.drop, draw_seed(generator))
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:

@@ -5,6 +5,12 @@ Scaled-cosine window attention with a clamped per-head logit scale, the
 cyclic shift with static -100 masks and patch merging. The attention core is
 K4 (ops/attention.py). Parameter names follow the reference torch modules
 (``qkv``, ``q_bias``, ``cpb_mlp.0``, ``layers.{i}.blocks.{j}``, ...).
+Training: per-block DropPath at ``linspace(0, drop_path_rate, sum(depths))``
+drawn from the step's generator, and the plain hash dropout at
+``drop_rate`` after the patch embedding, the projection and in the MLP.
+Attention-probability dropout would have to live in K4, which has none
+(``attn_drop_rate`` 0 in the flagship; more is refused, ROADMAP "K4
+dropout").
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ from torch import nn
 import torch.nn.functional as F
 
 from multimodal_neuroimage_tpu_torch.nn.common import (LayerNorm, Mlp,
-                                                       full_f32,
+                                                       draw_seed, drop_path,
+                                                       dropout, full_f32,
                                                        window_partition,
                                                        window_reverse)
 from multimodal_neuroimage_tpu_torch.ops.attention import (
@@ -95,9 +102,11 @@ class WindowAttentionV2(nn.Module):
     (B, nW, N, C) windows."""
 
     def __init__(self, dim: int, window_size: Tuple[int, int],
-                 num_heads: int):
+                 num_heads: int, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.qkv = nn.Linear(dim, 3 * dim, bias=False)
         self.q_bias = nn.Parameter(torch.zeros(dim))
         self.v_bias = nn.Parameter(torch.zeros(dim))
@@ -113,8 +122,12 @@ class WindowAttentionV2(nn.Module):
             relative_position_index(*window_size).reshape(-1).copy()),
             persistent=False)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator=None) -> torch.Tensor:
+        if self.training and self.attn_drop > 0.0:
+            raise NotImplementedError(
+                f"SwinV2 attention dropout {self.attn_drop}: the K4 kernel "
+                f"has no dropout yet (ROADMAP \"K4 dropout\")")
         B, nW, N, C = x.shape
         heads = self.num_heads
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
@@ -132,7 +145,10 @@ class WindowAttentionV2(nn.Module):
         out = fused_window_attention((q * scale).contiguous(), k.contiguous(),
                                      v.contiguous(), rel_bias.contiguous(),
                                      mask)
-        return self.proj(out.transpose(2, 3).reshape(B, nW, N, C))
+        out = self.proj(out.transpose(2, 3).reshape(B, nW, N, C))
+        if self.training and self.proj_drop > 0.0:
+            out = dropout(out, self.proj_drop, draw_seed(generator))
+        return out
 
 
 class SwinBlockV2(nn.Module):
@@ -140,14 +156,17 @@ class SwinBlockV2(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int = 6, shift_size: int = 0,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0):
         super().__init__()
         self.input_resolution = tuple(input_resolution)
+        self.drop_path = drop_path
         self.ws, self.shift = effective_window(self.input_resolution,
                                                window_size, shift_size)
-        self.attn = WindowAttentionV2(dim, (self.ws, self.ws), num_heads)
+        self.attn = WindowAttentionV2(dim, (self.ws, self.ws), num_heads,
+                                      attn_drop, drop)
         self.norm1 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop)
         self.norm2 = LayerNorm(dim)
         # res-post-norm: zero-initialised scales, as in the JAX package
         nn.init.zeros_(self.norm1.weight)
@@ -156,19 +175,21 @@ class SwinBlockV2(nn.Module):
             "attn_mask", _mask_buffer(self.input_resolution, self.ws,
                                       self.shift), persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         H, W = self.input_resolution
         B, L, C = x.shape
         ws, s = self.ws, self.shift
+        rate = self.drop_path if self.training else 0.0
         h = x.reshape(B, H, W, C)
         if s > 0:
             h = torch.roll(h, shifts=(-s, -s), dims=(1, 2))
-        h = window_reverse(self.attn(window_partition(h, ws), self.attn_mask),
-                           ws, H, W)
+        h = window_reverse(self.attn(window_partition(h, ws), self.attn_mask,
+                                     generator), ws, H, W)
         if s > 0:
             h = torch.roll(h, shifts=(s, s), dims=(1, 2))
-        x = x + self.norm1(h.reshape(B, L, C))
-        return x + self.norm2(self.mlp(x))
+        x = x + drop_path(self.norm1(h.reshape(B, L, C)), rate, generator)
+        return x + drop_path(self.norm2(self.mlp(x, generator)), rate,
+                             generator)
 
 
 class PatchMerging(nn.Module):
@@ -217,18 +238,22 @@ class SwinStage(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: float = 4.0, downsample: bool = False):
+                 mlp_ratio: float = 4.0, downsample: bool = False,
+                 drop: float = 0.0, attn_drop: float = 0.0,
+                 drop_path: Sequence[float] = ()):
         super().__init__()
+        dpr = list(drop_path) or [0.0] * depth
         self.blocks = nn.ModuleList(
             SwinBlockV2(dim, input_resolution, num_heads, window_size,
-                        0 if i % 2 == 0 else window_size // 2, mlp_ratio)
+                        0 if i % 2 == 0 else window_size // 2, mlp_ratio,
+                        drop, attn_drop, dpr[i])
             for i in range(depth))
         self.downsample = (PatchMerging(input_resolution, dim)
                            if downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         return x if self.downsample is None else self.downsample(x)
 
 
@@ -249,28 +274,36 @@ class SwinTransformerV2(nn.Module):
                  patch_size: int = 7, embed_dim: int = 12,
                  depths: Sequence[int] = (2, 2, 6),
                  num_heads: Sequence[int] = (3, 6, 12), window_size: int = 6,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_rate = drop_rate
         self.patch_embed = PatchEmbed(img_size, patch_size, embed_dim)
         res = self.patch_embed.patches_resolution
         n = len(depths)
+        dpr = list(np.linspace(0, drop_path_rate, sum(depths)))
         self.layers = nn.ModuleList(
             SwinStage(int(embed_dim * 2 ** i),
                       (res[0] // 2 ** i, res[1] // 2 ** i), depth, heads,
-                      window_size, mlp_ratio, downsample=i < n - 1)
+                      window_size, mlp_ratio, downsample=i < n - 1,
+                      drop=drop_rate, attn_drop=attn_drop_rate,
+                      drop_path=dpr[sum(depths[:i]):sum(depths[:i + 1])])
             for i, (depth, heads) in enumerate(zip(depths, num_heads)))
         self.norm = LayerNorm(int(embed_dim * 2 ** (n - 1)))
         self.head = nn.Linear(int(embed_dim * 2 ** (n - 1)), 1)
 
-    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_features(self, x: torch.Tensor,
+                         generator=None) -> torch.Tensor:
         if x.ndim == 3:
             x = x[:, None]
         x = self.patch_embed(x)
+        if self.training and self.drop_rate > 0.0:
+            x = dropout(x, self.drop_rate, draw_seed(generator))
         for stage in self.layers:
-            x = stage(x)
+            x = stage(x, generator)
         return self.norm(x).mean(dim=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         """x: (B, H, W) or (B, 1, H, W) -> logits (B, 1)."""
         with full_f32():
-            return self.head(self.forward_features(x))
+            return self.head(self.forward_features(x, generator))

@@ -7,16 +7,24 @@ one kernel call: K2 (self) or two K3 calls (cross, A<-B then B<-A, both
 reading the block's input streams). The token-major <-> window glue is a
 roll plus a window partition in plain PyTorch. Parameter names follow the
 reference torch modules (``attn.qkv``, ``attn_A.kv``, ``blocks.{j}``, ...).
+
+Training: each block draws its DropPath factors dp (B, 2) (one pair per
+direction in the cross block) and then a dropout seed per kernel call from
+the step's generator (JAX: nn/swinfusion.py FusionBlock :369-397 and
+CrossFusionBlock :537-566); ``drop_path`` is the block's rate from the
+stack's linspace.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
 
 from multimodal_neuroimage_tpu_torch.nn.common import (LayerNorm, Mlp,
+                                                       draw_seed,
+                                                       drop_path_factors,
                                                        window_partition,
                                                        window_reverse)
 from multimodal_neuroimage_tpu_torch.nn.swin2d import (_mask_buffer,
@@ -71,6 +79,18 @@ class _WindowGeometry(nn.Module):
         return from_windows(t, self.input_resolution, self.ws, self.shift)
 
 
+def _train_draws(block: nn.Module, x: torch.Tensor, generator):
+    """(dp, seed) of one kernel call: in training the (B, 2) DropPath
+    factors and then the dropout seed, from the step's generator; at
+    inference (None, 0)."""
+    if not block.training:
+        return None, 0
+    dp = drop_path_factors((x.shape[0], 2), block.drop_path, generator,
+                           x.device)
+    seed = draw_seed(generator) if max(block.rates) > 0.0 else 0
+    return dp, seed
+
+
 def _table(ws: int, heads: int) -> nn.Parameter:
     return nn.Parameter(torch.zeros((2 * ws - 1) ** 2, heads))
 
@@ -102,9 +122,12 @@ class FusionBlock(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int = 6, shift_size: int = 0,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0):
         super().__init__()
         self.geom = _WindowGeometry(input_resolution, window_size, shift_size)
+        self.rates = (attn_drop, drop)
+        self.drop_path = drop_path
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, self.geom.ws, num_heads)
         self.norm2 = LayerNorm(dim)
@@ -117,11 +140,13 @@ class FusionBlock(nn.Module):
                 self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
                 m.fc2.weight, m.fc2.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         g = self.geom
+        dp, seed = _train_draws(self, x, generator)
         out = fused_fusion_block(
             g.windows(x), self.kernel_params(),
-            g.bias(self.attn.relative_position_bias_table), g.attn_mask)
+            g.bias(self.attn.relative_position_bias_table), g.attn_mask,
+            dp, seed, self.rates, self.training)
         return g.tokens(out)
 
 
@@ -132,9 +157,12 @@ class CrossFusionBlock(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int = 6, shift_size: int = 0,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0):
         super().__init__()
         self.geom = _WindowGeometry(input_resolution, window_size, shift_size)
+        self.rates = (attn_drop, drop)
+        self.drop_path = drop_path
         hidden = int(dim * mlp_ratio)
         for s in ("A", "B"):
             setattr(self, f"norm1_{s}", LayerNorm(dim))
@@ -153,33 +181,41 @@ class CrossFusionBlock(nn.Module):
                 a.proj.weight, a.proj.bias, n2.weight, n2.bias,
                 m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor):
+    def forward(self, x: torch.Tensor, y: torch.Tensor, generator=None):
         g = self.geom
         xw, yw = g.windows(x), g.windows(y)
+        dp_a, seed_a = _train_draws(self, x, generator)
+        dp_b, seed_b = _train_draws(self, y, generator)
         out_x = fused_cross_fusion_block(
             xw, yw, self.kernel_params("A", "B"),
-            g.bias(self.attn_A.relative_position_bias_table), g.attn_mask)
+            g.bias(self.attn_A.relative_position_bias_table), g.attn_mask,
+            dp_a, seed_a, self.rates, self.training)
         out_y = fused_cross_fusion_block(
             yw, xw, self.kernel_params("B", "A"),
-            g.bias(self.attn_B.relative_position_bias_table), g.attn_mask)
+            g.bias(self.attn_B.relative_position_bias_table), g.attn_mask,
+            dp_b, seed_b, self.rates, self.training)
         return g.tokens(out_x), g.tokens(out_y)
 
 
 class BasicLayerFusion(nn.Module):
-    """``depth`` FusionBlocks alternating shift 0 / ws//2."""
+    """``depth`` FusionBlocks alternating shift 0 / ws//2; ``drop_path`` has
+    one rate a block (none: all 0)."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: Sequence[float] = ()):
         super().__init__()
+        dpr = list(drop_path) or [0.0] * depth
         self.blocks = nn.ModuleList(
             FusionBlock(dim, input_resolution, num_heads, window_size,
-                        0 if i % 2 == 0 else window_size // 2, mlp_ratio)
+                        0 if i % 2 == 0 else window_size // 2, mlp_ratio,
+                        drop, attn_drop, dpr[i])
             for i in range(depth))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         return x
 
 
@@ -188,17 +224,19 @@ class CrossBasicLayer(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: Sequence[float] = ()):
         super().__init__()
+        dpr = list(drop_path) or [0.0] * depth
         self.blocks = nn.ModuleList(
             CrossFusionBlock(dim, input_resolution, num_heads, window_size,
                              0 if i % 2 == 0 else window_size // 2,
-                             mlp_ratio)
+                             mlp_ratio, drop, attn_drop, dpr[i])
             for i in range(depth))
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor):
+    def forward(self, x: torch.Tensor, y: torch.Tensor, generator=None):
         for blk in self.blocks:
-            x, y = blk(x, y)
+            x, y = blk(x, y, generator)
         return x, y
 
 
@@ -207,13 +245,15 @@ class RSTB(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: Sequence[float] = ()):
         super().__init__()
         self.residual_group = BasicLayerFusion(
-            dim, input_resolution, depth, num_heads, window_size, mlp_ratio)
+            dim, input_resolution, depth, num_heads, window_size, mlp_ratio,
+            drop, attn_drop, drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.residual_group(x)
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return x + self.residual_group(x, generator)
 
 
 class CRSTB(nn.Module):
@@ -222,16 +262,17 @@ class CRSTB(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: Sequence[float] = ()):
         super().__init__()
         args = (dim, input_resolution, depth, num_heads, window_size,
-                mlp_ratio)
+                mlp_ratio, drop, attn_drop, drop_path)
         self.residual_group_A = BasicLayerFusion(*args)
         self.residual_group_B = BasicLayerFusion(*args)
         self.residual_group = CrossBasicLayer(*args)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor):
-        x = x + self.residual_group_A(x)
-        y = y + self.residual_group_B(y)
-        cx, cy = self.residual_group(x, y)
+    def forward(self, x: torch.Tensor, y: torch.Tensor, generator=None):
+        x = x + self.residual_group_A(x, generator)
+        y = y + self.residual_group_B(y, generator)
+        cx, cy = self.residual_group(x, y, generator)
         return cx + x, cy + y

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface for Hopper (``sm_90a``); ``ctypes`` loads it. The library lands in
+``nvcc`` compiles every source for Hopper (``sm_90a``), one process a
+source, all at once, and links them into one shared library with a plain C
+interface; ``ctypes`` loads it. The library lands in
 ``multimodal_neuroimage_tpu_torch/_build/`` (git-ignored) under a name keyed
 by a hash of the sources, so an edited kernel is rebuilt and an unchanged
 one is loaded as is. Nothing here runs at import time: the first wrapper
@@ -29,16 +30,29 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
+_F = ctypes.c_float
+_L = ctypes.c_longlong
 # (restype, argtypes) of every exported function; pointers and the stream
 # are void*. Launchers return a cudaError_t (0 = success).
 _SIGNATURES = {
     "window_attention_forward": (_I, [_P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _P]),
-    "fusion_block_forward": (_I, [_I, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _P]),
-    "bert_layer_forward": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _P]),
-    "bert_layer_scratch_floats": (ctypes.c_longlong, [_I, _I, _I, _I]),
+    "window_attention_backward": (_I, [_P] * 12 + [_I] * 5 + [_P]),
+    "window_attention_backward_scratch_floats": (_L, [_I] * 4),
+    "fusion_block_forward": (_I, [_I] + [_P] * 6 + [_I] * 6
+                             + [_P, _I, _D, _D, _I, _P, _P]),
+    "fusion_block_backward": (_I, [_I] + [_P] * 11 + [_I] * 6
+                              + [_P, _I, _D, _D, _I, _P]),
+    "fusion_block_grad_floats": (_L, [_I] * 5),
+    "fusion_block_backward_scratch_floats": (_L, [_I] * 7),
+    "bert_layer_forward": (_I, [_P] * 5 + [_I] * 8 + [_D, _D, _P]),
+    "bert_layer_scratch_floats": (_L, [_I] * 4),
+    "bert_layer_resid_floats": (_L, [_I] * 4),
+    "bert_layer_backward": (_I, [_P] * 7 + [_I] * 8 + [_D, _D, _P]),
+    "bert_layer_backward_scratch_floats": (_L, [_I] * 5),
+    "fused_adam_update": (_I, [_P] * 4 + [_L, _P, _F, _F, _F, _D, _D, _D,
+                                          _D, _I, _P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -100,19 +114,42 @@ def build() -> tuple:
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ([_nvcc()] + ARCH_FLAGS
-           + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v", "-I", str(SOURCE_DIR), "-o", str(tmp)]
-           + [str(f) for f in cu])
+    nvcc = _nvcc()
+    stem = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all running at once (each writes its output to
+    # its own log file, so no pipe can fill while another is waited on)
+    jobs = []
+    for f in cu:
+        obj = BUILD_DIR / f"{stem}.{f.stem}.o"
+        log = BUILD_DIR / f"{stem}.{f.stem}.log"
+        cmd = ([nvcc] + ARCH_FLAGS
+               + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                  "-I", str(SOURCE_DIR), "-c", str(f), "-o", str(obj)])
+        with open(log, "w") as fh:
+            jobs.append((cmd, obj, log, subprocess.Popen(
+                cmd, stdout=fh, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, obj, log, proc in jobs:
+        proc.wait()
+        logs.append(log.read_text())
+        log.unlink()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{logs[-1]}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = ([nvcc] + ARCH_FLAGS + ["-shared", "-o", str(tmp)]
+               + [str(obj) for _, obj, _, _ in jobs])
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    for _, obj, _, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
-    return out, seconds, proc.stdout + proc.stderr
+    return out, seconds, "".join(logs)
 
 
 def library() -> KernelLibrary:

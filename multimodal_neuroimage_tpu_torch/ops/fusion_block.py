@@ -1,24 +1,34 @@
-"""K2/K3: the SwinFusion self and cross blocks (forward).
+"""K2/K3: the SwinFusion self and cross blocks, forward and backward.
 
 Counterpart of multimodal_neuroimage_tpu/ops/fusion_block.py
-``fused_fusion_block`` / ``fused_cross_fusion_block``. One CUDA kernel,
-templated on cross (``csrc/fusion_block.cu``), runs a whole pre-norm block per
-(subject, window). ``fusion_block_reference`` and
-``cross_fusion_block_reference`` are the plain PyTorch versions, which CPU
-tensors take.
+``fused_fusion_block`` / ``fused_cross_fusion_block``. One CUDA kernel each
+way, templated on cross (``csrc/fusion_block.cu``), runs a whole pre-norm
+block per (subject, window); the autograd Function around them dispatches on
+the device of x: CUDA tensors launch the kernels (or raise), CPU tensors run
+``fusion_block_reference`` / ``cross_fusion_block_reference`` and their
+autograd (the plain versions).
+
+This module also holds the port's one dropout-mask generator, the JAX
+package's coordinate hash (``mix_keep``, ``hash_keep2``, ``hash_keep3``,
+``global_keys``): the masks are a pure function of (seed, draw, row, column),
+bit for bit those of the JAX kernels in interpret mode, and the same on the
+CPU and on the card.
 
 Layout: windows ``(B, nW, N, C)`` with N = ws*ws unpadded (the TPU's
-NP = round_up(N, 8) pad is gone); bias ``(H, N, N)``; mask ``(nW, N, N)`` or
-None. Params are flat tuples in the JAX kernels' order, weights in torch
-``(out, in)`` layout and vectors 1-D:
+NP = round_up(N, 8) pad is gone, but the dropout coordinates keep it); bias
+``(H, N, N)``; mask ``(nW, N, N)`` or None. Params are flat tuples in the JAX
+kernels' order, weights in torch ``(out, in)`` layout and vectors 1-D:
 
   self  (12): g1 b1 wqkv bqkv wp bp g2 b2 w1 b1m w2 b2m
   cross (16): g1 b1 g1y b1y wq bq wkv bkv wp bp g2 b2 w1 b1m w2 b2m
+
+Training adds the DropPath factors ``dp`` (B, 2) of the two residual
+branches, an int32 ``seed`` and ``rates`` = (attention, proj/MLP) dropout.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +37,69 @@ from multimodal_neuroimage_tpu_torch.nn.common import layer_norm
 from multimodal_neuroimage_tpu_torch.ops import build
 
 LN_EPS = 1e-5
+# dropout draws of the JAX kernels: 0 proj, 1/2 MLP, 3 attention
+DRAW_PROJ, DRAW_MLP1, DRAW_MLP2, DRAW_ATTN = 0, 1, 2, 3
+_M32 = 0xFFFFFFFF
 
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+# ---- the dropout-mask hash (ops/fusion_block.py:173-203, 290-296) -----------
+
+def _mul32(u: torch.Tensor, c: int) -> torch.Tensor:
+    """(u * c) mod 2^32 for int64 u in [0, 2^32), without int64 overflow."""
+    return (u * (c & 0xFFFF) + (((u * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def mix_keep(r: torch.Tensor, c: torch.Tensor, rate: float, seed: int,
+             draw: int) -> torch.Tensor:
+    """keep/(1-rate) factors (float32) of int64 coordinates r and c
+    (broadcast): ``_mix_keep``'s int32 wrapping products and logical shifts,
+    computed in int64 masked to 32 bits (torch's >> on int32 is
+    arithmetic)."""
+    base = ((int(seed) * 0x9E3779B9) ^ ((draw + 1) * 0xCC9E2D51)) & _M32
+    u = _mul32(r, 461845907) ^ _mul32(c, 668265261) ^ base
+    u = u ^ (u >> 16)
+    u = _mul32(u, 0x85EBCA6B)
+    u = u ^ (u >> 13)
+    u = _mul32(u, 0xC2B2AE35)
+    u = u ^ (u >> 16)
+    thr = min(int(rate * (2 ** 32)), 2 ** 32 - 1)
+    return (u >= thr).to(torch.float32) * float(1.0 / (1.0 - rate))
+
+
+def _iota(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int64, device=device)
+
+
+def hash_keep2(rows: int, cols: int, rate: float, seed: int, draw: int,
+               row0: int = 0, device=None) -> torch.Tensor:
+    """(rows, cols) mask over rows row0.. of the global token matrix."""
+    return mix_keep(_iota(rows, device)[:, None] + row0,
+                    _iota(cols, device)[None, :], rate, seed, draw)
+
+
+def hash_keep3(windows: int, NP: int, cols: int, rate: float, seed: int,
+               draw: int, w0: int = 0, device=None) -> torch.Tensor:
+    """(windows, NP, cols) attention mask for global windows w0.. ."""
+    w = _iota(windows, device)[:, None, None] + w0
+    n = _iota(NP, device)[None, :, None]
+    return mix_keep(w * NP + n, _iota(cols, device)[None, None, :], rate,
+                    seed, draw)
+
+
+def global_keys(B: int, nW: int, N: int, NP: int, device=None
+                ) -> torch.Tensor:
+    """(B, nW, N, 1) global padded row (b * nW + w) * NP + n of every
+    window token: the hash coordinates that make the masks the same under
+    any chunking, on the TPU grid and on the card."""
+    bw = _iota(B * nW, device).reshape(B, nW, 1, 1)
+    return bw * NP + _iota(N, device).reshape(1, 1, N, 1)
+
+
+# ---- plain versions ---------------------------------------------------------
 
 def bias_from_table(table: torch.Tensor, rel_idx: torch.Tensor,
                     heads: int) -> torch.Tensor:
@@ -39,7 +111,7 @@ def bias_from_table(table: torch.Tensor, rel_idx: torch.Tensor,
         2, 0, 1).contiguous()
 
 
-def _attn_reference(q, k, v, bias, mask, heads: int):
+def _attn_reference(q, k, v, bias, mask, heads: int, keep=None):
     B, nW, N, C = q.shape
     hd = C // heads
 
@@ -50,45 +122,98 @@ def _attn_reference(q, k, v, bias, mask, heads: int):
                      split(k)) + bias[None, None]
     if mask is not None:
         s = s + mask[None, :, None]
-    o = torch.einsum("bwhnm,bwhmd->bwhnd", torch.softmax(s, dim=-1),
-                     split(v))
+    p = torch.softmax(s, dim=-1)
+    if keep is not None:
+        p = p * keep
+    o = torch.einsum("bwhnm,bwhmd->bwhnd", p, split(v))
     return o.transpose(2, 3).reshape(B, nW, N, C)
 
 
-def _tail_reference(x, o, wp, bp, g2, b2, w1, b1m, w2, b2m):
-    x2 = x + F.linear(o, wp, bp)
-    u = F.gelu(F.linear(layer_norm(x2, g2, b2, LN_EPS), w1, b1m))
-    return x2 + F.linear(u, w2, b2m)
+def _block_reference(x, y, params, bias, mask, dp, seed, rates, training,
+                     cross: bool):
+    """The whole block as ``_forward_compute`` (:443-519) computes it."""
+    if cross:
+        (g1, b1, g1y, b1y, wq, bq, wkv, bkv,
+         wp, bp, g2, b2, w1, b1m, w2, b2m) = params
+        q = F.linear(layer_norm(x, g1, b1, LN_EPS), wq, bq)
+        k, v = F.linear(layer_norm(y, g1y, b1y, LN_EPS), wkv,
+                        bkv).chunk(2, -1)
+    else:
+        (g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, b1m, w2, b2m) = params
+        q, k, v = F.linear(layer_norm(x, g1, b1, LN_EPS), wqkv,
+                           bqkv).chunk(3, dim=-1)
+    B, nW, N, C = x.shape
+    H = bias.shape[0]
+    attn_rate, drop_rate = rates if training else (0.0, 0.0)
+    NP = round_up(N, 8)
+    rows = global_keys(B, nW, N, NP, x.device)
+
+    def hidden(draw, width):
+        if drop_rate <= 0.0:
+            return 1.0
+        return mix_keep(rows, _iota(width, x.device), drop_rate, seed, draw)
+
+    keep = None
+    if attn_rate > 0.0:
+        cols = _iota(H, x.device)[:, None, None] * NP + _iota(N, x.device)
+        keep = mix_keep(rows[:, :, None], cols, attn_rate, seed, DRAW_ATTN)
+    o = _attn_reference(q, k, v, bias, mask, H, keep)
+    dp1, dp2 = ((1.0, 1.0) if dp is None
+                else (dp[:, 0].reshape(B, 1, 1, 1), dp[:, 1].reshape(B, 1, 1, 1)))
+    x2r = x + dp1 * (F.linear(o, wp, bp) * hidden(DRAW_PROJ, C))
+    u = F.gelu(F.linear(layer_norm(x2r, g2, b2, LN_EPS), w1, b1m))
+    z = F.linear(u * hidden(DRAW_MLP1, w1.shape[0]), w2, b2m)
+    return x2r + dp2 * (z * hidden(DRAW_MLP2, C))
 
 
 def fusion_block_reference(x: torch.Tensor, params: Sequence[torch.Tensor],
                            bias: torch.Tensor,
-                           mask: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """Plain PyTorch self block over windows (inference)."""
-    (g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, b1m, w2, b2m) = params
-    qkv = F.linear(layer_norm(x, g1, b1, LN_EPS), wqkv, bqkv)
-    q, k, v = qkv.chunk(3, dim=-1)
-    o = _attn_reference(q, k, v, bias, mask, bias.shape[0])
-    return _tail_reference(x, o, wp, bp, g2, b2, w1, b1m, w2, b2m)
+                           mask: Optional[torch.Tensor] = None,
+                           dp: Optional[torch.Tensor] = None, seed: int = 0,
+                           rates: Tuple[float, float] = (0.0, 0.0),
+                           training: bool = False) -> torch.Tensor:
+    """Plain PyTorch self block over windows."""
+    return _block_reference(x, None, params, bias, mask, dp, seed, rates,
+                            training, cross=False)
 
 
 def cross_fusion_block_reference(x: torch.Tensor, y: torch.Tensor,
                                  params: Sequence[torch.Tensor],
                                  bias: torch.Tensor,
-                                 mask: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
+                                 mask: Optional[torch.Tensor] = None,
+                                 dp: Optional[torch.Tensor] = None,
+                                 seed: int = 0,
+                                 rates: Tuple[float, float] = (0.0, 0.0),
+                                 training: bool = False) -> torch.Tensor:
     """Plain PyTorch directed cross block: q from LN1(x), k/v from
     LN1_y(y); returns the updated x stream."""
-    (g1, b1, g1y, b1y, wq, bq, wkv, bkv,
-     wp, bp, g2, b2, w1, b1m, w2, b2m) = params
-    q = F.linear(layer_norm(x, g1, b1, LN_EPS), wq, bq)
-    k, v = F.linear(layer_norm(y, g1y, b1y, LN_EPS), wkv, bkv).chunk(2, -1)
-    o = _attn_reference(q, k, v, bias, mask, bias.shape[0])
-    return _tail_reference(x, o, wp, bp, g2, b2, w1, b1m, w2, b2m)
+    return _block_reference(x, y, params, bias, mask, dp, seed, rates,
+                            training, cross=True)
 
 
-def _launch(x, y, params, bias, mask, cross: bool) -> torch.Tensor:
+def fusion_block_reference_backward(g, x, y, params, bias, mask=None,
+                                    dp=None, seed: int = 0,
+                                    rates=(0.0, 0.0), training=False,
+                                    cross: bool = False):
+    """Plain backward: autograd through the plain forward. Returns
+    (dx, dy or None, dbias, dparams)."""
+    with torch.enable_grad():
+        xs = x.detach().requires_grad_()
+        ys = y.detach().requires_grad_() if cross else None
+        bs = bias.detach().requires_grad_()
+        ps = [p.detach().requires_grad_() for p in params]
+        out = _block_reference(xs, ys, ps, bs, mask, dp, seed, rates,
+                               training, cross)
+        inputs = [xs] + ([ys] if cross else []) + [bs] + ps
+        grads = torch.autograd.grad(out, inputs, g)
+    dx, rest = grads[0], list(grads[1:])
+    dy = rest.pop(0) if cross else None
+    return dx, dy, rest[0], tuple(rest[1:])
+
+
+# ---- CUDA launches -----------------------------------------------------------
+
+def _check(x, y, params, bias, mask, dp, cross: bool):
     B, nW, N, C = x.shape
     H = bias.shape[0]
     Ch = params[-4].shape[0]
@@ -98,6 +223,8 @@ def _launch(x, y, params, bias, mask, cross: bool) -> torch.Tensor:
     build.check_cuda_f32("bias", bias, (H, N, N))
     if mask is not None:
         build.check_cuda_f32("mask", mask, (nW, N, N))
+    if dp is not None:
+        build.check_cuda_f32("dp", dp, (B, 2))
     if C % H or C // H > 16:
         raise ValueError(f"fusion block needs C % heads == 0 and head dim "
                          f"<= 16, got C={C}, heads={H}")
@@ -111,40 +238,155 @@ def _launch(x, y, params, bias, mask, cross: bool) -> torch.Tensor:
         raise ValueError(f"expected {len(shapes)} params, got {len(params)}")
     for i, (p, s) in enumerate(zip(params, shapes)):
         build.check_cuda_f32(f"params[{i}]", p, s)
+    return B, nW, N, C, H, Ch
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_forward(x, y, params, bias, mask, dp, seed, rates, training,
+                    save: bool, cross: bool):
+    B, nW, N, C, H, Ch = _check(x, y, params, bias, mask, dp, cross)
+    attn_rate, drop_rate = rates if training else (0.0, 0.0)
     out = torch.empty_like(x)
+    x2r = torch.empty_like(x) if save else None
     build.library().call(
-        "fusion_block_forward", int(cross), x.data_ptr(),
-        y.data_ptr() if cross else None, build.pointer_array(params),
-        bias.data_ptr(), None if mask is None else mask.data_ptr(),
-        out.data_ptr(), B, nW, N, C, H, Ch, build.stream_of(x))
+        "fusion_block_forward", int(cross), x.data_ptr(), _ptr(y),
+        build.pointer_array(params), bias.data_ptr(), _ptr(mask),
+        out.data_ptr(), B, nW, N, C, H, Ch, _ptr(dp), int(seed),
+        float(attn_rate), float(drop_rate), round_up(N, 8), _ptr(x2r),
+        build.stream_of(x))
+    (fused_cross_fusion_block if cross else fused_fusion_block).launches += 1
+    return out, x2r
+
+
+def _backward(g, x, y, params, bias, mask, dp, seed, rates, training, x2r,
+              cross: bool):
+    if x.device.type == "cpu":
+        return fusion_block_reference_backward(g, x, y, params, bias, mask,
+                                               dp, seed, rates, training,
+                                               cross)
+    B, nW, N, C, H, Ch = _check(x, y, params, bias, mask, dp, cross)
+    build.check_cuda_f32("g", g, x.shape)
+    build.check_cuda_f32("x2r", x2r, x.shape)
+    attn_rate, drop_rate = rates if training else (0.0, 0.0)
+    lib = build.library()
+    n_grad = lib.value("fusion_block_grad_floats", int(cross), N, C, H, Ch)
+    n_scratch = lib.value("fusion_block_backward_scratch_floats", int(cross),
+                          B, nW, N, C, H, Ch)
+    if n_scratch < 0:
+        raise RuntimeError("fusion block backward kernel cannot be "
+                           "configured on this card (shared memory)")
+    dx = torch.empty_like(x)
+    dy = torch.empty_like(y) if cross else None
+    flat = torch.empty(n_grad, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    lib.call("fusion_block_backward", int(cross), x.data_ptr(), _ptr(y),
+             build.pointer_array(params), bias.data_ptr(), _ptr(mask),
+             x2r.data_ptr(), g.data_ptr(), dx.data_ptr(), _ptr(dy),
+             flat.data_ptr(), scratch.data_ptr(), B, nW, N, C, H, Ch,
+             _ptr(dp), int(seed), float(attn_rate), float(drop_rate),
+             round_up(N, 8), build.stream_of(x))
+    dparams, off = [], 0
+    for p in params:
+        dparams.append(flat[off:off + p.numel()].view(p.shape))
+        off += p.numel()
+    dbias = flat[off:].view(bias.shape)
+    return dx, dy, dbias, tuple(dparams)
+
+
+def fused_fusion_block_backward(g, x, params, bias, mask=None, dp=None,
+                                seed=0, rates=(0.0, 0.0), training=False,
+                                x2r=None):
+    """K2 backward: (dx, dbias, dparams). CUDA tensors launch the kernel
+    (x2r from the CUDA forward); CPU tensors take the plain backward."""
+    dx, _, dbias, dparams = _backward(g, x, None, params, bias, mask, dp,
+                                      seed, rates, training, x2r, False)
+    if x.device.type != "cpu":
+        fused_fusion_block_backward.launches += 1
+    return dx, dbias, dparams
+
+
+def fused_cross_fusion_block_backward(g, x, y, params, bias, mask=None,
+                                      dp=None, seed=0, rates=(0.0, 0.0),
+                                      training=False, x2r=None):
+    """K3 backward: (dx, dy, dbias, dparams), dispatching as K2's."""
+    out = _backward(g, x, y, params, bias, mask, dp, seed, rates, training,
+                    x2r, True)
+    if x.device.type != "cpu":
+        fused_cross_fusion_block_backward.launches += 1
     return out
+
+
+class _FusionBlockFunction(torch.autograd.Function):
+    """Forward and backward of one block; CUDA kernels on CUDA tensors, the
+    plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, y, bias, mask, dp, seed, rates, training, save,
+                cross, *params):
+        if x.device.type == "cpu":
+            out = _block_reference(x, y, params, bias, mask, dp, seed, rates,
+                                   training, cross)
+            x2r = None
+        else:
+            out, x2r = _launch_forward(x, y, params, bias, mask, dp, seed,
+                                       rates, training, save, cross)
+        ctx.meta = (seed, rates, training, cross)
+        ctx.save_for_backward(x, y, bias, mask, dp, x2r, *params)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        seed, rates, training, cross = ctx.meta
+        x, y, bias, mask, dp, x2r, *params = ctx.saved_tensors
+        g = g.contiguous()
+        if cross:
+            dx, dy, dbias, dparams = fused_cross_fusion_block_backward(
+                g, x, y, params, bias, mask, dp, seed, rates, training, x2r)
+        else:
+            dx, dbias, dparams = fused_fusion_block_backward(
+                g, x, params, bias, mask, dp, seed, rates, training, x2r)
+            dy = None
+        return (dx, dy, dbias, None, None, None, None, None, None, None,
+                *dparams)
+
+
+def _apply(x, y, params, bias, mask, dp, seed, rates, training, cross):
+    tensors = [x, bias, *params] + ([y] if cross else [])
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    return _FusionBlockFunction.apply(x, y, bias, mask, dp, int(seed),
+                                      tuple(rates), bool(training), save,
+                                      cross, *params)
 
 
 def fused_fusion_block(x: torch.Tensor, params: Sequence[torch.Tensor],
                        bias: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Self block: the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors."""
-    if x.device.type == "cpu":
-        return fusion_block_reference(x, params, bias, mask)
-    out = _launch(x, None, params, bias, mask, cross=False)
-    fused_fusion_block.launches += 1
-    return out
+                       mask: Optional[torch.Tensor] = None,
+                       dp: Optional[torch.Tensor] = None, seed: int = 0,
+                       rates: Tuple[float, float] = (0.0, 0.0),
+                       training: bool = False) -> torch.Tensor:
+    """Self block (differentiable): the CUDA kernels on CUDA tensors, the
+    plain version on CPU tensors."""
+    return _apply(x, None, params, bias, mask, dp, seed, rates, training,
+                  False)
 
 
 def fused_cross_fusion_block(x: torch.Tensor, y: torch.Tensor,
                              params: Sequence[torch.Tensor],
                              bias: torch.Tensor,
-                             mask: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
-    """Directed cross block (q from x, k/v from y): the CUDA kernel on CUDA
-    tensors, the plain version on CPU tensors."""
-    if x.device.type == "cpu":
-        return cross_fusion_block_reference(x, y, params, bias, mask)
-    out = _launch(x, y, params, bias, mask, cross=True)
-    fused_cross_fusion_block.launches += 1
-    return out
+                             mask: Optional[torch.Tensor] = None,
+                             dp: Optional[torch.Tensor] = None,
+                             seed: int = 0,
+                             rates: Tuple[float, float] = (0.0, 0.0),
+                             training: bool = False) -> torch.Tensor:
+    """Directed cross block (q from x, k/v from y; differentiable in both
+    streams), dispatching as :func:`fused_fusion_block`."""
+    return _apply(x, y, params, bias, mask, dp, seed, rates, training, True)
 
 
 fused_fusion_block.launches = 0
 fused_cross_fusion_block.launches = 0
+fused_fusion_block_backward.launches = 0
+fused_cross_fusion_block_backward.launches = 0

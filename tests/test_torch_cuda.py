@@ -8,7 +8,12 @@ with one (which has no jax, so skip tests/conftest.py):
 Shapes are small and deliberately ragged (odd head dim 7, keys masked past
 t_valid, partial row tiles, N = 9 windows). Both sides run float32 on the
 card with TF32 off; |kernel - plain| <= 1e-4 + 2e-4 * |plain|, the same
-bound chip_smoke.py holds the kernels to at the flagship's shapes.
+bound chip_smoke.py holds the kernels to at the flagship's shapes. The
+backward kernels run with dropout on and are held against autograd through
+the plain forward; a gradient that is a sum over many rows (weights,
+biases, LayerNorm scales, the relative-position bias) is bounded relative
+to its tensor's max-abs instead: |kernel - plain| <= 1e-4 * max|plain| +
+1e-5, since both sides add thousands of terms in different orders.
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
 from multimodal_neuroimage_tpu_torch.ops import attention as att
 from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
 from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+from multimodal_neuroimage_tpu_torch.ops import fused_update as fu
 
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 1e-4, 2e-4
@@ -36,6 +42,14 @@ def dev():
 def _close(got, want):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def _close_sum(got, want, what=""):
+    """Bound for a gradient summed over many rows (module docstring)."""
+    torch.cuda.synchronize()
+    bound = 1e-4 * want.abs().max().item() + 1e-5
+    err = (got - want).abs().max().item()
+    assert torch.isfinite(got).all() and err <= bound, (what, err, bound)
 
 
 def _rand(gen, *shape, scale=1.0):
@@ -101,6 +115,102 @@ def test_window_attention_kernel(dev, N, nW, heads, D, masked):
            att.attention_reference(q, k, v, bias, mask))
 
 
+RATES = (0.25, 0.2)
+
+
+@pytest.mark.parametrize("B,T,H,heads,F,t_valid", [
+    (2, 37, 28, 4, 64, 37), (3, 45, 28, 4, 96, 30), (1, 369, 84, 12, 3072, 369)])
+def test_bert_layer_backward_kernel(dev, B, T, H, heads, F, t_valid):
+    gen = torch.Generator().manual_seed(T + H + 1)
+    p = [t.to(dev).requires_grad_() for t in
+         sum((_lin(gen, H, H) for _ in range(4)), []) + _ln(gen, H)
+         + _lin(gen, F, H) + _lin(gen, H, F) + _ln(gen, H)]
+    x = _rand(gen, B, T, H).to(dev).requires_grad_()
+    g = _rand(gen, B, T, H).to(dev)
+    before = bl.bert_layer_backward.launches
+    out = bl.bert_layer_call(x, p, heads, t_valid, 99, RATES, True)
+    _close(out.detach(), bl.bert_layer_reference(x.detach(), p, heads,
+                                                  t_valid, 99, RATES, True))
+    out.backward(g)
+    assert bl.bert_layer_backward.launches == before + 1
+    dx, dps = bl.bert_layer_reference_backward(g, x.detach(), p, heads,
+                                               t_valid, 99, RATES, True)
+    _close(x.grad, dx)
+    for i, (a, b) in enumerate(zip(p, dps)):
+        _close_sum(a.grad, b, f"dparams[{i}]")
+
+
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("res,heads,shift", [(12, 6, 0), (12, 2, 3),
+                                             (84, 6, 3)])
+def test_fusion_block_backward_kernel(dev, cross, res, heads, shift):
+    gen = torch.Generator().manual_seed(res + heads + shift + cross + 7)
+    C, ws, B = 12, 6, 2
+    nW, N = (res // ws) ** 2, ws * ws
+    qkv = (_ln(gen, C) + _lin(gen, C, C) + _lin(gen, 2 * C, C) if cross
+           else _lin(gen, 3 * C, C))
+    p = [t.to(dev).requires_grad_() for t in _ln(gen, C) + qkv
+         + _lin(gen, C, C) + _ln(gen, C) + _lin(gen, 4 * C, C)
+         + _lin(gen, C, 4 * C)]
+    x, y, g = (_rand(gen, B, nW, N, C).to(dev) for _ in "xyg")
+    x.requires_grad_()
+    y.requires_grad_()
+    bias = _rand(gen, heads, N, N, scale=0.5).to(dev).requires_grad_()
+    m = shift_attn_mask(res, res, ws, shift)
+    mask = None if m is None else torch.from_numpy(m).to(dev)
+    dp = torch.tensor([[1 / 0.9, 0.0], [1 / 0.9, 1 / 0.9]], device=dev)
+    args = (bias, mask, dp, 5, RATES, True)
+    if cross:
+        out = fb.fused_cross_fusion_block(x, y, p, *args)
+        want = fb.cross_fusion_block_reference(x.detach(), y.detach(), p,
+                                               *args)
+    else:
+        out = fb.fused_fusion_block(x, p, *args)
+        want = fb.fusion_block_reference(x.detach(), p, *args)
+    _close(out.detach(), want)
+    out.backward(g)
+    dx, dy, dbias, dps = fb.fusion_block_reference_backward(
+        g, x.detach(), y.detach(), p, bias, mask, dp, 5, RATES, True, cross)
+    _close(x.grad, dx)
+    if cross:
+        _close(y.grad, dy)
+    _close_sum(bias.grad, dbias, "dbias")
+    for i, (a, b) in enumerate(zip(p, dps)):
+        _close_sum(a.grad, b, f"dparams[{i}]")
+
+
+@pytest.mark.parametrize("N,nW,heads,D,masked", [
+    (36, 4, 3, 4, True), (9, 1, 12, 4, False), (16, 4, 2, 8, True)])
+def test_window_attention_backward_kernel(dev, N, nW, heads, D, masked):
+    gen = torch.Generator().manual_seed(N + nW + heads + 3)
+    shape = (2, nW, heads, N, D)
+    q, k, v = (_rand(gen, *shape).to(dev).requires_grad_() for _ in "qkv")
+    g = _rand(gen, *shape).to(dev)
+    bias = _rand(gen, heads, N, N).to(dev).requires_grad_()
+    mask = (torch.where(torch.rand(nW, N, N, generator=gen) > 0.8, -100.0,
+                        0.0).to(dev) if masked else None)
+    att.fused_window_attention(q, k, v, bias, mask).backward(g)
+    want = att.attention_reference_backward(g, q, k, v, bias, mask)
+    for name, a, b in zip("q k v".split(), (q, k, v), want[:3]):
+        _close(a.grad, b)
+    _close_sum(bias.grad, want[3], "dbias")
+
+
+@pytest.mark.parametrize("adamw,clip", [(True, False), (False, True)])
+def test_fused_adam_kernel(dev, adamw, clip):
+    gen = torch.Generator().manual_seed(11)
+    n = 100_003
+    p, g, mu = (_rand(gen, n).to(dev) for _ in range(3))
+    nu = _rand(gen, n).abs().to(dev)
+    c = torch.tensor([0.37], device=dev) if clip else None
+    want = [t.clone() for t in (p, mu, nu)]
+    args = (0.01, 1.9, 1.7, 0.9, 0.999, 1e-8, 0.05, adamw)
+    fu.fused_adam_update(p, g, mu, nu, c, *args)
+    fu.fused_adam_reference(*want[:1], g, *want[1:], c, *args)
+    for a, b in zip((p, mu, nu), want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
 def test_wrappers_check_dtype_and_layout(dev):
     q = torch.zeros(1, 1, 1, 9, 4, device=dev)
     bias = torch.zeros(1, 9, 9, device=dev)
@@ -113,23 +223,131 @@ def test_wrappers_check_dtype_and_layout(dev):
         att.fused_window_attention(q, q, q, torch.zeros(2, 9, 9, device=dev))
 
 
+def _tiny_cfg():
+    """A small FuncStructCross (2 BERT layers, 4 fusion blocks a direction)
+    at the Config's dropout rates."""
+    from multimodal_neuroimage_tpu_torch.config import Config
+    return Config(task="FuncStruct", dataset_name="multimodal",
+                  transformer_hidden_layers=2, bert_intermediate_size=128,
+                  num_heads_2DBert=4, intermediate_vec=48,
+                  fusion_ex_depths=(2,), fusion_depths=(1,),
+                  fusion_re_depths=(1,), fusion_ex_heads=(2,),
+                  fusion_heads=(2,), fusion_re_heads=(2,),
+                  size_of_model="small", batch_size=2,
+                  compute_dtype="float32", preprocess="host").validate()
+
+
+def _tiny_model(cfg, device):
+    from multimodal_neuroimage_tpu_torch.models.registry import (
+        create_model, init_random_weights)
+    return init_random_weights(create_model(cfg),
+                               torch.Generator().manual_seed(0)).to(device)
+
+
+def _tiny_batch(cfg):
+    """A labelled host batch of two subjects, band-split on the host."""
+    from multimodal_neuroimage_tpu_torch.data.loader import (collate,
+                                                             multimodal_item)
+    rng = np.random.default_rng(1)
+    items = []
+    for i in range(cfg.batch_size):
+        item = multimodal_item({"subject": f"s{i}",
+                                "fmri": rng.normal(size=(48, 360)),
+                                "struct": rng.normal(size=(48, 48))}, cfg)
+        item["target"] = np.float32(i % 2)
+        items.append(item)
+    return collate(items)[0]
+
+
+# card vs CPU gradients of the tiny model, per tensor relative to its
+# max-abs: float32 summation-order drift carried back through its depth
+GRAD_REL = 1e-3
+
+
+def test_every_parameter_gets_a_kernel_gradient_on_the_card(dev):
+    """The autograd repair on the card: a training forward (dropout on)
+    runs the forward kernels, backward runs the backward kernels, every
+    parameter receives a gradient, and each gradient matches plain autograd
+    on the CPU from the same weights, batch and generator state."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.train.losses import (active_losses,
+                                                              compute_losses)
+    from multimodal_neuroimage_tpu_torch.train.state import batch_to_device
+    cfg = _tiny_cfg()
+    specs = active_losses(cfg.task, cfg.fine_tune_task)
+    batch = _tiny_batch(cfg)
+    models, losses = {}, {}
+    for device in (dev, torch.device("cpu")):
+        model = _tiny_model(cfg, device).train()
+        inputs = batch_to_device(batch, device)
+        ops.reset_launches()
+        out = model(inputs, generator=torch.Generator().manual_seed(2))
+        losses[device.type] = compute_losses(out, inputs, specs)["total"]
+        losses[device.type].backward()
+        torch.cuda.synchronize()
+        models[device.type] = model
+        if device.type == "cuda":
+            counts = ops.launches()
+    assert all(n > 0 for k, n in counts.items() if "adam" not in k), counts
+    np.testing.assert_allclose(losses["cuda"].item(), losses["cpu"].item(),
+                               rtol=1e-4, atol=1e-5)
+    want = dict(models["cpu"].named_parameters())
+    for name, p in models["cuda"].named_parameters():
+        assert p.grad is not None, name
+        err = (p.grad.cpu() - want[name].grad).abs().max().item()
+        bound = GRAD_REL * want[name].grad.abs().max().item() + 1e-7
+        assert torch.isfinite(p.grad).all() and err <= bound, (name, err,
+                                                               bound)
+
+
+def test_tiny_training_step_on_the_card_matches_the_cpu(dev):
+    """One K5 training step (AdamW, dropout on) on the card against the
+    same step on the CPU through the plain versions. Adam's first step
+    moves each parameter by about lr * sign(grad), so the updated
+    parameters agree to 1e-5 wherever the gradient's sign is the same on
+    both sides (|g_cpu| > 10 |g_card - g_cpu| + 1e-7), and by at most 2 lr
+    where a gradient is so small that the two summation orders disagree on
+    its sign."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
+    from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
+                                                             make_train_step)
+    cfg = _tiny_cfg()
+    specs = active_losses(cfg.task, cfg.fine_tune_task)
+    batch = _tiny_batch(cfg)
+    lr = 1e-3
+    models, losses = {}, {}
+    for device in (dev.type, "cpu"):
+        model = _tiny_model(cfg, device)
+        opt = create_optimizer("AdamW", model.parameters(), lambda t: lr,
+                               cfg.weight_decay)
+        step = make_train_step(model, specs, opt, "float32", device)
+        ops.reset_launches()
+        losses[device] = step(batch, torch.Generator().manual_seed(3))[0]
+        if device == "cuda":
+            assert ops.launches()["K5 fused_adam"] == 1
+        models[device] = model
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(losses["cuda"]["total"].item(),
+                               losses["cpu"]["total"].item(), rtol=1e-4,
+                               atol=1e-5)
+    want = dict(models["cpu"].named_parameters())
+    for name, p in models["cuda"].named_parameters():
+        q = want[name]
+        diff = (p.detach().cpu() - q.detach()).abs()
+        stable = q.grad.abs() > 10 * (p.grad.cpu() - q.grad).abs() + 1e-7
+        assert torch.isfinite(p).all(), name
+        if stable.any():
+            assert diff[stable].max() <= 1e-5, name
+        assert diff.max() <= 2 * lr + 1e-5, name
+
+
 def test_predictor_on_the_card_matches_the_cpu(dev, tmp_path):
     from multimodal_neuroimage_tpu_torch import ops
     from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import save_checkpoint
-    from multimodal_neuroimage_tpu_torch.config import Config
-    from multimodal_neuroimage_tpu_torch.models.registry import (
-        create_model, init_random_weights)
     from multimodal_neuroimage_tpu_torch.serve.predictor import Predictor
-    cfg = Config(task="FuncStruct", dataset_name="multimodal",
-                 transformer_hidden_layers=2, bert_intermediate_size=128,
-                 num_heads_2DBert=4, intermediate_vec=48,
-                 fusion_ex_depths=(2,), fusion_depths=(1,),
-                 fusion_re_depths=(1,), fusion_ex_heads=(2,),
-                 fusion_heads=(2,), fusion_re_heads=(2,),
-                 size_of_model="small", batch_size=2,
-                 compute_dtype="float32", preprocess="host").validate()
-    model = init_random_weights(create_model(cfg),
-                                torch.Generator().manual_seed(0))
+    cfg = _tiny_cfg()
+    model = _tiny_model(cfg, "cpu")
     ckpt = save_checkpoint(str(tmp_path / "m.ckpt"), model.state_dict(),
                            {"val_threshold": 0.5})
     rng = np.random.default_rng(0)
@@ -137,7 +355,10 @@ def test_predictor_on_the_card_matches_the_cpu(dev, tmp_path):
              "struct": rng.normal(size=(48, 48))} for i in range(3)]
     ops.reset_launches()
     got = Predictor(cfg, ckpt, reqs, device="cuda").predict()
-    assert all(n > 0 for n in ops.launches().values()), ops.launches()
+    forward = {k: n for k, n in ops.launches().items()
+               if "backward" not in k and "adam" not in k}
+    assert len(forward) == 4 and all(n > 0 for n in forward.values()), \
+        ops.launches()
     want = Predictor(cfg, ckpt, reqs, device="cpu").predict()
     for s in want:
         np.testing.assert_allclose(got[s]["score"], want[s]["score"],

@@ -140,13 +140,31 @@ batch["struct"] = torch.from_numpy(rng.normal(size=(2, 48, 48)).astype(np.float3
 with torch.no_grad():
     out = model.eval()(batch)["binary_classification"]
 assert out.shape == (2, 1) and torch.isfinite(out).all()
+
+# one CPU training step (dropout on) through K5's plain version, and the
+# training stack's modules
+from multimodal_neuroimage_tpu_torch.evaluation import metrics
+from multimodal_neuroimage_tpu_torch.train import trainer
+from multimodal_neuroimage_tpu_torch.train.losses import active_losses
+from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
+                                                         make_train_step)
+opt = create_optimizer("AdamW", model.parameters(), lambda t: 1e-3, 1e-5)
+step = make_train_step(model, active_losses("FuncStruct",
+                                            "binary_classification"),
+                       opt, "float32", "cpu")
+host = {k: v.numpy() for k, v in batch.items()}
+host["target"] = np.asarray([0.0, 1.0], np.float32)
+losses, _ = step(host, torch.Generator().manual_seed(0))
+assert torch.isfinite(losses["total"]) and opt.count == 1
+assert metrics.auroc([0, 1, 1], [0.2, 0.9, 0.4]) == 1.0
 print(sorted(m for m in ("jax", "flax", "pandas", "sklearn") if m in sys.modules))
 """
 
 
 def test_port_imports_no_jax_flax_pandas_sklearn():
-    """Run in a fresh interpreter: this test process imported jax already
-    (tests/conftest.py)."""
+    """Serve and take one training step in a fresh interpreter (this test
+    process imported jax already, tests/conftest.py): none of jax, flax,
+    pandas or sklearn gets loaded."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
