@@ -5,25 +5,31 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 1. Prints the card's name and power limit (nvidia-smi) and builds the port's
    CUDA kernels from ``multimodal_neuroimage_tpu_torch/csrc`` with nvcc.
 2. Holds every kernel against its plain PyTorch version on the card at the
-   flagship's shapes (float32, TF32 off, B = 4) and times both with CUDA
-   events: K1-K4 forward; K1-K4 backward with dropout on (dx/dy and every
-   parameter gradient against autograd through the plain forward); K5 over
-   the flagship's parameter count.
-3. Trains the full-width flagship ``FuncStructCross`` (random weights from a
-   seeded generator) with ``Trainer`` on a synthetic in-memory cohort with a
-   label-linked signal: 16 train and 8 val subjects, batch 4, 2 epochs, at
-   the config's dropout rates. Every loss must be finite, every one of the
-   nine kernels must have launched in that run, and a best-AUROC checkpoint
-   must be written.
-4. Serves the 8 val subjects from that checkpoint with ``Predictor``: the
-   four forward kernels must launch, and the per-window logits must match
-   the same checkpoint run on the CPU through the plain versions.
-5. Takes one training step on the card and the same step on the CPU
-   through the plain versions, from the same weights, batch and generator
-   state, and compares the loss, every gradient and the updated parameters.
-6. Times the training step (CUDA-synchronised median of 12 steps after 3 of
-   warm-up), subjects/s and peak device memory.
-7. Prints one JSON line of per-kernel results and, last, the ok line.
+   shapes its path gives it (float32, TF32 off) and times both with CUDA
+   events, beside the least time the card could take (``bound_ms``) and,
+   where one PyTorch call computes the same function, that call's time:
+   K1-K4 forward and backward (dropout on) and K5 at the flagship's shapes
+   (B = 4); K6 forward and backward at HCP's (8, 2, 1201, 11), dropout 0
+   and 0.1 (dq/dk/dv against autograd through the plain forward).
+3. The flagship ``FuncStructCross`` (random weights from a seeded
+   generator): trains with ``Trainer`` on a synthetic in-memory cohort with
+   a label-linked signal (16 train and 8 val subjects, batch 4, 2 epochs,
+   the config's dropout rates); every loss must be finite, each of its nine
+   kernels must have launched in that run, and a best-AUROC checkpoint must
+   be written. Serves the 8 val subjects from it with ``Predictor`` (the
+   four forward kernels launch; logits match the CPU through the plain
+   versions). Takes one training step on the card and the same step on the
+   CPU from the same weights, batch and generator state, and compares the
+   loss, every gradient and the updated parameters. Times the training
+   step (CUDA-synchronised median of 12 steps after 3 of warm-up),
+   subjects/s and peak device memory.
+4. The HCP phase-1 ``TransformerNet`` (22 ROIs x 1200 TRs + CLS, 16 layers,
+   2 heads, FFN 3072; every layer on the K6 route): the same four phases
+   on a synthetic HCP cohort (series of 900-1200 TRs, 16 train and 8 val
+   subjects, batch 8, 2 epochs). K6 forward must launch 16 times per
+   forward pass and K6 backward 16 times per backward pass, K5 once per
+   step, and no other kernel. Also times the predict step.
+5. Prints one JSON line of per-kernel results and, last, the ok line.
 
 Any failed phase raises, so the exit code is non-zero and no ok line is
 printed. Without a CUDA card it exits with code 2 before doing anything.
@@ -61,6 +67,14 @@ LOGIT_ATOL, LOGIT_RTOL = 1e-3, 1e-3
 GRAD_REL = 1e-2
 SOURCES = "multimodal_neuroimage_tpu_torch/csrc/"
 TPU = "multimodal_neuroimage_tpu/ops/"
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
+PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
+HCP_BATCH = 8
+FLAGSHIP_KERNELS = ("K1 bert_layer", "K2 fusion_block",
+                    "K3 cross_fusion_block", "K4 window_attention",
+                    "K1 bert_layer backward", "K2 fusion_block backward",
+                    "K3 cross_fusion_block backward",
+                    "K4 window_attention backward", "K5 fused_adam")
 
 
 def _close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -132,30 +146,105 @@ def _plain_backward(fwd, inputs, g):
     return ins, lambda: torch.autograd.grad(out, ins, g, retain_graph=True)
 
 
+def _nbytes(*tensors) -> int:
+    """Bytes of float32 tensors (None skipped)."""
+    return sum(4 * t.numel() for t in tensors if t is not None)
+
+
+def _bound(ops: float, nbytes: float):
+    """Least time (ms) the card could take: the larger of the operations
+    over the f32 peak and the bytes (each input read once, each output
+    written once) over the memory rate; and which of the two it is."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# Operations counted: 2 per multiply-add of the products and 1 per
+# exponential; a backward as twice its forward's products (the least that
+# its gradients need, with no recomputation).
+def _bert_ops(B, T, H, heads, F_):
+    return (2 * B * T * (4 * H * H + 2 * H * F_) + 4 * B * T * T * H,
+            B * heads * T * T)
+
+
+def _fusion_ops(B, nW, N, C, heads):
+    return (2 * B * nW * N * 12 * C * C + 4 * B * nW * N * N * C,
+            B * nW * heads * N * N)
+
+
+def _attention_ops(q):
+    *lead, N, D = q.shape
+    bh = int(np.prod(lead))
+    return 4 * bh * N * N * D, bh * N * N
+
+
 class Results:
-    """Per-kernel max error and times, summed over the kernel's cases."""
+    """Per-kernel max error, times and bounds, summed over its cases."""
 
     def __init__(self):
         self.rows = {}
 
-    def add(self, key, source, replaces, err, ms, plain_ms):
+    def add(self, key, source, replaces, err, ms, plain_ms, ops, nbytes,
+            library_ms=None):
         r = self.rows.setdefault(key, {"name": key, "route": "cuda",
                                        "source": source,
                                        "replaces": replaces,
                                        "max_abs_err": 0.0, "ms": 0.0,
-                                       "plain_ms": 0.0, "cases": 0})
+                                       "plain_ms": 0.0, "bound_ms": 0.0,
+                                       "bound_by": None, "worst_bound": -1.0,
+                                       "library_ms": 0.0, "library_cases": 0,
+                                       "cases": 0})
+        bound, by = _bound(ops, nbytes)
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
+        r["bound_ms"] += bound
+        if bound > r["worst_bound"]:
+            r["worst_bound"], r["bound_by"] = bound, by
+        if library_ms is not None:
+            r["library_ms"] += library_ms
+            r["library_cases"] += 1
         r["cases"] += 1
+        return bound, by
+
+    def line(self, key, launches):
+        """The kernel's entry of the JSON line (times averaged over its
+        cases)."""
+        r = self.rows[key]
+        n = r["cases"]
+        return {"name": key, "route": r["route"], "source": r["source"],
+                "replaces": r["replaces"],
+                "launches": sum(c.get(key, 0) for c in launches.values()),
+                "launches_by_path": {p: c.get(key, 0)
+                                     for p, c in launches.items()},
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"] / n,
+                "plain_ms": r["plain_ms"] / n, "bound_ms": r["bound_ms"] / n,
+                "bound_by": r["bound_by"],
+                "library_ms": (r["library_ms"] / r["library_cases"]
+                               if r["library_cases"] else None)}
+
+
+def _report(res, key, label, err, ms, plain_ms, ops, nbytes, src, rep,
+            library_ms=None, tol=f"atol {ATOL} + rtol {RTOL}"):
+    bound, by = res.add(key, SOURCES + src, TPU + rep, err, ms, plain_ms,
+                        ops, nbytes, library_ms)
+    lib = ("" if library_ms is None
+           else f"  library {library_ms:.4f} ms")
+    print(f"{key} {label}: max|err| {err:.3e} ({tol})  kernel {ms:.4f} ms  "
+          f"plain {plain_ms:.4f} ms  bound {bound:.6f} ms ({by}){lib}")
 
 
 def forward_kernels(gen, res: Results):
-    """K1-K4 forward against their plain versions (inference)."""
+    """K1-K4 forward against their plain versions (inference), beside the
+    one PyTorch call that computes the same function where there is one:
+    K1 ``nn.TransformerEncoderLayer`` (post-LN, erf-GELU, eps 1e-12) in
+    eval on the same weights, K4 ``scaled_dot_product_attention`` with
+    bias + mask as ``attn_mask``."""
     from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
     from multimodal_neuroimage_tpu_torch.ops import attention as att
     from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
     from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = "cuda"
     cases = []
     H, F_, T = 84, 3072, 369
@@ -164,12 +253,16 @@ def forward_kernels(gen, res: Results):
                                   + _ln(gen, H) + _lin(gen, F_, H)
                                   + _lin(gen, H, F_) + _ln(gen, H)))
     x = torch.randn(BATCH, T, H, generator=gen).to(dev)
+    encoder = _encoder_layer(p, H, 12, F_)
     cases.append(("K1 bert_layer", "",
                   lambda: bl.bert_layer_call(x, p, 12, T),
                   lambda: bl.bert_layer_reference(x, p, 12, T),
-                  "bert_layer.cu", "bert_layer.py:914"))
+                  "bert_layer.cu", "bert_layer.py:914",
+                  sum(_bert_ops(BATCH, T, H, 12, F_)), _nbytes(x, x, *p),
+                  lambda: encoder(x)))
     C, Hh, N, nW = 12, 6, 36, 196
     self_p, cross_p, bias, xw, yw = _fusion_inputs(gen)
+    fops = sum(_fusion_ops(BATCH, nW, N, C, Hh))
     for shift in (0, 3):
         m = shift_attn_mask(84, 84, 6, shift)
         mask = None if m is None else torch.from_numpy(m).to(dev)
@@ -178,26 +271,65 @@ def forward_kernels(gen, res: Results):
                           xw, self_p, bias, mask),
                       lambda mask=mask: fb.fusion_block_reference(
                           xw, self_p, bias, mask),
-                      "fusion_block.cu", "fusion_block.py:855"))
+                      "fusion_block.cu", "fusion_block.py:855", fops,
+                      _nbytes(xw, xw, bias, mask, *self_p), None))
         cases.append(("K3 cross_fusion_block", f"shift {shift}",
                       lambda mask=mask: fb.fused_cross_fusion_block(
                           xw, yw, cross_p, bias, mask),
                       lambda mask=mask: fb.cross_fusion_block_reference(
                           xw, yw, cross_p, bias, mask),
-                      "fusion_block.cu", "fusion_block.py:855"))
+                      "fusion_block.cu", "fusion_block.py:855", fops,
+                      _nbytes(xw, yw, xw, bias, mask, *cross_p), None))
     for args in _k4_inputs(gen):
+        q4, k4, v4, b4, m4 = args[:5]
+        B_, nw4, heads4, N4, D4 = q4.shape
+        full = b4[None] + (0.0 if m4 is None else m4[:, None])
+        full = full.expand(B_, *full.shape).reshape(B_ * nw4, heads4, N4,
+                                                    N4).contiguous()
+        flat = [t.reshape(B_ * nw4, heads4, N4, D4) for t in (q4, k4, v4)]
         cases.append(("K4 window_attention", args[-1],
                       lambda a=args: att.fused_window_attention(*a[:5]),
                       lambda a=args: att.attention_reference(*a[:5]),
-                      "window_attention.cu", "attention.py:305"))
-    for key, label, kernel, plain, src, rep in cases:
+                      "window_attention.cu", "attention.py:305",
+                      sum(_attention_ops(q4)),
+                      _nbytes(q4, k4, v4, q4, b4, m4),
+                      lambda f=flat, m=full: sdpa(*f, attn_mask=m,
+                                                  scale=1.0)))
+    for key, label, kernel, plain, src, rep, ops, nbytes, library in cases:
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err = _close(f"{key} {label}", got, want, ATOL, RTOL)
         ms, plain_ms = _alternate(kernel, plain)
-        print(f"{key} {label}: max|err| {err:.3e} (atol {ATOL} + rtol "
-              f"{RTOL})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-        res.add(key, SOURCES + src, TPU + rep, err, ms, plain_ms)
+        _report(res, key, label, err, ms, plain_ms, ops, nbytes, src, rep,
+                None if library is None else _time_ms(library))
+
+
+def _encoder_layer(p, H, heads, F_):
+    """torch's own post-LN encoder layer carrying K1's weights (eval, no
+    grad): the library call K1 forward is timed against."""
+    layer = torch.nn.TransformerEncoderLayer(
+        H, heads, F_, dropout=0.0, activation="gelu", layer_norm_eps=1e-12,
+        batch_first=True, norm_first=False).cuda().eval()
+    wq, bq, wk, bk, wv, bv, wo, bo, g1, b1, w1, b1m, w2, b2m, g2, b2 = p
+    with torch.no_grad():
+        for dst, src in ((layer.self_attn.in_proj_weight,
+                          torch.cat([wq, wk, wv])),
+                         (layer.self_attn.in_proj_bias,
+                          torch.cat([bq, bk, bv])),
+                         (layer.self_attn.out_proj.weight, wo),
+                         (layer.self_attn.out_proj.bias, bo),
+                         (layer.norm1.weight, g1), (layer.norm1.bias, b1),
+                         (layer.linear1.weight, w1),
+                         (layer.linear1.bias, b1m),
+                         (layer.linear2.weight, w2),
+                         (layer.linear2.bias, b2m),
+                         (layer.norm2.weight, g2), (layer.norm2.bias, b2)):
+            dst.copy_(src)
+
+    @torch.no_grad()
+    def run(x):
+        return layer(x)
+    return run
 
 
 def _fusion_inputs(gen):
@@ -247,13 +379,13 @@ def backward_kernels(gen, res: Results, n_params: int):
     dev = "cuda"
     rates, seed = (0.1, 0.1), 12345
 
-    def report(key, label, errs, kernel, plain, src, rep):
+    def report(key, label, errs, kernel, plain, src, rep, ops, nbytes,
+               library=None):
         ms, plain_ms = _alternate(kernel, plain, iters=10)
-        err = max(errs)
-        print(f"{key} {label}: max|err| {err:.3e} (dx/dy: atol {ATOL} + "
-              f"rtol {RTOL}; sums: {SUM_REL} * max|ref| + {SUM_ATOL})  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-        res.add(key, SOURCES + src, TPU + rep, err, ms, plain_ms)
+        _report(res, key, label, max(errs), ms, plain_ms, ops, nbytes, src,
+                rep, None if library is None else _time_ms(library),
+                tol=f"dx/dy: atol {ATOL} + rtol {RTOL}; sums: {SUM_REL} * "
+                    f"max|ref| + {SUM_ATOL}")
 
     # K1: B 4 x T 369 x H 84, 12 heads, F 3072
     H, F_, T = 84, 3072, 369
@@ -279,10 +411,12 @@ def backward_kernels(gen, res: Results, n_params: int):
     errs += [_close_rel(f"K1 backward dparams[{i}]", a, b, SUM_REL)
              for i, (a, b) in enumerate(zip(dps, want[1:]))]
     report("K1 bert_layer backward", "", errs, k1, plain, "bert_layer.cu",
-           "bert_layer.py:1008")
+           "bert_layer.py:1008", 2 * _bert_ops(BATCH, T, H, 12, F_)[0],
+           _nbytes(x, g, x, *p, *p))
 
     # K2 / K3: B 4 x 196 windows x 36 x 12, 6 heads, dropout and DropPath
     self_p, cross_p, bias, xw, yw = _fusion_inputs(gen)
+    fops = 2 * _fusion_ops(BATCH, 196, 36, 12, 6)[0]
     gw = torch.randn(xw.shape, generator=gen).to(dev)
     dp = (torch.rand(BATCH, 2, generator=gen) > 0.1).float().to(dev) / 0.9
     for shift in (0, 3):
@@ -328,8 +462,11 @@ def backward_kernels(gen, res: Results, n_params: int):
                 grads = got[2]
             errs += [_close_rel(f"{key} dparams[{i}]", a, b, SUM_REL)
                      for i, (a, b) in enumerate(zip(grads, want[3:]))]
+            streams = (xw, yw) if cross else (xw,)
             report(key, f"shift {shift}", errs, kern, plain,
-                   "fusion_block.cu", "fusion_block.py:905")
+                   "fusion_block.cu", "fusion_block.py:905", fops,
+                   _nbytes(*streams, *streams, gw, dp, mask, bias, bias,
+                           *params, *params))
 
     # K4: the SwinV2 head's three stages
     for q, k, v, b4, mask, label in _k4_inputs(gen):
@@ -349,7 +486,9 @@ def backward_kernels(gen, res: Results, n_params: int):
                 for n, a, b in zip("qkv", got[:3], want[:3])]
         errs.append(_close_rel("K4 backward dbias", got[3], want[3], SUM_REL))
         report("K4 window_attention backward", label, errs, kern, plain,
-               "window_attention.cu", "attention.py:332")
+               "window_attention.cu", "attention.py:332",
+               2 * _attention_ops(q)[0],
+               _nbytes(q, k, v, g4, mask, b4, q, k, v, b4))
 
     # K5 over the flagship's parameter count, AdamW with clipping
     pk, gk, mk = (torch.randn(n_params, generator=gen).to(dev)
@@ -363,11 +502,69 @@ def backward_kernels(gen, res: Results, n_params: int):
     torch.cuda.synchronize()
     errs = [_close(f"K5 {n}", a, b, ATOL, RTOL)
             for n, a, b in zip(("p", "mu", "nu"), (pk, mk, nk), state)]
+    # the library call: torch's fused AdamW over one flat parameter (no
+    # clipping: torch.optim has none inside the step)
+    flat = torch.nn.Parameter(pk.clone())
+    flat.grad = gk.clone()
+    adamw = torch.optim.AdamW([flat], lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-5, fused=True)
+    # ~16 operations an element; p, g, mu, nu read, p, mu, nu written
     report("K5 fused_adam", f"{n_params} params", errs,
            lambda: fu.fused_adam_update(pk, gk, mk, nk, *args),
            lambda: fu.fused_adam_reference(state[0], gk, state[1], state[2],
                                            *args),
-           "fused_update.cu", "fused_update.py:106")
+           "fused_update.cu", "fused_update.py:106", 16 * n_params,
+           7 * 4 * n_params, adamw.step)
+
+
+def mha_kernels(gen, res: Results):
+    """K6 forward and backward at HCP shapes (B 8, 2 heads, T 1201 = 1200
+    TRs + CLS, head dim 11), dropout 0 and 0.1, against the plain version
+    on the same hash masks (dq/dk/dv against autograd through the plain
+    forward). The yardstick is ``scaled_dot_product_attention`` at rate 0,
+    which the port never calls."""
+    from multimodal_neuroimage_tpu_torch.ops import attention as att
+    shape = (HCP_BATCH, 2, 1201, 11)
+    q, k, v, g = (torch.randn(shape, generator=gen).cuda() for _ in range(4))
+    q = q * 11 ** -0.5                  # pre-scaled, as the BERT layer does
+    ops = sum(_attention_ops(q))
+    bwd_ops = 2 * _attention_ops(q)[0]
+    for rate in (0.0, 0.1):
+        seed = 4242
+        out, lse = att._launch_mha_forward(q, k, v, seed, rate)
+
+        def fwd(rate=rate, seed=seed):
+            return att._launch_mha_forward(q, k, v, seed, rate)[0]
+
+        def plain_fwd(rate=rate, seed=seed):
+            return att.mha_reference(q, k, v, seed, rate)
+
+        def bwd(rate=rate, seed=seed, out=out, lse=lse):
+            return att.fused_attention_backward(g, q, k, v, out, lse, seed,
+                                                rate)
+
+        want = plain_fwd()
+        torch.cuda.synchronize()
+        err = _close(f"K6 forward rate {rate}", out, want, ATOL, RTOL)
+        ms, plain_ms = _alternate(fwd, plain_fwd)
+        library = (_time_ms(lambda: torch.nn.functional
+                            .scaled_dot_product_attention(q, k, v, scale=1.0))
+                   if rate == 0.0 else None)
+        _report(res, "K6 fused_attention", f"rate {rate}", err, ms, plain_ms,
+                ops, _nbytes(q, k, v, q), "mha_attention.cu",
+                "attention.py:137", library)
+        got = bwd()
+        ins, plain = _plain_backward(
+            lambda q_, k_, v_, rate=rate, seed=seed: att.mha_reference(
+                q_, k_, v_, seed, rate), (q, k, v), g)
+        want = plain()
+        torch.cuda.synchronize()
+        errs = [_close(f"K6 backward d{n} rate {rate}", a, b, ATOL, RTOL)
+                for n, a, b in zip("qkv", got, want)]
+        ms, plain_ms = _alternate(bwd, plain, iters=10)
+        _report(res, "K6 fused_attention backward", f"rate {rate}",
+                max(errs), ms, plain_ms, bwd_ops, _nbytes(q, k, v, g, q, k, v),
+                "mha_attention.cu", "attention.py:159")
 
 
 def _cohort(rng, n, first):
@@ -398,6 +595,32 @@ def _flagship_cfg(**kw):
                   experiment_title="flagship", seed=SEED, **kw).validate()
 
 
+def _hcp_cohort(rng, n, first):
+    """In-memory HCP records {subject, fmri (22, T), target}, T drawn from
+    900-1200 TRs, with the same label-linked slow oscillation."""
+    records = []
+    for i in range(n):
+        y = float(i % 2)
+        T = int(rng.integers(900, 1201))
+        t = np.arange(T)[None, :]
+        drift = np.sin(2 * np.pi * t / rng.uniform(150, 400, (22, 1)))
+        fmri = (rng.normal(size=(22, T)) + 2.0 * drift + 100.0
+                + 1.5 * y * np.sin(2 * np.pi * t / 40.0))
+        records.append({"subject": f"hcp-{first + i:03d}", "fmri": fmri,
+                        "target": y})
+    return records
+
+
+def _hcp_cfg(**kw):
+    """Phase 1 on HCP at full width: validate() sets 22 ROIs, 1200 TRs and 2
+    heads; batch 8, AdamW, lr 1e-3 and the step policy are the defaults.
+    ``preprocess`` stays at its default: HCP items take no FIR gear."""
+    from multimodal_neuroimage_tpu_torch.config import Config
+    return Config(step=1, task="2DBERT", dataset_name="hcp", target="sex",
+                  compute_dtype="float32", nEpochs=2,
+                  experiment_title="hcp", seed=SEED, **kw).validate()
+
+
 def _sign_stable_update_check(name, p_gpu, p_cpu, g_gpu, g_cpu, lr):
     """Updated parameters after one Adam step: where the gradient's sign is
     the same on both sides (|g_cpu| > 10 |g_gpu - g_cpu| + 1e-7) the update
@@ -417,21 +640,166 @@ def _sign_stable_update_check(name, p_gpu, p_cpu, g_gpu, g_cpu, lr):
     return diff.max().item(), int((~stable).sum())
 
 
+def _train(cfg, train_records, val_records, folder, label):
+    """One Trainer run on the card with every launch count set to 0 just
+    before it; returns (trainer, metrics, counts, wall seconds)."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(cfg, train_records, val_records, device="cuda",
+                      experiment_folder=folder)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    metrics = trainer.training()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    print(f"launches in the {label} training run: {counts}")
+    if not np.isfinite(trainer.step_losses).all():
+        raise AssertionError(f"non-finite {label} training loss: "
+                             f"{trainer.step_losses}")
+    if trainer.best_checkpoint() is None:
+        raise AssertionError(f"no {label} best-AUROC checkpoint was written")
+    return trainer, metrics, counts, wall
+
+
+def _print_run(label, cfg, trainer, metrics, wall):
+    from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import load_checkpoint
+    ckpt = trainer.best_checkpoint()
+    meta = load_checkpoint(ckpt)["metadata"]
+    print(f"{label}: trained {cfg.nEpochs} epochs x {trainer.steps_per_epoch} "
+          f"steps in {wall:.1f} s; step losses "
+          f"{[round(v, 4) for v in trainer.step_losses]}; "
+          f"train_AUROC {metrics.get('train_AUROC')}, val_AUROC "
+          f"{metrics.get('val_AUROC')}; best checkpoint "
+          f"{os.path.basename(ckpt)} (val_AUROC {meta['best_auroc']}, "
+          f"val_threshold {meta['val_threshold']})")
+
+
+def _serve(cfg, ckpt, requests, folder, label, card):
+    """Serve ``requests`` from ``ckpt`` on the card (counts set to 0 just
+    before the timed pass); logits must match the CPU through the plain
+    versions. Returns the serving run's launch counts."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import load_checkpoint
+    from multimodal_neuroimage_tpu_torch.models.registry import create_model
+    from multimodal_neuroimage_tpu_torch.serve.predictor import (
+        Predictor, make_predict_step)
+    pred = Predictor(cfg, ckpt, requests, device="cuda")
+    pred.predict()                                   # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    csv_path = os.path.join(folder, "predictions.csv")
+    scores = pred.predict(write_csv=csv_path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    with open(csv_path) as f:
+        rows = f.read().strip().splitlines()
+    print(f"launches in the {label} serving run: {counts}")
+    n = len(requests)
+    if len(scores) != n or len(rows) != n + 1:
+        raise AssertionError(f"expected {n} subjects, got {len(scores)} "
+                             f"scores, {len(rows) - 1} rows")
+    for subject, row in scores.items():
+        if not (0.0 < row["score"] < 1.0) or row["label"] != float(
+                row["score"] > pred.threshold):
+            raise AssertionError(f"bad prediction for {subject}: {row}")
+    cpu_model = create_model(cfg)
+    cpu_model.load_state_dict(load_checkpoint(ckpt)["state_dict"])
+    cpu_step = make_predict_step(cpu_model, "float32", device="cpu")
+    logit_err = 0.0
+    for batch, _ in pred.batches():
+        got = pred.step(batch)["binary_classification"].cpu()
+        want = cpu_step(batch)["binary_classification"]
+        logit_err = max(logit_err, _close(f"{label} serving logits", got,
+                                          want, LOGIT_ATOL, LOGIT_RTOL))
+    first, _ = next(pred.batches())
+    fwd = _time_ms(lambda: pred.step(first), iters=5)
+    print(f"{label}: served {n} requests in {wall:.3f} s: {n / wall:.2f} "
+          f"requests/s end to end (host preprocessing included); predict "
+          f"step {fwd:.2f} ms per batch of {cfg.batch_size} "
+          f"({cfg.batch_size / fwd * 1e3:.2f} subjects/s); logits vs CPU "
+          f"max|err| {logit_err:.3e} (atol {LOGIT_ATOL} + rtol "
+          f"{LOGIT_RTOL}); card: {card}")
+    return counts
+
+
+def _step_card_vs_cpu(cfg, batch, label):
+    """One training step on the card and the same step on the CPU through
+    the plain versions, from the same weights, batch and generator state:
+    loss, every gradient and the updated parameters."""
+    from multimodal_neuroimage_tpu_torch.models.registry import (
+        create_model, init_random_weights)
+    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
+    from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
+                                                             make_train_step)
+    specs = active_losses(cfg.task, cfg.fine_tune_task)
+    lr = 1e-3
+    models, opts, steps = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        m = init_random_weights(create_model(cfg),
+                                torch.Generator().manual_seed(SEED + 1))
+        m.to(dev)
+        opts[dev] = create_optimizer("AdamW", m.parameters(), lambda t: lr,
+                                     cfg.weight_decay)
+        steps[dev] = make_train_step(m, specs, opts[dev], "float32", dev)
+        models[dev] = m
+    out = {dev: steps[dev](batch, torch.Generator().manual_seed(SEED + 2))
+           for dev in ("cuda", "cpu")}
+    torch.cuda.synchronize()
+    loss_gpu = out["cuda"][0]["total"].item()
+    loss_cpu = out["cpu"][0]["total"].item()
+    _close(f"{label} step loss", torch.tensor([loss_gpu]),
+           torch.tensor([loss_cpu]), LOGIT_ATOL, LOGIT_RTOL)
+    grad_err = upd_err = 0.0
+    unstable = n_params = 0
+    named = dict(models["cpu"].named_parameters())
+    for n, p in models["cuda"].named_parameters():
+        q = named[n]
+        grad_err = max(grad_err, _close_rel(f"grad {n}", p.grad.cpu(),
+                                            q.grad, GRAD_REL))
+        e, u = _sign_stable_update_check(f"param {n}", p.detach().cpu(),
+                                         q.detach(), p.grad.cpu(), q.grad, lr)
+        upd_err, unstable = max(upd_err, e), unstable + u
+        n_params += p.numel()
+    print(f"one {label} training step, card vs CPU: loss {loss_gpu:.6f} vs "
+          f"{loss_cpu:.6f}; every gradient within {GRAD_REL} * its max-abs "
+          f"(worst abs err {grad_err:.3e}); updated params max|diff| "
+          f"{upd_err:.3e}, {unstable} of {n_params} elements with a "
+          f"sign-unstable gradient")
+
+
+def _time_train_step(trainer, label, card):
+    """CUDA-synchronised median of 12 training steps after 3 of warm-up."""
+    bs = trainer.cfg.batch_size
+    batches = [b for b, _ in trainer.batches("train")]
+    for i in range(3):
+        trainer.train_step(batches[i % len(batches)], trainer.generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(12):
+        t0 = time.perf_counter()
+        trainer.train_step(batches[i % len(batches)], trainer.generator)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"{label} training step (fwd + bwd + K5, batch {bs}, host batch "
+          f"prepared): median {med:.3f} ms (q1 {q1:.3f}, q3 {q3:.3f}) over "
+          f"12 steps; {bs / med * 1e3:.2f} subjects/s; peak device memory "
+          f"{peak:.0f} MiB; card: {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from multimodal_neuroimage_tpu_torch import ops
-    from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import load_checkpoint
-    from multimodal_neuroimage_tpu_torch.models.registry import (
-        create_model, init_random_weights)
+    from multimodal_neuroimage_tpu_torch.models.registry import create_model
     from multimodal_neuroimage_tpu_torch.ops import build
-    from multimodal_neuroimage_tpu_torch.serve.predictor import (
-        Predictor, make_predict_step)
-    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
-    from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
-                                                             make_train_step)
-    from multimodal_neuroimage_tpu_torch.train.trainer import Trainer
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -454,141 +822,45 @@ def main() -> int:
     results = Results()
     forward_kernels(gen, results)
     backward_kernels(gen, results, n_params)
+    mha_kernels(gen, results)
 
     rng = np.random.default_rng(SEED)
     train_records = _cohort(rng, N_TRAIN, 0)
     val_records = _cohort(rng, N_VAL, N_TRAIN)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
-        # ---- (b) the training run -----------------------------------------
-        trainer = Trainer(cfg, train_records, val_records, device="cuda",
-                          experiment_folder=tmp)
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        metrics = trainer.training()
-        torch.cuda.synchronize()
-        train_wall = time.perf_counter() - t0
-        train_counts = ops.launches()
-        print(f"launches in the training run: {train_counts}")
-        missing = [k for k, n in train_counts.items() if n == 0]
+        # ---- (b) the flagship training run --------------------------------
+        trainer, metrics, train_counts, wall = _train(
+            cfg, train_records, val_records, tmp, "flagship")
+        missing = [k for k in FLAGSHIP_KERNELS if train_counts[k] == 0]
         if missing:
             raise AssertionError(f"kernels not launched by the training "
                                  f"run: {missing}")
-        if not np.isfinite(trainer.step_losses).all():
-            raise AssertionError(f"non-finite training loss: "
-                                 f"{trainer.step_losses}")
-        ckpt = trainer.best_checkpoint()
-        if ckpt is None:
-            raise AssertionError("no best-AUROC checkpoint was written")
-        meta = load_checkpoint(ckpt)["metadata"]
-        print(f"trained {cfg.nEpochs} epochs x {trainer.steps_per_epoch} "
-              f"steps in {train_wall:.1f} s; step losses "
-              f"{[round(v, 4) for v in trainer.step_losses]}; "
-              f"train_AUROC {metrics.get('train_AUROC')}, val_AUROC "
-              f"{metrics.get('val_AUROC')}; best checkpoint "
-              f"{os.path.basename(ckpt)} (val_AUROC {meta['best_auroc']}, "
-              f"val_threshold {meta['val_threshold']})")
+        if any(train_counts[k] for k in train_counts
+               if k not in FLAGSHIP_KERNELS):
+            raise AssertionError(f"a kernel off the flagship's path ran: "
+                                 f"{train_counts}")
+        _print_run("flagship", cfg, trainer, metrics, wall)
 
         # ---- serving from the trained checkpoint --------------------------
         requests = [{k: r[k] for k in ("subject", "fmri", "struct")}
                     for r in val_records]
-        pred = Predictor(cfg, ckpt, requests, device="cuda")
-        pred.predict()                                   # warm-up
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        scores = pred.predict(write_csv=os.path.join(tmp, "predictions.csv"))
-        torch.cuda.synchronize()
-        serve_wall = time.perf_counter() - t0
-        serve_counts = ops.launches()
-        with open(os.path.join(tmp, "predictions.csv")) as f:
-            rows = f.read().strip().splitlines()
-        print(f"launches in the serving run: {serve_counts}")
-        forward = [k for k in serve_counts
+        serve_counts = _serve(cfg, trainer.best_checkpoint(), requests,
+                              tmp, "flagship", card)
+        forward = [k for k in FLAGSHIP_KERNELS
                    if "backward" not in k and "adam" not in k]
-        if len(forward) != 4 or any(serve_counts[k] == 0 for k in forward):
-            raise AssertionError(f"forward kernels not launched by the "
-                                 f"serving run: {serve_counts}")
-        if len(scores) != N_VAL or len(rows) != N_VAL + 1:
-            raise AssertionError(f"expected {N_VAL} subjects, got "
-                                 f"{len(scores)} scores, {len(rows) - 1} rows")
-        for subject, row in scores.items():
-            if not (0.0 < row["score"] < 1.0) or row["label"] != float(
-                    row["score"] > pred.threshold):
-                raise AssertionError(f"bad prediction for {subject}: {row}")
-        cpu_model = create_model(cfg)
-        cpu_model.load_state_dict(load_checkpoint(ckpt)["state_dict"])
-        cpu_step = make_predict_step(cpu_model, "float32", device="cpu")
-        logit_err = 0.0
-        for batch, _ in pred.batches():
-            got = pred.step(batch)["binary_classification"].cpu()
-            want = cpu_step(batch)["binary_classification"]
-            logit_err = max(logit_err, _close("serving logits", got, want,
-                                              LOGIT_ATOL, LOGIT_RTOL))
-        first, _ = next(pred.batches())
-        fwd = _time_ms(lambda: pred.step(first), iters=5)
-        print(f"served {N_VAL} requests in {serve_wall:.3f} s: "
-              f"{N_VAL / serve_wall:.2f} requests/s end to end (host band "
-              f"split included); predict step {fwd:.2f} ms per batch of "
-              f"{BATCH}; logits vs CPU max|err| {logit_err:.3e} (atol "
-              f"{LOGIT_ATOL} + rtol {LOGIT_RTOL}); card: {card}")
+        if (any(serve_counts[k] == 0 for k in forward)
+                or any(n for k, n in serve_counts.items()
+                       if k not in forward)):
+            raise AssertionError(f"the serving run did not launch exactly "
+                                 f"the four forward kernels: {serve_counts}")
 
-    # ---- (c) one training step on the card against the CPU ----------------
-    specs = active_losses(cfg.task, cfg.fine_tune_task)
+    # ---- (c) one flagship training step on the card against the CPU -------
     batch, _ = next(trainer.batches("train"))
-    lr = 1e-3
-    models, opts, steps = {}, {}, {}
-    for dev in ("cuda", "cpu"):
-        m = init_random_weights(create_model(cfg),
-                                torch.Generator().manual_seed(SEED + 1))
-        m.to(dev)
-        opts[dev] = create_optimizer("AdamW", m.parameters(), lambda t: lr,
-                                     cfg.weight_decay)
-        steps[dev] = make_train_step(m, specs, opts[dev], "float32", dev)
-        models[dev] = m
-    out = {dev: steps[dev](batch, torch.Generator().manual_seed(SEED + 2))
-           for dev in ("cuda", "cpu")}
-    torch.cuda.synchronize()
-    loss_gpu = out["cuda"][0]["total"].item()
-    loss_cpu = out["cpu"][0]["total"].item()
-    _close("step loss", torch.tensor([loss_gpu]), torch.tensor([loss_cpu]),
-           LOGIT_ATOL, LOGIT_RTOL)
-    grad_err = upd_err = 0.0
-    unstable = 0
-    named = dict(models["cpu"].named_parameters())
-    for n, p in models["cuda"].named_parameters():
-        q = named[n]
-        grad_err = max(grad_err, _close_rel(f"grad {n}", p.grad.cpu(),
-                                            q.grad, GRAD_REL))
-        e, u = _sign_stable_update_check(f"param {n}", p.detach().cpu(),
-                                         q.detach(), p.grad.cpu(), q.grad, lr)
-        upd_err, unstable = max(upd_err, e), unstable + u
-    print(f"one training step, card vs CPU: loss {loss_gpu:.6f} vs "
-          f"{loss_cpu:.6f}; every gradient within {GRAD_REL} * its max-abs "
-          f"(worst abs err {grad_err:.3e}); updated params max|diff| "
-          f"{upd_err:.3e}, {unstable} of {n_params} elements with a "
-          f"sign-unstable gradient")
-    del models, opts, steps, out
+    _step_card_vs_cpu(cfg, batch, "flagship")
 
-    # ---- (d) training-step time ------------------------------------------
-    batches = [b for b, _ in trainer.batches("train")]
-    for i in range(3):
-        trainer.train_step(batches[i % len(batches)], trainer.generator)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(12):
-        t0 = time.perf_counter()
-        trainer.train_step(batches[i % len(batches)], trainer.generator)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    q1, med, q3 = np.percentile(times, [25, 50, 75])
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    print(f"training step (fwd + bwd + K5, batch {BATCH}, host batch "
-          f"prepared): median {med:.3f} ms (q1 {q1:.3f}, q3 {q3:.3f}) over "
-          f"12 steps; {BATCH / med * 1e3:.2f} subjects/s; peak device memory "
-          f"{peak:.0f} MiB; card: {card}")
+    # ---- (d) flagship training-step time ------------------------------------
+    _time_train_step(trainer, "flagship", card)
     calls = {"K1 bert_layer backward": 32, "K2 fusion_block backward": 48,
              "K3 cross_fusion_block backward": 12,
              "K4 window_attention backward": 10, "K5 fused_adam": 1}
@@ -597,16 +869,50 @@ def main() -> int:
     print("backward kernels per step (kernel ms x calls): " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in sorted(share.items(),
                                              key=lambda kv: -kv[1])))
+    del trainer
 
-    kernels = []
-    for key in ops.kernels():
-        r = results.rows[key]
-        kernels.append({"name": key, "route": r["route"],
-                        "source": r["source"], "replaces": r["replaces"],
-                        "launches": train_counts[key],
-                        "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"] / r["cases"],
-                        "plain_ms": r["plain_ms"] / r["cases"]})
+    # ---- the HCP phase-1 path: TransformerNet, every layer on K6 -----------
+    hcp = _hcp_cfg()
+    if (hcp.intermediate_vec, hcp.sequence_length, hcp.num_heads_2DBert,
+            hcp.batch_size, hcp.transformer_hidden_layers) != (
+                22, 1200, 2, HCP_BATCH, 16):
+        raise AssertionError(f"unexpected HCP config: {hcp}")
+    hcp_train = _hcp_cohort(rng, N_TRAIN, 0)
+    hcp_val = _hcp_cohort(rng, N_VAL, N_TRAIN)
+    layers = hcp.transformer_hidden_layers
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        # ---- (b) the HCP training run ---------------------------------------
+        htrainer, hmetrics, hcp_counts, wall = _train(
+            hcp, hcp_train, hcp_val, tmp, "HCP")
+        steps = hcp.nEpochs * htrainer.steps_per_epoch
+        evals = hcp.nEpochs * -(-N_VAL // hcp.batch_size)
+        expect = {"K6 fused_attention": layers * (steps + evals),
+                  "K6 fused_attention backward": layers * steps,
+                  "K5 fused_adam": steps}
+        if hcp_counts != {k: expect.get(k, 0) for k in hcp_counts}:
+            raise AssertionError(f"HCP training launches {hcp_counts}, "
+                                 f"expected {expect} and no other kernel")
+        _print_run("HCP", hcp, htrainer, hmetrics, wall)
+
+        # ---- (c) serving the HCP val subjects ---------------------------------
+        requests = [{k: r[k] for k in ("subject", "fmri")} for r in hcp_val]
+        counts = _serve(hcp, htrainer.best_checkpoint(), requests, tmp,
+                        "HCP", card)
+        passes = -(-N_VAL // hcp.batch_size)
+        if counts != {k: layers * passes if k == "K6 fused_attention" else 0
+                      for k in counts}:
+            raise AssertionError(f"HCP serving launches {counts}: expected "
+                                 f"K6 forward {layers} x {passes} only")
+
+    # ---- (d) one HCP training step on the card against the CPU -------------
+    batch, _ = next(htrainer.batches("train"))
+    _step_card_vs_cpu(hcp, batch, "HCP")
+
+    # ---- (e) HCP training-step time ----------------------------------------
+    _time_train_step(htrainer, "HCP", card)
+
+    launches = {"flagship": train_counts, "hcp": hcp_counts}
+    kernels = [results.line(key, launches) for key in ops.kernels()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,8 @@
 """Model dispatch (counterpart of multimodal_neuroimage_tpu/models/registry.py).
 
-Only the flagship ``FuncStructCross`` is ported; every other task raises
+Ported: the flagship ``FuncStructCross`` and the phase-1
+``TransformerNet`` (``2DBERT``, and ``test`` on fMRI-only datasets outside
+the divided-frequency mode). Every other task raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -11,6 +13,7 @@ import math
 import torch
 from torch import nn
 
+from multimodal_neuroimage_tpu_torch.models.fmri_nets import TransformerNet
 from multimodal_neuroimage_tpu_torch.models.func_struct import FuncStructCross
 from multimodal_neuroimage_tpu_torch.nn.common import LayerNorm
 
@@ -35,9 +38,14 @@ def create_model(cfg) -> nn.Module:
         return _funcstruct_variant(cfg)
     if task == "test" and "multimodal" in cfg.dataset_name:
         return _funcstruct_variant(cfg)
-    if task in ("2dbert", "lowfreqbert") or (
-            task == "test" and cfg.dataset_name in ("fMRI_timeseries", "hcp")):
-        raise _not_ported(f"task {cfg.task!r} (fMRI nets)", "M7")
+    fmri_test = task == "test" and cfg.dataset_name in ("fMRI_timeseries",
+                                                        "hcp")
+    if task == "2dbert" or (fmri_test
+                            and cfg.fmri_type != "divided_frequency"):
+        return TransformerNet.from_config(cfg)
+    if task == "lowfreqbert" or fmri_test:
+        raise _not_ported(f"task {cfg.task!r} (two-channel and cross-"
+                          f"attention fMRI nets)", "M7")
     if task == "vit" or (task == "test" and cfg.dataset_name in (
             "DTI", "sMRI", "DTI+sMRI")):
         raise _not_ported(f"task {cfg.task!r} (struct nets)", "M8")

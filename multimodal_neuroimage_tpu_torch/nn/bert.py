@@ -3,22 +3,36 @@
 ``transformers.BertModel`` semantics driven by ``inputs_embeds``: learned
 absolute position embeddings plus one token-type row, embedding LayerNorm
 (eps 1e-12) and dropout, post-LN layers with erf-GELU, and the tanh pooler
-on token 0. Every layer body is one K1 call (ops/bert_layer.py). Parameter
-names follow HuggingFace (``encoder.layer.{i}.attention.self.query``, ...).
-In training each layer draws its own dropout seed from the step's
-generator (JAX: one ``dropout`` rng split per scanned layer).
+on token 0. Parameter names follow HuggingFace
+(``encoder.layer.{i}.attention.self.query``, ...).
+
+The encoder picks each layer's route from T as the JAX package does on the
+TPU: while ``round_up(T, 8) <= 640`` every layer body is one K1 call
+(ops/bert_layer.py), with one dropout seed drawn per layer; above that (HCP:
+T = 1201) the (T, T) scores outgrow the K1 kernel, and the layer runs its
+dense products, LayerNorms and GELU in plain torch around K6
+(ops/attention.py ``fused_attention``), drawing three seeds per layer: K6's
+attention dropout, then the two hidden-dropout sites (JAX: one ``dropout``
+rng split per scanned layer).
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 from torch import nn
+import torch.nn.functional as F
 
 from multimodal_neuroimage_tpu_torch.nn.common import (LayerNorm, draw_seed,
                                                        dropout)
+from multimodal_neuroimage_tpu_torch.ops.attention import fused_attention
 from multimodal_neuroimage_tpu_torch.ops.bert_layer import bert_layer_call
+from multimodal_neuroimage_tpu_torch.ops.fusion_block import round_up
 
 LN_EPS = 1e-12
+K1_MAX_T = 640    # padded T above this takes the K6 route (JAX nn/bert.py:209)
 
 
 class BertLayer(nn.Module):
@@ -50,13 +64,40 @@ class BertLayer(nn.Module):
                 out["dense"].weight, out["dense"].bias,
                 out["LayerNorm"].weight, out["LayerNorm"].bias)
 
-    def forward(self, x: torch.Tensor, t_valid: int,
+    def forward(self, x: torch.Tensor, t_valid: Optional[int],
                 generator=None) -> torch.Tensor:
+        """K1 over keys < ``t_valid``; the K6 route when it is None."""
+        if t_valid is None:
+            return self._attention_route(x, generator)
         seed = 0
         if self.training and max(self.rates) > 0.0:
             seed = draw_seed(generator)
         return bert_layer_call(x, self.kernel_params(), self.heads, t_valid,
                                seed, self.rates, self.training)
+
+    def _attention_route(self, x: torch.Tensor, generator) -> torch.Tensor:
+        """The JAX BertLayer's plain body with K6 as its attention
+        (JAX nn/bert.py:103-147): no key mask, no padding."""
+        B, T, H = x.shape
+        hd = H // self.heads
+        attn_rate, hidden_rate = self.rates if self.training else (0.0, 0.0)
+        sa, ao = self.attention["self"], self.attention["output"]
+
+        def split(t):
+            return t.reshape(B, T, self.heads, hd).transpose(1, 2).contiguous()
+
+        q = split(sa["query"](x)) / math.sqrt(hd)
+        k, v = split(sa["key"](x)), split(sa["value"](x))
+        seed = draw_seed(generator) if attn_rate > 0.0 else 0
+        ctx = fused_attention(q, k, v, seed, attn_rate)
+        a = ao["dense"](ctx.transpose(1, 2).reshape(B, T, H))
+        if hidden_rate > 0.0:
+            a = dropout(a, hidden_rate, draw_seed(generator))
+        x = ao["LayerNorm"](a + x)
+        z = self.output["dense"](F.gelu(self.intermediate["dense"](x)))
+        if hidden_rate > 0.0:
+            z = dropout(z, hidden_rate, draw_seed(generator))
+        return self.output["LayerNorm"](z + x)
 
 
 class BertEncoder(nn.Module):
@@ -85,8 +126,9 @@ class BertEncoder(nn.Module):
         if self.training and self.hidden_dropout > 0.0:
             x = dropout(x, self.hidden_dropout, draw_seed(generator))
         x = x.contiguous()
+        t_valid = T if round_up(T, 8) <= K1_MAX_T else None
         for layer in self.encoder["layer"]:
-            x = layer(x, T, generator)
+            x = layer(x, t_valid, generator)
         return x, torch.tanh(self.pooler["dense"](x[:, 0]))
 
 

@@ -22,11 +22,13 @@ def kernels() -> Dict[str, object]:
             "K2 fusion_block": fb.fused_fusion_block,
             "K3 cross_fusion_block": fb.fused_cross_fusion_block,
             "K4 window_attention": att.fused_window_attention,
+            "K6 fused_attention": att.fused_attention,
             "K1 bert_layer backward": bl.bert_layer_backward,
             "K2 fusion_block backward": fb.fused_fusion_block_backward,
             "K3 cross_fusion_block backward":
                 fb.fused_cross_fusion_block_backward,
             "K4 window_attention backward": att.window_attention_backward,
+            "K6 fused_attention backward": att.fused_attention_backward,
             "K5 fused_adam": fu.fused_adam_update}
 
 

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "bert_layer_backward_scratch_floats": (_L, [_I] * 5),
     "fused_adam_update": (_I, [_P] * 4 + [_L, _P, _F, _F, _F, _D, _D, _D,
                                           _D, _I, _P]),
+    "mha_forward": (_I, [_P] * 5 + [_I] * 4 + [_D, _P]),
+    "mha_backward": (_I, [_P] * 10 + [_I] * 4 + [_D, _P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,8 +1,9 @@
 """Serving: checkpoint -> per-subject predictions (counterpart of multimodal_neuroimage_tpu/serve/predictor.py).
 
-``Predictor`` loads a port checkpoint once, scores in-memory requests
-``{subject, fmri: (84, T) raw series, struct: (84, 84)}`` in batches of
-``cfg.batch_size``, sigmoids each window's logit and averages the
+``Predictor`` loads a port checkpoint once, scores in-memory requests (the
+flagship's ``{subject, fmri: (84, T) raw series, struct: (84, 84)}``, HCP's
+``{subject, fmri: (22, T <= 1200)}``; data/loader.py ``item_for``) in
+batches of ``cfg.batch_size``, sigmoids each window's logit and averages the
 probabilities per subject (the frozen ``val_threshold`` was fit on
 mean-of-sigmoids), labels subjects against that threshold, and can write
 ``predictions.csv``. Single process: no mesh, no allgather.
@@ -18,13 +19,13 @@ import numpy as np
 import torch
 
 from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import load_checkpoint
-from multimodal_neuroimage_tpu_torch.data.loader import (collate,
-                                                         multimodal_item)
+from multimodal_neuroimage_tpu_torch.data.loader import collate, item_for
 from multimodal_neuroimage_tpu_torch.models.registry import create_model
 
 HEADS = ("binary_classification", "regression")
-MODEL_INPUTS = ("fmri_raw_sequence", "fmri_lowfreq_sequence",
-                "fmri_ultralowfreq_sequence", "struct")
+MODEL_INPUTS = ("fmri_sequence", "fmri_raw_sequence",
+                "fmri_lowfreq_sequence", "fmri_ultralowfreq_sequence",
+                "struct")
 
 
 def check_supported(cfg) -> None:
@@ -35,7 +36,8 @@ def check_supported(cfg) -> None:
             f"compute_dtype={cfg.compute_dtype!r}: the port runs float32 only;"
             f" the bf16 policy (f32 BERT stream + bf16 matmuls) is ROADMAP "
             f"N1")
-    if cfg.preprocess != "host":
+    # HCP items never take the device FIR gear (JAX data/datasets.py:83-89)
+    if cfg.preprocess != "host" and cfg.dataset_name != "hcp":
         raise NotImplementedError(
             f"preprocess={cfg.preprocess!r}: the port runs the host band "
             f"split only; the on-device FIR gear is ROADMAP N2")
@@ -87,8 +89,9 @@ class Predictor:
     def batches(self) -> Iterator[Tuple[Dict[str, np.ndarray], List[str]]]:
         """Host-preprocessed batches of ``cfg.batch_size`` requests."""
         bs = self.cfg.batch_size
+        item = item_for(self.cfg)
         for i in range(0, len(self.records), bs):
-            yield collate([multimodal_item(r, self.cfg)
+            yield collate([item(r, self.cfg)
                            for r in self.records[i:i + bs]])
 
     def predict(self, write_csv: Optional[str] = None

@@ -21,7 +21,7 @@ from multimodal_neuroimage_tpu_torch.train.losses import (LossSpec,
 from multimodal_neuroimage_tpu_torch.train.schedules import build_schedule
 
 HEADS = ("binary_classification", "regression")
-BATCH_KEYS = ("fmri_raw_sequence", "fmri_lowfreq_sequence",
+BATCH_KEYS = ("fmri_sequence", "fmri_raw_sequence", "fmri_lowfreq_sequence",
               "fmri_ultralowfreq_sequence", "struct", "target", "valid")
 
 

@@ -1,8 +1,10 @@
 """Training runtime over in-memory records (counterpart of multimodal_neuroimage_tpu/train/trainer.py).
 
 ``Trainer(cfg, train_records, val_records)`` takes records shaped as the
-``Predictor``'s requests plus a target, ``{subject, fmri (84, T), struct
-(84, 84), target}``, band-splits them once on the host, and runs the JAX
+``Predictor``'s requests plus a target (the flagship's ``{subject, fmri (84,
+T), struct (84, 84), target}``, HCP's ``{subject, fmri (22, T), target}``),
+turns them into items once on the host (data/loader.py ``item_for``), and
+runs the JAX
 Trainer's loop (``train_epoch``, ``eval_epoch``, ``training``, :312-392):
 shuffled drop-last train batches, one K5 step each, a validation pass,
 subject-level metrics, and the best-AUROC checkpoint (port format, frozen
@@ -30,8 +32,7 @@ import torch
 
 from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
     BestCheckpointPolicy)
-from multimodal_neuroimage_tpu_torch.data.loader import (collate,
-                                                         multimodal_item)
+from multimodal_neuroimage_tpu_torch.data.loader import collate, item_for
 from multimodal_neuroimage_tpu_torch.evaluation.metrics import (
     SubjectAccumulator)
 from multimodal_neuroimage_tpu_torch.models.registry import (
@@ -49,6 +50,7 @@ class Trainer:
         check_supported(cfg)
         self.cfg = cfg
         self.device = device
+        self._item_fn = item_for(cfg)
         self.items = {"train": [self._item(r) for r in train_records],
                       "val": [self._item(r) for r in val_records]}
         steps = len(self.items["train"]) // cfg.batch_size
@@ -82,7 +84,7 @@ class Trainer:
         self.step_losses: List[float] = []
 
     def _item(self, record: Mapping) -> Dict:
-        item = multimodal_item(record, self.cfg)
+        item = self._item_fn(record, self.cfg)
         item["target"] = np.float32(record["target"])
         return item
 

@@ -1,12 +1,12 @@
 """Carry the JAX package's flax parameters into the port's state dict.
 
-``jax_params_to_state_dict(tree)`` takes a ``FuncStructCross`` parameter
-tree (nested dicts of arrays, as ``model.init`` returns under "params") and
-returns the port model's ``state_dict``: flax Dense ``(in, out)`` kernels
-become torch ``(out, in)`` weights, HWIO convs become OIHW, ``(1, C)`` rows
-become vectors, and scan-stacked subtrees (BERT ``layers/layer``, the
-``pairs/block_0|block_1`` of even-depth fusion and SwinV2 stages) are
-unstacked into numbered blocks. The per-module converters are public so a
+``jax_params_to_state_dict(tree)`` takes a ``FuncStructCross`` or
+``TransformerNet`` parameter tree (nested dicts of arrays, as ``model.init``
+returns under "params") and returns the port model's ``state_dict``: flax
+Dense ``(in, out)`` kernels become torch ``(out, in)`` weights, HWIO convs
+become OIHW, ``(1, C)`` rows become vectors, and scan-stacked subtrees
+(BERT ``layers/layer``, the ``pairs/block_0|block_1`` of even-depth fusion
+and SwinV2 stages) are unstacked into numbered blocks. The per-module converters are public so a
 test can carry one block across. Imports neither jax nor flax.
 """
 
@@ -240,10 +240,20 @@ def swin_state(tree: Tree) -> State:
     return out
 
 
-# ---- the flagship ------------------------------------------------------------
+# ---- the models ------------------------------------------------------------
+
+def transformer_net_state(tree: Tree) -> State:
+    """TransformerNet flax params -> the port's TransformerNet state."""
+    return {**_prefixed("transformer.",
+                        temporal_bert_state(tree["transformer"])),
+            **_dense(tree["regression_head"], "regression_head")}
+
 
 def jax_params_to_state_dict(tree: Tree) -> State:
-    """FuncStructCross flax params -> the port's FuncStructCross state."""
+    """FuncStructCross or TransformerNet flax params -> the port model's
+    state."""
+    if "transformer" in tree:
+        return transformer_net_state(tree)
     fe = tree["fmri_embed"]
     out: State = {}
     for name in ("transformer_raw", "transformer_low", "transformer_ultralow"):

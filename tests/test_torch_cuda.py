@@ -288,7 +288,9 @@ def test_every_parameter_gets_a_kernel_gradient_on_the_card(dev):
         models[device.type] = model
         if device.type == "cuda":
             counts = ops.launches()
-    assert all(n > 0 for k, n in counts.items() if "adam" not in k), counts
+    assert all(n > 0 for k, n in counts.items()
+               if "adam" not in k and not k.startswith("K6")), counts
+    assert counts["K6 fused_attention"] == 0, counts      # T = 33: K1 route
     np.testing.assert_allclose(losses["cuda"].item(), losses["cpu"].item(),
                                rtol=1e-4, atol=1e-5)
     want = dict(models["cpu"].named_parameters())
@@ -356,10 +358,117 @@ def test_predictor_on_the_card_matches_the_cpu(dev, tmp_path):
     ops.reset_launches()
     got = Predictor(cfg, ckpt, reqs, device="cuda").predict()
     forward = {k: n for k, n in ops.launches().items()
-               if "backward" not in k and "adam" not in k}
+               if "backward" not in k and "adam" not in k
+               and not k.startswith("K6")}
     assert len(forward) == 4 and all(n > 0 for n in forward.values()), \
         ops.launches()
     want = Predictor(cfg, ckpt, reqs, device="cpu").predict()
     for s in want:
         np.testing.assert_allclose(got[s]["score"], want[s]["score"],
                                    rtol=1e-4, atol=1e-5)
+
+
+# ---- K6 and the HCP path ------------------------------------------------------
+
+@pytest.mark.parametrize("B,H,T,D,rate", [
+    (2, 2, 97, 11, 0.0), (2, 2, 97, 11, 0.25), (1, 3, 5, 7, 0.25),
+    (1, 1, 1, 11, 0.0), (2, 2, 130, 24, 0.25), (1, 2, 64, 42, 0.0),
+    (1, 1, 65, 64, 0.1), (8, 2, 1201, 11, 0.1)])
+def test_mha_attention_kernel(dev, B, H, T, D, rate):
+    """Forward and backward against the plain version on the same hash
+    masks; ragged T (tail tiles), odd and both template-bound head dims."""
+    gen = torch.Generator().manual_seed(B + H + T + D)
+    q, k, v = (_rand(gen, B, H, T, D).to(dev).requires_grad_()
+               for _ in "qkv")
+    g = _rand(gen, B, H, T, D).to(dev)
+    before = (att.fused_attention.launches,
+              att.fused_attention_backward.launches)
+    out = att.fused_attention(q, k, v, 77, rate)
+    _close(out.detach(), att.mha_reference(q.detach(), k.detach(),
+                                           v.detach(), 77, rate))
+    out.backward(g)
+    assert (att.fused_attention.launches,
+            att.fused_attention_backward.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = att.mha_reference_backward(g, q, k, v, 77, rate)
+    for a, b in zip((q, k, v), want):
+        _close(a.grad, b)
+
+
+def test_mha_attention_failing_launch_propagates(dev, monkeypatch):
+    """On a CUDA tensor K6 launches or raises: a launch that fails reaches
+    the caller, and the plain version is never run instead."""
+    from multimodal_neuroimage_tpu_torch.ops import build
+
+    class Failing:
+        def call(self, name, *args):
+            raise RuntimeError(f"{name} failed: cudaError 1 (invalid "
+                               f"argument)")
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(build, "library", lambda: Failing())
+    monkeypatch.setattr(att, "mha_reference", plain)
+    q = torch.zeros(1, 2, 9, 11, device=dev)
+    before = att.fused_attention.launches
+    with pytest.raises(RuntimeError, match="mha_forward failed"):
+        att.fused_attention(q, q, q)
+    assert att.fused_attention.launches == before
+    monkeypatch.undo()
+    z = torch.zeros(1, 1, 9, 65, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        att.fused_attention(z, z, z)
+
+
+def test_hcp_training_step_on_the_card_matches_the_cpu(dev):
+    """A 2-layer HCP TransformerNet at T = 1201 (the K6 route), one K5 step
+    with dropout on, card against CPU from the same weights, batch and
+    generator state (updated parameters as in the flagship step test)."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.config import Config
+    from multimodal_neuroimage_tpu_torch.data.loader import collate, hcp_item
+    from multimodal_neuroimage_tpu_torch.models.registry import (
+        create_model, init_random_weights)
+    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
+    from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
+                                                             make_train_step)
+    cfg = Config(step=1, task="2DBERT", dataset_name="hcp",
+                 transformer_hidden_layers=2, bert_intermediate_size=64,
+                 batch_size=2, compute_dtype="float32").validate()
+    rng = np.random.default_rng(2)
+    batch, _ = collate([hcp_item({"subject": str(i), "fmri": rng.normal(
+        size=(22, 1150 + i))}, cfg) for i in range(2)])
+    batch["target"] = np.asarray([0.0, 1.0], np.float32)
+    specs = active_losses(cfg.task, cfg.fine_tune_task)
+    lr = 1e-3
+    models, losses = {}, {}
+    for device in (dev.type, "cpu"):
+        model = init_random_weights(create_model(cfg),
+                                    torch.Generator().manual_seed(0))
+        model.to(device)
+        opt = create_optimizer("AdamW", model.parameters(), lambda t: lr,
+                               cfg.weight_decay)
+        step = make_train_step(model, specs, opt, "float32", device)
+        ops.reset_launches()
+        losses[device] = step(batch, torch.Generator().manual_seed(3))[0]
+        if device == "cuda":
+            counts = ops.launches()
+            assert counts["K6 fused_attention"] == 2, counts
+            assert counts["K6 fused_attention backward"] == 2, counts
+            assert counts["K5 fused_adam"] == 1, counts
+            assert counts["K1 bert_layer"] == 0, counts
+        models[device] = model
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(losses["cuda"]["total"].item(),
+                               losses["cpu"]["total"].item(), rtol=1e-4,
+                               atol=1e-5)
+    want = dict(models["cpu"].named_parameters())
+    for name, p in models["cuda"].named_parameters():
+        q = want[name]
+        diff = (p.detach().cpu() - q.detach()).abs()
+        stable = q.grad.abs() > 10 * (p.grad.cpu() - q.grad).abs() + 1e-7
+        assert torch.isfinite(p).all(), name
+        if stable.any():
+            assert diff[stable].max() <= 1e-5, name
+        assert diff.max() <= 2 * lr + 1e-5, name

@@ -28,6 +28,7 @@ from __graft_entry__ import _example_batch, _flagship_cfg
 from multimodal_neuroimage_tpu.models.registry import create_model as jcreate
 from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
     latest_checkpoint, load_checkpoint, save_checkpoint)
+from multimodal_neuroimage_tpu_torch.config import Config
 from multimodal_neuroimage_tpu_torch.data.loader import (collate,
                                                          multimodal_item)
 from multimodal_neuroimage_tpu_torch.models.registry import (
@@ -41,10 +42,11 @@ RTOL, ATOL = 2e-4, 1e-4
 
 @pytest.fixture(scope="module")
 def flagship():
-    cfg = dataclasses.replace(_flagship_cfg(tiny=True),
-                              compute_dtype="float32", preprocess="host",
-                              batch_size=2).validate()
-    model = jcreate(cfg)
+    jcfg = dataclasses.replace(_flagship_cfg(tiny=True),
+                               compute_dtype="float32", preprocess="host",
+                               batch_size=2).validate()
+    cfg = Config(**dataclasses.asdict(jcfg))       # the port's own Config
+    model = jcreate(jcfg)
     batch = _example_batch(2, t=32, r=cfg.intermediate_vec)
     params = jax.jit(model.init)(jax.random.PRNGKey(0), batch)["params"]
     rng = np.random.default_rng(0)
@@ -177,7 +179,7 @@ def test_predictor_needs_in_memory_records(flagship):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"task": "2DBERT"}, "M7"), ({"task": "VIT"}, "M8"),
+    ({"task": "lowfreqBERT"}, "M7"), ({"task": "VIT"}, "M8"),
     ({"task": "SwinFusion"}, "M9"),
     ({"multimodality_type": "add"}, "M9"),
     ({"use_unet": True}, "M9"),

@@ -11,6 +11,7 @@ Parameters are the JAX init plus N(0, 0.05) noise, so that zero-initialised
 norms do not hide a block. Tolerance: float32, rtol 2e-4 / atol 1e-4.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -157,17 +158,62 @@ host["target"] = np.asarray([0.0, 1.0], np.float32)
 losses, _ = step(host, torch.Generator().manual_seed(0))
 assert torch.isfinite(losses["total"]) and opt.count == 1
 assert metrics.auroc([0, 1, 1], [0.2, 0.9, 0.4]) == 1.0
-print(sorted(m for m in ("jax", "flax", "pandas", "sklearn") if m in sys.modules))
+
+# one CPU training step of the HCP TransformerNet (K6 route, T = 1201)
+from multimodal_neuroimage_tpu_torch.data.loader import collate, item_for
+hcp = Config(step=1, task="2DBERT", dataset_name="hcp",
+             transformer_hidden_layers=1, bert_intermediate_size=32,
+             compute_dtype="float32").validate()
+net = init_random_weights(create_model(hcp), torch.Generator().manual_seed(0))
+opt = create_optimizer("AdamW", net.parameters(), lambda t: 1e-3, 1e-5)
+step = make_train_step(net, active_losses("2DBERT", "binary_classification"),
+                       opt, "float32", "cpu")
+hbatch, _ = collate([item_for(hcp)({"subject": str(i),
+                                    "fmri": rng.normal(size=(22, 1150))}, hcp)
+                     for i in range(2)])
+hbatch["target"] = np.asarray([0.0, 1.0], np.float32)
+losses, _ = step(hbatch, torch.Generator().manual_seed(0))
+assert torch.isfinite(losses["total"]) and opt.count == 1
+print(sorted(m for m in sys.modules
+             if m in ("jax", "flax", "pandas", "sklearn")
+             or m == "multimodal_neuroimage_tpu"
+             or m.startswith("multimodal_neuroimage_tpu.")))
 """
 
 
 def test_port_imports_no_jax_flax_pandas_sklearn():
-    """Serve and take one training step in a fresh interpreter (this test
-    process imported jax already, tests/conftest.py): none of jax, flax,
-    pandas or sklearn gets loaded."""
+    """Serve, take one flagship and one HCP training step in a fresh
+    interpreter (this test process imported jax already, tests/conftest.py):
+    none of jax, flax, pandas, sklearn or the JAX package
+    ``multimodal_neuroimage_tpu`` (any of its modules) gets loaded."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_port_file_imports_the_jax_package():
+    """Static check of every module of the port and of chip_smoke.py: no
+    import names ``multimodal_neuroimage_tpu`` or one of its modules, nor
+    jax or flax (the port keeps its own copies of the host modules)."""
+    port = os.path.join(REPO, "multimodal_neuroimage_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, fs in os.walk(port) for f in fs
+        if f.endswith(".py")]
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, REPO), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("multimodal_neuroimage_tpu", "jax", "flax")]
+    assert not bad, bad

@@ -28,6 +28,7 @@ import torch
 from __graft_entry__ import _example_batch, _flagship_cfg
 from multimodal_neuroimage_tpu.models.registry import create_model as jcreate
 from multimodal_neuroimage_tpu.train.losses import bce_with_logits as jbce
+from multimodal_neuroimage_tpu_torch.config import Config
 from multimodal_neuroimage_tpu_torch.models.registry import (
     create_model, init_random_weights)
 from multimodal_neuroimage_tpu_torch.train.losses import (active_losses,
@@ -45,9 +46,11 @@ NO_DROPOUT = dict(transformer_dropout_rate=0.0, bert_attn_dropout=0.0,
 
 
 def _tiny(**change):
-    return dataclasses.replace(_flagship_cfg(tiny=True),
+    """The tiny flagship as the port's own Config."""
+    jcfg = dataclasses.replace(_flagship_cfg(tiny=True),
                                compute_dtype="float32", preprocess="host",
                                batch_size=2, **change).validate()
+    return Config(**dataclasses.asdict(jcfg))
 
 
 def _batch(cfg, seed=0):

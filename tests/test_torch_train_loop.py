@@ -23,6 +23,7 @@ from multimodal_neuroimage_tpu.evaluation import metrics as jmetrics
 from multimodal_neuroimage_tpu.train import losses as jlosses
 from multimodal_neuroimage_tpu.train.schedules import (
     build_schedule as jbuild_schedule)
+from multimodal_neuroimage_tpu_torch.config import Config
 from multimodal_neuroimage_tpu_torch.evaluation import metrics as tmetrics
 from multimodal_neuroimage_tpu_torch.train import losses as tlosses
 from multimodal_neuroimage_tpu_torch.train.schedules import build_schedule
@@ -165,10 +166,11 @@ def _cohort(cfg, n, seed):
 
 @pytest.fixture(scope="module")
 def tiny_cfg():
-    return dataclasses.replace(
+    jcfg = dataclasses.replace(
         _flagship_cfg(tiny=True), compute_dtype="float32", preprocess="host",
         batch_size=2, nEpochs=2, lr_init=1e-3, experiment_title="tiny",
         seed=3).validate()
+    return Config(**dataclasses.asdict(jcfg))      # the port's own Config
 
 
 def test_trainer_repeats_exactly_and_serves_its_best_checkpoint(tiny_cfg,
