@@ -8,9 +8,16 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    shapes its path gives it (float32, TF32 off) and times both with CUDA
    events, beside the least time the card could take (``bound_ms``) and,
    where one PyTorch call computes the same function, that call's time:
-   K1-K4 forward and backward (dropout on) and K5 at the flagship's shapes
-   (B = 4); K6 forward and backward at HCP's (8, 2, 1201, 11), dropout 0
-   and 0.1 (dq/dk/dv against autograd through the plain forward).
+   K1-K4 forward and backward (dropout on; K4 at attention dropout 0 and
+   0.1) and K5 at the flagship's shapes (B = 4); K6 forward and backward at
+   HCP's (8, 2, 1201, 11), dropout 0 and 0.1 (dq/dk/dv against autograd
+   through the plain forward); K7 forward and backward at the bp
+   flagship's shapes (B = 16, two groups of G = 8, shifts 0 and 3, dropout
+   0.1 and DropPath), also timed beside K2/K3 on the same inputs in the std
+   layout; K8, every dot-shape variant at f32 and bf16 (one chain pair over
+   its 7 cells), then the dot-shape entry point
+   (``python -m multimodal_neuroimage_tpu_torch.bench.dot_shapes``) with its
+   slope times per pair beside the plain chain's and ``torch.bmm``'s.
 3. The flagship ``FuncStructCross`` (random weights from a seeded
    generator): trains with ``Trainer`` on a synthetic in-memory cohort with
    a label-linked signal (16 train and 8 val subjects, batch 4, 2 epochs,
@@ -23,13 +30,22 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    loss, every gradient and the updated parameters. Times the training
    step (CUDA-synchronised median of 12 steps after 3 of warm-up),
    subjects/s and peak device memory.
-4. The HCP phase-1 ``TransformerNet`` (22 ROIs x 1200 TRs + CLS, 16 layers,
+4. The same flagship on the bp fusion layout at batch 16 (G = 8, two
+   groups): a 1-epoch ``Trainer`` run on 32 train and 16 val subjects (K1,
+   K4, K5 and the four K7 kernels launch, K2/K3 never); serving the 16 val
+   subjects, logits against the std layout on the card; one training step
+   bp vs std from the same weights, batch and generator state with the
+   fusion dropout rates at 0 and DropPath on (loss, every gradient, the
+   updated parameters; exactly 48 K7-self and 12 K7-cross launches each
+   way); training and predict steps of both layouts timed in turns.
+5. The HCP phase-1 ``TransformerNet`` (22 ROIs x 1200 TRs + CLS, 16 layers,
    2 heads, FFN 3072; every layer on the K6 route): the same four phases
    on a synthetic HCP cohort (series of 900-1200 TRs, 16 train and 8 val
    subjects, batch 8, 2 epochs). K6 forward must launch 16 times per
    forward pass and K6 backward 16 times per backward pass, K5 once per
    step, and no other kernel. Also times the predict step.
-5. Prints one JSON line of per-kernel results and, last, the ok line.
+6. Prints one JSON line of per-kernel results (launches by path: flagship,
+   flagship_bp, hcp, dot_shapes) and, last, the ok line.
 
 Any failed phase raises, so the exit code is non-zero and no ok line is
 printed. Without a CUDA card it exits with code 2 before doing anything.
@@ -37,6 +53,7 @@ printed. Without a CUDA card it exits with code 2 before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -75,6 +92,31 @@ FLAGSHIP_KERNELS = ("K1 bert_layer", "K2 fusion_block",
                     "K1 bert_layer backward", "K2 fusion_block backward",
                     "K3 cross_fusion_block backward",
                     "K4 window_attention backward", "K5 fused_adam")
+# the flagship on the bp fusion layout: batch 16, two groups of G = 8
+BP_BATCH, BP_TRAIN, BP_VAL = 16, 32, 16
+# launches of one bp training step: 2 x 16 BERT layers, 48 self blocks, 6
+# bidirectional cross blocks (12 directed calls), 10 SwinV2 blocks, K5 once
+BP_STEP = {"K1 bert_layer": 32, "K1 bert_layer backward": 32,
+           "K7 fusion_block_bp": 48, "K7 fusion_block_bp backward": 48,
+           "K7 cross_fusion_block_bp": 12,
+           "K7 cross_fusion_block_bp backward": 12,
+           "K4 window_attention": 10, "K4 window_attention backward": 10,
+           "K5 fused_adam": 1}
+# K8 chain vs its plain chain: |got - want| <= REL * max|want|; bf16: a score
+# the two summation orders leave on either side of a bf16 rounding boundary
+# rounds to neighbouring values before the context product
+DOT_REL = {False: 1e-5, True: 5e-3}
+
+
+@contextlib.contextmanager
+def _layout(name: str):
+    """Run the SwinFusion stacks in fusion layout ``name`` (std or bp)."""
+    from multimodal_neuroimage_tpu_torch.nn import swinfusion
+    saved, swinfusion._LAYOUT = swinfusion._LAYOUT, name
+    try:
+        yield
+    finally:
+        swinfusion._LAYOUT = saved
 
 
 def _close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -115,11 +157,20 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _turns(fns, iters: int = 20):
+    """Mean ms of each function, timed in turns (a, b, ..., ..., b, a) on
+    one card."""
+    order = list(range(len(fns)))
+    ms = [0.0] * len(fns)
+    for i in order + order[::-1]:
+        ms[i] += _time_ms(fns[i], iters) / 2
+    return ms
+
+
 def _alternate(kernel, plain, iters: int = 20):
     """Times in turns (plain, kernel, kernel, plain) on one card."""
-    p1, k1, k2, p2 = (_time_ms(plain, iters), _time_ms(kernel, iters),
-                      _time_ms(kernel, iters), _time_ms(plain, iters))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    plain_ms, ms = _turns([plain, kernel], iters)
+    return ms, plain_ms
 
 
 def _uniform(gen, shape, bound):
@@ -185,7 +236,9 @@ class Results:
         self.rows = {}
 
     def add(self, key, source, replaces, err, ms, plain_ms, ops, nbytes,
-            library_ms=None):
+            library_ms=None, std_ms=None, bound=None):
+        """One case of a kernel; ``bound`` (ms, by) replaces the float32
+        bound of ``ops`` and ``nbytes`` (K8's bf16 cases)."""
         r = self.rows.setdefault(key, {"name": key, "route": "cuda",
                                        "source": source,
                                        "replaces": replaces,
@@ -193,17 +246,19 @@ class Results:
                                        "plain_ms": 0.0, "bound_ms": 0.0,
                                        "bound_by": None, "worst_bound": -1.0,
                                        "library_ms": 0.0, "library_cases": 0,
+                                       "std_ms": 0.0, "std_cases": 0,
                                        "cases": 0})
-        bound, by = _bound(ops, nbytes)
+        bound, by = bound or _bound(ops, nbytes)
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += bound
         if bound > r["worst_bound"]:
             r["worst_bound"], r["bound_by"] = bound, by
-        if library_ms is not None:
-            r["library_ms"] += library_ms
-            r["library_cases"] += 1
+        for name, t in (("library", library_ms), ("std", std_ms)):
+            if t is not None:
+                r[f"{name}_ms"] += t
+                r[f"{name}_cases"] += 1
         r["cases"] += 1
         return bound, by
 
@@ -221,17 +276,25 @@ class Results:
                 "plain_ms": r["plain_ms"] / n, "bound_ms": r["bound_ms"] / n,
                 "bound_by": r["bound_by"],
                 "library_ms": (r["library_ms"] / r["library_cases"]
-                               if r["library_cases"] else None)}
+                               if r["library_cases"] else None),
+                # K7 only: K2/K3 on the same inputs in the std layout
+                "std_layout_ms": (r["std_ms"] / r["std_cases"]
+                                  if r["std_cases"] else None)}
 
 
 def _report(res, key, label, err, ms, plain_ms, ops, nbytes, src, rep,
-            library_ms=None, tol=f"atol {ATOL} + rtol {RTOL}"):
-    bound, by = res.add(key, SOURCES + src, TPU + rep, err, ms, plain_ms,
-                        ops, nbytes, library_ms)
+            library_ms=None, tol=f"atol {ATOL} + rtol {RTOL}", std_ms=None,
+            bound=None):
+    """Record and print one case; ``rep`` is the TPU kernel's file:line
+    under ``TPU``, or from the repository root where it has a ``/``."""
+    bound, by = res.add(key, SOURCES + src, rep if "/" in rep else TPU + rep,
+                        err, ms, plain_ms, ops, nbytes, library_ms, std_ms,
+                        bound)
     lib = ("" if library_ms is None
            else f"  library {library_ms:.4f} ms")
+    std = "" if std_ms is None else f"  std layout (K2/K3) {std_ms:.4f} ms"
     print(f"{key} {label}: max|err| {err:.3e} ({tol})  kernel {ms:.4f} ms  "
-          f"plain {plain_ms:.4f} ms  bound {bound:.6f} ms ({by}){lib}")
+          f"plain {plain_ms:.4f} ms  bound {bound:.6f} ms ({by}){lib}{std}")
 
 
 def forward_kernels(gen, res: Results):
@@ -280,21 +343,24 @@ def forward_kernels(gen, res: Results):
                           xw, yw, cross_p, bias, mask),
                       "fusion_block.cu", "fusion_block.py:855", fops,
                       _nbytes(xw, yw, xw, bias, mask, *cross_p), None))
-    for args in _k4_inputs(gen):
+    for args, rate in ((a, r) for a in _k4_inputs(gen) for r in (0.0, 0.1)):
         q4, k4, v4, b4, m4 = args[:5]
         B_, nw4, heads4, N4, D4 = q4.shape
         full = b4[None] + (0.0 if m4 is None else m4[:, None])
         full = full.expand(B_, *full.shape).reshape(B_ * nw4, heads4, N4,
                                                     N4).contiguous()
         flat = [t.reshape(B_ * nw4, heads4, N4, D4) for t in (q4, k4, v4)]
-        cases.append(("K4 window_attention", args[-1],
-                      lambda a=args: att.fused_window_attention(*a[:5]),
-                      lambda a=args: att.attention_reference(*a[:5]),
+        # with dropout the library call computes another function: none
+        library = (None if rate else
+                   lambda f=flat, m=full: sdpa(*f, attn_mask=m, scale=1.0))
+        cases.append(("K4 window_attention", f"{args[-1]} rate {rate}",
+                      lambda a=args, r=rate: att.fused_window_attention(
+                          *a[:5], 515, r),
+                      lambda a=args, r=rate: att.attention_reference(
+                          *a[:5], 515, r),
                       "window_attention.cu", "attention.py:305",
                       sum(_attention_ops(q4)),
-                      _nbytes(q4, k4, v4, q4, b4, m4),
-                      lambda f=flat, m=full: sdpa(*f, attn_mask=m,
-                                                  scale=1.0)))
+                      _nbytes(q4, k4, v4, q4, b4, m4), library))
     for key, label, kernel, plain, src, rep, ops, nbytes, library in cases:
         got, want = kernel(), plain()
         torch.cuda.synchronize()
@@ -468,25 +534,29 @@ def backward_kernels(gen, res: Results, n_params: int):
                    _nbytes(*streams, *streams, gw, dp, mask, bias, bias,
                            *params, *params))
 
-    # K4: the SwinV2 head's three stages
-    for q, k, v, b4, mask, label in _k4_inputs(gen):
-        out = att.fused_window_attention(q, k, v, b4, mask)
+    # K4: the SwinV2 head's three stages, attention dropout 0 and 0.1
+    for (q, k, v, b4, mask, label), rate in (
+            (a, r) for a in _k4_inputs(gen) for r in (0.0, 0.1)):
+        out = att.fused_window_attention(q, k, v, b4, mask, seed, rate)
         g4 = torch.randn(q.shape, generator=gen).to(dev)
 
-        def kern(q=q, k=k, v=v, b4=b4, mask=mask, out=out, g4=g4):
-            return att.window_attention_backward(g4, q, k, v, b4, mask, out)
+        def kern(q=q, k=k, v=v, b4=b4, mask=mask, out=out, g4=g4, rate=rate):
+            return att.window_attention_backward(g4, q, k, v, b4, mask, out,
+                                                 seed, rate)
 
         got = kern()
         ins, plain = _plain_backward(
-            lambda q_, k_, v_, b_, mask=mask: att.attention_reference(
-                q_, k_, v_, b_, mask), (q, k, v, b4), g4)
+            lambda q_, k_, v_, b_, mask=mask, rate=rate:
+                att.attention_reference(q_, k_, v_, b_, mask, seed, rate),
+            (q, k, v, b4), g4)
         want = plain()
         torch.cuda.synchronize()
-        errs = [_close(f"K4 backward d{n}", a, b, ATOL, RTOL)
+        errs = [_close(f"K4 backward d{n} rate {rate}", a, b, ATOL, RTOL)
                 for n, a, b in zip("qkv", got[:3], want[:3])]
-        errs.append(_close_rel("K4 backward dbias", got[3], want[3], SUM_REL))
-        report("K4 window_attention backward", label, errs, kern, plain,
-               "window_attention.cu", "attention.py:332",
+        errs.append(_close_rel(f"K4 backward dbias rate {rate}", got[3],
+                               want[3], SUM_REL))
+        report("K4 window_attention backward", f"{label} rate {rate}", errs,
+               kern, plain, "window_attention.cu", "attention.py:332",
                2 * _attention_ops(q)[0],
                _nbytes(q, k, v, g4, mask, b4, q, k, v, b4))
 
@@ -567,6 +637,167 @@ def mha_kernels(gen, res: Results):
                 "mha_attention.cu", "attention.py:159")
 
 
+def bp_kernels(gen, res: Results):
+    """K7 forward and backward at the bp flagship's shapes (B 16, two groups
+    of G = 8, 196 windows x 36 x 12, 6 heads; dropout 0.1 and DropPath)
+    against the bp plain versions, timed beside K2/K3 on the same inputs in
+    the std layout (the same function up to the dropout masks). Bound as
+    K2/K3's at B = 16."""
+    from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
+    dev = "cuda"
+    B, C, Hh, N, nW = BP_BATCH, 12, 6, 36, 196
+    G = fbp.group_size(B)
+    if (G, B // G) != (8, 2):
+        raise AssertionError(f"bp groups at B = {B}: G = {G} (FUSION_BP_GROUP "
+                             f"set?); expected two groups of 8")
+    rates, seed = (0.1, 0.1), 24680
+    self_p, cross_p, bias, _, _ = _fusion_inputs(gen)
+    xw, yw, gw = (torch.randn(B, nW, N, C, generator=gen).to(dev)
+                  for _ in range(3))
+    xg, yg, gg = (fbp.to_groups(t, G).contiguous() for t in (xw, yw, gw))
+    dp = (torch.rand(B, 2, generator=gen) > 0.1).float().to(dev) / 0.9
+    fops, bops = sum(_fusion_ops(B, nW, N, C, Hh)), 2 * _fusion_ops(
+        B, nW, N, C, Hh)[0]
+    train = (dp, seed, rates, True)
+    for shift in (0, 3):
+        m = shift_attn_mask(84, 84, 6, shift)
+        mask = None if m is None else torch.from_numpy(m).to(dev)
+        for cross, params in ((False, self_p), (True, cross_p)):
+            name = "cross_fusion_block_bp" if cross else "fusion_block_bp"
+            ys, yb = (yw, yg) if cross else (None, None)
+            streams = (xg, yg) if cross else (xg,)
+            if cross:
+                def kern(p=params, mask=mask):
+                    return fbp.fused_cross_fusion_block_bp(xg, yg, p, bias,
+                                                           mask, *train)
+
+                def plain(p=params, mask=mask):
+                    return fbp.cross_fusion_block_bp_reference(
+                        xg, yg, p, bias, mask, *train)
+
+                def std(p=params, mask=mask):
+                    return fb.fused_cross_fusion_block(xw, yw, p, bias, mask,
+                                                       *train)
+            else:
+                def kern(p=params, mask=mask):
+                    return fbp.fused_fusion_block_bp(xg, p, bias, mask,
+                                                     *train)
+
+                def plain(p=params, mask=mask):
+                    return fbp.fusion_block_bp_reference(xg, p, bias, mask,
+                                                         *train)
+
+                def std(p=params, mask=mask):
+                    return fb.fused_fusion_block(xw, p, bias, mask, *train)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = _close(f"K7 {name} shift {shift}", got, want, ATOL, RTOL)
+            plain_ms, std_ms, ms = _turns([plain, std, kern])
+            _report(res, f"K7 {name}", f"shift {shift}", err, ms, plain_ms,
+                    fops, _nbytes(*streams, xg, bias, mask, dp, *params),
+                    "fusion_block_bp.cu", "fusion_block_bp.py:745",
+                    std_ms=std_ms)
+
+            # backward, from the x2r of a training forward of each layout
+            _, x2r = fbp._launch_forward(xg, yb, params, bias, mask, dp, seed,
+                                         rates, True, True, cross, G)
+            _, x2r_std = fb._launch_forward(xw, ys, params, bias, mask, dp,
+                                            seed, rates, True, True, cross)
+            key = f"K7 {name} backward"
+            if cross:
+                def kern(p=params, mask=mask, x2r=x2r):
+                    return fbp.fused_cross_fusion_block_bp_backward(
+                        gg, xg, yg, p, bias, mask, *train, x2r)
+
+                def std(p=params, mask=mask, x2r=x2r_std):
+                    return fb.fused_cross_fusion_block_backward(
+                        gw, xw, yw, p, bias, mask, *train, x2r)
+                ins, plain = _plain_backward(
+                    lambda x_, y_, b_, *p_, mask=mask:
+                        fbp.cross_fusion_block_bp_reference(
+                            x_, y_, p_, b_, mask, *train),
+                    (xg, yg, bias) + params, gg)
+            else:
+                def kern(p=params, mask=mask, x2r=x2r):
+                    return fbp.fused_fusion_block_bp_backward(
+                        gg, xg, p, bias, mask, *train, x2r)
+
+                def std(p=params, mask=mask, x2r=x2r_std):
+                    return fb.fused_fusion_block_backward(
+                        gw, xw, p, bias, mask, *train, x2r)
+                ins, plain = _plain_backward(
+                    lambda x_, b_, *p_, mask=mask:
+                        fbp.fusion_block_bp_reference(x_, p_, b_, mask,
+                                                      *train),
+                    (xg, bias) + params, gg)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            # got: (dx, [dy,] dbias, dparams); want: the inputs' gradients
+            n = len(streams)
+            errs = [_close(f"{key} d{s}", a, b, ATOL, RTOL)
+                    for s, a, b in zip("xy", got[:n], want[:n])]
+            errs.append(_close_rel(f"{key} dbias", got[n], want[n], SUM_REL))
+            errs += [_close_rel(f"{key} dparams[{i}]", a, b, SUM_REL)
+                     for i, (a, b) in enumerate(zip(got[n + 1], want[n + 1:]))]
+            plain_ms, std_ms, ms = _turns([plain, std, kern], iters=10)
+            _report(res, key, f"shift {shift}", max(errs), ms, plain_ms, bops,
+                    _nbytes(*streams, *streams, gg, dp, mask, bias, bias,
+                            *params, *params),
+                    "fusion_block_bp.cu", "fusion_block_bp.py:808",
+                    tol=f"dx/dy: atol {ATOL} + rtol {RTOL}; sums: {SUM_REL} "
+                        f"* max|ref| + {SUM_ATOL}", std_ms=std_ms)
+
+
+def dot_shape_kernels(res: Results):
+    """K8: each variant's chain at reps 1 over its 7 cells, f32 and bf16,
+    against the plain (einsum) chain; then the dot-shape entry point
+    (``bench/dot_shapes.py``) with every launch count set to 0 just before
+    it, its slope times beside the plain chain's and ``torch.bmm``'s.
+    Returns the entry point's launch counts."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.bench import dot_shapes as bench
+    from multimodal_neuroimage_tpu_torch.ops import dot_shapes as ds
+    errs = {}
+    for bf16 in (False, True):
+        for v in ds.VARIANTS:
+            operands = ds.inputs(v, device="cuda")
+            got = ds.dot_chain(v, *operands, 1, bf16)
+            want = ds.dot_chain_reference(v, *operands, 1, bf16)
+            torch.cuda.synchronize()
+            if got.shape != (ds.NCH,) + ds.shapes(v)[0]:
+                raise AssertionError(f"K8 {v}: output {tuple(got.shape)}")
+            err = (got - want).abs().max().item()
+            limit = DOT_REL[bf16] * want.abs().max().item()
+            if not torch.isfinite(got).all() or err > limit:
+                raise AssertionError(f"K8 {v} bf16={bf16}: max|err| {err:.3e} "
+                                     f"over {limit:.3e}")
+            errs[v, bf16] = err
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    timed = {bf16: bench.run("bf16" if bf16 else "f32")
+             for bf16 in (False, True)}
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    print(f"launches in the dot-shape run: {counts}")
+    if counts["K8 dot_shapes"] == 0 or any(
+            n for k, n in counts.items() if k != "K8 dot_shapes"):
+        raise AssertionError(f"the dot-shape run launched {counts}")
+    for (v, bf16), err in errs.items():
+        operands = ds.inputs(v, device="cuda")
+        t2, t10 = (bench._chain_ms(
+            lambda r: ds.dot_chain_reference(v, *operands, r, bf16), r)
+            for r in (2, 10))
+        t = timed[bf16][v]
+        _report(res, "K8 dot_shapes", f"{v} {'bf16' if bf16 else 'f32'} "
+                f"(ms per pair)", err, t["ms"], (t10 - t2) / 8, 0, 0,
+                "dot_shapes.cu", "scripts/bench_dot_shapes.py:138",
+                library_ms=t["bmm_ms"], bound=bench.bound_ms(v, bf16),
+                tol=f"{DOT_REL[bf16]} * max|ref|")
+    return counts
+
+
 def _cohort(rng, n, first):
     """In-memory records {subject, fmri (84, T), struct, target} with a
     label-linked signal: positives carry a slow fMRI oscillation and a
@@ -588,11 +819,12 @@ def _cohort(rng, n, first):
 
 def _flagship_cfg(**kw):
     from multimodal_neuroimage_tpu_torch.config import Config
-    return Config(task="FuncStruct", dataset_name="multimodal",
-                  multimodality_type="cross_attention", target="sex",
-                  fine_tune_task="binary_classification", batch_size=BATCH,
-                  compute_dtype="float32", preprocess="host", nEpochs=2,
-                  experiment_title="flagship", seed=SEED, **kw).validate()
+    args = dict(task="FuncStruct", dataset_name="multimodal",
+                multimodality_type="cross_attention", target="sex",
+                fine_tune_task="binary_classification", batch_size=BATCH,
+                compute_dtype="float32", preprocess="host", nEpochs=2,
+                experiment_title="flagship", seed=SEED)
+    return Config(**{**args, **kw}).validate()
 
 
 def _hcp_cohort(rng, n, first):
@@ -676,10 +908,13 @@ def _print_run(label, cfg, trainer, metrics, wall):
           f"val_threshold {meta['val_threshold']})")
 
 
-def _serve(cfg, ckpt, requests, folder, label, card):
+def _serve(cfg, ckpt, requests, folder, label, card, reference="CPU"):
     """Serve ``requests`` from ``ckpt`` on the card (counts set to 0 just
     before the timed pass); logits must match the CPU through the plain
-    versions. Returns the serving run's launch counts."""
+    versions or, with ``reference="std"`` (the caller runs the bp layout),
+    the std fusion layout on the card, whose predict step is then timed in
+    turns beside the served layout's. Returns the serving run's launch
+    counts."""
     from multimodal_neuroimage_tpu_torch import ops
     from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import load_checkpoint
     from multimodal_neuroimage_tpu_torch.models.registry import create_model
@@ -706,30 +941,47 @@ def _serve(cfg, ckpt, requests, folder, label, card):
         if not (0.0 < row["score"] < 1.0) or row["label"] != float(
                 row["score"] > pred.threshold):
             raise AssertionError(f"bad prediction for {subject}: {row}")
-    cpu_model = create_model(cfg)
-    cpu_model.load_state_dict(load_checkpoint(ckpt)["state_dict"])
-    cpu_step = make_predict_step(cpu_model, "float32", device="cpu")
+    if reference == "std":
+        def ref_step(batch):
+            with _layout("std"):
+                return pred.step(batch)["binary_classification"].cpu()
+    else:
+        cpu_model = create_model(cfg)
+        cpu_model.load_state_dict(load_checkpoint(ckpt)["state_dict"])
+        cpu_step = make_predict_step(cpu_model, "float32", device="cpu")
+
+        def ref_step(batch):
+            return cpu_step(batch)["binary_classification"]
     logit_err = 0.0
     for batch, _ in pred.batches():
         got = pred.step(batch)["binary_classification"].cpu()
-        want = cpu_step(batch)["binary_classification"]
         logit_err = max(logit_err, _close(f"{label} serving logits", got,
-                                          want, LOGIT_ATOL, LOGIT_RTOL))
+                                          ref_step(batch), LOGIT_ATOL,
+                                          LOGIT_RTOL))
     first, _ = next(pred.batches())
-    fwd = _time_ms(lambda: pred.step(first), iters=5)
+    beside = ""
+    if reference == "std":
+        fwd, ref = _turns([lambda: pred.step(first),
+                           lambda: ref_step(first)], iters=5)
+        beside = (f"; std layout predict step {ref:.2f} ms "
+                  f"({cfg.batch_size / ref * 1e3:.2f} subjects/s)")
+    else:
+        fwd = _time_ms(lambda: pred.step(first), iters=5)
     print(f"{label}: served {n} requests in {wall:.3f} s: {n / wall:.2f} "
           f"requests/s end to end (host preprocessing included); predict "
           f"step {fwd:.2f} ms per batch of {cfg.batch_size} "
-          f"({cfg.batch_size / fwd * 1e3:.2f} subjects/s); logits vs CPU "
-          f"max|err| {logit_err:.3e} (atol {LOGIT_ATOL} + rtol "
+          f"({cfg.batch_size / fwd * 1e3:.2f} subjects/s){beside}; logits vs "
+          f"{reference} max|err| {logit_err:.3e} (atol {LOGIT_ATOL} + rtol "
           f"{LOGIT_RTOL}); card: {card}")
     return counts
 
 
-def _step_card_vs_cpu(cfg, batch, label):
-    """One training step on the card and the same step on the CPU through
-    the plain versions, from the same weights, batch and generator state:
-    loss, every gradient and the updated parameters."""
+def _step_compare(cfg, batch, label, sides):
+    """One training step on each of two ``sides`` ((name, device, fusion
+    layout)), from the same weights, batch and generator state: the first
+    side's loss, every gradient and the updated parameters against the
+    second's. Returns each side's launch counts."""
+    from multimodal_neuroimage_tpu_torch import ops
     from multimodal_neuroimage_tpu_torch.models.registry import (
         create_model, init_random_weights)
     from multimodal_neuroimage_tpu_torch.train.losses import active_losses
@@ -737,60 +989,126 @@ def _step_card_vs_cpu(cfg, batch, label):
                                                              make_train_step)
     specs = active_losses(cfg.task, cfg.fine_tune_task)
     lr = 1e-3
-    models, opts, steps = {}, {}, {}
-    for dev in ("cuda", "cpu"):
+    models, out, counts = {}, {}, {}
+    for side, dev, layout in sides:
         m = init_random_weights(create_model(cfg),
                                 torch.Generator().manual_seed(SEED + 1))
         m.to(dev)
-        opts[dev] = create_optimizer("AdamW", m.parameters(), lambda t: lr,
-                                     cfg.weight_decay)
-        steps[dev] = make_train_step(m, specs, opts[dev], "float32", dev)
-        models[dev] = m
-    out = {dev: steps[dev](batch, torch.Generator().manual_seed(SEED + 2))
-           for dev in ("cuda", "cpu")}
-    torch.cuda.synchronize()
-    loss_gpu = out["cuda"][0]["total"].item()
-    loss_cpu = out["cpu"][0]["total"].item()
-    _close(f"{label} step loss", torch.tensor([loss_gpu]),
-           torch.tensor([loss_cpu]), LOGIT_ATOL, LOGIT_RTOL)
+        opt = create_optimizer("AdamW", m.parameters(), lambda t: lr,
+                               cfg.weight_decay)
+        step = make_train_step(m, specs, opt, "float32", dev)
+        with _layout(layout):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            out[side] = step(batch, torch.Generator().manual_seed(SEED + 2))
+            torch.cuda.synchronize()
+            counts[side] = ops.launches()
+        models[side] = m
+    (a, _, _), (b, _, _) = sides
+    loss_a = out[a][0]["total"].item()
+    loss_b = out[b][0]["total"].item()
+    _close(f"{label} step loss", torch.tensor([loss_a]),
+           torch.tensor([loss_b]), LOGIT_ATOL, LOGIT_RTOL)
     grad_err = upd_err = 0.0
     unstable = n_params = 0
-    named = dict(models["cpu"].named_parameters())
-    for n, p in models["cuda"].named_parameters():
+    named = dict(models[b].named_parameters())
+    for n, p in models[a].named_parameters():
         q = named[n]
-        grad_err = max(grad_err, _close_rel(f"grad {n}", p.grad.cpu(),
-                                            q.grad, GRAD_REL))
+        ga, gb = p.grad.cpu(), q.grad.cpu()
+        grad_err = max(grad_err, _close_rel(f"grad {n}", ga, gb, GRAD_REL))
         e, u = _sign_stable_update_check(f"param {n}", p.detach().cpu(),
-                                         q.detach(), p.grad.cpu(), q.grad, lr)
+                                         q.detach().cpu(), ga, gb, lr)
         upd_err, unstable = max(upd_err, e), unstable + u
         n_params += p.numel()
-    print(f"one {label} training step, card vs CPU: loss {loss_gpu:.6f} vs "
-          f"{loss_cpu:.6f}; every gradient within {GRAD_REL} * its max-abs "
+    print(f"one {label} training step, {a} vs {b}: loss {loss_a:.6f} vs "
+          f"{loss_b:.6f}; every gradient within {GRAD_REL} * its max-abs "
           f"(worst abs err {grad_err:.3e}); updated params max|diff| "
           f"{upd_err:.3e}, {unstable} of {n_params} elements with a "
           f"sign-unstable gradient")
+    return counts
 
 
-def _time_train_step(trainer, label, card):
-    """CUDA-synchronised median of 12 training steps after 3 of warm-up."""
+def _time_train_step(trainer, label, card, layouts=("std",), steps=12):
+    """CUDA-synchronised median of ``steps`` training steps of each fusion
+    layout, after 3 of warm-up; two layouts run in turns (a, b, b, a), half
+    the steps a turn."""
     bs = trainer.cfg.batch_size
     batches = [b for b, _ in trainer.batches("train")]
-    for i in range(3):
-        trainer.train_step(batches[i % len(batches)], trainer.generator)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(12):
-        t0 = time.perf_counter()
-        trainer.train_step(batches[i % len(batches)], trainer.generator)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    q1, med, q3 = np.percentile(times, [25, 50, 75])
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    print(f"{label} training step (fwd + bwd + K5, batch {bs}, host batch "
-          f"prepared): median {med:.3f} ms (q1 {q1:.3f}, q3 {q3:.3f}) over "
-          f"12 steps; {bs / med * 1e3:.2f} subjects/s; peak device memory "
-          f"{peak:.0f} MiB; card: {card}")
+    order = list(layouts) + (list(layouts[::-1]) if len(layouts) > 1 else [])
+    per = steps * len(layouts) // len(order)
+    times = {lay: [] for lay in layouts}
+    peak = dict.fromkeys(layouts, 0.0)
+    for lay in order:
+        with _layout(lay):
+            for i in range(3):
+                trainer.train_step(batches[i % len(batches)],
+                                   trainer.generator)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(per):
+                t0 = time.perf_counter()
+                trainer.train_step(batches[i % len(batches)],
+                                   trainer.generator)
+                torch.cuda.synchronize()
+                times[lay].append(1e3 * (time.perf_counter() - t0))
+            peak[lay] = max(peak[lay],
+                            torch.cuda.max_memory_allocated() / 2 ** 20)
+    for lay in layouts:
+        q1, med, q3 = np.percentile(times[lay], [25, 50, 75])
+        name = label if len(layouts) == 1 else f"{label} ({lay} layout)"
+        print(f"{name} training step (fwd + bwd + K5, batch {bs}, host batch "
+              f"prepared): median {med:.3f} ms (q1 {q1:.3f}, q3 {q3:.3f}) "
+              f"over {len(times[lay])} steps; {bs / med * 1e3:.2f} "
+              f"subjects/s; peak device memory {peak[lay]:.0f} MiB; card: "
+              f"{card}")
+
+
+def flagship_bp(rng, card):
+    """The flagship on the bp fusion layout at batch 16 (G = 8, two
+    groups): a 1-epoch ``Trainer`` run (32 train, 16 val subjects, the
+    config's dropout rates) that launches K1, K4, K5 and the four K7
+    kernels and never K2/K3; serving the val subjects from its checkpoint,
+    logits against the std layout on the card; one training step bp vs std
+    from the same weights, batch and generator state with the fusion
+    dropout rates at 0 and DropPath on (exact K7 launch counts a step); the
+    training and predict steps of both layouts, timed in turns. Returns the
+    training run's launch counts."""
+    from multimodal_neuroimage_tpu_torch.ops import build
+    cfg = _flagship_cfg(batch_size=BP_BATCH, nEpochs=1,
+                        experiment_title="flagship_bp")
+    train_records = _cohort(rng, BP_TRAIN, 100)
+    val_records = _cohort(rng, BP_VAL, 100 + BP_TRAIN)
+    path = set(BP_STEP)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp, \
+            _layout("bp"):
+        trainer, metrics, counts, wall = _train(
+            cfg, train_records, val_records, tmp, "flagship bp")
+        if (any(counts[k] == 0 for k in path)
+                or any(n for k, n in counts.items() if k not in path)):
+            raise AssertionError(f"the bp training run did not launch "
+                                 f"exactly {sorted(path)}: {counts}")
+        _print_run("flagship bp", cfg, trainer, metrics, wall)
+        requests = [{k: r[k] for k in ("subject", "fmri", "struct")}
+                    for r in val_records]
+        serve = _serve(cfg, trainer.best_checkpoint(), requests, tmp,
+                       "flagship bp", card, reference="std")
+        forward = {k for k in path if "backward" not in k and "adam" not in k}
+        if (any(serve[k] == 0 for k in forward)
+                or any(n for k, n in serve.items() if k not in forward)):
+            raise AssertionError(f"the bp serving run did not launch exactly "
+                                 f"{sorted(forward)}: {serve}")
+    batch, _ = next(trainer.batches("train"))
+    step_cfg = _flagship_cfg(batch_size=BP_BATCH, fusion_drop_rate=0.0,
+                             fusion_attn_drop_rate=0.0)
+    steps = _step_compare(step_cfg, batch, "flagship batch 16",
+                          (("bp", "cuda", "bp"), ("std", "cuda", "std")))
+    want = {k: BP_STEP.get(k, 0) for k in steps["bp"]}
+    if steps["bp"] != want:
+        raise AssertionError(f"one bp training step launched {steps['bp']}, "
+                             f"expected {want}")
+    print(f"launches in one bp training step: {steps['bp']}")
+    _time_train_step(trainer, "flagship batch 16", card, ("bp", "std"))
+    return counts
 
 
 def main() -> int:
@@ -823,6 +1141,8 @@ def main() -> int:
     forward_kernels(gen, results)
     backward_kernels(gen, results, n_params)
     mha_kernels(gen, results)
+    bp_kernels(gen, results)
+    dot_counts = dot_shape_kernels(results)
 
     rng = np.random.default_rng(SEED)
     train_records = _cohort(rng, N_TRAIN, 0)
@@ -857,7 +1177,8 @@ def main() -> int:
 
     # ---- (c) one flagship training step on the card against the CPU -------
     batch, _ = next(trainer.batches("train"))
-    _step_card_vs_cpu(cfg, batch, "flagship")
+    _step_compare(cfg, batch, "flagship",
+                  (("card", "cuda", "std"), ("CPU", "cpu", "std")))
 
     # ---- (d) flagship training-step time ------------------------------------
     _time_train_step(trainer, "flagship", card)
@@ -870,6 +1191,9 @@ def main() -> int:
         f"{k} {v:.3f} ms" for k, v in sorted(share.items(),
                                              key=lambda kv: -kv[1])))
     del trainer
+
+    # ---- the flagship on the bp fusion layout at batch 16 ------------------
+    bp_counts = flagship_bp(rng, card)
 
     # ---- the HCP phase-1 path: TransformerNet, every layer on K6 -----------
     hcp = _hcp_cfg()
@@ -906,12 +1230,14 @@ def main() -> int:
 
     # ---- (d) one HCP training step on the card against the CPU -------------
     batch, _ = next(htrainer.batches("train"))
-    _step_card_vs_cpu(hcp, batch, "HCP")
+    _step_compare(hcp, batch, "HCP",
+                  (("card", "cuda", "std"), ("CPU", "cpu", "std")))
 
     # ---- (e) HCP training-step time ----------------------------------------
     _time_train_step(htrainer, "HCP", card)
 
-    launches = {"flagship": train_counts, "hcp": hcp_counts}
+    launches = {"flagship": train_counts, "flagship_bp": bp_counts,
+                "hcp": hcp_counts, "dot_shapes": dot_counts}
     kernels = [results.line(key, launches) for key in ops.kernels()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,11 @@
 // Replaces multimodal_neuroimage_tpu/ops/attention.py fused_window_attention
 // (_fused_attention_bias -> _fab_fwd -> _make_fab_kernels forward body): per
 // (batch*window, head), softmax(q k^T + bias[h] + mask[w]) v with q already
-// scaled by the caller (SwinV2 folds its clamped logit scale into q).
+// scaled by the caller (SwinV2 folds its clamped logit scale into q), and in
+// training the normalised probabilities dropped at `rate`:
+// out = (p o keep / (1 - rate)) v. The mask is the port's coordinate hash
+// (common.cuh keep) at row ((b * nW + w) * H + h) * N + i, column j, draw
+// WINDOW_ATTN_DRAW; forward and backward regenerate it, nothing stores it.
 //
 // What bounds it on the H100: nothing but launch latency and occupancy. The
 // flagship SwinV2 head calls it with N = 36 (nW 4, 3 heads; nW 1, 6 heads)
@@ -15,6 +19,9 @@
 // the TPU kernel does.
 #include "common.cuh"
 
+// hash draw of K4's dropout (ops/attention.py WINDOW_ATTN_DRAW; K6 is 4)
+#define WINDOW_ATTN_DRAW 5
+
 template <int MAXD>
 __global__ void window_attention_kernel(const float* __restrict__ q,
                                         const float* __restrict__ k,
@@ -22,7 +29,7 @@ __global__ void window_attention_kernel(const float* __restrict__ q,
                                         const float* __restrict__ bias,
                                         const float* __restrict__ mask,
                                         float* __restrict__ out, int nW, int H,
-                                        int N, int D) {
+                                        int N, int D, Dropout drop) {
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = smem + N * D;
@@ -38,6 +45,7 @@ __global__ void window_attention_kernel(const float* __restrict__ q,
 
   const float* bias_h = bias + (size_t)h * N * N;
   const float* mask_w = mask ? mask + (size_t)w * N * N : nullptr;
+  const uint32_t row0 = (uint32_t)bh * N;   // dropout row of query 0
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     float qi[MAXD];
 #pragma unroll
@@ -68,9 +76,11 @@ __global__ void window_attention_kernel(const float* __restrict__ q,
       if (mrow) s += mrow[j];
       const float p = expf(s - m);
       l += p;
+      // the sum takes every probability; only the accumulator drops
+      const float pk = p * keep(drop, row0 + i, (uint32_t)j);
 #pragma unroll
       for (int d = 0; d < MAXD; ++d)
-        if (d < D) acc[d] = fmaf(p, vs[j * D + d], acc[d]);
+        if (d < D) acc[d] = fmaf(pk, vs[j * D + d], acc[d]);
     }
     const float inv = 1.f / l;
 #pragma unroll
@@ -80,13 +90,15 @@ __global__ void window_attention_kernel(const float* __restrict__ q,
 }
 
 // q, k, v, out: (B, nW, H, N, D) contiguous f32; bias (H, N, N); mask
-// (nW, N, N) or NULL. Returns the cudaError_t of the launch.
+// (nW, N, N) or NULL; dropout seed and rate (0: off). Returns the
+// cudaError_t of the launch.
 extern "C" int window_attention_forward(const float* q, const float* k,
                                         const float* v, const float* bias,
                                         const float* mask, float* out, int B,
-                                        int nW, int H, int N, int D,
-                                        cudaStream_t stream) {
+                                        int nW, int H, int N, int D, int seed,
+                                        double rate, cudaStream_t stream) {
   if (D < 1 || D > 32 || N < 1) return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(seed, WINDOW_ATTN_DRAW, rate);
   int threads = ((N + 31) / 32) * 32;
   if (threads > 256) threads = 256;
   const size_t smem = 2 * (size_t)N * D * sizeof(float);
@@ -96,25 +108,28 @@ extern "C" int window_attention_forward(const float* q, const float* k,
     err = allow_smem(window_attention_kernel<8>, smem);
     if (err != cudaSuccess) return (int)err;
     window_attention_kernel<8><<<grid, threads, smem, stream>>>(q, k, v, bias, mask, out,
-                                                                nW, H, N, D);
+                                                                nW, H, N, D, drop);
   } else if (D <= 16) {
     err = allow_smem(window_attention_kernel<16>, smem);
     if (err != cudaSuccess) return (int)err;
     window_attention_kernel<16><<<grid, threads, smem, stream>>>(q, k, v, bias, mask, out,
-                                                                 nW, H, N, D);
+                                                                 nW, H, N, D, drop);
   } else {
     err = allow_smem(window_attention_kernel<32>, smem);
     if (err != cudaSuccess) return (int)err;
     window_attention_kernel<32><<<grid, threads, smem, stream>>>(q, k, v, bias, mask, out,
-                                                                 nW, H, N, D);
+                                                                 nW, H, N, D, drop);
   }
   return (int)cudaGetLastError();
 }
 
 // K4 backward. Replaces attention.py _fab_bwd (the backward body of
 // _make_fab_kernels, :258-297): with p = softmax(s) recomputed from q, k,
-// bias and mask, D_i = dout_i . out_i (the forward's output), ds = p (dp - D),
-//   dq = ds k,  dk = ds^T q,  dv = p^T dout,  dbias[h] = sum over (b, w) of ds.
+// bias and mask, the forward's keep factors regenerated (keep' = keep /
+// (1 - rate), 1 when off), D_i = dout_i . out_i (the forward's output, which
+// already carries the dropout), dP = keep' o (dout v^T), ds = p (dP - D),
+//   dq = ds k,  dk = ds^T q,  dv = (p o keep')^T dout,
+//   dbias[h] = sum over (b, w) of ds.
 // One block per (batch*window, head), as the forward. The TPU kernel carried
 // dbias[h] across its sequential batch axis in a resident output block; here
 // each block writes its ds (N x N) to a partial buffer and a second kernel
@@ -128,7 +143,7 @@ __global__ void window_attention_backward_kernel(
     const float* __restrict__ bias, const float* __restrict__ mask,
     const float* __restrict__ out, const float* __restrict__ dout, float* __restrict__ dq,
     float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dbias_part, int nW,
-    int H, int N, int D) {
+    int H, int N, int D, Dropout drop) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + N * D;
@@ -151,6 +166,7 @@ __global__ void window_attention_backward_kernel(
   const float* bias_h = bias + (size_t)h * N * N;
   const float* mask_w = mask ? mask + (size_t)w * N * N : nullptr;
   float* db = dbias_part + (size_t)bh * N * N;
+  const uint32_t row0 = (uint32_t)bh * N;
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     float qi[MAXD], gi[MAXD];
     float Di = 0.f;
@@ -189,8 +205,9 @@ __global__ void window_attention_backward_kernel(
 #pragma unroll
       for (int d = 0; d < MAXD; ++d)
         if (d < D) dp = fmaf(gi[d], vs[j * D + d], dp);
-      const float ds = p * (dp - Di);
-      P[i * N + j] = p;
+      const float kp = keep(drop, row0 + i, (uint32_t)j);
+      const float ds = p * (dp * kp - Di);
+      P[i * N + j] = p * kp;   // the dropped probability, for dv
       dS[i * N + j] = ds;
       db[(size_t)i * N + j] = ds;
 #pragma unroll
@@ -232,16 +249,18 @@ extern "C" long long window_attention_backward_scratch_floats(int B, int nW, int
 }
 
 // q, k, v, out, dout, dq, dk, dv: (B, nW, H, N, D) contiguous f32 (out is the
-// forward's output); bias (H, N, N); mask (nW, N, N) or NULL; dbias (H, N, N)
-// is written (not accumulated). Needs N <= 64 and D <= 32. Returns the
-// cudaError_t of the first launch that fails, or of the last.
+// forward's output); bias (H, N, N); mask (nW, N, N) or NULL; the forward's
+// dropout seed and rate; dbias (H, N, N) is written (not accumulated). Needs
+// N <= 64 and D <= 32. Returns the cudaError_t of the first launch that
+// fails, or of the last.
 extern "C" int window_attention_backward(const float* q, const float* k, const float* v,
                                          const float* bias, const float* mask,
                                          const float* out, const float* dout, float* dq,
                                          float* dk, float* dv, float* dbias, float* scratch,
-                                         int B, int nW, int H, int N, int D,
-                                         cudaStream_t stream) {
+                                         int B, int nW, int H, int N, int D, int seed,
+                                         double rate, cudaStream_t stream) {
   if (D < 1 || D > 32 || N < 1 || N > 64) return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(seed, WINDOW_ATTN_DRAW, rate);
   const int threads = ((N + 31) / 32) * 32;
   const size_t smem = (4 * (size_t)N * D + 2 * (size_t)N * N) * sizeof(float);
   const dim3 grid((unsigned)(B * nW * H));
@@ -250,12 +269,12 @@ extern "C" int window_attention_backward(const float* q, const float* k, const f
     if ((err = allow_smem(window_attention_backward_kernel<8>, smem)) != cudaSuccess)
       return (int)err;
     window_attention_backward_kernel<8><<<grid, threads, smem, stream>>>(
-        q, k, v, bias, mask, out, dout, dq, dk, dv, scratch, nW, H, N, D);
+        q, k, v, bias, mask, out, dout, dq, dk, dv, scratch, nW, H, N, D, drop);
   } else {
     if ((err = allow_smem(window_attention_backward_kernel<32>, smem)) != cudaSuccess)
       return (int)err;
     window_attention_backward_kernel<32><<<grid, threads, smem, stream>>>(
-        q, k, v, bias, mask, out, dout, dq, dk, dv, scratch, nW, H, N, D);
+        q, k, v, bias, mask, out, dout, dq, dk, dv, scratch, nW, H, N, D, drop);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // dbias[h] = sum over the B * nW (batch, window) blocks of head h: the

@@ -6,11 +6,11 @@ cyclic shift with static -100 masks and patch merging. The attention core is
 K4 (ops/attention.py). Parameter names follow the reference torch modules
 (``qkv``, ``q_bias``, ``cpb_mlp.0``, ``layers.{i}.blocks.{j}``, ...).
 Training: per-block DropPath at ``linspace(0, drop_path_rate, sum(depths))``
-drawn from the step's generator, and the plain hash dropout at
-``drop_rate`` after the patch embedding, the projection and in the MLP.
-Attention-probability dropout would have to live in K4, which has none
-(``attn_drop_rate`` 0 in the flagship; more is refused, ROADMAP "K4
-dropout").
+drawn from the step's generator, the plain hash dropout at ``drop_rate``
+after the patch embedding, the projection and in the MLP, and attention-
+probability dropout at ``attn_drop_rate`` inside K4 (one seed a call from
+the generator, as the JAX module draws one a call; the flagship's head runs
+rate 0).
 """
 
 from __future__ import annotations
@@ -124,10 +124,6 @@ class WindowAttentionV2(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator=None) -> torch.Tensor:
-        if self.training and self.attn_drop > 0.0:
-            raise NotImplementedError(
-                f"SwinV2 attention dropout {self.attn_drop}: the K4 kernel "
-                f"has no dropout yet (ROADMAP \"K4 dropout\")")
         B, nW, N, C = x.shape
         heads = self.num_heads
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
@@ -142,9 +138,11 @@ class WindowAttentionV2(nn.Module):
         table = self.cpb_mlp(self.relative_coords_table).reshape(-1, heads)
         rel = table[self.relative_position_index].reshape(N, N, heads)
         rel_bias = 16.0 * torch.sigmoid(rel.permute(2, 0, 1))
+        rate = self.attn_drop if self.training else 0.0
+        seed = draw_seed(generator) if rate > 0.0 else 0
         out = fused_window_attention((q * scale).contiguous(), k.contiguous(),
                                      v.contiguous(), rel_bias.contiguous(),
-                                     mask)
+                                     mask, seed, rate)
         out = self.proj(out.transpose(2, 3).reshape(B, nW, N, C))
         if self.training and self.proj_drop > 0.0:
             out = dropout(out, self.proj_drop, draw_seed(generator))

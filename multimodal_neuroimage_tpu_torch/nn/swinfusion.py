@@ -2,22 +2,35 @@
 
 Pre-norm Swin-V1 blocks with a learned relative-position bias table, the
 bidirectional cross block, the alternating-shift stacks and the RSTB/CRSTB
-residual groups, in the std (token-major) layout only. Every block body is
-one kernel call: K2 (self) or two K3 calls (cross, A<-B then B<-A, both
-reading the block's input streams). The token-major <-> window glue is a
-roll plus a window partition in plain PyTorch. Parameter names follow the
-reference torch modules (``attn.qkv``, ``attn_A.kv``, ``blocks.{j}``, ...).
+residual groups. Every block body is one kernel call: K2 (self) or two K3
+calls (cross, A<-B then B<-A, both reading the block's input streams). The
+token-major <-> window glue is a roll plus a window partition in plain
+PyTorch. Parameter names follow the reference torch modules (``attn.qkv``,
+``attn_A.kv``, ``blocks.{j}``, ...).
+
+Layouts (``_LAYOUT``, read from ``FUSION_LAYOUT`` at import; tests set the
+global): ``std`` (the default) runs the blocks on (B, nW, N, C) windows
+through K2/K3. ``bp`` runs them on group-major streams through K7
+(ops/fusion_block_bp.py): each stack enters the layout once, (B, L, C) ->
+(B/G, L, G*C) with G = ``group_size(B)`` (JAX ``_bp_enter``), every block
+rolls and partitions the group-major stream into (B/G, nW, N, G*C) windows,
+and the stack leaves once (``_bp_exit``). The stream between stacks stays
+token-major. The TPU's ``bpr`` (window-resident glue) and ``xbp`` (a
+plain-XLA twin), like its backbone-wide group residency, are not ported.
 
 Training: each block draws its DropPath factors dp (B, 2) (one pair per
 direction in the cross block) and then a dropout seed per kernel call from
 the step's generator (JAX: nn/swinfusion.py FusionBlock :369-397 and
-CrossFusionBlock :537-566); ``drop_path`` is the block's rate from the
-stack's linspace.
+CrossFusionBlock :537-566), in either layout; ``drop_path`` is the block's
+rate from the stack's linspace. With dropout off the two layouts compute
+one function; with it on, their masks differ (the bp masks are the JAX bp
+kernels').
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -32,6 +45,23 @@ from multimodal_neuroimage_tpu_torch.nn.swin2d import (_mask_buffer,
                                                        relative_position_index)
 from multimodal_neuroimage_tpu_torch.ops.fusion_block import (
     bias_from_table, fused_cross_fusion_block, fused_fusion_block)
+from multimodal_neuroimage_tpu_torch.ops.fusion_block_bp import (
+    from_groups, fused_cross_fusion_block_bp, fused_fusion_block_bp,
+    group_size, to_groups)
+
+_LAYOUT = os.environ.get("FUSION_LAYOUT") or "std"
+
+
+def _layout() -> str:
+    """The fusion layout in force: ``std`` or ``bp``; the TPU's other plans
+    raise."""
+    if _LAYOUT in ("std", "bp"):
+        return _LAYOUT
+    raise NotImplementedError(
+        f"FUSION_LAYOUT={_LAYOUT!r}: the port runs the fusion stacks in the "
+        f"std and bp layouts only; bpr (window-resident glue) and xbp (a "
+        f"plain-XLA twin) are TPU plans it does not port (ROADMAP "
+        f"\"TPU-only machinery is not ported\")")
 
 
 def to_windows(t: torch.Tensor, resolution: Tuple[int, int], ws: int,
@@ -79,14 +109,13 @@ class _WindowGeometry(nn.Module):
         return from_windows(t, self.input_resolution, self.ws, self.shift)
 
 
-def _train_draws(block: nn.Module, x: torch.Tensor, generator):
-    """(dp, seed) of one kernel call: in training the (B, 2) DropPath
-    factors and then the dropout seed, from the step's generator; at
-    inference (None, 0)."""
+def _train_draws(block: nn.Module, B: int, device, generator):
+    """(dp, seed) of one kernel call over B subjects: in training the
+    (B, 2) DropPath factors and then the dropout seed, from the step's
+    generator; at inference (None, 0)."""
     if not block.training:
         return None, 0
-    dp = drop_path_factors((x.shape[0], 2), block.drop_path, generator,
-                           x.device)
+    dp = drop_path_factors((B, 2), block.drop_path, generator, device)
     seed = draw_seed(generator) if max(block.rates) > 0.0 else 0
     return dp, seed
 
@@ -140,13 +169,18 @@ class FusionBlock(nn.Module):
                 self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
                 m.fc2.weight, m.fc2.bias)
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None,
+                group: Optional[int] = None) -> torch.Tensor:
+        """x: (B, L, C) tokens, or with ``group`` = G a group-major
+        (B/G, L, G*C) stream (K7)."""
         g = self.geom
-        dp, seed = _train_draws(self, x, generator)
-        out = fused_fusion_block(
-            g.windows(x), self.kernel_params(),
-            g.bias(self.attn.relative_position_bias_table), g.attn_mask,
-            dp, seed, self.rates, self.training)
+        dp, seed = _train_draws(self, x.shape[0] * (group or 1), x.device,
+                                generator)
+        args = (g.windows(x), self.kernel_params(),
+                g.bias(self.attn.relative_position_bias_table), g.attn_mask,
+                dp, seed, self.rates, self.training)
+        out = (fused_fusion_block_bp(*args, group=group) if group
+               else fused_fusion_block(*args))
         return g.tokens(out)
 
 
@@ -181,19 +215,26 @@ class CrossFusionBlock(nn.Module):
                 a.proj.weight, a.proj.bias, n2.weight, n2.bias,
                 m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor, generator=None):
+    def forward(self, x: torch.Tensor, y: torch.Tensor, generator=None,
+                group: Optional[int] = None):
+        """x, y: (B, L, C) tokens, or with ``group`` = G group-major
+        (B/G, L, G*C) streams (K7)."""
         g = self.geom
         xw, yw = g.windows(x), g.windows(y)
-        dp_a, seed_a = _train_draws(self, x, generator)
-        dp_b, seed_b = _train_draws(self, y, generator)
-        out_x = fused_cross_fusion_block(
-            xw, yw, self.kernel_params("A", "B"),
-            g.bias(self.attn_A.relative_position_bias_table), g.attn_mask,
-            dp_a, seed_a, self.rates, self.training)
-        out_y = fused_cross_fusion_block(
-            yw, xw, self.kernel_params("B", "A"),
-            g.bias(self.attn_B.relative_position_bias_table), g.attn_mask,
-            dp_b, seed_b, self.rates, self.training)
+        B = x.shape[0] * (group or 1)
+        dp_a, seed_a = _train_draws(self, B, x.device, generator)
+        dp_b, seed_b = _train_draws(self, B, x.device, generator)
+
+        def call(q, kv, s, other, dp, seed):
+            args = (q, kv, self.kernel_params(s, other),
+                    g.bias(getattr(self, f"attn_{s}")
+                           .relative_position_bias_table), g.attn_mask, dp,
+                    seed, self.rates, self.training)
+            return (fused_cross_fusion_block_bp(*args, group=group) if group
+                    else fused_cross_fusion_block(*args))
+
+        out_x = call(xw, yw, "A", "B", dp_a, seed_a)
+        out_y = call(yw, xw, "B", "A", dp_b, seed_b)
         return g.tokens(out_x), g.tokens(out_y)
 
 
@@ -214,9 +255,15 @@ class BasicLayerFusion(nn.Module):
             for i in range(depth))
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        if _layout() == "std":
+            for blk in self.blocks:
+                x = blk(x, generator)
+            return x
+        G = group_size(x.shape[0])
+        t = to_groups(x, G)                     # JAX _bp_enter
         for blk in self.blocks:
-            x = blk(x, generator)
-        return x
+            t = blk(t, generator, group=G)
+        return from_groups(t, G)                # JAX _bp_exit
 
 
 class CrossBasicLayer(nn.Module):
@@ -235,9 +282,15 @@ class CrossBasicLayer(nn.Module):
             for i in range(depth))
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, generator=None):
+        if _layout() == "std":
+            for blk in self.blocks:
+                x, y = blk(x, y, generator)
+            return x, y
+        G = group_size(x.shape[0])
+        x, y = to_groups(x, G), to_groups(y, G)
         for blk in self.blocks:
-            x, y = blk(x, y, generator)
-        return x, y
+            x, y = blk(x, y, generator, group=G)
+        return from_groups(x, G), from_groups(y, G)
 
 
 class RSTB(nn.Module):

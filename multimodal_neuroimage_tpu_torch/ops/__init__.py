@@ -16,7 +16,9 @@ def kernels() -> Dict[str, object]:
     """{kernel name: wrapper} for every kernel of the port."""
     from multimodal_neuroimage_tpu_torch.ops import attention as att
     from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    from multimodal_neuroimage_tpu_torch.ops import dot_shapes as ds
     from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
     from multimodal_neuroimage_tpu_torch.ops import fused_update as fu
     return {"K1 bert_layer": bl.bert_layer_call,
             "K2 fusion_block": fb.fused_fusion_block,
@@ -29,7 +31,14 @@ def kernels() -> Dict[str, object]:
                 fb.fused_cross_fusion_block_backward,
             "K4 window_attention backward": att.window_attention_backward,
             "K6 fused_attention backward": att.fused_attention_backward,
-            "K5 fused_adam": fu.fused_adam_update}
+            "K5 fused_adam": fu.fused_adam_update,
+            "K7 fusion_block_bp": fbp.fused_fusion_block_bp,
+            "K7 cross_fusion_block_bp": fbp.fused_cross_fusion_block_bp,
+            "K7 fusion_block_bp backward":
+                fbp.fused_fusion_block_bp_backward,
+            "K7 cross_fusion_block_bp backward":
+                fbp.fused_cross_fusion_block_bp_backward,
+            "K8 dot_shapes": ds.batched_matmul}
 
 
 def reset_launches() -> None:

@@ -6,12 +6,15 @@ Counterpart of multimodal_neuroimage_tpu/ops/attention.py
 ``fused_attention`` (``_fused_fwd`` / ``_fused_bwd``). The CUDA kernels are
 ``csrc/window_attention.cu`` and ``csrc/mha_attention.cu``; the autograd
 Function around each runs its kernels on CUDA tensors and its plain version
-(and autograd through it) on CPU tensors. K4 has no dropout: the flagship's
-SwinV2 head runs ``attn_drop_rate`` 0, and a caller that asks for more is
-refused (nn/swin2d.py, ROADMAP "K4 dropout"). K6 drops normalised
-probabilities with the port's coordinate hash at row ``(b * H + h) * T +
-i``, column ``j``, draw ``MHA_DRAW``; the JAX kernel draws from the TPU's
-PRNG instead, so the two agree only at rate 0.
+(and autograd through it) on CPU tensors.
+
+Both drop normalised probabilities, in training, with the port's
+coordinate hash (``ops/fusion_block.py`` ``mix_keep``): K4 at row
+``((b * nW + w) * H + h) * N + i``, column ``j``, draw
+``WINDOW_ATTN_DRAW``; K6 at row ``(b * H + h) * T + i``, column ``j``, draw
+``MHA_DRAW``. The JAX kernels draw from the TPU's PRNG instead, so port and
+JAX agree at rate 0 only; with dropout on, each kernel is held against the
+port's plain version on the same masks (on the card).
 """
 
 from __future__ import annotations
@@ -24,23 +27,48 @@ from multimodal_neuroimage_tpu_torch.ops import build
 from multimodal_neuroimage_tpu_torch.ops.fusion_block import mix_keep
 
 
+WINDOW_ATTN_DRAW = 5   # hash draw of K4's dropout (csrc/window_attention.cu)
+MHA_DRAW = 4           # hash draw of K6's dropout (csrc/mha_attention.cu)
+
+
+def _check_rate(rate: float) -> None:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attention dropout rate must be in [0, 1), got "
+                         f"{rate}")
+
+
+def window_attention_keep(B: int, nW: int, H: int, N: int, seed: int,
+                          rate: float, device=None) -> torch.Tensor:
+    """(B, nW, H, N, N) keep/(1 - rate) factors of K4's dropout."""
+    rows = torch.arange(B * nW * H * N, dtype=torch.int64,
+                        device=device).reshape(B, nW, H, N, 1)
+    cols = torch.arange(N, dtype=torch.int64, device=device)
+    return mix_keep(rows, cols, rate, seed, WINDOW_ATTN_DRAW)
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: torch.Tensor,
-                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """softmax(q k^T + bias[h] + mask[w]) v over (B, nW, H, N, D) windows.
+                        mask: Optional[torch.Tensor] = None, seed: int = 0,
+                        rate: float = 0.0) -> torch.Tensor:
+    """softmax(q k^T + bias[h] + mask[w]) v over (B, nW, H, N, D) windows,
+    the normalised probabilities dropped by the hash mask at ``rate``.
     q arrives pre-scaled; bias is (H, N, N), mask (nW, N, N) or None."""
     s = torch.einsum("bwhnd,bwhmd->bwhnm", q, k) + bias[None, None]
     if mask is not None:
         s = s + mask[None, :, None]
-    return torch.einsum("bwhnm,bwhmd->bwhnd", torch.softmax(s, dim=-1), v)
+    p = torch.softmax(s, dim=-1)
+    if rate > 0.0:
+        p = p * window_attention_keep(*q.shape[:4], seed, rate, q.device)
+    return torch.einsum("bwhnm,bwhmd->bwhnd", p, v)
 
 
-def attention_reference_backward(g, q, k, v, bias, mask=None):
+def attention_reference_backward(g, q, k, v, bias, mask=None, seed: int = 0,
+                                 rate: float = 0.0):
     """Plain backward: autograd through the plain forward; returns
     (dq, dk, dv, dbias)."""
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_() for t in (q, k, v, bias)]
-        out = attention_reference(*inputs, mask)
+        out = attention_reference(*inputs, mask, seed, rate)
         return torch.autograd.grad(out, inputs, g)
 
 
@@ -57,23 +85,26 @@ def _check(q, k, v, bias, mask):
     return B, nW, H, N, D
 
 
-def _launch_forward(q, k, v, bias, mask):
+def _launch_forward(q, k, v, bias, mask, seed=0, rate=0.0):
     B, nW, H, N, D = _check(q, k, v, bias, mask)
     out = torch.empty_like(q)
     build.library().call(
         "window_attention_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr(), None if mask is None else mask.data_ptr(),
-        out.data_ptr(), B, nW, H, N, D, build.stream_of(q))
+        out.data_ptr(), B, nW, H, N, D, int(seed), float(rate),
+        build.stream_of(q))
     fused_window_attention.launches += 1
     return out
 
 
-def window_attention_backward(g, q, k, v, bias, mask, out):
+def window_attention_backward(g, q, k, v, bias, mask, out, seed: int = 0,
+                              rate: float = 0.0):
     """K4 backward: (dq, dk, dv, dbias). CUDA tensors launch the kernel
-    (``out`` is the forward's output); CPU tensors take the plain
-    backward."""
+    (``out`` is the forward's output, ``seed``/``rate`` its dropout); CPU
+    tensors take the plain backward."""
     if q.device.type == "cpu":
-        return attention_reference_backward(g, q, k, v, bias, mask)
+        return attention_reference_backward(g, q, k, v, bias, mask, seed,
+                                            rate)
     B, nW, H, N, D = _check(q, k, v, bias, mask)
     build.check_cuda_f32("g", g, q.shape)
     build.check_cuda_f32("out", out, q.shape)
@@ -90,8 +121,8 @@ def window_attention_backward(g, q, k, v, bias, mask, out):
              v.data_ptr(), bias.data_ptr(),
              None if mask is None else mask.data_ptr(), out.data_ptr(),
              g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             dbias.data_ptr(), scratch.data_ptr(), B, nW, H, N, D,
-             build.stream_of(q))
+             dbias.data_ptr(), scratch.data_ptr(), B, nW, H, N, D, int(seed),
+             float(rate), build.stream_of(q))
     window_attention_backward.launches += 1
     return dq, dk, dv, dbias
 
@@ -99,29 +130,32 @@ def window_attention_backward(g, q, k, v, bias, mask, out):
 class _WindowAttentionFunction(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, mask):
-        out = (attention_reference(q, k, v, bias, mask)
+    def forward(ctx, q, k, v, bias, mask, seed, rate):
+        out = (attention_reference(q, k, v, bias, mask, seed, rate)
                if q.device.type == "cpu"
-               else _launch_forward(q, k, v, bias, mask))
+               else _launch_forward(q, k, v, bias, mask, seed, rate))
+        ctx.meta = (seed, rate)
         ctx.save_for_backward(q, k, v, bias, mask, out)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, mask, out = ctx.saved_tensors
-        dq, dk, dv, dbias = window_attention_backward(g.contiguous(), q, k,
-                                                      v, bias, mask, out)
-        return dq, dk, dv, dbias, None
+        dq, dk, dv, dbias = window_attention_backward(
+            g.contiguous(), q, k, v, bias, mask, out, *ctx.meta)
+        return dq, dk, dv, dbias, None, None, None
 
 
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor,
-                           mask: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """Window attention (differentiable): the CUDA kernels on CUDA tensors,
-    the plain version on CPU tensors. Shapes as in
-    :func:`attention_reference`."""
-    return _WindowAttentionFunction.apply(q, k, v, bias, mask)
+                           mask: Optional[torch.Tensor] = None,
+                           seed: int = 0, rate: float = 0.0) -> torch.Tensor:
+    """Window attention with probability dropout (differentiable): the CUDA
+    kernels on CUDA tensors, the plain version on CPU tensors. Shapes and
+    dropout as in :func:`attention_reference`."""
+    _check_rate(rate)
+    return _WindowAttentionFunction.apply(q, k, v, bias, mask, int(seed),
+                                          float(rate))
 
 
 fused_window_attention.launches = 0
@@ -130,7 +164,6 @@ window_attention_backward.launches = 0
 
 # ---- K6: plain multi-head attention (the BERT layer's long route) -----------
 
-MHA_DRAW = 4      # hash draw of K6's dropout (csrc/mha_attention.cu MHA_DRAW)
 MHA_MAX_HEAD_DIM = 64
 
 
@@ -224,9 +257,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T) v with probability dropout (differentiable): the CUDA
     kernels on CUDA tensors, the plain version on CPU tensors. Shapes and
     dropout as in :func:`mha_reference`."""
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"attention dropout rate must be in [0, 1), got "
-                         f"{rate}")
+    _check_rate(rate)
     return _MhaFunction.apply(q, k, v, int(seed), float(rate))
 
 

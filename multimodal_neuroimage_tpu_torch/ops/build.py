@@ -36,9 +36,8 @@ _L = ctypes.c_longlong
 # (restype, argtypes) of every exported function; pointers and the stream
 # are void*. Launchers return a cudaError_t (0 = success).
 _SIGNATURES = {
-    "window_attention_forward": (_I, [_P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _P]),
-    "window_attention_backward": (_I, [_P] * 12 + [_I] * 5 + [_P]),
+    "window_attention_forward": (_I, [_P] * 6 + [_I] * 6 + [_D, _P]),
+    "window_attention_backward": (_I, [_P] * 12 + [_I] * 6 + [_D, _P]),
     "window_attention_backward_scratch_floats": (_L, [_I] * 4),
     "fusion_block_forward": (_I, [_I] + [_P] * 6 + [_I] * 6
                              + [_P, _I, _D, _D, _I, _P, _P]),
@@ -46,6 +45,11 @@ _SIGNATURES = {
                               + [_P, _I, _D, _D, _I, _P]),
     "fusion_block_grad_floats": (_L, [_I] * 5),
     "fusion_block_backward_scratch_floats": (_L, [_I] * 7),
+    "fusion_block_bp_forward": (_I, [_I] + [_P] * 6 + [_I] * 7
+                                + [_P, _I, _D, _D, _I, _P, _P]),
+    "fusion_block_bp_backward": (_I, [_I] + [_P] * 11 + [_I] * 7
+                                 + [_P, _I, _D, _D, _I, _P]),
+    "fusion_block_bp_backward_scratch_floats": (_L, [_I] * 7),
     "bert_layer_forward": (_I, [_P] * 5 + [_I] * 8 + [_D, _D, _P]),
     "bert_layer_scratch_floats": (_L, [_I] * 4),
     "bert_layer_resid_floats": (_L, [_I] * 4),
@@ -55,6 +59,7 @@ _SIGNATURES = {
                                           _D, _I, _P]),
     "mha_forward": (_I, [_P] * 5 + [_I] * 4 + [_D, _P]),
     "mha_backward": (_I, [_P] * 10 + [_I] * 4 + [_D, _P]),
+    "batched_matmul": (_I, [_P] * 3 + [_I] * 5 + [_L] * 4 + [_F, _I, _P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 

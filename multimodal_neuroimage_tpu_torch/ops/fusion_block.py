@@ -129,9 +129,18 @@ def _attn_reference(q, k, v, bias, mask, heads: int, keep=None):
     return o.transpose(2, 3).reshape(B, nW, N, C)
 
 
+def std_keys(B: int, nW: int, N: int, NP: int, device=None):
+    """Dropout coordinates of the std layout: (rows, column offsets of the
+    C-wide, Ch-wide and attention draws). Rows are the global padded rows
+    (b * nW + w) * NP + n; no column offset."""
+    return global_keys(B, nW, N, NP, device), 0, 0, 0
+
+
 def _block_reference(x, y, params, bias, mask, dp, seed, rates, training,
-                     cross: bool):
-    """The whole block as ``_forward_compute`` (:443-519) computes it."""
+                     cross: bool, keys=std_keys):
+    """The whole block as ``_forward_compute`` (:443-519) computes it, on
+    (B, nW, N, C) windows; ``keys(B, nW, N, NP, device)`` gives the dropout
+    coordinates (:func:`std_keys`; ops/fusion_block_bp.py ``bp_keys``)."""
     if cross:
         (g1, b1, g1y, b1y, wq, bq, wkv, bkv,
          wp, bp, g2, b2, w1, b1m, w2, b2m) = params
@@ -146,24 +155,27 @@ def _block_reference(x, y, params, bias, mask, dp, seed, rates, training,
     H = bias.shape[0]
     attn_rate, drop_rate = rates if training else (0.0, 0.0)
     NP = round_up(N, 8)
-    rows = global_keys(B, nW, N, NP, x.device)
+    rows, off_c, off_h, off_a = keys(B, nW, N, NP, x.device)
 
-    def hidden(draw, width):
+    def hidden(draw, width, off):
         if drop_rate <= 0.0:
             return 1.0
-        return mix_keep(rows, _iota(width, x.device), drop_rate, seed, draw)
+        return mix_keep(rows, _iota(width, x.device) + off, drop_rate, seed,
+                        draw)
 
     keep = None
     if attn_rate > 0.0:
         cols = _iota(H, x.device)[:, None, None] * NP + _iota(N, x.device)
-        keep = mix_keep(rows[:, :, None], cols, attn_rate, seed, DRAW_ATTN)
+        off = off_a if isinstance(off_a, int) else off_a[..., None]
+        keep = mix_keep(rows[:, :, None], cols + off, attn_rate, seed,
+                        DRAW_ATTN)
     o = _attn_reference(q, k, v, bias, mask, H, keep)
     dp1, dp2 = ((1.0, 1.0) if dp is None
                 else (dp[:, 0].reshape(B, 1, 1, 1), dp[:, 1].reshape(B, 1, 1, 1)))
-    x2r = x + dp1 * (F.linear(o, wp, bp) * hidden(DRAW_PROJ, C))
+    x2r = x + dp1 * (F.linear(o, wp, bp) * hidden(DRAW_PROJ, C, off_c))
     u = F.gelu(F.linear(layer_norm(x2r, g2, b2, LN_EPS), w1, b1m))
-    z = F.linear(u * hidden(DRAW_MLP1, w1.shape[0]), w2, b2m)
-    return x2r + dp2 * (z * hidden(DRAW_MLP2, C))
+    z = F.linear(u * hidden(DRAW_MLP1, w1.shape[0], off_h), w2, b2m)
+    return x2r + dp2 * (z * hidden(DRAW_MLP2, C, off_c))
 
 
 def fusion_block_reference(x: torch.Tensor, params: Sequence[torch.Tensor],
@@ -213,18 +225,28 @@ def fusion_block_reference_backward(g, x, y, params, bias, mask=None,
 
 # ---- CUDA launches -----------------------------------------------------------
 
-def _check(x, y, params, bias, mask, dp, cross: bool):
-    B, nW, N, C = x.shape
-    H = bias.shape[0]
-    Ch = params[-4].shape[0]
-    build.check_cuda_f32("x", x, (B, nW, N, C))
+def _check_streams(x, y, bias, mask, dp, cross: bool, B: int) -> None:
+    nW, N = x.shape[1], x.shape[2]
+    build.check_cuda_f32("x", x, x.shape)
     if cross:
-        build.check_cuda_f32("y", y, (B, nW, N, C))
-    build.check_cuda_f32("bias", bias, (H, N, N))
+        build.check_cuda_f32("y", y, x.shape)
+    build.check_cuda_f32("bias", bias, (bias.shape[0], N, N))
     if mask is not None:
         build.check_cuda_f32("mask", mask, (nW, N, N))
     if dp is not None:
         build.check_cuda_f32("dp", dp, (B, 2))
+
+
+def _check(x, y, params, bias, mask, dp, cross: bool):
+    B, nW, N, C = x.shape
+    _check_streams(x, y, bias, mask, dp, cross, B)
+    return (B, nW, N, C) + _check_params(params, bias, C, cross)
+
+
+def _check_params(params, bias, C: int, cross: bool):
+    """Validate the 12 (self) or 16 (cross) params at width C; (H, Ch)."""
+    H = bias.shape[0]
+    Ch = params[-4].shape[0]
     if C % H or C // H > 16:
         raise ValueError(f"fusion block needs C % heads == 0 and head dim "
                          f"<= 16, got C={C}, heads={H}")
@@ -238,7 +260,7 @@ def _check(x, y, params, bias, mask, dp, cross: bool):
         raise ValueError(f"expected {len(shapes)} params, got {len(params)}")
     for i, (p, s) in enumerate(zip(params, shapes)):
         build.check_cuda_f32(f"params[{i}]", p, s)
-    return B, nW, N, C, H, Ch
+    return H, Ch
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -268,24 +290,35 @@ def _backward(g, x, y, params, bias, mask, dp, seed, rates, training, x2r,
                                                dp, seed, rates, training,
                                                cross)
     B, nW, N, C, H, Ch = _check(x, y, params, bias, mask, dp, cross)
+    return launch_backward("fusion_block_backward", (B, nW), (B, nW), g, x,
+                           y, params, bias, mask, dp, seed, rates, training,
+                           x2r, cross, N, C, H, Ch)
+
+
+def launch_backward(entry, grid, dims, g, x, y, params, bias, mask, dp, seed,
+                    rates, training, x2r, cross: bool, N, C, H, Ch):
+    """Launch fusion-block backward entry point ``entry`` (K2/K3's or K7's,
+    shapes already checked): ``grid`` are its scratch query's stream
+    dimensions, ``dims`` its own. Returns (dx, dy or None, dbias,
+    dparams)."""
     build.check_cuda_f32("g", g, x.shape)
     build.check_cuda_f32("x2r", x2r, x.shape)
     attn_rate, drop_rate = rates if training else (0.0, 0.0)
     lib = build.library()
     n_grad = lib.value("fusion_block_grad_floats", int(cross), N, C, H, Ch)
-    n_scratch = lib.value("fusion_block_backward_scratch_floats", int(cross),
-                          B, nW, N, C, H, Ch)
+    n_scratch = lib.value(f"{entry}_scratch_floats", int(cross), *grid, N,
+                          C, H, Ch)
     if n_scratch < 0:
-        raise RuntimeError("fusion block backward kernel cannot be "
-                           "configured on this card (shared memory)")
+        raise RuntimeError(f"{entry} kernel cannot be configured on this "
+                           f"card (shared memory)")
     dx = torch.empty_like(x)
     dy = torch.empty_like(y) if cross else None
     flat = torch.empty(n_grad, dtype=torch.float32, device=x.device)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
-    lib.call("fusion_block_backward", int(cross), x.data_ptr(), _ptr(y),
+    lib.call(entry, int(cross), x.data_ptr(), _ptr(y),
              build.pointer_array(params), bias.data_ptr(), _ptr(mask),
              x2r.data_ptr(), g.data_ptr(), dx.data_ptr(), _ptr(dy),
-             flat.data_ptr(), scratch.data_ptr(), B, nW, N, C, H, Ch,
+             flat.data_ptr(), scratch.data_ptr(), *dims, N, C, H, Ch,
              _ptr(dp), int(seed), float(attn_rate), float(drop_rate),
              round_up(N, 8), build.stream_of(x))
     dparams, off = [], 0

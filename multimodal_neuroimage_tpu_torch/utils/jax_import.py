@@ -8,6 +8,11 @@ become OIHW, ``(1, C)`` rows become vectors, and scan-stacked subtrees
 (BERT ``layers/layer``, the ``pairs/block_0|block_1`` of even-depth fusion
 and SwinV2 stages) are unstacked into numbered blocks. The per-module converters are public so a
 test can carry one block across. Imports neither jax nor flax.
+
+The fusion layout (``FUSION_LAYOUT`` std or bp) changes no parameter: the
+bp blocks (K7, ops/fusion_block_bp.py) take the same 12 (self) and 16
+(cross) tensors in the same torch layout as K2/K3, so one converter serves
+both layouts.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Profile one training path of the PyTorch port on one CUDA card.
 
 Run from the repository root: ``python3 profile_step.py hcp`` (or
-``flagship``). It builds the path's ``Trainer`` on the synthetic cohort that
-``chip_smoke.py`` trains (same seed, batch and widths), warms up 3 steps,
-then prints:
+``flagship``, optionally with a batch size and a fusion layout:
+``python3 profile_step.py flagship 16 bp``). It builds the path's
+``Trainer`` on the synthetic cohort that ``chip_smoke.py`` trains (same
+seed and widths; the flagship at batch 4 and the std layout unless told
+otherwise), warms up 3 steps, then prints:
 
 - the host split of a step: median of 10 steps with a CUDA synchronise after
   the forward (loss included), after the backward and after the optimizer;
@@ -31,15 +33,15 @@ import torch
 import chip_smoke as smoke
 
 
-def _trainer(path: str, folder: str):
+def _trainer(path: str, folder: str, batch: int):
     from multimodal_neuroimage_tpu_torch.train.trainer import Trainer
     rng = np.random.default_rng(smoke.SEED)
     if path == "hcp":
         cfg = smoke._hcp_cfg()
         records = smoke._hcp_cohort(rng, smoke.N_TRAIN, 0)
     else:
-        cfg = smoke._flagship_cfg()
-        records = smoke._cohort(rng, smoke.N_TRAIN, 0)
+        cfg = smoke._flagship_cfg(batch_size=batch)
+        records = smoke._cohort(rng, max(smoke.N_TRAIN, 2 * batch), 0)
     return Trainer(cfg, records, records[:cfg.batch_size], device="cuda",
                    experiment_folder=folder)
 
@@ -74,8 +76,11 @@ def _host_split(trainer, batches):
 
 def main() -> int:
     path = sys.argv[1] if len(sys.argv) > 1 else "hcp"
-    if path not in ("hcp", "flagship"):
-        print(f"usage: {sys.argv[0]} [hcp|flagship]", file=sys.stderr)
+    batch = int(sys.argv[2]) if len(sys.argv) > 2 else smoke.BATCH
+    layout = sys.argv[3] if len(sys.argv) > 3 else "std"
+    if path not in ("hcp", "flagship") or layout not in ("std", "bp"):
+        print(f"usage: {sys.argv[0]} [hcp|flagship [batch [std|bp]]]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device; nothing was run", file=sys.stderr)
@@ -90,8 +95,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from multimodal_neuroimage_tpu_torch.ops import build
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as folder:
-        trainer = _trainer(path, folder)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as folder, \
+            smoke._layout(layout):
+        trainer = _trainer(path, folder, batch)
         batches = [b for b, _ in trainer.batches("train")]
         for i in range(3):
             trainer.train_step(batches[i % len(batches)], trainer.generator)
@@ -114,7 +120,8 @@ def main() -> int:
     launches = sum(e.count for e in device) / n
     bs = trainer.cfg.batch_size
     step = fwd + bwd + opt
-    print(f"{path} training step, batch {bs}: host split forward {fwd:.3f} "
+    name = path if path == "hcp" else f"{path} ({layout} layout)"
+    print(f"{name} training step, batch {bs}: host split forward {fwd:.3f} "
           f"ms, backward {bwd:.3f} ms, optimizer {opt:.3f} ms (medians of "
           f"10 synchronised steps, sum {step:.3f} ms); device busy "
           f"{busy:.3f} ms a step, idle share {1 - busy / step:.3f} of that "

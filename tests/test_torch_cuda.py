@@ -196,6 +196,100 @@ def test_window_attention_backward_kernel(dev, N, nW, heads, D, masked):
     _close_sum(bias.grad, want[3], "dbias")
 
 
+@pytest.mark.parametrize("N,nW,heads,D,masked", [
+    (36, 4, 3, 4, True), (9, 1, 12, 4, False), (16, 4, 2, 8, True)])
+def test_window_attention_dropout_kernel(dev, N, nW, heads, D, masked):
+    """K4 at rate 0.1, forward and backward, against the plain version on
+    the same hash masks."""
+    gen = torch.Generator().manual_seed(N + nW + heads + 5)
+    shape = (2, nW, heads, N, D)
+    q, k, v = (_rand(gen, *shape).to(dev).requires_grad_() for _ in "qkv")
+    g = _rand(gen, *shape).to(dev)
+    bias = _rand(gen, heads, N, N).to(dev).requires_grad_()
+    mask = (torch.where(torch.rand(nW, N, N, generator=gen) > 0.8, -100.0,
+                        0.0).to(dev) if masked else None)
+    out = att.fused_window_attention(q, k, v, bias, mask, 77, 0.1)
+    _close(out.detach(), att.attention_reference(q.detach(), k.detach(),
+                                                 v.detach(), bias.detach(),
+                                                 mask, 77, 0.1))
+    out.backward(g)
+    want = att.attention_reference_backward(g, q, k, v, bias, mask, 77, 0.1)
+    for a, b in zip((q, k, v), want[:3]):
+        _close(a.grad, b)
+    _close_sum(bias.grad, want[3], "dbias")
+
+
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("B,G,res,heads,shift", [(4, 2, 12, 6, 3),
+                                                 (4, 4, 12, 2, 0),
+                                                 (16, 8, 84, 6, 3)])
+def test_fusion_block_bp_kernel(dev, cross, B, G, res, heads, shift):
+    """K7 forward and backward (dropout and DropPath on) on group-major
+    windows against the bp plain versions on the same masks."""
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
+    gen = torch.Generator().manual_seed(B + G + res + heads + shift + cross)
+    C, ws = 12, 6
+    nW, N = (res // ws) ** 2, ws * ws
+    qkv = (_ln(gen, C) + _lin(gen, C, C) + _lin(gen, 2 * C, C) if cross
+           else _lin(gen, 3 * C, C))
+    p = [t.to(dev).requires_grad_() for t in _ln(gen, C) + qkv
+         + _lin(gen, C, C) + _ln(gen, C) + _lin(gen, 4 * C, C)
+         + _lin(gen, C, 4 * C)]
+    x, y, g = (_rand(gen, B // G, nW, N, G * C).to(dev) for _ in "xyg")
+    x.requires_grad_()
+    y.requires_grad_()
+    bias = _rand(gen, heads, N, N, scale=0.5).to(dev).requires_grad_()
+    m = shift_attn_mask(res, res, ws, shift)
+    mask = None if m is None else torch.from_numpy(m).to(dev)
+    dp = (torch.rand(B, 2, generator=gen) > 0.2).float().to(dev) / 0.8
+    args = (bias, mask, dp, 9, RATES, True)
+    before = (fbp.fused_cross_fusion_block_bp if cross
+              else fbp.fused_fusion_block_bp).launches
+    if cross:
+        out = fbp.fused_cross_fusion_block_bp(x, y, p, *args)
+        want = fbp.cross_fusion_block_bp_reference(x.detach(), y.detach(), p,
+                                                   *args)
+    else:
+        out = fbp.fused_fusion_block_bp(x, p, *args)
+        want = fbp.fusion_block_bp_reference(x.detach(), p, *args)
+    assert (fbp.fused_cross_fusion_block_bp if cross
+            else fbp.fused_fusion_block_bp).launches == before + 1
+    _close(out.detach(), want)
+    out.backward(g)
+    dx, dy, dbias, dps = fbp.fusion_block_bp_reference_backward(
+        g, x.detach(), y.detach(), p, bias, mask, dp, 9, RATES, True, cross)
+    _close(x.grad, dx)
+    if cross:
+        _close(y.grad, dy)
+    _close_sum(bias.grad, dbias, "dbias")
+    for i, (a, b) in enumerate(zip(p, dps)):
+        _close_sum(a.grad, b, f"dparams[{i}]")
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dot_shapes_kernel(dev, bf16):
+    """K8: a broadcast batched product against its plain version, then one
+    chain of each variant (one cell) against the einsum chain."""
+    from multimodal_neuroimage_tpu_torch.ops import dot_shapes as ds
+    gen = torch.Generator().manual_seed(3)
+    a = _rand(gen, 3, 70, 33).to(dev)
+    b = _rand(gen, 2, 3, 33, 65).to(dev)
+    before = ds.batched_matmul.launches
+    got = ds.batched_matmul(a.unsqueeze(0).expand(2, 3, 70, 33), b, 0.5,
+                            bf16)
+    assert ds.batched_matmul.launches == before + 1
+    want = ds.batched_matmul(a.cpu().unsqueeze(0).expand(2, 3, 70, 33),
+                             b.cpu(), 0.5, bf16)
+    _close(got.cpu(), want)
+    for v in ds.VARIANTS:
+        ops = ds.inputs(v, device=dev)
+        out = ds.dot_chain(v, *ops, 2, bf16, cells=1)
+        ref = ds.dot_chain_reference(v, *ops, 2, bf16, cells=1)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        assert err <= (5e-3 if bf16 else 1e-5) * ref.abs().max().item(), v
+
+
 @pytest.mark.parametrize("adamw,clip", [(True, False), (False, True)])
 def test_fused_adam_kernel(dev, adamw, clip):
     gen = torch.Generator().manual_seed(11)
@@ -262,6 +356,8 @@ def _tiny_batch(cfg):
 # card vs CPU gradients of the tiny model, per tensor relative to its
 # max-abs: float32 summation-order drift carried back through its depth
 GRAD_REL = 1e-3
+# the kernels of the flagship on the std fusion layout (K1-K4)
+STD_PATH = ("K1", "K2", "K3", "K4")
 
 
 def test_every_parameter_gets_a_kernel_gradient_on_the_card(dev):
@@ -289,13 +385,60 @@ def test_every_parameter_gets_a_kernel_gradient_on_the_card(dev):
         if device.type == "cuda":
             counts = ops.launches()
     assert all(n > 0 for k, n in counts.items()
-               if "adam" not in k and not k.startswith("K6")), counts
-    assert counts["K6 fused_attention"] == 0, counts      # T = 33: K1 route
+               if k.startswith(STD_PATH)), counts
+    # T = 33: the K1 route; the std layout: no K7
+    assert not any(n for k, n in counts.items()
+                   if k.startswith(("K6", "K7", "K8"))), counts
     np.testing.assert_allclose(losses["cuda"].item(), losses["cpu"].item(),
                                rtol=1e-4, atol=1e-5)
     want = dict(models["cpu"].named_parameters())
     for name, p in models["cuda"].named_parameters():
         assert p.grad is not None, name
+        err = (p.grad.cpu() - want[name].grad).abs().max().item()
+        bound = GRAD_REL * want[name].grad.abs().max().item() + 1e-7
+        assert torch.isfinite(p.grad).all() and err <= bound, (name, err,
+                                                               bound)
+
+
+def test_bp_layout_with_attention_dropout_on_the_card_matches_the_cpu(
+        dev, monkeypatch):
+    """The tiny model on the bp fusion layout (two groups of one subject)
+    with the SwinV2 head's attention dropout at 0.1: a training forward and
+    backward runs K7 (never K2/K3) and K4 with dropout, and the loss and
+    every gradient match plain autograd on the CPU."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.nn import swinfusion as tsf
+    from multimodal_neuroimage_tpu_torch.nn.swin2d import WindowAttentionV2
+    from multimodal_neuroimage_tpu_torch.train.losses import (active_losses,
+                                                              compute_losses)
+    from multimodal_neuroimage_tpu_torch.train.state import batch_to_device
+    monkeypatch.setattr(tsf, "_LAYOUT", "bp")
+    monkeypatch.setenv("FUSION_BP_GROUP", "1")
+    cfg = _tiny_cfg()
+    specs = active_losses(cfg.task, cfg.fine_tune_task)
+    batch = _tiny_batch(cfg)
+    models, losses = {}, {}
+    for device in (dev, torch.device("cpu")):
+        model = _tiny_model(cfg, device).train()
+        for m in model.modules():
+            if isinstance(m, WindowAttentionV2):
+                m.attn_drop = 0.1
+        inputs = batch_to_device(batch, device)
+        ops.reset_launches()
+        out = model(inputs, generator=torch.Generator().manual_seed(2))
+        losses[device.type] = compute_losses(out, inputs, specs)["total"]
+        losses[device.type].backward()
+        torch.cuda.synchronize()
+        models[device.type] = model
+        if device.type == "cuda":
+            counts = ops.launches()
+    on = [k for k in counts if k.startswith(("K1", "K4", "K7"))]
+    assert len(on) == 8 and all(counts[k] > 0 for k in on), counts
+    assert not any(n for k, n in counts.items() if k not in on), counts
+    np.testing.assert_allclose(losses["cuda"].item(), losses["cpu"].item(),
+                               rtol=1e-4, atol=1e-5)
+    want = dict(models["cpu"].named_parameters())
+    for name, p in models["cuda"].named_parameters():
         err = (p.grad.cpu() - want[name].grad).abs().max().item()
         bound = GRAD_REL * want[name].grad.abs().max().item() + 1e-7
         assert torch.isfinite(p.grad).all() and err <= bound, (name, err,
@@ -358,9 +501,10 @@ def test_predictor_on_the_card_matches_the_cpu(dev, tmp_path):
     ops.reset_launches()
     got = Predictor(cfg, ckpt, reqs, device="cuda").predict()
     forward = {k: n for k, n in ops.launches().items()
-               if "backward" not in k and "adam" not in k
-               and not k.startswith("K6")}
+               if "backward" not in k and k.startswith(STD_PATH)}
     assert len(forward) == 4 and all(n > 0 for n in forward.values()), \
+        ops.launches()
+    assert sum(ops.launches().values()) == sum(forward.values()), \
         ops.launches()
     want = Predictor(cfg, ckpt, reqs, device="cpu").predict()
     for s in want:

@@ -123,7 +123,10 @@ from multimodal_neuroimage_tpu_torch.data import loader
 from multimodal_neuroimage_tpu_torch.models.registry import (
     create_model, init_random_weights)
 from multimodal_neuroimage_tpu_torch.ops import attention, bert_layer, build
-from multimodal_neuroimage_tpu_torch.ops import fusion_block
+from multimodal_neuroimage_tpu_torch.ops import fusion_block, fusion_block_bp
+from multimodal_neuroimage_tpu_torch.ops import dot_shapes
+from multimodal_neuroimage_tpu_torch.bench import dot_shapes as dot_bench
+from multimodal_neuroimage_tpu_torch.nn import swinfusion
 from multimodal_neuroimage_tpu_torch.serve import predictor
 from multimodal_neuroimage_tpu_torch.utils import jax_import
 
@@ -141,6 +144,15 @@ batch["struct"] = torch.from_numpy(rng.normal(size=(2, 48, 48)).astype(np.float3
 with torch.no_grad():
     out = model.eval()(batch)["binary_classification"]
 assert out.shape == (2, 1) and torch.isfinite(out).all()
+
+# the same model on the bp fusion layout (K7's plain versions)
+swinfusion._LAYOUT = "bp"
+with torch.no_grad():
+    bp_out = model(batch)["binary_classification"]
+swinfusion._LAYOUT = "std"
+assert torch.allclose(bp_out, out, rtol=1e-4, atol=1e-5)
+assert dot_shapes.dot_chain("sm", *dot_shapes.inputs("sm"), 1,
+                            cells=1).shape == (1, 28, 320, 96)
 
 # one CPU training step (dropout on) through K5's plain version, and the
 # training stack's modules
@@ -182,8 +194,9 @@ print(sorted(m for m in sys.modules
 
 
 def test_port_imports_no_jax_flax_pandas_sklearn():
-    """Serve, take one flagship and one HCP training step in a fresh
-    interpreter (this test process imported jax already, tests/conftest.py):
+    """Serve (std and bp fusion layouts), take one flagship and one HCP
+    training step, run one dot-shape chain, in a fresh interpreter (this
+    test process imported jax already, tests/conftest.py):
     none of jax, flax, pandas, sklearn or the JAX package
     ``multimodal_neuroimage_tpu`` (any of its modules) gets loaded."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
