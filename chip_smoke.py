@@ -7,17 +7,21 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 2. Holds every kernel against its plain PyTorch version on the card at the
    shapes its path gives it (float32, TF32 off) and times both with CUDA
    events, beside the least time the card could take (``bound_ms``) and,
-   where one PyTorch call computes the same function, that call's time:
-   K1-K4 forward and backward (dropout on; K4 at attention dropout 0 and
-   0.1) and K5 at the flagship's shapes (B = 4); K6 forward and backward at
-   HCP's (8, 2, 1201, 11), dropout 0 and 0.1 (dq/dk/dv against autograd
-   through the plain forward); K7 forward and backward at the bp
+   where one PyTorch call computes the same function, that call's time
+   (kernel, plain and library timed in turns; a backward's library call is
+   autograd through the library forward, its graph built once): K1-K4
+   forward and backward (dropout on; K4 at attention dropout 0 and 0.1,
+   with each call's device time beside its call time: one replay of a CUDA
+   graph of 20 calls) and K5 at the flagship's shapes (B = 4); K6 forward
+   and backward at HCP's (8, 2, 1201, 11), dropout 0 and 0.1 (dq/dk/dv
+   against autograd through the plain forward); K7 forward and backward at the bp
    flagship's shapes (B = 16, two groups of G = 8, shifts 0 and 3, dropout
    0.1 and DropPath), also timed beside K2/K3 on the same inputs in the std
    layout; K8, every dot-shape variant at f32 and bf16 (one chain pair over
    its 7 cells), then the dot-shape entry point
    (``python -m multimodal_neuroimage_tpu_torch.bench.dot_shapes``) with its
-   slope times per pair beside the plain chain's and ``torch.bmm``'s.
+   slope times per pair beside the plain chain's and ``torch.bmm``'s, and
+   the fastest formulation on each.
 3. The flagship ``FuncStructCross`` (random weights from a seeded
    generator): trains with ``Trainer`` on a synthetic in-memory cohort with
    a label-linked signal (16 train and 8 val subjects, batch 4, 2 epochs,
@@ -48,7 +52,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    flagship_bp, hcp, dot_shapes) and, last, the ok line.
 
 Any failed phase raises, so the exit code is non-zero and no ok line is
-printed. Without a CUDA card it exits with code 2 before doing anything.
+printed. Without a CUDA card it exits with code 2 before doing anything;
+without the package beside it, it fails at import.
 """
 
 from __future__ import annotations
@@ -64,6 +69,8 @@ import time
 
 import numpy as np
 import torch
+
+from multimodal_neuroimage_tpu_torch.bench.timing import events_ms, graph_ms
 
 SEED = 20261016
 BATCH = 4
@@ -144,26 +151,13 @@ def _close_rel(name: str, got: torch.Tensor, want: torch.Tensor,
     return err
 
 
-def _time_ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _turns(fns, iters: int = 20):
     """Mean ms of each function, timed in turns (a, b, ..., ..., b, a) on
     one card."""
     order = list(range(len(fns)))
     ms = [0.0] * len(fns)
     for i in order + order[::-1]:
-        ms[i] += _time_ms(fns[i], iters) / 2
+        ms[i] += events_ms(fns[i], iters) / 2
     return ms
 
 
@@ -236,18 +230,20 @@ class Results:
         self.rows = {}
 
     def add(self, key, source, replaces, err, ms, plain_ms, ops, nbytes,
-            library_ms=None, std_ms=None, bound=None):
+            library_ms=None, std_ms=None, bound=None, device_ms=None,
+            library_device_ms=None):
         """One case of a kernel; ``bound`` (ms, by) replaces the float32
         bound of ``ops`` and ``nbytes`` (K8's bf16 cases)."""
+        timed = ("library", "std", "device", "library_device")
         r = self.rows.setdefault(key, {"name": key, "route": "cuda",
                                        "source": source,
                                        "replaces": replaces,
                                        "max_abs_err": 0.0, "ms": 0.0,
                                        "plain_ms": 0.0, "bound_ms": 0.0,
                                        "bound_by": None, "worst_bound": -1.0,
-                                       "library_ms": 0.0, "library_cases": 0,
-                                       "std_ms": 0.0, "std_cases": 0,
-                                       "cases": 0})
+                                       "cases": 0,
+                                       **{f"{n}_ms": 0.0 for n in timed},
+                                       **{f"{n}_cases": 0 for n in timed}})
         bound, by = bound or _bound(ops, nbytes)
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
@@ -255,7 +251,8 @@ class Results:
         r["bound_ms"] += bound
         if bound > r["worst_bound"]:
             r["worst_bound"], r["bound_by"] = bound, by
-        for name, t in (("library", library_ms), ("std", std_ms)):
+        for name, t in zip(timed, (library_ms, std_ms, device_ms,
+                                   library_device_ms)):
             if t is not None:
                 r[f"{name}_ms"] += t
                 r[f"{name}_cases"] += 1
@@ -267,6 +264,10 @@ class Results:
         cases)."""
         r = self.rows[key]
         n = r["cases"]
+
+        def mean(name):
+            c = r[f"{name}_cases"]
+            return r[f"{name}_ms"] / c if c else None
         return {"name": key, "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"],
                 "launches": sum(c.get(key, 0) for c in launches.values()),
@@ -274,27 +275,33 @@ class Results:
                                      for p, c in launches.items()},
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"] / n,
                 "plain_ms": r["plain_ms"] / n, "bound_ms": r["bound_ms"] / n,
-                "bound_by": r["bound_by"],
-                "library_ms": (r["library_ms"] / r["library_cases"]
-                               if r["library_cases"] else None),
+                "bound_by": r["bound_by"], "library_ms": mean("library"),
+                # K4 and K8 only: device time, kernel and library
+                "device_ms": mean("device"),
+                "library_device_ms": mean("library_device"),
                 # K7 only: K2/K3 on the same inputs in the std layout
-                "std_layout_ms": (r["std_ms"] / r["std_cases"]
-                                  if r["std_cases"] else None)}
+                "std_layout_ms": mean("std")}
 
 
 def _report(res, key, label, err, ms, plain_ms, ops, nbytes, src, rep,
             library_ms=None, tol=f"atol {ATOL} + rtol {RTOL}", std_ms=None,
-            bound=None):
+            bound=None, device=None):
     """Record and print one case; ``rep`` is the TPU kernel's file:line
-    under ``TPU``, or from the repository root where it has a ``/``."""
+    under ``TPU``, or from the repository root where it has a ``/``;
+    ``device``: (kernel, library or None, method) device times."""
+    dev_ms, lib_dev_ms, method = device or (None, None, None)
     bound, by = res.add(key, SOURCES + src, rep if "/" in rep else TPU + rep,
                         err, ms, plain_ms, ops, nbytes, library_ms, std_ms,
-                        bound)
+                        bound, dev_ms, lib_dev_ms)
     lib = ("" if library_ms is None
            else f"  library {library_ms:.4f} ms")
     std = "" if std_ms is None else f"  std layout (K2/K3) {std_ms:.4f} ms"
+    dev = ("" if device is None else
+           f"  device ({method}): kernel {dev_ms:.4f} ms" + (
+               "" if lib_dev_ms is None else f", library {lib_dev_ms:.4f} ms"))
     print(f"{key} {label}: max|err| {err:.3e} ({tol})  kernel {ms:.4f} ms  "
-          f"plain {plain_ms:.4f} ms  bound {bound:.6f} ms ({by}){lib}{std}")
+          f"plain {plain_ms:.4f} ms  bound {bound:.6f} ms ({by}){lib}{std}"
+          f"{dev}")
 
 
 def forward_kernels(gen, res: Results):
@@ -316,13 +323,17 @@ def forward_kernels(gen, res: Results):
                                   + _ln(gen, H) + _lin(gen, F_, H)
                                   + _lin(gen, H, F_) + _ln(gen, H)))
     x = torch.randn(BATCH, T, H, generator=gen).to(dev)
-    encoder = _encoder_layer(p, H, 12, F_)
+    encoder = _encoder_layer(p, H, 12, F_).eval()
+
+    @torch.no_grad()
+    def library():
+        return encoder(x)
     cases.append(("K1 bert_layer", "",
                   lambda: bl.bert_layer_call(x, p, 12, T),
                   lambda: bl.bert_layer_reference(x, p, 12, T),
                   "bert_layer.cu", "bert_layer.py:914",
                   sum(_bert_ops(BATCH, T, H, 12, F_)), _nbytes(x, x, *p),
-                  lambda: encoder(x)))
+                  library))
     C, Hh, N, nW = 12, 6, 36, 196
     self_p, cross_p, bias, xw, yw = _fusion_inputs(gen)
     fops = sum(_fusion_ops(BATCH, nW, N, C, Hh))
@@ -350,7 +361,9 @@ def forward_kernels(gen, res: Results):
         full = full.expand(B_, *full.shape).reshape(B_ * nw4, heads4, N4,
                                                     N4).contiguous()
         flat = [t.reshape(B_ * nw4, heads4, N4, D4) for t in (q4, k4, v4)]
-        # with dropout the library call computes another function: none
+        # with dropout the library call computes another function: none;
+        # at rate 0 SDPA on the materialised bias + mask (what the kernel
+        # reads), no mask arithmetic timed
         library = (None if rate else
                    lambda f=flat, m=full: sdpa(*f, attn_mask=m, scale=1.0))
         cases.append(("K4 window_attention", f"{args[-1]} rate {rate}",
@@ -365,17 +378,40 @@ def forward_kernels(gen, res: Results):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err = _close(f"{key} {label}", got, want, ATOL, RTOL)
-        ms, plain_ms = _alternate(kernel, plain)
+        ms, plain_ms, lib_ms = _call_times(kernel, plain, library)
+        # K4 is a few microseconds of device work a call: its device time
+        # beside the call time, which measures the host's enqueue
+        device = (_device_pair(kernel, library)
+                  if key == "K4 window_attention" else None)
         _report(res, key, label, err, ms, plain_ms, ops, nbytes, src, rep,
-                None if library is None else _time_ms(library))
+                lib_ms, device=device)
+
+
+def _call_times(kernel, plain, library=None, iters: int = 20):
+    """(kernel, plain, library or None) call times in turns on one card:
+    plain, kernel, library, library, kernel, plain."""
+    if library is None:
+        return (*_alternate(kernel, plain, iters), None)
+    plain_ms, ms, lib_ms = _turns([plain, kernel, library], iters)
+    return ms, plain_ms, lib_ms
+
+
+def _device_pair(kernel, library=None, stream=None):
+    """(kernel, library or None, method) device times of one call."""
+    k_ms, k_how = graph_ms(kernel)
+    if library is None:
+        return k_ms, None, k_how
+    l_ms, l_how = graph_ms(library, stream=stream)
+    return k_ms, l_ms, k_how if k_how == l_how else f"{k_how} / {l_how}"
 
 
 def _encoder_layer(p, H, heads, F_):
-    """torch's own post-LN encoder layer carrying K1's weights (eval, no
-    grad): the library call K1 forward is timed against."""
+    """torch's own post-LN encoder layer carrying K1's weights, dropout 0:
+    the library call K1 is timed against (forward in eval under no_grad,
+    backward in train through autograd)."""
     layer = torch.nn.TransformerEncoderLayer(
         H, heads, F_, dropout=0.0, activation="gelu", layer_norm_eps=1e-12,
-        batch_first=True, norm_first=False).cuda().eval()
+        batch_first=True, norm_first=False).cuda()
     wq, bq, wk, bk, wv, bv, wo, bo, g1, b1, w1, b1m, w2, b2m, g2, b2 = p
     with torch.no_grad():
         for dst, src in ((layer.self_attn.in_proj_weight,
@@ -391,11 +427,7 @@ def _encoder_layer(p, H, heads, F_):
                          (layer.linear2.bias, b2m),
                          (layer.norm2.weight, g2), (layer.norm2.bias, b2)):
             dst.copy_(src)
-
-    @torch.no_grad()
-    def run(x):
-        return layer(x)
-    return run
+    return layer
 
 
 def _fusion_inputs(gen):
@@ -411,6 +443,18 @@ def _fusion_inputs(gen):
     xw = torch.randn(BATCH, nW, N, C, generator=gen).to(dev)
     yw = torch.randn(BATCH, nW, N, C, generator=gen).to(dev)
     return self_p, cross_p, bias, xw, yw
+
+
+def _sdpa_window(q, k, v, bias, mask):
+    """K4's function at rate 0 in one ``scaled_dot_product_attention``
+    call over (B * nW, H, N, D), bias + mask as its ``attn_mask``."""
+    B_, nw, heads, N, D = q.shape
+    full = bias[None] + (0.0 if mask is None else mask[:, None])
+    full = full.expand(B_, nw, heads, N, N).reshape(B_ * nw, heads, N, N)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *(t.reshape(B_ * nw, heads, N, D) for t in (q, k, v)),
+        attn_mask=full, scale=1.0)
+    return out.reshape(q.shape)
 
 
 def _k4_inputs(gen):
@@ -446,12 +490,12 @@ def backward_kernels(gen, res: Results, n_params: int):
     rates, seed = (0.1, 0.1), 12345
 
     def report(key, label, errs, kernel, plain, src, rep, ops, nbytes,
-               library=None):
-        ms, plain_ms = _alternate(kernel, plain, iters=10)
+               library=None, device=None):
+        ms, plain_ms, lib_ms = _call_times(kernel, plain, library, 10)
         _report(res, key, label, max(errs), ms, plain_ms, ops, nbytes, src,
-                rep, None if library is None else _time_ms(library),
-                tol=f"dx/dy: atol {ATOL} + rtol {RTOL}; sums: {SUM_REL} * "
-                    f"max|ref| + {SUM_ATOL}")
+                rep, lib_ms, tol=f"dx/dy: atol {ATOL} + rtol {RTOL}; sums: "
+                                 f"{SUM_REL} * max|ref| + {SUM_ATOL}",
+                device=device)
 
     # K1: B 4 x T 369 x H 84, 12 heads, F 3072
     H, F_, T = 84, 3072, 369
@@ -476,9 +520,17 @@ def backward_kernels(gen, res: Results, n_params: int):
     errs = [_close("K1 backward dx", dx, want[0], ATOL, RTOL)]
     errs += [_close_rel(f"K1 backward dparams[{i}]", a, b, SUM_REL)
              for i, (a, b) in enumerate(zip(dps, want[1:]))]
+    # the library call: autograd through torch's encoder layer (train,
+    # dropout 0) on the same weights, graph built once
+    layer = _encoder_layer(p, H, 12, F_).train()
+    with torch.enable_grad():
+        xl = x.detach().requires_grad_()
+        ins, out = [xl] + list(layer.parameters()), layer(xl)
     report("K1 bert_layer backward", "", errs, k1, plain, "bert_layer.cu",
            "bert_layer.py:1008", 2 * _bert_ops(BATCH, T, H, 12, F_)[0],
-           _nbytes(x, g, x, *p, *p))
+           _nbytes(x, g, x, *p, *p),
+           lambda: torch.autograd.grad(out, ins, g, retain_graph=True))
+    del layer, ins, out
 
     # K2 / K3: B 4 x 196 windows x 36 x 12, 6 heads, dropout and DropPath
     self_p, cross_p, bias, xw, yw = _fusion_inputs(gen)
@@ -555,10 +607,23 @@ def backward_kernels(gen, res: Results, n_params: int):
                 for n, a, b in zip("qkv", got[:3], want[:3])]
         errs.append(_close_rel(f"K4 backward dbias rate {rate}", got[3],
                                want[3], SUM_REL))
+        library, side = None, None
+        if not rate:
+            # autograd through SDPA with the mask built in the graph from
+            # bias (expanded) + mask, so that dbias is among its gradients;
+            # built on a side stream, where its backward is then captured
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                _, library = _plain_backward(
+                    lambda q_, k_, v_, b_, mask=mask: _sdpa_window(
+                        q_, k_, v_, b_, mask), (q, k, v, b4), g4)
+            torch.cuda.current_stream().wait_stream(side)
         report("K4 window_attention backward", f"{label} rate {rate}", errs,
                kern, plain, "window_attention.cu", "attention.py:332",
                2 * _attention_ops(q)[0],
-               _nbytes(q, k, v, g4, mask, b4, q, k, v, b4))
+               _nbytes(q, k, v, g4, mask, b4, q, k, v, b4), library,
+               _device_pair(kern, library, side))
 
     # K5 over the flagship's parameter count, AdamW with clipping
     pk, gk, mk = (torch.randn(n_params, generator=gen).to(dev)
@@ -616,10 +681,9 @@ def mha_kernels(gen, res: Results):
         want = plain_fwd()
         torch.cuda.synchronize()
         err = _close(f"K6 forward rate {rate}", out, want, ATOL, RTOL)
-        ms, plain_ms = _alternate(fwd, plain_fwd)
-        library = (_time_ms(lambda: torch.nn.functional
-                            .scaled_dot_product_attention(q, k, v, scale=1.0))
-                   if rate == 0.0 else None)
+        ms, plain_ms, library = _call_times(
+            fwd, plain_fwd, None if rate else lambda: torch.nn.functional
+            .scaled_dot_product_attention(q, k, v, scale=1.0))
         _report(res, "K6 fused_attention", f"rate {rate}", err, ms, plain_ms,
                 ops, _nbytes(q, k, v, q), "mha_attention.cu",
                 "attention.py:137", library)
@@ -631,10 +695,16 @@ def mha_kernels(gen, res: Results):
         torch.cuda.synchronize()
         errs = [_close(f"K6 backward d{n} rate {rate}", a, b, ATOL, RTOL)
                 for n, a, b in zip("qkv", got, want)]
-        ms, plain_ms = _alternate(bwd, plain, iters=10)
+        fn = None
+        if not rate:   # autograd through SDPA, graph built once
+            _, fn = _plain_backward(
+                lambda q_, k_, v_: torch.nn.functional
+                .scaled_dot_product_attention(q_, k_, v_, scale=1.0),
+                (q, k, v), g)
+        ms, plain_ms, library = _call_times(bwd, plain, fn, 10)
         _report(res, "K6 fused_attention backward", f"rate {rate}",
                 max(errs), ms, plain_ms, bwd_ops, _nbytes(q, k, v, g, q, k, v),
-                "mha_attention.cu", "attention.py:159")
+                "mha_attention.cu", "attention.py:159", library)
 
 
 def bp_kernels(gen, res: Results):
@@ -776,9 +846,11 @@ def dot_shape_kernels(res: Results):
             errs[v, bf16] = err
     torch.cuda.synchronize()
     ops.reset_launches()
-    timed = {bf16: bench.run("bf16" if bf16 else "f32")
+    timed = {bf16: bench.run("bf16" if bf16 else "f32", device=False)
              for bf16 in (False, True)}
     torch.cuda.synchronize()
+    # read before the graph-timed slopes: a captured launch counts once, at
+    # capture, and its replays not at all
     counts = ops.launches()
     print(f"launches in the dot-shape run: {counts}")
     if counts["K8 dot_shapes"] == 0 or any(
@@ -786,15 +858,15 @@ def dot_shape_kernels(res: Results):
         raise AssertionError(f"the dot-shape run launched {counts}")
     for (v, bf16), err in errs.items():
         operands = ds.inputs(v, device="cuda")
-        t2, t10 = (bench._chain_ms(
-            lambda r: ds.dot_chain_reference(v, *operands, r, bf16), r)
-            for r in (2, 10))
-        t = timed[bf16][v]
+        plain = bench.slope_ms(
+            lambda r: ds.dot_chain_reference(v, *operands, r, bf16))
+        t = {**timed[bf16][v], **bench.device_variant(v, bf16)}
         _report(res, "K8 dot_shapes", f"{v} {'bf16' if bf16 else 'f32'} "
-                f"(ms per pair)", err, t["ms"], (t10 - t2) / 8, 0, 0,
+                f"(ms per pair)", err, t["ms"], plain, 0, 0,
                 "dot_shapes.cu", "scripts/bench_dot_shapes.py:138",
                 library_ms=t["bmm_ms"], bound=bench.bound_ms(v, bf16),
-                tol=f"{DOT_REL[bf16]} * max|ref|")
+                tol=f"{DOT_REL[bf16]} * max|ref|",
+                device=(t["device_ms"], t["bmm_device_ms"], "graph"))
     return counts
 
 
@@ -966,7 +1038,7 @@ def _serve(cfg, ckpt, requests, folder, label, card, reference="CPU"):
         beside = (f"; std layout predict step {ref:.2f} ms "
                   f"({cfg.batch_size / ref * 1e3:.2f} subjects/s)")
     else:
-        fwd = _time_ms(lambda: pred.step(first), iters=5)
+        fwd = events_ms(lambda: pred.step(first), iters=5)
     print(f"{label}: served {n} requests in {wall:.3f} s: {n / wall:.2f} "
           f"requests/s end to end (host preprocessing included); predict "
           f"step {fwd:.2f} ms per batch of {cfg.batch_size} "
@@ -1254,9 +1326,11 @@ def _ptxas_summary(log: str):
         if m:
             n = int(m.group(1))
             rest = m.group(2)[n:]
-            # one template argument, mangled as I L <type> <value> E
-            name = m.group(2)[:n] + (f"<{rest[3:rest.index('E')]}>"
-                                     if rest.startswith("IL") else "")
+            # integer template arguments, mangled as I (L <type> <value> E)+ E
+            args = re.match(r"I((?:L[a-z]+-?\d+E)+)E", rest)
+            name = m.group(2)[:n] + (
+                "<" + ", ".join(re.findall(r"L[a-z]+(-?\d+)E", args.group(1)))
+                + ">" if args else "")
         elif name and ("registers" in line or "spill" in line):
             lines.append(f"  {name}: {line.split(':', 1)[-1].strip()}")
     return lines

@@ -152,10 +152,17 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            seed: int = 0, rate: float = 0.0) -> torch.Tensor:
     """Window attention with probability dropout (differentiable): the CUDA
     kernels on CUDA tensors, the plain version on CPU tensors. Shapes and
-    dropout as in :func:`attention_reference`."""
+    dropout as in :func:`attention_reference`. Where no gradient is asked
+    for (inference, or no input requires one), the kernel launches without
+    the autograd Function around it."""
     _check_rate(rate)
-    return _WindowAttentionFunction.apply(q, k, v, bias, mask, int(seed),
-                                          float(rate))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad or bias.requires_grad):
+        return _WindowAttentionFunction.apply(q, k, v, bias, mask, int(seed),
+                                              float(rate))
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, bias, mask, seed, rate)
+    return _launch_forward(q, k, v, bias, mask, seed, rate)
 
 
 fused_window_attention.launches = 0

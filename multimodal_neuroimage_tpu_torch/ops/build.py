@@ -59,7 +59,8 @@ _SIGNATURES = {
                                           _D, _I, _P]),
     "mha_forward": (_I, [_P] * 5 + [_I] * 4 + [_D, _P]),
     "mha_backward": (_I, [_P] * 10 + [_I] * 4 + [_D, _P]),
-    "batched_matmul": (_I, [_P] * 3 + [_I] * 5 + [_L] * 4 + [_F, _I, _P]),
+    "batched_matmul": (_I, [_P] * 4 + [_I] * 5 + [_L] * 4
+                       + [_F, _F, _I, _I, _I, _P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -72,17 +73,18 @@ class KernelLibrary:
         self.build_seconds = build_seconds
         self.build_log = build_log
         self._lib = ctypes.CDLL(str(path))
+        self._fns = {}
         for name, (restype, argtypes) in _SIGNATURES.items():
-            fn = getattr(self._lib, name)
+            fn = self._fns[name] = getattr(self._lib, name)
             fn.restype, fn.argtypes = restype, argtypes
 
     def value(self, name: str, *args):
         """Call a query function (no launch) and return its result."""
-        return getattr(self._lib, name)(*args)
+        return self._fns[name](*args)
 
     def call(self, name: str, *args) -> None:
         """Launch through entry point ``name``; raise on a CUDA error."""
-        err = getattr(self._lib, name)(*args)
+        err = self._fns[name](*args)
         if err != 0:
             msg = self._lib.kernels_error_string(err).decode()
             raise RuntimeError(f"{name} failed: cudaError {err} ({msg})")
@@ -168,13 +170,23 @@ def library() -> KernelLibrary:
     return _LIBRARY
 
 
+# the current stream's raw handle without building a torch.cuda.Stream
+# object, where PyTorch (a CUDA build) offers it
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream",
+                      lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _RAW_STREAM(t.get_device())
 
 
 def check_cuda_f32(name: str, t: torch.Tensor, shape=None) -> None:
-    """Wrapper-side validation before a pointer goes to a kernel."""
+    """Wrapper-side validation before a pointer goes to a kernel: one test
+    a tensor when it passes, the reason when it does not."""
+    if (t.is_cuda and t.dtype is torch.float32 and t.is_contiguous()
+            and (shape is None or t.shape == shape)):
+        return
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.float32:

@@ -14,12 +14,16 @@ cells are an outer batch level whose inputs broadcast (batch stride 0).
 :func:`batched_matmul` launches the kernel on CUDA tensors (or raises) and
 runs its plain version on CPU tensors; :func:`dot_chain` is the chain
 through it and :func:`dot_chain_reference` the same chain in
-``torch.einsum`` (the plain version).
+``torch.einsum`` (the plain version). :func:`choose_config` picks the
+kernel's block tile and split-K factor for a product's shape, and
+:func:`k_slices` gives the k range of each split, as the kernel computes
+them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,18 +78,72 @@ def _round(t: torch.Tensor, bf16: bool) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32) if bf16 else t
 
 
+# ---- the kernel's configurations --------------------------------------------------
+
+# block tiles (BM, BN) of csrc/dot_shapes.cu, in its order
+TILES = ((128, 128), (64, 128), (48, 128), (128, 48), (64, 96), (48, 96))
+K_CHUNK = 32          # split-K granularity (DOT_KCHUNK)
+SMS = 132             # streaming multiprocessors of an H100 SXM
+SPLIT_BELOW = 4 * SMS  # split K while a product has fewer blocks than this
+MIN_CHUNKS = 4        # ... keeping at least this many k chunks a split
+MAX_BATCH = 65535     # the grid's z extent
+# (tile, splits) that replaces choose_config's pick when set: a hook for
+# tests and the per-product timing that reaches every configuration
+_CONFIG: Optional[Tuple[int, int]] = None
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def choose_config(M: int, N: int, K: int, batch: int) -> Tuple[int, int]:
+    """(tile, splits) of K8 for a batch of (M, K) x (K, N) products: the
+    tile whose padded output is least (then the larger tile, then the wider
+    one), and split-K where the grid has fewer than ``SPLIT_BELOW`` blocks
+    and K holds at least two splits of ``MIN_CHUNKS`` chunks. Cached: a
+    chain asks for the same few shapes on every call."""
+    if min(M, N, K, batch) < 1 or batch > MAX_BATCH:
+        raise ValueError(f"no K8 configuration for M={M}, N={N}, K={K}, "
+                         f"batch={batch} (each >= 1, batch <= {MAX_BATCH})")
+
+    def cost(i):
+        bm, bn = TILES[i]
+        return (_cdiv(M, bm) * bm * _cdiv(N, bn) * bn, -bm * bn, -bn)
+    tile = min(range(len(TILES)), key=cost)
+    bm, bn = TILES[tile]
+    blocks = _cdiv(M, bm) * _cdiv(N, bn) * batch
+    chunks = _cdiv(K, K_CHUNK)
+    splits = 1
+    if blocks < SPLIT_BELOW and chunks >= 2 * MIN_CHUNKS:
+        splits = min(_cdiv(SPLIT_BELOW, blocks), chunks // MIN_CHUNKS)
+    return tile, splits
+
+
+def k_slices(K: int, splits: int) -> List[Tuple[int, int]]:
+    """[k0, k1) of each split, as the kernel cuts K: split s takes chunks
+    [s * nc // splits, (s + 1) * nc // splits) of nc = ceil(K / K_CHUNK)."""
+    nc = _cdiv(K, K_CHUNK)
+    if not 1 <= splits <= nc:
+        raise ValueError(f"splits must be in [1, {nc}] for K={K}, got "
+                         f"{splits}")
+    return [(s * nc // splits * K_CHUNK,
+             min((s + 1) * nc // splits * K_CHUNK, K)) for s in range(splits)]
+
+
 # ---- the kernel ----------------------------------------------------------------
 
 def _batch_strides(t: torch.Tensor, name: str):
-    """(outer, inner) sizes and strides of t's batch dims (up to two; a
-    stride of 0 broadcasts); its last two dims must be row-major."""
-    if t.ndim < 2 or t.ndim > 4:
-        raise ValueError(f"{name}: expected 2 to 4 dims, got {t.ndim}")
-    if t.stride(-1) != 1 or t.stride(-2) != t.shape[-1]:
+    """(outer, outer stride, inner, inner stride) of t's batch dims (up to
+    two; a stride of 0 broadcasts); its last two dims must be row-major."""
+    nd, shape, stride = t.dim(), t.shape, t.stride()
+    if nd < 2 or nd > 4:
+        raise ValueError(f"{name}: expected 2 to 4 dims, got {nd}")
+    if stride[-1] != 1 or stride[-2] != shape[-1]:
         raise ValueError(f"{name}: the last two dims must be row-major")
-    lead = list(zip(t.shape[:-2], t.stride()[:-2]))
-    lead = [(1, 0)] * (2 - len(lead)) + lead
-    return lead
+    if nd == 4:
+        return shape[0], stride[0], shape[1], stride[1]
+    return (1, 0, shape[0], stride[0]) if nd == 3 else (1, 0, 1, 0)
 
 
 def batched_matmul(a: torch.Tensor, b: torch.Tensor, alpha: float = 1.0,
@@ -93,30 +151,61 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, alpha: float = 1.0,
     """(*batch, M, K) x (*batch, K, N) -> (*batch, M, N) float32 with every
     operand element ``alpha * a`` / ``b`` rounded to bf16 first when
     ``bf16``. On CUDA tensors the K8 kernel (batch dims may broadcast with
-    stride 0, e.g. ``expand``); on CPU tensors the plain version."""
-    if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
-        raise ValueError(f"cannot multiply {tuple(a.shape)} by "
-                         f"{tuple(b.shape)}")
+    stride 0, e.g. ``expand``) with the (tile, splits) of
+    :func:`choose_config`; on CPU tensors the plain version."""
     if a.device.type == "cpu":
+        _check_shapes(a, b)
         return torch.matmul(_round(a * alpha, bf16), _round(b, bf16))
-    for name, t in (("a", a), ("b", b)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    (outer, sa0), (inner, sa1) = _batch_strides(a, "a")
-    _, (sb0, sb1) = zip(*_batch_strides(b, "b"))
-    M, K, N = a.shape[-2], a.shape[-1], b.shape[-1]
-    out = torch.empty(*a.shape[:-2], M, N, dtype=torch.float32,
-                      device=a.device)
-    build.library().call("batched_matmul", a.data_ptr(), b.data_ptr(),
-                         out.data_ptr(), outer, inner, M, N, K, sa0, sa1, sb0,
-                         sb1, float(alpha), int(bf16), build.stream_of(a))
-    batched_matmul.launches += 1
-    return out
+    return _launch(a, b, alpha, BF16 if bf16 else F32)
 
 
 batched_matmul.launches = 0
+
+# K8's modes: float32 throughout; every operand rounded to bf16 at load
+# (after alpha); as BF16 with ``a`` in bfloat16, already scaled and rounded;
+# as BF16 with the output stored as bfloat16(out_scale * C), in one split
+F32, BF16, BF16_A, BF16_OUT = range(4)
+
+
+def _check_shapes(a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"cannot multiply {tuple(a.shape)} by "
+                         f"{tuple(b.shape)}")
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, alpha: float, mode: int,
+            out_scale: float = 0.0) -> torch.Tensor:
+    """One K8 launch in ``mode`` on CUDA tensors (or raise). ``BF16_A``
+    takes ``a`` in bfloat16 and alpha 1; ``BF16_OUT`` returns bfloat16."""
+    _check_shapes(a, b)
+    a_dtype = torch.bfloat16 if mode == BF16_A else torch.float32
+    for name, t, dtype in (("a", a, a_dtype), ("b", b, torch.float32)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if mode == BF16_A and alpha != 1.0:
+        raise ValueError("a bfloat16 a is taken as scaled: alpha must be 1")
+    outer, sa0, inner, sa1 = _batch_strides(a, "a")
+    _, sb0, _, sb1 = _batch_strides(b, "b")
+    M, K, N = a.shape[-2], a.shape[-1], b.shape[-1]
+    # the kernel refuses a tile or a split count outside its domain
+    tile, splits = _CONFIG or choose_config(M, N, K, outer * inner)
+    if mode == BF16_OUT:
+        splits = 1
+    out = torch.empty(a.shape[:-2] + (M, N), device=a.device,
+                      dtype=torch.bfloat16 if mode == BF16_OUT
+                      else torch.float32)
+    part = (torch.empty(splits * out.numel(), dtype=torch.float32,
+                        device=a.device) if splits > 1 else None)
+    build.library().call("batched_matmul", a.data_ptr(), b.data_ptr(),
+                         out.data_ptr(),
+                         None if part is None else part.data_ptr(), outer,
+                         inner, M, N, K, sa0, sa1, sb0, sb1, float(alpha),
+                         float(out_scale), mode, tile, splits,
+                         build.stream_of(a))
+    batched_matmul.launches += 1
+    return out
 
 
 # ---- the chains ------------------------------------------------------------------
@@ -131,12 +220,19 @@ def dot_chain(variant: str, a: torch.Tensor, b: torch.Tensor,
               cells: int = NCH) -> torch.Tensor:
     """``reps`` chained pairs ``S = a b; a = (1e-3 S) c`` in each of
     ``cells`` cells, through :func:`batched_matmul` (2 * reps launches on
-    the card): the output is (cells, *shapes(variant)[0])."""
+    the card): the output is (cells, *shapes(variant)[0]). At bf16 on the
+    card the scores product stores bf16(1e-3 S) and the context product
+    takes it as its rounded operand: the values the plain chain's
+    ``cast(S * 1e-3)`` gives, in half the bytes."""
     shapes(variant)
     a, b, c = (_cells(t, cells) for t in (a, b, c))
     for _ in range(reps):
-        s = batched_matmul(a, b, 1.0, bf16)
-        a = batched_matmul(s, c, SCALE, bf16)
+        if bf16 and a.is_cuda:
+            s = _launch(a, b, 1.0, BF16_OUT, SCALE)
+            a = _launch(s, c, 1.0, BF16_A)
+        else:
+            s = batched_matmul(a, b, 1.0, bf16)
+            a = batched_matmul(s, c, SCALE, bf16)
     return a.contiguous()
 
 

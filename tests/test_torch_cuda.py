@@ -290,6 +290,176 @@ def test_dot_shapes_kernel(dev, bf16):
         assert err <= (5e-3 if bf16 else 1e-5) * ref.abs().max().item(), v
 
 
+def _dot_close(got, want):
+    """K8 against its plain version on one product: both sides multiply the
+    same (bf16-rounded) operands exactly and add in f32 in other orders."""
+    torch.cuda.synchronize()
+    err = (got.cpu() - want).abs().max().item()
+    assert torch.isfinite(got).all() and err <= 1e-5 * want.abs().max(), err
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("tile", range(6))
+def test_dot_shapes_every_config(dev, monkeypatch, tile, splits, bf16):
+    """Every block tile and split-K factor the wrapper can pick, on a
+    product that spans several ragged tiles in M and N."""
+    from multimodal_neuroimage_tpu_torch.ops import dot_shapes as ds
+    gen = torch.Generator().manual_seed(tile + 10 * splits)
+    a, b = _rand(gen, 2, 3, 150, 200), _rand(gen, 2, 3, 200, 170)
+    want = ds.batched_matmul(a, b, 0.7, bf16)
+    monkeypatch.setattr(ds, "_CONFIG", (tile, splits))
+    _dot_close(ds.batched_matmul(a.to(dev), b.to(dev), 0.7, bf16), want)
+
+
+@pytest.mark.parametrize("M,N,K", [(150, 170, 200), (37, 53, 29)])
+@pytest.mark.parametrize("form", ["bf16 a", "bf16 out"])
+@pytest.mark.parametrize("tile", range(6))
+def test_dot_shapes_bf16_forms(dev, monkeypatch, tile, form, M, N, K):
+    """The chain's two bf16 forms on every tile: a bfloat16 left operand
+    (taken as rounded) and a bfloat16(out_scale * C) output; K 29 loads a
+    bf16 row element by element. A bf16 output may differ by one rounding
+    step (at most 2^-7 of the value) where the two f32 summation orders
+    straddle it, and by their difference itself (1e-5 of the largest
+    output bounds it) where the value is near zero."""
+    from multimodal_neuroimage_tpu_torch.ops import dot_shapes as ds
+    gen = torch.Generator().manual_seed(tile + M)
+    a, b = _rand(gen, 2, M, K), _rand(gen, 2, K, N)
+    monkeypatch.setattr(ds, "_CONFIG", (tile, 1))
+    before = ds.batched_matmul.launches
+    if form == "bf16 a":
+        a = (0.7 * a).bfloat16()
+        got = ds._launch(a.to(dev), b.to(dev), 1.0, ds.BF16_A)
+        _dot_close(got, ds.batched_matmul(a.float(), b, 1.0, True))
+    else:
+        got = ds._launch(a.to(dev), b.to(dev), 1.0, ds.BF16_OUT, 1e-3)
+        want = (ds.batched_matmul(a, b, 1.0, True) * 1e-3).bfloat16().float()
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        err = (got.float().cpu() - want).abs()
+        ulp = 2 ** -7 * torch.maximum(got.float().cpu().abs(), want.abs())
+        assert (err <= ulp + 1e-5 * want.abs().max()).all(), err.max()
+    assert ds.batched_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("M,N,K", [(37, 53, 29), (37, 52, 44), (5, 7, 300),
+                                   (130, 97, 16)])
+def test_dot_shapes_ragged(dev, monkeypatch, M, N, K, bf16):
+    """Ragged M, N and K (K not a multiple of 16 or of 4: element-wise
+    loads), through the chooser and through the smallest and the largest
+    tile with as many splits as K allows."""
+    from multimodal_neuroimage_tpu_torch.ops import dot_shapes as ds
+    gen = torch.Generator().manual_seed(M + N + K)
+    a, b = _rand(gen, 3, M, K), _rand(gen, 3, K, N)
+    want = ds.batched_matmul(a, b, 1.3, bf16)
+    splits = len(ds.k_slices(K, -(-K // ds.K_CHUNK)))
+    for config in (None, (0, splits), (5, 1)):
+        monkeypatch.setattr(ds, "_CONFIG", config)
+        _dot_close(ds.batched_matmul(a.to(dev), b.to(dev), 1.3, bf16), want)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("which", ["a", "b", "both", "inner"])
+def test_dot_shapes_broadcast(dev, which, bf16):
+    """Stride-0 batch levels on either operand (outer or inner level)."""
+    from multimodal_neuroimage_tpu_torch.ops import dot_shapes as ds
+    gen = torch.Generator().manual_seed(len(which))
+    a, b = _rand(gen, 3, 40, 96), _rand(gen, 3, 96, 64)
+    if which == "inner":
+        a = _rand(gen, 4, 1, 40, 96).expand(4, 3, 40, 96)
+        b = b.unsqueeze(0).expand(4, 3, 96, 64)
+    else:
+        a = a.unsqueeze(0).expand(4, 3, 40, 96) if which != "b" else \
+            _rand(gen, 4, 3, 40, 96)
+        b = b.unsqueeze(0).expand(4, 3, 96, 64) if which != "a" else \
+            _rand(gen, 4, 3, 96, 64)
+    got = ds.batched_matmul(a.to(dev), b.to(dev), 0.5, bf16)
+    _dot_close(got, ds.batched_matmul(a, b, 0.5, bf16))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("variant", ["cur", "sm", "st", "ffold", "flat"])
+def test_dot_shapes_variant_chain(dev, variant, bf16):
+    """Each formulation's chain at reps 1 over its 7 cells (the chooser's
+    tiles and splits at the real shapes) against the einsum chain."""
+    from multimodal_neuroimage_tpu_torch.ops import dot_shapes as ds
+    ops = ds.inputs(variant, device=dev)
+    before = ds.batched_matmul.launches
+    out = ds.dot_chain(variant, *ops, 1, bf16)
+    assert ds.batched_matmul.launches == before + 2
+    ref = ds.dot_chain_reference(variant, *ops, 1, bf16)
+    torch.cuda.synchronize()
+    assert out.shape == (ds.NCH,) + ds.shapes(variant)[0]
+    err = (out - ref).abs().max().item()
+    assert err <= (5e-3 if bf16 else 1e-5) * ref.abs().max().item(), err
+
+
+# (N, nW, heads, D): the SwinV2 head's three stages, then N = 49 windows
+K4_CASES = [(36, 4, 3, 4), (36, 1, 6, 4), (9, 1, 12, 4), (49, 4, 3, 8),
+            (49, 4, 3, 16), (49, 4, 3, 32)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("N,nW,heads,D", K4_CASES)
+def test_window_attention_head_groups(dev, N, nW, heads, D, masked, rate):
+    """K4 forward (a block per window and group of heads, online softmax)
+    against attention_reference, then K4 backward from its output."""
+    gen = torch.Generator().manual_seed(N + nW + heads + D + masked)
+    shape = (3, nW, heads, N, D)
+    q, k, v = (_rand(gen, *shape).to(dev).requires_grad_() for _ in "qkv")
+    g = _rand(gen, *shape).to(dev)
+    bias = _rand(gen, heads, N, N).to(dev).requires_grad_()
+    mask = (torch.where(torch.rand(nW, N, N, generator=gen) > 0.8, -100.0,
+                        0.0).to(dev) if masked else None)
+    before = att.fused_window_attention.launches
+    out = att.fused_window_attention(q, k, v, bias, mask, 31, rate)
+    assert att.fused_window_attention.launches == before + 1
+    _close(out.detach(), att.attention_reference(q.detach(), k.detach(),
+                                                 v.detach(), bias.detach(),
+                                                 mask, 31, rate))
+    out.backward(g)
+    want = att.attention_reference_backward(g, q, k, v, bias, mask, 31, rate)
+    for a, b in zip((q, k, v), want[:3]):
+        _close(a.grad, b)
+    _close_sum(bias.grad, want[3], "dbias")
+
+
+def test_window_attention_wide_windows(dev):
+    """Shapes past the 48 KB staging: bias read from device memory (N 96),
+    one head a block with K and V over 48 KB (D 5 pads to 8, N 1200)."""
+    gen = torch.Generator().manual_seed(8)
+    for N, D in ((96, 16), (1200, 5)):
+        shape = (1, 1, 2, N, D)
+        q, k, v = (_rand(gen, *shape, scale=0.3).to(dev) for _ in "qkv")
+        bias = _rand(gen, 2, N, N).to(dev)
+        with torch.no_grad():
+            _close(att.fused_window_attention(q, k, v, bias, None, 3, 0.1),
+                   att.attention_reference(q, k, v, bias, None, 3, 0.1))
+
+
+def test_k4_and_k8_launch_or_raise(dev, monkeypatch):
+    """On CUDA tensors K4 and K8 launch or raise: a failing launch reaches
+    the caller and the plain version never runs instead."""
+    from multimodal_neuroimage_tpu_torch.ops import build
+    from multimodal_neuroimage_tpu_torch.ops import dot_shapes as ds
+
+    class Failing:
+        def call(self, name, *args):
+            raise RuntimeError(f"{name} failed: cudaError 1 (invalid "
+                               f"argument)")
+
+    monkeypatch.setattr(build, "library", lambda: Failing())
+    q = torch.zeros(1, 1, 2, 9, 4, device=dev)
+    bias = torch.zeros(2, 9, 9, device=dev)
+    with pytest.raises(RuntimeError, match="window_attention_forward failed"):
+        att.fused_window_attention(q, q, q, bias)
+    with pytest.raises(RuntimeError, match="batched_matmul failed"):
+        ds.batched_matmul(torch.zeros(2, 8, 8, device=dev),
+                          torch.zeros(2, 8, 8, device=dev))
+
+
 @pytest.mark.parametrize("adamw,clip", [(True, False), (False, True)])
 def test_fused_adam_kernel(dev, adamw, clip):
     gen = torch.Generator().manual_seed(11)

@@ -104,3 +104,60 @@ def test_wrapper_broadcasts_batch_strides_and_counts_no_cpu_launch():
         ds.batched_matmul(a, b.transpose(1, 2))
     with pytest.raises(ValueError, match="variant"):
         ds.shapes("nope")
+
+
+def _products(variant):
+    """(M, N, K, batch) of a variant's scores and context products over the
+    7 cells, as dot_chain hands them to the kernel."""
+    a, b, c = ds.shapes(variant)
+    batch = ds.NCH * int(np.prod(a[:-2]))
+    M, K, N = a[-2], a[-1], b[-1]
+    return [(M, N, K, batch), (M, c[-1], N, batch)]
+
+
+@pytest.mark.parametrize("product", [0, 1], ids=["scores", "context"])
+@pytest.mark.parametrize("variant", ds.VARIANTS)
+def test_chooser_configures_every_product(variant, product):
+    M, N, K, batch = _products(variant)[product]
+    tile, splits = ds.choose_config(M, N, K, batch)
+    bm, bn = ds.TILES[tile]
+    # the least padded output: no tile wastes less of this product
+    padded = -(-M // bm) * bm * -(-N // bn) * bn
+    assert all(padded <= -(-M // m) * m * -(-N // n) * n for m, n in ds.TILES)
+    assert M * N / padded >= 0.8, (bm, bn)
+    blocks = -(-M // bm) * -(-N // bn) * batch
+    # split K only where the grid is short and K long: the context products
+    # of cur, ffold and flat
+    assert (splits > 1) == (product == 1 and variant in ("cur", "ffold",
+                                                         "flat"))
+    if splits > 1:
+        assert blocks < ds.SPLIT_BELOW <= 2 * blocks * splits
+        assert K // splits >= ds.MIN_CHUNKS * ds.K_CHUNK
+
+
+@pytest.mark.parametrize("K", [1, 29, 32, 40, 96, 240, 1920, 7680, 7681])
+def test_k_slices_cover_every_k_once(K):
+    nc = -(-K // ds.K_CHUNK)
+    for splits in sorted({s for s in (1, 2, 3, 5, nc // 2, nc)
+                          if 1 <= s <= nc}):
+        cuts = ds.k_slices(K, splits)
+        assert len(cuts) == splits
+        covered = np.zeros(K, int)
+        for k0, k1 in cuts:
+            assert k0 < k1 and k0 % ds.K_CHUNK == 0
+            covered[k0:k1] += 1
+        assert (covered == 1).all(), (K, splits)
+        assert [c[0] for c in cuts[1:]] == [c[1] for c in cuts[:-1]]
+
+
+@pytest.mark.parametrize("bad", [(0, 8, 8, 1), (8, 0, 8, 1), (8, 8, 0, 1),
+                                 (8, 8, 8, 0), (8, 8, 8, 65536)])
+def test_chooser_raises_outside_its_domain(bad):
+    with pytest.raises(ValueError, match="no K8 configuration"):
+        ds.choose_config(*bad)
+
+
+@pytest.mark.parametrize("K,splits", [(64, 0), (64, 3), (1, 2)])
+def test_k_slices_refuse_empty_splits(K, splits):
+    with pytest.raises(ValueError, match="splits"):
+        ds.k_slices(K, splits)
