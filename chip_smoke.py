@@ -91,8 +91,9 @@ LOGIT_ATOL, LOGIT_RTOL = 1e-3, 1e-3
 GRAD_REL = 1e-2
 SOURCES = "multimodal_neuroimage_tpu_torch/csrc/"
 TPU = "multimodal_neuroimage_tpu/ops/"
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
-PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate,
+# dense TF32 on the tensor cores
+PEAK_F32_OPS, PEAK_BYTES, PEAK_TF32_OPS = 67e12, 3.35e12, 495e12
 HCP_BATCH = 8
 FLAGSHIP_KERNELS = ("K1 bert_layer", "K2 fusion_block",
                     "K3 cross_fusion_block", "K4 window_attention",
@@ -139,15 +140,15 @@ def _close(name: str, got: torch.Tensor, want: torch.Tensor,
 
 
 def _close_rel(name: str, got: torch.Tensor, want: torch.Tensor,
-               rel: float) -> float:
-    """max |got - want| <= rel * max|want| + SUM_ATOL."""
+               rel: float, atol: float = SUM_ATOL) -> float:
+    """max |got - want| <= rel * max|want| + atol."""
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite output")
     err = (got - want).abs().max().item()
-    bound = rel * want.abs().max().item() + SUM_ATOL
+    bound = rel * want.abs().max().item() + atol
     if err > bound:
         raise AssertionError(f"{name}: max |err| {err:.3e} over {bound:.3e} "
-                             f"({rel} * max|want| + {SUM_ATOL})")
+                             f"({rel} * max|want| + {atol})")
     return err
 
 
@@ -280,7 +281,10 @@ class Results:
                 "device_ms": mean("device"),
                 "library_device_ms": mean("library_device"),
                 # K7 only: K2/K3 on the same inputs in the std layout
-                "std_layout_ms": mean("std")}
+                "std_layout_ms": mean("std"),
+                # K1 backward only: float64 errors of both GEMM routes
+                **{k: r[k] for k in ("float64_rel_err",
+                                     "simt_float64_rel_err") if k in r}}
 
 
 def _report(res, key, label, err, ms, plain_ms, ops, nbytes, src, rep,
@@ -490,12 +494,12 @@ def backward_kernels(gen, res: Results, n_params: int):
     rates, seed = (0.1, 0.1), 12345
 
     def report(key, label, errs, kernel, plain, src, rep, ops, nbytes,
-               library=None, device=None):
+               library=None, device=None, bound=None):
         ms, plain_ms, lib_ms = _call_times(kernel, plain, library, 10)
         _report(res, key, label, max(errs), ms, plain_ms, ops, nbytes, src,
                 rep, lib_ms, tol=f"dx/dy: atol {ATOL} + rtol {RTOL}; sums: "
                                  f"{SUM_REL} * max|ref| + {SUM_ATOL}",
-                device=device)
+                device=device, bound=bound)
 
     # K1: B 4 x T 369 x H 84, 12 heads, F 3072
     H, F_, T = 84, 3072, 369
@@ -529,8 +533,11 @@ def backward_kernels(gen, res: Results, n_params: int):
     report("K1 bert_layer backward", "", errs, k1, plain, "bert_layer.cu",
            "bert_layer.py:1008", 2 * _bert_ops(BATCH, T, H, 12, F_)[0],
            _nbytes(x, g, x, *p, *p),
-           lambda: torch.autograd.grad(out, ins, g, retain_graph=True))
+           lambda: torch.autograd.grad(out, ins, g, retain_graph=True),
+           bound=_k1_backward_bound(BATCH, x, g, p))
     del layer, ins, out
+    k1_float64_check(res, x, g, p, resid, seed, rates)
+    k1_batch16(gen, p, seed, rates)
 
     # K2 / K3: B 4 x 196 windows x 36 x 12, 6 heads, dropout and DropPath
     self_p, cross_p, bias, xw, yw = _fusion_inputs(gen)
@@ -650,6 +657,89 @@ def backward_kernels(gen, res: Results, n_params: int):
                                            *args),
            "fused_update.cu", "fused_update.py:106", 16 * n_params,
            7 * 4 * n_params, adamw.step)
+
+
+def _k1_backward_bound(B, x, g, p, T=369, H=84, F_=3072):
+    """K1 backward's bound on its route: the products (twice the forward's)
+    as 3xTF32, three TF32 products each at the dense TF32 tensor-core peak,
+    the rest of the attention on the CUDA cores at the f32 peak; beside
+    the bytes. (ms, by)."""
+    dense = 2 * 2 * B * T * (4 * H * H + 2 * H * F_)
+    attention = 2 * 4 * B * T * T * H
+    t_ops = (3 * dense / PEAK_TF32_OPS + attention / PEAK_F32_OPS) * 1e3
+    t_bytes = _nbytes(x, g, x, *p, *p) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k1_float64_check(res, x, g, p, resid, seed, rates):
+    """K1 backward on 3xTF32 tensor cores and on the float32 SIMT GEMM (the
+    earlier route, kept as the yardstick), each against a float64 backward
+    of the same inputs: the worst error of dx and of every parameter
+    gradient relative to its tensor's max-abs, leaving out the key bias's
+    gradient (zero in exact arithmetic: its float64 value is rounding
+    noise, so no relative error exists). The tensor-core route must stay
+    within 4x the SIMT route's."""
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    want = bl.bert_layer_reference_backward(
+        g.double(), x.double(), [t.double() for t in p], 12, x.shape[1], seed,
+        rates, True)
+    want = [want[0], *want[1]]
+    scale = max(t.abs().max().item() for t in want)
+    kept = [i for i, t in enumerate(want) if t.abs().max() > 1e-9 * scale]
+    worst = {}
+    for simt in (False, True):
+        bl._GEMM_SIMT = simt
+        try:
+            dx, dps = bl.bert_layer_backward(g, x, p, resid, 12, x.shape[1],
+                                             seed, rates, True)
+        finally:
+            bl._GEMM_SIMT = False
+        got = [dx, *dps]
+        worst[simt] = max(((got[i].double() - want[i]).abs().max()
+                           / want[i].abs().max()).item() for i in kept)
+    res.rows["K1 bert_layer backward"].update(
+        float64_rel_err=worst[False], simt_float64_rel_err=worst[True])
+    print(f"K1 bert_layer backward vs a float64 backward (worst max|err| / "
+          f"max|ref| over dx and {len(kept) - 1} of the 16 gradients): "
+          f"3xTF32 tensor cores "
+          f"{worst[False]:.3e}, float32 SIMT GEMM {worst[True]:.3e} "
+          f"(limit 4x: {worst[False] / worst[True]:.2f}x)")
+    if worst[False] > 4 * worst[True]:
+        raise AssertionError("K1 backward on 3xTF32 exceeds 4x the SIMT "
+                             "route's float64 error")
+
+
+def k1_batch16(gen, p, seed, rates, T=369, H=84, F_=3072):
+    """K1 backward at batch 16 (the bp flagship's batch): against its plain
+    version, kernel and plain times, both bounds."""
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    B = BP_BATCH
+    x, g = (torch.randn(B, T, H, generator=gen).cuda() for _ in "xg")
+    _, resid = bl._launch_forward(x, p, 12, T, seed, rates, True, True)
+
+    def k1():
+        return bl.bert_layer_backward(g, x, p, resid, 12, T, seed, rates,
+                                      True)
+    dx, dps = k1()
+    _, plain = _plain_backward(
+        lambda x_, *p_: bl.bert_layer_reference(x_, p_, 12, T, seed, rates,
+                                                True), (x,) + p, g)
+    want = plain()
+    torch.cuda.synchronize()
+    # the floor of a gradient that is zero in exact arithmetic (the key
+    # bias) is rounding noise of a sum over B * T rows: 4x batch 4's rows
+    floor = SUM_ATOL * B / BATCH
+    err = max([_close("K1 backward batch 16 dx", dx, want[0], ATOL, RTOL)]
+              + [_close_rel(f"K1 backward batch 16 dparams[{i}]", a, b,
+                            SUM_REL, floor)
+                 for i, (a, b) in enumerate(zip(dps, want[1:]))])
+    ms, plain_ms = _alternate(k1, plain, 10)
+    tc, _ = _k1_backward_bound(B, x, g, p)
+    f32, _ = _bound(2 * _bert_ops(B, T, H, 12, F_)[0],
+                    _nbytes(x, g, x, *p, *p))
+    print(f"K1 bert_layer backward batch 16: max|err| {err:.3e}  kernel "
+          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {tc:.6f} ms (3xTF32 "
+          f"tensor cores), {f32:.6f} ms (f32 CUDA cores)")
 
 
 def mha_kernels(gen, res: Results):
@@ -1205,6 +1295,7 @@ def main() -> int:
     print(f"kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
     for line in _ptxas_summary(lib.build_log):
         print(line)
+    _fusion_backward_occupancy()
 
     cfg = _flagship_cfg()
     n_params = sum(p.numel() for p in create_model(cfg).parameters())
@@ -1316,6 +1407,29 @@ def main() -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _fusion_backward_occupancy():
+    """How the multi-window fusion backward runs on this card at the
+    flagship's shapes: resident blocks an SM, windows in flight a block,
+    shared memory a block, blocks in the grid."""
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+    print("fusion backward occupancy "
+          "(cudaOccupancyMaxActiveBlocksPerMultiprocessor):")
+    for label, entry, cross, dims in (
+            ("K2 self, B 4", "fusion_block_backward", False, (4, 196)),
+            ("K3 cross, B 4", "fusion_block_backward", True, (4, 196)),
+            ("K2 self, B 16", "fusion_block_backward", False, (16, 196)),
+            ("K3 cross, B 16", "fusion_block_backward", True, (16, 196)),
+            ("K7 self, 2 groups of 8", "fusion_block_bp_backward", False,
+             (2, 8, 196)),
+            ("K7 cross, 2 groups of 8", "fusion_block_bp_backward", True,
+             (2, 8, 196))):
+        occ = fb.backward_occupancy(entry, cross, dims, 36, 12, 6, 48)
+        print(f"  {label}: {occ['blocks_per_sm']} block(s) an SM, "
+              f"{occ['windows_per_block']} windows in flight a block, "
+              f"{occ['smem_bytes']} B of shared memory a block, "
+              f"{occ['grid_blocks']} blocks")
 
 
 def _ptxas_summary(log: str):

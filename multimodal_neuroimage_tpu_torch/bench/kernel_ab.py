@@ -1,7 +1,7 @@
-"""K8 and K4 forward, and the flagship steps around K4, timed in two or
-more checkouts of the repository on one CUDA card, in turns.
+"""Kernels and the flagship steps around them, timed in two or more
+checkouts of the repository on one CUDA card, in turns.
 
-    python -m multimodal_neuroimage_tpu_torch.bench.kernel_ab BASE [OTHER ...]
+    python -m multimodal_neuroimage_tpu_torch.bench.kernel_ab [--cases LIST] BASE [OTHER ...]
 
 ``BASE`` and each ``OTHER`` are repository roots; with no ``OTHER`` the
 other side is this checkout. A worker process runs in each, in ``CYCLES``
@@ -19,9 +19,19 @@ worker times, ``ROUNDS`` times:
   back-to-back calls, as ``chip_smoke.py`` times every kernel) and the
   device time (one replay of a CUDA graph that captured 20 calls);
 
-and once, the flagship ``FuncStructCross`` at batch 4 (random weights from
-a seed, float32): 12 CUDA-synchronised training steps and 12 predict steps,
-each after 3 of warm-up, on the host clock.
+- K1 backward (``k1``) at batch 4 and 16 (T 369, H 84, 12 heads, F 3072,
+  dropout 0.1): CUDA events around 10 back-to-back calls;
+- the fusion backward (``fusion``) at batch 16, dropout 0.1 and DropPath
+  on, shift 0 and 3, self and cross: K2/K3 on (16, 196, 36, 12) windows
+  and K7 on two groups of G = 8, 10 back-to-back calls;
+
+and once, the flagship ``FuncStructCross`` (random weights from a seed,
+float32): at batch 4 (``flagship``) 12 CUDA-synchronised training steps and
+12 predict steps, and at batch 16 (``step16``) 12 training steps on each
+fusion layout, std then bp, each after 3 of warm-up, on the host clock.
+
+``--cases`` picks the groups (comma-separated; default all of k8, k4, k1,
+fusion, flagship, step16).
 
 Prints each turn's JSON line, then for every case each side's median and
 quartiles over all its samples and the ratio of its median to BASE's.
@@ -43,6 +53,7 @@ K4_STAGES = ((36, 12, 3, 3), (36, 6, 6, 0), (9, 3, 12, 0))  # N, res, heads, shi
 BATCH = 4
 STEPS = 12
 CYCLES, ROUNDS = 2, 2   # 8 samples a side for each kernel case, 48 a step
+GROUPS = ("k8", "k4", "k1", "fusion", "flagship", "step16")
 
 
 def _timing():
@@ -104,54 +115,156 @@ def _k4(out, T):
             out["k4 device"].setdefault(key, []).append(T.graph_ms(call)[0])
 
 
-def _flagship(out):
+def _lin(gen, o, i):
+    b = 1.0 / np.sqrt(i)
+    return [(torch.rand(o, i, generator=gen) * 2 - 1) * b,
+            (torch.rand(o, generator=gen) * 2 - 1) * b]
+
+
+def _ln(gen, c):
+    return [1 + 0.1 * torch.randn(c, generator=gen),
+            0.1 * torch.randn(c, generator=gen)]
+
+
+def _k1(out, T):
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    gen = torch.Generator().manual_seed(11)
+    H, F_, L, rates, seed = 84, 3072, 369, (0.1, 0.1), 12345
+    p = tuple(t.cuda() for t in sum((_lin(gen, H, H) for _ in range(4)), [])
+              + _ln(gen, H) + _lin(gen, F_, H) + _lin(gen, H, F_)
+              + _ln(gen, H))
+    for B in (4, 16):
+        x, g = (torch.randn(B, L, H, generator=gen).cuda() for _ in "xg")
+        _, resid = bl._launch_forward(x, p, 12, L, seed, rates, True, True)
+        out["k1 backward"].setdefault(f"batch {B}", []).append(T.events_ms(
+            lambda: bl.bert_layer_backward(g, x, p, resid, 12, L, seed,
+                                           rates, True), iters=10))
+
+
+def _fusion(out, T):
+    from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
+    gen = torch.Generator().manual_seed(13)
+    B, G, C, Hh, N, nW = 16, 8, 12, 6, 36, 196
+    params = {False: tuple(t.cuda() for t in _ln(gen, C) + _lin(gen, 3 * C, C)
+                           + _lin(gen, C, C) + _ln(gen, C)
+                           + _lin(gen, 4 * C, C) + _lin(gen, C, 4 * C)),
+              True: tuple(t.cuda() for t in _ln(gen, C) + _ln(gen, C)
+                          + _lin(gen, C, C) + _lin(gen, 2 * C, C)
+                          + _lin(gen, C, C) + _ln(gen, C)
+                          + _lin(gen, 4 * C, C) + _lin(gen, C, 4 * C))}
+    bias = (0.5 * torch.randn(Hh, N, N, generator=gen)).cuda()
+    xw, yw, gw = (torch.randn(B, nW, N, C, generator=gen).cuda()
+                  for _ in "xyg")
+    xg, yg, gg = (fbp.to_groups(t, G).contiguous() for t in (xw, yw, gw))
+    dp = (torch.rand(B, 2, generator=gen) > 0.1).float().cuda() / 0.9
+    train = (dp, 2468, (0.1, 0.1), True)
+    for shift in (0, 3):
+        m = shift_attn_mask(84, 84, 6, shift)
+        mask = None if m is None else torch.from_numpy(m).cuda()
+        for cross in (False, True):
+            p = params[cross]
+            _, x2r = fb._launch_forward(xw, yw if cross else None, p, bias,
+                                        mask, *train, True, cross)
+            _, x2g = fbp._launch_forward(xg, yg if cross else None, p, bias,
+                                         mask, *train, True, cross, G)
+            if cross:
+                std = (lambda p=p, mask=mask, x2r=x2r:
+                       fb.fused_cross_fusion_block_backward(
+                           gw, xw, yw, p, bias, mask, *train, x2r))
+                bp = (lambda p=p, mask=mask, x2g=x2g:
+                      fbp.fused_cross_fusion_block_bp_backward(
+                          gg, xg, yg, p, bias, mask, *train, x2g))
+            else:
+                std = (lambda p=p, mask=mask, x2r=x2r:
+                       fb.fused_fusion_block_backward(
+                           gw, xw, p, bias, mask, *train, x2r))
+                bp = (lambda p=p, mask=mask, x2g=x2g:
+                      fbp.fused_fusion_block_bp_backward(
+                          gg, xg, p, bias, mask, *train, x2g))
+            kind = "cross" if cross else "self"
+            for name, fn in ((f"K{3 if cross else 2} {kind}", std),
+                             (f"K7 {kind}", bp)):
+                out["fusion backward"].setdefault(
+                    f"{name} shift {shift}", []).append(
+                        T.events_ms(fn, iters=10))
+
+
+def _flagship_batch(B, rng):
     from multimodal_neuroimage_tpu_torch.config import Config
     from multimodal_neuroimage_tpu_torch.data.loader import (collate,
                                                              multimodal_item)
-    from multimodal_neuroimage_tpu_torch.models.registry import (
-        create_model, init_random_weights)
-    from multimodal_neuroimage_tpu_torch.serve.predictor import (
-        make_predict_step)
-    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
-    from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
-                                                             make_train_step)
     cfg = Config(task="FuncStruct", dataset_name="multimodal",
                  multimodality_type="cross_attention", target="sex",
-                 fine_tune_task="binary_classification", batch_size=BATCH,
+                 fine_tune_task="binary_classification", batch_size=B,
                  compute_dtype="float32", preprocess="host").validate()
-    rng = np.random.default_rng(3)
     items = []
-    for i in range(BATCH):
+    for i in range(B):
         item = multimodal_item({"subject": f"s{i}",
                                 "fmri": rng.normal(size=(84, 368)) + 100.0,
                                 "struct": rng.normal(size=(84, 84))}, cfg)
         item["target"] = np.float32(i % 2)
         items.append(item)
-    batch = collate(items)[0]
+    return cfg, collate(items)[0]
+
+
+def _train_step(cfg):
+    from multimodal_neuroimage_tpu_torch.models.registry import (
+        create_model, init_random_weights)
+    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
+    from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
+                                                             make_train_step)
     model = init_random_weights(create_model(cfg),
                                 torch.Generator().manual_seed(1)).cuda()
     opt = create_optimizer("AdamW", model.parameters(), lambda t: 1e-4,
                            cfg.weight_decay)
     step = make_train_step(model, active_losses(cfg.task, cfg.fine_tune_task),
                            opt, "float32", "cuda")
+    return model, step
+
+
+def _step16(out):
+    from multimodal_neuroimage_tpu_torch.nn import swinfusion
+    cfg, batch = _flagship_batch(16, np.random.default_rng(4))
+    _, step = _train_step(cfg)
+    gen = torch.Generator().manual_seed(2)
+    for layout in ("std", "bp"):
+        swinfusion._LAYOUT = layout
+        out["flagship"][f"batch 16 train step ({layout})"] = _step_times(
+            lambda: step(batch, gen))
+    swinfusion._LAYOUT = "std"
+
+
+def _flagship(out):
+    from multimodal_neuroimage_tpu_torch.serve.predictor import (
+        make_predict_step)
+    cfg, batch = _flagship_batch(BATCH, np.random.default_rng(3))
+    model, step = _train_step(cfg)
     gen = torch.Generator().manual_seed(2)
     out["flagship"]["train step"] = _step_times(lambda: step(batch, gen))
     predict = make_predict_step(model, "float32", device="cuda")
     out["flagship"]["predict step"] = _step_times(lambda: predict(batch))
 
 
-def worker() -> int:
+def worker(groups) -> int:
     from multimodal_neuroimage_tpu_torch.ops import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     T = _timing()
     lib = build.library()
     out = {"root": os.getcwd(), "build_s": lib.build_seconds, "k8": {},
-           "k4 call": {}, "k4 device": {}, "flagship": {}}
+           "k4 call": {}, "k4 device": {}, "k1 backward": {},
+           "fusion backward": {}, "flagship": {}}
     for _ in range(ROUNDS):
-        _k8(out, T)
-        _k4(out, T)
-    _flagship(out)
+        for name, fn in (("k8", _k8), ("k4", _k4), ("k1", _k1),
+                         ("fusion", _fusion)):
+            if name in groups:
+                fn(out, T)
+    if "flagship" in groups:
+        _flagship(out)
+    if "step16" in groups:
+        _step16(out)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -162,8 +275,15 @@ def _summary(samples) -> str:
 
 
 def main(argv) -> int:
+    groups = GROUPS
+    if argv[:1] == ["--cases"]:
+        groups, argv = tuple(argv[1].split(",")), argv[2:]
+        if set(groups) - set(GROUPS):
+            print(f"kernel_ab: unknown cases {set(groups) - set(GROUPS)}; "
+                  f"pick from {GROUPS}", file=sys.stderr)
+            return 2
     if argv[:1] == ["--worker"]:
-        return worker()
+        return worker(groups)
     if not argv or not torch.cuda.is_available():
         print(__doc__ if argv else "kernel_ab: needs a CUDA card",
               file=sys.stderr)
@@ -177,7 +297,8 @@ def main(argv) -> int:
         for root in roots + roots[::-1]:
             env = {**os.environ, "PYTHONPATH": root}
             proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--worker"],
+                [sys.executable, os.path.abspath(__file__), "--cases",
+                 ",".join(groups), "--worker"],
                 cwd=root, env=env, capture_output=True, text=True)
             if proc.returncode != 0:
                 print(proc.stdout[-4000:], proc.stderr[-4000:],
@@ -188,7 +309,8 @@ def main(argv) -> int:
             runs[root].append(line)
     print("case: each side's median ms (q1-q3) over all its samples, and "
           "its median / BASE's; sides in order: " + ", ".join(roots))
-    for group in ("k8", "k4 call", "k4 device", "flagship"):
+    for group in ("k8", "k4 call", "k4 device", "k1 backward",
+                  "fusion backward", "flagship"):
         for case in runs[roots[0]][0][group]:
             pooled = [sum((r[group][case] for r in runs[root]), [])
                       for root in roots]

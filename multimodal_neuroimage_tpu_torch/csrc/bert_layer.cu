@@ -470,11 +470,11 @@ extern "C" int bert_layer_forward(const float* x, const void* const* params, flo
 //              dx = dy1 + dq Wq + dk Wk + dv Wv
 //
 // What bounds it on the H100: the five FFN products, ~3.8 GFLOP a layer at
-// B = 4, T = 369 (84 x 3072 over 1,476 rows), on the CUDA cores in f32. They
-// run through one hand-written tiled GEMM kernel (64 x 64 output tiles, 4 x 4
-// register tiles a thread, K in steps of 16 through shared memory); U and
-// DU (1,476 x 3072) are materialised, 18 MB each, where the TPU kernel kept
-// 768-column chunks in VMEM.
+// B = 4, T = 369 (84 x 3072 over 1,476 rows). They run on the tensor cores
+// in 3xTF32 form (tc_gemm_kernel below), which keeps the port's float32
+// products where single-pass TF32 would not. U (and, in the same pass as
+// DU, GELU(U)) is materialised, 1,476 x 3072 floats a layer at B = 4, where
+// the TPU kernel kept 768-column chunks in VMEM.
 //
 // The trap of the TPU version: it accumulated every parameter gradient over
 // its sequential grid in resident output blocks. Here every sum over rows
@@ -484,16 +484,13 @@ extern "C" int bert_layer_forward(const float* x, const void* const* params, flo
 // from run to run; there are no float atomics.
 // ===========================================================================
 
-#define GM_BM 64
-#define GM_BN 64
-#define GM_BK 16
-
 // C (M x N) = op(A) op(B) over K, op(A)[m][k] = ta ? A[k lda + m] : A[m lda + k],
 // op(B)[k][n] = tb ? B[n ldb + k] : B[k ldb + n]. With splits > 1 block z
 // covers K range [z kchunk, (z + 1) kchunk) and writes slice z of a partial
 // buffer (M x N each), which reduce_partials adds up; with one split the
-// epilogue adds bias[n], multiplies by GELU'(aux[m][n]) (mode 1) and adds
-// add[m][n] (aux and add with the stride ldc of C).
+// epilogue adds bias[n], multiplies by GELU'(aux[m][n]) (mode 1; mode 2 also
+// writes GELU(aux[m][n]) over aux[m][n]) and adds add[m][n] (aux and add
+// with the stride ldc of C).
 struct Gemm {
   int M, N, K;
   const float* A;
@@ -505,11 +502,241 @@ struct Gemm {
   int splits, kchunk;
   const float* bias;
   const float* add;
-  const float* aux;
+  float* aux;
   int mode;
+  int vec_a, vec_b;   // 16-byte aligned rows: 16-byte copies
 };
 
-__global__ void __launch_bounds__(256) gemm_kernel(Gemm g) {
+// The epilogue of one output element (no split).
+__device__ __forceinline__ float gemm_epilogue(const Gemm& g, int m, int n, float v) {
+  if (g.bias) v += g.bias[n];
+  if (g.mode) {
+    float* u = g.aux + (size_t)m * g.ldc + n;
+    const float uv = *u;
+    v *= gelu_erf_grad(uv);
+    if (g.mode == 2) *u = gelu_erf(uv);
+  }
+  if (g.add) v += g.add[(size_t)m * g.ldc + n];
+  return v;
+}
+
+// ---- tensor cores: mma.sync m16n8k8 TF32 in 3xTF32 form ----------------------
+//
+// Each float32 operand x is split into big = tf32(x) and small = tf32(x - big)
+// (cvt.rna: round to nearest, ties away, to 10 mantissa bits), and each
+// product accumulates small_a big_b + big_a small_b (one f32 sum) beside
+// big_a big_b (another), added at the end: the dropped small_a small_b
+// term is 2^-22 of the product, so the result keeps float32 accuracy
+// (ops/bert_layer.py tf32_split / matmul_3xtf32 is the plain model of this
+// arithmetic). With the three terms in one accumulator the float64 error
+// of the weight gradients came out 2.6-4x the float32 SIMT GEMM's; apart,
+// 1.1-1.3x. The second accumulator costs registers: at 2 blocks an SM the
+// compiler spills ~130 bytes a thread, which measured faster at batch 16
+// than 1 block an SM without spills. Block tile 128 x 96 (the 84-wide
+// products fill one column tile), 8 warps of 32 x 48, k tiles of 32 through
+// a 3-stage ring of 16-byte cp.async copies (4-byte where a row is not
+// 16-byte aligned); ragged M, N and K are zero-filled in shared memory.
+// Each operand keeps its global majorness in shared memory, padded so that
+// the fragment reads of a warp hit 32 distinct banks.
+#define TG_BM 128
+#define TG_BN 96
+#define TG_BK 32
+#define TG_STAGES 3
+#define TG_THREADS 256
+
+template <int TA, int TB>
+struct TgTile {
+  // A: [BM][BK + 4] (k fastest) or [BK][BM + 8] (m fastest); B: [BK][BN + 8]
+  // (n fastest) or [BN][BK + 4] (k fastest)
+  static constexpr int AST = TA ? TG_BM + 8 : TG_BK + 4;
+  static constexpr int BST = TB ? TG_BK + 4 : TG_BN + 8;
+  static constexpr int A_FLOATS = TA ? TG_BK * AST : TG_BM * AST;
+  static constexpr int B_FLOATS = TB ? TG_BN * BST : TG_BK * BST;
+  static constexpr int STAGE = A_FLOATS + B_FLOATS;
+  static constexpr int SMEM = TG_STAGES * STAGE * (int)sizeof(float);
+};
+
+__device__ __forceinline__ void tg_cp16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void tg_cp4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// Copy a rows x cols tile (cols a multiple of 4) whose row r starts at
+// src + r * ld, with rows_valid rows and cols_valid columns in range, into
+// shared rows of `st` floats; out-of-range elements are zero-filled.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void tg_copy(float* dst, int st, const float* src, long long ld,
+                                        int rows_valid, int cols_valid, int vec) {
+  for (int c = threadIdx.x; c < ROWS * COLS / 4; c += TG_THREADS) {
+    const int r = c / (COLS / 4), cc = (c % (COLS / 4)) * 4;
+    float* d = dst + r * st + cc;
+    const float* row = src + (long long)(r < rows_valid ? r : 0) * ld;
+    if (vec) {
+      const int n = r < rows_valid ? min(4, max(0, cols_valid - cc)) : 0;
+      tg_cp16(d, n ? row + cc : src, 4 * n);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = r < rows_valid && cc + e < cols_valid;
+        tg_cp4(d + e, ok ? row + cc + e : src, ok ? 4 : 0);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int TA, int TB>
+__global__ void __launch_bounds__(TG_THREADS, 2) tc_gemm_kernel(Gemm g) {
+  using Tile = TgTile<TA, TB>;
+  extern __shared__ __align__(16) float tsm[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;              // the mma fragment's group, thread
+  const int wm = (warp % 4) * 32, wn = (warp / 4) * 48;
+  const int m0 = blockIdx.y * TG_BM, n0 = blockIdx.x * TG_BN;
+  const int kb = blockIdx.z * g.kchunk;
+  const int ke = min(g.K, kb + g.kchunk);
+  const int nk = (ke - kb + TG_BK - 1) / TG_BK;
+
+  auto load = [&](int stage, int kt) {
+    float* As = tsm + stage * Tile::STAGE;
+    float* Bs = As + Tile::A_FLOATS;
+    const int k0 = kb + kt * TG_BK;
+    if (TA)   // BK rows of k, m fastest
+      tg_copy<TG_BK, TG_BM>(As, Tile::AST, g.A + (size_t)k0 * g.lda + m0, g.lda, ke - k0,
+                            g.M - m0, g.vec_a);
+    else      // BM rows of m, k fastest
+      tg_copy<TG_BM, TG_BK>(As, Tile::AST, g.A + (size_t)m0 * g.lda + k0, g.lda, g.M - m0,
+                            ke - k0, g.vec_a);
+    if (TB)   // BN rows of n, k fastest
+      tg_copy<TG_BN, TG_BK>(Bs, Tile::BST, g.B + (size_t)n0 * g.ldb + k0, g.ldb, g.N - n0,
+                            ke - k0, g.vec_b);
+    else      // BK rows of k, n fastest
+      tg_copy<TG_BK, TG_BN>(Bs, Tile::BST, g.B + (size_t)k0 * g.ldb + n0, g.ldb, ke - k0,
+                            g.N - n0, g.vec_b);
+  };
+
+  // big_a big_b accumulates in acc, the two small terms in accs: the large
+  // partial sums then take one product a k-step, as in a single-pass
+  // product, and the small sum (~2^-11 of the large) adds its own
+  // rounding at that scale
+  float acc[2][6][4], accs[2][6][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = accs[i][j][r] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < TG_STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(TG_STAGES - 2));
+    __syncthreads();
+    if (kt + TG_STAGES - 1 < nk) load((kt + TG_STAGES - 1) % TG_STAGES, kt + TG_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const float* As = tsm + (kt % TG_STAGES) * Tile::STAGE;
+    const float* Bs = As + Tile::A_FLOATS;
+#pragma unroll
+    for (int kk = 0; kk < TG_BK; kk += 8) {
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = wm + i * 16 + gq;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          // a0 (r, k), a1 (r + 8, k), a2 (r, k + 4), a3 (r + 8, k + 4)
+          const int rr = r + (q & 1) * 8, k = kk + tq + (q >> 1) * 4;
+          const float v = TA ? As[k * Tile::AST + rr] : As[rr * Tile::AST + k];
+          tf32_split(v, ab[i][q], as[i][q]);
+        }
+      }
+      // one column tile at a time, so that only its B fragment is live
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        const int n = wn + j * 8 + gq;
+        uint32_t bb[2], bsm[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int k = kk + tq + q * 4;
+          const float v = TB ? Bs[n * Tile::BST + k] : Bs[k * Tile::BST + n];
+          tf32_split(v, bb[q], bsm[q]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_tf32(accs[i][j], as[i], bb[0], bb[1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_tf32(accs[i][j], ab[i], bsm[0], bsm[1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_tf32(acc[i][j], ab[i], bb[0], bb[1]);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+
+  const bool split = g.splits > 1;
+  float* C = split ? g.C + (size_t)blockIdx.z * g.M * g.N : g.C;
+  const int ldc = split ? g.N : g.ldc;
+  // c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1): each
+  // pair of columns as one 8-byte store where C's rows allow it
+  const bool pairs = ldc % 2 == 0 && (uintptr_t)C % 8 == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + i * 16 + gq + h * 8;
+        const int n = n0 + wn + j * 8 + 2 * tq;
+        if (m >= g.M || n >= g.N) continue;
+        float v0 = acc[i][j][2 * h] + accs[i][j][2 * h];
+        float v1 = acc[i][j][2 * h + 1] + accs[i][j][2 * h + 1];
+        float* dst = C + (size_t)m * ldc + n;
+        if (!split) {
+          v0 = gemm_epilogue(g, m, n, v0);
+          if (n + 1 < g.N) v1 = gemm_epilogue(g, m, n + 1, v1);
+        }
+        if (pairs && n + 1 < g.N) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          if (n + 1 < g.N) dst[1] = v1;
+        }
+      }
+}
+
+// ---- the SIMT route (float32 FMAs on the CUDA cores) -------------------------
+//
+// The port's first GEMM, kept as the precision yardstick of the 3xTF32
+// route: a test selects it (bert_layer_backward's simt argument) and holds
+// the tensor-core gradients' float64 error against this one's. 64 x 64
+// output tiles, 4 x 4 register tiles a thread, K in steps of 16.
+#define GM_BM 64
+#define GM_BN 64
+#define GM_BK 16
+
+__global__ void __launch_bounds__(256) gemm_simt_kernel(Gemm g) {
   __shared__ __align__(16) float As[GM_BK][GM_BM + 4];
   __shared__ __align__(16) float Bs[GM_BK][GM_BN + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -565,50 +792,72 @@ __global__ void __launch_bounds__(256) gemm_kernel(Gemm g) {
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
       if (n >= g.N) continue;
-      float v = acc[i][j];
-      if (!split) {
-        if (g.bias) v += g.bias[n];
-        if (g.mode == 1) v *= gelu_erf_grad(g.aux[(size_t)m * ldc + n]);
-        if (g.add) v += g.add[(size_t)m * ldc + n];
-      }
-      C[(size_t)m * ldc + n] = v;
+      C[(size_t)m * ldc + n] = split ? acc[i][j] : gemm_epilogue(g, m, n, acc[i][j]);
     }
   }
 }
 
-// K splits for an M x N x K product: about two waves of 132 SMs, at least
-// 128 of K a split.
-static int gemm_splits(int M, int N, int K) {
-  const int tiles = ((M + GM_BM - 1) / GM_BM) * ((N + GM_BN - 1) / GM_BN);
+// K splits for an M x N x K product on tiles of bm x bn: about two waves of
+// 132 SMs, at least 128 of K a split; each split's K range a multiple of 32.
+static void gemm_split(int M, int N, int K, int bm, int bn, int* splits, int* kchunk) {
+  const int tiles = ((M + bm - 1) / bm) * ((N + bn - 1) / bn);
   int s = (264 + tiles - 1) / tiles;
   if (s > K / 128) s = K / 128;
   if (s > 32) s = 32;
-  return s < 1 ? 1 : s;
+  if (s < 1) s = 1;
+  *kchunk = ((K + s - 1) / s + 31) / 32 * 32;
+  *splits = (K + *kchunk - 1) / *kchunk;
 }
 
 static long long gemm_part_floats(int M, int N, int K) {
-  const int s = gemm_splits(M, N, K);
+  int s = 0, tc = 0, s2 = 0;
+  gemm_split(M, N, K, TG_BM, TG_BN, &s, &tc);
+  gemm_split(M, N, K, GM_BM, GM_BN, &s2, &tc);
+  if (s2 > s) s = s2;
   return s > 1 ? (long long)s * M * N : 0;
 }
 
 // One product: split over K (partials in `part`, then reduced, with `add`
 // added) when that fills the card better. A split product writes a dense
-// C (ldc == N) and takes no bias or GELU epilogue.
+// C (ldc == N) and takes no bias or GELU epilogue. simt: the float32 FMA
+// route instead of 3xTF32 on the tensor cores.
 static cudaError_t gemm(int M, int N, int K, const float* A, int lda, int ta, const float* B,
                         int ldb, int tb, float* C, int ldc, const float* add, float* part,
-                        cudaStream_t stream, const float* bias = nullptr,
-                        const float* aux = nullptr, int mode = 0) {
+                        cudaStream_t stream, int simt, const float* bias = nullptr,
+                        float* aux = nullptr, int mode = 0) {
   Gemm g;
   g.M = M; g.N = N; g.K = K;
   g.A = A; g.lda = lda; g.ta = ta;
   g.B = B; g.ldb = ldb; g.tb = tb;
   g.ldc = ldc; g.bias = bias; g.add = add; g.aux = aux; g.mode = mode;
-  g.splits = (bias || mode || ldc != N) ? 1 : gemm_splits(M, N, K);
-  g.kchunk = (K + g.splits - 1) / g.splits;
+  g.vec_a = lda % 4 == 0 && (uintptr_t)A % 16 == 0;
+  g.vec_b = ldb % 4 == 0 && (uintptr_t)B % 16 == 0;
+  const int bm = simt ? GM_BM : TG_BM, bn = simt ? GM_BN : TG_BN;
+  if (bias || mode || ldc != N) {
+    g.splits = 1;
+    g.kchunk = K;
+  } else {
+    gemm_split(M, N, K, bm, bn, &g.splits, &g.kchunk);
+  }
   g.C = g.splits > 1 ? part : C;
-  const dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM, g.splits);
-  gemm_kernel<<<grid, 256, 0, stream>>>(g);
-  cudaError_t err = cudaGetLastError();
+  const dim3 grid((N + bn - 1) / bn, (M + bm - 1) / bm, g.splits);
+  cudaError_t err = cudaSuccess;
+  if (simt) {
+    gemm_simt_kernel<<<grid, 256, 0, stream>>>(g);
+  } else {
+#define TG_LAUNCH(TA, TB)                                                               \
+  do {                                                                                  \
+    if ((err = allow_smem(tc_gemm_kernel<TA, TB>, TgTile<TA, TB>::SMEM)) != cudaSuccess) \
+      return err;                                                                       \
+    tc_gemm_kernel<TA, TB><<<grid, TG_THREADS, TgTile<TA, TB>::SMEM, stream>>>(g);      \
+  } while (0)
+    if (ta && tb) return cudaErrorInvalidValue;   // no product of the layer takes both
+    if (ta) TG_LAUNCH(1, 0);
+    else if (tb) TG_LAUNCH(0, 1);
+    else TG_LAUNCH(0, 0);
+#undef TG_LAUNCH
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess || g.splits == 1) return err;
   return reduce_partials(part, g.splits, (long long)M * N, add, C, stream);
 }
@@ -713,12 +962,6 @@ static cudaError_t colsum(const float* A, int M, int N, int lda, float* out, flo
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_partials(part, rb, N, nullptr, out, stream);
-}
-
-__global__ void gelu_inplace_kernel(float* __restrict__ u, long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    u[i] = gelu_erf(u[i]);
 }
 
 // dq of one (subject, head, query) and D = dctx . ctx, laid out as the
@@ -935,12 +1178,14 @@ static cudaError_t ln_backward(const float* gin, const float* pre, const float* 
 // grads: host array of 16 device pointers, in the same order and shapes,
 // which receive the parameter gradients (written, not accumulated). dx
 // (B, T, H) receives dL/dx. scratch: bert_layer_backward_scratch_floats()
-// floats. Returns the cudaError_t of the first launch that fails.
+// floats. simt: run the products on the float32 SIMT GEMM (the precision
+// yardstick) instead of 3xTF32 on the tensor cores. Returns the cudaError_t
+// of the first launch that fails.
 extern "C" int bert_layer_backward(const float* x, const float* resid, const float* g,
                                    const void* const* params, void* const* grads, float* dx,
                                    float* scratch, int B, int T, int H, int F, int heads,
                                    int t_valid, int TP, int seed, double attn_rate,
-                                   double hidden_rate, cudaStream_t stream) {
+                                   double hidden_rate, int simt, cudaStream_t stream) {
   if (bert_bad_dims(T, H, F, heads, t_valid, TP)) return (int)cudaErrorInvalidValue;
   const float* const* p = reinterpret_cast<const float* const*>(params);
   float* const* dp = reinterpret_cast<float* const*>(grads);
@@ -966,20 +1211,18 @@ extern "C" int bert_layer_backward(const float* x, const float* resid, const flo
   CK(ln_backward(g, a2, g2, d1, T, TP, dy2, dz, lnp, ln3, dp[14], dp[15], dp[13], M, H,
                  stream));
   // U = x1 W1^T + b1 (M x F)
-  CK(gemm(M, F, H, x1, H, 0, w1, H, 1, U, F, nullptr, gp, stream, b1m));
-  // DU = (dz W2) * GELU'(U)
-  CK(gemm(M, F, H, dz, H, 0, w2, F, 0, DU, F, nullptr, gp, stream, nullptr, U, 1));
-  gelu_inplace_kernel<<<1024, 256, 0, stream>>>(U, (long long)M * F);   // U -> GELU(U)
-  CK(cudaGetLastError());
-  CK(gemm(H, F, M, dz, H, 1, U, F, 0, dp[12], F, nullptr, gp, stream));    // dW2 = dz^T GELU(U)
-  CK(gemm(F, H, M, DU, F, 1, x1, H, 0, dp[10], H, nullptr, gp, stream));   // dW1 = DU^T x1
-  CK(colsum(DU, M, F, F, dp[11], colp, stream));                           // db1
-  CK(gemm(M, H, F, DU, F, 0, w1, H, 0, dx1, H, dy2, gp, stream));          // dx1 = dy2 + DU W1
+  CK(gemm(M, F, H, x1, H, 0, w1, H, 1, U, F, nullptr, gp, stream, simt, b1m));
+  // DU = (dz W2) * GELU'(U), and U -> GELU(U) in the same epilogue
+  CK(gemm(M, F, H, dz, H, 0, w2, F, 0, DU, F, nullptr, gp, stream, simt, nullptr, U, 2));
+  CK(gemm(H, F, M, dz, H, 1, U, F, 0, dp[12], F, nullptr, gp, stream, simt));  // dW2 = dz^T GELU(U)
+  CK(gemm(F, H, M, DU, F, 1, x1, H, 0, dp[10], H, nullptr, gp, stream, simt)); // dW1 = DU^T x1
+  CK(colsum(DU, M, F, F, dp[11], colp, stream));                               // db1
+  CK(gemm(M, H, F, DU, F, 0, w1, H, 0, dx1, H, dy2, gp, stream, simt));        // dx1 = dy2 + DU W1
 
   // ---- attention side ------------------------------------------------------
   CK(ln_backward(dx1, a1, g1, d0, T, TP, dy1, da, lnp, ln3, dp[8], dp[9], dp[7], M, H, stream));
-  CK(gemm(H, H, M, da, H, 1, ctx, H, 0, dp[6], H, nullptr, gp, stream));   // dWo = da^T ctx
-  CK(gemm(M, H, H, da, H, 0, wo, H, 0, dctx, H, nullptr, gp, stream));     // dctx = da Wo
+  CK(gemm(H, H, M, da, H, 1, ctx, H, 0, dp[6], H, nullptr, gp, stream, simt));  // dWo = da^T ctx
+  CK(gemm(M, H, H, da, H, 0, wo, H, 0, dctx, H, nullptr, gp, stream, simt));    // dctx = da Wo
   const dim3 grid((T + BERT_ATTN_QUERIES - 1) / BERT_ATTN_QUERIES, heads, B);
   const size_t smem_dq = 2 * (size_t)t_valid * hd * sizeof(float);
   const size_t smem_dkv = (2 * (size_t)T * hd + 2 * (size_t)T) * sizeof(float);
@@ -1006,10 +1249,12 @@ extern "C" int bert_layer_backward(const float* x, const float* resid, const flo
   const float* wqkv[3] = {wq, wk, wv};
   for (int j = 0; j < 3; ++j) {
     const float* dj = dqkv + j * H;
-    CK(gemm(H, H, M, dj, 3 * H, 1, x, H, 0, dp[2 * j], H, nullptr, gp, stream));  // dW = d^T x
+    // dW = d^T x
+    CK(gemm(H, H, M, dj, 3 * H, 1, x, H, 0, dp[2 * j], H, nullptr, gp, stream, simt));
     CK(colsum(dj, M, H, 3 * H, dp[2 * j + 1], colp, stream));                     // db
     // dx = dy1 + dq Wq + dk Wk + dv Wv, one product at a time
-    CK(gemm(M, H, H, dj, 3 * H, 0, wqkv[j], H, 0, dx, H, j == 0 ? dy1 : dx, gp, stream));
+    CK(gemm(M, H, H, dj, 3 * H, 0, wqkv[j], H, 0, dx, H, j == 0 ? dy1 : dx, gp, stream,
+            simt));
   }
   return (int)cudaSuccess;
 }

@@ -85,55 +85,79 @@ fusion_block_kernel(const float* __restrict__ x, const float* __restrict__ y, Fu
 //
 // The TPU kernel summed the parameter gradients over its sequential grid in
 // resident output blocks. Blocks of the H100 run in parallel, so each block
-// here walks its windows with a grid stride, accumulates its share in shared
-// memory (every accumulator element is owned by one thread, so the order of
-// the sum is fixed), writes it to a per-block partial, and a second kernel
-// adds the partials in block order: two runs give bitwise the same
-// gradients. Like the forward, the block is latency-bound, not FLOP- or
-// byte-bound (0.3 GFLOP for a flagship call at B = 4): everything a window
-// needs lives in ~140 KB of shared memory, one block per SM. The attention
-// recompute never stores the (H, N, N) probabilities: a row pass (one
-// thread per (head, query)) rebuilds the softmax, the attention output, its
-// log-sum-exp and D = dO . O, and dq; a column pass (one thread per
-// (head, key)) rebuilds p from the log-sum-exp and gives dk, dv and dbias.
+// accumulates its share in shared memory (every accumulator element is owned
+// by one thread, which adds the windows in a fixed order), writes it to a
+// per-block partial, and a second kernel adds the partials in block order:
+// two runs give bitwise the same gradients, with no float atomics. The
+// attention recompute never stores the (H, N, N) probabilities: a row pass
+// (one thread per (window, head, query)) rebuilds the softmax, the
+// attention output, its log-sum-exp and D = dO . O, and dq; a column pass
+// (one thread per (head, key), over the windows in order) rebuilds p from
+// the log-sum-exp and gives dk, dv and dbias.
+//
+// What bounds it on the H100: latency, not FLOPs or bytes (about 0.3 GFLOP
+// a flagship call at B = 4). One window at a time, with a buffer for every
+// intermediate (~140 KB with the accumulators and staged weights), a block
+// of 256 threads fills an SM, passes ~14 barriers a window, and its row
+// phases keep 36 of its threads busy. So each window's buffers are laid
+// out by liveness (FusionBwdLayout: ~24 KB a self window, ~28 KB cross) and
+// a block of 512 threads runs FUSION_BWD_WINDOWS windows at once, every
+// phase's loop spanning them all: the weights, bias, accumulators and the
+// shift mask are shared by the windows in flight (a work item is one
+// window position for up to four subjects, so they share the mask), row
+// phases have 4 x 36 rows, the row pass 4 x 216 items, a barrier serves
+// four windows, and threads the column pass leaves free add the gradients
+// that need no dk/dv beside it.
 // ---------------------------------------------------------------------------
 
 template <bool CROSS, int MAXHD>
-__global__ void __launch_bounds__(FUSION_THREADS)
+__global__ void __launch_bounds__(FUSION_BWD_THREADS, 1)
 fusion_block_backward_kernel(const float* __restrict__ x, const float* __restrict__ y,
                              const float* __restrict__ x2r, const float* __restrict__ g,
                              FusionParams P, const float* __restrict__ bias,
                              const float* __restrict__ mask, FusionTrain T,
                              float* __restrict__ dx, float* __restrict__ dy,
-                             float* __restrict__ part, int windows, int nW, int N, int C, int H,
-                             int Ch) {
+                             float* __restrict__ part, int B, int nW, int N, int C, int H,
+                             int Ch, int windows) {
   extern __shared__ float smem[];
-  const FusionBwdLayout L(CROSS, N, C, H, Ch);
+  __shared__ FusionWindow wins[FUSION_BWD_WINDOWS];
+  const FusionBwdLayout L(CROSS, N, C, H, Ch, windows);
   const FusionLayout F(CROSS, N, C, H, Ch);
   const FusionGrads G(CROSS, N, C, H, Ch);
   float* acc = smem + L.acc;
 
-  for (int e = threadIdx.x; e < G.total; e += FUSION_THREADS) acc[e] = 0.f;
-  stage_weights(smem + L.fwd, F, CROSS, P, bias, N, C, H, Ch);
+  for (int e = threadIdx.x; e < G.total; e += FUSION_BWD_THREADS) acc[e] = 0.f;
+  stage_weights<FUSION_BWD_THREADS>(smem + L.fwd, F, CROSS, P, bias, N, C, H, Ch);
 
-  for (int bw = blockIdx.x; bw < windows; bw += gridDim.x) {
-    const size_t base = (size_t)bw * N * C;
-    if (mask) stage(smem + L.fwd + F.mask, F.BS, mask + (size_t)(bw % nW) * N * N, N, N);
-    FusionWindow W = {};
-    W.x = x + base;
-    W.y = CROSS ? y + base : nullptr;
-    W.x2r = const_cast<float*>(x2r) + base;
-    W.g = g + base;
-    W.dx = dx + base;
-    W.dy = CROSS ? dy + base : nullptr;
-    W.stride = C;
-    W.row0 = (uint32_t)bw * T.NP;
-    W.dp1 = T.dp ? T.dp[(bw / nW) * 2] : 1.f;
-    W.dp2 = T.dp ? T.dp[(bw / nW) * 2 + 1] : 1.f;
-    fusion_backward_window<CROSS, MAXHD>(smem, L, F, G, mask != nullptr, N, C, H, Ch, T, W);
+  // work item (chunk, w): window w of subjects chunk * windows + k
+  const int chunks = (B + windows - 1) / windows;
+  for (int item = blockIdx.x; item < chunks * nW; item += gridDim.x) {
+    const int w = item % nW, b0 = (item / nW) * windows;
+    const int kw = min(windows, B - b0);
+    if (threadIdx.x < kw) {
+      const int bw = (b0 + threadIdx.x) * nW + w;
+      const size_t base = (size_t)bw * N * C;
+      FusionWindow W = {};
+      W.x = x + base;
+      W.y = CROSS ? y + base : nullptr;
+      W.x2r = const_cast<float*>(x2r) + base;
+      W.g = g + base;
+      W.dx = dx + base;
+      W.dy = CROSS ? dy + base : nullptr;
+      W.stride = C;
+      W.row0 = (uint32_t)bw * T.NP;
+      W.dp1 = T.dp ? T.dp[(bw / nW) * 2] : 1.f;
+      W.dp2 = T.dp ? T.dp[(bw / nW) * 2 + 1] : 1.f;
+      wins[threadIdx.x] = W;
+    }
+    if (mask)
+      stage<FUSION_BWD_THREADS>(smem + L.fwd + F.mask, F.BS, mask + (size_t)w * N * N, N, N);
+    __syncthreads();
+    fusion_backward_windows<CROSS, MAXHD>(smem, L, F, G, mask != nullptr, N, C, H, Ch, T, wins,
+                                          kw);
   }
   float* mine = part + (size_t)blockIdx.x * G.total;
-  for (int e = threadIdx.x; e < G.total; e += FUSION_THREADS) mine[e] = acc[e];
+  for (int e = threadIdx.x; e < G.total; e += FUSION_BWD_THREADS) mine[e] = acc[e];
 }
 
 // ---------------------------------------------------------------------------
@@ -179,10 +203,13 @@ extern "C" int fusion_block_forward(int cross, const float* x, const float* y,
 }
 
 template <bool CROSS, int MAXHD>
-static cudaError_t backward_grid(int windows, int N, int C, int H, int Ch, int* blocks,
-                                 size_t* smem) {
-  *smem = (size_t)FusionBwdLayout(CROSS, N, C, H, Ch).total * sizeof(float);
-  return persistent_grid(fusion_block_backward_kernel<CROSS, MAXHD>, *smem, windows, blocks);
+static cudaError_t backward_grid(int B, int nW, int N, int C, int H, int Ch, int* blocks,
+                                 size_t* smem, int* windows, int* per_sm = nullptr) {
+  cudaError_t err = backward_windows(CROSS, N, C, H, Ch, B, windows, smem);
+  if (err != cudaSuccess) return err;
+  const int items = (B + *windows - 1) / *windows * nW;
+  return persistent_grid(fusion_block_backward_kernel<CROSS, MAXHD>, *smem, items, blocks,
+                         FUSION_BWD_THREADS, per_sm);
 }
 
 // Floats of the flat gradient vector fusion_block_backward writes: the
@@ -196,26 +223,41 @@ extern "C" long long fusion_block_grad_floats(int cross, int N, int C, int H, in
 extern "C" long long fusion_block_backward_scratch_floats(int cross, int B, int nW, int N,
                                                           int C, int H, int Ch) {
   if (bad_dims(N, C, H)) return -1;
-  int blocks = 0;
+  int blocks = 0, windows = 0;
   size_t smem = 0;
-#define GRID(c, h) backward_grid<c, h>(B * nW, N, C, H, Ch, &blocks, &smem)
+#define GRID(c, h) backward_grid<c, h>(B, nW, N, C, H, Ch, &blocks, &smem, &windows)
   if (FUSION_DISPATCH(cross, C / H, GRID) != cudaSuccess) return -1;
 #undef GRID
   return (long long)blocks * FusionGrads(cross != 0, N, C, H, Ch).total;
+}
+
+// What the backward kernel of this layout runs with: out[0] blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] windows in
+// flight a block, out[2] shared-memory bytes a block, out[3] blocks in the
+// grid. Returns the cudaError_t of the query.
+extern "C" int fusion_block_backward_occupancy(int cross, int B, int nW, int N, int C, int H,
+                                               int Ch, int* out) {
+  if (bad_dims(N, C, H)) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+#define GRID(c, h) backward_grid<c, h>(B, nW, N, C, H, Ch, &out[3], &smem, &out[1], &out[0])
+  const cudaError_t err = FUSION_DISPATCH(cross, C / H, GRID);
+#undef GRID
+  out[2] = (int)smem;
+  return (int)err;
 }
 
 template <bool CROSS, int MAXHD>
 static cudaError_t launch_backward(const float* x, const float* y, const float* x2r,
                                    const float* g, const FusionParams& P, const float* bias,
                                    const float* mask, const FusionTrain& T, float* dx,
-                                   float* dy, float* grads, float* scratch, int windows, int nW,
-                                   int N, int C, int H, int Ch, cudaStream_t stream) {
-  int blocks = 0;
+                                   float* dy, float* grads, float* scratch, int B, int nW, int N,
+                                   int C, int H, int Ch, cudaStream_t stream) {
+  int blocks = 0, windows = 0;
   size_t smem = 0;
-  cudaError_t err = backward_grid<CROSS, MAXHD>(windows, N, C, H, Ch, &blocks, &smem);
+  cudaError_t err = backward_grid<CROSS, MAXHD>(B, nW, N, C, H, Ch, &blocks, &smem, &windows);
   if (err != cudaSuccess) return err;
-  fusion_block_backward_kernel<CROSS, MAXHD><<<blocks, FUSION_THREADS, smem, stream>>>(
-      x, y, x2r, g, P, bias, mask, T, dx, dy, scratch, windows, nW, N, C, H, Ch);
+  fusion_block_backward_kernel<CROSS, MAXHD><<<blocks, FUSION_BWD_THREADS, smem, stream>>>(
+      x, y, x2r, g, P, bias, mask, T, dx, dy, scratch, B, nW, N, C, H, Ch, windows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return reduce_partials(scratch, blocks, FusionGrads(CROSS, N, C, H, Ch).total, nullptr, grads,
                          stream);
@@ -238,8 +280,8 @@ extern "C" int fusion_block_backward(int cross, const float* x, const float* y,
   const FusionParams P = unpack_params(cross, params);
   const FusionTrain T = make_train(dp, seed, attn_rate, drop_rate, NP, nullptr);
 #define BWD(c, h)                                                                        \
-  launch_backward<c, h>(x, y, x2r, g, P, bias, mask, T, dx, dy, grads, scratch, B * nW, nW, \
-                        N, C, H, Ch, stream)
+  launch_backward<c, h>(x, y, x2r, g, P, bias, mask, T, dx, dy, grads, scratch, B, nW, N, C, \
+                        H, Ch, stream)
   return (int)FUSION_DISPATCH(cross, C / H, BWD);
 #undef BWD
 }

@@ -3,13 +3,14 @@
 // (fusion_block_bp.cu: group-major windows (ngroups, nW, N, G*C), one
 // (group, window) at a time, walking its G subjects).
 //
-// A window's body is the same in both: fusion_forward_window and
-// fusion_backward_window run the whole block on one subject's window, read
-// at a given row stride (C in the std layout, G*C in the group-major one)
-// with the dropout coordinates the caller gives (FusionWindow). Everything
-// else (weights, bias, the window's shift mask) is staged by the kernel in
-// shared memory before it calls them. See fusion_block.cu for the design
-// notes of the forward and of the backward.
+// The bodies are the same in both: fusion_forward_window runs the whole
+// block on one subject's window, fusion_backward_windows its backward on up
+// to FUSION_BWD_WINDOWS subjects' windows at one window position at once,
+// each read at a given row stride (C in the std layout, G*C in the
+// group-major one) with the dropout coordinates the caller gives
+// (FusionWindow). Everything else (weights, bias, the window's shift mask)
+// is staged by the kernel in shared memory before it calls them. See
+// fusion_block.cu for the design notes of the forward and of the backward.
 #pragma once
 
 #include "common.cuh"
@@ -97,11 +98,13 @@ struct FusionLayout {
   }
 };
 
-// Global (rows x cols, row-major) -> shared with a padded row stride.
+// Global (rows x cols, row-major) -> shared with a padded row stride, by a
+// block of NT threads.
+template <int NT = FUSION_THREADS>
 __device__ __forceinline__ void stage(float* dst, int stride, const float* __restrict__ src,
                                       int rows, int cols) {
 #pragma unroll 4
-  for (int i = threadIdx.x; i < rows * cols; i += FUSION_THREADS)
+  for (int i = threadIdx.x; i < rows * cols; i += NT)
     dst[(i / cols) * stride + i % cols] = src[i];
 }
 
@@ -115,32 +118,33 @@ __device__ __forceinline__ void stage_rows(float* dst, int stride, const float* 
 
 // The weights and the bias table at the offsets of F from w (the same for
 // every window: a kernel stages them once).
+template <int NT = FUSION_THREADS>
 __device__ __forceinline__ void stage_weights(float* w, const FusionLayout& F, bool cross,
                                               const FusionParams& P, const float* bias, int N,
                                               int C, int H, int Ch) {
   const int CS = F.CS, HS = F.HS, BS = F.BS;
-  stage(w + F.g1, C, P.g1, 1, C);
-  stage(w + F.b1, C, P.b1, 1, C);
+  stage<NT>(w + F.g1, C, P.g1, 1, C);
+  stage<NT>(w + F.b1, C, P.b1, 1, C);
   if (cross) {
-    stage(w + F.g1y, C, P.g1y, 1, C);
-    stage(w + F.b1y, C, P.b1y, 1, C);
-    stage(w + F.wq, CS, P.wq, C, C);
-    stage(w + F.bq, C, P.bq, 1, C);
-    stage(w + F.wkv, CS, P.wkv, 2 * C, C);
-    stage(w + F.bkv, 2 * C, P.bkv, 1, 2 * C);
+    stage<NT>(w + F.g1y, C, P.g1y, 1, C);
+    stage<NT>(w + F.b1y, C, P.b1y, 1, C);
+    stage<NT>(w + F.wq, CS, P.wq, C, C);
+    stage<NT>(w + F.bq, C, P.bq, 1, C);
+    stage<NT>(w + F.wkv, CS, P.wkv, 2 * C, C);
+    stage<NT>(w + F.bkv, 2 * C, P.bkv, 1, 2 * C);
   } else {
-    stage(w + F.wq, CS, P.wq, 3 * C, C);
-    stage(w + F.bq, 3 * C, P.bq, 1, 3 * C);
+    stage<NT>(w + F.wq, CS, P.wq, 3 * C, C);
+    stage<NT>(w + F.bq, 3 * C, P.bq, 1, 3 * C);
   }
-  stage(w + F.wp, CS, P.wp, C, C);
-  stage(w + F.bp, C, P.bp, 1, C);
-  stage(w + F.g2, C, P.g2, 1, C);
-  stage(w + F.b2, C, P.b2, 1, C);
-  stage(w + F.w1, CS, P.w1, Ch, C);
-  stage(w + F.b1m, Ch, P.b1m, 1, Ch);
-  stage(w + F.w2, HS, P.w2, C, Ch);
-  stage(w + F.b2m, C, P.b2m, 1, C);
-  stage(w + F.bias, BS, bias, H * N, N);
+  stage<NT>(w + F.wp, CS, P.wp, C, C);
+  stage<NT>(w + F.bp, C, P.bp, 1, C);
+  stage<NT>(w + F.g2, C, P.g2, 1, C);
+  stage<NT>(w + F.b2, C, P.b2, 1, C);
+  stage<NT>(w + F.w1, CS, P.w1, Ch, C);
+  stage<NT>(w + F.b1m, Ch, P.b1m, 1, Ch);
+  stage<NT>(w + F.w2, HS, P.w2, C, Ch);
+  stage<NT>(w + F.b2m, C, P.b2m, 1, C);
+  stage<NT>(w + F.bias, BS, bias, H * N, N);
 }
 
 // Two-pass LayerNorm of one C-wide row (nn/common.py semantics, eps 1e-5).
@@ -331,8 +335,13 @@ __device__ __forceinline__ void fusion_forward_window(float* smem, const FusionL
 }
 
 // ---------------------------------------------------------------------------
-// Backward (design notes in fusion_block.cu).
+// Backward (design notes in fusion_block.cu): a block runs the backward of
+// up to FUSION_BWD_WINDOWS windows at once, in lockstep, every phase's
+// loop spanning all of them.
 // ---------------------------------------------------------------------------
+
+#define FUSION_BWD_THREADS 512
+#define FUSION_BWD_WINDOWS 4
 
 // Offsets of the flat gradient vector: the parameters in the kernels' order
 // (self: wq/bq hold wqkv/bqkv), then dbias (H, N, N).
@@ -363,98 +372,144 @@ struct FusionGrads {
   }
 };
 
-// Shared-memory offsets (floats) of the backward kernel: the forward's
-// weights, bias and mask (FusionLayout's tail) after the activations,
-// their gradients and the accumulators.
+// Shared-memory offsets (floats) of the backward kernels. Once a block: the
+// accumulators (FusionGrads), then the forward's weights, bias and mask
+// (FusionLayout's tail, at fwd + its offsets). Then one arena a window in
+// flight, `arena` floats each; inside an arena the buffers are laid out by
+// liveness (S = N (C+1), U = N (Ch+1), Q = N (3C+1) floats):
+//   p0  g, then dx2r = dL/dx2 (in place)                      whole window
+//   p1  x2r -> xh2 (LN2 in place); then x -> xh1 (LN1 in place)
+//   p2  h2 = LN2(x2r); then da = dL/d(proj out)
+//   p3  dz; dh2; dO = dL/d(attention out); dh1
+//   p6  cross: y -> xh1y (LN1_y in place)
+//   R   MLP phase: u -> du (in place) at R, GELU(u) at R + U;
+//       attention phase: h1, q, k, v, o at R + {0..4} S, dqkv (q | k | v
+//       columns) at R + 5S, cross h1y at R + 5S + Q; dh1y over q
+// and r1, r2, r1y (row rsqrt) and lse, D (H x N) after R.
 struct FusionBwdLayout {
   int CS, HS, BS, QS;
-  int xs, ys, gs, x2s, h2, xh2, dz, dh2, dx2r, da, dO, h1, xh1, h1y, xh1y;
-  int qs, ks, vs, os, dh1, dh1y, dqkv, us, gus, r1, r2, r1y, lse, Dd, acc, fwd;
-  int total;
+  int p0, p1, p2, p3, p6, us, gus, h1, qs, ks, vs, os, dqkv, h1y, dh1y;
+  int r1, r2, r1y, lse, Dd, arena;
+  int acc, fwd, win, total;
 
-  __host__ __device__ FusionBwdLayout(bool cross, int N, int C, int H, int Ch) {
+  __host__ __device__ FusionBwdLayout(bool cross, int N, int C, int H, int Ch, int windows) {
     CS = C + 1; HS = Ch + 1; BS = N + 1; QS = 3 * C + 1;
-    const int S = N * CS;
-    int off = 0;
-    xs = off; off += S;
-    ys = off; off += cross ? S : 0;
-    gs = off; off += S;
-    x2s = off; off += S;
-    h2 = off; off += S;
-    xh2 = off; off += S;
-    dz = off; off += S;
-    dh2 = off; off += S;
-    dx2r = off; off += S;
-    da = off; off += S;
-    dO = off; off += S;
-    h1 = off; off += S;
-    xh1 = off; off += S;
-    h1y = off; off += cross ? S : 0;
-    xh1y = off; off += cross ? S : 0;
-    qs = off; off += S;
-    ks = off; off += S;
-    vs = off; off += S;
-    os = off; off += S;
-    dh1 = off; off += S;
-    dh1y = off; off += cross ? S : 0;
-    dqkv = off; off += N * QS;
-    us = off; off += N * HS;
-    gus = off; off += N * HS;
+    const int S = N * CS, U = N * HS, Q = N * QS;
+    p0 = 0; p1 = S; p2 = 2 * S; p3 = 3 * S;
+    int off = 4 * S;
+    p6 = off; off += cross ? S : 0;
+    const int R = off;
+    us = R; gus = R + U;
+    h1 = R; qs = R + S; ks = R + 2 * S; vs = R + 3 * S; os = R + 4 * S; dqkv = R + 5 * S;
+    h1y = dqkv + Q;
+    dh1y = qs;
+    const int attn = 5 * S + Q + (cross ? S : 0);
+    off = R + (2 * U > attn ? 2 * U : attn);
     r1 = off; off += N;
     r2 = off; off += N;
-    r1y = off; off += N;
+    r1y = off; off += cross ? N : 0;
     lse = off; off += H * N;
     Dd = off; off += H * N;
-    acc = off; off += FusionGrads(cross, N, C, H, Ch).total;
-    fwd = off;  // FusionLayout offsets are relative to here
-    // only the weights/bias/mask tail of the forward layout is used
+    arena = off;
     const FusionLayout F(cross, N, C, H, Ch);
+    acc = 0;
+    off = FusionGrads(cross, N, C, H, Ch).total;
+    fwd = off - F.g1;   // FusionLayout offsets are relative to fwd
     off += F.total - F.g1;
-    fwd -= F.g1;
-    total = off;
+    win = off;
+    total = off + windows * arena;
   }
 };
 
-// s(n, o) = (b ? b[o] : 0) + sum_k in[n][k] W(o, k) with W(o, k) = W[o * wo + k * wk]
-// (a weight read row-wise or transposed); one output per thread, lanes on
-// consecutive rows n so that the weight element is a broadcast.
+// s(k, n, o) = (b ? b[o] : 0) + sum_c in_k[n][c] W(o, c) over the rows n of
+// every window k in flight, W(o, c) = W[o * wo + c * wk] (a weight read
+// row-wise or transposed); `in` at offset in_off of each window's arena.
+// A thread owns OT consecutive outputs of one row: one load of the row's
+// element feeds OT FMAs, lanes on consecutive rows, so each weight element
+// is a broadcast. Each sum runs in the order c = 0, 1, ...
 template <typename Store>
-__device__ __forceinline__ void dense_any(const float* in, int in_stride, int K, const float* W,
-                                          int wo, int wk, const float* b, int O, int N,
-                                          Store store) {
-  for (int e = threadIdx.x; e < N * O; e += FUSION_THREADS) {
-    const int n = e % N, o = e / N;
-    const float* row = in + n * in_stride;
-    const float* wr = W + o * wo;
-    float s = b ? b[o] : 0.f;
-    for (int k = 0; k < K; ++k) s = fmaf(row[k], wr[k * wk], s);
-    store(n, o, s);
+__device__ __forceinline__ void dense_w(const float* win, int arena, int in_off, int in_stride,
+                                        int K, const float* W, int wo, int wk, const float* b,
+                                        int O, int N, int kw, Store store) {
+  constexpr int OT = 4;
+  const int rows = kw * N, groups = (O + OT - 1) / OT;
+  for (int e = threadIdx.x; e < rows * groups; e += FUSION_BWD_THREADS) {
+    const int r = e % rows, o0 = (e / rows) * OT;
+    const int k = r / N, n = r % N;
+    const float* row = win + k * arena + in_off + n * in_stride;
+    const float* wr[OT];
+    float s[OT];
+#pragma unroll
+    for (int t = 0; t < OT; ++t) {
+      const int o = min(o0 + t, O - 1);   // past O: a valid row, never stored
+      wr[t] = W + o * wo;
+      s[t] = b ? b[o] : 0.f;
+    }
+#pragma unroll 4
+    for (int c = 0; c < K; ++c) {
+      const float xv = row[c];
+#pragma unroll
+      for (int t = 0; t < OT; ++t) s[t] = fmaf(xv, wr[t][c * wk], s[t]);
+    }
+#pragma unroll
+    for (int t = 0; t < OT; ++t)
+      if (o0 + t < O) store(k, n, o0 + t, s[t]);
   }
 }
 
-// acc[o * K + k] += sum_n A[n][o] B[n][k] (a weight gradient over the window's
-// rows); each element is owned by one thread for the whole kernel.
-__device__ __forceinline__ void acc_outer(float* acc, const float* A, int as, int O,
-                                          const float* B, int bs, int K, int N) {
-  for (int e = threadIdx.x; e < O * K; e += FUSION_THREADS) {
-    const int o = e / K, k = e % K;
-    float s = 0.f;
-    for (int n = 0; n < N; ++n) s = fmaf(A[n * as + o], B[n * bs + k], s);
-    acc[e] += s;
+// One weight-gradient element, acc[e] += sum_k sum_n A_k[n][o] B_k[n][j]
+// (e = o * J + j) over the windows in flight, in the order k, then n (two
+// chains, even and odd n, added at the end): the same order every run.
+__device__ __forceinline__ void outer_elem(float* acc, int e, const float* win, int arena,
+                                           int a_off, int as, int b_off, int bs, int J,
+                                           int N, int kw) {
+  const int o = e / J, j = e % J;
+  float s0 = 0.f, s1 = 0.f;
+  for (int k = 0; k < kw; ++k) {
+    const float* A = win + k * arena + a_off + o;
+    const float* B = win + k * arena + b_off + j;
+    int n = 0;
+    for (; n + 1 < N; n += 2) {
+      s0 = fmaf(A[n * as], B[n * bs], s0);
+      s1 = fmaf(A[(n + 1) * as], B[(n + 1) * bs], s1);
+    }
+    if (n < N) s0 = fmaf(A[n * as], B[n * bs], s0);
   }
+  acc[e] += s0 + s1;
 }
 
-// acc[o] += sum_n A[n][o] (B ? B[n][o] : 1): bias and LayerNorm-scale gradients.
-__device__ __forceinline__ void acc_cols(float* acc, const float* A, int as, const float* B,
-                                         int bs, int O, int N) {
-  for (int o = threadIdx.x; o < O; o += FUSION_THREADS) {
-    float s = 0.f;
-    for (int n = 0; n < N; ++n) s += B ? A[n * as + o] * B[n * bs + o] : A[n * as + o];
-    acc[o] += s;
+// One column-sum element, acc[o] += sum_k sum_n A_k[n][o] (B_k[n][o] if
+// b_off >= 0): bias and LayerNorm-scale gradients.
+__device__ __forceinline__ void cols_elem(float* acc, int o, const float* win, int arena,
+                                          int a_off, int as, int b_off, int bs, int N, int kw) {
+  float s = 0.f;
+  for (int k = 0; k < kw; ++k) {
+    const float* A = win + k * arena + a_off + o;
+    const float* B = win + k * arena + b_off + o;
+    for (int n = 0; n < N; ++n) s += b_off >= 0 ? A[n * as] * B[n * bs] : A[n * as];
   }
+  acc[o] += s;
 }
 
-// Two-pass LayerNorm of one row keeping the normalised row xh; returns rsqrt.
+// Block-wide (threads t0, t0 + 1, ... of a team of nt): every element of an
+// O x J weight gradient / an O-wide column sum has one owner thread.
+__device__ __forceinline__ void acc_outer_w(float* acc, const float* win, int arena, int a_off,
+                                            int as, int O, int b_off, int bs, int J, int N,
+                                            int kw, int t0 = 0,
+                                            int nt = FUSION_BWD_THREADS) {
+  for (int e = threadIdx.x - t0; e < O * J; e += nt)
+    outer_elem(acc, e, win, arena, a_off, as, b_off, bs, J, N, kw);
+}
+
+__device__ __forceinline__ void acc_cols_w(float* acc, const float* win, int arena, int a_off,
+                                           int as, int b_off, int bs, int O, int N, int kw,
+                                           int t0 = 0, int nt = FUSION_BWD_THREADS) {
+  for (int o = threadIdx.x - t0; o < O; o += nt)
+    cols_elem(acc, o, win, arena, a_off, as, b_off, bs, N, kw);
+}
+
+// Two-pass LayerNorm of one row keeping the normalised row xh (xh may be
+// src: each element is read before it is overwritten); returns rsqrt.
 __device__ __forceinline__ float ln_fwd_row(const float* src, float* xh, float* h,
                                             const float* g, const float* b, int C) {
   float mu = 0.f;
@@ -475,7 +530,7 @@ __device__ __forceinline__ float ln_fwd_row(const float* src, float* xh, float* 
 }
 
 // dst[c] = (add ? add[c] : 0) + r (dh g - mean(dh g) - xh mean(dh g xh)):
-// fusion_block.py _ln_bwd.
+// fusion_block.py _ln_bwd (dst may be add).
 __device__ __forceinline__ void ln_bwd_row(const float* dh, const float* xh, float r,
                                            const float* g, const float* add, float* dst,
                                            int C) {
@@ -491,120 +546,144 @@ __device__ __forceinline__ void ln_bwd_row(const float* dh, const float* xh, flo
     dst[c] = (add ? add[c] : 0.f) + r * (dh[c] * g[c] - m1 - xh[c] * m2);
 }
 
-// The backward of one subject's window: adds the window's share of every
-// parameter gradient and of dbias to the block's accumulators at L.acc and
-// writes dx (and dy). Weights, bias and (if masked) the shift mask are
-// staged at L.fwd + the FusionLayout offsets; ends on a barrier.
+// The backward of kw <= FUSION_BWD_WINDOWS windows at once (wins[k] for
+// window k, all sharing the shift mask staged at L.fwd + F.mask): adds
+// their share of every parameter gradient and of dbias to the block's
+// accumulators at L.acc, in window order, and writes dx (and dy). Weights
+// and bias are staged at L.fwd + the FusionLayout offsets; the caller has
+// synchronised after staging wins and the mask; ends on a barrier.
 template <bool CROSS, int MAXHD>
-__device__ __forceinline__ void fusion_backward_window(float* smem, const FusionBwdLayout& L,
-                                                       const FusionLayout& F,
-                                                       const FusionGrads& G, bool masked, int N,
-                                                       int C, int H, int Ch,
-                                                       const FusionTrain& T,
-                                                       const FusionWindow& W) {
-  const int CS = L.CS, HS = L.HS, BS = L.BS, QS = L.QS;
-  float* w = smem + L.fwd;    // + FusionLayout offset -> staged weight
-  float *xs = smem + L.xs, *ys = smem + L.ys, *gs = smem + L.gs, *x2s = smem + L.x2s;
-  float *h2 = smem + L.h2, *xh2 = smem + L.xh2, *dz = smem + L.dz, *dh2 = smem + L.dh2;
-  float *dx2r = smem + L.dx2r, *da = smem + L.da, *dO = smem + L.dO;
-  float *h1 = smem + L.h1, *xh1 = smem + L.xh1, *h1y = smem + L.h1y, *xh1y = smem + L.xh1y;
-  float *qs = smem + L.qs, *ks = smem + L.ks, *vs = smem + L.vs, *os = smem + L.os;
-  float *dh1 = smem + L.dh1, *dh1y = smem + L.dh1y, *dqkv = smem + L.dqkv;
-  float *us = smem + L.us, *gus = smem + L.gus;
-  float *r1 = smem + L.r1, *r2 = smem + L.r2, *r1y = smem + L.r1y;
-  float *lse = smem + L.lse, *Dd = smem + L.Dd, *acc = smem + L.acc;
-  float* bs = w + F.bias;
-  float* ms = w + F.mask;
+__device__ __forceinline__ void fusion_backward_windows(float* smem, const FusionBwdLayout& L,
+                                                        const FusionLayout& F,
+                                                        const FusionGrads& G, bool masked,
+                                                        int N, int C, int H, int Ch,
+                                                        const FusionTrain& T,
+                                                        const FusionWindow* wins, int kw) {
+  constexpr int NT = FUSION_BWD_THREADS;
+  const int CS = L.CS, HS = L.HS, BS = L.BS, QS = L.QS, AR = L.arena;
+  const float* w = smem + L.fwd;    // + FusionLayout offset -> staged weight
+  float* acc = smem + L.acc;
+  float* win = smem + L.win;
+  const float* bs = w + F.bias;
+  const float* ms = w + F.mask;
   const int tid = threadIdx.x;
   const int hd = C / H;
   const float scale = 1.f / sqrtf((float)hd);
-  const int S = W.stride;
-  const uint32_t row0 = W.row0;
-  const float dp1 = W.dp1, dp2 = W.dp2;
-
-  stage_rows(xs, CS, W.x, S, N, C);
-  if (CROSS) stage_rows(ys, CS, W.y, S, N, C);
-  stage_rows(gs, CS, W.g, S, N, C);
-  stage_rows(x2s, CS, W.x2r, S, N, C);
-  __syncthreads();
+  const int rows = kw * N, HN = H * N;
 
   // ---- MLP / LN2 side over the saved x2r ------------------------------------
-  for (int n = tid; n < N; n += FUSION_THREADS)
-    r2[n] = ln_fwd_row(x2s + n * CS, xh2 + n * CS, h2 + n * CS, w + F.g2, w + F.b2, C);
-  for (int e = tid; e < N * C; e += FUSION_THREADS) {
-    const int n = e / C, c = e % C;
-    dz[n * CS + c] = dp2 * gs[n * CS + c] * keep(T.mlp2, row0 + n, W.colC + c);
+  for (int e = tid; e < rows * C; e += NT) {
+    const int r = e / C, c = e % C, k = r / N, n = r % N;
+    const FusionWindow& W = wins[k];
+    float* a = win + k * AR + n * CS + c;
+    const size_t src = (size_t)n * W.stride + c;
+    a[L.p0] = W.g[src];
+    a[L.p1] = W.x2r[src];
   }
   __syncthreads();
-  dense_any(h2, CS, C, w + F.w1, CS, 1, w + F.b1m, Ch, N,
-            [&](int n, int o, float s) { us[n * HS + o] = s; });
-  __syncthreads();
-  for (int e = tid; e < N * Ch; e += FUSION_THREADS) {
-    const int n = e / Ch, j = e % Ch;
-    gus[n * HS + j] = gelu_erf(us[n * HS + j]) * keep(T.mlp1, row0 + n, W.colH + j);
+  for (int r = tid; r < rows; r += NT) {
+    float* a = win + (r / N) * AR + (r % N) * CS;
+    win[(r / N) * AR + L.r2 + r % N] =
+        ln_fwd_row(a + L.p1, a + L.p1, a + L.p2, w + F.g2, w + F.b2, C);
   }
+  for (int e = tid; e < rows * C; e += NT) {
+    const int r = e / C, c = e % C, k = r / N, n = r % N;
+    const FusionWindow& W = wins[k];
+    float* a = win + k * AR + n * CS + c;
+    a[L.p3] = W.dp2 * a[L.p0] * keep(T.mlp2, W.row0 + n, W.colC + c);   // dz
+  }
+  __syncthreads();
+  // u = fc1(h2) and GELU(u) * m1
+  dense_w(win, AR, L.p2, CS, C, w + F.w1, CS, 1, w + F.b1m, Ch, N, kw,
+          [&](int k, int n, int o, float s) {
+            float* a = win + k * AR + n * HS + o;
+            a[L.us] = s;
+            a[L.gus] = gelu_erf(s) * keep(T.mlp1, wins[k].row0 + n, wins[k].colH + o);
+             });
   __syncthreads();
   // du = (dz W2) * m1 * GELU'(u), written over u
-  dense_any(dz, CS, C, w + F.w2, 1, HS, nullptr, Ch, N, [&](int n, int j, float s) {
-    us[n * HS + j] = s * keep(T.mlp1, row0 + n, W.colH + j) * gelu_erf_grad(us[n * HS + j]);
-  });
-  acc_outer(acc + G.w2, dz, CS, C, gus, HS, Ch, N);
-  acc_cols(acc + G.b2m, dz, CS, nullptr, 0, C, N);
+  dense_w(win, AR, L.p3, CS, C, w + F.w2, 1, HS, nullptr, Ch, N, kw,
+          [&](int k, int n, int j, float s) {
+            float* u = win + k * AR + L.us + n * HS + j;
+            *u = s * keep(T.mlp1, wins[k].row0 + n, wins[k].colH + j) * gelu_erf_grad(*u);
+             });
+  acc_outer_w(acc + G.w2, win, AR, L.p3, CS, C, L.gus, HS, Ch, N, kw);
+  acc_cols_w(acc + G.b2m, win, AR, L.p3, CS, -1, 0, C, N, kw);
   __syncthreads();
-  acc_outer(acc + G.w1, us, HS, Ch, h2, CS, C, N);
-  acc_cols(acc + G.b1m, us, HS, nullptr, 0, Ch, N);
-  dense_any(us, HS, Ch, w + F.w1, 1, CS, nullptr, C, N,
-            [&](int n, int c, float s) { dh2[n * CS + c] = s; });
+  acc_outer_w(acc + G.w1, win, AR, L.us, HS, Ch, L.p2, CS, C, N, kw);
+  acc_cols_w(acc + G.b1m, win, AR, L.us, HS, -1, 0, Ch, N, kw);
+  dense_w(win, AR, L.us, HS, Ch, w + F.w1, 1, CS, nullptr, C, N, kw,
+          [&](int k, int n, int c, float s) { win[k * AR + L.p3 + n * CS + c] = s; });  // dh2
   __syncthreads();
-  acc_cols(acc + G.g2, dh2, CS, xh2, CS, C, N);
-  acc_cols(acc + G.b2, dh2, CS, nullptr, 0, C, N);
-  for (int n = tid; n < N; n += FUSION_THREADS)
-    ln_bwd_row(dh2 + n * CS, xh2 + n * CS, r2[n], w + F.g2, gs + n * CS, dx2r + n * CS, C);
+  acc_cols_w(acc + G.g2, win, AR, L.p3, CS, L.p1, CS, C, N, kw);
+  acc_cols_w(acc + G.b2, win, AR, L.p3, CS, -1, 0, C, N, kw);
+  for (int r = tid; r < rows; r += NT) {
+    float* a = win + (r / N) * AR + (r % N) * CS;
+    ln_bwd_row(a + L.p3, a + L.p1, win[(r / N) * AR + L.r2 + r % N], w + F.g2, a + L.p0,
+               a + L.p0, C);   // dx2r over g
+  }
   __syncthreads();
-  for (int e = tid; e < N * C; e += FUSION_THREADS) {
-    const int n = e / C, c = e % C;
-    da[n * CS + c] = dp1 * dx2r[n * CS + c] * keep(T.proj, row0 + n, W.colC + c);
+  for (int e = tid; e < rows * C; e += NT) {
+    const int r = e / C, c = e % C, k = r / N, n = r % N;
+    const FusionWindow& W = wins[k];
+    float* a = win + k * AR + n * CS + c;
+    const size_t src = (size_t)n * W.stride + c;
+    a[L.p2] = W.dp1 * a[L.p0] * keep(T.proj, W.row0 + n, W.colC + c);   // da
+    a[L.p1] = W.x[src];
+    if (CROSS) a[L.p6] = W.y[src];
   }
   __syncthreads();
 
   // ---- proj backward, LN1 and q/k/v recompute --------------------------------
-  dense_any(da, CS, C, w + F.wp, 1, CS, nullptr, C, N,
-            [&](int n, int c, float s) { dO[n * CS + c] = s; });
-  acc_cols(acc + G.bp, da, CS, nullptr, 0, C, N);
-  for (int n = tid; n < N; n += FUSION_THREADS) {
-    r1[n] = ln_fwd_row(xs + n * CS, xh1 + n * CS, h1 + n * CS, w + F.g1, w + F.b1, C);
+  dense_w(win, AR, L.p2, CS, C, w + F.wp, 1, CS, nullptr, C, N, kw,
+          [&](int k, int n, int c, float s) { win[k * AR + L.p3 + n * CS + c] = s; });  // dO
+  acc_cols_w(acc + G.bp, win, AR, L.p2, CS, -1, 0, C, N, kw);
+  for (int r = tid; r < rows; r += NT) {
+    const int k = r / N, n = r % N;
+    float* a = win + k * AR;
+    a[L.r1 + n] = ln_fwd_row(a + L.p1 + n * CS, a + L.p1 + n * CS, a + L.h1 + n * CS, w + F.g1,
+                             w + F.b1, C);
     if (CROSS)
-      r1y[n] = ln_fwd_row(ys + n * CS, xh1y + n * CS, h1y + n * CS, w + F.g1y, w + F.b1y, C);
+      a[L.r1y + n] = ln_fwd_row(a + L.p6 + n * CS, a + L.p6 + n * CS, a + L.h1y + n * CS,
+                                w + F.g1y, w + F.b1y, C);
   }
   __syncthreads();
   if (CROSS) {
-    dense_any(h1, CS, C, w + F.wq, CS, 1, w + F.bq, C, N,
-              [&](int n, int o, float s) { qs[n * CS + o] = s * scale; });
-    dense_any(h1y, CS, C, w + F.wkv, CS, 1, w + F.bkv, 2 * C, N, [&](int n, int o, float s) {
-      if (o < C) ks[n * CS + o] = s;
-      else vs[n * CS + o - C] = s;
-    });
+    dense_w(win, AR, L.h1, CS, C, w + F.wq, CS, 1, w + F.bq, C, N, kw,
+            [&](int k, int n, int o, float s) { win[k * AR + L.qs + n * CS + o] = s * scale; });
+    dense_w(win, AR, L.h1y, CS, C, w + F.wkv, CS, 1, w + F.bkv, 2 * C, N, kw,
+            [&](int k, int n, int o, float s) {
+              float* a = win + k * AR + n * CS;
+              if (o < C) a[L.ks + o] = s;
+              else a[L.vs + o - C] = s;
+            });
   } else {
-    dense_any(h1, CS, C, w + F.wq, CS, 1, w + F.bq, 3 * C, N, [&](int n, int o, float s) {
-      if (o < C) qs[n * CS + o] = s * scale;
-      else if (o < 2 * C) ks[n * CS + o - C] = s;
-      else vs[n * CS + o - 2 * C] = s;
-    });
+    dense_w(win, AR, L.h1, CS, C, w + F.wq, CS, 1, w + F.bq, 3 * C, N, kw,
+            [&](int k, int n, int o, float s) {
+              float* a = win + k * AR + n * CS;
+              if (o < C) a[L.qs + o] = s * scale;
+              else if (o < 2 * C) a[L.ks + o - C] = s;
+              else a[L.vs + o - 2 * C] = s;
+            });
   }
   __syncthreads();
 
-  // ---- attention, row pass: one (head, query) per thread -------------------
-  for (int i = tid; i < H * N; i += FUSION_THREADS) {
-    const int h = i / N, n = i % N, c0 = h * hd;
+  // ---- attention, row pass: one (window, head, query) per thread -------------
+  for (int i = tid; i < kw * HN; i += NT) {
+    const int k = i / HN, hi = i % HN, h = hi / N, n = hi % N, c0 = h * hd;
+    const FusionWindow& W = wins[k];
+    float* a = win + k * AR;
+    const float *ks = a + L.ks, *vs = a + L.vs;
     float qi[MAXHD], gi[MAXHD], oa[MAXHD];
 #pragma unroll
     for (int d = 0; d < MAXHD; ++d) {
-      qi[d] = d < hd ? qs[n * CS + c0 + d] : 0.f;
-      gi[d] = d < hd ? dO[n * CS + c0 + d] : 0.f;
+      qi[d] = d < hd ? a[L.qs + n * CS + c0 + d] : 0.f;
+      gi[d] = d < hd ? a[L.p3 + n * CS + c0 + d] : 0.f;
       oa[d] = 0.f;
     }
-    const float* brow = bs + i * BS;
+    const float* brow = bs + hi * BS;
     const float* mrow = masked ? ms + n * BS : nullptr;
+    const uint32_t rr = W.row0 + n, ca = W.colA + (uint32_t)(h * T.NP);
     float m = -INFINITY;
     for (int j = 0; j < N; ++j) {
       float s = brow[j] + (mrow ? mrow[j] : 0.f);
@@ -621,7 +700,7 @@ __device__ __forceinline__ void fusion_backward_window(float* smem, const Fusion
         if (d < hd) s = fmaf(qi[d], ks[j * CS + c0 + d], s);
       const float p = expf(s - m);
       l += p;
-      const float pk = p * keep(T.attn, row0 + n, W.colA + (uint32_t)(h * T.NP + j));
+      const float pk = p * keep(T.attn, rr, ca + j);
 #pragma unroll
       for (int d = 0; d < MAXHD; ++d)
         if (d < hd) oa[d] = fmaf(pk, vs[j * CS + c0 + d], oa[d]);
@@ -632,11 +711,11 @@ __device__ __forceinline__ void fusion_backward_window(float* smem, const Fusion
     for (int d = 0; d < MAXHD; ++d)
       if (d < hd) {
         oa[d] *= inv;
-        os[n * CS + c0 + d] = oa[d];
+        a[L.os + n * CS + c0 + d] = oa[d];
         Di = fmaf(gi[d], oa[d], Di);
       }
-    lse[i] = m + logf(l);
-    Dd[i] = Di;
+    a[L.lse + hi] = m + logf(l);
+    a[L.Dd + hi] = Di;
     float dq[MAXHD];
 #pragma unroll
     for (int d = 0; d < MAXHD; ++d) dq[d] = 0.f;
@@ -649,98 +728,121 @@ __device__ __forceinline__ void fusion_backward_window(float* smem, const Fusion
           dp = fmaf(gi[d], vs[j * CS + c0 + d], dp);
         }
       const float p = expf(s - m) * inv;
-      const float ds =
-          p * (dp * keep(T.attn, row0 + n, W.colA + (uint32_t)(h * T.NP + j)) - Di);
+      const float ds = p * (dp * keep(T.attn, rr, ca + j) - Di);
 #pragma unroll
       for (int d = 0; d < MAXHD; ++d)
         if (d < hd) dq[d] = fmaf(ds, ks[j * CS + c0 + d], dq[d]);
     }
 #pragma unroll
     for (int d = 0; d < MAXHD; ++d)
-      if (d < hd) dqkv[n * QS + c0 + d] = dq[d] * scale;
+      if (d < hd) a[L.dqkv + n * QS + c0 + d] = dq[d] * scale;
   }
   __syncthreads();
 
-  // ---- attention, column pass: one (head, key) per thread -------------------
-  for (int i = tid; i < H * N; i += FUSION_THREADS) {
+  // ---- attention, column pass: one (head, key) per thread over the windows
+  // in order (the thread owns dbias[h][:, key]); beside it, threads the pass
+  // leaves free add the gradients that need no dk/dv: proj (da, o) and the
+  // q rows of the q (qkv) weight and bias.
+  const int side_n = 2 * C * C + C;
+  auto side = [&](int u) {
+    if (u < C * C) outer_elem(acc + G.wp, u, win, AR, L.p2, CS, L.os, CS, C, N, kw);
+    else if (u < 2 * C * C)
+      outer_elem(acc + G.wq, u - C * C, win, AR, L.dqkv, QS, L.h1, CS, C, N, kw);
+    else cols_elem(acc + G.bq, u - 2 * C * C, win, AR, L.dqkv, QS, -1, 0, N, kw);
+  };
+  const bool beside = NT - HN >= 64;
+  for (int i = tid; i < HN; i += NT) {
     const int h = i / N, j = i % N, c0 = h * hd;
-    float kj[MAXHD], vj[MAXHD], dk[MAXHD], dv[MAXHD];
-#pragma unroll
-    for (int d = 0; d < MAXHD; ++d) {
-      kj[d] = d < hd ? ks[j * CS + c0 + d] : 0.f;
-      vj[d] = d < hd ? vs[j * CS + c0 + d] : 0.f;
-      dk[d] = dv[d] = 0.f;
-    }
     float* db = acc + G.bias + (size_t)h * N * N + j;
-    for (int n = 0; n < N; ++n) {
-      float s = bs[(h * N + n) * BS + j] + (masked ? ms[n * BS + j] : 0.f), dp = 0.f;
+    for (int k = 0; k < kw; ++k) {
+      const FusionWindow& W = wins[k];
+      float* a = win + k * AR;
+      const float *qs = a + L.qs, *dO = a + L.p3, *lse = a + L.lse + h * N,
+                  *Dd = a + L.Dd + h * N;
+      float kj[MAXHD], vj[MAXHD], dk[MAXHD], dv[MAXHD];
+#pragma unroll
+      for (int d = 0; d < MAXHD; ++d) {
+        kj[d] = d < hd ? a[L.ks + j * CS + c0 + d] : 0.f;
+        vj[d] = d < hd ? a[L.vs + j * CS + c0 + d] : 0.f;
+        dk[d] = dv[d] = 0.f;
+      }
+      const uint32_t ca = W.colA + (uint32_t)(h * T.NP + j);
+      for (int n = 0; n < N; ++n) {
+        float s = bs[(h * N + n) * BS + j] + (masked ? ms[n * BS + j] : 0.f), dp = 0.f;
+#pragma unroll
+        for (int d = 0; d < MAXHD; ++d)
+          if (d < hd) {
+            s = fmaf(qs[n * CS + c0 + d], kj[d], s);
+            dp = fmaf(dO[n * CS + c0 + d], vj[d], dp);
+          }
+        const float p = expf(s - lse[n]);
+        const float kp = keep(T.attn, W.row0 + n, ca);
+        const float ds = p * (dp * kp - Dd[n]);
+        db[n * N] += ds;
+#pragma unroll
+        for (int d = 0; d < MAXHD; ++d)
+          if (d < hd) {
+            dk[d] = fmaf(ds, qs[n * CS + c0 + d], dk[d]);
+            dv[d] = fmaf(p * kp, dO[n * CS + c0 + d], dv[d]);
+          }
+      }
 #pragma unroll
       for (int d = 0; d < MAXHD; ++d)
         if (d < hd) {
-          s = fmaf(qs[n * CS + c0 + d], kj[d], s);
-          dp = fmaf(dO[n * CS + c0 + d], vj[d], dp);
-        }
-      const float p = expf(s - lse[h * N + n]);
-      const float kp = keep(T.attn, row0 + n, W.colA + (uint32_t)(h * T.NP + j));
-      const float ds = p * (dp * kp - Dd[h * N + n]);
-      db[n * N] += ds;
-#pragma unroll
-      for (int d = 0; d < MAXHD; ++d)
-        if (d < hd) {
-          dk[d] = fmaf(ds, qs[n * CS + c0 + d], dk[d]);
-          dv[d] = fmaf(p * kp, dO[n * CS + c0 + d], dv[d]);
+          a[L.dqkv + j * QS + C + c0 + d] = dk[d];
+          a[L.dqkv + j * QS + 2 * C + c0 + d] = dv[d];
         }
     }
-#pragma unroll
-    for (int d = 0; d < MAXHD; ++d)
-      if (d < hd) {
-        dqkv[j * QS + C + c0 + d] = dk[d];
-        dqkv[j * QS + 2 * C + c0 + d] = dv[d];
-      }
   }
+  if (beside && tid >= HN)
+    for (int u = tid - HN; u < side_n; u += NT - HN) side(u);
   __syncthreads();
+  if (!beside)
+    for (int u = tid; u < side_n; u += NT) side(u);
 
-  // ---- projection and q/k/v parameter gradients, LN1 backward ----------------
-  acc_outer(acc + G.wp, da, CS, C, os, CS, C, N);
+  // ---- k/v parameter gradients, dh1 (dh1y), LN1 backward ---------------------
   if (CROSS) {
-    acc_outer(acc + G.wq, dqkv, QS, C, h1, CS, C, N);
-    acc_cols(acc + G.bq, dqkv, QS, nullptr, 0, C, N);
-    acc_outer(acc + G.wkv, dqkv + C, QS, 2 * C, h1y, CS, C, N);
-    acc_cols(acc + G.bkv, dqkv + C, QS, nullptr, 0, 2 * C, N);
-    dense_any(dqkv, QS, C, w + F.wq, 1, CS, nullptr, C, N,
-              [&](int n, int c, float s) { dh1[n * CS + c] = s; });
-    dense_any(dqkv + C, QS, 2 * C, w + F.wkv, 1, CS, nullptr, C, N,
-              [&](int n, int c, float s) { dh1y[n * CS + c] = s; });
+    acc_outer_w(acc + G.wkv, win, AR, L.dqkv + C, QS, 2 * C, L.h1y, CS, C, N, kw);
+    acc_cols_w(acc + G.bkv, win, AR, L.dqkv + C, QS, -1, 0, 2 * C, N, kw);
+    dense_w(win, AR, L.dqkv, QS, C, w + F.wq, 1, CS, nullptr, C, N, kw,
+            [&](int k, int n, int c, float s) { win[k * AR + L.p3 + n * CS + c] = s; });
+    dense_w(win, AR, L.dqkv + C, QS, 2 * C, w + F.wkv, 1, CS, nullptr, C, N, kw,
+            [&](int k, int n, int c, float s) { win[k * AR + L.dh1y + n * CS + c] = s; });
   } else {
-    acc_outer(acc + G.wq, dqkv, QS, 3 * C, h1, CS, C, N);
-    acc_cols(acc + G.bq, dqkv, QS, nullptr, 0, 3 * C, N);
-    dense_any(dqkv, QS, 3 * C, w + F.wq, 1, CS, nullptr, C, N,
-              [&](int n, int c, float s) { dh1[n * CS + c] = s; });
+    acc_outer_w(acc + G.wq + C * C, win, AR, L.dqkv + C, QS, 2 * C, L.h1, CS, C, N, kw);
+    acc_cols_w(acc + G.bq + C, win, AR, L.dqkv + C, QS, -1, 0, 2 * C, N, kw);
+    dense_w(win, AR, L.dqkv, QS, 3 * C, w + F.wq, 1, CS, nullptr, C, N, kw,
+            [&](int k, int n, int c, float s) { win[k * AR + L.p3 + n * CS + c] = s; });
   }
   __syncthreads();
-  acc_cols(acc + G.g1, dh1, CS, xh1, CS, C, N);
-  acc_cols(acc + G.b1, dh1, CS, nullptr, 0, C, N);
+  acc_cols_w(acc + G.g1, win, AR, L.p3, CS, L.p1, CS, C, N, kw);
+  acc_cols_w(acc + G.b1, win, AR, L.p3, CS, -1, 0, C, N, kw);
   if (CROSS) {
-    acc_cols(acc + G.g1y, dh1y, CS, xh1y, CS, C, N);
-    acc_cols(acc + G.b1y, dh1y, CS, nullptr, 0, C, N);
+    acc_cols_w(acc + G.g1y, win, AR, L.dh1y, CS, L.p6, CS, C, N, kw);
+    acc_cols_w(acc + G.b1y, win, AR, L.dh1y, CS, -1, 0, C, N, kw);
   }
-  for (int n = tid; n < N; n += FUSION_THREADS) {
-    ln_bwd_row(dh1 + n * CS, xh1 + n * CS, r1[n], w + F.g1, dx2r + n * CS,
-               W.dx + (size_t)n * S, C);
+  for (int r = tid; r < rows; r += NT) {
+    const int k = r / N, n = r % N;
+    const FusionWindow& W = wins[k];
+    float* a = win + k * AR;
+    ln_bwd_row(a + L.p3 + n * CS, a + L.p1 + n * CS, a[L.r1 + n], w + F.g1, a + L.p0 + n * CS,
+               W.dx + (size_t)n * W.stride, C);
     if (CROSS)
-      ln_bwd_row(dh1y + n * CS, xh1y + n * CS, r1y[n], w + F.g1y, nullptr,
-                 W.dy + (size_t)n * S, C);
+      ln_bwd_row(a + L.dh1y + n * CS, a + L.p6 + n * CS, a[L.r1y + n], w + F.g1y, nullptr,
+                 W.dy + (size_t)n * W.stride, C);
   }
-  __syncthreads();  // the next window overwrites the staged streams
+  __syncthreads();  // the next windows overwrite the arenas, wins and the mask
 }
 
 // ---------------------------------------------------------------------------
 // Launch plumbing shared by K2/K3 and K7.
 // ---------------------------------------------------------------------------
 
-// A grid that fills the card once (blocks then walk their work items).
+// A grid that fills the card once (blocks of `threads` then walk their work
+// items); per_sm_out, if given, receives the resident blocks an SM takes.
 template <typename Kernel>
-static cudaError_t persistent_grid(Kernel kernel, size_t smem, int items, int* blocks) {
+static cudaError_t persistent_grid(Kernel kernel, size_t smem, int items, int* blocks,
+                                   int threads = FUSION_THREADS, int* per_sm_out = nullptr) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0, per_sm = 0;
@@ -748,12 +850,36 @@ static cudaError_t persistent_grid(Kernel kernel, size_t smem, int items, int* b
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
       cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FUSION_THREADS,
-                                                          smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+      cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (per_sm_out) *per_sm_out = per_sm;
   *blocks = items < sms * per_sm ? items : sms * per_sm;
   return cudaSuccess;
+}
+
+// Windows in flight a backward block (at most FUSION_BWD_WINDOWS and
+// `limit`, the subjects that share a window position) and its dynamic
+// shared memory: as many windows as fit in what a block may opt into.
+static cudaError_t backward_windows(bool cross, int N, int C, int H, int Ch, int limit,
+                                    int* windows, size_t* smem) {
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
+      cudaSuccess)
+    return err;
+  const size_t fixed = sizeof(FusionWindow) * FUSION_BWD_WINDOWS;   // static: wins[]
+  for (int kw = limit < FUSION_BWD_WINDOWS ? limit : FUSION_BWD_WINDOWS; kw >= 1; --kw) {
+    const size_t bytes = (size_t)FusionBwdLayout(cross, N, C, H, Ch, kw).total * sizeof(float);
+    if (bytes + fixed <= (size_t)optin) {
+      *windows = kw;
+      *smem = bytes;
+      return cudaSuccess;
+    }
+  }
+  return cudaErrorInvalidConfiguration;
 }
 
 static FusionParams unpack_params(int cross, const void* const* params) {

@@ -20,11 +20,13 @@
 // time (grid-striding over them, as K2 over windows), stages the window's
 // shift mask once for its G subjects (the weights and the bias once per
 // block), and walks the G subjects, running each through K2/K3's window body
-// (fusion_block.cuh) at row stride G*C. The backward recomputes the forward
-// from x and the saved x2r as K2's does, accumulates every parameter and
-// bias-table gradient over all its (group, window, subject) work in shared
-// memory, writes one partial per block, and the ordered reduce_partials adds
-// them: no float atomics, bitwise-repeatable gradients.
+// (fusion_block.cuh) at row stride G*C. The backward runs K2/K3's
+// multi-window body: one work item is a (group, window) and up to
+// FUSION_BWD_WINDOWS of its subjects at once, which share the shift mask;
+// it recomputes the forward from x and the saved x2r, accumulates every
+// parameter and bias-table gradient over all its work in shared memory,
+// writes one partial per block, and the ordered reduce_partials adds them:
+// no float atomics, bitwise-repeatable gradients.
 //
 // What bounds it on the H100: latency per window, as K2/K3 (the same work:
 // about 0.8 GFLOP a forward call at B = 16).
@@ -75,41 +77,50 @@ fusion_block_bp_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }
 
 template <bool CROSS, int MAXHD>
-__global__ void __launch_bounds__(FUSION_THREADS)
+__global__ void __launch_bounds__(FUSION_BWD_THREADS, 1)
 fusion_block_bp_backward_kernel(const float* __restrict__ x, const float* __restrict__ y,
                                 const float* __restrict__ x2r, const float* __restrict__ g,
                                 FusionParams P, const float* __restrict__ bias,
                                 const float* __restrict__ mask, FusionTrain T,
                                 float* __restrict__ dx, float* __restrict__ dy,
-                                float* __restrict__ part, int items, int G, int nW, int N,
-                                int C, int H, int Ch) {
+                                float* __restrict__ part, int ngroups, int G, int nW, int N,
+                                int C, int H, int Ch, int windows) {
   extern __shared__ float smem[];
-  const FusionBwdLayout L(CROSS, N, C, H, Ch);
+  __shared__ FusionWindow wins[FUSION_BWD_WINDOWS];
+  const FusionBwdLayout L(CROSS, N, C, H, Ch, windows);
   const FusionLayout F(CROSS, N, C, H, Ch);
   const FusionGrads Gr(CROSS, N, C, H, Ch);
   float* acc = smem + L.acc;
 
-  for (int e = threadIdx.x; e < Gr.total; e += FUSION_THREADS) acc[e] = 0.f;
-  stage_weights(smem + L.fwd, F, CROSS, P, bias, N, C, H, Ch);
+  for (int e = threadIdx.x; e < Gr.total; e += FUSION_BWD_THREADS) acc[e] = 0.f;
+  stage_weights<FUSION_BWD_THREADS>(smem + L.fwd, F, CROSS, P, bias, N, C, H, Ch);
 
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int grp = item / nW, w = item % nW;
-    const size_t base = (size_t)item * N * G * C;
-    if (mask) stage(smem + L.fwd + F.mask, F.BS, mask + (size_t)w * N * N, N, N);
-    for (int j = 0; j < G; ++j) {
+  // work item ((grp, w), chunk): subjects chunk * windows + k of group grp
+  const int chunks = (G + windows - 1) / windows;
+  for (int item = blockIdx.x; item < ngroups * nW * chunks; item += gridDim.x) {
+    const int gw = item / chunks, j0 = (item % chunks) * windows;
+    const int grp = gw / nW, w = gw % nW;
+    const int kw = min(windows, G - j0);
+    if (threadIdx.x < kw) {
+      const int j = j0 + threadIdx.x;
       FusionWindow W = bp_window(grp, w, j, G, C, H, Ch, T);
-      const size_t off = base + (size_t)j * C;
+      const size_t off = (size_t)gw * N * G * C + (size_t)j * C;
       W.x = x + off;
       W.y = CROSS ? y + off : nullptr;
       W.x2r = const_cast<float*>(x2r) + off;
       W.g = g + off;
       W.dx = dx + off;
       W.dy = CROSS ? dy + off : nullptr;
-      fusion_backward_window<CROSS, MAXHD>(smem, L, F, Gr, mask != nullptr, N, C, H, Ch, T, W);
+      wins[threadIdx.x] = W;
     }
+    if (mask)
+      stage<FUSION_BWD_THREADS>(smem + L.fwd + F.mask, F.BS, mask + (size_t)w * N * N, N, N);
+    __syncthreads();
+    fusion_backward_windows<CROSS, MAXHD>(smem, L, F, Gr, mask != nullptr, N, C, H, Ch, T, wins,
+                                          kw);
   }
   float* mine = part + (size_t)blockIdx.x * Gr.total;
-  for (int e = threadIdx.x; e < Gr.total; e += FUSION_THREADS) mine[e] = acc[e];
+  for (int e = threadIdx.x; e < Gr.total; e += FUSION_BWD_THREADS) mine[e] = acc[e];
 }
 
 // ---------------------------------------------------------------------------
@@ -151,38 +162,58 @@ extern "C" int fusion_block_bp_forward(int cross, const float* x, const float* y
 }
 
 template <bool CROSS, int MAXHD>
-static cudaError_t bp_backward_grid(int items, int N, int C, int H, int Ch, int* blocks,
-                                    size_t* smem) {
-  *smem = (size_t)FusionBwdLayout(CROSS, N, C, H, Ch).total * sizeof(float);
-  return persistent_grid(fusion_block_bp_backward_kernel<CROSS, MAXHD>, *smem, items, blocks);
+static cudaError_t bp_backward_grid(int ngroups, int G, int nW, int N, int C, int H, int Ch,
+                                    int* blocks, size_t* smem, int* windows,
+                                    int* per_sm = nullptr) {
+  cudaError_t err = backward_windows(CROSS, N, C, H, Ch, G, windows, smem);
+  if (err != cudaSuccess) return err;
+  const int items = ngroups * nW * ((G + *windows - 1) / *windows);
+  return persistent_grid(fusion_block_bp_backward_kernel<CROSS, MAXHD>, *smem, items, blocks,
+                         FUSION_BWD_THREADS, per_sm);
 }
 
 // Floats of device scratch fusion_block_bp_backward needs (one partial of
 // fusion_block_grad_floats() per block), or -1 if the kernel cannot be
 // configured.
-extern "C" long long fusion_block_bp_backward_scratch_floats(int cross, int ngroups, int nW,
-                                                             int N, int C, int H, int Ch) {
-  if (bad_dims(N, C, H)) return -1;
-  int blocks = 0;
+extern "C" long long fusion_block_bp_backward_scratch_floats(int cross, int ngroups, int G,
+                                                             int nW, int N, int C, int H,
+                                                             int Ch) {
+  if (bad_dims(N, C, H) || G < 1) return -1;
+  int blocks = 0, windows = 0;
   size_t smem = 0;
-#define GRID(c, h) bp_backward_grid<c, h>(ngroups * nW, N, C, H, Ch, &blocks, &smem)
+#define GRID(c, h) bp_backward_grid<c, h>(ngroups, G, nW, N, C, H, Ch, &blocks, &smem, &windows)
   if (FUSION_DISPATCH(cross, C / H, GRID) != cudaSuccess) return -1;
 #undef GRID
   return (long long)blocks * FusionGrads(cross != 0, N, C, H, Ch).total;
+}
+
+// As fusion_block_backward_occupancy, for the group-major backward.
+extern "C" int fusion_block_bp_backward_occupancy(int cross, int ngroups, int G, int nW, int N,
+                                                  int C, int H, int Ch, int* out) {
+  if (bad_dims(N, C, H) || G < 1) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+#define GRID(c, h) \
+  bp_backward_grid<c, h>(ngroups, G, nW, N, C, H, Ch, &out[3], &smem, &out[1], &out[0])
+  const cudaError_t err = FUSION_DISPATCH(cross, C / H, GRID);
+#undef GRID
+  out[2] = (int)smem;
+  return (int)err;
 }
 
 template <bool CROSS, int MAXHD>
 static cudaError_t launch_bp_backward(const float* x, const float* y, const float* x2r,
                                       const float* g, const FusionParams& P, const float* bias,
                                       const float* mask, const FusionTrain& T, float* dx,
-                                      float* dy, float* grads, float* scratch, int items, int G,
-                                      int nW, int N, int C, int H, int Ch, cudaStream_t stream) {
-  int blocks = 0;
+                                      float* dy, float* grads, float* scratch, int ngroups,
+                                      int G, int nW, int N, int C, int H, int Ch,
+                                      cudaStream_t stream) {
+  int blocks = 0, windows = 0;
   size_t smem = 0;
-  cudaError_t err = bp_backward_grid<CROSS, MAXHD>(items, N, C, H, Ch, &blocks, &smem);
+  cudaError_t err =
+      bp_backward_grid<CROSS, MAXHD>(ngroups, G, nW, N, C, H, Ch, &blocks, &smem, &windows);
   if (err != cudaSuccess) return err;
-  fusion_block_bp_backward_kernel<CROSS, MAXHD><<<blocks, FUSION_THREADS, smem, stream>>>(
-      x, y, x2r, g, P, bias, mask, T, dx, dy, scratch, items, G, nW, N, C, H, Ch);
+  fusion_block_bp_backward_kernel<CROSS, MAXHD><<<blocks, FUSION_BWD_THREADS, smem, stream>>>(
+      x, y, x2r, g, P, bias, mask, T, dx, dy, scratch, ngroups, G, nW, N, C, H, Ch, windows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return reduce_partials(scratch, blocks, FusionGrads(CROSS, N, C, H, Ch).total, nullptr, grads,
                          stream);
@@ -206,8 +237,8 @@ extern "C" int fusion_block_bp_backward(int cross, const float* x, const float* 
   const FusionParams P = unpack_params(cross, params);
   const FusionTrain T = make_train(dp, seed, attn_rate, drop_rate, NP, nullptr);
 #define BWD(c, h)                                                                           \
-  launch_bp_backward<c, h>(x, y, x2r, g, P, bias, mask, T, dx, dy, grads, scratch,         \
-                           ngroups * nW, G, nW, N, C, H, Ch, stream)
+  launch_bp_backward<c, h>(x, y, x2r, g, P, bias, mask, T, dx, dy, grads, scratch, ngroups, \
+                           G, nW, N, C, H, Ch, stream)
   return (int)FUSION_DISPATCH(cross, C / H, BWD);
 #undef BWD
 }

@@ -28,6 +28,10 @@ from multimodal_neuroimage_tpu_torch.ops.fusion_block import (mix_keep,
 
 LN_EPS = 1e-12
 N_PARAMS = 16
+# K1 backward's products run in 3xTF32 on the tensor cores; True runs them
+# on the float32 SIMT GEMM instead: the precision yardstick that the card
+# tests and chip_smoke.py hold the tensor-core route against.
+_GEMM_SIMT = False
 
 
 def _rows(B: int, T: int, device) -> torch.Tensor:
@@ -88,6 +92,29 @@ def bert_layer_reference_backward(g, x, params, heads: int, t_valid: int,
                                    seed, rates, training)
         grads = torch.autograd.grad(out, inputs, g)
     return grads[0], tuple(grads[1:])
+
+
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest,
+    ties away from zero, 10 mantissa bits (finite values)."""
+    bits = a.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(a: torch.Tensor):
+    """(big, small): big = tf32(a), small = tf32(a - big), the split of
+    every operand of K1 backward's 3xTF32 products."""
+    big = tf32_round(a)
+    return big, tf32_round(a - big)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the arithmetic of K1 backward's tensor-core GEMM, in plain
+    PyTorch (tests only): (small_a big_b + big_a small_b) + big_a big_b,
+    each a float32 product of TF32 values (exact) summed in float32."""
+    a_big, a_small = tf32_split(a)
+    b_big, b_small = tf32_split(b)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
 
 
 def _check(x, params, heads, t_valid):
@@ -152,7 +179,8 @@ def bert_layer_backward(g, x, params, resid, heads: int, t_valid: int,
              g.data_ptr(), build.pointer_array(params),
              build.pointer_array(dparams), dx.data_ptr(), scratch.data_ptr(),
              B, T, H, F_, heads, t_valid, round_up(T, 8), int(seed),
-             float(attn_rate), float(hidden_rate), build.stream_of(x))
+             float(attn_rate), float(hidden_rate), int(_GEMM_SIMT),
+             build.stream_of(x))
     bert_layer_backward.launches += 1
     return dx, dparams
 

@@ -49,11 +49,13 @@ _SIGNATURES = {
                                 + [_P, _I, _D, _D, _I, _P, _P]),
     "fusion_block_bp_backward": (_I, [_I] + [_P] * 11 + [_I] * 7
                                  + [_P, _I, _D, _D, _I, _P]),
-    "fusion_block_bp_backward_scratch_floats": (_L, [_I] * 7),
+    "fusion_block_bp_backward_scratch_floats": (_L, [_I] * 8),
+    "fusion_block_backward_occupancy": (_I, [_I] * 7 + [_P]),
+    "fusion_block_bp_backward_occupancy": (_I, [_I] * 8 + [_P]),
     "bert_layer_forward": (_I, [_P] * 5 + [_I] * 8 + [_D, _D, _P]),
     "bert_layer_scratch_floats": (_L, [_I] * 4),
     "bert_layer_resid_floats": (_L, [_I] * 4),
-    "bert_layer_backward": (_I, [_P] * 7 + [_I] * 8 + [_D, _D, _P]),
+    "bert_layer_backward": (_I, [_P] * 7 + [_I] * 8 + [_D, _D, _I, _P]),
     "bert_layer_backward_scratch_floats": (_L, [_I] * 5),
     "fused_adam_update": (_I, [_P] * 4 + [_L, _P, _F, _F, _F, _D, _D, _D,
                                           _D, _I, _P]),

@@ -28,6 +28,7 @@ branches, an int32 ``seed`` and ``rates`` = (attention, proj/MLP) dropout.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -290,23 +291,22 @@ def _backward(g, x, y, params, bias, mask, dp, seed, rates, training, x2r,
                                                dp, seed, rates, training,
                                                cross)
     B, nW, N, C, H, Ch = _check(x, y, params, bias, mask, dp, cross)
-    return launch_backward("fusion_block_backward", (B, nW), (B, nW), g, x,
-                           y, params, bias, mask, dp, seed, rates, training,
-                           x2r, cross, N, C, H, Ch)
+    return launch_backward("fusion_block_backward", (B, nW), g, x, y, params,
+                           bias, mask, dp, seed, rates, training, x2r, cross,
+                           N, C, H, Ch)
 
 
-def launch_backward(entry, grid, dims, g, x, y, params, bias, mask, dp, seed,
+def launch_backward(entry, dims, g, x, y, params, bias, mask, dp, seed,
                     rates, training, x2r, cross: bool, N, C, H, Ch):
     """Launch fusion-block backward entry point ``entry`` (K2/K3's or K7's,
-    shapes already checked): ``grid`` are its scratch query's stream
-    dimensions, ``dims`` its own. Returns (dx, dy or None, dbias,
-    dparams)."""
+    shapes already checked); ``dims`` are its stream dimensions. Returns
+    (dx, dy or None, dbias, dparams)."""
     build.check_cuda_f32("g", g, x.shape)
     build.check_cuda_f32("x2r", x2r, x.shape)
     attn_rate, drop_rate = rates if training else (0.0, 0.0)
     lib = build.library()
     n_grad = lib.value("fusion_block_grad_floats", int(cross), N, C, H, Ch)
-    n_scratch = lib.value(f"{entry}_scratch_floats", int(cross), *grid, N,
+    n_scratch = lib.value(f"{entry}_scratch_floats", int(cross), *dims, N,
                           C, H, Ch)
     if n_scratch < 0:
         raise RuntimeError(f"{entry} kernel cannot be configured on this "
@@ -327,6 +327,19 @@ def launch_backward(entry, grid, dims, g, x, y, params, bias, mask, dp, seed,
         off += p.numel()
     dbias = flat[off:].view(bias.shape)
     return dx, dy, dbias, tuple(dparams)
+
+
+def backward_occupancy(entry: str, cross: bool, dims, N: int, C: int, H: int,
+                       Ch: int) -> dict:
+    """How backward entry point ``entry`` runs at these stream dimensions
+    (``dims`` as ``launch_backward``'s) on the current card: resident
+    blocks an SM, windows in flight a block, shared bytes a block, blocks
+    in the grid."""
+    out = (ctypes.c_int * 4)()
+    build.library().call(f"{entry}_occupancy", int(cross), *dims, N, C, H,
+                         Ch, out)
+    return dict(zip(("blocks_per_sm", "windows_per_block", "smem_bytes",
+                     "grid_blocks"), out))
 
 
 def fused_fusion_block_backward(g, x, params, bias, mask=None, dp=None,

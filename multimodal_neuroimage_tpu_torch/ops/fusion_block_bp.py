@@ -192,9 +192,9 @@ def _backward(g, x, y, params, bias, mask, dp, seed, rates, training, x2r,
         return fusion_block_bp_reference_backward(
             g, x, y, params, bias, mask, dp, seed, rates, training, cross, G)
     ng, nW, N, C, H, Ch = _check(x, y, params, bias, mask, dp, cross, G)
-    return launch_backward("fusion_block_bp_backward", (ng, nW), (ng, G, nW),
-                           g, x, y, params, bias, mask, dp, seed, rates,
-                           training, x2r, cross, N, C, H, Ch)
+    return launch_backward("fusion_block_bp_backward", (ng, G, nW), g, x, y,
+                           params, bias, mask, dp, seed, rates, training, x2r,
+                           cross, N, C, H, Ch)
 
 
 def fused_fusion_block_bp_backward(g, x, params, bias, mask=None, dp=None,

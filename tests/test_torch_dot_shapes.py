@@ -26,6 +26,10 @@ import torch
 
 from multimodal_neuroimage_tpu_torch.ops import dot_shapes as ds
 
+# Six xdist workers share the host's cores: one torch thread each.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = {"f32": 1e-5, "bf16": 5e-3}
 

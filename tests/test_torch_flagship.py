@@ -37,6 +37,10 @@ from multimodal_neuroimage_tpu_torch.serve.predictor import Predictor
 from multimodal_neuroimage_tpu_torch.utils.jax_import import (
     jax_params_to_state_dict)
 
+# Six xdist workers share the host's cores: one torch thread each.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-4, 1e-4
 
 

@@ -21,6 +21,7 @@ Tolerance: float32, rtol 2e-4 / atol 1e-4 (the goldens' tolerance).
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,10 @@ from multimodal_neuroimage_tpu_torch.nn import swinfusion as tsf
 from multimodal_neuroimage_tpu_torch.ops import fusion_block as tfb
 from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as tfbp
 from multimodal_neuroimage_tpu_torch.utils import jax_import
+
+# Six xdist workers share the host's cores: one torch thread each.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-4, 1e-4
 B, RES, WS, C, HEADS = 4, 12, 6, 12, 6

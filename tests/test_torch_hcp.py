@@ -21,6 +21,7 @@ Tolerance: float32, rtol 2e-4 / atol 1e-4 (the goldens' tolerance).
 
 import contextlib
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +46,10 @@ from multimodal_neuroimage_tpu_torch.ops.fusion_block import mix_keep
 from multimodal_neuroimage_tpu_torch.train.losses import bce_with_logits
 from multimodal_neuroimage_tpu_torch.utils.jax_import import (
     bert_layer_state, jax_params_to_state_dict)
+
+# Six xdist workers share the host's cores: one torch thread each.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-4, 1e-4
 

@@ -18,6 +18,7 @@ Tolerance: float32, rtol 2e-4 / atol 1e-4 (the goldens' tolerance).
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,10 @@ from multimodal_neuroimage_tpu_torch.ops import attention as tatt
 from multimodal_neuroimage_tpu_torch.train.losses import active_losses
 from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
                                                          make_train_step)
+
+# Six xdist workers share the host's cores: one torch thread each.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-4, 1e-4
 CASES = [(36, 4, 3, 12), (36, 1, 6, 0), (9, 1, 12, 0)]

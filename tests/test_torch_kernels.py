@@ -10,6 +10,8 @@ on the JAX side and compares the valid rows.
 Tolerance: float32, rtol 2e-4 / atol 1e-4 (the goldens' tolerance).
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +26,10 @@ from multimodal_neuroimage_tpu_torch.nn import swin2d as tswin
 from multimodal_neuroimage_tpu_torch.ops import attention as tatt
 from multimodal_neuroimage_tpu_torch.ops import bert_layer as tbl
 from multimodal_neuroimage_tpu_torch.ops import fusion_block as tfb
+
+# Six xdist workers share the host's cores: one torch thread each.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-4, 1e-4
 

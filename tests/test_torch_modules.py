@@ -28,6 +28,10 @@ from multimodal_neuroimage_tpu_torch.nn import swin2d as tswin
 from multimodal_neuroimage_tpu_torch.nn import swinfusion as tsf
 from multimodal_neuroimage_tpu_torch.utils import jax_import
 
+# Six xdist workers share the host's cores: one torch thread each.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-4, 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -200,7 +204,7 @@ def test_port_imports_no_jax_flax_pandas_sklearn():
     none of jax, flax, pandas, sklearn or the JAX package
     ``multimodal_neuroimage_tpu`` (any of its modules) gets loaded."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

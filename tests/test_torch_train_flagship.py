@@ -18,6 +18,7 @@ loss and every gradient.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,10 @@ from multimodal_neuroimage_tpu_torch.train.state import (batch_to_device,
                                                          make_train_step)
 from multimodal_neuroimage_tpu_torch.utils.jax_import import (
     jax_params_to_state_dict)
+
+# Six xdist workers share the host's cores: one torch thread each.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-4, 1e-4
 NO_DROPOUT = dict(transformer_dropout_rate=0.0, bert_attn_dropout=0.0,

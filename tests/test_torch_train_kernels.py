@@ -15,6 +15,8 @@ Tolerance: float32, rtol 2e-4 / atol 1e-4 (the goldens' tolerance), except
 where a case states a looser bound and its reason.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +35,10 @@ from multimodal_neuroimage_tpu_torch.ops import attention as tatt
 from multimodal_neuroimage_tpu_torch.ops import bert_layer as tbl
 from multimodal_neuroimage_tpu_torch.ops import fused_update as tfu
 from multimodal_neuroimage_tpu_torch.ops import fusion_block as tfb
+
+# Six xdist workers share the host's cores: one torch thread each.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-4, 1e-4
 RATES = (0.25, 0.2)         # (attention, hidden/proj/MLP) dropout

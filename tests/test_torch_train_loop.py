@@ -11,6 +11,7 @@ port in float64); metrics in float64 at 1e-12.
 """
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +28,10 @@ from multimodal_neuroimage_tpu_torch.config import Config
 from multimodal_neuroimage_tpu_torch.evaluation import metrics as tmetrics
 from multimodal_neuroimage_tpu_torch.train import losses as tlosses
 from multimodal_neuroimage_tpu_torch.train.schedules import build_schedule
+
+# Six xdist workers share the host's cores: one torch thread each.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-4, 1e-4
 
