@@ -21,7 +21,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    its 7 cells), then the dot-shape entry point
    (``python -m multimodal_neuroimage_tpu_torch.bench.dot_shapes``) with its
    slope times per pair beside the plain chain's and ``torch.bmm``'s, and
-   the fastest formulation on each.
+   the fastest formulation on each. The bf16 policy's kernels: K1's mm16
+   form forward and backward at batches 4 and 16 beside
+   ``nn.TransformerEncoderLayer`` in bf16, and K7 on bf16 streams at the bp
+   flagship's shapes beside K7 on float32 streams (bounds with the products
+   at the bf16 tensor rate).
 3. The flagship ``FuncStructCross`` (random weights from a seeded
    generator): trains with ``Trainer`` on a synthetic in-memory cohort with
    a label-linked signal (16 train and 8 val subjects, batch 4, 2 epochs,
@@ -42,14 +46,24 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    fusion dropout rates at 0 and DropPath on (loss, every gradient, the
    updated parameters; exactly 48 K7-self and 12 K7-cross launches each
    way); training and predict steps of both layouts timed in turns.
-5. The HCP phase-1 ``TransformerNet`` (22 ROIs x 1200 TRs + CLS, 16 layers,
+5. The flagship at its shipping policy, ``compute_dtype="bfloat16"``: a
+   2-epoch ``Trainer`` run at batch 4 (std layout; exactly K1 mm16 forward
+   and backward, K2/K3, K4 and K5 launch), serving its checkpoint (logits
+   vs the CPU at the same policy), one training step card vs CPU on std
+   (batch 4) and on bp (batch 8); a 1-epoch bp run at batch 16 (exactly K1
+   mm16, the four K7 bf16 kernels, K4 and K5), its serving against the std
+   layout; bf16 and float32 training steps timed in turns at batch 4 (std)
+   and 16 (std and bp), with peak memory. The bf16 tolerances against
+   plain versions and the CPU are stated at their constants.
+6. The HCP phase-1 ``TransformerNet`` (22 ROIs x 1200 TRs + CLS, 16 layers,
    2 heads, FFN 3072; every layer on the K6 route): the same four phases
    on a synthetic HCP cohort (series of 900-1200 TRs, 16 train and 8 val
    subjects, batch 8, 2 epochs). K6 forward must launch 16 times per
    forward pass and K6 backward 16 times per backward pass, K5 once per
    step, and no other kernel. Also times the predict step.
-6. Prints one JSON line of per-kernel results (launches by path: flagship,
-   flagship_bp, hcp, dot_shapes) and, last, the ok line.
+7. Prints one JSON line of per-kernel results (launches by path: flagship,
+   flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, dot_shapes) and,
+   last, the ok line.
 
 Any failed phase raises, so the exit code is non-zero and no ok line is
 printed. Without a CUDA card it exits with code 2 before doing anything;
@@ -110,6 +124,38 @@ BP_STEP = {"K1 bert_layer": 32, "K1 bert_layer backward": 32,
            "K7 cross_fusion_block_bp backward": 12,
            "K4 window_attention": 10, "K4 window_attention backward": 10,
            "K5 fused_adam": 1}
+# the bf16 policy's kernels (K1 mm16, K7 on bf16 streams) vs their plain
+# versions: both round the same operands to bf16, in other orders of float32
+# sums, so a value can land on the other side of a bf16 rounding boundary
+# (2^-8 relative) and carry that step on: K1's float32 output |err| <=
+# ATOL16 + RTOL16 |want|; K7's bf16 outputs (the residual plus a branch that
+# carries such a step at the branch's scale, then rounded to bf16) and every
+# gradient within REL16 of their tensor's max-abs (the key bias, zero in
+# exact arithmetic, at the scale of the key weight's gradient)
+ATOL16, RTOL16, REL16 = 1e-2, 2.0 ** -7, 1e-2
+# NVIDIA H100 SXM data sheet: dense bf16 on the tensor cores
+PEAK_BF16_OPS = 989e12
+# the bf16 flagship: the kernels of its std path, and of its bp path
+FLAGSHIP16_KERNELS = ("K1 bert_layer mm16", "K1 bert_layer backward mm16",
+                      "K2 fusion_block", "K3 cross_fusion_block",
+                      "K4 window_attention", "K2 fusion_block backward",
+                      "K3 cross_fusion_block backward",
+                      "K4 window_attention backward", "K5 fused_adam")
+BP16_STEP = {"K1 bert_layer mm16": 32, "K1 bert_layer backward mm16": 32,
+             "K7 fusion_block_bp bf16": 48,
+             "K7 fusion_block_bp backward bf16": 48,
+             "K7 cross_fusion_block_bp bf16": 12,
+             "K7 cross_fusion_block_bp backward bf16": 12,
+             "K4 window_attention": 10, "K4 window_attention backward": 10,
+             "K5 fused_adam": 1}
+# card vs CPU at the bf16 policy, whole model: both sides round at the same
+# points, but a value one float32 ulp apart can round to neighbouring bf16
+# values, and the backbone's near-constant LayerNorm rows amplify those
+# steps (tests/test_torch_bf16.py: 7-35% between the JAX package's own bf16
+# and float32 gradients). Logits and loss within LOGIT16; each gradient
+# within a share of its component's largest gradient
+LOGIT16 = 5e-2
+GRAD16 = {"swin": 5e-2, "fusion": 0.5, "fmri_embed": 0.5}
 # K8 chain vs its plain chain: |got - want| <= REL * max|want|; bf16: a score
 # the two summation orders leave on either side of a bf16 rounding boundary
 # rounds to neighbouring values before the context product
@@ -193,8 +239,9 @@ def _plain_backward(fwd, inputs, g):
 
 
 def _nbytes(*tensors) -> int:
-    """Bytes of float32 tensors (None skipped)."""
-    return sum(4 * t.numel() for t in tensors if t is not None)
+    """Bytes of the tensors (None skipped)."""
+    return sum(t.element_size() * t.numel() for t in tensors
+               if t is not None)
 
 
 def _bound(ops: float, nbytes: float):
@@ -211,6 +258,14 @@ def _bound(ops: float, nbytes: float):
 def _bert_ops(B, T, H, heads, F_):
     return (2 * B * T * (4 * H * H + 2 * H * F_) + 4 * B * T * T * H,
             B * heads * T * T)
+
+
+def _bound16(prod_ops: float, exp_ops: float, nbytes: float):
+    """_bound for the bf16 policy's kernels: products of bf16 operands at
+    the bf16 tensor rate, exponentials at the float32 rate."""
+    t_ops = (prod_ops / PEAK_BF16_OPS + exp_ops / PEAK_F32_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def _fusion_ops(B, nW, N, C, heads):
@@ -232,10 +287,11 @@ class Results:
 
     def add(self, key, source, replaces, err, ms, plain_ms, ops, nbytes,
             library_ms=None, std_ms=None, bound=None, device_ms=None,
-            library_device_ms=None):
+            library_device_ms=None, f32_ms=None):
         """One case of a kernel; ``bound`` (ms, by) replaces the float32
-        bound of ``ops`` and ``nbytes`` (K8's bf16 cases)."""
-        timed = ("library", "std", "device", "library_device")
+        bound of ``ops`` and ``nbytes`` (K8's bf16 cases, the bf16 policy's
+        kernels)."""
+        timed = ("library", "std", "device", "library_device", "f32")
         r = self.rows.setdefault(key, {"name": key, "route": "cuda",
                                        "source": source,
                                        "replaces": replaces,
@@ -253,7 +309,7 @@ class Results:
         if bound > r["worst_bound"]:
             r["worst_bound"], r["bound_by"] = bound, by
         for name, t in zip(timed, (library_ms, std_ms, device_ms,
-                                   library_device_ms)):
+                                   library_device_ms, f32_ms)):
             if t is not None:
                 r[f"{name}_ms"] += t
                 r[f"{name}_cases"] += 1
@@ -282,6 +338,8 @@ class Results:
                 "library_device_ms": mean("library_device"),
                 # K7 only: K2/K3 on the same inputs in the std layout
                 "std_layout_ms": mean("std"),
+                # K7's bf16 form: K7 on float32 streams, same inputs
+                "f32_form_ms": mean("f32"),
                 # K1 backward only: float64 errors of both GEMM routes
                 **{k: r[k] for k in ("float64_rel_err",
                                      "simt_float64_rel_err") if k in r}}
@@ -289,17 +347,19 @@ class Results:
 
 def _report(res, key, label, err, ms, plain_ms, ops, nbytes, src, rep,
             library_ms=None, tol=f"atol {ATOL} + rtol {RTOL}", std_ms=None,
-            bound=None, device=None):
+            bound=None, device=None, f32_ms=None):
     """Record and print one case; ``rep`` is the TPU kernel's file:line
     under ``TPU``, or from the repository root where it has a ``/``;
     ``device``: (kernel, library or None, method) device times."""
     dev_ms, lib_dev_ms, method = device or (None, None, None)
     bound, by = res.add(key, SOURCES + src, rep if "/" in rep else TPU + rep,
                         err, ms, plain_ms, ops, nbytes, library_ms, std_ms,
-                        bound, dev_ms, lib_dev_ms)
+                        bound, dev_ms, lib_dev_ms, f32_ms)
     lib = ("" if library_ms is None
            else f"  library {library_ms:.4f} ms")
     std = "" if std_ms is None else f"  std layout (K2/K3) {std_ms:.4f} ms"
+    if f32_ms is not None:
+        std += f"  float32 streams {f32_ms:.4f} ms"
     dev = ("" if device is None else
            f"  device ({method}): kernel {dev_ms:.4f} ms" + (
                "" if lib_dev_ms is None else f", library {lib_dev_ms:.4f} ms"))
@@ -910,6 +970,180 @@ def bp_kernels(gen, res: Results):
                         f"* max|ref| + {SUM_ATOL}", std_ms=std_ms)
 
 
+def _k1_params16(gen, H=84, F_=3072):
+    """K1's 16 parameters as the bf16 policy gives them to the kernel: bf16
+    values in float32 tensors."""
+    p = (_lin(gen, H, H) + _lin(gen, H, H) + _lin(gen, H, H) + _lin(gen, H, H)
+         + _ln(gen, H) + _lin(gen, F_, H) + _lin(gen, H, F_) + _ln(gen, H))
+    return tuple(t.to(torch.bfloat16).float().cuda() for t in p)
+
+
+def _grads16(name, got, want, key_bias=None):
+    """The bf16 policy's gradients against their plain versions: each within
+    REL16 of its max-abs; ``key_bias`` = (index of the key bias, index of
+    the key weight), the key bias held at the key weight's scale."""
+    errs = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if key_bias and i == key_bias[0]:
+            scale = want[key_bias[1]].abs().max().item()
+            errs.append(_close_rel(f"{name}[{i}]", a, b, 0.0, REL16 * scale))
+        else:
+            errs.append(_close_rel(f"{name}[{i}]", a.float(), b.float(),
+                                   REL16, 0.0))
+    return errs
+
+
+def bf16_kernels(gen, res: Results):
+    """The bf16 policy's kernels against their plain versions on the card:
+    K1's mm16 form forward (inference) and backward (dropout 0.1) at
+    batches 4 and 16 (bf16-valued weights, float32 stream) beside
+    ``nn.TransformerEncoderLayer`` in bf16 on the same weights; K7 on bf16
+    streams at the bp flagship's shapes (B 16, two groups of 8, shifts 0 and
+    3, dropout 0.1 and DropPath), beside K7 on float32 streams on the same
+    inputs. Bounds: products at the bf16 tensor rate, exponentials at the
+    float32 rate."""
+    from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
+    dev = "cuda"
+    rates, seed = (0.1, 0.1), 13579
+    H, F_, T = 84, 3072, 369
+    p = _k1_params16(gen)
+    tol16 = f"atol {ATOL16} + rtol {RTOL16}; gradients {REL16} * max|ref|"
+    tol7 = f"outputs and gradients {REL16} * max|ref|"
+    for B in (BATCH, BP_BATCH):
+        x, g = (torch.randn(B, T, H, generator=gen).to(dev) for _ in "xg")
+        prod, exps = _bert_ops(B, T, H, 12, F_)
+        layer = _encoder_layer(p, H, 12, F_).to(torch.bfloat16)
+        x16 = x.to(torch.bfloat16)
+
+        def fwd(x=x):
+            return bl.bert_layer_call16(x, p, 12, T)
+
+        def plain(x=x):
+            return bl.bert_layer_reference(x, p, 12, T, mm16=True)
+
+        @torch.no_grad()
+        def library(layer=layer, x16=x16):
+            return layer.eval()(x16)
+        got, want = fwd(), plain()
+        torch.cuda.synchronize()
+        err = _close(f"K1 mm16 batch {B}", got, want, ATOL16, RTOL16)
+        ms, plain_ms, lib_ms = _call_times(fwd, plain, library)
+        _report(res, "K1 bert_layer mm16", f"batch {B}", err, ms, plain_ms,
+                0, 0, "bert_layer.cu", "bert_layer.py:914", lib_ms,
+                tol=tol16, bound=_bound16(prod, exps, _nbytes(x, x, *p)))
+
+        _, resid = bl._launch_forward(x, p, 12, T, seed, rates, True, True,
+                                      True)
+
+        def bwd(x=x, g=g, resid=resid):
+            return bl.bert_layer_backward16(g, x, p, resid, 12, T, seed,
+                                            rates, True)
+
+        def plain_bwd(x=x, g=g):
+            return bl.bert_layer_reference_backward16(g, x, p, 12, T, seed,
+                                                      rates, True)
+        (dx, dps), (wdx, wdps) = bwd(), plain_bwd()
+        torch.cuda.synchronize()
+        errs = [_close_rel(f"K1 mm16 backward batch {B} dx", dx, wdx, REL16,
+                           0.0)]
+        errs += _grads16(f"K1 mm16 backward batch {B} dparams", dps, wdps,
+                         key_bias=(3, 2))
+        layer.train()
+        with torch.enable_grad():
+            xl = x16.detach().requires_grad_()
+            ins, out = [xl] + list(layer.parameters()), layer(xl)
+        g16 = g.to(torch.bfloat16)
+        ms, plain_ms, lib_ms = _call_times(
+            bwd, plain_bwd,
+            lambda: torch.autograd.grad(out, ins, g16, retain_graph=True), 10)
+        _report(res, "K1 bert_layer backward mm16", f"batch {B}", max(errs),
+                ms, plain_ms, 0, 0, "bert_layer.cu", "bert_layer.py:1008",
+                lib_ms, tol=tol16,
+                bound=_bound16(2 * prod, 2 * exps,
+                               _nbytes(x, g, x, *p, *p)))
+        del layer, ins, out
+
+    B, C, Hh, N, nW = BP_BATCH, 12, 6, 36, 196
+    G = fbp.group_size(B)
+    self_p, cross_p, bias, _, _ = _fusion_inputs(gen)
+    self_p = tuple(t.to(torch.bfloat16).float() for t in self_p)
+    cross_p = tuple(t.to(torch.bfloat16).float() for t in cross_p)
+    xg, yg, gg = (fbp.to_groups(torch.randn(B, nW, N, C, generator=gen), G)
+                  .contiguous().to(dev).to(torch.bfloat16) for _ in range(3))
+    dp = (torch.rand(B, 2, generator=gen) > 0.1).float().to(dev) / 0.9
+    train = (dp, seed, rates, True)
+    prod, exps = _fusion_ops(B, nW, N, C, Hh)
+    for shift in (0, 3):
+        m = shift_attn_mask(84, 84, 6, shift)
+        mask = None if m is None else torch.from_numpy(m).to(dev)
+        for cross, params in ((False, self_p), (True, cross_p)):
+            name = "cross_fusion_block_bp" if cross else "fusion_block_bp"
+            y16 = yg if cross else None
+            streams = (xg, yg) if cross else (xg,)
+            x32, y32 = xg.float(), (yg.float() if cross else None)
+
+            def kern(p_=params, mask=mask):
+                return fbp._launch_forward(xg, y16, p_, bias, mask, dp, seed,
+                                           rates, True, False, cross, G)[0]
+
+            def f32(p_=params, mask=mask):
+                return fbp._launch_forward(x32, y32, p_, bias, mask, dp,
+                                           seed, rates, True, False, cross,
+                                           G)[0]
+
+            def plain(p_=params, mask=mask):
+                return fbp.fusion_block_bp_reference16(
+                    xg, p_, bias, mask, *train, y=y16, group=G)[0]
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = _close_rel(f"K7 bf16 {name} shift {shift}", got.float(),
+                             want.float(), REL16, 0.0)
+            plain_ms, f32_ms, ms = _turns([plain, f32, kern])
+            _report(res, f"K7 {name} bf16", f"shift {shift}", err, ms,
+                    plain_ms, 0, 0, "fusion_block_bp16.cu",
+                    "fusion_block_bp.py:745", tol=tol7, f32_ms=f32_ms,
+                    bound=_bound16(prod, exps, _nbytes(
+                        *streams, xg, bias, mask, dp, *params)))
+
+            _, x2r = fbp._launch_forward(xg, y16, params, bias, mask, dp,
+                                         seed, rates, True, True, cross, G)
+            _, x2r32 = fbp._launch_forward(x32, y32, params, bias, mask, dp,
+                                           seed, rates, True, True, cross, G)
+            key = f"K7 {name} backward bf16"
+
+            def kern(p_=params, mask=mask, x2r=x2r):
+                return fbp._backward(gg, xg, y16, p_, bias, mask, dp, seed,
+                                     rates, True, x2r, cross, G)
+
+            def f32(p_=params, mask=mask, x2r=x2r32):
+                return fbp._backward(gg.float(), x32, y32, p_, bias, mask,
+                                     dp, seed, rates, True, x2r, cross, G)
+
+            def plain(p_=params, mask=mask):
+                return fbp.fusion_block_bp_reference_backward16(
+                    gg, xg, y16, p_, bias, mask, *train, cross=cross,
+                    group=G)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            errs = [_close_rel(f"{key} dx", got[0].float(), want[0].float(),
+                               REL16, 0.0)]
+            if cross:
+                errs.append(_close_rel(f"{key} dy", got[1].float(),
+                                       want[1].float(), REL16, 0.0))
+            errs.append(_close_rel(f"{key} dbias", got[2], want[2], REL16,
+                                   0.0))
+            errs += _grads16(f"{key} dparams", got[3], want[3])
+            plain_ms, f32_ms, ms = _turns([plain, f32, kern], iters=10)
+            _report(res, key, f"shift {shift}", max(errs), ms, plain_ms, 0, 0,
+                    "fusion_block_bp16.cu", "fusion_block_bp.py:808",
+                    tol=tol7, f32_ms=f32_ms,
+                    bound=_bound16(2 * prod, 2 * exps, _nbytes(
+                        *streams, *streams, gg, dp, mask, bias, bias,
+                        *params, *params)))
+
+
 def dot_shape_kernels(res: Results):
     """K8: each variant's chain at reps 1 over its 7 cells, f32 and bf16,
     against the plain (einsum) chain; then the dot-shape entry point
@@ -1110,16 +1344,18 @@ def _serve(cfg, ckpt, requests, folder, label, card, reference="CPU"):
     else:
         cpu_model = create_model(cfg)
         cpu_model.load_state_dict(load_checkpoint(ckpt)["state_dict"])
-        cpu_step = make_predict_step(cpu_model, "float32", device="cpu")
+        cpu_step = make_predict_step(cpu_model, cfg.compute_dtype,
+                                     device="cpu")
 
         def ref_step(batch):
             return cpu_step(batch)["binary_classification"]
+    atol, rtol = ((LOGIT16, LOGIT16) if cfg.compute_dtype == "bfloat16"
+                  else (LOGIT_ATOL, LOGIT_RTOL))
     logit_err = 0.0
     for batch, _ in pred.batches():
         got = pred.step(batch)["binary_classification"].cpu()
         logit_err = max(logit_err, _close(f"{label} serving logits", got,
-                                          ref_step(batch), LOGIT_ATOL,
-                                          LOGIT_RTOL))
+                                          ref_step(batch), atol, rtol))
     first, _ = next(pred.batches())
     beside = ""
     if reference == "std":
@@ -1133,8 +1369,8 @@ def _serve(cfg, ckpt, requests, folder, label, card, reference="CPU"):
           f"requests/s end to end (host preprocessing included); predict "
           f"step {fwd:.2f} ms per batch of {cfg.batch_size} "
           f"({cfg.batch_size / fwd * 1e3:.2f} subjects/s){beside}; logits vs "
-          f"{reference} max|err| {logit_err:.3e} (atol {LOGIT_ATOL} + rtol "
-          f"{LOGIT_RTOL}); card: {card}")
+          f"{reference} max|err| {logit_err:.3e} (atol {atol} + rtol "
+          f"{rtol}); card: {card}")
     return counts
 
 
@@ -1158,7 +1394,7 @@ def _step_compare(cfg, batch, label, sides):
         m.to(dev)
         opt = create_optimizer("AdamW", m.parameters(), lambda t: lr,
                                cfg.weight_decay)
-        step = make_train_step(m, specs, opt, "float32", dev)
+        step = make_train_step(m, specs, opt, cfg.compute_dtype, dev)
         with _layout(layout):
             torch.cuda.synchronize()
             ops.reset_launches()
@@ -1169,24 +1405,41 @@ def _step_compare(cfg, batch, label, sides):
     (a, _, _), (b, _, _) = sides
     loss_a = out[a][0]["total"].item()
     loss_b = out[b][0]["total"].item()
+    bf16 = cfg.compute_dtype == "bfloat16"
+    tol = (LOGIT16, LOGIT16) if bf16 else (LOGIT_ATOL, LOGIT_RTOL)
     _close(f"{label} step loss", torch.tensor([loss_a]),
-           torch.tensor([loss_b]), LOGIT_ATOL, LOGIT_RTOL)
+           torch.tensor([loss_b]), *tol)
     grad_err = upd_err = 0.0
     unstable = n_params = 0
     named = dict(models[b].named_parameters())
+    scale, worst = {}, {}
+    for n, q in named.items():
+        part = n.split(".")[0]
+        scale[part] = max(scale.get(part, 0.0), q.grad.abs().max().item())
     for n, p in models[a].named_parameters():
         q = named[n]
         ga, gb = p.grad.cpu(), q.grad.cpu()
-        grad_err = max(grad_err, _close_rel(f"grad {n}", ga, gb, GRAD_REL))
+        if bf16:
+            # each gradient against its component's largest (GRAD16)
+            part = n.split(".")[0]
+            e = _close_rel(f"grad {n}", ga, gb, 0.0,
+                           GRAD16[part] * scale[part])
+            worst[part] = max(worst.get(part, 0.0), e / scale[part])
+            grad_err = max(grad_err, e)
+        else:
+            grad_err = max(grad_err, _close_rel(f"grad {n}", ga, gb,
+                                                GRAD_REL))
         e, u = _sign_stable_update_check(f"param {n}", p.detach().cpu(),
                                          q.detach().cpu(), ga, gb, lr)
         upd_err, unstable = max(upd_err, e), unstable + u
         n_params += p.numel()
+    within = (f"every gradient within {GRAD16} of its component's largest "
+              f"(worst share {worst})" if bf16 else
+              f"every gradient within {GRAD_REL} * its max-abs")
     print(f"one {label} training step, {a} vs {b}: loss {loss_a:.6f} vs "
-          f"{loss_b:.6f}; every gradient within {GRAD_REL} * its max-abs "
-          f"(worst abs err {grad_err:.3e}); updated params max|diff| "
-          f"{upd_err:.3e}, {unstable} of {n_params} elements with a "
-          f"sign-unstable gradient")
+          f"{loss_b:.6f}; {within} (worst abs err {grad_err:.3e}); updated "
+          f"params max|diff| {upd_err:.3e}, {unstable} of {n_params} "
+          f"elements with a sign-unstable gradient")
     return counts
 
 
@@ -1273,6 +1526,131 @@ def flagship_bp(rng, card):
     return counts
 
 
+def _time_dtypes(cfg, batches, combos, label, card, steps=12):
+    """Training steps of one model at each (fusion layout, compute dtype) of
+    ``combos``, timed in turns (the combos, then again in reverse, half the
+    steps a turn) after 3 of warm-up each: CUDA-synchronised median and
+    quartiles, subjects/s and peak device memory."""
+    from multimodal_neuroimage_tpu_torch.models.registry import (
+        create_model, init_random_weights)
+    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
+    from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
+                                                             make_train_step)
+    model = init_random_weights(create_model(cfg),
+                                torch.Generator().manual_seed(SEED + 3))
+    model.cuda()
+    opt = create_optimizer("AdamW", model.parameters(), lambda t: 1e-4,
+                           cfg.weight_decay)
+    specs = active_losses(cfg.task, cfg.fine_tune_task)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    fns = {d: make_train_step(model, specs, opt, d, "cuda")
+           for d in {d for _, d in combos}}
+    times = {c: [] for c in combos}
+    peak = dict.fromkeys(combos, 0.0)
+    for turn in list(combos) + list(combos)[::-1]:
+        lay, dtype = turn
+        with _layout(lay):
+            for i in range(3):
+                fns[dtype](batches[i % len(batches)], gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(steps // 2):
+                t0 = time.perf_counter()
+                fns[dtype](batches[i % len(batches)], gen)
+                torch.cuda.synchronize()
+                times[turn].append(1e3 * (time.perf_counter() - t0))
+            peak[turn] = max(peak[turn],
+                             torch.cuda.max_memory_allocated() / 2 ** 20)
+    bs = cfg.batch_size
+    for lay, dtype in combos:
+        q1, med, q3 = np.percentile(times[lay, dtype], [25, 50, 75])
+        print(f"{label} training step, {lay} layout, {dtype} (fwd + bwd + "
+              f"K5, batch {bs}, timed in turns): median {med:.3f} ms (q1 "
+              f"{q1:.3f}, q3 {q3:.3f}) over {len(times[lay, dtype])} steps; "
+              f"{bs / med * 1e3:.2f} subjects/s; peak device memory "
+              f"{peak[lay, dtype]:.0f} MiB; card: {card}")
+
+
+def _exact_path(counts, path, label):
+    """Every kernel of ``path`` launched, and no other."""
+    if (any(counts[k] == 0 for k in path)
+            or any(n for k, n in counts.items() if k not in path)):
+        raise AssertionError(f"the {label} did not launch exactly "
+                             f"{sorted(path)}: {counts}")
+
+
+def flagship_bf16(rng, card, train_records, val_records):
+    """The flagship at its shipping policy, compute_dtype="bfloat16" (K1's
+    mm16 form; K2/K3 on float32 streams with bf16 weights; K7 on bf16
+    streams): a 2-epoch ``Trainer`` run at batch 4 on the std layout that
+    launches exactly FLAGSHIP16_KERNELS; serving its best checkpoint, logits
+    against the CPU at the same policy; one training step card vs CPU on the
+    std layout (batch 4) and on bp (batch 8, one group of 8); a 1-epoch run
+    on bp at batch 16 (exactly the BP16_STEP kernels) and its serving
+    against the std layout; bf16 and float32 training steps timed in turns
+    at batch 4 (std) and batch 16 (std and bp), with peak memory. Returns
+    the launch counts of the two training runs."""
+    from multimodal_neuroimage_tpu_torch.ops import build
+    cfg = _flagship_cfg(compute_dtype="bfloat16",
+                        experiment_title="flagship_bf16")
+    forward = [k for k in FLAGSHIP16_KERNELS
+               if "backward" not in k and "adam" not in k]
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        trainer, metrics, counts, wall = _train(
+            cfg, train_records, val_records, tmp, "flagship bf16")
+        _exact_path(counts, FLAGSHIP16_KERNELS, "bf16 training run")
+        _print_run("flagship bf16", cfg, trainer, metrics, wall)
+        requests = [{k: r[k] for k in ("subject", "fmri", "struct")}
+                    for r in val_records]
+        serve = _serve(cfg, trainer.best_checkpoint(), requests, tmp,
+                       "flagship bf16", card)
+        _exact_path(serve, forward, "bf16 serving run")
+    batch, _ = next(trainer.batches("train"))
+    _step_compare(cfg, batch, "flagship bf16",
+                  (("card", "cuda", "std"), ("CPU", "cpu", "std")))
+    batches4 = [b for b, _ in trainer.batches("train")]
+    del trainer
+
+    cfg16 = _flagship_cfg(compute_dtype="bfloat16", batch_size=BP_BATCH,
+                          nEpochs=1, experiment_title="flagship_bp_bf16")
+    train16 = _cohort(rng, BP_TRAIN, 200)
+    val16 = _cohort(rng, BP_VAL, 200 + BP_TRAIN)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp, \
+            _layout("bp"):
+        trainer, metrics, bp_counts, wall = _train(
+            cfg16, train16, val16, tmp, "flagship bp bf16")
+        _exact_path(bp_counts, set(BP16_STEP), "bp bf16 training run")
+        _print_run("flagship bp bf16", cfg16, trainer, metrics, wall)
+        requests = [{k: r[k] for k in ("subject", "fmri", "struct")}
+                    for r in val16]
+        serve = _serve(cfg16, trainer.best_checkpoint(), requests, tmp,
+                       "flagship bp bf16", card, reference="std")
+        _exact_path(serve, {k for k in BP16_STEP
+                            if "backward" not in k and "adam" not in k},
+                    "bp bf16 serving run")
+    batches16 = [b for b, _ in trainer.batches("train")]
+    del trainer
+    # card vs CPU on bp: batch 8, one group of G = 8 (the CPU's step at the
+    # full width of batch 16 would take minutes)
+    batch8 = {k: v[:8] for k, v in batches16[0].items()}
+    step_cfg = _flagship_cfg(compute_dtype="bfloat16", batch_size=8)
+    steps = _step_compare(step_cfg, batch8, "flagship bp bf16 batch 8",
+                          (("card", "cuda", "bp"), ("CPU", "cpu", "bp")))
+    want = {k: BP16_STEP.get(k, 0) for k in steps["card"]}
+    if steps["card"] != want:
+        raise AssertionError(f"one bp bf16 training step launched "
+                             f"{steps['card']}, expected {want}")
+
+    _time_dtypes(_flagship_cfg(), batches4,
+                 (("std", "float32"), ("std", "bfloat16")),
+                 "flagship batch 4", card)
+    _time_dtypes(_flagship_cfg(batch_size=BP_BATCH), batches16,
+                 (("std", "float32"), ("std", "bfloat16"),
+                  ("bp", "float32"), ("bp", "bfloat16")),
+                 "flagship batch 16", card)
+    return counts, bp_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1305,6 +1683,7 @@ def main() -> int:
     backward_kernels(gen, results, n_params)
     mha_kernels(gen, results)
     bp_kernels(gen, results)
+    bf16_kernels(gen, results)
     dot_counts = dot_shape_kernels(results)
 
     rng = np.random.default_rng(SEED)
@@ -1358,6 +1737,10 @@ def main() -> int:
     # ---- the flagship on the bp fusion layout at batch 16 ------------------
     bp_counts = flagship_bp(rng, card)
 
+    # ---- the flagship at its shipping bf16 policy, std and bp ---------------
+    bf16_counts, bp_bf16_counts = flagship_bf16(rng, card, train_records,
+                                                val_records)
+
     # ---- the HCP phase-1 path: TransformerNet, every layer on K6 -----------
     hcp = _hcp_cfg()
     if (hcp.intermediate_vec, hcp.sequence_length, hcp.num_heads_2DBert,
@@ -1400,6 +1783,8 @@ def main() -> int:
     _time_train_step(htrainer, "HCP", card)
 
     launches = {"flagship": train_counts, "flagship_bp": bp_counts,
+                "flagship_bf16": bf16_counts,
+                "flagship_bp_bf16": bp_bf16_counts,
                 "hcp": hcp_counts, "dot_shapes": dot_counts}
     kernels = [results.line(key, launches) for key in ops.kernels()]
     print(json.dumps({"kernels": kernels}))

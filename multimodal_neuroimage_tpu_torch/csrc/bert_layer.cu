@@ -726,6 +726,203 @@ __global__ void __launch_bounds__(TG_THREADS, 2) tc_gemm_kernel(Gemm g) {
       }
 }
 
+// ---- tensor cores: mma.sync m16n8k16 on bf16 operands (the bf16 policy) -----
+//
+// The route of the layer's mm16 form (JAX _mm(mm16=True)): every operand is
+// rounded to bf16 (to nearest even) and the products accumulate in float32.
+// A product of two bf16 values is exact in float32, so one bf16 mma a
+// k-step gives JAX's arithmetic up to the order of summation, where 3xTF32
+// needs three. Same block tile, warp tile and epilogue as tc_gemm_kernel;
+// the operands sit in shared memory as bf16 (half the bytes), each in its
+// global majorness with rows padded by 8 elements (fragment reads of a warp
+// on distinct banks). Global operands stay float32: a thread loads its
+// share of the next k tile (16-byte loads where rows allow) into registers
+// while the warps multiply the current one, then rounds and stores it in
+// the other of two stages. Ragged M, N and K are zero-filled.
+#define TB_BK 32
+#define TB_PAD 8
+
+template <int TA, int TB>
+struct TbTile {
+  // bf16 elements: A [BM][BK + 8] (k fastest) or [BK][BM + 8] (m fastest);
+  // B [BN][BK + 8] (k fastest) or [BK][BN + 8] (n fastest)
+  static constexpr int AST = TA ? TG_BM + TB_PAD : TB_BK + TB_PAD;
+  static constexpr int BST = TB ? TB_BK + TB_PAD : TG_BN + TB_PAD;
+  static constexpr int A_ELEMS = TA ? TB_BK * AST : TG_BM * AST;
+  static constexpr int B_ELEMS = TB ? TG_BN * BST : TB_BK * BST;
+  static constexpr int STAGE = A_ELEMS + B_ELEMS;
+  static constexpr int SMEM = 2 * STAGE * 2;   // two stages of bf16
+  // float4 loads a thread issues per k tile
+  static constexpr int A_LOADS = TG_BM * TB_BK / 4 / TG_THREADS;
+  static constexpr int B_LOADS = TG_BN * TB_BK / 4 / TG_THREADS;
+};
+
+// Register-staged copy of a ROWS x COLS float tile (row r at src + r * ld,
+// rows_valid x cols_valid in range, zero elsewhere): load() fetches a
+// thread's share, store() rounds it to bf16 into shared rows of `st`.
+template <int ROWS, int COLS, int LOADS>
+struct TbCopy {
+  float4 v[LOADS];
+
+  __device__ __forceinline__ void load(const float* src, long long ld, int rows_valid,
+                                       int cols_valid, int vec) {
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int c = threadIdx.x + i * TG_THREADS;
+      const int r = c / (COLS / 4), cc = (c % (COLS / 4)) * 4;
+      const float* row = src + (long long)r * ld + cc;
+      if (vec && r < rows_valid && cc + 4 <= cols_valid) {
+        v[i] = __ldg(reinterpret_cast<const float4*>(row));
+      } else {
+        const bool ok = r < rows_valid;
+        v[i].x = ok && cc < cols_valid ? __ldg(row) : 0.f;
+        v[i].y = ok && cc + 1 < cols_valid ? __ldg(row + 1) : 0.f;
+        v[i].z = ok && cc + 2 < cols_valid ? __ldg(row + 2) : 0.f;
+        v[i].w = ok && cc + 3 < cols_valid ? __ldg(row + 3) : 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(__nv_bfloat16* dst, int st) const {
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int c = threadIdx.x + i * TG_THREADS;
+      const int r = c / (COLS / 4), cc = (c % (COLS / 4)) * 4;
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v[i].x, v[i].y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(v[i].z, v[i].w);
+      uint2 w;
+      w.x = *reinterpret_cast<uint32_t*>(&lo);
+      w.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(dst + r * st + cc) = w;
+    }
+  }
+};
+
+// The two bf16 values (k, k + 1) of one fragment register: one 32-bit read
+// where k is the fastest axis, two 16-bit reads packed otherwise.
+template <int KFAST>
+__device__ __forceinline__ uint32_t tb_pair(const __nv_bfloat16* s, int st, int line, int k) {
+  if (KFAST) return *reinterpret_cast<const uint32_t*>(s + line * st + k);
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(s);
+  return (uint32_t)u[k * st + line] | ((uint32_t)u[(k + 1) * st + line] << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// tc_gemm_kernel's epilogue plus mode 3: GELU(v + bias), the FFN's first
+// product in the forward.
+__device__ __forceinline__ float gemm16_epilogue(const Gemm& g, int m, int n, float v) {
+  if (g.mode == 3) return gelu_erf(g.bias ? v + g.bias[n] : v);
+  return gemm_epilogue(g, m, n, v);
+}
+
+template <int TA, int TB>
+__global__ void __launch_bounds__(TG_THREADS, 2) tc_gemm_bf16_kernel(Gemm g) {
+  using Tile = TbTile<TA, TB>;
+  extern __shared__ __align__(16) __nv_bfloat16 tbs[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int wm = (warp % 4) * 32, wn = (warp / 4) * 48;
+  const int m0 = blockIdx.y * TG_BM, n0 = blockIdx.x * TG_BN;
+  const int kb = blockIdx.z * g.kchunk;
+  const int ke = min(g.K, kb + g.kchunk);
+  const int nk = (ke - kb + TB_BK - 1) / TB_BK;
+
+  // A: BK rows of k, m fastest (TA) or BM rows of m, k fastest; B: BN rows
+  // of n, k fastest (TB) or BK rows of k, n fastest
+  TbCopy<TA ? TB_BK : TG_BM, TA ? TG_BM : TB_BK, Tile::A_LOADS> ca;
+  TbCopy<TB ? TG_BN : TB_BK, TB ? TB_BK : TG_BN, Tile::B_LOADS> cb;
+  auto fetch = [&](int kt) {
+    const int k0 = kb + kt * TB_BK;
+    if (TA) ca.load(g.A + (size_t)k0 * g.lda + m0, g.lda, ke - k0, g.M - m0, g.vec_a);
+    else ca.load(g.A + (size_t)m0 * g.lda + k0, g.lda, g.M - m0, ke - k0, g.vec_a);
+    if (TB) cb.load(g.B + (size_t)n0 * g.ldb + k0, g.ldb, g.N - n0, ke - k0, g.vec_b);
+    else cb.load(g.B + (size_t)k0 * g.ldb + n0, g.ldb, ke - k0, g.N - n0, g.vec_b);
+  };
+  auto put = [&](int stage) {
+    __nv_bfloat16* As = tbs + stage * Tile::STAGE;
+    ca.store(As, Tile::AST);
+    cb.store(As + Tile::A_ELEMS, Tile::BST);
+  };
+
+  float acc[2][6][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+  if (nk > 0) {
+    fetch(0);
+    put(0);
+  }
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) fetch(kt + 1);   // in flight while this tile multiplies
+    const __nv_bfloat16* As = tbs + (kt & 1) * Tile::STAGE;
+    const __nv_bfloat16* Bs = As + Tile::A_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < TB_BK; kk += 16) {
+      // a0a1 (r, k..k+1), a2a3 (r + 8, k..), a4a5 (r, k + 8..), a6a7 (r + 8, k + 8..)
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = wm + i * 16 + gq, k = kk + 2 * tq;
+        a[i][0] = tb_pair<!TA>(As, Tile::AST, r, k);
+        a[i][1] = tb_pair<!TA>(As, Tile::AST, r + 8, k);
+        a[i][2] = tb_pair<!TA>(As, Tile::AST, r, k + 8);
+        a[i][3] = tb_pair<!TA>(As, Tile::AST, r + 8, k + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        // b0b1 (k..k+1, n), b2b3 (k + 8.., n)
+        const int n = wn + j * 8 + gq, k = kk + 2 * tq;
+        const uint32_t b0 = tb_pair<TB>(Bs, Tile::BST, n, k);
+        const uint32_t b1 = tb_pair<TB>(Bs, Tile::BST, n, k + 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
+      }
+    }
+    if (kt + 1 < nk) put((kt + 1) & 1);
+    __syncthreads();
+  }
+
+  const bool split = g.splits > 1;
+  float* C = split ? g.C + (size_t)blockIdx.z * g.M * g.N : g.C;
+  const int ldc = split ? g.N : g.ldc;
+  const bool pairs = ldc % 2 == 0 && (uintptr_t)C % 8 == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + i * 16 + gq + h * 8;
+        const int n = n0 + wn + j * 8 + 2 * tq;
+        if (m >= g.M || n >= g.N) continue;
+        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        float* dst = C + (size_t)m * ldc + n;
+        if (!split) {
+          v0 = gemm16_epilogue(g, m, n, v0);
+          if (n + 1 < g.N) v1 = gemm16_epilogue(g, m, n + 1, v1);
+        }
+        if (pairs && n + 1 < g.N) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          if (n + 1 < g.N) dst[1] = v1;
+        }
+      }
+}
+
 // ---- the SIMT route (float32 FMAs on the CUDA cores) -------------------------
 //
 // The port's first GEMM, kept as the precision yardstick of the 3xTF32
@@ -817,13 +1014,17 @@ static long long gemm_part_floats(int M, int N, int K) {
   return s > 1 ? (long long)s * M * N : 0;
 }
 
+// The routes of gemm(): 3xTF32 on the tensor cores (the float32 layer's),
+// float32 FMAs on the CUDA cores (its precision yardstick), bf16 operands on
+// the tensor cores (the mm16 layer's).
+enum GemmRoute { GEMM_TF32X3 = 0, GEMM_SIMT = 1, GEMM_BF16 = 2 };
+
 // One product: split over K (partials in `part`, then reduced, with `add`
 // added) when that fills the card better. A split product writes a dense
-// C (ldc == N) and takes no bias or GELU epilogue. simt: the float32 FMA
-// route instead of 3xTF32 on the tensor cores.
+// C (ldc == N) and takes no bias or GELU epilogue. route: a GemmRoute.
 static cudaError_t gemm(int M, int N, int K, const float* A, int lda, int ta, const float* B,
                         int ldb, int tb, float* C, int ldc, const float* add, float* part,
-                        cudaStream_t stream, int simt, const float* bias = nullptr,
+                        cudaStream_t stream, int route, const float* bias = nullptr,
                         float* aux = nullptr, int mode = 0) {
   Gemm g;
   g.M = M; g.N = N; g.K = K;
@@ -832,6 +1033,7 @@ static cudaError_t gemm(int M, int N, int K, const float* A, int lda, int ta, co
   g.ldc = ldc; g.bias = bias; g.add = add; g.aux = aux; g.mode = mode;
   g.vec_a = lda % 4 == 0 && (uintptr_t)A % 16 == 0;
   g.vec_b = ldb % 4 == 0 && (uintptr_t)B % 16 == 0;
+  const int simt = route == GEMM_SIMT;
   const int bm = simt ? GM_BM : TG_BM, bn = simt ? GM_BN : TG_BN;
   if (bias || mode || ldc != N) {
     g.splits = 1;
@@ -844,6 +1046,18 @@ static cudaError_t gemm(int M, int N, int K, const float* A, int lda, int ta, co
   cudaError_t err = cudaSuccess;
   if (simt) {
     gemm_simt_kernel<<<grid, 256, 0, stream>>>(g);
+  } else if (route == GEMM_BF16) {
+#define TB_LAUNCH(TA, TB)                                                                        \
+  do {                                                                                           \
+    if ((err = allow_smem(tc_gemm_bf16_kernel<TA, TB>, TbTile<TA, TB>::SMEM)) != cudaSuccess)    \
+      return err;                                                                                \
+    tc_gemm_bf16_kernel<TA, TB><<<grid, TG_THREADS, TbTile<TA, TB>::SMEM, stream>>>(g);          \
+  } while (0)
+    if (ta && tb) return cudaErrorInvalidValue;
+    if (ta) TB_LAUNCH(1, 0);
+    else if (tb) TB_LAUNCH(0, 1);
+    else TB_LAUNCH(0, 0);
+#undef TB_LAUNCH
   } else {
 #define TG_LAUNCH(TA, TB)                                                               \
   do {                                                                                  \
@@ -1181,11 +1395,36 @@ static cudaError_t ln_backward(const float* gin, const float* pre, const float* 
 // floats. simt: run the products on the float32 SIMT GEMM (the precision
 // yardstick) instead of 3xTF32 on the tensor cores. Returns the cudaError_t
 // of the first launch that fails.
+static int bert_backward(const float* x, const float* resid, const float* g,
+                         const void* const* params, void* const* grads, float* dx, float* scratch,
+                         int B, int T, int H, int F, int heads, int t_valid, int TP, int seed,
+                         double attn_rate, double hidden_rate, int route, int mm16,
+                         cudaStream_t stream);
+
 extern "C" int bert_layer_backward(const float* x, const float* resid, const float* g,
                                    const void* const* params, void* const* grads, float* dx,
                                    float* scratch, int B, int T, int H, int F, int heads,
                                    int t_valid, int TP, int seed, double attn_rate,
                                    double hidden_rate, int simt, cudaStream_t stream) {
+  return bert_backward(x, resid, g, params, grads, dx, scratch, B, T, H, F, heads, t_valid, TP,
+                       seed, attn_rate, hidden_rate, simt ? GEMM_SIMT : GEMM_TF32X3, 0, stream);
+}
+
+// The attention half's score backward under mm16 (defined with the mm16
+// form below).
+static cudaError_t attn_bwd16(const float* q, const float* k, const float* v,
+                              const float* dctx, const float* rden, float* seg, float* dqkv,
+                              const Dropout& drop, int B, int T, int TP, int H, int heads,
+                              int t_valid, cudaStream_t stream);
+
+// The backward of either form: route is the products' GemmRoute, mm16
+// selects the score backward of the mm16 form (resid's log-sum-exp slot
+// then holds the forward's rounded reciprocal denominators).
+static int bert_backward(const float* x, const float* resid, const float* g,
+                         const void* const* params, void* const* grads, float* dx, float* scratch,
+                         int B, int T, int H, int F, int heads, int t_valid, int TP, int seed,
+                         double attn_rate, double hidden_rate, int route, int mm16,
+                         cudaStream_t stream) {
   if (bert_bad_dims(T, H, F, heads, t_valid, TP)) return (int)cudaErrorInvalidValue;
   const float* const* p = reinterpret_cast<const float* const*>(params);
   float* const* dp = reinterpret_cast<float* const*>(grads);
@@ -1211,22 +1450,24 @@ extern "C" int bert_layer_backward(const float* x, const float* resid, const flo
   CK(ln_backward(g, a2, g2, d1, T, TP, dy2, dz, lnp, ln3, dp[14], dp[15], dp[13], M, H,
                  stream));
   // U = x1 W1^T + b1 (M x F)
-  CK(gemm(M, F, H, x1, H, 0, w1, H, 1, U, F, nullptr, gp, stream, simt, b1m));
+  CK(gemm(M, F, H, x1, H, 0, w1, H, 1, U, F, nullptr, gp, stream, route, b1m));
   // DU = (dz W2) * GELU'(U), and U -> GELU(U) in the same epilogue
-  CK(gemm(M, F, H, dz, H, 0, w2, F, 0, DU, F, nullptr, gp, stream, simt, nullptr, U, 2));
-  CK(gemm(H, F, M, dz, H, 1, U, F, 0, dp[12], F, nullptr, gp, stream, simt));  // dW2 = dz^T GELU(U)
-  CK(gemm(F, H, M, DU, F, 1, x1, H, 0, dp[10], H, nullptr, gp, stream, simt)); // dW1 = DU^T x1
+  CK(gemm(M, F, H, dz, H, 0, w2, F, 0, DU, F, nullptr, gp, stream, route, nullptr, U, 2));
+  CK(gemm(H, F, M, dz, H, 1, U, F, 0, dp[12], F, nullptr, gp, stream, route));  // dW2 = dz^T GELU(U)
+  CK(gemm(F, H, M, DU, F, 1, x1, H, 0, dp[10], H, nullptr, gp, stream, route)); // dW1 = DU^T x1
   CK(colsum(DU, M, F, F, dp[11], colp, stream));                               // db1
-  CK(gemm(M, H, F, DU, F, 0, w1, H, 0, dx1, H, dy2, gp, stream, simt));        // dx1 = dy2 + DU W1
+  CK(gemm(M, H, F, DU, F, 0, w1, H, 0, dx1, H, dy2, gp, stream, route));        // dx1 = dy2 + DU W1
 
   // ---- attention side ------------------------------------------------------
   CK(ln_backward(dx1, a1, g1, d0, T, TP, dy1, da, lnp, ln3, dp[8], dp[9], dp[7], M, H, stream));
-  CK(gemm(H, H, M, da, H, 1, ctx, H, 0, dp[6], H, nullptr, gp, stream, simt));  // dWo = da^T ctx
-  CK(gemm(M, H, H, da, H, 0, wo, H, 0, dctx, H, nullptr, gp, stream, simt));    // dctx = da Wo
+  CK(gemm(H, H, M, da, H, 1, ctx, H, 0, dp[6], H, nullptr, gp, stream, route));  // dWo = da^T ctx
+  CK(gemm(M, H, H, da, H, 0, wo, H, 0, dctx, H, nullptr, gp, stream, route));    // dctx = da Wo
   const dim3 grid((T + BERT_ATTN_QUERIES - 1) / BERT_ATTN_QUERIES, heads, B);
   const size_t smem_dq = 2 * (size_t)t_valid * hd * sizeof(float);
   const size_t smem_dkv = (2 * (size_t)T * hd + 2 * (size_t)T) * sizeof(float);
-  if (hd <= 8) {
+  if (mm16) {
+    CK(attn_bwd16(q, k, v, dctx, lse, Dd, dqkv, d_attn, B, T, TP, H, heads, t_valid, stream));
+  } else if (hd <= 8) {
     CK(allow_smem(bert_attn_bwd_dq_kernel<8>, smem_dq));
     bert_attn_bwd_dq_kernel<8><<<grid, BERT_ATTN_THREADS, smem_dq, stream>>>(
         q, k, v, ctx, dctx, lse, Dd, dqkv, 3 * H, d_attn, T, TP, H, hd, t_valid, scale);
@@ -1250,11 +1491,426 @@ extern "C" int bert_layer_backward(const float* x, const float* resid, const flo
   for (int j = 0; j < 3; ++j) {
     const float* dj = dqkv + j * H;
     // dW = d^T x
-    CK(gemm(H, H, M, dj, 3 * H, 1, x, H, 0, dp[2 * j], H, nullptr, gp, stream, simt));
+    CK(gemm(H, H, M, dj, 3 * H, 1, x, H, 0, dp[2 * j], H, nullptr, gp, stream, route));
     CK(colsum(dj, M, H, 3 * H, dp[2 * j + 1], colp, stream));                     // db
     // dx = dy1 + dq Wq + dk Wk + dv Wv, one product at a time
     CK(gemm(M, H, H, dj, 3 * H, 0, wqkv[j], H, 0, dx, H, j == 0 ? dy1 : dx, gp, stream,
-            simt));
+            route));
   }
   return (int)cudaSuccess;
+}
+
+// ===========================================================================
+// The mm16 form: the layer under the bf16 policy (JAX nn/bert.py keeps the
+// residual stream float32 and forces mm16 on the layer; _fbl_fwd / _fbl_bwd
+// with mm16=True). Every product rounds its two operands to bf16 and
+// accumulates in float32, at the points where JAX's _mm(True) rounds them:
+// x, ctx, x1 and GELU(u) against the bf16 weights; q * scale (not q) and k
+// in the scores; the dropped probabilities and v in the context. The
+// softmax is JAX's packed one: no max subtraction, logits capped at 80,
+// e = exp(min(s, 80)), the denominator a float32 sum of bf16(e) and
+// p = e * bf16(1 / den) (_seg_softmax with mm16). Residual stream, both
+// LayerNorms and the saved residuals stay float32; the saved log-sum-exp's
+// slot holds bf16(1 / den) instead.
+//
+// The dense products (QKV, out-projection, both FFN products; all five of
+// the backward's FFN products and its projections) run on
+// tc_gemm_bf16_kernel, one bf16 mma.sync a k-step. The per-head scores and
+// context (head dim 7) stay on the CUDA cores, in the layout of the float32
+// kernels: four lanes a query. The forward writes GELU(x1 W1^T + b1), one
+// (M, F) float32 buffer, where the float32 forward keeps F-chunks in shared
+// memory: the price of putting both FFN products on the tensor cores.
+//
+// What bounds it on the H100: not the card's rates (a batch-16 layer's
+// ~6 GFLOP of products take ~6 us at the bf16 tensor rate) but latency:
+// the K = 84 products' short k loops, the head-dim-7 attention on the CUDA
+// cores, and the FFN intermediates crossing device memory as float32 (72 MB
+// a layer at batch 16 forward, five such in the backward).
+// ===========================================================================
+
+#define BERT_LOGIT_CAP 80.f
+
+template <int MAXHD>
+__global__ void __launch_bounds__(BERT_ATTN_THREADS)
+bert_attention16_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ ctx,
+                        float* __restrict__ rden, Dropout drop, int T, int TP, int H, int hd,
+                        int t_valid, float scale) {
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = smem + (size_t)t_valid * hd;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const size_t row0 = (size_t)b * T;
+  for (int i = threadIdx.x; i < t_valid * hd; i += BERT_ATTN_THREADS) {
+    const size_t g = (row0 + i / hd) * H + h * hd + i % hd;
+    ks[i] = bf16r(k[g]);
+    vs[i] = bf16r(v[g]);
+  }
+  __syncthreads();
+  const int part = threadIdx.x % BERT_ATTN_SPLIT;
+  const int i = blockIdx.x * BERT_ATTN_QUERIES + threadIdx.x / BERT_ATTN_SPLIT;
+  const bool live = i < T;
+  const size_t qrow = (row0 + (live ? i : 0)) * H + h * hd;
+  float qi[MAXHD];
+#pragma unroll
+  for (int d = 0; d < MAXHD; ++d) qi[d] = live && d < hd ? bf16r(q[qrow + d] * scale) : 0.f;
+
+  float den = 0.f;
+  for (int j = part; j < t_valid; j += BERT_ATTN_SPLIT) {
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d)
+      if (d < hd) s = fmaf(qi[d], ks[j * hd + d], s);
+    den += bf16r(expf(fminf(s, BERT_LOGIT_CAP)));
+  }
+#pragma unroll
+  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
+    den += __shfl_xor_sync(MNT_FULL_MASK, den, off);
+  const float rd = bf16r(1.f / fmaxf(den, 1e-38f));
+  float acc[MAXHD];
+#pragma unroll
+  for (int d = 0; d < MAXHD; ++d) acc[d] = 0.f;
+  const uint32_t r = (uint32_t)(b * TP + i);
+  for (int j = part; j < t_valid; j += BERT_ATTN_SPLIT) {
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d)
+      if (d < hd) s = fmaf(qi[d], ks[j * hd + d], s);
+    const float p = expf(fminf(s, BERT_LOGIT_CAP)) * rd;
+    const float pb = bf16r(p * keep(drop, r, (uint32_t)(h * TP + j)));   // draw 3
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d)
+      if (d < hd) acc[d] = fmaf(pb, vs[j * hd + d], acc[d]);
+  }
+#pragma unroll
+  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d) acc[d] += __shfl_xor_sync(MNT_FULL_MASK, acc[d], off);
+  if (!live || part != 0) return;
+  if (rden) rden[((size_t)b * gridDim.y + h) * T + i] = rd;
+#pragma unroll
+  for (int d = 0; d < MAXHD; ++d)
+    if (d < hd) ctx[qrow + d] = acc[d];
+}
+
+// pre = (sum of `splits` partial products + bias) * the branch's dropout +
+// res; out = LN(pre) (two-pass, eps); pre saved if asked. One row a warp.
+__global__ void __launch_bounds__(BERT_THREADS)
+bert_bias_res_ln_kernel(const float* __restrict__ part, int splits, const float* __restrict__ bias,
+                        const float* __restrict__ res, const float* __restrict__ gamma,
+                        const float* __restrict__ beta, Dropout drop, int T, int TP, int M, int H,
+                        float eps, float* __restrict__ out, float* __restrict__ pre) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (BERT_THREADS / 32) + warp;
+  if (row >= M) return;
+  const uint32_t rr = (uint32_t)(row / T * TP + row % T);   // padded row
+  float vals[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int o = lane + 32 * t;
+    vals[t] = 0.f;
+    if (o < H) {
+      float z = part[(size_t)row * H + o];
+      for (int sp = 1; sp < splits; ++sp) z += part[((size_t)sp * M + row) * H + o];
+      vals[t] = (z + __ldg(bias + o)) * keep(drop, rr, o) + res[(size_t)row * H + o];
+      if (pre) pre[(size_t)row * H + o] = vals[t];
+    }
+  }
+  warp_ln_store(vals, lane, H, gamma, beta, eps, out + (size_t)row * H);
+}
+
+// A bf16 product A B^T (A (M, K) row-major, B (N, K)) whose K splits stay
+// unreduced: C receives *splits dense (M, N) slices of partial sums (one
+// when K is not split) for bert_bias_res_ln_kernel to add up.
+static cudaError_t gemm16_parts(int M, int N, int K, const float* A, int lda, const float* B,
+                                int ldb, float* C, int* splits, cudaStream_t stream) {
+  Gemm g = {};
+  g.M = M; g.N = N; g.K = K;
+  g.A = A; g.lda = lda; g.ta = 0;
+  g.B = B; g.ldb = ldb; g.tb = 1;
+  g.C = C; g.ldc = N;
+  g.vec_a = lda % 4 == 0 && (uintptr_t)A % 16 == 0;
+  g.vec_b = ldb % 4 == 0 && (uintptr_t)B % 16 == 0;
+  gemm_split(M, N, K, TG_BM, TG_BN, &g.splits, &g.kchunk);
+  *splits = g.splits;
+  cudaError_t err = allow_smem(tc_gemm_bf16_kernel<0, 1>, TbTile<0, 1>::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + TG_BN - 1) / TG_BN, (M + TG_BM - 1) / TG_BM, g.splits);
+  tc_gemm_bf16_kernel<0, 1><<<grid, TG_THREADS, TbTile<0, 1>::SMEM, stream>>>(g);
+  return cudaGetLastError();
+}
+
+static long long bert_fwd16_part_floats(long long M, int H, int F) {
+  const long long p = gemm_part_floats((int)M, H, F);
+  return p > M * H ? p : M * H;
+}
+
+// Floats of device scratch bert_layer_forward16 needs: q, k, v, ctx, x1 (as
+// the float32 forward's), GELU(u) (M x F) and the products' partial sums.
+extern "C" long long bert_layer_scratch16_floats(int B, int T, int H, int F) {
+  const long long M = (long long)B * T;
+  return 5 * M * H + M * F + bert_fwd16_part_floats(M, H, F);
+}
+
+// The mm16 form of bert_layer_forward: same arguments, layouts, dropout
+// draws and saved residuals (bert_layer_resid_floats), scratch of
+// bert_layer_scratch16_floats(); the residuals' log-sum-exp slot receives
+// bf16(1 / den) of every (subject, head, query). Returns the cudaError_t of
+// the first launch that fails, or of the last.
+extern "C" int bert_layer_forward16(const float* x, const void* const* params, float* scratch,
+                                    float* resid, float* out, int B, int T, int H, int F,
+                                    int heads, int t_valid, int TP, int seed, double attn_rate,
+                                    double hidden_rate, cudaStream_t stream) {
+  if (bert_bad_dims(T, H, F, heads, t_valid, TP)) return (int)cudaErrorInvalidValue;
+  const float* const* p = reinterpret_cast<const float* const*>(params);
+  const int M = B * T;
+  const size_t MH = (size_t)M * H;
+  float* base = resid ? resid : scratch;
+  float *q = base, *k = q + MH, *v = k + MH, *ctx = v + MH;
+  float *a1 = nullptr, *x1 = ctx + MH, *a2 = nullptr, *rden = nullptr;
+  if (resid) {
+    a1 = ctx + MH;
+    x1 = a1 + MH;
+    a2 = x1 + MH;
+    rden = a2 + MH;
+  }
+  float* gu = scratch + 5 * MH;
+  float* part = gu + (size_t)M * F;
+  const int hd = H / heads;
+  const float eps = 1e-12f;
+  const Dropout d_attn = make_dropout(seed, 3, attn_rate);
+  const Dropout d0 = make_dropout(seed, 0, hidden_rate);
+  const Dropout d1 = make_dropout(seed, 1, hidden_rate);
+  const int ln_blocks = (M + BERT_THREADS / 32 - 1) / (BERT_THREADS / 32);
+  int splits = 1;
+
+  // q, k, v = x W^T + b (bias in the epilogue)
+  float* qkv[3] = {q, k, v};
+  for (int j = 0; j < 3; ++j)
+    CK(gemm(M, H, H, x, H, 0, p[2 * j], H, 1, qkv[j], H, nullptr, part, stream, GEMM_BF16,
+            p[2 * j + 1]));
+
+  const size_t smem_attn = 2 * (size_t)t_valid * hd * sizeof(float);
+  const dim3 grid_attn((T + BERT_ATTN_QUERIES - 1) / BERT_ATTN_QUERIES, heads, B);
+  const float scale = 1.f / sqrtf((float)hd);
+  if (hd <= 8) {
+    CK(allow_smem(bert_attention16_kernel<8>, smem_attn));
+    bert_attention16_kernel<8><<<grid_attn, BERT_ATTN_THREADS, smem_attn, stream>>>(
+        q, k, v, ctx, rden, d_attn, T, TP, H, hd, t_valid, scale);
+  } else {
+    CK(allow_smem(bert_attention16_kernel<16>, smem_attn));
+    bert_attention16_kernel<16><<<grid_attn, BERT_ATTN_THREADS, smem_attn, stream>>>(
+        q, k, v, ctx, rden, d_attn, T, TP, H, hd, t_valid, scale);
+  }
+  CK(cudaGetLastError());
+
+  // x1 = LN1((ctx Wo^T + bo) * m0 + x)
+  CK(gemm16_parts(M, H, H, ctx, H, p[6], H, part, &splits, stream));
+  bert_bias_res_ln_kernel<<<ln_blocks, BERT_THREADS, 0, stream>>>(
+      part, splits, p[7], x, p[8], p[9], d0, T, TP, M, H, eps, x1, a1);
+  CK(cudaGetLastError());
+
+  // GELU(x1 W1^T + b1), then out = LN2((GELU(.) W2^T + b2) * m1 + x1)
+  CK(gemm(M, F, H, x1, H, 0, p[10], H, 1, gu, F, nullptr, part, stream, GEMM_BF16, p[11],
+          nullptr, 3));
+  CK(gemm16_parts(M, H, F, gu, F, p[12], F, part, &splits, stream));
+  bert_bias_res_ln_kernel<<<ln_blocks, BERT_THREADS, 0, stream>>>(
+      part, splits, p[13], x1, p[14], p[15], d1, T, TP, M, H, eps, out, a2);
+  return (int)cudaGetLastError();
+}
+
+// dq of one (subject, head, query) under mm16, four lanes a query as the
+// float32 kernel: p = e * rden rebuilt from the scores, dp = (dctx . v) * keep;
+// seg = bf16(sum_j bf16(dp p)) (fusion_block._seg_rows with mm16), saved for
+// the dk/dv kernel; ds = p (dp - seg); dq = scale sum_j bf16(ds) bf16(k).
+template <int MAXHD>
+__global__ void __launch_bounds__(BERT_ATTN_THREADS)
+bert_attn_bwd_dq16_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dctx,
+                          const float* __restrict__ rden, float* __restrict__ seg_out,
+                          float* __restrict__ dq, int ldq, Dropout drop, int T, int TP, int H,
+                          int hd, int t_valid, float scale) {
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = smem + (size_t)t_valid * hd;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const size_t row0 = (size_t)b * T;
+  for (int i = threadIdx.x; i < t_valid * hd; i += BERT_ATTN_THREADS) {
+    const size_t g = (row0 + i / hd) * H + h * hd + i % hd;
+    ks[i] = bf16r(k[g]);
+    vs[i] = bf16r(v[g]);
+  }
+  __syncthreads();
+  const int part = threadIdx.x % BERT_ATTN_SPLIT;
+  const int i = blockIdx.x * BERT_ATTN_QUERIES + threadIdx.x / BERT_ATTN_SPLIT;
+  const bool live = i < T;
+  const size_t qrow = (row0 + (live ? i : 0)) * H + h * hd;
+  const size_t si = ((size_t)b * gridDim.y + h) * T + (live ? i : 0);
+  float qi[MAXHD], gi[MAXHD], dqa[MAXHD];
+#pragma unroll
+  for (int d = 0; d < MAXHD; ++d) {
+    qi[d] = live && d < hd ? bf16r(q[qrow + d] * scale) : 0.f;
+    gi[d] = live && d < hd ? bf16r(dctx[qrow + d]) : 0.f;
+    dqa[d] = 0.f;
+  }
+  const float rd = live ? rden[si] : 0.f;
+  const uint32_t r = (uint32_t)(b * TP + i);
+  float sacc = 0.f;
+  for (int j = part; j < t_valid; j += BERT_ATTN_SPLIT) {
+    float s = 0.f, dpd = 0.f;
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d)
+      if (d < hd) {
+        s = fmaf(qi[d], ks[j * hd + d], s);
+        dpd = fmaf(gi[d], vs[j * hd + d], dpd);
+      }
+    const float p = expf(fminf(s, BERT_LOGIT_CAP)) * rd;
+    sacc += bf16r(dpd * keep(drop, r, (uint32_t)(h * TP + j)) * p);
+  }
+#pragma unroll
+  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
+    sacc += __shfl_xor_sync(MNT_FULL_MASK, sacc, off);
+  const float seg = bf16r(sacc);
+  for (int j = part; j < t_valid; j += BERT_ATTN_SPLIT) {
+    float s = 0.f, dpd = 0.f;
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d)
+      if (d < hd) {
+        s = fmaf(qi[d], ks[j * hd + d], s);
+        dpd = fmaf(gi[d], vs[j * hd + d], dpd);
+      }
+    const float p = expf(fminf(s, BERT_LOGIT_CAP)) * rd;
+    const float ds = bf16r(p * (dpd * keep(drop, r, (uint32_t)(h * TP + j)) - seg));
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d)
+      if (d < hd) dqa[d] = fmaf(ds, ks[j * hd + d], dqa[d]);
+  }
+#pragma unroll
+  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d) dqa[d] += __shfl_xor_sync(MNT_FULL_MASK, dqa[d], off);
+  if (!live || part != 0) return;
+  seg_out[si] = seg;
+  const size_t drow = (row0 + i) * ldq + h * hd;
+#pragma unroll
+  for (int d = 0; d < MAXHD; ++d)
+    if (d < hd) dq[drow + d] = dqa[d] * scale;
+}
+
+// dk and dv of one (subject, head, key) under mm16: dk = sum_i bf16(ds)
+// bf16(q scale), dv = sum_i bf16(p keep) bf16(dctx); four lanes a key, the
+// head's rounded q * scale and dctx, rden and seg in shared memory.
+template <int MAXHD>
+__global__ void __launch_bounds__(BERT_ATTN_THREADS)
+bert_attn_bwd_dkv16_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dctx,
+                           const float* __restrict__ rden, const float* __restrict__ seg,
+                           float* __restrict__ dk, float* __restrict__ dv, int ldo, Dropout drop,
+                           int T, int TP, int H, int hd, int t_valid, float scale) {
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* gs = qs + (size_t)T * hd;
+  float* ls = gs + (size_t)T * hd;
+  float* Ds = ls + T;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const size_t row0 = (size_t)b * T;
+  const size_t s0 = ((size_t)b * gridDim.y + h) * T;
+  for (int i = threadIdx.x; i < T * hd; i += BERT_ATTN_THREADS) {
+    const size_t g = (row0 + i / hd) * H + h * hd + i % hd;
+    qs[i] = bf16r(q[g] * scale);
+    gs[i] = bf16r(dctx[g]);
+  }
+  for (int i = threadIdx.x; i < T; i += BERT_ATTN_THREADS) {
+    ls[i] = rden[s0 + i];
+    Ds[i] = seg[s0 + i];
+  }
+  __syncthreads();
+  const int part = threadIdx.x % BERT_ATTN_SPLIT;
+  const int j = blockIdx.x * BERT_ATTN_QUERIES + threadIdx.x / BERT_ATTN_SPLIT;
+  const bool live = j < t_valid;
+  const size_t krow = (row0 + (live ? j : 0)) * H + h * hd;
+  float kj[MAXHD], vj[MAXHD], dka[MAXHD], dva[MAXHD];
+#pragma unroll
+  for (int d = 0; d < MAXHD; ++d) {
+    kj[d] = live && d < hd ? bf16r(k[krow + d]) : 0.f;
+    vj[d] = live && d < hd ? bf16r(v[krow + d]) : 0.f;
+    dka[d] = dva[d] = 0.f;
+  }
+  if (live) {
+    const uint32_t c = (uint32_t)(h * TP + j);
+    for (int i = part; i < T; i += BERT_ATTN_SPLIT) {
+      float s = 0.f, dpd = 0.f;
+#pragma unroll
+      for (int d = 0; d < MAXHD; ++d)
+        if (d < hd) {
+          s = fmaf(qs[i * hd + d], kj[d], s);
+          dpd = fmaf(gs[i * hd + d], vj[d], dpd);
+        }
+      const float p = expf(fminf(s, BERT_LOGIT_CAP)) * ls[i];
+      const float kp = keep(drop, (uint32_t)(b * TP + i), c);
+      const float ds = bf16r(p * (dpd * kp - Ds[i]));
+      const float pd = bf16r(p * kp);
+#pragma unroll
+      for (int d = 0; d < MAXHD; ++d)
+        if (d < hd) {
+          dka[d] = fmaf(ds, qs[i * hd + d], dka[d]);
+          dva[d] = fmaf(pd, gs[i * hd + d], dva[d]);
+        }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d) {
+      dka[d] += __shfl_xor_sync(MNT_FULL_MASK, dka[d], off);
+      dva[d] += __shfl_xor_sync(MNT_FULL_MASK, dva[d], off);
+    }
+  if (j >= T || part != 0) return;
+  const size_t drow = (row0 + j) * ldo + h * hd;
+#pragma unroll
+  for (int d = 0; d < MAXHD; ++d)
+    if (d < hd) {
+      dk[drow + d] = dka[d];
+      dv[drow + d] = dva[d];
+    }
+}
+
+static cudaError_t attn_bwd16(const float* q, const float* k, const float* v,
+                              const float* dctx, const float* rden, float* seg, float* dqkv,
+                              const Dropout& drop, int B, int T, int TP, int H, int heads,
+                              int t_valid, cudaStream_t stream) {
+  const int hd = H / heads;
+  const float scale = 1.f / sqrtf((float)hd);
+  const dim3 grid((T + BERT_ATTN_QUERIES - 1) / BERT_ATTN_QUERIES, heads, B);
+  const size_t smem_dq = 2 * (size_t)t_valid * hd * sizeof(float);
+  const size_t smem_dkv = (2 * (size_t)T * hd + 2 * (size_t)T) * sizeof(float);
+  cudaError_t err;
+#define ATTN16(HD)                                                                              \
+  do {                                                                                          \
+    if ((err = allow_smem(bert_attn_bwd_dq16_kernel<HD>, smem_dq)) != cudaSuccess) return err;  \
+    bert_attn_bwd_dq16_kernel<HD><<<grid, BERT_ATTN_THREADS, smem_dq, stream>>>(                \
+        q, k, v, dctx, rden, seg, dqkv, 3 * H, drop, T, TP, H, hd, t_valid, scale);             \
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;                                  \
+    if ((err = allow_smem(bert_attn_bwd_dkv16_kernel<HD>, smem_dkv)) != cudaSuccess) return err; \
+    bert_attn_bwd_dkv16_kernel<HD><<<grid, BERT_ATTN_THREADS, smem_dkv, stream>>>(              \
+        q, k, v, dctx, rden, seg, dqkv + H, dqkv + 2 * H, 3 * H, drop, T, TP, H, hd, t_valid,   \
+        scale);                                                                                 \
+  } while (0)
+  if (hd <= 8) ATTN16(8);
+  else ATTN16(16);
+#undef ATTN16
+  return cudaGetLastError();
+}
+
+// The mm16 form of bert_layer_backward: x, resid (from bert_layer_forward16
+// with the same seed and rates), g, params, grads, dx and scratch
+// (bert_layer_backward_scratch_floats()) as there; every product on bf16
+// operands (tc_gemm_bf16_kernel) at JAX's mm16 rounding points.
+extern "C" int bert_layer_backward16(const float* x, const float* resid, const float* g,
+                                     const void* const* params, void* const* grads, float* dx,
+                                     float* scratch, int B, int T, int H, int F, int heads,
+                                     int t_valid, int TP, int seed, double attn_rate,
+                                     double hidden_rate, cudaStream_t stream) {
+  return bert_backward(x, resid, g, params, grads, dx, scratch, B, T, H, F, heads, t_valid, TP,
+                       seed, attn_rate, hidden_rate, GEMM_BF16, 1, stream);
 }

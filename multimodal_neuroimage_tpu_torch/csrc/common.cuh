@@ -6,6 +6,7 @@
 // current stream, and raises when the returned cudaError_t is not 0.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -72,6 +73,14 @@ static inline cudaError_t reduce_partials(const float* part, int S, long long n,
 __device__ __forceinline__ float gelu_erf_grad(float u) {
   return 0.5f * (1.0f + erff(u * 0.70710678118654752f)) +
          u * expf(-0.5f * u * u) * 0.39894228040143268f;
+}
+
+// x rounded to bfloat16 (to nearest, ties to even, as jnp's astype and
+// torch's .to(torch.bfloat16)) and widened back: the operand rounding of the
+// bf16 policy's products (mm16), whose products of two such values are
+// exact in float32.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from multimodal_neuroimage_tpu_torch.nn.bert import TemporalBert
+from multimodal_neuroimage_tpu_torch.nn.common import Linear
 
 
 class TransformerNet(nn.Module):
@@ -34,7 +35,7 @@ class TransformerNet(nn.Module):
             intermediate_vec, transformer_hidden_layers, num_heads_2DBert,
             sequence_length + 1, bert_intermediate_size,
             hidden_dropout=transformer_dropout_rate)
-        self.regression_head = nn.Linear(intermediate_vec, 1)
+        self.regression_head = Linear(intermediate_vec, 1)
 
     @classmethod
     def from_config(cls, cfg) -> "TransformerNet":

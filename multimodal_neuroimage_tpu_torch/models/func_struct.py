@@ -18,6 +18,7 @@ from torch import nn
 from multimodal_neuroimage_tpu_torch.models.swinfusion_net import (
     SwinFusionBackbone)
 from multimodal_neuroimage_tpu_torch.nn.bert import TemporalBert
+from multimodal_neuroimage_tpu_torch.nn.common import Linear
 from multimodal_neuroimage_tpu_torch.nn.swin2d import (SwinTransformerV2,
                                                        size_preset)
 
@@ -58,7 +59,7 @@ class FmriDiagEmbed(nn.Module):
         self.transformer_raw = bert() if use_merge_loss else None
         self.transformer_low = bert()
         self.transformer_ultralow = bert()
-        self.proj_layer = (nn.Linear(2 * intermediate_vec, intermediate_vec)
+        self.proj_layer = (Linear(2 * intermediate_vec, intermediate_vec)
                            if concat_method == "concat" else None)
 
     def forward(self, x_raw: Optional[torch.Tensor], x_l: torch.Tensor,

@@ -14,6 +14,13 @@ dense products, LayerNorms and GELU in plain torch around K6
 (ops/attention.py ``fused_attention``), drawing three seeds per layer: K6's
 attention dropout, then the two hidden-dropout sites (JAX: one ``dropout``
 rng split per scanned layer).
+
+Under the bf16 policy (parameters rounded to bf16, bf16 inputs; the step
+builders') the embeddings, the CLS projection and the pooler run in bf16,
+while the K1 stack runs on a float32 residual stream with its products in
+bf16 (K1's mm16 form), the output cast back to bf16: JAX nn/bert.py:34-42,
+214-220 (full bf16 streams did not train at depth 16). The K6 route has no
+bf16 form yet (ROADMAP N8) and refuses a bf16 stream.
 """
 
 from __future__ import annotations
@@ -25,8 +32,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from multimodal_neuroimage_tpu_torch.nn.common import (LayerNorm, draw_seed,
-                                                       dropout)
+from multimodal_neuroimage_tpu_torch.nn.common import (LayerNorm, Linear,
+                                                       draw_seed, dropout)
 from multimodal_neuroimage_tpu_torch.ops.attention import fused_attention
 from multimodal_neuroimage_tpu_torch.ops.bert_layer import bert_layer_call
 from multimodal_neuroimage_tpu_torch.ops.fusion_block import round_up
@@ -65,19 +72,24 @@ class BertLayer(nn.Module):
                 out["LayerNorm"].weight, out["LayerNorm"].bias)
 
     def forward(self, x: torch.Tensor, t_valid: Optional[int],
-                generator=None) -> torch.Tensor:
-        """K1 over keys < ``t_valid``; the K6 route when it is None."""
+                generator=None, mm16: bool = False) -> torch.Tensor:
+        """K1 over keys < ``t_valid`` (``mm16``: its bf16-product form); the
+        K6 route when it is None."""
         if t_valid is None:
             return self._attention_route(x, generator)
         seed = 0
         if self.training and max(self.rates) > 0.0:
             seed = draw_seed(generator)
         return bert_layer_call(x, self.kernel_params(), self.heads, t_valid,
-                               seed, self.rates, self.training)
+                               seed, self.rates, self.training, mm16)
 
     def _attention_route(self, x: torch.Tensor, generator) -> torch.Tensor:
         """The JAX BertLayer's plain body with K6 as its attention
         (JAX nn/bert.py:103-147): no key mask, no padding."""
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"a {x.dtype} stream on the K6 route (T > {K1_MAX_T}, HCP): "
+                f"K6's bf16 form, HCP at the bf16 policy, is ROADMAP N8")
         B, T, H = x.shape
         hd = H // self.heads
         attn_rate, hidden_rate = self.rates if self.training else (0.0, 0.0)
@@ -115,20 +127,28 @@ class BertEncoder(nn.Module):
         self.encoder = nn.ModuleDict({"layer": nn.ModuleList(
             BertLayer(hidden, heads, intermediate, attn_dropout,
                       hidden_dropout) for _ in range(layers))})
-        self.pooler = nn.ModuleDict({"dense": nn.Linear(hidden, hidden)})
+        self.pooler = nn.ModuleDict({"dense": Linear(hidden, hidden)})
 
     def forward(self, inputs_embeds: torch.Tensor, generator=None):
         T = inputs_embeds.shape[1]
         emb = self.embeddings
-        x = (inputs_embeds + emb["position_embeddings"].weight[None, :T]
-             + emb["token_type_embeddings"].weight[None])
+        dt = inputs_embeds.dtype
+        x = (inputs_embeds + emb["position_embeddings"].weight[None, :T].to(dt)
+             + emb["token_type_embeddings"].weight[None].to(dt))
         x = emb["LayerNorm"](x)
         if self.training and self.hidden_dropout > 0.0:
             x = dropout(x, self.hidden_dropout, draw_seed(generator))
         x = x.contiguous()
         t_valid = T if round_up(T, 8) <= K1_MAX_T else None
+        # the bf16 policy: a float32 stream through the K1 stack, products
+        # in bf16 (mm16), the output cast back (JAX nn/bert.py:214-220)
+        in_dtype = x.dtype
+        mm16 = t_valid is not None and in_dtype == torch.bfloat16
+        if mm16:
+            x = x.float()
         for layer in self.encoder["layer"]:
-            x = layer(x, t_valid, generator)
+            x = layer(x, t_valid, generator, mm16)
+        x = x.to(in_dtype)
         return x, torch.tanh(self.pooler["dense"](x[:, 0]))
 
 
@@ -142,7 +162,7 @@ class TemporalBert(nn.Module):
                  hidden_dropout: float = 0.1, attn_dropout: float = 0.1):
         super().__init__()
         self.hidden = hidden
-        self.cls_embedding = nn.Sequential(nn.Linear(hidden, hidden),
+        self.cls_embedding = nn.Sequential(Linear(hidden, hidden),
                                            nn.LeakyReLU())
         self.bert = BertEncoder(hidden, layers, heads, max_positions,
                                 intermediate, hidden_dropout, attn_dropout)

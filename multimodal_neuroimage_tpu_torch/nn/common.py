@@ -1,5 +1,15 @@
 """Shared building blocks (counterpart of multimodal_neuroimage_tpu/nn/common.py).
 
+Dtypes follow the JAX package's (Flax's) promotion under the bf16 policy,
+where every parameter is bf16 (train/state.py hands the modules float32
+tensors holding the bf16 values): a layer computes in its input's dtype. A
+bf16 input stays bf16, the parameters cast to bf16 exactly (``Linear``: the
+product rounded, then the bias added and rounded, as ``nn.Dense``); a
+float32 input takes them as float32, as JAX promotes bf16 parameters
+against it (the SwinFusion backbone and the SwinV2 head); ``LayerNorm``
+takes its statistics in float32 and returns its input's dtype. With float32
+inputs every layer is the plain float32 one.
+
 Randomness is explicit: a training forward takes one ``torch.Generator`` on
 the host, from which every dropout seed and every DropPath factor is drawn
 in a fixed order, so that the same generator state gives the same step on
@@ -38,7 +48,21 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, self.eps)
+        if x.dtype == torch.float32:
+            return layer_norm(x, self.weight, self.bias, self.eps)
+        return layer_norm(x.float(), self.weight, self.bias,
+                          self.eps).to(x.dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype, as ``nn.Dense`` (module
+    docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            return F.linear(x, self.weight, self.bias)
+        y = F.linear(x, self.weight.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 def TorchConv(in_channels: int, out_channels: int,
@@ -66,7 +90,7 @@ def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     rows = torch.arange(x.numel() // C, dtype=torch.int64,
                         device=x.device).reshape(*x.shape[:-1], 1)
     cols = torch.arange(C, dtype=torch.int64, device=x.device)
-    return x * mix_keep(rows, cols, rate, seed, 0)
+    return (x * mix_keep(rows, cols, rate, seed, 0)).to(x.dtype)
 
 
 def drop_path_factors(shape, rate: float, generator: torch.Generator,

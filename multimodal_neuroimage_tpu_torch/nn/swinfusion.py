@@ -25,6 +25,16 @@ CrossFusionBlock :537-566), in either layout; ``drop_path`` is the block's
 rate from the stack's linspace. With dropout off the two layouts compute
 one function; with it on, their masks differ (the bp masks are the JAX bp
 kernels').
+
+The bf16 policy (``_POLICY16``, set by the step builders from
+``compute_dtype``; JAX ``_POLICY16`` and ``_stream16_active``): each ``bp``
+stack casts its streams to bf16 at entry and back at exit, so K7 runs its
+bf16 form. JAX gates this on the TPU backend; the port takes the
+accelerator's part on every device, so the CPU path is the card's. The
+``std`` stacks keep float32 streams under either policy (JAX
+models/swinfusion_net.py:122-123); the kernels take the parameters as the
+float32 tensors that hold their bf16 roundings (train/state.py
+``bf16_weights``), as the JAX kernels take ``f32(p)``.
 """
 
 from __future__ import annotations
@@ -50,6 +60,20 @@ from multimodal_neuroimage_tpu_torch.ops.fusion_block_bp import (
     group_size, to_groups)
 
 _LAYOUT = os.environ.get("FUSION_LAYOUT") or "std"
+# the session's compute policy: True under compute_dtype="bfloat16" (set by
+# train/state.py and serve/predictor.py), False for a float32 run
+_POLICY16 = False
+
+
+def _stream16_active() -> bool:
+    """Whether the bp stacks run bf16 streams (the bf16 policy)."""
+    return _POLICY16
+
+
+def set_compute_policy(compute_dtype: str) -> None:
+    """Set the fusion stacks' stream policy from a config's compute dtype."""
+    global _POLICY16
+    _POLICY16 = compute_dtype == "bfloat16"
 
 
 def _layout() -> str:
@@ -260,10 +284,13 @@ class BasicLayerFusion(nn.Module):
                 x = blk(x, generator)
             return x
         G = group_size(x.shape[0])
+        in_dtype = x.dtype
+        if _stream16_active():
+            x = x.to(torch.bfloat16)
         t = to_groups(x, G)                     # JAX _bp_enter
         for blk in self.blocks:
             t = blk(t, generator, group=G)
-        return from_groups(t, G)                # JAX _bp_exit
+        return from_groups(t, G).to(in_dtype)   # JAX _bp_exit
 
 
 class CrossBasicLayer(nn.Module):
@@ -287,10 +314,13 @@ class CrossBasicLayer(nn.Module):
                 x, y = blk(x, y, generator)
             return x, y
         G = group_size(x.shape[0])
+        in_dtype = x.dtype
+        if _stream16_active():
+            x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
         x, y = to_groups(x, G), to_groups(y, G)
         for blk in self.blocks:
             x, y = blk(x, y, generator, group=G)
-        return from_groups(x, G), from_groups(y, G)
+        return from_groups(x, G).to(in_dtype), from_groups(y, G).to(in_dtype)
 
 
 class RSTB(nn.Module):

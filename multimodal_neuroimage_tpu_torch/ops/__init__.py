@@ -2,7 +2,8 @@
 
 Every wrapper takes its plain PyTorch version for a CPU tensor and launches
 its CUDA kernel (or raises) for a CUDA tensor, and counts its launches in a
-``launches`` attribute, which :func:`reset_launches` and :func:`launches`
+``launches`` attribute (the bf16 policy's forms, K1 mm16 and K7 on bf16
+streams, count on wrappers of their own), which :func:`reset_launches` and :func:`launches`
 clear and read across all kernels. The forward wrappers are autograd
 Functions whose backward is the matching backward wrapper.
 """
@@ -38,7 +39,15 @@ def kernels() -> Dict[str, object]:
                 fbp.fused_fusion_block_bp_backward,
             "K7 cross_fusion_block_bp backward":
                 fbp.fused_cross_fusion_block_bp_backward,
-            "K8 dot_shapes": ds.batched_matmul}
+            "K8 dot_shapes": ds.batched_matmul,
+            "K1 bert_layer mm16": bl.bert_layer_call16,
+            "K1 bert_layer backward mm16": bl.bert_layer_backward16,
+            "K7 fusion_block_bp bf16": fbp.fused_fusion_block_bp16,
+            "K7 cross_fusion_block_bp bf16": fbp.fused_cross_fusion_block_bp16,
+            "K7 fusion_block_bp backward bf16":
+                fbp.fused_fusion_block_bp_backward16,
+            "K7 cross_fusion_block_bp backward bf16":
+                fbp.fused_cross_fusion_block_bp_backward16}
 
 
 def reset_launches() -> None:

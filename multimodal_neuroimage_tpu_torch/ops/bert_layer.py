@@ -12,6 +12,15 @@ in torch ``(out, in)`` layout and vectors 1-D. Training adds an int32
 ``seed`` and ``rates`` = (attention, hidden) dropout, whose masks are the JAX
 kernel's coordinate hash over its padded rows (TP = round_up(T, 8) a
 subject).
+
+``mm16=True`` is the layer under the bf16 policy (JAX ``_mm(True)``, forced
+by nn/bert.py with a float32 stream): every product rounds both operands to
+bf16 and accumulates in float32, the softmax is JAX's packed one (logits
+capped at 80, no max subtraction, denominators summed from bf16(e), p = e *
+bf16(1 / den)), and the backward rounds where JAX's mm16 backward does
+(:func:`bert_layer_reference_backward16`, written out: autograd through the
+rounded forward would round elsewhere). Its kernels run the products on bf16
+tensor cores (``bert_layer_forward16`` / ``bert_layer_backward16``).
 """
 
 from __future__ import annotations
@@ -23,8 +32,8 @@ import torch.nn.functional as F
 
 from multimodal_neuroimage_tpu_torch.nn.common import layer_norm
 from multimodal_neuroimage_tpu_torch.ops import build
-from multimodal_neuroimage_tpu_torch.ops.fusion_block import (mix_keep,
-                                                              round_up)
+from multimodal_neuroimage_tpu_torch.ops.fusion_block import (
+    LOGIT_CAP, bf16_round, gelu_grad, ln_bwd, ln_parts, mix_keep, round_up)
 
 LN_EPS = 1e-12
 N_PARAMS = 16
@@ -45,8 +54,13 @@ def _rows(B: int, T: int, device) -> torch.Tensor:
 def bert_layer_reference(x: torch.Tensor, params: Sequence[torch.Tensor],
                          heads: int, t_valid: int, seed: int = 0,
                          rates: Tuple[float, float] = (0.0, 0.0),
-                         training: bool = False) -> torch.Tensor:
-    """Plain PyTorch BERT layer over the same params (``_fwd_parts``)."""
+                         training: bool = False,
+                         mm16: bool = False) -> torch.Tensor:
+    """Plain PyTorch BERT layer over the same params (``_fwd_parts``);
+    ``mm16``: the bf16 policy's form."""
+    if mm16:
+        return _forward16(x, params, heads, t_valid, seed, rates,
+                          training)["out"]
     (wq, bq, wk, bk, wv, bv, wo, bo, g1, b1,
      w1, b1m, w2, b2m, g2, b2) = params
     B, T, H = x.shape
@@ -78,6 +92,117 @@ def bert_layer_reference(x: torch.Tensor, params: Sequence[torch.Tensor],
         z = z * mix_keep(rows, torch.arange(H, device=x.device), hidden_rate,
                          seed, 1)
     return layer_norm(z + x1, g2, b2, LN_EPS)
+
+
+def _mm16(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a W^T on bf16-rounded operands, float32 sums (W in (out, in))."""
+    return bf16_round(a) @ bf16_round(w).t()
+
+
+def _forward16(x, params, heads: int, t_valid: int, seed: int, rates,
+               training: bool) -> dict:
+    """The mm16 layer's forward (JAX ``_fwd_parts`` with mm16, packed
+    attention), keeping what its backward needs."""
+    (wq, bq, wk, bk, wv, bv, wo, bo, g1, b1,
+     w1, b1m, w2, b2m, g2, b2) = [p.float() for p in params]
+    B, T, H = x.shape
+    hd = H // heads
+    attn_rate, hidden_rate = rates if training else (0.0, 0.0)
+    TP = round_up(T, 8)
+    rows = _rows(B, T, x.device)
+
+    def split(t):
+        return t.reshape(B, T, heads, hd).transpose(1, 2)
+
+    q, k, v = _mm16(x, wq) + bq, _mm16(x, wk) + bk, _mm16(x, wv) + bv
+    qs = bf16_round(split(q) * hd ** -0.5)
+    s = torch.einsum("bhtd,bhsd->bhts", qs, bf16_round(split(k)))
+    s = s.masked_fill(torch.arange(T, device=x.device) >= t_valid, -1e9)
+    e = torch.exp(torch.clamp(s, max=LOGIT_CAP))
+    den = bf16_round(e).sum(dim=-1, keepdim=True)
+    p = e * bf16_round(1.0 / torch.clamp(den, min=1e-38))
+    keep = None
+    if attn_rate > 0.0:
+        cols = (torch.arange(heads, device=x.device)[:, None, None] * TP
+                + torch.arange(T, device=x.device))
+        keep = mix_keep(rows[:, None], cols, attn_rate, seed, 3)
+    pd = p * keep if keep is not None else p
+    ctx = torch.einsum("bhts,bhsd->bhtd", bf16_round(pd),
+                       bf16_round(split(v)))
+    ctx = ctx.transpose(1, 2).reshape(B, T, H)
+    m0 = m1 = None
+    if hidden_rate > 0.0:
+        cols = torch.arange(H, device=x.device)
+        m0 = mix_keep(rows, cols, hidden_rate, seed, 0)
+        m1 = mix_keep(rows, cols, hidden_rate, seed, 1)
+    a = _mm16(ctx, wo) + bo
+    if m0 is not None:
+        a = a * m0
+    x1, xh1, r1 = ln_parts(a + x, g1, b1, LN_EPS)
+    u = _mm16(x1, w1) + b1m
+    gu = F.gelu(u)
+    z = _mm16(gu, w2) + b2m
+    if m1 is not None:
+        z = z * m1
+    out, xh2, r2 = ln_parts(z + x1, g2, b2, LN_EPS)
+    return dict(out=out, q=q, qs=qs, k=k, v=v, p=p, pd=pd, keep=keep,
+                ctx=ctx, m0=m0, m1=m1, x1=x1, xh1=xh1, r1=r1, u=u, gu=gu,
+                xh2=xh2, r2=r2)
+
+
+def bert_layer_reference_backward16(g, x, params, heads: int, t_valid: int,
+                                    seed: int = 0, rates=(0.0, 0.0),
+                                    training: bool = False):
+    """The mm16 layer's plain backward, written out as JAX's mm16 backward
+    kernels compute it (``_ffn_bwd_body``, ``_attn_bwd_body`` with mm16):
+    every product of bf16-rounded operands, seg = bf16(sum bf16(dp p))
+    (``_seg_rows``); returns (dx, dparams), float32."""
+    (wq, bq, wk, bk, wv, bv, wo, bo, g1, b1,
+     w1, b1m, w2, b2m, g2, b2) = [p.float() for p in params]
+    f = _forward16(x, params, heads, t_valid, seed, rates, training)
+    B, T, H = x.shape
+    hd = H // heads
+    bf = bf16_round
+    rows = lambda t: t.reshape(-1, t.shape[-1])
+    colsum = lambda t: rows(t).sum(dim=0)
+    tn = lambda a, b: bf(rows(a)).t() @ bf(rows(b))     # sum_rows a^T b
+
+    # FFN side over the saved pre-LN2 sum
+    dy2 = ln_bwd(g, f["xh2"], f["r2"], g2)
+    dz = dy2 * f["m1"] if f["m1"] is not None else dy2
+    dw2 = tn(dz, f["gu"])
+    du = (bf(dz) @ bf(w2)) * gelu_grad(f["u"])
+    dw1 = tn(du, f["x1"])
+    dx1 = dy2 + bf(du) @ bf(w1)
+    dg2, db2, db2m = colsum(g * f["xh2"]), colsum(g), colsum(dz)
+    db1m = colsum(du)
+
+    # attention side
+    dy1 = ln_bwd(dx1, f["xh1"], f["r1"], g1)
+    da = dy1 * f["m0"] if f["m0"] is not None else dy1
+    dg1, db1, dbo = colsum(dx1 * f["xh1"]), colsum(dx1), colsum(da)
+    dwo = tn(da, f["ctx"])
+    dctx = (bf(da) @ bf(wo)).reshape(B, T, heads, hd).transpose(1, 2)
+
+    def split(t):
+        return t.reshape(B, T, heads, hd).transpose(1, 2)
+
+    p, keep = f["p"], f["keep"]
+    dpd = torch.einsum("bhtd,bhsd->bhts", bf(dctx), bf(split(f["v"])))
+    dv = torch.einsum("bhts,bhtd->bhsd", bf(f["pd"]), bf(dctx))
+    dp = dpd * keep if keep is not None else dpd
+    seg = bf(bf(dp * p).sum(dim=-1, keepdim=True))
+    ds = p * (dp - seg)
+    dq = torch.einsum("bhts,bhsd->bhtd", bf(ds),
+                      bf(split(f["k"]))) * hd ** -0.5
+    dk = torch.einsum("bhts,bhtd->bhsd", bf(ds), f["qs"])
+    merge = lambda t: t.transpose(1, 2).reshape(B, T, H)
+    dq, dk, dv = merge(dq), merge(dk), merge(dv)
+    dx = dy1 + bf(dq) @ bf(wq) + bf(dk) @ bf(wk) + bf(dv) @ bf(wv)
+    dparams = (tn(dq, x), colsum(dq), tn(dk, x), colsum(dk), tn(dv, x),
+               colsum(dv), dwo, dbo, dg1, db1, dw1, db1m, dw2, db2m, dg2,
+               db2)
+    return dx, dparams
 
 
 def bert_layer_reference_backward(g, x, params, heads: int, t_valid: int,
@@ -136,34 +261,38 @@ def _check(x, params, heads, t_valid):
 
 
 def _launch_forward(x, params, heads, t_valid, seed, rates, training,
-                    save: bool):
+                    save: bool, mm16: bool = False):
     B, T, H, F_ = _check(x, params, heads, t_valid)
     attn_rate, hidden_rate = rates if training else (0.0, 0.0)
     lib = build.library()
-    scratch = torch.empty(lib.value("bert_layer_scratch_floats", B, T, H, F_),
+    scratch = torch.empty(lib.value("bert_layer_scratch16_floats" if mm16
+                                    else "bert_layer_scratch_floats",
+                                    B, T, H, F_),
                           dtype=torch.float32, device=x.device)
     resid = (torch.empty(lib.value("bert_layer_resid_floats", B, T, H, heads),
                          dtype=torch.float32, device=x.device)
              if save else None)
     out = torch.empty_like(x)
-    lib.call("bert_layer_forward", x.data_ptr(), build.pointer_array(params),
+    lib.call("bert_layer_forward16" if mm16 else "bert_layer_forward",
+             x.data_ptr(), build.pointer_array(params),
              scratch.data_ptr(), None if resid is None else resid.data_ptr(),
              out.data_ptr(), B, T, H, F_, heads, t_valid, round_up(T, 8),
              int(seed), float(attn_rate), float(hidden_rate),
              build.stream_of(x))
-    bert_layer_call.launches += 1
+    (bert_layer_call16 if mm16 else bert_layer_call).launches += 1
     return out, resid
 
 
 def bert_layer_backward(g, x, params, resid, heads: int, t_valid: int,
                         seed: int = 0, rates=(0.0, 0.0),
-                        training: bool = False):
+                        training: bool = False, mm16: bool = False):
     """K1 backward: (dx, dparams). CUDA tensors launch the kernels
-    (``resid`` from the CUDA training forward); CPU tensors take the plain
-    backward."""
+    (``resid`` from the CUDA training forward of the same form); CPU
+    tensors take the plain backward."""
     if x.device.type == "cpu":
-        return bert_layer_reference_backward(g, x, params, heads, t_valid,
-                                             seed, rates, training)
+        plain = (bert_layer_reference_backward16 if mm16
+                 else bert_layer_reference_backward)
+        return plain(g, x, params, heads, t_valid, seed, rates, training)
     B, T, H, F_ = _check(x, params, heads, t_valid)
     build.check_cuda_f32("g", g, x.shape)
     lib = build.library()
@@ -175,53 +304,78 @@ def bert_layer_backward(g, x, params, resid, heads: int, t_valid: int,
                           dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dparams = tuple(torch.empty_like(p) for p in params)
-    lib.call("bert_layer_backward", x.data_ptr(), resid.data_ptr(),
-             g.data_ptr(), build.pointer_array(params),
-             build.pointer_array(dparams), dx.data_ptr(), scratch.data_ptr(),
-             B, T, H, F_, heads, t_valid, round_up(T, 8), int(seed),
-             float(attn_rate), float(hidden_rate), int(_GEMM_SIMT),
-             build.stream_of(x))
-    bert_layer_backward.launches += 1
+    args = (x.data_ptr(), resid.data_ptr(), g.data_ptr(),
+            build.pointer_array(params), build.pointer_array(dparams),
+            dx.data_ptr(), scratch.data_ptr(), B, T, H, F_, heads, t_valid,
+            round_up(T, 8), int(seed), float(attn_rate), float(hidden_rate))
+    if mm16:
+        lib.call("bert_layer_backward16", *args, build.stream_of(x))
+        bert_layer_backward16.launches += 1
+    else:
+        lib.call("bert_layer_backward", *args, int(_GEMM_SIMT),
+                 build.stream_of(x))
+        bert_layer_backward.launches += 1
     return dx, dparams
 
 
 class _BertLayerFunction(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, heads, t_valid, seed, rates, training, save, *params):
+    def forward(ctx, x, heads, t_valid, seed, rates, training, save, mm16,
+                *params):
         if x.device.type == "cpu":
             out = bert_layer_reference(x, params, heads, t_valid, seed, rates,
-                                       training)
+                                       training, mm16)
             resid = None
         else:
             out, resid = _launch_forward(x, params, heads, t_valid, seed,
-                                         rates, training, save)
-        ctx.meta = (heads, t_valid, seed, rates, training)
+                                         rates, training, save, mm16)
+        ctx.meta = (heads, t_valid, seed, rates, training, mm16)
         ctx.save_for_backward(x, resid, *params)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        heads, t_valid, seed, rates, training = ctx.meta
+        heads, t_valid, seed, rates, training, mm16 = ctx.meta
         x, resid, *params = ctx.saved_tensors
         dx, dparams = bert_layer_backward(g.contiguous(), x, params, resid,
                                           heads, t_valid, seed, rates,
-                                          training)
-        return (dx, None, None, None, None, None, None, *dparams)
+                                          training, mm16)
+        return (dx, None, None, None, None, None, None, None, *dparams)
 
 
 def bert_layer_call(x: torch.Tensor, params: Sequence[torch.Tensor],
                     heads: int, t_valid: int, seed: int = 0,
                     rates: Tuple[float, float] = (0.0, 0.0),
-                    training: bool = False) -> torch.Tensor:
+                    training: bool = False,
+                    mm16: bool = False) -> torch.Tensor:
     """One BERT layer (differentiable): the CUDA kernels on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    the plain version on a CPU tensor. x and the parameters are float32 in
+    either form (under the bf16 policy the parameters hold bf16 values)."""
     save = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, *params))
     return _BertLayerFunction.apply(x, heads, t_valid, int(seed),
                                     tuple(rates), bool(training), save,
-                                    *params)
+                                    bool(mm16), *params)
+
+
+def bert_layer_call16(x, params, heads, t_valid, seed=0, rates=(0.0, 0.0),
+                      training=False):
+    """:func:`bert_layer_call` in the mm16 form; its ``launches`` count the
+    mm16 forward kernels' launches."""
+    return bert_layer_call(x, params, heads, t_valid, seed, rates, training,
+                           True)
+
+
+def bert_layer_backward16(g, x, params, resid, heads, t_valid, seed=0,
+                          rates=(0.0, 0.0), training=False):
+    """:func:`bert_layer_backward` in the mm16 form; its ``launches`` count
+    the mm16 backward kernels' launches."""
+    return bert_layer_backward(g, x, params, resid, heads, t_valid, seed,
+                               rates, training, True)
 
 
 bert_layer_call.launches = 0
 bert_layer_backward.launches = 0
+bert_layer_call16.launches = 0
+bert_layer_backward16.launches = 0

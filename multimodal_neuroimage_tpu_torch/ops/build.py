@@ -50,6 +50,12 @@ _SIGNATURES = {
     "fusion_block_bp_backward": (_I, [_I] + [_P] * 11 + [_I] * 7
                                  + [_P, _I, _D, _D, _I, _P]),
     "fusion_block_bp_backward_scratch_floats": (_L, [_I] * 8),
+    "fusion_block_bp_forward16": (_I, [_I] + [_P] * 6 + [_I] * 7
+                                  + [_P, _I, _D, _D, _I, _P, _P]),
+    "fusion_block_bp_backward16": (_I, [_I] + [_P] * 11 + [_I] * 7
+                                   + [_P, _I, _D, _D, _I, _P]),
+    "fusion_block_bp_backward16_scratch_floats": (_L, [_I] * 8),
+    "fusion_block_bp_backward16_occupancy": (_I, [_I] * 8 + [_P]),
     "fusion_block_backward_occupancy": (_I, [_I] * 7 + [_P]),
     "fusion_block_bp_backward_occupancy": (_I, [_I] * 8 + [_P]),
     "bert_layer_forward": (_I, [_P] * 5 + [_I] * 8 + [_D, _D, _P]),
@@ -57,6 +63,9 @@ _SIGNATURES = {
     "bert_layer_resid_floats": (_L, [_I] * 4),
     "bert_layer_backward": (_I, [_P] * 7 + [_I] * 8 + [_D, _D, _I, _P]),
     "bert_layer_backward_scratch_floats": (_L, [_I] * 5),
+    "bert_layer_forward16": (_I, [_P] * 5 + [_I] * 8 + [_D, _D, _P]),
+    "bert_layer_scratch16_floats": (_L, [_I] * 4),
+    "bert_layer_backward16": (_I, [_P] * 7 + [_I] * 8 + [_D, _D, _P]),
     "fused_adam_update": (_I, [_P] * 4 + [_L, _P, _F, _F, _F, _D, _D, _D,
                                           _D, _I, _P]),
     "mha_forward": (_I, [_P] * 5 + [_I] * 4 + [_D, _P]),
@@ -198,6 +207,23 @@ def check_cuda_f32(name: str, t: torch.Tensor, shape=None) -> None:
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
+               shape=None) -> None:
+    """check_cuda_f32 for a kernel argument of any dtype (the bf16 streams
+    of the bf16 policy's kernels)."""
+    if (t.is_cuda and t.dtype is dtype and t.is_contiguous()
+            and (shape is None or t.shape == shape)):
+        return
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                     f"got {tuple(t.shape)}")
 
 
 def pointer_array(tensors) -> ctypes.Array:

@@ -102,6 +102,40 @@ def global_keys(B: int, nW: int, N: int, NP: int, device=None
 
 # ---- plain versions ---------------------------------------------------------
 
+LOGIT_CAP = 80.0   # JAX fusion_block._LOGIT_CAP: the mm16 softmaxes' cap
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest even) and widened to float32: the
+    operand rounding of the bf16 policy's products (JAX ``mm16``)."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def gelu_grad(u: torch.Tensor) -> torch.Tensor:
+    """d/du of the exact (erf) GELU."""
+    return (0.5 * (1.0 + torch.erf(u * 0.7071067811865476))
+            + u * torch.exp(-0.5 * u * u) * 0.3989422804014327)
+
+
+def ln_parts(a: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+             eps: float = LN_EPS):
+    """(LN(a), xh, r): two-pass LayerNorm with its normalised rows and
+    rsqrt (JAX ``_ln_fwd``)."""
+    mu = a.mean(dim=-1, keepdim=True)
+    xc = a - mu
+    r = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xh = xc * r
+    return xh * g + b, xh, r
+
+
+def ln_bwd(gin: torch.Tensor, xh: torch.Tensor, r: torch.Tensor,
+           gamma: torch.Tensor) -> torch.Tensor:
+    """dL/d(pre-LN row) from dL/d(LN out) (JAX ``_ln_bwd``)."""
+    dxh = gin * gamma
+    return r * (dxh - dxh.mean(dim=-1, keepdim=True)
+                - xh * (dxh * xh).mean(dim=-1, keepdim=True))
+
+
 def bias_from_table(table: torch.Tensor, rel_idx: torch.Tensor,
                     heads: int) -> torch.Tensor:
     """(H, N, N) relative-position bias gathered from a ((2ws-1)^2, H)
@@ -226,11 +260,12 @@ def fusion_block_reference_backward(g, x, y, params, bias, mask=None,
 
 # ---- CUDA launches -----------------------------------------------------------
 
-def _check_streams(x, y, bias, mask, dp, cross: bool, B: int) -> None:
+def _check_streams(x, y, bias, mask, dp, cross: bool, B: int,
+                   stream=torch.float32) -> None:
     nW, N = x.shape[1], x.shape[2]
-    build.check_cuda_f32("x", x, x.shape)
+    build.check_cuda("x", x, stream, x.shape)
     if cross:
-        build.check_cuda_f32("y", y, x.shape)
+        build.check_cuda("y", y, stream, x.shape)
     build.check_cuda_f32("bias", bias, (bias.shape[0], N, N))
     if mask is not None:
         build.check_cuda_f32("mask", mask, (nW, N, N))
@@ -301,8 +336,8 @@ def launch_backward(entry, dims, g, x, y, params, bias, mask, dp, seed,
     """Launch fusion-block backward entry point ``entry`` (K2/K3's or K7's,
     shapes already checked); ``dims`` are its stream dimensions. Returns
     (dx, dy or None, dbias, dparams)."""
-    build.check_cuda_f32("g", g, x.shape)
-    build.check_cuda_f32("x2r", x2r, x.shape)
+    build.check_cuda("g", g, x.dtype, x.shape)
+    build.check_cuda("x2r", x2r, x.dtype, x.shape)
     attn_rate, drop_rate = rates if training else (0.0, 0.0)
     lib = build.library()
     n_grad = lib.value("fusion_block_grad_floats", int(cross), N, C, H, Ch)

@@ -21,6 +21,10 @@ import torch
 from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import load_checkpoint
 from multimodal_neuroimage_tpu_torch.data.loader import collate, item_for
 from multimodal_neuroimage_tpu_torch.models.registry import create_model
+from multimodal_neuroimage_tpu_torch.nn.swinfusion import set_compute_policy
+from multimodal_neuroimage_tpu_torch.train.state import (check_compute_dtype,
+                                                         flatten_parameters,
+                                                         forward_at, weights_at)
 
 HEADS = ("binary_classification", "regression")
 MODEL_INPUTS = ("fmri_sequence", "fmri_raw_sequence",
@@ -31,11 +35,11 @@ MODEL_INPUTS = ("fmri_sequence", "fmri_raw_sequence",
 def check_supported(cfg) -> None:
     """Refuse configurations the port does not run yet, rather than
     quietly running something else."""
-    if cfg.compute_dtype != "float32":
+    if cfg.compute_dtype == "bfloat16" and cfg.dataset_name == "hcp":
         raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port runs float32 only;"
-            f" the bf16 policy (f32 BERT stream + bf16 matmuls) is ROADMAP "
-            f"N1")
+            "compute_dtype='bfloat16' on HCP: its T = 1201 layers take the "
+            "K6 route, whose bf16 form (bf16 streams through K6) is ROADMAP "
+            "N8; HCP runs float32")
     # HCP items never take the device FIR gear (JAX data/datasets.py:83-89)
     if cfg.preprocess != "host" and cfg.dataset_name != "hcp":
         raise NotImplementedError(
@@ -46,18 +50,20 @@ def check_supported(cfg) -> None:
 def make_predict_step(model: torch.nn.Module, compute_dtype: str = "float32",
                       device: str = "cuda"):
     """Inference forward returning only the prediction heads (no losses, so
-    unlabeled batches work). ``batch`` maps input names to arrays."""
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: float32 only (ROADMAP N1)")
+    unlabeled batches work) at ``compute_dtype`` (train/state.py
+    ``bf16_weights`` and ``forward_at``: at bf16 the parameters rounded and
+    the inputs cast to bf16, the heads widened to float32). ``batch`` maps input names to arrays."""
+    check_compute_dtype(compute_dtype)
     model.eval()
 
     @torch.no_grad()
     def predict_step(batch: Mapping) -> Dict[str, torch.Tensor]:
+        set_compute_policy(compute_dtype)
         inputs = {k: torch.as_tensor(np.asarray(batch[k], np.float32),
                                      device=device)
                   for k in MODEL_INPUTS if k in batch}
-        out = model(inputs)
+        with weights_at(model, compute_dtype):
+            out = forward_at(model, inputs, compute_dtype)
         return {k: out[k].float() for k in HEADS if k in out}
 
     return predict_step
@@ -81,6 +87,9 @@ class Predictor:
         self.model = create_model(cfg)
         self.model.load_state_dict(ckpt["state_dict"])
         self.model.to(device)
+        if cfg.compute_dtype == "bfloat16":
+            # one buffer, rounded and restored as one tensor each step
+            flatten_parameters(self.model)
         self.threshold = float(ckpt["metadata"].get("val_threshold") or 0.5)
         self.head = ("regression" if cfg.fine_tune_task == "regression"
                      else "binary_classification")

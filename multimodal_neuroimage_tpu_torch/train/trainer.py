@@ -18,7 +18,10 @@ epoch)``, and every dropout seed / DropPath factor from one host
 Not here yet, each with its ROADMAP item: on-disk cohorts and
 ``DataPipeline`` (N5), auto-resume and ``partial_restore`` phase chaining
 (M5), Optuna, the writer and grad-norm logging, the NaN audit (M13),
-multi-GPU (M11), bf16 (N1), the device FIR gear (N2).
+multi-GPU (M11), HCP at bf16 (N8), the device FIR gear (N2).
+``cfg.compute_dtype`` reaches the train, eval and predict steps (the bf16
+policy of train/state.py); the float32 masters, checkpoints and K5 are the
+same under either policy.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Profile one training path of the PyTorch port on one CUDA card.
 
 Run from the repository root: ``python3 profile_step.py hcp`` (or
-``flagship``, optionally with a batch size and a fusion layout:
-``python3 profile_step.py flagship 16 bp``). It builds the path's
+``flagship``, optionally with a batch size, a fusion layout and a compute
+dtype: ``python3 profile_step.py flagship 16 bp bfloat16``). It builds the path's
 ``Trainer`` on the synthetic cohort that ``chip_smoke.py`` trains (same
-seed and widths; the flagship at batch 4 and the std layout unless told
-otherwise), warms up 3 steps, then prints:
+seed and widths; the flagship at batch 4, the std layout and float32
+unless told otherwise), warms up 3 steps, then prints:
 
 - the host split of a step: median of 10 steps with a CUDA synchronise after
   the forward (loss included), after the backward and after the optimizer;
@@ -33,14 +33,14 @@ import torch
 import chip_smoke as smoke
 
 
-def _trainer(path: str, folder: str, batch: int):
+def _trainer(path: str, folder: str, batch: int, dtype: str):
     from multimodal_neuroimage_tpu_torch.train.trainer import Trainer
     rng = np.random.default_rng(smoke.SEED)
     if path == "hcp":
         cfg = smoke._hcp_cfg()
         records = smoke._hcp_cohort(rng, smoke.N_TRAIN, 0)
     else:
-        cfg = smoke._flagship_cfg(batch_size=batch)
+        cfg = smoke._flagship_cfg(batch_size=batch, compute_dtype=dtype)
         records = smoke._cohort(rng, max(smoke.N_TRAIN, 2 * batch), 0)
     return Trainer(cfg, records, records[:cfg.batch_size], device="cuda",
                    experiment_folder=folder)
@@ -50,8 +50,12 @@ def _host_split(trainer, batches):
     """(forward, backward, optimizer) ms medians over 10 steps."""
     from multimodal_neuroimage_tpu_torch.nn.common import full_f32
     from multimodal_neuroimage_tpu_torch.train.losses import compute_losses
-    from multimodal_neuroimage_tpu_torch.train.state import batch_to_device
+    from multimodal_neuroimage_tpu_torch.train.state import (batch_to_device,
+                                                             forward_at,
+                                                             round_grads,
+                                                             weights_at)
     model, opt = trainer.model, trainer.optimizer
+    dtype = trainer.cfg.compute_dtype
     split = []
     for i in range(10):
         model.train()
@@ -59,12 +63,14 @@ def _host_split(trainer, batches):
         t0 = time.perf_counter()
         inputs = batch_to_device(batches[i % len(batches)], "cuda")
         opt.zero_grad()
-        with full_f32():
-            out = model(inputs, generator=trainer.generator)
+        with full_f32(), weights_at(model, dtype):
+            out = forward_at(model, inputs, dtype, trainer.generator)
             loss = compute_losses(out, inputs, trainer.loss_specs)["total"]
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             loss.backward()
+        if dtype == "bfloat16":
+            round_grads(opt.grads)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         opt.step()
@@ -78,9 +84,11 @@ def main() -> int:
     path = sys.argv[1] if len(sys.argv) > 1 else "hcp"
     batch = int(sys.argv[2]) if len(sys.argv) > 2 else smoke.BATCH
     layout = sys.argv[3] if len(sys.argv) > 3 else "std"
-    if path not in ("hcp", "flagship") or layout not in ("std", "bp"):
-        print(f"usage: {sys.argv[0]} [hcp|flagship [batch [std|bp]]]",
-              file=sys.stderr)
+    dtype = sys.argv[4] if len(sys.argv) > 4 else "float32"
+    if (path not in ("hcp", "flagship") or layout not in ("std", "bp")
+            or dtype not in ("float32", "bfloat16")):
+        print(f"usage: {sys.argv[0]} [hcp|flagship [batch [std|bp "
+              f"[float32|bfloat16]]]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device; nothing was run", file=sys.stderr)
@@ -97,7 +105,7 @@ def main() -> int:
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as folder, \
             smoke._layout(layout):
-        trainer = _trainer(path, folder, batch)
+        trainer = _trainer(path, folder, batch, dtype)
         batches = [b for b, _ in trainer.batches("train")]
         for i in range(3):
             trainer.train_step(batches[i % len(batches)], trainer.generator)
@@ -120,7 +128,7 @@ def main() -> int:
     launches = sum(e.count for e in device) / n
     bs = trainer.cfg.batch_size
     step = fwd + bwd + opt
-    name = path if path == "hcp" else f"{path} ({layout} layout)"
+    name = path if path == "hcp" else f"{path} ({layout} layout, {dtype})"
     print(f"{name} training step, batch {bs}: host split forward {fwd:.3f} "
           f"ms, backward {bwd:.3f} ms, optimizer {opt:.3f} ms (medians of "
           f"10 synchronised steps, sum {step:.3f} ms); device busy "

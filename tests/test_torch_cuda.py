@@ -662,6 +662,11 @@ GRAD_REL = 1e-3
 STD_PATH = ("K1", "K2", "K3", "K4")
 
 
+def _f32_form(kernel: str) -> bool:
+    """A float32 kernel form (not the bf16 policy's K1 mm16 / K7 bf16)."""
+    return not kernel.endswith(("mm16", "bf16"))
+
+
 def test_every_parameter_gets_a_kernel_gradient_on_the_card(dev):
     """The autograd repair on the card: a training forward (dropout on)
     runs the forward kernels, backward runs the backward kernels, every
@@ -687,7 +692,7 @@ def test_every_parameter_gets_a_kernel_gradient_on_the_card(dev):
         if device.type == "cuda":
             counts = ops.launches()
     assert all(n > 0 for k, n in counts.items()
-               if k.startswith(STD_PATH)), counts
+               if k.startswith(STD_PATH) and _f32_form(k)), counts
     # T = 33: the K1 route; the std layout: no K7
     assert not any(n for k, n in counts.items()
                    if k.startswith(("K6", "K7", "K8"))), counts
@@ -734,7 +739,8 @@ def test_bp_layout_with_attention_dropout_on_the_card_matches_the_cpu(
         models[device.type] = model
         if device.type == "cuda":
             counts = ops.launches()
-    on = [k for k in counts if k.startswith(("K1", "K4", "K7"))]
+    on = [k for k in counts
+          if k.startswith(("K1", "K4", "K7")) and _f32_form(k)]
     assert len(on) == 8 and all(counts[k] > 0 for k in on), counts
     assert not any(n for k, n in counts.items() if k not in on), counts
     np.testing.assert_allclose(losses["cuda"].item(), losses["cpu"].item(),
@@ -803,7 +809,8 @@ def test_predictor_on_the_card_matches_the_cpu(dev, tmp_path):
     ops.reset_launches()
     got = Predictor(cfg, ckpt, reqs, device="cuda").predict()
     forward = {k: n for k, n in ops.launches().items()
-               if "backward" not in k and k.startswith(STD_PATH)}
+               if "backward" not in k and k.startswith(STD_PATH)
+               and _f32_form(k)}
     assert len(forward) == 4 and all(n > 0 for n in forward.values()), \
         ops.launches()
     assert sum(ops.launches().values()) == sum(forward.values()), \
@@ -918,3 +925,236 @@ def test_hcp_training_step_on_the_card_matches_the_cpu(dev):
         if stable.any():
             assert diff[stable].max() <= 1e-5, name
         assert diff.max() <= 2 * lr + 1e-5, name
+
+
+# ---- the bf16 policy's kernels: K1's mm16 form, K7 on bf16 streams ------------
+#
+# Both sides round the same operands to bf16 in other orders of float32
+# sums, so a value can land on the other side of a bf16 rounding boundary
+# (2^-8 relative) and carry that step on: K1's float32 output |kernel -
+# plain| <= 1e-2 + 2^-7 |plain|; K7's bf16 outputs (the residual plus a
+# branch that carries such a step at the branch's scale, then rounded to
+# bf16) and every gradient within 1e-2 of their tensor's max-abs, the key
+# bias's (zero in exact arithmetic) at the scale of the key weight's
+# (chip_smoke.py ATOL16, RTOL16, REL16).
+ATOL16, RTOL16, REL16 = 1e-2, 2.0 ** -7, 1e-2
+
+
+def _close16(got, want, what=""):
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    bound = ATOL16 + RTOL16 * want.float().abs()
+    assert torch.isfinite(got).all() and (err <= bound).all(), (
+        what, err.max().item())
+
+
+def _close_rel16(got, want, what="", scale=None):
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().item() if scale is None else scale
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got).all() and err <= REL16 * scale, (what, err,
+                                                                scale)
+
+
+def _k1_params16(gen, H, F, dev):
+    p = (sum((_lin(gen, H, H) for _ in range(4)), []) + _ln(gen, H)
+         + _lin(gen, F, H) + _lin(gen, H, F) + _ln(gen, H))
+    return tuple(t.to(torch.bfloat16).float().to(dev) for t in p)
+
+
+@pytest.mark.parametrize("B,T,H,heads,F,t_valid", [
+    (4, 369, 84, 12, 3072, 369), (16, 369, 84, 12, 3072, 369),
+    (3, 45, 28, 4, 96, 30)])
+def test_bert_layer_mm16_kernels(dev, B, T, H, heads, F, t_valid):
+    """K1's mm16 form forward (inference) and backward (dropout 0.1) against
+    its plain versions: the flagship's full width at batches 4 and 16, and a
+    ragged case (odd head dim, keys masked past t_valid, partial tiles)."""
+    gen = torch.Generator().manual_seed(B * T)
+    p = _k1_params16(gen, H, F, dev)
+    x, g = (_rand(gen, B, T, H).to(dev) for _ in "xg")
+    before = bl.bert_layer_call16.launches
+    got = bl.bert_layer_call(x, p, heads, t_valid, mm16=True)
+    assert bl.bert_layer_call16.launches == before + 1
+    _close16(got, bl.bert_layer_reference(x, p, heads, t_valid, mm16=True),
+             "forward")
+    seed, rates = 77, (0.1, 0.1)
+    _, resid = bl._launch_forward(x, p, heads, t_valid, seed, rates, True,
+                                  True, True)
+    before = bl.bert_layer_backward16.launches
+    dx, dps = bl.bert_layer_backward16(g, x, p, resid, heads, t_valid, seed,
+                                       rates, True)
+    assert bl.bert_layer_backward16.launches == before + 1
+    wdx, wdps = bl.bert_layer_reference_backward16(g, x, p, heads, t_valid,
+                                                   seed, rates, True)
+    _close_rel16(dx, wdx, "dx")
+    for i, (a, b) in enumerate(zip(dps, wdps)):
+        _close_rel16(a, b, f"dparams[{i}]",
+                     wdps[2].abs().max().item() if i == 3 else None)
+
+
+def _fusion_params16(gen, C, cross, dev):
+    p = (_ln(gen, C) + (_ln(gen, C) + _lin(gen, C, C) + _lin(gen, 2 * C, C)
+                        if cross else _lin(gen, 3 * C, C))
+         + _lin(gen, C, C) + _ln(gen, C) + _lin(gen, 4 * C, C)
+         + _lin(gen, C, 4 * C))
+    return tuple(t.to(torch.bfloat16).float().to(dev) for t in p)
+
+
+@pytest.mark.parametrize("B,shift", [(16, 0), (16, 3), (3, 3)])
+@pytest.mark.parametrize("cross", [False, True])
+def test_fusion_block_bp_bf16_kernels(dev, monkeypatch, B, shift, cross):
+    """K7 on bf16 streams (mm16 products) at the flagship's window shapes,
+    forward and backward with dropout and DropPath on, against the bf16
+    plain versions: batch 16 (two groups of 8) and a ragged count of 3
+    subjects (one group, fewer than the backward's four windows in
+    flight)."""
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
+    monkeypatch.delenv("FUSION_BP_GROUP", raising=False)
+    gen = torch.Generator().manual_seed(B + shift + cross)
+    C, H, N, nW = 12, 6, 36, 196
+    G = fbp.group_size(B)
+    params = _fusion_params16(gen, C, cross, dev)
+    bias = _rand(gen, H, N, N, scale=0.5).to(dev)
+    m = shift_attn_mask(84, 84, 6, shift)
+    mask = None if m is None else torch.from_numpy(m).to(dev)
+    x, y, g = (fbp.to_groups(_rand(gen, B, nW, N, C), G).contiguous()
+               .to(dev).to(torch.bfloat16) for _ in range(3))
+    y = y if cross else None
+    dp = ((torch.rand(B, 2, generator=gen) > 0.2).float() * 1.25).to(dev)
+    seed, rates = 5, (0.1, 0.1)
+    counter = (fbp.fused_cross_fusion_block_bp16 if cross
+               else fbp.fused_fusion_block_bp16)
+    before = counter.launches
+    out, x2r = fbp._launch_forward(x, y, params, bias, mask, dp, seed, rates,
+                                   True, True, cross, G)
+    assert counter.launches == before + 1
+    assert out.dtype == x2r.dtype == torch.bfloat16
+    want, want_x2r = fbp.fusion_block_bp_reference16(
+        x, params, bias, mask, dp, seed, rates, True, y, G)
+    _close_rel16(out, want, "out")
+    _close_rel16(x2r, want_x2r, "x2r")
+    counter = (fbp.fused_cross_fusion_block_bp_backward16 if cross
+               else fbp.fused_fusion_block_bp_backward16)
+    before = counter.launches
+    got = fbp._backward(g, x, y, params, bias, mask, dp, seed, rates, True,
+                        x2r, cross, G)
+    assert counter.launches == before + 1
+    ref = fbp.fusion_block_bp_reference_backward16(
+        g, x, y, params, bias, mask, dp, seed, rates, True, cross, G)
+    assert got[0].dtype == torch.bfloat16
+    _close_rel16(got[0], ref[0], "dx")
+    if cross:
+        _close_rel16(got[1], ref[1], "dy")
+    _close_rel16(got[2], ref[2], "dbias")
+    for i, (a, b) in enumerate(zip(got[3], ref[3])):
+        _close_rel16(a, b, f"dparams[{i}]")
+
+
+def test_bf16_kernels_repeat_bitwise(dev):
+    """Two calls of each bf16-policy backward give the same bits (ordered
+    partial sums, no float atomics)."""
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
+    gen = torch.Generator().manual_seed(9)
+    p = _k1_params16(gen, 84, 3072, dev)
+    x, g = (_rand(gen, 4, 369, 84).to(dev) for _ in "xg")
+    _, resid = bl._launch_forward(x, p, 12, 369, 3, (0.1, 0.1), True, True,
+                                  True)
+    a = bl.bert_layer_backward16(g, x, p, resid, 12, 369, 3, (0.1, 0.1), True)
+    b = bl.bert_layer_backward16(g, x, p, resid, 12, 369, 3, (0.1, 0.1), True)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(u, v) for u, v in zip(a[1], b[1]))
+    params = _fusion_params16(gen, 12, False, dev)
+    bias = _rand(gen, 6, 36, 36, scale=0.5).to(dev)
+    xg, gg = (fbp.to_groups(_rand(gen, 16, 196, 36, 12), 8).contiguous()
+              .to(dev).to(torch.bfloat16) for _ in "xg")
+    dp = torch.full((16, 2), 1.0, device=dev)
+    _, x2r = fbp._launch_forward(xg, None, params, bias, None, dp, 3,
+                                 (0.1, 0.1), True, True, False, 8)
+    a, b = (fbp._backward(gg, xg, None, params, bias, None, dp, 3, (0.1, 0.1),
+                          True, x2r, False, 8) for _ in "ab")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+    assert all(torch.equal(u, v) for u, v in zip(a[3], b[3]))
+
+
+def test_bf16_calls_launch_or_raise(dev):
+    """A bf16 call on the card launches its kernel or raises: K7 takes bf16
+    streams (its bf16 form launches), K2/K3 and K1 take float32 streams only
+    (K1's bf16 form runs on a float32 stream), and no wrapper widens a bf16
+    stream quietly or falls back to its plain version."""
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
+    gen = torch.Generator().manual_seed(4)
+    params = _fusion_params16(gen, 12, False, dev)
+    bias = torch.zeros(6, 36, 36, device=dev)
+    xw = torch.zeros(2, 4, 36, 12, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        fb.fused_fusion_block(xw, params, bias)
+    before = fbp.fused_fusion_block_bp16.launches
+    out = fbp.fused_fusion_block_bp(fbp.to_groups(xw, 2).contiguous(), params,
+                                    bias, group=2)
+    assert out.dtype == torch.bfloat16
+    assert fbp.fused_fusion_block_bp16.launches == before + 1
+    with pytest.raises(TypeError, match="float16"):
+        fbp.fused_fusion_block_bp(fbp.to_groups(xw, 2).contiguous().half(),
+                                  params, bias, group=2)
+    p = _k1_params16(gen, 28, 64, dev)
+    x = torch.zeros(1, 9, 28, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        bl.bert_layer_call(x, p, 4, 9, mm16=True)
+
+
+@pytest.mark.parametrize("layout", ["std", "bp"])
+def test_tiny_bf16_training_step_on_the_card_matches_the_cpu(dev, layout,
+                                                             monkeypatch):
+    """One training step of the tiny flagship at compute_dtype="bfloat16" on
+    the card (K1 mm16; K2/K3 or K7 bf16) against the same step on the CPU
+    through the plain versions, from the same weights, batch and generator
+    state: every kernel of the layout's bf16 path launches; loss within
+    5e-2; each gradient a bf16 value widened, within 5e-2 (SwinV2 head) or
+    0.5 (backbone, fMRI embedder) of its component's largest gradient (the
+    backbone amplifies bf16 rounding steps; chip_smoke.py GRAD16)."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.nn import swinfusion
+    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
+    from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
+                                                             make_train_step)
+    monkeypatch.setattr(swinfusion, "_LAYOUT", layout)
+    cfg = _tiny_cfg()
+    specs = active_losses(cfg.task, cfg.fine_tune_task)
+    batch = _tiny_batch(cfg)
+    models, losses = {}, {}
+    for device in (dev.type, "cpu"):
+        model = _tiny_model(cfg, device)
+        opt = create_optimizer("AdamW", model.parameters(), lambda t: 1e-3,
+                               cfg.weight_decay)
+        step = make_train_step(model, specs, opt, "bfloat16", device)
+        ops.reset_launches()
+        losses[device] = step(batch, torch.Generator().manual_seed(3))[0]
+        if device == "cuda":
+            counts = ops.launches()
+            path = (["K1 bert_layer mm16", "K1 bert_layer backward mm16",
+                     "K4 window_attention", "K5 fused_adam"]
+                    + (["K7 fusion_block_bp bf16",
+                        "K7 fusion_block_bp backward bf16",
+                        "K7 cross_fusion_block_bp bf16",
+                        "K7 cross_fusion_block_bp backward bf16"]
+                       if layout == "bp" else
+                       ["K2 fusion_block", "K3 cross_fusion_block"]))
+            assert all(counts[k] for k in path), counts
+            assert counts["K1 bert_layer"] == 0, counts
+        models[device] = model
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(losses["cuda"]["total"].item(),
+                               losses["cpu"]["total"].item(), rtol=5e-2,
+                               atol=5e-2)
+    want = dict(models["cpu"].named_parameters())
+    scale = {}
+    for name, q in want.items():
+        part = name.split(".")[0]
+        scale[part] = max(scale.get(part, 0.0), q.grad.abs().max().item())
+    share = {"swin": 5e-2, "fusion": 0.5, "fmri_embed": 0.5}
+    for name, p in models["cuda"].named_parameters():
+        part = name.split(".")[0]
+        g = p.grad.cpu()
+        assert torch.equal(g, g.to(torch.bfloat16).float()), name
+        err = (g - want[name].grad).abs().max().item()
+        assert err <= share[part] * scale[part], (name, err, scale[part])

@@ -167,7 +167,7 @@ def test_checkpoint_roundtrip_and_latest(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"compute_dtype": "bfloat16"}, "bf16 policy"),
+    ({"compute_dtype": "bfloat16", "dataset_name": "hcp"}, "N8"),
     ({"preprocess": "device"}, "FIR gear"),
     ({"preprocess": "native"}, "FIR gear"),
 ])

@@ -204,5 +204,23 @@ def test_optimizer_refuses_what_it_does_not_run(change, match):
 
 
 def test_train_step_refuses_bf16():
-    with pytest.raises(NotImplementedError, match="N1"):
-        make_train_step(torch.nn.Linear(2, 2), {}, None, "bfloat16", "cpu")
+    """The bf16 policy runs the flagship (tests/test_torch_bf16.py); a bf16
+    stream on the K6 route (HCP's T = 1201 layers) has no kernel form yet
+    and refuses, naming its ROADMAP item; a dtype other than float32 and
+    bfloat16 refuses when the step is built."""
+    from multimodal_neuroimage_tpu_torch.models.registry import create_model
+    hcp = Config(step=1, task="2DBERT", dataset_name="hcp", target="sex",
+                 compute_dtype="bfloat16", transformer_hidden_layers=1,
+                 bert_intermediate_size=32, sequence_length=648,
+                 batch_size=2).validate()
+    model = create_model(hcp)
+    opt = create_optimizer("adam", model.parameters(), lambda t: 1e-3, 0.0)
+    step = make_train_step(model, active_losses(hcp.task,
+                                                hcp.fine_tune_task),
+                           opt, "bfloat16", "cpu")
+    batch = {"fmri_sequence": np.zeros((2, 648, 22), np.float32),
+             "target": np.asarray([0.0, 1.0], np.float32)}
+    with pytest.raises(NotImplementedError, match="N8"):
+        step(batch, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="float16"):
+        make_train_step(torch.nn.Linear(2, 2), {}, None, "float16", "cpu")
