@@ -56,14 +56,28 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    and 16 (std and bp), with peak memory. The bf16 tolerances against
    plain versions and the CPU are stated at their constants.
 6. The HCP phase-1 ``TransformerNet`` (22 ROIs x 1200 TRs + CLS, 16 layers,
-   2 heads, FFN 3072; every layer on the K6 route): the same four phases
-   on a synthetic HCP cohort (series of 900-1200 TRs, 16 train and 8 val
-   subjects, batch 8, 2 epochs). K6 forward must launch 16 times per
-   forward pass and K6 backward 16 times per backward pass, K5 once per
-   step, and no other kernel. Also times the predict step.
-7. Prints one JSON line of per-kernel results (launches by path: flagship,
-   flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, dot_shapes) and,
-   last, the ok line.
+   2 heads, FFN 3072; every layer on the K6 route) in float32: the same
+   four phases on a synthetic HCP cohort (series of 900-1200 TRs, 16 train
+   and 8 val subjects, batch 8, 2 epochs). K6 forward must launch 16 times
+   per forward pass and K6 backward 16 times per backward pass, K5 once
+   per step, and no other kernel. Also times the predict step.
+7. HCP phase 1 at its default bf16 policy (``compute_dtype`` left at
+   ``Config``'s default): K6's bf16 form first alone at HCP shapes (bf16
+   q/k/v, dropout 0 and 0.1, against its plain versions, beside
+   ``scaled_dot_product_attention`` on the same bf16 tensors, whose
+   backend is printed; bounds with q k^T and dO v^T at the bf16 rate, the
+   other products and the exponentials at the float32 rate); then the same
+   cohort through a 2-epoch ``Trainer`` run and serving, exactly 16 bf16 K6
+   forwards a pass, 16 bf16 K6 backwards and one K5 a step and no float32
+   K6; one step card vs CPU; float32 and bf16 steps timed in turns with
+   peak memory.
+8. The flagship at its full ``Config`` defaults (bf16 and the ``device``
+   FIR gear): the card's band split of the val subjects against the host
+   split within 2e-4 and both gears' times; a 1-epoch ``Trainer`` run
+   (exactly the bf16 flagship's kernels) and its serving.
+9. Prints one JSON line of per-kernel results (launches by path: flagship,
+   flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, hcp_bf16,
+   flagship_defaults, dot_shapes) and, last, the ok line.
 
 Any failed phase raises, so the exit code is non-zero and no ok line is
 printed. Without a CUDA card it exits with code 2 before doing anything;
@@ -73,6 +87,7 @@ without the package beside it, it fails at import.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -156,6 +171,20 @@ BP16_STEP = {"K1 bert_layer mm16": 32, "K1 bert_layer backward mm16": 32,
 # within a share of its component's largest gradient
 LOGIT16 = 5e-2
 GRAD16 = {"swin": 5e-2, "fusion": 0.5, "fmri_embed": 0.5}
+# the device FIR gear's bands on the card vs the host split (float64 scipy):
+# tests/test_filters.py's bound for the JAX package's gear
+FIR_ATOL = 2e-4
+# K6's bf16 form vs its plain version: both compute in float32 and round the
+# output (or dq/dk/dv) to bf16 once; a float32 sum taken in another order
+# can land on the neighbouring bf16 value: forward |err| <= K6_RTOL16 |want|
+# + K6_ATOL16 max|want|, gradients within K6_REL16 of their max-abs
+K6_RTOL16, K6_ATOL16, K6_REL16 = 2.0 ** -7, 1e-3, 1e-2
+# HCP card vs CPU at the bf16 policy: every layer keeps a bf16 stream (no
+# float32 stream on the K6 route), so a neighbouring-bf16 step in one
+# layer carries through the 16 layers; each gradient within a share of its
+# component's largest (measured on an H100: 2.4% for the encoder, 7.1% for
+# the 23 values of the head)
+GRAD16_HCP = {"transformer": 0.1, "regression_head": 0.25}
 # K8 chain vs its plain chain: |got - want| <= REL * max|want|; bf16: a score
 # the two summation orders leave on either side of a bf16 rounding boundary
 # rounds to neighbouring values before the context product
@@ -342,7 +371,11 @@ class Results:
                 "f32_form_ms": mean("f32"),
                 # K1 backward only: float64 errors of both GEMM routes
                 **{k: r[k] for k in ("float64_rel_err",
-                                     "simt_float64_rel_err") if k in r}}
+                                     "simt_float64_rel_err") if k in r},
+                # K6's bf16 form: the rates its bound counts, and the
+                # backend scaled_dot_product_attention took
+                **{k: r[k] for k in ("bound_rates", "library_backend")
+                   if k in r}}
 
 
 def _report(res, key, label, err, ms, plain_ms, ops, nbytes, src, rep,
@@ -857,6 +890,114 @@ def mha_kernels(gen, res: Results):
                 "mha_attention.cu", "attention.py:159", library)
 
 
+def _bound_k6_16(prod16: float, prod32: float, exps: float, nbytes: float):
+    """_bound for K6's bf16 form: the products of two bf16-valued operands
+    (q k^T, dO v^T) at the bf16 tensor rate, those with a float32 operand
+    (p v, p^T dO, ds k, ds^T q) and the exponentials at the float32 rate."""
+    t_ops = (prod16 / PEAK_BF16_OPS + (prod32 + exps) / PEAK_F32_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _sdpa_backend(fn) -> str:
+    """The device kernels one call of ``fn`` (a scaled_dot_product_attention
+    call) ran, by name, largest device time first: which backend PyTorch
+    picked for its inputs."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(),
+                  key=lambda e: -getattr(e, "device_time_total",
+                                         getattr(e, "cuda_time_total", 0)))
+    names = [e.key for e in rows
+             if getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0)) > 0][:3]
+    return "; ".join(n[:60] for n in names) or "no device kernel seen"
+
+
+def mha16_kernels(gen, res: Results):
+    """K6's bf16 form (HCP at the bf16 policy) at HCP shapes (B 8, 2 heads,
+    T 1201, head dim 11), bf16 q/k/v/dO, dropout 0 and 0.1, against its
+    plain versions on the same hash masks (bf16 in, float32 arithmetic,
+    rounded once). The yardstick is ``scaled_dot_product_attention`` on the
+    same bf16 tensors at rate 0 (backward: autograd through it), which the
+    port never calls; the backend it takes is printed."""
+    from multimodal_neuroimage_tpu_torch.ops import attention as att
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shape = (HCP_BATCH, 2, 1201, 11)
+    q, k, v, g = (torch.randn(shape, generator=gen).cuda()
+                  .to(torch.bfloat16) for _ in range(4))
+    q = (q.float() / 3.3125).to(torch.bfloat16)   # pre-scaled, as the layer
+    prod, exps = _attention_ops(q)                # 4 BH T^2 D, BH T^2
+    fwd_bound = _bound_k6_16(prod / 2, prod / 2, exps, _nbytes(q, k, v, q))
+    bwd_bound = _bound_k6_16(prod / 2, 3 * prod / 2, exps,
+                             _nbytes(q, k, v, g, q, k, v))
+    rates = "q k^T, dO v^T at 989 TFLOP/s (bf16); p v, p^T dO, ds k, " \
+            "ds^T q and exponentials at 67 TFLOP/s (f32)"
+    fwd_tol = f"rtol {K6_RTOL16} + {K6_ATOL16} * max|ref|"
+    backend = _sdpa_backend(lambda: sdpa(q, k, v, scale=1.0))
+    print(f"scaled_dot_product_attention on bf16 (8, 2, 1201, 11): {backend}")
+    for rate in (0.0, 0.1):
+        seed = 4243
+        out, out32, lse = att._launch_mha_forward16(q, k, v, seed, rate,
+                                                    True)
+
+        def fwd(rate=rate, seed=seed):
+            return att._launch_mha_forward16(q, k, v, seed, rate, False)[0]
+
+        def plain_fwd(rate=rate, seed=seed):
+            return att.mha_reference16(q, k, v, seed, rate)
+
+        def bwd(rate=rate, seed=seed, out32=out32, lse=lse):
+            return att.fused_attention_backward16(g, q, k, v, out32, lse,
+                                                  seed, rate)
+
+        want = plain_fwd().float()
+        torch.cuda.synchronize()
+        got = out.float()
+        err = _close(f"K6 bf16 forward rate {rate}", got, want,
+                     K6_ATOL16 * want.abs().max().item(), K6_RTOL16)
+        if not torch.equal(fwd(), out):
+            raise AssertionError("K6 bf16 forward: the inference launch "
+                                 "differs from the training launch")
+        ms, plain_ms, library = _call_times(
+            fwd, plain_fwd, None if rate else lambda: sdpa(q, k, v,
+                                                           scale=1.0))
+        _report(res, "K6 fused_attention bf16", f"rate {rate}", err, ms,
+                plain_ms, 0, 0, "mha_attention.cu", "attention.py:137",
+                library, tol=fwd_tol, bound=fwd_bound)
+        got = bwd()
+        want = att.mha_reference_backward16(g, q, k, v, seed, rate)
+        torch.cuda.synchronize()
+        errs = [_close_rel(f"K6 bf16 backward d{n} rate {rate}", a.float(),
+                           b.float(), K6_REL16, 0.0)
+                for n, a, b in zip("qkv", got, want)]
+        fn = None
+        if not rate:   # autograd through SDPA, graph built once
+            _, fn = _plain_backward(lambda q_, k_, v_: sdpa(q_, k_, v_,
+                                                            scale=1.0),
+                                    (q, k, v), g)
+        # the plain backward alone (graph built once), rounded as the
+        # bf16 form's plain backward rounds
+        _, plain = _plain_backward(
+            lambda q_, k_, v_, rate=rate, seed=seed: att.mha_reference(
+                q_, k_, v_, seed, rate), (q.float(), k.float(), v.float()),
+            g.float())
+        ms, plain_ms, library = _call_times(
+            bwd, lambda plain=plain: [t.to(torch.bfloat16) for t in plain()],
+            fn, 10)
+        _report(res, "K6 fused_attention backward bf16", f"rate {rate}",
+                max(errs), ms, plain_ms, 0, 0, "mha_attention.cu",
+                "attention.py:159", library,
+                tol=f"{K6_REL16} * max|ref|", bound=bwd_bound)
+    for key in ("K6 fused_attention bf16", "K6 fused_attention backward bf16"):
+        res.rows[key]["bound_rates"] = rates
+        res.rows[key]["library_backend"] = backend
+
+
 def bp_kernels(gen, res: Results):
     """K7 forward and backward at the bp flagship's shapes (B 16, two groups
     of G = 8, 196 windows x 36 x 12, 6 heads; dropout 0.1 and DropPath)
@@ -1242,11 +1383,12 @@ def _hcp_cohort(rng, n, first):
 def _hcp_cfg(**kw):
     """Phase 1 on HCP at full width: validate() sets 22 ROIs, 1200 TRs and 2
     heads; batch 8, AdamW, lr 1e-3 and the step policy are the defaults.
-    ``preprocess`` stays at its default: HCP items take no FIR gear."""
+    ``preprocess`` and ``compute_dtype`` (bfloat16) stay at their defaults
+    unless given: HCP items take no FIR gear."""
     from multimodal_neuroimage_tpu_torch.config import Config
-    return Config(step=1, task="2DBERT", dataset_name="hcp", target="sex",
-                  compute_dtype="float32", nEpochs=2,
-                  experiment_title="hcp", seed=SEED, **kw).validate()
+    args = dict(step=1, task="2DBERT", dataset_name="hcp", target="sex",
+                nEpochs=2, experiment_title="hcp", seed=SEED)
+    return Config(**{**args, **kw}).validate()
 
 
 def _sign_stable_update_check(name, p_gpu, p_cpu, g_gpu, g_cpu, lr):
@@ -1406,6 +1548,7 @@ def _step_compare(cfg, batch, label, sides):
     loss_a = out[a][0]["total"].item()
     loss_b = out[b][0]["total"].item()
     bf16 = cfg.compute_dtype == "bfloat16"
+    shares = GRAD16_HCP if cfg.dataset_name == "hcp" else GRAD16
     tol = (LOGIT16, LOGIT16) if bf16 else (LOGIT_ATOL, LOGIT_RTOL)
     _close(f"{label} step loss", torch.tensor([loss_a]),
            torch.tensor([loss_b]), *tol)
@@ -1423,7 +1566,7 @@ def _step_compare(cfg, batch, label, sides):
             # each gradient against its component's largest (GRAD16)
             part = n.split(".")[0]
             e = _close_rel(f"grad {n}", ga, gb, 0.0,
-                           GRAD16[part] * scale[part])
+                           shares[part] * scale[part])
             worst[part] = max(worst.get(part, 0.0), e / scale[part])
             grad_err = max(grad_err, e)
         else:
@@ -1433,7 +1576,7 @@ def _step_compare(cfg, batch, label, sides):
                                          q.detach().cpu(), ga, gb, lr)
         upd_err, unstable = max(upd_err, e), unstable + u
         n_params += p.numel()
-    within = (f"every gradient within {GRAD16} of its component's largest "
+    within = (f"every gradient within {shares} of its component's largest "
               f"(worst share {worst})" if bf16 else
               f"every gradient within {GRAD_REL} * its max-abs")
     print(f"one {label} training step, {a} vs {b}: loss {loss_a:.6f} vs "
@@ -1651,6 +1794,107 @@ def flagship_bf16(rng, card, train_records, val_records):
     return counts, bp_counts
 
 
+def hcp_bf16(card, train_records, val_records):
+    """HCP phase 1 at its default bf16 policy (``compute_dtype`` left at
+    its default): every layer keeps a bf16 stream through K6's bf16 form. A
+    2-epoch ``Trainer`` run that launches exactly 16 bf16 K6 forwards a
+    pass, 16 bf16 K6 backwards and one K5 a step, and nothing else (no f32
+    K6); serving its checkpoint (16 bf16 K6 forwards a pass, logits vs the
+    CPU at the same policy); one training step card vs CPU (the same exact
+    launches); float32 and bf16 steps timed in turns with peak memory.
+    Returns the training run's launch counts."""
+    from multimodal_neuroimage_tpu_torch.ops import build
+    cfg = _hcp_cfg(experiment_title="hcp_bf16")
+    if cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"HCP's default compute dtype is "
+                             f"{cfg.compute_dtype}, expected bfloat16")
+    layers = cfg.transformer_hidden_layers
+    fwd16, bwd16 = "K6 fused_attention bf16", "K6 fused_attention backward bf16"
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        trainer, metrics, counts, wall = _train(
+            cfg, train_records, val_records, tmp, "HCP bf16")
+        steps = cfg.nEpochs * trainer.steps_per_epoch
+        passes = -(-len(val_records) // cfg.batch_size)
+        expect = {fwd16: layers * (steps + cfg.nEpochs * passes),
+                  bwd16: layers * steps, "K5 fused_adam": steps}
+        if counts != {k: expect.get(k, 0) for k in counts}:
+            raise AssertionError(f"HCP bf16 training launches {counts}, "
+                                 f"expected {expect} and no other kernel")
+        _print_run("HCP bf16", cfg, trainer, metrics, wall)
+        requests = [{k: r[k] for k in ("subject", "fmri")}
+                    for r in val_records]
+        serve = _serve(cfg, trainer.best_checkpoint(), requests, tmp,
+                       "HCP bf16", card)
+        if serve != {k: layers * passes if k == fwd16 else 0 for k in serve}:
+            raise AssertionError(f"HCP bf16 serving launches {serve}: "
+                                 f"expected {fwd16} {layers} x {passes} only")
+    batches = [b for b, _ in trainer.batches("train")]
+    del trainer
+    step = _step_compare(cfg, batches[0], "HCP bf16",
+                         (("card", "cuda", "std"), ("CPU", "cpu", "std")))
+    want = {k: {fwd16: layers, bwd16: layers, "K5 fused_adam": 1}.get(k, 0)
+            for k in step["card"]}
+    if step["card"] != want:
+        raise AssertionError(f"one HCP bf16 training step launched "
+                             f"{step['card']}, expected {want}")
+    print(f"launches in one HCP bf16 training step: {want}")
+    _time_dtypes(cfg, batches, (("std", "float32"), ("std", "bfloat16")),
+                 "HCP batch 8", card)
+    return counts
+
+
+def flagship_defaults(card, train_records, val_records):
+    """The flagship at its full ``Config`` defaults: compute_dtype
+    "bfloat16" and preprocess "device" (items carry the raw series, each
+    batch is band-split on the card by ``ops/fir.py``). The device gear's
+    bands of the val subjects against the host split within FIR_ATOL, each
+    gear's time; a 1-epoch ``Trainer`` run (exactly FLAGSHIP16_KERNELS) and
+    serving its checkpoint (logits vs the CPU at the same policy). Returns
+    the training run's launch counts."""
+    from multimodal_neuroimage_tpu_torch.config import Config
+    from multimodal_neuroimage_tpu_torch.data.loader import (
+        collate, device_preprocess, item_for)
+    from multimodal_neuroimage_tpu_torch.ops import build
+    cfg = Config(task="FuncStruct", dataset_name="multimodal",
+                 multimodality_type="cross_attention", target="sex",
+                 fine_tune_task="binary_classification", batch_size=BATCH,
+                 nEpochs=1, experiment_title="flagship_defaults",
+                 seed=SEED).validate()
+    if (cfg.compute_dtype, cfg.preprocess) != ("bfloat16", "device"):
+        raise AssertionError(f"the flagship's defaults are "
+                             f"{cfg.compute_dtype}, {cfg.preprocess}")
+    host = dataclasses.replace(cfg, preprocess="host")
+    t0 = time.perf_counter()
+    want, _ = collate([item_for(host)(r, host) for r in val_records])
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(val_records)
+    raw, _ = collate([item_for(cfg)(r, cfg) for r in val_records])
+    got = device_preprocess(raw, cfg, "cuda")
+    torch.cuda.synchronize()
+    errs = {k: _close(f"device gear {k}", got[k].cpu(),
+                      torch.from_numpy(want[k]), FIR_ATOL, 0.0)
+            for k in ("fmri_raw_sequence", "fmri_lowfreq_sequence",
+                      "fmri_ultralowfreq_sequence")}
+    four = {k: v[:BATCH] for k, v in raw.items()}
+    dev_ms = events_ms(lambda: device_preprocess(four, cfg, "cuda"), 10)
+    print(f"device FIR gear on the card vs the host split, {len(val_records)}"
+          f" subjects: max|err| {errs} (atol {FIR_ATOL}); device split "
+          f"{dev_ms:.3f} ms a batch of {BATCH} (raw batch copied in), host "
+          f"split {host_ms:.3f} ms a subject; card: {card}")
+    forward = [k for k in FLAGSHIP16_KERNELS
+               if "backward" not in k and "adam" not in k]
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        trainer, metrics, counts, wall = _train(
+            cfg, train_records, val_records, tmp, "flagship defaults")
+        _exact_path(counts, FLAGSHIP16_KERNELS, "defaults training run")
+        _print_run("flagship defaults", cfg, trainer, metrics, wall)
+        requests = [{k: r[k] for k in ("subject", "fmri", "struct")}
+                    for r in val_records]
+        serve = _serve(cfg, trainer.best_checkpoint(), requests, tmp,
+                       "flagship defaults", card)
+        _exact_path(serve, forward, "defaults serving run")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1682,6 +1926,7 @@ def main() -> int:
     forward_kernels(gen, results)
     backward_kernels(gen, results, n_params)
     mha_kernels(gen, results)
+    mha16_kernels(gen, results)
     bp_kernels(gen, results)
     bf16_kernels(gen, results)
     dot_counts = dot_shape_kernels(results)
@@ -1742,7 +1987,7 @@ def main() -> int:
                                                 val_records)
 
     # ---- the HCP phase-1 path: TransformerNet, every layer on K6 -----------
-    hcp = _hcp_cfg()
+    hcp = _hcp_cfg(compute_dtype="float32")
     if (hcp.intermediate_vec, hcp.sequence_length, hcp.num_heads_2DBert,
             hcp.batch_size, hcp.transformer_hidden_layers) != (
                 22, 1200, 2, HCP_BATCH, 16):
@@ -1781,11 +2026,20 @@ def main() -> int:
 
     # ---- (e) HCP training-step time ----------------------------------------
     _time_train_step(htrainer, "HCP", card)
+    del htrainer
+
+    # ---- HCP phase 1 at its default bf16 policy: K6's bf16 form -------------
+    hcp16_counts = hcp_bf16(card, hcp_train, hcp_val)
+
+    # ---- the flagship at its full Config defaults (bf16, device FIR gear) ----
+    defaults_counts = flagship_defaults(card, train_records, val_records)
 
     launches = {"flagship": train_counts, "flagship_bp": bp_counts,
                 "flagship_bf16": bf16_counts,
                 "flagship_bp_bf16": bp_bf16_counts,
-                "hcp": hcp_counts, "dot_shapes": dot_counts}
+                "hcp": hcp_counts, "hcp_bf16": hcp16_counts,
+                "flagship_defaults": defaults_counts,
+                "dot_shapes": dot_counts}
     kernels = [results.line(key, launches) for key in ops.kernels()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,19 @@
 // thread's partial sums over its share of rows are added across the four
 // threads of a row in a fixed butterfly order.
 //
+// The bf16 form (JAX's fused_attention on bf16 q/k/v, the HCP layers under
+// the bf16 policy) is the same kernels instantiated on bf16 storage: q, k,
+// v and dout are read as bf16 and widened to f32 on load, every sum,
+// exponential and accumulator is f32 (as _make_fwd_kernel /
+// _make_bwd_kernel upcast their blocks), and out, dq, dk, dv are rounded to
+// bf16 once, on store. The forward also writes an f32 copy of out for the
+// backward's delta: from the bf16 out, delta would carry its 2^-9 relative
+// rounding into ds = p (g - delta), whose cancellation amplifies it (JAX
+// sums g_p . p from the f32 p). q k^T and dout v^T have bf16-valued
+// operands on both sides, but p v, p^T dout, ds k and ds^T q each have an
+// f32 operand that a bf16 tensor-core product would round, so the bf16
+// form runs on the CUDA cores too.
+//
 // T need be a multiple of nothing: tail keys of the last tile never enter m
 // or l, tail rows are never written. The head dim is a template bound (16
 // or 64); shared-memory rows are padded to bound + 1 floats, so the four
@@ -50,18 +63,25 @@
 #define MHA_SPLIT 4     // threads that share one row
 #define MHA_THREADS (MHA_ROWS * MHA_SPLIT)
 
+// Storage of q, k, v, dout and the outputs: float (the f32 form) or
+// __nv_bfloat16 (the bf16 form), widened on load and rounded on store.
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // Stage rows [r0, r0 + MHA_TILE) of up to two (T, D) matrices of one (b, h)
 // into shared [MHA_TILE][MAXD + 1] arrays, zero past T and past D.
-template <int MAXD>
-__device__ __forceinline__ void stage_tile(const float* __restrict__ a, const float* __restrict__ b,
+template <int MAXD, typename S>
+__device__ __forceinline__ void stage_tile(const S* __restrict__ a, const S* __restrict__ b,
                                            float (*as)[MAXD + 1], float (*bs)[MAXD + 1], int r0,
                                            int T, int D) {
   for (int e = threadIdx.x; e < MHA_TILE * MAXD; e += blockDim.x) {
     const int r = e / MAXD, d = e % MAXD;
     const bool in = r0 + r < T && d < D;
     const size_t at = (size_t)(r0 + r) * D + d;
-    as[r][d] = in ? a[at] : 0.f;
-    bs[r][d] = in ? b[at] : 0.f;
+    as[r][d] = in ? ld(a + at) : 0.f;
+    bs[r][d] = in ? ld(b + at) : 0.f;
   }
 }
 
@@ -96,12 +116,14 @@ __device__ __forceinline__ void sum_split(float (&x)[MAXD]) {
     for (int d = 0; d < MAXD; ++d) x[d] += __shfl_xor_sync(MNT_FULL_MASK, x[d], off);
 }
 
-// grid (ceil(T / MHA_ROWS), B * H), MHA_THREADS threads.
-template <int MAXD>
+// grid (ceil(T / MHA_ROWS), B * H), MHA_THREADS threads. out32 (the bf16
+// form's f32 copy of out) and lse may be NULL.
+template <int MAXD, typename S>
 __global__ void __launch_bounds__(MHA_THREADS)
-    mha_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out,
-                       float* __restrict__ lse, int T, int D, Dropout drop) {
+    mha_forward_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                       const S* __restrict__ v, S* __restrict__ out,
+                       float* __restrict__ out32, float* __restrict__ lse, int T, int D,
+                       Dropout drop) {
   __shared__ float ks[MHA_TILE][MAXD + 1];
   __shared__ float vs[MHA_TILE][MAXD + 1];
   const int bh = blockIdx.y;
@@ -109,13 +131,13 @@ __global__ void __launch_bounds__(MHA_THREADS)
   const int i = blockIdx.x * MHA_ROWS + threadIdx.x / MHA_SPLIT;
   const bool valid = i < T;
   const size_t base = (size_t)bh * T * D;
-  const float* kb = k + base;
-  const float* vb = v + base;
+  const S* kb = k + base;
+  const S* vb = v + base;
 
   float qi[MAXD], acc[MAXD];
 #pragma unroll
   for (int d = 0; d < MAXD; ++d) {
-    qi[d] = valid && d < D ? q[base + (size_t)i * D + d] : 0.f;
+    qi[d] = valid && d < D ? ld(q + base + (size_t)i * D + d) : 0.f;
     acc[d] = 0.f;
   }
   const uint32_t hrow = (uint32_t)bh * (uint32_t)T + (uint32_t)i;
@@ -164,30 +186,36 @@ __global__ void __launch_bounds__(MHA_THREADS)
     const float inv = 1.f / l;
 #pragma unroll
     for (int d = 0; d < MAXD; ++d)
-      if (d < D) out[base + (size_t)i * D + d] = acc[d] * inv;
+      if (d < D) {
+        const float o = acc[d] * inv;
+        st(out + base + (size_t)i * D + d, o);
+        if (out32) out32[base + (size_t)i * D + d] = o;
+      }
     if (lse) lse[(size_t)bh * T + i] = m + logf(l);
   }
 }
 
-// delta[r] = dout[r] . out[r] over the B * H * T rows.
-__global__ void mha_delta_kernel(const float* __restrict__ out, const float* __restrict__ dout,
+// delta[r] = dout[r] . out[r] over the B * H * T rows (out in f32 in both
+// forms).
+template <typename S>
+__global__ void mha_delta_kernel(const float* __restrict__ out, const S* __restrict__ dout,
                                  float* __restrict__ delta, long long rows, int D) {
   for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x; r < rows;
        r += (long long)gridDim.x * blockDim.x) {
     float s = 0.f;
-    for (int d = 0; d < D; ++d) s = fmaf(dout[r * D + d], out[r * D + d], s);
+    for (int d = 0; d < D; ++d) s = fmaf(ld(dout + r * D + d), out[r * D + d], s);
     delta[r] = s;
   }
 }
 
 // dk, dv of MHA_ROWS keys of one (b, h), looping over every query.
 // grid (ceil(T / MHA_ROWS), B * H), MHA_THREADS threads.
-template <int MAXD>
+template <int MAXD, typename S>
 __global__ void __launch_bounds__(MHA_THREADS)
-    mha_backward_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ dout,
+    mha_backward_dkdv_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                             const S* __restrict__ v, const S* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta,
-                             float* __restrict__ dk, float* __restrict__ dv, int T, int D,
+                             S* __restrict__ dk, S* __restrict__ dv, int T, int D,
                              Dropout drop) {
   __shared__ float qs[MHA_TILE][MAXD + 1];
   __shared__ float gs[MHA_TILE][MAXD + 1];
@@ -203,8 +231,8 @@ __global__ void __launch_bounds__(MHA_THREADS)
   float kj[MAXD], vj[MAXD], ak[MAXD], av[MAXD];
 #pragma unroll
   for (int d = 0; d < MAXD; ++d) {
-    kj[d] = valid && d < D ? k[base + (size_t)j * D + d] : 0.f;
-    vj[d] = valid && d < D ? v[base + (size_t)j * D + d] : 0.f;
+    kj[d] = valid && d < D ? ld(k + base + (size_t)j * D + d) : 0.f;
+    vj[d] = valid && d < D ? ld(v + base + (size_t)j * D + d) : 0.f;
     ak[d] = av[d] = 0.f;
   }
 
@@ -245,20 +273,20 @@ __global__ void __launch_bounds__(MHA_THREADS)
 #pragma unroll
     for (int d = 0; d < MAXD; ++d)
       if (d < D) {
-        dk[base + (size_t)j * D + d] = ak[d];
-        dv[base + (size_t)j * D + d] = av[d];
+        st(dk + base + (size_t)j * D + d, ak[d]);
+        st(dv + base + (size_t)j * D + d, av[d]);
       }
   }
 }
 
 // dq of MHA_ROWS queries of one (b, h), looping over every key.
 // grid (ceil(T / MHA_ROWS), B * H), MHA_THREADS threads.
-template <int MAXD>
+template <int MAXD, typename S>
 __global__ void __launch_bounds__(MHA_THREADS)
-    mha_backward_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ dout,
+    mha_backward_dq_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                           const S* __restrict__ v, const S* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
-                           float* __restrict__ dq, int T, int D, Dropout drop) {
+                           S* __restrict__ dq, int T, int D, Dropout drop) {
   __shared__ float ks[MHA_TILE][MAXD + 1];
   __shared__ float vs[MHA_TILE][MAXD + 1];
   const int bh = blockIdx.y;
@@ -271,8 +299,8 @@ __global__ void __launch_bounds__(MHA_THREADS)
   float qi[MAXD], gi[MAXD], aq[MAXD];
 #pragma unroll
   for (int d = 0; d < MAXD; ++d) {
-    qi[d] = valid && d < D ? q[base + (size_t)i * D + d] : 0.f;
-    gi[d] = valid && d < D ? dout[base + (size_t)i * D + d] : 0.f;
+    qi[d] = valid && d < D ? ld(q + base + (size_t)i * D + d) : 0.f;
+    gi[d] = valid && d < D ? ld(dout + base + (size_t)i * D + d) : 0.f;
     aq[d] = 0.f;
   }
   const float li = valid ? lse[r] : 0.f;
@@ -305,7 +333,7 @@ __global__ void __launch_bounds__(MHA_THREADS)
   if (valid && sub == 0) {
 #pragma unroll
     for (int d = 0; d < MAXD; ++d)
-      if (d < D) dq[base + (size_t)i * D + d] = aq[d];
+      if (d < D) st(dq + base + (size_t)i * D + d, aq[d]);
   }
 }
 
@@ -313,18 +341,55 @@ static bool mha_shape_ok(int BH, int T, int D) {
   return BH >= 1 && BH <= 65535 && T >= 1 && D >= 1 && D <= 64;
 }
 
-// q, k, v, out: (B * H, T, D) contiguous f32; lse (B * H, T) or NULL.
-// Dropout at `rate` with `seed` (0 <= rate < 1). Returns the cudaError_t.
-extern "C" int mha_forward(const float* q, const float* k, const float* v, float* out, float* lse,
-                           int BH, int T, int D, int seed, double rate, cudaStream_t stream) {
+template <typename S>
+static int launch_forward(const S* q, const S* k, const S* v, S* out, float* out32, float* lse,
+                          int BH, int T, int D, int seed, double rate, cudaStream_t stream) {
   if (!mha_shape_ok(BH, T, D)) return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(seed, MHA_DRAW, rate);
   const dim3 grid((unsigned)((T + MHA_ROWS - 1) / MHA_ROWS), (unsigned)BH);
   if (D <= 16)
-    mha_forward_kernel<16><<<grid, MHA_THREADS, 0, stream>>>(q, k, v, out, lse, T, D, drop);
+    mha_forward_kernel<16, S><<<grid, MHA_THREADS, 0, stream>>>(q, k, v, out, out32, lse, T, D,
+                                                                drop);
   else
-    mha_forward_kernel<64><<<grid, MHA_THREADS, 0, stream>>>(q, k, v, out, lse, T, D, drop);
+    mha_forward_kernel<64, S><<<grid, MHA_THREADS, 0, stream>>>(q, k, v, out, out32, lse, T, D,
+                                                                drop);
   return (int)cudaGetLastError();
+}
+
+template <typename S>
+static int launch_backward(const S* q, const S* k, const S* v, const float* out, const S* dout,
+                           const float* lse, S* dq, S* dk, S* dv, float* delta, int BH, int T,
+                           int D, int seed, double rate, cudaStream_t stream) {
+  if (!mha_shape_ok(BH, T, D)) return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(seed, MHA_DRAW, rate);
+  const long long rows = (long long)BH * T;
+  long long blocks = (rows + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  mha_delta_kernel<S><<<(int)blocks, 256, 0, stream>>>(out, dout, delta, rows, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((T + MHA_ROWS - 1) / MHA_ROWS), (unsigned)BH);
+  if (D <= 16) {
+    mha_backward_dkdv_kernel<16, S><<<grid, MHA_THREADS, 0, stream>>>(q, k, v, dout, lse, delta,
+                                                                      dk, dv, T, D, drop);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    mha_backward_dq_kernel<16, S><<<grid, MHA_THREADS, 0, stream>>>(q, k, v, dout, lse, delta, dq,
+                                                                    T, D, drop);
+  } else {
+    mha_backward_dkdv_kernel<64, S><<<grid, MHA_THREADS, 0, stream>>>(q, k, v, dout, lse, delta,
+                                                                      dk, dv, T, D, drop);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    mha_backward_dq_kernel<64, S><<<grid, MHA_THREADS, 0, stream>>>(q, k, v, dout, lse, delta, dq,
+                                                                    T, D, drop);
+  }
+  return (int)cudaGetLastError();
+}
+
+// q, k, v, out: (B * H, T, D) contiguous f32; lse (B * H, T) or NULL.
+// Dropout at `rate` with `seed` (0 <= rate < 1). Returns the cudaError_t.
+extern "C" int mha_forward(const float* q, const float* k, const float* v, float* out, float* lse,
+                           int BH, int T, int D, int seed, double rate, cudaStream_t stream) {
+  return launch_forward<float>(q, k, v, out, nullptr, lse, BH, T, D, seed, rate, stream);
 }
 
 // The backward of mha_forward at the same seed and rate: out and lse are the
@@ -335,27 +400,27 @@ extern "C" int mha_backward(const float* q, const float* k, const float* v, cons
                             const float* dout, const float* lse, float* dq, float* dk, float* dv,
                             float* delta, int BH, int T, int D, int seed, double rate,
                             cudaStream_t stream) {
-  if (!mha_shape_ok(BH, T, D)) return (int)cudaErrorInvalidValue;
-  const Dropout drop = make_dropout(seed, MHA_DRAW, rate);
-  const long long rows = (long long)BH * T;
-  long long blocks = (rows + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  mha_delta_kernel<<<(int)blocks, 256, 0, stream>>>(out, dout, delta, rows, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((T + MHA_ROWS - 1) / MHA_ROWS), (unsigned)BH);
-  if (D <= 16) {
-    mha_backward_dkdv_kernel<16><<<grid, MHA_THREADS, 0, stream>>>(q, k, v, dout, lse, delta, dk,
-                                                                   dv, T, D, drop);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    mha_backward_dq_kernel<16><<<grid, MHA_THREADS, 0, stream>>>(q, k, v, dout, lse, delta, dq, T,
-                                                                 D, drop);
-  } else {
-    mha_backward_dkdv_kernel<64><<<grid, MHA_THREADS, 0, stream>>>(q, k, v, dout, lse, delta, dk,
-                                                                   dv, T, D, drop);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    mha_backward_dq_kernel<64><<<grid, MHA_THREADS, 0, stream>>>(q, k, v, dout, lse, delta, dq, T,
-                                                                 D, drop);
-  }
-  return (int)cudaGetLastError();
+  return launch_backward<float>(q, k, v, out, dout, lse, dq, dk, dv, delta, BH, T, D, seed, rate,
+                                stream);
+}
+
+// The bf16 form: q, k, v, out (B * H, T, D) contiguous bf16; out32 (B * H,
+// T, D) f32 (the backward's copy of out) and lse (B * H, T) f32, each NULL
+// where no backward follows.
+extern "C" int mha_forward16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                             const __nv_bfloat16* v, __nv_bfloat16* out, float* out32, float* lse,
+                             int BH, int T, int D, int seed, double rate, cudaStream_t stream) {
+  return launch_forward<__nv_bfloat16>(q, k, v, out, out32, lse, BH, T, D, seed, rate, stream);
+}
+
+// The backward of mha_forward16: q, k, v, dout bf16, out32 and lse the
+// forward's f32 ones; dq, dk, dv written in bf16; delta (B * H, T) f32
+// scratch.
+extern "C" int mha_backward16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                              const __nv_bfloat16* v, const float* out32,
+                              const __nv_bfloat16* dout, const float* lse, __nv_bfloat16* dq,
+                              __nv_bfloat16* dk, __nv_bfloat16* dv, float* delta, int BH, int T,
+                              int D, int seed, double rate, cudaStream_t stream) {
+  return launch_backward<__nv_bfloat16>(q, k, v, out32, dout, lse, dq, dk, dv, delta, BH, T, D,
+                                        seed, rate, stream);
 }

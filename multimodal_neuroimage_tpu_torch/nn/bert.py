@@ -19,8 +19,10 @@ Under the bf16 policy (parameters rounded to bf16, bf16 inputs; the step
 builders') the embeddings, the CLS projection and the pooler run in bf16,
 while the K1 stack runs on a float32 residual stream with its products in
 bf16 (K1's mm16 form), the output cast back to bf16: JAX nn/bert.py:34-42,
-214-220 (full bf16 streams did not train at depth 16). The K6 route has no
-bf16 form yet (ROADMAP N8) and refuses a bf16 stream.
+214-220 (full bf16 streams did not train at depth 16). The K6 route keeps
+its bf16 stream, as JAX does (only the K1 route switches to float32): K6's
+bf16 form, and every operation around it rounded to bf16 where JAX's plain
+layer body rounds it (:meth:`BertLayer._attention_route`).
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ class BertLayer(nn.Module):
         super().__init__()
         self.heads = heads
         self.rates = (attn_dropout, hidden_dropout)
-        lin = lambda i, o: nn.Linear(i, o)
+        lin = lambda i, o: Linear(i, o)
         self.attention = nn.ModuleDict({
             "self": nn.ModuleDict({"query": lin(hidden, hidden),
                                    "key": lin(hidden, hidden),
@@ -85,11 +87,13 @@ class BertLayer(nn.Module):
 
     def _attention_route(self, x: torch.Tensor, generator) -> torch.Tensor:
         """The JAX BertLayer's plain body with K6 as its attention
-        (JAX nn/bert.py:103-147): no key mask, no padding."""
-        if x.dtype != torch.float32:
-            raise NotImplementedError(
-                f"a {x.dtype} stream on the K6 route (T > {K1_MAX_T}, HCP): "
-                f"K6's bf16 form, HCP at the bf16 policy, is ROADMAP N8")
+        (JAX nn/bert.py:103-147): no key mask, no padding. A bf16 stream
+        (the bf16 policy) rounds where that body does under Flax's
+        promotion: each Dense's product and its bias add (``Linear``), the
+        query scale (a bf16 division by bf16(sqrt(hd))), K6's output, the
+        residual adds, each post-LN's normalisation, its scale and its
+        shift (:func:`_post_ln`), and each operation of the erf-GELU
+        (:func:`_gelu16`)."""
         B, T, H = x.shape
         hd = H // self.heads
         attn_rate, hidden_rate = self.rates if self.training else (0.0, 0.0)
@@ -98,18 +102,54 @@ class BertLayer(nn.Module):
         def split(t):
             return t.reshape(B, T, self.heads, hd).transpose(1, 2).contiguous()
 
-        q = split(sa["query"](x)) / math.sqrt(hd)
+        if x.dtype == torch.float32:
+            q = split(sa["query"](x)) / math.sqrt(hd)
+        else:
+            # q / jnp.sqrt(jnp.asarray(hd, q.dtype)): the root rounded to
+            # bf16 (3.3125 for hd 11), the quotient rounded
+            q = split(sa["query"](x)) / _rounded(math.sqrt(hd), x.dtype)
         k, v = split(sa["key"](x)), split(sa["value"](x))
         seed = draw_seed(generator) if attn_rate > 0.0 else 0
         ctx = fused_attention(q, k, v, seed, attn_rate)
         a = ao["dense"](ctx.transpose(1, 2).reshape(B, T, H))
         if hidden_rate > 0.0:
             a = dropout(a, hidden_rate, draw_seed(generator))
-        x = ao["LayerNorm"](a + x)
-        z = self.output["dense"](F.gelu(self.intermediate["dense"](x)))
+        x = _post_ln(ao["LayerNorm"], a + x)
+        u = self.intermediate["dense"](x)
+        z = self.output["dense"](F.gelu(u) if u.dtype == torch.float32
+                                 else _gelu16(u))
         if hidden_rate > 0.0:
             z = dropout(z, hidden_rate, draw_seed(generator))
-        return self.output["LayerNorm"](z + x)
+        return _post_ln(self.output["LayerNorm"], z + x)
+
+
+def _post_ln(ln: LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """The K6 route's post-LN. float32: ``ln`` itself. bf16: JAX's
+    ``LayerNorm(use_scale=False, use_bias=False)(x) * g + b``: statistics
+    and normalisation in float32, rounded to bf16, then the scale and the
+    shift each a bf16 operation of its own."""
+    if x.dtype == torch.float32:
+        return ln(x)
+    xf = x.float()
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    y = (xc * torch.rsqrt(var + ln.eps)).to(x.dtype)
+    return y * ln.weight.to(x.dtype) + ln.bias.to(x.dtype)
+
+
+def _gelu16(u: torch.Tensor) -> torch.Tensor:
+    """The erf-GELU of a bf16 tensor as ``jax.nn.gelu(approximate=False)``
+    computes it in bf16: ``0.5 * u * erfc(-u * bf16(sqrt(0.5)))``, each
+    operation rounded to bf16 (torch's bf16 GELU rounds once)."""
+    return 0.5 * u * torch.special.erfc(-u * _rounded(math.sqrt(0.5),
+                                                      u.dtype))
+
+
+def _rounded(c: float, dtype: torch.dtype) -> float:
+    """The constant ``c`` rounded to ``dtype`` (an operand of a bf16
+    operation: torch computes a bf16 op with a float scalar in float32 and
+    rounds the result once, as the bf16 op of two bf16 values)."""
+    return float(torch.tensor(c).to(dtype))
 
 
 class BertEncoder(nn.Module):

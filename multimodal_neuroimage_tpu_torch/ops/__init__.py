@@ -2,9 +2,10 @@
 
 Every wrapper takes its plain PyTorch version for a CPU tensor and launches
 its CUDA kernel (or raises) for a CUDA tensor, and counts its launches in a
-``launches`` attribute (the bf16 policy's forms, K1 mm16 and K7 on bf16
-streams, count on wrappers of their own), which :func:`reset_launches` and :func:`launches`
-clear and read across all kernels. The forward wrappers are autograd
+``launches`` attribute (the bf16 policy's forms, K1 mm16, K7 on bf16
+streams and K6 on bf16 q/k/v, count on wrappers of their own), which
+:func:`reset_launches` and :func:`launches` clear and read across all
+kernels. The forward wrappers are autograd
 Functions whose backward is the matching backward wrapper.
 """
 
@@ -47,7 +48,10 @@ def kernels() -> Dict[str, object]:
             "K7 fusion_block_bp backward bf16":
                 fbp.fused_fusion_block_bp_backward16,
             "K7 cross_fusion_block_bp backward bf16":
-                fbp.fused_cross_fusion_block_bp_backward16}
+                fbp.fused_cross_fusion_block_bp_backward16,
+            "K6 fused_attention bf16": att.fused_attention16,
+            "K6 fused_attention backward bf16":
+                att.fused_attention_backward16}
 
 
 def reset_launches() -> None:

@@ -196,10 +196,28 @@ def mha_reference_backward(g, q, k, v, seed: int = 0, rate: float = 0.0):
         return torch.autograd.grad(out, inputs, g)
 
 
-def _check_mha(q, k, v):
+def mha_reference16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    seed: int = 0, rate: float = 0.0) -> torch.Tensor:
+    """K6's bf16 form (JAX ``_make_fwd_kernel`` on bf16 inputs): bf16 q, k,
+    v widened to float32, softmax, dropout and context in float32
+    (:func:`mha_reference`), the output rounded to bf16 once."""
+    return mha_reference(q.float(), k.float(), v.float(), seed,
+                         rate).to(torch.bfloat16)
+
+
+def mha_reference_backward16(g, q, k, v, seed: int = 0, rate: float = 0.0):
+    """The bf16 form's plain backward (JAX ``_make_bwd_kernel`` on bf16
+    inputs): bf16 dO, q, k, v widened, the float32 backward, dq, dk, dv
+    rounded to bf16 once."""
+    grads = mha_reference_backward(g.float(), q.float(), k.float(),
+                                   v.float(), seed, rate)
+    return tuple(t.to(torch.bfloat16) for t in grads)
+
+
+def _check_mha(q, k, v, dtype=torch.float32):
     B, H, T, D = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
-        build.check_cuda_f32(name, t, q.shape)
+        build.check_cuda(name, t, dtype, q.shape)
     if D > MHA_MAX_HEAD_DIM:
         raise ValueError(f"attention kernel supports head dim <= "
                          f"{MHA_MAX_HEAD_DIM}, got {D}")
@@ -215,6 +233,25 @@ def _launch_mha_forward(q, k, v, seed, rate):
                          T, D, int(seed), float(rate), build.stream_of(q))
     fused_attention.launches += 1
     return out, lse
+
+
+def _launch_mha_forward16(q, k, v, seed, rate, save: bool):
+    """The bf16 form's kernel: (out bf16, out32, lse), the last two float32
+    and only where ``save`` (a backward follows): the backward's delta is
+    taken from the float32 output, not from its bf16 rounding."""
+    B, H, T, D = _check_mha(q, k, v, torch.bfloat16)
+    out = torch.empty_like(q)
+    out32 = lse = None
+    if save:
+        out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    build.library().call(
+        "mha_forward16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), None if out32 is None else out32.data_ptr(),
+        None if lse is None else lse.data_ptr(), B * H, T, D, int(seed),
+        float(rate), build.stream_of(q))
+    fused_attention16.launches += 1
+    return out, out32, lse
 
 
 def fused_attention_backward(g, q, k, v, out, lse, seed: int = 0,
@@ -239,23 +276,55 @@ def fused_attention_backward(g, q, k, v, out, lse, seed: int = 0,
     return dq, dk, dv
 
 
+def fused_attention_backward16(g, q, k, v, out32, lse, seed: int = 0,
+                               rate: float = 0.0):
+    """K6's bf16 backward: bf16 (dq, dk, dv) from bf16 ``g``, q, k, v.
+    CUDA tensors launch the kernels (``out32`` and ``lse``, float32, from
+    the CUDA forward); CPU tensors take the plain backward."""
+    if q.device.type == "cpu":
+        return mha_reference_backward16(g, q, k, v, seed, rate)
+    B, H, T, D = _check_mha(q, k, v, torch.bfloat16)
+    build.check_cuda("g", g, torch.bfloat16, q.shape)
+    build.check_cuda_f32("out32", out32, q.shape)
+    build.check_cuda_f32("lse", lse, (B, H, T))
+    delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    build.library().call(
+        "mha_backward16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out32.data_ptr(), g.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B * H, T, D,
+        int(seed), float(rate), build.stream_of(q))
+    fused_attention_backward16.launches += 1
+    return dq, dk, dv
+
+
 class _MhaFunction(torch.autograd.Function):
+    """Either form, by q's dtype: float32, or bf16 (JAX's fused_attention
+    on bf16 inputs: bf16 in and out, float32 arithmetic)."""
 
     @staticmethod
     def forward(ctx, q, k, v, seed, rate):
+        bf16 = q.dtype == torch.bfloat16
         if q.device.type == "cpu":
-            out, lse = mha_reference(q, k, v, seed, rate), None
+            out = (mha_reference16 if bf16 else mha_reference)(q, k, v, seed,
+                                                               rate)
+            saved = lse = None
+        elif bf16:
+            out, saved, lse = _launch_mha_forward16(
+                q, k, v, seed, rate, any(ctx.needs_input_grad[:3]))
         else:
             out, lse = _launch_mha_forward(q, k, v, seed, rate)
+            saved = out
         ctx.meta = (seed, rate)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, saved, lse)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = fused_attention_backward(g.contiguous(), q, k, v, out,
-                                              lse, *ctx.meta)
+        backward = (fused_attention_backward16 if q.dtype == torch.bfloat16
+                    else fused_attention_backward)
+        dq, dk, dv = backward(g.contiguous(), q, k, v, out, lse, *ctx.meta)
         return dq, dk, dv, None, None
 
 
@@ -263,10 +332,27 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     seed: int = 0, rate: float = 0.0) -> torch.Tensor:
     """softmax(q k^T) v with probability dropout (differentiable): the CUDA
     kernels on CUDA tensors, the plain version on CPU tensors. Shapes and
-    dropout as in :func:`mha_reference`."""
+    dropout as in :func:`mha_reference`. float32 or bf16 q, k, v (all
+    three of one dtype); a bf16 call is the bf16 form
+    (:func:`mha_reference16`), whose launches count on
+    :func:`fused_attention16`."""
     _check_rate(rate)
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     return _MhaFunction.apply(q, k, v, int(seed), float(rate))
+
+
+def fused_attention16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      seed: int = 0, rate: float = 0.0) -> torch.Tensor:
+    """:func:`fused_attention` on bf16 q, k, v; its ``launches`` count the
+    bf16 forward kernel's launches."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 form takes bf16 q, k, v, got {q.dtype}")
+    return fused_attention(q, k, v, seed, rate)
 
 
 fused_attention.launches = 0
 fused_attention_backward.launches = 0
+fused_attention16.launches = 0
+fused_attention_backward16.launches = 0

@@ -2,7 +2,8 @@
 
 ``Predictor`` loads a port checkpoint once, scores in-memory requests (the
 flagship's ``{subject, fmri: (84, T) raw series, struct: (84, 84)}``, HCP's
-``{subject, fmri: (22, T <= 1200)}``; data/loader.py ``item_for``) in
+``{subject, fmri: (22, T <= 1200)}``; data/loader.py ``item_for``, the
+device gear's band split on the device a batch, ``device_preprocess``) in
 batches of ``cfg.batch_size``, sigmoids each window's logit and averages the
 probabilities per subject (the frozen ``val_threshold`` was fit on
 mean-of-sigmoids), labels subjects against that threshold, and can write
@@ -15,11 +16,12 @@ import csv
 import os
 from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
-import numpy as np
 import torch
 
 from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import load_checkpoint
-from multimodal_neuroimage_tpu_torch.data.loader import collate, item_for
+from multimodal_neuroimage_tpu_torch.data.loader import (collate,
+                                                          device_preprocess,
+                                                          item_for)
 from multimodal_neuroimage_tpu_torch.models.registry import create_model
 from multimodal_neuroimage_tpu_torch.nn.swinfusion import set_compute_policy
 from multimodal_neuroimage_tpu_torch.train.state import (check_compute_dtype,
@@ -35,16 +37,12 @@ MODEL_INPUTS = ("fmri_sequence", "fmri_raw_sequence",
 def check_supported(cfg) -> None:
     """Refuse configurations the port does not run yet, rather than
     quietly running something else."""
-    if cfg.compute_dtype == "bfloat16" and cfg.dataset_name == "hcp":
+    # HCP items take no band split in any gear (JAX data/datasets.py:83-89)
+    if cfg.preprocess == "native" and cfg.dataset_name != "hcp":
         raise NotImplementedError(
-            "compute_dtype='bfloat16' on HCP: its T = 1201 layers take the "
-            "K6 route, whose bf16 form (bf16 streams through K6) is ROADMAP "
-            "N8; HCP runs float32")
-    # HCP items never take the device FIR gear (JAX data/datasets.py:83-89)
-    if cfg.preprocess != "host" and cfg.dataset_name != "hcp":
-        raise NotImplementedError(
-            f"preprocess={cfg.preprocess!r}: the port runs the host band "
-            f"split only; the on-device FIR gear is ROADMAP N2")
+            "preprocess='native': the C++ host band split of on-disk cohorts "
+            "(data/native.py) is ROADMAP N5; the port runs the 'host' and "
+            "'device' gears")
 
 
 def make_predict_step(model: torch.nn.Module, compute_dtype: str = "float32",
@@ -59,7 +57,7 @@ def make_predict_step(model: torch.nn.Module, compute_dtype: str = "float32",
     @torch.no_grad()
     def predict_step(batch: Mapping) -> Dict[str, torch.Tensor]:
         set_compute_policy(compute_dtype)
-        inputs = {k: torch.as_tensor(np.asarray(batch[k], np.float32),
+        inputs = {k: torch.as_tensor(batch[k], dtype=torch.float32,
                                      device=device)
                   for k in MODEL_INPUTS if k in batch}
         with weights_at(model, compute_dtype):
@@ -81,6 +79,7 @@ class Predictor:
                 "scoring an on-disk cohort (subject index, pandas) is ROADMAP "
                 "N5; pass in-memory records")
         self.cfg = cfg
+        self.device = device
         self.records = list(records)
         self.checkpoint_path = checkpoint
         ckpt = load_checkpoint(checkpoint)
@@ -95,13 +94,15 @@ class Predictor:
                      else "binary_classification")
         self.step = make_predict_step(self.model, cfg.compute_dtype, device)
 
-    def batches(self) -> Iterator[Tuple[Dict[str, np.ndarray], List[str]]]:
-        """Host-preprocessed batches of ``cfg.batch_size`` requests."""
+    def batches(self) -> Iterator[Tuple[Dict, List[str]]]:
+        """Batches of ``cfg.batch_size`` requests, preprocessed in the
+        config's gear (the device gear's bands on the device)."""
         bs = self.cfg.batch_size
         item = item_for(self.cfg)
         for i in range(0, len(self.records), bs):
-            yield collate([item(r, self.cfg)
-                           for r in self.records[i:i + bs]])
+            batch, names = collate([item(r, self.cfg)
+                                    for r in self.records[i:i + bs]])
+            yield device_preprocess(batch, self.cfg, self.device), names
 
     def predict(self, write_csv: Optional[str] = None
                 ) -> Dict[str, Dict[str, float]]:

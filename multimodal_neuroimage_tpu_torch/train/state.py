@@ -23,7 +23,6 @@ from __future__ import annotations
 import contextlib
 from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
-import numpy as np
 import torch
 
 from multimodal_neuroimage_tpu_torch.nn.common import full_f32
@@ -70,9 +69,9 @@ def optimizer_from_config(cfg, params: Iterable[torch.nn.Parameter],
 
 
 def batch_to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
-    """Host batch (numpy) -> float32 tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(batch[k], np.float32),
-                               device=device)
+    """Batch (numpy arrays, or tensors: the device gear's bands) -> float32
+    tensors on ``device``."""
+    return {k: torch.as_tensor(batch[k], dtype=torch.float32, device=device)
             for k in BATCH_KEYS if k in batch}
 
 

@@ -3,25 +3,26 @@
 ``Trainer(cfg, train_records, val_records)`` takes records shaped as the
 ``Predictor``'s requests plus a target (the flagship's ``{subject, fmri (84,
 T), struct (84, 84), target}``, HCP's ``{subject, fmri (22, T), target}``),
-turns them into items once on the host (data/loader.py ``item_for``), and
-runs the JAX
-Trainer's loop (``train_epoch``, ``eval_epoch``, ``training``, :312-392):
-shuffled drop-last train batches, one K5 step each, a validation pass,
-subject-level metrics, and the best-AUROC checkpoint (port format, frozen
-``val_threshold`` in its metadata) that ``serve/predictor.py`` loads.
+turns them into items once on the host (data/loader.py ``item_for``; in the
+device gear the raw series, band-split on the device a batch by
+``device_preprocess``), and runs the JAX Trainer's loop (``train_epoch``,
+``eval_epoch``, ``training``, :312-392): shuffled drop-last train
+batches, one K5 step each, a validation pass, subject-level metrics, and
+the best-AUROC checkpoint (port format, frozen ``val_threshold`` in its
+metadata) that ``serve/predictor.py`` loads.
 
 Randomness is explicit: weights from ``init_random_weights`` seeded by
 ``cfg.seed``, the train order from ``numpy.random.default_rng(cfg.seed +
 epoch)``, and every dropout seed / DropPath factor from one host
 ``torch.Generator`` seeded by ``cfg.seed``; a run repeats exactly.
 
-Not here yet, each with its ROADMAP item: on-disk cohorts and
-``DataPipeline`` (N5), auto-resume and ``partial_restore`` phase chaining
-(M5), Optuna, the writer and grad-norm logging, the NaN audit (M13),
-multi-GPU (M11), HCP at bf16 (N8), the device FIR gear (N2).
-``cfg.compute_dtype`` reaches the train, eval and predict steps (the bf16
-policy of train/state.py); the float32 masters, checkpoints and K5 are the
-same under either policy.
+Not here yet, each with its ROADMAP item: on-disk cohorts, ``DataPipeline``
+and the ``native`` gear (N5), auto-resume and ``partial_restore`` phase
+chaining (M5), Optuna, the writer and grad-norm logging, the NaN audit
+(M13), multi-GPU (M11). ``cfg.compute_dtype`` reaches the train, eval and
+predict steps (the bf16 policy of train/state.py; HCP's K6 route keeps a
+bf16 stream through K6's bf16 form); the float32 masters, checkpoints and
+K5 are the same under either policy.
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ import torch
 
 from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
     BestCheckpointPolicy)
-from multimodal_neuroimage_tpu_torch.data.loader import collate, item_for
+from multimodal_neuroimage_tpu_torch.data.loader import (collate,
+                                                          device_preprocess,
+                                                          item_for)
 from multimodal_neuroimage_tpu_torch.evaluation.metrics import (
     SubjectAccumulator)
 from multimodal_neuroimage_tpu_torch.models.registry import (
@@ -92,8 +95,9 @@ class Trainer:
         return item
 
     def batches(self, split: str, epoch: int = 0, shuffle: bool = False
-                ) -> Iterator[Tuple[Dict[str, np.ndarray], List[str]]]:
-        """Host batches of one split; train drops its last partial batch
+                ) -> Iterator[Tuple[Dict, List[str]]]:
+        """Batches of one split, the device gear's bands made on the device
+        (``device_preprocess``); train drops its last partial batch
         (reference dataloaders.py:139), eval keeps it."""
         items = self.items[split]
         order = (np.random.default_rng(self.cfg.seed + epoch).permutation(
@@ -101,7 +105,8 @@ class Trainer:
         bs = self.cfg.batch_size
         stop = len(items) - len(items) % bs if split == "train" else len(items)
         for i in range(0, stop, bs):
-            yield collate([items[j] for j in order[i:i + bs]])
+            batch, names = collate([items[j] for j in order[i:i + bs]])
+            yield device_preprocess(batch, self.cfg, self.device), names
 
     def _record(self, preds, batch, names, mode: str) -> None:
         if self.pred_key in preds:

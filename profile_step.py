@@ -2,9 +2,10 @@
 
 Run from the repository root: ``python3 profile_step.py hcp`` (or
 ``flagship``, optionally with a batch size, a fusion layout and a compute
-dtype: ``python3 profile_step.py flagship 16 bp bfloat16``). It builds the path's
-``Trainer`` on the synthetic cohort that ``chip_smoke.py`` trains (same
-seed and widths; the flagship at batch 4, the std layout and float32
+dtype: ``python3 profile_step.py flagship 16 bp bfloat16``, ``python3
+profile_step.py hcp 8 std bfloat16``). It builds the path's ``Trainer`` on
+the synthetic cohort that ``chip_smoke.py`` trains (same seed and widths;
+the flagship at batch 4, HCP at its batch 8, the std layout and float32
 unless told otherwise), warms up 3 steps, then prints:
 
 - the host split of a step: median of 10 steps with a CUDA synchronise after
@@ -37,7 +38,7 @@ def _trainer(path: str, folder: str, batch: int, dtype: str):
     from multimodal_neuroimage_tpu_torch.train.trainer import Trainer
     rng = np.random.default_rng(smoke.SEED)
     if path == "hcp":
-        cfg = smoke._hcp_cfg()
+        cfg = smoke._hcp_cfg(compute_dtype=dtype)
         records = smoke._hcp_cohort(rng, smoke.N_TRAIN, 0)
     else:
         cfg = smoke._flagship_cfg(batch_size=batch, compute_dtype=dtype)

@@ -1158,3 +1158,57 @@ def test_tiny_bf16_training_step_on_the_card_matches_the_cpu(dev, layout,
         assert torch.equal(g, g.to(torch.bfloat16).float()), name
         err = (g - want[name].grad).abs().max().item()
         assert err <= share[part] * scale[part], (name, err, scale[part])
+
+
+# ---- K6's bf16 form (HCP at the bf16 policy) ------------------------------------
+#
+# bf16 q/k/v, float32 arithmetic, bf16 outputs: kernel and plain version
+# round the same float32 values once, in other orders of float32 sums, so
+# an output can land on the neighbouring bf16 value (2^-8 relative):
+# forward |kernel - plain| <= 2^-7 |plain| + 1e-3 max|plain|, gradients
+# within 1e-2 of their tensor's max-abs (chip_smoke.py holds the same).
+
+@pytest.mark.parametrize("B,H,T,D,rate", [
+    (2, 2, 97, 11, 0.0), (2, 2, 97, 11, 0.25), (1, 3, 5, 7, 0.25),
+    (2, 2, 130, 24, 0.25), (1, 1, 65, 64, 0.1), (8, 2, 1201, 11, 0.1)])
+def test_mha_attention_bf16_kernel(dev, B, H, T, D, rate):
+    """The bf16 forward and backward against the bf16 plain versions on the
+    same hash masks; each launches once, the float32 form never."""
+    gen = torch.Generator().manual_seed(B + H + T + D)
+    q, k, v = (_rand(gen, B, H, T, D).to(dev).to(torch.bfloat16)
+               .requires_grad_() for _ in "qkv")
+    g = _rand(gen, B, H, T, D).to(dev).to(torch.bfloat16)
+    counters = (att.fused_attention16, att.fused_attention_backward16,
+                att.fused_attention, att.fused_attention_backward)
+    before = [c.launches for c in counters]
+    out = att.fused_attention(q, k, v, 77, rate)
+    assert out.dtype == torch.bfloat16
+    out.backward(g)
+    assert [c.launches for c in counters] == [before[0] + 1, before[1] + 1,
+                                              before[2], before[3]]
+    torch.cuda.synchronize()
+    want = att.mha_reference16(q.detach(), k.detach(), v.detach(), 77, rate)
+    err = (out.detach().float() - want.float()).abs()
+    assert (err <= 2.0 ** -7 * want.float().abs()
+            + 1e-3 * want.float().abs().max()).all(), err.max().item()
+    for a, b in zip((q, k, v), att.mha_reference_backward16(
+            g, q.detach(), k.detach(), v.detach(), 77, rate)):
+        assert a.grad.dtype == torch.bfloat16
+        e = (a.grad.float() - b.float()).abs().max().item()
+        assert e <= 1e-2 * b.float().abs().max().item(), e
+
+
+def test_mha_attention_bf16_launches_or_raises(dev):
+    """A bf16 call on the card launches the bf16 kernel or raises: mixed
+    dtypes refuse, and no call falls back to the float32 form."""
+    z = torch.zeros(1, 2, 9, 11, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="one dtype"):
+        att.fused_attention(z, z.float(), z)
+    with pytest.raises(TypeError, match="bfloat16"):
+        att.fused_attention_backward16(z.float(), z, z, z, z.float(),
+                                       z[..., 0].float())
+    before = att.fused_attention.launches
+    with torch.no_grad():
+        out = att.fused_attention16(z, z, z)
+    assert out.dtype == torch.bfloat16 and att.fused_attention.launches == \
+        before

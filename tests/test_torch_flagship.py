@@ -167,14 +167,46 @@ def test_checkpoint_roundtrip_and_latest(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"compute_dtype": "bfloat16", "dataset_name": "hcp"}, "N8"),
-    ({"preprocess": "device"}, "FIR gear"),
-    ({"preprocess": "native"}, "FIR gear"),
+    ({"preprocess": "native"}, "N5"),
 ])
 def test_predictor_refuses_what_it_does_not_run(flagship, change, match):
     cfg = dataclasses.replace(flagship[0], **change)
     with pytest.raises(NotImplementedError, match=match):
         Predictor(cfg, "unused.ckpt", [], device="cpu")
+
+
+@pytest.mark.parametrize("case", ["hcp_bf16", "device_gear"])
+def test_predictor_runs_what_it_once_refused(flagship, case, tmp_path):
+    """HCP at the bf16 policy (K6's bf16 form) and the device FIR gear, once
+    refused, build and serve. The device gear's scores match the host
+    gear's (its bands are within 5e-5 of the host split,
+    tests/test_torch_hcp_bf16.py); HCP's bf16 scores match its float32
+    ones within the bf16 policy's card-vs-CPU logit bound (5e-2)."""
+    if case == "device_gear":
+        cfg, state = flagship[0], flagship[3]
+        other = dataclasses.replace(cfg, preprocess="device")
+        reqs = _requests(cfg)
+    else:
+        from multimodal_neuroimage_tpu_torch.models.registry import (
+            init_random_weights)
+        other = Config(step=1, task="2DBERT", dataset_name="hcp",
+                       target="sex", transformer_hidden_layers=1,
+                       bert_intermediate_size=32, batch_size=2).validate()
+        assert other.compute_dtype == "bfloat16"
+        cfg = dataclasses.replace(other, compute_dtype="float32")
+        state = init_random_weights(create_model(cfg), torch.Generator()
+                                    .manual_seed(0)).state_dict()
+        rng = np.random.default_rng(5)
+        reqs = [{"subject": f"h{i}", "fmri": rng.normal(size=(22, 1150 + i))}
+                for i in range(3)]
+    ckpt = save_checkpoint(str(tmp_path / "m.ckpt"), state,
+                           {"val_threshold": 0.5})
+    want = Predictor(cfg, ckpt, reqs, device="cpu").predict()
+    got = Predictor(other, ckpt, reqs, device="cpu").predict()
+    assert set(got) == set(want)
+    tol = 1e-4 if case == "device_gear" else 5e-2
+    for name, row in want.items():
+        assert abs(got[name]["score"] - row["score"]) <= tol, (name, got)
 
 
 def test_predictor_needs_in_memory_records(flagship):

@@ -204,11 +204,19 @@ def test_optimizer_refuses_what_it_does_not_run(change, match):
 
 
 def test_train_step_refuses_bf16():
-    """The bf16 policy runs the flagship (tests/test_torch_bf16.py); a bf16
-    stream on the K6 route (HCP's T = 1201 layers) has no kernel form yet
-    and refuses, naming its ROADMAP item; a dtype other than float32 and
-    bfloat16 refuses when the step is built."""
+    """The bf16 policy runs (the flagship: tests/test_torch_bf16.py; HCP's
+    K6 route: test_train_step_runs_hcp_at_bf16); a compute dtype other than
+    float32 and bfloat16, here float16, refuses when the step is built."""
+    with pytest.raises(ValueError, match="float16"):
+        make_train_step(torch.nn.Linear(2, 2), {}, None, "float16", "cpu")
+
+
+def test_train_step_runs_hcp_at_bf16(monkeypatch):
+    """The HCP step at the bf16 policy, which refused before K6 had its bf16
+    form: a bf16 stream reaches K6 (its plain version on the CPU), the loss
+    is finite and every gradient of the float32 masters holds bf16 values."""
     from multimodal_neuroimage_tpu_torch.models.registry import create_model
+    from multimodal_neuroimage_tpu_torch.ops import attention as att
     hcp = Config(step=1, task="2DBERT", dataset_name="hcp", target="sex",
                  compute_dtype="bfloat16", transformer_hidden_layers=1,
                  bert_intermediate_size=32, sequence_length=648,
@@ -218,9 +226,15 @@ def test_train_step_refuses_bf16():
     step = make_train_step(model, active_losses(hcp.task,
                                                 hcp.fine_tune_task),
                            opt, "bfloat16", "cpu")
-    batch = {"fmri_sequence": np.zeros((2, 648, 22), np.float32),
-             "target": np.asarray([0.0, 1.0], np.float32)}
-    with pytest.raises(NotImplementedError, match="N8"):
-        step(batch, torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="float16"):
-        make_train_step(torch.nn.Linear(2, 2), {}, None, "float16", "cpu")
+    batch = {"fmri_sequence": np.random.default_rng(0).normal(
+        size=(2, 648, 22)).astype(np.float32),
+        "target": np.asarray([0.0, 1.0], np.float32)}
+    seen = []
+    real = att._MhaFunction.apply
+    monkeypatch.setattr(att._MhaFunction, "apply", staticmethod(
+        lambda q, *a: seen.append(q.dtype) or real(q, *a)))
+    losses, _ = step(batch, torch.Generator().manual_seed(0))
+    assert seen == [torch.bfloat16]
+    assert torch.isfinite(losses["total"])
+    for p in model.parameters():
+        assert torch.equal(p.grad, p.grad.to(torch.bfloat16).float())
