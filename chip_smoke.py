@@ -63,10 +63,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    per step, and no other kernel. Also times the predict step.
 7. HCP phase 1 at its default bf16 policy (``compute_dtype`` left at
    ``Config``'s default): K6's bf16 form first alone at HCP shapes (bf16
-   q/k/v, dropout 0 and 0.1, against its plain versions, beside
-   ``scaled_dot_product_attention`` on the same bf16 tensors, whose
+   q/k/v, dropout 0 and 0.1): the tensor-core kernels against their plain
+   versions and, with the CUDA-core form (``attention._K6_SIMT``), against
+   a float64 truth (the share of bit-equal bf16 outputs printed), the
+   backward twice bitwise equal; timed in turns beside the CUDA-core form
+   and ``scaled_dot_product_attention`` on the same bf16 tensors, whose
    backend is printed; bounds with q k^T and dO v^T at the bf16 rate, the
-   other products and the exponentials at the float32 rate); then the same
+   other products and the exponentials at the float32 rate; then the same
    cohort through a 2-epoch ``Trainer`` run and serving, exactly 16 bf16 K6
    forwards a pass, 16 bf16 K6 backwards and one K5 a step and no float32
    K6; one step card vs CPU; float32 and bf16 steps timed in turns with
@@ -179,6 +182,17 @@ FIR_ATOL = 2e-4
 # can land on the neighbouring bf16 value: forward |err| <= K6_RTOL16 |want|
 # + K6_ATOL16 max|want|, gradients within K6_REL16 of their max-abs
 K6_RTOL16, K6_ATOL16, K6_REL16 = 2.0 ** -7, 1e-3, 1e-2
+# K6's bf16 form (tensor cores, the f32 operand of p v, p^T dO, ds^T q, ds k
+# split into bf16 hi + lo) against a float64 truth on the same bf16 inputs:
+# out32 within K6_OUT64 max|truth|, dq/dk/dv within K6_GRAD64_RTOL |truth|
+# + K6_GRAD64_REL max|truth| (one bf16 rounding and a float32 error;
+# tests/test_torch_k6_mma.py holds the CPU model of the split to the same)
+K6_OUT64, K6_GRAD64_RTOL, K6_GRAD64_REL = 2.0 ** -14, 2.0 ** -8, 2.0 ** -12
+# and each of its gradients' float64 error (as a share of that bound) within
+# K6_SIMT_GRAD_MULT times the CUDA-core form's (attention._K6_SIMT, float32
+# on the CUDA cores): both are held by the one bf16 rounding, while a bf16 p
+# or ds (no lo half) adds its own 8-bit error (tests/test_torch_k6_mma.py)
+K6_SIMT_GRAD_MULT = 1.25
 # HCP card vs CPU at the bf16 policy: every layer keeps a bf16 stream (no
 # float32 stream on the K6 route), so a neighbouring-bf16 step in one
 # layer carries through the 16 layers; each gradient within a share of its
@@ -316,11 +330,12 @@ class Results:
 
     def add(self, key, source, replaces, err, ms, plain_ms, ops, nbytes,
             library_ms=None, std_ms=None, bound=None, device_ms=None,
-            library_device_ms=None, f32_ms=None):
+            library_device_ms=None, f32_ms=None, simt_ms=None):
         """One case of a kernel; ``bound`` (ms, by) replaces the float32
         bound of ``ops`` and ``nbytes`` (K8's bf16 cases, the bf16 policy's
         kernels)."""
-        timed = ("library", "std", "device", "library_device", "f32")
+        timed = ("library", "std", "device", "library_device", "f32",
+                 "simt")
         r = self.rows.setdefault(key, {"name": key, "route": "cuda",
                                        "source": source,
                                        "replaces": replaces,
@@ -338,7 +353,7 @@ class Results:
         if bound > r["worst_bound"]:
             r["worst_bound"], r["bound_by"] = bound, by
         for name, t in zip(timed, (library_ms, std_ms, device_ms,
-                                   library_device_ms, f32_ms)):
+                                   library_device_ms, f32_ms, simt_ms)):
             if t is not None:
                 r[f"{name}_ms"] += t
                 r[f"{name}_cases"] += 1
@@ -372,27 +387,34 @@ class Results:
                 # K1 backward only: float64 errors of both GEMM routes
                 **{k: r[k] for k in ("float64_rel_err",
                                      "simt_float64_rel_err") if k in r},
-                # K6's bf16 form: the rates its bound counts, and the
-                # backend scaled_dot_product_attention took
-                **{k: r[k] for k in ("bound_rates", "library_backend")
+                # K6's bf16 form: its CUDA-core form on the same inputs,
+                # both forms' worst float64 error (as a share of its
+                # bound), the rates its bound counts, and the backend
+                # scaled_dot_product_attention took
+                "simt_form_ms": mean("simt"),
+                **{k: r[k] for k in ("float64_share", "simt_float64_share",
+                                     "bound_rates", "bound_ms_f32_rate",
+                                     "library_backend")
                    if k in r}}
 
 
 def _report(res, key, label, err, ms, plain_ms, ops, nbytes, src, rep,
             library_ms=None, tol=f"atol {ATOL} + rtol {RTOL}", std_ms=None,
-            bound=None, device=None, f32_ms=None):
+            bound=None, device=None, f32_ms=None, simt_ms=None):
     """Record and print one case; ``rep`` is the TPU kernel's file:line
     under ``TPU``, or from the repository root where it has a ``/``;
     ``device``: (kernel, library or None, method) device times."""
     dev_ms, lib_dev_ms, method = device or (None, None, None)
     bound, by = res.add(key, SOURCES + src, rep if "/" in rep else TPU + rep,
                         err, ms, plain_ms, ops, nbytes, library_ms, std_ms,
-                        bound, dev_ms, lib_dev_ms, f32_ms)
+                        bound, dev_ms, lib_dev_ms, f32_ms, simt_ms)
     lib = ("" if library_ms is None
            else f"  library {library_ms:.4f} ms")
     std = "" if std_ms is None else f"  std layout (K2/K3) {std_ms:.4f} ms"
     if f32_ms is not None:
         std += f"  float32 streams {f32_ms:.4f} ms"
+    if simt_ms is not None:
+        std += f"  CUDA-core form {simt_ms:.4f} ms"
     dev = ("" if device is None else
            f"  device ({method}): kernel {dev_ms:.4f} ms" + (
                "" if lib_dev_ms is None else f", library {lib_dev_ms:.4f} ms"))
@@ -890,11 +912,18 @@ def mha_kernels(gen, res: Results):
                 "mha_attention.cu", "attention.py:159", library)
 
 
-def _bound_k6_16(prod16: float, prod32: float, exps: float, nbytes: float):
+def _bound_k6_16(prod16: float, prod32: float, exps: float, nbytes: float,
+                 split: bool = True):
     """_bound for K6's bf16 form: the products of two bf16-valued operands
-    (q k^T, dO v^T) at the bf16 tensor rate, those with a float32 operand
-    (p v, p^T dO, ds k, ds^T q) and the exponentials at the float32 rate."""
-    t_ops = (prod16 / PEAK_BF16_OPS + (prod32 + exps) / PEAK_F32_OPS) * 1e3
+    (q k^T, dO v^T) at the bf16 tensor rate, the exponentials at the
+    float32 rate, and those with a float32 operand (p v, p^T dO, ds k,
+    ds^T q) as the tensor-core kernels run them, two bf16 products each (hi
+    and lo) at the bf16 tensor rate; ``split=False``: at the float32 rate,
+    as the CUDA-core form runs them (the looser figure, kept beside it as
+    ``bound_ms_f32_rate``)."""
+    t32 = (2 * prod32 / PEAK_BF16_OPS if split
+           else prod32 / PEAK_F32_OPS)
+    t_ops = (prod16 / PEAK_BF16_OPS + t32 + exps / PEAK_F32_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -918,28 +947,71 @@ def _sdpa_backend(fn) -> str:
     return "; ".join(n[:60] for n in names) or "no device kernel seen"
 
 
+@contextlib.contextmanager
+def _k6_simt():
+    """Run K6's bf16 form on the CUDA cores (attention._K6_SIMT)."""
+    from multimodal_neuroimage_tpu_torch.ops import attention as att
+    att._K6_SIMT = True
+    try:
+        yield
+    finally:
+        att._K6_SIMT = False
+
+
+def _k6_float64_shares(out32, grads, out_t, grads_t):
+    """(out32's float64 error / its bound, each gradient's worst error /
+    its bound), the bounds K6_OUT64 and K6_GRAD64_*."""
+    out = ((out32.double() - out_t).abs().max().item()
+           / (K6_OUT64 * out_t.abs().max().item()))
+    return out, [((a.double() - b).abs()
+                  / (K6_GRAD64_RTOL * b.abs()
+                     + K6_GRAD64_REL * b.abs().max())).max().item()
+                 for a, b in zip(grads, grads_t)]
+
+
 def mha16_kernels(gen, res: Results):
     """K6's bf16 form (HCP at the bf16 policy) at HCP shapes (B 8, 2 heads,
-    T 1201, head dim 11), bf16 q/k/v/dO, dropout 0 and 0.1, against its
-    plain versions on the same hash masks (bf16 in, float32 arithmetic,
-    rounded once). The yardstick is ``scaled_dot_product_attention`` on the
-    same bf16 tensors at rate 0 (backward: autograd through it), which the
-    port never calls; the backend it takes is printed."""
+    T 1201, head dim 11), bf16 q/k/v/dO, dropout 0 and 0.1: the tensor-core
+    kernels against their plain versions on the same hash masks (bf16 in,
+    float32 arithmetic, rounded once), and they and the CUDA-core form
+    (``attention._K6_SIMT``) against a float64 truth (the tensor-core
+    kernels held to K6_OUT64 / K6_GRAD64_*, and their gradients to
+    K6_SIMT_GRAD_MULT times the CUDA-core form's error; the share of bf16
+    outputs bit-equal between the forms printed). Timed in turns: plain, kernel,
+    CUDA-core form and, at rate 0, the yardstick
+    ``scaled_dot_product_attention`` on the same bf16 tensors (backward:
+    autograd through it), which the port never calls; the backend it takes
+    is printed. The new kernels' ptxas registers, spills and shared memory
+    are printed first."""
     from multimodal_neuroimage_tpu_torch.ops import attention as att
+    from multimodal_neuroimage_tpu_torch.ops import build
+    for line in _ptxas_summary(build.library().build_log):
+        if "_tc_kernel" in line:
+            print(f"K6 bf16 tensor-core kernel{line}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shape = (HCP_BATCH, 2, 1201, 11)
     q, k, v, g = (torch.randn(shape, generator=gen).cuda()
                   .to(torch.bfloat16) for _ in range(4))
     q = (q.float() / 3.3125).to(torch.bfloat16)   # pre-scaled, as the layer
     prod, exps = _attention_ops(q)                # 4 BH T^2 D, BH T^2
-    fwd_bound = _bound_k6_16(prod / 2, prod / 2, exps, _nbytes(q, k, v, q))
-    bwd_bound = _bound_k6_16(prod / 2, 3 * prod / 2, exps,
-                             _nbytes(q, k, v, g, q, k, v))
+    bounds = {split: (_bound_k6_16(prod / 2, prod / 2, exps,
+                                   _nbytes(q, k, v, q), split),
+                      _bound_k6_16(prod / 2, 3 * prod / 2, exps,
+                                   _nbytes(q, k, v, g, q, k, v), split))
+              for split in (True, False)}
+    fwd_bound, bwd_bound = bounds[True]
     rates = "q k^T, dO v^T at 989 TFLOP/s (bf16); p v, p^T dO, ds k, " \
-            "ds^T q and exponentials at 67 TFLOP/s (f32)"
+            "ds^T q as two bf16 products each (hi, lo) at 989 TFLOP/s; " \
+            "exponentials at 67 TFLOP/s (f32); bound_ms_f32_rate: the " \
+            "float32-operand products at 67 TFLOP/s"
+    print(f"K6 bf16 bounds (ms, forward / backward): {fwd_bound[0]:.6f} / "
+          f"{bwd_bound[0]:.6f}; with the float32-operand products at the "
+          f"float32 rate: {bounds[False][0][0]:.6f} / "
+          f"{bounds[False][1][0]:.6f}")
     fwd_tol = f"rtol {K6_RTOL16} + {K6_ATOL16} * max|ref|"
     backend = _sdpa_backend(lambda: sdpa(q, k, v, scale=1.0))
     print(f"scaled_dot_product_attention on bf16 (8, 2, 1201, 11): {backend}")
+    shares = {}
     for rate in (0.0, 0.1):
         seed = 4243
         out, out32, lse = att._launch_mha_forward16(q, k, v, seed, rate,
@@ -948,12 +1020,20 @@ def mha16_kernels(gen, res: Results):
         def fwd(rate=rate, seed=seed):
             return att._launch_mha_forward16(q, k, v, seed, rate, False)[0]
 
+        def simt_fwd(rate=rate, seed=seed):
+            with _k6_simt():
+                return fwd(rate, seed)
+
         def plain_fwd(rate=rate, seed=seed):
             return att.mha_reference16(q, k, v, seed, rate)
 
         def bwd(rate=rate, seed=seed, out32=out32, lse=lse):
             return att.fused_attention_backward16(g, q, k, v, out32, lse,
                                                   seed, rate)
+
+        def simt_bwd(rate=rate, seed=seed, out32=out32, lse=lse):
+            with _k6_simt():
+                return bwd(rate, seed, out32, lse)
 
         want = plain_fwd().float()
         torch.cuda.synchronize()
@@ -963,39 +1043,87 @@ def mha16_kernels(gen, res: Results):
         if not torch.equal(fwd(), out):
             raise AssertionError("K6 bf16 forward: the inference launch "
                                  "differs from the training launch")
-        ms, plain_ms, library = _call_times(
-            fwd, plain_fwd, None if rate else lambda: sdpa(q, k, v,
-                                                           scale=1.0))
+        # both forms against float64 on the same bf16 inputs and masks
+        grads = bwd()
+        if not all(torch.equal(a, b) for a, b in zip(grads, bwd())):
+            raise AssertionError("K6 bf16 backward: two calls differ")
+        with _k6_simt():
+            s_out, s_out32, s_lse = att._launch_mha_forward16(
+                q, k, v, seed, rate, True)
+            s_grads = bwd(rate, seed, s_out32, s_lse)
+        out_t = att.mha_reference(q.double(), k.double(), v.double(), seed,
+                                  rate)
+        grads_t = att.mha_reference_backward(g.double(), q.double(),
+                                             k.double(), v.double(), seed,
+                                             rate)
+        torch.cuda.synchronize()
+        tc64 = _k6_float64_shares(out32, grads, out_t, grads_t)
+        simt64 = _k6_float64_shares(s_out32, s_grads, out_t, grads_t)
+        same = [(a == b).float().mean().item()
+                for a, b in zip((out,) + tuple(grads),
+                                (s_out,) + tuple(s_grads))]
+        del out_t, grads_t
+        print(f"K6 bf16 rate {rate} vs float64 (error / bound: out32 "
+              f"{K6_OUT64} max|truth|; dq, dk, dv {K6_GRAD64_RTOL} |truth| "
+              f"+ {K6_GRAD64_REL} max|truth|): tensor cores out32 "
+              f"{tc64[0]:.4f}, grads {[round(x, 4) for x in tc64[1]]}; "
+              f"CUDA-core form out32 {simt64[0]:.4f}, grads "
+              f"{[round(x, 4) for x in simt64[1]]}; bf16 out, dq, dk, dv "
+              f"bit-equal between the forms: "
+              f"{[round(x, 5) for x in same]}")
+        if max(tc64[0], *tc64[1]) > 1.0:
+            raise AssertionError(f"K6 bf16 rate {rate}: the tensor-core "
+                                 f"kernels exceed their float64 bounds "
+                                 f"{tc64}")
+        if any(a > K6_SIMT_GRAD_MULT * b for a, b in zip(tc64[1],
+                                                           simt64[1])):
+            raise AssertionError(f"K6 bf16 rate {rate}: a tensor-core "
+                                 f"gradient's float64 error exceeds "
+                                 f"{K6_SIMT_GRAD_MULT}x the CUDA-core "
+                                 f"form's: {tc64[1]} vs {simt64[1]}")
+        shares[rate] = (tc64, simt64)
+        fns = [plain_fwd, fwd, simt_fwd] + (
+            [] if rate else [lambda: sdpa(q, k, v, scale=1.0)])
+        plain_ms, ms, simt_ms, *lib = _turns(fns)
         _report(res, "K6 fused_attention bf16", f"rate {rate}", err, ms,
                 plain_ms, 0, 0, "mha_attention.cu", "attention.py:137",
-                library, tol=fwd_tol, bound=fwd_bound)
-        got = bwd()
+                lib[0] if lib else None, tol=fwd_tol, bound=fwd_bound,
+                simt_ms=simt_ms)
         want = att.mha_reference_backward16(g, q, k, v, seed, rate)
         torch.cuda.synchronize()
         errs = [_close_rel(f"K6 bf16 backward d{n} rate {rate}", a.float(),
                            b.float(), K6_REL16, 0.0)
-                for n, a, b in zip("qkv", got, want)]
-        fn = None
+                for n, a, b in zip("qkv", grads, want)]
+        fns = [None, bwd, simt_bwd]
         if not rate:   # autograd through SDPA, graph built once
             _, fn = _plain_backward(lambda q_, k_, v_: sdpa(q_, k_, v_,
                                                             scale=1.0),
                                     (q, k, v), g)
+            fns.append(fn)
         # the plain backward alone (graph built once), rounded as the
         # bf16 form's plain backward rounds
         _, plain = _plain_backward(
             lambda q_, k_, v_, rate=rate, seed=seed: att.mha_reference(
                 q_, k_, v_, seed, rate), (q.float(), k.float(), v.float()),
             g.float())
-        ms, plain_ms, library = _call_times(
-            bwd, lambda plain=plain: [t.to(torch.bfloat16) for t in plain()],
-            fn, 10)
+        fns[0] = lambda plain=plain: [t.to(torch.bfloat16) for t in plain()]
+        plain_ms, ms, simt_ms, *lib = _turns(fns, 10)
         _report(res, "K6 fused_attention backward bf16", f"rate {rate}",
                 max(errs), ms, plain_ms, 0, 0, "mha_attention.cu",
-                "attention.py:159", library,
-                tol=f"{K6_REL16} * max|ref|", bound=bwd_bound)
-    for key in ("K6 fused_attention bf16", "K6 fused_attention backward bf16"):
+                "attention.py:159", lib[0] if lib else None,
+                tol=f"{K6_REL16} * max|ref|", bound=bwd_bound,
+                simt_ms=simt_ms)
+    for key, part, loose in (("K6 fused_attention bf16", lambda x: x[0],
+                              bounds[False][0][0]),
+                             ("K6 fused_attention backward bf16",
+                              lambda x: max(x[1]), bounds[False][1][0])):
         res.rows[key]["bound_rates"] = rates
+        res.rows[key]["bound_ms_f32_rate"] = loose
         res.rows[key]["library_backend"] = backend
+        res.rows[key]["float64_share"] = max(part(tc)
+                                             for tc, _ in shares.values())
+        res.rows[key]["simt_float64_share"] = max(
+            part(simt) for _, simt in shares.values())
 
 
 def bp_kernels(gen, res: Results):

@@ -24,14 +24,19 @@ worker times, ``ROUNDS`` times:
 - the fusion backward (``fusion``) at batch 16, dropout 0.1 and DropPath
   on, shift 0 and 3, self and cross: K2/K3 on (16, 196, 36, 12) windows
   and K7 on two groups of G = 8, 10 back-to-back calls;
+- K6's bf16 form (``k6``) at HCP's (8, 2, 1201, 11), bf16 q/k/v/dO,
+  dropout 0 and 0.1: the forward (20 back-to-back calls) and the backward
+  (10);
 
 and once, the flagship ``FuncStructCross`` (random weights from a seed,
 float32): at batch 4 (``flagship``) 12 CUDA-synchronised training steps and
 12 predict steps, and at batch 16 (``step16``) 12 training steps on each
-fusion layout, std then bp, each after 3 of warm-up, on the host clock.
+fusion layout, std then bp; and HCP phase 1's ``TransformerNet`` at its
+default bf16 policy (``hcp16``, batch 8, T 1201, 16 layers on K6's bf16
+form): 12 training steps. Each after 3 of warm-up, on the host clock.
 
 ``--cases`` picks the groups (comma-separated; default all of k8, k4, k1,
-fusion, flagship, step16).
+fusion, k6, flagship, step16, hcp16).
 
 Prints each turn's JSON line, then for every case each side's median and
 quartiles over all its samples and the ratio of its median to BASE's.
@@ -53,7 +58,7 @@ K4_STAGES = ((36, 12, 3, 3), (36, 6, 6, 0), (9, 3, 12, 0))  # N, res, heads, shi
 BATCH = 4
 STEPS = 12
 CYCLES, ROUNDS = 2, 2   # 8 samples a side for each kernel case, 48 a step
-GROUPS = ("k8", "k4", "k1", "fusion", "flagship", "step16")
+GROUPS = ("k8", "k4", "k1", "fusion", "k6", "flagship", "step16", "hcp16")
 
 
 def _timing():
@@ -191,6 +196,44 @@ def _fusion(out, T):
                         T.events_ms(fn, iters=10))
 
 
+def _k6(out, T):
+    from multimodal_neuroimage_tpu_torch.ops import attention as att
+    gen = torch.Generator().manual_seed(17)
+    q, k, v, g = (torch.randn(8, 2, 1201, 11, generator=gen).cuda()
+                  .to(torch.bfloat16) for _ in range(4))
+    q = (q.float() / 3.3125).to(torch.bfloat16)
+    for rate in (0.0, 0.1):
+        _, out32, lse = att._launch_mha_forward16(q, k, v, 7, rate, True)
+        out["k6"].setdefault(f"forward rate {rate}", []).append(T.events_ms(
+            lambda rate=rate: att._launch_mha_forward16(q, k, v, 7, rate,
+                                                        False)))
+        out["k6"].setdefault(f"backward rate {rate}", []).append(
+            T.events_ms(lambda rate=rate, out32=out32, lse=lse:
+                        att.fused_attention_backward16(g, q, k, v, out32, lse,
+                                                       7, rate), iters=10))
+
+
+def _hcp16(out):
+    """HCP phase 1 at its default bf16 policy: the training step at batch
+    8 on series of 900-1200 TRs (random weights from a seed)."""
+    from multimodal_neuroimage_tpu_torch.config import Config
+    from multimodal_neuroimage_tpu_torch.data.loader import collate, hcp_item
+    cfg = Config(step=1, task="2DBERT", dataset_name="hcp",
+                 target="sex").validate()
+    rng = np.random.default_rng(6)
+    items = []
+    for i in range(cfg.batch_size):
+        item = hcp_item({"subject": f"h{i}", "fmri": rng.normal(
+            size=(22, int(rng.integers(900, 1201)))) + 100.0}, cfg)
+        item["target"] = np.float32(i % 2)
+        items.append(item)
+    batch = collate(items)[0]
+    _, step = _train_step(cfg, cfg.compute_dtype)
+    gen = torch.Generator().manual_seed(2)
+    out["hcp"][f"bf16 train step (batch {cfg.batch_size})"] = _step_times(
+        lambda: step(batch, gen))
+
+
 def _flagship_batch(B, rng):
     from multimodal_neuroimage_tpu_torch.config import Config
     from multimodal_neuroimage_tpu_torch.data.loader import (collate,
@@ -209,7 +252,7 @@ def _flagship_batch(B, rng):
     return cfg, collate(items)[0]
 
 
-def _train_step(cfg):
+def _train_step(cfg, dtype="float32"):
     from multimodal_neuroimage_tpu_torch.models.registry import (
         create_model, init_random_weights)
     from multimodal_neuroimage_tpu_torch.train.losses import active_losses
@@ -220,7 +263,7 @@ def _train_step(cfg):
     opt = create_optimizer("AdamW", model.parameters(), lambda t: 1e-4,
                            cfg.weight_decay)
     step = make_train_step(model, active_losses(cfg.task, cfg.fine_tune_task),
-                           opt, "float32", "cuda")
+                           opt, dtype, "cuda")
     return model, step
 
 
@@ -255,16 +298,18 @@ def worker(groups) -> int:
     lib = build.library()
     out = {"root": os.getcwd(), "build_s": lib.build_seconds, "k8": {},
            "k4 call": {}, "k4 device": {}, "k1 backward": {},
-           "fusion backward": {}, "flagship": {}}
+           "fusion backward": {}, "k6": {}, "flagship": {}, "hcp": {}}
     for _ in range(ROUNDS):
         for name, fn in (("k8", _k8), ("k4", _k4), ("k1", _k1),
-                         ("fusion", _fusion)):
+                         ("fusion", _fusion), ("k6", _k6)):
             if name in groups:
                 fn(out, T)
     if "flagship" in groups:
         _flagship(out)
     if "step16" in groups:
         _step16(out)
+    if "hcp16" in groups:
+        _hcp16(out)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -310,7 +355,7 @@ def main(argv) -> int:
     print("case: each side's median ms (q1-q3) over all its samples, and "
           "its median / BASE's; sides in order: " + ", ".join(roots))
     for group in ("k8", "k4 call", "k4 device", "k1 backward",
-                  "fusion backward", "flagship"):
+                  "fusion backward", "k6", "flagship", "hcp"):
         for case in runs[roots[0]][0][group]:
             pooled = [sum((r[group][case] for r in runs[root]), [])
                       for root in roots]

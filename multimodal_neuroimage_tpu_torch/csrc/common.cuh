@@ -36,15 +36,26 @@ static inline Dropout make_dropout(int seed, int draw, double rate) {
   return d;
 }
 
-__device__ __forceinline__ float keep(const Dropout& d, uint32_t r, uint32_t c) {
-  if (!d.on) return 1.f;
-  uint32_t u = d.base ^ (r * 461845907u) ^ (c * 668265261u);
+// The hash in two parts, for a kernel that hoists a row's part out of its
+// loop over columns: keep_at(d, keep_row(d, r), c) is keep(d, r, c) with
+// dropout on.
+__device__ __forceinline__ uint32_t keep_row(const Dropout& d, uint32_t r) {
+  return d.base ^ (r * 461845907u);
+}
+
+__device__ __forceinline__ float keep_at(const Dropout& d, uint32_t row, uint32_t c) {
+  uint32_t u = row ^ (c * 668265261u);
   u ^= u >> 16;
   u *= 0x85EBCA6Bu;
   u ^= u >> 13;
   u *= 0xC2B2AE35u;
   u ^= u >> 16;
   return u >= d.thr ? d.scale : 0.f;
+}
+
+__device__ __forceinline__ float keep(const Dropout& d, uint32_t r, uint32_t c) {
+  if (!d.on) return 1.f;
+  return keep_at(d, keep_row(d, r), c);
 }
 
 // out[e] = (add ? add[e] : 0) + sum_s part[s * n + e], s in order: the second

@@ -9,19 +9,15 @@
 //
 // What bounds it on the H100: the operations, not the bytes. At HCP shapes
 // (8, 2, 1201, 11) the forward reads and writes ~3.4 MB but does ~1.0 GFLOP
-// of score and context products (4 T^2 D per (b, h)) and 23 M exponentials;
-// D = 11 is far too thin for tensor cores (an mma tile is 16 deep), so this
-// runs on the f32 CUDA cores.
+// of score and context products (4 T^2 D per (b, h)) and 23 M exponentials.
 //
-// Design. The TPU kernel kept one whole (T, T) score matrix in VMEM; at
-// T = 1201 that is 5.8 MB, beyond a block's 227 KB of shared memory. So the
-// scores never exist as a matrix here: flash-style, each block owns 64 query
-// rows of one (b, h) and streams the keys through shared memory in tiles of
-// 64, with an online softmax (running max m, running sum l, the output
-// accumulator in registers). Four threads share a query row, each taking
-// every fourth key of a tile; their (m, l, acc) states are merged with warp
-// shuffles at the end. The forward also writes the row's log-sum-exp, from
-// which the backward rebuilds p = exp(s - lse) without a second max pass.
+// The TPU kernel kept one whole (T, T) score matrix in VMEM; at T = 1201
+// that is 5.8 MB, beyond a block's 227 KB of shared memory. So the scores
+// never exist as a matrix here: flash-style, a block owns 64 query rows of
+// one (b, h) and streams the keys through shared memory in tiles, with an
+// online softmax (running max m, running sum l, the output accumulator in
+// registers). The forward also writes the row's log-sum-exp, from which the
+// backward rebuilds p = exp(s - lse) without a second max pass.
 //
 // Dropout is on the normalised probabilities (attention.py:58-62): l sums
 // the unmasked exponentials, and only the accumulator takes keep / (1 -
@@ -34,27 +30,64 @@
 // the probabilities, since out_i = sum_j p_ij keep_ij v_j); a key-tile kernel
 // loops over every query for dv_j = sum_i p_ij keep_ij do_i and dk_j =
 // sum_i ds_ij q_i; a query-tile kernel loops over every key for dq_i =
-// sum_j ds_ij k_j, with ds_ij = p_ij (keep_ij do_i . v_j - delta_i). Each
-// thread's partial sums over its share of rows are added across the four
-// threads of a row in a fixed butterfly order.
+// sum_j ds_ij k_j, with ds_ij = p_ij (keep_ij do_i . v_j - delta_i). Every
+// sum runs in a fixed order, so repeat calls are bitwise equal.
 //
-// The bf16 form (JAX's fused_attention on bf16 q/k/v, the HCP layers under
-// the bf16 policy) is the same kernels instantiated on bf16 storage: q, k,
-// v and dout are read as bf16 and widened to f32 on load, every sum,
-// exponential and accumulator is f32 (as _make_fwd_kernel /
-// _make_bwd_kernel upcast their blocks), and out, dq, dk, dv are rounded to
-// bf16 once, on store. The forward also writes an f32 copy of out for the
-// backward's delta: from the bf16 out, delta would carry its 2^-9 relative
-// rounding into ds = p (g - delta), whose cancellation amplifies it (JAX
-// sums g_p . p from the f32 p). q k^T and dout v^T have bf16-valued
-// operands on both sides, but p v, p^T dout, ds k and ds^T q each have an
-// f32 operand that a bf16 tensor-core product would round, so the bf16
-// form runs on the CUDA cores too.
+// Two designs share that structure.
+//
+// The float32 form (mha_forward / mha_backward) runs on the f32 CUDA cores:
+// four threads share a row, each taking every fourth key of a tile, their
+// states merged with warp shuffles; shared-memory rows are padded to the
+// head-dim bound (16 or 64) + 1 floats so the four threads read four banks.
+// A float32 operand has no exact tensor-core product short of 3xTF32, and
+// this form beats its library call as it is.
+//
+// The bf16 form (mha_forward16 / mha_backward16: JAX's fused_attention on
+// bf16 q, k, v, the HCP layers under the bf16 policy) runs on the tensor
+// cores (mma.sync.m16n8k16, bf16 operands, f32 accumulators). On the CUDA
+// cores it was bound by shared-memory loads, one float read a multiply-add
+// with no register tiling, and it lost to scaled_dot_product_attention. A
+// warp owns 16 rows and keeps them as an mma A fragment, the head dim
+// zero-padded to 16, 32 or 64 (zeros add nothing, so the padding is exact);
+// the other side's tiles (64 rows, 32 at head dim 64) are staged as bf16
+// [row][DP + 8], whose pitch lets ldmatrix read eight rows from eight bank
+// groups, double-buffered through registers (a row of 11 bf16 is 22 bytes,
+// so no 16-byte copy is aligned: each thread loads 2-byte values, the next
+// tile's while the current one is computed).
+//  - q k^T (and k q^T, v dO^T, dO v^T in the backward) multiply bf16 values:
+//    the products are exact in f32, one mma a 16-deep step, as JAX's f32
+//    upcast computes them (attention.py:55-58, 72-76, 86).
+//  - The softmax runs on the accumulator fragments in f32: row max and sum
+//    over the quad of lanes that share a row, exponentials as one
+//    ex2.approx.ftz each on log2(e)-scaled scores (relative error ~2^-22),
+//    the hash per element with its row part hoisted.
+//  - p v, p^T dO, ds^T q and ds k have an f32 operand (p or ds) that a bf16
+//    mma would round to 8 bits. Each is split x = hi + lo, hi = bf16(x), lo
+//    = bf16(x - hi), which carries x to 2^-16 |x|, and the two halves go
+//    through two mma into one f32 accumulator; the other operand (v, dO, q,
+//    k) is exactly bf16. The halves are packed straight from the C fragment
+//    into A fragments (a C fragment's columns are an A fragment's k), and
+//    the B side comes by ldmatrix.trans.
+// What bounds the bf16 form is then the instruction stream of the
+// per-score work, not the products: at head dim 16 the forward runs 3 mma
+// per 16 x 8 scores, but a score takes an exponential, the split's
+// conversions, its share of the running max and sum and of the next
+// tile's staging, and at rate > 0 the hash's 11 integer operations
+// (common.cuh keep_at). At HCP's shapes
+// a grid has only 304 blocks of 4 warps, about 2 warps a scheduler, so
+// the latency of each tile's chain (mma, quad shuffles, exponentials, mma)
+// is not hidden either. The kernels are templated on dropout on or off, so
+// rate 0 carries no hash.
+//
+// out, dq, dk, dv are rounded to bf16 once, on store. The forward also
+// writes an f32 copy of out for the backward's delta: from the bf16 out,
+// delta would carry its 2^-9 relative rounding into ds = p (g - delta),
+// whose cancellation amplifies it (JAX sums g_p . p from the f32 p). The
+// CUDA-core bf16 form stays as mha_forward16_simt / mha_backward16_simt,
+// the precision yardstick of the tests (ops/attention.py _K6_SIMT).
 //
 // T need be a multiple of nothing: tail keys of the last tile never enter m
-// or l, tail rows are never written. The head dim is a template bound (16
-// or 64); shared-memory rows are padded to bound + 1 floats, so the four
-// threads of a row read four different banks.
+// or l (or ds), tail rows are never written.
 #include "common.cuh"
 
 #define MHA_DRAW 4      // the hash draw of K6's probability dropout (ops/attention.py MHA_DRAW)
@@ -357,16 +390,22 @@ static int launch_forward(const S* q, const S* k, const S* v, S* out, float* out
 }
 
 template <typename S>
+static cudaError_t launch_delta(const float* out, const S* dout, float* delta, int BH, int T,
+                                int D, cudaStream_t stream) {
+  const long long rows = (long long)BH * T;
+  long long blocks = (rows + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  mha_delta_kernel<S><<<(int)blocks, 256, 0, stream>>>(out, dout, delta, rows, D);
+  return cudaGetLastError();
+}
+
+template <typename S>
 static int launch_backward(const S* q, const S* k, const S* v, const float* out, const S* dout,
                            const float* lse, S* dq, S* dk, S* dv, float* delta, int BH, int T,
                            int D, int seed, double rate, cudaStream_t stream) {
   if (!mha_shape_ok(BH, T, D)) return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(seed, MHA_DRAW, rate);
-  const long long rows = (long long)BH * T;
-  long long blocks = (rows + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  mha_delta_kernel<S><<<(int)blocks, 256, 0, stream>>>(out, dout, delta, rows, D);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<S>(out, dout, delta, BH, T, D, stream);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((T + MHA_ROWS - 1) / MHA_ROWS), (unsigned)BH);
   if (D <= 16) {
@@ -384,6 +423,524 @@ static int launch_backward(const S* q, const S* k, const S* v, const float* out,
   }
   return (int)cudaGetLastError();
 }
+
+// ---- the bf16 form on tensor cores ---------------------------------------------
+
+#define TC_WARPS 4                    // warps a block; each owns 16 rows
+#define TC_ROWS (16 * TC_WARPS)       // query (or key) rows a block owns
+#define TC_THREADS (32 * TC_WARPS)
+// At HCP's shapes (head dim 11: DP 16) a grid has 19 x 16 = 304 blocks:
+// three resident an SM (at most 170 registers a thread) take them in one
+// wave. The wider head dims keep two (255 registers), where 170 would
+// spill.
+#define TC_MIN_BLOCKS(DP) ((DP) == 16 ? 3 : 2)
+#define TC_LOG2E 1.4426950408889634f
+#define TC_LN2 0.69314718055994531f
+
+// The tiles of padded head dim DP (16, 32 or 64): KT rows of the other side
+// a shared-memory tile, pitch LD bf16 (DP + 8: the eight 16-byte rows of an
+// ldmatrix phase fall in eight different 4-bank groups).
+template <int DP>
+struct TcShape {
+  static constexpr int KT = DP == 64 ? 32 : 64;
+  static constexpr int LD = DP + 8;
+  static constexpr int NB = KT / 8;                  // n8 blocks of a tile's rows
+  static constexpr int KS = DP / 16;                 // k16 steps of the head dim
+  static constexpr int DB = DP / 8;                  // n8 blocks of the head dim
+  static constexpr int NS = KT * DP / TC_THREADS;    // values a thread stages a tile
+};
+
+__device__ __forceinline__ uint32_t tc_smem(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 b16 matrices; lanes 8m .. 8m + 7 give the row addresses of matrix
+// m. Lane l receives row l / 4, columns 2 (l % 4) and + 1 of each (.trans:
+// column l / 4, rows 2 (l % 4) and + 1).
+__device__ __forceinline__ void tc_ldsm(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(tc_smem(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void tc_ldsm_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(tc_smem(p))
+               : "memory");
+}
+
+// c += a b: m16n8k16, bf16 operands, f32 accumulators. Fragments (g = lane
+// / 4, t = lane % 4): a[e] holds row g + 8 (e & 1), columns 16-step + 8 (e >>
+// 1) + 2t, + 1; b0 / b1 rows (k) 2t, + 1 / 2t + 8, + 9 of column g; c[e] row
+// g + 8 (e >> 1), column 2t + (e & 1).
+__device__ __forceinline__ void tc_mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x, one MUFU op (.ftz: a result below 2^-126 is 0, where the float32
+// reference keeps a subnormal that adds nothing a bf16 output can hold)
+__device__ __forceinline__ float tc_ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x0, x1 split into bf16 halves, packed (x0 in the low 16 bits) as an A
+// fragment register each: hi = bf16(x), lo = bf16(x - hi); hi + lo = x to
+// 2^-16 |x| (each rounding to nearest keeps 8 bits).
+__device__ __forceinline__ void tc_split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The A fragments of rows [r0, r0 + 16) of one (b, h)'s (T, D) bf16 matrix,
+// zero past T and past D.
+template <int KS>
+__device__ __forceinline__ void tc_load_a(uint32_t (&a)[KS][4], const __nv_bfloat16* x, int r0,
+                                          int T, int D, int g, int t) {
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e & 1), c = 16 * kk + 8 * (e >> 1) + 2 * t;
+      uint32_t lo = 0, hi = 0;
+      if (r < T) {
+        if (c < D) lo = xs[(size_t)r * D + c];
+        if (c + 1 < D) hi = xs[(size_t)r * D + c + 1];
+      }
+      a[kk][e] = lo | hi << 16;
+    }
+}
+
+// Rows [r0, r0 + KT) of one (b, h)'s (T, D) bf16 matrix into registers: the
+// thread's slots tid + s * TC_THREADS of the [KT][DP] tile, zero past T and
+// past D (coalesced 2-byte loads; rows are not 4-byte aligned at odd D).
+template <int DP>
+__device__ __forceinline__ void tc_tile_load(unsigned short (&r)[TcShape<DP>::NS],
+                                             const __nv_bfloat16* x, int r0, int T, int D) {
+  constexpr int RS = TC_THREADS / DP;   // rows between a thread's slots
+  const int row = r0 + threadIdx.x / DP, c = threadIdx.x % DP;
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(x) + (size_t)row * D + c;
+  const int left = c < D ? T - row : 0;   // slot s is in range iff RS s < left
+#pragma unroll
+  for (int s = 0; s < TcShape<DP>::NS; ++s)
+    r[s] = RS * s < left ? __ldg(src + s * RS * D) : (unsigned short)0;
+}
+
+template <int DP>
+__device__ __forceinline__ void tc_tile_store(const unsigned short (&r)[TcShape<DP>::NS],
+                                              unsigned short (*tile)[TcShape<DP>::LD]) {
+#pragma unroll
+  for (int s = 0; s < TcShape<DP>::NS; ++s) {
+    const int e = threadIdx.x + s * TC_THREADS;
+    tile[e / DP][e % DP] = r[s];
+  }
+}
+
+// c[nb] = a x^T over a staged tile: the tile's rows are the n index (n8
+// block nb: rows 8 nb .. 8 nb + 7), the head dim the k index.
+template <int DP>
+__device__ __forceinline__ void tc_rows(float (&c)[TcShape<DP>::NB][4],
+                                        const uint32_t (&a)[TcShape<DP>::KS][4],
+                                        const unsigned short (*x)[TcShape<DP>::LD], int lane) {
+  using S = TcShape<DP>;
+#pragma unroll
+  for (int nb = 0; nb < S::NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nb][e] = 0.f;
+#pragma unroll
+  for (int p = 0; p < S::NB / 2; ++p)
+#pragma unroll
+    for (int kk = 0; kk < S::KS; ++kk) {
+      uint32_t b[4];
+      tc_ldsm(b, &x[16 * p + 8 * (lane >> 4) + (lane & 7)][16 * kk + 8 * ((lane >> 3) & 1)]);
+      tc_mma(c[2 * p], a[kk], b[0], b[1]);
+      tc_mma(c[2 * p + 1], a[kk], b[2], b[3]);
+    }
+}
+
+// acc[db] += (hi + lo) x[16 p .. 16 p + 16): the A halves' k index is the
+// tile's rows 16 p .., the head dim the n index (n8 block db).
+template <int DP>
+__device__ __forceinline__ void tc_cols(float (&acc)[TcShape<DP>::DB][4], const uint32_t (&hi)[4],
+                                        const uint32_t (&lo)[4],
+                                        const unsigned short (*x)[TcShape<DP>::LD], int p,
+                                        int lane) {
+#pragma unroll
+  for (int dp = 0; dp < TcShape<DP>::DB / 2; ++dp) {
+    uint32_t b[4];
+    tc_ldsm_t(b, &x[16 * p + 8 * ((lane >> 3) & 1) + (lane & 7)][16 * dp + 8 * (lane >> 4)]);
+    tc_mma(acc[2 * dp], hi, b[0], b[1]);
+    tc_mma(acc[2 * dp + 1], hi, b[2], b[3]);
+    tc_mma(acc[2 * dp], lo, b[0], b[1]);
+    tc_mma(acc[2 * dp + 1], lo, b[2], b[3]);
+  }
+}
+
+// Store a C-layout (16 rows, DP) accumulator of rows r0 .. r0 + 15 times
+// scale[row half], as bf16 and, where f32 is not NULL, as f32.
+template <int DP>
+__device__ __forceinline__ void tc_store(const float (&acc)[TcShape<DP>::DB][4],
+                                         const float (&scale)[2], __nv_bfloat16* out16,
+                                         float* out32, int r0, int T, int D, int g, int t) {
+#pragma unroll
+  for (int db = 0; db < TcShape<DP>::DB; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e >> 1), c = 8 * db + 2 * t + (e & 1);
+      if (r < T && c < D) {
+        const float o = acc[db][e] * scale[e >> 1];
+        out16[(size_t)r * D + c] = __float2bfloat16_rn(o);
+        if (out32) out32[(size_t)r * D + c] = o;
+      }
+    }
+}
+
+// grid (ceil(T / TC_ROWS), B * H), TC_THREADS threads; a warp owns 16 query
+// rows and streams every key tile. out32 and lse may be NULL.
+template <int DP, bool DROP>
+__global__ void __launch_bounds__(TC_THREADS, TC_MIN_BLOCKS(DP))
+    mha_forward_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ out32, float* __restrict__ lse, int T, int D,
+                          Dropout drop) {
+  using S = TcShape<DP>;
+  __shared__ __align__(16) unsigned short ks[2][S::KT][S::LD];
+  __shared__ __align__(16) unsigned short vs[2][S::KT][S::LD];
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, i0 = blockIdx.x * TC_ROWS + (threadIdx.x >> 5) * 16;
+  const size_t base = (size_t)bh * T * D;
+  const uint32_t hrow = (uint32_t)bh * (uint32_t)T + (uint32_t)(i0 + g);
+  const uint32_t hr[2] = {keep_row(drop, hrow), keep_row(drop, hrow + 8)};   // rows g, g + 8
+
+  uint32_t qa[S::KS][4];
+  tc_load_a<S::KS>(qa, q + base, i0, T, D, g, t);
+  float o[S::DB][4];
+#pragma unroll
+  for (int db = 0; db < S::DB; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[db][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // m in log2 units
+
+  unsigned short kr[S::NS], vr[S::NS];
+  tc_tile_load<DP>(kr, k + base, 0, T, D);
+  tc_tile_load<DP>(vr, v + base, 0, T, D);
+  tc_tile_store<DP>(kr, ks[0]);
+  tc_tile_store<DP>(vr, vs[0]);
+  __syncthreads();
+  const int tiles = (T + S::KT - 1) / S::KT;
+  for (int n = 0; n < tiles; ++n) {
+    const int j0 = n * S::KT, cur = n & 1;
+    if (n + 1 < tiles) {   // the next tile's loads fly while this one computes
+      tc_tile_load<DP>(kr, k + base, j0 + S::KT, T, D);
+      tc_tile_load<DP>(vr, v + base, j0 + S::KT, T, D);
+    }
+    float s[S::NB][4];
+    tc_rows<DP>(s, qa, ks[cur], lane);
+    if (j0 + S::KT > T) {   // keys past T never enter m or l
+#pragma unroll
+      for (int nb = 0; nb < S::NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j0 + 8 * nb + 2 * t + (e & 1) >= T) s[nb][e] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < S::NB; ++nb) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[nb][0], s[nb][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nb][2], s[nb][3]));
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(MNT_FULL_MASK, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(MNT_FULL_MASK, mx[h], 2));
+      const float mn = fmaxf(m[h], mx[h] * TC_LOG2E);
+      corr[h] = tc_ex2(m[h] - mn);   // 0 on the first tile (m = -inf)
+      m[h] = mn;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int db = 0; db < S::DB; ++db)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[db][e] *= corr[e >> 1];
+#pragma unroll
+    for (int p = 0; p < S::NB / 2; ++p) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int nb = 2 * p + h;
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = tc_ex2(fmaf(s[nb][e], TC_LOG2E, -m[e >> 1]));
+        l[0] += x[0] + x[1];
+        l[1] += x[2] + x[3];
+        if (DROP) {
+          const uint32_t col = (uint32_t)(j0 + 8 * nb + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[e] *= keep_at(drop, hr[e >> 1], col + (e & 1));
+        }
+        tc_split(x[0], x[1], hi[2 * h], lo[2 * h]);
+        tc_split(x[2], x[3], hi[2 * h + 1], lo[2 * h + 1]);
+      }
+      tc_cols<DP>(o, hi, lo, vs[cur], p, lane);
+    }
+    if (n + 1 < tiles) {
+      tc_tile_store<DP>(kr, ks[cur ^ 1]);
+      tc_tile_store<DP>(vr, vs[cur ^ 1]);
+    }
+    __syncthreads();
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(MNT_FULL_MASK, l[h], 1);
+    l[h] += __shfl_xor_sync(MNT_FULL_MASK, l[h], 2);
+    inv[h] = 1.f / l[h];
+  }
+  tc_store<DP>(o, inv, out + base, out32 ? out32 + base : nullptr, i0, T, D, g, t);
+  if (lse && t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = i0 + g + 8 * h;
+      if (r < T) lse[(size_t)bh * T + r] = m[h] * TC_LN2 + logf(l[h]);
+    }
+}
+
+// dk, dv of TC_ROWS keys of one (b, h), a warp's 16 keys as A fragments,
+// streaming every query tile (q, dout, lse, delta).
+// grid (ceil(T / TC_ROWS), B * H), TC_THREADS threads.
+template <int DP, bool DROP>
+__global__ void __launch_bounds__(TC_THREADS, TC_MIN_BLOCKS(DP))
+    mha_backward_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                const __nv_bfloat16* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                                int T, int D, Dropout drop) {
+  using S = TcShape<DP>;
+  __shared__ __align__(16) unsigned short qs[2][S::KT][S::LD];
+  __shared__ __align__(16) unsigned short gs[2][S::KT][S::LD];
+  __shared__ __align__(16) float ls[2][S::KT];    // lse * log2(e) of the tile's rows
+  __shared__ __align__(16) float dls[2][S::KT];   // delta of the tile's rows
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, j0 = blockIdx.x * TC_ROWS + (threadIdx.x >> 5) * 16;
+  const size_t base = (size_t)bh * T * D, rbase = (size_t)bh * T;
+
+  uint32_t ka[S::KS][4], va[S::KS][4];
+  tc_load_a<S::KS>(ka, k + base, j0, T, D, g, t);
+  tc_load_a<S::KS>(va, v + base, j0, T, D, g, t);
+  float dka[S::DB][4], dva[S::DB][4];
+#pragma unroll
+  for (int db = 0; db < S::DB; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[db][e] = dva[db][e] = 0.f;
+
+  // rows past T stage zero q and dout and lse = delta = 0: p = 1, ds = 0,
+  // and their zero rows add nothing to dk or dv
+  unsigned short qr[S::NS], gr[S::NS];
+  float lr = 0.f, dr = 0.f;
+  const int tid = threadIdx.x;
+  tc_tile_load<DP>(qr, q + base, 0, T, D);
+  tc_tile_load<DP>(gr, dout + base, 0, T, D);
+  if (tid < S::KT && tid < T) {
+    lr = lse[rbase + tid] * TC_LOG2E;
+    dr = delta[rbase + tid];
+  }
+  tc_tile_store<DP>(qr, qs[0]);
+  tc_tile_store<DP>(gr, gs[0]);
+  if (tid < S::KT) {
+    ls[0][tid] = lr;
+    dls[0][tid] = dr;
+  }
+  __syncthreads();
+  const int tiles = (T + S::KT - 1) / S::KT;
+  for (int n = 0; n < tiles; ++n) {
+    const int i0 = n * S::KT, cur = n & 1;
+    if (n + 1 < tiles) {
+      const int nx = i0 + S::KT;
+      tc_tile_load<DP>(qr, q + base, nx, T, D);
+      tc_tile_load<DP>(gr, dout + base, nx, T, D);
+      lr = dr = 0.f;
+      if (tid < S::KT && nx + tid < T) {
+        lr = lse[rbase + nx + tid] * TC_LOG2E;
+        dr = delta[rbase + nx + tid];
+      }
+    }
+    float st[S::NB][4], dpt[S::NB][4];   // s^T = k q^T, dP^T = v dout^T: rows keys
+    tc_rows<DP>(st, ka, qs[cur], lane);
+    tc_rows<DP>(dpt, va, gs[cur], lane);
+#pragma unroll
+    for (int p = 0; p < S::NB / 2; ++p) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int nb = 2 * p + h, c = 8 * nb + 2 * t;   // the tile's query c, c + 1
+        const float2 lc = *reinterpret_cast<const float2*>(&ls[cur][c]);
+        const float2 dc = *reinterpret_cast<const float2*>(&dls[cur][c]);
+        uint32_t hq[2] = {0u, 0u};   // the hash's row parts of queries c, c + 1
+        if (DROP) {
+          hq[0] = keep_row(drop, (uint32_t)(rbase + i0 + c));
+          hq[1] = keep_row(drop, (uint32_t)(rbase + i0 + c + 1));
+        }
+        float pk[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pe = tc_ex2(fmaf(st[nb][e], TC_LOG2E, -(e & 1 ? lc.y : lc.x)));
+          float kp = 1.f;
+          if (DROP) kp = keep_at(drop, hq[e & 1], (uint32_t)(j0 + g + 8 * (e >> 1)));
+          pk[e] = pe * kp;
+          ds[e] = pe * (kp * dpt[nb][e] - (e & 1 ? dc.y : dc.x));
+        }
+        tc_split(pk[0], pk[1], ph[2 * h], pl[2 * h]);
+        tc_split(pk[2], pk[3], ph[2 * h + 1], pl[2 * h + 1]);
+        tc_split(ds[0], ds[1], sh[2 * h], sl[2 * h]);
+        tc_split(ds[2], ds[3], sh[2 * h + 1], sl[2 * h + 1]);
+      }
+      tc_cols<DP>(dva, ph, pl, gs[cur], p, lane);
+      tc_cols<DP>(dka, sh, sl, qs[cur], p, lane);
+    }
+    if (n + 1 < tiles) {
+      tc_tile_store<DP>(qr, qs[cur ^ 1]);
+      tc_tile_store<DP>(gr, gs[cur ^ 1]);
+      if (tid < S::KT) {
+        ls[cur ^ 1][tid] = lr;
+        dls[cur ^ 1][tid] = dr;
+      }
+    }
+    __syncthreads();
+  }
+  const float one[2] = {1.f, 1.f};
+  tc_store<DP>(dka, one, dk + base, nullptr, j0, T, D, g, t);
+  tc_store<DP>(dva, one, dv + base, nullptr, j0, T, D, g, t);
+}
+
+// dq of TC_ROWS queries of one (b, h), a warp's 16 queries (q and dout as A
+// fragments), streaming every key tile (k, v).
+// grid (ceil(T / TC_ROWS), B * H), TC_THREADS threads.
+template <int DP, bool DROP>
+__global__ void __launch_bounds__(TC_THREADS, TC_MIN_BLOCKS(DP))
+    mha_backward_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int T, int D, Dropout drop) {
+  using S = TcShape<DP>;
+  __shared__ __align__(16) unsigned short ks[2][S::KT][S::LD];
+  __shared__ __align__(16) unsigned short vs[2][S::KT][S::LD];
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, i0 = blockIdx.x * TC_ROWS + (threadIdx.x >> 5) * 16;
+  const size_t base = (size_t)bh * T * D, rbase = (size_t)bh * T;
+  const uint32_t hr[2] = {keep_row(drop, (uint32_t)(rbase + i0 + g)),
+                          keep_row(drop, (uint32_t)(rbase + i0 + g + 8))};   // rows g, g + 8
+
+  uint32_t qa[S::KS][4], ga[S::KS][4];
+  tc_load_a<S::KS>(qa, q + base, i0, T, D, g, t);
+  tc_load_a<S::KS>(ga, dout + base, i0, T, D, g, t);
+  float lr[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = i0 + g + 8 * h;
+    lr[h] = r < T ? lse[rbase + r] * TC_LOG2E : 0.f;
+    dl[h] = r < T ? delta[rbase + r] : 0.f;
+  }
+  float dqa[S::DB][4];
+#pragma unroll
+  for (int db = 0; db < S::DB; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[db][e] = 0.f;
+
+  unsigned short kr[S::NS], vr[S::NS];
+  tc_tile_load<DP>(kr, k + base, 0, T, D);
+  tc_tile_load<DP>(vr, v + base, 0, T, D);
+  tc_tile_store<DP>(kr, ks[0]);
+  tc_tile_store<DP>(vr, vs[0]);
+  __syncthreads();
+  const int tiles = (T + S::KT - 1) / S::KT;
+  for (int n = 0; n < tiles; ++n) {
+    const int j0 = n * S::KT, cur = n & 1;
+    if (n + 1 < tiles) {
+      tc_tile_load<DP>(kr, k + base, j0 + S::KT, T, D);
+      tc_tile_load<DP>(vr, v + base, j0 + S::KT, T, D);
+    }
+    float s[S::NB][4], dp[S::NB][4];   // s = q k^T, dP = dout v^T
+    tc_rows<DP>(s, qa, ks[cur], lane);
+    tc_rows<DP>(dp, ga, vs[cur], lane);
+    const bool tail = j0 + S::KT > T;
+#pragma unroll
+    for (int p = 0; p < S::NB / 2; ++p) {
+      uint32_t sh[4], sl[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int nb = 2 * p + h, col = j0 + 8 * nb + 2 * t;
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pe = tc_ex2(fmaf(s[nb][e], TC_LOG2E, -lr[e >> 1]));
+          float kp = 1.f;
+          if (DROP) kp = keep_at(drop, hr[e >> 1], (uint32_t)(col + (e & 1)));
+          ds[e] = pe * (kp * dp[nb][e] - dl[e >> 1]);
+          if (tail && col + (e & 1) >= T) ds[e] = 0.f;   // keys past T
+        }
+        tc_split(ds[0], ds[1], sh[2 * h], sl[2 * h]);
+        tc_split(ds[2], ds[3], sh[2 * h + 1], sl[2 * h + 1]);
+      }
+      tc_cols<DP>(dqa, sh, sl, ks[cur], p, lane);
+    }
+    if (n + 1 < tiles) {
+      tc_tile_store<DP>(kr, ks[cur ^ 1]);
+      tc_tile_store<DP>(vr, vs[cur ^ 1]);
+    }
+    __syncthreads();
+  }
+  const float one[2] = {1.f, 1.f};
+  tc_store<DP>(dqa, one, dq + base, nullptr, i0, T, D, g, t);
+}
+
+template <int DP, bool DROP>
+static cudaError_t tc_forward(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                              const __nv_bfloat16* v, __nv_bfloat16* out, float* out32,
+                              float* lse, int BH, int T, int D, Dropout drop,
+                              cudaStream_t stream) {
+  const dim3 grid((unsigned)((T + TC_ROWS - 1) / TC_ROWS), (unsigned)BH);
+  mha_forward_tc_kernel<DP, DROP><<<grid, TC_THREADS, 0, stream>>>(q, k, v, out, out32, lse, T, D,
+                                                                   drop);
+  return cudaGetLastError();
+}
+
+template <int DP, bool DROP>
+static cudaError_t tc_backward(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                               const __nv_bfloat16* v, const __nv_bfloat16* dout,
+                               const float* lse, const float* delta, __nv_bfloat16* dq,
+                               __nv_bfloat16* dk, __nv_bfloat16* dv, int BH, int T, int D,
+                               Dropout drop, cudaStream_t stream) {
+  const dim3 grid((unsigned)((T + TC_ROWS - 1) / TC_ROWS), (unsigned)BH);
+  mha_backward_dkdv_tc_kernel<DP, DROP><<<grid, TC_THREADS, 0, stream>>>(q, k, v, dout, lse, delta,
+                                                                         dk, dv, T, D, drop);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mha_backward_dq_tc_kernel<DP, DROP><<<grid, TC_THREADS, 0, stream>>>(q, k, v, dout, lse, delta,
+                                                                       dq, T, D, drop);
+  return cudaGetLastError();
+}
+
+// FN<DP, DROP>(...) at the padded head dim of D and dropout on or off.
+#define TC_DISPATCH(FN, D, on, ...)                                                  \
+  ((D) <= 16   ? ((on) ? FN<16, true>(__VA_ARGS__) : FN<16, false>(__VA_ARGS__))     \
+   : (D) <= 32 ? ((on) ? FN<32, true>(__VA_ARGS__) : FN<32, false>(__VA_ARGS__))     \
+               : ((on) ? FN<64, true>(__VA_ARGS__) : FN<64, false>(__VA_ARGS__)))
 
 // q, k, v, out: (B * H, T, D) contiguous f32; lse (B * H, T) or NULL.
 // Dropout at `rate` with `seed` (0 <= rate < 1). Returns the cudaError_t.
@@ -404,13 +961,16 @@ extern "C" int mha_backward(const float* q, const float* k, const float* v, cons
                                 stream);
 }
 
-// The bf16 form: q, k, v, out (B * H, T, D) contiguous bf16; out32 (B * H,
-// T, D) f32 (the backward's copy of out) and lse (B * H, T) f32, each NULL
-// where no backward follows.
+// The bf16 form on tensor cores: q, k, v, out (B * H, T, D) contiguous bf16;
+// out32 (B * H, T, D) f32 (the backward's copy of out) and lse (B * H, T)
+// f32, each NULL where no backward follows.
 extern "C" int mha_forward16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                              const __nv_bfloat16* v, __nv_bfloat16* out, float* out32, float* lse,
                              int BH, int T, int D, int seed, double rate, cudaStream_t stream) {
-  return launch_forward<__nv_bfloat16>(q, k, v, out, out32, lse, BH, T, D, seed, rate, stream);
+  if (!mha_shape_ok(BH, T, D)) return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(seed, MHA_DRAW, rate);
+  return (int)TC_DISPATCH(tc_forward, D, drop.on, q, k, v, out, out32, lse, BH, T, D, drop,
+                          stream);
 }
 
 // The backward of mha_forward16: q, k, v, dout bf16, out32 and lse the
@@ -421,6 +981,29 @@ extern "C" int mha_backward16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                               const __nv_bfloat16* dout, const float* lse, __nv_bfloat16* dq,
                               __nv_bfloat16* dk, __nv_bfloat16* dv, float* delta, int BH, int T,
                               int D, int seed, double rate, cudaStream_t stream) {
+  if (!mha_shape_ok(BH, T, D)) return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(seed, MHA_DRAW, rate);
+  const cudaError_t err = launch_delta<__nv_bfloat16>(out32, dout, delta, BH, T, D, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)TC_DISPATCH(tc_backward, D, drop.on, q, k, v, dout, lse, delta, dq, dk, dv, BH, T,
+                          D, drop, stream);
+}
+
+// The bf16 form on the CUDA cores (the float32 form's kernels on bf16 storage), with
+// mha_forward16's and mha_backward16's arguments: the precision yardstick.
+extern "C" int mha_forward16_simt(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                  const __nv_bfloat16* v, __nv_bfloat16* out, float* out32,
+                                  float* lse, int BH, int T, int D, int seed, double rate,
+                                  cudaStream_t stream) {
+  return launch_forward<__nv_bfloat16>(q, k, v, out, out32, lse, BH, T, D, seed, rate, stream);
+}
+
+extern "C" int mha_backward16_simt(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                   const __nv_bfloat16* v, const float* out32,
+                                   const __nv_bfloat16* dout, const float* lse,
+                                   __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                                   float* delta, int BH, int T, int D, int seed, double rate,
+                                   cudaStream_t stream) {
   return launch_backward<__nv_bfloat16>(q, k, v, out32, dout, lse, dq, dk, dv, delta, BH, T, D,
                                         seed, rate, stream);
 }

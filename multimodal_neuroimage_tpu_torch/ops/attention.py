@@ -174,6 +174,22 @@ window_attention_backward.launches = 0
 MHA_MAX_HEAD_DIM = 64
 
 
+# K6's bf16 form runs on bf16 tensor cores; True runs it on the CUDA cores
+# instead (the float32 form's kernels on bf16 storage): the precision
+# yardstick that the card tests and chip_smoke.py hold the tensor-core
+# kernels against. Its launches do not count on ``launches``.
+_K6_SIMT = False
+
+
+def mha_keep(B: int, H: int, T: int, seed: int, rate: float,
+             device=None) -> torch.Tensor:
+    """(B, H, T, T) keep/(1 - rate) factors of K6's dropout."""
+    rows = torch.arange(B * H * T, dtype=torch.int64,
+                        device=device).reshape(B, H, T, 1)
+    cols = torch.arange(T, dtype=torch.int64, device=device)
+    return mix_keep(rows, cols, rate, seed, MHA_DRAW)
+
+
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   seed: int = 0, rate: float = 0.0) -> torch.Tensor:
     """softmax(q k^T) v per (b, h) on (B, H, T, D), q pre-scaled, with the
@@ -181,10 +197,7 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, T, _ = q.shape
     p = torch.softmax(torch.einsum("bhtd,bhsd->bhts", q, k), dim=-1)
     if rate > 0.0:
-        rows = torch.arange(B * H * T, dtype=torch.int64,
-                            device=q.device).reshape(B, H, T, 1)
-        cols = torch.arange(T, dtype=torch.int64, device=q.device)
-        p = p * mix_keep(rows, cols, rate, seed, MHA_DRAW)
+        p = p * mha_keep(B, H, T, seed, rate, q.device)
     return torch.einsum("bhts,bhsd->bhtd", p, v)
 
 
@@ -212,6 +225,74 @@ def mha_reference_backward16(g, q, k, v, seed: int = 0, rate: float = 0.0):
     grads = mha_reference_backward(g.float(), q.float(), k.float(),
                                    v.float(), seed, rate)
     return tuple(t.to(torch.bfloat16) for t in grads)
+
+
+def bf16_split(x: torch.Tensor):
+    """(hi, lo), bf16: hi = bf16(x), lo = bf16(x - hi), each rounded to
+    nearest, so hi + lo = x to 2^-16 |x| (exactly where x has at most 16
+    significant bits). The tensor-core kernels' split of an f32 operand
+    (``csrc/mha_attention.cu`` ``tc_split``)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _split_product(eq: str, x: torch.Tensor, y: torch.Tensor,
+                   pieces: int) -> torch.Tensor:
+    """einsum(eq, x, y) with float32 x taken as its bf16 pieces (1: bf16(x);
+    2: hi + lo) and y bf16-valued: each piece's products exact in float32,
+    the pieces' products summed in float32."""
+    hi, lo = bf16_split(x)
+    out = torch.einsum(eq, hi.float(), y)
+    return out + torch.einsum(eq, lo.float(), y) if pieces == 2 else out
+
+
+def _mha_split_parts(q, k, v, seed, rate, pieces):
+    """(float32 out, s, log-sum-exp, keep factors or None) of the split
+    model's forward, as the kernel takes it: the context of the
+    unnormalised exponentials (dropped) scaled by 1 / l."""
+    B, H, T, _ = q.shape
+    s = torch.einsum("bhtd,bhsd->bhts", q, k)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    keep = mha_keep(B, H, T, seed, rate, q.device) if rate > 0.0 else None
+    ek = e if keep is None else e * keep
+    out = _split_product("bhts,bhsd->bhtd", ek, v, pieces) * (1.0 / l)
+    return out, s, m + torch.log(l), keep
+
+
+def mha_reference16_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          seed: int = 0, rate: float = 0.0,
+                          pieces: int = 2) -> torch.Tensor:
+    """A float32 model of the bf16 form's tensor-core forward, returning
+    its float32 output (the kernel's out32; its bf16 out is this rounded
+    once): q k^T from the bf16 values (exact products, float32 sums), the
+    softmax and dropout in float32, and p v as the sum of the products of
+    p's bf16 pieces (:func:`bf16_split`) with v. ``pieces=1`` takes bf16(p)
+    alone, as a bf16 FlashAttention does."""
+    return _mha_split_parts(q.float(), k.float(), v.float(), seed, rate,
+                            pieces)[0]
+
+
+def mha_reference_backward16_split(g, q, k, v, seed: int = 0,
+                                   rate: float = 0.0, pieces: int = 2):
+    """A float32 model of the bf16 form's tensor-core backward: (dq, dk,
+    dv) in float32 (the kernels round each to bf16 once). p = exp(s -
+    lse) with the forward's log-sum-exp, dO v^T from the bf16 values, delta
+    = dO . out32 with out32 from :func:`mha_reference16_split`, ds = p (keep
+    dP - delta); p^T dO, ds^T q and ds k each as the sum of its float32
+    operand's bf16 pieces' products."""
+    g, q, k, v = (t.float() for t in (g, q, k, v))
+    out32, s, lse, keep = _mha_split_parts(q, k, v, seed, rate, pieces)
+    p = torch.exp(s - lse)
+    delta = (g * out32).sum(-1, keepdim=True)
+    dp = torch.einsum("bhtd,bhsd->bhts", g, v)
+    pk, ds = ((p, p * (dp - delta)) if keep is None
+              else (p * keep, p * (keep * dp - delta)))
+    return (_split_product("bhts,bhsd->bhtd", ds, k, pieces),
+            _split_product("bhts,bhtd->bhsd", ds, q, pieces),
+            _split_product("bhts,bhtd->bhsd", pk, g, pieces))
 
 
 def _check_mha(q, k, v, dtype=torch.float32):
@@ -246,11 +327,13 @@ def _launch_mha_forward16(q, k, v, seed, rate, save: bool):
         out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     build.library().call(
-        "mha_forward16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), None if out32 is None else out32.data_ptr(),
+        "mha_forward16_simt" if _K6_SIMT else "mha_forward16", q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if out32 is None else out32.data_ptr(),
         None if lse is None else lse.data_ptr(), B * H, T, D, int(seed),
         float(rate), build.stream_of(q))
-    fused_attention16.launches += 1
+    if not _K6_SIMT:
+        fused_attention16.launches += 1
     return out, out32, lse
 
 
@@ -290,11 +373,13 @@ def fused_attention_backward16(g, q, k, v, out32, lse, seed: int = 0,
     delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     build.library().call(
-        "mha_backward16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out32.data_ptr(), g.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B * H, T, D,
-        int(seed), float(rate), build.stream_of(q))
-    fused_attention_backward16.launches += 1
+        "mha_backward16_simt" if _K6_SIMT else "mha_backward16",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out32.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), B * H, T, D, int(seed), float(rate),
+        build.stream_of(q))
+    if not _K6_SIMT:
+        fused_attention_backward16.launches += 1
     return dq, dk, dv
 
 

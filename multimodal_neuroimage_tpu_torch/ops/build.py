@@ -72,6 +72,8 @@ _SIGNATURES = {
     "mha_backward": (_I, [_P] * 10 + [_I] * 4 + [_D, _P]),
     "mha_forward16": (_I, [_P] * 6 + [_I] * 4 + [_D, _P]),
     "mha_backward16": (_I, [_P] * 10 + [_I] * 4 + [_D, _P]),
+    "mha_forward16_simt": (_I, [_P] * 6 + [_I] * 4 + [_D, _P]),
+    "mha_backward16_simt": (_I, [_P] * 10 + [_I] * 4 + [_D, _P]),
     "batched_matmul": (_I, [_P] * 4 + [_I] * 5 + [_L] * 4
                        + [_F, _F, _I, _I, _I, _P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),

@@ -1212,3 +1212,113 @@ def test_mha_attention_bf16_launches_or_raises(dev):
         out = att.fused_attention16(z, z, z)
     assert out.dtype == torch.bfloat16 and att.fused_attention.launches == \
         before
+
+
+# ---- K6's bf16 form on tensor cores, against float64 ---------------------------
+#
+# The tensor-core kernels split the float32 operand of p v, p^T dO, ds^T q
+# and ds k into bf16 hi + lo (tests/test_torch_k6_mma.py models it on the
+# CPU). Against a float64 truth on the same bf16 inputs and masks: out32
+# within 2^-14 max|truth|, dq, dk, dv within 2^-8 |truth| + 2^-12
+# max|truth| (one bf16 rounding and a float32 error), every shape the
+# bf16 kernel test takes, dropout 0 and 0.1. The CUDA-core form
+# (attention._K6_SIMT, float32 on the CUDA cores) is the yardstick beside
+# it: each tensor-core gradient's float64 error (as a share of its bound)
+# within K6_SIMT_GRAD_MULT times the CUDA-core form's, since both are held
+# by the one bf16 rounding and a bf16 p or ds without its lo half adds an
+# 8-bit error (tests/test_torch_k6_mma.py shows the model of that design
+# missing the multiple); the share of bf16 outputs bit-equal to it printed.
+
+K6_SHAPES16 = [(2, 2, 97, 11), (1, 3, 5, 7), (2, 2, 130, 24), (1, 1, 65, 64),
+               (8, 2, 1201, 11)]
+OUT64_REL, GRAD64_RTOL, GRAD64_REL = 2.0 ** -14, 2.0 ** -8, 2.0 ** -12
+K6_SIMT_GRAD_MULT = 1.25
+
+
+def _k6_inputs16(dev, B, H, T, D):
+    gen = torch.Generator().manual_seed(B + H + T + D)
+    q, k, v, g = (_rand(gen, B, H, T, D).to(dev).to(torch.bfloat16)
+                  for _ in range(4))
+    return q, k, v, g
+
+
+def _k6_run16(q, k, v, g, rate):
+    """(out, out32, (dq, dk, dv)) of the bf16 form at seed 77."""
+    out, out32, lse = att._launch_mha_forward16(q, k, v, 77, rate, True)
+    grads = att.fused_attention_backward16(g, q, k, v, out32, lse, 77, rate)
+    torch.cuda.synchronize()
+    return out, out32, grads
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,H,T,D", K6_SHAPES16)
+def test_mha_attention_bf16_tensor_cores_vs_float64(dev, monkeypatch, B, H, T,
+                                                   D, rate):
+    q, k, v, g = _k6_inputs16(dev, B, H, T, D)
+    out_t = att.mha_reference(q.double(), k.double(), v.double(), 77, rate)
+    grads_t = att.mha_reference_backward(g.double(), q.double(), k.double(),
+                                         v.double(), 77, rate)
+    forms = {}
+    for simt in (False, True):
+        monkeypatch.setattr(att, "_K6_SIMT", simt)
+        forms[simt] = _k6_run16(q, k, v, g, rate)
+    report = []
+    for simt, (out, out32, grads) in forms.items():
+        ok = True
+        e_out = (out32.double() - out_t).abs().max().item()
+        ok &= e_out <= OUT64_REL * out_t.abs().max().item()
+        shares = []
+        for a, b in zip(grads, grads_t):
+            bound = GRAD64_RTOL * b.abs() + GRAD64_REL * b.abs().max()
+            share = ((a.double() - b).abs() / bound).max().item()
+            ok &= share <= 1.0
+            shares.append(share)
+        report.append((simt, ok, e_out / out_t.abs().max().item(), shares))
+    same = [(a == b).float().mean().item()
+            for a, b in zip((forms[False][0],) + tuple(forms[False][2]),
+                            (forms[True][0],) + tuple(forms[True][2]))]
+    print(f"K6 bf16 {(B, H, T, D)} rate {rate}: (SIMT?, within, out32 err / "
+          f"max|truth|, grad err / bound) {report}; bf16 out, dq, dk, dv "
+          f"bit-equal to the CUDA-core form's: {same}")
+    assert report[0][1], report[0]
+    assert all(a <= K6_SIMT_GRAD_MULT * b
+               for a, b in zip(report[0][3], report[1][3])), report
+
+
+def test_mha_attention_bf16_backward_is_bitwise_repeatable(dev):
+    q, k, v, g = _k6_inputs16(dev, 8, 2, 1201, 11)
+    for rate in (0.0, 0.1):
+        first = _k6_run16(q, k, v, g, rate)
+        second = _k6_run16(q, k, v, g, rate)
+        assert torch.equal(first[0], second[0])
+        for a, b in zip(first[2], second[2]):
+            assert torch.equal(a, b)
+
+
+def test_fused_attention_bf16_launches_the_tensor_core_kernels(dev,
+                                                              monkeypatch):
+    """fused_attention on bf16 launches mha_forward16 and mha_backward16
+    (their launches count), never the CUDA-core form, which runs only under
+    attention._K6_SIMT and does not count."""
+    from multimodal_neuroimage_tpu_torch.ops import build
+    lib = build.library()
+    names = []
+
+    class Spy:
+        def call(self, name, *args):
+            names.append(name)
+            return lib.call(name, *args)
+
+    monkeypatch.setattr(build, "library", lambda: Spy())
+    q, k, v, g = _k6_inputs16(dev, 2, 2, 97, 11)
+    counters = (att.fused_attention16, att.fused_attention_backward16)
+    for simt, want in ((False, ["mha_forward16", "mha_backward16"]),
+                       (True, ["mha_forward16_simt", "mha_backward16_simt"])):
+        monkeypatch.setattr(att, "_K6_SIMT", simt)
+        names.clear()
+        before = [c.launches for c in counters]
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        att.fused_attention(*ins, 77, 0.1).backward(g)
+        assert names == want
+        assert [c.launches for c in counters] == [
+            n + (not simt) for n in before]
