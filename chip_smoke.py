@@ -22,10 +22,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (``python -m multimodal_neuroimage_tpu_torch.bench.dot_shapes``) with its
    slope times per pair beside the plain chain's and ``torch.bmm``'s, and
    the fastest formulation on each. The bf16 policy's kernels: K1's mm16
-   form forward and backward at batches 4 and 16 beside
-   ``nn.TransformerEncoderLayer`` in bf16, and K7 on bf16 streams at the bp
-   flagship's shapes beside K7 on float32 streams (bounds with the products
-   at the bf16 tensor rate).
+   form forward and backward at batches 4, 16 and 64 beside
+   ``nn.TransformerEncoderLayer`` in bf16 (then each entry's device scratch
+   and the split of a batch-16 call into its launches), and K7 on bf16
+   streams at the bp flagship's shapes beside K7 on float32 streams
+   (bounds with the products at the bf16 tensor rate).
 3. The flagship ``FuncStructCross`` (random weights from a seeded
    generator): trains with ``Trainer`` on a synthetic in-memory cohort with
    a label-linked signal (16 train and 8 val subjects, batch 4, 2 epochs,
@@ -102,6 +103,7 @@ import time
 import numpy as np
 import torch
 
+from multimodal_neuroimage_tpu_torch.bench import k1_split
 from multimodal_neuroimage_tpu_torch.bench.timing import events_ms, graph_ms
 
 SEED = 20261016
@@ -1265,8 +1267,10 @@ def _grads16(name, got, want, key_bias=None):
 def bf16_kernels(gen, res: Results):
     """The bf16 policy's kernels against their plain versions on the card:
     K1's mm16 form forward (inference) and backward (dropout 0.1) at
-    batches 4 and 16 (bf16-valued weights, float32 stream) beside
-    ``nn.TransformerEncoderLayer`` in bf16 on the same weights; K7 on bf16
+    batches 4, 16 and 64 (bf16-valued weights, float32 stream) beside
+    ``nn.TransformerEncoderLayer`` in bf16 on the same weights, then each
+    entry's device scratch at batches 16 and 64 and the split of one
+    batch-16 call into its launches (``bench/k1_split.py``); K7 on bf16
     streams at the bp flagship's shapes (B 16, two groups of 8, shifts 0 and
     3, dropout 0.1 and DropPath), beside K7 on float32 streams on the same
     inputs. Bounds: products at the bf16 tensor rate, exponentials at the
@@ -1280,7 +1284,8 @@ def bf16_kernels(gen, res: Results):
     p = _k1_params16(gen)
     tol16 = f"atol {ATOL16} + rtol {RTOL16}; gradients {REL16} * max|ref|"
     tol7 = f"outputs and gradients {REL16} * max|ref|"
-    for B in (BATCH, BP_BATCH):
+    lib_ratio = {}
+    for B in (BATCH, BP_BATCH, 64):
         x, g = (torch.randn(B, T, H, generator=gen).to(dev) for _ in "xg")
         prod, exps = _bert_ops(B, T, H, 12, F_)
         layer = _encoder_layer(p, H, 12, F_).to(torch.bfloat16)
@@ -1332,7 +1337,17 @@ def bf16_kernels(gen, res: Results):
                 lib_ms, tol=tol16,
                 bound=_bound16(2 * prod, 2 * exps,
                                _nbytes(x, g, x, *p, *p)))
+        lib_ratio[B] = ms / lib_ms
         del layer, ins, out
+    print("K1 mm16 backward / its library call (bf16 nn.TransformerEncoderLayer"
+          " autograd): " + ", ".join(f"batch {B} {r:.3f}"
+                                     for B, r in lib_ratio.items()))
+    for B in (BP_BATCH, 64):
+        nbytes = k1_split.scratch_bytes(B)
+        print(f"K1 mm16 device scratch, batch {B}: forward "
+              f"{nbytes['forward']} B, backward {nbytes['backward']} B "
+              f"(residuals {nbytes['resid']} B)")
+    k1_split.report(BP_BATCH, gen)
 
     B, C, Hh, N, nW = BP_BATCH, 12, 6, 36, 196
     G = fbp.group_size(B)

@@ -21,6 +21,9 @@ worker times, ``ROUNDS`` times:
 
 - K1 backward (``k1``) at batch 4 and 16 (T 369, H 84, 12 heads, F 3072,
   dropout 0.1): CUDA events around 10 back-to-back calls;
+- K1's mm16 form (``k1_16``, the bf16 policy's layer) at batch 4, 16 and
+  64 (bf16-valued weights, dropout 0.1): the training forward with the
+  residuals saved (20 back-to-back calls) and the backward (10);
 - the fusion backward (``fusion``) at batch 16, dropout 0.1 and DropPath
   on, shift 0 and 3, self and cross: K2/K3 on (16, 196, 36, 12) windows
   and K7 on two groups of G = 8, 10 back-to-back calls;
@@ -36,7 +39,7 @@ default bf16 policy (``hcp16``, batch 8, T 1201, 16 layers on K6's bf16
 form): 12 training steps. Each after 3 of warm-up, on the host clock.
 
 ``--cases`` picks the groups (comma-separated; default all of k8, k4, k1,
-fusion, k6, flagship, step16, hcp16).
+k1_16, fusion, k6, flagship, step16, hcp16).
 
 Prints each turn's JSON line, then for every case each side's median and
 quartiles over all its samples and the ratio of its median to BASE's.
@@ -58,7 +61,8 @@ K4_STAGES = ((36, 12, 3, 3), (36, 6, 6, 0), (9, 3, 12, 0))  # N, res, heads, shi
 BATCH = 4
 STEPS = 12
 CYCLES, ROUNDS = 2, 2   # 8 samples a side for each kernel case, 48 a step
-GROUPS = ("k8", "k4", "k1", "fusion", "k6", "flagship", "step16", "hcp16")
+GROUPS = ("k8", "k4", "k1", "k1_16", "fusion", "k6", "flagship", "step16",
+          "hcp16")
 
 
 def _timing():
@@ -144,6 +148,27 @@ def _k1(out, T):
         out["k1 backward"].setdefault(f"batch {B}", []).append(T.events_ms(
             lambda: bl.bert_layer_backward(g, x, p, resid, 12, L, seed,
                                            rates, True), iters=10))
+
+
+def _k1_16(out, T):
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    gen = torch.Generator().manual_seed(19)
+    H, F_, L, rates, seed = 84, 3072, 369, (0.1, 0.1), 12345
+    p = tuple(t.to(torch.bfloat16).float().cuda() for t in
+              sum((_lin(gen, H, H) for _ in range(4)), []) + _ln(gen, H)
+              + _lin(gen, F_, H) + _lin(gen, H, F_) + _ln(gen, H))
+    for B in (4, 16, 64):
+        x, g = (torch.randn(B, L, H, generator=gen).cuda() for _ in "xg")
+
+        def forward(x=x):
+            return bl._launch_forward(x, p, 12, L, seed, rates, True, True,
+                                      True)
+        _, resid = forward()
+        out["k1 mm16"].setdefault(f"forward batch {B}", []).append(
+            T.events_ms(forward))
+        out["k1 mm16"].setdefault(f"backward batch {B}", []).append(
+            T.events_ms(lambda x=x, g=g, resid=resid: bl.bert_layer_backward16(
+                g, x, p, resid, 12, L, seed, rates, True), iters=10))
 
 
 def _fusion(out, T):
@@ -297,11 +322,11 @@ def worker(groups) -> int:
     T = _timing()
     lib = build.library()
     out = {"root": os.getcwd(), "build_s": lib.build_seconds, "k8": {},
-           "k4 call": {}, "k4 device": {}, "k1 backward": {},
+           "k4 call": {}, "k4 device": {}, "k1 backward": {}, "k1 mm16": {},
            "fusion backward": {}, "k6": {}, "flagship": {}, "hcp": {}}
     for _ in range(ROUNDS):
         for name, fn in (("k8", _k8), ("k4", _k4), ("k1", _k1),
-                         ("fusion", _fusion), ("k6", _k6)):
+                         ("k1_16", _k1_16), ("fusion", _fusion), ("k6", _k6)):
             if name in groups:
                 fn(out, T)
     if "flagship" in groups:
@@ -354,7 +379,7 @@ def main(argv) -> int:
             runs[root].append(line)
     print("case: each side's median ms (q1-q3) over all its samples, and "
           "its median / BASE's; sides in order: " + ", ".join(roots))
-    for group in ("k8", "k4 call", "k4 device", "k1 backward",
+    for group in ("k8", "k4 call", "k4 device", "k1 backward", "k1 mm16",
                   "fusion backward", "k6", "flagship", "hcp"):
         for case in runs[roots[0]][0][group]:
             pooled = [sum((r[group][case] for r in runs[root]), [])

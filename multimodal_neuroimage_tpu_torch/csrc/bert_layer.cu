@@ -726,203 +726,6 @@ __global__ void __launch_bounds__(TG_THREADS, 2) tc_gemm_kernel(Gemm g) {
       }
 }
 
-// ---- tensor cores: mma.sync m16n8k16 on bf16 operands (the bf16 policy) -----
-//
-// The route of the layer's mm16 form (JAX _mm(mm16=True)): every operand is
-// rounded to bf16 (to nearest even) and the products accumulate in float32.
-// A product of two bf16 values is exact in float32, so one bf16 mma a
-// k-step gives JAX's arithmetic up to the order of summation, where 3xTF32
-// needs three. Same block tile, warp tile and epilogue as tc_gemm_kernel;
-// the operands sit in shared memory as bf16 (half the bytes), each in its
-// global majorness with rows padded by 8 elements (fragment reads of a warp
-// on distinct banks). Global operands stay float32: a thread loads its
-// share of the next k tile (16-byte loads where rows allow) into registers
-// while the warps multiply the current one, then rounds and stores it in
-// the other of two stages. Ragged M, N and K are zero-filled.
-#define TB_BK 32
-#define TB_PAD 8
-
-template <int TA, int TB>
-struct TbTile {
-  // bf16 elements: A [BM][BK + 8] (k fastest) or [BK][BM + 8] (m fastest);
-  // B [BN][BK + 8] (k fastest) or [BK][BN + 8] (n fastest)
-  static constexpr int AST = TA ? TG_BM + TB_PAD : TB_BK + TB_PAD;
-  static constexpr int BST = TB ? TB_BK + TB_PAD : TG_BN + TB_PAD;
-  static constexpr int A_ELEMS = TA ? TB_BK * AST : TG_BM * AST;
-  static constexpr int B_ELEMS = TB ? TG_BN * BST : TB_BK * BST;
-  static constexpr int STAGE = A_ELEMS + B_ELEMS;
-  static constexpr int SMEM = 2 * STAGE * 2;   // two stages of bf16
-  // float4 loads a thread issues per k tile
-  static constexpr int A_LOADS = TG_BM * TB_BK / 4 / TG_THREADS;
-  static constexpr int B_LOADS = TG_BN * TB_BK / 4 / TG_THREADS;
-};
-
-// Register-staged copy of a ROWS x COLS float tile (row r at src + r * ld,
-// rows_valid x cols_valid in range, zero elsewhere): load() fetches a
-// thread's share, store() rounds it to bf16 into shared rows of `st`.
-template <int ROWS, int COLS, int LOADS>
-struct TbCopy {
-  float4 v[LOADS];
-
-  __device__ __forceinline__ void load(const float* src, long long ld, int rows_valid,
-                                       int cols_valid, int vec) {
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int c = threadIdx.x + i * TG_THREADS;
-      const int r = c / (COLS / 4), cc = (c % (COLS / 4)) * 4;
-      const float* row = src + (long long)r * ld + cc;
-      if (vec && r < rows_valid && cc + 4 <= cols_valid) {
-        v[i] = __ldg(reinterpret_cast<const float4*>(row));
-      } else {
-        const bool ok = r < rows_valid;
-        v[i].x = ok && cc < cols_valid ? __ldg(row) : 0.f;
-        v[i].y = ok && cc + 1 < cols_valid ? __ldg(row + 1) : 0.f;
-        v[i].z = ok && cc + 2 < cols_valid ? __ldg(row + 2) : 0.f;
-        v[i].w = ok && cc + 3 < cols_valid ? __ldg(row + 3) : 0.f;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(__nv_bfloat16* dst, int st) const {
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int c = threadIdx.x + i * TG_THREADS;
-      const int r = c / (COLS / 4), cc = (c % (COLS / 4)) * 4;
-      __nv_bfloat162 lo = __floats2bfloat162_rn(v[i].x, v[i].y);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(v[i].z, v[i].w);
-      uint2 w;
-      w.x = *reinterpret_cast<uint32_t*>(&lo);
-      w.y = *reinterpret_cast<uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(dst + r * st + cc) = w;
-    }
-  }
-};
-
-// The two bf16 values (k, k + 1) of one fragment register: one 32-bit read
-// where k is the fastest axis, two 16-bit reads packed otherwise.
-template <int KFAST>
-__device__ __forceinline__ uint32_t tb_pair(const __nv_bfloat16* s, int st, int line, int k) {
-  if (KFAST) return *reinterpret_cast<const uint32_t*>(s + line * st + k);
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(s);
-  return (uint32_t)u[k * st + line] | ((uint32_t)u[(k + 1) * st + line] << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// tc_gemm_kernel's epilogue plus mode 3: GELU(v + bias), the FFN's first
-// product in the forward.
-__device__ __forceinline__ float gemm16_epilogue(const Gemm& g, int m, int n, float v) {
-  if (g.mode == 3) return gelu_erf(g.bias ? v + g.bias[n] : v);
-  return gemm_epilogue(g, m, n, v);
-}
-
-template <int TA, int TB>
-__global__ void __launch_bounds__(TG_THREADS, 2) tc_gemm_bf16_kernel(Gemm g) {
-  using Tile = TbTile<TA, TB>;
-  extern __shared__ __align__(16) __nv_bfloat16 tbs[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane / 4, tq = lane % 4;
-  const int wm = (warp % 4) * 32, wn = (warp / 4) * 48;
-  const int m0 = blockIdx.y * TG_BM, n0 = blockIdx.x * TG_BN;
-  const int kb = blockIdx.z * g.kchunk;
-  const int ke = min(g.K, kb + g.kchunk);
-  const int nk = (ke - kb + TB_BK - 1) / TB_BK;
-
-  // A: BK rows of k, m fastest (TA) or BM rows of m, k fastest; B: BN rows
-  // of n, k fastest (TB) or BK rows of k, n fastest
-  TbCopy<TA ? TB_BK : TG_BM, TA ? TG_BM : TB_BK, Tile::A_LOADS> ca;
-  TbCopy<TB ? TG_BN : TB_BK, TB ? TB_BK : TG_BN, Tile::B_LOADS> cb;
-  auto fetch = [&](int kt) {
-    const int k0 = kb + kt * TB_BK;
-    if (TA) ca.load(g.A + (size_t)k0 * g.lda + m0, g.lda, ke - k0, g.M - m0, g.vec_a);
-    else ca.load(g.A + (size_t)m0 * g.lda + k0, g.lda, g.M - m0, ke - k0, g.vec_a);
-    if (TB) cb.load(g.B + (size_t)n0 * g.ldb + k0, g.ldb, g.N - n0, ke - k0, g.vec_b);
-    else cb.load(g.B + (size_t)k0 * g.ldb + n0, g.ldb, ke - k0, g.N - n0, g.vec_b);
-  };
-  auto put = [&](int stage) {
-    __nv_bfloat16* As = tbs + stage * Tile::STAGE;
-    ca.store(As, Tile::AST);
-    cb.store(As + Tile::A_ELEMS, Tile::BST);
-  };
-
-  float acc[2][6][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 6; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  if (nk > 0) {
-    fetch(0);
-    put(0);
-  }
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) fetch(kt + 1);   // in flight while this tile multiplies
-    const __nv_bfloat16* As = tbs + (kt & 1) * Tile::STAGE;
-    const __nv_bfloat16* Bs = As + Tile::A_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < TB_BK; kk += 16) {
-      // a0a1 (r, k..k+1), a2a3 (r + 8, k..), a4a5 (r, k + 8..), a6a7 (r + 8, k + 8..)
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm + i * 16 + gq, k = kk + 2 * tq;
-        a[i][0] = tb_pair<!TA>(As, Tile::AST, r, k);
-        a[i][1] = tb_pair<!TA>(As, Tile::AST, r + 8, k);
-        a[i][2] = tb_pair<!TA>(As, Tile::AST, r, k + 8);
-        a[i][3] = tb_pair<!TA>(As, Tile::AST, r + 8, k + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        // b0b1 (k..k+1, n), b2b3 (k + 8.., n)
-        const int n = wn + j * 8 + gq, k = kk + 2 * tq;
-        const uint32_t b0 = tb_pair<TB>(Bs, Tile::BST, n, k);
-        const uint32_t b1 = tb_pair<TB>(Bs, Tile::BST, n, k + 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
-      }
-    }
-    if (kt + 1 < nk) put((kt + 1) & 1);
-    __syncthreads();
-  }
-
-  const bool split = g.splits > 1;
-  float* C = split ? g.C + (size_t)blockIdx.z * g.M * g.N : g.C;
-  const int ldc = split ? g.N : g.ldc;
-  const bool pairs = ldc % 2 == 0 && (uintptr_t)C % 8 == 0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 6; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + i * 16 + gq + h * 8;
-        const int n = n0 + wn + j * 8 + 2 * tq;
-        if (m >= g.M || n >= g.N) continue;
-        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        float* dst = C + (size_t)m * ldc + n;
-        if (!split) {
-          v0 = gemm16_epilogue(g, m, n, v0);
-          if (n + 1 < g.N) v1 = gemm16_epilogue(g, m, n + 1, v1);
-        }
-        if (pairs && n + 1 < g.N) {
-          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-        } else {
-          dst[0] = v0;
-          if (n + 1 < g.N) dst[1] = v1;
-        }
-      }
-}
-
 // ---- the SIMT route (float32 FMAs on the CUDA cores) -------------------------
 //
 // The port's first GEMM, kept as the precision yardstick of the 3xTF32
@@ -1015,9 +818,8 @@ static long long gemm_part_floats(int M, int N, int K) {
 }
 
 // The routes of gemm(): 3xTF32 on the tensor cores (the float32 layer's),
-// float32 FMAs on the CUDA cores (its precision yardstick), bf16 operands on
-// the tensor cores (the mm16 layer's).
-enum GemmRoute { GEMM_TF32X3 = 0, GEMM_SIMT = 1, GEMM_BF16 = 2 };
+// float32 FMAs on the CUDA cores (its precision yardstick).
+enum GemmRoute { GEMM_TF32X3 = 0, GEMM_SIMT = 1 };
 
 // One product: split over K (partials in `part`, then reduced, with `add`
 // added) when that fills the card better. A split product writes a dense
@@ -1046,18 +848,6 @@ static cudaError_t gemm(int M, int N, int K, const float* A, int lda, int ta, co
   cudaError_t err = cudaSuccess;
   if (simt) {
     gemm_simt_kernel<<<grid, 256, 0, stream>>>(g);
-  } else if (route == GEMM_BF16) {
-#define TB_LAUNCH(TA, TB)                                                                        \
-  do {                                                                                           \
-    if ((err = allow_smem(tc_gemm_bf16_kernel<TA, TB>, TbTile<TA, TB>::SMEM)) != cudaSuccess)    \
-      return err;                                                                                \
-    tc_gemm_bf16_kernel<TA, TB><<<grid, TG_THREADS, TbTile<TA, TB>::SMEM, stream>>>(g);          \
-  } while (0)
-    if (ta && tb) return cudaErrorInvalidValue;
-    if (ta) TB_LAUNCH(1, 0);
-    else if (tb) TB_LAUNCH(0, 1);
-    else TB_LAUNCH(0, 0);
-#undef TB_LAUNCH
   } else {
 #define TG_LAUNCH(TA, TB)                                                               \
   do {                                                                                  \
@@ -1395,36 +1185,12 @@ static cudaError_t ln_backward(const float* gin, const float* pre, const float* 
 // floats. simt: run the products on the float32 SIMT GEMM (the precision
 // yardstick) instead of 3xTF32 on the tensor cores. Returns the cudaError_t
 // of the first launch that fails.
-static int bert_backward(const float* x, const float* resid, const float* g,
-                         const void* const* params, void* const* grads, float* dx, float* scratch,
-                         int B, int T, int H, int F, int heads, int t_valid, int TP, int seed,
-                         double attn_rate, double hidden_rate, int route, int mm16,
-                         cudaStream_t stream);
-
 extern "C" int bert_layer_backward(const float* x, const float* resid, const float* g,
                                    const void* const* params, void* const* grads, float* dx,
                                    float* scratch, int B, int T, int H, int F, int heads,
                                    int t_valid, int TP, int seed, double attn_rate,
                                    double hidden_rate, int simt, cudaStream_t stream) {
-  return bert_backward(x, resid, g, params, grads, dx, scratch, B, T, H, F, heads, t_valid, TP,
-                       seed, attn_rate, hidden_rate, simt ? GEMM_SIMT : GEMM_TF32X3, 0, stream);
-}
-
-// The attention half's score backward under mm16 (defined with the mm16
-// form below).
-static cudaError_t attn_bwd16(const float* q, const float* k, const float* v,
-                              const float* dctx, const float* rden, float* seg, float* dqkv,
-                              const Dropout& drop, int B, int T, int TP, int H, int heads,
-                              int t_valid, cudaStream_t stream);
-
-// The backward of either form: route is the products' GemmRoute, mm16
-// selects the score backward of the mm16 form (resid's log-sum-exp slot
-// then holds the forward's rounded reciprocal denominators).
-static int bert_backward(const float* x, const float* resid, const float* g,
-                         const void* const* params, void* const* grads, float* dx, float* scratch,
-                         int B, int T, int H, int F, int heads, int t_valid, int TP, int seed,
-                         double attn_rate, double hidden_rate, int route, int mm16,
-                         cudaStream_t stream) {
+  const int route = simt ? GEMM_SIMT : GEMM_TF32X3;
   if (bert_bad_dims(T, H, F, heads, t_valid, TP)) return (int)cudaErrorInvalidValue;
   const float* const* p = reinterpret_cast<const float* const*>(params);
   float* const* dp = reinterpret_cast<float* const*>(grads);
@@ -1465,9 +1231,7 @@ static int bert_backward(const float* x, const float* resid, const float* g,
   const dim3 grid((T + BERT_ATTN_QUERIES - 1) / BERT_ATTN_QUERIES, heads, B);
   const size_t smem_dq = 2 * (size_t)t_valid * hd * sizeof(float);
   const size_t smem_dkv = (2 * (size_t)T * hd + 2 * (size_t)T) * sizeof(float);
-  if (mm16) {
-    CK(attn_bwd16(q, k, v, dctx, lse, Dd, dqkv, d_attn, B, T, TP, H, heads, t_valid, stream));
-  } else if (hd <= 8) {
+  if (hd <= 8) {
     CK(allow_smem(bert_attn_bwd_dq_kernel<8>, smem_dq));
     bert_attn_bwd_dq_kernel<8><<<grid, BERT_ATTN_THREADS, smem_dq, stream>>>(
         q, k, v, ctx, dctx, lse, Dd, dqkv, 3 * H, d_attn, T, TP, H, hd, t_valid, scale);
@@ -1513,84 +1277,1249 @@ static int bert_backward(const float* x, const float* resid, const float* g,
 // LayerNorms and the saved residuals stay float32; the saved log-sum-exp's
 // slot holds bf16(1 / den) instead.
 //
-// The dense products (QKV, out-projection, both FFN products; all five of
-// the backward's FFN products and its projections) run on
-// tc_gemm_bf16_kernel, one bf16 mma.sync a k-step. The per-head scores and
-// context (head dim 7) stay on the CUDA cores, in the layout of the float32
-// kernels: four lanes a query. The forward writes GELU(x1 W1^T + b1), one
-// (M, F) float32 buffer, where the float32 forward keeps F-chunks in shared
-// memory: the price of putting both FFN products on the tensor cores.
+// Every product, the head-dim-7 scores and contexts included, runs on bf16
+// mma.sync.m16n8k16 with float32 sums: both operands of each are bf16
+// values, so each product of two is exact and only the order of the float32
+// sums differs from JAX's. A warp owns 16 rows of every tile as A
+// fragments; a C fragment that feeds the next product (GELU(u), the dropped
+// probabilities, ds, DU) is rounded and repacked in registers as that
+// product's A fragment (GELU(U) and DU are also stored, as bf16, for the
+// backward's weight gradients; nothing else of the FFN's width is).
 //
-// What bounds it on the H100: not the card's rates (a batch-16 layer's
-// ~6 GFLOP of products take ~6 us at the bf16 tensor rate) but latency:
-// the K = 84 products' short k loops, the head-dim-7 attention on the CUDA
-// cores, and the FFN intermediates crossing device memory as float32 (72 MB
-// a layer at batch 16 forward, five such in the backward).
+// What bounds it on the H100: not the products (a batch-16 layer's ~10
+// GFLOP take ~10 us at the bf16 tensor rate) but the float32 work on the
+// fragments: GELU and GELU' of every (row, F) element, an exponential (and
+// at dropout the hash) of every score, on the CUDA cores, around short
+// chains of dependent mma.sync; and the bytes of the FFN's (M, F)
+// intermediates. The forward keeps GELU(u)
+// in registers (as the TPU kernel keeps its F-chunks in VMEM,
+// multimodal_neuroimage_tpu/ops/bert_layer.py _ffn_chunk); the backward
+// recomputes U a chunk at a time and stores GELU(U) and DU only as bf16,
+// the values JAX's mm16 products round them to (_ffn_bwd_body).
+//
+// Layout: hidden rows are padded to K16_KP = 96 columns for the k16 steps
+// (H <= 96), F runs in chunks of K16_FC = 32 columns, and the F chunks of
+// one launch split into `slices` blocks a row tile, whose float32 partial
+// sums a row kernel adds up in a fixed order. Every sum across blocks is a
+// per-block partial added in a fixed order (k16_reduce_kernel): the
+// gradients are bitwise the same from run to run, with no float atomics.
 // ===========================================================================
 
 #define BERT_LOGIT_CAP 80.f
+#define K16_LOG2E 1.4426950408889634f
+#define K16_KP 96                   // padded hidden width: k16 steps of H <= 96
+#define K16_KS (K16_KP / 16)        // its k16 steps
+#define K16_NB (K16_KP / 8)         // its n8 blocks
+#define K16_LD (K16_KP + 8)         // bf16 pitch of a 96-wide shared row (208 B)
+#define K16_FC 32                   // F columns a chunk
+#define K16_FLD (K16_FC + 8)        // bf16 pitch of a chunk-wide shared row (80 B)
+#define K16_WARPS 4
+#define K16_ROWS (16 * K16_WARPS)   // rows a block of the row kernels
+#define K16_THREADS (32 * K16_WARPS)
+#define K16_AT 64                   // keys (or queries) an attention tile
+#define K16_ALD 24                  // bf16 pitch of a head's 16 (padded) dims (48 B)
+#define K16_MAXSLICE 16
+#define K16_FWD_PER_SM 4            // resident blocks an SM of the FFN kernels
+#define K16_BWD_PER_SM 3            // (their __launch_bounds__)
+#define K16_LN_ROWS 16              // rows a block of the LN backward (two a warp)
+#define K16_K3KS 18                 // k16 steps of the merged dx product: 3H <= 288
+#define K16_K3P (16 * K16_K3KS)     // dq | dk | dv rows, zero-padded
+#define K16_TN_BI 128               // dW products: output rows (i) a block
+#define K16_TN_BJ 96                // output columns (j) a block (H <= 96)
+#define K16_TN_BK 32                // rows of m a stage
+#define K16_TN_STAGES 3
+#define K16_TN_THREADS 256
 
-template <int MAXHD>
-__global__ void __launch_bounds__(BERT_ATTN_THREADS)
-bert_attention16_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ ctx,
-                        float* __restrict__ rden, Dropout drop, int T, int TP, int H, int hd,
-                        int t_valid, float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = smem + (size_t)t_valid * hd;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const size_t row0 = (size_t)b * T;
-  for (int i = threadIdx.x; i < t_valid * hd; i += BERT_ATTN_THREADS) {
-    const size_t g = (row0 + i / hd) * H + h * hd + i % hd;
-    ks[i] = bf16r(k[g]);
-    vs[i] = bf16r(v[g]);
+typedef unsigned short bf16_t;   // bf16 bits in shared memory and buffers
+
+__device__ __forceinline__ uint32_t k16_pack(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ bf16_t k16_bits(float v) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(v);
+  return *reinterpret_cast<const bf16_t*>(&h);
+}
+
+// 16-byte cp.async; ok == false zero-fills the 16 bytes (src must stay a
+// valid address).
+__device__ __forceinline__ void k16_cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(tc_smem(dst)), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void k16_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void k16_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The A fragments of rows [r0, r0 + 16) x columns [0, 16 KS) of a float32
+// row-major matrix (ld floats a row), rounded to bf16; zero past M rows and
+// past `cols` columns (tc_mma's fragment layout).
+template <int KS>
+__device__ __forceinline__ void k16_frag32(uint32_t (&a)[KS][4], const float* __restrict__ src,
+                                           int ld, int r0, int M, int cols, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e & 1), c = 16 * kk + 8 * (e >> 1) + 2 * t;
+      float v0 = 0.f, v1 = 0.f;
+      if (r < M) {
+        const float* p = src + (size_t)r * ld + c;
+        if (c < cols) v0 = p[0];
+        if (c + 1 < cols) v1 = p[1];
+      }
+      a[kk][e] = k16_pack(v0, v1);
+    }
+}
+
+// The same from a bf16 row-major matrix whose rows hold at least 16 KS
+// (zero-padded) columns: one 4-byte load a register.
+template <int KS>
+__device__ __forceinline__ void k16_frag16(uint32_t (&a)[KS][4], const bf16_t* __restrict__ src,
+                                           int ld, int r0, int M, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e & 1), c = 16 * kk + 8 * (e >> 1) + 2 * t;
+      a[kk][e] = r < M ? *reinterpret_cast<const uint32_t*>(src + (size_t)r * ld + c) : 0u;
+    }
+}
+
+// c[nb] += a x^T over a shared tile x whose rows are the n index (n8 block
+// nb: rows 8 nb .. 8 nb + 7) and whose columns are the k index (k16 step
+// kk: columns 16 kk ..): ldmatrix of [n][k] storage.
+template <int NB>
+__device__ __forceinline__ void k16_mma_nk(float (&c)[NB][4], const uint32_t (&a)[4],
+                                           const bf16_t* x, int ld, int kk, int lane) {
+#pragma unroll
+  for (int p = 0; p < NB / 2; ++p) {
+    uint32_t b[4];
+    tc_ldsm(b, x + (16 * p + 8 * (lane >> 4) + (lane & 7)) * ld + 16 * kk +
+                   8 * ((lane >> 3) & 1));
+    tc_mma(c[2 * p], a, b[0], b[1]);
+    tc_mma(c[2 * p + 1], a, b[2], b[3]);
+  }
+}
+
+// The same over a tile whose rows are the k index (k16 step kk: rows 16 kk
+// ..) and whose columns are the n index: ldmatrix.trans of [k][n] storage.
+template <int NB>
+__device__ __forceinline__ void k16_mma_kn(float (&c)[NB][4], const uint32_t (&a)[4],
+                                           const bf16_t* x, int ld, int kk, int lane) {
+#pragma unroll
+  for (int p = 0; p < NB / 2; ++p) {
+    uint32_t b[4];
+    tc_ldsm_t(b, x + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * ld + 16 * p +
+                     8 * (lane >> 4));
+    tc_mma(c[2 * p], a, b[0], b[1]);
+    tc_mma(c[2 * p + 1], a, b[2], b[3]);
+  }
+}
+
+// The C fragments of n8 blocks 2p and 2p + 1 (x[e]: row g + 8 (e >> 1),
+// column 2t + (e & 1)) rounded to bf16 and repacked as the A fragment of a
+// product whose k index is those 16 columns.
+__device__ __forceinline__ void k16_c2a(uint32_t (&a)[4], const float (&c0)[4],
+                                        const float (&c1)[4]) {
+  a[0] = k16_pack(c0[0], c0[1]);
+  a[1] = k16_pack(c0[2], c0[3]);
+  a[2] = k16_pack(c1[0], c1[1]);
+  a[3] = k16_pack(c1[2], c1[3]);
+}
+
+// ---- the weights as bf16 -------------------------------------------------------
+//
+// Each launch rounds the weights its products read into bf16 matrices of
+// `rows` x `ld` (zero past `cols`), once a call: element (r, c) = w[0][r cols
+// + c], or with trans w[c / rows][(c % rows) rows + r] (rows x rows weights
+// stacked along c, transposed: Wo^T, [Wq; Wk; Wv]^T). The FFN kernels and the
+// hidden-width products then stage them with 16-byte cp.async.
+struct K16WJob {
+  const float* w[3];
+  bf16_t* dst;
+  int rows, cols, ld, trans;
+};
+
+#define K16_MAXW 6
+
+struct K16Weights {
+  K16WJob job[K16_MAXW];
+};
+
+__global__ void __launch_bounds__(256) k16_weights_kernel(K16Weights W) {
+  const K16WJob& J = W.job[blockIdx.y];
+  const int n = J.rows * J.ld;
+  for (int e = blockIdx.x * 256 + threadIdx.x; e < n; e += gridDim.x * 256) {
+    const int r = e / J.ld, c = e % J.ld;
+    float v = 0.f;
+    if (c < J.cols)
+      v = J.trans ? J.w[c / J.rows][(size_t)(c % J.rows) * J.rows + r]
+                  : J.w[0][(size_t)r * J.cols + c];
+    J.dst[e] = k16_bits(v);
+  }
+}
+
+// Launch the jobs (at most K16_MAXW), one grid row each.
+static cudaError_t k16_weights(const K16Weights& W, int njobs, cudaStream_t stream) {
+  k16_weights_kernel<<<dim3(256, njobs), 256, 0, stream>>>(W);
+  return cudaGetLastError();
+}
+
+// The FFN kernels stream the weights a chunk at a time through a ring of
+// K16_FSTAGES stages (each a W1 chunk, then a W2 chunk), two chunks in
+// flight while one multiplies: a chunk's products are short, and the L2
+// latency of its copies would stall a shallower ring.
+#define K16_FSTAGES 3
+#define K16_W1ST (K16_FC * K16_LD)                 // bf16 of a stage's W1 chunk
+#define K16_WSTAGE (K16_W1ST + K16_KP * K16_FLD)   // bf16 of a stage
+
+// One chunk of the FFN weights into ring stage w: w1s [K16_FC][K16_LD] (rows
+// f0 .. of w1b, (j, h)) and w2s [K16_KP][K16_FLD] (columns f0 .. of w2b,
+// (h, j); rows >= H stay as zeroed once).
+__device__ __forceinline__ void k16_stage_chunk(bf16_t* w, const bf16_t* __restrict__ w1b,
+                                                const bf16_t* __restrict__ w2b, int f0, int H,
+                                                int F) {
+  bf16_t *w1s = w, *w2s = w + K16_W1ST;
+  for (int i = threadIdx.x; i < K16_FC * (K16_KP / 8); i += K16_THREADS) {
+    const int j = i / (K16_KP / 8), c = (i % (K16_KP / 8)) * 8;
+    k16_cp16(w1s + j * K16_LD + c, w1b + (size_t)(f0 + j) * K16_KP + c, true);
+  }
+  for (int i = threadIdx.x; i < H * (K16_FC / 8); i += K16_THREADS) {
+    const int h = i / (K16_FC / 8), c = (i % (K16_FC / 8)) * 8;
+    k16_cp16(w2s + h * K16_FLD + c, w2b + (size_t)h * F + f0 + c, true);
+  }
+}
+
+// Zero the W2 rows >= H of every ring stage, then start the ring: chunks
+// 0 .. K16_FSTAGES - 2 of the slice from f0, a commit group each.
+__device__ __forceinline__ void k16_ring_start(bf16_t* ring, const bf16_t* __restrict__ w1b,
+                                               const bf16_t* __restrict__ w2b, int f0, int H,
+                                               int F, int chunks) {
+  for (int st = 0; st < K16_FSTAGES; ++st)
+    for (int i = threadIdx.x; i < (K16_KP - H) * K16_FLD; i += K16_THREADS)
+      ring[st * K16_WSTAGE + K16_W1ST + H * K16_FLD + i] = 0;
+  for (int st = 0; st < K16_FSTAGES - 1; ++st) {
+    if (st < chunks) k16_stage_chunk(ring + st * K16_WSTAGE, w1b, w2b, f0 + st * K16_FC, H, F);
+    k16_commit();
+  }
+}
+
+// Chunk c's stage is in (every thread's copies waited for, then the block
+// synchronised, so that chunk c - 1's stage is free): start chunk c +
+// K16_FSTAGES - 1's copies into it; returns chunk c's stage.
+__device__ __forceinline__ const bf16_t* k16_ring_next(bf16_t* ring,
+                                                       const bf16_t* __restrict__ w1b,
+                                                       const bf16_t* __restrict__ w2b, int fbase,
+                                                       int c, int H, int F, int chunks) {
+  k16_wait<K16_FSTAGES - 2>();
+  __syncthreads();
+  const int nc = c + K16_FSTAGES - 1;
+  if (nc < chunks)
+    k16_stage_chunk(ring + (nc % K16_FSTAGES) * K16_WSTAGE, w1b, w2b, fbase + nc * K16_FC, H, F);
+  k16_commit();
+  return ring + (c % K16_FSTAGES) * K16_WSTAGE;
+}
+
+// The block's K16_ROWS rows of a float32 (M, H) matrix, rounded to bf16, into
+// a [K16_ROWS][K16_LD] shared tile (zero past M and past H).
+__device__ __forceinline__ void k16_rows_tile(bf16_t* tile, const float* __restrict__ src,
+                                              int r0, int M, int H) {
+  for (int i = threadIdx.x; i < K16_ROWS * K16_KP; i += K16_THREADS) {
+    const int r = i / K16_KP, c = i % K16_KP;
+    tile[r * K16_LD + c] = k16_bits(r0 + r < M && c < H ? src[(size_t)(r0 + r) * H + c] : 0.f);
+  }
+}
+
+// The A fragment (rows r .. r + 15, k16 step kk) of a [rows][ld] bf16 shared
+// tile: ldmatrix of [m][k] storage.
+__device__ __forceinline__ void k16_lda(uint32_t (&a)[4], const bf16_t* tile, int ld, int r,
+                                        int kk, int lane) {
+  tc_ldsm(a, tile + (r + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 16 * kk + 8 * (lane >> 4));
+}
+
+// ---- FFN forward -----------------------------------------------------------------
+//
+// grid (ceil(M / K16_ROWS), slices), K16_THREADS threads. Per chunk of K16_FC
+// columns: U = x1 W1c^T (+ b1) on mma, GELU on the fragments, rounded to bf16
+// and repacked in registers as the A fragment of z += GELU(U) W2c^T. The
+// slice's partial z (M, H) goes to zp[slice]; bert_bias_res_ln_kernel adds
+// the slices. GELU(u) never leaves the registers. x1's tile sits in shared
+// memory as bf16 (its fragments read by ldmatrix a chunk), which keeps the
+// registers at four blocks an SM. K16_FFN_FWD_SMEM bytes of dynamic shared
+// memory.
+#define K16_FFN_FWD_SMEM ((K16_FSTAGES * K16_WSTAGE + K16_ROWS * K16_LD) * 2)
+
+__global__ void __launch_bounds__(K16_THREADS, K16_FWD_PER_SM)
+k16_ffn_fwd_kernel(const float* __restrict__ x1, const bf16_t* __restrict__ w1b,
+                   const bf16_t* __restrict__ w2b, const float* __restrict__ b1m,
+                   float* __restrict__ zp, int M, int H, int F, int chunks) {
+  extern __shared__ __align__(16) bf16_t k16s[];
+  bf16_t* ring = k16s;
+  bf16_t* xs = ring + K16_FSTAGES * K16_WSTAGE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rb = blockIdx.x * K16_ROWS, r0 = rb + warp * 16;
+  const int fbase = blockIdx.y * chunks * K16_FC;
+  k16_ring_start(ring, w1b, w2b, fbase, H, F, chunks);
+  k16_rows_tile(xs, x1, rb, M, H);
+  float z[K16_NB][4];
+#pragma unroll
+  for (int nb = 0; nb < K16_NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) z[nb][e] = 0.f;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int f0 = fbase + c * K16_FC;
+    const bf16_t* w1s = k16_ring_next(ring, w1b, w2b, fbase, c, H, F, chunks);
+    const bf16_t* w2s = w1s + K16_W1ST;
+    float u[K16_FC / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < K16_FC / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) u[nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < K16_KS; ++kk) {
+      uint32_t xa[4];
+      k16_lda(xa, xs, K16_LD, warp * 16, kk, lane);
+      k16_mma_nk<K16_FC / 8>(u, xa, w1s, K16_LD, kk, lane);
+    }
+#pragma unroll
+    for (int nb = 0; nb < K16_FC / 8; ++nb) {
+      const float bb0 = __ldg(b1m + f0 + 8 * nb + 2 * t), bb1 = __ldg(b1m + f0 + 8 * nb + 2 * t + 1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) u[nb][e] = gelu_erf(u[nb][e] + (e & 1 ? bb1 : bb0));
+    }
+#pragma unroll
+    for (int p = 0; p < K16_FC / 16; ++p) {
+      uint32_t ga[4];
+      k16_c2a(ga, u[2 * p], u[2 * p + 1]);
+      // z += GELU(U)_p W2c^T: w2s holds (n = h, k = j)
+      k16_mma_nk<K16_NB>(z, ga, w2s, K16_FLD, p, lane);
+    }
+  }
+  float* dst = zp + (size_t)blockIdx.y * M * H;
+#pragma unroll
+  for (int nb = 0; nb < K16_NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e >> 1), o = 8 * nb + 2 * t + (e & 1);
+      if (r < M && o < H) dst[(size_t)r * H + o] = z[nb][e];
+    }
+}
+
+// GELU(u) and GELU'(u) from one erf, in gelu_erf's and gelu_erf_grad's
+// arithmetic.
+__device__ __forceinline__ void k16_gelu2(float u, float& gv, float& dv) {
+  const float e = 1.0f + erff(u * 0.70710678118654752f);
+  gv = 0.5f * u * e;
+  dv = 0.5f * e + u * expf(-0.5f * u * u) * 0.39894228040143268f;
+}
+
+// ---- FFN backward, the row pass ---------------------------------------------------
+//
+// grid (ceil(M / K16_ROWS), slices), K16_THREADS threads, k16_ffn_bwd_smem()
+// bytes of dynamic shared memory. Per chunk of K16_FC columns, in registers:
+// U = bf16(x1) W1c^T + b1 and dGU = bf16(dz) W2c (two mma products over H),
+// DU = dGU * GELU'(U); then bf16(GELU(U)) and bf16(DU) are stored (through a
+// per-warp shared tile, 16-byte rows), DU's float32 column sums over the
+// block's rows go to db1p[row tile] (db1 sums the float32 DU, as JAX's), and
+// dx1 += bf16(DU) W1c accumulates in registers across the slice; the
+// slice's partial goes to dx1p[slice]. x1's and dz's tiles sit in shared
+// memory as bf16 (fragments by ldmatrix a chunk). Slice 0 also writes
+// bf16(x1), (M, K16_KP), for the dW1 product.
+struct K16FfnBwdSmem {
+  static constexpr int RING = K16_FSTAGES * K16_WSTAGE;
+  static constexpr int X = K16_ROWS * K16_LD, OT = K16_WARPS * 16 * K16_FLD;
+  static constexpr int BYTES = (RING + 2 * X + OT) * 2 + K16_WARPS * K16_FC * 4;
+};
+
+__global__ void __launch_bounds__(K16_THREADS, K16_BWD_PER_SM)
+k16_ffn_bwd_kernel(const float* __restrict__ x1, const bf16_t* __restrict__ dzb,
+                   const bf16_t* __restrict__ w1b, const bf16_t* __restrict__ w2b,
+                   const float* __restrict__ b1m, bf16_t* __restrict__ gub,
+                   bf16_t* __restrict__ dub, float* __restrict__ db1p, float* __restrict__ dx1p,
+                   bf16_t* __restrict__ x1b, int M, int H, int F, int chunks) {
+  using S = K16FfnBwdSmem;
+  extern __shared__ __align__(16) bf16_t k16s[];
+  bf16_t* ring = k16s;
+  bf16_t* xs = ring + S::RING;
+  bf16_t* zs = xs + S::X;
+  float(*red)[K16_FC] = reinterpret_cast<float(*)[K16_FC]>(zs + S::X + S::OT);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rb = blockIdx.x * K16_ROWS, r0 = rb + warp * 16;
+  const int fbase = blockIdx.y * chunks * K16_FC;
+  bf16_t* tile = zs + S::X + warp * 16 * K16_FLD;
+  for (int i = threadIdx.x; i < K16_ROWS * (K16_KP / 8); i += K16_THREADS) {
+    const int r = i / (K16_KP / 8), c = (i % (K16_KP / 8)) * 8;
+    const bool ok = rb + r < M;
+    k16_cp16(zs + r * K16_LD + c, ok ? dzb + (size_t)(rb + r) * K16_KP + c : dzb, ok);
+  }
+  k16_ring_start(ring, w1b, w2b, fbase, H, F, chunks);   // dz's tile joins chunk 0's group
+  k16_rows_tile(xs, x1, rb, M, H);
+  if (blockIdx.y == 0) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < K16_ROWS * (K16_KP / 8); i += K16_THREADS) {
+      const int r = i / (K16_KP / 8), c = (i % (K16_KP / 8)) * 8;
+      if (rb + r < M)
+        *reinterpret_cast<uint4*>(x1b + (size_t)(rb + r) * K16_KP + c) =
+            *reinterpret_cast<const uint4*>(xs + r * K16_LD + c);
+    }
+  }
+  float dx[K16_NB][4];
+#pragma unroll
+  for (int nb = 0; nb < K16_NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dx[nb][e] = 0.f;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int f0 = fbase + c * K16_FC;
+    const bf16_t* w1s = k16_ring_next(ring, w1b, w2b, fbase, c, H, F, chunks);
+    const bf16_t* w2s = w1s + K16_W1ST;
+    float u[K16_FC / 8][4], dg[K16_FC / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < K16_FC / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) u[nb][e] = dg[nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < K16_KS; ++kk) {
+      uint32_t xa[4], za[4];
+      k16_lda(xa, xs, K16_LD, warp * 16, kk, lane);
+      k16_lda(za, zs, K16_LD, warp * 16, kk, lane);
+      k16_mma_nk<K16_FC / 8>(u, xa, w1s, K16_LD, kk, lane);     // (n = j, k = h)
+      k16_mma_kn<K16_FC / 8>(dg, za, w2s, K16_FLD, kk, lane);   // (k = h, n = j)
+    }
+    uint32_t da[K16_FC / 16][4];
+    float cs[K16_FC / 8][2];
+#pragma unroll
+    for (int nb = 0; nb < K16_FC / 8; ++nb) {
+      const int col = f0 + 8 * nb + 2 * t;
+      const float bb[2] = {__ldg(b1m + col), __ldg(b1m + col + 1)};
+      float gv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float gd;
+        k16_gelu2(u[nb][e] + bb[e & 1], gv[e], gd);
+        dg[nb][e] *= gd;   // DU; rows past M have dz = 0
+      }
+      cs[nb][0] = dg[nb][0] + dg[nb][2];
+      cs[nb][1] = dg[nb][1] + dg[nb][3];
+      *reinterpret_cast<uint32_t*>(tile + g * K16_FLD + 8 * nb + 2 * t) = k16_pack(gv[0], gv[1]);
+      *reinterpret_cast<uint32_t*>(tile + (g + 8) * K16_FLD + 8 * nb + 2 * t) =
+          k16_pack(gv[2], gv[3]);
+    }
+#pragma unroll
+    for (int p = 0; p < K16_FC / 16; ++p) k16_c2a(da[p], dg[2 * p], dg[2 * p + 1]);
+    // the warp's 16 x 32 tile out as 16-byte row pieces: GELU(U), then DU
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      __syncwarp();
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int piece = lane + 32 * s, r = piece >> 2, part = (piece & 3) * 8;
+        if (r0 + r < M)
+          *reinterpret_cast<uint4*>((which ? dub : gub) + (size_t)(r0 + r) * F + f0 + part) =
+              *reinterpret_cast<const uint4*>(tile + r * K16_FLD + part);
+      }
+      __syncwarp();
+      if (which == 0)
+#pragma unroll
+        for (int p = 0; p < K16_FC / 16; ++p) {
+          *reinterpret_cast<uint32_t*>(tile + g * K16_FLD + 16 * p + 2 * t) = da[p][0];
+          *reinterpret_cast<uint32_t*>(tile + (g + 8) * K16_FLD + 16 * p + 2 * t) = da[p][1];
+          *reinterpret_cast<uint32_t*>(tile + g * K16_FLD + 16 * p + 8 + 2 * t) = da[p][2];
+          *reinterpret_cast<uint32_t*>(tile + (g + 8) * K16_FLD + 16 * p + 8 + 2 * t) = da[p][3];
+        }
+    }
+    // dx1 += bf16(DU) W1c: w1s holds (k = j, n = h)
+#pragma unroll
+    for (int p = 0; p < K16_FC / 16; ++p)
+      k16_mma_kn<K16_NB>(dx, da[p], w1s, K16_LD, p, lane);
+    // DU's column sums: the warp's 16 rows (lanes of one t), then the warps
+#pragma unroll
+    for (int nb = 0; nb < K16_FC / 8; ++nb)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float v = cs[nb][q];
+        v += __shfl_xor_sync(MNT_FULL_MASK, v, 4);
+        v += __shfl_xor_sync(MNT_FULL_MASK, v, 8);
+        v += __shfl_xor_sync(MNT_FULL_MASK, v, 16);
+        if (g == 0) red[warp][8 * nb + 2 * t + q] = v;
+      }
+    __syncthreads();
+    if (threadIdx.x < K16_FC) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < K16_WARPS; ++w) sum += red[w][threadIdx.x];
+      db1p[(size_t)blockIdx.x * F + f0 + threadIdx.x] = sum;
+    }
+  }
+  float* dst = dx1p + (size_t)blockIdx.y * M * H;
+#pragma unroll
+  for (int nb = 0; nb < K16_NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e >> 1), o = 8 * nb + 2 * t + (e & 1);
+      if (r < M && o < H) dst[(size_t)r * H + o] = dx[nb][e];
+    }
+}
+
+// F slices a row tile for an FFN kernel that keeps `per_sm` blocks resident
+// on each SM: enough blocks to fill every resident slot once (more blocks
+// measured faster than fewer, longer ones at the same count of waves), at
+// most K16_MAXSLICE, a divisor of the chunk count.
+static int k16_slices(int M, int F, int per_sm) {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int tiles = (M + K16_ROWS - 1) / K16_ROWS, chunks = F / K16_FC;
+  int s = (per_sm * sms + tiles - 1) / tiles;
+  if (s > K16_MAXSLICE) s = K16_MAXSLICE;
+  if (s > chunks) s = chunks;
+  while (chunks % s) --s;
+  return s;
+}
+
+// ---- dense products of the hidden width -------------------------------------------
+//
+// C = A B^T (+ bias) (+ add) for M rows, N <= 96 outputs, K <= 16 KS: A (M, K)
+// float32 (rounded on load) or bf16 rows (zero-padded to 16 KS columns),
+// each warp's fragments loaded straight into registers; B (N, 16 KS) bf16
+// from k16_weights_kernel, staged once a block by cp.async while the warps
+// load their A fragments. grid (ceil(M / K16_ROWS), Y): block y takes b[y],
+// bias[y] and c32[y]. Output float32 (c32) or bf16 (c16).
+struct K16Rows {
+  const float* a32;
+  const bf16_t* a16;
+  int lda;
+  const bf16_t* b[3];
+  const float* bias[3];
+  const float* add;
+  float* c32[3];
+  bf16_t* c16;
+  int ldc, M, N, K;
+};
+
+template <int KS>
+__global__ void __launch_bounds__(K16_THREADS) k16_rows_kernel(K16Rows g) {
+  extern __shared__ __align__(16) bf16_t bs[];   // [K16_KP][16 KS + 8]
+  constexpr int LDB = 16 * KS + 8;
+  const int y = blockIdx.y;
+  const bf16_t* B = g.b[y];
+  for (int i = threadIdx.x; i < K16_KP * 2 * KS; i += K16_THREADS) {
+    const int n = i / (2 * KS), c = (i % (2 * KS)) * 8;
+    k16_cp16(bs + n * LDB + c, n < g.N ? B + (size_t)n * 16 * KS + c : B, n < g.N);
+  }
+  k16_commit();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * K16_ROWS + warp * 16;
+  uint32_t a[KS][4];
+  if (g.a16) k16_frag16<KS>(a, g.a16, g.lda, r0, g.M, gq, t);
+  else k16_frag32<KS>(a, g.a32, g.lda, r0, g.M, g.K, gq, t);
+  float c[K16_NB][4];
+#pragma unroll
+  for (int nb = 0; nb < K16_NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nb][e] = 0.f;
+  k16_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) k16_mma_nk<K16_NB>(c, a[kk], bs, LDB, kk, lane);
+  const float* bias = g.bias[y];
+#pragma unroll
+  for (int nb = 0; nb < K16_NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + gq + 8 * (e >> 1), n = 8 * nb + 2 * t + (e & 1);
+      if (r >= g.M || n >= g.N) continue;
+      float v = c[nb][e];
+      if (bias) v += __ldg(bias + n);
+      if (g.add) v += g.add[(size_t)r * g.N + n];
+      if (g.c16) g.c16[(size_t)r * g.ldc + n] = k16_bits(v);
+      else g.c32[y][(size_t)r * g.ldc + n] = v;
+    }
+}
+
+template <int KS>
+static cudaError_t k16_rows(const K16Rows& g, int Y, cudaStream_t stream) {
+  const size_t smem = (size_t)K16_KP * (16 * KS + 8) * sizeof(bf16_t);
+  cudaError_t err = allow_smem(k16_rows_kernel<KS>, smem);
+  if (err != cudaSuccess) return err;
+  k16_rows_kernel<KS><<<dim3((g.M + K16_ROWS - 1) / K16_ROWS, Y), K16_THREADS, smem, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// ---- LayerNorm backward under mm16 -------------------------------------------------
+//
+// One post-LN residual's backward, one row a warp, K16_LN_ROWS rows a block:
+// gin = the gradient reaching the LN (gin, plus the `nparts` partial
+// products of gparts added in order: LN1 sums dy2 and the FFN slices' dx1
+// here), pre = the saved pre-LN sum; writes dres = LN'(gin) (float32) and
+// bf16(dres * keep) (K16_KP-wide rows, pad zero) for the products, a bf16
+// copy of one float32 (M, H) matrix (copy_src, K16_KP-wide rows) for the dW
+// products, zeros columns [pad_from, pad_ld) of pad_dst's rows, and the
+// block's column sums [gin xh | gin | dres * keep] (scale, shift and branch
+// bias gradients) into part[blockIdx.x].
+struct K16Ln {
+  const float* gin;
+  const float* gparts;
+  int nparts;
+  const float* pre;
+  const float* gamma;
+  Dropout drop;
+  float* dres;
+  bf16_t* dmask16;
+  const float* copy_src;
+  bf16_t* copy_dst;
+  bf16_t* pad_dst;
+  int pad_ld, pad_from;
+  float* part;
+  int T, TP, M, H;
+};
+
+__global__ void __launch_bounds__(BERT_THREADS) k16_ln_bwd_kernel(K16Ln L) {
+  __shared__ float red[BERT_THREADS / 32][3][FFN_MAXH + 32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int H = L.H;
+  const size_t MH = (size_t)L.M * H;
+  float sgx[4] = {0.f, 0.f, 0.f, 0.f}, sg[4] = {0.f, 0.f, 0.f, 0.f},
+        sdm[4] = {0.f, 0.f, 0.f, 0.f};
+  const int r_end = min(L.M, ((int)blockIdx.x + 1) * K16_LN_ROWS);
+  for (int row = blockIdx.x * K16_LN_ROWS + warp; row < r_end; row += BERT_THREADS / 32) {
+    const size_t off = (size_t)row * H;
+    const uint32_t rr = (uint32_t)(row / L.T * L.TP + row % L.T);
+    float a[4], gv[4];
+    float s = 0.f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int o = lane + 32 * t;
+      a[t] = o < H ? L.pre[off + o] : 0.f;
+      gv[t] = 0.f;
+      if (o < H) {
+        float pp = 0.f;
+        for (int sp = 0; sp < L.nparts; ++sp) pp += L.gparts[sp * MH + off + o];
+        gv[t] = L.gin[off + o] + pp;
+      }
+      s += a[t];
+    }
+    const float mu = warp_sum(s) / H;
+    float ss = 0.f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (lane + 32 * t < H) {
+        const float d = a[t] - mu;
+        ss = fmaf(d, d, ss);
+      }
+    const float r = 1.f / sqrtf(warp_sum(ss) / H + 1e-12f);
+    float xh[4], dxh[4], m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int o = lane + 32 * t;
+      xh[t] = (a[t] - mu) * r;
+      dxh[t] = o < H ? gv[t] * __ldg(L.gamma + o) : 0.f;
+      m1 += dxh[t];
+      m2 = fmaf(dxh[t], xh[t], m2);
+    }
+    m1 = warp_sum(m1) / H;
+    m2 = warp_sum(m2) / H;
+    const size_t off16 = (size_t)row * K16_KP;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int o = lane + 32 * t;
+      if (o < H) {
+        const float dy = r * (dxh[t] - m1 - xh[t] * m2);
+        const float dm = dy * keep(L.drop, rr, o);
+        L.dres[off + o] = dy;
+        L.dmask16[off16 + o] = k16_bits(dm);
+        if (L.copy_src) L.copy_dst[off16 + o] = k16_bits(L.copy_src[off + o]);
+        sgx[t] = fmaf(gv[t], xh[t], sgx[t]);
+        sg[t] += gv[t];
+        sdm[t] += dm;
+      } else if (o < K16_KP) {
+        L.dmask16[off16 + o] = 0;
+        if (L.copy_src) L.copy_dst[off16 + o] = 0;
+      }
+    }
+    if (L.pad_dst)
+      for (int o = L.pad_from + lane; o < L.pad_ld; o += 32)
+        L.pad_dst[(size_t)row * L.pad_ld + o] = 0;
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    red[warp][0][lane + 32 * t] = sgx[t];
+    red[warp][1][lane + 32 * t] = sg[t];
+    red[warp][2][lane + 32 * t] = sdm[t];
   }
   __syncthreads();
-  const int part = threadIdx.x % BERT_ATTN_SPLIT;
-  const int i = blockIdx.x * BERT_ATTN_QUERIES + threadIdx.x / BERT_ATTN_SPLIT;
-  const bool live = i < T;
-  const size_t qrow = (row0 + (live ? i : 0)) * H + h * hd;
-  float qi[MAXHD];
-#pragma unroll
-  for (int d = 0; d < MAXHD; ++d) qi[d] = live && d < hd ? bf16r(q[qrow + d] * scale) : 0.f;
+  for (int e = threadIdx.x; e < 3 * H; e += BERT_THREADS) {
+    const int which = e / H, o = e % H;
+    float s = 0.f;
+    for (int w = 0; w < BERT_THREADS / 32; ++w) s += red[w][which][o];
+    L.part[(size_t)blockIdx.x * 3 * H + e] = s;
+  }
+}
 
-  float den = 0.f;
-  for (int j = part; j < t_valid; j += BERT_ATTN_SPLIT) {
-    float s = 0.f;
+// ---- the dW products: C[i][j] = sum_m P[m][i] Q[m][j] -------------------------------
+//
+// Up to four products in one launch (dW1 = DU^T x1, dW2^T = GU^T dz, dWo =
+// da^T ctx, [dWq; dWk; dWv] = [dq dk dv]^T x), each over M rows of bf16
+// (M, .) matrices, j < H. A block owns a 128 x 96 output tile and one split
+// of the rows (its float32 partial goes to part[split], reduced in order by
+// k16_reduce_kernel); 8 warps of 32 x 48; rows of m in stages of 32 through
+// a 3-stage ring of 16-byte cp.async copies (no register staging), both
+// operands read by ldmatrix.trans.
+struct K16TnJob {
+  const bf16_t* P;
+  int ldp, ni;
+  const bf16_t* Q;
+  float* part;   // (ni, nj) a split, or with trans (nj, ni): dW2 = (dW2^T)^T
+  int tiles_i, first_block, trans;
+};
+
+struct K16Tn {
+  K16TnJob job[4];
+  int njobs, splits, kchunk, M, nj, ldq;
+};
+
+__global__ void __launch_bounds__(K16_TN_THREADS, 2) k16_tn_kernel(K16Tn g) {
+  constexpr int PLD = K16_TN_BI + 8, QLD = K16_TN_BJ + 8;   // 272 B, 208 B pitches
+  constexpr int STAGE = K16_TN_BK * (PLD + QLD);
+  __shared__ __align__(16) bf16_t sm[K16_TN_STAGES * STAGE];
+  int jb = 0;
+  while (jb + 1 < g.njobs && (int)blockIdx.x >= g.job[jb + 1].first_block) ++jb;
+  const K16TnJob& J = g.job[jb];
+  const int local = blockIdx.x - J.first_block;
+  const int i0 = (local % J.tiles_i) * K16_TN_BI, split = local / J.tiles_i;
+  const int mb = split * g.kchunk, me = min(g.M, mb + g.kchunk);
+  const int nk = (me - mb + K16_TN_BK - 1) / K16_TN_BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int wi = (warp & 3) * 32, wj = (warp >> 2) * 48;
+
+  auto load = [&](int stage, int kt) {
+    bf16_t* Ps = sm + stage * STAGE;
+    bf16_t* Qs = Ps + K16_TN_BK * PLD;
+    const int m0 = mb + kt * K16_TN_BK;
+    for (int c = threadIdx.x; c < K16_TN_BK * (K16_TN_BI / 8); c += K16_TN_THREADS) {
+      const int r = c / (K16_TN_BI / 8), col = (c % (K16_TN_BI / 8)) * 8;
+      const bool ok = m0 + r < me && i0 + col < J.ldp;
+      k16_cp16(Ps + r * PLD + col, ok ? J.P + (size_t)(m0 + r) * J.ldp + i0 + col : J.P, ok);
+    }
+    for (int c = threadIdx.x; c < K16_TN_BK * (K16_TN_BJ / 8); c += K16_TN_THREADS) {
+      const int r = c / (K16_TN_BJ / 8), col = (c % (K16_TN_BJ / 8)) * 8;
+      const bool ok = m0 + r < me && col < g.ldq;
+      k16_cp16(Qs + r * QLD + col, ok ? J.Q + (size_t)(m0 + r) * g.ldq + col : J.Q, ok);
+    }
+  };
+
+  float acc[2][6][4];
 #pragma unroll
-    for (int d = 0; d < MAXHD; ++d)
-      if (d < hd) s = fmaf(qi[d], ks[j * hd + d], s);
-    den += bf16r(expf(fminf(s, BERT_LOGIT_CAP)));
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < K16_TN_STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    k16_commit();
   }
+  for (int kt = 0; kt < nk; ++kt) {
+    k16_wait<K16_TN_STAGES - 2>();
+    __syncthreads();
+    if (kt + K16_TN_STAGES - 1 < nk)
+      load((kt + K16_TN_STAGES - 1) % K16_TN_STAGES, kt + K16_TN_STAGES - 1);
+    k16_commit();
+    const bf16_t* Ps = sm + (kt % K16_TN_STAGES) * STAGE;
+    const bf16_t* Qs = Ps + K16_TN_BK * PLD;
 #pragma unroll
-  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
-    den += __shfl_xor_sync(MNT_FULL_MASK, den, off);
-  const float rd = bf16r(1.f / fmaxf(den, 1e-38f));
-  float acc[MAXHD];
+    for (int kk = 0; kk < K16_TN_BK / 16; ++kk) {
+      // A (i, k = m) from P's [m][i] rows: matrix q = lane / 8 covers rows
+      // i + 8 (q & 1) and k + 8 (q >> 1)
+      uint32_t a[2][4];
 #pragma unroll
-  for (int d = 0; d < MAXHD; ++d) acc[d] = 0.f;
-  const uint32_t r = (uint32_t)(b * TP + i);
-  for (int j = part; j < t_valid; j += BERT_ATTN_SPLIT) {
-    float s = 0.f;
+      for (int ii = 0; ii < 2; ++ii) {
+        const int q = lane >> 3;
+        tc_ldsm_t(a[ii], Ps + (16 * kk + 8 * (q >> 1) + (lane & 7)) * PLD + wi + 16 * ii +
+                             8 * (q & 1));
+      }
 #pragma unroll
-    for (int d = 0; d < MAXHD; ++d)
-      if (d < hd) s = fmaf(qi[d], ks[j * hd + d], s);
-    const float p = expf(fminf(s, BERT_LOGIT_CAP)) * rd;
-    const float pb = bf16r(p * keep(drop, r, (uint32_t)(h * TP + j)));   // draw 3
+      for (int p = 0; p < 3; ++p) {
+        uint32_t b[4];
+        tc_ldsm_t(b, Qs + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * QLD + wj + 16 * p +
+                         8 * (lane >> 4));
 #pragma unroll
-    for (int d = 0; d < MAXHD; ++d)
-      if (d < hd) acc[d] = fmaf(pb, vs[j * hd + d], acc[d]);
+        for (int ii = 0; ii < 2; ++ii) {
+          tc_mma(acc[ii][2 * p], a[ii], b[0], b[1]);
+          tc_mma(acc[ii][2 * p + 1], a[ii], b[2], b[3]);
+        }
+      }
+    }
   }
+  k16_wait<0>();
+  float* C = J.part + (size_t)split * J.ni * g.nj;
 #pragma unroll
-  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
+  for (int ii = 0; ii < 2; ++ii)
 #pragma unroll
-    for (int d = 0; d < MAXHD; ++d) acc[d] += __shfl_xor_sync(MNT_FULL_MASK, acc[d], off);
-  if (!live || part != 0) return;
-  if (rden) rden[((size_t)b * gridDim.y + h) * T + i] = rd;
+    for (int jj = 0; jj < 6; ++jj)
 #pragma unroll
-  for (int d = 0; d < MAXHD; ++d)
-    if (d < hd) ctx[qrow + d] = acc[d];
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + wi + 16 * ii + gq + 8 * (e >> 1), j = wj + 8 * jj + 2 * t + (e & 1);
+        if (i < J.ni && j < g.nj)
+          C[J.trans ? (size_t)j * J.ni + i : (size_t)i * g.nj + j] = acc[ii][jj][e];
+      }
+}
+
+// ---- every cross-block sum of the backward, in one launch ---------------------------
+//
+// Segment s: dst[e] = the sum over k < S of part[k * stride + e]. A block
+// takes 32 consecutive elements (a lane each) of one segment (blockIdx.y);
+// warp w sums the partials k = w, w + 8, .. in order, then the eight warps'
+// sums are added in order: a fixed order whatever the grid.
+struct K16Seg {
+  const float* part;
+  long long stride;
+  int S, n;
+  float* dst;
+};
+
+#define K16_MAXSEG 16
+
+struct K16Reduce {
+  K16Seg seg[K16_MAXSEG];
+};
+
+__global__ void __launch_bounds__(256) k16_reduce_kernel(K16Reduce R) {
+  __shared__ float red[8][32];
+  const K16Seg& s = R.seg[blockIdx.y];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int e0 = blockIdx.x * 32; e0 < s.n; e0 += gridDim.x * 32) {
+    const int e = e0 + lane;
+    float acc = 0.f;
+    if (e < s.n)
+      for (int k = warp; k < s.S; k += 8) acc += s.part[k * s.stride + e];
+    __syncthreads();   // the previous round's sums are read
+    red[warp][lane] = acc;
+    __syncthreads();
+    if (warp == 0 && e < s.n) {
+      float sum = red[0][lane];
+#pragma unroll
+      for (int w = 1; w < 8; ++w) sum += red[w][lane];
+      s.dst[e] = sum;
+    }
+  }
+}
+
+// ---- attention on the tensor cores ------------------------------------------------
+//
+// Every score is the exact product of bf16(q * scale) and bf16(k) (head dim
+// <= 16, zero-padded to one k16 step) summed in float32; a block owns 64
+// rows of one (subject, head), a warp 16 of them as A fragments, and streams
+// the other side through double-buffered [64][16 + 8] shared tiles. A
+// head's row is hd floats (28 bytes at hd 7), too ragged for wide copies, so
+// k16_heads_kernel first writes bf16(q * scale), bf16(k), bf16(v) (and in
+// the backward bf16(dctx)) head-major, (B, heads, T, 16) with the head dim
+// zero-padded: a 64-row tile is then 2 KB contiguous, one 16-byte cp.async a
+// thread. Keys >= t_valid are masked out (their e, p, ds are 0) and get
+// zero gradients. Dropout of the probabilities: draw 3 at (b TP + query,
+// h TP + key), as the CUDA-core kernels and the JAX kernel key it.
+
+struct K16Heads {
+  const float* src32[4];
+  const bf16_t* src16[4];
+  float scale[4];
+  bf16_t* dst[4];
+};
+
+// grid (ceil(B heads T / 256), matrices), one (b, h, t) row a thread
+// (threads in (b, t, h) order, so that a warp reads whole token rows):
+// dst[m][((b heads + h) T + t) 16 + d] = bf16(src[m][(b T + t) H + h hd + d]
+// * scale[m]) for d < hd, else 0 (two 16-byte stores); a bf16 source
+// (src16) is copied as it is.
+__global__ void __launch_bounds__(256)
+k16_heads_kernel(K16Heads P, int BHT, int T, int H, int hd, int heads) {
+  const int m = blockIdx.y, idx = blockIdx.x * 256 + threadIdx.x;   // (b, t, h) order
+  if (idx >= BHT) return;
+  const int h = idx % heads, bt = idx / heads, b = bt / T, t = bt % T;
+  const int row = (b * heads + h) * T + t;
+  const size_t src = (size_t)bt * H + h * hd;
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float v[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int d = 2 * i + q;
+      v[q] = 0.f;
+      if (d < hd)
+        v[q] = P.src16[m]
+                   ? __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(P.src16[m] + src + d))
+                   : P.src32[m][src + d] * P.scale[m];
+    }
+    w[i] = k16_pack(v[0], v[1]);
+  }
+  uint4* dst = reinterpret_cast<uint4*>(P.dst[m] + (size_t)row * 16);
+  dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+static cudaError_t k16_heads(const K16Heads& P, int nmat, int B, int T, int H, int heads,
+                             cudaStream_t stream) {
+  const int BHT = B * heads * T;
+  k16_heads_kernel<<<dim3((BHT + 255) / 256, nmat), 256, 0, stream>>>(P, BHT, T, H, H / heads,
+                                                                       heads);
+  return cudaGetLastError();
+}
+
+// Rows [r0, r0 + 64) of one head's (T, 16) bf16 rows into a [64][K16_ALD]
+// tile, zero past `rows`: one 16-byte cp.async a thread.
+__device__ __forceinline__ void k16_tile_cp(bf16_t* tile, const bf16_t* head, int r0, int rows) {
+  const int r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 8;
+  const bool ok = r0 + r < rows;
+  k16_cp16(tile + r * K16_ALD + c, ok ? head + (size_t)(r0 + r) * 16 + c : head, ok);
+}
+
+// 4-byte cp.async (rows of float32 per-row values start unaligned); ok ==
+// false zero-fills.
+__device__ __forceinline__ void k16_cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(tc_smem(dst)), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+// e = exp(min(s, 80)) of a score (exp2 on the MUFU), 0 for a key past
+// t_valid.
+__device__ __forceinline__ float k16_exp(float s, bool live) {
+  return live ? tc_ex2(fminf(s, BERT_LOGIT_CAP) * K16_LOG2E) : 0.f;
+}
+
+// Store a warp's (16 rows, 16 dims) accumulator times `scale` as bf16 into
+// columns col0 + d of rows row0 + r of a (., ld) bf16 matrix (and as float32
+// where out32 is not NULL, ld32 a row), rows < rows_valid, d < hd; write its
+// float32 column sums over the warp's rows to red[d] (one slot a warp).
+__device__ __forceinline__ void k16_head_store(const float (&acc)[2][4], float scale,
+                                               bf16_t* out16, int ld, float* out32, int ld32,
+                                               size_t row0, int r0, int rows_valid, int hd,
+                                               float* red, int g, int t) {
+  float cs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int db = 0; db < 2; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e >> 1), d = 8 * db + 2 * t + (e & 1);
+      if (r < rows_valid && d < hd) {
+        const float v = acc[db][e] * scale;
+        if (out16) out16[(row0 + r) * ld + d] = k16_bits(v);
+        if (out32) out32[(row0 + r) * ld32 + d] = v;
+        cs[db][e & 1] += v;
+      }
+    }
+  if (!red) return;
+#pragma unroll
+  for (int db = 0; db < 2; ++db)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      float v = cs[db][q];
+      v += __shfl_xor_sync(MNT_FULL_MASK, v, 4);
+      v += __shfl_xor_sync(MNT_FULL_MASK, v, 8);
+      v += __shfl_xor_sync(MNT_FULL_MASK, v, 16);
+      if (g == 0) red[8 * db + 2 * t + q] = v;
+    }
+}
+
+// grid (ceil(T / 64), heads, B), K16_THREADS threads. Pass 1 over the key
+// tiles: den = sum of bf16(e) (keys < t_valid); rd = bf16(1 / den). Pass 2:
+// p = e rd, pd = p keep, ctx = bf16(pd) bf16(v) on mma. ctx float32; rd to
+// rden (the residuals' log-sum-exp slot) where rden is not NULL.
+template <bool DROP>
+__global__ void __launch_bounds__(K16_THREADS)
+k16_attn_fwd_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh,
+                    const bf16_t* __restrict__ vh, float* __restrict__ ctx,
+                    float* __restrict__ rden, Dropout drop, int T, int TP, int H, int hd,
+                    int t_valid) {
+  __shared__ __align__(16) bf16_t ks[2][K16_AT * K16_ALD], vs[2][K16_AT * K16_ALD];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * K16_AT + warp * 16;
+  const size_t bh = (size_t)b * gridDim.y + h, hb = bh * T * 16;
+  uint32_t hr[2] = {0u, 0u};
+  if (DROP) {
+    hr[0] = keep_row(drop, (uint32_t)(b * TP + i0 + g));
+    hr[1] = keep_row(drop, (uint32_t)(b * TP + i0 + g + 8));
+  }
+  uint32_t qa[1][4];
+  k16_frag16<1>(qa, qh + hb, 16, i0, T, g, t);
+  const int tiles = (t_valid + K16_AT - 1) / K16_AT, steps = 2 * tiles;
+  auto load = [&](int st) {   // pass 1: k; pass 2: k and v
+    const int j0 = (st % tiles) * K16_AT;
+    k16_tile_cp(ks[st & 1], kh + hb, j0, t_valid);
+    if (st >= tiles) k16_tile_cp(vs[st & 1], vh + hb, j0, t_valid);
+  };
+  load(0);
+  k16_commit();
+  float den[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
+  float o[2][4];
+#pragma unroll
+  for (int db = 0; db < 2; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[db][e] = 0.f;
+  for (int st = 0; st < steps; ++st) {
+    if (st + 1 < steps) load(st + 1);
+    k16_commit();
+    k16_wait<1>();
+    __syncthreads();
+    const int j0 = (st % tiles) * K16_AT, buf = st & 1;
+    if (st == tiles)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        den[hh] += __shfl_xor_sync(MNT_FULL_MASK, den[hh], 1);
+        den[hh] += __shfl_xor_sync(MNT_FULL_MASK, den[hh], 2);
+        rd[hh] = bf16r(1.f / fmaxf(den[hh], 1e-38f));
+      }
+    float s[K16_AT / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < K16_AT / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+    k16_mma_nk<K16_AT / 8>(s, qa[0], ks[buf], K16_ALD, 0, lane);
+    if (st < tiles) {
+#pragma unroll
+      for (int nb = 0; nb < K16_AT / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          den[e >> 1] += bf16r(k16_exp(s[nb][e], j0 + 8 * nb + 2 * t + (e & 1) < t_valid));
+    } else {
+#pragma unroll
+      for (int nb = 0; nb < K16_AT / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j0 + 8 * nb + 2 * t + (e & 1);
+          float p = k16_exp(s[nb][e], key < t_valid) * rd[e >> 1];
+          if (DROP) p *= keep_at(drop, hr[e >> 1], (uint32_t)(h * TP + key));
+          s[nb][e] = p;
+        }
+#pragma unroll
+      for (int p = 0; p < K16_AT / 16; ++p) {
+        uint32_t pa[4];
+        k16_c2a(pa, s[2 * p], s[2 * p + 1]);
+        k16_mma_kn<2>(o, pa, vs[buf], K16_ALD, p, lane);   // vs holds (k = key, n = d)
+      }
+    }
+    __syncthreads();   // the tiles are read before the next copy into them
+  }
+  const size_t row0 = (size_t)b * T;
+  k16_head_store(o, 1.f, nullptr, 0, ctx + (size_t)h * hd, H, row0, i0, T, hd, nullptr, g, t);
+  if (rden && t == 0)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = i0 + g + 8 * hh;
+      if (i < T) rden[bh * T + i] = rd[hh];
+    }
+}
+
+// dq of 64 queries of one (subject, head): pass 1 over the key tiles, seg =
+// bf16(sum_j bf16(dp p)) with p = e rden, dp = (bf16(dctx) bf16(v)) keep;
+// pass 2, ds = bf16(p (dp - seg)) and dq = scale sum_j ds bf16(k) on mma.
+// dq goes to dqkvb (bf16, columns h hd ..), seg to seg_out for the dk/dv
+// kernel, the block's float32 column sums of dq to dbp[b tiles + tile]
+// (columns h hd .. of a 3H row). grid (ceil(T / 64), heads, B); with
+// dropout, a word of dynamic shared memory a thread and key tile holds pass
+// 1's keep bits, so that pass 2 does not hash again.
+template <bool DROP>
+__global__ void __launch_bounds__(K16_THREADS)
+k16_attn_dq_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh,
+                   const bf16_t* __restrict__ vh, const bf16_t* __restrict__ gh,
+                   const float* __restrict__ rden, float* __restrict__ seg_out,
+                   bf16_t* __restrict__ dqkvb, int ldd, float* __restrict__ dbp, Dropout drop,
+                   int T, int TP, int H, int hd, int t_valid, float scale) {
+  __shared__ __align__(16) bf16_t ks[2][K16_AT * K16_ALD], vs[2][K16_AT * K16_ALD];
+  __shared__ float red[K16_WARPS][16];
+  extern __shared__ uint32_t kbits[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * K16_AT + warp * 16;
+  const size_t bh = (size_t)b * gridDim.y + h, hb = bh * T * 16, si = bh * T;
+  uint32_t hr[2] = {0u, 0u};
+  float rd[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = i0 + g + 8 * hh;
+    rd[hh] = i < T ? rden[si + i] : 0.f;
+    if (DROP) hr[hh] = keep_row(drop, (uint32_t)(b * TP + i));
+  }
+  uint32_t qa[1][4], ga[1][4];
+  k16_frag16<1>(qa, qh + hb, 16, i0, T, g, t);
+  k16_frag16<1>(ga, gh + hb, 16, i0, T, g, t);
+  const int tiles = (t_valid + K16_AT - 1) / K16_AT, steps = 2 * tiles;
+  auto load = [&](int st) {
+    const int j0 = (st % tiles) * K16_AT;
+    k16_tile_cp(ks[st & 1], kh + hb, j0, t_valid);
+    k16_tile_cp(vs[st & 1], vh + hb, j0, t_valid);
+  };
+  load(0);
+  k16_commit();
+  float sacc[2] = {0.f, 0.f}, seg[2] = {0.f, 0.f};
+  float dq[2][4];
+#pragma unroll
+  for (int db = 0; db < 2; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[db][e] = 0.f;
+  for (int st = 0; st < steps; ++st) {
+    if (st + 1 < steps) load(st + 1);
+    k16_commit();
+    k16_wait<1>();
+    __syncthreads();
+    const int j0 = (st % tiles) * K16_AT, buf = st & 1;
+    const bool pass1 = st < tiles;
+    if (st == tiles)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        sacc[hh] += __shfl_xor_sync(MNT_FULL_MASK, sacc[hh], 1);
+        sacc[hh] += __shfl_xor_sync(MNT_FULL_MASK, sacc[hh], 2);
+        seg[hh] = bf16r(sacc[hh]);
+      }
+    float s[K16_AT / 8][4], dp[K16_AT / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < K16_AT / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+    k16_mma_nk<K16_AT / 8>(s, qa[0], ks[buf], K16_ALD, 0, lane);
+    k16_mma_nk<K16_AT / 8>(dp, ga[0], vs[buf], K16_ALD, 0, lane);
+    uint32_t* kw = kbits + (st % tiles) * K16_THREADS + threadIdx.x;
+    uint32_t bits = DROP && !pass1 ? *kw : 0u;
+#pragma unroll
+    for (int nb = 0; nb < K16_AT / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j0 + 8 * nb + 2 * t + (e & 1);
+        const float p = k16_exp(s[nb][e], key < t_valid) * rd[e >> 1];
+        float d = dp[nb][e];
+        if (DROP) {
+          if (pass1) bits |= (uint32_t)(keep_at(drop, hr[e >> 1], (uint32_t)(h * TP + key)) != 0.f)
+                            << (4 * nb + e);
+          d *= bits >> (4 * nb + e) & 1u ? drop.scale : 0.f;
+        }
+        if (pass1) sacc[e >> 1] += bf16r(d * p);
+        else s[nb][e] = p * (d - seg[e >> 1]);   // ds, rounded by k16_c2a
+      }
+    if (DROP && pass1) *kw = bits;
+    if (!pass1)
+#pragma unroll
+      for (int p = 0; p < K16_AT / 16; ++p) {
+        uint32_t da[4];
+        k16_c2a(da, s[2 * p], s[2 * p + 1]);
+        k16_mma_kn<2>(dq, da, ks[buf], K16_ALD, p, lane);   // ks holds (k = key, n = d)
+      }
+    __syncthreads();
+  }
+  const size_t row0 = (size_t)b * T, col = (size_t)h * hd;
+  k16_head_store(dq, scale, dqkvb + col, ldd, nullptr, 0, row0, i0, T, hd, red[warp], g, t);
+  if (t == 0)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = i0 + g + 8 * hh;
+      if (i < T) seg_out[si + i] = seg[hh];
+    }
+  __syncthreads();
+  if (threadIdx.x < hd) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < K16_WARPS; ++w) sum += red[w][threadIdx.x];
+    dbp[((size_t)b * gridDim.x + blockIdx.x) * 3 * H + col + threadIdx.x] = sum;
+  }
+}
+
+// dk and dv of 64 keys of one (subject, head), a warp's 16 keys as A
+// fragments (bf16 k, bf16 v), streaming the query tiles (bf16(q scale),
+// bf16(dctx), rden, seg): s^T = k (q scale)^T, dp^T = v dctx^T; p = e rden
+// (0 for a key >= t_valid), ds = bf16(p (dp keep - seg)), pd = bf16(p keep);
+// dk = sum_i ds bf16(q scale), dv = sum_i pd bf16(dctx) on mma. Both go to
+// dqkvb (columns H + h hd .., 2H + h hd ..), their column sums to dbp.
+template <bool DROP>
+__global__ void __launch_bounds__(K16_THREADS)
+k16_attn_dkv_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh,
+                    const bf16_t* __restrict__ vh, const bf16_t* __restrict__ gh,
+                    const float* __restrict__ rden, const float* __restrict__ seg,
+                    bf16_t* __restrict__ dqkvb, int ldd, float* __restrict__ dbp, Dropout drop,
+                    int T, int TP, int H, int hd, int t_valid) {
+  __shared__ __align__(16) bf16_t qs[2][K16_AT * K16_ALD], gs[2][K16_AT * K16_ALD];
+  __shared__ float rs[2][K16_AT], sg[2][K16_AT];
+  __shared__ float red[2][K16_WARPS][16];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * K16_AT + warp * 16;
+  const size_t bh = (size_t)b * gridDim.y + h, hb = bh * T * 16, si = bh * T;
+  uint32_t ka[1][4], va[1][4];
+  k16_frag16<1>(ka, kh + hb, 16, j0, t_valid, g, t);
+  k16_frag16<1>(va, vh + hb, 16, j0, t_valid, g, t);
+  const bool live[2] = {j0 + g < t_valid, j0 + g + 8 < t_valid};
+  float dk[2][4], dv[2][4];
+#pragma unroll
+  for (int db = 0; db < 2; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[db][e] = dv[db][e] = 0.f;
+  const int tiles = (T + K16_AT - 1) / K16_AT;
+  auto load = [&](int n) {   // queries past T: zero rows, rden = seg = 0 (p = 0)
+    const int c0 = n * K16_AT, buf = n & 1, r = threadIdx.x & (K16_AT - 1);
+    k16_tile_cp(qs[buf], qh + hb, c0, T);
+    k16_tile_cp(gs[buf], gh + hb, c0, T);
+    const bool ok = c0 + r < T;
+    if (threadIdx.x < K16_AT) k16_cp4(&rs[buf][r], ok ? rden + si + c0 + r : rden, ok);
+    else k16_cp4(&sg[buf][r], ok ? seg + si + c0 + r : seg, ok);
+  };
+  load(0);
+  k16_commit();
+  for (int n = 0; n < tiles; ++n) {
+    if (n + 1 < tiles) load(n + 1);
+    k16_commit();
+    k16_wait<1>();
+    __syncthreads();
+    const int c0 = n * K16_AT, buf = n & 1;
+    float st[K16_AT / 8][4], dpt[K16_AT / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < K16_AT / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nb][e] = dpt[nb][e] = 0.f;
+    k16_mma_nk<K16_AT / 8>(st, ka[0], qs[buf], K16_ALD, 0, lane);
+    k16_mma_nk<K16_AT / 8>(dpt, va[0], gs[buf], K16_ALD, 0, lane);
+#pragma unroll
+    for (int nb = 0; nb < K16_AT / 8; ++nb) {
+      const int c = 8 * nb + 2 * t;   // the tile's queries c, c + 1
+      uint32_t hq[2] = {0u, 0u};
+      if (DROP) {
+        hq[0] = keep_row(drop, (uint32_t)(b * TP + c0 + c));
+        hq[1] = keep_row(drop, (uint32_t)(b * TP + c0 + c + 1));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j0 + g + 8 * (e >> 1);
+        const float p = k16_exp(st[nb][e], live[e >> 1]) * rs[buf][c + (e & 1)];
+        const float kp = DROP ? keep_at(drop, hq[e & 1], (uint32_t)(h * TP + key)) : 1.f;
+        st[nb][e] = p * (dpt[nb][e] * kp - sg[buf][c + (e & 1)]);   // ds
+        dpt[nb][e] = p * kp;                                        // pd
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < K16_AT / 16; ++p) {
+      uint32_t sa[4], pa[4];
+      k16_c2a(sa, st[2 * p], st[2 * p + 1]);
+      k16_c2a(pa, dpt[2 * p], dpt[2 * p + 1]);
+      k16_mma_kn<2>(dk, sa, qs[buf], K16_ALD, p, lane);   // qs, gs hold (k = query, n = d)
+      k16_mma_kn<2>(dv, pa, gs[buf], K16_ALD, p, lane);
+    }
+    __syncthreads();
+  }
+  const size_t row0 = (size_t)b * T, col = (size_t)h * hd;
+  k16_head_store(dk, 1.f, dqkvb + H + col, ldd, nullptr, 0, row0, j0, T, hd, red[0][warp], g, t);
+  k16_head_store(dv, 1.f, dqkvb + 2 * H + col, ldd, nullptr, 0, row0, j0, T, hd, red[1][warp], g,
+                 t);
+  __syncthreads();
+  if (threadIdx.x < 2 * hd) {
+    const int which = threadIdx.x / hd, d = threadIdx.x % hd;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < K16_WARPS; ++w) sum += red[which][w][d];
+    dbp[((size_t)b * gridDim.x + blockIdx.x) * 3 * H + (1 + which) * H + col + d] = sum;
+  }
 }
 
 // pre = (sum of `splits` partial products + bias) * the branch's dropout +
@@ -1619,49 +2548,65 @@ bert_bias_res_ln_kernel(const float* __restrict__ part, int splits, const float*
   warp_ln_store(vals, lane, H, gamma, beta, eps, out + (size_t)row * H);
 }
 
-// A bf16 product A B^T (A (M, K) row-major, B (N, K)) whose K splits stay
-// unreduced: C receives *splits dense (M, N) slices of partial sums (one
-// when K is not split) for bert_bias_res_ln_kernel to add up.
-static cudaError_t gemm16_parts(int M, int N, int K, const float* A, int lda, const float* B,
-                                int ldb, float* C, int* splits, cudaStream_t stream) {
-  Gemm g = {};
-  g.M = M; g.N = N; g.K = K;
-  g.A = A; g.lda = lda; g.ta = 0;
-  g.B = B; g.ldb = ldb; g.tb = 1;
-  g.C = C; g.ldc = N;
-  g.vec_a = lda % 4 == 0 && (uintptr_t)A % 16 == 0;
-  g.vec_b = ldb % 4 == 0 && (uintptr_t)B % 16 == 0;
-  gemm_split(M, N, K, TG_BM, TG_BN, &g.splits, &g.kchunk);
-  *splits = g.splits;
-  cudaError_t err = allow_smem(tc_gemm_bf16_kernel<0, 1>, TbTile<0, 1>::SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + TG_BN - 1) / TG_BN, (M + TG_BM - 1) / TG_BM, g.splits);
-  tc_gemm_bf16_kernel<0, 1><<<grid, TG_THREADS, TbTile<0, 1>::SMEM, stream>>>(g);
-  return cudaGetLastError();
+// ---- the mm16 entry points ------------------------------------------------------------
+
+static long long k16_align(long long floats) { return (floats + 63) / 64 * 64; }
+
+// bf16 elements as floats of scratch (two a float), aligned.
+static long long k16_half(long long elems) { return k16_align((elems + 1) / 2); }
+
+// Scratch layout of bert_layer_forward16 (floats; bf16 buffers take half a
+// float an element): q, k, v, ctx, x1 where no residuals are saved (as the
+// float32 forward's), the FFN slices' partial sums (M, H) each (the
+// out-projection's product uses the first), the bf16 weights and the
+// head-major bf16 q * scale, k, v; no (M, F) buffer.
+struct K16FwdScratch {
+  long long zp, w1b, w2b, wqkv, wo, qh, kh, vh, total;
+  int slices;
+
+  K16FwdScratch(int B, int T, int H, int F, int heads) {
+    const long long M = (long long)B * T, MH = M * H, BHT = (long long)B * heads * T;
+    slices = k16_slices((int)M, F, K16_FWD_PER_SM);
+    long long off = k16_align(5 * MH);
+    zp = off; off += k16_align(slices * MH);
+    w1b = off; off += k16_half((long long)F * K16_KP);
+    w2b = off; off += k16_half((long long)H * F);
+    wqkv = off; off += k16_half(3LL * H * K16_KP);
+    wo = off; off += k16_half((long long)H * K16_KP);
+    qh = off; off += k16_half(BHT * 16);
+    kh = off; off += k16_half(BHT * 16);
+    vh = off; off += k16_half(BHT * 16);
+    total = off;
+  }
+};
+
+extern "C" long long bert_layer_scratch16_floats(int B, int T, int H, int F, int heads) {
+  return K16FwdScratch(B, T, H, F, heads).total;
 }
 
-static long long bert_fwd16_part_floats(long long M, int H, int F) {
-  const long long p = gemm_part_floats((int)M, H, F);
-  return p > M * H ? p : M * H;
+static bool k16_bad_dims(int T, int H, int F, int heads, int t_valid, int TP) {
+  return bert_bad_dims(T, H, F, heads, t_valid, TP) || H > K16_KP || 3 * H > K16_K3P;
 }
 
-// Floats of device scratch bert_layer_forward16 needs: q, k, v, ctx, x1 (as
-// the float32 forward's), GELU(u) (M x F) and the products' partial sums.
-extern "C" long long bert_layer_scratch16_floats(int B, int T, int H, int F) {
-  const long long M = (long long)B * T;
-  return 5 * M * H + M * F + bert_fwd16_part_floats(M, H, F);
-}
+#define K16_DISPATCH(on, KERNEL, GRID, ...)                                        \
+  do {                                                                             \
+    if (on) KERNEL<true><<<GRID, K16_THREADS, 0, stream>>>(__VA_ARGS__);           \
+    else KERNEL<false><<<GRID, K16_THREADS, 0, stream>>>(__VA_ARGS__);             \
+    CK(cudaGetLastError());                                                        \
+  } while (0)
 
 // The mm16 form of bert_layer_forward: same arguments, layouts, dropout
 // draws and saved residuals (bert_layer_resid_floats), scratch of
 // bert_layer_scratch16_floats(); the residuals' log-sum-exp slot receives
-// bf16(1 / den) of every (subject, head, query). Returns the cudaError_t of
-// the first launch that fails, or of the last.
+// bf16(1 / den) of every (subject, head, query). Eight launches: the bf16
+// weights, QKV, the head-major copies, attention, the out-projection, LN1,
+// the FFN, LN2. Returns the cudaError_t of the first launch that fails, or
+// of the last.
 extern "C" int bert_layer_forward16(const float* x, const void* const* params, float* scratch,
                                     float* resid, float* out, int B, int T, int H, int F,
                                     int heads, int t_valid, int TP, int seed, double attn_rate,
                                     double hidden_rate, cudaStream_t stream) {
-  if (bert_bad_dims(T, H, F, heads, t_valid, TP)) return (int)cudaErrorInvalidValue;
+  if (k16_bad_dims(T, H, F, heads, t_valid, TP)) return (int)cudaErrorInvalidValue;
   const float* const* p = reinterpret_cast<const float* const*>(params);
   const int M = B * T;
   const size_t MH = (size_t)M * H;
@@ -1674,243 +2619,275 @@ extern "C" int bert_layer_forward16(const float* x, const void* const* params, f
     a2 = x1 + MH;
     rden = a2 + MH;
   }
-  float* gu = scratch + 5 * MH;
-  float* part = gu + (size_t)M * F;
+  const K16FwdScratch L(B, T, H, F, heads);
+  auto b16 = [&](long long off) { return reinterpret_cast<bf16_t*>(scratch + off); };
+  float* zp = scratch + L.zp;
+  bf16_t *w1b = b16(L.w1b), *w2b = b16(L.w2b), *wqkv = b16(L.wqkv), *wo = b16(L.wo);
+  bf16_t *qh = b16(L.qh), *kh = b16(L.kh), *vh = b16(L.vh);
   const int hd = H / heads;
-  const float eps = 1e-12f;
+  const float eps = 1e-12f, scale = 1.f / sqrtf((float)hd);
   const Dropout d_attn = make_dropout(seed, 3, attn_rate);
   const Dropout d0 = make_dropout(seed, 0, hidden_rate);
   const Dropout d1 = make_dropout(seed, 1, hidden_rate);
   const int ln_blocks = (M + BERT_THREADS / 32 - 1) / (BERT_THREADS / 32);
-  int splits = 1;
 
-  // q, k, v = x W^T + b (bias in the epilogue)
-  float* qkv[3] = {q, k, v};
-  for (int j = 0; j < 3; ++j)
-    CK(gemm(M, H, H, x, H, 0, p[2 * j], H, 1, qkv[j], H, nullptr, part, stream, GEMM_BF16,
-            p[2 * j + 1]));
-
-  const size_t smem_attn = 2 * (size_t)t_valid * hd * sizeof(float);
-  const dim3 grid_attn((T + BERT_ATTN_QUERIES - 1) / BERT_ATTN_QUERIES, heads, B);
-  const float scale = 1.f / sqrtf((float)hd);
-  if (hd <= 8) {
-    CK(allow_smem(bert_attention16_kernel<8>, smem_attn));
-    bert_attention16_kernel<8><<<grid_attn, BERT_ATTN_THREADS, smem_attn, stream>>>(
-        q, k, v, ctx, rden, d_attn, T, TP, H, hd, t_valid, scale);
-  } else {
-    CK(allow_smem(bert_attention16_kernel<16>, smem_attn));
-    bert_attention16_kernel<16><<<grid_attn, BERT_ATTN_THREADS, smem_attn, stream>>>(
-        q, k, v, ctx, rden, d_attn, T, TP, H, hd, t_valid, scale);
+  K16Weights W = {};
+  W.job[0] = {{p[10]}, w1b, F, H, K16_KP, 0};
+  W.job[1] = {{p[12]}, w2b, H, F, F, 0};
+  for (int j = 0; j < 3; ++j) W.job[2 + j] = {{p[2 * j]}, wqkv + (size_t)j * H * K16_KP, H, H,
+                                             K16_KP, 0};
+  W.job[5] = {{p[6]}, wo, H, H, K16_KP, 0};
+  CK(k16_weights(W, 6, stream));
+  // q, k, v = x W^T + b
+  K16Rows r = {};
+  r.a32 = x; r.lda = H; r.M = M; r.N = H; r.K = H; r.ldc = H;
+  for (int j = 0; j < 3; ++j) {
+    r.b[j] = wqkv + (size_t)j * H * K16_KP;
+    r.bias[j] = p[2 * j + 1];
   }
-  CK(cudaGetLastError());
-
+  r.c32[0] = q; r.c32[1] = k; r.c32[2] = v;
+  CK(k16_rows<K16_KS>(r, 3, stream));
+  K16Heads hp = {};
+  const float* src[3] = {q, k, v};
+  bf16_t* dst[3] = {qh, kh, vh};
+  for (int j = 0; j < 3; ++j) {
+    hp.src32[j] = src[j];
+    hp.scale[j] = j == 0 ? scale : 1.f;
+    hp.dst[j] = dst[j];
+  }
+  CK(k16_heads(hp, 3, B, T, H, heads, stream));
+  const dim3 grid_attn((T + K16_AT - 1) / K16_AT, heads, B);
+  K16_DISPATCH(d_attn.on, k16_attn_fwd_kernel, grid_attn, qh, kh, vh, ctx, rden, d_attn, T, TP,
+               H, hd, t_valid);
   // x1 = LN1((ctx Wo^T + bo) * m0 + x)
-  CK(gemm16_parts(M, H, H, ctx, H, p[6], H, part, &splits, stream));
+  r = {};
+  r.a32 = ctx; r.lda = H; r.M = M; r.N = H; r.K = H; r.ldc = H;
+  r.b[0] = wo;
+  r.c32[0] = zp;
+  CK(k16_rows<K16_KS>(r, 1, stream));
   bert_bias_res_ln_kernel<<<ln_blocks, BERT_THREADS, 0, stream>>>(
-      part, splits, p[7], x, p[8], p[9], d0, T, TP, M, H, eps, x1, a1);
+      zp, 1, p[7], x, p[8], p[9], d0, T, TP, M, H, eps, x1, a1);
   CK(cudaGetLastError());
-
-  // GELU(x1 W1^T + b1), then out = LN2((GELU(.) W2^T + b2) * m1 + x1)
-  CK(gemm(M, F, H, x1, H, 0, p[10], H, 1, gu, F, nullptr, part, stream, GEMM_BF16, p[11],
-          nullptr, 3));
-  CK(gemm16_parts(M, H, F, gu, F, p[12], F, part, &splits, stream));
+  // out = LN2((GELU(x1 W1^T + b1) W2^T + b2) * m1 + x1)
+  CK(allow_smem(k16_ffn_fwd_kernel, K16_FFN_FWD_SMEM));
+  k16_ffn_fwd_kernel<<<dim3((M + K16_ROWS - 1) / K16_ROWS, L.slices), K16_THREADS,
+                       K16_FFN_FWD_SMEM, stream>>>(
+      x1, w1b, w2b, p[11], zp, M, H, F, F / K16_FC / L.slices);
+  CK(cudaGetLastError());
   bert_bias_res_ln_kernel<<<ln_blocks, BERT_THREADS, 0, stream>>>(
-      part, splits, p[13], x1, p[14], p[15], d1, T, TP, M, H, eps, out, a2);
+      zp, L.slices, p[13], x1, p[14], p[15], d1, T, TP, M, H, eps, out, a2);
   return (int)cudaGetLastError();
 }
 
-// dq of one (subject, head, query) under mm16, four lanes a query as the
-// float32 kernel: p = e * rden rebuilt from the scores, dp = (dctx . v) * keep;
-// seg = bf16(sum_j bf16(dp p)) (fusion_block._seg_rows with mm16), saved for
-// the dk/dv kernel; ds = p (dp - seg); dq = scale sum_j bf16(ds) bf16(k).
-template <int MAXHD>
-__global__ void __launch_bounds__(BERT_ATTN_THREADS)
-bert_attn_bwd_dq16_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ dctx,
-                          const float* __restrict__ rden, float* __restrict__ seg_out,
-                          float* __restrict__ dq, int ldq, Dropout drop, int T, int TP, int H,
-                          int hd, int t_valid, float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = smem + (size_t)t_valid * hd;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const size_t row0 = (size_t)b * T;
-  for (int i = threadIdx.x; i < t_valid * hd; i += BERT_ATTN_THREADS) {
-    const size_t g = (row0 + i / hd) * H + h * hd + i % hd;
-    ks[i] = bf16r(k[g]);
-    vs[i] = bf16r(v[g]);
-  }
-  __syncthreads();
-  const int part = threadIdx.x % BERT_ATTN_SPLIT;
-  const int i = blockIdx.x * BERT_ATTN_QUERIES + threadIdx.x / BERT_ATTN_SPLIT;
-  const bool live = i < T;
-  const size_t qrow = (row0 + (live ? i : 0)) * H + h * hd;
-  const size_t si = ((size_t)b * gridDim.y + h) * T + (live ? i : 0);
-  float qi[MAXHD], gi[MAXHD], dqa[MAXHD];
-#pragma unroll
-  for (int d = 0; d < MAXHD; ++d) {
-    qi[d] = live && d < hd ? bf16r(q[qrow + d] * scale) : 0.f;
-    gi[d] = live && d < hd ? bf16r(dctx[qrow + d]) : 0.f;
-    dqa[d] = 0.f;
-  }
-  const float rd = live ? rden[si] : 0.f;
-  const uint32_t r = (uint32_t)(b * TP + i);
-  float sacc = 0.f;
-  for (int j = part; j < t_valid; j += BERT_ATTN_SPLIT) {
-    float s = 0.f, dpd = 0.f;
-#pragma unroll
-    for (int d = 0; d < MAXHD; ++d)
-      if (d < hd) {
-        s = fmaf(qi[d], ks[j * hd + d], s);
-        dpd = fmaf(gi[d], vs[j * hd + d], dpd);
-      }
-    const float p = expf(fminf(s, BERT_LOGIT_CAP)) * rd;
-    sacc += bf16r(dpd * keep(drop, r, (uint32_t)(h * TP + j)) * p);
-  }
-#pragma unroll
-  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
-    sacc += __shfl_xor_sync(MNT_FULL_MASK, sacc, off);
-  const float seg = bf16r(sacc);
-  for (int j = part; j < t_valid; j += BERT_ATTN_SPLIT) {
-    float s = 0.f, dpd = 0.f;
-#pragma unroll
-    for (int d = 0; d < MAXHD; ++d)
-      if (d < hd) {
-        s = fmaf(qi[d], ks[j * hd + d], s);
-        dpd = fmaf(gi[d], vs[j * hd + d], dpd);
-      }
-    const float p = expf(fminf(s, BERT_LOGIT_CAP)) * rd;
-    const float ds = bf16r(p * (dpd * keep(drop, r, (uint32_t)(h * TP + j)) - seg));
-#pragma unroll
-    for (int d = 0; d < MAXHD; ++d)
-      if (d < hd) dqa[d] = fmaf(ds, ks[j * hd + d], dqa[d]);
-  }
-#pragma unroll
-  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
-#pragma unroll
-    for (int d = 0; d < MAXHD; ++d) dqa[d] += __shfl_xor_sync(MNT_FULL_MASK, dqa[d], off);
-  if (!live || part != 0) return;
-  seg_out[si] = seg;
-  const size_t drow = (row0 + i) * ldq + h * hd;
-#pragma unroll
-  for (int d = 0; d < MAXHD; ++d)
-    if (d < hd) dq[drow + d] = dqa[d] * scale;
-}
+// Scratch layout of bert_layer_backward16 (floats; bf16 buffers take half a
+// float an element).
+struct K16BwdScratch {
+  long long dy2, dy1, dx1p, db1p, lnp2, lnp1, dbp, seg, tnp, dzb, xb, x1b, dab, ctxb, dctxb,
+      dqkvb, gub, dub, w1b, w2b, wot, wqkvt, qh, kh, vh, gh, total;
+  int slices, ln_blocks, tiles_q, splits, kchunk;
+  long long tn_off[4], tn_ni[4];
 
-// dk and dv of one (subject, head, key) under mm16: dk = sum_i bf16(ds)
-// bf16(q scale), dv = sum_i bf16(p keep) bf16(dctx); four lanes a key, the
-// head's rounded q * scale and dctx, rden and seg in shared memory.
-template <int MAXHD>
-__global__ void __launch_bounds__(BERT_ATTN_THREADS)
-bert_attn_bwd_dkv16_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ dctx,
-                           const float* __restrict__ rden, const float* __restrict__ seg,
-                           float* __restrict__ dk, float* __restrict__ dv, int ldo, Dropout drop,
-                           int T, int TP, int H, int hd, int t_valid, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* gs = qs + (size_t)T * hd;
-  float* ls = gs + (size_t)T * hd;
-  float* Ds = ls + T;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const size_t row0 = (size_t)b * T;
-  const size_t s0 = ((size_t)b * gridDim.y + h) * T;
-  for (int i = threadIdx.x; i < T * hd; i += BERT_ATTN_THREADS) {
-    const size_t g = (row0 + i / hd) * H + h * hd + i % hd;
-    qs[i] = bf16r(q[g] * scale);
-    gs[i] = bf16r(dctx[g]);
-  }
-  for (int i = threadIdx.x; i < T; i += BERT_ATTN_THREADS) {
-    ls[i] = rden[s0 + i];
-    Ds[i] = seg[s0 + i];
-  }
-  __syncthreads();
-  const int part = threadIdx.x % BERT_ATTN_SPLIT;
-  const int j = blockIdx.x * BERT_ATTN_QUERIES + threadIdx.x / BERT_ATTN_SPLIT;
-  const bool live = j < t_valid;
-  const size_t krow = (row0 + (live ? j : 0)) * H + h * hd;
-  float kj[MAXHD], vj[MAXHD], dka[MAXHD], dva[MAXHD];
-#pragma unroll
-  for (int d = 0; d < MAXHD; ++d) {
-    kj[d] = live && d < hd ? bf16r(k[krow + d]) : 0.f;
-    vj[d] = live && d < hd ? bf16r(v[krow + d]) : 0.f;
-    dka[d] = dva[d] = 0.f;
-  }
-  if (live) {
-    const uint32_t c = (uint32_t)(h * TP + j);
-    for (int i = part; i < T; i += BERT_ATTN_SPLIT) {
-      float s = 0.f, dpd = 0.f;
-#pragma unroll
-      for (int d = 0; d < MAXHD; ++d)
-        if (d < hd) {
-          s = fmaf(qs[i * hd + d], kj[d], s);
-          dpd = fmaf(gs[i * hd + d], vj[d], dpd);
-        }
-      const float p = expf(fminf(s, BERT_LOGIT_CAP)) * ls[i];
-      const float kp = keep(drop, (uint32_t)(b * TP + i), c);
-      const float ds = bf16r(p * (dpd * kp - Ds[i]));
-      const float pd = bf16r(p * kp);
-#pragma unroll
-      for (int d = 0; d < MAXHD; ++d)
-        if (d < hd) {
-          dka[d] = fmaf(ds, qs[i * hd + d], dka[d]);
-          dva[d] = fmaf(pd, gs[i * hd + d], dva[d]);
-        }
+  K16BwdScratch(int B, int T, int H, int F, int heads) {
+    const long long M = (long long)B * T, MH = M * H, BHT = (long long)B * heads * T;
+    slices = k16_slices((int)M, F, K16_BWD_PER_SM);
+    ln_blocks = (int)((M + K16_LN_ROWS - 1) / K16_LN_ROWS);
+    tiles_q = (T + K16_AT - 1) / K16_AT;
+    // the dW products: 128-row tiles of F (dW1, dW2^T), H (dWo), 3H
+    const long long ni[4] = {F, F, H, 3LL * H};
+    long long tiles = 0;
+    for (int j = 0; j < 4; ++j) tiles += (ni[j] + K16_TN_BI - 1) / K16_TN_BI;
+    splits = (int)(264 / tiles);   // one wave of two blocks an SM
+    if (splits > M / 64) splits = (int)(M / 64);
+    if (splits < 1) splits = 1;
+    kchunk = (int)(((M + splits - 1) / splits + K16_TN_BK - 1) / K16_TN_BK * K16_TN_BK);
+    splits = (int)((M + kchunk - 1) / kchunk);
+    long long tn = 0;
+    for (int j = 0; j < 4; ++j) {
+      tn_ni[j] = ni[j];
+      tn_off[j] = tn;
+      tn += k16_align(splits * ni[j] * H);
     }
+    long long off = 0;
+    dy2 = off; off += k16_align(MH);
+    dy1 = off; off += k16_align(MH);
+    dx1p = off; off += k16_align(slices * MH);
+    db1p = off; off += k16_align(((M + K16_ROWS - 1) / K16_ROWS) * F);
+    lnp2 = off; off += k16_align((long long)ln_blocks * 3 * H);
+    lnp1 = off; off += k16_align((long long)ln_blocks * 3 * H);
+    dbp = off; off += k16_align((long long)B * tiles_q * 3 * H);
+    seg = off; off += k16_align(BHT);
+    tnp = off; off += tn;
+    dzb = off; off += k16_half(M * K16_KP);
+    xb = off; off += k16_half(M * K16_KP);
+    x1b = off; off += k16_half(M * K16_KP);
+    dab = off; off += k16_half(M * K16_KP);
+    ctxb = off; off += k16_half(M * K16_KP);
+    dctxb = off; off += k16_half(MH);
+    dqkvb = off; off += k16_half(M * K16_K3P);
+    gub = off; off += k16_half(M * F);
+    dub = off; off += k16_half(M * F);
+    w1b = off; off += k16_half((long long)F * K16_KP);
+    w2b = off; off += k16_half((long long)H * F);
+    wot = off; off += k16_half((long long)H * K16_KP);
+    wqkvt = off; off += k16_half((long long)H * K16_K3P);
+    qh = off; off += k16_half(BHT * 16);
+    kh = off; off += k16_half(BHT * 16);
+    vh = off; off += k16_half(BHT * 16);
+    gh = off; off += k16_half(BHT * 16);
+    total = off;
   }
-#pragma unroll
-  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
-#pragma unroll
-    for (int d = 0; d < MAXHD; ++d) {
-      dka[d] += __shfl_xor_sync(MNT_FULL_MASK, dka[d], off);
-      dva[d] += __shfl_xor_sync(MNT_FULL_MASK, dva[d], off);
-    }
-  if (j >= T || part != 0) return;
-  const size_t drow = (row0 + j) * ldo + h * hd;
-#pragma unroll
-  for (int d = 0; d < MAXHD; ++d)
-    if (d < hd) {
-      dk[drow + d] = dka[d];
-      dv[drow + d] = dva[d];
-    }
-}
+};
 
-static cudaError_t attn_bwd16(const float* q, const float* k, const float* v,
-                              const float* dctx, const float* rden, float* seg, float* dqkv,
-                              const Dropout& drop, int B, int T, int TP, int H, int heads,
-                              int t_valid, cudaStream_t stream) {
-  const int hd = H / heads;
-  const float scale = 1.f / sqrtf((float)hd);
-  const dim3 grid((T + BERT_ATTN_QUERIES - 1) / BERT_ATTN_QUERIES, heads, B);
-  const size_t smem_dq = 2 * (size_t)t_valid * hd * sizeof(float);
-  const size_t smem_dkv = (2 * (size_t)T * hd + 2 * (size_t)T) * sizeof(float);
-  cudaError_t err;
-#define ATTN16(HD)                                                                              \
-  do {                                                                                          \
-    if ((err = allow_smem(bert_attn_bwd_dq16_kernel<HD>, smem_dq)) != cudaSuccess) return err;  \
-    bert_attn_bwd_dq16_kernel<HD><<<grid, BERT_ATTN_THREADS, smem_dq, stream>>>(                \
-        q, k, v, dctx, rden, seg, dqkv, 3 * H, drop, T, TP, H, hd, t_valid, scale);             \
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;                                  \
-    if ((err = allow_smem(bert_attn_bwd_dkv16_kernel<HD>, smem_dkv)) != cudaSuccess) return err; \
-    bert_attn_bwd_dkv16_kernel<HD><<<grid, BERT_ATTN_THREADS, smem_dkv, stream>>>(              \
-        q, k, v, dctx, rden, seg, dqkv + H, dqkv + 2 * H, 3 * H, drop, T, TP, H, hd, t_valid,   \
-        scale);                                                                                 \
-  } while (0)
-  if (hd <= 8) ATTN16(8);
-  else ATTN16(16);
-#undef ATTN16
-  return cudaGetLastError();
+extern "C" long long bert_layer_backward16_scratch_floats(int B, int T, int H, int F,
+                                                          int heads) {
+  return K16BwdScratch(B, T, H, F, heads).total;
 }
 
 // The mm16 form of bert_layer_backward: x, resid (from bert_layer_forward16
-// with the same seed and rates), g, params, grads, dx and scratch
-// (bert_layer_backward_scratch_floats()) as there; every product on bf16
-// operands (tc_gemm_bf16_kernel) at JAX's mm16 rounding points.
+// with the same seed and rates), g, params, grads and dx as there; scratch
+// of bert_layer_backward16_scratch_floats(). Eleven launches: the bf16
+// weights; LN2's backward; the FFN row pass (GELU(U) and DU stored as bf16,
+// dx1's slices, db1's partials); LN1's backward (adds dy2 and dx1's slices);
+// dctx = da Wo; the head-major copies; dq (with seg); dk, dv; the four dW
+// products; dx = dy1 + [dq dk dv] [Wq; Wk; Wv] (one product, K = 3H); every
+// cross-block sum.
 extern "C" int bert_layer_backward16(const float* x, const float* resid, const float* g,
                                      const void* const* params, void* const* grads, float* dx,
                                      float* scratch, int B, int T, int H, int F, int heads,
                                      int t_valid, int TP, int seed, double attn_rate,
                                      double hidden_rate, cudaStream_t stream) {
-  return bert_backward(x, resid, g, params, grads, dx, scratch, B, T, H, F, heads, t_valid, TP,
-                       seed, attn_rate, hidden_rate, GEMM_BF16, 1, stream);
+  if (k16_bad_dims(T, H, F, heads, t_valid, TP)) return (int)cudaErrorInvalidValue;
+  const float* const* p = reinterpret_cast<const float* const*>(params);
+  float* const* dp = reinterpret_cast<float* const*>(grads);
+  const int M = B * T;
+  const size_t MH = (size_t)M * H;
+  const float *q = resid, *k = q + MH, *v = k + MH, *ctx = v + MH, *a1 = ctx + MH;
+  const float *x1 = a1 + MH, *a2 = x1 + MH, *rden = a2 + MH;
+  const K16BwdScratch L(B, T, H, F, heads);
+  auto f32 = [&](long long off) { return scratch + off; };
+  auto b16 = [&](long long off) { return reinterpret_cast<bf16_t*>(scratch + off); };
+  float *dy2 = f32(L.dy2), *dy1 = f32(L.dy1), *dx1p = f32(L.dx1p), *db1p = f32(L.db1p);
+  float *lnp2 = f32(L.lnp2), *lnp1 = f32(L.lnp1), *dbp = f32(L.dbp), *seg = f32(L.seg);
+  bf16_t *dzb = b16(L.dzb), *xb = b16(L.xb), *x1b = b16(L.x1b), *dab = b16(L.dab);
+  bf16_t *ctxb = b16(L.ctxb), *dctxb = b16(L.dctxb), *dqkvb = b16(L.dqkvb);
+  bf16_t *gub = b16(L.gub), *dub = b16(L.dub), *w1b = b16(L.w1b), *w2b = b16(L.w2b);
+  bf16_t *wot = b16(L.wot), *wqkvt = b16(L.wqkvt);
+  bf16_t *qh = b16(L.qh), *kh = b16(L.kh), *vh = b16(L.vh), *gh = b16(L.gh);
+  const Dropout d_attn = make_dropout(seed, 3, attn_rate);
+  const Dropout d0 = make_dropout(seed, 0, hidden_rate);
+  const Dropout d1 = make_dropout(seed, 1, hidden_rate);
+  const int hd = H / heads;
+  const float scale = 1.f / sqrtf((float)hd);
+  const int row_tiles = (M + K16_ROWS - 1) / K16_ROWS;
+
+  // W1, W2 for the FFN; Wo^T (dctx = da Wo) and [Wq; Wk; Wv]^T (dx)
+  K16Weights W = {};
+  W.job[0] = {{p[10]}, w1b, F, H, K16_KP, 0};
+  W.job[1] = {{p[12]}, w2b, H, F, F, 0};
+  W.job[2] = {{p[6]}, wot, H, H, K16_KP, 1};
+  W.job[3] = {{p[0], p[2], p[4]}, wqkvt, H, 3 * H, K16_K3P, 1};
+  CK(k16_weights(W, 4, stream));
+  // ---- FFN side ----------------------------------------------------------
+  // dy2 = LN2'(g) over the saved a2, bf16(dz = dy2 m1), bf16(x)
+  K16Ln ln = {};
+  ln.gin = g; ln.pre = a2; ln.gamma = p[14]; ln.drop = d1;
+  ln.dres = dy2; ln.dmask16 = dzb; ln.copy_src = x; ln.copy_dst = xb;
+  ln.part = lnp2; ln.T = T; ln.TP = TP; ln.M = M; ln.H = H;
+  k16_ln_bwd_kernel<<<L.ln_blocks, BERT_THREADS, 0, stream>>>(ln);
+  CK(cudaGetLastError());
+  CK(allow_smem(k16_ffn_bwd_kernel, K16FfnBwdSmem::BYTES));
+  k16_ffn_bwd_kernel<<<dim3(row_tiles, L.slices), K16_THREADS, K16FfnBwdSmem::BYTES, stream>>>(
+      x1, dzb, w1b, w2b, p[11], gub, dub, db1p, dx1p, x1b, M, H, F, F / K16_FC / L.slices);
+  CK(cudaGetLastError());
+
+  // ---- attention side ------------------------------------------------------
+  // dx1 = dy2 + the slices' DU W1; dy1 = LN1'(dx1) over the saved a1,
+  // bf16(da = dy1 m0), bf16(ctx), dqkvb's pad columns zeroed
+  ln = {};
+  ln.gin = dy2; ln.gparts = dx1p; ln.nparts = L.slices; ln.pre = a1; ln.gamma = p[8];
+  ln.drop = d0; ln.dres = dy1; ln.dmask16 = dab; ln.copy_src = ctx; ln.copy_dst = ctxb;
+  ln.pad_dst = dqkvb; ln.pad_ld = K16_K3P; ln.pad_from = 3 * H;
+  ln.part = lnp1; ln.T = T; ln.TP = TP; ln.M = M; ln.H = H;
+  k16_ln_bwd_kernel<<<L.ln_blocks, BERT_THREADS, 0, stream>>>(ln);
+  CK(cudaGetLastError());
+  // dctx = bf16(da) Wo, stored as bf16 (the scores' backward rounds it)
+  K16Rows r = {};
+  r.a16 = dab; r.lda = K16_KP; r.M = M; r.N = H; r.K = H; r.ldc = H;
+  r.b[0] = wot;
+  r.c16 = dctxb;
+  CK(k16_rows<K16_KS>(r, 1, stream));
+  K16Heads hp = {};
+  const float* src[3] = {q, k, v};
+  bf16_t* dst[4] = {qh, kh, vh, gh};
+  for (int j = 0; j < 4; ++j) {
+    if (j < 3) hp.src32[j] = src[j];
+    hp.scale[j] = j == 0 ? scale : 1.f;
+    hp.dst[j] = dst[j];
+  }
+  hp.src16[3] = dctxb;
+  CK(k16_heads(hp, 4, B, T, H, heads, stream));
+  const dim3 grid_attn(L.tiles_q, heads, B);
+  if (d_attn.on) {
+    const size_t kb = (size_t)L.tiles_q * K16_THREADS * sizeof(uint32_t);
+    CK(allow_smem(k16_attn_dq_kernel<true>, kb + 16384));   // beside ~12.5 KB of static
+    k16_attn_dq_kernel<true><<<grid_attn, K16_THREADS, kb, stream>>>(
+        qh, kh, vh, gh, rden, seg, dqkvb, K16_K3P, dbp, d_attn, T, TP, H, hd, t_valid, scale);
+  } else {
+    k16_attn_dq_kernel<false><<<grid_attn, K16_THREADS, 0, stream>>>(
+        qh, kh, vh, gh, rden, seg, dqkvb, K16_K3P, dbp, d_attn, T, TP, H, hd, t_valid, scale);
+  }
+  CK(cudaGetLastError());
+  K16_DISPATCH(d_attn.on, k16_attn_dkv_kernel, grid_attn, qh, kh, vh, gh, rden, seg, dqkvb,
+               K16_K3P, dbp, d_attn, T, TP, H, hd, t_valid);
+
+  // ---- the four dW products in one launch ---------------------------------
+  K16Tn tn = {};
+  const bf16_t* P[4] = {dub, gub, dab, dqkvb};
+  const int ldp[4] = {F, F, K16_KP, K16_K3P};
+  const bf16_t* Q[4] = {x1b, dzb, ctxb, xb};
+  int blocks = 0;
+  for (int j = 0; j < 4; ++j) {
+    K16TnJob& J = tn.job[j];
+    J.P = P[j]; J.ldp = ldp[j]; J.ni = (int)L.tn_ni[j]; J.Q = Q[j];
+    J.part = f32(L.tnp + L.tn_off[j]);
+    J.tiles_i = (J.ni + K16_TN_BI - 1) / K16_TN_BI;
+    J.first_block = blocks;
+    J.trans = j == 1;
+    blocks += J.tiles_i * L.splits;
+  }
+  tn.njobs = 4; tn.splits = L.splits; tn.kchunk = L.kchunk; tn.M = M; tn.nj = H;
+  tn.ldq = K16_KP;
+  k16_tn_kernel<<<blocks, K16_TN_THREADS, 0, stream>>>(tn);
+  CK(cudaGetLastError());
+
+  // dx = dy1 + bf16([dq dk dv]) bf16([Wq; Wk; Wv]), K = 3H
+  r = {};
+  r.a16 = dqkvb; r.lda = K16_K3P; r.M = M; r.N = H; r.K = 3 * H; r.ldc = H;
+  r.b[0] = wqkvt;
+  r.add = dy1;
+  r.c32[0] = dx;
+  CK(k16_rows<K16_K3KS>(r, 1, stream));
+
+  // ---- every cross-block sum, in order --------------------------------------
+  K16Reduce red = {};
+  int ns = 0, nmax = 0;
+  auto seg_add = [&](const float* part, long long stride, int S, int n, float* dst) {
+    red.seg[ns++] = {part, stride, S, n, dst};
+    if (n > nmax) nmax = n;
+  };
+  for (int j = 0; j < 3; ++j) {   // LN2: dgamma2, dbeta2, db2; LN1: dgamma1, dbeta1, dbo
+    seg_add(lnp2 + j * H, 3 * H, L.ln_blocks, H, dp[j == 0 ? 14 : j == 1 ? 15 : 13]);
+    seg_add(lnp1 + j * H, 3 * H, L.ln_blocks, H, dp[j == 0 ? 8 : j == 1 ? 9 : 7]);
+    seg_add(dbp + j * H, 3 * H, B * L.tiles_q, H, dp[2 * j + 1]);   // dbq, dbk, dbv
+    seg_add(f32(L.tnp + L.tn_off[3]) + (long long)j * H * H, 3LL * H * H, L.splits, H * H,
+            dp[2 * j]);                                               // dWq, dWk, dWv
+  }
+  seg_add(db1p, F, row_tiles, F, dp[11]);
+  seg_add(f32(L.tnp + L.tn_off[0]), (long long)F * H, L.splits, F * H, dp[10]);
+  seg_add(f32(L.tnp + L.tn_off[1]), (long long)F * H, L.splits, F * H, dp[12]);
+  seg_add(f32(L.tnp + L.tn_off[2]), (long long)H * H, L.splits, H * H, dp[6]);
+  int rb = (nmax + 31) / 32;
+  if (rb > 1024) rb = 1024;
+  k16_reduce_kernel<<<dim3(rb, ns), 256, 0, stream>>>(red);
+  return (int)cudaGetLastError();
 }

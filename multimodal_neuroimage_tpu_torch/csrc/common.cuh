@@ -113,3 +113,47 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
+
+// ---- bf16 tensor-core helpers (warp-level mma.sync m16n8k16 and ldmatrix),
+// shared by K6's and K1's bf16 forms -----------------------------------------
+
+__device__ __forceinline__ uint32_t tc_smem(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 b16 matrices; lanes 8m .. 8m + 7 give the row addresses of matrix
+// m. Lane l receives row l / 4, columns 2 (l % 4) and + 1 of each (.trans:
+// column l / 4, rows 2 (l % 4) and + 1).
+__device__ __forceinline__ void tc_ldsm(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(tc_smem(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void tc_ldsm_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(tc_smem(p))
+               : "memory");
+}
+
+// c += a b: m16n8k16, bf16 operands, f32 accumulators. Fragments (g = lane
+// / 4, t = lane % 4): a[e] holds row g + 8 (e & 1), columns 16-step + 8 (e >>
+// 1) + 2t, + 1; b0 / b1 rows (k) 2t, + 1 / 2t + 8, + 9 of column g; c[e] row
+// g + 8 (e >> 1), column 2t + (e & 1).
+__device__ __forceinline__ void tc_mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x, one MUFU op (.ftz: a result below 2^-126 is 0, where the float32
+// reference keeps a subnormal that adds nothing a bf16 output can hold)
+__device__ __forceinline__ float tc_ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}

@@ -19,8 +19,12 @@ bf16 and accumulates in float32, the softmax is JAX's packed one (logits
 capped at 80, no max subtraction, denominators summed from bf16(e), p = e *
 bf16(1 / den)), and the backward rounds where JAX's mm16 backward does
 (:func:`bert_layer_reference_backward16`, written out: autograd through the
-rounded forward would round elsewhere). Its kernels run the products on bf16
-tensor cores (``bert_layer_forward16`` / ``bert_layer_backward16``).
+rounded forward would round elsewhere). Its kernels run every product, the
+per-head scores and contexts too, on bf16 tensor cores
+(``bert_layer_forward16`` / ``bert_layer_backward16``), in a decomposition
+that :func:`bert_layer_model16` and :func:`bert_layer_model_backward16`
+model in plain PyTorch for the tests (F-sliced FFN partial sums, GELU(U)
+and DU stored as bf16, merged q/k/v products).
 """
 
 from __future__ import annotations
@@ -99,10 +103,21 @@ def _mm16(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return bf16_round(a) @ bf16_round(w).t()
 
 
+def _slice_sum(parts):
+    """The partial products added in order, as the kernels' row kernels add
+    their F slices."""
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
+
+
 def _forward16(x, params, heads: int, t_valid: int, seed: int, rates,
-               training: bool) -> dict:
+               training: bool, slices=None) -> dict:
     """The mm16 layer's forward (JAX ``_fwd_parts`` with mm16, packed
-    attention), keeping what its backward needs."""
+    attention), keeping what its backward needs; ``slices``: the FFN's
+    second product as that many F-sliced partials added in order (the
+    kernels' decomposition, :func:`bert_layer_model16`)."""
     (wq, bq, wk, bk, wv, bv, wo, bo, g1, b1,
      w1, b1m, w2, b2m, g2, b2) = [p.float() for p in params]
     B, T, H = x.shape
@@ -141,13 +156,16 @@ def _forward16(x, params, heads: int, t_valid: int, seed: int, rates,
     x1, xh1, r1 = ln_parts(a + x, g1, b1, LN_EPS)
     u = _mm16(x1, w1) + b1m
     gu = F.gelu(u)
-    z = _mm16(gu, w2) + b2m
-    if m1 is not None:
-        z = z * m1
-    out, xh2, r2 = ln_parts(z + x1, g2, b2, LN_EPS)
+    if slices is None:
+        z = _mm16(gu, w2) + b2m
+    else:
+        cols = torch.arange(w2.shape[1]).chunk(slices)
+        z = _slice_sum([_mm16(gu[..., c], w2[:, c]) for c in cols]) + b2m
+    zd = z * m1 if m1 is not None else z
+    out, xh2, r2 = ln_parts(zd + x1, g2, b2, LN_EPS)
     return dict(out=out, q=q, qs=qs, k=k, v=v, p=p, pd=pd, keep=keep,
                 ctx=ctx, m0=m0, m1=m1, x1=x1, xh1=xh1, r1=r1, u=u, gu=gu,
-                xh2=xh2, r2=r2)
+                z=z, xh2=xh2, r2=r2)
 
 
 def bert_layer_reference_backward16(g, x, params, heads: int, t_valid: int,
@@ -157,9 +175,43 @@ def bert_layer_reference_backward16(g, x, params, heads: int, t_valid: int,
     kernels compute it (``_ffn_bwd_body``, ``_attn_bwd_body`` with mm16):
     every product of bf16-rounded operands, seg = bf16(sum bf16(dp p))
     (``_seg_rows``); returns (dx, dparams), float32."""
+    r = _backward16(g, x, params, heads, t_valid, seed, rates, training)
+    return r["dx"], r["dparams"]
+
+
+def bert_layer_model16(x, params, heads: int, t_valid: int, seed: int = 0,
+                       rates=(0.0, 0.0), training: bool = False,
+                       slices: int = 1) -> torch.Tensor:
+    """Plain model of the mm16 forward kernels' decomposition (tests only):
+    the FFN's second product as ``slices`` F-sliced partials added in
+    order, then the bias (``k16_ffn_fwd_kernel``, then
+    ``bert_bias_res_ln_kernel``)."""
+    return _forward16(x, params, heads, t_valid, seed, rates, training,
+                      slices)["out"]
+
+
+def bert_layer_model_backward16(g, x, params, heads: int, t_valid: int,
+                                seed: int = 0, rates=(0.0, 0.0),
+                                training: bool = False,
+                                slices: int = 1) -> dict:
+    """Plain model of the mm16 backward kernels' decomposition (tests
+    only), over :func:`bert_layer_model16`'s forward: GELU(U) and DU stored
+    as bf16 (``gu16``, ``du16``) and read back by the dW products; db1 from
+    the float32 DU; dx1 = dy2 + the ``slices`` F slices' DU W1 partials
+    added in order; one merged product dx = dy1 + [dq dk dv] [Wq; Wk; Wv]
+    (K = 3H) and one [dWq; dWk; dWv] = [dq dk dv]^T x. Returns dx, dparams,
+    dx1, gu16, du16 and dq, dk, dv (B, T, H)."""
+    return _backward16(g, x, params, heads, t_valid, seed, rates, training,
+                       slices)
+
+
+def _backward16(g, x, params, heads, t_valid, seed, rates, training,
+                slices=None) -> dict:
+    """The mm16 backward: JAX's arithmetic (``slices`` None), or the
+    kernels' decomposition of it (``slices`` F slices)."""
     (wq, bq, wk, bk, wv, bv, wo, bo, g1, b1,
      w1, b1m, w2, b2m, g2, b2) = [p.float() for p in params]
-    f = _forward16(x, params, heads, t_valid, seed, rates, training)
+    f = _forward16(x, params, heads, t_valid, seed, rates, training, slices)
     B, T, H = x.shape
     hd = H // heads
     bf = bf16_round
@@ -170,10 +222,15 @@ def bert_layer_reference_backward16(g, x, params, heads: int, t_valid: int,
     # FFN side over the saved pre-LN2 sum
     dy2 = ln_bwd(g, f["xh2"], f["r2"], g2)
     dz = dy2 * f["m1"] if f["m1"] is not None else dy2
-    dw2 = tn(dz, f["gu"])
     du = (bf(dz) @ bf(w2)) * gelu_grad(f["u"])
-    dw1 = tn(du, f["x1"])
-    dx1 = dy2 + bf(du) @ bf(w1)
+    gu16, du16 = bf(f["gu"]), bf(du)
+    dw2 = tn(dz, gu16)
+    dw1 = tn(du16, f["x1"])
+    if slices is None:
+        dx1 = dy2 + du16 @ bf(w1)
+    else:
+        cols = torch.arange(w1.shape[0]).chunk(slices)
+        dx1 = dy2 + _slice_sum([du16[..., c] @ bf(w1[c]) for c in cols])
     dg2, db2, db2m = colsum(g * f["xh2"]), colsum(g), colsum(dz)
     db1m = colsum(du)
 
@@ -198,11 +255,18 @@ def bert_layer_reference_backward16(g, x, params, heads: int, t_valid: int,
     dk = torch.einsum("bhts,bhtd->bhsd", bf(ds), f["qs"])
     merge = lambda t: t.transpose(1, 2).reshape(B, T, H)
     dq, dk, dv = merge(dq), merge(dk), merge(dv)
-    dx = dy1 + bf(dq) @ bf(wq) + bf(dk) @ bf(wk) + bf(dv) @ bf(wv)
-    dparams = (tn(dq, x), colsum(dq), tn(dk, x), colsum(dk), tn(dv, x),
+    if slices is None:
+        dx = dy1 + bf(dq) @ bf(wq) + bf(dk) @ bf(wk) + bf(dv) @ bf(wv)
+        dwqkv = (tn(dq, x), tn(dk, x), tn(dv, x))
+    else:
+        dqkv = torch.cat([dq, dk, dv], dim=-1)
+        dx = dy1 + bf(dqkv) @ bf(torch.cat([wq, wk, wv]))
+        dwqkv = tn(dqkv, x).split(H)
+    dparams = (dwqkv[0], colsum(dq), dwqkv[1], colsum(dk), dwqkv[2],
                colsum(dv), dwo, dbo, dg1, db1, dw1, db1m, dw2, db2m, dg2,
                db2)
-    return dx, dparams
+    return dict(dx=dx, dparams=dparams, dx1=dx1, gu16=gu16, du16=du16,
+                dq=dq, dk=dk, dv=dv)
 
 
 def bert_layer_reference_backward(g, x, params, heads: int, t_valid: int,
@@ -265,9 +329,9 @@ def _launch_forward(x, params, heads, t_valid, seed, rates, training,
     B, T, H, F_ = _check(x, params, heads, t_valid)
     attn_rate, hidden_rate = rates if training else (0.0, 0.0)
     lib = build.library()
-    scratch = torch.empty(lib.value("bert_layer_scratch16_floats" if mm16
-                                    else "bert_layer_scratch_floats",
-                                    B, T, H, F_),
+    scratch = torch.empty(lib.value("bert_layer_scratch16_floats", B, T, H,
+                                    F_, heads) if mm16 else
+                          lib.value("bert_layer_scratch_floats", B, T, H, F_),
                           dtype=torch.float32, device=x.device)
     resid = (torch.empty(lib.value("bert_layer_resid_floats", B, T, H, heads),
                          dtype=torch.float32, device=x.device)
@@ -299,7 +363,9 @@ def bert_layer_backward(g, x, params, resid, heads: int, t_valid: int,
     build.check_cuda_f32("resid", resid, (lib.value(
         "bert_layer_resid_floats", B, T, H, heads),))
     attn_rate, hidden_rate = rates if training else (0.0, 0.0)
-    scratch = torch.empty(lib.value("bert_layer_backward_scratch_floats",
+    scratch = torch.empty(lib.value("bert_layer_backward16_scratch_floats"
+                                    if mm16 else
+                                    "bert_layer_backward_scratch_floats",
                                     B, T, H, F_, heads),
                           dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)

@@ -64,8 +64,9 @@ _SIGNATURES = {
     "bert_layer_backward": (_I, [_P] * 7 + [_I] * 8 + [_D, _D, _I, _P]),
     "bert_layer_backward_scratch_floats": (_L, [_I] * 5),
     "bert_layer_forward16": (_I, [_P] * 5 + [_I] * 8 + [_D, _D, _P]),
-    "bert_layer_scratch16_floats": (_L, [_I] * 4),
+    "bert_layer_scratch16_floats": (_L, [_I] * 5),
     "bert_layer_backward16": (_I, [_P] * 7 + [_I] * 8 + [_D, _D, _P]),
+    "bert_layer_backward16_scratch_floats": (_L, [_I] * 5),
     "fused_adam_update": (_I, [_P] * 4 + [_L, _P, _F, _F, _F, _D, _D, _D,
                                           _D, _I, _P]),
     "mha_forward": (_I, [_P] * 5 + [_I] * 4 + [_D, _P]),

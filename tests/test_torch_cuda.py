@@ -964,11 +964,14 @@ def _k1_params16(gen, H, F, dev):
 
 @pytest.mark.parametrize("B,T,H,heads,F,t_valid", [
     (4, 369, 84, 12, 3072, 369), (16, 369, 84, 12, 3072, 369),
-    (3, 45, 28, 4, 96, 30)])
+    (3, 45, 28, 4, 96, 30), (1, 369, 84, 12, 3072, 300),
+    (64, 369, 84, 12, 3072, 369), (2, 17, 96, 6, 64, 17)])
 def test_bert_layer_mm16_kernels(dev, B, T, H, heads, F, t_valid):
     """K1's mm16 form forward (inference) and backward (dropout 0.1) against
-    its plain versions: the flagship's full width at batches 4 and 16, and a
-    ragged case (odd head dim, keys masked past t_valid, partial tiles)."""
+    its plain versions: the flagship's full width at batches 1 (keys masked
+    past t_valid), 4, 16 and 64, a ragged case (odd head dim, keys masked
+    past t_valid, partial tiles), and head dim 16 at the widest H with F
+    under one slice and T under one tile."""
     gen = torch.Generator().manual_seed(B * T)
     p = _k1_params16(gen, H, F, dev)
     x, g = (_rand(gen, B, T, H).to(dev) for _ in "xg")
@@ -990,6 +993,27 @@ def test_bert_layer_mm16_kernels(dev, B, T, H, heads, F, t_valid):
     for i, (a, b) in enumerate(zip(dps, wdps)):
         _close_rel16(a, b, f"dparams[{i}]",
                      wdps[2].abs().max().item() if i == 3 else None)
+
+
+def test_bert_layer_mm16_repeatable(dev):
+    """Two calls of each mm16 entry (the training forward with dropout, the
+    backward) on the same inputs are bitwise equal: every cross-block sum
+    is added in a fixed order, with no float atomics."""
+    gen = torch.Generator().manual_seed(29)
+    B, T, H, heads, F = 16, 369, 84, 12, 3072
+    p = _k1_params16(gen, H, F, dev)
+    x, g = (_rand(gen, B, T, H).to(dev) for _ in "xg")
+    seed, rates = 31, (0.1, 0.1)
+    runs = []
+    for _ in range(2):
+        out, resid = bl._launch_forward(x, p, heads, T, seed, rates, True,
+                                        True, True)
+        dx, dps = bl.bert_layer_backward16(g, x, p, resid, heads, T, seed,
+                                           rates, True)
+        runs.append((out, resid, dx) + tuple(dps))
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a, b), i
 
 
 def _fusion_params16(gen, C, cross, dev):
