@@ -2,8 +2,10 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
-1. Prints the card's name and power limit (nvidia-smi) and builds the port's
-   CUDA kernels from ``multimodal_neuroimage_tpu_torch/csrc`` with nvcc.
+1. Prints the card's name and power limit (nvidia-smi), builds the port's
+   CUDA kernels from ``multimodal_neuroimage_tpu_torch/csrc`` with nvcc, and
+   prints how the fusion forward and backward run on the card (blocks an
+   SM, windows in flight, shared memory).
 2. Holds every kernel against its plain PyTorch version on the card at the
    shapes its path gives it (float32, TF32 off) and times both with CUDA
    events, beside the least time the card could take (``bound_ms``) and,
@@ -14,7 +16,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    with each call's device time beside its call time: one replay of a CUDA
    graph of 20 calls) and K5 at the flagship's shapes (B = 4); K6 forward
    and backward at HCP's (8, 2, 1201, 11), dropout 0 and 0.1 (dq/dk/dv
-   against autograd through the plain forward); K7 forward and backward at the bp
+   against autograd through the plain forward); K2/K3's forward at batch
+   4, 16 and 64, shifts 0 and 3, as inference and as the training forward
+   (dropout 0.1, DropPath), its saved x2r held too (at 16 and 64 its work
+   items, several subjects' windows of one window position, fill the card;
+   the batch-4 inference, the serving shape, also with its device time);
+   K7 forward and backward at the bp
    flagship's shapes (B = 16, two groups of G = 8, shifts 0 and 3, dropout
    0.1 and DropPath), also timed beside K2/K3 on the same inputs in the std
    layout; K8, every dot-shape variant at f32 and bf16 (one chain pair over
@@ -379,7 +386,8 @@ class Results:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"] / n,
                 "plain_ms": r["plain_ms"] / n, "bound_ms": r["bound_ms"] / n,
                 "bound_by": r["bound_by"], "library_ms": mean("library"),
-                # K4 and K8 only: device time, kernel and library
+                # K2/K3 (the batch-4 inference), K4 and K8 only: device
+                # time, kernel and library
                 "device_ms": mean("device"),
                 "library_device_ms": mean("library_device"),
                 # K7 only: K2/K3 on the same inputs in the std layout
@@ -426,11 +434,14 @@ def _report(res, key, label, err, ms, plain_ms, ops, nbytes, src, rep,
 
 
 def forward_kernels(gen, res: Results):
-    """K1-K4 forward against their plain versions (inference), beside the
-    one PyTorch call that computes the same function where there is one:
-    K1 ``nn.TransformerEncoderLayer`` (post-LN, erf-GELU, eps 1e-12) in
-    eval on the same weights, K4 ``scaled_dot_product_attention`` with
-    bias + mask as ``attn_mask``."""
+    """K1-K4 forward against their plain versions, beside the one PyTorch
+    call that computes the same function where there is one: K1
+    ``nn.TransformerEncoderLayer`` (post-LN, erf-GELU, eps 1e-12) in eval
+    on the same weights, K4 ``scaled_dot_product_attention`` with bias +
+    mask as ``attn_mask``. K2/K3 at batch 4, 16 and 64, each as inference
+    and as the training forward with its saved x2r held too (the plain
+    block with fc2 zeroed is x2r); the batch-4 inference (the serving
+    shape) and K4 also with their device times."""
     from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
     from multimodal_neuroimage_tpu_torch.ops import attention as att
     from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
@@ -438,6 +449,13 @@ def forward_kernels(gen, res: Results):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = "cuda"
     cases = []
+
+    def case(key, label, kernel, plain, src, rep, ops, nbytes, library=None,
+             x2r=None, device=False):
+        """``x2r``: the plain x2r where ``kernel`` returns (out, x2r);
+        ``device``: time the call's device work too."""
+        cases.append((key, label, kernel, plain, src, rep, ops, nbytes,
+                      library, x2r, device))
     H, F_, T = 84, 3072, 369
     p = tuple(t.to(dev) for t in (_lin(gen, H, H) * 1 + _lin(gen, H, H)
                                   + _lin(gen, H, H) + _lin(gen, H, H)
@@ -449,32 +467,58 @@ def forward_kernels(gen, res: Results):
     @torch.no_grad()
     def library():
         return encoder(x)
-    cases.append(("K1 bert_layer", "",
-                  lambda: bl.bert_layer_call(x, p, 12, T),
-                  lambda: bl.bert_layer_reference(x, p, 12, T),
-                  "bert_layer.cu", "bert_layer.py:914",
-                  sum(_bert_ops(BATCH, T, H, 12, F_)), _nbytes(x, x, *p),
-                  library))
+    case("K1 bert_layer", "", lambda: bl.bert_layer_call(x, p, 12, T),
+         lambda: bl.bert_layer_reference(x, p, 12, T), "bert_layer.cu",
+         "bert_layer.py:914", sum(_bert_ops(BATCH, T, H, 12, F_)),
+         _nbytes(x, x, *p), library)
     C, Hh, N, nW = 12, 6, 36, 196
     self_p, cross_p, bias, xw, yw = _fusion_inputs(gen)
-    fops = sum(_fusion_ops(BATCH, nW, N, C, Hh))
-    for shift in (0, 3):
-        m = shift_attn_mask(84, 84, 6, shift)
-        mask = None if m is None else torch.from_numpy(m).to(dev)
-        cases.append(("K2 fusion_block", f"shift {shift}",
-                      lambda mask=mask: fb.fused_fusion_block(
-                          xw, self_p, bias, mask),
-                      lambda mask=mask: fb.fusion_block_reference(
-                          xw, self_p, bias, mask),
-                      "fusion_block.cu", "fusion_block.py:855", fops,
-                      _nbytes(xw, xw, bias, mask, *self_p), None))
-        cases.append(("K3 cross_fusion_block", f"shift {shift}",
-                      lambda mask=mask: fb.fused_cross_fusion_block(
-                          xw, yw, cross_p, bias, mask),
-                      lambda mask=mask: fb.cross_fusion_block_reference(
-                          xw, yw, cross_p, bias, mask),
-                      "fusion_block.cu", "fusion_block.py:855", fops,
-                      _nbytes(xw, yw, xw, bias, mask, *cross_p), None))
+    # batch 4 is the flagship's; at 16 and 64 the multi-window forward's
+    # work items (several subjects' windows of one position) fill the card
+    for B in (BATCH, 16, 64):
+        xb, yb = ((xw, yw) if B == BATCH else
+                  (torch.randn(B, nW, N, C, generator=gen).to(dev)
+                   for _ in "xy"))
+        dp = ((torch.rand(B, 2, generator=gen) > 0.1).float() / 0.9).to(dev)
+        train = (dp, 4321, (0.1, 0.1), True)
+        fops = sum(_fusion_ops(B, nW, N, C, Hh))
+        for shift in (0, 3):
+            m = shift_attn_mask(84, 84, 6, shift)
+            mask = None if m is None else torch.from_numpy(m).to(dev)
+            for cross, key, p_ in ((False, "K2 fusion_block", self_p),
+                                   (True, "K3 cross_fusion_block", cross_p)):
+                y_ = yb if cross else None
+                no_fc2 = p_[:-2] + tuple(torch.zeros_like(t) for t in p_[-2:])
+                if cross:
+                    def infer(x_=xb, y_=y_, p_=p_, mask=mask):
+                        return fb.fused_cross_fusion_block(x_, y_, p_, bias,
+                                                           mask)
+
+                    def plain(x_=xb, y_=y_, p_=p_, mask=mask):
+                        return fb.cross_fusion_block_reference(x_, y_, p_,
+                                                               bias, mask)
+                else:
+                    def infer(x_=xb, p_=p_, mask=mask):
+                        return fb.fused_fusion_block(x_, p_, bias, mask)
+
+                    def plain(x_=xb, p_=p_, mask=mask):
+                        return fb.fusion_block_reference(x_, p_, bias, mask)
+                case(key, f"inference B {B} shift {shift}", infer, plain,
+                     "fusion_block.cu", "fusion_block.py:855", fops,
+                     _nbytes(xb, y_, xb, bias, mask, *p_),
+                     device=B == BATCH)
+                case(key, f"training B {B} shift {shift}",
+                     lambda x_=xb, y_=y_, p_=p_, mask=mask, cross=cross,
+                         t=train: fb._launch_forward(x_, y_, p_, bias, mask,
+                                                     *t, True, cross),
+                     lambda x_=xb, y_=y_, p_=p_, mask=mask, cross=cross,
+                         t=train: fb._block_reference(x_, y_, p_, bias, mask,
+                                                      *t, cross),
+                     "fusion_block.cu", "fusion_block.py:855", fops,
+                     _nbytes(xb, y_, xb, xb, bias, mask, dp, *p_),
+                     x2r=lambda x_=xb, y_=y_, p_=no_fc2, mask=mask,
+                         cross=cross, t=train: fb._block_reference(
+                             x_, y_, p_, bias, mask, *t, cross))
     for args, rate in ((a, r) for a in _k4_inputs(gen) for r in (0.0, 0.1)):
         q4, k4, v4, b4, m4 = args[:5]
         B_, nw4, heads4, N4, D4 = q4.shape
@@ -487,25 +531,28 @@ def forward_kernels(gen, res: Results):
         # reads), no mask arithmetic timed
         library = (None if rate else
                    lambda f=flat, m=full: sdpa(*f, attn_mask=m, scale=1.0))
-        cases.append(("K4 window_attention", f"{args[-1]} rate {rate}",
-                      lambda a=args, r=rate: att.fused_window_attention(
-                          *a[:5], 515, r),
-                      lambda a=args, r=rate: att.attention_reference(
-                          *a[:5], 515, r),
-                      "window_attention.cu", "attention.py:305",
-                      sum(_attention_ops(q4)),
-                      _nbytes(q4, k4, v4, q4, b4, m4), library))
-    for key, label, kernel, plain, src, rep, ops, nbytes, library in cases:
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        err = _close(f"{key} {label}", got, want, ATOL, RTOL)
-        ms, plain_ms, lib_ms = _call_times(kernel, plain, library)
         # K4 is a few microseconds of device work a call: its device time
         # beside the call time, which measures the host's enqueue
-        device = (_device_pair(kernel, library)
-                  if key == "K4 window_attention" else None)
+        case("K4 window_attention", f"{args[-1]} rate {rate}",
+             lambda a=args, r=rate: att.fused_window_attention(*a[:5], 515, r),
+             lambda a=args, r=rate: att.attention_reference(*a[:5], 515, r),
+             "window_attention.cu", "attention.py:305",
+             sum(_attention_ops(q4)), _nbytes(q4, k4, v4, q4, b4, m4),
+             library, device=True)
+    for (key, label, kernel, plain, src, rep, ops, nbytes, library, x2r,
+         device) in cases:
+        got, want = kernel(), plain()
+        if x2r is not None:
+            got, got_x2r = got
+        torch.cuda.synchronize()
+        err = _close(f"{key} {label}", got, want, ATOL, RTOL)
+        if x2r is not None:
+            err = max(err, _close(f"{key} {label} x2r", got_x2r, x2r(),
+                                  ATOL, RTOL))
+        ms, plain_ms, lib_ms = _call_times(kernel, plain, library)
         _report(res, key, label, err, ms, plain_ms, ops, nbytes, src, rep,
-                lib_ms, device=device)
+                lib_ms, device=_device_pair(kernel, library) if device
+                else None)
 
 
 def _call_times(kernel, plain, library=None, iters: int = 20):
@@ -2060,7 +2107,7 @@ def main() -> int:
     print(f"kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
     for line in _ptxas_summary(lib.build_log):
         print(line)
-    _fusion_backward_occupancy()
+    _fusion_occupancy()
 
     cfg = _flagship_cfg()
     n_params = sum(p.numel() for p in create_model(cfg).parameters())
@@ -2191,11 +2238,22 @@ def main() -> int:
     return 0
 
 
-def _fusion_backward_occupancy():
-    """How the multi-window fusion backward runs on this card at the
-    flagship's shapes: resident blocks an SM, windows in flight a block,
-    shared memory a block, blocks in the grid."""
+def _fusion_occupancy():
+    """How the multi-window fusion forward and backward run on this card at
+    the flagship's shapes: resident blocks an SM, windows in flight a block
+    (forward: and subjects a work item), shared memory a block, blocks in
+    the grid."""
     from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+    print("fusion forward occupancy (K2/K3 training forward, "
+          "cudaOccupancyMaxActiveBlocksPerMultiprocessor):")
+    for B in (4, 16, 64):
+        for cross in (False, True):
+            occ = fb.forward_occupancy(cross, B, 196, 36, 12, 6, 48)
+            print(f"  K{3 if cross else 2}, B {B}: {occ['blocks_per_sm']} "
+                  f"block(s) an SM, {occ['windows_per_block']} windows in "
+                  f"flight a block, {occ['per_item']} subjects a work item, "
+                  f"{occ['smem_bytes']} B of shared memory a block, "
+                  f"{occ['grid_blocks']} blocks")
     print("fusion backward occupancy "
           "(cudaOccupancyMaxActiveBlocksPerMultiprocessor):")
     for label, entry, cross, dims in (

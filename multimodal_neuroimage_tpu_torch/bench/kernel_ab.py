@@ -30,16 +30,24 @@ worker times, ``ROUNDS`` times:
 - K6's bf16 form (``k6``) at HCP's (8, 2, 1201, 11), bf16 q/k/v/dO,
   dropout 0 and 0.1: the forward (20 back-to-back calls) and the backward
   (10);
+- the fusion forward (``fusion_fwd``) at batch 4, 16 and 64, shift 0 and 3,
+  self and cross: K2/K3 on (B, 196, 36, 12) windows, and at batch 16 and 64
+  K7 on groups of G = 8 on float32 and on bf16 streams; each the training
+  forward (dropout 0.1, DropPath, x2r saved) and the inference forward, 20
+  back-to-back calls;
 
 and once, the flagship ``FuncStructCross`` (random weights from a seed,
 float32): at batch 4 (``flagship``) 12 CUDA-synchronised training steps and
 12 predict steps, and at batch 16 (``step16``) 12 training steps on each
 fusion layout, std then bp; and HCP phase 1's ``TransformerNet`` at its
 default bf16 policy (``hcp16``, batch 8, T 1201, 16 layers on K6's bf16
-form): 12 training steps. Each after 3 of warm-up, on the host clock.
+form): 12 training steps; and the flagship at its bf16 policy on the std
+layout (``bf16``): 12 training steps at batch 16, then 12 predict steps at
+batch 4 and 16 at bf16 and at float32 in turns. Each after 3 of warm-up, on
+the host clock.
 
 ``--cases`` picks the groups (comma-separated; default all of k8, k4, k1,
-k1_16, fusion, k6, flagship, step16, hcp16).
+k1_16, fusion, k6, fusion_fwd, flagship, step16, hcp16, bf16).
 
 Prints each turn's JSON line, then for every case each side's median and
 quartiles over all its samples and the ratio of its median to BASE's.
@@ -61,8 +69,8 @@ K4_STAGES = ((36, 12, 3, 3), (36, 6, 6, 0), (9, 3, 12, 0))  # N, res, heads, shi
 BATCH = 4
 STEPS = 12
 CYCLES, ROUNDS = 2, 2   # 8 samples a side for each kernel case, 48 a step
-GROUPS = ("k8", "k4", "k1", "k1_16", "fusion", "k6", "flagship", "step16",
-          "hcp16")
+GROUPS = ("k8", "k4", "k1", "k1_16", "fusion", "k6", "fusion_fwd",
+          "flagship", "step16", "hcp16", "bf16")
 
 
 def _timing():
@@ -221,6 +229,55 @@ def _fusion(out, T):
                         T.events_ms(fn, iters=10))
 
 
+def _fusion_fwd(out, T):
+    from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
+    gen = torch.Generator().manual_seed(23)
+    G, C, Hh, N, nW = 8, 12, 6, 36, 196
+    params = {False: tuple(t.cuda() for t in _ln(gen, C) + _lin(gen, 3 * C, C)
+                           + _lin(gen, C, C) + _ln(gen, C)
+                           + _lin(gen, 4 * C, C) + _lin(gen, C, 4 * C)),
+              True: tuple(t.cuda() for t in _ln(gen, C) + _ln(gen, C)
+                          + _lin(gen, C, C) + _lin(gen, 2 * C, C)
+                          + _lin(gen, C, C) + _ln(gen, C)
+                          + _lin(gen, 4 * C, C) + _lin(gen, C, 4 * C))}
+    bias = (0.5 * torch.randn(Hh, N, N, generator=gen)).cuda()
+    infer = (None, 0, (0.0, 0.0), False, False)
+    for B in (4, 16, 64):
+        xw, yw = (torch.randn(B, nW, N, C, generator=gen).cuda() for _ in "xy")
+        dp = (torch.rand(B, 2, generator=gen) > 0.1).float().cuda() / 0.9
+        train = (dp, 2468, (0.1, 0.1), True, True)
+        streams = {"std": (xw, yw)}
+        if B % G == 0:
+            xg, yg = (fbp.to_groups(t, G).contiguous() for t in (xw, yw))
+            streams["bp f32"] = (xg, yg)
+            streams["bp bf16"] = (xg.to(torch.bfloat16), yg.to(torch.bfloat16))
+        for shift in (0, 3):
+            m = shift_attn_mask(84, 84, 6, shift)
+            mask = None if m is None else torch.from_numpy(m).cuda()
+            for cross in (False, True):
+                kind = "cross" if cross else "self"
+                for layout, (x, y) in streams.items():
+                    y = y if cross else None
+                    name = (f"K{3 if cross else 2} {kind}" if layout == "std"
+                            else f"K7 {kind} {layout.split()[1]}")
+                    for mode, args in (("train", train), ("infer", infer)):
+                        if layout == "std":
+                            fn = (lambda x=x, y=y, mask=mask, args=args,
+                                  cross=cross: fb._launch_forward(
+                                      x, y, params[cross], bias, mask, *args,
+                                      cross))
+                        else:
+                            fn = (lambda x=x, y=y, mask=mask, args=args,
+                                  cross=cross: fbp._launch_forward(
+                                      x, y, params[cross], bias, mask, *args,
+                                      cross, G))
+                        out["fusion forward"].setdefault(
+                            f"{name} {mode} B{B} shift {shift}", []).append(
+                                T.events_ms(fn))
+
+
 def _k6(out, T):
     from multimodal_neuroimage_tpu_torch.ops import attention as att
     gen = torch.Generator().manual_seed(17)
@@ -304,6 +361,28 @@ def _step16(out):
     swinfusion._LAYOUT = "std"
 
 
+def _bf16(out):
+    """The flagship at its bf16 policy on the std layout: the training step
+    at batch 16, then the predict step at batch 4 and 16, bf16 and float32
+    in turns."""
+    from multimodal_neuroimage_tpu_torch.nn import swinfusion
+    from multimodal_neuroimage_tpu_torch.serve.predictor import (
+        make_predict_step)
+    swinfusion._LAYOUT = "std"
+    gen = torch.Generator().manual_seed(2)
+    for B in (16, 4):
+        cfg, batch = _flagship_batch(B, np.random.default_rng(5))
+        model, step = _train_step(cfg, "bfloat16")
+        if B == 16:
+            out["flagship"]["bf16 batch 16 train step (std)"] = _step_times(
+                lambda: step(batch, gen))
+        for dtype in ("bfloat16", "float32", "float32", "bfloat16"):
+            predict = make_predict_step(model, dtype, device="cuda")
+            out["flagship"].setdefault(
+                f"{dtype} batch {B} predict step", []).extend(
+                    _step_times(lambda: predict(batch)))
+
+
 def _flagship(out):
     from multimodal_neuroimage_tpu_torch.serve.predictor import (
         make_predict_step)
@@ -323,10 +402,12 @@ def worker(groups) -> int:
     lib = build.library()
     out = {"root": os.getcwd(), "build_s": lib.build_seconds, "k8": {},
            "k4 call": {}, "k4 device": {}, "k1 backward": {}, "k1 mm16": {},
-           "fusion backward": {}, "k6": {}, "flagship": {}, "hcp": {}}
+           "fusion backward": {}, "k6": {}, "fusion forward": {},
+           "flagship": {}, "hcp": {}}
     for _ in range(ROUNDS):
         for name, fn in (("k8", _k8), ("k4", _k4), ("k1", _k1),
-                         ("k1_16", _k1_16), ("fusion", _fusion), ("k6", _k6)):
+                         ("k1_16", _k1_16), ("fusion", _fusion), ("k6", _k6),
+                         ("fusion_fwd", _fusion_fwd)):
             if name in groups:
                 fn(out, T)
     if "flagship" in groups:
@@ -335,6 +416,8 @@ def worker(groups) -> int:
         _step16(out)
     if "hcp16" in groups:
         _hcp16(out)
+    if "bf16" in groups:
+        _bf16(out)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -380,7 +463,8 @@ def main(argv) -> int:
     print("case: each side's median ms (q1-q3) over all its samples, and "
           "its median / BASE's; sides in order: " + ", ".join(roots))
     for group in ("k8", "k4 call", "k4 device", "k1 backward", "k1 mm16",
-                  "fusion backward", "k6", "flagship", "hcp"):
+                  "fusion backward", "k6", "fusion forward", "flagship",
+                  "hcp"):
         for case in runs[roots[0]][0][group]:
             pooled = [sum((r[group][case] for r in runs[root]), [])
                       for root in roots]

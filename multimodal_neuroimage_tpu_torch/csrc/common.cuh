@@ -43,14 +43,20 @@ __device__ __forceinline__ uint32_t keep_row(const Dropout& d, uint32_t r) {
   return d.base ^ (r * 461845907u);
 }
 
-__device__ __forceinline__ float keep_at(const Dropout& d, uint32_t row, uint32_t c) {
-  uint32_t u = row ^ (c * 668265261u);
+// The keep decision of keep_at with the column's product cm = c * 668265261
+// given (a loop over consecutive columns adds 668265261 a step).
+__device__ __forceinline__ bool kept(const Dropout& d, uint32_t row, uint32_t cm) {
+  uint32_t u = row ^ cm;
   u ^= u >> 16;
   u *= 0x85EBCA6Bu;
   u ^= u >> 13;
   u *= 0xC2B2AE35u;
   u ^= u >> 16;
-  return u >= d.thr ? d.scale : 0.f;
+  return u >= d.thr;
+}
+
+__device__ __forceinline__ float keep_at(const Dropout& d, uint32_t row, uint32_t c) {
+  return kept(d, row, c * 668265261u) ? d.scale : 0.f;
 }
 
 __device__ __forceinline__ float keep(const Dropout& d, uint32_t r, uint32_t c) {

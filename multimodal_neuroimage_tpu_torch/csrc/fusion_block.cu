@@ -17,64 +17,73 @@
 // DropPath factors dp (B, 2), and saves the post-attention residual x2r for
 // the backward. At inference every factor is 1.
 //
-// What bounds it on the H100: latency, not bytes or FLOPs. A flagship
-// forward runs 48 self and 12 directed cross calls over 196 windows of 36
-// tokens at C = 12 (6 heads of dim 2): about 0.2 GFLOP and 5 MB of stream
-// traffic per call at B = 4. Unfused, each block is ~20 small kernels with
-// every intermediate (qkv, the (H, 36, 36) scores, the MLP hidden)
-// round-tripping device memory.
-// Design: a grid that fills the card once, each block walking windows
-// (subject, window) with a grid stride. The 36 x 12 window (and the y
-// window), q/k/v, the attention output, the post-attention residual and the
-// 36 x 48 MLP hidden live in shared memory; only x (and y) are read and only
-// the block output is written. Each block stages the weights (~2K floats)
-// and the (H, N, N) bias once, and a window's shift mask per window. Every
-// shared row is padded to an odd stride (C + 1, Ch + 1, N + 1), so lanes
-// that read one row each hit distinct banks. Dense layers put one token row
-// per lane and share each weight element across the lanes of a warp (a
-// broadcast); each thread keeps its output columns (2, 4 or 8 at a time)
-// in registers. The attention gives each thread one (head, query row) and
-// keeps its scores in registers, with the key loop unrolled by 4. A clock64
-// probe of the first
-// version (one block per window, weights and bias read from global memory in
-// the loops) found the block latency-bound, not bandwidth-bound: half its
-// cycles in the attention's chain of one dependent key at a time, a fifth
-// in ~60 serial global loads of staging. Windows are unpadded (N = 36) and
-// the bias is a plain (H, N, N) tensor: the NP = 40 pad and the head-packed
-// bias layout were TPU tiling choices. The softmax subtracts the row max
-// where the TPU kernel clamped logits at 80; the two agree for all scores
-// below 80 (ops/fusion_block.py _LOGIT_CAP).
+// What bounds it on the H100: latency and issue slots, not bytes. A
+// flagship step runs 48 self and 12 directed cross calls over 196 windows
+// of 36 tokens at C = 12 (6 heads of dim 2): about 0.04 GFLOP and 0.7 MB
+// of stream traffic a subject a call. Unfused, each block is ~20 small
+// kernels with every intermediate (qkv, the (H, 36, 36) scores, the MLP
+// hidden) round-tripping device memory.
+//
+// Design (fusion_block.cuh fusion_forward_items): a grid that fills the card
+// once, each block of FUSION_FWD_THREADS walking work items; an item is up
+// to FUSION_FWD_WINDOWS subjects' windows at one window position, so they
+// share the shift mask, and every phase's loop spans all of them: one
+// barrier serves the item, not one window. Only x (and y) are read and only
+// the block output (and x2r) written; everything else lives in shared
+// memory, each window's buffers laid out by liveness (FusionFwdLayout: x2
+// over x, h2 over q, the GELU hidden over the dead q/k/v and attention
+// output; ~11 KB a window). The weights (transposed) and the (H, N, N) bias
+// table are staged once a block (the table by cp.async, beside the first
+// item's), and the next item's x (and y) windows and mask land by cp.async
+// while the current item computes.
+//   - LayerNorm: four lanes a row and shuffle sums.
+//   - Dense layers: a task is 2 or 4 rows by four outputs, its sums in
+//     registers; lanes of a warp take consecutive outputs, so a row's float4
+//     is a broadcast and the weights' float4s lie side by side (W^T); each
+//     sum is one fmaf chain over c = 0, 1, ..., the plain order.
+//   - Attention: a task is one (head, query row) over the item's windows
+//     (four at head dim 2), so the bias and mask terms of a key are read
+//     once for all of them and four independent chains interleave. The
+//     softmax is online and in base 2 (q and a key's bias + mask scaled by
+//     log2 e): one exponential a score, the running max rescaled once every
+//     FUSION_FWD_KEYS keys; the dropout hash runs once a score, its column
+//     product stepped key by key, and the dropout scale joins 1 / l at the
+//     end.
+//   - A training template: the inference body computes no hash and applies
+//     no DropPath.
+// Windows are unpadded (N = 36) and the bias is a plain (H, N, N) tensor:
+// the NP = 40 pad and the head-packed bias layout were TPU tiling choices.
+// The softmax subtracts the row max where the TPU kernel clamped logits at
+// 80; the two agree for all scores below 80 (ops/fusion_block.py
+// _LOGIT_CAP).
 #include "fusion_block.cuh"
 
-template <bool CROSS, int MAXHD>
-__global__ void __launch_bounds__(FUSION_THREADS)
-fusion_block_kernel(const float* __restrict__ x, const float* __restrict__ y, FusionParams P,
-                    const float* __restrict__ bias, const float* __restrict__ mask,
-                    float* __restrict__ out, int windows, int nW, int N, int C, int H, int Ch,
-                    FusionTrain T) {
-  extern __shared__ float smem[];
-  const FusionLayout L(CROSS, N, C, H, Ch);
+// K2/K3's work items: item (chunk, w) holds window w of subjects
+// chunk * per .. chunk * per + per - 1 (fewer in the last chunk).
+struct FusionStdItems {
+  const float *x, *y;
+  float *out, *x2r;
+  const float* dp;
+  int B, nW, N, C, NP, per;
 
-  // weights and the bias are the same for every window: stage them once
-  stage_weights(smem, L, CROSS, P, bias, N, C, H, Ch);
-
-  // each block walks windows b * nW + w with a grid stride
-  for (int bw = blockIdx.x; bw < windows; bw += gridDim.x) {
+  __device__ int count() const { return (B + per - 1) / per * nW; }
+  __device__ int windows(int item) const { return min(per, B - item / nW * per); }
+  __device__ int position(int item) const { return item % nW; }
+  __device__ FusionWindow window(int item, int k) const {
+    const int b = item / nW * per + k, bw = b * nW + item % nW;
     const size_t base = (size_t)bw * N * C;
-    if (mask) stage(smem + L.mask, L.BS, mask + (size_t)(bw % nW) * N * N, N, N);
     FusionWindow W = {};
     W.x = x + base;
-    W.y = CROSS ? y + base : nullptr;
+    W.y = y ? y + base : nullptr;
     W.out = out + base;
-    W.x2r = T.x2r ? T.x2r + base : nullptr;
+    W.x2r = x2r ? x2r + base : nullptr;
     W.stride = C;
-    W.row0 = (uint32_t)bw * T.NP;   // padded dropout row of token 0
-    W.dp1 = T.dp ? T.dp[(bw / nW) * 2] : 1.f;
-    W.dp2 = T.dp ? T.dp[(bw / nW) * 2 + 1] : 1.f;
-    fusion_forward_window<CROSS, MAXHD>(smem, L, mask != nullptr, N, C, H, Ch, T, W);
+    W.row0 = (uint32_t)bw * NP;   // padded dropout row of token 0
+    W.dp1 = dp ? dp[b * 2] : 1.f;
+    W.dp2 = dp ? dp[b * 2 + 1] : 1.f;
+    return W;
   }
-}
-
+};
 
 // ---------------------------------------------------------------------------
 // Backward. Replaces fusion_block.py _bwd_impl (_make_bwd_kernel, :547-713):
@@ -164,19 +173,17 @@ fusion_block_backward_kernel(const float* __restrict__ x, const float* __restric
 // Entry points.
 // ---------------------------------------------------------------------------
 
-template <bool CROSS, int MAXHD>
+template <bool CROSS, bool FLAG>
 static cudaError_t launch_forward(const float* x, const float* y, const FusionParams& P,
-                                  const float* bias, const float* mask, float* out,
-                                  int windows, int nW, int N, int C, int H, int Ch,
-                                  const FusionTrain& T, cudaStream_t stream) {
-  const size_t smem = (size_t)FusionLayout(CROSS, N, C, H, Ch).total * sizeof(float);
-  auto kernel = fusion_block_kernel<CROSS, MAXHD>;
-  int blocks = 0;
-  cudaError_t err = persistent_grid(kernel, smem, windows, &blocks);
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, FUSION_THREADS, smem, stream>>>(x, y, P, bias, mask, out, windows, nW, N, C,
-                                                  H, Ch, T);
-  return cudaGetLastError();
+                                  const float* bias, const float* mask, float* out, int B,
+                                  int nW, int N, int C, int H, int Ch, const FusionTrain& T,
+                                  cudaStream_t stream, FusionFwdPlan* plan = nullptr) {
+  auto items = [&](int per) {
+    return FusionStdItems{x, CROSS ? y : nullptr, out, static_cast<float*>(T.x2r), T.dp, B, nW,
+                          N, C, T.NP, per};
+  };
+  return launch_fusion_forward<CROSS, FLAG, false, float>(items, B, nW, P, bias, mask, N, C, H,
+                                                            Ch, T, stream, plan);
 }
 
 // x, y, out: (B, nW, N, C) windows, f32 contiguous (y unused unless cross).
@@ -197,9 +204,31 @@ extern "C" int fusion_block_forward(int cross, const float* x, const float* y,
   if (bad_dims(N, C, H)) return (int)cudaErrorInvalidValue;
   const FusionParams P = unpack_params(cross, params);
   const FusionTrain T = make_train(dp, seed, attn_rate, drop_rate, NP, x2r);
-#define FWD(c, h) launch_forward<c, h>(x, y, P, bias, mask, out, B * nW, nW, N, C, H, Ch, T, stream)
-  return (int)FUSION_DISPATCH(cross, C / H, FWD);
+#define FWD(c, h) launch_forward<c, h>(x, y, P, bias, mask, out, B, nW, N, C, H, Ch, T, stream)
+  return (int)FUSION_FWD_DISPATCH(cross, N, C, H, Ch, FWD);
 #undef FWD
+}
+
+// How fusion_block_forward runs at these shapes on the current card (the
+// training body): out[0] blocks an SM, out[1] windows in flight a block,
+// out[2] subjects a work item, out[3] shared-memory bytes a block, out[4]
+// blocks in the grid. Returns the cudaError_t of the query.
+extern "C" int fusion_block_forward_occupancy(int cross, int B, int nW, int N, int C, int H,
+                                              int Ch, int* out) {
+  if (bad_dims(N, C, H)) return (int)cudaErrorInvalidValue;
+  FusionTrain T = make_train(nullptr, 0, 0.1, 0.1, N, nullptr);
+  FusionFwdPlan plan = {};
+#define PLAN(c, h)                                                                          \
+  launch_forward<c, h>(nullptr, nullptr, FusionParams{}, nullptr, nullptr, nullptr, B, nW, N, \
+                       C, H, Ch, T, nullptr, &plan)
+  const cudaError_t err = FUSION_FWD_DISPATCH(cross, N, C, H, Ch, PLAN);
+#undef PLAN
+  out[0] = plan.per_sm;
+  out[1] = plan.windows;
+  out[2] = plan.per;
+  out[3] = (int)plan.smem;
+  out[4] = plan.blocks;
+  return (int)err;
 }
 
 template <bool CROSS, int MAXHD>

@@ -17,11 +17,10 @@ extern "C" int fusion_block_bp_forward(int cross, const float* x, const float* y
                                        float* x2r, cudaStream_t stream) {
   if (bad_dims(N, C, H) || G < 1) return (int)cudaErrorInvalidValue;
   const FusionParams P = unpack_params(cross, params);
-  const FusionTrain T = make_train(dp, seed, attn_rate, drop_rate, NP, nullptr);
-#define FWD(c, h)                                                                         \
-  launch_bp_forward<c, h>(x, y, P, bias, mask, out, x2r, ngroups * nW, G, nW, N, C, H, Ch, T, \
-                          stream)
-  return (int)FUSION_DISPATCH(cross, C / H, FWD);
+  const FusionTrain T = make_train(dp, seed, attn_rate, drop_rate, NP, x2r);
+#define FWD(c, h) \
+  launch_bp_forward<c, h>(x, y, P, bias, mask, out, x2r, ngroups, G, nW, N, C, H, Ch, T, stream)
+  return (int)FUSION_FWD_DISPATCH(cross, N, C, H, Ch, FWD);
 #undef FWD
 }
 

@@ -18,20 +18,19 @@
 // lanes were live at C = 12, LayerNorm statistics ran as an MXU dot against
 // kron(I_G, 1/C), and block-diagonal kron(I_G, W) weights let the MXU
 // multiply the zeros for free. None of that is copied. What the card can use
-// is the grouping itself: one thread block owns one (group, window) at a
-// time (grid-striding over them, as K2 over windows), stages the window's
-// shift mask once for its G subjects (the weights and the bias once per
-// block), and walks the G subjects, running each through K2/K3's window body
-// (fusion_block.cuh) at row stride G*C. The backward runs K2/K3's
-// multi-window body: one work item is a (group, window) and up to
-// FUSION_BWD_WINDOWS of its subjects at once, which share the shift mask;
-// it recomputes the forward from x and the saved x2r, accumulates every
+// is the grouping itself. The forward runs K2/K3's multi-window body
+// (fusion_block.cuh fusion_forward_items): one work item is a (group,
+// window) and up to FUSION_FWD_WINDOWS of its subjects at once, which share
+// the shift mask, the weights and the bias staged once a block. The
+// backward runs K2/K3's multi-window backward: one work item is a (group,
+// window) and up to FUSION_BWD_WINDOWS of its subjects at once; it
+// recomputes the forward from x and the saved x2r, accumulates every
 // parameter and bias-table gradient over all its work in shared memory,
 // writes one partial per block, and the ordered reduce_partials adds them:
 // no float atomics, bitwise-repeatable gradients.
 //
 // What bounds it on the H100: latency per window, as K2/K3 (the same work:
-// about 0.8 GFLOP a forward call at B = 16).
+// about 0.6 GFLOP a forward call at B = 16).
 //
 // The bf16 form (fusion_block_bp_forward16 / _backward16) replaces the same
 // two functions under the bf16 policy, where JAX casts the bp stacks'
@@ -66,32 +65,30 @@ __device__ __forceinline__ FusionWindowT<S> bp_window(int g, int w, int j, int G
   return W;
 }
 
-template <bool CROSS, int MAXHD, bool MM16, typename S>
-__global__ void __launch_bounds__(FUSION_THREADS)
-fusion_block_bp_kernel(const S* __restrict__ x, const S* __restrict__ y, FusionParams P,
-                       const float* __restrict__ bias, const float* __restrict__ mask,
-                       S* __restrict__ out, S* __restrict__ x2r, int items, int G, int nW, int N,
-                       int C, int H, int Ch, FusionTrain T) {
-  extern __shared__ float smem[];
-  const FusionLayout L(CROSS, N, C, H, Ch);
-  stage_weights<FUSION_THREADS, MM16>(smem, L, CROSS, P, bias, N, C, H, Ch);
+// K7's forward work items: item ((grp, w), chunk) holds window w of
+// subjects j = chunk * per .. chunk * per + per - 1 of group grp.
+template <typename S>
+struct FusionBpItems {
+  const S *x, *y;
+  S *out, *x2r;
+  FusionTrain T;
+  int ngroups, G, nW, N, C, H, Ch, per;
 
-  // each block walks (group, window) items g * nW + w with a grid stride
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int g = item / nW, w = item % nW;
-    const size_t base = (size_t)item * N * G * C;
-    if (mask) stage(smem + L.mask, L.BS, mask + (size_t)w * N * N, N, N);
-    for (int j = 0; j < G; ++j) {
-      FusionWindowT<S> W = bp_window<S>(g, w, j, G, C, H, Ch, T);
-      const size_t off = base + (size_t)j * C;
-      W.x = x + off;
-      W.y = CROSS ? y + off : nullptr;
-      W.out = out + off;
-      W.x2r = x2r ? x2r + off : nullptr;
-      fusion_forward_window<CROSS, MAXHD, MM16>(smem, L, mask != nullptr, N, C, H, Ch, T, W);
-    }
+  __device__ int chunks() const { return (G + per - 1) / per; }
+  __device__ int count() const { return ngroups * nW * chunks(); }
+  __device__ int windows(int item) const { return min(per, G - item % chunks() * per); }
+  __device__ int position(int item) const { return item / chunks() % nW; }
+  __device__ FusionWindowT<S> window(int item, int k) const {
+    const int gw = item / chunks(), j = item % chunks() * per + k;
+    FusionWindowT<S> W = bp_window<S>(gw / nW, gw % nW, j, G, C, H, Ch, T);
+    const size_t off = (size_t)gw * N * G * C + (size_t)j * C;
+    W.x = x + off;
+    W.y = y ? y + off : nullptr;
+    W.out = out + off;
+    W.x2r = x2r ? x2r + off : nullptr;
+    return W;
   }
-}
+};
 
 template <bool CROSS, int MAXHD, bool MM16, typename S>
 __global__ void __launch_bounds__(FUSION_BWD_THREADS, 1)
@@ -144,19 +141,17 @@ fusion_block_bp_backward_kernel(const S* __restrict__ x, const S* __restrict__ y
 // Launch plumbing of both forms.
 // ---------------------------------------------------------------------------
 
-template <bool CROSS, int MAXHD, bool MM16 = false, typename S = float>
+template <bool CROSS, bool FLAG, bool MM16 = false, typename S = float>
 static cudaError_t launch_bp_forward(const S* x, const S* y, const FusionParams& P,
                                      const float* bias, const float* mask, S* out, S* x2r,
-                                     int items, int G, int nW, int N, int C, int H, int Ch,
+                                     int ngroups, int G, int nW, int N, int C, int H, int Ch,
                                      const FusionTrain& T, cudaStream_t stream) {
-  const size_t smem = (size_t)FusionLayout(CROSS, N, C, H, Ch).total * sizeof(float);
-  auto kernel = fusion_block_bp_kernel<CROSS, MAXHD, MM16, S>;
-  int blocks = 0;
-  cudaError_t err = persistent_grid(kernel, smem, items, &blocks);
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, FUSION_THREADS, smem, stream>>>(x, y, P, bias, mask, out, x2r, items, G, nW,
-                                                  N, C, H, Ch, T);
-  return cudaGetLastError();
+  auto items = [&](int per) {
+    return FusionBpItems<S>{x, CROSS ? y : nullptr, out, x2r, T, ngroups, G, nW, N, C, H, Ch,
+                            per};
+  };
+  return launch_fusion_forward<CROSS, FLAG, MM16, S>(items, G, ngroups * nW, P, bias, mask, N,
+                                                       C, H, Ch, T, stream);
 }
 
 template <bool CROSS, int MAXHD, bool MM16 = false, typename S = float>

@@ -15,13 +15,13 @@ extern "C" int fusion_block_bp_forward16(int cross, const void* x, const void* y
   if (bad_dims(N, C, H) || G < 1) return (int)cudaErrorInvalidValue;
   using B16 = __nv_bfloat16;
   const FusionParams P = unpack_params(cross, params);
-  const FusionTrain T = make_train(dp, seed, attn_rate, drop_rate, NP, nullptr);
+  const FusionTrain T = make_train(dp, seed, attn_rate, drop_rate, NP, x2r);
 #define FWD16(c, h)                                                                          \
   launch_bp_forward<c, h, true, B16>(static_cast<const B16*>(x), static_cast<const B16*>(y), \
                                      P, bias, mask, static_cast<B16*>(out),                  \
-                                     static_cast<B16*>(x2r), ngroups * nW, G, nW, N, C, H,   \
-                                     Ch, T, stream)
-  return (int)FUSION_DISPATCH(cross, C / H, FWD16);
+                                     static_cast<B16*>(x2r), ngroups, G, nW, N, C, H, Ch, T, \
+                                     stream)
+  return (int)FUSION_FWD_DISPATCH(cross, N, C, H, Ch, FWD16);
 #undef FWD16
 }
 

@@ -58,6 +58,7 @@ _SIGNATURES = {
     "fusion_block_bp_backward16_occupancy": (_I, [_I] * 8 + [_P]),
     "fusion_block_backward_occupancy": (_I, [_I] * 7 + [_P]),
     "fusion_block_bp_backward_occupancy": (_I, [_I] * 8 + [_P]),
+    "fusion_block_forward_occupancy": (_I, [_I] * 7 + [_P]),
     "bert_layer_forward": (_I, [_P] * 5 + [_I] * 8 + [_D, _D, _P]),
     "bert_layer_scratch_floats": (_L, [_I] * 4),
     "bert_layer_resid_floats": (_L, [_I] * 4),

@@ -3,7 +3,9 @@
 Counterpart of multimodal_neuroimage_tpu/ops/fusion_block.py
 ``fused_fusion_block`` / ``fused_cross_fusion_block``. One CUDA kernel each
 way, templated on cross (``csrc/fusion_block.cu``), runs a whole pre-norm
-block per (subject, window); the autograd Function around them dispatches on
+block on several subjects' windows of one window position at a time (the
+forward's attention arithmetic: :func:`fusion_block_model`); the autograd
+Function around them dispatches on
 the device of x: CUDA tensors launch the kernels (or raise), CPU tensors run
 ``fusion_block_reference`` / ``cross_fusion_block_reference`` and their
 autograd (the plain versions).
@@ -164,6 +166,50 @@ def _attn_reference(q, k, v, bias, mask, heads: int, keep=None):
     return o.transpose(2, 3).reshape(B, nW, N, C)
 
 
+LOG2E = 1.4426950408889634
+ONLINE_STEP = 4   # keys a step of the kernel's online softmax (FUSION_FWD_KEYS)
+
+
+def _attn_online(q, k, v, bias, mask, heads: int, keep=None,
+                 step: int = ONLINE_STEP):
+    """The attention as the CUDA forward computes it in float32 (its plain
+    model): scores in base 2 (q times fl(log2(e) / sqrt(hd)), bias + mask
+    times log2 e), an online softmax over keys in steps of
+    ``step`` (the running max and the sums rescaled once a step, the sum
+    taking every probability, the output only the kept ones, each added key
+    by key), and the dropout scale applied with 1 / l at the end. ``keep``:
+    the dropout factors (0 or 1 / (1 - rate)) of ``_attn_reference``."""
+    B, nW, N, C = q.shape
+    hd = C // heads
+
+    def split(t):
+        return t.reshape(B, nW, N, heads, hd).transpose(2, 3)
+
+    log2e = torch.tensor(LOG2E, dtype=q.dtype)
+    qscale = torch.tensor(hd ** -0.5, dtype=q.dtype) * log2e
+    bm = bias[None, None] + (0.0 if mask is None else mask[None, :, None])
+    s = (torch.einsum("bwhnd,bwhmd->bwhnm", split(q) * qscale, split(k))
+         + bm * log2e)
+    vh = split(v)
+    m = torch.full(s.shape[:-1], torch.finfo(q.dtype).min, dtype=q.dtype)
+    l = torch.zeros_like(m)
+    o = torch.zeros(s.shape[:-1] + (hd,), dtype=q.dtype)
+    for j0 in range(0, N, step):
+        mn = torch.maximum(m, s[..., j0:j0 + step].amax(-1))
+        corr = torch.exp2(m - mn)
+        m, l, o = mn, l * corr, o * corr[..., None]
+        for j in range(j0, min(j0 + step, N)):
+            p = torch.exp2(s[..., j] - m)
+            l = l + p
+            if keep is not None:
+                p = p * (keep[..., j] != 0)
+            o = o + p[..., None] * vh[..., j, None, :]
+    # a kept element's factor, 1 / (1 - rate) (0 if every one is dropped)
+    scale = 1.0 if keep is None else keep.amax()
+    o = o * (scale / l)[..., None]
+    return o.transpose(2, 3).reshape(B, nW, N, C)
+
+
 def std_keys(B: int, nW: int, N: int, NP: int, device=None):
     """Dropout coordinates of the std layout: (rows, column offsets of the
     C-wide, Ch-wide and attention draws). Rows are the global padded rows
@@ -172,10 +218,12 @@ def std_keys(B: int, nW: int, N: int, NP: int, device=None):
 
 
 def _block_reference(x, y, params, bias, mask, dp, seed, rates, training,
-                     cross: bool, keys=std_keys):
+                     cross: bool, keys=std_keys, attention=_attn_reference):
     """The whole block as ``_forward_compute`` (:443-519) computes it, on
     (B, nW, N, C) windows; ``keys(B, nW, N, NP, device)`` gives the dropout
-    coordinates (:func:`std_keys`; ops/fusion_block_bp.py ``bp_keys``)."""
+    coordinates (:func:`std_keys`; ops/fusion_block_bp.py ``bp_keys``);
+    ``attention`` computes the attention (:func:`_attn_online`: the CUDA
+    forward's arithmetic)."""
     if cross:
         (g1, b1, g1y, b1y, wq, bq, wkv, bkv,
          wp, bp, g2, b2, w1, b1m, w2, b2m) = params
@@ -204,7 +252,7 @@ def _block_reference(x, y, params, bias, mask, dp, seed, rates, training,
         off = off_a if isinstance(off_a, int) else off_a[..., None]
         keep = mix_keep(rows[:, :, None], cols + off, attn_rate, seed,
                         DRAW_ATTN)
-    o = _attn_reference(q, k, v, bias, mask, H, keep)
+    o = attention(q, k, v, bias, mask, H, keep)
     dp1, dp2 = ((1.0, 1.0) if dp is None
                 else (dp[:, 0].reshape(B, 1, 1, 1), dp[:, 1].reshape(B, 1, 1, 1)))
     x2r = x + dp1 * (F.linear(o, wp, bp) * hidden(DRAW_PROJ, C, off_c))
@@ -236,6 +284,21 @@ def cross_fusion_block_reference(x: torch.Tensor, y: torch.Tensor,
     LN1_y(y); returns the updated x stream."""
     return _block_reference(x, y, params, bias, mask, dp, seed, rates,
                             training, cross=True)
+
+
+def fusion_block_model(x: torch.Tensor, y: Optional[torch.Tensor],
+                       params: Sequence[torch.Tensor], bias: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       dp: Optional[torch.Tensor] = None, seed: int = 0,
+                       rates: Tuple[float, float] = (0.0, 0.0),
+                       training: bool = False, cross: bool = False,
+                       keys=std_keys) -> torch.Tensor:
+    """The block with the CUDA forward's float32 attention arithmetic
+    (:func:`_attn_online`), everything else as the plain version: what the
+    tests hold against JAX and against float64 where the kernel itself
+    cannot run."""
+    return _block_reference(x, y, params, bias, mask, dp, seed, rates,
+                            training, cross, keys, _attn_online)
 
 
 def fusion_block_reference_backward(g, x, y, params, bias, mask=None,
@@ -362,6 +425,18 @@ def launch_backward(entry, dims, g, x, y, params, bias, mask, dp, seed,
         off += p.numel()
     dbias = flat[off:].view(bias.shape)
     return dx, dy, dbias, tuple(dparams)
+
+
+def forward_occupancy(cross: bool, B: int, nW: int, N: int, C: int, H: int,
+                      Ch: int) -> dict:
+    """How K2/K3's training forward runs at these shapes on the current
+    card: resident blocks an SM, windows in flight a block, subjects a work
+    item, shared bytes a block, blocks in the grid."""
+    out = (ctypes.c_int * 5)()
+    build.library().call("fusion_block_forward_occupancy", int(cross), B, nW,
+                         N, C, H, Ch, out)
+    return dict(zip(("blocks_per_sm", "windows_per_block", "per_item",
+                     "smem_bytes", "grid_blocks"), out))
 
 
 def backward_occupancy(entry: str, cross: bool, dims, N: int, C: int, H: int,

@@ -7,9 +7,10 @@ of ``FUSION_LAYOUT=bp``). The batch of B subjects is cut into ngroups =
 B / G groups of G = :func:`group_size` (B) subjects; a stream is
 group-major, ``(ngroups, nW, N, G*C)``, subject ``b = g*G + j`` in lanes
 ``[j*C, (j+1)*C)`` of group ``g``. One CUDA kernel each way, templated on
-cross (``csrc/fusion_block_bp.cu``), runs K2/K3's block per (group, window),
-walking its G subjects; the autograd Function around them dispatches on the
-device of x: CUDA tensors launch the kernels (or raise), CPU tensors run
+cross (``csrc/fusion_block_bp.cu``), runs K2/K3's block on several of a
+group's subjects at one window at a time; the autograd Function around them
+dispatches on the device of x: CUDA tensors launch the kernels (or raise),
+CPU tensors run
 :func:`fusion_block_bp_reference` / :func:`cross_fusion_block_bp_reference`
 and autograd through them (the plain versions).
 

@@ -105,6 +105,49 @@ def test_fusion_block_kernel(dev, cross, res, heads, shift):
     _close(got, want)
 
 
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("B,res,heads,shift", [
+    (1, 12, 6, 0), (3, 84, 6, 3), (5, 84, 6, 0), (16, 84, 6, 3),
+    (64, 84, 6, 3), (3, 12, 2, 3), (5, 84, 2, 0)])
+def test_fusion_forward_at_every_batch(dev, cross, B, res, heads, shift):
+    """K2/K3's multi-window forward against the plain version where the
+    subjects of a window position fill its work items and where they do not
+    (B 1, 3, 5), at head dim 2 and 6: the training forward (dropout 0.1 on
+    all four draws, DropPath) and its saved x2r (the plain block with fc2
+    zeroed is x2r), the inference forward, and two training calls bitwise
+    equal."""
+    gen = torch.Generator().manual_seed(B + res + heads + shift + cross)
+    C, ws = 12, 6
+    nW, N = (res // ws) ** 2, ws * ws
+    qkv = (_ln(gen, C) + _lin(gen, C, C) + _lin(gen, 2 * C, C) if cross
+           else _lin(gen, 3 * C, C))
+    p = tuple(t.to(dev) for t in _ln(gen, C) + qkv + _lin(gen, C, C)
+              + _ln(gen, C) + _lin(gen, 4 * C, C) + _lin(gen, C, 4 * C))
+    x, y = (_rand(gen, B, nW, N, C).to(dev) for _ in "xy")
+    y = y if cross else None
+    bias = _rand(gen, heads, N, N, scale=0.5).to(dev)
+    m = shift_attn_mask(res, res, ws, shift)
+    mask = None if m is None else torch.from_numpy(m).to(dev)
+    dp = ((torch.rand(B, 2, generator=gen) > 0.2).float() / 0.8).to(dev)
+    train = (dp, 29, (0.1, 0.1), True)
+    counter = fb.fused_cross_fusion_block if cross else fb.fused_fusion_block
+    before = counter.launches
+    out, x2r = fb._launch_forward(x, y, p, bias, mask, *train, True, cross)
+    assert counter.launches == before + 1
+    _close(out, fb._block_reference(x, y, p, bias, mask, *train, cross))
+    no_fc2 = p[:-2] + (torch.zeros_like(p[-2]), torch.zeros_like(p[-1]))
+    _close(x2r, fb._block_reference(x, y, no_fc2, bias, mask, *train, cross))
+    again, x2r_again = fb._launch_forward(x, y, p, bias, mask, *train, True,
+                                          cross)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(x2r, x2r_again)
+    infer, none = fb._launch_forward(x, y, p, bias, mask, None, 0, (0.0, 0.0),
+                                     False, False, cross)
+    assert none is None
+    _close(infer, fb._block_reference(x, y, p, bias, mask, None, 0,
+                                      (0.0, 0.0), False, cross))
+
+
 @pytest.mark.parametrize("N,nW,heads,D,masked", [
     (36, 4, 3, 4, True), (36, 1, 6, 4, False), (9, 1, 12, 4, False),
     (16, 4, 2, 8, True)])
