@@ -11,10 +11,16 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    events, beside the least time the card could take (``bound_ms``) and,
    where one PyTorch call computes the same function, that call's time
    (kernel, plain and library timed in turns; a backward's library call is
-   autograd through the library forward, its graph built once): K1-K4
-   forward and backward (dropout on; K4 at attention dropout 0 and 0.1,
-   with each call's device time beside its call time: one replay of a CUDA
-   graph of 20 calls) and K5 at the flagship's shapes (B = 4); K6 forward
+   autograd through the library forward, its graph built once): K1's
+   float32 forward (its products on 3xTF32 tensor cores) at batch 4, 16 and
+   64, the training forward with every saved residual and the inference
+   forward, twice bitwise equal, beside both its bounds (3xTF32 and f32)
+   and, at batch 4, its float64 error within 4x of the float32-FMA
+   yardstick's; K1-K4 backward and K2-K4 forward (dropout on; K4 at
+   attention dropout 0 and 0.1, with each call's device time beside its
+   call time: one replay of a CUDA graph of 20 calls; K4's backward also at
+   batch 16 and 64, one launch a call, twice bitwise equal) and K5 at the
+   flagship's shapes (B = 4); K6 forward
    and backward at HCP's (8, 2, 1201, 11), dropout 0 and 0.1 (dq/dk/dv
    against autograd through the plain forward); K2/K3's forward at batch
    4, 16 and 64, shifts 0 and 3, as inference and as the training forward
@@ -434,17 +440,16 @@ def _report(res, key, label, err, ms, plain_ms, ops, nbytes, src, rep,
 
 
 def forward_kernels(gen, res: Results):
-    """K1-K4 forward against their plain versions, beside the one PyTorch
-    call that computes the same function where there is one: K1
-    ``nn.TransformerEncoderLayer`` (post-LN, erf-GELU, eps 1e-12) in eval
-    on the same weights, K4 ``scaled_dot_product_attention`` with bias +
-    mask as ``attn_mask``. K2/K3 at batch 4, 16 and 64, each as inference
+    """K2-K4 forward against their plain versions, beside the one PyTorch
+    call that computes the same function where there is one: K4
+    ``scaled_dot_product_attention`` with bias + mask as ``attn_mask``
+    (K1's forward: :func:`k1_forward_kernels`). K2/K3 at batch 4, 16 and
+    64, each as inference
     and as the training forward with its saved x2r held too (the plain
     block with fc2 zeroed is x2r); the batch-4 inference (the serving
     shape) and K4 also with their device times."""
     from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
     from multimodal_neuroimage_tpu_torch.ops import attention as att
-    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
     from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = "cuda"
@@ -456,21 +461,6 @@ def forward_kernels(gen, res: Results):
         ``device``: time the call's device work too."""
         cases.append((key, label, kernel, plain, src, rep, ops, nbytes,
                       library, x2r, device))
-    H, F_, T = 84, 3072, 369
-    p = tuple(t.to(dev) for t in (_lin(gen, H, H) * 1 + _lin(gen, H, H)
-                                  + _lin(gen, H, H) + _lin(gen, H, H)
-                                  + _ln(gen, H) + _lin(gen, F_, H)
-                                  + _lin(gen, H, F_) + _ln(gen, H)))
-    x = torch.randn(BATCH, T, H, generator=gen).to(dev)
-    encoder = _encoder_layer(p, H, 12, F_).eval()
-
-    @torch.no_grad()
-    def library():
-        return encoder(x)
-    case("K1 bert_layer", "", lambda: bl.bert_layer_call(x, p, 12, T),
-         lambda: bl.bert_layer_reference(x, p, 12, T), "bert_layer.cu",
-         "bert_layer.py:914", sum(_bert_ops(BATCH, T, H, 12, F_)),
-         _nbytes(x, x, *p), library)
     C, Hh, N, nW = 12, 6, 36, 196
     self_p, cross_p, bias, xw, yw = _fusion_inputs(gen)
     # batch 4 is the flagship's; at 16 and 64 the multi-window forward's
@@ -519,7 +509,8 @@ def forward_kernels(gen, res: Results):
                      x2r=lambda x_=xb, y_=y_, p_=no_fc2, mask=mask,
                          cross=cross, t=train: fb._block_reference(
                              x_, y_, p_, bias, mask, *t, cross))
-    for args, rate in ((a, r) for a in _k4_inputs(gen) for r in (0.0, 0.1)):
+    for args, rate in ((a, r) for a in _k4_inputs(gen, BATCH)
+                       for r in (0.0, 0.1)):
         q4, k4, v4, b4, m4 = args[:5]
         B_, nw4, heads4, N4, D4 = q4.shape
         full = b4[None] + (0.0 if m4 is None else m4[:, None])
@@ -625,15 +616,16 @@ def _sdpa_window(q, k, v, bias, mask):
     return out.reshape(q.shape)
 
 
-def _k4_inputs(gen):
-    """The SwinV2 head's three stages: (q, k, v, bias, mask, label)."""
+def _k4_inputs(gen, B):
+    """The SwinV2 head's three stages at batch B: (q, k, v, bias, mask,
+    label)."""
     from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
     out = []
     for N4, res, heads, shift in ((36, 12, 3, 3), (36, 6, 6, 0),
                                   (9, 3, 12, 0)):
         ws = int(np.sqrt(N4))
         nw4 = (res // ws) ** 2
-        shape = (BATCH, nw4, heads, N4, 4)
+        shape = (B, nw4, heads, N4, 4)
         q = torch.nn.functional.normalize(
             torch.randn(shape, generator=gen), dim=-1) * 10.0
         k = torch.nn.functional.normalize(torch.randn(shape, generator=gen),
@@ -664,6 +656,7 @@ def backward_kernels(gen, res: Results, n_params: int):
                 rep, lib_ms, tol=f"dx/dy: atol {ATOL} + rtol {RTOL}; sums: "
                                  f"{SUM_REL} * max|ref| + {SUM_ATOL}",
                 device=device, bound=bound)
+        return ms
 
     # K1: B 4 x T 369 x H 84, 12 heads, F 3072
     H, F_, T = 84, 3072, 369
@@ -757,44 +750,90 @@ def backward_kernels(gen, res: Results, n_params: int):
                    _nbytes(*streams, *streams, gw, dp, mask, bias, bias,
                            *params, *params))
 
-    # K4: the SwinV2 head's three stages, attention dropout 0 and 0.1
-    for (q, k, v, b4, mask, label), rate in (
-            (a, r) for a in _k4_inputs(gen) for r in (0.0, 0.1)):
-        out = att.fused_window_attention(q, k, v, b4, mask, seed, rate)
-        g4 = torch.randn(q.shape, generator=gen).to(dev)
+    # K4: the SwinV2 head's three stages at batch 4, 16 and 64, attention
+    # dropout 0 and 0.1: one launch a call (torch.profiler), two calls
+    # bitwise equal (dbias too), the last blocks' counters left at zero;
+    # the gradients at g 2^-20 bitwise 2^-20 times those at g (a sum whose
+    # accuracy does not depend on the gradient's size), and a NaN in g
+    # giving NaN where the plain version has it
+    k4_batch4 = []
+    for B in (BATCH, BP_BATCH, 64):
+        for (q, k, v, b4, mask, label), rate in (
+                (a, r) for a in _k4_inputs(gen, B) for r in (0.0, 0.1)):
+            out = att.fused_window_attention(q, k, v, b4, mask, seed, rate)
+            g4 = torch.randn(q.shape, generator=gen).to(dev)
 
-        def kern(q=q, k=k, v=v, b4=b4, mask=mask, out=out, g4=g4, rate=rate):
-            return att.window_attention_backward(g4, q, k, v, b4, mask, out,
-                                                 seed, rate)
+            def kern(q=q, k=k, v=v, b4=b4, mask=mask, out=out, g4=g4,
+                     rate=rate):
+                return att.window_attention_backward(g4, q, k, v, b4, mask,
+                                                     out, seed, rate)
 
-        got = kern()
-        ins, plain = _plain_backward(
-            lambda q_, k_, v_, b_, mask=mask, rate=rate:
-                att.attention_reference(q_, k_, v_, b_, mask, seed, rate),
-            (q, k, v, b4), g4)
-        want = plain()
-        torch.cuda.synchronize()
-        errs = [_close(f"K4 backward d{n} rate {rate}", a, b, ATOL, RTOL)
-                for n, a, b in zip("qkv", got[:3], want[:3])]
-        errs.append(_close_rel(f"K4 backward dbias rate {rate}", got[3],
-                               want[3], SUM_REL))
-        library, side = None, None
-        if not rate:
-            # autograd through SDPA with the mask built in the graph from
-            # bias (expanded) + mask, so that dbias is among its gradients;
-            # built on a side stream, where its backward is then captured
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                _, library = _plain_backward(
-                    lambda q_, k_, v_, b_, mask=mask: _sdpa_window(
-                        q_, k_, v_, b_, mask), (q, k, v, b4), g4)
-            torch.cuda.current_stream().wait_stream(side)
-        report("K4 window_attention backward", f"{label} rate {rate}", errs,
-               kern, plain, "window_attention.cu", "attention.py:332",
-               2 * _attention_ops(q)[0],
-               _nbytes(q, k, v, g4, mask, b4, q, k, v, b4), library,
-               _device_pair(kern, library, side))
+            got, again = kern(), kern()
+            ins, plain = _plain_backward(
+                lambda q_, k_, v_, b_, mask=mask, rate=rate:
+                    att.attention_reference(q_, k_, v_, b_, mask, seed, rate),
+                (q, k, v, b4), g4)
+            want = plain()
+            torch.cuda.synchronize()
+            tag = f"B {B} {label} rate {rate}"
+            errs = [_close(f"K4 backward d{n} {tag}", a, b, ATOL, RTOL)
+                    for n, a, b in zip("qkv", got[:3], want[:3])]
+            # the floor of a sum that is zero in exact arithmetic grows with
+            # the windows it adds (batch 4's at SUM_ATOL)
+            errs.append(_close_rel(f"K4 backward dbias {tag}", got[3],
+                                   want[3], SUM_REL, SUM_ATOL * B / BATCH))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K4 backward {tag}: two calls differ")
+            tiny = att.window_attention_backward(
+                g4 * 2.0 ** -20, q, k, v, b4, mask, out, seed, rate)
+            if not all(torch.equal(a * 2.0 ** -20, b)
+                       for a, b in zip(got, tiny)):
+                raise AssertionError(f"K4 backward {tag}: not bitwise "
+                                     f"scale-invariant at g 2^-20")
+            gn = g4.clone()
+            gn[-1, 0, 0, 2, 1] = float("nan")
+            nan_got = att.window_attention_backward(gn, q, k, v, b4, mask,
+                                                    out, seed, rate)
+            nan_want = att.attention_reference_backward(gn, q, k, v, b4,
+                                                        mask, seed, rate)
+            if not (nan_got[3].isnan().any() and all(
+                    torch.equal(a.isnan(), b.isnan())
+                    for a, b in zip(nan_got, nan_want))):
+                raise AssertionError(f"K4 backward {tag}: a NaN in g does "
+                                     f"not reach the gradients as in the "
+                                     f"plain version")
+            # one kernel, launched once a call (the profiler can drop the
+            # first event of a window: 9 of 10 calls read 0.9)
+            split = k1_split.launch_split(kern)
+            launched = sum(n for n, _ in split.values())
+            if (len(split) != 1 or round(launched) != 1
+                    or att._K4_COUNTERS[q.device].any()):
+                raise AssertionError(f"K4 backward {tag}: {split} (expected "
+                                     f"one kernel, once a call) or its "
+                                     f"counters not reset")
+            library, side = None, None
+            if not rate:
+                # autograd through SDPA with the mask built in the graph from
+                # bias (expanded) + mask, so that dbias is among its
+                # gradients; built on a side stream, where its backward is
+                # then captured
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    _, library = _plain_backward(
+                        lambda q_, k_, v_, b_, mask=mask: _sdpa_window(
+                            q_, k_, v_, b_, mask), (q, k, v, b4), g4)
+                torch.cuda.current_stream().wait_stream(side)
+            ms = report("K4 window_attention backward", tag, errs, kern,
+                        plain, "window_attention.cu", "attention.py:332",
+                        2 * _attention_ops(q)[0],
+                        _nbytes(q, k, v, g4, mask, b4, q, k, v, b4), library,
+                        _device_pair(kern, library, side))
+            if B == BATCH:
+                k4_batch4.append(ms)
+    # the flagship's step (batch 4) calls each stage's backward at its rate
+    res.rows["K4 window_attention backward"]["batch4_ms"] = (
+        sum(k4_batch4) / len(k4_batch4))
 
     # K5 over the flagship's parameter count, AdamW with clipping
     pk, gk, mk = (torch.randn(n_params, generator=gen).to(dev)
@@ -833,6 +872,130 @@ def _k1_backward_bound(B, x, g, p, T=369, H=84, F_=3072):
     t_ops = (3 * dense / PEAK_TF32_OPS + attention / PEAK_F32_OPS) * 1e3
     t_bytes = _nbytes(x, g, x, *p, *p) / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _k1_forward_bound(B, nbytes, T=369, H=84, heads=12, F_=3072):
+    """K1 forward's bound on its route: the dense products as 3xTF32, three
+    TF32 products each at the dense TF32 tensor-core peak, the attention's
+    products and exponentials on the CUDA cores at the f32 peak; beside the
+    bytes. (ms, by)."""
+    dense = 2 * B * T * (4 * H * H + 2 * H * F_)
+    prod, exps = _bert_ops(B, T, H, heads, F_)
+    t_ops = (3 * dense / PEAK_TF32_OPS
+             + (prod - dense + exps) / PEAK_F32_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k1_forward_kernels(gen, res: Results):
+    """K1's float32 forward (every dense product on 3xTF32 tensor cores) at
+    batch 4, 16 and 64 (T 369, H 84, 12 heads, F 3072): the training
+    forward (dropout 0.1) with every saved residual and the inference
+    forward against their plain versions (plain products, TF32 off), two
+    training calls bitwise equal; beside ``nn.TransformerEncoderLayer``
+    (post-LN, erf-GELU, eps 1e-12) in eval on the same weights, the one
+    PyTorch call that computes the layer; bounds on its route (3xTF32) and
+    with every product at the f32 rate; its device scratch beside the
+    yardstick's. Then, at batch 4, its float64 error against the forward on
+    float32 FMAs (``_GEMM_SIMT``): within 4x."""
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    from multimodal_neuroimage_tpu_torch.ops import build
+    H, F_, T, heads = 84, 3072, 369, 12
+    rates, seed = (0.1, 0.1), 24680
+    p = tuple(t.cuda() for t in (_lin(gen, H, H) + _lin(gen, H, H)
+                                 + _lin(gen, H, H) + _lin(gen, H, H)
+                                 + _ln(gen, H) + _lin(gen, F_, H)
+                                 + _lin(gen, H, F_) + _ln(gen, H)))
+    key, f32_bounds = "K1 bert_layer", []
+    for B in (BATCH, BP_BATCH, 64):
+        x = torch.randn(B, T, H, generator=gen).cuda()
+        encoder = _encoder_layer(p, H, heads, F_).eval()
+
+        @torch.no_grad()
+        def library(encoder=encoder, x=x):
+            return encoder(x)
+
+        def train(x=x):
+            return bl._launch_forward(x, p, heads, T, seed, rates, True, True)
+
+        def plain_train(x=x):
+            return bl.bert_layer_reference_parts(x, p, heads, T, seed, rates,
+                                                 True)
+
+        def infer(x=x):
+            return bl.bert_layer_call(x, p, heads, T)
+
+        def plain_infer(x=x):
+            return bl.bert_layer_reference(x, p, heads, T)
+        (out, resid), again, want = train(), train(), plain_train()
+        torch.cuda.synchronize()
+        err = _close(f"K1 forward B {B} out", out, want["out"], ATOL, RTOL)
+        for name, got in bl.resid_parts(resid, B, T, H, heads).items():
+            err = max(err, _close(f"K1 forward B {B} {name}", got,
+                                  want[name], ATOL, RTOL))
+        if not (torch.equal(out, again[0]) and torch.equal(resid, again[1])):
+            raise AssertionError(f"K1 forward B {B}: two training calls "
+                                 f"differ")
+        tc_b, simt_b = (4 * build.library().value(n, B, T, H, F_) for n in (
+            "bert_layer_scratch_floats", "bert_layer_scratch_simt_floats"))
+        print(f"K1 f32 forward device scratch, batch {B}: {tc_b} B (the "
+              f"float32-FMA yardstick's {simt_b} B; residuals "
+              f"{resid.numel() * 4} B)")
+        ops = sum(_bert_ops(B, T, H, heads, F_))
+        for label, kern, plain, nbytes in (
+                (f"training B {B}", train, plain_train,
+                 _nbytes(x, x, resid, *p)),
+                (f"inference B {B}", infer, plain_infer, _nbytes(x, x, *p))):
+            if kern is infer:
+                got, ref = infer(), plain_infer()
+                torch.cuda.synchronize()
+                err = _close(f"K1 forward {label}", got, ref, ATOL, RTOL)
+            ms, plain_ms, lib_ms = _call_times(kern, plain, library)
+            bound = _k1_forward_bound(B, nbytes)
+            f32_bound, _ = _bound(ops, nbytes)
+            f32_bounds.append(f32_bound)
+            _report(res, key, label, err, ms, plain_ms, ops, nbytes,
+                    "bert_layer.cu", "bert_layer.py:914", lib_ms,
+                    bound=bound)
+            print(f"  K1 forward {label}: {bound[0] / ms:.3f} of its 3xTF32 "
+                  f"bound, {f32_bound / ms:.3f} of the f32 one "
+                  f"({f32_bound:.6f} ms); kernel / library "
+                  f"{ms / lib_ms:.3f}")
+        del encoder
+    res.rows[key]["bound_ms_f32_rate"] = sum(f32_bounds) / len(f32_bounds)
+    k1_forward_float64_check(res, p, gen, seed, rates)
+
+
+def k1_forward_float64_check(res, p, gen, seed, rates, T=369, H=84):
+    """K1's float32 forward on 3xTF32 tensor cores and on float32 FMAs (the
+    first forward, kept as the yardstick), each against a float64 forward
+    of the same inputs at batch 4: the worst error of the output and of
+    every saved residual relative to its tensor's max-abs. The tensor-core
+    route must stay within 4x the yardstick's."""
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    x = torch.randn(BATCH, T, H, generator=gen).cuda()
+    want = bl.bert_layer_reference_parts(
+        x.double(), [t.double() for t in p], 12, T, seed, rates, True)
+    worst = {}
+    for simt in (False, True):
+        bl._GEMM_SIMT = simt
+        try:
+            out, resid = bl._launch_forward(x, p, 12, T, seed, rates, True,
+                                            True)
+        finally:
+            bl._GEMM_SIMT = False
+        got = {"out": out, **bl.resid_parts(resid, BATCH, T, H, 12)}
+        worst[simt] = max(((got[n].double() - want[n]).abs().max()
+                           / want[n].abs().max()).item() for n in want)
+    res.rows["K1 bert_layer"].update(float64_rel_err=worst[False],
+                                     simt_float64_rel_err=worst[True])
+    print(f"K1 bert_layer forward vs a float64 forward (worst max|err| / "
+          f"max|ref| over the output and the 8 residuals): 3xTF32 tensor "
+          f"cores {worst[False]:.3e}, float32 FMAs {worst[True]:.3e} "
+          f"(limit 4x: {worst[False] / worst[True]:.2f}x)")
+    if worst[False] > 4 * worst[True]:
+        raise AssertionError("K1 forward on 3xTF32 exceeds 4x the float32 "
+                             "FMA route's float64 error")
 
 
 def k1_float64_check(res, x, g, p, resid, seed, rates):
@@ -2113,6 +2276,7 @@ def main() -> int:
     n_params = sum(p.numel() for p in create_model(cfg).parameters())
     gen = torch.Generator().manual_seed(SEED)
     results = Results()
+    k1_forward_kernels(gen, results)
     forward_kernels(gen, results)
     backward_kernels(gen, results, n_params)
     mha_kernels(gen, results)
@@ -2162,7 +2326,8 @@ def main() -> int:
     calls = {"K1 bert_layer backward": 32, "K2 fusion_block backward": 48,
              "K3 cross_fusion_block backward": 12,
              "K4 window_attention backward": 10, "K5 fused_adam": 1}
-    share = {k: results.rows[k]["ms"] / results.rows[k]["cases"] * n
+    share = {k: results.rows[k].get("batch4_ms", results.rows[k]["ms"]
+                                    / results.rows[k]["cases"]) * n
              for k, n in calls.items()}
     print("backward kernels per step (kernel ms x calls): " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in sorted(share.items(),

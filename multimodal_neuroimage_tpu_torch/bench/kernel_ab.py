@@ -14,19 +14,22 @@ worker times, ``ROUNDS`` times:
 - K8, ten cases: each dot-shape formulation at f32 and bf16, ms per
   scores + context pair: the slope over chains of 2 and 10 pairs, as
   ``bench/dot_shapes.py`` takes it;
-- K4 forward, six cases: the SwinV2 head's three stages at batch 4,
-  attention dropout 0 and 0.1; the call time (CUDA events around 20
-  back-to-back calls, as ``chip_smoke.py`` times every kernel) and the
-  device time (one replay of a CUDA graph that captured 20 calls);
+- K4 forward and backward, six cases each: the SwinV2 head's three stages
+  at batch 4, attention dropout 0 and 0.1; the call time (CUDA events
+  around 20 back-to-back calls, as ``chip_smoke.py`` times every kernel)
+  and the device time (one replay of a CUDA graph that captured 20 calls);
+- K1's float32 forward (``k1_fwd``) at batch 4, 16 and 64 (T 369, H 84, 12
+  heads, F 3072): the training forward (dropout 0.1, residuals saved) and
+  the inference forward, 20 back-to-back calls;
 
 - K1 backward (``k1``) at batch 4 and 16 (T 369, H 84, 12 heads, F 3072,
   dropout 0.1): CUDA events around 10 back-to-back calls;
 - K1's mm16 form (``k1_16``, the bf16 policy's layer) at batch 4, 16 and
   64 (bf16-valued weights, dropout 0.1): the training forward with the
   residuals saved (20 back-to-back calls) and the backward (10);
-- the fusion backward (``fusion``) at batch 16, dropout 0.1 and DropPath
-  on, shift 0 and 3, self and cross: K2/K3 on (16, 196, 36, 12) windows
-  and K7 on two groups of G = 8, 10 back-to-back calls;
+- the fusion backward (``fusion``) at batch 16 and 64, dropout 0.1 and
+  DropPath on, shift 0 and 3, self and cross: K2/K3 on (B, 196, 36, 12)
+  windows and K7 on groups of G = 8, 10 back-to-back calls;
 - K6's bf16 form (``k6``) at HCP's (8, 2, 1201, 11), bf16 q/k/v/dO,
   dropout 0 and 0.1: the forward (20 back-to-back calls) and the backward
   (10);
@@ -46,8 +49,9 @@ layout (``bf16``): 12 training steps at batch 16, then 12 predict steps at
 batch 4 and 16 at bf16 and at float32 in turns. Each after 3 of warm-up, on
 the host clock.
 
-``--cases`` picks the groups (comma-separated; default all of k8, k4, k1,
-k1_16, fusion, k6, fusion_fwd, flagship, step16, hcp16, bf16).
+``--cases`` picks the groups (comma-separated; default all of k8, k4,
+k1_fwd, k1, k1_16, fusion, k6, fusion_fwd, flagship, step16, hcp16,
+bf16).
 
 Prints each turn's JSON line, then for every case each side's median and
 quartiles over all its samples and the ratio of its median to BASE's.
@@ -69,7 +73,7 @@ K4_STAGES = ((36, 12, 3, 3), (36, 6, 6, 0), (9, 3, 12, 0))  # N, res, heads, shi
 BATCH = 4
 STEPS = 12
 CYCLES, ROUNDS = 2, 2   # 8 samples a side for each kernel case, 48 a step
-GROUPS = ("k8", "k4", "k1", "k1_16", "fusion", "k6", "fusion_fwd",
+GROUPS = ("k8", "k4", "k1_fwd", "k1", "k1_16", "fusion", "k6", "fusion_fwd",
           "flagship", "step16", "hcp16", "bf16")
 
 
@@ -124,12 +128,21 @@ def _k4(out, T):
                                 .astype(np.float32)).cuda()
         m = shift_attn_mask(res, res, ws, shift)
         mask = None if m is None else torch.from_numpy(m).cuda()
+        g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
         for rate in (0.0, 0.1):
             def call(rate=rate, q=q, k=k, v=v, bias=bias, mask=mask):
                 return att.fused_window_attention(q, k, v, bias, mask, 7, rate)
-            key = f"N{N} heads{heads} rate {rate}"
-            out["k4 call"].setdefault(key, []).append(T.events_ms(call))
-            out["k4 device"].setdefault(key, []).append(T.graph_ms(call)[0])
+            o = call()
+
+            def back(rate=rate, q=q, k=k, v=v, bias=bias, mask=mask, o=o,
+                     g=g):
+                return att.window_attention_backward(g, q, k, v, bias, mask,
+                                                     o, 7, rate)
+            for name, fn in (("", call), ("backward ", back)):
+                key = f"{name}N{N} heads{heads} rate {rate}"
+                out["k4 call"].setdefault(key, []).append(T.events_ms(fn))
+                out["k4 device"].setdefault(key, []).append(
+                    T.graph_ms(fn)[0])
 
 
 def _lin(gen, o, i):
@@ -158,6 +171,23 @@ def _k1(out, T):
                                            rates, True), iters=10))
 
 
+def _k1_fwd(out, T):
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    gen = torch.Generator().manual_seed(29)
+    H, F_, L, rates, seed = 84, 3072, 369, (0.1, 0.1), 12345
+    p = tuple(t.cuda() for t in sum((_lin(gen, H, H) for _ in range(4)), [])
+              + _ln(gen, H) + _lin(gen, F_, H) + _lin(gen, H, F_)
+              + _ln(gen, H))
+    for B in (4, 16, 64):
+        x = torch.randn(B, L, H, generator=gen).cuda()
+        out["k1 forward"].setdefault(f"training batch {B}", []).append(
+            T.events_ms(lambda x=x: bl._launch_forward(
+                x, p, 12, L, seed, rates, True, True)))
+        out["k1 forward"].setdefault(f"inference batch {B}", []).append(
+            T.events_ms(lambda x=x: bl._launch_forward(
+                x, p, 12, L, 0, (0.0, 0.0), False, False)))
+
+
 def _k1_16(out, T):
     from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
     gen = torch.Generator().manual_seed(19)
@@ -180,11 +210,8 @@ def _k1_16(out, T):
 
 
 def _fusion(out, T):
-    from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
-    from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
-    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
     gen = torch.Generator().manual_seed(13)
-    B, G, C, Hh, N, nW = 16, 8, 12, 6, 36, 196
+    G, C, Hh, N, nW = 8, 12, 6, 36, 196
     params = {False: tuple(t.cuda() for t in _ln(gen, C) + _lin(gen, 3 * C, C)
                            + _lin(gen, C, C) + _ln(gen, C)
                            + _lin(gen, 4 * C, C) + _lin(gen, C, 4 * C)),
@@ -193,6 +220,14 @@ def _fusion(out, T):
                           + _lin(gen, C, C) + _ln(gen, C)
                           + _lin(gen, 4 * C, C) + _lin(gen, C, 4 * C))}
     bias = (0.5 * torch.randn(Hh, N, N, generator=gen)).cuda()
+    for B in (16, 64):
+        _fusion_batch(out, T, B, G, nW, N, C, params, bias, gen)
+
+
+def _fusion_batch(out, T, B, G, nW, N, C, params, bias, gen):
+    from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
     xw, yw, gw = (torch.randn(B, nW, N, C, generator=gen).cuda()
                   for _ in "xyg")
     xg, yg, gg = (fbp.to_groups(t, G).contiguous() for t in (xw, yw, gw))
@@ -225,7 +260,7 @@ def _fusion(out, T):
             for name, fn in ((f"K{3 if cross else 2} {kind}", std),
                              (f"K7 {kind}", bp)):
                 out["fusion backward"].setdefault(
-                    f"{name} shift {shift}", []).append(
+                    f"{name} B{B} shift {shift}", []).append(
                         T.events_ms(fn, iters=10))
 
 
@@ -401,11 +436,13 @@ def worker(groups) -> int:
     T = _timing()
     lib = build.library()
     out = {"root": os.getcwd(), "build_s": lib.build_seconds, "k8": {},
-           "k4 call": {}, "k4 device": {}, "k1 backward": {}, "k1 mm16": {},
+           "k4 call": {}, "k4 device": {}, "k1 forward": {},
+           "k1 backward": {}, "k1 mm16": {},
            "fusion backward": {}, "k6": {}, "fusion forward": {},
            "flagship": {}, "hcp": {}}
     for _ in range(ROUNDS):
-        for name, fn in (("k8", _k8), ("k4", _k4), ("k1", _k1),
+        for name, fn in (("k8", _k8), ("k4", _k4), ("k1_fwd", _k1_fwd),
+                         ("k1", _k1),
                          ("k1_16", _k1_16), ("fusion", _fusion), ("k6", _k6),
                          ("fusion_fwd", _fusion_fwd)):
             if name in groups:
@@ -418,6 +455,7 @@ def worker(groups) -> int:
         _hcp16(out)
     if "bf16" in groups:
         _bf16(out)
+
     print(json.dumps(out), flush=True)
     return 0
 
@@ -462,7 +500,8 @@ def main(argv) -> int:
             runs[root].append(line)
     print("case: each side's median ms (q1-q3) over all its samples, and "
           "its median / BASE's; sides in order: " + ", ".join(roots))
-    for group in ("k8", "k4 call", "k4 device", "k1 backward", "k1 mm16",
+    for group in ("k8", "k4 call", "k4 device", "k1 forward", "k1 backward",
+                  "k1 mm16",
                   "fusion backward", "k6", "fusion forward", "flagship",
                   "hcp"):
         for case in runs[roots[0]][0][group]:

@@ -14,10 +14,14 @@
 // ctx, the two pre-LN sums and the attention's log-sum-exp for the backward.
 //
 // What bounds it on the H100: the FFN, H = 84 -> F = 3072 -> 84, which is
-// ~90% of the layer's 1.5 GFLOP at B = 4, T = 369. It is compute-bound on
-// the CUDA cores in f32 (the port keeps f32 products, no TF32), and its
-// (T, 3072) intermediate would be 18 MB a subject-layer if written out.
-// Design, four kernels launched back to back on one stream:
+// ~90% of the layer's 1.8 GFLOP at B = 4, T = 369, and its (T, 3072)
+// intermediate, 18 MB a subject-layer if written out. bert_layer_forward
+// (the section "the float32 forward on tensor cores" at the end of this
+// file) runs every dense product on 3xTF32 mma.sync with GELU(u) kept in
+// registers. The first forward, float32 FMAs on the CUDA cores, stays below
+// as bert_layer_forward_simt: the precision yardstick of the tensor-core
+// route (ops/bert_layer.py _GEMM_SIMT), as the backward's SIMT GEMM is.
+// Its design, four kernels launched back to back on one stream:
 //   1. bert_qkv_kernel: 32-row tiles x {q, k, v}; the tile and the 84 x 84
 //      weight sit in shared memory (rows padded to 85 floats, which keeps
 //      the 32 lanes of a warp on 32 distinct banks).
@@ -86,12 +90,17 @@ bert_qkv_kernel(const float* __restrict__ x, BertParams P, float* __restrict__ q
   }
 }
 
-template <int MAXHD>
+// QPL queries a lane group (the tensor-core forward's register blocking at
+// larger batches: each key read from shared memory feeds QPL queries) and
+// HDX the head dim where it is compiled in (0: hd at run time); every
+// query's arithmetic, and so its result, is the same at any QPL and HDX.
+template <int MAXHD, int QPL, int HDX>
 __global__ void __launch_bounds__(BERT_ATTN_THREADS)
 bert_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ ctx,
-                      float* __restrict__ lse, Dropout drop, int T, int TP, int H, int hd,
+                      float* __restrict__ lse, Dropout drop, int T, int TP, int H, int hd_,
                       int t_valid, float scale) {
+  const int hd = HDX ? HDX : hd_;
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = smem + (size_t)t_valid * hd;
@@ -104,59 +113,121 @@ bert_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     vs[i] = v[g];
   }
   __syncthreads();
-  // BERT_ATTN_SPLIT consecutive lanes share one query and take every
+  // BERT_ATTN_SPLIT consecutive lanes share QPL queries and take every
   // BERT_ATTN_SPLIT-th key; all lanes stay live for the shuffles
   const int part = threadIdx.x % BERT_ATTN_SPLIT;
-  const int i = blockIdx.x * BERT_ATTN_QUERIES + threadIdx.x / BERT_ATTN_SPLIT;
-  const bool live = i < T;
-  const size_t qrow = (row0 + (live ? i : 0)) * H + h * hd;
-  float qi[MAXHD];
+  float qi[QPL][MAXHD];
+  int iq[QPL];
 #pragma unroll
-  for (int d = 0; d < MAXHD; ++d) qi[d] = live && d < hd ? q[qrow + d] * scale : 0.f;
+  for (int qq = 0; qq < QPL; ++qq) {
+    iq[qq] = (blockIdx.x * QPL + qq) * BERT_ATTN_QUERIES + threadIdx.x / BERT_ATTN_SPLIT;
+    const bool live = iq[qq] < T;
+    const size_t qrow = (row0 + (live ? iq[qq] : 0)) * H + h * hd;
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d) qi[qq][d] = live && d < hd ? q[qrow + d] * scale : 0.f;
+  }
 
-  float m = -INFINITY;
+  float m[QPL];
+#pragma unroll
+  for (int qq = 0; qq < QPL; ++qq) m[qq] = -INFINITY;
   for (int j = part; j < t_valid; j += BERT_ATTN_SPLIT) {
-    float s = 0.f;
+    float kj[MAXHD];
 #pragma unroll
-    for (int d = 0; d < MAXHD; ++d)
-      if (d < hd) s = fmaf(qi[d], ks[j * hd + d], s);
-    m = fmaxf(m, s);
+    for (int d = 0; d < MAXHD; ++d) kj[d] = d < hd ? ks[j * hd + d] : 0.f;
+#pragma unroll
+    for (int qq = 0; qq < QPL; ++qq) {
+      float s = 0.f;
+#pragma unroll
+      for (int d = 0; d < MAXHD; ++d)
+        if (d < hd) s = fmaf(qi[qq][d], kj[d], s);
+      m[qq] = fmaxf(m[qq], s);
+    }
   }
 #pragma unroll
-  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
-    m = fmaxf(m, __shfl_xor_sync(MNT_FULL_MASK, m, off));
-  float l = 0.f;
-  float acc[MAXHD];
+  for (int qq = 0; qq < QPL; ++qq)
 #pragma unroll
-  for (int d = 0; d < MAXHD; ++d) acc[d] = 0.f;
-  // dropout of the normalised probabilities (draw 3, padded coordinates
-  // r = b * TP + i, c = h * TP + key): the keep factor multiplies e^(s - m)
-  // and the 1/l of the softmax factors out unchanged
-  const uint32_t r = (uint32_t)(b * TP + i);
+    for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
+      m[qq] = fmaxf(m[qq], __shfl_xor_sync(MNT_FULL_MASK, m[qq], off));
+  float l[QPL], acc[QPL][MAXHD];
+  uint32_t rk[QPL];
+#pragma unroll
+  for (int qq = 0; qq < QPL; ++qq) {
+    l[qq] = 0.f;
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d) acc[qq][d] = 0.f;
+    // dropout of the normalised probabilities (draw 3, padded coordinates
+    // r = b * TP + i, c = h * TP + key): the keep factor multiplies e^(s - m)
+    // and the 1/l of the softmax factors out unchanged
+    rk[qq] = keep_row(drop, (uint32_t)(b * TP + iq[qq]));
+  }
   for (int j = part; j < t_valid; j += BERT_ATTN_SPLIT) {
-    float s = 0.f;
+    float kj[MAXHD], vj[MAXHD];
 #pragma unroll
-    for (int d = 0; d < MAXHD; ++d)
-      if (d < hd) s = fmaf(qi[d], ks[j * hd + d], s);
-    const float p = expf(s - m);
-    l += p;
-    const float pk = p * keep(drop, r, (uint32_t)(h * TP + j));
+    for (int d = 0; d < MAXHD; ++d) {
+      kj[d] = d < hd ? ks[j * hd + d] : 0.f;
+      vj[d] = d < hd ? vs[j * hd + d] : 0.f;
+    }
+    const uint32_t cm = (uint32_t)(h * TP + j) * 668265261u;
 #pragma unroll
-    for (int d = 0; d < MAXHD; ++d)
-      if (d < hd) acc[d] = fmaf(pk, vs[j * hd + d], acc[d]);
+    for (int qq = 0; qq < QPL; ++qq) {
+      float s = 0.f;
+#pragma unroll
+      for (int d = 0; d < MAXHD; ++d)
+        if (d < hd) s = fmaf(qi[qq][d], kj[d], s);
+      const float p = expf(s - m[qq]);
+      l[qq] += p;
+      const float pk = drop.on ? (kept(drop, rk[qq], cm) ? p * drop.scale : 0.f) : p;
+#pragma unroll
+      for (int d = 0; d < MAXHD; ++d)
+        if (d < hd) acc[qq][d] = fmaf(pk, vj[d], acc[qq][d]);
+    }
   }
 #pragma unroll
-  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1) {
-    l += __shfl_xor_sync(MNT_FULL_MASK, l, off);
+  for (int qq = 0; qq < QPL; ++qq)
 #pragma unroll
-    for (int d = 0; d < MAXHD; ++d) acc[d] += __shfl_xor_sync(MNT_FULL_MASK, acc[d], off);
+    for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1) {
+      l[qq] += __shfl_xor_sync(MNT_FULL_MASK, l[qq], off);
+#pragma unroll
+      for (int d = 0; d < MAXHD; ++d)
+        acc[qq][d] += __shfl_xor_sync(MNT_FULL_MASK, acc[qq][d], off);
+    }
+  if (part != 0) return;
+#pragma unroll
+  for (int qq = 0; qq < QPL; ++qq) {
+    const int i = iq[qq];
+    if (i >= T) continue;
+    if (lse) lse[((size_t)b * gridDim.y + h) * T + i] = m[qq] + logf(l[qq]);
+    const float inv = 1.f / l[qq];
+    const size_t qrow = (row0 + i) * H + h * hd;
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d)
+      if (d < hd) ctx[qrow + d] = acc[qq][d] * inv;
   }
-  if (!live || part != 0) return;
-  if (lse) lse[((size_t)b * gridDim.y + h) * T + i] = m + logf(l);
-  const float inv = 1.f / l;
-#pragma unroll
-  for (int d = 0; d < MAXHD; ++d)
-    if (d < hd) ctx[qrow + d] = acc[d] * inv;
+}
+
+// Launch bert_attention_kernel with QPL queries a lane group; HD7: the
+// flagship's head dim 7 compiled in.
+template <int QPL, bool HD7>
+static cudaError_t bert_attention(const float* q, const float* k, const float* v, float* ctx,
+                                  float* lse, const Dropout& drop, int B, int T, int TP, int H,
+                                  int heads, int t_valid, cudaStream_t stream) {
+  const int hd = H / heads;
+  const size_t smem = 2 * (size_t)t_valid * hd * sizeof(float);
+  const dim3 grid((T + QPL * BERT_ATTN_QUERIES - 1) / (QPL * BERT_ATTN_QUERIES), heads, B);
+  const float scale = 1.f / sqrtf((float)hd);
+  cudaError_t err;
+#define BERT_ATTN_LAUNCH(MAXHD, HDX)                                                        \
+  do {                                                                                      \
+    if ((err = allow_smem(bert_attention_kernel<MAXHD, QPL, HDX>, smem)) != cudaSuccess)    \
+      return err;                                                                           \
+    bert_attention_kernel<MAXHD, QPL, HDX><<<grid, BERT_ATTN_THREADS, smem, stream>>>(       \
+        q, k, v, ctx, lse, drop, T, TP, H, hd, t_valid, scale);                             \
+  } while (0)
+  if (HD7 && hd == 7) BERT_ATTN_LAUNCH(8, 7);
+  else if (hd <= 8) BERT_ATTN_LAUNCH(8, 0);
+  else BERT_ATTN_LAUNCH(16, 0);
+#undef BERT_ATTN_LAUNCH
+  return cudaGetLastError();
 }
 
 // One H-wide row held four values per lane (H <= 128): two-pass LayerNorm
@@ -353,9 +424,9 @@ static int ffn_splits(int F) {
   return splits;
 }
 
-// Floats of device scratch bert_layer_forward needs: q, k, v, ctx, x1 and
-// the FFN's per-slice partial sums.
-extern "C" long long bert_layer_scratch_floats(int B, int T, int H, int F) {
+// Floats of device scratch bert_layer_forward_simt needs: q, k, v, ctx, x1
+// and the FFN's per-slice partial sums.
+extern "C" long long bert_layer_scratch_simt_floats(int B, int T, int H, int F) {
   return (long long)B * T * H * (5 + ffn_splits(F));
 }
 
@@ -371,9 +442,10 @@ static bool bert_bad_dims(int T, int H, int F, int heads, int t_valid, int TP) {
          F % FFN_BF != 0 || t_valid < 1 || t_valid > T || TP < T;
 }
 
-// x, out: (B, T, H) f32 contiguous; scratch: bert_layer_scratch_floats()
-// floats of device memory. params: host array of 16 device pointers in the
-// JAX kernel's order
+// The SIMT forward (the precision yardstick of bert_layer_forward, same
+// arguments). x, out: (B, T, H) f32 contiguous; scratch:
+// bert_layer_scratch_simt_floats() floats of device memory. params: host
+// array of 16 device pointers in the JAX kernel's order
 //   wq bq wk bk wv bv wo bo g1 b1 w1 b1m w2 b2m g2 b2
 // with weights in torch (out, in) layout. Keys >= t_valid are masked out.
 // Training: resid (bert_layer_resid_floats() floats) receives the residuals
@@ -382,10 +454,11 @@ static bool bert_bad_dims(int T, int H, int F, int heads, int t_valid, int TP) {
 // coordinates with TP = round_up(T, 8) rows a subject. Inference: resid
 // NULL and both rates 0. Needs H <= 96, H / heads <= 16 and F % 32 == 0.
 // Returns the cudaError_t of the first launch that fails, or of the last.
-extern "C" int bert_layer_forward(const float* x, const void* const* params, float* scratch,
-                                  float* resid, float* out, int B, int T, int H, int F,
-                                  int heads, int t_valid, int TP, int seed, double attn_rate,
-                                  double hidden_rate, cudaStream_t stream) {
+extern "C" int bert_layer_forward_simt(const float* x, const void* const* params,
+                                       float* scratch, float* resid, float* out, int B, int T,
+                                       int H, int F, int heads, int t_valid, int TP, int seed,
+                                       double attn_rate, double hidden_rate,
+                                       cudaStream_t stream) {
   if (bert_bad_dims(T, H, F, heads, t_valid, TP)) return (int)cudaErrorInvalidValue;
   const float* const* p = reinterpret_cast<const float* const*>(params);
   const BertParams P = {p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7],
@@ -418,19 +491,9 @@ extern "C" int bert_layer_forward(const float* x, const void* const* params, flo
                     stream>>>(x, P, q, k, v, M, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const size_t smem_attn = 2 * (size_t)t_valid * hd * sizeof(float);
-  const dim3 grid_attn((T + BERT_ATTN_QUERIES - 1) / BERT_ATTN_QUERIES, heads, B);
-  const float scale = 1.f / sqrtf((float)hd);
-  if (hd <= 8) {
-    if ((err = allow_smem(bert_attention_kernel<8>, smem_attn)) != cudaSuccess) return (int)err;
-    bert_attention_kernel<8><<<grid_attn, BERT_ATTN_THREADS, smem_attn, stream>>>(
-        q, k, v, ctx, lse, d_attn, T, TP, H, hd, t_valid, scale);
-  } else {
-    if ((err = allow_smem(bert_attention_kernel<16>, smem_attn)) != cudaSuccess) return (int)err;
-    bert_attention_kernel<16><<<grid_attn, BERT_ATTN_THREADS, smem_attn, stream>>>(
-        q, k, v, ctx, lse, d_attn, T, TP, H, hd, t_valid, scale);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = bert_attention<1, false>(q, k, v, ctx, lse, d_attn, B, T, TP, H, heads, t_valid,
+                                      stream)) != cudaSuccess)
+    return (int)err;
 
   const size_t smem_ln = (size_t)(H + BERT_LN_ROWS) * HP * sizeof(float);
   if ((err = allow_smem(bert_out_ln_kernel, smem_ln)) != cudaSuccess) return (int)err;
@@ -2890,4 +2953,546 @@ extern "C" int bert_layer_backward16(const float* x, const float* resid, const f
   if (rb > 1024) rb = 1024;
   k16_reduce_kernel<<<dim3(rb, ns), 256, 0, stream>>>(red);
   return (int)cudaGetLastError();
+}
+
+// ===========================================================================
+// The float32 forward on tensor cores (bert_layer_forward). Every dense
+// product (QKV, Wo, x1 W1^T, GELU(u) W2^T) runs on mma.sync.m16n8k8 in the
+// 3xTF32 form of the backward's tc_gemm_kernel: each operand x split into
+// big = tf32(x) and small = tf32(x - big), small_a big_b + big_a small_b
+// accumulated beside big_a big_b in float32 and added at the end
+// (ops/bert_layer.py matmul_3xtf32; bert_layer_model_tf32 models the
+// decomposition). The attention (~10% of the operations), GELU and both
+// LayerNorms stay float32 on the CUDA cores. The attention's scores stay
+// bitwise the float32 ones the backward rebuilds p from: scores on TF32
+// tensor cores were faster but moved the key bias's gradient, zero in exact
+// arithmetic, past its float32 noise floor.
+//
+// What bounds it on the H100: the FFN's products, ~90% of the operations,
+// 3x over at the TF32 tensor rate; in this design, the shared-memory loads
+// that feed them (the FFN's ~110 16-byte warp loads a warp and chunk against
+// 264 mma: probes with fewer W1 loads ran faster, one that ran 1xTF32 did
+// not). Every operand reaches the tensor cores as (big, small) pairs, and
+// the k index of every product is permuted within each k8 step (k slot t
+// <-> column 2t, slot t + 4 <-> 2t + 1): a lane's A or B operands are then
+// one 16-byte (big, small, big, small) shared load, and the two columns a
+// lane holds of a C fragment are the A slots the next product needs, with
+// no shuffle. Design, five launches (six where the F slices need adding):
+//   1. t32_weights_kernel splits the weights once a call into pairs: W1
+//      (F, KP, 2), W2 (H, F, 2), Wq, Wk, Wv, Wo (H, KP, 2), KP = 8 KS the
+//      hidden width padded to k8 steps (KS = 11 for H <= 88).
+//   2. t32_rows_kernel: QKV, 64-row tiles x {q, k, v}; a warp owns 16 rows
+//      and all H outputs, its A fragments split in registers straight from
+//      device memory, the weight's pairs staged once a block; it writes
+//      float32 q, k and v.
+//   3. bert_attention_kernel on the CUDA cores in float32, register-blocked
+//      (two or four queries a lane group, the head dim 7 compiled in).
+//   4. t32_rows_kernel on Wo with the LN epilogue: + bo, dropout 0, + x,
+//      LN1 (the row statistics from quad shuffles of the C fragments).
+//   5. t32_ffn_kernel: row tiles x F slices; the x1 tile split once into
+//      shared memory; per chunk of the slice (W1 and W2 chunk pairs through
+//      a cp.async ring), u = x1 W1c^T, then GELU(u + b1) on the C
+//      fragments, split, is the A fragment of z += GELU(u) W2c^T. GELU(u)
+//      never leaves the registers. With one slice the block applies + b2,
+//      dropout 1, + x1 and LN2 itself;
+//   6. otherwise bert_bias_res_ln_kernel adds the slices' partials in order.
+// Each slice takes a contiguous run of chunks (t32_slices picks the count
+// that fills the card's waves); every sum has a fixed order, so a call is
+// bitwise repeatable.
+// ===========================================================================
+
+#define T32_RWARPS 4                     // warps of the row kernel
+#define T32_RROWS (16 * T32_RWARPS)
+#define T32_MAXSLICE 16
+
+// floats of a shared row of (big, small) pairs over 8 KS columns: 16 KS,
+// padded to 16 mod 32 so that the 16-byte fragment loads of a quarter warp
+// (rows g, g + 1; lanes t) fall on distinct banks
+__host__ __device__ constexpr int t32_pld(int KS) { return KS % 2 ? 16 * KS : 16 * KS + 16; }
+
+__device__ __forceinline__ uint32_t t32_bits(float v) { return __float_as_uint(v); }
+
+// one 16-byte cp.async (addresses 16-byte aligned)
+__device__ __forceinline__ void t32_cp16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(tc_smem(dst)), "l"(src));
+}
+
+// ---- the weights as (big, small) TF32 pairs ------------------------------------------
+//
+// dst[(r ld + c) 2 + s] = split(w[r cols + c])[s] for c < cols, 0 past it.
+struct T32WJob {
+  const float* w;
+  float* dst;
+  int rows, cols, ld;
+};
+
+#define T32_MAXW 6
+
+struct T32Weights {
+  T32WJob job[T32_MAXW];
+};
+
+__global__ void __launch_bounds__(256) t32_weights_kernel(T32Weights W) {
+  const T32WJob& J = W.job[blockIdx.y];
+  const int n = J.rows * J.ld;
+  for (int e = blockIdx.x * 256 + threadIdx.x; e < n; e += gridDim.x * 256) {
+    const int r = e / J.ld, c = e % J.ld;
+    uint32_t big = 0u, small = 0u;
+    if (c < J.cols) tf32_split(J.w[(size_t)r * J.cols + c], big, small);
+    reinterpret_cast<float2*>(J.dst)[e] = make_float2(__uint_as_float(big), __uint_as_float(small));
+  }
+}
+
+// c += a b three times over: the small terms into cs, big_a big_b into c.
+// ab / as: the A fragment's big and small halves; w: {b0 big, b0 small,
+// b1 big, b1 small} of the B fragment.
+__device__ __forceinline__ void t32_mma3(float (&c)[4], float (&cs)[4], const uint32_t (&ab)[4],
+                                         const uint32_t (&as)[4], const float4& w) {
+  mma_tf32(cs, as, t32_bits(w.x), t32_bits(w.z));
+  mma_tf32(cs, ab, t32_bits(w.y), t32_bits(w.w));
+  mma_tf32(c, ab, t32_bits(w.x), t32_bits(w.z));
+}
+
+// The LN epilogue of a warp's 16 rows r0 .. r0 + 15 (lane (g, t) holds rows
+// r0 + g and r0 + g + 8, columns 8 nb + 2t + e of c + cs): v = (c + cs +
+// bias) * keep + res, saved to pre where it is not NULL; out = LN(v) with
+// gamma, beta (two-pass over the quad's H columns).
+template <int KS>
+__device__ __forceinline__ void t32_ln_rows(const float (&c)[KS][4], const float (&cs)[KS][4],
+                                            int r0, int M, int H, const float* __restrict__ bias,
+                                            const Dropout& drop, int T, int TP,
+                                            const float* __restrict__ res,
+                                            const float* __restrict__ gamma,
+                                            const float* __restrict__ beta, float eps,
+                                            float* __restrict__ pre, float* __restrict__ out,
+                                            int g, int t) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + g + 8 * hh;
+    const bool live = row < M;
+    const uint32_t rr = live ? (uint32_t)(row / T * TP + row % T) : 0u;   // padded row
+    float v[KS][2];
+    float s = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < KS; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * nb + 2 * t + e;
+        float x = 0.f;
+        if (live && col < H) {
+          x = (c[nb][2 * hh + e] + cs[nb][2 * hh + e] + __ldg(bias + col)) * keep(drop, rr, col) +
+              res[(size_t)row * H + col];
+          if (pre) pre[(size_t)row * H + col] = x;
+        }
+        v[nb][e] = x;
+        s += x;
+      }
+    s += __shfl_xor_sync(MNT_FULL_MASK, s, 1);
+    s += __shfl_xor_sync(MNT_FULL_MASK, s, 2);
+    const float mu = s / H;
+    float ss = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < KS; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (8 * nb + 2 * t + e < H) {
+          const float d = v[nb][e] - mu;
+          ss = fmaf(d, d, ss);
+        }
+    ss += __shfl_xor_sync(MNT_FULL_MASK, ss, 1);
+    ss += __shfl_xor_sync(MNT_FULL_MASK, ss, 2);
+    const float r = 1.f / sqrtf(ss / H + eps);
+    if (!live) continue;
+#pragma unroll
+    for (int nb = 0; nb < KS; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * nb + 2 * t + e;
+        if (col < H)
+          out[(size_t)row * H + col] = (v[nb][e] - mu) * r * __ldg(gamma + col) + __ldg(beta + col);
+      }
+  }
+}
+
+// ---- products of the hidden width ---------------------------------------------------
+//
+// C = A W^T + bias for M rows (A (M, H) float32), W one of the (H, KP, 2)
+// split weights; grid (ceil(M / T32_RROWS), Y): block y takes w[y], bias[y],
+// c[y]. With ln, block 0's rows go through t32_ln_rows (res, gamma, beta,
+// drop, pre) into c[0] instead. Dynamic shared memory: the weight's pairs,
+// [8 KS][t32_pld(KS)] floats (rows >= H zero).
+struct T32Rows {
+  const float* a;
+  const float* w[3];
+  const float* bias[3];
+  float* c[3];
+  int M, H;
+  int ln;
+  const float *res, *gamma, *beta;
+  float* pre;
+  Dropout drop;
+  int T, TP;
+};
+
+template <int KS>
+__global__ void __launch_bounds__(32 * T32_RWARPS) t32_rows_kernel(T32Rows P) {
+  extern __shared__ __align__(16) float t32s[];
+  constexpr int LD = t32_pld(KS);
+  const float* W = P.w[blockIdx.y];
+  for (int i = threadIdx.x; i < 8 * KS * 4 * KS; i += 32 * T32_RWARPS) {   // 4 KS copies a row
+    const int r = i / (4 * KS), c = (i % (4 * KS)) * 4;
+    if (r < P.H) t32_cp16(t32s + r * LD + c, W + (size_t)r * 16 * KS + c);
+    else *reinterpret_cast<float4*>(t32s + r * LD + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  k16_commit();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * T32_RROWS + warp * 16;
+  const int M = P.M, H = P.H;
+  // the warp's A values, all loads in flight at once (beside the staging):
+  // a0 (g, slot t), a1 (g + 8, slot t), a2 (g, slot t + 4), a3 (g + 8,
+  // slot t + 4) of each k8 step; slot t is column 8 kk + 2t, slot t + 4
+  // column 8 kk + 2t + 1
+  float av[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = r0 + g + 8 * (q & 1), col = 8 * kk + 2 * t + (q >> 1);
+      av[kk][q] = row < M && col < H ? __ldg(P.a + (size_t)row * H + col) : 0.f;
+    }
+  float c[KS][4], cs[KS][4];
+#pragma unroll
+  for (int nb = 0; nb < KS; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nb][e] = cs[nb][e] = 0.f;
+  k16_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) tf32_split(av[kk][q], ab[q], as[q]);
+#pragma unroll
+    for (int nb = 0; nb < KS; ++nb)
+      t32_mma3(c[nb], cs[nb], ab, as,
+               *reinterpret_cast<const float4*>(t32s + (8 * nb + g) * LD + 16 * kk + 4 * t));
+  }
+  const int y = blockIdx.y;
+  if (P.ln) {
+    t32_ln_rows<KS>(c, cs, r0, M, H, P.bias[0], P.drop, P.T, P.TP, P.res, P.gamma, P.beta,
+                    1e-12f, P.pre, P.c[0], g, t);
+    return;
+  }
+  float* dst = P.c[y];
+  const float* bias = P.bias[y];
+#pragma unroll
+  for (int nb = 0; nb < KS; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + 8 * (e >> 1), col = 8 * nb + 2 * t + (e & 1);
+      if (row < M && col < H) dst[(size_t)row * H + col] = c[nb][e] + cs[nb][e] + __ldg(bias + col);
+    }
+}
+
+// ---- the FFN ----------------------------------------------------------------------
+//
+// grid (ceil(M / T32_FROWS), slices), 32 T32_FWARPS threads (one block an
+// SM); slice s takes chunks [s chunks / slices, (s + 1) chunks / slices) of
+// T32_FC columns. Shared memory (floats): the x1 tile's pairs [T32_FROWS][LD],
+// then a ring of two stages, each a W1 chunk [T32_FC][LD] and a W2 chunk
+// [8 KS][2 T32_FC + 16] (rows >= H zero); one barrier a chunk. Probed on an
+// H100: 4 warps at two blocks an SM, 16-column chunks, three stages, single
+// accumulators and x1's fragments held in registers were none faster at
+// every batch than this shape. slices == 1: the LN2 epilogue
+// (T32Rows' LN fields give b2, dropout 1, x1 as the residual, gamma, beta,
+// a2 as pre, out); else the slice's z partial goes to zp[slice].
+#define T32_FWARPS 8
+#define T32_FROWS (16 * T32_FWARPS)
+#define T32_FC 32
+#define T32_FSTAGES 2
+
+template <int KS>
+struct T32Ffn {
+  static constexpr int LD = t32_pld(KS);
+  static constexpr int W2LD = 2 * T32_FC + 16;   // 16 mod 32
+  static constexpr int X = T32_FROWS * LD;
+  static constexpr int W1 = T32_FC * LD;
+  static constexpr int STAGE = W1 + 8 * KS * W2LD;
+  static constexpr int BYTES = (X + T32_FSTAGES * STAGE) * (int)sizeof(float);
+};
+
+template <int KS>
+__global__ void __launch_bounds__(32 * T32_FWARPS, 1)
+t32_ffn_kernel(const float* __restrict__ x1, const float* __restrict__ w1s,
+               const float* __restrict__ w2s, const float* __restrict__ b1m, float* __restrict__ zp,
+               int F, int slices, T32Rows P) {
+  using S = T32Ffn<KS>;
+  constexpr int LD = S::LD, NT = 32 * T32_FWARPS, FC = T32_FC, STAGES = T32_FSTAGES;
+  extern __shared__ __align__(16) float t32s[];
+  float* xs = t32s;
+  float* ring = t32s + S::X;
+  const int M = P.M, H = P.H;
+  const int chunks = F / FC;
+  const int cb = (int)((long long)blockIdx.y * chunks / slices);
+  const int nch = (int)((long long)(blockIdx.y + 1) * chunks / slices) - cb;
+  const int rb = blockIdx.x * T32_FROWS;
+  auto stage = [&](int buf, int chunk) {
+    float* w1 = ring + buf * S::STAGE;
+    float* w2 = w1 + S::W1;
+    const int f0 = chunk * FC;
+    for (int i = threadIdx.x; i < FC * 4 * KS; i += NT) {
+      const int j = i / (4 * KS), c = (i % (4 * KS)) * 4;
+      t32_cp16(w1 + j * LD + c, w1s + (size_t)(f0 + j) * 16 * KS + c);
+    }
+    for (int i = threadIdx.x; i < H * (FC / 2); i += NT) {
+      const int h = i / (FC / 2), c = (i % (FC / 2)) * 4;
+      t32_cp16(w2 + h * S::W2LD + c, w2s + ((size_t)h * F + f0) * 2 + c);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nch) stage(st, cb + st);
+    k16_commit();
+  }
+  // the W2 rows >= H of every stage stay zero; the x1 tile, split
+  for (int st = 0; st < STAGES; ++st)
+    for (int i = threadIdx.x; i < (8 * KS - H) * S::W2LD; i += NT)
+      ring[st * S::STAGE + S::W1 + H * S::W2LD + i] = 0.f;
+  for (int i = threadIdx.x; i < T32_FROWS * 8 * KS; i += NT) {
+    const int r = i / (8 * KS), h = i % (8 * KS);
+    uint32_t big = 0u, small = 0u;
+    if (rb + r < M && h < H) tf32_split(x1[(size_t)(rb + r) * H + h], big, small);
+    *reinterpret_cast<float2*>(xs + r * LD + 2 * h) =
+        make_float2(__uint_as_float(big), __uint_as_float(small));
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* xa = xs + (warp * 16 + g) * LD + 4 * t;   // rows g and g + 8 of the warp
+  float z[KS][4], zs[KS][4];
+#pragma unroll
+  for (int nb = 0; nb < KS; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) z[nb][e] = zs[nb][e] = 0.f;
+
+  for (int ci = 0; ci < nch; ++ci) {
+    // chunk ci is in (this thread's copies waited for, then every thread's),
+    // and every warp is done with chunk ci - 1, whose stage takes chunk ci
+    // + STAGES - 1
+    k16_wait<STAGES - 2>();
+    __syncthreads();
+    if (ci + STAGES - 1 < nch) stage((ci + STAGES - 1) % STAGES, cb + ci + STAGES - 1);
+    k16_commit();
+    const float* w1 = ring + (ci % STAGES) * S::STAGE;
+    const float* w2 = w1 + S::W1;
+    const int f0 = (cb + ci) * FC;
+    // u = x1 W1c^T: 16 rows x FC columns a warp
+    float u[FC / 8][4], us[FC / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < FC / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) u[nb][e] = us[nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const float4 lo = *reinterpret_cast<const float4*>(xa + 16 * kk);            // row g
+      const float4 hi = *reinterpret_cast<const float4*>(xa + 8 * LD + 16 * kk);   // row g + 8
+      const uint32_t ab[4] = {t32_bits(lo.x), t32_bits(hi.x), t32_bits(lo.z), t32_bits(hi.z)};
+      const uint32_t as[4] = {t32_bits(lo.y), t32_bits(hi.y), t32_bits(lo.w), t32_bits(hi.w)};
+#pragma unroll
+      for (int nb = 0; nb < FC / 8; ++nb)
+        t32_mma3(u[nb], us[nb], ab, as,
+                 *reinterpret_cast<const float4*>(w1 + (8 * nb + g) * LD + 16 * kk + 4 * t));
+    }
+    // GELU(u + b1) on the C fragments (row g / g + 8, columns 2t, 2t + 1 of
+    // n8 block p), split: the A fragment of k8 step p of z += GELU(u) W2c^T
+#pragma unroll
+    for (int p = 0; p < FC / 8; ++p) {
+      const float bb0 = __ldg(b1m + f0 + 8 * p + 2 * t), bb1 = __ldg(b1m + f0 + 8 * p + 2 * t + 1);
+      uint32_t ab[4], as[4];
+      tf32_split(gelu_erf(u[p][0] + us[p][0] + bb0), ab[0], as[0]);
+      tf32_split(gelu_erf(u[p][2] + us[p][2] + bb0), ab[1], as[1]);
+      tf32_split(gelu_erf(u[p][1] + us[p][1] + bb1), ab[2], as[2]);
+      tf32_split(gelu_erf(u[p][3] + us[p][3] + bb1), ab[3], as[3]);
+#pragma unroll
+      for (int nb = 0; nb < KS; ++nb)
+        t32_mma3(z[nb], zs[nb], ab, as,
+                 *reinterpret_cast<const float4*>(w2 + (8 * nb + g) * S::W2LD + 16 * p + 4 * t));
+    }
+  }
+  k16_wait<0>();
+  const int r0 = rb + warp * 16;
+  if (slices == 1) {
+    t32_ln_rows<KS>(z, zs, r0, M, H, P.bias[0], P.drop, P.T, P.TP, P.res, P.gamma, P.beta,
+                    1e-12f, P.pre, P.c[0], g, t);
+    return;
+  }
+  float* dst = zp + (size_t)blockIdx.y * M * H;
+#pragma unroll
+  for (int nb = 0; nb < KS; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + 8 * (e >> 1), col = 8 * nb + 2 * t + (e & 1);
+      if (row < M && col < H) dst[(size_t)row * H + col] = z[nb][e] + zs[nb][e];
+    }
+}
+
+// F slices of the FFN kernel's row tiles (one block an SM): the fewest whose
+// blocks fill at least 85% of the waves they take, at most T32_MAXSLICE and
+// the chunk count.
+static int t32_sms() {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+static int t32_slices(int M, int F) {
+  const long long tiles = (M + T32_FROWS - 1) / T32_FROWS, slots = t32_sms();
+  int cap = F / T32_FC;
+  if (cap > T32_MAXSLICE) cap = T32_MAXSLICE;
+  for (int s = 1; s < cap; ++s) {
+    const long long blocks = tiles * s, waves = (blocks + slots - 1) / slots;
+    if (100 * blocks >= 85 * waves * slots) return s;
+  }
+  return cap;
+}
+
+// k8 steps of the padded hidden width: 11 for H <= 88, else 12 (H <= 96).
+static int t32_ks(int H) { return H <= 88 ? 11 : 12; }
+
+// Scratch layout of bert_layer_forward (floats): q, k, v, ctx, x1 where no
+// residuals are saved, the FFN slices' partials (with more than one), the
+// split weights.
+struct T32FwdScratch {
+  long long zp, w1s, w2s, wr, total;
+  int slices, KS;
+
+  T32FwdScratch(int B, int T, int H, int F) {
+    const long long M = (long long)B * T, MH = M * H;
+    KS = t32_ks(H);
+    const long long KP = 8LL * KS;
+    slices = t32_slices((int)M, F);
+    long long off = k16_align(5 * MH);
+    zp = off; off += slices > 1 ? k16_align(slices * MH) : 0;
+    w1s = off; off += k16_align(2 * F * KP);
+    w2s = off; off += k16_align(2LL * H * F);
+    wr = off; off += k16_align(4 * 2 * H * KP);
+    total = off;
+  }
+};
+
+// Floats of device scratch bert_layer_forward needs.
+extern "C" long long bert_layer_scratch_floats(int B, int T, int H, int F) {
+  return T32FwdScratch(B, T, H, F).total;
+}
+
+template <int KS>
+static cudaError_t t32_forward(const float* x, const float* const* p, float* scratch,
+                               const T32FwdScratch& L, float* q, float* k, float* v, float* ctx,
+                               float* a1, float* x1, float* a2, float* lse, float* out, int B,
+                               int T, int H, int F, int heads, int t_valid, int TP,
+                               const Dropout& d_attn, const Dropout& d0, const Dropout& d1,
+                               cudaStream_t stream) {
+  const int M = B * T, KP = 8 * KS;
+  float *w1s = scratch + L.w1s, *w2s = scratch + L.w2s, *wr = scratch + L.wr;
+  const size_t wsz = 2 * (size_t)H * KP;   // floats of one split H x H weight
+  T32Weights W = {};
+  W.job[0] = {p[10], w1s, F, H, KP};
+  W.job[1] = {p[12], w2s, H, F, F};
+  for (int j = 0; j < 4; ++j) W.job[2 + j] = {p[2 * j], wr + j * wsz, H, H, KP};
+  t32_weights_kernel<<<dim3(128, 6), 256, 0, stream>>>(W);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // q, k, v = x W^T + b
+  const size_t smem_rows = (size_t)8 * KS * t32_pld(KS) * sizeof(float);
+  if ((err = allow_smem(t32_rows_kernel<KS>, smem_rows)) != cudaSuccess) return err;
+  const int row_tiles = (M + T32_RROWS - 1) / T32_RROWS;
+  T32Rows r = {};
+  r.a = x; r.M = M; r.H = H;
+  float* qkv[3] = {q, k, v};
+  for (int j = 0; j < 3; ++j) {
+    r.w[j] = wr + j * wsz;
+    r.bias[j] = p[2 * j + 1];
+    r.c[j] = qkv[j];
+  }
+  t32_rows_kernel<KS><<<dim3(row_tiles, 3), 32 * T32_RWARPS, smem_rows, stream>>>(r);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // the attention on the CUDA cores in the float32 arithmetic of the
+  // backward's rebuild of p (which takes the key-bias gradient, zero in
+  // exact arithmetic, to its float32 noise floor), four queries a lane group
+  // where that still gives every SM four blocks, else two
+  const int groups = B * heads * ((T + 4 * BERT_ATTN_QUERIES - 1) / (4 * BERT_ATTN_QUERIES));
+  err = groups >= 4 * t32_sms() ? bert_attention<4, true>(q, k, v, ctx, lse, d_attn, B, T, TP, H,
+                                                     heads, t_valid, stream)
+                          : bert_attention<2, true>(q, k, v, ctx, lse, d_attn, B, T, TP, H,
+                                                     heads, t_valid, stream);
+  if (err != cudaSuccess) return err;
+
+  // x1 = LN1((ctx Wo^T + bo) * m0 + x)
+  r = {};
+  r.a = ctx; r.M = M; r.H = H;
+  r.w[0] = wr + 3 * wsz;
+  r.bias[0] = p[7];
+  r.c[0] = x1;
+  r.ln = 1; r.res = x; r.gamma = p[8]; r.beta = p[9]; r.pre = a1;
+  r.drop = d0; r.T = T; r.TP = TP;
+  t32_rows_kernel<KS><<<dim3(row_tiles, 1), 32 * T32_RWARPS, smem_rows, stream>>>(r);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // out = LN2((GELU(x1 W1^T + b1) W2^T + b2) * m1 + x1)
+  r.a = x1;
+  r.w[0] = nullptr;
+  r.bias[0] = p[13];
+  r.c[0] = out;
+  r.res = x1; r.gamma = p[14]; r.beta = p[15]; r.pre = a2;
+  r.drop = d1;
+  const size_t smem_ffn = T32Ffn<KS>::BYTES;
+  if ((err = allow_smem(t32_ffn_kernel<KS>, smem_ffn)) != cudaSuccess) return err;
+  float* zp = scratch + L.zp;
+  t32_ffn_kernel<KS><<<dim3((M + T32_FROWS - 1) / T32_FROWS, L.slices), 32 * T32_FWARPS, smem_ffn,
+                       stream>>>(x1, w1s, w2s, p[11], zp, F, L.slices, r);
+  if ((err = cudaGetLastError()) != cudaSuccess || L.slices == 1) return err;
+  const int ln_blocks = (M + BERT_THREADS / 32 - 1) / (BERT_THREADS / 32);
+  bert_bias_res_ln_kernel<<<ln_blocks, BERT_THREADS, 0, stream>>>(
+      zp, L.slices, p[13], x1, p[14], p[15], d1, T, TP, M, H, 1e-12f, out, a2);
+  return cudaGetLastError();
+}
+
+// x, out: (B, T, H) f32 contiguous; scratch: bert_layer_scratch_floats()
+// floats of device memory. params: host array of 16 device pointers in the
+// JAX kernel's order
+//   wq bq wk bk wv bv wo bo g1 b1 w1 b1m w2 b2m g2 b2
+// with weights in torch (out, in) layout. Keys >= t_valid are masked out.
+// Training: resid (bert_layer_resid_floats() floats) receives the residuals
+// the backward consumes, and the dropout draws (attention 3 at attn_rate,
+// hidden 0 and 1 at hidden_rate, from seed) use the JAX kernel's padded
+// coordinates with TP = round_up(T, 8) rows a subject. Inference: resid
+// NULL and both rates 0. Needs H <= 96, H / heads <= 16 and F % 32 == 0.
+// Returns the cudaError_t of the first launch that fails, or of the last.
+extern "C" int bert_layer_forward(const float* x, const void* const* params, float* scratch,
+                                  float* resid, float* out, int B, int T, int H, int F,
+                                  int heads, int t_valid, int TP, int seed, double attn_rate,
+                                  double hidden_rate, cudaStream_t stream) {
+  if (bert_bad_dims(T, H, F, heads, t_valid, TP)) return (int)cudaErrorInvalidValue;
+  const float* const* p = reinterpret_cast<const float* const*>(params);
+  const size_t MH = (size_t)B * T * H;
+  float* base = resid ? resid : scratch;
+  float *q = base, *k = q + MH, *v = k + MH, *ctx = v + MH;
+  float *a1 = nullptr, *x1 = ctx + MH, *a2 = nullptr, *lse = nullptr;
+  if (resid) {
+    a1 = ctx + MH;
+    x1 = a1 + MH;
+    a2 = x1 + MH;
+    lse = a2 + MH;
+  }
+  const T32FwdScratch L(B, T, H, F);
+  const Dropout d_attn = make_dropout(seed, 3, attn_rate);
+  const Dropout d0 = make_dropout(seed, 0, hidden_rate);
+  const Dropout d1 = make_dropout(seed, 1, hidden_rate);
+  const cudaError_t err =
+      L.KS == 11 ? t32_forward<11>(x, p, scratch, L, q, k, v, ctx, a1, x1, a2, lse, out, B, T, H,
+                                   F, heads, t_valid, TP, d_attn, d0, d1, stream)
+                 : t32_forward<12>(x, p, scratch, L, q, k, v, ctx, a1, x1, a2, lse, out, B, T, H,
+                                   F, heads, t_valid, TP, d_attn, d0, d1, stream);
+  return (int)err;
 }

@@ -1,4 +1,4 @@
-// K4: bias-and-mask window attention, forward.
+// K4: bias-and-mask window attention, forward and (further down) backward.
 //
 // Replaces multimodal_neuroimage_tpu/ops/attention.py fused_window_attention
 // (_fused_attention_bias -> _fab_fwd -> _make_fab_kernels forward body): per
@@ -238,157 +238,345 @@ extern "C" int window_attention_forward(const float* q, const float* k,
 // already carries the dropout), dP = keep' o (dout v^T), ds = p (dP - D),
 //   dq = ds k,  dk = ds^T q,  dv = (p o keep')^T dout,
 //   dbias[h] = sum over (b, w) of ds.
-// One block per (batch*window, head), as the forward. The TPU kernel carried
-// dbias[h] across its sequential batch axis in a resident output block; here
-// each block writes its ds (N x N) to a partial buffer and a second kernel
-// adds the B*nW partials in order, so the sum is the same on every run.
-// Bounded, like the forward, by launch latency: N <= 36 and D = 4 at the
-// flagship. P and dS of the block's head sit in shared memory (2 N^2 floats);
-// one thread per query row, then one per key row.
+// The TPU kernel carried dbias[h] across its sequential batch axis in a
+// resident output block. Here, in one launch: a block per (batch*window,
+// head), WAB_L lanes per row of the window (each row's keys split over the
+// lanes, max, sum and products merged by shuffles). Pass 1 (the lanes of a
+// query row) rebuilds p, writes dq and keeps p keep' and ds in shared
+// memory; pass 2 (the lanes of a key row) writes dk and dv from them.
+// dbias is summed in the same launch, in float32 and in a fixed order, so
+// that it is bitwise the same from run to run: each block writes its ds to
+// its own slot of a partial buffer; the last block of a group of WAB_G
+// consecutive windows to finish (a counter a group, __threadfence) adds the
+// group's partials in window order, and the last group of a head to finish
+// (a counter a head) adds the groups' sums in group order into dbias (with
+// one group, its sum is dbias). The last blocks zero their counters for the
+// next call. Bounded by latency: N <= 36 and D = 4 at the flagship, a few
+// microseconds of serial work a window, which the lanes of a row share.
+#define WAB_L 4                      // lanes a row
+#define WAB_G 16                     // windows a group of dbias's sum
+
+__host__ __device__ inline int wab_groups(int BW) { return (BW + WAB_G - 1) / WAB_G; }
+
+__host__ __device__ inline int wab_round4(int n) { return (n + 3) & ~3; }
+
+// Threads of a block: WAB_L a row of the window, in whole warps.
+__host__ __device__ inline int wab_threads(int N) { return (N * WAB_L + 31) / 32 * 32; }
+
+// Elements of a partial a thread adds in a last block: ceil(N N / threads)
+// (at most 16: threads >= 4 N and N <= 64), rounded up to a compiled form.
+__host__ __device__ inline int wab_elems(int N) {
+  const int e = (N * N + wab_threads(N) - 1) / wab_threads(N);
+  return e <= 1 ? 1 : e <= 2 ? 2 : e <= 4 ? 4 : e <= 9 ? 9 : 16;
+}
+
+// Floats of a partial's slot: N N, padded so that every thread's E elements
+// lie inside it.
+__host__ __device__ inline int wab_slot(int N) { return wab_elems(N) * wab_threads(N); }
+
+// dst[c] = the n partials src[b * slot + c] added in order b = 0, 1, ..., for
+// this thread's E elements: warp w owns the run [32 E w, 32 E (w + 1)), its
+// lane l the elements c = 32 E w + l + 32 e (c < NN), so that each load of a
+// warp reads 128 contiguous bytes and a thread reaches its E elements of a
+// partial from one address at immediate offsets (the padding keeps them
+// inside the slot; what lies past NN is never stored). The loads of P
+// partials are in flight together: a last block's sum is a few L2 round
+// trips at a register cost near that of the windows' work, which sets the
+// kernel's occupancy.
+template <int E, int P>
+__device__ inline void wab_sum_e(const float* __restrict__ src, int n, int slot,
+                                 float* __restrict__ dst, int NN, int tid) {
+  const int c0 = (tid & ~31) * E + (tid & 31);
+  src += c0;
+  float acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = __ldcg(src + 32 * e);
+  int b = 1;
+  for (; b + P <= n; b += P) {
+    float x[P][E];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float* pj = src + (size_t)(b + j) * slot;
+#pragma unroll
+      for (int e = 0; e < E; ++e) x[j][e] = __ldcg(pj + 32 * e);
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] += x[j][e];
+  }
+  for (; b < n; ++b) {
+    const float* pb = src + (size_t)b * slot;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] += __ldcg(pb + 32 * e);
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    if (c0 + 32 * e < NN) dst[c0 + 32 * e] = acc[e];
+}
+
+__device__ inline void wab_sum(const float* __restrict__ src, int n, int slot,
+                               float* __restrict__ dst, int N, int tid) {
+  const int NN = N * N;
+  switch (wab_elems(N)) {
+    case 1: wab_sum_e<1, 8>(src, n, slot, dst, NN, tid); break;
+    case 2: wab_sum_e<2, 8>(src, n, slot, dst, NN, tid); break;
+    case 4: wab_sum_e<4, 8>(src, n, slot, dst, NN, tid); break;
+    case 9: wab_sum_e<9, 4>(src, n, slot, dst, NN, tid); break;
+    default: wab_sum_e<16, 2>(src, n, slot, dst, NN, tid); break;
+  }
+}
+
+// Shared floats of one (window, head): q, k, v, dout (rows padded to MAXD),
+// p keep' and ds (rows padded to N + 1).
+static size_t wab_smem(int N, int MAXD) {
+  return (4 * (size_t)N * MAXD + 2 * (size_t)wab_round4(N * (N + 1))) * sizeof(float);
+}
+
 template <int MAXD>
-__global__ void window_attention_backward_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ bias, const float* __restrict__ mask,
-    const float* __restrict__ out, const float* __restrict__ dout, float* __restrict__ dq,
-    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dbias_part, int nW,
-    int H, int N, int D, Dropout drop) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + N * D;
-  float* vs = ks + N * D;
-  float* gs = vs + N * D;
-  float* P = gs + N * D;
-  float* dS = P + N * N;
-  const int bh = blockIdx.x;  // ((b * nW + w) * H + h)
-  const int h = bh % H;
-  const int w = (bh / H) % nW;
-  const size_t base = (size_t)bh * N * D;
-  for (int i = threadIdx.x; i < N * D; i += blockDim.x) {
-    qs[i] = q[base + i];
-    ks[i] = k[base + i];
-    vs[i] = v[base + i];
-    gs[i] = dout[base + i];
+__global__ void __launch_bounds__(64 * WAB_L)
+window_attention_backward_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ bias,
+                                 const float* __restrict__ mask, const float* __restrict__ out,
+                                 const float* __restrict__ dout, float* __restrict__ dq,
+                                 float* __restrict__ dk, float* __restrict__ dv,
+                                 float* __restrict__ dbias, float* __restrict__ part,
+                                 unsigned* __restrict__ count, int nW, int H, int N, int D,
+                                 Dropout drop) {
+  extern __shared__ float4 wab_smem4[];
+  const int NP = N + 1;
+  float* qs = reinterpret_cast<float*>(wab_smem4);
+  float *ks = qs + N * MAXD, *vs = ks + N * MAXD, *gs = vs + N * MAXD;
+  float* Ps = gs + N * MAXD;   // p keep', rows of NP
+  float* dS = Ps + wab_round4(N * NP);
+  const int bw = blockIdx.x, h = blockIdx.y, w = bw % nW;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int sub = tid % WAB_L, i = tid / WAB_L;   // lane of the row, row of the window
+  const size_t base = ((size_t)bw * H + h) * N * D;   // (b, w, h, 0, 0)
+  for (int c = tid; c < N * (MAXD / 4); c += nt) {
+    const int r = c / (MAXD / 4), d = (c % (MAXD / 4)) * 4;
+    float4 x[4] = {};
+    if (d < D) {
+      const float* src[4] = {q + base, k + base, v + base, dout + base};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float* s = src[a] + (size_t)r * D;
+        if (D % 4 == 0) {
+          x[a] = *reinterpret_cast<const float4*>(s + d);
+        } else {
+          x[a].x = s[d];
+          x[a].y = d + 1 < D ? s[d + 1] : 0.f;
+          x[a].z = d + 2 < D ? s[d + 2] : 0.f;
+          x[a].w = d + 3 < D ? s[d + 3] : 0.f;
+        }
+      }
+    }
+    float* dst[4] = {qs, ks, vs, gs};
+#pragma unroll
+    for (int a = 0; a < 4; ++a) *reinterpret_cast<float4*>(dst[a] + r * MAXD + d) = x[a];
   }
   __syncthreads();
-
-  const float* bias_h = bias + (size_t)h * N * N;
-  const float* mask_w = mask ? mask + (size_t)w * N * N : nullptr;
-  float* db = dbias_part + (size_t)bh * N * N;
-  const uint32_t row0 = (uint32_t)bh * N;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+  const bool live = i < N;
+  // the lanes of live rows: whole groups of WAB_L, the only lanes that
+  // shuffle (with partners in their own group)
+  const unsigned lm = __ballot_sync(MNT_FULL_MASK, live);
+  if (live) {
+    // pass 1: query row i
     float qi[MAXD], gi[MAXD];
     float Di = 0.f;
 #pragma unroll
     for (int d = 0; d < MAXD; ++d) {
-      qi[d] = d < D ? qs[i * D + d] : 0.f;
-      gi[d] = d < D ? gs[i * D + d] : 0.f;
-      if (d < D) Di = fmaf(gi[d], out[base + (size_t)i * D + d], Di);
+      qi[d] = qs[i * MAXD + d];
+      gi[d] = gs[i * MAXD + d];
+      if (d < D) Di = fmaf(gi[d], __ldg(out + base + (size_t)i * D + d), Di);
     }
-    const float* brow = bias_h + (size_t)i * N;
-    const float* mrow = mask_w ? mask_w + (size_t)i * N : nullptr;
-    float m = -INFINITY;
-    for (int j = 0; j < N; ++j) {
+    const float* brow = bias + ((size_t)h * N + i) * N;
+    const float* mrow = mask ? mask + ((size_t)w * N + i) * N : nullptr;
+    float* prow = Ps + i * NP;
+    float* srow = dS + i * NP;
+    float mx = -INFINITY;
+    for (int j = sub; j < N; j += WAB_L) {
       float s = 0.f;
 #pragma unroll
-      for (int d = 0; d < MAXD; ++d)
-        if (d < D) s = fmaf(qi[d], ks[j * D + d], s);
-      s += brow[j];
-      if (mrow) s += mrow[j];
-      P[i * N + j] = s;
-      m = fmaxf(m, s);
+      for (int d = 0; d < MAXD; d += 4) {
+        const float4 kj = *reinterpret_cast<const float4*>(ks + j * MAXD + d);
+        s = fmaf(qi[d], kj.x, s);
+        s = fmaf(qi[d + 1], kj.y, s);
+        s = fmaf(qi[d + 2], kj.z, s);
+        s = fmaf(qi[d + 3], kj.w, s);
+      }
+      s += __ldg(brow + j);
+      if (mrow) s += __ldg(mrow + j);
+      prow[j] = s;
+      mx = fmaxf(mx, s);
     }
+#pragma unroll
+    for (int off = 1; off < WAB_L; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(lm, mx, off));
     float l = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float e = expf(P[i * N + j] - m);
-      P[i * N + j] = e;
+    for (int j = sub; j < N; j += WAB_L) {
+      const float e = expf(prow[j] - mx);
+      prow[j] = e;
       l += e;
     }
+#pragma unroll
+    for (int off = 1; off < WAB_L; off <<= 1) l += __shfl_xor_sync(lm, l, off);
     const float inv = 1.f / l;
+    const uint32_t row = (uint32_t)(((size_t)bw * H + h) * N + i);   // dropout row
     float acc[MAXD];
 #pragma unroll
     for (int d = 0; d < MAXD; ++d) acc[d] = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float p = P[i * N + j] * inv;
+    for (int j = sub; j < N; j += WAB_L) {
+      const float p = prow[j] * inv;
       float dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < MAXD; ++d)
-        if (d < D) dp = fmaf(gi[d], vs[j * D + d], dp);
-      const float kp = keep(drop, row0 + i, (uint32_t)j);
+      for (int d = 0; d < MAXD; d += 4) {
+        const float4 vj = *reinterpret_cast<const float4*>(vs + j * MAXD + d);
+        dp = fmaf(gi[d], vj.x, dp);
+        dp = fmaf(gi[d + 1], vj.y, dp);
+        dp = fmaf(gi[d + 2], vj.z, dp);
+        dp = fmaf(gi[d + 3], vj.w, dp);
+      }
+      const float kp = keep(drop, row, (uint32_t)j);
       const float ds = p * (dp * kp - Di);
-      P[i * N + j] = p * kp;   // the dropped probability, for dv
-      dS[i * N + j] = ds;
-      db[(size_t)i * N + j] = ds;
+      prow[j] = p * kp;   // the dropped probability, for dv
+      srow[j] = ds;
 #pragma unroll
-      for (int d = 0; d < MAXD; ++d)
-        if (d < D) acc[d] = fmaf(ds, ks[j * D + d], acc[d]);
+      for (int d = 0; d < MAXD; d += 4) {
+        const float4 kj = *reinterpret_cast<const float4*>(ks + j * MAXD + d);
+        acc[d] = fmaf(ds, kj.x, acc[d]);
+        acc[d + 1] = fmaf(ds, kj.y, acc[d + 1]);
+        acc[d + 2] = fmaf(ds, kj.z, acc[d + 2]);
+        acc[d + 3] = fmaf(ds, kj.w, acc[d + 3]);
+      }
     }
 #pragma unroll
-    for (int d = 0; d < MAXD; ++d)
-      if (d < D) dq[base + (size_t)i * D + d] = acc[d];
+    for (int off = 1; off < WAB_L; off <<= 1)
+#pragma unroll
+      for (int d = 0; d < MAXD; ++d) acc[d] += __shfl_xor_sync(lm, acc[d], off);
+    if (sub == 0)
+#pragma unroll
+      for (int d = 0; d < MAXD; ++d)
+        if (d < D) dq[base + (size_t)i * D + d] = acc[d];
   }
   __syncthreads();
-
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
+  if (live) {
+    // pass 2: key row j = i
+    const int j = i;
     float ak[MAXD], av[MAXD];
 #pragma unroll
     for (int d = 0; d < MAXD; ++d) ak[d] = av[d] = 0.f;
-    for (int i = 0; i < N; ++i) {
-      const float ds = dS[i * N + j], p = P[i * N + j];
+    for (int r = sub; r < N; r += WAB_L) {
+      const float ds = dS[r * NP + j], p = Ps[r * NP + j];
+#pragma unroll
+      for (int d = 0; d < MAXD; d += 4) {
+        const float4 qr = *reinterpret_cast<const float4*>(qs + r * MAXD + d);
+        const float4 gr = *reinterpret_cast<const float4*>(gs + r * MAXD + d);
+        ak[d] = fmaf(ds, qr.x, ak[d]);
+        ak[d + 1] = fmaf(ds, qr.y, ak[d + 1]);
+        ak[d + 2] = fmaf(ds, qr.z, ak[d + 2]);
+        ak[d + 3] = fmaf(ds, qr.w, ak[d + 3]);
+        av[d] = fmaf(p, gr.x, av[d]);
+        av[d + 1] = fmaf(p, gr.y, av[d + 1]);
+        av[d + 2] = fmaf(p, gr.z, av[d + 2]);
+        av[d + 3] = fmaf(p, gr.w, av[d + 3]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < WAB_L; off <<= 1)
+#pragma unroll
+      for (int d = 0; d < MAXD; ++d) {
+        ak[d] += __shfl_xor_sync(lm, ak[d], off);
+        av[d] += __shfl_xor_sync(lm, av[d], off);
+      }
+    if (sub == 0)
 #pragma unroll
       for (int d = 0; d < MAXD; ++d)
         if (d < D) {
-          ak[d] = fmaf(ds, qs[i * D + d], ak[d]);
-          av[d] = fmaf(p, gs[i * D + d], av[d]);
+          dk[base + (size_t)j * D + d] = ak[d];
+          dv[base + (size_t)j * D + d] = av[d];
         }
-    }
-#pragma unroll
-    for (int d = 0; d < MAXD; ++d)
-      if (d < D) {
-        dk[base + (size_t)j * D + d] = ak[d];
-        dv[base + (size_t)j * D + d] = av[d];
-      }
   }
+  // dbias: this window's ds into its slot, (h, bw), of the partials
+  const int BW = gridDim.x, NN = N * N, NG = wab_groups(BW), slot = wab_slot(N);
+  const int grp = bw / WAB_G, g0 = grp * WAB_G, gn = min(WAB_G, BW - g0);
+  float* hpart = part + (size_t)h * BW * slot;
+  float* gsum = part + ((size_t)H * BW + (size_t)h * NG) * slot;   // the groups' sums
+  for (int c = tid; c < NN; c += nt) hpart[(size_t)bw * slot + c] = dS[(c / N) * NP + c % N];
+  __threadfence();
+  __syncthreads();
+  __shared__ int last;
+  unsigned* gcount = count + (size_t)h * (NG + 1) + grp;
+  if (tid == 0) last = atomicAdd(gcount, 1u) == (unsigned)gn - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block of the group: its windows' partials in window order
+  wab_sum(hpart + (size_t)g0 * slot, gn, slot,
+          NG == 1 ? dbias + (size_t)h * NN : gsum + (size_t)grp * slot, N, tid);
+  if (tid == 0) *gcount = 0u;
+  if (NG == 1) return;
+  __threadfence();
+  __syncthreads();
+  unsigned* hcount = count + (size_t)h * (NG + 1) + NG;
+  if (tid == 0) last = atomicAdd(hcount, 1u) == (unsigned)NG - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last group of the head: the groups' sums in group order
+  wab_sum(gsum, NG, slot, dbias + (size_t)h * NN, N, tid);
+  if (tid == 0) *hcount = 0u;
 }
 
-// Floats of device scratch window_attention_backward needs: the per-block
-// dbias partials.
+template <int MAXD>
+static cudaError_t wab_launch(const float* q, const float* k, const float* v, const float* bias,
+                              const float* mask, const float* out, const float* dout, float* dq,
+                              float* dk, float* dv, float* dbias, float* part,
+                              unsigned* count, int B, int nW, int H, int N, int D, Dropout drop,
+                              cudaStream_t stream) {
+  const size_t smem = wab_smem(N, MAXD);
+  const cudaError_t err = allow_smem(window_attention_backward_kernel<MAXD>, smem);
+  if (err != cudaSuccess) return err;
+  const int threads = wab_threads(N);
+  window_attention_backward_kernel<MAXD>
+      <<<dim3((unsigned)(B * nW), (unsigned)H), threads, smem, stream>>>(
+          q, k, v, bias, mask, out, dout, dq, dk, dv, dbias, part, count, nW, H, N, D, drop);
+  return cudaGetLastError();
+}
+
+// Scratch of window_attention_backward: its float partials of dbias, and
+// its counters (zeroed before the first call, left zeroed by every call).
 extern "C" long long window_attention_backward_scratch_floats(int B, int nW, int H, int N) {
-  return (long long)B * nW * H * N * N;
+  const long long BW = (long long)B * nW;
+  return (BW + wab_groups((int)BW)) * H * wab_slot(N);
+}
+
+extern "C" long long window_attention_backward_counters(int B, int nW, int H) {
+  return (long long)(wab_groups(B * nW) + 1) * H;
 }
 
 // q, k, v, out, dout, dq, dk, dv: (B, nW, H, N, D) contiguous f32 (out is the
 // forward's output); bias (H, N, N); mask (nW, N, N) or NULL; the forward's
-// dropout seed and rate; dbias (H, N, N) is written (not accumulated). Needs
-// N <= 64 and D <= 32. Returns the cudaError_t of the first launch that
-// fails, or of the last.
+// dropout seed and rate; dbias (H, N, N) is written (not accumulated); part
+// and count: the scratch above (calls that share it must not overlap).
+// Needs N <= 64 and D <= 32. One launch; returns its cudaError_t.
 extern "C" int window_attention_backward(const float* q, const float* k, const float* v,
                                          const float* bias, const float* mask,
                                          const float* out, const float* dout, float* dq,
-                                         float* dk, float* dv, float* dbias, float* scratch,
-                                         int B, int nW, int H, int N, int D, int seed,
-                                         double rate, cudaStream_t stream) {
+                                         float* dk, float* dv, float* dbias, float* part,
+                                         unsigned* count, int B, int nW, int H, int N, int D,
+                                         int seed, double rate, cudaStream_t stream) {
   if (D < 1 || D > 32 || N < 1 || N > 64) return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(seed, WINDOW_ATTN_DRAW, rate);
-  const int threads = ((N + 31) / 32) * 32;
-  const size_t smem = (4 * (size_t)N * D + 2 * (size_t)N * N) * sizeof(float);
-  const dim3 grid((unsigned)(B * nW * H));
   cudaError_t err;
-  if (D <= 8) {
-    if ((err = allow_smem(window_attention_backward_kernel<8>, smem)) != cudaSuccess)
-      return (int)err;
-    window_attention_backward_kernel<8><<<grid, threads, smem, stream>>>(
-        q, k, v, bias, mask, out, dout, dq, dk, dv, scratch, nW, H, N, D, drop);
-  } else {
-    if ((err = allow_smem(window_attention_backward_kernel<32>, smem)) != cudaSuccess)
-      return (int)err;
-    window_attention_backward_kernel<32><<<grid, threads, smem, stream>>>(
-        q, k, v, bias, mask, out, dout, dq, dk, dv, scratch, nW, H, N, D, drop);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // dbias[h] = sum over the B * nW (batch, window) blocks of head h: the
-  // partials are laid out [(b * nW + w)][h][N][N], i.e. S = B * nW slices
-  // of H * N * N floats
-  return (int)reduce_partials(scratch, B * nW, (long long)H * N * N, nullptr, dbias, stream);
+#define WAB_CALL(MAXD)                                                                     \
+  wab_launch<MAXD>(q, k, v, bias, mask, out, dout, dq, dk, dv, dbias, part, count, B, nW, H, N, \
+                   D, drop, stream)
+  if (D <= 4) err = WAB_CALL(4);
+  else if (D <= 8) err = WAB_CALL(8);
+  else if (D <= 16) err = WAB_CALL(16);
+  else err = WAB_CALL(32);
+#undef WAB_CALL
+  return (int)err;
 }
 
 extern "C" const char* kernels_error_string(int err) {

@@ -97,34 +97,95 @@ def _launch_forward(q, k, v, bias, mask, seed=0, rate=0.0):
     return out
 
 
+# K4 backward's scratch, one set a device (calls on a device do not overlap:
+# the port runs them on one stream): the float partials of its dbias sum,
+# and its counters (int32, zeroed when made, left zeroed by every call);
+# the sizes of each shape, from the library
+_K4_PARTS = {}
+_K4_COUNTERS = {}
+_K4_SIZES = {}
+K4_GROUP = 16   # windows a group of K4 backward's dbias sum (WAB_G)
+
+
+def _check_backward(g, q, k, v, bias, mask, out):
+    """One pass over K4 backward's arguments; the reason (through
+    ``build.check_cuda_f32``) only where one fails."""
+    B, nW, H, N, D = shape = q.shape
+    f32 = torch.float32
+    if (all(t.is_cuda and t.dtype is f32 and t.is_contiguous()
+            and t.shape == shape for t in (q, k, v, g, out))
+            and bias.is_cuda and bias.dtype is f32 and bias.is_contiguous()
+            and bias.shape == (H, N, N)
+            and (mask is None or (mask.is_cuda and mask.dtype is f32
+                                  and mask.is_contiguous()
+                                  and mask.shape == (nW, N, N)))
+            and D <= 32 and N <= 64):
+        return B, nW, H, N, D
+    _check(q, k, v, bias, mask)
+    build.check_cuda_f32("g", g, shape)
+    build.check_cuda_f32("out", out, shape)
+    raise ValueError(f"window attention backward supports N <= 64 and head "
+                     f"dim <= 32, got N={N}, D={D}")
+
+
 def window_attention_backward(g, q, k, v, bias, mask, out, seed: int = 0,
                               rate: float = 0.0):
-    """K4 backward: (dq, dk, dv, dbias). CUDA tensors launch the kernel
-    (``out`` is the forward's output, ``seed``/``rate`` its dropout); CPU
+    """K4 backward: (dq, dk, dv, dbias). CUDA tensors launch the kernel, one
+    launch a call (``out`` is the forward's output, ``seed``/``rate`` its
+    dropout); dq, dk and dv are carved from one allocation, dbias is summed
+    in float32 in a fixed order (:func:`window_attention_dbias_sum`). CPU
     tensors take the plain backward."""
     if q.device.type == "cpu":
         return attention_reference_backward(g, q, k, v, bias, mask, seed,
                                             rate)
-    B, nW, H, N, D = _check(q, k, v, bias, mask)
-    build.check_cuda_f32("g", g, q.shape)
-    build.check_cuda_f32("out", out, q.shape)
-    if N > 64:
-        raise ValueError(f"window attention backward supports N <= 64, "
-                         f"got {N}")
-    lib = build.library()
-    scratch = torch.empty(lib.value("window_attention_backward_scratch_floats",
-                                    B, nW, H, N),
-                          dtype=torch.float32, device=q.device)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    B, nW, H, N, D = _check_backward(g, q, k, v, bias, mask, out)
+    sizes = _K4_SIZES.get((B, nW, H, N))
+    if sizes is None:
+        lib = build.library()
+        sizes = _K4_SIZES[B, nW, H, N] = (
+            lib.value("window_attention_backward_scratch_floats", B, nW, H,
+                      N),
+            lib.value("window_attention_backward_counters", B, nW, H))
+    part = _K4_PARTS.get(q.device)
+    if part is None or part.numel() < sizes[0]:
+        part = _K4_PARTS[q.device] = torch.empty(sizes[0],
+                                                 dtype=torch.float32,
+                                                 device=q.device)
+    count = _K4_COUNTERS.get(q.device)
+    if count is None or count.numel() < sizes[1]:
+        count = _K4_COUNTERS[q.device] = torch.zeros(
+            sizes[1], dtype=torch.int32, device=q.device)
+    dq, dk, dv = torch.empty((3,) + q.shape, dtype=torch.float32,
+                             device=q.device).unbind(0)
     dbias = torch.empty_like(bias)
-    lib.call("window_attention_backward", q.data_ptr(), k.data_ptr(),
-             v.data_ptr(), bias.data_ptr(),
-             None if mask is None else mask.data_ptr(), out.data_ptr(),
-             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             dbias.data_ptr(), scratch.data_ptr(), B, nW, H, N, D, int(seed),
-             float(rate), build.stream_of(q))
+    build.library().call(
+        "window_attention_backward", q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dbias.data_ptr(), part.data_ptr(), count.data_ptr(), B, nW, H, N, D,
+        int(seed), float(rate), build.stream_of(q))
     window_attention_backward.launches += 1
     return dq, dk, dv, dbias
+
+
+def window_attention_dbias_sum(ds: torch.Tensor) -> torch.Tensor:
+    """dbias from ds (B, nW, H, N, N) summed in float32 in K4 backward's
+    order (tests only): the windows (b * nW + w) in groups of
+    ``K4_GROUP``, each group's added in window order, the groups' sums
+    added in group order."""
+    B, nW, H, N, _ = ds.shape
+    flat = ds.float().reshape(B * nW, H, N, N)
+    groups = []
+    for g0 in range(0, B * nW, K4_GROUP):
+        s = flat[g0].clone()
+        for b in range(g0 + 1, min(g0 + K4_GROUP, B * nW)):
+            s = s + flat[b]
+        groups.append(s)
+    total = groups[0]
+    for s in groups[1:]:
+        total = total + s
+    return total
 
 
 class _WindowAttentionFunction(torch.autograd.Function):

@@ -13,6 +13,14 @@ in torch ``(out, in)`` layout and vectors 1-D. Training adds an int32
 kernel's coordinate hash over its padded rows (TP = round_up(T, 8) a
 subject).
 
+The float32 layer's kernels run every dense product (QKV, Wo and the FFN's
+two) on TF32 tensor cores in 3xTF32 form (``bert_layer_forward``,
+``bert_layer_backward``), the attention on the CUDA cores in float32;
+:func:`bert_layer_model_tf32` models the forward's decomposition in plain
+PyTorch for the tests (3xTF32 products, the FFN's F slices added in
+order). ``_GEMM_SIMT`` runs both on float32 FMAs on the CUDA cores
+instead: the precision yardstick.
+
 ``mm16=True`` is the layer under the bf16 policy (JAX ``_mm(True)``, forced
 by nn/bert.py with a float32 stream): every product rounds both operands to
 bf16 and accumulates in float32, the softmax is JAX's packed one (logits
@@ -41,10 +49,13 @@ from multimodal_neuroimage_tpu_torch.ops.fusion_block import (
 
 LN_EPS = 1e-12
 N_PARAMS = 16
-# K1 backward's products run in 3xTF32 on the tensor cores; True runs them
-# on the float32 SIMT GEMM instead: the precision yardstick that the card
-# tests and chip_smoke.py hold the tensor-core route against.
+# K1's float32 products (forward and backward) run in 3xTF32 on the tensor
+# cores; True runs them on float32 FMAs on the CUDA cores instead (the
+# forward's first kernels, the backward's SIMT GEMM): the precision
+# yardstick that the card tests and chip_smoke.py hold the tensor-core
+# route against.
 _GEMM_SIMT = False
+TF32_CHUNK = 32   # F columns a chunk of the forward's FFN kernel
 
 
 def _rows(B: int, T: int, device) -> torch.Tensor:
@@ -65,37 +76,8 @@ def bert_layer_reference(x: torch.Tensor, params: Sequence[torch.Tensor],
     if mm16:
         return _forward16(x, params, heads, t_valid, seed, rates,
                           training)["out"]
-    (wq, bq, wk, bk, wv, bv, wo, bo, g1, b1,
-     w1, b1m, w2, b2m, g2, b2) = params
-    B, T, H = x.shape
-    hd = H // heads
-    attn_rate, hidden_rate = rates if training else (0.0, 0.0)
-    TP = round_up(T, 8)
-    rows = _rows(B, T, x.device)
-
-    def split(t):
-        return t.reshape(B, T, heads, hd).transpose(1, 2)
-
-    q = split(F.linear(x, wq, bq)) * hd ** -0.5
-    s = torch.einsum("bhtd,bhsd->bhts", q, split(F.linear(x, wk, bk)))
-    s = s.masked_fill(torch.arange(T, device=x.device) >= t_valid, -1e9)
-    p = torch.softmax(s, dim=-1)
-    if attn_rate > 0.0:
-        cols = (torch.arange(heads, device=x.device)[:, None, None] * TP
-                + torch.arange(T, device=x.device))          # (heads, 1, T)
-        p = p * mix_keep(rows[:, None], cols, attn_rate, seed, 3)
-    ctx = torch.einsum("bhts,bhsd->bhtd", p, split(F.linear(x, wv, bv)))
-    ctx = ctx.transpose(1, 2).reshape(B, T, H)
-    a = F.linear(ctx, wo, bo)
-    if hidden_rate > 0.0:
-        a = a * mix_keep(rows, torch.arange(H, device=x.device), hidden_rate,
-                         seed, 0)
-    x1 = layer_norm(a + x, g1, b1, LN_EPS)
-    z = F.linear(F.gelu(F.linear(x1, w1, b1m)), w2, b2m)
-    if hidden_rate > 0.0:
-        z = z * mix_keep(rows, torch.arange(H, device=x.device), hidden_rate,
-                         seed, 1)
-    return layer_norm(z + x1, g2, b2, LN_EPS)
+    return _forward_parts(x, params, heads, t_valid, seed, rates, training,
+                          torch.matmul)["out"]
 
 
 def _mm16(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -306,6 +288,108 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a_small @ b_big + a_big @ b_small + a_big @ b_big
 
 
+def ffn_slices(F_: int, slices: int):
+    """The F columns of each of ``slices`` slices of the forward FFN kernel
+    (``t32_ffn_kernel``): slice s takes chunks [s c // slices, (s + 1) c //
+    slices) of the c = F / 32 chunks of 32 columns."""
+    chunks = F_ // TF32_CHUNK
+    return [torch.arange(s * chunks // slices * TF32_CHUNK,
+                         (s + 1) * chunks // slices * TF32_CHUNK)
+            for s in range(slices)]
+
+
+def _forward_parts(x, params, heads: int, t_valid: int, seed: int, rates,
+                   training: bool, mm, slices=None) -> dict:
+    """The float32 layer's forward with every dense product a W^T through
+    ``mm`` (the attention in plain products: e = exp(s - max) keep, its sum
+    over the keys dividing the context, as the kernels take the softmax)
+    and, with ``slices``, the FFN's second product as that many F-sliced
+    partials added in order; returns the output and the residuals the
+    backward consumes (``bert_layer_resid_floats``): q, k, v, ctx, a1 (pre
+    LN1), x1, a2 (pre LN2), lse (B, heads, T)."""
+    (wq, bq, wk, bk, wv, bv, wo, bo, g1, b1,
+     w1, b1m, w2, b2m, g2, b2) = params
+    B, T, H = x.shape
+    hd = H // heads
+    attn_rate, hidden_rate = rates if training else (0.0, 0.0)
+    TP = round_up(T, 8)
+    rows = _rows(B, T, x.device)
+    lin = lambda a, w, b: mm(a.reshape(-1, a.shape[-1]), w.t()).reshape(
+        *a.shape[:-1], w.shape[0]) + b
+
+    def split(t):
+        return t.reshape(B, T, heads, hd).transpose(1, 2)
+
+    q, k, v = lin(x, wq, bq), lin(x, wk, bk), lin(x, wv, bv)
+    s = split(q) * hd ** -0.5 @ split(k).transpose(-1, -2)
+    s = s.masked_fill(torch.arange(T, device=x.device) >= t_valid, -1e9)
+    mx = s.max(dim=-1, keepdim=True).values
+    e = torch.exp(s - mx)
+    den = e.sum(dim=-1, keepdim=True)
+    lse = (mx + torch.log(den))[..., 0]
+    if attn_rate > 0.0:
+        cols = (torch.arange(heads, device=x.device)[:, None, None] * TP
+                + torch.arange(T, device=x.device))
+        e = e * mix_keep(rows[:, None], cols, attn_rate, seed, 3)
+    ctx = e @ split(v) / den
+    ctx = ctx.transpose(1, 2).reshape(B, T, H)
+    a = lin(ctx, wo, bo)
+    if hidden_rate > 0.0:
+        a = a * mix_keep(rows, torch.arange(H, device=x.device), hidden_rate,
+                         seed, 0)
+    a1 = a + x
+    x1 = layer_norm(a1, g1, b1, LN_EPS)
+    gu = F.gelu(lin(x1, w1, b1m))
+    if slices is None:
+        z = lin(gu, w2, b2m)
+    else:
+        z = _slice_sum([lin(gu[..., c], w2[:, c], 0.0)
+                        for c in ffn_slices(w2.shape[1], slices)]) + b2m
+    if hidden_rate > 0.0:
+        z = z * mix_keep(rows, torch.arange(H, device=x.device), hidden_rate,
+                         seed, 1)
+    a2 = z + x1
+    return dict(out=layer_norm(a2, g2, b2, LN_EPS), q=q, k=k, v=v, ctx=ctx,
+                a1=a1, x1=x1, a2=a2, lse=lse)
+
+
+def bert_layer_model_tf32(x, params, heads: int, t_valid: int, seed: int = 0,
+                          rates=(0.0, 0.0), training: bool = False,
+                          slices: int = 1) -> dict:
+    """Plain model of the float32 forward kernels' decomposition (tests
+    only): the dense products (QKV, Wo and the FFN's two) in 3xTF32
+    (:func:`matmul_3xtf32`), the attention, GELU and both LayerNorms in
+    float32,
+    the FFN's second product as ``slices`` F-sliced partials
+    (:func:`ffn_slices`) added in order, then b2 (``t32_ffn_kernel``, then
+    ``bert_bias_res_ln_kernel``). Returns the output and the residuals
+    (:func:`_forward_parts`)."""
+    return _forward_parts(x, params, heads, t_valid, seed, rates, training,
+                          matmul_3xtf32, slices)
+
+
+def bert_layer_reference_parts(x, params, heads: int, t_valid: int,
+                               seed: int = 0, rates=(0.0, 0.0),
+                               training: bool = False) -> dict:
+    """The plain forward with the residuals a training forward saves
+    (:func:`_forward_parts`, plain products): the float32 forward kernels'
+    plain version, residuals included, and in float64 their truth."""
+    return _forward_parts(x, params, heads, t_valid, seed, rates, training,
+                          torch.matmul)
+
+
+def resid_parts(resid: torch.Tensor, B: int, T: int, H: int,
+                heads: int) -> dict:
+    """The saved residuals of a training forward (``bert_layer_resid_
+    floats``) by name, as :func:`_forward_parts` returns them."""
+    MH = B * T * H
+    names = ("q", "k", "v", "ctx", "a1", "x1", "a2")
+    out = {n: resid[i * MH:(i + 1) * MH].view(B, T, H)
+           for i, n in enumerate(names)}
+    out["lse"] = resid[7 * MH:].view(B, heads, T)
+    return out
+
+
 def _check(x, params, heads, t_valid):
     B, T, H = x.shape
     F_ = params[10].shape[0]
@@ -331,13 +415,17 @@ def _launch_forward(x, params, heads, t_valid, seed, rates, training,
     lib = build.library()
     scratch = torch.empty(lib.value("bert_layer_scratch16_floats", B, T, H,
                                     F_, heads) if mm16 else
-                          lib.value("bert_layer_scratch_floats", B, T, H, F_),
+                          lib.value("bert_layer_scratch_simt_floats"
+                                    if _GEMM_SIMT else
+                                    "bert_layer_scratch_floats", B, T, H, F_),
                           dtype=torch.float32, device=x.device)
     resid = (torch.empty(lib.value("bert_layer_resid_floats", B, T, H, heads),
                          dtype=torch.float32, device=x.device)
              if save else None)
     out = torch.empty_like(x)
-    lib.call("bert_layer_forward16" if mm16 else "bert_layer_forward",
+    entry = ("bert_layer_forward16" if mm16 else "bert_layer_forward_simt"
+             if _GEMM_SIMT else "bert_layer_forward")
+    lib.call(entry,
              x.data_ptr(), build.pointer_array(params),
              scratch.data_ptr(), None if resid is None else resid.data_ptr(),
              out.data_ptr(), B, T, H, F_, heads, t_valid, round_up(T, 8),

@@ -37,8 +37,9 @@ _L = ctypes.c_longlong
 # are void*. Launchers return a cudaError_t (0 = success).
 _SIGNATURES = {
     "window_attention_forward": (_I, [_P] * 6 + [_I] * 6 + [_D, _P]),
-    "window_attention_backward": (_I, [_P] * 12 + [_I] * 6 + [_D, _P]),
+    "window_attention_backward": (_I, [_P] * 13 + [_I] * 6 + [_D, _P]),
     "window_attention_backward_scratch_floats": (_L, [_I] * 4),
+    "window_attention_backward_counters": (_L, [_I] * 3),
     "fusion_block_forward": (_I, [_I] + [_P] * 6 + [_I] * 6
                              + [_P, _I, _D, _D, _I, _P, _P]),
     "fusion_block_backward": (_I, [_I] + [_P] * 11 + [_I] * 6
@@ -60,7 +61,9 @@ _SIGNATURES = {
     "fusion_block_bp_backward_occupancy": (_I, [_I] * 8 + [_P]),
     "fusion_block_forward_occupancy": (_I, [_I] * 7 + [_P]),
     "bert_layer_forward": (_I, [_P] * 5 + [_I] * 8 + [_D, _D, _P]),
+    "bert_layer_forward_simt": (_I, [_P] * 5 + [_I] * 8 + [_D, _D, _P]),
     "bert_layer_scratch_floats": (_L, [_I] * 4),
+    "bert_layer_scratch_simt_floats": (_L, [_I] * 4),
     "bert_layer_resid_floats": (_L, [_I] * 4),
     "bert_layer_backward": (_I, [_P] * 7 + [_I] * 8 + [_D, _D, _I, _P]),
     "bert_layer_backward_scratch_floats": (_L, [_I] * 5),

@@ -363,6 +363,143 @@ def test_bert_layer_backward_float64_error_within_4x_simt(dev, monkeypatch):
     assert tc <= 4 * simt, (tc, simt)
 
 
+def _k1_forward_case(dev, seed, B, T=369, H=84, heads=12, F=3072):
+    gen = torch.Generator().manual_seed(seed)
+    p = [t.to(dev) for t in sum((_lin(gen, H, H) for _ in range(4)), [])
+         + _ln(gen, H) + _lin(gen, F, H) + _lin(gen, H, F) + _ln(gen, H)]
+    return p, _rand(gen, B, T, H).to(dev)
+
+
+@pytest.mark.parametrize("B,T,H,heads,F,t_valid", [
+    (4, 369, 84, 12, 3072, 369), (16, 369, 84, 12, 3072, 369),
+    (64, 369, 84, 12, 3072, 369), (3, 45, 28, 4, 96, 30),
+    (2, 37, 96, 12, 64, 33)])
+def test_bert_layer_forward_tensor_cores(dev, B, T, H, heads, F, t_valid):
+    """K1's float32 forward (3xTF32 tensor cores) at the flagship's widths
+    at batch 4, 16 and 64 and at ragged shapes (H 96: the 12-step padded
+    width): the training forward (dropout 0.1) and every saved residual,
+    then the inference forward, against the plain versions; two training
+    calls bitwise equal."""
+    p, x = _k1_forward_case(dev, B + T + H, B, T, H, heads, F)
+    rates = (0.1, 0.1)
+    before = bl.bert_layer_call.launches
+    out, resid = bl._launch_forward(x, p, heads, t_valid, 99, rates, True,
+                                    True)
+    assert bl.bert_layer_call.launches == before + 1
+    want = bl.bert_layer_reference_parts(x, p, heads, t_valid, 99, rates,
+                                         True)
+    _close(out, want["out"])
+    for name, got in bl.resid_parts(resid, B, T, H, heads).items():
+        _close(got, want[name])
+    again, resid_again = bl._launch_forward(x, p, heads, t_valid, 99, rates,
+                                            True, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(resid, resid_again)
+    infer, none = bl._launch_forward(x, p, heads, t_valid, 0, (0.0, 0.0),
+                                     False, False)
+    assert none is None
+    _close(infer, bl.bert_layer_reference(x, p, heads, t_valid))
+
+
+def test_bert_layer_forward_float64_error_within_4x_simt(dev, monkeypatch):
+    """K1's float32 forward on 3xTF32 tensor cores against a float64
+    forward of the same inputs: the worst error of the output and of every
+    saved residual, each relative to its tensor's max-abs, is at most 4x
+    that of the forward on float32 FMAs (the port's first forward, kept as
+    the yardstick behind ``_GEMM_SIMT``) on the same inputs."""
+    p, x = _k1_forward_case(dev, 23, 4)
+    rates = (0.1, 0.1)
+    want = bl.bert_layer_reference_parts(x.double(), [t.double() for t in p],
+                                         12, 369, 99, rates, True)
+
+    def worst(simt):
+        monkeypatch.setattr(bl, "_GEMM_SIMT", simt)
+        out, resid = bl._launch_forward(x, p, 12, 369, 99, rates, True, True)
+        got = {"out": out, **bl.resid_parts(resid, 4, 369, 84, 12)}
+        return max(((got[n].double() - want[n]).abs().max()
+                    / want[n].abs().max()).item() for n in want)
+    tc, simt = worst(False), worst(True)
+    assert tc <= 4 * simt, (tc, simt)
+
+
+# the SwinV2 head's three stages: N, resolution, heads, shift
+K4_STAGES = ((36, 12, 3, 3), (36, 6, 6, 0), (9, 3, 12, 0))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B", [4, 16, 64])
+def test_window_attention_backward_flagship_stages(dev, B, rate):
+    """K4 backward at the SwinV2 head's three stages (head dim 4) at batch
+    4, 16 and 64: dq, dk, dv and dbias against autograd through the plain
+    forward, one kernel launch a call (``torch.profiler``), two calls
+    bitwise equal, and the last blocks' counters left at zero."""
+    from multimodal_neuroimage_tpu_torch.bench.k1_split import launch_split
+    gen = torch.Generator().manual_seed(B + int(10 * rate))
+    for N, res, heads, shift in K4_STAGES:
+        ws = int(np.sqrt(N))
+        shape = (B, (res // ws) ** 2, heads, N, 4)
+        q, k, v, g = (_rand(gen, *shape).to(dev) for _ in "qkvg")
+        bias = _rand(gen, heads, N, N).to(dev)
+        m = shift_attn_mask(res, res, ws, shift)
+        mask = None if m is None else torch.from_numpy(m).to(dev)
+        out = att.fused_window_attention(q, k, v, bias, mask, 41, rate)
+
+        def call():
+            return att.window_attention_backward(g, q, k, v, bias, mask, out,
+                                                 41, rate)
+        got, again = call(), call()
+        want = att.attention_reference_backward(g, q, k, v, bias, mask, 41,
+                                                rate)
+        for a, b in zip(got[:3], want[:3]):
+            _close(a, b)
+        _close_sum(got[3], want[3], "dbias")
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        # one kernel, launched once a call (the profiler can drop the first
+        # event of a window: 9 of 10 calls read 0.9)
+        split = launch_split(call)
+        launched = sum(n for n, _ in split.values())
+        assert len(split) == 1 and round(launched) == 1, split
+        assert not att._K4_COUNTERS[q.device].any()
+
+
+@pytest.mark.parametrize("B", [4, 16, 64])
+def test_window_attention_backward_scale_and_nan(dev, B):
+    """K4 backward's gradients do not depend on the gradient's scale: at
+    g 2^-20 they are bitwise 2^-20 times those at g, and at g 1e-6 each is
+    within 1e-4 of its max of a float64 backward, with no absolute floor.
+    A NaN in g gives NaN where the plain version has it, dbias included."""
+    gen = torch.Generator().manual_seed(B + 5)
+    for N, res, heads, shift in K4_STAGES:
+        ws = int(np.sqrt(N))
+        shape = (B, (res // ws) ** 2, heads, N, 4)
+        q, k, v, g = (_rand(gen, *shape).to(dev) for _ in "qkvg")
+        bias = _rand(gen, heads, N, N).to(dev)
+        m = shift_attn_mask(res, res, ws, shift)
+        mask = None if m is None else torch.from_numpy(m).to(dev)
+        out = att.fused_window_attention(q, k, v, bias, mask, 41, 0.1)
+
+        def call(g):
+            return att.window_attention_backward(g, q, k, v, bias, mask, out,
+                                                 41, 0.1)
+        unit, tiny = call(g), call(g * 2.0 ** -20)
+        assert all(torch.equal(a * 2.0 ** -20, b) for a, b in zip(unit, tiny))
+        small = call(g * 1e-6)
+        want = att.attention_reference_backward(
+            *(t.double() for t in (g * 1e-6, q, k, v, bias)),
+            None if mask is None else mask.double(), 41, 0.1)
+        for a, b in zip(small, want):
+            err = (a.double() - b).abs().max().item()
+            assert err <= 1e-4 * b.abs().max().item(), (err, b.abs().max())
+        gn = g.clone()
+        gn[-1, 0, 0, 2, 1] = float("nan")
+        got = call(gn)
+        plain = att.attention_reference_backward(gn, q, k, v, bias, mask, 41,
+                                                 0.1)
+        assert got[3].isnan().any()
+        for a, b in zip(got, plain):
+            assert torch.equal(a.isnan(), b.isnan())
+
+
 def _fusion_backward_case(dev, layout, cross, B, G, shift, seed):
     """Inputs and the two backward calls (kernel, plain) of the flagship's
     fusion block (196 windows of 36 x 12, 6 heads) on ``layout``, dropout
