@@ -208,6 +208,13 @@ K6_OUT64, K6_GRAD64_RTOL, K6_GRAD64_REL = 2.0 ** -14, 2.0 ** -8, 2.0 ** -12
 # on the CUDA cores): both are held by the one bf16 rounding, while a bf16 p
 # or ds (no lo half) adds its own 8-bit error (tests/test_torch_k6_mma.py)
 K6_SIMT_GRAD_MULT = 1.25
+# K6's float32 form (3xTF32 tensor cores) against a float64 truth: the worst
+# error of out, dq, dk, dv (each relative to its tensor's max-abs) within
+# K6_F64_MULT times the CUDA-core form's (attention._K6_SIMT) on the same
+# inputs; max over (b, h, d) of |sum_j dk_j|, zero in exact arithmetic,
+# within K6_SUM_MULT times the CUDA-core form's or SUM_ATOL, whichever is
+# larger (tests/test_torch_cuda.py holds the same)
+K6_F64_MULT, K6_SUM_MULT = 4.0, 2.0
 # HCP card vs CPU at the bf16 policy: every layer keeps a bf16 stream (no
 # float32 stream on the K6 route), so a neighbouring-bf16 step in one
 # layer carries through the 16 layers; each gradient within a share of its
@@ -400,13 +407,15 @@ class Results:
                 "std_layout_ms": mean("std"),
                 # K7's bf16 form: K7 on float32 streams, same inputs
                 "f32_form_ms": mean("f32"),
-                # K1 backward only: float64 errors of both GEMM routes
+                # K1 and K6 float32: float64 errors of the tensor-core and
+                # the CUDA-core route; K6 also max |sum_j dk_j| of each
                 **{k: r[k] for k in ("float64_rel_err",
-                                     "simt_float64_rel_err") if k in r},
-                # K6's bf16 form: its CUDA-core form on the same inputs,
-                # both forms' worst float64 error (as a share of its
-                # bound), the rates its bound counts, and the backend
-                # scaled_dot_product_attention took
+                                     "simt_float64_rel_err", "sum_dk",
+                                     "simt_sum_dk") if k in r},
+                # K6's two forms: the CUDA-core form on the same inputs and
+                # the rates the bound counts; the bf16 form also both forms'
+                # worst float64 error (as a share of its bound) and the
+                # backend scaled_dot_product_attention took
                 "simt_form_ms": mean("simt"),
                 **{k: r[k] for k in ("float64_share", "simt_float64_share",
                                      "bound_rates", "bound_ms_f32_rate",
@@ -1069,24 +1078,59 @@ def k1_batch16(gen, p, seed, rates, T=369, H=84, F_=3072):
           f"tensor cores), {f32:.6f} ms (f32 CUDA cores)")
 
 
+def _bound_k6_3xtf32(prod: float, exps: float, nbytes: float):
+    """_bound for K6's float32 form on its route: every product as 3xTF32,
+    three TF32 products at the dense TF32 tensor-core peak, the
+    exponentials at the f32 peak; beside the bytes. (ms, by)."""
+    t_ops = (3 * prod / PEAK_TF32_OPS + exps / PEAK_F32_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def mha_kernels(gen, res: Results):
-    """K6 forward and backward at HCP shapes (B 8, 2 heads, T 1201 = 1200
-    TRs + CLS, head dim 11), dropout 0 and 0.1, against the plain version
-    on the same hash masks (dq/dk/dv against autograd through the plain
-    forward). The yardstick is ``scaled_dot_product_attention`` at rate 0,
-    which the port never calls."""
+    """K6's float32 form (every product on 3xTF32 tensor cores) at HCP
+    shapes (B 8, 2 heads, T 1201 = 1200 TRs + CLS, head dim 11), dropout 0
+    and 0.1: against the plain version on the same hash masks (dq/dk/dv
+    against autograd through the plain forward); it and the CUDA-core form
+    (``attention._K6_SIMT``) against a float64 truth, the worst error of
+    out, dq, dk, dv (each relative to its tensor's max-abs) within
+    K6_F64_MULT times the CUDA-core form's, and max over (b, h, d) of
+    |sum_j dk_j| (zero in exact arithmetic) within K6_SUM_MULT times the
+    CUDA-core form's or SUM_ATOL; two backward calls bitwise equal. Timed
+    in turns: plain, kernel, CUDA-core form and, at rate 0, the yardstick
+    ``scaled_dot_product_attention`` (backward: autograd through it), which
+    the port never calls. Bounds on its route (3xTF32) and with every
+    product at the f32 rate. The kernels' ptxas registers and spills are
+    printed first."""
     from multimodal_neuroimage_tpu_torch.ops import attention as att
+    from multimodal_neuroimage_tpu_torch.ops import build
+    for line in _ptxas_summary(build.library().build_log):
+        if "mha_" in line and "_t32_kernel" in line:
+            print(f"K6 f32 tensor-core kernel{line}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     shape = (HCP_BATCH, 2, 1201, 11)
     q, k, v, g = (torch.randn(shape, generator=gen).cuda() for _ in range(4))
     q = q * 11 ** -0.5                  # pre-scaled, as the BERT layer does
-    ops = sum(_attention_ops(q))
-    bwd_ops = 2 * _attention_ops(q)[0]
+    prod, exps = _attention_ops(q)
+    fwd_bytes, bwd_bytes = _nbytes(q, k, v, q), _nbytes(q, k, v, g, q, k, v)
+    fwd_bound = _bound_k6_3xtf32(prod, exps, fwd_bytes)
+    bwd_bound = _bound_k6_3xtf32(2 * prod, exps, bwd_bytes)
+    f32_bounds = (_bound(prod + exps, fwd_bytes)[0],
+                  _bound(2 * prod, bwd_bytes)[0])
+    print(f"K6 f32 bounds (ms, forward / backward): 3xTF32 "
+          f"{fwd_bound[0]:.6f} / {bwd_bound[0]:.6f}; every product at the "
+          f"f32 rate {f32_bounds[0]:.6f} / {f32_bounds[1]:.6f}")
+    worst, sums = {}, {}
     for rate in (0.0, 0.1):
         seed = 4242
         out, lse = att._launch_mha_forward(q, k, v, seed, rate)
 
         def fwd(rate=rate, seed=seed):
             return att._launch_mha_forward(q, k, v, seed, rate)[0]
+
+        def simt_fwd(rate=rate, seed=seed):
+            with _k6_simt():
+                return fwd(rate, seed)
 
         def plain_fwd(rate=rate, seed=seed):
             return att.mha_reference(q, k, v, seed, rate)
@@ -1095,16 +1139,27 @@ def mha_kernels(gen, res: Results):
             return att.fused_attention_backward(g, q, k, v, out, lse, seed,
                                                 rate)
 
+        with _k6_simt():
+            s_out, s_lse = att._launch_mha_forward(q, k, v, seed, rate)
+
+        def simt_bwd(rate=rate, seed=seed, out=s_out, lse=s_lse):
+            with _k6_simt():
+                return bwd(rate, seed, out, lse)
+
         want = plain_fwd()
         torch.cuda.synchronize()
         err = _close(f"K6 forward rate {rate}", out, want, ATOL, RTOL)
-        ms, plain_ms, library = _call_times(
-            fwd, plain_fwd, None if rate else lambda: torch.nn.functional
-            .scaled_dot_product_attention(q, k, v, scale=1.0))
+        del want
+        fns = [plain_fwd, fwd, simt_fwd] + (
+            [] if rate else [lambda: sdpa(q, k, v, scale=1.0)])
+        plain_ms, ms, simt_ms, *lib = _turns(fns)
         _report(res, "K6 fused_attention", f"rate {rate}", err, ms, plain_ms,
-                ops, _nbytes(q, k, v, q), "mha_attention.cu",
-                "attention.py:137", library)
+                0, 0, "mha_attention.cu", "attention.py:137",
+                lib[0] if lib else None, bound=fwd_bound, simt_ms=simt_ms)
         got = bwd()
+        if not all(torch.equal(a, b) for a, b in zip(got, bwd())):
+            raise AssertionError(f"K6 backward rate {rate}: two calls "
+                                 f"differ")
         ins, plain = _plain_backward(
             lambda q_, k_, v_, rate=rate, seed=seed: att.mha_reference(
                 q_, k_, v_, seed, rate), (q, k, v), g)
@@ -1112,16 +1167,56 @@ def mha_kernels(gen, res: Results):
         torch.cuda.synchronize()
         errs = [_close(f"K6 backward d{n} rate {rate}", a, b, ATOL, RTOL)
                 for n, a, b in zip("qkv", got, want)]
-        fn = None
+        del want
+        # both forms against float64 on the same inputs and masks
+        s_got = simt_bwd()
+        d = [t.double() for t in (g, q, k, v)]
+        truth = [att.mha_reference(*d[1:], seed, rate)] + list(
+            att.mha_reference_backward(*d, seed, rate))
+        rel = {simt: [((a.double() - t).abs().max() / t.abs().max()).item()
+                      for a, t in zip(outs, truth)]
+               for simt, outs in ((False, (out,) + tuple(got)),
+                                  (True, (s_out,) + tuple(s_got)))}
+        dk_sum = {simt: dk.double().sum(2).abs().max().item()
+                  for simt, dk in ((False, got[1]), (True, s_got[1]))}
+        del d, truth
+        print(f"K6 f32 rate {rate} vs float64 (max|err| / max|truth| of "
+              f"out, dq, dk, dv): tensor cores "
+              f"{[f'{x:.3e}' for x in rel[False]]}, CUDA cores "
+              f"{[f'{x:.3e}' for x in rel[True]]} (worst "
+              f"{max(rel[False]) / max(rel[True]):.2f}x, limit "
+              f"{K6_F64_MULT}x); max |sum_j dk_j| {dk_sum[False]:.3e} vs "
+              f"{dk_sum[True]:.3e} (limit {K6_SUM_MULT}x or {SUM_ATOL})")
+        if max(rel[False]) > K6_F64_MULT * max(rel[True]):
+            raise AssertionError(f"K6 f32 rate {rate}: the tensor-core "
+                                 f"kernels' float64 error exceeds "
+                                 f"{K6_F64_MULT}x the CUDA-core form's")
+        if dk_sum[False] > max(K6_SUM_MULT * dk_sum[True], SUM_ATOL):
+            raise AssertionError(f"K6 f32 rate {rate}: max |sum_j dk_j| "
+                                 f"{dk_sum[False]:.3e} against the CUDA-core "
+                                 f"form's {dk_sum[True]:.3e}")
+        for simt in (False, True):
+            worst[simt] = max(worst.get(simt, 0.0), *rel[simt])
+            sums[simt] = max(sums.get(simt, 0.0), dk_sum[simt])
+        fns = [plain, bwd, simt_bwd]
         if not rate:   # autograd through SDPA, graph built once
             _, fn = _plain_backward(
-                lambda q_, k_, v_: torch.nn.functional
-                .scaled_dot_product_attention(q_, k_, v_, scale=1.0),
-                (q, k, v), g)
-        ms, plain_ms, library = _call_times(bwd, plain, fn, 10)
+                lambda q_, k_, v_: sdpa(q_, k_, v_, scale=1.0), (q, k, v), g)
+            fns.append(fn)
+        plain_ms, ms, simt_ms, *lib = _turns(fns, 10)
         _report(res, "K6 fused_attention backward", f"rate {rate}",
-                max(errs), ms, plain_ms, bwd_ops, _nbytes(q, k, v, g, q, k, v),
-                "mha_attention.cu", "attention.py:159", library)
+                max(errs), ms, plain_ms, 0, 0, "mha_attention.cu",
+                "attention.py:159", lib[0] if lib else None,
+                bound=bwd_bound, simt_ms=simt_ms)
+    rates = ("every product as three TF32 products at 495 TFLOP/s; "
+             "exponentials at 67 TFLOP/s (f32); bound_ms_f32_rate: the "
+             "products at 67 TFLOP/s")
+    for key, loose in (("K6 fused_attention", f32_bounds[0]),
+                       ("K6 fused_attention backward", f32_bounds[1])):
+        res.rows[key].update(bound_rates=rates, bound_ms_f32_rate=loose,
+                             float64_rel_err=worst[False],
+                             simt_float64_rel_err=worst[True],
+                             sum_dk=sums[False], simt_sum_dk=sums[True])
 
 
 def _bound_k6_16(prod16: float, prod32: float, exps: float, nbytes: float,
@@ -1161,7 +1256,7 @@ def _sdpa_backend(fn) -> str:
 
 @contextlib.contextmanager
 def _k6_simt():
-    """Run K6's bf16 form on the CUDA cores (attention._K6_SIMT)."""
+    """Run K6 (either form) on the CUDA cores (attention._K6_SIMT)."""
     from multimodal_neuroimage_tpu_torch.ops import attention as att
     att._K6_SIMT = True
     try:

@@ -30,9 +30,9 @@ worker times, ``ROUNDS`` times:
 - the fusion backward (``fusion``) at batch 16 and 64, dropout 0.1 and
   DropPath on, shift 0 and 3, self and cross: K2/K3 on (B, 196, 36, 12)
   windows and K7 on groups of G = 8, 10 back-to-back calls;
-- K6's bf16 form (``k6``) at HCP's (8, 2, 1201, 11), bf16 q/k/v/dO,
-  dropout 0 and 0.1: the forward (20 back-to-back calls) and the backward
-  (10);
+- K6 (``k6``) at HCP's (8, 2, 1201, 11), dropout 0 and 0.1: the bf16 form
+  (bf16 q/k/v/dO) and the float32 form, each the forward (20 back-to-back
+  calls) and the backward (10);
 - the fusion forward (``fusion_fwd``) at batch 4, 16 and 64, shift 0 and 3,
   self and cross: K2/K3 on (B, 196, 36, 12) windows, and at batch 16 and 64
   K7 on groups of G = 8 on float32 and on bf16 streams; each the training
@@ -44,13 +44,14 @@ float32): at batch 4 (``flagship``) 12 CUDA-synchronised training steps and
 12 predict steps, and at batch 16 (``step16``) 12 training steps on each
 fusion layout, std then bp; and HCP phase 1's ``TransformerNet`` at its
 default bf16 policy (``hcp16``, batch 8, T 1201, 16 layers on K6's bf16
-form): 12 training steps; and the flagship at its bf16 policy on the std
+form): 12 training steps, and (``hcp``) the same at bf16 and at float32
+(K6's float32 form) in turns, bf16, float32, float32, bf16; and the flagship at its bf16 policy on the std
 layout (``bf16``): 12 training steps at batch 16, then 12 predict steps at
 batch 4 and 16 at bf16 and at float32 in turns. Each after 3 of warm-up, on
 the host clock.
 
 ``--cases`` picks the groups (comma-separated; default all of k8, k4,
-k1_fwd, k1, k1_16, fusion, k6, fusion_fwd, flagship, step16, hcp16,
+k1_fwd, k1, k1_16, fusion, k6, fusion_fwd, flagship, step16, hcp16, hcp,
 bf16).
 
 Prints each turn's JSON line, then for every case each side's median and
@@ -74,7 +75,7 @@ BATCH = 4
 STEPS = 12
 CYCLES, ROUNDS = 2, 2   # 8 samples a side for each kernel case, 48 a step
 GROUPS = ("k8", "k4", "k1_fwd", "k1", "k1_16", "fusion", "k6", "fusion_fwd",
-          "flagship", "step16", "hcp16", "bf16")
+          "flagship", "step16", "hcp16", "hcp", "bf16")
 
 
 def _timing():
@@ -328,27 +329,46 @@ def _k6(out, T):
             T.events_ms(lambda rate=rate, out32=out32, lse=lse:
                         att.fused_attention_backward16(g, q, k, v, out32, lse,
                                                        7, rate), iters=10))
+    q, k, v, g = (torch.randn(8, 2, 1201, 11, generator=gen).cuda()
+                  for _ in range(4))
+    q = q * 11 ** -0.5
+    for rate in (0.0, 0.1):
+        o, lse = att._launch_mha_forward(q, k, v, 7, rate)
+        out["k6"].setdefault(f"f32 forward rate {rate}", []).append(
+            T.events_ms(lambda rate=rate: att._launch_mha_forward(q, k, v, 7,
+                                                                  rate)))
+        out["k6"].setdefault(f"f32 backward rate {rate}", []).append(
+            T.events_ms(lambda rate=rate, o=o, lse=lse:
+                        att.fused_attention_backward(g, q, k, v, o, lse, 7,
+                                                     rate), iters=10))
 
 
-def _hcp16(out):
-    """HCP phase 1 at its default bf16 policy: the training step at batch
-    8 on series of 900-1200 TRs (random weights from a seed)."""
+def _hcp_steps(out, dtypes):
+    """HCP phase 1's training step at batch 8 on series of 900-1200 TRs
+    (random weights from a seed) at each compute dtype of ``dtypes``, in
+    that order: bfloat16 is the default policy (K6's bf16 form), float32
+    runs K6's float32 form."""
     from multimodal_neuroimage_tpu_torch.config import Config
     from multimodal_neuroimage_tpu_torch.data.loader import collate, hcp_item
-    cfg = Config(step=1, task="2DBERT", dataset_name="hcp",
-                 target="sex").validate()
-    rng = np.random.default_rng(6)
-    items = []
-    for i in range(cfg.batch_size):
-        item = hcp_item({"subject": f"h{i}", "fmri": rng.normal(
-            size=(22, int(rng.integers(900, 1201)))) + 100.0}, cfg)
-        item["target"] = np.float32(i % 2)
-        items.append(item)
-    batch = collate(items)[0]
-    _, step = _train_step(cfg, cfg.compute_dtype)
+    steps = {}
+    for dtype in dict.fromkeys(dtypes):
+        cfg = Config(step=1, task="2DBERT", dataset_name="hcp",
+                     target="sex", compute_dtype=dtype).validate()
+        rng = np.random.default_rng(6)
+        items = []
+        for i in range(cfg.batch_size):
+            item = hcp_item({"subject": f"h{i}", "fmri": rng.normal(
+                size=(22, int(rng.integers(900, 1201)))) + 100.0}, cfg)
+            item["target"] = np.float32(i % 2)
+            items.append(item)
+        batch = collate(items)[0]
+        steps[dtype] = (cfg.batch_size, batch, _train_step(cfg, dtype)[1])
     gen = torch.Generator().manual_seed(2)
-    out["hcp"][f"bf16 train step (batch {cfg.batch_size})"] = _step_times(
-        lambda: step(batch, gen))
+    for dtype in dtypes:
+        B, batch, step = steps[dtype]
+        name = "bf16" if dtype == "bfloat16" else "f32"
+        out["hcp"].setdefault(f"{name} train step (batch {B})", []).extend(
+            _step_times(lambda step=step, batch=batch: step(batch, gen)))
 
 
 def _flagship_batch(B, rng):
@@ -452,7 +472,9 @@ def worker(groups) -> int:
     if "step16" in groups:
         _step16(out)
     if "hcp16" in groups:
-        _hcp16(out)
+        _hcp_steps(out, ("bfloat16",))
+    if "hcp" in groups:
+        _hcp_steps(out, ("bfloat16", "float32", "float32", "bfloat16"))
     if "bf16" in groups:
         _bf16(out)
 

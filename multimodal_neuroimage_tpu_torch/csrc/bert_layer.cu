@@ -654,20 +654,6 @@ __device__ __forceinline__ void tg_copy(float* dst, int st, const float* src, lo
   }
 }
 
-__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  const float rest = x - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <int TA, int TB>
 __global__ void __launch_bounds__(TG_THREADS, 2) tc_gemm_kernel(Gemm g) {
   using Tile = TgTile<TA, TB>;

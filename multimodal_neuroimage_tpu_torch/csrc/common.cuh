@@ -163,3 +163,30 @@ __device__ __forceinline__ float tc_ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+
+// ---- TF32 tensor-core helpers (warp-level mma.sync m16n8k8) in 3xTF32 form,
+// shared by K1's and K6's float32 forms ---------------------------------------
+
+// x = big + small to 2^-22 |x|: big = tf32(x), small = tf32(x - big), each
+// rounded as cvt.rna.tf32.f32 rounds (to nearest, ties away from zero, 10
+// mantissa bits); a product of two such values is exact in float32. The
+// compiler expands cvt.rna.tf32.f32 into three or four instructions, one a
+// test for a value that is not finite (kept as it is). x - big is finite
+// wherever x is, so small is rounded in two: adding half a TF32 unit to
+// the bits and clearing the 13 bits below it is the same rounding for a
+// finite value. (Where x is not finite, big carries it.)
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) & 0xFFFFE000u;
+}
+
+// c += a b: m16n8k8, TF32 operands, f32 accumulators. Fragments (g = lane / 4,
+// t = lane % 4): a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4); b0 (k t, column g), b1 (k t + 4, column g); c as m16n8k16's.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}

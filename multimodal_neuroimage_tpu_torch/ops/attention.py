@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from multimodal_neuroimage_tpu_torch.ops import build
+from multimodal_neuroimage_tpu_torch.ops.bert_layer import matmul_3xtf32
 from multimodal_neuroimage_tpu_torch.ops.fusion_block import mix_keep
 
 
@@ -235,10 +236,11 @@ window_attention_backward.launches = 0
 MHA_MAX_HEAD_DIM = 64
 
 
-# K6's bf16 form runs on bf16 tensor cores; True runs it on the CUDA cores
-# instead (the float32 form's kernels on bf16 storage): the precision
-# yardstick that the card tests and chip_smoke.py hold the tensor-core
-# kernels against. Its launches do not count on ``launches``.
+# Both K6 forms run on the tensor cores (float32: 3xTF32; bf16: bf16 mma);
+# True runs either on the CUDA cores instead (float32 FMAs, on float32 or
+# bf16 storage): the precision yardstick that the card tests and
+# chip_smoke.py hold the tensor-core kernels against. Its launches do not
+# count on ``launches``.
 _K6_SIMT = False
 
 
@@ -356,6 +358,48 @@ def mha_reference_backward16_split(g, q, k, v, seed: int = 0,
             _split_product("bhts,bhtd->bhsd", pk, g, pieces))
 
 
+def _mha_tf32_parts(q, k, v, seed, rate):
+    """(out, s, log-sum-exp, keep factors or None) of the 3xTF32 model's
+    forward: s = q k^T and the context of the unnormalised exponentials
+    (dropped) each a 3xTF32 product, the context scaled by 1 / l."""
+    B, H, T, _ = q.shape
+    s = matmul_3xtf32(q, k.transpose(-1, -2))
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    keep = mha_keep(B, H, T, seed, rate, q.device) if rate > 0.0 else None
+    ek = e if keep is None else e * keep
+    return matmul_3xtf32(ek, v) * (1.0 / l), s, m + torch.log(l), keep
+
+
+def mha_reference_3xtf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         seed: int = 0, rate: float = 0.0) -> torch.Tensor:
+    """A float32 model of the float32 form's tensor-core forward (tests
+    only): q k^T and p v in the arithmetic of ``ops/bert_layer.py``
+    ``matmul_3xtf32`` (each operand split into TF32 big + small, the small
+    terms summed apart from big times big), the online softmax's result as
+    exp(s - max) / l, dropout in float32."""
+    return _mha_tf32_parts(q, k, v, seed, rate)[0]
+
+
+def mha_reference_backward_3xtf32(g, q, k, v, seed: int = 0,
+                                  rate: float = 0.0):
+    """A float32 model of the float32 form's tensor-core backward (tests
+    only): (dq, dk, dv). p = exp(s - lse) from the forward's s, computed by
+    the same product as the forward's (as the kernels compute it alike),
+    and its log-sum-exp; delta = dO . out with the model's out; dO v^T,
+    p^T dO, ds^T q and ds k each a 3xTF32 product."""
+    out, s, lse, keep = _mha_tf32_parts(q, k, v, seed, rate)
+    p = torch.exp(s - lse)
+    delta = (g * out).sum(-1, keepdim=True)
+    dp = matmul_3xtf32(g, v.transpose(-1, -2))
+    pk, ds = ((p, p * (dp - delta)) if keep is None
+              else (p * keep, p * (keep * dp - delta)))
+    return (matmul_3xtf32(ds, k),
+            matmul_3xtf32(ds.transpose(-1, -2), q),
+            matmul_3xtf32(pk.transpose(-1, -2), g))
+
+
 def _check_mha(q, k, v, dtype=torch.float32):
     B, H, T, D = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -370,10 +414,12 @@ def _launch_mha_forward(q, k, v, seed, rate):
     B, H, T, D = _check_mha(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
-    build.library().call("mha_forward", q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), out.data_ptr(), lse.data_ptr(), B * H,
-                         T, D, int(seed), float(rate), build.stream_of(q))
-    fused_attention.launches += 1
+    build.library().call(
+        "mha_forward_simt" if _K6_SIMT else "mha_forward", q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), B * H, T,
+        D, int(seed), float(rate), build.stream_of(q))
+    if not _K6_SIMT:
+        fused_attention.launches += 1
     return out, lse
 
 
@@ -400,8 +446,9 @@ def _launch_mha_forward16(q, k, v, seed, rate, save: bool):
 
 def fused_attention_backward(g, q, k, v, out, lse, seed: int = 0,
                              rate: float = 0.0):
-    """K6 backward: (dq, dk, dv). CUDA tensors launch the kernels (``out``
-    and ``lse`` from the CUDA forward); CPU tensors take the plain
+    """K6 backward: (dq, dk, dv). CUDA tensors launch the kernels (the
+    delta pass, then the key-tile and query-tile kernels; ``out`` and
+    ``lse`` from the CUDA forward); CPU tensors take the plain
     backward."""
     if q.device.type == "cpu":
         return mha_reference_backward(g, q, k, v, seed, rate)
@@ -412,11 +459,13 @@ def fused_attention_backward(g, q, k, v, out, lse, seed: int = 0,
     delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     build.library().call(
-        "mha_backward", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), g.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B * H, T, D,
-        int(seed), float(rate), build.stream_of(q))
-    fused_attention_backward.launches += 1
+        "mha_backward_simt" if _K6_SIMT else "mha_backward", q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        delta.data_ptr(), B * H, T, D, int(seed), float(rate),
+        build.stream_of(q))
+    if not _K6_SIMT:
+        fused_attention_backward.launches += 1
     return dq, dk, dv
 
 

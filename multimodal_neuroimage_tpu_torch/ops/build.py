@@ -75,6 +75,8 @@ _SIGNATURES = {
                                           _D, _I, _P]),
     "mha_forward": (_I, [_P] * 5 + [_I] * 4 + [_D, _P]),
     "mha_backward": (_I, [_P] * 10 + [_I] * 4 + [_D, _P]),
+    "mha_forward_simt": (_I, [_P] * 5 + [_I] * 4 + [_D, _P]),
+    "mha_backward_simt": (_I, [_P] * 10 + [_I] * 4 + [_D, _P]),
     "mha_forward16": (_I, [_P] * 6 + [_I] * 4 + [_D, _P]),
     "mha_backward16": (_I, [_P] * 10 + [_I] * 4 + [_D, _P]),
     "mha_forward16_simt": (_I, [_P] * 6 + [_I] * 4 + [_D, _P]),

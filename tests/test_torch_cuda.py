@@ -1054,6 +1054,106 @@ def test_mha_attention_failing_launch_propagates(dev, monkeypatch):
         att.fused_attention(z, z, z)
 
 
+# ---- K6's float32 form on 3xTF32 tensor cores -------------------------------------
+#
+# Every product on mma.sync TF32 in 3xTF32 form, the scores computed alike
+# in the forward and both backward kernels (tests/test_torch_k6_tf32.py
+# models the arithmetic on the CPU). At head dims 7, 11, 24, 42 and 64 and
+# ragged T, dropout 0 and 0.1: against the plain version at 1e-4 + 2e-4
+# |ref| (as test_mha_attention_kernel); the worst float64 error of out, dq,
+# dk and dv, each relative to its tensor's max-abs, within 4x that of the
+# CUDA-core form (attention._K6_SIMT) on the same inputs; max over (b, h, d)
+# of |sum_j dk_j|, zero in exact arithmetic, within 2x the CUDA-core form's
+# or 1e-5, whichever is larger (a backward that rebuilt p from scores taken
+# another way than the forward's would miss it: the CPU test shows one).
+
+K6_SHAPES32 = [(1, 3, 5, 7), (2, 2, 97, 11), (1, 2, 200, 7), (2, 2, 130, 24),
+               (1, 2, 64, 42), (1, 1, 65, 64), (8, 2, 1201, 11)]
+K6_F64_MULT, K6_SUM_MULT, K6_SUM_FLOOR = 4.0, 2.0, 1e-5
+
+
+def _k6_inputs32(dev, B, H, T, D):
+    gen = torch.Generator().manual_seed(B + H + T + D + 1)
+    q, k, v, g = (_rand(gen, B, H, T, D).to(dev) for _ in range(4))
+    return q * D ** -0.5, k, v, g
+
+
+def _k6_run32(q, k, v, g, rate):
+    """(out, (dq, dk, dv)) of the float32 form at seed 77."""
+    out, lse = att._launch_mha_forward(q, k, v, 77, rate)
+    grads = att.fused_attention_backward(g, q, k, v, out, lse, 77, rate)
+    torch.cuda.synchronize()
+    return out, grads
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,H,T,D", K6_SHAPES32)
+def test_mha_attention_tensor_cores_vs_plain_and_float64(dev, monkeypatch, B,
+                                                         H, T, D, rate):
+    q, k, v, g = _k6_inputs32(dev, B, H, T, D)
+    forms = {}
+    for simt in (False, True):
+        monkeypatch.setattr(att, "_K6_SIMT", simt)
+        forms[simt] = _k6_run32(q, k, v, g, rate)
+    out, grads = forms[False]
+    _close(out, att.mha_reference(q, k, v, 77, rate))
+    for a, b in zip(grads, att.mha_reference_backward(g, q, k, v, 77, rate)):
+        _close(a, b)
+    d = [t.double() for t in (g, q, k, v)]
+    truth = [att.mha_reference(*d[1:], 77, rate)] + list(
+        att.mha_reference_backward(*d, 77, rate))
+    errs = {simt: [((a.double() - t).abs().max() / t.abs().max()).item()
+                   for a, t in zip((o,) + tuple(gr), truth)]
+            for simt, (o, gr) in forms.items()}
+    sums = {simt: gr[1].double().sum(2).abs().max().item()
+            for simt, (_, gr) in forms.items()}
+    print(f"K6 f32 {(B, H, T, D)} rate {rate}: float64 error / max|truth| "
+          f"(out, dq, dk, dv) tensor cores {errs[False]}, CUDA cores "
+          f"{errs[True]}; max |sum_j dk_j| {sums[False]:.3e} vs "
+          f"{sums[True]:.3e}")
+    assert max(errs[False]) <= K6_F64_MULT * max(errs[True]), errs
+    assert sums[False] <= max(K6_SUM_MULT * sums[True], K6_SUM_FLOOR), sums
+
+
+def test_mha_attention_backward_is_bitwise_repeatable(dev):
+    q, k, v, g = _k6_inputs32(dev, 8, 2, 1201, 11)
+    for rate in (0.0, 0.1):
+        first, second = _k6_run32(q, k, v, g, rate), _k6_run32(q, k, v, g,
+                                                               rate)
+        assert torch.equal(first[0], second[0])
+        assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+def test_fused_attention_launches_the_tensor_core_kernels(dev, monkeypatch):
+    """fused_attention on float32 CUDA tensors runs one tensor-core forward
+    and, in the backward, the delta pass and the two tensor-core kernels
+    (device kernels by name, ``torch.profiler``); their launches count.
+    Under attention._K6_SIMT the CUDA-core kernels run instead, uncounted."""
+    from multimodal_neuroimage_tpu_torch.bench.k1_split import launch_split
+    q, k, v, g = _k6_inputs32(dev, 2, 2, 97, 11)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def call():
+        return torch.autograd.grad(att.fused_attention(*ins, 77, 0.1), ins, g)
+    counters = (att.fused_attention, att.fused_attention_backward)
+    for simt, want in ((False, ("mha_forward_t32_kernel", "mha_delta_kernel",
+                                "mha_backward_dkdv_t32_kernel",
+                                "mha_backward_dq_t32_kernel")),
+                       (True, ("mha_forward_kernel", "mha_delta_kernel",
+                               "mha_backward_dkdv_kernel",
+                               "mha_backward_dq_kernel"))):
+        monkeypatch.setattr(att, "_K6_SIMT", simt)
+        before = [c.launches for c in counters]
+        split = launch_split(call)
+        names = sorted(key for key in split if "mha_" in key)
+        assert len(names) == 4 and all(
+            any(w + "<" in n for n in names) for w in want), split
+        assert all(round(split[n][0]) == 1 for n in names), split
+        assert len(split) == 4, split
+        assert [c.launches for c in counters] == [
+            n + 11 * (not simt) for n in before]
+
+
 def test_hcp_training_step_on_the_card_matches_the_cpu(dev):
     """A 2-layer HCP TransformerNet at T = 1201 (the K6 route), one K5 step
     with dropout on, card against CPU from the same weights, batch and
