@@ -92,9 +92,23 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    FIR gear): the card's band split of the val subjects against the host
    split within 2e-4 and both gears' times; a 1-epoch ``Trainer`` run
    (exactly the bf16 flagship's kernels) and its serving.
-9. Prints one JSON line of per-kernel results (launches by path: flagship,
-   flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, hcp_bf16,
-   flagship_defaults, dot_shapes) and, last, the ok line.
+9. The flagship and HCP from cohorts on disk (data/synthetic.py writes
+   them; the subject index, ``SplitManager`` and ``DataPipeline`` read
+   them): 40 ABCD subjects (28 train, 6 val, 6 test), the flagship at its
+   full defaults at batch 4 through ``Trainer(cfg).training()`` (1 epoch,
+   7 steps, exactly the bf16 flagship's kernels, a best-AUROC
+   checkpoint), ``Trainer(cfg, sets=["test"]).testing()`` and
+   ``run_predict(cfg)`` (every subject once in ``predictions.csv``, scores
+   bit-equal to an in-memory ``Predictor`` on the same arrays); the
+   ``native`` gear's bands against the host split within 1e-4 and its
+   struct matrices within 2e-3, ``run_predict`` through the native and
+   host gears, the three gears' host-side items/s at batch 4 and 16; 16
+   HCP subjects served by ``run_predict`` at HCP's defaults from phase 7's
+   checkpoint (exactly 16 bf16 K6 forwards a pass); the phase's wall time.
+10. Prints one JSON line of per-kernel results (launches by path:
+   flagship, flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, hcp_bf16,
+   flagship_defaults, flagship_disk, hcp_disk, dot_shapes) and, last, the
+   ok line.
 
 Any failed phase raises, so the exit code is non-zero and no ok line is
 printed. Without a CUDA card it exits with code 2 before doing anything;
@@ -108,6 +122,8 @@ import dataclasses
 import json
 import os
 import re
+import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -192,6 +208,14 @@ GRAD16 = {"swin": 5e-2, "fusion": 0.5, "fmri_embed": 0.5}
 # the device FIR gear's bands on the card vs the host split (float64 scipy):
 # tests/test_filters.py's bound for the JAX package's gear
 FIR_ATOL = 2e-4
+# on-disk cohorts written by the port's writer: 40 ABCD subjects (28 train,
+# 6 val, 6 test at the default 0.7 / 0.15 split) and 16 HCP subjects; the
+# native gear's bands vs the host split within NATIVE_ATOL, its float32
+# struct matrices at float16 grain within NATIVE_STRUCT (atol and rtol):
+# the JAX package's bounds (tests/test_native_pipeline.py)
+DISK_SUBJECTS, DISK_HCP = 40, 16
+NATIVE_ATOL, NATIVE_STRUCT = 1e-4, 2e-3
+GEAR_BATCHES = (4, 16)
 # K6's bf16 form vs its plain version: both compute in float32 and round the
 # output (or dq/dk/dv) to bf16 once; a float32 sum taken in another order
 # can land on the neighbouring bf16 value: forward |err| <= K6_RTOL16 |want|
@@ -2242,7 +2266,7 @@ def flagship_bf16(rng, card, train_records, val_records):
     return counts, bp_counts
 
 
-def hcp_bf16(card, train_records, val_records):
+def hcp_bf16(card, train_records, val_records, keep):
     """HCP phase 1 at its default bf16 policy (``compute_dtype`` left at
     its default): every layer keeps a bf16 stream through K6's bf16 form. A
     2-epoch ``Trainer`` run that launches exactly 16 bf16 K6 forwards a
@@ -2250,7 +2274,8 @@ def hcp_bf16(card, train_records, val_records):
     K6); serving its checkpoint (16 bf16 K6 forwards a pass, logits vs the
     CPU at the same policy); one training step card vs CPU (the same exact
     launches); float32 and bf16 steps timed in turns with peak memory.
-    Returns the training run's launch counts."""
+    Returns the training run's launch counts and a copy of its best
+    checkpoint in the directory ``keep``."""
     from multimodal_neuroimage_tpu_torch.ops import build
     cfg = _hcp_cfg(experiment_title="hcp_bf16")
     if cfg.compute_dtype != "bfloat16":
@@ -2276,6 +2301,8 @@ def hcp_bf16(card, train_records, val_records):
         if serve != {k: layers * passes if k == fwd16 else 0 for k in serve}:
             raise AssertionError(f"HCP bf16 serving launches {serve}: "
                                  f"expected {fwd16} {layers} x {passes} only")
+        ckpt = shutil.copy(trainer.best_checkpoint(),
+                           os.path.join(keep, "hcp_bf16.ckpt"))
     batches = [b for b, _ in trainer.batches("train")]
     del trainer
     step = _step_compare(cfg, batches[0], "HCP bf16",
@@ -2288,7 +2315,7 @@ def hcp_bf16(card, train_records, val_records):
     print(f"launches in one HCP bf16 training step: {want}")
     _time_dtypes(cfg, batches, (("std", "float32"), ("std", "bfloat16")),
                  "HCP batch 8", card)
-    return counts
+    return counts, ckpt
 
 
 def flagship_defaults(card, train_records, val_records):
@@ -2341,6 +2368,209 @@ def flagship_defaults(card, train_records, val_records):
                        "flagship defaults", card)
         _exact_path(serve, forward, "defaults serving run")
     return counts
+
+
+def _gear_rates(cfg, records, card):
+    """Host-side items/s of the three gears on the on-disk ``records`` at
+    batch 4 and 16: each gear's batches made on the host (``to_device``
+    off; the device gear's band split is not in it), one pass to warm up
+    (the native gear builds its library there), then the median of three
+    timed passes; real items only (the padded tail's pad rows not
+    counted). Prints them."""
+    from multimodal_neuroimage_tpu_torch.data.loader import DataPipeline
+    rates = {}
+    for gear in ("host", "device", "native"):
+        for bs in GEAR_BATCHES:
+            gcfg = dataclasses.replace(cfg, preprocess=gear, batch_size=bs)
+            pipe = DataPipeline(gcfg, splits={"predict": records},
+                                device="cuda")
+
+            def one_pass():
+                t0 = time.perf_counter()
+                n = sum(x is not None for _, names in pipe.epoch(
+                    "predict", to_device=False) for x in names)
+                return n / (time.perf_counter() - t0)
+            one_pass()
+            rates[f"{gear} batch {bs}"] = statistics.median(
+                one_pass() for _ in range(3))
+    print(f"host data path, {len(records)} on-disk subjects, {cfg.workers} "
+          f"workers, items/s (host side): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in rates.items()) + f"; card: {card}")
+
+
+def _native_vs_host(cfg, records):
+    """The native gear's batches against the host gear's on the same
+    subjects: bands within NATIVE_ATOL, struct matrices at float16 grain
+    within NATIVE_STRUCT. Returns the worst errors."""
+    from multimodal_neuroimage_tpu_torch.data.loader import DataPipeline
+
+    def batches(gear):
+        pipe = DataPipeline(dataclasses.replace(cfg, preprocess=gear),
+                            splits={"predict": records}, device="cuda")
+        return list(pipe.epoch("predict", to_device=False))
+    errs = {}
+    for (nb, nn), (hb, hn) in zip(batches("native"), batches("host")):
+        if nn != hn:
+            raise AssertionError(f"native and host batches differ: {nn} "
+                                 f"vs {hn}")
+        got = {k: nb[k] for k in ("fmri_raw_sequence", "fmri_lowfreq_sequence",
+                                  "fmri_ultralowfreq_sequence")}
+        got["struct"] = nb["struct"].astype(np.float16)
+        for key, value in got.items():
+            tol = NATIVE_STRUCT if key == "struct" else NATIVE_ATOL
+            np.testing.assert_allclose(value, hb[key], atol=tol,
+                                       rtol=tol if key == "struct" else 0,
+                                       err_msg=f"native gear {key}")
+            err = float(np.abs(value.astype(np.float64) - hb[key]).max())
+            errs[key] = max(errs.get(key, 0.0), err)
+    return errs
+
+
+def disk_cohorts(card, hcp_ckpt):
+    """The flagship and HCP from cohorts on disk written by the port's
+    writer (data/synthetic.py), through the entry points a user calls. The
+    flagship at its full ``Config`` defaults (bf16, device gear, std
+    layout, batch 4): ``Trainer(cfg).training()`` for one epoch (7 steps,
+    exactly FLAGSHIP16_KERNELS, a best-AUROC checkpoint),
+    ``Trainer(cfg, sets=["test"]).testing()``, ``run_predict(cfg)`` (the
+    40 subjects once each, scores bit-equal to an in-memory ``Predictor``
+    on the same arrays in the same order); the native gear's batches
+    against the host gear's, one ``run_predict`` through each, each gear's
+    host-side items/s. HCP at its ``Config`` defaults: 16 subjects served
+    by ``run_predict`` from phase 7's checkpoint (``hcp_ckpt``), exactly
+    16 bf16 K6 forwards a pass and nothing else. Returns the flagship's
+    training-run and the HCP serving-run launch counts."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.data import synthetic
+    from multimodal_neuroimage_tpu_torch.data.datasets import ItemLoader
+    from multimodal_neuroimage_tpu_torch.data.index import build_subject_index
+    from multimodal_neuroimage_tpu_torch.ops import build
+    from multimodal_neuroimage_tpu_torch.serve.predictor import (Predictor,
+                                                                 run_predict)
+    from multimodal_neuroimage_tpu_torch.train.trainer import Trainer
+    t_phase = time.perf_counter()
+    forward = [k for k in FLAGSHIP16_KERNELS
+               if "backward" not in k and "adam" not in k]
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        root = synthetic.generate_synthetic_cohort(
+            os.path.join(tmp, "abcd"), n_subjects=DISK_SUBJECTS, seed=SEED)
+        exp = os.path.join(tmp, "exp")
+        cfg = synthetic.synthetic_config(
+            root, task="FuncStruct", dataset_name="multimodal",
+            multimodality_type="cross_attention", target="sex",
+            fine_tune_task="binary_classification", batch_size=BATCH,
+            nEpochs=1, experiment_folder=exp,
+            experiment_title="flagship_disk", seed=SEED).validate()
+        if (cfg.compute_dtype, cfg.preprocess) != ("bfloat16", "device"):
+            raise AssertionError(f"the flagship's defaults are "
+                                 f"{cfg.compute_dtype}, {cfg.preprocess}")
+        trainer = Trainer(cfg, device="cuda")
+        sizes = {k: len(v) for k, v in trainer.pipeline.splits.items()}
+        if sizes != {"train": 28, "val": 6, "test": 6}:
+            raise AssertionError(f"on-disk split sizes {sizes}")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        metrics = trainer.training()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launches()
+        print(f"launches in the on-disk flagship training run: {counts}")
+        _exact_path(counts, FLAGSHIP16_KERNELS, "on-disk training run")
+        if (trainer.steps_per_epoch != 7
+                or not np.isfinite(trainer.step_losses).all()):
+            raise AssertionError(f"on-disk training: {trainer.step_losses}")
+        ckpt = trainer.best_checkpoint()
+        if ckpt is None:
+            raise AssertionError("no on-disk best-AUROC checkpoint")
+        _print_run("flagship from disk", cfg, trainer, metrics, wall)
+        del trainer
+
+        t0 = time.perf_counter()
+        tester = Trainer(cfg, sets=["test"], device="cuda")
+        test = tester.testing()
+        if tester.checkpoint_path != ckpt or "test_AUROC" not in test:
+            raise AssertionError(f"testing from {tester.checkpoint_path}: "
+                                 f"{test}")
+        print(f"flagship from disk: testing() on the 6 test subjects at the "
+              f"frozen threshold {tester.val_threshold} in "
+              f"{time.perf_counter() - t0:.2f} s: test_AUROC "
+              f"{test['test_AUROC']}, test_Balanced_Accuracy "
+              f"{test['test_Balanced_Accuracy']}")
+        del tester
+
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        scores = run_predict(cfg)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+        _exact_path(ops.launches(), forward, "on-disk serving run")
+        records = build_subject_index(cfg, require_target=False)
+        names = [r.subject for r in records]
+        with open(os.path.join(exp, "predictions.csv")) as f:
+            rows = [line.split(",")[0] for line in f.read().splitlines()[1:]]
+        if (len(names) != DISK_SUBJECTS or list(scores) != names
+                or sorted(rows) != sorted(names)):
+            raise AssertionError(f"run_predict scored {len(scores)} "
+                                 f"subjects, {len(rows)} rows")
+        loader = ItemLoader(cfg)
+        memory = Predictor(cfg, ckpt, [loader.load(r) for r in records],
+                           device="cuda").predict()
+        if memory != scores:
+            raise AssertionError("on-disk scores differ from the in-memory "
+                                 "Predictor's on the same arrays")
+        print(f"flagship from disk: run_predict scored {len(scores)} "
+              f"subjects in {pwall:.2f} s ({len(scores) / pwall:.2f} "
+              f"subjects/s end to end, disk reads included), each once in "
+              f"predictions.csv, bit-equal to the in-memory Predictor; "
+              f"card: {card}")
+
+        errs = _native_vs_host(cfg, records)
+        print(f"native gear vs the host split, {len(records)} subjects: "
+              f"max|err| {errs} (bands atol {NATIVE_ATOL}, struct at "
+              f"float16 grain atol/rtol {NATIVE_STRUCT})")
+        for gear in ("native", "host"):
+            ops.reset_launches()
+            other = run_predict(dataclasses.replace(cfg, preprocess=gear))
+            _exact_path(ops.launches(), forward, f"{gear}-gear serving run")
+            if list(other) != names:
+                raise AssertionError(f"{gear} gear scored {len(other)} "
+                                     f"subjects")
+            print(f"run_predict through the {gear} gear: max |score - device "
+                  f"gear's| " + str(max(abs(other[n]["score"]
+                                            - scores[n]["score"])
+                                        for n in names)))
+        _gear_rates(cfg, records, card)
+
+        hroot = synthetic.generate_synthetic_hcp(
+            os.path.join(tmp, "hcp"), n_subjects=DISK_HCP, seed=SEED)
+        hcp = _hcp_cfg(base_path=hroot,
+                       hcp_path=os.path.join(hroot, "data", "hcp"),
+                       experiment_folder=os.path.join(tmp, "hexp"),
+                       model_weights_path=hcp_ckpt)
+        layers = hcp.transformer_hidden_layers
+        passes = -(-DISK_HCP // hcp.batch_size)
+        fwd16 = "K6 fused_attention bf16"
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        hscores = run_predict(hcp)
+        torch.cuda.synchronize()
+        hwall = time.perf_counter() - t0
+        hcounts = ops.launches()
+        if hcounts != {k: layers * passes if k == fwd16 else 0
+                       for k in hcounts}:
+            raise AssertionError(f"HCP on-disk serving launches {hcounts}: "
+                                 f"expected {fwd16} {layers} x {passes} only")
+        if len(hscores) != DISK_HCP:
+            raise AssertionError(f"HCP run_predict scored {len(hscores)}")
+        print(f"HCP from disk: run_predict scored {len(hscores)} subjects "
+              f"in {hwall:.2f} s from {os.path.basename(hcp_ckpt)}; "
+              f"launches {hcounts}")
+    print(f"on-disk phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"card: {card}")
+    return counts, hcounts
 
 
 def main() -> int:
@@ -2478,17 +2708,22 @@ def main() -> int:
     _time_train_step(htrainer, "HCP", card)
     del htrainer
 
-    # ---- HCP phase 1 at its default bf16 policy: K6's bf16 form -------------
-    hcp16_counts = hcp_bf16(card, hcp_train, hcp_val)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as keep:
+        # ---- HCP phase 1 at its default bf16 policy: K6's bf16 form ---------
+        hcp16_counts, hcp16_ckpt = hcp_bf16(card, hcp_train, hcp_val, keep)
 
-    # ---- the flagship at its full Config defaults (bf16, device FIR gear) ----
-    defaults_counts = flagship_defaults(card, train_records, val_records)
+        # ---- the flagship at its full Config defaults (bf16, device gear) ---
+        defaults_counts = flagship_defaults(card, train_records, val_records)
+
+        # ---- the flagship and HCP from cohorts on disk ----------------------
+        disk_counts, hcp_disk_counts = disk_cohorts(card, hcp16_ckpt)
 
     launches = {"flagship": train_counts, "flagship_bp": bp_counts,
                 "flagship_bf16": bf16_counts,
                 "flagship_bp_bf16": bp_bf16_counts,
                 "hcp": hcp_counts, "hcp_bf16": hcp16_counts,
                 "flagship_defaults": defaults_counts,
+                "flagship_disk": disk_counts, "hcp_disk": hcp_disk_counts,
                 "dot_shapes": dot_counts}
     kernels = [results.line(key, launches) for key in ops.kernels()]
     print(json.dumps({"kernels": kernels}))

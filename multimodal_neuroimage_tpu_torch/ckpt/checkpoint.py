@@ -40,6 +40,36 @@ def latest_checkpoint(folder: str, pattern: str = "*.ckpt") -> Optional[str]:
     return max(files, key=os.path.getmtime) if files else None
 
 
+def default_checkpoint(cfg, folder: Optional[str] = None) -> Optional[str]:
+    """The weights to test or serve when none are named (JAX
+    serve/predictor.py ``_default_checkpoint``): ``cfg.model_weights_path``;
+    else in ``folder`` (default ``cfg.experiment_folder``) the title's best
+    file (``BEST_val_loss`` for regression, ``BEST_val_AUROC`` then
+    ``BEST_val_accuracy`` for classification), else the newest ``*BEST*``
+    file, else the newest checkpoint, with a warning that it was not
+    chosen on validation."""
+    if cfg.model_weights_path:
+        return cfg.model_weights_path
+    folder = folder or cfg.experiment_folder
+    if not folder:
+        return None
+    title = cfg.experiment_title or cfg.exp_name
+    order = (("BEST_val_loss",) if cfg.fine_tune_task == "regression"
+             else ("BEST_val_AUROC", "BEST_val_accuracy"))
+    for best in order:
+        preferred = os.path.join(folder, f"{title}_{best}.ckpt")
+        if os.path.exists(preferred):
+            return preferred
+    bests = glob.glob(os.path.join(folder, "*BEST*.ckpt"))
+    if bests:
+        return max(bests, key=os.path.getmtime)
+    fallback = latest_checkpoint(folder)
+    if fallback is not None:
+        print(f"[predict] WARNING: no BEST checkpoint in {folder!r}; "
+              f"using {os.path.basename(fallback)} (not validation-selected)")
+    return fallback
+
+
 class BestCheckpointPolicy:
     """Best-validation save policy (JAX ckpt/checkpoint.py
     BestCheckpointPolicy, reference trainer.py:660-690): classification

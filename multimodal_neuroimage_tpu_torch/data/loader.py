@@ -1,14 +1,15 @@
-"""Host-side items and batching for in-memory requests (counterpart of the
-host branches of multimodal_neuroimage_tpu/data/datasets.py ``ItemLoader``
-and of data/loader.py ``collate``).
+"""Items and batches (counterpart of multimodal_neuroimage_tpu/data/
+datasets.py's item branches and data/loader.py ``collate``,
+``device_preprocess`` and ``DataPipeline``).
 
-A request carries one subject's raw series, not a path: no
-``SubjectRecord``, no pandas. The preprocessing is the port's own
-``data/filters.py`` (the host gear) or, where ``device_fmri`` holds (the
-``device`` gear, ``Config``'s default), ``ops/fir.py`` on the device: the
-item is then the raw series zero-filled to 368 TRs plus its native length
-(``raw_fmri_item``), and ``device_preprocess`` band-splits each batch where
-it will be consumed.
+An item function takes one subject's arrays as an in-memory request (no
+paths): data/datasets.py ``ItemLoader`` hands it either the caller's
+request or the arrays it loaded from an on-disk cohort. The preprocessing
+is the port's own ``data/filters.py`` (the host gear) or, where
+``device_fmri`` holds (the ``device`` gear, ``Config``'s default),
+``ops/fir.py`` on the device: the item is then the raw series zero-filled to
+368 TRs plus its native length (``raw_fmri_item``), and
+``device_preprocess`` band-splits each batch where it will be consumed.
 
 - ``hcp_item``: ``{subject, fmri (22, T <= 1200)}``, z-scored over the whole
   array, zero-padded to 1200 TRs (front gets pad // 2), as ``(1200, 22)``
@@ -19,18 +20,29 @@ it will be consumed.
   .fmri_timeseries``, host gear).
 - ``multimodal_item``: the flagship's ``{subject, fmri (84, T), struct (84,
   84)}`` band split (``ItemLoader.multimodal``).
+
+``DataPipeline`` batches the splits of one process: an on-disk cohort split
+by ``SplitManager``, or the caller's per-split lists of in-memory requests.
+The native gear (``preprocess="native"``, data/native.py) loads and
+band-splits whole on-disk batches in C++.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from multimodal_neuroimage_tpu_torch.data.filters import (pad_time_axis,
+from multimodal_neuroimage_tpu_torch.data.filters import (design_highpass_fir,
+                                                          pad_time_axis,
                                                           preprocess_fmri_host,
                                                           zscore)
+from multimodal_neuroimage_tpu_torch.data.index import (SubjectRecord,
+                                                        build_subject_index,
+                                                        check_dataset)
+from multimodal_neuroimage_tpu_torch.data.splits import SplitManager
 
 ABCD_SEQ_LEN = 368     # ABCD pad target
 HCP_SEQ_LEN = 1200     # HCP pad target
@@ -104,13 +116,9 @@ def multimodal_item(request: Mapping, cfg) -> Dict[str, np.ndarray]:
 def item_for(cfg) -> Callable[[Mapping, object], Dict[str, np.ndarray]]:
     """The item function of ``cfg.dataset_name`` (``ItemLoader``'s
     dispatch); raises for the datasets the port does not load yet."""
-    items = {"hcp": hcp_item, "fMRI_timeseries": fmri_timeseries_item,
-             "multimodal": multimodal_item}
-    if cfg.dataset_name not in items:
-        raise NotImplementedError(
-            f"dataset {cfg.dataset_name!r} is not loaded by the port yet "
-            f"(ROADMAP M8/M9: its models are not ported either)")
-    return items[cfg.dataset_name]
+    check_dataset(cfg.dataset_name)
+    return {"hcp": hcp_item, "fMRI_timeseries": fmri_timeseries_item,
+            "multimodal": multimodal_item}[cfg.dataset_name]
 
 
 def collate(items: List[Dict], target_key: str = "target"
@@ -165,3 +173,152 @@ def device_preprocess(batch: Dict, cfg, device) -> Dict:
         out["fmri_lowfreq_sequence"] = bands["low"]
         out["fmri_ultralowfreq_sequence"] = bands["ultralow"]
     return out
+
+
+MODEL_INPUTS = ("fmri_sequence", "fmri_raw_sequence", "fmri_lowfreq_sequence",
+                "fmri_ultralowfreq_sequence", "struct")
+
+
+class DataPipeline:
+    """Split-aware batches of one process (JAX data/loader.py
+    ``DataPipeline`` without a mesh).
+
+    ``splits`` gives the per-split lists (in-memory requests, or records);
+    without it the cohort on disk is indexed (``build_subject_index``) and
+    split by ``SplitManager``. Batches
+    follow JAX's: the order from ``default_rng((cfg.seed, epoch))`` when
+    shuffled, the train split drops its last partial batch, and every other
+    split carries ``valid`` and pads its tail to ``batch_size`` with
+    repeated subjects, ``valid`` 0 and name None on the pad rows. Items load
+    on a pool of ``cfg.workers`` threads; at ``preprocess="native"`` whole
+    batches of an on-disk cohort load in C++ (data/native.py) where the
+    JAX gear covers them (FIR split, no augmentation), which raises rather
+    than falls back when the library cannot be built."""
+
+    def __init__(self, cfg, splits: Optional[Dict[str, List]] = None,
+                 device="cuda"):
+        from multimodal_neuroimage_tpu_torch.data.datasets import ItemLoader
+        self.cfg = cfg
+        self.device = device
+        # train items augment; eval items never do
+        self.item_loader = ItemLoader(cfg, augment=True)
+        self.eval_item_loader = ItemLoader(cfg, augment=False)
+        if splits is None:
+            self.records = build_subject_index(cfg)
+            by_name = {r.subject: r for r in self.records}
+            names = SplitManager(cfg.base_path, cfg.dataset_name, cfg.seed,
+                                 cfg.train_split, cfg.val_split).split(
+                list(by_name))
+            splits = {k: [by_name[s] for s in v if s in by_name]
+                      for k, v in zip(("train", "val", "test"), names)}
+        self.splits = {k: list(v) for k, v in splits.items()}
+        if (cfg.preprocess == "native" and cfg.dataset_name != "hcp"
+                and any(not isinstance(r, SubjectRecord)
+                        for recs in self.splits.values() for r in recs)):
+            raise ValueError(
+                "preprocess='native' loads batches of a cohort on disk; "
+                "in-memory records take the 'host' or 'device' gear")
+        self.pool = ThreadPoolExecutor(max_workers=max(cfg.workers, 1))
+
+    def steps_per_epoch(self, split: str = "train") -> int:
+        return len(self.splits[split]) // self.cfg.batch_size
+
+    def _native_supported(self, split: str) -> bool:
+        cfg = self.cfg
+        if cfg.preprocess != "native" or (split == "train"
+                                          and cfg.augment_prob > 0):
+            return False      # augmentation runs in the item path
+        if cfg.filtering_type != "FIR" or cfg.feature_map_gen == "resample":
+            return False      # fastpipe implements only the FIR-taps split
+        return cfg.dataset_name == "multimodal" or (
+            cfg.dataset_name == "fMRI_timeseries"
+            and cfg.fmri_type == "divided_frequency")
+
+    def _native_batch(self, recs: List[SubjectRecord]
+                      ) -> Tuple[Dict[str, np.ndarray], List[str]]:
+        """One batch through native/fastpipe.cpp: the struct matrices
+        z-scored as float32, the three bands (n, t_max, R) float32."""
+        from multimodal_neuroimage_tpu_torch.data import native
+        cfg = self.cfg
+        R = cfg.intermediate_vec
+        batch: Dict[str, np.ndarray] = {
+            "subject": np.asarray([r.idx for r in recs], np.int64),
+            "target": np.asarray([r.target for r in recs], np.float32)}
+        multimodal = cfg.dataset_name == "multimodal"
+        if multimodal:
+            batch["struct"] = native.matrix_batch(
+                [r.paths["struct"] for r in recs], R, R, cfg.workers)
+        taps = design_highpass_fir(cfg.fir_order, cfg.fir_lb_hz,
+                                   1.0 / cfg.tr_seconds)
+        bands = native.bandsplit_batch(
+            [r.paths["fmri"] for r in recs], taps,
+            t_max=cfg.sequence_length, n_rois=R, nthreads=cfg.workers)
+        batch["fmri_raw_sequence" if multimodal else "fmri_sequence"] = \
+            bands["raw"]
+        batch["fmri_lowfreq_sequence"] = bands["low"]
+        batch["fmri_ultralowfreq_sequence"] = bands["ultralow"]
+        return batch, [r.subject for r in recs]
+
+    def _batches(self, split: str, epoch: int, shuffle: bool
+                 ) -> Iterator[Tuple[Dict[str, np.ndarray], List]]:
+        recs = self.splits[split]
+        order = (np.random.default_rng((self.cfg.seed, epoch)).permutation(
+            len(recs)) if shuffle else np.arange(len(recs)))
+        loader = self.item_loader if split == "train" else \
+            self.eval_item_loader
+        native = self._native_supported(split)
+        bs = self.cfg.batch_size
+
+        def load(idxs):
+            if native:
+                return self._native_batch([recs[i] for i in idxs])
+            return collate(list(self.pool.map(lambda i: loader(recs[i]),
+                                              idxs)), self.cfg.target)
+
+        n_steps = len(recs) // bs
+        for step in range(n_steps):
+            batch, names = load(order[step * bs:(step + 1) * bs])
+            if split != "train":
+                batch["valid"] = np.ones(len(names), np.float32)
+            yield batch, names
+        tail = len(recs) - n_steps * bs
+        if split != "train" and tail > 0:
+            ks = range(n_steps * bs, (n_steps + 1) * bs)
+            batch, names = load(np.asarray([order[k % len(recs)]
+                                            for k in ks]))
+            pad = [k >= len(recs) for k in ks]
+            batch["valid"] = np.asarray([0.0 if p else 1.0 for p in pad],
+                                        np.float32)
+            yield batch, [None if p else n for n, p in zip(names, pad)]
+
+    def _to_device(self, batch: Dict) -> Dict:
+        """The batch's model inputs as float32 tensors on ``device``, the
+        device gear's bands made there; targets, ``valid`` and indices
+        stay on the host."""
+        out = device_preprocess(batch, self.cfg, self.device)
+        for k in MODEL_INPUTS:
+            if k in out:
+                out[k] = torch.as_tensor(out[k], dtype=torch.float32,
+                                         device=self.device)
+        return out
+
+    def epoch(self, split: str, epoch: int = 0,
+              shuffle: Optional[bool] = None, to_device: bool = True
+              ) -> Iterator[Tuple[Dict, List]]:
+        """Yield (batch, subject names) of one split (shuffled by default
+        for train). With ``to_device`` each batch is sent to ``device``
+        (``_to_device``) one batch ahead of the one yielded."""
+        if shuffle is None:
+            shuffle = split == "train"
+        it = self._batches(split, epoch, shuffle)
+        if not to_device:
+            yield from it
+            return
+        pending = None
+        for batch, names in it:
+            nxt = (self._to_device(batch), names)
+            if pending is not None:
+                yield pending
+            pending = nxt
+        if pending is not None:
+            yield pending

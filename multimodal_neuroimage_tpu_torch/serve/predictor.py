@@ -1,13 +1,18 @@
 """Serving: checkpoint -> per-subject predictions (counterpart of multimodal_neuroimage_tpu/serve/predictor.py).
 
-``Predictor`` loads a port checkpoint once, scores in-memory requests (the
-flagship's ``{subject, fmri: (84, T) raw series, struct: (84, 84)}``, HCP's
-``{subject, fmri: (22, T <= 1200)}``; data/loader.py ``item_for``, the
-device gear's band split on the device a batch, ``device_preprocess``) in
-batches of ``cfg.batch_size``, sigmoids each window's logit and averages the
-probabilities per subject (the frozen ``val_threshold`` was fit on
-mean-of-sigmoids), labels subjects against that threshold, and can write
-``predictions.csv``. Single process: no mesh, no allgather.
+``Predictor`` loads a port checkpoint once (the one named, else
+``ckpt/checkpoint.py`` ``default_checkpoint``) and scores either the
+cohort on disk that ``cfg`` points at (indexed with
+``require_target=False``, so unlabeled subjects are scored too) or
+in-memory requests (the flagship's ``{subject, fmri: (84, T) raw series,
+struct: (84, 84)}``, HCP's ``{subject, fmri: (22, T <= 1200)}``). The
+batches come from a ``DataPipeline`` (data/loader.py) in the config's gear,
+padded to ``cfg.batch_size`` with the pad rows dropped from the scores. It
+sigmoids each window's logit and averages the probabilities per subject
+(the frozen ``val_threshold`` was fit on mean-of-sigmoids), labels subjects
+against that threshold, and can write ``predictions.csv``; ``run_predict``
+does so into the experiment folder. Single process: no mesh, no
+allgather.
 """
 
 from __future__ import annotations
@@ -18,10 +23,11 @@ from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import torch
 
-from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import load_checkpoint
-from multimodal_neuroimage_tpu_torch.data.loader import (collate,
-                                                          device_preprocess,
-                                                          item_for)
+from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
+    default_checkpoint, load_checkpoint)
+from multimodal_neuroimage_tpu_torch.data.index import build_subject_index
+from multimodal_neuroimage_tpu_torch.data.loader import (MODEL_INPUTS,
+                                                          DataPipeline)
 from multimodal_neuroimage_tpu_torch.models.registry import create_model
 from multimodal_neuroimage_tpu_torch.nn.swinfusion import set_compute_policy
 from multimodal_neuroimage_tpu_torch.train.state import (check_compute_dtype,
@@ -29,20 +35,6 @@ from multimodal_neuroimage_tpu_torch.train.state import (check_compute_dtype,
                                                          forward_at, weights_at)
 
 HEADS = ("binary_classification", "regression")
-MODEL_INPUTS = ("fmri_sequence", "fmri_raw_sequence",
-                "fmri_lowfreq_sequence", "fmri_ultralowfreq_sequence",
-                "struct")
-
-
-def check_supported(cfg) -> None:
-    """Refuse configurations the port does not run yet, rather than
-    quietly running something else."""
-    # HCP items take no band split in any gear (JAX data/datasets.py:83-89)
-    if cfg.preprocess == "native" and cfg.dataset_name != "hcp":
-        raise NotImplementedError(
-            "preprocess='native': the C++ host band split of on-disk cohorts "
-            "(data/native.py) is ROADMAP N5; the port runs the 'host' and "
-            "'device' gears")
 
 
 def make_predict_step(model: torch.nn.Module, compute_dtype: str = "float32",
@@ -70,17 +62,20 @@ def make_predict_step(model: torch.nn.Module, compute_dtype: str = "float32",
 class Predictor:
     """Load once, predict many."""
 
-    def __init__(self, cfg, checkpoint: str,
+    def __init__(self, cfg, checkpoint: Optional[str] = None,
                  records: Optional[List[Mapping]] = None,
                  device: str = "cuda"):
-        check_supported(cfg)
         if records is None:
-            raise NotImplementedError(
-                "scoring an on-disk cohort (subject index, pandas) is ROADMAP "
-                "N5; pass in-memory records")
+            records = build_subject_index(cfg, require_target=False)
+        self.pipe = DataPipeline(cfg, splits={"predict": list(records)},
+                                 device=device)
+        checkpoint = checkpoint or default_checkpoint(cfg)
+        if checkpoint is None:
+            raise FileNotFoundError(
+                f"no checkpoint found in {cfg.experiment_folder!r}; pass "
+                f"checkpoint= or set cfg.model_weights_path")
         self.cfg = cfg
         self.device = device
-        self.records = list(records)
         self.checkpoint_path = checkpoint
         ckpt = load_checkpoint(checkpoint)
         self.model = create_model(cfg)
@@ -94,15 +89,11 @@ class Predictor:
                      else "binary_classification")
         self.step = make_predict_step(self.model, cfg.compute_dtype, device)
 
-    def batches(self) -> Iterator[Tuple[Dict, List[str]]]:
-        """Batches of ``cfg.batch_size`` requests, preprocessed in the
-        config's gear (the device gear's bands on the device)."""
-        bs = self.cfg.batch_size
-        item = item_for(self.cfg)
-        for i in range(0, len(self.records), bs):
-            batch, names = collate([item(r, self.cfg)
-                                    for r in self.records[i:i + bs]])
-            yield device_preprocess(batch, self.cfg, self.device), names
+    def batches(self) -> Iterator[Tuple[Dict, List]]:
+        """Batches of ``cfg.batch_size`` subjects in order, preprocessed in
+        the config's gear (the device gear's bands on the device), the
+        last padded (pad rows named None)."""
+        return self.pipe.epoch("predict", shuffle=False)
 
     def predict(self, write_csv: Optional[str] = None
                 ) -> Dict[str, Dict[str, float]]:
@@ -117,6 +108,8 @@ class Predictor:
             if classify:
                 vals = torch.sigmoid(vals)
             for name, v in zip(names, vals.cpu().tolist()):
+                if name is None:        # tail padding
+                    continue
                 sums[name] = sums.get(name, 0.0) + v
                 counts[name] = counts.get(name, 0) + 1
         out: Dict[str, Dict[str, float]] = {}
@@ -137,3 +130,15 @@ class Predictor:
             w.writerow(cols)
             for subject in sorted(out):
                 w.writerow([subject] + [out[subject][c] for c in cols[1:]])
+
+
+def run_predict(cfg, device: str = "cuda") -> Dict[str, Dict[str, float]]:
+    """Score the cohort on disk that ``cfg`` points at with its default
+    checkpoint and write ``predictions.csv`` into the experiment folder."""
+    pred = Predictor(cfg, device=device)
+    dest = os.path.join(cfg.experiment_folder or ".", "predictions.csv")
+    out = pred.predict(write_csv=dest)
+    print(f"[predict] {len(out)} subjects -> {dest} "
+          f"(checkpoint {pred.checkpoint_path}, "
+          f"threshold {pred.threshold:.4f})")
+    return out

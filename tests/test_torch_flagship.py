@@ -167,12 +167,14 @@ def test_checkpoint_roundtrip_and_latest(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"preprocess": "native"}, "N5"),
+    ({"preprocess": "native"}, "on disk"),
 ])
 def test_predictor_refuses_what_it_does_not_run(flagship, change, match):
+    """The native gear loads batches of a cohort on disk: in-memory
+    requests are refused rather than run through another gear."""
     cfg = dataclasses.replace(flagship[0], **change)
-    with pytest.raises(NotImplementedError, match=match):
-        Predictor(cfg, "unused.ckpt", [], device="cpu")
+    with pytest.raises(ValueError, match=match):
+        Predictor(cfg, "unused.ckpt", _requests(cfg), device="cpu")
 
 
 @pytest.mark.parametrize("case", ["hcp_bf16", "device_gear"])
@@ -209,9 +211,12 @@ def test_predictor_runs_what_it_once_refused(flagship, case, tmp_path):
         assert abs(got[name]["score"] - row["score"]) <= tol, (name, got)
 
 
-def test_predictor_needs_in_memory_records(flagship):
-    with pytest.raises(NotImplementedError, match="on-disk cohort"):
-        Predictor(flagship[0], "unused.ckpt", None, device="cpu")
+def test_predictor_needs_in_memory_records(flagship, tmp_path):
+    """Without in-memory records the Predictor indexes the cohort on disk
+    that the config points at: an empty folder has no metadata to read."""
+    cfg = dataclasses.replace(flagship[0], base_path=str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="ABCD_phenotype_total.csv"):
+        Predictor(cfg, "unused.ckpt", None, device="cpu")
 
 
 @pytest.mark.parametrize("change,item", [

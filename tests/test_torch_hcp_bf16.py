@@ -463,7 +463,8 @@ def test_flagship_at_full_defaults_trains_and_serves(tmp_path):
         "target": float(i % 2)} for i in range(6)]
     trainer = Trainer(cfg, records[:4], records[4:], device="cpu",
                       experiment_folder=str(tmp_path))
-    assert "fmri_raw" in trainer.items["train"][0]
+    raw, _ = next(trainer.pipeline.epoch("train", to_device=False))
+    assert "fmri_raw" in raw
     trainer.training()
     assert np.isfinite(trainer.step_losses).all()
     requests = [{k: r[k] for k in ("subject", "fmri", "struct")}

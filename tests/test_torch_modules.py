@@ -190,6 +190,28 @@ hbatch, _ = collate([item_for(hcp)({"subject": str(i),
 hbatch["target"] = np.asarray([0.0, 1.0], np.float32)
 losses, _ = step(hbatch, torch.Generator().manual_seed(0))
 assert torch.isfinite(losses["total"]) and opt.count == 1
+
+# an HCP cohort written to disk by the port's writer: one training step
+# from disk (subject index, SplitManager, DataPipeline), then served from
+# the experiment folder by run_predict
+import os
+import tempfile
+from multimodal_neuroimage_tpu_torch.data import synthetic
+from multimodal_neuroimage_tpu_torch.train.trainer import Trainer
+with tempfile.TemporaryDirectory() as tmp:
+    root = synthetic.generate_synthetic_hcp(tmp, n_subjects=8, seed=1)
+    exp = os.path.join(tmp, "exp")
+    disk = synthetic.synthetic_config(
+        root, step=1, task="2DBERT", dataset_name="hcp",
+        transformer_hidden_layers=1, bert_intermediate_size=32,
+        compute_dtype="float32", batch_size=4, nEpochs=1, workers=1,
+        experiment_folder=exp, experiment_title="hcp").validate()
+    tr = Trainer(disk, device="cpu")
+    tr.training()
+    assert len(tr.step_losses) == 1 and np.isfinite(tr.step_losses).all()
+    checkpoint.save_checkpoint(os.path.join(exp, "last.ckpt"),
+                               tr.model.state_dict(), {})
+    assert len(predictor.run_predict(disk, device="cpu")) == 8
 print(sorted(m for m in sys.modules
              if m in ("jax", "flax", "pandas", "sklearn")
              or m == "multimodal_neuroimage_tpu"
@@ -199,10 +221,12 @@ print(sorted(m for m in sys.modules
 
 def test_port_imports_no_jax_flax_pandas_sklearn():
     """Serve (std and bp fusion layouts), take one flagship and one HCP
-    training step, run one dot-shape chain, in a fresh interpreter (this
-    test process imported jax already, tests/conftest.py):
-    none of jax, flax, pandas, sklearn or the JAX package
-    ``multimodal_neuroimage_tpu`` (any of its modules) gets loaded."""
+    training step, run one dot-shape chain, write an HCP cohort to disk,
+    train a step from it and serve it with ``run_predict``, in a fresh
+    interpreter (this test process imported jax already,
+    tests/conftest.py): none of jax, flax, pandas, sklearn or the JAX
+    package ``multimodal_neuroimage_tpu`` (any of its modules) gets
+    loaded."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
