@@ -64,7 +64,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    2-epoch ``Trainer`` run at batch 4 (std layout; exactly K1 mm16 forward
    and backward, K2/K3, K4 and K5 launch), serving its checkpoint (logits
    vs the CPU at the same policy), one training step card vs CPU on std
-   (batch 4) and on bp (batch 8); a 1-epoch bp run at batch 16 (exactly K1
+   (batch 4) and on bp (batch 8), both at a cut depth (2 BERT layers a
+   band, one fusion stage of depth 2 a group: the CPU's side at full depth
+   took minutes); a 1-epoch bp run at batch 16 (exactly K1
    mm16, the four K7 bf16 kernels, K4 and K5), its serving against the std
    layout; bf16 and float32 training steps timed in turns at batch 4 (std)
    and 16 (std and bp), with peak memory. The bf16 tolerances against
@@ -105,10 +107,38 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    host gears, the three gears' host-side items/s at batch 4 and 16; 16
    HCP subjects served by ``run_predict`` at HCP's defaults from phase 7's
    checkpoint (exactly 16 bf16 K6 forwards a pass); the phase's wall time.
-10. Prints one JSON line of per-kernel results (launches by path:
+10. The structural phases from a synthetic cohort on disk (40 subjects:
+   28 train, 6 val, 6 test), each at its ``Config`` defaults (bf16 policy;
+   phase 3 at batch 4 with Adam, phase 6 at batch 8 with AdamW and fusion
+   dropout 0.8). First K5 in adam mode (L2 into the gradient) at the
+   phase-3 models' parameter counts, with and without clipping, beside
+   ``torch.optim.Adam(fused=True)`` and K5 in adamw mode, and K2/K3 at
+   dropout 0.8, batch 8, shifts 0 and 3, forward and backward, each
+   against its plain version. Then phase 3's ``SwinClassifier`` on sMRI
+   (bench #1, ``smri_swin``: 2 epochs), its VAE front on DTI and its UNet
+   front on DTI+sMRI (1 epoch each) and phase 6's ``SwinFusionNet`` on the
+   sMRI + DTI pair (bench #4, ``swinfusion_struct``: 2 epochs), each
+   through ``Trainer(cfg).training()`` (exactly K4 ten times a forward and
+   a step's backward, K5 once a step, and for SwinFusionNet the flagship
+   backbone's 48 K2 and 12 K3; a best-AUROC checkpoint for the bench
+   models; for the one-epoch fronts the run's best checkpoint, or its last
+   weights where validation never improved),
+   ``Trainer(cfg, sets=["test"]).testing()``, ``run_predict(cfg)`` (equal
+   to an in-memory ``Predictor`` on the same batches) and serving its val
+   and test subjects (logits vs the CPU at the float32 tolerances: the
+   models compute in float32 on bf16-rounded values); for ``smri_swin``
+   and ``swinfusion_struct`` one training step card vs CPU (the second's
+   backbone at the cut depth of phase 5's). DTI and
+   DTI+sMRI through the ``native`` gear (matrices vs the host items within
+   2e-3, one ``run_predict`` each). Training and predict steps of the four
+   models at the phase's batch and at 64, bf16 and float32 in turns, with
+   peak memory.
+11. Prints one JSON line of per-kernel results (launches by path:
    flagship, flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, hcp_bf16,
-   flagship_defaults, flagship_disk, hcp_disk, dot_shapes) and, last, the
-   ok line.
+   flagship_defaults, flagship_disk, hcp_disk, dot_shapes, smri_swin,
+   smri_swin_vae, smri_swin_unet, swinfusion_struct, struct_disk; K5's and
+   K2/K3's cases on the structural paths under ``path_cases``) and, last,
+   the ok line.
 
 Any failed phase raises, so the exit code is non-zero and no ok line is
 printed. Without a CUDA card it exits with code 2 before doing anything;
@@ -216,6 +246,33 @@ FIR_ATOL = 2e-4
 DISK_SUBJECTS, DISK_HCP = 40, 16
 NATIVE_ATOL, NATIVE_STRUCT = 1e-4, 2e-3
 GEAR_BATCHES = (4, 16)
+# the structural phases (phase 3's SwinV2 classifier and its VAE and UNet
+# fronts, phase 6's SwinFusionNet) from a synthetic cohort on disk of
+# DISK_SUBJECTS (28 train, 6 val, 6 test): K4 ten times a SwinV2 forward
+# (depths 2 + 2 + 6) and a step's backward, K5 once a step; SwinFusionNet
+# adds the flagship backbone's 48 K2 and 12 K3 a forward and a backward.
+# Training and predict steps timed at the phase's batch and at 64
+# (bench.py's BENCH_PER_CHIP_BATCH default)
+SWIN_FORWARD = {"K4 window_attention": 10}
+SWIN_BACKWARD = {"K4 window_attention backward": 10}
+FUSION_FORWARD = {"K2 fusion_block": 48, "K3 cross_fusion_block": 12,
+                  **SWIN_FORWARD}
+FUSION_BACKWARD = {"K2 fusion_block backward": 48,
+                   "K3 cross_fusion_block backward": 12, **SWIN_BACKWARD}
+STRUCT_BENCH_BATCH = 64
+# the card-vs-CPU training steps of the fusion models (the bf16 flagship,
+# phase 6) at a cut depth: one RSTB / CRSTB of depth 2 a stage group (the
+# flagship's widths: C = 12, 6 heads, 6x6 windows over 84x84), and 2 BERT
+# layers a band for the flagship; at full depth the CPU's side of these
+# steps took minutes
+CPU_STEP_DEPTH = dict(fusion_ex_depths=(2,), fusion_depths=(2,),
+                      fusion_re_depths=(2,), fusion_ex_heads=(6,),
+                      fusion_heads=(6,), fusion_re_heads=(6,))
+# card vs CPU gradients of phase 6's step, per tensor relative to its
+# max-abs: at dropout 0.8 every kept activation of the 60 fusion blocks is
+# scaled by 5 (1 / 0.2, against 1 / 0.9 at the flagship's 0.1), and the
+# float32 rounding of the sums over them grows with it
+GRAD_REL_DROP8 = 5e-2
 # K6's bf16 form vs its plain version: both compute in float32 and round the
 # output (or dq/dk/dv) to bf16 once; a float32 sum taken in another order
 # can land on the neighbouring bf16 value: forward |err| <= K6_RTOL16 |want|
@@ -406,6 +463,19 @@ class Results:
         r["cases"] += 1
         return bound, by
 
+    def path_case(self, key, path, label, err, ms, plain_ms, ops, nbytes,
+                  library_ms=None, **extra):
+        """One case of a kernel in a mode or at a rate that its other cases
+        do not run (K5's adam mode, K2/K3 at dropout 0.8), kept apart from
+        its averages under ``path_cases[path]``; returns (bound ms, by)."""
+        bound, by = _bound(ops, nbytes)
+        self.rows[key].setdefault("path_cases", {}).setdefault(
+            path, []).append({"case": label, "max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound,
+                              "bound_by": by, "library_ms": library_ms,
+                              **extra})
+        return bound, by
+
     def line(self, key, launches):
         """The kernel's entry of the JSON line (times averaged over its
         cases)."""
@@ -443,7 +513,7 @@ class Results:
                 "simt_form_ms": mean("simt"),
                 **{k: r[k] for k in ("float64_share", "simt_float64_share",
                                      "bound_rates", "bound_ms_f32_rate",
-                                     "library_backend")
+                                     "library_backend", "path_cases")
                    if k in r}}
 
 
@@ -1905,26 +1975,28 @@ def _train(cfg, train_records, val_records, folder, label):
     return trainer, metrics, counts, wall
 
 
-def _print_run(label, cfg, trainer, metrics, wall):
+def _print_run(label, cfg, trainer, metrics, wall, ckpt=None):
     from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import load_checkpoint
-    ckpt = trainer.best_checkpoint()
+    ckpt = ckpt or trainer.best_checkpoint()
     meta = load_checkpoint(ckpt)["metadata"]
     print(f"{label}: trained {cfg.nEpochs} epochs x {trainer.steps_per_epoch} "
           f"steps in {wall:.1f} s; step losses "
           f"{[round(v, 4) for v in trainer.step_losses]}; "
           f"train_AUROC {metrics.get('train_AUROC')}, val_AUROC "
           f"{metrics.get('val_AUROC')}; best checkpoint "
-          f"{os.path.basename(ckpt)} (val_AUROC {meta['best_auroc']}, "
+          f"{os.path.basename(ckpt)} (val_AUROC {meta.get('best_auroc')}, "
           f"val_threshold {meta['val_threshold']})")
 
 
-def _serve(cfg, ckpt, requests, folder, label, card, reference="CPU"):
+def _serve(cfg, ckpt, requests, folder, label, card, reference="CPU",
+           f32_compute=False):
     """Serve ``requests`` from ``ckpt`` on the card (counts set to 0 just
     before the timed pass); logits must match the CPU through the plain
     versions or, with ``reference="std"`` (the caller runs the bp layout),
     the std fusion layout on the card, whose predict step is then timed in
-    turns beside the served layout's. Returns the serving run's launch
-    counts."""
+    turns beside the served layout's. ``f32_compute``: the model computes in
+    float32 under either policy, so the float32 tolerances hold. Returns
+    the serving run's launch counts."""
     from multimodal_neuroimage_tpu_torch import ops
     from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import load_checkpoint
     from multimodal_neuroimage_tpu_torch.models.registry import create_model
@@ -1964,12 +2036,14 @@ def _serve(cfg, ckpt, requests, folder, label, card, reference="CPU"):
         def ref_step(batch):
             return cpu_step(batch)["binary_classification"]
     atol, rtol = ((LOGIT16, LOGIT16) if cfg.compute_dtype == "bfloat16"
-                  else (LOGIT_ATOL, LOGIT_RTOL))
+                  and not f32_compute else (LOGIT_ATOL, LOGIT_RTOL))
     logit_err = 0.0
+    t_ref = time.perf_counter()
     for batch, _ in pred.batches():
         got = pred.step(batch)["binary_classification"].cpu()
         logit_err = max(logit_err, _close(f"{label} serving logits", got,
                                           ref_step(batch), atol, rtol))
+    t_ref = time.perf_counter() - t_ref
     first, _ = next(pred.batches())
     beside = ""
     if reference == "std":
@@ -1984,15 +2058,19 @@ def _serve(cfg, ckpt, requests, folder, label, card, reference="CPU"):
           f"step {fwd:.2f} ms per batch of {cfg.batch_size} "
           f"({cfg.batch_size / fwd * 1e3:.2f} subjects/s){beside}; logits vs "
           f"{reference} max|err| {logit_err:.3e} (atol {atol} + rtol "
-          f"{rtol}); card: {card}")
+          f"{rtol}; the comparison took {t_ref:.1f} s); card: {card}")
     return counts
 
 
-def _step_compare(cfg, batch, label, sides):
+def _step_compare(cfg, batch, label, sides, optim="AdamW",
+                  f32_compute=False, grad_rel=GRAD_REL):
     """One training step on each of two ``sides`` ((name, device, fusion
     layout)), from the same weights, batch and generator state: the first
     side's loss, every gradient and the updated parameters against the
-    second's. Returns each side's launch counts."""
+    second's. ``f32_compute``: the model computes in float32 under either
+    policy (the struct nets: bf16-rounded weights and inputs, float32
+    streams), so the float32 tolerances hold, each gradient within
+    ``grad_rel`` of its max-abs. Returns each side's launch counts."""
     from multimodal_neuroimage_tpu_torch import ops
     from multimodal_neuroimage_tpu_torch.models.registry import (
         create_model, init_random_weights)
@@ -2002,11 +2080,14 @@ def _step_compare(cfg, batch, label, sides):
     specs = active_losses(cfg.task, cfg.fine_tune_task)
     lr = 1e-3
     models, out, counts = {}, {}, {}
+    took = {}
     for side, dev, layout in sides:
+        t0 = time.perf_counter()
         m = init_random_weights(create_model(cfg),
                                 torch.Generator().manual_seed(SEED + 1))
+        init = {n: p.detach().clone() for n, p in m.named_parameters()}
         m.to(dev)
-        opt = create_optimizer("AdamW", m.parameters(), lambda t: lr,
+        opt = create_optimizer(optim, m.parameters(), lambda t: lr,
                                cfg.weight_decay)
         step = make_train_step(m, specs, opt, cfg.compute_dtype, dev)
         with _layout(layout):
@@ -2016,10 +2097,12 @@ def _step_compare(cfg, batch, label, sides):
             torch.cuda.synchronize()
             counts[side] = ops.launches()
         models[side] = m
+        took[side] = time.perf_counter() - t0
     (a, _, _), (b, _, _) = sides
     loss_a = out[a][0]["total"].item()
     loss_b = out[b][0]["total"].item()
-    bf16 = cfg.compute_dtype == "bfloat16"
+    bf16 = cfg.compute_dtype == "bfloat16" and not f32_compute
+    l2 = cfg.weight_decay if optim.lower() == "adam" else 0.0
     shares = GRAD16_HCP if cfg.dataset_name == "hcp" else GRAD16
     tol = (LOGIT16, LOGIT16) if bf16 else (LOGIT_ATOL, LOGIT_RTOL)
     _close(f"{label} step loss", torch.tensor([loss_a]),
@@ -2043,18 +2126,21 @@ def _step_compare(cfg, batch, label, sides):
             grad_err = max(grad_err, e)
         else:
             grad_err = max(grad_err, _close_rel(f"grad {n}", ga, gb,
-                                                GRAD_REL))
+                                                grad_rel))
+        # Adam's update follows the gradient with the L2 term added
         e, u = _sign_stable_update_check(f"param {n}", p.detach().cpu(),
-                                         q.detach().cpu(), ga, gb, lr)
+                                         q.detach().cpu(), ga + l2 * init[n],
+                                         gb + l2 * init[n], lr)
         upd_err, unstable = max(upd_err, e), unstable + u
         n_params += p.numel()
     within = (f"every gradient within {shares} of its component's largest "
               f"(worst share {worst})" if bf16 else
-              f"every gradient within {GRAD_REL} * its max-abs")
+              f"every gradient within {grad_rel} * its max-abs")
     print(f"one {label} training step, {a} vs {b}: loss {loss_a:.6f} vs "
           f"{loss_b:.6f}; {within} (worst abs err {grad_err:.3e}); updated "
           f"params max|diff| {upd_err:.3e}, {unstable} of {n_params} "
-          f"elements with a sign-unstable gradient")
+          f"elements with a sign-unstable gradient; each side's model and "
+          f"step took {', '.join(f'{k} {v:.1f} s' for k, v in took.items())}")
     return counts
 
 
@@ -2141,7 +2227,8 @@ def flagship_bp(rng, card):
     return counts
 
 
-def _time_dtypes(cfg, batches, combos, label, card, steps=12):
+def _time_dtypes(cfg, batches, combos, label, card, steps=12,
+                 optim="AdamW"):
     """Training steps of one model at each (fusion layout, compute dtype) of
     ``combos``, timed in turns (the combos, then again in reverse, half the
     steps a turn) after 3 of warm-up each: CUDA-synchronised median and
@@ -2154,7 +2241,7 @@ def _time_dtypes(cfg, batches, combos, label, card, steps=12):
     model = init_random_weights(create_model(cfg),
                                 torch.Generator().manual_seed(SEED + 3))
     model.cuda()
-    opt = create_optimizer("AdamW", model.parameters(), lambda t: 1e-4,
+    opt = create_optimizer(optim, model.parameters(), lambda t: 1e-4,
                            cfg.weight_decay)
     specs = active_losses(cfg.task, cfg.fine_tune_task)
     gen = torch.Generator().manual_seed(SEED + 4)
@@ -2194,13 +2281,33 @@ def _exact_path(counts, path, label):
                              f"{sorted(path)}: {counts}")
 
 
+def _bp16_step(cfg):
+    """The launches of one bp training step of the bf16 flagship ``cfg``:
+    a K1 mm16 layer a band, the stacks' self blocks (two branches of Ex,
+    the CRSTBs' two streams, Re) and the CRSTBs' two directed cross calls a
+    block, on K7's bf16 form; 10 SwinV2 blocks; K5 once (BP16_STEP at the
+    full depth)."""
+    layers = 2 * cfg.transformer_hidden_layers
+    own = (2 * sum(cfg.fusion_ex_depths) + 2 * sum(cfg.fusion_depths)
+           + sum(cfg.fusion_re_depths))
+    cross = 2 * sum(cfg.fusion_depths)
+    return {"K1 bert_layer mm16": layers, "K1 bert_layer backward mm16": layers,
+            "K7 fusion_block_bp bf16": own,
+            "K7 fusion_block_bp backward bf16": own,
+            "K7 cross_fusion_block_bp bf16": cross,
+            "K7 cross_fusion_block_bp backward bf16": cross,
+            "K4 window_attention": 10, "K4 window_attention backward": 10,
+            "K5 fused_adam": 1}
+
+
 def flagship_bf16(rng, card, train_records, val_records):
     """The flagship at its shipping policy, compute_dtype="bfloat16" (K1's
     mm16 form; K2/K3 on float32 streams with bf16 weights; K7 on bf16
     streams): a 2-epoch ``Trainer`` run at batch 4 on the std layout that
     launches exactly FLAGSHIP16_KERNELS; serving its best checkpoint, logits
     against the CPU at the same policy; one training step card vs CPU on the
-    std layout (batch 4) and on bp (batch 8, one group of 8); a 1-epoch run
+    std layout (batch 4) and on bp (batch 8, one group of 8), both at
+    CPU_STEP_DEPTH with 2 BERT layers a band; a 1-epoch run
     on bp at batch 16 (exactly the BP16_STEP kernels) and its serving
     against the std layout; bf16 and float32 training steps timed in turns
     at batch 4 (std) and batch 16 (std and bp), with peak memory. Returns
@@ -2221,7 +2328,9 @@ def flagship_bf16(rng, card, train_records, val_records):
                        "flagship bf16", card)
         _exact_path(serve, forward, "bf16 serving run")
     batch, _ = next(trainer.batches("train"))
-    _step_compare(cfg, batch, "flagship bf16",
+    _step_compare(dataclasses.replace(cfg, transformer_hidden_layers=2,
+                                      **CPU_STEP_DEPTH), batch,
+                  "flagship bf16 (cut depth)",
                   (("card", "cuda", "std"), ("CPU", "cpu", "std")))
     batches4 = [b for b, _ in trainer.batches("train")]
     del trainer
@@ -2245,13 +2354,15 @@ def flagship_bf16(rng, card, train_records, val_records):
                     "bp bf16 serving run")
     batches16 = [b for b, _ in trainer.batches("train")]
     del trainer
-    # card vs CPU on bp: batch 8, one group of G = 8 (the CPU's step at the
-    # full width of batch 16 would take minutes)
+    # card vs CPU on bp: batch 8, one group of G = 8, at CPU_STEP_DEPTH (the
+    # CPU's step at the full width of batch 16 would take minutes)
     batch8 = {k: v[:8] for k, v in batches16[0].items()}
-    step_cfg = _flagship_cfg(compute_dtype="bfloat16", batch_size=8)
-    steps = _step_compare(step_cfg, batch8, "flagship bp bf16 batch 8",
+    step_cfg = _flagship_cfg(compute_dtype="bfloat16", batch_size=8,
+                             transformer_hidden_layers=2, **CPU_STEP_DEPTH)
+    steps = _step_compare(step_cfg, batch8,
+                          "flagship bp bf16 batch 8 (cut depth)",
                           (("card", "cuda", "bp"), ("CPU", "cpu", "bp")))
-    want = {k: BP16_STEP.get(k, 0) for k in steps["card"]}
+    want = {k: _bp16_step(step_cfg).get(k, 0) for k in steps["card"]}
     if steps["card"] != want:
         raise AssertionError(f"one bp bf16 training step launched "
                              f"{steps['card']}, expected {want}")
@@ -2400,8 +2511,8 @@ def _gear_rates(cfg, records, card):
 
 def _native_vs_host(cfg, records):
     """The native gear's batches against the host gear's on the same
-    subjects: bands within NATIVE_ATOL, struct matrices at float16 grain
-    within NATIVE_STRUCT. Returns the worst errors."""
+    subjects: bands within NATIVE_ATOL, structural matrices at float16
+    grain within NATIVE_STRUCT. Returns the worst errors."""
     from multimodal_neuroimage_tpu_torch.data.loader import DataPipeline
 
     def batches(gear):
@@ -2413,13 +2524,16 @@ def _native_vs_host(cfg, records):
         if nn != hn:
             raise AssertionError(f"native and host batches differ: {nn} "
                                  f"vs {hn}")
+        matrices = [k for k in ("struct", "smri", "dti") if k in nb]
         got = {k: nb[k] for k in ("fmri_raw_sequence", "fmri_lowfreq_sequence",
-                                  "fmri_ultralowfreq_sequence")}
-        got["struct"] = nb["struct"].astype(np.float16)
+                                  "fmri_ultralowfreq_sequence") if k in nb}
+        got.update({k: nb[k].astype(np.float16) for k in matrices})
+        if not matrices or set(got) - set(hb):
+            raise AssertionError(f"native batch keys {sorted(nb)}")
         for key, value in got.items():
-            tol = NATIVE_STRUCT if key == "struct" else NATIVE_ATOL
+            tol = NATIVE_STRUCT if key in matrices else NATIVE_ATOL
             np.testing.assert_allclose(value, hb[key], atol=tol,
-                                       rtol=tol if key == "struct" else 0,
+                                       rtol=tol if key in matrices else 0,
                                        err_msg=f"native gear {key}")
             err = float(np.abs(value.astype(np.float64) - hb[key]).max())
             errs[key] = max(errs.get(key, 0.0), err)
@@ -2573,6 +2687,420 @@ def disk_cohorts(card, hcp_ckpt):
     return counts, hcounts
 
 
+def _struct_cfg(root, phase, dataset, folder, title, **kw):
+    """Phase ``phase``'s ``Config`` (its defaults: bf16 policy; phase 3
+    batch 4 and Adam, phase 6 batch 8, AdamW and fusion dropout 0.8) on the
+    cohort at ``root``; ``kw`` and the names here are set by the user."""
+    from multimodal_neuroimage_tpu_torch.config import config_for_phase
+    from multimodal_neuroimage_tpu_torch.data import synthetic
+    user = dict(dataset_name=dataset, target="sex",
+                fine_tune_task="binary_classification", seed=SEED,
+                experiment_folder=folder, experiment_title=title, **kw)
+    return config_for_phase(synthetic.synthetic_config(root, **user), phase,
+                            user_set=set(user))
+
+
+def _per_pass(counts, forward, backward, steps, passes, label):
+    """Exactly ``forward`` a forward pass (``passes`` of them),
+    ``backward`` a step (``steps``), K5 once a step, and no other kernel."""
+    want = {k: n * passes for k, n in forward.items()}
+    want.update({k: n * steps for k, n in backward.items()})
+    if steps:
+        want["K5 fused_adam"] = steps
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError(f"the {label} launched {counts}, expected "
+                             f"exactly {want}")
+
+
+def struct_kernels(gen, res: Results, n_params):
+    """K5 in adam mode (L2 into the gradient, phase 3's optimizer) at the
+    phase-3 models' parameter counts, with and without clipping, against
+    ``fused_adam_reference``, timed in turns beside its plain version,
+    ``torch.optim.Adam(fused=True)`` and K5 in adamw mode on the same
+    buffers; K2/K3 at phase 6's dropout 0.8 (hidden and attention) and
+    DropPath, batch 8, shifts 0 and 3: the training forward (its saved x2r
+    too) and the backward against their plain versions on the same hash
+    masks, timed in turns beside their plain versions and themselves at the
+    flagship's rate 0.1. Recorded as the kernels' path cases."""
+    from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
+    from multimodal_neuroimage_tpu_torch.ops import fused_update as fu
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+    dev = "cuda"
+    for label, n in n_params.items():
+        pk, gk, mk = (torch.randn(n, generator=gen).to(dev) for _ in range(3))
+        nk = torch.rand(n, generator=gen).to(dev)
+        for clip in (None, torch.tensor([0.5], device=dev)):
+            state = [t.clone() for t in (pk, mk, nk)]
+            args = (clip, 1e-4, 10.0, 1000.0, 0.9, 0.999, 1e-8, 1e-5, False)
+            fu.fused_adam_update(pk, gk, mk, nk, *args)
+            fu.fused_adam_reference(state[0], gk, state[1], state[2], *args)
+            torch.cuda.synchronize()
+            err = max(_close(f"K5 adam {label} {name}", a, b, ATOL, RTOL)
+                      for name, a, b in zip(("p", "mu", "nu"), (pk, mk, nk),
+                                            state))
+            flat = torch.nn.Parameter(pk.clone())
+            flat.grad = gk.clone()
+            adam = torch.optim.Adam([flat], lr=1e-4, betas=(0.9, 0.999),
+                                    eps=1e-8, weight_decay=1e-5, fused=True)
+            plain_ms, ms, lib_ms, adamw_ms = _turns([
+                lambda: fu.fused_adam_reference(state[0], gk, state[1],
+                                                state[2], *args),
+                lambda: fu.fused_adam_update(pk, gk, mk, nk, *args),
+                adam.step,
+                lambda: fu.fused_adam_update(pk, gk, mk, nk, *args[:-1],
+                                             True)])
+            # ~18 operations an element (L2 adds one multiply-add);
+            # p, g, mu, nu read, p, mu, nu written
+            tag = f"adam, {label}, {n} params, clip {clip is not None}"
+            bound, by = res.path_case("K5 fused_adam", "smri_swin", tag, err,
+                                      ms, plain_ms, 18 * n, 7 * 4 * n,
+                                      lib_ms, adamw_ms=adamw_ms)
+            print(f"K5 fused_adam {tag}: max|err| {err:.3e} (atol {ATOL} + "
+                  f"rtol {RTOL})  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
+                  f"ms  bound {bound:.6f} ms ({by})  torch.optim.Adam(fused="
+                  f"True) {lib_ms:.4f} ms  K5 adamw {adamw_ms:.4f} ms")
+
+    C, Hh, N, nW, B = 12, 6, 36, 196, 8
+    self_p, cross_p, bias, _, _ = _fusion_inputs(gen)
+    xb, yb, gw = (torch.randn(B, nW, N, C, generator=gen).to(dev)
+                  for _ in range(3))
+    dp = ((torch.rand(B, 2, generator=gen) > 0.1).float() / 0.9).to(dev)
+    seed, rates = 2468, (0.8, 0.8)
+    fops = _fusion_ops(B, nW, N, C, Hh)
+    for shift in (0, 3):
+        m = shift_attn_mask(84, 84, 6, shift)
+        mask = None if m is None else torch.from_numpy(m).to(dev)
+        for cross, key, p_ in ((False, "K2 fusion_block", self_p),
+                               (True, "K3 cross_fusion_block", cross_p)):
+            y_ = yb if cross else None
+            streams = (xb, yb) if cross else (xb,)
+            tag = f"rate 0.8 B {B} shift {shift}"
+
+            def fwd(p_=p_, y_=y_, mask=mask, cross=cross, r=rates):
+                return fb._launch_forward(xb, y_, p_, bias, mask, dp, seed,
+                                          r, True, True, cross)
+
+            def ref(p_=p_, y_=y_, mask=mask, cross=cross):
+                return fb._block_reference(xb, y_, p_, bias, mask, dp, seed,
+                                           rates, True, cross)
+            (out, x2r), want = fwd(), ref()
+            no_fc2 = p_[:-2] + tuple(torch.zeros_like(t) for t in p_[-2:])
+            want_x2r = fb._block_reference(xb, y_, no_fc2, bias, mask, dp,
+                                           seed, rates, True, cross)
+            torch.cuda.synchronize()
+            err = max(_close(f"{key} {tag}", out, want, ATOL, RTOL),
+                      _close(f"{key} {tag} x2r", x2r, want_x2r, ATOL, RTOL))
+            # the flagship's rate 0.1 on the same inputs, timed in turns
+            plain_ms, ms, ms01 = _turns([ref, fwd,
+                                         lambda: fwd(r=(0.1, 0.1))])
+            bound, by = res.path_case(key, "swinfusion_struct", tag, err, ms,
+                                      plain_ms, sum(fops),
+                                      _nbytes(*streams, xb, xb, bias, mask,
+                                              dp, *p_), rate_01_ms=ms01)
+            print(f"{key} {tag} (training forward): max|err| {err:.3e}  "
+                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                  f"{bound:.6f} ms ({by})  kernel at rate 0.1 {ms01:.4f} ms")
+
+            x2r01 = fwd(r=(0.1, 0.1))[1]
+            if cross:
+                def kern(p_=p_, mask=mask, x2r=x2r, r=rates):
+                    return fb.fused_cross_fusion_block_backward(
+                        gw, xb, yb, p_, bias, mask, dp, seed, r, True, x2r)
+                ins, plain = _plain_backward(
+                    lambda x_, y2, b_, *q, mask=mask:
+                        fb.cross_fusion_block_reference(
+                            x_, y2, q, b_, mask, dp, seed, rates, True),
+                    (xb, yb, bias) + p_, gw)
+            else:
+                def kern(p_=p_, mask=mask, x2r=x2r, r=rates):
+                    return fb.fused_fusion_block_backward(
+                        gw, xb, p_, bias, mask, dp, seed, r, True, x2r)
+                ins, plain = _plain_backward(
+                    lambda x_, b_, *q, mask=mask: fb.fusion_block_reference(
+                        x_, q, b_, mask, dp, seed, rates, True),
+                    (xb, bias) + p_, gw)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            n_in = len(streams)
+            d_streams = got[:n_in]
+            dbias, dparams = got[n_in], got[n_in + 1]
+            errs = [_close(f"{key} backward {tag} d{'xy'[i]}", a, w, ATOL,
+                           RTOL)
+                    for i, (a, w) in enumerate(zip(d_streams, want))]
+            errs.append(_close_rel(f"{key} backward {tag} dbias", dbias,
+                                   want[n_in], SUM_REL))
+            errs += [_close_rel(f"{key} backward {tag} dparams[{i}]", a, w,
+                                SUM_REL)
+                     for i, (a, w) in enumerate(zip(dparams,
+                                                    want[n_in + 1:]))]
+            plain_ms, ms, ms01 = _turns(
+                [plain, kern,
+                 lambda kern=kern: kern(x2r=x2r01, r=(0.1, 0.1))], 10)
+            bkey = f"{key} backward"
+            bound, by = res.path_case(
+                bkey, "swinfusion_struct", tag, max(errs), ms, plain_ms,
+                2 * fops[0], _nbytes(*streams, *streams, gw, dp, mask, bias,
+                                     bias, *p_, *p_), rate_01_ms=ms01)
+            print(f"{bkey} {tag}: max|err| {max(errs):.3e} (streams atol "
+                  f"{ATOL} + rtol {RTOL}; sums {SUM_REL} * max|ref| + "
+                  f"{SUM_ATOL})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                  f"bound {bound:.6f} ms ({by})  kernel at rate 0.1 "
+                  f"{ms01:.4f} ms")
+
+
+def _struct_batches(cfg, B, n=3):
+    """``n`` host batches of B random matrices under ``cfg``'s keys, with
+    targets (the timing inputs, as bench.py's)."""
+    from multimodal_neuroimage_tpu_torch.data.loader import STRUCT_INPUTS
+    rng = np.random.default_rng(SEED + B)
+    return [{**{k: rng.normal(size=(B, 84, 84)).astype(np.float32)
+                for k in STRUCT_INPUTS[cfg.dataset_name]},
+             "target": (np.arange(B) % 2).astype(np.float32)}
+            for _ in range(n)]
+
+
+def _time_predict(cfg, batches, dtypes, label, card, steps=12):
+    """Predict steps of one model at each compute dtype, timed in turns (the
+    dtypes, then in reverse, half the steps a turn) after 3 of warm-up:
+    CUDA-synchronised median and quartiles, subjects/s, peak memory."""
+    from multimodal_neuroimage_tpu_torch.models.registry import (
+        create_model, init_random_weights)
+    from multimodal_neuroimage_tpu_torch.serve.predictor import (
+        make_predict_step)
+    from multimodal_neuroimage_tpu_torch.train.state import (
+        flatten_parameters)
+    model = init_random_weights(create_model(cfg),
+                                torch.Generator().manual_seed(SEED + 5))
+    model.cuda()
+    flatten_parameters(model)
+    fns = {d: make_predict_step(model, d, "cuda") for d in dtypes}
+    times = {d: [] for d in dtypes}
+    peak = dict.fromkeys(dtypes, 0.0)
+    for d in list(dtypes) + list(dtypes)[::-1]:
+        for i in range(3):
+            fns[d](batches[i % len(batches)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(steps // 2):
+            t0 = time.perf_counter()
+            fns[d](batches[i % len(batches)])
+            torch.cuda.synchronize()
+            times[d].append(1e3 * (time.perf_counter() - t0))
+        peak[d] = max(peak[d], torch.cuda.max_memory_allocated() / 2 ** 20)
+    bs = cfg.batch_size
+    for d in dtypes:
+        q1, med, q3 = np.percentile(times[d], [25, 50, 75])
+        print(f"{label} predict step, {d} (batch {bs}, host batch prepared, "
+              f"timed in turns): median {med:.3f} ms (q1 {q1:.3f}, q3 "
+              f"{q3:.3f}) over {len(times[d])} steps; {bs / med * 1e3:.2f} "
+              f"subjects/s; peak device memory {peak[d]:.0f} MiB; card: "
+              f"{card}")
+
+
+def _struct_phase(cfg, label, card, forward, backward, step_rel=None):
+    """One phase from the cohort on disk, through the entry points a user
+    calls: ``Trainer(cfg).training()`` with every count set to 0 just
+    before it (exactly ``forward`` a forward, ``backward`` and K5 a step,
+    nothing else; a best-AUROC checkpoint where the step is checked, else
+    the run's default checkpoint or its last weights), ``Trainer(cfg,
+    sets=["test"]).testing()``, ``run_predict(cfg)`` (every subject once,
+    exactly ``forward`` a batch, equal to an in-memory ``Predictor`` on
+    the same arrays in the same order), serving the val and test subjects
+    in memory with the logits against the CPU's, and given ``step_rel`` one
+    training step card vs CPU (SwinFusionNet's backbone at
+    CPU_STEP_DEPTH), each gradient within ``step_rel`` of its max-abs. Returns the training run's counts and the checkpoint."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
+        default_checkpoint, save_checkpoint)
+    from multimodal_neuroimage_tpu_torch.data.datasets import ItemLoader
+    from multimodal_neuroimage_tpu_torch.data.index import build_subject_index
+    from multimodal_neuroimage_tpu_torch.serve.predictor import (Predictor,
+                                                                 run_predict)
+    from multimodal_neuroimage_tpu_torch.train.trainer import Trainer
+    t_run = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    splits = trainer.pipeline.splits
+    if {k: len(v) for k, v in splits.items()} != {"train": 28, "val": 6,
+                                                 "test": 6}:
+        raise AssertionError(f"{label}: split sizes of {cfg.dataset_name}")
+    if trainer.optimizer.adamw != (cfg.optim.lower() == "adamw"):
+        raise AssertionError(f"{label}: K5 is not in {cfg.optim} mode")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    metrics = trainer.training()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    steps = cfg.nEpochs * trainer.steps_per_epoch
+    evals = cfg.nEpochs * -(-len(splits["val"]) // cfg.batch_size)
+    _per_pass(counts, forward, backward, steps, steps + evals,
+              f"{label} training run")
+    if not np.isfinite(trainer.step_losses).all():
+        raise AssertionError(f"{label}: {trainer.step_losses}")
+    ckpt = default_checkpoint(cfg)
+    if step_rel is not None and ckpt != trainer.best_checkpoint():
+        raise AssertionError(f"{label}: no best-AUROC checkpoint ({ckpt})")
+    if ckpt is None:
+        # one epoch on 6 val subjects can leave validation AUROC and
+        # accuracy at 0, and BestCheckpointPolicy then writes nothing:
+        # test and serve the run's last weights
+        ckpt = save_checkpoint(
+            os.path.join(cfg.experiment_folder, f"{label}_last.ckpt"),
+            trainer.model.state_dict(),
+            {"val_threshold": trainer.val_threshold})
+    _print_run(label, cfg, trainer, metrics, wall, ckpt)
+    print(f"launches in the {label} training run: "
+          f"{ {k: n for k, n in counts.items() if n} }")
+
+    tester = Trainer(cfg, sets=["test"], device="cuda")
+    test = tester.testing()
+    if tester.checkpoint_path != ckpt or "test_AUROC" not in test:
+        raise AssertionError(f"{label} testing(): {test}")
+    print(f"{label}: testing() on the 6 test subjects at the frozen "
+          f"threshold {tester.val_threshold}: test_AUROC "
+          f"{test['test_AUROC']}, test_Balanced_Accuracy "
+          f"{test['test_Balanced_Accuracy']}")
+
+    records = build_subject_index(cfg, require_target=False)
+    names = [r.subject for r in records]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    scores = run_predict(cfg)
+    torch.cuda.synchronize()
+    pwall = time.perf_counter() - t0
+    _per_pass(ops.launches(), forward, {}, 0,
+              -(-len(names) // cfg.batch_size), f"{label} run_predict")
+    with open(os.path.join(cfg.experiment_folder, "predictions.csv")) as f:
+        rows = [line.split(",")[0] for line in f.read().splitlines()[1:]]
+    loader = ItemLoader(cfg)
+    memory = Predictor(cfg, ckpt, [loader.load(r) for r in records],
+                       device="cuda").predict()
+    if list(scores) != names or sorted(rows) != sorted(names) or (
+            memory != scores):
+        raise AssertionError(f"{label}: run_predict scored {len(scores)} "
+                             f"subjects, not each once as the in-memory "
+                             f"Predictor on the same batches")
+    print(f"{label}: run_predict scored {len(scores)} subjects in "
+          f"{pwall:.2f} s ({len(scores) / pwall:.2f} subjects/s, disk reads "
+          f"included), each once, equal to the in-memory Predictor")
+
+    requests = [loader.load(r) for r in splits["val"] + splits["test"]]
+    with tempfile.TemporaryDirectory(dir=cfg.experiment_folder) as tmp:
+        served = _serve(cfg, ckpt, requests, tmp, label, card,
+                        f32_compute=True)
+    _per_pass(served, forward, {}, 0, -(-len(requests) // cfg.batch_size),
+              f"{label} serving run")
+    if step_rel is not None:
+        batch, _ = next(trainer.batches("train"))
+        step_cfg = (dataclasses.replace(cfg, **CPU_STEP_DEPTH)
+                    if cfg.task == "SwinFusion" else cfg)
+        _step_compare(step_cfg, batch, label,
+                      (("card", "cuda", "std"), ("CPU", "cpu", "std")),
+                      optim=cfg.optim, f32_compute=True, grad_rel=step_rel)
+    print(f"{label} phase took {time.perf_counter() - t_run:.1f} s")
+    return counts, ckpt
+
+
+def struct_phases(card, gen, res: Results):
+    """The structural phases from a synthetic cohort on disk
+    (data/synthetic.py writes its DTI, sMRI and DTI+sMRI matrices), each at
+    its ``Config`` defaults through ``_struct_phase``: phase 3's
+    ``SwinClassifier`` on sMRI (bench #1's ``smri_swin``: 2 epochs, the
+    step card vs CPU), its VAE front on DTI and its UNet front on DTI+sMRI
+    (1 epoch each), phase 6's ``SwinFusionNet`` on the sMRI + DTI pair
+    (bench #4's ``swinfusion_struct``: 2 epochs, the step card vs CPU);
+    first their kernels' new forms (``struct_kernels``). Then DTI and
+    DTI+sMRI through the native gear (matrices vs the host items, one
+    ``run_predict`` each), and the training and predict steps of the four
+    models at the phase's batch and at 64, bf16 and float32 in turns.
+    Returns the launch counts by path."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.data import synthetic
+    from multimodal_neuroimage_tpu_torch.data.index import build_subject_index
+    from multimodal_neuroimage_tpu_torch.models.registry import create_model
+    from multimodal_neuroimage_tpu_torch.ops import build
+    from multimodal_neuroimage_tpu_torch.serve.predictor import run_predict
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        root = synthetic.generate_synthetic_cohort(
+            os.path.join(tmp, "cohort"), n_subjects=DISK_SUBJECTS, seed=SEED)
+        cfgs = {
+            "smri_swin": _struct_cfg(root, 3, "sMRI",
+                                     os.path.join(tmp, "smri_swin"),
+                                     "smri_swin", nEpochs=2),
+            "smri_swin_vae": _struct_cfg(root, 3, "DTI",
+                                         os.path.join(tmp, "vae"),
+                                         "smri_swin_vae", nEpochs=1,
+                                         use_vae=True),
+            "smri_swin_unet": _struct_cfg(root, 3, "DTI+sMRI",
+                                          os.path.join(tmp, "unet"),
+                                          "smri_swin_unet", nEpochs=1,
+                                          use_unet=True),
+            "swinfusion_struct": _struct_cfg(root, 6, "struct",
+                                             os.path.join(tmp, "fusion"),
+                                             "swinfusion_struct", nEpochs=2)}
+        p3, p6 = cfgs["smri_swin"], cfgs["swinfusion_struct"]
+        if ((p3.task, p3.batch_size, p3.optim, p3.compute_dtype)
+                != ("VIT", 4, "Adam", "bfloat16")
+                or (p6.task, p6.batch_size, p6.optim, p6.fusion_drop_rate,
+                    p6.fusion_attn_drop_rate)
+                != ("SwinFusion", 8, "AdamW", 0.8, 0.8)):
+            raise AssertionError(f"phase defaults: {p3}, {p6}")
+        struct_kernels(gen, res, {
+            name: sum(p.numel() for p in create_model(cfgs[name]).parameters())
+            for name in ("smri_swin", "smri_swin_unet", "smri_swin_vae")})
+        ckpts = {}
+        step_rel = {"smri_swin": GRAD_REL, "swinfusion_struct": GRAD_REL_DROP8}
+        for name, cfg in cfgs.items():
+            fusion = name == "swinfusion_struct"
+            launches[name], ckpts[name] = _struct_phase(
+                cfg, name, card, FUSION_FORWARD if fusion else SWIN_FORWARD,
+                FUSION_BACKWARD if fusion else SWIN_BACKWARD,
+                step_rel.get(name))
+
+        # DTI and DTI+sMRI through the native gear, served from the VAE's
+        # and the UNet's checkpoints
+        disk = {}
+        for name in ("smri_swin_vae", "smri_swin_unet"):
+            cfg = dataclasses.replace(cfgs[name], preprocess="native",
+                                      model_weights_path=ckpts[name])
+            records = build_subject_index(cfg, require_target=False)
+            errs = _native_vs_host(cfg, records)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            scores = run_predict(cfg)
+            counts = ops.launches()
+            _per_pass(counts, SWIN_FORWARD, {}, 0,
+                      -(-len(records) // cfg.batch_size),
+                      f"{cfg.dataset_name} native run_predict")
+            for k, n in counts.items():
+                disk[k] = disk.get(k, 0) + n
+            if len(scores) != len(records):
+                raise AssertionError(f"native {cfg.dataset_name}: "
+                                     f"{len(scores)} scores")
+            print(f"{cfg.dataset_name} through the native gear: matrices "
+                  f"vs the host items max|err| {errs} (float16 grain, "
+                  f"atol/rtol {NATIVE_STRUCT}); run_predict scored "
+                  f"{len(scores)} subjects")
+        launches["struct_disk"] = disk
+
+        for name, cfg in cfgs.items():
+            for B in (cfg.batch_size, STRUCT_BENCH_BATCH):
+                bcfg = dataclasses.replace(cfg, batch_size=B)
+                batches = _struct_batches(bcfg, B)
+                _time_dtypes(bcfg, batches, (("std", "bfloat16"),
+                                             ("std", "float32")),
+                             name, card, optim=cfg.optim)
+                _time_predict(bcfg, batches, ("bfloat16", "float32"), name,
+                              card)
+    print(f"structural phases took {time.perf_counter() - t_phase:.1f} s; "
+          f"card: {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2590,6 +3118,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+
+    def elapsed(done):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {done}")
 
     lib = build.library()
     print(f"kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
@@ -2609,6 +3142,7 @@ def main() -> int:
     bp_kernels(gen, results)
     bf16_kernels(gen, results)
     dot_counts = dot_shape_kernels(results)
+    elapsed("kernel phases")
 
     rng = np.random.default_rng(SEED)
     train_records = _cohort(rng, N_TRAIN, 0)
@@ -2660,13 +3194,16 @@ def main() -> int:
     del trainer
 
     # ---- the flagship on the bp fusion layout at batch 16 ------------------
+    elapsed("flagship phase")
     bp_counts = flagship_bp(rng, card)
+    elapsed("flagship bp phase")
 
     # ---- the flagship at its shipping bf16 policy, std and bp ---------------
     bf16_counts, bp_bf16_counts = flagship_bf16(rng, card, train_records,
                                                 val_records)
 
     # ---- the HCP phase-1 path: TransformerNet, every layer on K6 -----------
+    elapsed("flagship bf16 phase")
     hcp = _hcp_cfg(compute_dtype="float32")
     if (hcp.intermediate_vec, hcp.sequence_length, hcp.num_heads_2DBert,
             hcp.batch_size, hcp.transformer_hidden_layers) != (
@@ -2710,13 +3247,21 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as keep:
         # ---- HCP phase 1 at its default bf16 policy: K6's bf16 form ---------
+        elapsed("HCP phase")
         hcp16_counts, hcp16_ckpt = hcp_bf16(card, hcp_train, hcp_val, keep)
+        elapsed("HCP bf16 phase")
 
         # ---- the flagship at its full Config defaults (bf16, device gear) ---
         defaults_counts = flagship_defaults(card, train_records, val_records)
+        elapsed("flagship defaults phase")
 
         # ---- the flagship and HCP from cohorts on disk ----------------------
         disk_counts, hcp_disk_counts = disk_cohorts(card, hcp16_ckpt)
+
+    # ---- the structural phases: phase 3's SwinV2 nets, phase 6's fusion -----
+    elapsed("on-disk phase")
+    struct_counts = struct_phases(card, gen, results)
+    elapsed("structural phases")
 
     launches = {"flagship": train_counts, "flagship_bp": bp_counts,
                 "flagship_bf16": bf16_counts,
@@ -2724,7 +3269,7 @@ def main() -> int:
                 "hcp": hcp_counts, "hcp_bf16": hcp16_counts,
                 "flagship_defaults": defaults_counts,
                 "flagship_disk": disk_counts, "hcp_disk": hcp_disk_counts,
-                "dot_shapes": dot_counts}
+                "dot_shapes": dot_counts, **struct_counts}
     kernels = [results.line(key, launches) for key in ops.kernels()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

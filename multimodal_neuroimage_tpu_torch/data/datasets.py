@@ -2,10 +2,12 @@
 multimodal_neuroimage_tpu/data/datasets.py ``ItemLoader``).
 
 ``ItemLoader(cfg)(record)`` takes an on-disk ``SubjectRecord`` or an
-in-memory request (``{subject, fmri, struct?, target?}``). A record's
-arrays are loaded as the JAX loader loads them (``load``: the ABCD series
-without its first 20 TRs, transposed to (ROI, T); HCP's (22, T) series;
-the DTI+sMRI matrix as stored), then both kinds go through the same item
+in-memory request (``{subject, fmri, struct?, target?}``; the structural
+datasets' ``{subject, dti | smri | struct | smri and dti, target?}``). A
+record's arrays are loaded as the JAX loader loads them (``load``: the ABCD
+series without its first 20 TRs, transposed to (ROI, T); HCP's (22, T)
+series; each structural matrix as stored), then both kinds go through the
+same item
 function of data/loader.py (``item_for``), so the preprocessing of the
 host and device gears is one code for both. A record's item also carries
 ``subject`` (its index) and its target under ``cfg.target``, as JAX's
@@ -13,7 +15,7 @@ host and device gears is one code for both. A record's item also carries
 
 With ``augment`` and ``cfg.augment_prob > 0`` (the train split) the raw
 ABCD series takes ``BrainGaussian`` noise before the preprocessing, at the
-point of the JAX chain; HCP items take none.
+point of the JAX chain; HCP and structural items take none.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from multimodal_neuroimage_tpu_torch.data.index import (SubjectRecord,
 from multimodal_neuroimage_tpu_torch.data.loader import item_for
 
 ABCD_SKIP_TR = 20      # first 20 TRs dropped
+AUGMENTED = ("fMRI_timeseries", "multimodal")   # their raw ABCD series
 
 
 def load_abcd_fmri(path: str) -> np.ndarray:
@@ -42,17 +45,19 @@ class ItemLoader:
         self.item_fn = item_for(cfg)
         self.augment = (BrainGaussian(augment_prob=cfg.augment_prob,
                                       seed=cfg.seed)
-                        if augment and cfg.augment_prob > 0 else None)
+                        if augment and cfg.augment_prob > 0
+                        and cfg.dataset_name in AUGMENTED else None)
 
     def load(self, record: SubjectRecord) -> Dict[str, np.ndarray]:
         """One on-disk subject's arrays as an in-memory request."""
-        if self.cfg.dataset_name == "hcp":
-            fmri = np.load(record.paths["fmri"]).astype(np.float64)
-        else:
-            fmri = load_abcd_fmri(record.paths["fmri"])
-        request = {"subject": record.subject, "fmri": fmri}
-        if "struct" in record.paths:
-            request["struct"] = np.load(record.paths["struct"])
+        request = {"subject": record.subject}
+        for key, path in record.paths.items():
+            if key != "fmri":
+                request[key] = np.load(path)
+            elif self.cfg.dataset_name == "hcp":
+                request[key] = np.load(path).astype(np.float64)
+            else:
+                request[key] = load_abcd_fmri(path)
         return request
 
     def __call__(self, record: Union[SubjectRecord, Mapping]
@@ -65,7 +70,7 @@ class ItemLoader:
             out = ({self.cfg.target: np.float32(record["target"])}
                    if "target" in record else {})
             request = record
-        if self.augment is not None and self.cfg.dataset_name != "hcp":
+        if self.augment is not None:
             request = {**request, "fmri": self.augment(
                 np.asarray(request["fmri"], dtype=np.float64))}
         out.update(self.item_fn(request, self.cfg))

@@ -7,6 +7,9 @@ package (or for the reference) is read by both:
 
 * fMRI: ``<fmri_dir>/sub-<KEY>/desikankilliany_sub-<KEY>.npy`` (84 ROIs),
   ``harvard_oxford_sub-<KEY>.npy`` for 48;
+* DTI: ``<dti_dir>/dti_count_<KEY>.npy``;
+* sMRI: ``<smri_dir>/smri_<kind>_<KEY>.npy``, kind from the directory name;
+* struct (phase 6's pair): both of the above;
 * DTI+sMRI: ``<dti_smri_dir>/dti_count+smri_<kind>_<KEY>.npy``, kind from
   the directory name;
 * HCP: ``<hcp_dir>/<SUBJECT>_cortex.npy``.
@@ -17,9 +20,9 @@ float / string column types, ``dropna`` over the key and target columns,
 ``Series.std()`` with ddof 1, the first row of a repeated key
 (``.iloc[0]``), ``astype(int)`` subject keys on HCP.
 
-Only the datasets whose models the port runs are indexed (``PORTED``): the
-structural datasets, ``fMRI_image`` and ``multimodal_prs`` raise, naming
-the ROADMAP item of their models.
+Only the datasets whose models the port runs are indexed (``PORTED``):
+``fMRI_image`` and ``multimodal_prs`` raise, naming the ROADMAP item that
+ports each (``WAITING``).
 """
 
 from __future__ import annotations
@@ -33,7 +36,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-PORTED = ("hcp", "fMRI_timeseries", "multimodal")
+PORTED = ("hcp", "fMRI_timeseries", "multimodal", "DTI", "sMRI", "struct",
+          "DTI+sMRI")
+# the datasets still to load: what ports each, and its ROADMAP item
+WAITING = {"fMRI_image": ("its NIfTI reader (data/nifti.py) and the model "
+                          "that reads it", "N6"),
+           "multimodal_prs": ("its model, FuncStructUNetCrossPRS", "M9")}
 
 # pandas.read_csv's default NA tokens (pandas._libs.parsers.STR_NA_VALUES)
 NA_TOKENS = frozenset({
@@ -53,10 +61,13 @@ class SubjectRecord:
 
 def check_dataset(dataset_name: str) -> None:
     """Raise for a dataset the port does not load."""
-    if dataset_name not in PORTED:
+    if dataset_name in WAITING:
+        what, item = WAITING[dataset_name]
         raise NotImplementedError(
-            f"dataset {dataset_name!r} is not loaded by the port yet "
-            f"(ROADMAP M8/M9: its models are not ported either)")
+            f"dataset {dataset_name!r} is not loaded by the port yet: it "
+            f"waits for {what} (ROADMAP {item})")
+    if dataset_name not in PORTED:
+        raise ValueError(f"unknown dataset {dataset_name!r}")
 
 
 def _number(token: str):
@@ -128,11 +139,20 @@ def resolve_paths(dataset_name: str, subject: str, cfg) -> Dict[str, str]:
     check_dataset(dataset_name)
     if dataset_name == "hcp":
         return {"fmri": os.path.join(cfg.hcp_path, f"{subject}_cortex.npy")}
-    atlas = ("desikankilliany" if cfg.intermediate_vec == 84
-             else "harvard_oxford")
-    paths = {"fmri": os.path.join(cfg.fmri_timeseries_path, f"sub-{subject}",
-                                  f"{atlas}_sub-{subject}.npy")}
-    if dataset_name == "multimodal":
+    paths: Dict[str, str] = {}
+    if dataset_name in ("fMRI_timeseries", "multimodal"):
+        atlas = ("desikankilliany" if cfg.intermediate_vec == 84
+                 else "harvard_oxford")
+        paths["fmri"] = os.path.join(cfg.fmri_timeseries_path,
+                                     f"sub-{subject}",
+                                     f"{atlas}_sub-{subject}.npy")
+    if dataset_name in ("sMRI", "struct"):
+        kind = _smri_kind(cfg.smri_path)
+        paths["smri"] = os.path.join(cfg.smri_path,
+                                     f"smri_{kind}_{subject}.npy")
+    if dataset_name in ("DTI", "struct"):
+        paths["dti"] = os.path.join(cfg.dti_path, f"dti_count_{subject}.npy")
+    if dataset_name in ("DTI+sMRI", "multimodal"):
         kind = _smri_kind(cfg.dti_smri_path)
         paths["struct"] = os.path.join(
             cfg.dti_smri_path, f"dti_count+smri_{kind}_{subject}.npy")

@@ -20,11 +20,18 @@ is the port's own ``data/filters.py`` (the host gear) or, where
   .fmri_timeseries``, host gear).
 - ``multimodal_item``: the flagship's ``{subject, fmri (84, T), struct (84,
   84)}`` band split (``ItemLoader.multimodal``).
+- ``dti_item``, ``smri_item``, ``dti_smri_item``, ``struct_pair_item``: the
+  structural requests ``{subject, dti}``, ``{subject, smri}``, ``{subject,
+  struct}`` (DTI+sMRI) and ``{subject, smri, dti}`` (phase 6's pair), each
+  84x84 matrix z-scored over the whole matrix in float64 and stored as
+  float16 (``ItemLoader.dti`` / ``smri`` / ``dti_smri`` / ``struct_pair``).
+  They always stay on the host gear, as JAX's ``device_fmri`` leaves them.
 
 ``DataPipeline`` batches the splits of one process: an on-disk cohort split
 by ``SplitManager``, or the caller's per-split lists of in-memory requests.
-The native gear (``preprocess="native"``, data/native.py) loads and
-band-splits whole on-disk batches in C++.
+The native gear (``preprocess="native"``, data/native.py) loads whole
+on-disk batches in C++: the structural matrices z-scored, the fMRI series
+band-split.
 """
 
 from __future__ import annotations
@@ -93,11 +100,34 @@ def fmri_timeseries_item(request: Mapping, cfg) -> Dict[str, np.ndarray]:
     return {"subject_name": str(request["subject"]), **item}
 
 
+def struct_matrix(matrix) -> np.ndarray:
+    """A structural matrix z-scored over all its entries in float64, stored
+    as float16 (JAX ``_struct_matrix``)."""
+    return zscore(np.asarray(matrix, dtype=np.float64),
+                  axis=None).astype(np.float16)
+
+
+def _matrices_item(*keys):
+    """The item function of requests {subject, *keys}: each matrix through
+    ``struct_matrix``."""
+    def item(request: Mapping, cfg) -> Dict[str, np.ndarray]:
+        out = {"subject_name": str(request["subject"])}
+        for key in keys:
+            out[key] = struct_matrix(request[key])
+        return out
+    return item
+
+
+dti_item = _matrices_item("dti")
+smri_item = _matrices_item("smri")
+dti_smri_item = _matrices_item("struct")
+struct_pair_item = _matrices_item("smri", "dti")
+
+
 def multimodal_item(request: Mapping, cfg) -> Dict[str, np.ndarray]:
     """{subject, fmri (R, T), struct (R, R)} -> the model's per-item dict
     (the raw fMRI payload in the device gear)."""
-    struct = zscore(np.asarray(request["struct"], dtype=np.float64),
-                    axis=None).astype(np.float16)
+    struct = struct_matrix(request["struct"])
     if device_fmri(cfg):
         return {"subject_name": str(request["subject"]), "struct": struct,
                 **raw_fmri_item(request)}
@@ -118,7 +148,9 @@ def item_for(cfg) -> Callable[[Mapping, object], Dict[str, np.ndarray]]:
     dispatch); raises for the datasets the port does not load yet."""
     check_dataset(cfg.dataset_name)
     return {"hcp": hcp_item, "fMRI_timeseries": fmri_timeseries_item,
-            "multimodal": multimodal_item}[cfg.dataset_name]
+            "multimodal": multimodal_item, "DTI": dti_item,
+            "sMRI": smri_item, "DTI+sMRI": dti_smri_item,
+            "struct": struct_pair_item}[cfg.dataset_name]
 
 
 def collate(items: List[Dict], target_key: str = "target"
@@ -176,7 +208,10 @@ def device_preprocess(batch: Dict, cfg, device) -> Dict:
 
 
 MODEL_INPUTS = ("fmri_sequence", "fmri_raw_sequence", "fmri_lowfreq_sequence",
-                "fmri_ultralowfreq_sequence", "struct")
+                "fmri_ultralowfreq_sequence", "struct", "smri", "dti")
+# each structural dataset's matrices, by batch key (the native gear's too)
+STRUCT_INPUTS = {"DTI": ("dti",), "sMRI": ("smri",), "DTI+sMRI": ("struct",),
+                 "struct": ("smri", "dti"), "multimodal": ("struct",)}
 
 
 class DataPipeline:
@@ -228,6 +263,8 @@ class DataPipeline:
         if cfg.preprocess != "native" or (split == "train"
                                           and cfg.augment_prob > 0):
             return False      # augmentation runs in the item path
+        if cfg.dataset_name in ("DTI", "sMRI", "DTI+sMRI", "struct"):
+            return True
         if cfg.filtering_type != "FIR" or cfg.feature_map_gen == "resample":
             return False      # fastpipe implements only the FIR-taps split
         return cfg.dataset_name == "multimodal" or (
@@ -236,7 +273,7 @@ class DataPipeline:
 
     def _native_batch(self, recs: List[SubjectRecord]
                       ) -> Tuple[Dict[str, np.ndarray], List[str]]:
-        """One batch through native/fastpipe.cpp: the struct matrices
+        """One batch through native/fastpipe.cpp: the structural matrices
         z-scored as float32, the three bands (n, t_max, R) float32."""
         from multimodal_neuroimage_tpu_torch.data import native
         cfg = self.cfg
@@ -244,10 +281,12 @@ class DataPipeline:
         batch: Dict[str, np.ndarray] = {
             "subject": np.asarray([r.idx for r in recs], np.int64),
             "target": np.asarray([r.target for r in recs], np.float32)}
+        for key in STRUCT_INPUTS.get(cfg.dataset_name, ()):
+            batch[key] = native.matrix_batch([r.paths[key] for r in recs],
+                                             R, R, cfg.workers)
+        if cfg.dataset_name not in ("multimodal", "fMRI_timeseries"):
+            return batch, [r.subject for r in recs]
         multimodal = cfg.dataset_name == "multimodal"
-        if multimodal:
-            batch["struct"] = native.matrix_batch(
-                [r.paths["struct"] for r in recs], R, R, cfg.workers)
         taps = design_highpass_fir(cfg.fir_order, cfg.fir_lb_hz,
                                    1.0 / cfg.tr_seconds)
         bands = native.bandsplit_batch(

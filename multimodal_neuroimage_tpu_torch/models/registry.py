@@ -1,9 +1,13 @@
 """Model dispatch (counterpart of multimodal_neuroimage_tpu/models/registry.py).
 
-Ported: the flagship ``FuncStructCross`` and the phase-1
+The JAX ``create_model`` decision tree over the port's models: the phase-1
 ``TransformerNet`` (``2DBERT``, and ``test`` on fMRI-only datasets outside
-the divided-frequency mode). Every other task raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+the divided-frequency mode), the phase-3 struct nets (``VIT``, and ``test``
+on ``DTI`` / ``sMRI`` / ``DTI+sMRI``: ``use_vae``, then ``use_unet``, then
+the plain ``SwinClassifier``), the flagship ``FuncStructCross`` and the
+phase-6 ``SwinFusionNet`` (``SwinFusion``, and ``test`` on ``struct``).
+Every other model raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -15,12 +19,31 @@ from torch import nn
 
 from multimodal_neuroimage_tpu_torch.models.fmri_nets import TransformerNet
 from multimodal_neuroimage_tpu_torch.models.func_struct import FuncStructCross
+from multimodal_neuroimage_tpu_torch.models.struct_nets import (
+    SwinClassifier, SwinClassifierUNet, SwinClassifierVAE)
+from multimodal_neuroimage_tpu_torch.models.swinfusion_net import (
+    SwinFusionNet)
 from multimodal_neuroimage_tpu_torch.nn.common import LayerNorm
+from multimodal_neuroimage_tpu_torch.nn.unet import BatchStatNorm
 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to PyTorch yet "
                                f"(ROADMAP {item})")
+
+
+def _swin_variant(cfg) -> nn.Module:
+    """Step-3 dispatch."""
+    if cfg.use_vae:
+        return SwinClassifierVAE.from_config(cfg)
+    if cfg.use_unet:
+        return SwinClassifierUNet.from_config(cfg)
+    return SwinClassifier.from_config(cfg)
+
+
+def _lowfreq_variant(cfg):
+    raise _not_ported(f"task {cfg.task!r} (two-channel and cross-attention "
+                      f"fMRI nets)", "M7")
 
 
 def _funcstruct_variant(cfg) -> nn.Module:
@@ -34,33 +57,40 @@ def _funcstruct_variant(cfg) -> nn.Module:
 
 def create_model(cfg) -> nn.Module:
     task = cfg.task.lower()
+    if task == "2dbert":
+        return TransformerNet.from_config(cfg)
+    if task == "lowfreqbert":
+        return _lowfreq_variant(cfg)
+    if task == "vit":
+        return _swin_variant(cfg)
     if task == "funcstruct":
         return _funcstruct_variant(cfg)
-    if task == "test" and "multimodal" in cfg.dataset_name:
-        return _funcstruct_variant(cfg)
-    fmri_test = task == "test" and cfg.dataset_name in ("fMRI_timeseries",
-                                                        "hcp")
-    if task == "2dbert" or (fmri_test
-                            and cfg.fmri_type != "divided_frequency"):
-        return TransformerNet.from_config(cfg)
-    if task == "lowfreqbert" or fmri_test:
-        raise _not_ported(f"task {cfg.task!r} (two-channel and cross-"
-                          f"attention fMRI nets)", "M7")
-    if task == "vit" or (task == "test" and cfg.dataset_name in (
-            "DTI", "sMRI", "DTI+sMRI")):
-        raise _not_ported(f"task {cfg.task!r} (struct nets)", "M8")
-    if task == "swinfusion" or (task == "test"
-                                and cfg.dataset_name == "struct"):
-        raise _not_ported(f"task {cfg.task!r} (SwinFusionNet)", "M9")
+    if task == "swinfusion":
+        return SwinFusionNet.from_config(cfg)
+    if task == "test":
+        if cfg.dataset_name in ("fMRI_timeseries", "hcp"):
+            if cfg.fmri_type == "divided_frequency":
+                if (cfg.model_weights_path is not None
+                        and "DTI+sMRI" in str(cfg.model_weights_path)):
+                    raise _not_ported("FuncStructTransfer", "M9")
+                return _lowfreq_variant(cfg)
+            return TransformerNet.from_config(cfg)
+        if cfg.dataset_name in ("DTI", "sMRI", "DTI+sMRI"):
+            return _swin_variant(cfg)
+        if cfg.dataset_name == "struct":
+            return SwinFusionNet.from_config(cfg)
+        if "multimodal" in cfg.dataset_name:
+            return _funcstruct_variant(cfg)
     raise NotImplementedError(f"task {cfg.task} / dataset {cfg.dataset_name}")
 
 
 @torch.no_grad()
 def init_random_weights(model: nn.Module,
                         generator: torch.Generator) -> nn.Module:
-    """Draw every parameter of ``model`` from ``generator``: Linear and Conv
-    layers get torch's default init (kaiming-uniform(a=sqrt(5)) weights,
-    U(+-1/sqrt(fan_in)) biases), LayerNorms 1 + N(0, 0.1) scales and
+    """Draw every parameter of ``model`` from ``generator``: Linear, Conv
+    and transposed Conv layers get torch's default init (kaiming-uniform(a=
+    sqrt(5)) weights, U(+-1/sqrt(fan_in)) biases), LayerNorms and the
+    UNet's BatchStatNorms 1 + N(0, 0.1) scales and
     N(0, 0.1) shifts, embeddings N(0, 0.02), and every other tensor
     (logit scales, q/v biases, bias tables: constants at construction)
     N(0, 0.02) around its constant. The LayerNorm jitter keeps SwinV2's
@@ -74,14 +104,14 @@ def init_random_weights(model: nn.Module,
 
     done = set()
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = mod.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             # kaiming_uniform(a=sqrt(5)) has bound sqrt(6 / ((1 + 5) fan_in))
             uniform(mod.weight, bound)
             if mod.bias is not None:
                 uniform(mod.bias, bound)
-        elif isinstance(mod, LayerNorm):
+        elif isinstance(mod, (LayerNorm, BatchStatNorm)):
             mod.weight.copy_(1.0 + normal(mod.weight, 0.1))
             mod.bias.copy_(normal(mod.bias, 0.1))
         elif isinstance(mod, nn.Embedding):

@@ -1,4 +1,4 @@
-"""SwinFusion backbone (counterpart of multimodal_neuroimage_tpu/models/swinfusion_net.py).
+"""SwinFusion backbone and the phase-6 ``SwinFusionNet`` (counterpart of multimodal_neuroimage_tpu/models/swinfusion_net.py).
 
 Shared conv stem -> per-modality RSTB branches (Ex) -> CRSTB cross stages ->
 concat + conv collapse -> RSTB reconstruction (Re) -> conv collapse to one
@@ -11,7 +11,7 @@ entry in training. Each stage group's DropPath rates are
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from multimodal_neuroimage_tpu_torch.nn.common import (LayerNorm, TorchConv,
                                                        draw_seed, dropout,
                                                        full_f32)
+from multimodal_neuroimage_tpu_torch.nn.swin2d import SwinTransformerV2
 from multimodal_neuroimage_tpu_torch.nn.swinfusion import CRSTB, RSTB
 
 
@@ -120,3 +121,56 @@ class SwinFusionBackbone(nn.Module):
             h = _lrelu(self.conv_last1(h))
             h = _lrelu(self.conv_last2(h))
             return self.conv_last3(h)[:, 0]
+
+
+class SwinFusionNet(nn.Module):
+    """Phase 6: the backbone fuses (sMRI, DTI) into one 84x84 image, which
+    a fixed SwinV2 classifier scores (embed 12, depths (2, 2, 6), heads (3,
+    6, 12), window 6, DropPath 0.1: the reference's own, whatever the
+    config says); returns ``fused_image`` beside the logits. The
+    backbone's dropout, attention dropout and DropPath come from the
+    config (0.8, 0.8 and 0.1 at phase 6's defaults)."""
+
+    def __init__(self, embed_dim: int = 12,
+                 ex_depths: Sequence[int] = (6, 6),
+                 fusion_depths: Sequence[int] = (2, 2, 2),
+                 re_depths: Sequence[int] = (6, 6),
+                 ex_heads: Sequence[int] = (6, 6),
+                 fusion_heads: Sequence[int] = (6, 6, 6),
+                 re_heads: Sequence[int] = (6, 6), window_size: int = 6,
+                 mlp_ratio: float = 4.0, drop_rate: float = 0.8,
+                 attn_drop_rate: float = 0.8, drop_path_rate: float = 0.1,
+                 fine_tune_task: str = "binary_classification"):
+        super().__init__()
+        self.fine_tune_task = fine_tune_task
+        self.fusion = SwinFusionBackbone(
+            embed_dim, ex_depths, fusion_depths, re_depths, ex_heads,
+            fusion_heads, re_heads, window_size=window_size,
+            mlp_ratio=mlp_ratio, drop_rate=drop_rate,
+            attn_drop_rate=attn_drop_rate, drop_path_rate=drop_path_rate)
+        self.swin = SwinTransformerV2((84, 84), 7, 12, (2, 2, 6), (3, 6, 12),
+                                      6, drop_path_rate=0.1)
+
+    @classmethod
+    def from_config(cls, cfg) -> "SwinFusionNet":
+        return cls(embed_dim=cfg.fusion_embed_dim,
+                   ex_depths=tuple(cfg.fusion_ex_depths),
+                   fusion_depths=tuple(cfg.fusion_depths),
+                   re_depths=tuple(cfg.fusion_re_depths),
+                   ex_heads=tuple(cfg.fusion_ex_heads),
+                   fusion_heads=tuple(cfg.fusion_heads),
+                   re_heads=tuple(cfg.fusion_re_heads),
+                   window_size=cfg.window_size, mlp_ratio=cfg.mlp_ratio,
+                   drop_rate=cfg.fusion_drop_rate,
+                   attn_drop_rate=cfg.fusion_attn_drop_rate,
+                   drop_path_rate=cfg.fusion_drop_path_rate,
+                   fine_tune_task=cfg.fine_tune_task)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict:
+        if self.training and generator is None:
+            raise ValueError("a training forward draws its dropout from an "
+                             "explicit torch.Generator; pass generator=")
+        fused = self.fusion(batch["smri"], batch["dti"], generator)
+        return {self.fine_tune_task: self.swin(fused, generator),
+                "fused_image": fused}

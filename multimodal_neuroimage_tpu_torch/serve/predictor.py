@@ -5,9 +5,18 @@
 cohort on disk that ``cfg`` points at (indexed with
 ``require_target=False``, so unlabeled subjects are scored too) or
 in-memory requests (the flagship's ``{subject, fmri: (84, T) raw series,
-struct: (84, 84)}``, HCP's ``{subject, fmri: (22, T <= 1200)}``). The
-batches come from a ``DataPipeline`` (data/loader.py) in the config's gear,
-padded to ``cfg.batch_size`` with the pad rows dropped from the scores. It
+struct: (84, 84)}``, HCP's ``{subject, fmri: (22, T <= 1200)}``; the
+structural datasets' 84x84 matrices: ``{subject, dti}`` (DTI), ``{subject,
+smri}`` (sMRI), ``{subject, struct}`` (DTI+sMRI), ``{subject, smri,
+dti}`` (struct)). The batches come from a ``DataPipeline``
+(data/loader.py) in the config's gear, padded to ``cfg.batch_size`` with
+the pad rows dropped from the scores, as the JAX package pads them.
+
+A ``SwinClassifierUNet`` normalises with the statistics of its batch even
+in inference (nn/unet.py, as the JAX model defines it), so its score for a
+subject depends on the other rows of the batch, pad rows included:
+``run_predict`` equals an in-memory ``Predictor`` only where both see the
+same batches (the same records in the same order). It
 sigmoids each window's logit and averages the probabilities per subject
 (the frozen ``val_threshold`` was fit on mean-of-sigmoids), labels subjects
 against that threshold, and can write ``predictions.csv``; ``run_predict``
@@ -134,7 +143,10 @@ class Predictor:
 
 def run_predict(cfg, device: str = "cuda") -> Dict[str, Dict[str, float]]:
     """Score the cohort on disk that ``cfg`` points at with its default
-    checkpoint and write ``predictions.csv`` into the experiment folder."""
+    checkpoint and write ``predictions.csv`` into the experiment folder.
+    The batches are the index's records in order, so a UNet model's scores
+    equal an in-memory ``Predictor``'s only on the same records in the same
+    order (module docstring)."""
     pred = Predictor(cfg, device=device)
     dest = os.path.join(cfg.experiment_folder or ".", "predictions.csv")
     out = pred.predict(write_csv=dest)

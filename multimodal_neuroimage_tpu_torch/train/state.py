@@ -34,7 +34,8 @@ from multimodal_neuroimage_tpu_torch.train.schedules import build_schedule
 
 HEADS = ("binary_classification", "regression")
 BATCH_KEYS = ("fmri_sequence", "fmri_raw_sequence", "fmri_lowfreq_sequence",
-              "fmri_ultralowfreq_sequence", "struct", "target", "valid")
+              "fmri_ultralowfreq_sequence", "struct", "smri", "dti", "target",
+              "valid")
 
 
 def create_optimizer(optim: str, params: Iterable[torch.nn.Parameter],

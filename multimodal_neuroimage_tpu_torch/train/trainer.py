@@ -5,7 +5,8 @@
 ``Trainer(cfg, train_records, val_records)`` takes in-memory records
 shaped as the ``Predictor``'s requests plus a target (the flagship's
 ``{subject, fmri (84, T), struct (84, 84), target}``, HCP's ``{subject,
-fmri (22, T), target}``). Either way the batches come from one
+fmri (22, T), target}``, the structural datasets' ``{subject, dti | smri |
+struct | smri and dti, target}``). Either way the batches come from one
 ``DataPipeline`` (data/loader.py: shuffled drop-last train batches, eval
 batches padded to ``batch_size`` with ``valid``; in the device gear the
 raw series band-split on the device a batch), and the loop is the JAX

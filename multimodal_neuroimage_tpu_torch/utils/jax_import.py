@@ -1,10 +1,14 @@
 """Carry the JAX package's flax parameters into the port's state dict.
 
-``jax_params_to_state_dict(tree)`` takes a ``FuncStructCross`` or
-``TransformerNet`` parameter tree (nested dicts of arrays, as ``model.init``
+``jax_params_to_state_dict(tree)`` takes a ``FuncStructCross``,
+``TransformerNet``, ``SwinClassifier`` (and its VAE and UNet variants) or
+``SwinFusionNet`` parameter tree (nested dicts of arrays, as ``model.init``
 returns under "params") and returns the port model's ``state_dict``: flax
 Dense ``(in, out)`` kernels become torch ``(out, in)`` weights, HWIO convs
-become OIHW, ``(1, C)`` rows become vectors, and scan-stacked subtrees
+become OIHW, a flax ``ConvTranspose`` kernel ``(kh, kw, in, out)`` becomes
+torch's ``(in, out, kh, kw)`` flipped in both spatial axes (lax applies it
+as a fractionally strided correlation, torch as the adjoint of a
+convolution), ``(1, C)`` rows become vectors, and scan-stacked subtrees
 (BERT ``layers/layer``, the ``pairs/block_0|block_1`` of even-depth fusion
 and SwinV2 stages) are unstacked into numbered blocks. The per-module converters are public so a
 test can carry one block across. Imports neither jax nor flax.
@@ -245,6 +249,45 @@ def swin_state(tree: Tree) -> State:
     return out
 
 
+# ---- the struct nets' fronts -------------------------------------------------
+
+def mlp_vae_state(tree: Tree) -> State:
+    """MlpVae ``enc*/mu/logvar/dec*`` -> the reference's ``fc1 ... fc6``,
+    ``fc31`` / ``fc32``."""
+    out: State = {}
+    for src, dst in (("enc1", "fc1"), ("enc2", "fc2"), ("mu", "fc31"),
+                     ("logvar", "fc32"), ("dec1", "fc4"), ("dec2", "fc5"),
+                     ("dec3", "fc6")):
+        out.update(_dense(tree[src], dst))
+    return out
+
+
+def _double_conv_state(tree: Tree) -> State:
+    """DoubleConv ``conv1/bn1/conv2/bn2`` -> ``double_conv.{0,1,3,4}``."""
+    out: State = {}
+    for conv, norm, i in (("conv1", "bn1", 0), ("conv2", "bn2", 3)):
+        out[f"double_conv.{i}.weight"] = _t(
+            np.asarray(tree[conv]["kernel"]).transpose(3, 2, 0, 1))
+        out.update(_ln(tree[norm], f"double_conv.{i + 1}"))
+    return out
+
+
+def unet_state(tree: Tree) -> State:
+    """UNet2D -> ``inc.``, ``down{i}.maxpool_conv.1.``, ``up{i}.up`` (the
+    transposed conv, flipped back) and ``up{i}.conv.``."""
+    out = _prefixed("inc.", _double_conv_state(tree["inc"]))
+    for i in range(1, 5):
+        out.update(_prefixed(f"down{i}.maxpool_conv.1.",
+                             _double_conv_state(tree[f"down{i}"])))
+        up = tree[f"up{i}"]
+        kernel = np.asarray(up["up"]["kernel"])[::-1, ::-1]
+        out[f"up{i}.up.weight"] = _t(kernel.transpose(2, 3, 0, 1))
+        out[f"up{i}.up.bias"] = _vec(up["up"]["bias"])
+        out.update(_prefixed(f"up{i}.conv.",
+                             _double_conv_state(up["conv"])))
+    return out
+
+
 # ---- the models ------------------------------------------------------------
 
 def transformer_net_state(tree: Tree) -> State:
@@ -255,10 +298,21 @@ def transformer_net_state(tree: Tree) -> State:
 
 
 def jax_params_to_state_dict(tree: Tree) -> State:
-    """FuncStructCross or TransformerNet flax params -> the port model's
-    state."""
+    """A model's flax params -> the port model's state, the model told by
+    its top-level modules: ``transformer`` (TransformerNet), ``fmri_embed``
+    (FuncStructCross), ``fusion`` + ``swin`` (SwinFusionNet), ``vae`` +
+    ``swin`` (SwinClassifierVAE), ``unet`` + ``swin``
+    (SwinClassifierUNet), ``swin`` alone (SwinClassifier)."""
     if "transformer" in tree:
         return transformer_net_state(tree)
+    if "fmri_embed" not in tree:
+        fronts = {"fusion": swinfusion_backbone_state, "vae": mlp_vae_state,
+                  "unet": unet_state}
+        out = _prefixed("swin.", swin_state(tree["swin"]))
+        for name, fn in fronts.items():
+            if name in tree:
+                out.update(_prefixed(f"{name}.", fn(tree[name])))
+        return out
     fe = tree["fmri_embed"]
     out: State = {}
     for name in ("transformer_raw", "transformer_low", "transformer_ultralow"):

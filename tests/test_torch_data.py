@@ -156,9 +156,21 @@ def test_hcp_index_matches_jax(tmp_path, target, require_target):
 
 
 def test_index_refuses_unported_datasets(meta_dir):
-    cfg = tsyn.synthetic_config(str(meta_dir), dataset_name="DTI").validate()
-    with pytest.raises(NotImplementedError, match="M8/M9"):
-        tindex.build_subject_index(cfg)
+    """The structural datasets are indexed (M8, M9's SwinFusionNet); the
+    two datasets still waiting raise, each naming its ROADMAP item."""
+    kw = dict(metadata_csv=str(meta_dir / "meta.csv"),
+              subject_list_path=str(meta_dir / "subs.txt"))
+    for dataset in ("DTI", "sMRI", "struct", "DTI+sMRI"):
+        jcfg, tcfg = _cfgs(str(meta_dir), dataset_name=dataset, **kw)
+        got = tindex.build_subject_index(tcfg)
+        assert got and [(r.idx, r.subject, r.paths) for r in got] == [
+            (r.idx, r.subject, r.paths)
+            for r in jindex.build_subject_index(jcfg)]
+    for dataset, item in (("fMRI_image", "N6"), ("multimodal_prs", "M9")):
+        cfg = tsyn.synthetic_config(str(meta_dir),
+                                    dataset_name=dataset).validate()
+        with pytest.raises(NotImplementedError, match=item):
+            tindex.build_subject_index(cfg)
 
 
 # ---- (b) the cohort writer ---------------------------------------------------------
@@ -289,7 +301,10 @@ def test_pipeline_sends_batches_to_the_device_gear(cohorts):
     raw, names = next(pipe.epoch("val", to_device=False))
     batch, dev_names = next(pipe.epoch("val"))
     assert dev_names == names and "fmri_raw" in raw and "fmri_raw" not in batch
-    for key in tloader.MODEL_INPUTS[1:]:
+    flagship = ("fmri_raw_sequence", "fmri_lowfreq_sequence",
+                "fmri_ultralowfreq_sequence", "struct")
+    assert set(flagship) <= set(tloader.MODEL_INPUTS)
+    for key in flagship:
         assert batch[key].dtype == torch.float32, key
     assert isinstance(batch["valid"], np.ndarray)
     np.testing.assert_array_equal(batch["target"], raw["target"])

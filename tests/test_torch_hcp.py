@@ -266,8 +266,12 @@ def test_abcd_fmri_item_matches_jax_item_loader(fmri_type, tmp_path):
     assert keys and keys == sorted(k for k in want if k.startswith("fmri"))
     for key in keys:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    with pytest.raises(NotImplementedError, match="M8"):
-        item_for(tconfig.Config(dataset_name="DTI").validate())
+    dti = tconfig.Config(dataset_name="DTI").validate()
+    item = item_for(dti)({"subject": "s", "dti": y[:, :84]}, dti)
+    assert set(item) == {"subject_name", "dti"}
+    assert item["dti"].dtype == np.float16
+    with pytest.raises(NotImplementedError, match="N6"):
+        item_for(tconfig.Config(dataset_name="fMRI_image").validate())
 
 
 def test_trainer_runs_an_hcp_epoch_and_serves_it(tmp_path):

@@ -212,6 +212,29 @@ with tempfile.TemporaryDirectory() as tmp:
     checkpoint.save_checkpoint(os.path.join(exp, "last.ckpt"),
                                tr.model.state_dict(), {})
     assert len(predictor.run_predict(disk, device="cpu")) == 8
+
+# a structural cohort on disk: one training step of the phase-3
+# SwinClassifier (sMRI) and of the phase-6 SwinFusionNet (the sMRI + DTI
+# pair), the second served by run_predict
+with tempfile.TemporaryDirectory() as tmp:
+    root = synthetic.generate_synthetic_cohort(tmp, n_subjects=8, seed=1)
+    for task, dataset, extra in (
+            ("VIT", "sMRI", dict(size_of_model="small")),
+            ("SwinFusion", "struct", dict(
+                fusion_ex_depths=(1,), fusion_depths=(1,),
+                fusion_re_depths=(1,), fusion_ex_heads=(2,),
+                fusion_heads=(2,), fusion_re_heads=(2,)))):
+        exp = os.path.join(tmp, task)
+        disk = synthetic.synthetic_config(
+            root, task=task, dataset_name=dataset, target="sex",
+            batch_size=4, nEpochs=1, workers=1, experiment_folder=exp,
+            experiment_title=task, **extra).validate()
+        tr = Trainer(disk, device="cpu")
+        tr.training()
+        assert len(tr.step_losses) == 1 and np.isfinite(tr.step_losses).all()
+    checkpoint.save_checkpoint(os.path.join(exp, "last.ckpt"),
+                               tr.model.state_dict(), {})
+    assert len(predictor.run_predict(disk, device="cpu")) == 8
 print(sorted(m for m in sys.modules
              if m in ("jax", "flax", "pandas", "sklearn")
              or m == "multimodal_neuroimage_tpu"
@@ -222,7 +245,9 @@ print(sorted(m for m in sys.modules
 def test_port_imports_no_jax_flax_pandas_sklearn():
     """Serve (std and bp fusion layouts), take one flagship and one HCP
     training step, run one dot-shape chain, write an HCP cohort to disk,
-    train a step from it and serve it with ``run_predict``, in a fresh
+    train a step from it and serve it with ``run_predict``, train a step of
+    ``SwinClassifier`` and of ``SwinFusionNet`` from a structural cohort on
+    disk and serve the second with ``run_predict``, in a fresh
     interpreter (this test process imported jax already,
     tests/conftest.py): none of jax, flax, pandas, sklearn or the JAX
     package ``multimodal_neuroimage_tpu`` (any of its modules) gets
@@ -254,6 +279,9 @@ def test_no_port_file_imports_the_jax_package():
         os.path.join(d, f) for d, _, fs in os.walk(port) for f in fs
         if f.endswith(".py")]
     assert len(files) > 20
+    for new in ("nn/unet.py", "models/struct_nets.py",
+                "models/swinfusion_net.py"):
+        assert os.path.join(port, new) in files, new
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("multimodal_neuroimage_tpu", "jax", "flax")]
