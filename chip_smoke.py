@@ -66,8 +66,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    vs the CPU at the same policy), one training step card vs CPU on std
    (batch 4) and on bp (batch 8), both at a cut depth (2 BERT layers a
    band, one fusion stage of depth 2 a group: the CPU's side at full depth
-   took minutes); a 1-epoch bp run at batch 16 (exactly K1
-   mm16, the four K7 bf16 kernels, K4 and K5), its serving against the std
+   took minutes), and the std step at full depth against the port's plain
+   twins on the card (``_plain_twins``: every kernel's plain forward and
+   backward, float32, TF32 off), each gradient within ``GRAD_REL`` of its
+   max-abs plus ``TWIN_ORDER_X`` times its spread over three other sum
+   orders of the twins, a fourth order printed beside the kernels as a
+   control (the BERTs' printed by layer); a
+   1-epoch bp run at batch 16 (exactly K1 mm16, the four K7 bf16 kernels,
+   K4 and K5), its serving against the std
    layout; bf16 and float32 training steps timed in turns at batch 4 (std)
    and 16 (std and bp), with peak memory. The bf16 tolerances against
    plain versions and the CPU are stated at their constants.
@@ -128,17 +134,39 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    and test subjects (logits vs the CPU at the float32 tolerances: the
    models compute in float32 on bf16-rounded values); for ``smri_swin``
    and ``swinfusion_struct`` one training step card vs CPU (the second's
-   backbone at the cut depth of phase 5's). DTI and
+   backbone at the cut depth of phase 5's), and for ``swinfusion_struct``
+   the full-depth step against the plain twins on the card at ``GRAD_REL``.
+   DTI and
    DTI+sMRI through the ``native`` gear (matrices vs the host items within
    2e-3, one ``run_predict`` each). Training and predict steps of the four
    models at the phase's batch and at 64, bf16 and float32 in turns, with
    peak memory.
-11. Prints one JSON line of per-kernel results (launches by path:
+11. The phase chain through the CLI (``cli.main``, ``phase_chain``) on a
+   synthetic cohort on disk (40 subjects: 28 train, 6 val, 6 test), each
+   step at its phase's defaults: ``--step 3`` trains ``SwinClassifier`` on
+   DTI+sMRI; ``--step 5`` trains each of phase 5's five combiners
+   (``FuncStructAdd``, ``FuncStructTransfer``, ``FuncStructUNetAdd``,
+   ``FuncStructUNetCross`` and ``FuncStructUNetCrossPRS`` with the UNet on
+   the struct; batch 8, bf16, AdamW) for one epoch from step 3's
+   checkpoint (the copied keys printed), exactly K1 mm16 32 a pass and 32 a
+   step, K4 10 and 10, K5 once a step, and K2 48 / K3 12 each way for the
+   cross combiners; ``--step 4`` tests ``FuncStructAdd`` from step 3's
+   weights; ``--predict_only`` serves the step-5 ``FuncStructAdd``,
+   bit-equal to an in-memory ``Predictor``; a step-5 run stopped after
+   epoch 1 and resumed equals the 2-epoch run bit for bit. Then one
+   training step of each combiner at full depth and float32, kernels
+   against their plain twins on the card (loss, every gradient within
+   ``GRAD_REL`` of its max-abs, the updated parameters; no launch on the
+   twins' side), and the training and predict steps of each at batch 8
+   and 64, bf16 and float32 in turns, with peak memory; the phase's wall
+   time.
+12. Prints one JSON line of per-kernel results (launches by path:
    flagship, flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, hcp_bf16,
    flagship_defaults, flagship_disk, hcp_disk, dot_shapes, smri_swin,
-   smri_swin_vae, smri_swin_unet, swinfusion_struct, struct_disk; K5's and
-   K2/K3's cases on the structural paths under ``path_cases``) and, last,
-   the ok line.
+   smri_swin_vae, smri_swin_unet, swinfusion_struct, struct_disk,
+   chain_step3, the five combiners' step-5 runs and twin steps,
+   chain_step4, chain_predict; K5's and K2/K3's cases on the structural
+   paths under ``path_cases``) and, last, the ok line.
 
 Any failed phase raises, so the exit code is non-zero and no ok line is
 printed. Without a CUDA card it exits with code 2 before doing anything;
@@ -149,6 +177,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -273,6 +302,9 @@ CPU_STEP_DEPTH = dict(fusion_ex_depths=(2,), fusion_depths=(2,),
 # scaled by 5 (1 / 0.2, against 1 / 0.9 at the flagship's 0.1), and the
 # float32 rounding of the sums over them grows with it
 GRAD_REL_DROP8 = 5e-2
+# the K4-backward launch-split windows in which the profiler recorded no
+# device event at all (each measured again)
+EMPTY_WINDOWS = []
 # K6's bf16 form vs its plain version: both compute in float32 and round the
 # output (or dq/dk/dv) to bf16 once; a float32 sum taken in another order
 # can land on the neighbouring bf16 value: forward |err| <= K6_RTOL16 |want|
@@ -317,6 +349,103 @@ def _layout(name: str):
         yield
     finally:
         swinfusion._LAYOUT = saved
+
+
+def _twin(fwd, bwd, tensors):
+    """A kernel's plain forward and its plain backward (``bwd(g, *tensors)``
+    returning a gradient for each of ``tensors``) as one autograd node."""
+    class Twin(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *ts):
+            ctx.save_for_backward(*ts)
+            with torch.no_grad():
+                return fwd(*ts)
+
+        @staticmethod
+        def backward(ctx, g):
+            return tuple(bwd(g.contiguous(), *ctx.saved_tensors))
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return Twin.apply(*tensors)
+    with torch.no_grad():
+        return fwd(*tensors)
+
+
+@contextlib.contextmanager
+def _plain_twins(slices=None):
+    """Within the block the models call each kernel's plain PyTorch twin
+    instead of its wrapper, on whatever device their tensors are: K1's
+    forward and backward (``bert_layer_reference`` and, mm16,
+    ``bert_layer_reference_backward16``), K2/K3's, K4's, and K5
+    (``fused_adam_reference``). No kernel launches (the counts stay 0): a
+    step on the card in this block is the twins' step, the kernels' oracle
+    at full depth. ``slices``: K1's mm16 twin in another order of its
+    float32 sums (``bert_layer_model16``: the FFN's F slices added in
+    order, the merged q/k/v products), the same roundings to bf16."""
+    from multimodal_neuroimage_tpu_torch.nn import bert, swin2d, swinfusion
+    from multimodal_neuroimage_tpu_torch.ops import attention as att
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+    from multimodal_neuroimage_tpu_torch.ops import fused_update as fu
+
+    def bert_twin(x, params, heads, t_valid, seed=0, rates=(0.0, 0.0),
+                  training=False, mm16=False):
+        args = (heads, t_valid, seed, rates, training)
+        if mm16 and slices:
+            def fwd(x_, *ps):
+                return bl.bert_layer_model16(x_, ps, *args, slices)
+
+            def bwd(g, x_, *ps):
+                r = bl.bert_layer_model_backward16(g, x_, ps, *args, slices)
+                return (r["dx"], *r["dparams"])
+            return _twin(fwd, bwd, (x, *params))
+
+        def bwd(g, x_, *ps):
+            back = (bl.bert_layer_reference_backward16 if mm16
+                    else bl.bert_layer_reference_backward)
+            dx, dps = back(g, x_, ps, *args)
+            return (dx, *dps)
+        return _twin(lambda x_, *ps: bl.bert_layer_reference(
+            x_, ps, *args, mm16), bwd, (x, *params))
+
+    def self_twin(x, params, bias, mask=None, dp=None, seed=0,
+                  rates=(0.0, 0.0), training=False):
+        def bwd(g, x_, b, *ps):
+            dx, _, db, dps = fb.fusion_block_reference_backward(
+                g, x_, None, ps, b, mask, dp, seed, rates, training, False)
+            return (dx, db, *dps)
+        return _twin(lambda x_, b, *ps: fb.fusion_block_reference(
+            x_, ps, b, mask, dp, seed, rates, training), bwd,
+            (x, bias, *params))
+
+    def cross_twin(x, y, params, bias, mask=None, dp=None, seed=0,
+                   rates=(0.0, 0.0), training=False):
+        def bwd(g, x_, y_, b, *ps):
+            dx, dy, db, dps = fb.fusion_block_reference_backward(
+                g, x_, y_, ps, b, mask, dp, seed, rates, training, True)
+            return (dx, dy, db, *dps)
+        return _twin(lambda x_, y_, b, *ps: fb.cross_fusion_block_reference(
+            x_, y_, ps, b, mask, dp, seed, rates, training), bwd,
+            (x, y, bias, *params))
+
+    def k4_twin(q, k, v, bias, mask=None, seed=0, rate=0.0):
+        return _twin(lambda *t: att.attention_reference(*t, mask, seed, rate),
+                     lambda g, *t: att.attention_reference_backward(
+                         g, *t, mask, seed, rate), (q, k, v, bias))
+
+    patches = ((bert, "bert_layer_call", bert_twin),
+               (swin2d, "fused_window_attention", k4_twin),
+               (swinfusion, "fused_fusion_block", self_twin),
+               (swinfusion, "fused_cross_fusion_block", cross_twin),
+               (fu, "fused_adam_update", fu.fused_adam_reference))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def _close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -908,6 +1037,12 @@ def backward_kernels(gen, res: Results, n_params: int):
             # one kernel, launched once a call (the profiler can drop the
             # first event of a window: 9 of 10 calls read 0.9)
             split = k1_split.launch_split(kern)
+            if not split:
+                # the profiler recorded no device event at all (seen once
+                # on an H100 at B 64): nothing was measured, measure again,
+                # and count it (printed after the K4 cases)
+                EMPTY_WINDOWS.append(f"K4 backward {tag}")
+                split = k1_split.launch_split(kern)
             launched = sum(n for n, _ in split.values())
             if (len(split) != 1 or round(launched) != 1
                     or att._K4_COUNTERS[q.device].any()):
@@ -934,6 +1069,9 @@ def backward_kernels(gen, res: Results, n_params: int):
                         _device_pair(kern, library, side))
             if B == BATCH:
                 k4_batch4.append(ms)
+    print(f"K4 backward launch splits: {len(EMPTY_WINDOWS)} profiler "
+          f"window(s) with no device event, measured again: "
+          f"{EMPTY_WINDOWS}")
     # the flagship's step (batch 4) calls each stage's backward at its rate
     res.rows["K4 window_attention backward"]["batch4_ms"] = (
         sum(k4_batch4) / len(k4_batch4))
@@ -2063,14 +2201,25 @@ def _serve(cfg, ckpt, requests, folder, label, card, reference="CPU",
 
 
 def _step_compare(cfg, batch, label, sides, optim="AdamW",
-                  f32_compute=False, grad_rel=GRAD_REL):
-    """One training step on each of two ``sides`` ((name, device, fusion
+                  f32_compute=False, grad_rel=GRAD_REL, twin16=False):
+    """One training step on each of ``sides`` ((name, device, fusion
     layout)), from the same weights, batch and generator state: the first
     side's loss, every gradient and the updated parameters against the
-    second's. ``f32_compute``: the model computes in float32 under either
-    policy (the struct nets: bf16-rounded weights and inputs, float32
-    streams), so the float32 tolerances hold, each gradient within
-    ``grad_rel`` of its max-abs. Returns each side's launch counts."""
+    second's. Device ``"twins"`` is the card with every kernel's plain twin
+    (``_plain_twins``), ``"twins-order-N"`` the same with K1's mm16 twin in
+    another order of its float32 sums (its F slices added in N parts).
+    ``f32_compute``: the model computes in float32 under either policy (the
+    struct nets: bf16-rounded weights and inputs, float32 streams), so the
+    float32 tolerances hold, each gradient within ``grad_rel`` of its
+    max-abs; ``twin16``: at the bf16 policy against the plain twins, with
+    more sides, the twins in other sum orders and last a control order:
+    each gradient within ``grad_rel`` of its own max-abs plus
+    ``TWIN_ORDER_X`` times its spread, the largest distance of the other
+    orders from the twins (the BERTs' printed by layer), and the control
+    order's distance printed beside the kernels';
+    else at the bf16 policy each gradient within GRAD16's share of its
+    component's largest.
+    Returns each side's launch counts."""
     from multimodal_neuroimage_tpu_torch import ops
     from multimodal_neuroimage_tpu_torch.models.registry import (
         create_model, init_random_weights)
@@ -2081,8 +2230,9 @@ def _step_compare(cfg, batch, label, sides, optim="AdamW",
     lr = 1e-3
     models, out, counts = {}, {}, {}
     took = {}
-    for side, dev, layout in sides:
+    for side, where, layout in sides:
         t0 = time.perf_counter()
+        dev = "cuda" if where.startswith("twins") else where
         m = init_random_weights(create_model(cfg),
                                 torch.Generator().manual_seed(SEED + 1))
         init = {n: p.detach().clone() for n, p in m.named_parameters()}
@@ -2090,7 +2240,10 @@ def _step_compare(cfg, batch, label, sides, optim="AdamW",
         opt = create_optimizer(optim, m.parameters(), lambda t: lr,
                                cfg.weight_decay)
         step = make_train_step(m, specs, opt, cfg.compute_dtype, dev)
-        with _layout(layout):
+        twins = (_plain_twins(int(where.split("-")[-1])
+                              if where.startswith("twins-order-") else None)
+                 if dev != where else contextlib.nullcontext())
+        with _layout(layout), twins:
             torch.cuda.synchronize()
             ops.reset_launches()
             out[side] = step(batch, torch.Generator().manual_seed(SEED + 2))
@@ -2098,7 +2251,7 @@ def _step_compare(cfg, batch, label, sides, optim="AdamW",
             counts[side] = ops.launches()
         models[side] = m
         took[side] = time.perf_counter() - t0
-    (a, _, _), (b, _, _) = sides
+    (a, _, _), (b, _, _) = sides[:2]
     loss_a = out[a][0]["total"].item()
     loss_b = out[b][0]["total"].item()
     bf16 = cfg.compute_dtype == "bfloat16" and not f32_compute
@@ -2110,16 +2263,42 @@ def _step_compare(cfg, batch, label, sides, optim="AdamW",
     grad_err = upd_err = 0.0
     unstable = n_params = 0
     named = dict(models[b].named_parameters())
+    # the twins in other sum orders: the spread's, then the control
+    orders = [dict(models[side].named_parameters())
+              for side, _, _ in sides[2:]]
+    control = orders.pop() if twin16 else None
     scale, worst = {}, {}
+    layers = {}                 # BERT layer -> worst own shares (k, o)
+    ratios = []                 # (err / (grad_rel own + spread), name)
+    controls = []               # the same of the control order
     for n, q in named.items():
         part = n.split(".")[0]
         scale[part] = max(scale.get(part, 0.0), q.grad.abs().max().item())
     for n, p in models[a].named_parameters():
         q = named[n]
         ga, gb = p.grad.cpu(), q.grad.cpu()
-        if bf16:
+        part = n.split(".")[0]
+        if twin16:
+            own = gb.abs().max().item()
+            spread = max((o[n].grad.cpu() - gb).abs().max().item()
+                         for o in orders)
+            e = _close_rel(f"grad {n}", ga, gb, grad_rel,
+                           TWIN_ORDER_X * spread + SUM_ATOL)
+            unit = grad_rel * own + spread + SUM_ATOL
+            ratios.append((e / unit, n))
+            c = (control[n].grad.cpu() - gb).abs().max().item()
+            controls.append((c / unit, n))
+            k, o = worst.get(part, (0.0, 0.0))
+            worst[part] = (max(k, e / scale[part]),
+                           max(o, spread / scale[part]))
+            if ".layer." in n:
+                i = int(n.split(".layer.")[1].split(".")[0])
+                k, o = layers.get(i, (0.0, 0.0))
+                layers[i] = (max(k, e / max(own, 1e-30)),
+                             max(o, spread / max(own, 1e-30)))
+            grad_err = max(grad_err, e)
+        elif bf16 and not twin16 and part in shares:
             # each gradient against its component's largest (GRAD16)
-            part = n.split(".")[0]
             e = _close_rel(f"grad {n}", ga, gb, 0.0,
                            shares[part] * scale[part])
             worst[part] = max(worst.get(part, 0.0), e / scale[part])
@@ -2136,6 +2315,24 @@ def _step_compare(cfg, batch, label, sides, optim="AdamW",
     within = (f"every gradient within {shares} of its component's largest "
               f"(worst share {worst})" if bf16 else
               f"every gradient within {grad_rel} * its max-abs")
+    if twin16:
+        ratios.sort(reverse=True)
+        controls.sort(reverse=True)
+        within = (f"every gradient within {grad_rel} * its max-abs plus "
+                  f"{TWIN_ORDER_X} * its spread over the twins in "
+                  f"{len(orders)} other sum orders (err / (that share + the "
+                  f"spread), the worst five: " + ", ".join(
+                      f"{n} {r:.3f}" for r, n in ratios[:5])
+                  + f"; above 1: {sum(r > 1 for r, _ in ratios)} of "
+                  f"{len(ratios)}; the control order's, {sides[-1][0]} vs "
+                  f"{b}, for the same: worst {controls[0][1]} "
+                  f"{controls[0][0]:.3f}, above 1: "
+                  f"{sum(r > 1 for r, _ in controls)}; worst component "
+                  f"shares, {a} vs {b} / spread: {worst})")
+        print(f"{label}: BERT layer, worst own share {a} vs {b} / the "
+              f"spread over the other sum orders: " + ", ".join(
+                  f"{i} {k:.3e}/{o:.3e}"
+                  for i, (k, o) in sorted(layers.items(), reverse=True)))
     print(f"one {label} training step, {a} vs {b}: loss {loss_a:.6f} vs "
           f"{loss_b:.6f}; {within} (worst abs err {grad_err:.3e}); updated "
           f"params max|diff| {upd_err:.3e}, {unstable} of {n_params} "
@@ -2332,6 +2529,14 @@ def flagship_bf16(rng, card, train_records, val_records):
                                       **CPU_STEP_DEPTH), batch,
                   "flagship bf16 (cut depth)",
                   (("card", "cuda", "std"), ("CPU", "cpu", "std")))
+    # the full-depth step, kernels against their plain twins on the card
+    _step_compare(cfg, batch, "flagship bf16 (full depth)",
+                  (("card", "cuda", "std"),
+                   ("plain twins on the card", "twins", "std"))
+                  + tuple((f"plain twins, F in {n} slices",
+                           f"twins-order-{n}", "std")
+                          for n in TWIN_ORDER_SLICES + (TWIN_CONTROL,)),
+                  twin16=True)
     batches4 = [b for b, _ in trainer.batches("train")]
     del trainer
 
@@ -2555,6 +2760,8 @@ def disk_cohorts(card, hcp_ckpt):
     16 bf16 K6 forwards a pass and nothing else. Returns the flagship's
     training-run and the HCP serving-run launch counts."""
     from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
+        latest_checkpoint)
     from multimodal_neuroimage_tpu_torch.data import synthetic
     from multimodal_neuroimage_tpu_torch.data.datasets import ItemLoader
     from multimodal_neuroimage_tpu_torch.data.index import build_subject_index
@@ -2603,11 +2810,13 @@ def disk_cohorts(card, hcp_ckpt):
         t0 = time.perf_counter()
         tester = Trainer(cfg, sets=["test"], device="cuda")
         test = tester.testing()
-        if tester.checkpoint_path != ckpt or "test_AUROC" not in test:
+        if (tester.checkpoint_path != latest_checkpoint(exp)
+                or "test_AUROC" not in test):
             raise AssertionError(f"testing from {tester.checkpoint_path}: "
                                  f"{test}")
-        print(f"flagship from disk: testing() on the 6 test subjects at the "
-              f"frozen threshold {tester.val_threshold} in "
+        print(f"flagship from disk: testing() on the 6 test subjects from "
+              f"{os.path.basename(tester.checkpoint_path)} at its frozen "
+              f"threshold {tester.val_threshold} in "
               f"{time.perf_counter() - t0:.2f} s: test_AUROC "
               f"{test['test_AUROC']}, test_Balanced_Accuracy "
               f"{test['test_Balanced_Accuracy']}")
@@ -2911,7 +3120,7 @@ def _struct_phase(cfg, label, card, forward, backward, step_rel=None):
     CPU_STEP_DEPTH), each gradient within ``step_rel`` of its max-abs. Returns the training run's counts and the checkpoint."""
     from multimodal_neuroimage_tpu_torch import ops
     from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
-        default_checkpoint, save_checkpoint)
+        default_checkpoint, latest_checkpoint)
     from multimodal_neuroimage_tpu_torch.data.datasets import ItemLoader
     from multimodal_neuroimage_tpu_torch.data.index import build_subject_index
     from multimodal_neuroimage_tpu_torch.serve.predictor import (Predictor,
@@ -2938,26 +3147,24 @@ def _struct_phase(cfg, label, card, forward, backward, step_rel=None):
               f"{label} training run")
     if not np.isfinite(trainer.step_losses).all():
         raise AssertionError(f"{label}: {trainer.step_losses}")
+    # the serving rule's file: the best-AUROC one, or (one epoch on 6 val
+    # subjects can leave validation AUROC and accuracy at 0, and
+    # BestCheckpointPolicy then writes nothing) the last epoch's
     ckpt = default_checkpoint(cfg)
     if step_rel is not None and ckpt != trainer.best_checkpoint():
         raise AssertionError(f"{label}: no best-AUROC checkpoint ({ckpt})")
-    if ckpt is None:
-        # one epoch on 6 val subjects can leave validation AUROC and
-        # accuracy at 0, and BestCheckpointPolicy then writes nothing:
-        # test and serve the run's last weights
-        ckpt = save_checkpoint(
-            os.path.join(cfg.experiment_folder, f"{label}_last.ckpt"),
-            trainer.model.state_dict(),
-            {"val_threshold": trainer.val_threshold})
     _print_run(label, cfg, trainer, metrics, wall, ckpt)
     print(f"launches in the {label} training run: "
           f"{ {k: n for k, n in counts.items() if n} }")
 
+    # testing() restores as JAX's Trainer: the newest file of the folder
     tester = Trainer(cfg, sets=["test"], device="cuda")
     test = tester.testing()
-    if tester.checkpoint_path != ckpt or "test_AUROC" not in test:
+    if (tester.checkpoint_path != latest_checkpoint(cfg.experiment_folder)
+            or "test_AUROC" not in test):
         raise AssertionError(f"{label} testing(): {test}")
-    print(f"{label}: testing() on the 6 test subjects at the frozen "
+    print(f"{label}: testing() on the 6 test subjects from "
+          f"{os.path.basename(tester.checkpoint_path)} at its frozen "
           f"threshold {tester.val_threshold}: test_AUROC "
           f"{test['test_AUROC']}, test_Balanced_Accuracy "
           f"{test['test_Balanced_Accuracy']}")
@@ -2999,6 +3206,13 @@ def _struct_phase(cfg, label, card, forward, backward, step_rel=None):
         _step_compare(step_cfg, batch, label,
                       (("card", "cuda", "std"), ("CPU", "cpu", "std")),
                       optim=cfg.optim, f32_compute=True, grad_rel=step_rel)
+        if cfg.task == "SwinFusion":
+            # the full depth, kernels against their plain twins on the card
+            _step_compare(cfg, batch, f"{label} (full depth)",
+                          (("card", "cuda", "std"),
+                           ("plain twins on the card", "twins", "std")),
+                          optim=cfg.optim, f32_compute=True,
+                          grad_rel=GRAD_REL)
     print(f"{label} phase took {time.perf_counter() - t_run:.1f} s")
     return counts, ckpt
 
@@ -3097,6 +3311,295 @@ def struct_phases(card, gen, res: Results):
                 _time_predict(bcfg, batches, ("bfloat16", "float32"), name,
                               card)
     print(f"structural phases took {time.perf_counter() - t_phase:.1f} s; "
+          f"card: {card}")
+    return launches
+
+
+# phase 5's combiners at their Config defaults (bf16 policy, batch 8,
+# AdamW): the two 16-layer BERTs on K1's mm16 form, SwinV2 "large" on K4,
+# and for the cross combiners the flagship backbone's K2/K3 (std layout);
+# the CLI flags of each, from the step-3 checkpoint of the same cohort
+K1_16_FORWARD = {"K1 bert_layer mm16": 32}
+K1_16_BACKWARD = {"K1 bert_layer backward mm16": 32}
+ADD_FORWARD = {**K1_16_FORWARD, **SWIN_FORWARD}
+ADD_BACKWARD = {**K1_16_BACKWARD, **SWIN_BACKWARD}
+CROSS_FORWARD = {**K1_16_FORWARD, **FUSION_FORWARD}
+CROSS_BACKWARD = {**K1_16_BACKWARD, **FUSION_BACKWARD}
+COMBINERS = {
+    "funcstruct_add": (["--multimodality_type", "add"], "FuncStructAdd",
+                       ADD_FORWARD, ADD_BACKWARD),
+    "funcstruct_transfer": (["--multimodality_type", "transfer"],
+                            "FuncStructTransfer", ADD_FORWARD,
+                            ADD_BACKWARD),
+    "funcstruct_unet_add": (["--multimodality_type", "add", "--use_unet"],
+                            "FuncStructUNetAdd", ADD_FORWARD, ADD_BACKWARD),
+    "funcstruct_unet_cross": (["--use_unet", "--use_unet_struct"],
+                              "FuncStructUNetCross", CROSS_FORWARD,
+                              CROSS_BACKWARD),
+    "funcstruct_unet_cross_prs": (
+        ["--use_unet", "--use_unet_struct", "--use_prs", "--dataset_name",
+         "multimodal_prs"], "FuncStructUNetCrossPRS", CROSS_FORWARD,
+        CROSS_BACKWARD),
+}
+CHAIN_BATCH = 8
+# the full-depth bf16 flagship step against its plain twins on the card:
+# each gradient within GRAD_REL of its own max-abs plus TWIN_ORDER_X times
+# its spread, the largest distance from the twins of the twins in other
+# orders of their float32 sums (K1's F slices added in each of
+# TWIN_ORDER_SLICES parts, the merged q/k/v products). K1's mm16 form
+# rounds the same products to bf16 as its twin, in other orders of float32
+# sums, so a value can land on the other side of a bf16 rounding boundary,
+# and the 16 layers, the fusion and the SwinV2 downstream carry it. The
+# twin in one more order (TWIN_CONTROL slices) is measured against the
+# same spread beside the kernels, a control: the kernels should sit where
+# another sum order does.
+TWIN_ORDER_SLICES = (2, 4, 8)
+TWIN_CONTROL = 16
+TWIN_ORDER_X = 2.0
+
+
+class _Tee:
+    """stdout kept while it is printed."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _cli(argv, label, card):
+    """``cli.main(argv)`` on the card with every launch count set to 0 just
+    before it: (metrics, counts, wall seconds, what it printed)."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.cli import main as cli
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        metrics = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    print(f"[cli {label}] {wall:.1f} s; launches "
+          f"{ {k: n for k, n in counts.items() if n} }; card: {card}")
+    return metrics, counts, wall, "".join(tee.parts)
+
+
+def _experiment(base, exp_name):
+    """The one experiment folder of ``exp_name`` under ``base``."""
+    found = glob.glob(os.path.join(base, "experiments", f"{exp_name}_*"))
+    if len(found) != 1:
+        raise AssertionError(f"experiment folders of {exp_name}: {found}")
+    return found[0]
+
+
+def _combiner_batches(B, prs, n=2):
+    """``n`` host batches of B subjects in the combiners' keys (the bands
+    as (B, 368, 84), struct, targets and, for the PRS model, ``prs``):
+    the timing inputs."""
+    rng = np.random.default_rng(SEED + B)
+    out = []
+    for _ in range(n):
+        b = {k: rng.normal(size=(B, 368, 84)).astype(np.float32)
+             for k in ("fmri_lowfreq_sequence",
+                       "fmri_ultralowfreq_sequence")}
+        b["struct"] = rng.normal(size=(B, 84, 84)).astype(np.float32)
+        b["target"] = (np.arange(B) % 2).astype(np.float32)
+        if prs:
+            b["prs"] = rng.normal(size=(B, 3)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def _state_equal(a, b, what):
+    """Bit-equal state dicts, else raise naming the worst tensor."""
+    worst = max(((a[k].float() - b[k].float()).abs().max().item(), k)
+                for k in a)
+    if worst[0] != 0.0:
+        raise AssertionError(f"{what}: {worst[1]} differs by {worst[0]:.3e}")
+
+
+def phase_chain(card):
+    """The phase chain and phase 5's combiners through the port's CLI
+    (``cli.main``) on a synthetic cohort on disk of DISK_SUBJECTS (28
+    train, 6 val, 6 test), each step at its phase's ``Config`` defaults
+    (bf16 policy; step 3 at batch 4 with Adam, steps 5 and 4 at batch 8 and
+    4): step 3 trains ``SwinClassifier`` on DTI+sMRI (1 epoch, a best-AUROC
+    checkpoint); step 5 trains each of the five combiners for one epoch at
+    batch 8, every one chained from step 3 by ``weight_loader`` and
+    ``partial_restore`` (the copied keys printed), exactly its kernels a
+    pass and a step; step 4 tests ``FuncStructAdd`` from step 3's
+    checkpoint; ``--predict_only`` serves the step-5 ``FuncStructAdd``,
+    bit-equal to an in-memory ``Predictor``; a step-5 run stopped after
+    epoch 1 and resumed equals a 2-epoch run bit for bit. Then one training
+    step of each combiner at full depth, kernels against their plain twins
+    on the card (float32, TF32 off: loss, every gradient within GRAD_REL of
+    its max-abs, the updated parameters), and the training and predict
+    steps of each at batch 8 and 64, bf16 and float32 in turns, with peak
+    memory. Returns the launch counts by path."""
+    from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
+        default_checkpoint, load_checkpoint)
+    from multimodal_neuroimage_tpu_torch.cli.main import config_from_args
+    from multimodal_neuroimage_tpu_torch.config import Config
+    from multimodal_neuroimage_tpu_torch.data import synthetic
+    from multimodal_neuroimage_tpu_torch.data.datasets import ItemLoader
+    from multimodal_neuroimage_tpu_torch.data.index import build_subject_index
+    from multimodal_neuroimage_tpu_torch.data.loader import DataPipeline
+    from multimodal_neuroimage_tpu_torch.models.registry import create_model
+    from multimodal_neuroimage_tpu_torch.ops import build
+    from multimodal_neuroimage_tpu_torch.serve.predictor import Predictor
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        root = synthetic.generate_synthetic_cohort(
+            os.path.join(tmp, "cohort"), n_subjects=DISK_SUBJECTS, seed=SEED)
+        common = ["--base_path", root, "--target", "sex", "--seed",
+                  str(SEED), "--nEpochs", "1", "--dti_smri_path",
+                  os.path.join(root, "data", "dti+smri_cortical_thickness")]
+
+        # ---- step 3: SwinClassifier on DTI+sMRI ------------------------------
+        _, counts, _, _ = _cli(["--step", "3", "--dataset_name", "DTI+sMRI",
+                                "--exp_name", "p3"] + common, "step 3", card)
+        _per_pass(counts, SWIN_FORWARD, SWIN_BACKWARD, 7, 7 + 2,
+                  "step-3 run")
+        launches["chain_step3"] = counts
+        p3 = default_checkpoint(Config(
+            experiment_folder=_experiment(root, "p3"),
+            experiment_title="p3_sex"))
+        if p3 is None or "_BEST_val_AUROC" not in p3:
+            raise AssertionError(f"step 3 wrote no best-AUROC file: {p3}")
+
+        # ---- step 5: the five combiners, each chained from step 3 ----------
+        folders = {}
+        for name, (flags, cls, fwd, bwd) in COMBINERS.items():
+            argv = (["--step", "5", "--dataset_name", "multimodal",
+                     "--exp_name", name] + flags + common)
+            _, counts, wall, out = _cli(argv, f"step 5 {name}", card)
+            _per_pass(counts, fwd, bwd, 3, 3 + 1, f"step-5 {name} run")
+            if (f"phase-chained weights from {p3}" not in out
+                    or "swin.layers.*.blocks.*.attn.qkv.weight" not in out):
+                raise AssertionError(f"{name} was not chained from {p3}")
+            folders[name] = _experiment(root, name)
+            cfg = config_from_args(argv)
+            if type(create_model(cfg)).__name__ != cls:
+                raise AssertionError(f"{name} does not build {cls}")
+            if (cfg.batch_size, cfg.optim, cfg.compute_dtype) != (
+                    CHAIN_BATCH, "AdamW", "bfloat16"):
+                raise AssertionError(f"phase 5 defaults: {cfg}")
+            launches[name] = counts
+            print(f"step 5 {name} ({cls}): 1 epoch x 3 steps at batch 8 in "
+                  f"{wall:.1f} s from {os.path.basename(p3)}")
+
+        # ---- step 4: FuncStructAdd tested from step 3's checkpoint ---------
+        metrics, counts, wall, out = _cli(
+            ["--step", "4", "--dataset_name", "multimodal",
+             "--multimodality_type", "add", "--exp_name", "p4"] + common,
+            "step 4", card)
+        _per_pass(counts, ADD_FORWARD, {}, 0, 2, "step-4 run")
+        if f"phase-chained weights from {p3}" not in out or (
+                "test_AUROC" not in metrics):
+            raise AssertionError(f"step 4: {metrics}")
+        launches["chain_step4"] = counts
+        print(f"step 4 (FuncStructAdd from step 3's weights, the threshold "
+              f"fitted on the 6 test subjects): "
+              f"{ {k: v for k, v in metrics.items()} }")
+
+        # ---- --predict_only: the step-5 FuncStructAdd, vs a Predictor ------
+        add_ckpt = default_checkpoint(Config(
+            experiment_folder=folders["funcstruct_add"],
+            experiment_title="funcstruct_add_sex"))
+        argv = (["--step", "5", "--dataset_name", "multimodal",
+                 "--multimodality_type", "add",
+                 "--predict_only", "--exp_name", "serve",
+                 "--model_weights_path", add_ckpt] + common)
+        scores, counts, wall, _ = _cli(argv, "predict_only", card)
+        _per_pass(counts, ADD_FORWARD, {}, 0, -(-DISK_SUBJECTS // 8),
+                  "--predict_only run")
+        cfg = config_from_args(argv)
+        records = build_subject_index(cfg, require_target=False)
+        loader = ItemLoader(cfg)
+        memory = Predictor(cfg, add_ckpt, [loader.load(r) for r in records],
+                           device="cuda").predict()
+        if memory != scores or len(scores) != DISK_SUBJECTS:
+            raise AssertionError("--predict_only differs from the in-memory "
+                                 "Predictor on the same arrays")
+        launches["chain_predict"] = counts
+        print(f"--predict_only scored {len(scores)} subjects in {wall:.2f} s "
+              f"from {os.path.basename(add_ckpt)}, bit-equal to the "
+              f"in-memory Predictor")
+
+        # ---- resume: 1 epoch, resumed to 2, against 2 in one run -----------
+        runs = {}
+        for run, epochs in (("stopped", "1"), ("stopped", "2"),
+                            ("whole", "2")):
+            folder = os.path.join(tmp, f"resume_{run}")
+            _, counts, wall, out = _cli(
+                ["--step", "5", "--dataset_name", "multimodal",
+                 "--multimodality_type", "add",
+                 "--experiment_folder", folder, "--experiment_title", "r",
+                 "--exp_name", "resume"] + common + ["--nEpochs", epochs],
+                f"resume {run} {epochs}", card)
+            runs[run] = load_checkpoint(os.path.join(folder,
+                                                     "r_last_epoch.ckpt"))
+            if run == "stopped" and epochs == "2":
+                if "resumed from" not in out or counts[
+                        "K5 fused_adam"] != 3:
+                    raise AssertionError(f"the resumed run: {counts}")
+        a, b = runs["stopped"], runs["whole"]
+        _state_equal(a["state_dict"], b["state_dict"], "resumed weights")
+        _state_equal({k: a["optimizer"][k] for k in ("mu", "nu")},
+                     {k: b["optimizer"][k] for k in ("mu", "nu")},
+                     "resumed Adam moments")
+        if (a["optimizer"]["count"], a["epoch"], a["step"]) != (
+                b["optimizer"]["count"], b["epoch"], b["step"]) or not \
+                torch.equal(a["generator"], b["generator"]):
+            raise AssertionError("resumed counts or generator differ")
+        print(f"a step-5 run stopped after epoch 1 and resumed equals the "
+              f"2-epoch run bit for bit (weights, Adam moments, count "
+              f"{a['optimizer']['count']}, generator)")
+
+        # ---- one full-depth step, kernels vs plain twins on the card -------
+        for name, (flags, cls, fwd, bwd) in COMBINERS.items():
+            cfg = dataclasses.replace(config_from_args(
+                ["--step", "5", "--dataset_name", "multimodal", "--exp_name",
+                 name] + flags + common), compute_dtype="float32")
+            pipe = DataPipeline(cfg, splits={
+                "train": build_subject_index(cfg)[:CHAIN_BATCH]},
+                device="cuda")
+            batch, _ = next(pipe.epoch("train", shuffle=False))
+            steps = _step_compare(
+                cfg, batch, f"{name} (full depth, float32)",
+                (("card", "cuda", "std"),
+                 ("plain twins on the card", "twins", "std")))
+            f32 = {k.replace(" mm16", ""): n
+                   for k, n in {**fwd, **bwd}.items()}   # K1's float32 form
+            want = {k: f32.get(k, 0) for k in steps["card"]}
+            want["K5 fused_adam"] = 1
+            if steps["card"] != want or any(steps["plain twins on the card"]
+                                            .values()):
+                raise AssertionError(f"{name} twin step launches {steps}")
+            launches[f"{name}_twin_step"] = steps["card"]
+
+        # ---- training and predict steps, batch 8 and 64, bf16 and f32 ------
+        for name, (flags, cls, fwd, bwd) in COMBINERS.items():
+            cfg = config_from_args(["--step", "5", "--dataset_name",
+                                    "multimodal", "--exp_name", name]
+                                   + flags + common)
+            for B in (CHAIN_BATCH, STRUCT_BENCH_BATCH):
+                bcfg = dataclasses.replace(cfg, batch_size=B)
+                batches = _combiner_batches(B, cfg.use_prs)
+                _time_dtypes(bcfg, batches, (("std", "bfloat16"),
+                                             ("std", "float32")),
+                             name, card, steps=6)
+                _time_predict(bcfg, batches, ("bfloat16", "float32"), name,
+                              card, steps=6)
+    print(f"phase-chain phase took {time.perf_counter() - t_phase:.1f} s; "
           f"card: {card}")
     return launches
 
@@ -3263,13 +3766,17 @@ def main() -> int:
     struct_counts = struct_phases(card, gen, results)
     elapsed("structural phases")
 
+    # ---- the phase chain and phase 5's combiners through the CLI ------------
+    chain_counts = phase_chain(card)
+    elapsed("phase-chain phase")
+
     launches = {"flagship": train_counts, "flagship_bp": bp_counts,
                 "flagship_bf16": bf16_counts,
                 "flagship_bp_bf16": bp_bf16_counts,
                 "hcp": hcp_counts, "hcp_bf16": hcp16_counts,
                 "flagship_defaults": defaults_counts,
                 "flagship_disk": disk_counts, "hcp_disk": hcp_disk_counts,
-                "dot_shapes": dot_counts, **struct_counts}
+                "dot_shapes": dot_counts, **struct_counts, **chain_counts}
     kernels = [results.line(key, launches) for key in ops.kernels()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 multimodal_neuroimage_tpu/data/datasets.py ``ItemLoader``).
 
 ``ItemLoader(cfg)(record)`` takes an on-disk ``SubjectRecord`` or an
-in-memory request (``{subject, fmri, struct?, target?}``; the structural
+in-memory request (``{subject, fmri, struct?, prs?, target?}``; the structural
 datasets' ``{subject, dti | smri | struct | smri and dti, target?}``). A
 record's arrays are loaded as the JAX loader loads them (``load``: the ABCD
 series without its first 20 TRs, transposed to (ROI, T); HCP's (22, T)
@@ -30,7 +30,8 @@ from multimodal_neuroimage_tpu_torch.data.index import (SubjectRecord,
 from multimodal_neuroimage_tpu_torch.data.loader import item_for
 
 ABCD_SKIP_TR = 20      # first 20 TRs dropped
-AUGMENTED = ("fMRI_timeseries", "multimodal")   # their raw ABCD series
+AUGMENTED = ("fMRI_timeseries", "multimodal",
+             "multimodal_prs")                  # their raw ABCD series
 
 
 def load_abcd_fmri(path: str) -> np.ndarray:
@@ -51,6 +52,8 @@ class ItemLoader:
     def load(self, record: SubjectRecord) -> Dict[str, np.ndarray]:
         """One on-disk subject's arrays as an in-memory request."""
         request = {"subject": record.subject}
+        if record.prs is not None:
+            request["prs"] = record.prs
         for key, path in record.paths.items():
             if key != "fmri":
                 request[key] = np.load(path)

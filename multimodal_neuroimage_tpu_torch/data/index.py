@@ -12,17 +12,24 @@ package (or for the reference) is read by both:
 * struct (phase 6's pair): both of the above;
 * DTI+sMRI: ``<dti_smri_dir>/dti_count+smri_<kind>_<KEY>.npy``, kind from
   the directory name;
+* multimodal, multimodal_prs: the fMRI series and the DTI+sMRI matrix;
+  multimodal_prs adds the three polygenic scores ``CPeur2 EAeur1 IQeur2`` of
+  ``<prs_dir>/ABCD_EUR_Multibased_PRScsx_PC1-10resid_scaled.csv`` (its
+  ``subjectkey`` without ``_``), z-scored over the subjects the metadata and
+  the PRS table share, in each record's ``prs``;
 * HCP: ``<hcp_dir>/<SUBJECT>_cortex.npy``.
 
 Where the JAX index leans on pandas, this copy reproduces what pandas
 does: ``read_csv``'s default NA tokens (``NA_TOKENS``) and its integer /
 float / string column types, ``dropna`` over the key and target columns,
 ``Series.std()`` with ddof 1, the first row of a repeated key
-(``.iloc[0]``), ``astype(int)`` subject keys on HCP.
+(``.iloc[0]``), ``astype(int)`` subject keys on HCP, the rows of an inner
+``merge`` (one a pair of matching rows) and the last of a key's rows in a
+dict built from them.
 
 Only the datasets whose models the port runs are indexed (``PORTED``):
-``fMRI_image`` and ``multimodal_prs`` raise, naming the ROADMAP item that
-ports each (``WAITING``).
+``fMRI_image`` raises, naming the ROADMAP item that ports it
+(``WAITING``).
 """
 
 from __future__ import annotations
@@ -36,12 +43,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-PORTED = ("hcp", "fMRI_timeseries", "multimodal", "DTI", "sMRI", "struct",
-          "DTI+sMRI")
+PORTED = ("hcp", "fMRI_timeseries", "multimodal", "multimodal_prs", "DTI",
+          "sMRI", "struct", "DTI+sMRI")
+MULTIMODAL = ("multimodal", "multimodal_prs")
 # the datasets still to load: what ports each, and its ROADMAP item
 WAITING = {"fMRI_image": ("its NIfTI reader (data/nifti.py) and the model "
-                          "that reads it", "N6"),
-           "multimodal_prs": ("its model, FuncStructUNetCrossPRS", "M9")}
+                          "that reads it", "N6")}
+PRS_FILE = "ABCD_EUR_Multibased_PRScsx_PC1-10resid_scaled.csv"
+PRS_COLUMNS = ("CPeur2", "EAeur1", "IQeur2")
 
 # pandas.read_csv's default NA tokens (pandas._libs.parsers.STR_NA_VALUES)
 NA_TOKENS = frozenset({
@@ -57,6 +66,7 @@ class SubjectRecord:
     subject: str
     paths: Dict[str, str]
     target: float
+    prs: Optional[np.ndarray] = None
 
 
 def check_dataset(dataset_name: str) -> None:
@@ -140,7 +150,7 @@ def resolve_paths(dataset_name: str, subject: str, cfg) -> Dict[str, str]:
     if dataset_name == "hcp":
         return {"fmri": os.path.join(cfg.hcp_path, f"{subject}_cortex.npy")}
     paths: Dict[str, str] = {}
-    if dataset_name in ("fMRI_timeseries", "multimodal"):
+    if dataset_name in ("fMRI_timeseries",) + MULTIMODAL:
         atlas = ("desikankilliany" if cfg.intermediate_vec == 84
                  else "harvard_oxford")
         paths["fmri"] = os.path.join(cfg.fmri_timeseries_path,
@@ -152,7 +162,7 @@ def resolve_paths(dataset_name: str, subject: str, cfg) -> Dict[str, str]:
                                      f"smri_{kind}_{subject}.npy")
     if dataset_name in ("DTI", "struct"):
         paths["dti"] = os.path.join(cfg.dti_path, f"dti_count_{subject}.npy")
-    if dataset_name in ("DTI+sMRI", "multimodal"):
+    if dataset_name in ("DTI+sMRI",) + MULTIMODAL:
         kind = _smri_kind(cfg.dti_smri_path)
         paths["struct"] = os.path.join(
             cfg.dti_smri_path, f"dti_count+smri_{kind}_{subject}.npy")
@@ -253,6 +263,11 @@ def build_subject_index(cfg, require_target: bool = True
         if not np.isfinite(cont_std) or cont_std == 0.0:
             cont_mean, cont_std = 0.0, 1.0   # unlabeled serving cohort
 
+    prs_table = None
+    if cfg.dataset_name == "multimodal_prs":
+        prs_table = prs_scores(cfg, [k for k, _ in rows])
+        subjects &= set(prs_table)
+
     lookup: Dict[str, object] = {}
     for k, v in rows:
         lookup.setdefault(k, v)                  # first row of a repeat
@@ -264,5 +279,33 @@ def build_subject_index(cfg, require_target: bool = True
         records.append(SubjectRecord(
             idx=i, subject=subject,
             paths=resolve_paths(cfg.dataset_name, subject, cfg),
-            target=target))
+            target=target,
+            prs=None if prs_table is None else prs_table[subject]))
     return records
+
+
+def prs_scores(cfg, keys: Sequence[str]) -> Dict[str, np.ndarray]:
+    """{subject: its three z-scored PRS, float32} over the inner join of the
+    metadata rows' ``keys`` with the PRS table (JAX index.py:173-189): the
+    table's ``subjectkey`` as a string without ``_``, its rows with a
+    missing score dropped; each score z-scored with the mean and std (ddof
+    1) of the joined rows, a key repeated on both sides counting once a
+    pair; a subject takes its last table row."""
+    table = _read_csv(os.path.join(cfg.prs_path, PRS_FILE))
+    prs_rows: Dict[str, List[Tuple[float, ...]]] = {}
+    for i, key in enumerate(table["subjectkey"]):
+        vals = tuple(table[c][i] for c in PRS_COLUMNS)
+        if any(_missing(v) for v in vals):
+            continue
+        prs_rows.setdefault(_as_str(key).replace("_", ""), []).append(
+            tuple(float(v) for v in vals))
+    counts: Dict[str, int] = {}
+    for k in keys:
+        counts[k] = counts.get(k, 0) + 1
+    joined = [row for k, n in counts.items() for row in prs_rows.get(k, ())
+              for _ in range(n)]
+    cols = np.asarray(joined, np.float64).reshape(-1, len(PRS_COLUMNS))
+    mean = cols.mean(axis=0) if len(cols) else np.full(3, math.nan)
+    std = np.asarray([_std(cols[:, j]) for j in range(len(PRS_COLUMNS))])
+    return {k: ((np.asarray(prs_rows[k][-1]) - mean) / std).astype(
+        np.float32) for k in counts if k in prs_rows}

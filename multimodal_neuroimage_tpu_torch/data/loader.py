@@ -19,7 +19,9 @@ is the port's own ``data/filters.py`` (the host gear) or, where
   ``preprocess_fmri_host`` with ``cfg.fmri_type`` (``ItemLoader
   .fmri_timeseries``, host gear).
 - ``multimodal_item``: the flagship's ``{subject, fmri (84, T), struct (84,
-  84)}`` band split (``ItemLoader.multimodal``).
+  84)}`` band split (``ItemLoader.multimodal``); ``multimodal_prs_item``
+  also carries the request's three polygenic scores ``prs`` as float32
+  (``ItemLoader.multimodal_prs``).
 - ``dti_item``, ``smri_item``, ``dti_smri_item``, ``struct_pair_item``: the
   structural requests ``{subject, dti}``, ``{subject, smri}``, ``{subject,
   struct}`` (DTI+sMRI) and ``{subject, smri, dti}`` (phase 6's pair), each
@@ -47,6 +49,7 @@ from multimodal_neuroimage_tpu_torch.data.filters import (design_highpass_fir,
                                                           preprocess_fmri_host,
                                                           zscore)
 from multimodal_neuroimage_tpu_torch.data.index import (SubjectRecord,
+                                                        MULTIMODAL,
                                                         build_subject_index,
                                                         check_dataset)
 from multimodal_neuroimage_tpu_torch.data.splits import SplitManager
@@ -70,7 +73,7 @@ def device_fmri(cfg) -> bool:
     serves; every other item stays on the host gear."""
     return (cfg.preprocess == "device" and cfg.filtering_type == "FIR"
             and cfg.feature_map_gen != "resample"
-            and cfg.dataset_name in ("fMRI_timeseries", "multimodal")
+            and cfg.dataset_name in ("fMRI_timeseries",) + MULTIMODAL
             and cfg.fmri_type in ("timeseries", "divided_frequency",
                                   "time_domain_low", "time_domain_ultralow"))
 
@@ -143,12 +146,20 @@ def multimodal_item(request: Mapping, cfg) -> Dict[str, np.ndarray]:
             "fmri_ultralowfreq_sequence": bands["fmri_ultralowfreq_sequence"]}
 
 
+def multimodal_prs_item(request: Mapping, cfg) -> Dict[str, np.ndarray]:
+    """{subject, fmri, struct, prs (3,)} -> ``multimodal_item`` plus
+    ``prs`` float32."""
+    return {**multimodal_item(request, cfg),
+            "prs": np.asarray(request["prs"], dtype=np.float32)}
+
+
 def item_for(cfg) -> Callable[[Mapping, object], Dict[str, np.ndarray]]:
     """The item function of ``cfg.dataset_name`` (``ItemLoader``'s
     dispatch); raises for the datasets the port does not load yet."""
     check_dataset(cfg.dataset_name)
     return {"hcp": hcp_item, "fMRI_timeseries": fmri_timeseries_item,
-            "multimodal": multimodal_item, "DTI": dti_item,
+            "multimodal": multimodal_item,
+            "multimodal_prs": multimodal_prs_item, "DTI": dti_item,
             "sMRI": smri_item, "DTI+sMRI": dti_smri_item,
             "struct": struct_pair_item}[cfg.dataset_name]
 
@@ -183,7 +194,7 @@ def device_preprocess(batch: Dict, cfg, device) -> Dict:
     if "fmri_raw" not in batch:
         return batch
     from multimodal_neuroimage_tpu_torch.ops.fir import fir_bandsplit_batch
-    multimodal = cfg.dataset_name == "multimodal"
+    multimodal = cfg.dataset_name in MULTIMODAL
     kind = "divided_frequency" if multimodal else cfg.fmri_type
     bands = fir_bandsplit_batch(
         torch.as_tensor(batch["fmri_raw"], dtype=torch.float32,
@@ -208,10 +219,11 @@ def device_preprocess(batch: Dict, cfg, device) -> Dict:
 
 
 MODEL_INPUTS = ("fmri_sequence", "fmri_raw_sequence", "fmri_lowfreq_sequence",
-                "fmri_ultralowfreq_sequence", "struct", "smri", "dti")
+                "fmri_ultralowfreq_sequence", "struct", "smri", "dti", "prs")
 # each structural dataset's matrices, by batch key (the native gear's too)
 STRUCT_INPUTS = {"DTI": ("dti",), "sMRI": ("smri",), "DTI+sMRI": ("struct",),
-                 "struct": ("smri", "dti"), "multimodal": ("struct",)}
+                 "struct": ("smri", "dti"), "multimodal": ("struct",),
+                 "multimodal_prs": ("struct",)}
 
 
 class DataPipeline:
@@ -267,7 +279,7 @@ class DataPipeline:
             return True
         if cfg.filtering_type != "FIR" or cfg.feature_map_gen == "resample":
             return False      # fastpipe implements only the FIR-taps split
-        return cfg.dataset_name == "multimodal" or (
+        return cfg.dataset_name in MULTIMODAL or (
             cfg.dataset_name == "fMRI_timeseries"
             and cfg.fmri_type == "divided_frequency")
 
@@ -284,9 +296,11 @@ class DataPipeline:
         for key in STRUCT_INPUTS.get(cfg.dataset_name, ()):
             batch[key] = native.matrix_batch([r.paths[key] for r in recs],
                                              R, R, cfg.workers)
-        if cfg.dataset_name not in ("multimodal", "fMRI_timeseries"):
+        if cfg.dataset_name == "multimodal_prs":
+            batch["prs"] = np.stack([r.prs for r in recs]).astype(np.float32)
+        if cfg.dataset_name not in MULTIMODAL + ("fMRI_timeseries",):
             return batch, [r.subject for r in recs]
-        multimodal = cfg.dataset_name == "multimodal"
+        multimodal = cfg.dataset_name in MULTIMODAL
         taps = design_highpass_fir(cfg.fir_order, cfg.fir_lb_hz,
                                    1.0 / cfg.tr_seconds)
         bands = native.bandsplit_batch(

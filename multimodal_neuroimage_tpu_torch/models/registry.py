@@ -4,10 +4,15 @@ The JAX ``create_model`` decision tree over the port's models: the phase-1
 ``TransformerNet`` (``2DBERT``, and ``test`` on fMRI-only datasets outside
 the divided-frequency mode), the phase-3 struct nets (``VIT``, and ``test``
 on ``DTI`` / ``sMRI`` / ``DTI+sMRI``: ``use_vae``, then ``use_unet``, then
-the plain ``SwinClassifier``), the flagship ``FuncStructCross`` and the
-phase-6 ``SwinFusionNet`` (``SwinFusion``, and ``test`` on ``struct``).
-Every other model raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+the plain ``SwinClassifier``), phase 5's six combiners (``FuncStruct``,
+and ``test`` on the multimodal datasets: ``add`` -> ``FuncStructAdd`` or,
+with ``use_unet``, ``FuncStructUNetAdd``; ``transfer`` ->
+``FuncStructTransfer``; ``cross_attention`` -> ``FuncStructCross`` or, with
+``use_unet``, ``FuncStructUNetCross`` / ``FuncStructUNetCrossPRS`` by
+``use_prs``; step 4 on divided-frequency fMRI from a ``DTI+sMRI``
+checkpoint -> ``FuncStructTransfer``) and the phase-6 ``SwinFusionNet``
+(``SwinFusion``, and ``test`` on ``struct``). Every other model raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -18,7 +23,9 @@ import torch
 from torch import nn
 
 from multimodal_neuroimage_tpu_torch.models.fmri_nets import TransformerNet
-from multimodal_neuroimage_tpu_torch.models.func_struct import FuncStructCross
+from multimodal_neuroimage_tpu_torch.models.func_struct import (
+    FuncStructAdd, FuncStructCross, FuncStructTransfer, FuncStructUNetAdd,
+    FuncStructUNetCross, FuncStructUNetCrossPRS)
 from multimodal_neuroimage_tpu_torch.models.struct_nets import (
     SwinClassifier, SwinClassifierUNet, SwinClassifierVAE)
 from multimodal_neuroimage_tpu_torch.models.swinfusion_net import (
@@ -47,11 +54,15 @@ def _lowfreq_variant(cfg):
 
 
 def _funcstruct_variant(cfg) -> nn.Module:
-    if cfg.multimodality_type in ("add", "transfer"):
-        raise _not_ported(f"FuncStruct multimodality_type="
-                          f"{cfg.multimodality_type!r}", "M9")
+    """Step-5 dispatch (JAX ``_funcstruct_variant``)."""
+    if cfg.multimodality_type == "add":
+        cls = FuncStructUNetAdd if cfg.use_unet else FuncStructAdd
+        return cls.from_config(cfg)
+    if cfg.multimodality_type == "transfer":
+        return FuncStructTransfer.from_config(cfg)
     if cfg.use_unet:
-        raise _not_ported("FuncStructUNetCross(PRS)", "M9")
+        cls = FuncStructUNetCrossPRS if cfg.use_prs else FuncStructUNetCross
+        return cls.from_config(cfg)
     return FuncStructCross.from_config(cfg)
 
 
@@ -72,7 +83,7 @@ def create_model(cfg) -> nn.Module:
             if cfg.fmri_type == "divided_frequency":
                 if (cfg.model_weights_path is not None
                         and "DTI+sMRI" in str(cfg.model_weights_path)):
-                    raise _not_ported("FuncStructTransfer", "M9")
+                    return FuncStructTransfer.from_config(cfg)
                 return _lowfreq_variant(cfg)
             return TransformerNet.from_config(cfg)
         if cfg.dataset_name in ("DTI", "sMRI", "DTI+sMRI"):

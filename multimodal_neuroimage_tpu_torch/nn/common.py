@@ -65,6 +65,29 @@ class Linear(nn.Linear):
         return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
+def _cast(t: Optional[torch.Tensor], x: torch.Tensor):
+    return t if t is None or t.dtype == x.dtype else t.to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype, as flax's ``nn.Conv`` (module
+    docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, _cast(self.weight, x),
+                                  _cast(self.bias, x))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in its input's dtype (module docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, _cast(self.weight, x),
+                                  _cast(self.bias, x), self.stride,
+                                  self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
 def TorchConv(in_channels: int, out_channels: int,
               kernel_size: int = 3) -> nn.Conv2d:
     """The JAX package's TorchConv is torch's own Conv2d init: a plain
@@ -105,11 +128,11 @@ def drop_path_factors(shape, rate: float, generator: torch.Generator,
 def drop_path(x: torch.Tensor, rate: float,
               generator: torch.Generator) -> torch.Tensor:
     """timm DropPath (nn/common.py DropPath): whole samples zeroed, the
-    rest divided by the keep probability."""
+    rest divided by the keep probability, in ``x``'s dtype."""
     if rate <= 0.0:
         return x
-    return x * drop_path_factors((x.shape[0],) + (1,) * (x.ndim - 1), rate,
-                                 generator, x.device)
+    return (x * drop_path_factors((x.shape[0],) + (1,) * (x.ndim - 1), rate,
+                                  generator, x.device)).to(x.dtype)
 
 
 class Mlp(nn.Module):
@@ -120,8 +143,8 @@ class Mlp(nn.Module):
                  out_features: Optional[int] = None, drop: float = 0.0):
         super().__init__()
         self.drop = drop
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features or in_features)
+        self.fc1 = Linear(in_features, hidden_features)
+        self.fc2 = Linear(hidden_features, out_features or in_features)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         if not self.training or self.drop <= 0.0:

@@ -5,6 +5,12 @@ Scaled-cosine window attention with a clamped per-head logit scale, the
 cyclic shift with static -100 masks and patch merging. The attention core is
 K4 (ops/attention.py). Parameter names follow the reference torch modules
 (``qkv``, ``q_bias``, ``cpb_mlp.0``, ``layers.{i}.blocks.{j}``, ...).
+Each layer computes in its input's dtype, as the JAX modules do under the
+bf16 policy (nn/common.py): a float32 input (the fused image, the struct
+matrices) runs in float32; a bf16 input (``FuncStructTransfer``'s fMRI
+embedding) runs the products, norms and residuals in bf16 and K4 in its
+float32 form on the bf16 values, its output and q/k/v gradients rounded to
+bf16 as JAX's kernel stores them.
 Training: per-block DropPath at ``linspace(0, drop_path_rate, sum(depths))``
 drawn from the step's generator, the plain hash dropout at ``drop_rate``
 after the patch embedding, the projection and in the MLP, and attention-
@@ -22,9 +28,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
-import torch.nn.functional as F
 
-from multimodal_neuroimage_tpu_torch.nn.common import (LayerNorm, Mlp,
+from multimodal_neuroimage_tpu_torch.nn.common import (Conv2d, LayerNorm,
+                                                       Linear, Mlp,
                                                        draw_seed, drop_path,
                                                        dropout, full_f32,
                                                        window_partition,
@@ -107,14 +113,14 @@ class WindowAttentionV2(nn.Module):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
-        self.qkv = nn.Linear(dim, 3 * dim, bias=False)
+        self.qkv = Linear(dim, 3 * dim, bias=False)
         self.q_bias = nn.Parameter(torch.zeros(dim))
         self.v_bias = nn.Parameter(torch.zeros(dim))
         self.logit_scale = nn.Parameter(
             torch.full((num_heads, 1, 1), math.log(10.0)))
         self.cpb_mlp = nn.Sequential(nn.Linear(2, 512), nn.ReLU(),
                                      nn.Linear(512, num_heads, bias=False))
-        self.proj = nn.Linear(dim, dim)
+        self.proj = Linear(dim, dim)
         self.register_buffer("relative_coords_table", torch.from_numpy(
             relative_coords_table(*window_size).astype(np.float32)),
             persistent=False)
@@ -128,21 +134,21 @@ class WindowAttentionV2(nn.Module):
         heads = self.num_heads
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                           self.v_bias])
-        qkv = F.linear(x, self.qkv.weight, bias)
+        qkv = self.qkv(x) + bias.to(x.dtype)
         qkv = qkv.reshape(B, nW, N, 3, heads, C // heads)
         q, k, v = (qkv[:, :, :, i].transpose(2, 3) for i in range(3))
         q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
         k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-12)
-        scale = torch.exp(torch.clamp(self.logit_scale,
+        scale = torch.exp(torch.clamp(self.logit_scale.to(x.dtype),
                                       max=math.log(1.0 / 0.01)))
         table = self.cpb_mlp(self.relative_coords_table).reshape(-1, heads)
         rel = table[self.relative_position_index].reshape(N, N, heads)
         rel_bias = 16.0 * torch.sigmoid(rel.permute(2, 0, 1))
         rate = self.attn_drop if self.training else 0.0
         seed = draw_seed(generator) if rate > 0.0 else 0
-        out = fused_window_attention((q * scale).contiguous(), k.contiguous(),
-                                     v.contiguous(), rel_bias.contiguous(),
-                                     mask, seed, rate)
+        q, k, v = (t.float().contiguous() for t in (q * scale, k, v))
+        out = fused_window_attention(q, k, v, rel_bias.contiguous(), mask,
+                                     seed, rate).to(x.dtype)
         out = self.proj(out.transpose(2, 3).reshape(B, nW, N, C))
         if self.training and self.proj_drop > 0.0:
             out = dropout(out, self.proj_drop, draw_seed(generator))
@@ -196,7 +202,7 @@ class PatchMerging(nn.Module):
     def __init__(self, input_resolution: Tuple[int, int], dim: int):
         super().__init__()
         self.input_resolution = tuple(input_resolution)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
         self.norm = LayerNorm(2 * dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -219,7 +225,7 @@ class PatchEmbed(nn.Module):
         pw_stride = patch_size if w >= patch_size else 1
         self.patches_resolution = (h // patch_size,
                                    max(w // patch_size, 1))
-        self.proj = nn.Conv2d(1, embed_dim,
+        self.proj = Conv2d(1, embed_dim,
                               kernel_size=(patch_size, pw_stride),
                               stride=(patch_size, pw_stride))
         self.norm = LayerNorm(embed_dim)
@@ -288,7 +294,7 @@ class SwinTransformerV2(nn.Module):
                       drop_path=dpr[sum(depths[:i]):sum(depths[:i + 1])])
             for i, (depth, heads) in enumerate(zip(depths, num_heads)))
         self.norm = LayerNorm(int(embed_dim * 2 ** (n - 1)))
-        self.head = nn.Linear(int(embed_dim * 2 ** (n - 1)), 1)
+        self.head = Linear(int(embed_dim * 2 ** (n - 1)), 1)
 
     def forward_features(self, x: torch.Tensor,
                          generator=None) -> torch.Tensor:

@@ -5,7 +5,14 @@ A DoubleConv stem 1 -> base, four maxpool + DoubleConv downs (base -> 2 base
 (16 base -> 8 base -> ... -> 1; the last up emits the single output channel
 directly). Odd sizes (84 -> 42 -> 21 -> 10 -> 5) are handled by padding the
 upsampled map to the skip's size: ``up2`` pads its 20x20 map to the 21x21
-skip.
+skip. ``UNet2D(x, inject)`` adds (or, with ``concat_method="hadamard"``,
+multiplies) a latent shaped like the 16 base-channel bottleneck x5 before
+the ups: the PRS latent of ``FuncStructUNetCrossPRS``.
+
+The convolutions compute in their input's dtype, as flax promotes a bf16
+kernel against it (nn/common.py ``Conv2d``): a float32 input (the struct matrix)
+takes the bf16-valued weights in float32, a bf16 input (the fMRI
+embedding under the bf16 policy) computes in bf16.
 
 ``BatchStatNorm`` normalises with the statistics of the batch in BOTH
 modes (biased variance, learned affine, no running statistics), as the
@@ -22,6 +29,8 @@ from typing import Optional
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from multimodal_neuroimage_tpu_torch.nn.common import Conv2d, ConvTranspose2d
 
 
 class BatchStatNorm(nn.Module):
@@ -50,9 +59,9 @@ class DoubleConv(nn.Module):
         super().__init__()
         mid = mid_ch or out_ch
         self.double_conv = nn.Sequential(
-            nn.Conv2d(in_ch, mid, 3, padding=1, bias=False),
+            Conv2d(in_ch, mid, 3, padding=1, bias=False),
             BatchStatNorm(mid), nn.ReLU(),
-            nn.Conv2d(mid, out_ch, 3, padding=1, bias=False),
+            Conv2d(mid, out_ch, 3, padding=1, bias=False),
             BatchStatNorm(out_ch), nn.ReLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -77,7 +86,7 @@ class Up(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.up = nn.ConvTranspose2d(in_ch, in_ch // 2, 2, stride=2)
+        self.up = ConvTranspose2d(in_ch, in_ch // 2, 2, stride=2)
         self.conv = DoubleConv(in_ch, out_ch)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -104,12 +113,15 @@ class UNet2D(nn.Module):
         self.up3 = Up(4 * b, 2 * b)
         self.up4 = Up(2 * b, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, inject: Optional[torch.Tensor] = None,
+                concat_method: str = "add") -> torch.Tensor:
         x1 = self.inc(x)
         x2 = self.down1(x1)
         x3 = self.down2(x2)
         x4 = self.down3(x3)
         x5 = self.down4(x4)
+        if inject is not None:
+            x5 = x5 * inject if concat_method == "hadamard" else x5 + inject
         y = self.up1(x5, x4)
         y = self.up2(y, x3)
         y = self.up3(y, x2)

@@ -17,7 +17,7 @@ update is IN PLACE on the parameters and both moments.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional
+from typing import Callable, Dict, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -81,8 +81,14 @@ fused_adam_update.launches = 0
 
 class FusedAdam:
     """Adam ("adam": L2 into the gradient) or AdamW ("adamw": decoupled
-    decay) over flat buffers, with optional global-norm clipping
-    (``create_optimizer`` with ``accumulation_steps`` 1).
+    decay) over flat buffers, with optional global-norm clipping.
+
+    With ``accumulation_steps`` k > 1 it is JAX's ``optax.MultiSteps`` over
+    the same chain: each ``step()`` folds the micro-step's gradient into
+    the running mean ``acc`` as MultiSteps does (``acc += (g - acc) / (m +
+    1)`` at mini-step m, float32), and every k-th applies K5 to that mean
+    (clipping on the mean, the schedule at the count of updates) and
+    clears it; the other micro-steps leave the parameters alone.
 
     Construction moves every parameter into ``self.params`` (a flat f32
     buffer on the parameters' device) and binds each ``.grad`` to a view of
@@ -93,7 +99,8 @@ class FusedAdam:
                  schedule: Callable[[int], float], weight_decay: float,
                  mode: str = "adamw", gradient_clipping: bool = False,
                  clip_max_norm: float = 1.0, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8,
+                 accumulation_steps: int = 1):
         mode = mode.lower()
         if mode not in ("adam", "adamw"):
             raise ValueError(f"FusedAdam supports adam/adamw, got {mode!r}")
@@ -112,6 +119,8 @@ class FusedAdam:
         self.clip_max_norm = float(clip_max_norm)
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
         self.count = 0
+        self.k = max(int(accumulation_steps), 1)
+        self.mini_step = 0
         total = sum(p.numel() for p in self.param_list)
         self.params = torch.empty(total, dtype=torch.float32, device=device)
         self.grads = torch.zeros(total, dtype=torch.float32, device=device)
@@ -126,6 +135,8 @@ class FusedAdam:
                 p.data = self.params[off:off + n].view_as(p)
                 self._views.append(self.grads[off:off + n].view_as(p))
                 off += n
+        self.acc = (torch.zeros(total, dtype=torch.float32, device=device)
+                    if self.k > 1 else None)
         self.zero_grad()
 
     def zero_grad(self) -> None:
@@ -143,11 +154,52 @@ class FusedAdam:
     def current_lr(self) -> float:
         return float(self.schedule(self.count))
 
+    def state(self) -> Dict[str, object]:
+        """What a checkpoint keeps to resume the optimizer exactly."""
+        return {"mu": self.mu, "nu": self.nu, "count": self.count,
+                "mini_step": self.mini_step, "acc": self.acc}
+
+    def load_state(self, state: Mapping[str, object]) -> None:
+        """Restore :meth:`state` (moments, counts, accumulated mean) in
+        place."""
+        acc = state.get("acc")
+        if (tuple(state["mu"].shape) != tuple(self.mu.shape)
+                or (acc is None) != (self.acc is None)):
+            raise ValueError(
+                f"optimizer state of {tuple(state['mu'].shape)} elements"
+                f"{' with' if acc is not None else ' without'} an "
+                f"accumulated gradient does not fit this optimizer "
+                f"({self.mu.numel()} elements, accumulation_steps {self.k})")
+        with torch.no_grad():
+            self.mu.copy_(state["mu"])
+            self.nu.copy_(state["nu"])
+            if acc is not None:
+                self.acc.copy_(acc)
+        self.count = int(state["count"])
+        self.mini_step = int(state.get("mini_step", 0))
+
     def step(self) -> None:
+        """One micro-step: accumulate, and every k-th apply K5 (module
+        docstring); with k = 1 every call applies K5."""
         self._check_grads()
+        grads = self.grads
+        if self.acc is not None:
+            with torch.no_grad():
+                self.acc.add_((self.grads - self.acc)
+                              / float(self.mini_step + 1))
+            self.mini_step += 1
+            if self.mini_step < self.k:
+                return
+            self.mini_step = 0
+            grads = self.acc
+        self._update(grads)
+        if self.acc is not None:
+            self.acc.zero_()
+
+    def _update(self, grads: torch.Tensor) -> None:
         clip = None
         if self.gradient_clipping:
-            norm = torch.sqrt(torch.sum(self.grads * self.grads))
+            norm = torch.sqrt(torch.sum(grads * grads))
             clip = torch.where(norm < self.clip_max_norm,
                                torch.ones_like(norm),
                                self.clip_max_norm / torch.clamp(norm,
@@ -157,7 +209,7 @@ class FusedAdam:
         one = np.float32(1.0)
         bc1 = one / (one - np.float32(self.b1) ** t)
         bc2 = one / (one - np.float32(self.b2) ** t)
-        fused_adam_update(self.params, self.grads, self.mu, self.nu, clip,
+        fused_adam_update(self.params, grads, self.mu, self.nu, clip,
                           self.current_lr(), float(bc1), float(bc2), self.b1,
                           self.b2, self.eps, self.weight_decay, self.adamw)
         self.count += 1

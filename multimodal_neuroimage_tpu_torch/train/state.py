@@ -1,10 +1,10 @@
 """Optimizer factory and the train / eval steps (counterpart of multimodal_neuroimage_tpu/train/state.py).
 
 Single device: no mesh, no ``shard_map`` (multi-GPU is ROADMAP M11). The
-optimizer is K5 (ops/fused_update.py ``FusedAdam``) for adam / adamw
-without gradient accumulation, which is what the JAX ``create_optimizer``
-fuses; the unfused optax chains (accumulation, other optimizers) are
-ROADMAP M5.
+optimizer is K5 (ops/fused_update.py ``FusedAdam``) for adam / adamw:
+what the JAX ``create_optimizer`` fuses, and with ``accumulation_steps``
+k > 1 its ``optax.MultiSteps`` chain, K5 applied to the mean of k
+micro-step gradients (``FusedAdam``'s docstring). Other optimizers raise.
 
 ``compute_dtype`` is the JAX step builders' policy. ``"float32"`` runs
 everything in float32. ``"bfloat16"`` (the flagship's shipping default)
@@ -35,7 +35,7 @@ from multimodal_neuroimage_tpu_torch.train.schedules import build_schedule
 HEADS = ("binary_classification", "regression")
 BATCH_KEYS = ("fmri_sequence", "fmri_raw_sequence", "fmri_lowfreq_sequence",
               "fmri_ultralowfreq_sequence", "struct", "smri", "dti", "target",
-              "valid")
+              "valid", "prs")
 
 
 def create_optimizer(optim: str, params: Iterable[torch.nn.Parameter],
@@ -44,15 +44,13 @@ def create_optimizer(optim: str, params: Iterable[torch.nn.Parameter],
                      clip_max_norm: float = 1.0,
                      accumulation_steps: int = 1) -> FusedAdam:
     """Adam applies L2 into the gradient (torch.optim.Adam), AdamW decouples
-    the decay; both run as the one-launch K5 update."""
+    the decay; both run as the one-launch K5 update, every
+    ``accumulation_steps`` micro-steps."""
     if optim.lower() not in ("adam", "adamw"):
         raise ValueError(f"unknown optimizer {optim}")
-    if accumulation_steps > 1:
-        raise NotImplementedError(
-            f"accumulation_steps={accumulation_steps}: gradient accumulation "
-            f"(the unfused optax MultiSteps chain) is ROADMAP M5")
     return FusedAdam(params, schedule, weight_decay, optim.lower(),
-                     gradient_clipping, clip_max_norm)
+                     gradient_clipping, clip_max_norm,
+                     accumulation_steps=accumulation_steps)
 
 
 def optimizer_from_config(cfg, params: Iterable[torch.nn.Parameter],

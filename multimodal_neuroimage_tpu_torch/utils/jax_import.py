@@ -1,6 +1,8 @@
 """Carry the JAX package's flax parameters into the port's state dict.
 
-``jax_params_to_state_dict(tree)`` takes a ``FuncStructCross``,
+``jax_params_to_state_dict(tree)`` takes a Func+Struct combiner's
+(``FuncStructCross``, ``FuncStructAdd``, ``FuncStructTransfer``,
+``FuncStructUNetAdd``, ``FuncStructUNetCross``, ``FuncStructUNetCrossPRS``),
 ``TransformerNet``, ``SwinClassifier`` (and its VAE and UNet variants) or
 ``SwinFusionNet`` parameter tree (nested dicts of arrays, as ``model.init``
 returns under "params") and returns the port model's ``state_dict``: flax
@@ -272,6 +274,15 @@ def _double_conv_state(tree: Tree) -> State:
     return out
 
 
+def conv_transpose_state(tree: Tree, name: str) -> State:
+    """A flax ``ConvTranspose`` -> torch ``ConvTranspose2d``: the kernel
+    flipped in both spatial axes, ``(kh, kw, in, out)`` -> ``(in, out, kh,
+    kw)``."""
+    kernel = np.asarray(tree["kernel"])[::-1, ::-1]
+    return {f"{name}.weight": _t(kernel.transpose(2, 3, 0, 1)),
+            f"{name}.bias": _vec(tree["bias"])}
+
+
 def unet_state(tree: Tree) -> State:
     """UNet2D -> ``inc.``, ``down{i}.maxpool_conv.1.``, ``up{i}.up`` (the
     transposed conv, flipped back) and ``up{i}.conv.``."""
@@ -280,9 +291,7 @@ def unet_state(tree: Tree) -> State:
         out.update(_prefixed(f"down{i}.maxpool_conv.1.",
                              _double_conv_state(tree[f"down{i}"])))
         up = tree[f"up{i}"]
-        kernel = np.asarray(up["up"]["kernel"])[::-1, ::-1]
-        out[f"up{i}.up.weight"] = _t(kernel.transpose(2, 3, 0, 1))
-        out[f"up{i}.up.bias"] = _vec(up["up"]["bias"])
+        out.update(conv_transpose_state(up["up"], f"up{i}.up"))
         out.update(_prefixed(f"up{i}.conv.",
                              _double_conv_state(up["conv"])))
     return out
@@ -300,9 +309,11 @@ def transformer_net_state(tree: Tree) -> State:
 def jax_params_to_state_dict(tree: Tree) -> State:
     """A model's flax params -> the port model's state, the model told by
     its top-level modules: ``transformer`` (TransformerNet), ``fmri_embed``
-    (FuncStructCross), ``fusion`` + ``swin`` (SwinFusionNet), ``vae`` +
-    ``swin`` (SwinClassifierVAE), ``unet`` + ``swin``
-    (SwinClassifierUNet), ``swin`` alone (SwinClassifier)."""
+    (a Func+Struct combiner: with ``fusion`` where it fuses, ``unet`` where
+    its UNet is called, ``conv_prs`` and ``up_prs*`` for the PRS latent),
+    ``fusion`` + ``swin`` (SwinFusionNet), ``vae`` + ``swin``
+    (SwinClassifierVAE), ``unet`` + ``swin`` (SwinClassifierUNet), ``swin``
+    alone (SwinClassifier)."""
     if "transformer" in tree:
         return transformer_net_state(tree)
     if "fmri_embed" not in tree:
@@ -321,6 +332,14 @@ def jax_params_to_state_dict(tree: Tree) -> State:
                                  temporal_bert_state(fe[name])))
     if "proj_layer" in fe:
         out.update(_dense(fe["proj_layer"], "fmri_embed.proj_layer"))
-    out.update(_prefixed("fusion.", swinfusion_backbone_state(tree["fusion"])))
+    if "unet" in tree:
+        out.update(_prefixed("unet.", unet_state(tree["unet"])))
+    if "conv_prs" in tree:
+        out.update(conv_transpose_state(tree["conv_prs"], "conv_prs"))
+    for name in sorted(k for k in tree if k.startswith("up_prs")):
+        out.update(_conv(tree[name], name))
+    if "fusion" in tree:
+        out.update(_prefixed("fusion.",
+                             swinfusion_backbone_state(tree["fusion"])))
     out.update(_prefixed("swin.", swin_state(tree["swin"])))
     return out

@@ -156,8 +156,10 @@ def test_hcp_index_matches_jax(tmp_path, target, require_target):
 
 
 def test_index_refuses_unported_datasets(meta_dir):
-    """The structural datasets are indexed (M8, M9's SwinFusionNet); the
-    two datasets still waiting raise, each naming its ROADMAP item."""
+    """The structural datasets are indexed (M8, M9's SwinFusionNet), and
+    ``multimodal_prs`` is (M9's PRS combiner: its index against JAX's is in
+    tests/test_torch_combiners.py); the dataset still waiting raises,
+    naming its ROADMAP item."""
     kw = dict(metadata_csv=str(meta_dir / "meta.csv"),
               subject_list_path=str(meta_dir / "subs.txt"))
     for dataset in ("DTI", "sMRI", "struct", "DTI+sMRI"):
@@ -166,7 +168,9 @@ def test_index_refuses_unported_datasets(meta_dir):
         assert got and [(r.idx, r.subject, r.paths) for r in got] == [
             (r.idx, r.subject, r.paths)
             for r in jindex.build_subject_index(jcfg)]
-    for dataset, item in (("fMRI_image", "N6"), ("multimodal_prs", "M9")):
+    assert "multimodal_prs" in tindex.PORTED
+    assert "multimodal_prs" not in tindex.WAITING
+    for dataset, item in (("fMRI_image", "N6"),):
         cfg = tsyn.synthetic_config(str(meta_dir),
                                     dataset_name=dataset).validate()
         with pytest.raises(NotImplementedError, match=item):
@@ -340,7 +344,7 @@ def _tiny(root, folder, **kw):
 def test_tiny_flagship_trains_tests_and_serves_from_disk(tiny_cohort,
                                                           tmp_path):
     from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
-        default_checkpoint)
+        default_checkpoint, latest_checkpoint)
     from multimodal_neuroimage_tpu_torch.serve.predictor import (Predictor,
                                                                  run_predict)
     from multimodal_neuroimage_tpu_torch.train.trainer import Trainer
@@ -353,10 +357,12 @@ def test_tiny_flagship_trains_tests_and_serves_from_disk(tiny_cohort,
     assert np.isfinite(trainer.step_losses).all()
     best = default_checkpoint(cfg)
     assert best is not None and "_BEST_val_" in best
-    with pytest.raises(NotImplementedError, match="M5"):
-        Trainer(cfg, device="cpu")               # auto-resume
+    last = str(tmp_path / "tiny_last_epoch.ckpt")
+    assert latest_checkpoint(str(tmp_path)) == last
+    resumed = Trainer(cfg, device="cpu")         # auto-resume: nothing left
+    assert resumed.epoch0 == 1 and resumed.training() == {}
     tester = Trainer(cfg, sets=["test"], device="cpu")
-    assert tester.checkpoint_path == best
+    assert tester.checkpoint_path == last        # the JAX Trainer's rule
     metrics = tester.testing()
     assert "test_Balanced_Accuracy" in metrics
     assert len(tester.loss_history["test"]) == 1

@@ -222,13 +222,15 @@ def test_predictor_needs_in_memory_records(flagship, tmp_path):
 @pytest.mark.parametrize("change,item", [
     ({"task": "lowfreqBERT"}, "M7"), ({"task": "VIT"}, "SwinClassifier"),
     ({"task": "SwinFusion"}, "SwinFusionNet"),
-    ({"multimodality_type": "add"}, "M9"),
-    ({"use_unet": True}, "M9"),
+    pytest.param({"multimodality_type": "add"}, "FuncStructAdd",
+                 id="change3-M9"),
+    pytest.param({"use_unet": True}, "FuncStructUNetCross",
+                 id="change4-M9"),
 ])
 def test_registry_names_the_roadmap_item(flagship, change, item):
     """A model still to port raises, naming its ROADMAP item; the struct
-    nets (VIT, M8) and SwinFusionNet (M9) are built, as JAX's registry
-    builds them for this config."""
+    nets (VIT, M8), SwinFusionNet and the Func+Struct combiners (M9) are
+    built, as JAX's registry builds them for this config."""
     cfg = dataclasses.replace(flagship[0], **change)
     if item.startswith("M"):
         with pytest.raises(NotImplementedError, match=item):

@@ -235,6 +235,38 @@ with tempfile.TemporaryDirectory() as tmp:
     checkpoint.save_checkpoint(os.path.join(exp, "last.ckpt"),
                                tr.model.state_dict(), {})
     assert len(predictor.run_predict(disk, device="cpu")) == 8
+# the phase chain through the port's CLI: step 3 (SwinClassifier on
+# DTI+sMRI), step 5 (FuncStructAdd chained from it), step 4 (tested from
+# step 3's checkpoint) and step 3's model served by --predict_only
+import contextlib
+import glob
+import io
+from multimodal_neuroimage_tpu_torch.cli import main as cli
+with tempfile.TemporaryDirectory() as tmp:
+    # seed 2: both classes in the validation split, so step 3 writes BEST
+    root = synthetic.generate_synthetic_cohort(tmp, n_subjects=16, seed=2)
+    common = ["--base_path", root, "--device", "cpu", "--target", "sex",
+              "--size_of_model", "small", "--batch_size", "4",
+              "--nEpochs", "1", "--workers", "1", "--compute_dtype",
+              "float32", "--dti_smri_path",
+              os.path.join(root, "data", "dti+smri_cortical_thickness")]
+    bert = ["--multimodality_type", "add", "--transformer_hidden_layers",
+            "1", "--bert_intermediate_size", "32", "--num_heads_2DBert", "4"]
+    cli.main(["--step", "3", "--dataset_name", "DTI+sMRI", "--exp_name",
+              "p3"] + common)
+    assert glob.glob(os.path.join(root, "experiments", "p3_*", "*BEST*"))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--step", "5", "--dataset_name", "multimodal",
+                  "--exp_name", "p5"] + bert + common)
+        m4 = cli.main(["--step", "4", "--dataset_name", "multimodal",
+                       "--exp_name", "p4"] + bert + common)
+    assert out.getvalue().count("phase-chained weights from") == 2
+    assert "swin.layers.*.blocks.*.attn.qkv.weight" in out.getvalue()
+    assert "test_Balanced_Accuracy" in m4
+    assert len(cli.main(["--step", "3", "--dataset_name", "DTI+sMRI",
+                         "--exp_name", "serve", "--predict_only"]
+                        + common)) == 16
 print(sorted(m for m in sys.modules
              if m in ("jax", "flax", "pandas", "sklearn")
              or m == "multimodal_neuroimage_tpu"
@@ -247,7 +279,8 @@ def test_port_imports_no_jax_flax_pandas_sklearn():
     training step, run one dot-shape chain, write an HCP cohort to disk,
     train a step from it and serve it with ``run_predict``, train a step of
     ``SwinClassifier`` and of ``SwinFusionNet`` from a structural cohort on
-    disk and serve the second with ``run_predict``, in a fresh
+    disk and serve the second with ``run_predict``, run the phase chain
+    3 -> 5 -> 4 and a ``--predict_only`` through the port's CLI, in a fresh
     interpreter (this test process imported jax already,
     tests/conftest.py): none of jax, flax, pandas, sklearn or the JAX
     package ``multimodal_neuroimage_tpu`` (any of its modules) gets
