@@ -160,13 +160,40 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    twins' side), and the training and predict steps of each at batch 8
    and 64, bf16 and float32 in turns, with peak memory; the phase's wall
    time.
-12. Prints one JSON line of per-kernel results (launches by path:
+12. Phase 2's fMRI nets (``phase2_nets``): K1 at the ``different``
+   ultralow BERT's length (t_valid 129 padded to 136, batch 8; float32
+   form training and inference forward and backward, mm16 forward and
+   backward) and K5 in adamw mode at the MulT net's and the two-channel
+   net's parameter counts, against their plain versions and library
+   calls; the chain through the CLI on a synthetic cohort on disk (40
+   subjects; series of 350-361 TRs, so the bands' zero-padded ends reach
+   the MulT net's pad probe and its readout of the last time step) at
+   ``--fmri_type divided_frequency``, each step at its phase's defaults:
+   ``--step 1`` trains ``TransformerNet``, ``--step 2`` the MulT net
+   (exactly K5 once a step and no other kernel) and the two-channel net
+   (K1 mm16 32 a pass and 32 a step, K5 once a step), each chained from
+   step 1's best checkpoint (the copied keys printed), ``--step 4`` tests
+   each from its step-2 checkpoint, ``--predict_only`` serves the
+   two-channel checkpoint bit-equal to an in-memory ``Predictor``; one HCP
+   two-channel training step at phase 2's bf16 policy (22 ROIs, 1200 TRs
+   + CLS: exactly 32 bf16 K6 forwards, 32 backwards and K5 once); one
+   float32 step at full width of the two-channel net against the plain
+   twins on the card and of the MulT net (no kernel to twin) against the
+   CPU, each at ``GRAD_REL``; both nets' training and predict steps at
+   batch 8 and 64, bf16 and float32 in turns, with peak memory (a batch
+   that does not fit is timed at half, and why is printed); the phase's
+   wall time.
+13. Prints one JSON line of per-kernel results (launches by path:
    flagship, flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, hcp_bf16,
    flagship_defaults, flagship_disk, hcp_disk, dot_shapes, smri_swin,
    smri_swin_vae, smri_swin_unet, swinfusion_struct, struct_disk,
    chain_step3, the five combiners' step-5 runs and twin steps,
-   chain_step4, chain_predict; K5's and K2/K3's cases on the structural
-   paths under ``path_cases``) and, last, the ok line.
+   chain_step4, chain_predict, and phase 2's phase2_step1, phase2_mult,
+   phase2_two_channels, their step-4 runs, phase2_predict,
+   phase2_hcp_two_channels, phase2_two_channels_twin_step and
+   phase2_mult_step; K5's and K2/K3's cases on the structural paths, K1's
+   at T = 129 and K5's at phase 2's sizes under ``path_cases``) and,
+   last, the ok line.
 
 Any failed phase raises, so the exit code is non-zero and no ok line is
 printed. Without a CUDA card it exits with code 2 before doing anything;
@@ -177,6 +204,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import glob
 import json
 import os
@@ -593,11 +621,13 @@ class Results:
         return bound, by
 
     def path_case(self, key, path, label, err, ms, plain_ms, ops, nbytes,
-                  library_ms=None, **extra):
-        """One case of a kernel in a mode or at a rate that its other cases
-        do not run (K5's adam mode, K2/K3 at dropout 0.8), kept apart from
-        its averages under ``path_cases[path]``; returns (bound ms, by)."""
-        bound, by = _bound(ops, nbytes)
+                  library_ms=None, bound=None, **extra):
+        """One case of a kernel in a mode, at a rate or at a shape that its
+        other cases do not run (K5's adam mode, K2/K3 at dropout 0.8, K1 at
+        T = 129), kept apart from its averages under ``path_cases[path]``;
+        ``bound`` (ms, by) replaces the float32 bound of ``ops`` and
+        ``nbytes``; returns (bound ms, by)."""
+        bound, by = bound or _bound(ops, nbytes)
         self.rows[key].setdefault("path_cases", {}).setdefault(
             path, []).append({"case": label, "max_abs_err": err, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": bound,
@@ -3604,6 +3634,430 @@ def phase_chain(card):
     return launches
 
 
+# ---- phase 2's fMRI nets ----------------------------------------------------
+
+# phase 2 (ROADMAP M7) at its Config defaults (bf16 policy, batch 8,
+# AdamW): the MulT net runs no kernel but K5 (its attention is plain torch,
+# as JAX's is outside any Pallas kernel), the two-channel net two 16-layer
+# BERTs on K1 (mm16 at bf16, the float32 form at float32); step 1's
+# TransformerNet one
+P2_STEP1 = ({"K1 bert_layer mm16": 16}, {"K1 bert_layer backward mm16": 16})
+P2_MULT = ({}, {})
+P2_TWO = ({"K1 bert_layer mm16": 32}, {"K1 bert_layer backward mm16": 32})
+# the ultralow BERT under feature_map_size='different': 128 steps + CLS,
+# padded to 136 inside K1
+P2_SHORT_T = 129
+# HCP at phase 2 (22 ROIs, 1200 TRs + CLS, 2 heads): every layer on K6
+P2_HCP = ({"K6 fused_attention bf16": 32},
+          {"K6 fused_attention backward bf16": 32})
+
+
+def k1_short_kernels(gen, res: Results, card):
+    """K1 at the ``different`` ultralow BERT's length, t_valid 129 padded
+    to 136, batch 8 (H 84, 12 heads, F 3072): the float32 form's training
+    forward (every saved residual), inference forward and backward, and the
+    mm16 form's inference forward and backward (dropout 0.1 where
+    training), each against its plain version at the script's K1
+    tolerances and timed in turns beside it and ``nn.TransformerEncoderLayer``
+    (bf16 for mm16) on the same weights; recorded as the kernels' path
+    cases ``phase2_different`` beside the T = 369 rows."""
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    H, F_, T, heads, B = 84, 3072, P2_SHORT_T, 12, CHAIN_BATCH
+    TP = T + (-T % 8)
+    rates, seed = (0.1, 0.1), 97531
+    path, tag = "phase2_different", f"T {T} (padded {TP}) B {B}"
+    prod, exps = _bert_ops(B, T, H, heads, F_)
+    x, g = (torch.randn(B, T, H, generator=gen).cuda() for _ in "xg")
+    p = tuple(t.cuda() for t in (_lin(gen, H, H) + _lin(gen, H, H)
+                                 + _lin(gen, H, H) + _lin(gen, H, H)
+                                 + _ln(gen, H) + _lin(gen, F_, H)
+                                 + _lin(gen, H, F_) + _ln(gen, H)))
+    sum_tol = f"sums {SUM_REL} * max|ref| + {SUM_ATOL}"
+
+    def case(key, label, err, ms, plain_ms, lib_ms, nbytes, bound, tol):
+        b, by = res.path_case(key, path, f"{tag} {label}", err, ms, plain_ms,
+                              0, nbytes, lib_ms, bound=bound)
+        print(f"{key} {tag} {label}: max|err| {err:.3e} ({tol})  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b:.6f} ms "
+              f"({by})  library {lib_ms:.4f} ms; card: {card}")
+
+    # the float32 form: training forward, inference forward, backward
+    encoder = _encoder_layer(p, H, heads, F_).eval()
+    (out, resid) = bl._launch_forward(x, p, heads, T, seed, rates, True, True)
+    want = bl.bert_layer_reference_parts(x, p, heads, T, seed, rates, True)
+    torch.cuda.synchronize()
+    err = _close(f"K1 {tag} out", out, want["out"], ATOL, RTOL)
+    for name, got in bl.resid_parts(resid, B, T, H, heads).items():
+        err = max(err, _close(f"K1 {tag} {name}", got, want[name], ATOL,
+                              RTOL))
+
+    @torch.no_grad()
+    def library():
+        return encoder(x)
+    ms, plain_ms, lib_ms = _call_times(
+        lambda: bl._launch_forward(x, p, heads, T, seed, rates, True, True),
+        lambda: bl.bert_layer_reference_parts(x, p, heads, T, seed, rates,
+                                              True), library)
+    nbytes = _nbytes(x, x, resid, *p)
+    case("K1 bert_layer", "training", err, ms, plain_ms, lib_ms, nbytes,
+         _k1_forward_bound(B, nbytes, T=T), f"atol {ATOL} + rtol {RTOL}")
+    err = _close(f"K1 {tag} inference", bl.bert_layer_call(x, p, heads, T),
+                 bl.bert_layer_reference(x, p, heads, T), ATOL, RTOL)
+    ms, plain_ms, lib_ms = _call_times(
+        lambda: bl.bert_layer_call(x, p, heads, T),
+        lambda: bl.bert_layer_reference(x, p, heads, T), library)
+    nbytes = _nbytes(x, x, *p)
+    case("K1 bert_layer", "inference", err, ms, plain_ms, lib_ms, nbytes,
+         _k1_forward_bound(B, nbytes, T=T), f"atol {ATOL} + rtol {RTOL}")
+
+    def k1():
+        return bl.bert_layer_backward(g, x, p, resid, heads, T, seed, rates,
+                                      True)
+    dx, dps = k1()
+    _, plain = _plain_backward(
+        lambda x_, *p_: bl.bert_layer_reference(x_, p_, heads, T, seed,
+                                                rates, True), (x,) + p, g)
+    want = plain()
+    torch.cuda.synchronize()
+    errs = [_close(f"K1 backward {tag} dx", dx, want[0], ATOL, RTOL)]
+    errs += [_close_rel(f"K1 backward {tag} dparams[{i}]", a, b, SUM_REL)
+             for i, (a, b) in enumerate(zip(dps, want[1:]))]
+    layer = _encoder_layer(p, H, heads, F_).train()
+    with torch.enable_grad():
+        xl = x.detach().requires_grad_()
+        ins, o = [xl] + list(layer.parameters()), layer(xl)
+    ms, plain_ms, lib_ms = _call_times(
+        k1, plain, lambda: torch.autograd.grad(o, ins, g, retain_graph=True),
+        10)
+    case("K1 bert_layer backward", "", max(errs), ms, plain_ms, lib_ms,
+         _nbytes(x, g, x, *p, *p), _k1_backward_bound(B, x, g, p, T=T),
+         f"dx: atol {ATOL} + rtol {RTOL}; {sum_tol}")
+    del encoder, layer, ins, o, resid
+
+    # the mm16 form: inference forward and backward
+    p16 = _k1_params16(gen)
+    layer16 = _encoder_layer(p16, H, heads, F_).to(torch.bfloat16)
+    x16 = x.to(torch.bfloat16)
+    err = _close(f"K1 mm16 {tag}", bl.bert_layer_call16(x, p16, heads, T),
+                 bl.bert_layer_reference(x, p16, heads, T, mm16=True),
+                 ATOL16, RTOL16)
+
+    @torch.no_grad()
+    def library16():
+        return layer16.eval()(x16)
+    ms, plain_ms, lib_ms = _call_times(
+        lambda: bl.bert_layer_call16(x, p16, heads, T),
+        lambda: bl.bert_layer_reference(x, p16, heads, T, mm16=True),
+        library16)
+    tol16 = f"atol {ATOL16} + rtol {RTOL16}; gradients {REL16} * max|ref|"
+    case("K1 bert_layer mm16", "", err, ms, plain_ms, lib_ms, 0,
+         _bound16(prod, exps, _nbytes(x, x, *p16)), tol16)
+    _, resid16 = bl._launch_forward(x, p16, heads, T, seed, rates, True,
+                                    True, True)
+
+    def bwd16():
+        return bl.bert_layer_backward16(g, x, p16, resid16, heads, T, seed,
+                                        rates, True)
+
+    def plain16():
+        return bl.bert_layer_reference_backward16(g, x, p16, heads, T, seed,
+                                                  rates, True)
+    (dx, dps), (wdx, wdps) = bwd16(), plain16()
+    torch.cuda.synchronize()
+    errs = [_close_rel(f"K1 mm16 backward {tag} dx", dx, wdx, REL16, 0.0)]
+    errs += _grads16(f"K1 mm16 backward {tag} dparams", dps, wdps,
+                     key_bias=(3, 2))
+    layer16.train()
+    with torch.enable_grad():
+        xl = x16.detach().requires_grad_()
+        ins, o = [xl] + list(layer16.parameters()), layer16(xl)
+    g16 = g.to(torch.bfloat16)
+    ms, plain_ms, lib_ms = _call_times(
+        bwd16, plain16,
+        lambda: torch.autograd.grad(o, ins, g16, retain_graph=True), 10)
+    case("K1 bert_layer backward mm16", "", max(errs), ms, plain_ms, lib_ms,
+         0, _bound16(2 * prod, 2 * exps, _nbytes(x, g, x, *p16, *p16)),
+         tol16)
+    print(f"K1 at T = 369 (B 4, 16, 64): the rows above; at T = {T} the "
+          f"path cases {path}; card: {card}")
+
+
+def k5_phase2_kernels(gen, res: Results, card):
+    """K5 in adamw mode (phase 2's optimizer), without and with clipping,
+    at the MulT net's and the two-channel net's parameter counts, against
+    ``fused_adam_reference``, timed in turns beside its plain version and
+    ``torch.optim.AdamW(fused=True)`` on the same buffers; path cases
+    ``phase2``."""
+    from multimodal_neuroimage_tpu_torch.cli.main import config_from_args
+    from multimodal_neuroimage_tpu_torch.models.registry import create_model
+    from multimodal_neuroimage_tpu_torch.ops import fused_update as fu
+    base = ["--step", "2", "--fmri_type", "divided_frequency"]
+    for label, flags in (("MulT", []), ("two channels", [
+            "--fmri_multimodality_type", "two_channels"])):
+        cfg = config_from_args(base + flags)
+        n = sum(q.numel() for q in create_model(cfg).parameters())
+        pk, gk, mk = (torch.randn(n, generator=gen).cuda() for _ in range(3))
+        nk = torch.rand(n, generator=gen).cuda()
+        for clip in (None, torch.tensor([0.5], device="cuda")):
+            state = [t.clone() for t in (pk, mk, nk)]
+            args = (clip, 1e-3, 10.0, 1000.0, 0.9, 0.999, 1e-8, 1e-5, True)
+            fu.fused_adam_update(pk, gk, mk, nk, *args)
+            fu.fused_adam_reference(state[0], gk, state[1], state[2], *args)
+            torch.cuda.synchronize()
+            err = max(_close(f"K5 adamw {label} {name}", a, b, ATOL, RTOL)
+                      for name, a, b in zip(("p", "mu", "nu"), (pk, mk, nk),
+                                            state))
+            flat = torch.nn.Parameter(pk.clone())
+            flat.grad = gk.clone()
+            adamw = torch.optim.AdamW([flat], lr=1e-3, betas=(0.9, 0.999),
+                                      eps=1e-8, weight_decay=1e-5,
+                                      fused=True)
+            plain_ms, ms, lib_ms = _turns([
+                lambda: fu.fused_adam_reference(state[0], gk, state[1],
+                                                state[2], *args),
+                lambda: fu.fused_adam_update(pk, gk, mk, nk, *args),
+                adamw.step])
+            tag = f"adamw, {label}, {n} params, clip {clip is not None}"
+            bound, by = res.path_case("K5 fused_adam", "phase2", tag, err,
+                                      ms, plain_ms, 17 * n, 7 * 4 * n,
+                                      lib_ms)
+            print(f"K5 fused_adam {tag}: max|err| {err:.3e} (atol {ATOL} + "
+                  f"rtol {RTOL})  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
+                  f"ms  bound {bound:.6f} ms ({by})  torch.optim.AdamW("
+                  f"fused=True) {lib_ms:.4f} ms; card: {card}")
+
+
+def _phase2_batches(B, T=368, R=84, n=2):
+    """``n`` host batches of B subjects in phase 2's keys (the raw series
+    and both bands, (B, T, R), the ends zero-padded as a short series is,
+    and targets): the timing and one-step inputs."""
+    rng = np.random.default_rng(SEED + B + T)
+    out = []
+    for _ in range(n):
+        b = {k: rng.normal(size=(B, T, R)).astype(np.float32)
+             for k in ("fmri_sequence", "fmri_lowfreq_sequence",
+                       "fmri_ultralowfreq_sequence")}
+        for k in list(b):
+            b[k][:, :4] = 0.0
+            b[k][:, -4:] = 0.0
+        b["target"] = (np.arange(B) % 2).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def _phase2_times(cfg, label, card):
+    """Training and predict steps at batch 8 and 64, bf16 and float32 in
+    turns, with peak memory; a batch that does not fit the card is timed at
+    half of it instead, and why is printed."""
+    for B in (CHAIN_BATCH, STRUCT_BENCH_BATCH):
+        while True:
+            bcfg = dataclasses.replace(cfg, batch_size=B)
+            try:
+                batches = _phase2_batches(B)
+                _time_dtypes(bcfg, batches, (("std", "bfloat16"),
+                                             ("std", "float32")),
+                             label, card, steps=6)
+                _time_predict(bcfg, batches, ("bfloat16", "float32"), label,
+                              card, steps=6)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                why = str(e).splitlines()[0]
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"{label} at batch {B} does not fit the card ({why}); "
+                  f"timing batch {B // 2}; card: {card}")
+            B //= 2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase2_nets(card, gen, res: Results):
+    """Phase 2's fMRI nets (``phase2_nets``): K1 at T = 129 and K5 at the
+    nets' sizes against their plain versions; the chain through the CLI on
+    a synthetic ABCD cohort on disk at ``--fmri_type divided_frequency``
+    (DISK_SUBJECTS: 28 train, 6 val, 6 test; series of 350-361 TRs, so the
+    bands' zero-padded ends reach the MulT net's pad probe and its readout
+    of the last, padded, time step), each step at its phase's defaults
+    (steps 1 and 2: bf16, batch 8, AdamW): ``--step 1`` trains
+    ``TransformerNet`` (1 epoch); ``--step 2`` trains the MulT net and
+    ``--fmri_multimodality_type two_channels`` the two-channel net, each
+    chained from step 1's best checkpoint (the copied keys printed), the
+    MulT run exactly K5 once a step and no other kernel, the two-channel
+    run K1 mm16 32 a pass and 32 a step and K5 once a step; ``--step 4``
+    tests each from its step-2 checkpoint; ``--predict_only`` serves the
+    two-channel checkpoint, bit-equal to an in-memory ``Predictor``. Then
+    one HCP two-channel training step at phase 2's policy (22 ROIs, 1200
+    TRs + CLS, 2 heads; the HCP index makes no bands, in JAX neither, so the
+    bands are drawn): 32 bf16 K6 forwards and 32 backwards and K5 once. One
+    float32 training step of each net at full width: the two-channel net's
+    kernels against their plain twins on the card at ``GRAD_REL``, the MulT
+    net (no kernel to twin) on the card against the CPU from the same
+    weights, batch and generator state at ``GRAD_REL``. Last the training
+    and predict steps of both nets at batch 8 and 64, bf16 and float32 in
+    turns, with peak memory. Returns the launch counts by path."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
+        latest_checkpoint)
+    from multimodal_neuroimage_tpu_torch.cli.main import config_from_args
+    from multimodal_neuroimage_tpu_torch.data import synthetic
+    from multimodal_neuroimage_tpu_torch.data.datasets import ItemLoader
+    from multimodal_neuroimage_tpu_torch.data.index import build_subject_index
+    from multimodal_neuroimage_tpu_torch.models.registry import (
+        create_model, init_random_weights)
+    from multimodal_neuroimage_tpu_torch.ops import build
+    from multimodal_neuroimage_tpu_torch.serve.predictor import Predictor
+    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
+    from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
+                                                             make_train_step)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_short_kernels(gen, res, card)
+    k5_phase2_kernels(gen, res, card)
+    launches = {}
+    two = ["--fmri_multimodality_type", "two_channels"]
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        root = synthetic.generate_synthetic_cohort(
+            os.path.join(tmp, "cohort"), n_subjects=DISK_SUBJECTS, seed=SEED)
+        common = ["--base_path", root, "--target", "sex", "--seed",
+                  str(SEED), "--nEpochs", "1", "--dataset_name",
+                  "fMRI_timeseries", "--fmri_type", "divided_frequency"]
+
+        def best(exp_name):
+            found = glob.glob(os.path.join(_experiment(root, exp_name),
+                                           "*_BEST_val_AUROC.ckpt"))
+            if len(found) != 1:
+                raise AssertionError(f"{exp_name} wrote no best-AUROC file "
+                                     f"(validation never improved): {found}")
+            return found[0]
+
+        _, counts, wall, _ = _cli(["--step", "1", "--exp_name", "p1"]
+                                  + common, "phase 2: step 1", card)
+        _per_pass(counts, *P2_STEP1, 3, 3 + 1, "step-1 run")
+        launches["phase2_step1"] = counts
+        p1 = best("p1")
+        print(f"step 1 (TransformerNet): 1 epoch x 3 steps at batch 8 in "
+              f"{wall:.1f} s")
+        folders = {}
+        for name, flags, cls, path in (
+                ("phase2_mult", [], "TransformerNetCrossAttention", P2_MULT),
+                ("phase2_two_channels", two, "TransformerNetTwoChannels",
+                 P2_TWO)):
+            argv = ["--step", "2", "--exp_name", name] + flags + common
+            _, counts, wall, out = _cli(argv, f"phase 2: step 2 {cls}", card)
+            _per_pass(counts, *path, 3, 3 + 1, f"step-2 {cls} run")
+            cfg = config_from_args(argv)
+            if (type(create_model(cfg)).__name__ != cls
+                    or (cfg.batch_size, cfg.optim, cfg.compute_dtype,
+                        cfg.intermediate_vec, cfg.sequence_length,
+                        cfg.nlevels) != (CHAIN_BATCH, "AdamW", "bfloat16",
+                                         84, 368, 12)):
+                raise AssertionError(f"phase 2 defaults: {cfg}")
+            chained = [line for line in out.splitlines()
+                       if line.startswith(f"phase-chained weights from {p1}")]
+            if len(chained) != 1:
+                raise AssertionError(f"{cls} was not chained from {p1}")
+            print(f"step 2 {cls}: 1 epoch x 3 steps at batch 8 in "
+                  f"{wall:.1f} s; {chained[0].split(': ', 1)[1]}")
+            folders[name] = _experiment(root, name)
+            launches[name] = counts
+
+        # ---- step 4: each net tested from its step-2 checkpoint ------------
+        for name, flags, path in (("phase2_mult", [], P2_MULT),
+                                  ("phase2_two_channels", two, P2_TWO)):
+            ckpt = latest_checkpoint(folders[name])
+            metrics, counts, wall, out = _cli(
+                ["--step", "4", "--exp_name", f"p4_{name}",
+                 "--model_weights_path", ckpt] + flags + common,
+                f"phase 2: step 4 {name}", card)
+            _per_pass(counts, path[0], {}, 0, 2, f"step-4 {name} run")
+            if "'missing': 0" not in out or "test_AUROC" not in metrics:
+                raise AssertionError(f"step 4 {name}: {metrics}")
+            launches[f"{name}_step4"] = counts
+            print(f"step 4 {name} (from {os.path.basename(ckpt)}, the "
+                  f"threshold fitted on the 6 test subjects) in {wall:.1f} "
+                  f"s: {metrics}")
+
+        # ---- --predict_only: the two-channel checkpoint, vs a Predictor ---
+        ckpt = latest_checkpoint(folders["phase2_two_channels"])
+        argv = (["--step", "2", "--predict_only", "--exp_name", "serve2",
+                 "--model_weights_path", ckpt] + two + common)
+        scores, counts, wall, _ = _cli(argv, "phase 2: predict_only", card)
+        _per_pass(counts, P2_TWO[0], {}, 0, -(-DISK_SUBJECTS // 8),
+                  "phase-2 --predict_only run")
+        cfg = config_from_args(argv)
+        records = build_subject_index(cfg, require_target=False)
+        loader = ItemLoader(cfg)
+        memory = Predictor(cfg, ckpt, [loader.load(r) for r in records],
+                           device="cuda").predict()
+        if memory != scores or len(scores) != DISK_SUBJECTS:
+            raise AssertionError("phase 2 --predict_only differs from the "
+                                 "in-memory Predictor on the same arrays")
+        launches["phase2_predict"] = counts
+        print(f"--predict_only scored {len(scores)} subjects with the "
+              f"two-channel net in {wall:.2f} s, bit-equal to the in-memory "
+              f"Predictor; card: {card}")
+
+    # ---- one HCP two-channel step at phase 2's policy: K6 ------------------
+    hcp = config_from_args(["--step", "2", "--dataset_name", "hcp",
+                            "--fmri_type", "divided_frequency"] + two)
+    if (hcp.intermediate_vec, hcp.sequence_length, hcp.num_heads_2DBert,
+            hcp.compute_dtype) != (22, 1200, 2, "bfloat16"):
+        raise AssertionError(f"unexpected HCP phase-2 config: {hcp}")
+    model = init_random_weights(create_model(hcp),
+                                torch.Generator().manual_seed(SEED)).cuda()
+    opt = create_optimizer("AdamW", model.parameters(), lambda t: 1e-3,
+                           hcp.weight_decay)
+    step = make_train_step(model, active_losses(hcp.task, hcp.fine_tune_task),
+                           opt, hcp.compute_dtype, "cuda")
+    batch = _phase2_batches(HCP_BATCH, T=1200, R=22, n=1)[0]
+    step(batch, torch.Generator().manual_seed(SEED))     # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    losses, _ = step(batch, torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    _per_pass(counts, *P2_HCP, 1, 1, "HCP two-channel step")
+    if not torch.isfinite(losses["total"]):
+        raise AssertionError(f"HCP two-channel loss {losses}")
+    launches["phase2_hcp_two_channels"] = counts
+    print(f"one HCP two-channel training step (batch {HCP_BATCH}, 22 ROIs x "
+          f"1201, bf16): {1e3 * wall:.1f} ms, loss "
+          f"{losses['total'].item():.6f}; launches {counts}; card: {card}")
+    del model, opt, step
+
+    # ---- one float32 step at full width of each net ------------------------
+    base = ["--step", "2", "--fmri_type", "divided_frequency"]
+    batch = _phase2_batches(CHAIN_BATCH, n=1)[0]
+    cfg = dataclasses.replace(config_from_args(base + two),
+                              compute_dtype="float32")
+    steps = _step_compare(cfg, batch, "two-channel net (full width, "
+                          "float32)", (("card", "cuda", "std"),
+                                       ("plain twins on the card", "twins",
+                                        "std")))
+    want = {"K1 bert_layer": 32, "K1 bert_layer backward": 32,
+            "K5 fused_adam": 1}
+    if (steps["card"] != {k: want.get(k, 0) for k in steps["card"]}
+            or any(steps["plain twins on the card"].values())):
+        raise AssertionError(f"two-channel twin step launches {steps}")
+    launches["phase2_two_channels_twin_step"] = steps["card"]
+    cfg = dataclasses.replace(config_from_args(base), compute_dtype="float32")
+    steps = _step_compare(cfg, batch, "MulT net (full width, float32)",
+                          (("card", "cuda", "std"), ("CPU", "cpu", "std")))
+    if steps["card"] != {k: int(k == "K5 fused_adam") for k in steps["card"]}:
+        raise AssertionError(f"MulT step launches {steps['card']}")
+    launches["phase2_mult_step"] = steps["card"]
+
+    # ---- training and predict steps, batch 8 and 64, bf16 and float32 -----
+    for label, flags in (("MulT net", []), ("two-channel net", two)):
+        _phase2_times(config_from_args(base + flags), label, card)
+    print(f"phase-2 phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"card: {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3770,13 +4224,18 @@ def main() -> int:
     chain_counts = phase_chain(card)
     elapsed("phase-chain phase")
 
+    # ---- phase 2's fMRI nets: the MulT and the two-channel net --------------
+    phase2_counts = phase2_nets(card, gen, results)
+    elapsed("phase-2 phase")
+
     launches = {"flagship": train_counts, "flagship_bp": bp_counts,
                 "flagship_bf16": bf16_counts,
                 "flagship_bp_bf16": bp_bf16_counts,
                 "hcp": hcp_counts, "hcp_bf16": hcp16_counts,
                 "flagship_defaults": defaults_counts,
                 "flagship_disk": disk_counts, "hcp_disk": hcp_disk_counts,
-                "dot_shapes": dot_counts, **struct_counts, **chain_counts}
+                "dot_shapes": dot_counts, **struct_counts, **chain_counts,
+                **phase2_counts}
     kernels = [results.line(key, launches) for key in ops.kernels()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

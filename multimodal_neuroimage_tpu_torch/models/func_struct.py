@@ -3,7 +3,9 @@
 Every combiner starts with dual temporal BERTs over the low/ultralow bands
 -> CLS concat + projection -> the fused vector embedded on the diagonal of
 an S x S matrix (+ the ROI functional-connectivity matrix with ``use_FC``)
-(``FmriDiagEmbed``), and ends in the SwinV2 head:
+(``FmriDiagEmbed``; under ``feature_map_size='different'`` the ultralow
+BERT has 128 + 1 positions, fed by ``TimeProj(128)`` under
+``feature_map_gen='convolution_ul'``), and ends in the SwinV2 head:
 
 * ``FuncStructCross`` (the flagship): SwinFusion of the embedding with the
   struct matrix, then SwinV2;
@@ -38,6 +40,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from multimodal_neuroimage_tpu_torch.models.fmri_nets import (
+    DIFFERENT_LENGTH, TimeProj, ultralow_length)
 from multimodal_neuroimage_tpu_torch.models.swinfusion_net import (
     SwinFusionBackbone)
 from multimodal_neuroimage_tpu_torch.nn.bert import TemporalBert
@@ -71,20 +75,35 @@ class FmriDiagEmbed(nn.Module):
                  concat_method: str = "concat", use_FC: bool = False,
                  use_merge_loss: bool = False,
                  transformer_dropout_rate: float = 0.1,
-                 bert_attn_dropout: float = 0.1):
+                 bert_attn_dropout: float = 0.1,
+                 feature_map_size: str = "same",
+                 feature_map_gen: str = "no",
+                 ul_length: Optional[int] = None):
         super().__init__()
         self.concat_method = concat_method
         self.use_FC = use_FC
 
-        def bert():
+        def bert(max_pos, hidden_dropout):
             return TemporalBert(intermediate_vec, transformer_hidden_layers,
-                                num_heads_2DBert, sequence_length + 1,
-                                bert_intermediate_size,
-                                transformer_dropout_rate, bert_attn_dropout)
+                                num_heads_2DBert, max_pos,
+                                bert_intermediate_size, hidden_dropout,
+                                bert_attn_dropout)
 
-        self.transformer_raw = bert() if use_merge_loss else None
-        self.transformer_low = bert()
-        self.transformer_ultralow = bert()
+        dr = transformer_dropout_rate
+        different = feature_map_size == "different"
+        self.transformer_raw = (bert(sequence_length + 1, dr)
+                                if use_merge_loss else None)
+        # 'different': the ultralow BERT at 128 + 1 positions and hidden
+        # dropout 0.1 (JAX func_struct.py; TransformerNetTwoChannels: 0.2),
+        # fed by TimeProj(128) under 'convolution_ul'
+        self.proj_u = (TimeProj(ul_length or sequence_length,
+                                DIFFERENT_LENGTH)
+                       if different and feature_map_gen == "convolution_ul"
+                       else None)
+        self.transformer_low = bert(sequence_length + 1, dr)
+        self.transformer_ultralow = (bert(DIFFERENT_LENGTH + 1, 0.1)
+                                     if different
+                                     else bert(sequence_length + 1, dr))
         self.proj_layer = (Linear(2 * intermediate_vec, intermediate_vec)
                            if concat_method == "concat" else None)
 
@@ -94,6 +113,8 @@ class FmriDiagEmbed(nn.Module):
         if self.transformer_raw is not None and x_raw is not None:
             aux["processed_raw"] = self.transformer_raw(x_raw,
                                                         generator)["cls"]
+        if self.proj_u is not None:
+            x_u = self.proj_u(x_u)
         low = self.transformer_low(x_l, generator)["cls"]
         ul = self.transformer_ultralow(x_u, generator)["cls"]
         if self.proj_layer is not None:
@@ -134,7 +155,9 @@ class _FuncStructBase(nn.Module):
                  use_unet_function: bool = False,
                  use_unet_struct: bool = False,
                  prs_unsqueeze: str = "single_convolution",
-                 prs_concat_method: str = "add"):
+                 prs_concat_method: str = "add",
+                 feature_map_size: str = "same", feature_map_gen: str = "no",
+                 ul_length: Optional[int] = None):
         super().__init__()
         self.fine_tune_task = fine_tune_task
         self.use_unet_loss = use_unet_loss
@@ -145,7 +168,8 @@ class _FuncStructBase(nn.Module):
         self.fmri_embed = FmriDiagEmbed(
             intermediate_vec, transformer_hidden_layers, num_heads_2DBert,
             sequence_length, bert_intermediate_size, concat_method, use_FC,
-            use_merge_loss, transformer_dropout_rate, bert_attn_dropout)
+            use_merge_loss, transformer_dropout_rate, bert_attn_dropout,
+            feature_map_size, feature_map_gen, ul_length)
         self._fronts()
         if self.FUSION:
             # models/func_struct.py _fusion: attention dropout runs at the
@@ -168,9 +192,6 @@ class _FuncStructBase(nn.Module):
 
     @classmethod
     def from_config(cls, cfg) -> "_FuncStructBase":
-        if cfg.feature_map_size != "same":
-            raise NotImplementedError(
-                "feature_map_size='different' needs TimeProj (ROADMAP M7)")
         return cls(
             intermediate_vec=cfg.intermediate_vec,
             transformer_hidden_layers=cfg.transformer_hidden_layers,
@@ -198,7 +219,10 @@ class _FuncStructBase(nn.Module):
             use_unet_function=cfg.use_unet_function,
             use_unet_struct=cfg.use_unet_struct,
             prs_unsqueeze=cfg.prs_unsqueeze,
-            prs_concat_method=cfg.prs_concat_method)
+            prs_concat_method=cfg.prs_concat_method,
+            feature_map_size=cfg.feature_map_size,
+            feature_map_gen=cfg.feature_map_gen,
+            ul_length=ultralow_length(cfg))
 
     def _embed(self, batch: Dict[str, torch.Tensor], generator
                ) -> Tuple[torch.Tensor, Dict]:

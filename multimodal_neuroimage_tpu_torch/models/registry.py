@@ -2,7 +2,11 @@
 
 The JAX ``create_model`` decision tree over the port's models: the phase-1
 ``TransformerNet`` (``2DBERT``, and ``test`` on fMRI-only datasets outside
-the divided-frequency mode), the phase-3 struct nets (``VIT``, and ``test``
+the divided-frequency mode), phase 2's fMRI nets (``lowfreqBERT``, and
+``test`` on ``fMRI_timeseries`` / ``hcp`` at ``divided_frequency``: the
+MulT ``TransformerNetCrossAttention`` at ``fmri_multimodality_type=
+'cross_attention'``, ``TransformerNetTwoChannels`` at any other value),
+the phase-3 struct nets (``VIT``, and ``test``
 on ``DTI`` / ``sMRI`` / ``DTI+sMRI``: ``use_vae``, then ``use_unet``, then
 the plain ``SwinClassifier``), phase 5's six combiners (``FuncStruct``,
 and ``test`` on the multimodal datasets: ``add`` -> ``FuncStructAdd`` or,
@@ -11,8 +15,8 @@ with ``use_unet``, ``FuncStructUNetAdd``; ``transfer`` ->
 ``use_unet``, ``FuncStructUNetCross`` / ``FuncStructUNetCrossPRS`` by
 ``use_prs``; step 4 on divided-frequency fMRI from a ``DTI+sMRI``
 checkpoint -> ``FuncStructTransfer``) and the phase-6 ``SwinFusionNet``
-(``SwinFusion``, and ``test`` on ``struct``). Every other model raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+(``SwinFusion``, and ``test`` on ``struct``). Any other task or dataset
+raises ``NotImplementedError``, as JAX's does.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import math
 import torch
 from torch import nn
 
-from multimodal_neuroimage_tpu_torch.models.fmri_nets import TransformerNet
+from multimodal_neuroimage_tpu_torch.models.fmri_nets import (
+    TransformerNet, TransformerNetCrossAttention, TransformerNetTwoChannels)
 from multimodal_neuroimage_tpu_torch.models.func_struct import (
     FuncStructAdd, FuncStructCross, FuncStructTransfer, FuncStructUNetAdd,
     FuncStructUNetCross, FuncStructUNetCrossPRS)
@@ -31,12 +36,8 @@ from multimodal_neuroimage_tpu_torch.models.struct_nets import (
 from multimodal_neuroimage_tpu_torch.models.swinfusion_net import (
     SwinFusionNet)
 from multimodal_neuroimage_tpu_torch.nn.common import LayerNorm
+from multimodal_neuroimage_tpu_torch.nn.crossmodal import MultiheadAttention
 from multimodal_neuroimage_tpu_torch.nn.unet import BatchStatNorm
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               f"(ROADMAP {item})")
 
 
 def _swin_variant(cfg) -> nn.Module:
@@ -48,9 +49,11 @@ def _swin_variant(cfg) -> nn.Module:
     return SwinClassifier.from_config(cfg)
 
 
-def _lowfreq_variant(cfg):
-    raise _not_ported(f"task {cfg.task!r} (two-channel and cross-attention "
-                      f"fMRI nets)", "M7")
+def _lowfreq_variant(cfg) -> nn.Module:
+    """Step-2 dispatch (JAX ``_lowfreq_variant``)."""
+    if cfg.fmri_multimodality_type == "cross_attention":
+        return TransformerNetCrossAttention.from_config(cfg)
+    return TransformerNetTwoChannels.from_config(cfg)
 
 
 def _funcstruct_variant(cfg) -> nn.Module:
@@ -102,7 +105,9 @@ def init_random_weights(model: nn.Module,
     and transposed Conv layers get torch's default init (kaiming-uniform(a=
     sqrt(5)) weights, U(+-1/sqrt(fan_in)) biases), LayerNorms and the
     UNet's BatchStatNorms 1 + N(0, 0.1) scales and
-    N(0, 0.1) shifts, embeddings N(0, 0.02), and every other tensor
+    N(0, 0.1) shifts, embeddings N(0, 0.02), the MulT attention's
+    in-projection xavier-uniform weights and N(0, 0.02) biases (a
+    ``TimeProj`` is a Conv), and every other tensor
     (logit scales, q/v biases, bias tables: constants at construction)
     N(0, 0.02) around its constant. The LayerNorm jitter keeps SwinV2's
     zero-initialised res-post-norms from silencing whole blocks."""
@@ -115,7 +120,8 @@ def init_random_weights(model: nn.Module,
 
     done = set()
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d,
+                            nn.ConvTranspose2d)):
             fan_in = mod.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             # kaiming_uniform(a=sqrt(5)) has bound sqrt(6 / ((1 + 5) fan_in))
@@ -127,6 +133,11 @@ def init_random_weights(model: nn.Module,
             mod.bias.copy_(normal(mod.bias, 0.1))
         elif isinstance(mod, nn.Embedding):
             mod.weight.copy_(normal(mod.weight, 0.02))
+        elif isinstance(mod, MultiheadAttention):
+            # xavier-uniform over the (3E, E) in-projection (fairseq's)
+            E = mod.in_proj_weight.shape[1]
+            uniform(mod.in_proj_weight, math.sqrt(6.0 / (4 * E)))
+            mod.in_proj_bias.copy_(normal(mod.in_proj_bias, 0.02))
         else:
             continue
         done.update(id(p) for p in mod.parameters(recurse=False))

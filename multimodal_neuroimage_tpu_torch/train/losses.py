@@ -1,10 +1,12 @@
 """Training losses (counterpart of multimodal_neuroimage_tpu/train/losses.py).
 
 Ported: the two prediction heads' criteria (``bce_with_logits`` for
-binary classification, ``l1_loss`` for regression), the task's loss
-registry ``active_losses`` and ``compute_losses``. The auxiliary losses
-(merge, UNet, contrastive, mask, reconstruction, intensity, perceptual)
-are not ported yet and raise, naming ROADMAP M10.
+binary classification, ``l1_loss`` for regression), the merge loss
+(``merge_loss``: ``use_merge_loss`` on the two-channel net and the
+combiners), the task's loss registry ``active_losses`` and
+``compute_losses``. The other auxiliary losses (UNet, contrastive, mask,
+reconstruction, intensity, perceptual) are not ported yet and raise,
+naming ROADMAP M10.
 """
 
 from __future__ import annotations
@@ -14,8 +16,8 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
-AUXILIARY = ("merge", "unet", "contrastive", "mask", "reconstruction",
-             "intensity", "perceptual")
+AUXILIARY = ("unet", "contrastive", "mask", "reconstruction", "intensity",
+             "perceptual")
 
 
 def _row_mean(per_elem: torch.Tensor) -> torch.Tensor:
@@ -48,6 +50,29 @@ def bce_with_logits(logits: torch.Tensor, target: torch.Tensor,
     per = (torch.clamp(logits, min=0.0) - logits * target
            + torch.log1p(torch.exp(-logits.abs())))
     return _masked_mean(_row_mean(per), valid)
+
+
+def merge_loss(processed_raw: torch.Tensor, merged: torch.Tensor,
+               margin: float = 1.0,
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Merge_Loss (reference losses.py:190-219): the cosine of every pair
+    of a merged low + ultralow CLS (rows) and a raw CLS (columns); a
+    diagonal pair adds its cosine, an off-diagonal pair max(0, margin -
+    cos); the mean over the B^2 pairs, or over the nvalid^2 pairs of valid
+    rows when ``valid`` masks a padded tail."""
+    a = merged.float()
+    b = processed_raw.float()
+    an = a / (torch.linalg.vector_norm(a, dim=1, keepdim=True) + 1e-12)
+    bn = b / (torch.linalg.vector_norm(b, dim=1, keepdim=True) + 1e-12)
+    cos = an @ bn.T
+    B = cos.shape[0]
+    eye = torch.eye(B, dtype=cos.dtype, device=cos.device)
+    per_pair = eye * cos + (1.0 - eye) * torch.clamp(margin - cos, min=0.0)
+    if valid is None:
+        return per_pair.sum() / (B * B)
+    v = valid.to(cos.dtype)
+    nv = torch.clamp(v.sum(), min=1.0)
+    return (per_pair * v[:, None] * v[None, :]).sum() / (nv * nv)
 
 
 @dataclass
@@ -104,6 +129,9 @@ def compute_losses(outputs: Mapping[str, torch.Tensor],
         elif name == "regression":
             v = l1_loss(outputs[name].squeeze(-1).float(), target.float(),
                         valid)
+        elif name == "merge":
+            v = merge_loss(outputs["processed_raw"],
+                           outputs["embedding_per_ROIs"], valid=valid)
         else:
             raise NotImplementedError(f"loss {name!r} is not ported to "
                                       f"PyTorch yet (ROADMAP M10)")

@@ -3,17 +3,20 @@
 ``jax_params_to_state_dict(tree)`` takes a Func+Struct combiner's
 (``FuncStructCross``, ``FuncStructAdd``, ``FuncStructTransfer``,
 ``FuncStructUNetAdd``, ``FuncStructUNetCross``, ``FuncStructUNetCrossPRS``),
-``TransformerNet``, ``SwinClassifier`` (and its VAE and UNet variants) or
-``SwinFusionNet`` parameter tree (nested dicts of arrays, as ``model.init``
-returns under "params") and returns the port model's ``state_dict``: flax
-Dense ``(in, out)`` kernels become torch ``(out, in)`` weights, HWIO convs
-become OIHW, a flax ``ConvTranspose`` kernel ``(kh, kw, in, out)`` becomes
-torch's ``(in, out, kh, kw)`` flipped in both spatial axes (lax applies it
-as a fractionally strided correlation, torch as the adjoint of a
-convolution), ``(1, C)`` rows become vectors, and scan-stacked subtrees
-(BERT ``layers/layer``, the ``pairs/block_0|block_1`` of even-depth fusion
-and SwinV2 stages) are unstacked into numbered blocks. The per-module converters are public so a
-test can carry one block across. Imports neither jax nor flax.
+``TransformerNet``, ``TransformerNetTwoChannels``,
+``TransformerNetCrossAttention``, ``SwinClassifier`` (and its VAE and UNet
+variants) or ``SwinFusionNet`` parameter tree (nested dicts of arrays, as
+``model.init`` returns under "params") and returns the port model's
+``state_dict``: flax Dense ``(in, out)`` kernels become torch ``(out, in)``
+weights, HWIO convs become OIHW, a ``TimeProj`` kernel ``(T_in, T_out)``
+becomes the Conv1d weight ``(T_out, T_in, 1)``, a flax ``ConvTranspose`` kernel
+``(kh, kw, in, out)`` becomes torch's ``(in, out, kh, kw)`` flipped in both
+spatial axes (lax applies it as a fractionally strided correlation, torch as
+the adjoint of a convolution), ``(1, C)`` rows become vectors, and scan-stacked
+subtrees (BERT ``layers/layer``, the ``pairs/block_0|block_1`` of even-depth
+fusion and SwinV2 stages) are unstacked into numbered blocks. The per-module
+converters are public so a test can carry one block across. Imports neither jax
+nor flax.
 
 The fusion layout (``FUSION_LAYOUT`` std or bp) changes no parameter: the
 bp blocks (K7, ops/fusion_block_bp.py) take the same 12 (self) and 16
@@ -297,6 +300,74 @@ def unet_state(tree: Tree) -> State:
     return out
 
 
+# ---- phase 2's fMRI nets ----------------------------------------------------
+
+def time_proj_state(tree: Tree, name: str) -> State:
+    """TimeProj ``kernel`` (T_in, T_out) -> the reference's Conv1d
+    ``{name}.weight`` (T_out, T_in, 1)."""
+    return {f"{name}.weight": _t(np.asarray(tree["kernel"]).T[:, :, None])}
+
+
+def mult_encoder_state(tree: Tree) -> State:
+    """MultTransformerEncoder ``layer_{i}`` (``ln0``, ``ln1``,
+    ``self_attn``, ``fc1``, ``fc2``) and ``final_ln`` -> the reference's
+    ``layers.{i}.layer_norms.{0,1}``, ``self_attn.in_proj_weight`` /
+    ``in_proj_bias`` / ``out_proj``, ``fc1``, ``fc2`` and ``layer_norm``."""
+    out = _ln(tree["final_ln"], "layer_norm")
+    for i, layer in enumerate(_numbered(tree, "layer_")):
+        attn = layer["self_attn"]
+        out.update(_prefixed(f"layers.{i}.", {
+            **_ln(layer["ln0"], "layer_norms.0"),
+            **_ln(layer["ln1"], "layer_norms.1"),
+            "self_attn.in_proj_weight": _t(attn["in_proj_weight"]),
+            "self_attn.in_proj_bias": _vec(attn["in_proj_bias"]),
+            **_dense(attn["out_proj"], "self_attn.out_proj"),
+            **_dense(layer["fc1"], "fc1"), **_dense(layer["fc2"], "fc2")}))
+    return out
+
+
+MULT_ENCODERS = ("trans_l_with_u", "trans_u_with_l", "trans_mem",
+                 "trans_l_mem", "trans_u_mem")
+
+
+def transformer_net_cross_attention_state(tree: Tree) -> State:
+    """TransformerNetCrossAttention -> state: the time projections and
+    encoders that the configured branch builds (those the tree holds, as
+    JAX's mapper maps only those), ``out_layer1`` under concat mixing,
+    ``out_layer2``."""
+    out: State = {}
+    for name in ("proj_l", "proj_u", "deconv"):
+        if name in tree:
+            out.update(time_proj_state(tree[name], name))
+    for name in MULT_ENCODERS:
+        if name in tree:
+            out.update(_prefixed(f"{name}.", mult_encoder_state(tree[name])))
+    for name in ("out_layer1", "out_layer2"):
+        if name in tree:
+            out.update(_dense(tree[name], name))
+    return out
+
+
+def _dual_bert_state(tree: Tree) -> State:
+    """The two-band front shared by TransformerNetTwoChannels and
+    FmriDiagEmbed: ``transformer_raw`` / ``_low`` / ``_ultralow``,
+    ``proj_u`` and ``proj_layer``, where present."""
+    out: State = {}
+    for name in ("transformer_raw", "transformer_low", "transformer_ultralow"):
+        if name in tree:
+            out.update(_prefixed(f"{name}.", temporal_bert_state(tree[name])))
+    if "proj_u" in tree:
+        out.update(time_proj_state(tree["proj_u"], "proj_u"))
+    if "proj_layer" in tree:
+        out.update(_dense(tree["proj_layer"], "proj_layer"))
+    return out
+
+
+def transformer_net_two_channels_state(tree: Tree) -> State:
+    return {**_dual_bert_state(tree),
+            **_dense(tree["regression_head"], "regression_head")}
+
+
 # ---- the models ------------------------------------------------------------
 
 def transformer_net_state(tree: Tree) -> State:
@@ -308,14 +379,20 @@ def transformer_net_state(tree: Tree) -> State:
 
 def jax_params_to_state_dict(tree: Tree) -> State:
     """A model's flax params -> the port model's state, the model told by
-    its top-level modules: ``transformer`` (TransformerNet), ``fmri_embed``
-    (a Func+Struct combiner: with ``fusion`` where it fuses, ``unet`` where
+    its top-level modules: ``transformer`` (TransformerNet),
+    ``trans_l_with_u`` (TransformerNetCrossAttention), ``transformer_low``
+    (TransformerNetTwoChannels: no ``swin``), ``fmri_embed`` (a
+    Func+Struct combiner: with ``fusion`` where it fuses, ``unet`` where
     its UNet is called, ``conv_prs`` and ``up_prs*`` for the PRS latent),
     ``fusion`` + ``swin`` (SwinFusionNet), ``vae`` + ``swin``
     (SwinClassifierVAE), ``unet`` + ``swin`` (SwinClassifierUNet), ``swin``
     alone (SwinClassifier)."""
     if "transformer" in tree:
         return transformer_net_state(tree)
+    if "trans_l_with_u" in tree:
+        return transformer_net_cross_attention_state(tree)
+    if "transformer_low" in tree:
+        return transformer_net_two_channels_state(tree)
     if "fmri_embed" not in tree:
         fronts = {"fusion": swinfusion_backbone_state, "vae": mlp_vae_state,
                   "unet": unet_state}
@@ -324,14 +401,7 @@ def jax_params_to_state_dict(tree: Tree) -> State:
             if name in tree:
                 out.update(_prefixed(f"{name}.", fn(tree[name])))
         return out
-    fe = tree["fmri_embed"]
-    out: State = {}
-    for name in ("transformer_raw", "transformer_low", "transformer_ultralow"):
-        if name in fe:
-            out.update(_prefixed(f"fmri_embed.{name}.",
-                                 temporal_bert_state(fe[name])))
-    if "proj_layer" in fe:
-        out.update(_dense(fe["proj_layer"], "fmri_embed.proj_layer"))
+    out = _prefixed("fmri_embed.", _dual_bert_state(tree["fmri_embed"]))
     if "unet" in tree:
         out.update(_prefixed("unet.", unet_state(tree["unet"])))
     if "conv_prs" in tree:

@@ -49,8 +49,8 @@ from multimodal_neuroimage_tpu_torch.utils.jax_import import (
     jax_params_to_state_dict)
 
 RTOL, ATOL = 2e-4, 1e-4
-# tests/test_torch_bf16.py MODEL_RTOL / MODEL_GRAD_REL for the flagship's
-# components
+# the bounds the flagship's bf16 test held its components to while JAX's
+# side of it computed on a float32 batch (tests/test_torch_bf16.py)
 LOGIT16 = 3e-2
 GRAD16 = {"swin": 1e-2, "fusion": 0.15, "fmri_embed": 0.25}
 # the bf16 policy, each gradient tensor against JAX's: within OWN16 of its
@@ -93,7 +93,7 @@ def setup(case, compute_dtype="float32", **kw):
     state = jax_params_to_state_dict(params)
     assert set(state) == set(port.state_dict())
     port.load_state_dict(state)
-    return cfg, jmodel, params, port, batch
+    return cfg, jmodel, params, no_bert_dropout(port), batch
 
 
 def random_params(jmodel, batch, seed=0):
@@ -172,7 +172,10 @@ def port_step(cfg, port, batch, compute_dtype="float32"):
         loss = compute_losses(out, inputs, active_losses(
             cfg.task, cfg.fine_tune_task))["total"]
         loss.backward()
-    grads = {n: p.grad.clone() for n, p in port.named_parameters()}
+    # a parameter off the loss's path (the MulT net's unused stream under
+    # U2L / L2U) has no gradient in torch and a zero one in JAX
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+             for n, p in port.named_parameters()}
     if compute_dtype == "bfloat16":
         for g in grads.values():
             round_grads(g)
@@ -258,6 +261,71 @@ def check_step16(case, grad16=GRAD16, **kw):
         part = name.split(".")[0]
         if part in grad16:
             assert s <= grad16[part], (name, s)
+
+
+# ---- phase 2's fMRI nets (tests/test_torch_crossmodal.py and others) ---
+
+# the nets at a small size: 22 ROIs (the HCP width), 2 heads, 2 layers a
+# stack, T = 16, dropout off (``no_bert_dropout`` for the rates the
+# models fix)
+FMRI_TINY = dict(task="lowfreqBERT", step=2, fmri_type="divided_frequency",
+                 intermediate_vec=22, num_heads_mult=2, nlevels=2,
+                 sequence_length=16, transformer_hidden_layers=2,
+                 num_heads_2DBert=2, bert_intermediate_size=32,
+                 attn_dropout=0.0, relu_dropout=0.0, res_dropout=0.0,
+                 embed_dropout=0.0, transformer_dropout_rate=0.0)
+UL_LENGTH = {"timeseries_and_frequency": 184}
+
+
+def fmri_batch(B, T, R, ul_length=None, seed=0):
+    """The bands (and ``fmri_sequence``) of B subjects drawn from numpy,
+    subject 0 zero-padded at both ends (2 and 3 steps, as data/filters.py
+    pads a short series), subject 1 with one step whose first feature is
+    exactly 0: the MulT encoder's pad probe sees both."""
+    rng = np.random.default_rng(seed)
+    b = {}
+    for k, t in (("fmri_sequence", T), ("fmri_lowfreq_sequence", T),
+                 ("fmri_ultralowfreq_sequence", ul_length or T)):
+        x = rng.normal(size=(B, t, R)).astype(np.float32)
+        x[0, :2] = 0.0
+        x[0, -3:] = 0.0
+        x[1, 5, 0] = 0.0
+        b[k] = x
+    b["target"] = (np.arange(B) % 2).astype(np.float32)
+    return b
+
+
+def no_bert_dropout(port):
+    """The port's BERTs with dropout off (the JAX side runs deterministic,
+    and neither package exposes the rates it fixes: the two-channel BERTs'
+    attention dropout 0.1, the ``different`` ultralow BERT's hidden dropout
+    0.2, or 0.1 in the combiners)."""
+    from multimodal_neuroimage_tpu_torch.nn.bert import BertEncoder, BertLayer
+    for m in port.modules():
+        if isinstance(m, BertLayer):
+            m.rates = (0.0, 0.0)
+        elif isinstance(m, BertEncoder):
+            m.hidden_dropout = 0.0
+    return port
+
+
+def setup_fmri(compute_dtype="float32", **kw):
+    """(port cfg, JAX model, JAX params, port model carrying them, batch)
+    of a phase-2 net at FMRI_TINY with ``kw``."""
+    from multimodal_neuroimage_tpu.config import Config as JConfig
+    jcfg = JConfig(**{**FMRI_TINY, **kw},
+                   compute_dtype=compute_dtype).validate()
+    cfg = Config(**dataclasses.asdict(jcfg))
+    jmodel = jcreate(jcfg)
+    batch = fmri_batch(2, jcfg.sequence_length, jcfg.intermediate_vec,
+                       UL_LENGTH.get(jcfg.fmri_type))
+    params = random_params(jmodel, batch)
+    port = create_model(cfg)
+    assert type(port).__name__ == type(jmodel).__name__
+    state = jax_params_to_state_dict(params)
+    assert set(state) == set(port.state_dict())
+    port.load_state_dict(state)
+    return cfg, jmodel, params, no_bert_dropout(port), batch
 
 
 def bound_ratio(got, want):

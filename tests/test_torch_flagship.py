@@ -220,7 +220,9 @@ def test_predictor_needs_in_memory_records(flagship, tmp_path):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"task": "lowfreqBERT"}, "M7"), ({"task": "VIT"}, "SwinClassifier"),
+    pytest.param({"task": "lowfreqBERT"}, "TransformerNetCrossAttention",
+                 id="change0-M7"),
+    ({"task": "VIT"}, "SwinClassifier"),
     ({"task": "SwinFusion"}, "SwinFusionNet"),
     pytest.param({"multimodality_type": "add"}, "FuncStructAdd",
                  id="change3-M9"),
@@ -228,9 +230,10 @@ def test_predictor_needs_in_memory_records(flagship, tmp_path):
                  id="change4-M9"),
 ])
 def test_registry_names_the_roadmap_item(flagship, change, item):
-    """A model still to port raises, naming its ROADMAP item; the struct
-    nets (VIT, M8), SwinFusionNet and the Func+Struct combiners (M9) are
-    built, as JAX's registry builds them for this config."""
+    """A model still to port raises, naming its ROADMAP item; phase 2's
+    MulT net (M7), the struct nets (VIT, M8), SwinFusionNet and the
+    Func+Struct combiners (M9) are built, as JAX's registry builds them for
+    this config."""
     cfg = dataclasses.replace(flagship[0], **change)
     if item.startswith("M"):
         with pytest.raises(NotImplementedError, match=item):

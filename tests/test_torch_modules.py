@@ -191,6 +191,27 @@ hbatch["target"] = np.asarray([0.0, 1.0], np.float32)
 losses, _ = step(hbatch, torch.Generator().manual_seed(0))
 assert torch.isfinite(losses["total"]) and opt.count == 1
 
+# phase 2's nets: one CPU training step of the MulT net (plain torch
+# attention) and of the two-channel net (K1's plain version)
+for kind in ("cross_attention", "two_channels"):
+    p2 = Config(step=2, task="lowfreqBERT", fmri_type="divided_frequency",
+                fmri_multimodality_type=kind, intermediate_vec=22,
+                sequence_length=16, nlevels=1, num_heads_mult=2,
+                transformer_hidden_layers=1, bert_intermediate_size=32,
+                num_heads_2DBert=2, compute_dtype="float32").validate()
+    net = init_random_weights(create_model(p2),
+                              torch.Generator().manual_seed(0))
+    opt = create_optimizer("AdamW", net.parameters(), lambda t: 1e-3, 1e-5)
+    step = make_train_step(net, active_losses("lowfreqBERT",
+                                              "binary_classification"),
+                           opt, "float32", "cpu")
+    b2 = {k: rng.normal(size=(2, 16, 22)).astype(np.float32)
+          for k in ("fmri_sequence", "fmri_lowfreq_sequence",
+                    "fmri_ultralowfreq_sequence")}
+    b2["target"] = np.asarray([0.0, 1.0], np.float32)
+    losses, _ = step(b2, torch.Generator().manual_seed(0))
+    assert torch.isfinite(losses["total"]) and opt.count == 1
+
 # an HCP cohort written to disk by the port's writer: one training step
 # from disk (subject index, SplitManager, DataPipeline), then served from
 # the experiment folder by run_predict
@@ -276,7 +297,8 @@ print(sorted(m for m in sys.modules
 
 def test_port_imports_no_jax_flax_pandas_sklearn():
     """Serve (std and bp fusion layouts), take one flagship and one HCP
-    training step, run one dot-shape chain, write an HCP cohort to disk,
+    training step and one of each of phase 2's nets (the MulT and the
+    two-channel net), run one dot-shape chain, write an HCP cohort to disk,
     train a step from it and serve it with ``run_predict``, train a step of
     ``SwinClassifier`` and of ``SwinFusionNet`` from a structural cohort on
     disk and serve the second with ``run_predict``, run the phase chain
@@ -313,7 +335,7 @@ def test_no_port_file_imports_the_jax_package():
         if f.endswith(".py")]
     assert len(files) > 20
     for new in ("nn/unet.py", "models/struct_nets.py",
-                "models/swinfusion_net.py"):
+                "models/swinfusion_net.py", "nn/crossmodal.py"):
         assert os.path.join(port, new) in files, new
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_modules(f)

@@ -68,12 +68,13 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-4, 1e-4
-# the flagship's bf16 tolerances (tests/test_torch_bf16.py MODEL_RTOL and
-# MODEL_GRAD_REL): XLA:CPU runs some of JAX's convolutions on bf16 kernels
-# in bf16 (a rounding the float32 computation on bf16-rounded values has
-# not), which the SwinFusion backbone's convs and LayerNorms carry back
-LOGIT16 = 3e-2
-GRAD16 = {"swin": 1e-2, "fusion": 0.15}
+# the bf16 policy against JAX's, the batch given to JAX as device arrays
+# (``_cast_tree`` leaves a numpy batch float32): logits within LOGIT16, each
+# gradient within its component's share of the component's largest
+# (measured: logits 7.1e-6 and 3.8e-5, shares swin 0.0016 and 0.0018,
+# fusion 0.0023, for SwinClassifier and SwinFusionNet)
+LOGIT16 = 1e-3
+GRAD16 = {"swin": 5e-3, "fusion": 1e-2}
 TINY_FUSION = dict(fusion_ex_depths=(1,), fusion_depths=(1,),
                    fusion_re_depths=(1,), fusion_ex_heads=(2,),
                    fusion_heads=(2,), fusion_re_heads=(2,))
@@ -292,8 +293,9 @@ def _record_dtypes(monkeypatch, module, names, seen, key):
                                           ("SwinFusion", "struct")])
 def test_bf16_policy_matches_jax(task, dataset, monkeypatch):
     """compute_dtype="bfloat16": JAX casts the parameters and the batch to
-    bf16 and the models widen the input back to float32, so they compute
-    in float32 on bf16-rounded values. The port's forward_at under
+    bf16 (the batch as device arrays: ``_cast_tree`` leaves a numpy batch
+    float32) and the models widen the input back to float32, so they
+    compute in float32 on bf16-rounded values. The port's forward_at under
     bf16_weights against JAX's _cast_tree path: logits within 3e-2, every
     gradient within its component's share of the component's largest (the
     flagship's bf16 tolerances); K4 and the fusion blocks see float32 on
@@ -313,7 +315,9 @@ def test_bf16_policy_matches_jax(task, dataset, monkeypatch):
 
     def f(p):
         out = jmodel.apply({"params": _cast_tree(p, jnp.bfloat16)},
-                           _cast_tree(batch, jnp.bfloat16))
+                           _cast_tree(jax.tree_util.tree_map(jnp.asarray,
+                                                             batch),
+                                      jnp.bfloat16))
         return _loss(_cast_tree(out, jnp.float32)["binary_classification"],
                      target), out["binary_classification"]
 

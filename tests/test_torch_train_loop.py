@@ -86,6 +86,14 @@ def test_losses_match_jax():
 
 @pytest.mark.parametrize("flag", ["use_merge_loss", "use_unet_loss"])
 def test_auxiliary_losses_name_roadmap_m10(flag):
+    """An auxiliary loss still to port raises, naming ROADMAP M10; the
+    merge loss is ported and joins the head's loss (held against JAX's by
+    tests/test_torch_fmri_nets.py)."""
+    if flag == "use_merge_loss":
+        assert set(tlosses.active_losses(
+            "FuncStruct", "binary_classification", use_merge_loss=True)) == {
+                "merge", "binary_classification"}
+        return
     with pytest.raises(NotImplementedError, match="M10"):
         tlosses.active_losses("FuncStruct", "binary_classification",
                               **{flag: True})
