@@ -48,8 +48,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    be written. Serves the 8 val subjects from it with ``Predictor`` (the
    four forward kernels launch; logits match the CPU through the plain
    versions). Takes one training step on the card and the same step on the
-   CPU from the same weights, batch and generator state, and compares the
-   loss, every gradient and the updated parameters. Times the training
+   CPU from the same weights, batch and generator state, at a cut depth (2
+   BERT layers a band, one fusion stage of depth 2 a group: the CPU's side
+   at full depth took 83-100 s), and the full-depth step on the card
+   against the port's plain twins there, and compares the loss, every
+   gradient and the updated parameters. Times the training
    step (CUDA-synchronised median of 12 steps after 3 of warm-up),
    subjects/s and peak device memory.
 4. The same flagship on the bp fusion layout at batch 16 (G = 8, two
@@ -183,7 +186,22 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    batch 8 and 64, bf16 and float32 in turns, with peak memory (a batch
    that does not fit is timed at half, and why is printed); the phase's
    wall time.
-13. Prints one JSON line of per-kernel results (launches by path:
+13. The training run's outer shell (``outer_shell``): K1 at the head dims
+   ``Config.validate()`` admits beyond the flagship's 7 (hd 21 and 14 at
+   T 369, batch 8, every entry timed beside its plain version and
+   ``nn.TransformerEncoderLayer``; hd 28 and 84 at batch 4, checked
+   only); on the 40-subject cohort through the CLI a 3-trial study of
+   step 1 (every trial completed or pruned, exactly the launches its
+   drawn depths and batches need, ``best_params.pkl`` with the search
+   space's keys), a run on its best parameters and a 4-head run (hd 21),
+   exact launches each; step 5's ``FuncStructUNetAdd`` with the UNet
+   loss, grad norms every step, ``--profiling`` and ``--profile_dir``
+   (exactly 10 train steps, the ``unet`` and ``grad/global`` columns in
+   ``full_scores.csv``, a Chrome trace naming the K1, K4 and K5 kernels);
+   one full-width float32 ``FuncStructUNetCross`` step with the UNet loss
+   against the plain twins at ``GRAD_REL``; a reconstruction loss set
+   card vs CPU; the phase's wall time.
+14. Prints one JSON line of per-kernel results (launches by path:
    flagship, flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, hcp_bf16,
    flagship_defaults, flagship_disk, hcp_disk, dot_shapes, smri_swin,
    smri_swin_vae, smri_swin_unet, swinfusion_struct, struct_disk,
@@ -191,9 +209,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    chain_step4, chain_predict, and phase 2's phase2_step1, phase2_mult,
    phase2_two_channels, their step-4 runs, phase2_predict,
    phase2_hcp_two_channels, phase2_two_channels_twin_step and
-   phase2_mult_step; K5's and K2/K3's cases on the structural paths, K1's
-   at T = 129 and K5's at phase 2's sizes under ``path_cases``) and,
-   last, the ok line.
+   phase2_mult_step, and the outer shell's outer_shell_study,
+   outer_shell_best_params, outer_shell_heads4, outer_shell_unet_profiled
+   and outer_shell_unet_cross_twin_step; K5's and K2/K3's cases on the
+   structural paths, K1's at T = 129, at hd 21 and 14 and K5's at phase
+   2's sizes under ``path_cases``) and, last, the ok line.
 
 Any failed phase raises, so the exit code is non-zero and no ok line is
 printed. Without a CUDA card it exits with code 2 before doing anything;
@@ -2253,10 +2273,9 @@ def _step_compare(cfg, batch, label, sides, optim="AdamW",
     from multimodal_neuroimage_tpu_torch import ops
     from multimodal_neuroimage_tpu_torch.models.registry import (
         create_model, init_random_weights)
-    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
     from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
                                                              make_train_step)
-    specs = active_losses(cfg.task, cfg.fine_tune_task)
+    specs = _loss_specs(cfg)
     lr = 1e-3
     models, out, counts = {}, {}, {}
     took = {}
@@ -2946,6 +2965,11 @@ def _per_pass(counts, forward, backward, steps, passes, label):
     want.update({k: n * steps for k, n in backward.items()})
     if steps:
         want["K5 fused_adam"] = steps
+    _exact(counts, want, label)
+
+
+def _exact(counts, want, label):
+    """``want`` launches of each kernel and none of any other."""
     if counts != {k: want.get(k, 0) for k in counts}:
         raise AssertionError(f"the {label} launched {counts}, expected "
                              f"exactly {want}")
@@ -3652,20 +3676,21 @@ P2_HCP = ({"K6 fused_attention bf16": 32},
           {"K6 fused_attention backward bf16": 32})
 
 
-def k1_short_kernels(gen, res: Results, card):
-    """K1 at the ``different`` ultralow BERT's length, t_valid 129 padded
-    to 136, batch 8 (H 84, 12 heads, F 3072): the float32 form's training
-    forward (every saved residual), inference forward and backward, and the
-    mm16 form's inference forward and backward (dropout 0.1 where
-    training), each against its plain version at the script's K1
-    tolerances and timed in turns beside it and ``nn.TransformerEncoderLayer``
-    (bf16 for mm16) on the same weights; recorded as the kernels' path
-    cases ``phase2_different`` beside the T = 369 rows."""
+def k1_case(gen, res: Results, card, T, heads, B, path, timed=True):
+    """K1 at H 84, F 3072, ``heads`` heads (head dim 84 / heads), t_valid T
+    padded to a multiple of 8, batch B: the float32 form's training forward
+    (every saved residual), inference forward and backward, and the mm16
+    form's inference forward and backward (dropout 0.1 where training),
+    each against its plain version at the script's K1 tolerances; when
+    ``timed``, also timed in turns beside it and
+    ``nn.TransformerEncoderLayer`` (bf16 for mm16) on the same weights and
+    recorded as the kernels' path cases ``path`` beside the T = 369, 12-head
+    rows."""
     from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
-    H, F_, T, heads, B = 84, 3072, P2_SHORT_T, 12, CHAIN_BATCH
+    H, F_ = 84, 3072
     TP = T + (-T % 8)
     rates, seed = (0.1, 0.1), 97531
-    path, tag = "phase2_different", f"T {T} (padded {TP}) B {B}"
+    tag = f"T {T} (padded {TP}) B {B} heads {heads} (hd {H // heads})"
     prod, exps = _bert_ops(B, T, H, heads, F_)
     x, g = (torch.randn(B, T, H, generator=gen).cuda() for _ in "xg")
     p = tuple(t.cuda() for t in (_lin(gen, H, H) + _lin(gen, H, H)
@@ -3673,8 +3698,18 @@ def k1_short_kernels(gen, res: Results, card):
                                  + _ln(gen, H) + _lin(gen, F_, H)
                                  + _lin(gen, H, F_) + _ln(gen, H)))
     sum_tol = f"sums {SUM_REL} * max|ref| + {SUM_ATOL}"
+    f32_tol = f"atol {ATOL} + rtol {RTOL}"
+    tol16 = f"atol {ATOL16} + rtol {RTOL16}; gradients {REL16} * max|ref|"
 
-    def case(key, label, err, ms, plain_ms, lib_ms, nbytes, bound, tol):
+    def case(key, label, err, tol, timing=None, nbytes=0, bound=None):
+        """Record a case (``timing``: kernel, plain and library calls in
+        turns) or, untimed, print its error."""
+        if not timed:
+            print(f"{key} {tag} {label}: max|err| {err:.3e} ({tol}); card: "
+                  f"{card}")
+            return
+        kernel, plain, library, iters = timing
+        ms, plain_ms, lib_ms = _call_times(kernel, plain, library, iters)
         b, by = res.path_case(key, path, f"{tag} {label}", err, ms, plain_ms,
                               0, nbytes, lib_ms, bound=bound)
         print(f"{key} {tag} {label}: max|err| {err:.3e} ({tol})  kernel "
@@ -3682,7 +3717,7 @@ def k1_short_kernels(gen, res: Results, card):
               f"({by})  library {lib_ms:.4f} ms; card: {card}")
 
     # the float32 form: training forward, inference forward, backward
-    encoder = _encoder_layer(p, H, heads, F_).eval()
+    encoder = _encoder_layer(p, H, heads, F_).eval() if timed else None
     (out, resid) = bl._launch_forward(x, p, heads, T, seed, rates, True, True)
     want = bl.bert_layer_reference_parts(x, p, heads, T, seed, rates, True)
     torch.cuda.synchronize()
@@ -3690,25 +3725,24 @@ def k1_short_kernels(gen, res: Results, card):
     for name, got in bl.resid_parts(resid, B, T, H, heads).items():
         err = max(err, _close(f"K1 {tag} {name}", got, want[name], ATOL,
                               RTOL))
+    del want
 
     @torch.no_grad()
     def library():
         return encoder(x)
-    ms, plain_ms, lib_ms = _call_times(
-        lambda: bl._launch_forward(x, p, heads, T, seed, rates, True, True),
-        lambda: bl.bert_layer_reference_parts(x, p, heads, T, seed, rates,
-                                              True), library)
     nbytes = _nbytes(x, x, resid, *p)
-    case("K1 bert_layer", "training", err, ms, plain_ms, lib_ms, nbytes,
-         _k1_forward_bound(B, nbytes, T=T), f"atol {ATOL} + rtol {RTOL}")
+    case("K1 bert_layer", "training", err, f32_tol,
+         (lambda: bl._launch_forward(x, p, heads, T, seed, rates, True, True),
+          lambda: bl.bert_layer_reference_parts(x, p, heads, T, seed, rates,
+                                                True), library, 20), nbytes,
+         _k1_forward_bound(B, nbytes, T=T, heads=heads))
     err = _close(f"K1 {tag} inference", bl.bert_layer_call(x, p, heads, T),
                  bl.bert_layer_reference(x, p, heads, T), ATOL, RTOL)
-    ms, plain_ms, lib_ms = _call_times(
-        lambda: bl.bert_layer_call(x, p, heads, T),
-        lambda: bl.bert_layer_reference(x, p, heads, T), library)
     nbytes = _nbytes(x, x, *p)
-    case("K1 bert_layer", "inference", err, ms, plain_ms, lib_ms, nbytes,
-         _k1_forward_bound(B, nbytes, T=T), f"atol {ATOL} + rtol {RTOL}")
+    case("K1 bert_layer", "inference", err, f32_tol,
+         (lambda: bl.bert_layer_call(x, p, heads, T),
+          lambda: bl.bert_layer_reference(x, p, heads, T), library, 20),
+         nbytes, _k1_forward_bound(B, nbytes, T=T, heads=heads))
 
     def k1():
         return bl.bert_layer_backward(g, x, p, resid, heads, T, seed, rates,
@@ -3722,36 +3756,38 @@ def k1_short_kernels(gen, res: Results, card):
     errs = [_close(f"K1 backward {tag} dx", dx, want[0], ATOL, RTOL)]
     errs += [_close_rel(f"K1 backward {tag} dparams[{i}]", a, b, SUM_REL)
              for i, (a, b) in enumerate(zip(dps, want[1:]))]
-    layer = _encoder_layer(p, H, heads, F_).train()
-    with torch.enable_grad():
-        xl = x.detach().requires_grad_()
-        ins, o = [xl] + list(layer.parameters()), layer(xl)
-    ms, plain_ms, lib_ms = _call_times(
-        k1, plain, lambda: torch.autograd.grad(o, ins, g, retain_graph=True),
-        10)
-    case("K1 bert_layer backward", "", max(errs), ms, plain_ms, lib_ms,
-         _nbytes(x, g, x, *p, *p), _k1_backward_bound(B, x, g, p, T=T),
-         f"dx: atol {ATOL} + rtol {RTOL}; {sum_tol}")
-    del encoder, layer, ins, o, resid
+    del want
+    timing = None
+    if timed:
+        layer = _encoder_layer(p, H, heads, F_).train()
+        with torch.enable_grad():
+            xl = x.detach().requires_grad_()
+            ins, o = [xl] + list(layer.parameters()), layer(xl)
+        timing = (k1, plain, lambda: torch.autograd.grad(
+            o, ins, g, retain_graph=True), 10)
+    case("K1 bert_layer backward", "", max(errs),
+         f"dx: {f32_tol}; {sum_tol}", timing, _nbytes(x, g, x, *p, *p),
+         _k1_backward_bound(B, x, g, p, T=T))
+    del encoder, timing, resid
 
     # the mm16 form: inference forward and backward
     p16 = _k1_params16(gen)
-    layer16 = _encoder_layer(p16, H, heads, F_).to(torch.bfloat16)
     x16 = x.to(torch.bfloat16)
     err = _close(f"K1 mm16 {tag}", bl.bert_layer_call16(x, p16, heads, T),
                  bl.bert_layer_reference(x, p16, heads, T, mm16=True),
                  ATOL16, RTOL16)
+    timing = None
+    if timed:
+        layer16 = _encoder_layer(p16, H, heads, F_).to(torch.bfloat16)
 
-    @torch.no_grad()
-    def library16():
-        return layer16.eval()(x16)
-    ms, plain_ms, lib_ms = _call_times(
-        lambda: bl.bert_layer_call16(x, p16, heads, T),
-        lambda: bl.bert_layer_reference(x, p16, heads, T, mm16=True),
-        library16)
-    tol16 = f"atol {ATOL16} + rtol {RTOL16}; gradients {REL16} * max|ref|"
-    case("K1 bert_layer mm16", "", err, ms, plain_ms, lib_ms, 0,
-         _bound16(prod, exps, _nbytes(x, x, *p16)), tol16)
+        @torch.no_grad()
+        def library16():
+            return layer16.eval()(x16)
+        timing = (lambda: bl.bert_layer_call16(x, p16, heads, T),
+                  lambda: bl.bert_layer_reference(x, p16, heads, T,
+                                                  mm16=True), library16, 20)
+    case("K1 bert_layer mm16", "", err, tol16, timing, 0,
+         _bound16(prod, exps, _nbytes(x, x, *p16)))
     _, resid16 = bl._launch_forward(x, p16, heads, T, seed, rates, True,
                                     True, True)
 
@@ -3767,19 +3803,17 @@ def k1_short_kernels(gen, res: Results, card):
     errs = [_close_rel(f"K1 mm16 backward {tag} dx", dx, wdx, REL16, 0.0)]
     errs += _grads16(f"K1 mm16 backward {tag} dparams", dps, wdps,
                      key_bias=(3, 2))
-    layer16.train()
-    with torch.enable_grad():
-        xl = x16.detach().requires_grad_()
-        ins, o = [xl] + list(layer16.parameters()), layer16(xl)
-    g16 = g.to(torch.bfloat16)
-    ms, plain_ms, lib_ms = _call_times(
-        bwd16, plain16,
-        lambda: torch.autograd.grad(o, ins, g16, retain_graph=True), 10)
-    case("K1 bert_layer backward mm16", "", max(errs), ms, plain_ms, lib_ms,
-         0, _bound16(2 * prod, 2 * exps, _nbytes(x, g, x, *p16, *p16)),
-         tol16)
-    print(f"K1 at T = 369 (B 4, 16, 64): the rows above; at T = {T} the "
-          f"path cases {path}; card: {card}")
+    timing = None
+    if timed:
+        layer16.train()
+        with torch.enable_grad():
+            xl = x16.detach().requires_grad_()
+            ins, o = [xl] + list(layer16.parameters()), layer16(xl)
+        g16 = g.to(torch.bfloat16)
+        timing = (bwd16, plain16, lambda: torch.autograd.grad(
+            o, ins, g16, retain_graph=True), 10)
+    case("K1 bert_layer backward mm16", "", max(errs), tol16, timing, 0,
+         _bound16(2 * prod, 2 * exps, _nbytes(x, g, x, *p16, *p16)))
 
 
 def k5_phase2_kernels(gen, res: Results, card):
@@ -3912,7 +3946,9 @@ def phase2_nets(card, gen, res: Results):
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    k1_short_kernels(gen, res, card)
+    k1_case(gen, res, card, P2_SHORT_T, 12, CHAIN_BATCH, "phase2_different")
+    print(f"K1 at T = 369 (B 4, 16, 64): the rows above; at T = "
+          f"{P2_SHORT_T} the path cases phase2_different; card: {card}")
     k5_phase2_kernels(gen, res, card)
     launches = {}
     two = ["--fmri_multimodality_type", "two_channels"]
@@ -4015,7 +4051,7 @@ def phase2_nets(card, gen, res: Results):
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    losses, _ = step(batch, torch.Generator().manual_seed(SEED))
+    losses, _, _ = step(batch, torch.Generator().manual_seed(SEED))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launches()
@@ -4055,6 +4091,257 @@ def phase2_nets(card, gen, res: Results):
         _phase2_times(config_from_args(base + flags), label, card)
     print(f"phase-2 phase took {time.perf_counter() - t_phase:.1f} s; "
           f"card: {card}")
+    return launches
+
+
+# ---- phase 13: the training run's outer shell -------------------------------
+
+# step 1 at its defaults (bf16, batch 8, 16 layers): TransformerNet's one
+# BERT on K1's mm16 form, L a pass and L a step
+P13_T = 369
+P13_TRAIN, P13_VAL = 28, 6          # the 40-subject cohort's splits
+# FuncStructUNetAdd at phase 5's defaults, 10 train steps and 3 val passes
+# of batch 2 under --profiling
+P13_UNET_BATCH = 2
+# the CUDA kernel names the profiled step-5 run's trace must show
+P13_TRACE = {"K1": "k16_", "K4": "window_attention", "K5": "fused_adam_kernel"}
+
+
+def _loss_specs(cfg):
+    """The task's losses as the Trainer activates them from ``cfg``."""
+    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
+    return active_losses(
+        cfg.task, cfg.fine_tune_task, use_merge_loss=cfg.use_merge_loss,
+        use_unet_loss=cfg.use_unet_loss, use_cont_loss=cfg.use_cont_loss,
+        use_mask_loss=cfg.use_mask_loss,
+        intensity_factor=cfg.intensity_factor,
+        perceptual_factor=cfg.perceptual_factor,
+        reconstruction_factor=cfg.reconstruction_factor)
+
+
+def _step1_launches(layers, batch, epochs=1):
+    """Exact launches of a step-1 run of ``epochs`` on the cohort: K1 mm16
+    ``layers`` a pass (train steps and val passes) and a step, K5 a step."""
+    steps = epochs * (P13_TRAIN // batch)
+    passes = steps + epochs * -(-P13_VAL // batch)
+    return {"K1 bert_layer mm16": layers * passes,
+            "K1 bert_layer backward mm16": layers * steps,
+            "K5 fused_adam": steps}
+
+
+def _reconstruction_losses(card):
+    """``compute_losses`` for a ``transformer_reconstruction`` loss set with
+    the contrastive and mask losses (perceptual, reconstruction, intensity,
+    contrastive, mask; weighted), card against CPU on the same seeded
+    outputs, VGG weights and slices, TF32 off: every loss at the float32
+    kernel tolerance."""
+    from multimodal_neuroimage_tpu_torch.nn.perceptual import PerceptualLoss
+    from multimodal_neuroimage_tpu_torch.train.losses import (active_losses,
+                                                              compute_losses)
+    task = "transformer_reconstruction"
+    specs = active_losses(task, "regression", use_cont_loss=True,
+                          use_mask_loss=True, intensity_factor=0.5,
+                          perceptual_factor=2.0, reconstruction_factor=3.0)
+    rng = np.random.default_rng(SEED)
+    B, T, E = 8, 64, 84
+    seq = np.abs(rng.normal(size=(B, 40, 48, 40, 4))).astype(np.float32)
+    out = {"rec": (seq + 0.1 * rng.normal(size=seq.shape)).astype(np.float32),
+           "encoded_inputs": rng.normal(size=(B, T, E)).astype(np.float32),
+           "seq": rng.normal(size=(B, T, E)).astype(np.float32),
+           "mask_list": np.stack([rng.choice(T, 8, replace=False)
+                                  for _ in range(B)]).astype(np.int64)}
+    got = {}
+    for where in ("cuda", "cpu"):
+        fn = PerceptualLoss(task, seed=SEED, device=where)
+        t = {k: torch.from_numpy(v).to(where) for k, v in out.items()}
+        vol = compute_losses({"reconstructed_fmri_sequence": t["rec"]},
+                             {"fmri_sequence": torch.from_numpy(seq).to(
+                                 where)},
+                             {k: specs[k] for k in ("perceptual",
+                                                    "reconstruction",
+                                                    "intensity")},
+                             {"perceptual": fn},
+                             torch.Generator().manual_seed(SEED))
+        pair = compute_losses({"reconstructed_fmri_sequence": t["seq"],
+                               "encoded_inputs": t["encoded_inputs"],
+                               "mask_list": t["mask_list"]}, {},
+                              {k: specs[k] for k in ("contrastive", "mask")})
+        got[where] = {**{k: v.item() for k, v in vol.items()},
+                      **{f"{k} (pairs)": v.item() for k, v in pair.items()}}
+    errs = {k: _close(f"reconstruction set {k}", torch.tensor([v]),
+                      torch.tensor([got["cpu"][k]]), ATOL, RTOL)
+            for k, v in got["cuda"].items()}
+    print(f"compute_losses, transformer_reconstruction set (perceptual on "
+          f"{B}x4x40 slices of 40x48, intensity over {B}x4 frames), card vs "
+          f"CPU: {got['cuda']}; max|err| {max(errs.values()):.3e} (atol "
+          f"{ATOL} + rtol {RTOL}); card: {card}")
+
+
+def outer_shell(card, gen, res: Results):
+    """Phase 13 (``outer_shell``): K1 at the head dims the HPO space and
+    ``Config.validate()`` admit (hd 21 and 14 at heads 4 and 6: T 369
+    padded to 376, batch 8, timed beside its plain version and
+    ``nn.TransformerEncoderLayer``; hd 28 and 84 at batch 4 for correctness
+    only); then through the CLI on the 40-subject cohort on disk: a 3-trial
+    study (``--step 1 --use_optuna --opt_num_epochs 1``: the fallback
+    search, every trial completed or pruned, K1 and K5 launched exactly as
+    each trial's drawn depth and batch need, ``best_params.pkl`` with the
+    search space's keys), a ``--use_best_params_from_optuna`` run on them,
+    a fixed ``--num_heads_2DBert 4`` run (hd 21 whatever the study drew);
+    step 5's ``FuncStructUNetAdd`` with the UNet loss, grad norms every
+    step, ``--profiling`` and ``--profile_dir`` (exactly 10 train batches,
+    ``unet`` and ``grad/global`` columns in ``full_scores.csv``, a Chrome
+    trace naming the K1, K4 and K5 kernels); one full-width float32 step
+    of ``FuncStructUNetCross`` with the UNet loss against the plain twins
+    on the card at ``GRAD_REL``; a reconstruction loss set card vs CPU.
+    Returns the launch counts by path."""
+    import csv
+    import pickle
+    from multimodal_neuroimage_tpu_torch.cli.main import config_from_args
+    from multimodal_neuroimage_tpu_torch.data import synthetic
+    from multimodal_neuroimage_tpu_torch.hpo import optuna_harness as oh
+    from multimodal_neuroimage_tpu_torch.models.registry import create_model
+    from multimodal_neuroimage_tpu_torch.ops import build
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for heads in (4, 6):
+        k1_case(gen, res, card, P13_T, heads, CHAIN_BATCH, "outer_shell")
+    for heads in (3, 1):
+        k1_case(gen, res, card, P13_T, heads, 4, "outer_shell", timed=False)
+    t_k1 = time.perf_counter() - t_phase
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        root = synthetic.generate_synthetic_cohort(
+            os.path.join(tmp, "cohort"), n_subjects=DISK_SUBJECTS, seed=SEED)
+        common = ["--base_path", root, "--target", "sex", "--seed",
+                  str(SEED), "--nEpochs", "1", "--dti_smri_path",
+                  os.path.join(root, "data", "dti+smri_cortical_thickness")]
+
+        # ---- the study: 3 trials of step 1, 1 epoch each -------------------
+        argv = ["--step", "1", "--exp_name", "hpo", "--use_optuna",
+                "--num_trials", "3", "--opt_num_epochs", "1"] + common
+        best, counts, wall, out = _cli(argv, "outer shell: study", card)
+        cfg = config_from_args(argv)
+        if (cfg.batch_size, cfg.intermediate_vec, cfg.compute_dtype) != (
+                CHAIN_BATCH, 84, "bfloat16"):
+            raise AssertionError(f"step 1 defaults: {cfg}")
+        rng = np.random.default_rng(cfg.seed)     # the fallback's draws
+        drawn = [oh._suggest(oh._FallbackTrial(n, rng, {}, True), cfg)
+                 for n in range(3)]
+        folder = _experiment(root, "hpo")
+        done = [os.path.exists(os.path.join(folder, f"trial_{n}",
+                                            "full_scores.csv"))
+                for n in range(3)]
+        pruned = [f"trial {n} pruned" in out for n in range(3)]
+        if not all(d or p for d, p in zip(done, pruned)):
+            raise AssertionError(f"trials neither completed nor pruned: "
+                                 f"completed {done}, pruned {pruned}")
+        want = {}
+        for d in drawn:
+            for k, n in _step1_launches(d["transformer_hidden_layers"],
+                                        d["batch_size"]).items():
+                want[k] = want.get(k, 0) + n
+        _exact(counts, want, "study")
+        with open(os.path.join(folder, "best_params.pkl"), "rb") as f:
+            params = pickle.load(f)
+        if set(params) != set(oh.SEARCH_SPACE) or params not in drawn:
+            raise AssertionError(f"best_params.pkl: {params}")
+        launches["outer_shell_study"] = counts
+        print(f"study: 3 trials of step 1 in {wall:.1f} s (completed "
+              f"{sum(done)}, pruned {sum(pruned)}), drawn heads "
+              f"{[d['num_heads_2DBert'] for d in drawn]} (hd "
+              f"{[84 // d['num_heads_2DBert'] for d in drawn]}), depths "
+              f"{[d['transformer_hidden_layers'] for d in drawn]}, batches "
+              f"{[d['batch_size'] for d in drawn]}; best {best}; card: "
+              f"{card}")
+
+        # ---- a run on the best parameters -----------------------------------
+        _, counts, wall, out = _cli(
+            ["--step", "1", "--exp_name", "hpo",
+             "--use_best_params_from_optuna"] + common,
+            "outer shell: best params", card)
+        if "[hpo] loaded best params from" not in out:
+            raise AssertionError("the best-params run found no best_params")
+        _exact(counts, _step1_launches(params["transformer_hidden_layers"],
+                                       params["batch_size"]),
+               "best-params run")
+        launches["outer_shell_best_params"] = counts
+        print(f"--use_best_params_from_optuna: 1 epoch at {params} in "
+              f"{wall:.1f} s")
+
+        # ---- a fixed run at 4 heads (hd 21) ----------------------------------
+        _, counts, wall, _ = _cli(["--step", "1", "--exp_name", "heads4",
+                                   "--num_heads_2DBert", "4"] + common,
+                                  "outer shell: 4 heads", card)
+        _exact(counts, _step1_launches(16, CHAIN_BATCH), "4-head run")
+        launches["outer_shell_heads4"] = counts
+        print(f"step 1 at --num_heads_2DBert 4 (hd 21): 1 epoch in "
+              f"{wall:.1f} s")
+
+        # ---- step 5: FuncStructUNetAdd, UNet loss, norms, profiling --------
+        prof = os.path.join(tmp, "profile")
+        argv = (["--step", "5", "--dataset_name", "multimodal",
+                 "--exp_name", "p5unet", "--multimodality_type", "add",
+                 "--use_unet", "--use_unet_loss", "--batch_size",
+                 str(P13_UNET_BATCH), "--log_grad_norms_every", "1",
+                 "--profiling", "--profile_dir", prof] + common)
+        _, counts, wall, _ = _cli(argv, "outer shell: step 5 UNet loss",
+                                  card)
+        if type(create_model(config_from_args(argv))).__name__ != \
+                "FuncStructUNetAdd":
+            raise AssertionError("step 5 --use_unet add: not FuncStructUNetAdd")
+        steps, passes = 10, 10 + -(-P13_VAL // P13_UNET_BATCH)
+        _per_pass(counts, ADD_FORWARD, ADD_BACKWARD, steps, passes,
+                  "profiled step-5 UNet-loss run")
+        with open(os.path.join(_experiment(root, "p5unet"),
+                               "full_scores.csv")) as f:
+            rows = list(csv.DictReader(f))
+        norms = [r["norm/grad/global"] for r in rows]
+        if (sum(v != "" for v in norms) != steps
+                or not rows[0].get("unet_train_loss_history")
+                or not rows[0].get("norm/grad/unet")):
+            raise AssertionError(f"full_scores.csv: {list(rows[0])}")
+        traces = glob.glob(os.path.join(prof, "*.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"profile_dir holds {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        found = {k: sorted(n for n in kernels if v in n)[:3]
+                 for k, v in P13_TRACE.items()}
+        if not all(found.values()):
+            raise AssertionError(f"the trace names no kernel of {found}")
+        launches["outer_shell_unet_profiled"] = counts
+        print(f"step 5 FuncStructUNetAdd with --use_unet_loss "
+              f"--log_grad_norms_every 1 --profiling: {steps} train steps, "
+              f"{passes - steps} val passes in {wall:.1f} s (the profiler "
+              f"on); full_scores.csv unet loss "
+              f"{rows[0]['unet_train_loss_history']}, grad/global "
+              f"{norms[:3]}...; trace {os.path.getsize(traces[0])} bytes, "
+              f"{len(kernels)} kernel names, e.g. {found}; card: {card}")
+
+        # ---- one float32 step of FuncStructUNetCross with the UNet loss ----
+        cfg = dataclasses.replace(config_from_args(
+            ["--step", "5", "--dataset_name", "multimodal", "--exp_name",
+             "twin", "--use_unet", "--use_unet_struct", "--use_unet_loss"]
+            + common), compute_dtype="float32")
+        if set(_loss_specs(cfg)) != {"unet", "binary_classification"}:
+            raise AssertionError(f"losses {_loss_specs(cfg)}")
+        batch = _combiner_batches(CHAIN_BATCH, False, n=1)[0]
+        steps = _step_compare(cfg, batch, "FuncStructUNetCross with the UNet "
+                              "loss (full width, float32)",
+                              (("card", "cuda", "std"),
+                               ("plain twins on the card", "twins", "std")))
+        f32 = {k.replace(" mm16", ""): n
+               for k, n in {**CROSS_FORWARD, **CROSS_BACKWARD}.items()}
+        _exact(steps["card"], {**f32, "K5 fused_adam": 1}, "UNet-loss twin step")
+        if any(steps["plain twins on the card"].values()):
+            raise AssertionError(f"the twins launched {steps}")
+        launches["outer_shell_unet_cross_twin_step"] = steps["card"]
+    _reconstruction_losses(card)
+    print(f"outer-shell phase took {time.perf_counter() - t_phase:.1f} s "
+          f"(K1 cases {t_k1:.1f} s); card: {card}")
     return launches
 
 
@@ -4133,9 +4420,16 @@ def main() -> int:
                                  f"the four forward kernels: {serve_counts}")
 
     # ---- (c) one flagship training step on the card against the CPU -------
+    # at a cut depth (the CPU's side at full depth took 83-100 s), and the
+    # full-depth step against the plain twins on the card
     batch, _ = next(trainer.batches("train"))
-    _step_compare(cfg, batch, "flagship",
+    _step_compare(dataclasses.replace(cfg, transformer_hidden_layers=2,
+                                      **CPU_STEP_DEPTH), batch,
+                  "flagship (cut depth)",
                   (("card", "cuda", "std"), ("CPU", "cpu", "std")))
+    _step_compare(cfg, batch, "flagship (full depth)",
+                  (("card", "cuda", "std"),
+                   ("plain twins on the card", "twins", "std")))
 
     # ---- (d) flagship training-step time ------------------------------------
     _time_train_step(trainer, "flagship", card)
@@ -4228,6 +4522,11 @@ def main() -> int:
     phase2_counts = phase2_nets(card, gen, results)
     elapsed("phase-2 phase")
 
+    # ---- the training run's outer shell: K1 at every head dim, the study,
+    # the UNet loss, the Writer's norms, the profiler ------------------------
+    outer_counts = outer_shell(card, gen, results)
+    elapsed("outer-shell phase")
+
     launches = {"flagship": train_counts, "flagship_bp": bp_counts,
                 "flagship_bf16": bf16_counts,
                 "flagship_bp_bf16": bp_bf16_counts,
@@ -4235,7 +4534,7 @@ def main() -> int:
                 "flagship_defaults": defaults_counts,
                 "flagship_disk": disk_counts, "hcp_disk": hcp_disk_counts,
                 "dot_shapes": dot_counts, **struct_counts, **chain_counts,
-                **phase2_counts}
+                **phase2_counts, **outer_counts}
     kernels = [results.line(key, launches) for key in ops.kernels()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,11 @@ worker times, ``ROUNDS`` times:
 - K1's mm16 form (``k1_16``, the bf16 policy's layer) at batch 4, 16 and
   64 (bf16-valued weights, dropout 0.1): the training forward with the
   residuals saved (20 back-to-back calls) and the backward (10);
+- the same mm16 form at phase 2's ultralow BERT length (``k1_16_short``:
+  t_valid 129 padded to 136, batch 8, 12 heads): the inference forward
+  (``bert_layer_call16``, as ``chip_smoke.py``'s phase 2 times it), the
+  training forward and the backward, each the call time (CUDA events
+  around back-to-back calls) and the device time (a CUDA graph's replay);
 - the fusion backward (``fusion``) at batch 16 and 64, dropout 0.1 and
   DropPath on, shift 0 and 3, self and cross: K2/K3 on (B, 196, 36, 12)
   windows and K7 on groups of G = 8, 10 back-to-back calls;
@@ -51,8 +56,8 @@ batch 4 and 16 at bf16 and at float32 in turns. Each after 3 of warm-up, on
 the host clock.
 
 ``--cases`` picks the groups (comma-separated; default all of k8, k4,
-k1_fwd, k1, k1_16, fusion, k6, fusion_fwd, flagship, step16, hcp16, hcp,
-bf16).
+k1_fwd, k1, k1_16, k1_16_short, fusion, k6, fusion_fwd, flagship, step16,
+hcp16, hcp, bf16).
 
 Prints each turn's JSON line, then for every case each side's median and
 quartiles over all its samples and the ratio of its median to BASE's.
@@ -74,7 +79,8 @@ K4_STAGES = ((36, 12, 3, 3), (36, 6, 6, 0), (9, 3, 12, 0))  # N, res, heads, shi
 BATCH = 4
 STEPS = 12
 CYCLES, ROUNDS = 2, 2   # 8 samples a side for each kernel case, 48 a step
-GROUPS = ("k8", "k4", "k1_fwd", "k1", "k1_16", "fusion", "k6", "fusion_fwd",
+GROUPS = ("k8", "k4", "k1_fwd", "k1", "k1_16", "k1_16_short", "fusion", "k6",
+          "fusion_fwd",
           "flagship", "step16", "hcp16", "hcp", "bf16")
 
 
@@ -449,6 +455,28 @@ def _flagship(out):
     out["flagship"]["predict step"] = _step_times(lambda: predict(batch))
 
 
+def _k1_16_short(out, T):
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    gen = torch.Generator().manual_seed(23)
+    H, F_, L, B, rates, seed = 84, 3072, 129, 8, (0.1, 0.1), 12345
+    p = tuple(t.to(torch.bfloat16).float().cuda() for t in
+              sum((_lin(gen, H, H) for _ in range(4)), []) + _ln(gen, H)
+              + _lin(gen, F_, H) + _lin(gen, H, F_) + _ln(gen, H))
+    x, g = (torch.randn(B, L, H, generator=gen).cuda() for _ in "xg")
+    _, resid = bl._launch_forward(x, p, 12, L, seed, rates, True, True, True)
+    for name, fn, iters in (
+            ("inference forward", lambda: bl.bert_layer_call16(x, p, 12, L),
+             20),
+            ("training forward", lambda: bl._launch_forward(
+                x, p, 12, L, seed, rates, True, True, True), 20),
+            ("backward", lambda: bl.bert_layer_backward16(
+                g, x, p, resid, 12, L, seed, rates, True), 10)):
+        out["k1 mm16 T129 call"].setdefault(name, []).append(
+            T.events_ms(fn, iters=iters))
+        out["k1 mm16 T129 device"].setdefault(name, []).append(
+            T.graph_ms(fn, iters=iters)[0])
+
+
 def worker(groups) -> int:
     from multimodal_neuroimage_tpu_torch.ops import build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -457,13 +485,15 @@ def worker(groups) -> int:
     lib = build.library()
     out = {"root": os.getcwd(), "build_s": lib.build_seconds, "k8": {},
            "k4 call": {}, "k4 device": {}, "k1 forward": {},
-           "k1 backward": {}, "k1 mm16": {},
+           "k1 backward": {}, "k1 mm16": {}, "k1 mm16 T129 call": {},
+           "k1 mm16 T129 device": {},
            "fusion backward": {}, "k6": {}, "fusion forward": {},
            "flagship": {}, "hcp": {}}
     for _ in range(ROUNDS):
         for name, fn in (("k8", _k8), ("k4", _k4), ("k1_fwd", _k1_fwd),
                          ("k1", _k1),
-                         ("k1_16", _k1_16), ("fusion", _fusion), ("k6", _k6),
+                         ("k1_16", _k1_16), ("k1_16_short", _k1_16_short),
+                         ("fusion", _fusion), ("k6", _k6),
                          ("fusion_fwd", _fusion_fwd)):
             if name in groups:
                 fn(out, T)
@@ -523,7 +553,7 @@ def main(argv) -> int:
     print("case: each side's median ms (q1-q3) over all its samples, and "
           "its median / BASE's; sides in order: " + ", ".join(roots))
     for group in ("k8", "k4 call", "k4 device", "k1 forward", "k1 backward",
-                  "k1 mm16",
+                  "k1 mm16", "k1 mm16 T129 call", "k1 mm16 T129 device",
                   "fusion backward", "k6", "fusion forward", "flagship",
                   "hcp"):
         for case in runs[roots[0]][0][group]:

@@ -203,10 +203,16 @@ def run_phase(cfg: Config, device: str = "cuda") -> dict:
     weights = weight_loader(cfg)
     if weights and not cfg.model_weights_path:
         cfg = dataclasses.replace(cfg, model_weights_path=weights)
-    if cfg.use_optuna or cfg.use_best_params_from_optuna:
-        raise NotImplementedError(
-            "use_optuna / use_best_params_from_optuna: the Optuna harness is "
-            "not ported to PyTorch yet (ROADMAP M13)")
+    if cfg.use_optuna:
+        from multimodal_neuroimage_tpu_torch.hpo.optuna_harness import (
+            run_study)
+        return run_study(cfg, device=device)
+    if cfg.use_best_params_from_optuna:
+        # the finished study's best parameters into this full run
+        # (reference main.py:501-522)
+        from multimodal_neuroimage_tpu_torch.hpo.optuna_harness import (
+            apply_best_params)
+        cfg = apply_best_params(cfg)
 
     if cfg.predict_only:
         from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (

@@ -205,17 +205,144 @@ bert_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- head dims above BERT_MAXHD (H / heads up to 96) --------------------------
+//
+// The kernels above hold a query's (or key's) head-dim vectors in registers
+// and a head's K and V for every key in shared memory: at hd 84 that is
+// 2 x 84 accumulators a lane and 2 x 369 x 84 floats (248 KB) a block. The
+// wide kernels below keep the lane layout (four lanes a query, each taking
+// every fourth key in order, merged by the same shuffles) and the float32
+// arithmetic of every score (a fmaf chain over d = 0 .. hd - 1 of q * scale
+// and k) and every sum, but hold the block's 32 query (or key) rows in
+// shared memory, stream the other side through BERT_WIDE_KT-row tiles, and
+// accumulate the outputs BERT_WIDE_CH head dims at a time, rebuilding the
+// scores once a chunk: ceil(hd / 32) + 1 passes over the keys forward,
+// ceil(hd / 32) backward. Bound, as the narrow kernels: shared-memory loads
+// feeding the CUDA cores (two a score term here, q no longer in registers).
+#define BERT_WIDE_CH 32   // output head dims a pass
+#define BERT_WIDE_KT 32   // rows of the streamed side a shared tile
+static_assert(BERT_WIDE_KT == BERT_ATTN_QUERIES && BERT_WIDE_KT % BERT_ATTN_SPLIT == 0,
+              "a tile is the block's rows, and every lane keeps its key residue");
+
+// Rows [r0, r0 + BERT_WIDE_KT) of one head of a (B T, H) matrix (b's rows
+// from row0) into a [BERT_WIDE_KT][hd] tile, zero past `rows`, times `mul`.
+__device__ __forceinline__ void bert_wide_tile(float* tile, const float* __restrict__ src,
+                                               size_t row0, int r0, int rows, int H, int col,
+                                               int hd, float mul) {
+  for (int e = threadIdx.x; e < BERT_WIDE_KT * hd; e += BERT_ATTN_THREADS) {
+    const int r = r0 + e / hd;
+    tile[e] = r < rows ? src[(row0 + r) * H + col + e % hd] * mul : 0.f;
+  }
+}
+
+// a . b over d < hd as one fmaf chain from 0 (the narrow kernels' order)
+__device__ __forceinline__ float bert_wide_dot(const float* a, const float* b, int hd) {
+  float s = 0.f;
+  for (int d = 0; d < hd; ++d) s = fmaf(a[d], b[d], s);
+  return s;
+}
+
+// bert_attention_kernel for any hd: grid (ceil(T / 32), heads, B); shared
+// memory (32 + 2 BERT_WIDE_KT) hd floats. Pass 1 the row max; then a pass a
+// chunk of 32 output dims (the first also sums l).
+__global__ void __launch_bounds__(BERT_ATTN_THREADS)
+bert_attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ ctx,
+                           float* __restrict__ lse, Dropout drop, int T, int TP, int H, int hd,
+                           int t_valid, float scale) {
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + BERT_ATTN_QUERIES * hd;
+  float* vs = ks + BERT_WIDE_KT * hd;
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BERT_ATTN_QUERIES;
+  const size_t row0 = (size_t)b * T;
+  const int part = threadIdx.x % BERT_ATTN_SPLIT, qi = threadIdx.x / BERT_ATTN_SPLIT;
+  const int i = i0 + qi;
+  for (int e = threadIdx.x; e < BERT_ATTN_QUERIES * hd; e += BERT_ATTN_THREADS) {
+    const int r = i0 + e / hd;
+    qs[e] = r < T ? q[(row0 + r) * H + h * hd + e % hd] * scale : 0.f;
+  }
+  const float* qr = qs + qi * hd;
+  float m = -INFINITY;
+  for (int j0 = 0; j0 < t_valid; j0 += BERT_WIDE_KT) {
+    __syncthreads();
+    bert_wide_tile(ks, k, row0, j0, t_valid, H, h * hd, hd, 1.f);
+    __syncthreads();
+    for (int jl = part; jl < BERT_WIDE_KT && j0 + jl < t_valid; jl += BERT_ATTN_SPLIT)
+      m = fmaxf(m, bert_wide_dot(qr, ks + jl * hd, hd));
+  }
+#pragma unroll
+  for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
+    m = fmaxf(m, __shfl_xor_sync(MNT_FULL_MASK, m, off));
+  const uint32_t rk = keep_row(drop, (uint32_t)(b * TP + i));
+  float l = 0.f, inv = 0.f;
+  for (int c0 = 0; c0 < hd; c0 += BERT_WIDE_CH) {
+    float acc[BERT_WIDE_CH];
+#pragma unroll
+    for (int d = 0; d < BERT_WIDE_CH; ++d) acc[d] = 0.f;
+    for (int j0 = 0; j0 < t_valid; j0 += BERT_WIDE_KT) {
+      __syncthreads();
+      bert_wide_tile(ks, k, row0, j0, t_valid, H, h * hd, hd, 1.f);
+      bert_wide_tile(vs, v, row0, j0, t_valid, H, h * hd, hd, 1.f);
+      __syncthreads();
+      for (int jl = part; jl < BERT_WIDE_KT && j0 + jl < t_valid; jl += BERT_ATTN_SPLIT) {
+        const int j = j0 + jl;
+        const float p = expf(bert_wide_dot(qr, ks + jl * hd, hd) - m);
+        if (c0 == 0) l += p;
+        const float pk = drop.on ? (kept(drop, rk, (uint32_t)(h * TP + j) * 668265261u)
+                                        ? p * drop.scale : 0.f)
+                                 : p;
+        const float* vj = vs + jl * hd + c0;
+#pragma unroll
+        for (int d = 0; d < BERT_WIDE_CH; ++d)
+          if (c0 + d < hd) acc[d] = fmaf(pk, vj[d], acc[d]);
+      }
+    }
+    if (c0 == 0) {
+#pragma unroll
+      for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
+        l += __shfl_xor_sync(MNT_FULL_MASK, l, off);
+      inv = 1.f / l;
+    }
+#pragma unroll
+    for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
+#pragma unroll
+      for (int d = 0; d < BERT_WIDE_CH; ++d)
+        acc[d] += __shfl_xor_sync(MNT_FULL_MASK, acc[d], off);
+    if (part == 0 && i < T) {
+      const size_t qrow = (row0 + i) * H + h * hd + c0;
+#pragma unroll
+      for (int d = 0; d < BERT_WIDE_CH; ++d)
+        if (c0 + d < hd) ctx[qrow + d] = acc[d] * inv;
+    }
+  }
+  if (lse && part == 0 && i < T) lse[((size_t)b * gridDim.y + h) * T + i] = m + logf(l);
+}
+
+static size_t bert_wide_smem(int hd) {
+  return (size_t)(BERT_ATTN_QUERIES + 2 * BERT_WIDE_KT) * hd * sizeof(float);
+}
+
 // Launch bert_attention_kernel with QPL queries a lane group; HD7: the
-// flagship's head dim 7 compiled in.
+// flagship's head dim 7 compiled in. Head dims above BERT_MAXHD take the
+// wide kernel (QPL 1).
 template <int QPL, bool HD7>
 static cudaError_t bert_attention(const float* q, const float* k, const float* v, float* ctx,
                                   float* lse, const Dropout& drop, int B, int T, int TP, int H,
                                   int heads, int t_valid, cudaStream_t stream) {
   const int hd = H / heads;
-  const size_t smem = 2 * (size_t)t_valid * hd * sizeof(float);
-  const dim3 grid((T + QPL * BERT_ATTN_QUERIES - 1) / (QPL * BERT_ATTN_QUERIES), heads, B);
   const float scale = 1.f / sqrtf((float)hd);
   cudaError_t err;
+  if (hd > BERT_MAXHD) {
+    const size_t smem = bert_wide_smem(hd);
+    if ((err = allow_smem(bert_attention_wide_kernel, smem)) != cudaSuccess) return err;
+    const dim3 grid((T + BERT_ATTN_QUERIES - 1) / BERT_ATTN_QUERIES, heads, B);
+    bert_attention_wide_kernel<<<grid, BERT_ATTN_THREADS, smem, stream>>>(
+        q, k, v, ctx, lse, drop, T, TP, H, hd, t_valid, scale);
+    return cudaGetLastError();
+  }
+  const size_t smem = 2 * (size_t)t_valid * hd * sizeof(float);
+  const dim3 grid((T + QPL * BERT_ATTN_QUERIES - 1) / (QPL * BERT_ATTN_QUERIES), heads, B);
 #define BERT_ATTN_LAUNCH(MAXHD, HDX)                                                        \
   do {                                                                                      \
     if ((err = allow_smem(bert_attention_kernel<MAXHD, QPL, HDX>, smem)) != cudaSuccess)    \
@@ -438,8 +565,7 @@ extern "C" long long bert_layer_resid_floats(int B, int T, int H, int heads) {
 }
 
 static bool bert_bad_dims(int T, int H, int F, int heads, int t_valid, int TP) {
-  return H > FFN_MAXH || heads < 1 || H % heads != 0 || H / heads > BERT_MAXHD ||
-         F % FFN_BF != 0 || t_valid < 1 || t_valid > T || TP < T;
+  return H > FFN_MAXH || heads < 1 || H % heads != 0 || F % FFN_BF != 0 || t_valid < 1 || t_valid > T || TP < T;
 }
 
 // The SIMT forward (the precision yardstick of bert_layer_forward, same
@@ -452,7 +578,7 @@ static bool bert_bad_dims(int T, int H, int F, int heads, int t_valid, int TP) {
 // the backward consumes, and the dropout draws (attention 3 at attn_rate,
 // hidden 0 and 1 at hidden_rate, from seed) use the JAX kernel's padded
 // coordinates with TP = round_up(T, 8) rows a subject. Inference: resid
-// NULL and both rates 0. Needs H <= 96, H / heads <= 16 and F % 32 == 0.
+// NULL and both rates 0. Needs H <= 96, heads dividing H and F % 32 == 0.
 // Returns the cudaError_t of the first launch that fails, or of the last.
 extern "C" int bert_layer_forward_simt(const float* x, const void* const* params,
                                        float* scratch, float* resid, float* out, int B, int T,
@@ -1160,6 +1286,152 @@ bert_attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
 }
 
+// bert_attn_bwd_dq_kernel for any hd (the wide kernels' layout, see
+// bert_attention_wide_kernel): the block's 32 scaled q and dctx rows in
+// shared memory, K and V streamed a tile at a time, dq a chunk of 32 dims a
+// pass. Shared memory (2 x 32 + 2 BERT_WIDE_KT) hd floats.
+__global__ void __launch_bounds__(BERT_ATTN_THREADS)
+bert_attn_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ ctx,
+                             const float* __restrict__ dctx, const float* __restrict__ lse,
+                             float* __restrict__ Dd, float* __restrict__ dq, int ldq,
+                             Dropout drop, int T, int TP, int H, int hd, int t_valid,
+                             float scale) {
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* gs = qs + BERT_ATTN_QUERIES * hd;
+  float* ks = gs + BERT_ATTN_QUERIES * hd;
+  float* vs = ks + BERT_WIDE_KT * hd;
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BERT_ATTN_QUERIES;
+  const size_t row0 = (size_t)b * T;
+  bert_wide_tile(qs, q, row0, i0, T, H, h * hd, hd, scale);
+  bert_wide_tile(gs, dctx, row0, i0, T, H, h * hd, hd, 1.f);
+  const int part = threadIdx.x % BERT_ATTN_SPLIT, qi = threadIdx.x / BERT_ATTN_SPLIT;
+  const int i = i0 + qi;
+  const bool live = i < T;
+  const size_t si = ((size_t)b * gridDim.y + h) * T + (live ? i : 0);
+  const float* qr = qs + qi * hd;
+  const float* gr = gs + qi * hd;
+  __syncthreads();
+  float Di = 0.f;
+  if (live) {
+    const float* cr = ctx + (row0 + i) * H + h * hd;
+    for (int d = 0; d < hd; ++d) Di = fmaf(gr[d], cr[d], Di);
+  }
+  const float li = live ? lse[si] : 0.f;
+  const uint32_t r = (uint32_t)(b * TP + i);
+  for (int c0 = 0; c0 < hd; c0 += BERT_WIDE_CH) {
+    float dqa[BERT_WIDE_CH];
+#pragma unroll
+    for (int d = 0; d < BERT_WIDE_CH; ++d) dqa[d] = 0.f;
+    for (int j0 = 0; j0 < t_valid; j0 += BERT_WIDE_KT) {
+      __syncthreads();
+      bert_wide_tile(ks, k, row0, j0, t_valid, H, h * hd, hd, 1.f);
+      bert_wide_tile(vs, v, row0, j0, t_valid, H, h * hd, hd, 1.f);
+      __syncthreads();
+      for (int jl = part; jl < BERT_WIDE_KT && j0 + jl < t_valid; jl += BERT_ATTN_SPLIT) {
+        const float* kj = ks + jl * hd;
+        const float p = expf(bert_wide_dot(qr, kj, hd) - li);
+        const float dp = bert_wide_dot(gr, vs + jl * hd, hd);
+        const float ds = p * (dp * keep(drop, r, (uint32_t)(h * TP + j0 + jl)) - Di);
+#pragma unroll
+        for (int d = 0; d < BERT_WIDE_CH; ++d)
+          if (c0 + d < hd) dqa[d] = fmaf(ds, kj[c0 + d], dqa[d]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
+#pragma unroll
+      for (int d = 0; d < BERT_WIDE_CH; ++d) dqa[d] += __shfl_xor_sync(MNT_FULL_MASK, dqa[d], off);
+    if (live && part == 0) {
+      const size_t drow = (row0 + i) * ldq + h * hd + c0;
+#pragma unroll
+      for (int d = 0; d < BERT_WIDE_CH; ++d)
+        if (c0 + d < hd) dq[drow + d] = dqa[d] * scale;
+    }
+  }
+  if (live && part == 0) Dd[si] = Di;
+}
+
+// bert_attn_bwd_dkv_kernel for any hd: the block's 32 k and v rows in shared
+// memory, the scaled q, dctx, log-sum-exp and D streamed a tile of queries
+// at a time, dk and dv a chunk of 32 dims a pass. Shared memory (2 x 32 +
+// 2 BERT_WIDE_KT) hd + 2 BERT_WIDE_KT floats.
+__global__ void __launch_bounds__(BERT_ATTN_THREADS)
+bert_attn_bwd_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dctx,
+                              const float* __restrict__ lse, const float* __restrict__ Dd,
+                              float* __restrict__ dk, float* __restrict__ dv, int ldo,
+                              Dropout drop, int T, int TP, int H, int hd, int t_valid,
+                              float scale) {
+  extern __shared__ float smem[];
+  float* kS = smem;
+  float* vS = kS + BERT_ATTN_QUERIES * hd;
+  float* qs = vS + BERT_ATTN_QUERIES * hd;
+  float* gs = qs + BERT_WIDE_KT * hd;
+  float* ls = gs + BERT_WIDE_KT * hd;
+  float* Ds = ls + BERT_WIDE_KT;
+  const int b = blockIdx.z, h = blockIdx.y, j0b = blockIdx.x * BERT_ATTN_QUERIES;
+  const size_t row0 = (size_t)b * T;
+  const size_t s0 = ((size_t)b * gridDim.y + h) * T;
+  bert_wide_tile(kS, k, row0, j0b, t_valid, H, h * hd, hd, 1.f);
+  bert_wide_tile(vS, v, row0, j0b, t_valid, H, h * hd, hd, 1.f);
+  const int part = threadIdx.x % BERT_ATTN_SPLIT, kj = threadIdx.x / BERT_ATTN_SPLIT;
+  const int j = j0b + kj;
+  const bool live = j < t_valid;
+  const float* kr = kS + kj * hd;
+  const float* vr = vS + kj * hd;
+  const uint32_t c = (uint32_t)(h * TP + j);
+  for (int c0 = 0; c0 < hd; c0 += BERT_WIDE_CH) {
+    float dka[BERT_WIDE_CH], dva[BERT_WIDE_CH];
+#pragma unroll
+    for (int d = 0; d < BERT_WIDE_CH; ++d) dka[d] = dva[d] = 0.f;
+    for (int i0 = 0; i0 < T; i0 += BERT_WIDE_KT) {
+      __syncthreads();
+      bert_wide_tile(qs, q, row0, i0, T, H, h * hd, hd, scale);
+      bert_wide_tile(gs, dctx, row0, i0, T, H, h * hd, hd, 1.f);
+      if (threadIdx.x < BERT_WIDE_KT) {
+        const int i = i0 + threadIdx.x;
+        ls[threadIdx.x] = i < T ? lse[s0 + i] : 0.f;
+        Ds[threadIdx.x] = i < T ? Dd[s0 + i] : 0.f;
+      }
+      __syncthreads();
+      if (!live) continue;
+      for (int il = part; il < BERT_WIDE_KT && i0 + il < T; il += BERT_ATTN_SPLIT) {
+        const float* qi = qs + il * hd;
+        const float* gi = gs + il * hd;
+        const float p = expf(bert_wide_dot(qi, kr, hd) - ls[il]);
+        const float dp = bert_wide_dot(gi, vr, hd);
+        const float kp = keep(drop, (uint32_t)(b * TP + i0 + il), c);
+        const float ds = p * (dp * kp - Ds[il]);
+        const float pk = p * kp;
+#pragma unroll
+        for (int d = 0; d < BERT_WIDE_CH; ++d)
+          if (c0 + d < hd) {
+            dka[d] = fmaf(ds, qi[c0 + d], dka[d]);
+            dva[d] = fmaf(pk, gi[c0 + d], dva[d]);
+          }
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < BERT_ATTN_SPLIT; off <<= 1)
+#pragma unroll
+      for (int d = 0; d < BERT_WIDE_CH; ++d) {
+        dka[d] += __shfl_xor_sync(MNT_FULL_MASK, dka[d], off);
+        dva[d] += __shfl_xor_sync(MNT_FULL_MASK, dva[d], off);
+      }
+    if (j < T && part == 0) {
+      const size_t drow = (row0 + j) * ldo + h * hd + c0;
+#pragma unroll
+      for (int d = 0; d < BERT_WIDE_CH; ++d)
+        if (c0 + d < hd) {
+          dk[drow + d] = dka[d];
+          dv[drow + d] = dva[d];
+        }
+    }
+  }
+}
+
 // Scratch layout of bert_layer_backward (floats).
 struct BertBwdScratch {
   long long U, DU, dy2, dz, dx1, dy1, da, dctx, dqkv, Dd, lnp, ln3, colp, gp, total;
@@ -1280,7 +1552,18 @@ extern "C" int bert_layer_backward(const float* x, const float* resid, const flo
   const dim3 grid((T + BERT_ATTN_QUERIES - 1) / BERT_ATTN_QUERIES, heads, B);
   const size_t smem_dq = 2 * (size_t)t_valid * hd * sizeof(float);
   const size_t smem_dkv = (2 * (size_t)T * hd + 2 * (size_t)T) * sizeof(float);
-  if (hd <= 8) {
+  if (hd > BERT_MAXHD) {
+    const size_t smem_w = (2 * BERT_ATTN_QUERIES + 2 * BERT_WIDE_KT) * (size_t)hd * sizeof(float);
+    CK(allow_smem(bert_attn_bwd_dq_wide_kernel, smem_w));
+    bert_attn_bwd_dq_wide_kernel<<<grid, BERT_ATTN_THREADS, smem_w, stream>>>(
+        q, k, v, ctx, dctx, lse, Dd, dqkv, 3 * H, d_attn, T, TP, H, hd, t_valid, scale);
+    CK(cudaGetLastError());
+    const size_t smem_wkv = smem_w + 2 * BERT_WIDE_KT * sizeof(float);
+    CK(allow_smem(bert_attn_bwd_dkv_wide_kernel, smem_wkv));
+    bert_attn_bwd_dkv_wide_kernel<<<grid, BERT_ATTN_THREADS, smem_wkv, stream>>>(
+        q, k, v, dctx, lse, Dd, dqkv + H, dqkv + 2 * H, 3 * H, d_attn, T, TP, H, hd, t_valid,
+        scale);
+  } else if (hd <= 8) {
     CK(allow_smem(bert_attn_bwd_dq_kernel<8>, smem_dq));
     bert_attn_bwd_dq_kernel<8><<<grid, BERT_ATTN_THREADS, smem_dq, stream>>>(
         q, k, v, ctx, dctx, lse, Dd, dqkv, 3 * H, d_attn, T, TP, H, hd, t_valid, scale);
@@ -1366,7 +1649,6 @@ extern "C" int bert_layer_backward(const float* x, const float* resid, const flo
 #define K16_ROWS (16 * K16_WARPS)   // rows a block of the row kernels
 #define K16_THREADS (32 * K16_WARPS)
 #define K16_AT 64                   // keys (or queries) an attention tile
-#define K16_ALD 24                  // bf16 pitch of a head's 16 (padded) dims (48 B)
 #define K16_MAXSLICE 16
 #define K16_FWD_PER_SM 4            // resident blocks an SM of the FFN kernels
 #define K16_BWD_PER_SM 3            // (their __launch_bounds__)
@@ -2164,15 +2446,18 @@ __global__ void __launch_bounds__(256) k16_reduce_kernel(K16Reduce R) {
 
 // ---- attention on the tensor cores ------------------------------------------------
 //
-// Every score is the exact product of bf16(q * scale) and bf16(k) (head dim
-// <= 16, zero-padded to one k16 step) summed in float32; a block owns 64
-// rows of one (subject, head), a warp 16 of them as A fragments, and streams
-// the other side through double-buffered [64][16 + 8] shared tiles. A
-// head's row is hd floats (28 bytes at hd 7), too ragged for wide copies, so
-// k16_heads_kernel first writes bf16(q * scale), bf16(k), bf16(v) (and in
-// the backward bf16(dctx)) head-major, (B, heads, T, 16) with the head dim
-// zero-padded: a 64-row tile is then 2 KB contiguous, one 16-byte cp.async a
-// thread. Keys >= t_valid are masked out (their e, p, ds are 0) and get
+// Every score is the exact product of bf16(q * scale) and bf16(k) (the head
+// dim zero-padded to DP = 16 KS, KS k16 steps) summed in float32; a block
+// owns 64 rows of one (subject, head), a warp 16 of them as A fragments, and
+// streams the other side through double-buffered [64][DP + 8] shared tiles
+// (dynamic shared memory: 53 KB at KS 6). A head's row is hd floats (28
+// bytes at hd 7), too ragged for wide copies, so k16_heads_kernel first
+// writes bf16(q * scale), bf16(k), bf16(v) (and in the backward bf16(dctx))
+// head-major, (B, heads, T, DP) with the head dim zero-padded: a 64-row tile
+// is then 128 DP bytes contiguous, KS 16-byte cp.async a thread. The kernels
+// are compiled for KS 1, 2, 3 and 6 (k16_ks: every head dim of hidden 84 and
+// 48 pads to one of them exactly; 4 and 5 take 6); at KS 1, the flagship's
+// hd 7, their arithmetic is that of the one-step kernels they generalise. Keys >= t_valid are masked out (their e, p, ds are 0) and get
 // zero gradients. Dropout of the probabilities: draw 3 at (b TP + query,
 // h TP + key), as the CUDA-core kernels and the JAX kernel key it.
 
@@ -2183,52 +2468,74 @@ struct K16Heads {
   bf16_t* dst[4];
 };
 
+// The k16 steps of a head dim's padding: the smallest compiled KS (1, 2, 3,
+// 6) with 16 KS >= hd.
+static int k16_ks(int hd) {
+  const int ks = (hd + 15) / 16;
+  return ks <= 3 ? ks : 6;
+}
+
 // grid (ceil(B heads T / 256), matrices), one (b, h, t) row a thread
 // (threads in (b, t, h) order, so that a warp reads whole token rows):
-// dst[m][((b heads + h) T + t) 16 + d] = bf16(src[m][(b T + t) H + h hd + d]
-// * scale[m]) for d < hd, else 0 (two 16-byte stores); a bf16 source
-// (src16) is copied as it is.
+// dst[m][((b heads + h) T + t) dp + d] = bf16(src[m][(b T + t) H + h hd + d]
+// * scale[m]) for d < hd, else 0 (two 16-byte stores a 16 dims); a bf16
+// source (src16) is copied as it is.
 __global__ void __launch_bounds__(256)
-k16_heads_kernel(K16Heads P, int BHT, int T, int H, int hd, int heads) {
+k16_heads_kernel(K16Heads P, int BHT, int T, int H, int hd, int heads, int dp) {
   const int m = blockIdx.y, idx = blockIdx.x * 256 + threadIdx.x;   // (b, t, h) order
   if (idx >= BHT) return;
   const int h = idx % heads, bt = idx / heads, b = bt / T, t = bt % T;
   const int row = (b * heads + h) * T + t;
   const size_t src = (size_t)bt * H + h * hd;
-  uint32_t w[8];
+  for (int d0 = 0; d0 < dp; d0 += 16) {
+    uint32_t w[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float v[2];
+    for (int i = 0; i < 8; ++i) {
+      float v[2];
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int d = 2 * i + q;
-      v[q] = 0.f;
-      if (d < hd)
-        v[q] = P.src16[m]
-                   ? __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(P.src16[m] + src + d))
-                   : P.src32[m][src + d] * P.scale[m];
+      for (int q = 0; q < 2; ++q) {
+        const int d = d0 + 2 * i + q;
+        v[q] = 0.f;
+        if (d < hd)
+          v[q] = P.src16[m] ? __bfloat162float(
+                                  *reinterpret_cast<const __nv_bfloat16*>(P.src16[m] + src + d))
+                            : P.src32[m][src + d] * P.scale[m];
+      }
+      w[i] = k16_pack(v[0], v[1]);
     }
-    w[i] = k16_pack(v[0], v[1]);
+    uint4* dst = reinterpret_cast<uint4*>(P.dst[m] + (size_t)row * dp + d0);
+    dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
   }
-  uint4* dst = reinterpret_cast<uint4*>(P.dst[m] + (size_t)row * 16);
-  dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-  dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
 static cudaError_t k16_heads(const K16Heads& P, int nmat, int B, int T, int H, int heads,
                              cudaStream_t stream) {
-  const int BHT = B * heads * T;
-  k16_heads_kernel<<<dim3((BHT + 255) / 256, nmat), 256, 0, stream>>>(P, BHT, T, H, H / heads,
-                                                                       heads);
+  const int BHT = B * heads * T, hd = H / heads;
+  k16_heads_kernel<<<dim3((BHT + 255) / 256, nmat), 256, 0, stream>>>(P, BHT, T, H, hd, heads,
+                                                                       16 * k16_ks(hd));
   return cudaGetLastError();
 }
 
-// Rows [r0, r0 + 64) of one head's (T, 16) bf16 rows into a [64][K16_ALD]
-// tile, zero past `rows`: one 16-byte cp.async a thread.
+// The shared tiles of a KS attention kernel: [64][16 KS + 8] bf16 (the
+// pitch an odd number of 16-byte units: ldmatrix rows on distinct banks).
+template <int KS>
+struct K16Att {
+  static constexpr int DP = 16 * KS, ALD = DP + 8, TILE = K16_AT * ALD;
+  static constexpr size_t TILE_BYTES = (size_t)TILE * sizeof(bf16_t);
+};
+
+// Rows [r0, r0 + 64) of one head's (T, 16 KS) bf16 rows into a [64][16 KS
+// + 8] tile, zero past `rows`: KS 16-byte cp.async a thread.
+template <int KS>
 __device__ __forceinline__ void k16_tile_cp(bf16_t* tile, const bf16_t* head, int r0, int rows) {
-  const int r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 8;
-  const bool ok = r0 + r < rows;
-  k16_cp16(tile + r * K16_ALD + c, ok ? head + (size_t)(r0 + r) * 16 + c : head, ok);
+  constexpr int DP = K16Att<KS>::DP, ALD = K16Att<KS>::ALD, CPR = 2 * KS;
+#pragma unroll
+  for (int it = 0; it < KS; ++it) {
+    const int e = threadIdx.x + it * K16_THREADS, r = e / CPR, c = (e % CPR) * 8;
+    const bool ok = r0 + r < rows;
+    k16_cp16(tile + r * ALD + c, ok ? head + (size_t)(r0 + r) * DP + c : head, ok);
+  }
 }
 
 // 4-byte cp.async (rows of float32 per-row values start unaligned); ok ==
@@ -2244,17 +2551,21 @@ __device__ __forceinline__ float k16_exp(float s, bool live) {
   return live ? tc_ex2(fminf(s, BERT_LOGIT_CAP) * K16_LOG2E) : 0.f;
 }
 
-// Store a warp's (16 rows, 16 dims) accumulator times `scale` as bf16 into
-// columns col0 + d of rows row0 + r of a (., ld) bf16 matrix (and as float32
-// where out32 is not NULL, ld32 a row), rows < rows_valid, d < hd; write its
-// float32 column sums over the warp's rows to red[d] (one slot a warp).
-__device__ __forceinline__ void k16_head_store(const float (&acc)[2][4], float scale,
+// Store a warp's (16 rows, 16 KS dims) accumulator times `scale` as bf16
+// into columns col0 + d of rows row0 + r of a (., ld) bf16 matrix (and as
+// float32 where out32 is not NULL, ld32 a row), rows < rows_valid, d < hd;
+// write its float32 column sums over the warp's rows to red[d] (one slot a
+// warp).
+template <int KS>
+__device__ __forceinline__ void k16_head_store(const float (&acc)[2 * KS][4], float scale,
                                                bf16_t* out16, int ld, float* out32, int ld32,
                                                size_t row0, int r0, int rows_valid, int hd,
                                                float* red, int g, int t) {
-  float cs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  float cs[2 * KS][2];
 #pragma unroll
-  for (int db = 0; db < 2; ++db)
+  for (int db = 0; db < 2 * KS; ++db) cs[db][0] = cs[db][1] = 0.f;
+#pragma unroll
+  for (int db = 0; db < 2 * KS; ++db)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = r0 + g + 8 * (e >> 1), d = 8 * db + 2 * t + (e & 1);
@@ -2267,7 +2578,7 @@ __device__ __forceinline__ void k16_head_store(const float (&acc)[2][4], float s
     }
   if (!red) return;
 #pragma unroll
-  for (int db = 0; db < 2; ++db)
+  for (int db = 0; db < 2 * KS; ++db)
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       float v = cs[db][q];
@@ -2282,35 +2593,39 @@ __device__ __forceinline__ void k16_head_store(const float (&acc)[2][4], float s
 // tiles: den = sum of bf16(e) (keys < t_valid); rd = bf16(1 / den). Pass 2:
 // p = e rd, pd = p keep, ctx = bf16(pd) bf16(v) on mma. ctx float32; rd to
 // rden (the residuals' log-sum-exp slot) where rden is not NULL.
-template <bool DROP>
+// Shared memory: two k and two v tiles (4 K16Att<KS>::TILE_BYTES).
+template <int KS, bool DROP>
 __global__ void __launch_bounds__(K16_THREADS)
 k16_attn_fwd_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh,
                     const bf16_t* __restrict__ vh, float* __restrict__ ctx,
                     float* __restrict__ rden, Dropout drop, int T, int TP, int H, int hd,
                     int t_valid) {
-  __shared__ __align__(16) bf16_t ks[2][K16_AT * K16_ALD], vs[2][K16_AT * K16_ALD];
+  using A = K16Att<KS>;
+  extern __shared__ uint4 k16_dyn[];
+  bf16_t* ks = reinterpret_cast<bf16_t*>(k16_dyn);   // [2][TILE]
+  bf16_t* vs = ks + 2 * A::TILE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * K16_AT + warp * 16;
-  const size_t bh = (size_t)b * gridDim.y + h, hb = bh * T * 16;
+  const size_t bh = (size_t)b * gridDim.y + h, hb = bh * T * A::DP;
   uint32_t hr[2] = {0u, 0u};
   if (DROP) {
     hr[0] = keep_row(drop, (uint32_t)(b * TP + i0 + g));
     hr[1] = keep_row(drop, (uint32_t)(b * TP + i0 + g + 8));
   }
-  uint32_t qa[1][4];
-  k16_frag16<1>(qa, qh + hb, 16, i0, T, g, t);
+  uint32_t qa[KS][4];
+  k16_frag16<KS>(qa, qh + hb, A::DP, i0, T, g, t);
   const int tiles = (t_valid + K16_AT - 1) / K16_AT, steps = 2 * tiles;
   auto load = [&](int st) {   // pass 1: k; pass 2: k and v
     const int j0 = (st % tiles) * K16_AT;
-    k16_tile_cp(ks[st & 1], kh + hb, j0, t_valid);
-    if (st >= tiles) k16_tile_cp(vs[st & 1], vh + hb, j0, t_valid);
+    k16_tile_cp<KS>(ks + (st & 1) * A::TILE, kh + hb, j0, t_valid);
+    if (st >= tiles) k16_tile_cp<KS>(vs + (st & 1) * A::TILE, vh + hb, j0, t_valid);
   };
   load(0);
   k16_commit();
   float den[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
-  float o[2][4];
+  float o[2 * KS][4];
 #pragma unroll
-  for (int db = 0; db < 2; ++db)
+  for (int db = 0; db < 2 * KS; ++db)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[db][e] = 0.f;
   for (int st = 0; st < steps; ++st) {
@@ -2331,7 +2646,9 @@ k16_attn_fwd_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh
     for (int nb = 0; nb < K16_AT / 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-    k16_mma_nk<K16_AT / 8>(s, qa[0], ks[buf], K16_ALD, 0, lane);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      k16_mma_nk<K16_AT / 8>(s, qa[kk], ks + buf * A::TILE, A::ALD, kk, lane);
     if (st < tiles) {
 #pragma unroll
       for (int nb = 0; nb < K16_AT / 8; ++nb)
@@ -2352,13 +2669,14 @@ k16_attn_fwd_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh
       for (int p = 0; p < K16_AT / 16; ++p) {
         uint32_t pa[4];
         k16_c2a(pa, s[2 * p], s[2 * p + 1]);
-        k16_mma_kn<2>(o, pa, vs[buf], K16_ALD, p, lane);   // vs holds (k = key, n = d)
+        k16_mma_kn<2 * KS>(o, pa, vs + buf * A::TILE, A::ALD, p, lane);   // (k = key, n = d)
       }
     }
     __syncthreads();   // the tiles are read before the next copy into them
   }
   const size_t row0 = (size_t)b * T;
-  k16_head_store(o, 1.f, nullptr, 0, ctx + (size_t)h * hd, H, row0, i0, T, hd, nullptr, g, t);
+  k16_head_store<KS>(o, 1.f, nullptr, 0, ctx + (size_t)h * hd, H, row0, i0, T, hd, nullptr, g,
+                     t);
   if (rden && t == 0)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -2374,20 +2692,24 @@ k16_attn_fwd_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh
 // kernel, the block's float32 column sums of dq to dbp[b tiles + tile]
 // (columns h hd .. of a 3H row). grid (ceil(T / 64), heads, B); with
 // dropout, a word of dynamic shared memory a thread and key tile holds pass
-// 1's keep bits, so that pass 2 does not hash again.
-template <bool DROP>
+// 1's keep bits, so that pass 2 does not hash again. Shared memory: two k
+// and two v tiles, then the keep words.
+template <int KS, bool DROP>
 __global__ void __launch_bounds__(K16_THREADS)
 k16_attn_dq_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh,
                    const bf16_t* __restrict__ vh, const bf16_t* __restrict__ gh,
                    const float* __restrict__ rden, float* __restrict__ seg_out,
                    bf16_t* __restrict__ dqkvb, int ldd, float* __restrict__ dbp, Dropout drop,
                    int T, int TP, int H, int hd, int t_valid, float scale) {
-  __shared__ __align__(16) bf16_t ks[2][K16_AT * K16_ALD], vs[2][K16_AT * K16_ALD];
-  __shared__ float red[K16_WARPS][16];
-  extern __shared__ uint32_t kbits[];
+  using A = K16Att<KS>;
+  __shared__ float red[K16_WARPS][A::DP];
+  extern __shared__ uint4 k16_dyn[];
+  bf16_t* ks = reinterpret_cast<bf16_t*>(k16_dyn);   // [2][TILE]
+  bf16_t* vs = ks + 2 * A::TILE;
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(vs + 2 * A::TILE);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * K16_AT + warp * 16;
-  const size_t bh = (size_t)b * gridDim.y + h, hb = bh * T * 16, si = bh * T;
+  const size_t bh = (size_t)b * gridDim.y + h, hb = bh * T * A::DP, si = bh * T;
   uint32_t hr[2] = {0u, 0u};
   float rd[2];
 #pragma unroll
@@ -2396,21 +2718,21 @@ k16_attn_dq_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh,
     rd[hh] = i < T ? rden[si + i] : 0.f;
     if (DROP) hr[hh] = keep_row(drop, (uint32_t)(b * TP + i));
   }
-  uint32_t qa[1][4], ga[1][4];
-  k16_frag16<1>(qa, qh + hb, 16, i0, T, g, t);
-  k16_frag16<1>(ga, gh + hb, 16, i0, T, g, t);
+  uint32_t qa[KS][4], ga[KS][4];
+  k16_frag16<KS>(qa, qh + hb, A::DP, i0, T, g, t);
+  k16_frag16<KS>(ga, gh + hb, A::DP, i0, T, g, t);
   const int tiles = (t_valid + K16_AT - 1) / K16_AT, steps = 2 * tiles;
   auto load = [&](int st) {
     const int j0 = (st % tiles) * K16_AT;
-    k16_tile_cp(ks[st & 1], kh + hb, j0, t_valid);
-    k16_tile_cp(vs[st & 1], vh + hb, j0, t_valid);
+    k16_tile_cp<KS>(ks + (st & 1) * A::TILE, kh + hb, j0, t_valid);
+    k16_tile_cp<KS>(vs + (st & 1) * A::TILE, vh + hb, j0, t_valid);
   };
   load(0);
   k16_commit();
   float sacc[2] = {0.f, 0.f}, seg[2] = {0.f, 0.f};
-  float dq[2][4];
+  float dq[2 * KS][4];
 #pragma unroll
-  for (int db = 0; db < 2; ++db)
+  for (int db = 0; db < 2 * KS; ++db)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[db][e] = 0.f;
   for (int st = 0; st < steps; ++st) {
@@ -2432,8 +2754,11 @@ k16_attn_dq_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh,
     for (int nb = 0; nb < K16_AT / 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-    k16_mma_nk<K16_AT / 8>(s, qa[0], ks[buf], K16_ALD, 0, lane);
-    k16_mma_nk<K16_AT / 8>(dp, ga[0], vs[buf], K16_ALD, 0, lane);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      k16_mma_nk<K16_AT / 8>(s, qa[kk], ks + buf * A::TILE, A::ALD, kk, lane);
+      k16_mma_nk<K16_AT / 8>(dp, ga[kk], vs + buf * A::TILE, A::ALD, kk, lane);
+    }
     uint32_t* kw = kbits + (st % tiles) * K16_THREADS + threadIdx.x;
     uint32_t bits = DROP && !pass1 ? *kw : 0u;
 #pragma unroll
@@ -2457,12 +2782,12 @@ k16_attn_dq_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh,
       for (int p = 0; p < K16_AT / 16; ++p) {
         uint32_t da[4];
         k16_c2a(da, s[2 * p], s[2 * p + 1]);
-        k16_mma_kn<2>(dq, da, ks[buf], K16_ALD, p, lane);   // ks holds (k = key, n = d)
+        k16_mma_kn<2 * KS>(dq, da, ks + buf * A::TILE, A::ALD, p, lane);   // (k = key, n = d)
       }
     __syncthreads();
   }
   const size_t row0 = (size_t)b * T, col = (size_t)h * hd;
-  k16_head_store(dq, scale, dqkvb + col, ldd, nullptr, 0, row0, i0, T, hd, red[warp], g, t);
+  k16_head_store<KS>(dq, scale, dqkvb + col, ldd, nullptr, 0, row0, i0, T, hd, red[warp], g, t);
   if (t == 0)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -2484,33 +2809,37 @@ k16_attn_dq_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh,
 // (0 for a key >= t_valid), ds = bf16(p (dp keep - seg)), pd = bf16(p keep);
 // dk = sum_i ds bf16(q scale), dv = sum_i pd bf16(dctx) on mma. Both go to
 // dqkvb (columns H + h hd .., 2H + h hd ..), their column sums to dbp.
-template <bool DROP>
+// Shared memory: two q and two dctx tiles.
+template <int KS, bool DROP>
 __global__ void __launch_bounds__(K16_THREADS)
 k16_attn_dkv_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh,
                     const bf16_t* __restrict__ vh, const bf16_t* __restrict__ gh,
                     const float* __restrict__ rden, const float* __restrict__ seg,
                     bf16_t* __restrict__ dqkvb, int ldd, float* __restrict__ dbp, Dropout drop,
                     int T, int TP, int H, int hd, int t_valid) {
-  __shared__ __align__(16) bf16_t qs[2][K16_AT * K16_ALD], gs[2][K16_AT * K16_ALD];
+  using A = K16Att<KS>;
+  extern __shared__ uint4 k16_dyn[];
+  bf16_t* qs = reinterpret_cast<bf16_t*>(k16_dyn);   // [2][TILE]
+  bf16_t* gs = qs + 2 * A::TILE;
   __shared__ float rs[2][K16_AT], sg[2][K16_AT];
-  __shared__ float red[2][K16_WARPS][16];
+  __shared__ float red[2][K16_WARPS][A::DP];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * K16_AT + warp * 16;
-  const size_t bh = (size_t)b * gridDim.y + h, hb = bh * T * 16, si = bh * T;
-  uint32_t ka[1][4], va[1][4];
-  k16_frag16<1>(ka, kh + hb, 16, j0, t_valid, g, t);
-  k16_frag16<1>(va, vh + hb, 16, j0, t_valid, g, t);
+  const size_t bh = (size_t)b * gridDim.y + h, hb = bh * T * A::DP, si = bh * T;
+  uint32_t ka[KS][4], va[KS][4];
+  k16_frag16<KS>(ka, kh + hb, A::DP, j0, t_valid, g, t);
+  k16_frag16<KS>(va, vh + hb, A::DP, j0, t_valid, g, t);
   const bool live[2] = {j0 + g < t_valid, j0 + g + 8 < t_valid};
-  float dk[2][4], dv[2][4];
+  float dk[2 * KS][4], dv[2 * KS][4];
 #pragma unroll
-  for (int db = 0; db < 2; ++db)
+  for (int db = 0; db < 2 * KS; ++db)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[db][e] = dv[db][e] = 0.f;
   const int tiles = (T + K16_AT - 1) / K16_AT;
   auto load = [&](int n) {   // queries past T: zero rows, rden = seg = 0 (p = 0)
     const int c0 = n * K16_AT, buf = n & 1, r = threadIdx.x & (K16_AT - 1);
-    k16_tile_cp(qs[buf], qh + hb, c0, T);
-    k16_tile_cp(gs[buf], gh + hb, c0, T);
+    k16_tile_cp<KS>(qs + buf * A::TILE, qh + hb, c0, T);
+    k16_tile_cp<KS>(gs + buf * A::TILE, gh + hb, c0, T);
     const bool ok = c0 + r < T;
     if (threadIdx.x < K16_AT) k16_cp4(&rs[buf][r], ok ? rden + si + c0 + r : rden, ok);
     else k16_cp4(&sg[buf][r], ok ? seg + si + c0 + r : seg, ok);
@@ -2528,8 +2857,11 @@ k16_attn_dkv_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh
     for (int nb = 0; nb < K16_AT / 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[nb][e] = dpt[nb][e] = 0.f;
-    k16_mma_nk<K16_AT / 8>(st, ka[0], qs[buf], K16_ALD, 0, lane);
-    k16_mma_nk<K16_AT / 8>(dpt, va[0], gs[buf], K16_ALD, 0, lane);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      k16_mma_nk<K16_AT / 8>(st, ka[kk], qs + buf * A::TILE, A::ALD, kk, lane);
+      k16_mma_nk<K16_AT / 8>(dpt, va[kk], gs + buf * A::TILE, A::ALD, kk, lane);
+    }
 #pragma unroll
     for (int nb = 0; nb < K16_AT / 8; ++nb) {
       const int c = 8 * nb + 2 * t;   // the tile's queries c, c + 1
@@ -2552,18 +2884,19 @@ k16_attn_dkv_kernel(const bf16_t* __restrict__ qh, const bf16_t* __restrict__ kh
       uint32_t sa[4], pa[4];
       k16_c2a(sa, st[2 * p], st[2 * p + 1]);
       k16_c2a(pa, dpt[2 * p], dpt[2 * p + 1]);
-      k16_mma_kn<2>(dk, sa, qs[buf], K16_ALD, p, lane);   // qs, gs hold (k = query, n = d)
-      k16_mma_kn<2>(dv, pa, gs[buf], K16_ALD, p, lane);
+      k16_mma_kn<2 * KS>(dk, sa, qs + buf * A::TILE, A::ALD, p, lane);   // (k = query, n = d)
+      k16_mma_kn<2 * KS>(dv, pa, gs + buf * A::TILE, A::ALD, p, lane);
     }
     __syncthreads();
   }
   const size_t row0 = (size_t)b * T, col = (size_t)h * hd;
-  k16_head_store(dk, 1.f, dqkvb + H + col, ldd, nullptr, 0, row0, j0, T, hd, red[0][warp], g, t);
-  k16_head_store(dv, 1.f, dqkvb + 2 * H + col, ldd, nullptr, 0, row0, j0, T, hd, red[1][warp], g,
-                 t);
+  k16_head_store<KS>(dk, 1.f, dqkvb + H + col, ldd, nullptr, 0, row0, j0, T, hd, red[0][warp], g,
+                     t);
+  k16_head_store<KS>(dv, 1.f, dqkvb + 2 * H + col, ldd, nullptr, 0, row0, j0, T, hd,
+                     red[1][warp], g, t);
   __syncthreads();
-  if (threadIdx.x < 2 * hd) {
-    const int which = threadIdx.x / hd, d = threadIdx.x % hd;
+  for (int e = threadIdx.x; e < 2 * hd; e += K16_THREADS) {
+    const int which = e / hd, d = e % hd;
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < K16_WARPS; ++w) sum += red[which][w][d];
@@ -2622,9 +2955,10 @@ struct K16FwdScratch {
     w2b = off; off += k16_half((long long)H * F);
     wqkv = off; off += k16_half(3LL * H * K16_KP);
     wo = off; off += k16_half((long long)H * K16_KP);
-    qh = off; off += k16_half(BHT * 16);
-    kh = off; off += k16_half(BHT * 16);
-    vh = off; off += k16_half(BHT * 16);
+    const long long BHTD = BHT * 16 * k16_ks(H / heads);
+    qh = off; off += k16_half(BHTD);
+    kh = off; off += k16_half(BHTD);
+    vh = off; off += k16_half(BHTD);
     total = off;
   }
 };
@@ -2637,11 +2971,57 @@ static bool k16_bad_dims(int T, int H, int F, int heads, int t_valid, int TP) {
   return bert_bad_dims(T, H, F, heads, t_valid, TP) || H > K16_KP || 3 * H > K16_K3P;
 }
 
-#define K16_DISPATCH(on, KERNEL, GRID, ...)                                        \
-  do {                                                                             \
-    if (on) KERNEL<true><<<GRID, K16_THREADS, 0, stream>>>(__VA_ARGS__);           \
-    else KERNEL<false><<<GRID, K16_THREADS, 0, stream>>>(__VA_ARGS__);             \
-    CK(cudaGetLastError());                                                        \
+// Launch KERNEL<KS, drop.on> with SMEM bytes of dynamic shared memory (the
+// opt-in counts up to 4 KB of the kernels' static arrays beside it).
+#define K16_ATT_LAUNCH(KERNEL, GRID, SMEM, ...)                                           \
+  do {                                                                                    \
+    if (drop.on) {                                                                        \
+      CK(allow_smem(KERNEL<KS, true>, (SMEM) + 4096));                                    \
+      KERNEL<KS, true><<<GRID, K16_THREADS, SMEM, stream>>>(__VA_ARGS__);                 \
+    } else {                                                                              \
+      CK(allow_smem(KERNEL<KS, false>, (SMEM) + 4096));                                   \
+      KERNEL<KS, false><<<GRID, K16_THREADS, SMEM, stream>>>(__VA_ARGS__);                \
+    }                                                                                     \
+    CK(cudaGetLastError());                                                               \
+  } while (0)
+
+// The mm16 attention forward over the head-major copies at KS k16 steps.
+template <int KS>
+static int k16_attention_fwd(const bf16_t* qh, const bf16_t* kh, const bf16_t* vh, float* ctx,
+                             float* rden, const Dropout& drop, int B, int T, int TP, int H,
+                             int heads, int t_valid, cudaStream_t stream) {
+  const dim3 grid((T + K16_AT - 1) / K16_AT, heads, B);
+  K16_ATT_LAUNCH(k16_attn_fwd_kernel, grid, 4 * K16Att<KS>::TILE_BYTES, qh, kh, vh, ctx, rden,
+                 drop, T, TP, H, H / heads, t_valid);
+  return (int)cudaSuccess;
+}
+
+// The mm16 attention backward at KS k16 steps: dq (and seg), then dk, dv.
+template <int KS>
+static int k16_attention_bwd(const bf16_t* qh, const bf16_t* kh, const bf16_t* vh,
+                             const bf16_t* gh, const float* rden, float* seg, bf16_t* dqkvb,
+                             int ldd, float* dbp, const Dropout& drop, int B, int T, int TP,
+                             int H, int heads, int t_valid, float scale, cudaStream_t stream) {
+  const int tiles_q = (T + K16_AT - 1) / K16_AT, hd = H / heads;
+  const dim3 grid(tiles_q, heads, B);
+  const size_t tiles = 4 * K16Att<KS>::TILE_BYTES;
+  const size_t kb = drop.on ? (size_t)tiles_q * K16_THREADS * sizeof(uint32_t) : 0;
+  K16_ATT_LAUNCH(k16_attn_dq_kernel, grid, tiles + kb, qh, kh, vh, gh, rden, seg, dqkvb, ldd,
+                 dbp, drop, T, TP, H, hd, t_valid, scale);
+  K16_ATT_LAUNCH(k16_attn_dkv_kernel, grid, tiles, qh, kh, vh, gh, rden, seg, dqkvb, ldd, dbp,
+                 drop, T, TP, H, hd, t_valid);
+  return (int)cudaSuccess;
+}
+
+// FN<KS>(args) at the KS of the head dim hd; returns its error if any.
+#define K16_BY_KS(FN, ...)                                                  \
+  do {                                                                      \
+    const int ks_ = k16_ks(hd);                                             \
+    const int e_ = ks_ == 1   ? FN<1>(__VA_ARGS__)                          \
+                   : ks_ == 2 ? FN<2>(__VA_ARGS__)                          \
+                   : ks_ == 3 ? FN<3>(__VA_ARGS__)                          \
+                              : FN<6>(__VA_ARGS__);                         \
+    if (e_ != (int)cudaSuccess) return e_;                                  \
   } while (0)
 
 // The mm16 form of bert_layer_forward: same arguments, layouts, dropout
@@ -2705,9 +3085,8 @@ extern "C" int bert_layer_forward16(const float* x, const void* const* params, f
     hp.dst[j] = dst[j];
   }
   CK(k16_heads(hp, 3, B, T, H, heads, stream));
-  const dim3 grid_attn((T + K16_AT - 1) / K16_AT, heads, B);
-  K16_DISPATCH(d_attn.on, k16_attn_fwd_kernel, grid_attn, qh, kh, vh, ctx, rden, d_attn, T, TP,
-               H, hd, t_valid);
+  K16_BY_KS(k16_attention_fwd, qh, kh, vh, ctx, rden, d_attn, B, T, TP, H, heads, t_valid,
+            stream);
   // x1 = LN1((ctx Wo^T + bo) * m0 + x)
   r = {};
   r.a32 = ctx; r.lda = H; r.M = M; r.N = H; r.K = H; r.ldc = H;
@@ -2779,10 +3158,11 @@ struct K16BwdScratch {
     w2b = off; off += k16_half((long long)H * F);
     wot = off; off += k16_half((long long)H * K16_KP);
     wqkvt = off; off += k16_half((long long)H * K16_K3P);
-    qh = off; off += k16_half(BHT * 16);
-    kh = off; off += k16_half(BHT * 16);
-    vh = off; off += k16_half(BHT * 16);
-    gh = off; off += k16_half(BHT * 16);
+    const long long BHTD = BHT * 16 * k16_ks(H / heads);
+    qh = off; off += k16_half(BHTD);
+    kh = off; off += k16_half(BHTD);
+    vh = off; off += k16_half(BHTD);
+    gh = off; off += k16_half(BHTD);
     total = off;
   }
 };
@@ -2875,19 +3255,8 @@ extern "C" int bert_layer_backward16(const float* x, const float* resid, const f
   }
   hp.src16[3] = dctxb;
   CK(k16_heads(hp, 4, B, T, H, heads, stream));
-  const dim3 grid_attn(L.tiles_q, heads, B);
-  if (d_attn.on) {
-    const size_t kb = (size_t)L.tiles_q * K16_THREADS * sizeof(uint32_t);
-    CK(allow_smem(k16_attn_dq_kernel<true>, kb + 16384));   // beside ~12.5 KB of static
-    k16_attn_dq_kernel<true><<<grid_attn, K16_THREADS, kb, stream>>>(
-        qh, kh, vh, gh, rden, seg, dqkvb, K16_K3P, dbp, d_attn, T, TP, H, hd, t_valid, scale);
-  } else {
-    k16_attn_dq_kernel<false><<<grid_attn, K16_THREADS, 0, stream>>>(
-        qh, kh, vh, gh, rden, seg, dqkvb, K16_K3P, dbp, d_attn, T, TP, H, hd, t_valid, scale);
-  }
-  CK(cudaGetLastError());
-  K16_DISPATCH(d_attn.on, k16_attn_dkv_kernel, grid_attn, qh, kh, vh, gh, rden, seg, dqkvb,
-               K16_K3P, dbp, d_attn, T, TP, H, hd, t_valid);
+  K16_BY_KS(k16_attention_bwd, qh, kh, vh, gh, rden, seg, dqkvb, K16_K3P, dbp, d_attn, B, T, TP,
+            H, heads, t_valid, scale, stream);
 
   // ---- the four dW products in one launch ---------------------------------
   K16Tn tn = {};
@@ -3453,7 +3822,7 @@ static cudaError_t t32_forward(const float* x, const float* const* p, float* scr
 // the backward consumes, and the dropout draws (attention 3 at attn_rate,
 // hidden 0 and 1 at hidden_rate, from seed) use the JAX kernel's padded
 // coordinates with TP = round_up(T, 8) rows a subject. Inference: resid
-// NULL and both rates 0. Needs H <= 96, H / heads <= 16 and F % 32 == 0.
+// NULL and both rates 0. Needs H <= 96, heads dividing H and F % 32 == 0.
 // Returns the cudaError_t of the first launch that fails, or of the last.
 extern "C" int bert_layer_forward(const float* x, const void* const* params, float* scratch,
                                   float* resid, float* out, int B, int T, int H, int F,

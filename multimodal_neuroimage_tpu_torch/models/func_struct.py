@@ -26,8 +26,8 @@ BERT has 128 + 1 positions, fed by ``TimeProj(128)`` under
   bottleneck on the struct.
 
 With ``use_unet_loss`` the UNet models also return ``fMRI_input``,
-``fMRI_output``, ``struct_input`` and ``struct_output`` (the UNet loss
-itself is ROADMAP M10 and raises in train/losses.py). ``forward(batch,
+``fMRI_output``, ``struct_input`` and ``struct_output``, which
+train/losses.py ``unet_loss`` reads. ``forward(batch,
 generator)``: in training (``model.train()``) every dropout seed and
 DropPath factor is drawn from the host ``generator`` in module order; at
 inference the generator is unused.

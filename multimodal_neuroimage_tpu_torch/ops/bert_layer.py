@@ -400,9 +400,8 @@ def _check(x, params, heads, t_valid):
                                     (H, F_), (H,), (H,), (H,)])
     for i, (p, s) in enumerate(zip(params, shapes)):
         build.check_cuda_f32(f"params[{i}]", p, s)
-    if (H > 96 or H % heads or H // heads > 16 or F_ % 32
-            or not 1 <= t_valid <= T):
-        raise ValueError(f"BERT kernel needs H <= 96, head dim <= 16, "
+    if H > 96 or H % heads or F_ % 32 or not 1 <= t_valid <= T:
+        raise ValueError(f"BERT kernel needs H <= 96, heads dividing H, "
                          f"F % 32 == 0 and 1 <= t_valid <= T; got H={H}, "
                          f"heads={heads}, F={F_}, t_valid={t_valid}, T={T}")
     return B, T, H, F_

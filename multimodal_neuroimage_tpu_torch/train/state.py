@@ -181,38 +181,101 @@ def weights_at(model: torch.nn.Module, compute_dtype: str):
     return bf16_weights(model.parameters())
 
 
+def top_level_segments(model: torch.nn.Module) -> Dict[str, list]:
+    """Each top-level module's runs of its parameters in
+    ``model.parameters()`` order, as (offset, numel) into a flat buffer of
+    them (``FusedAdam``'s, ``flatten_parameters``'), keyed by the first
+    component of the parameter's name: the JAX model's top-level name,
+    which utils/jax_import.py maps every tree to unchanged."""
+    segs: Dict[str, list] = {}
+    off = 0
+    for name, p in model.named_parameters():
+        top, n = name.split(".")[0], p.numel()
+        runs = segs.setdefault(top, [])
+        if runs and runs[-1][0] + runs[-1][1] == off:
+            runs[-1] = (runs[-1][0], runs[-1][1] + n)
+        else:
+            runs.append((off, n))
+        off += n
+    return segs
+
+
+def _segment_norm(flat: torch.Tensor, runs) -> torch.Tensor:
+    """The L2 norm of ``flat``'s runs, summed in float64 (a float32 sum of
+    a module's 30 M squares on the CPU drifts by 0.2%), as float32."""
+    sq = [torch.linalg.vector_norm(flat[o:o + n], dtype=torch.float64)
+          for o, n in runs]
+    return (sq[0] if len(sq) == 1
+            else torch.stack(sq).square().sum().sqrt()).float()
+
+
+def param_grad_norms(segments: Mapping[str, list], params: torch.Tensor,
+                     grads: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """JAX ``param_grad_norms`` (the reference's ``wandb.watch``,
+    trainer.py:94-97) over flat parameter and gradient buffers: the global
+    gradient norm and each top-level module's parameter and gradient L2
+    norms (``top_level_segments``), as device scalars, keyed as JAX's
+    (``grad/global``, ``param/<top>``, ``grad/<top>``) in the sorted order
+    its jitted step returns them in."""
+    norms = {"grad/global": _segment_norm(grads, [(0, grads.numel())])}
+    for top, runs in segments.items():
+        norms[f"param/{top}"] = _segment_norm(params, runs)
+        norms[f"grad/{top}"] = _segment_norm(grads, runs)
+    return dict(sorted(norms.items()))
+
+
 def make_train_step(model: torch.nn.Module, loss_specs: Dict[str, LossSpec],
                     optimizer: FusedAdam, compute_dtype: str = "float32",
-                    device="cuda") -> Callable:
-    """fn(batch, generator) -> (losses, preds): one optimizer step at
-    ``compute_dtype`` (module docstring). The forward draws every dropout
-    seed and DropPath factor from ``generator`` (a host torch.Generator),
-    so the same generator state gives the same step on the CPU and on the
-    card. Float32 products run in full float32 (no TF32 in matmuls or cuDNN
-    convolutions)."""
-    check_compute_dtype(compute_dtype)
+                    device="cuda", extra_loss_fns=None,
+                    norms_every: int = 0) -> Callable:
+    """fn(batch, generator, step=0) -> (losses, preds, norms): one optimizer step
+    at ``compute_dtype`` (module docstring). The forward draws every
+    dropout seed and DropPath factor from ``generator`` (a host
+    torch.Generator), and the perceptual loss (``extra_loss_fns``) its
+    slices, so the same generator state gives the same step on the CPU and
+    on the card. Float32 products run in full float32 (no TF32 in matmuls
+    or cuDNN convolutions). The losses come keyed in sorted order, as JAX's
+    jitted step returns them.
 
-    def train_step(batch: Mapping, generator: torch.Generator):
+    ``norms`` is ``param_grad_norms`` of the step's gradients (bf16-rounded
+    under that policy) and the parameters before the update, reduced on the
+    device only where ``norms_every`` > 0 and ``(step + 1) % norms_every ==
+    0`` (JAX's ``lax.cond``; ``step`` the count of train steps before this
+    one), else None."""
+    check_compute_dtype(compute_dtype)
+    segments = top_level_segments(model) if norms_every > 0 else None
+
+    def train_step(batch: Mapping, generator: torch.Generator,
+                   step: int = 0):
         model.train()
         set_compute_policy(compute_dtype)
         inputs = batch_to_device(batch, device)
         optimizer.zero_grad()
         with full_f32(), weights_at(model, compute_dtype):
             outputs = forward_at(model, inputs, compute_dtype, generator)
-            losses = compute_losses(outputs, inputs, loss_specs)
+            losses = compute_losses(outputs, inputs, loss_specs,
+                                    extra_loss_fns, generator)
             losses["total"].backward()
         if compute_dtype == "bfloat16":
             round_grads(optimizer.grads)
+        norms = None
+        if norms_every > 0 and (step + 1) % norms_every == 0:
+            with torch.no_grad():
+                norms = param_grad_norms(segments, optimizer.params,
+                                         optimizer.grads)
         optimizer.step()
-        return ({k: v.detach() for k, v in losses.items()},
-                {k: outputs[k].detach() for k in HEADS if k in outputs})
+        return ({k: v.detach() for k, v in sorted(losses.items())},
+                {k: outputs[k].detach() for k in HEADS if k in outputs},
+                norms)
 
     return train_step
 
 
 def make_eval_step(model: torch.nn.Module, loss_specs: Dict[str, LossSpec],
-                   compute_dtype: str = "float32", device="cuda") -> Callable:
-    """fn(batch) -> (losses, preds) with dropout off."""
+                   compute_dtype: str = "float32", device="cuda",
+                   extra_loss_fns=None) -> Callable:
+    """fn(batch) -> (losses, preds) with dropout off (the perceptual loss's
+    slices at its fixed seed, as JAX's eval step draws them)."""
     check_compute_dtype(compute_dtype)
 
     @torch.no_grad()
@@ -220,9 +283,12 @@ def make_eval_step(model: torch.nn.Module, loss_specs: Dict[str, LossSpec],
         model.eval()
         set_compute_policy(compute_dtype)
         inputs = batch_to_device(batch, device)
-        with full_f32(), weights_at(model, compute_dtype):
-            outputs = forward_at(model, inputs, compute_dtype)
-        losses = compute_losses(outputs, inputs, loss_specs)
-        return losses, {k: outputs[k] for k in HEADS if k in outputs}
+        with full_f32():
+            with weights_at(model, compute_dtype):
+                outputs = forward_at(model, inputs, compute_dtype)
+            losses = compute_losses(outputs, inputs, loss_specs,
+                                    extra_loss_fns)
+        return (dict(sorted(losses.items())),
+                {k: outputs[k] for k in HEADS if k in outputs})
 
     return eval_step

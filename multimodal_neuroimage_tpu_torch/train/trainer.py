@@ -40,8 +40,22 @@ checkpoint; a run repeats exactly, and a resumed run repeats the
 uninterrupted one (at ``augment_prob`` 0: the augmentation draws from its
 own generator in the loader's threads).
 
-Not here yet, each with its ROADMAP item: Optuna, the writer and grad-norm
-logging (M13), multi-GPU (M11).
+The run's outer shell is the JAX Trainer's: the losses of every step go
+to a ``Writer`` (obs/writer.py) in the experiment folder (else
+``cfg.log_dir``), which keeps the one record of them (running windows of
+``running_mean_size`` train steps, a history an epoch) and writes
+``full_scores.csv`` and ``per_subject_predictions/iter_N.txt`` (and wandb
+where ``use_wandb`` asks and the package imports; no TensorBoard); with
+``log_grad_norms_every`` N > 0 every N-th step's per-module parameter and
+gradient norms join them (train/state.py ``param_grad_norms``);
+``validation_frequency`` validates mid-epoch; ``profiling`` cuts the run
+to 1 epoch and ``PROFILING_MAX_BATCHES`` batches a split, and
+``profile_dir`` traces the run (obs/profiling.py ``profile_trace``: CPU and
+CUDA activity, a Chrome trace); the task's
+auxiliary losses all run, the perceptual one through
+nn/perceptual.py's ``PerceptualLoss``; ``optuna_trial`` (set by
+hpo/optuna_harness.py) is told each epoch's objective and may prune the
+run. Not here yet: multi-GPU (ROADMAP M11).
 ``cfg.compute_dtype`` reaches the train, eval and predict steps (the bf16
 policy of train/state.py; HCP's K6 route keeps a bf16 stream through K6's
 bf16 form); the float32 masters, checkpoints and K5 are the same under
@@ -66,9 +80,14 @@ from multimodal_neuroimage_tpu_torch.evaluation.metrics import (
     SubjectAccumulator)
 from multimodal_neuroimage_tpu_torch.models.registry import (
     create_model, init_random_weights)
+from multimodal_neuroimage_tpu_torch.obs.profiling import (profile_trace,
+                                                           trace_annotation)
+from multimodal_neuroimage_tpu_torch.obs.writer import Writer
 from multimodal_neuroimage_tpu_torch.train.losses import active_losses
 from multimodal_neuroimage_tpu_torch.train.state import (
     make_eval_step, make_train_step, optimizer_from_config)
+
+PROFILING_MAX_BATCHES = 10  # --profiling cap (reference trainer.py:434-437)
 
 
 class Trainer:
@@ -108,28 +127,54 @@ class Trainer:
         self.loss_specs = active_losses(
             cfg.task, cfg.fine_tune_task, use_merge_loss=cfg.use_merge_loss,
             use_unet_loss=cfg.use_unet_loss, use_cont_loss=cfg.use_cont_loss,
-            use_mask_loss=cfg.use_mask_loss)
+            use_mask_loss=cfg.use_mask_loss,
+            intensity_factor=cfg.intensity_factor,
+            perceptual_factor=cfg.perceptual_factor,
+            reconstruction_factor=cfg.reconstruction_factor)
+        self.extra_loss_fns = None
+        if "perceptual" in self.loss_specs:
+            from multimodal_neuroimage_tpu_torch.nn.perceptual import (
+                PerceptualLoss)
+            self.extra_loss_fns = {"perceptual": PerceptualLoss(
+                task=cfg.task, weights_npz=cfg.vgg_weights_npz or None,
+                seed=cfg.seed, device=device)}
         self.optimizer = None
         if training:
             self.optimizer, self.schedule = optimizer_from_config(
                 cfg, self.model.parameters(), steps)
             self.train_step = make_train_step(
                 self.model, self.loss_specs, self.optimizer,
-                cfg.compute_dtype, device)
+                cfg.compute_dtype, device, self.extra_loss_fns,
+                cfg.log_grad_norms_every)
             if resumed is not None:
                 self._resume_optimizer(resumed)
         self.eval_step = make_eval_step(self.model, self.loss_specs,
-                                        cfg.compute_dtype, device)
+                                        cfg.compute_dtype, device,
+                                        self.extra_loss_fns)
+        wandb_kwargs = {"project": cfg.wandb_project, "mode": cfg.wandb_mode,
+                        "name": cfg.experiment_title or cfg.exp_name}
+        if cfg.wandb_entity:
+            wandb_kwargs["entity"] = cfg.wandb_entity
+        if cfg.wandb_key:
+            os.environ.setdefault("WANDB_API_KEY", cfg.wandb_key)
+        self.writer = Writer(folder, self.sets, cfg.running_mean_size,
+                             use_wandb=cfg.use_wandb,
+                             wandb_kwargs=wandb_kwargs)
         self.accumulator = SubjectAccumulator(cfg.fine_tune_task)
         self.ckpt_policy = BestCheckpointPolicy(
             folder, cfg.experiment_title or cfg.exp_name, cfg.fine_tune_task)
         self.ckpt_policy.resume()
         self.pred_key = cfg.fine_tune_task
-        self.loss_history: Dict[str, List[float]] = {"train": [], "val": [],
-                                                     "test": []}
-        self.step_losses: List[float] = []
+        self.optuna_trial = None  # set by hpo/optuna_harness.py
         self.nan_subjects: Dict[str, set] = {}
         self._audit_queue: List[Tuple[List, Dict]] = []
+
+    @property
+    def step_losses(self) -> List[float]:
+        """The total loss of each train step in the Writer's running window
+        (the last ``running_mean_size`` steps of this Trainer)."""
+        self.writer.fetch()
+        return [float(v) for v, _ in self.writer.loss_values["total_train"]]
 
     def _restore_weights(self, folder: str) -> Optional[Dict]:
         """JAX ``Trainer._restore_weights``: resume from the newest
@@ -215,62 +260,113 @@ class Trainer:
                           f"{names}")
         self._audit_queue = []
 
-    def train_epoch(self, epoch: int) -> float:
-        totals = []
-        for batch, names in self.batches("train", epoch, shuffle=True):
-            losses, preds = self.train_step(batch, self.generator)
+    def train_epoch(self, epoch: int) -> None:
+        """One pass over the train split (``PROFILING_MAX_BATCHES`` batches
+        under ``profiling``): each step's losses to the Writer, the norms
+        of every ``log_grad_norms_every``-th step after them, a validation
+        every ``validation_frequency`` batches (reference
+        trainer.py:439-453)."""
+        cfg = self.cfg
+        for i, (batch, names) in enumerate(
+                self.batches("train", epoch, shuffle=True)):
+            with trace_annotation("train_step"):
+                losses, preds, norms = self.train_step(
+                    batch, self.generator, self.global_step)
             self.global_step += 1
             self._audit_nans(losses, names)
-            totals.append(float(losses["total"]))
+            self.writer.write_losses(losses, "train")
+            if norms is not None:
+                self.writer.write_norms(norms, self.writer.total_train_steps)
             self._record(preds, batch, names, "train")
-        self.step_losses.extend(totals)
-        return float(np.mean(totals))
+            if (i + 1) % cfg.validation_frequency == 0:
+                self.eval_epoch("val")
+                self._flush_nan_audit()
+                metrics = self.accumulator.summary(
+                    ["train", "val"], val_threshold=self.val_threshold)
+                self.writer.record_metrics(metrics)
+                self.accumulator.reset(keep_mode="train")
+            if cfg.profiling and i + 1 >= PROFILING_MAX_BATCHES:
+                break
 
-    def eval_epoch(self, mode: str = "val") -> float:
-        """Mean loss over the split's subjects (each batch's loss excludes
-        its pad rows and is weighted by its real ones)."""
-        totals, weights = [], []
-        for batch, names in self.batches(mode):
-            losses, preds = self.eval_step(batch)
+    def eval_epoch(self, mode: str = "val") -> None:
+        """One pass over an eval split (``PROFILING_MAX_BATCHES`` batches
+        under ``profiling``); each batch's losses, which exclude its pad
+        rows, go to the Writer weighted by its share of real rows."""
+        for i, (batch, names) in enumerate(self.batches(mode)):
+            with trace_annotation("eval_step"):
+                losses, preds = self.eval_step(batch)
             self._audit_nans(losses, names)
-            totals.append(float(losses["total"]))
-            weights.append(sum(n is not None for n in names))
+            w = sum(n is not None for n in names) / max(len(names), 1)
+            self.writer.write_losses(losses, mode, weight=w)
             self._record(preds, batch, names, mode)
-        return (float(np.average(totals, weights=weights)) if totals
-                else math.nan)
+            if self.cfg.profiling and i + 1 >= PROFILING_MAX_BATCHES:
+                break
 
     def training(self) -> Dict[str, float]:
         """The epoch loop from ``epoch0`` (after a resume, the epoch after
-        the checkpoint's); returns the last epoch's metric summary."""
+        the checkpoint's; one epoch under ``profiling``), traced into
+        ``profile_dir`` when set; returns the last epoch's metric
+        summary."""
+        cfg = self.cfg
+        n_epochs = 1 if cfg.profiling else cfg.nEpochs
         metrics: Dict[str, float] = {}
-        for epoch in range(self.epoch0, self.cfg.nEpochs):
-            t0 = time.time()
-            self.loss_history["train"].append(self.train_epoch(epoch))
-            self.loss_history["val"].append(self.eval_epoch("val"))
-            self._flush_nan_audit()
-            metrics = self.accumulator.summary(
-                ["train", "val"], val_threshold=self.val_threshold)
-            self.accumulator.reset()
-            self._checkpoint(epoch, metrics)
-            print(f"epoch {epoch}: train loss "
-                  f"{self.loss_history['train'][-1]:.4f}, val loss "
-                  f"{self.loss_history['val'][-1]:.4f}, "
-                  f"val_AUROC {metrics.get('val_AUROC', float('nan')):.4f} "
-                  f"({time.time() - t0:.1f} s)")
+        with profile_trace(cfg.profile_dir, self.device):
+            for epoch in range(self.epoch0, n_epochs):
+                t0 = time.time()
+                self.train_epoch(epoch)
+                self.eval_epoch("val")
+                lr = float(self.schedule(self.global_step))
+                means = self.writer.loss_summary(lr)
+                self._flush_nan_audit()
+                metrics = self.accumulator.summary(
+                    ["train", "val"], val_threshold=self.val_threshold)
+                self.writer.write_subject_predictions(self.accumulator)
+                self.writer.record_metrics(metrics)
+                self.writer.save_history_to_csv()
+                self.writer.register_wandb(epoch, lr)
+                self.accumulator.reset()
+                self._checkpoint(epoch, metrics)
+                print(f"epoch {epoch}: train loss "
+                      f"{means.get('total_train', math.nan):.4f}, val loss "
+                      f"{means.get('total_val', math.nan):.4f}, val_AUROC "
+                      f"{metrics.get('val_AUROC', math.nan):.4f} "
+                      f"({time.time() - t0:.1f} s)")
+                if self.optuna_trial is not None:
+                    self._optuna_report(epoch, metrics)
         return metrics
+
+    def _optuna_report(self, epoch: int, metrics: Dict[str, float]) -> None:
+        """The epoch's objective to the trial, which may prune the run
+        (reference trainer.py:319-331): ``optuna.TrialPruned`` where optuna
+        imports, else the harness's ``_Pruned``."""
+        from multimodal_neuroimage_tpu_torch.hpo.optuna_harness import (
+            _objective_value, _Pruned)
+        self.optuna_trial.report(
+            _objective_value(self.cfg, metrics, self), epoch)
+        if self.optuna_trial.should_prune():
+            try:
+                import optuna
+            except ImportError:
+                raise _Pruned()
+            raise optuna.TrialPruned()
 
     def testing(self) -> Dict[str, float]:
         """The test split at the restored ``val_threshold`` (JAX
         ``testing``; reference trainer.py:571-582): frozen when a checkpoint
         of this folder was restored, else None and fitted on the test
-        split."""
+        split; the Writer's summary, files and metrics as after an
+        epoch."""
         if "test" not in self.pipeline.splits:
             raise ValueError("no test split: in-memory records give train "
                              "and val only")
-        self.loss_history["test"].append(self.eval_epoch("test"))
+        self.eval_epoch("test")
+        self.writer.loss_summary(0.0)
         self._flush_nan_audit()
         metrics = self.accumulator.summary(
             ["test"], val_threshold=self.val_threshold)
+        self.writer.write_subject_predictions(self.accumulator)
+        self.writer.record_metrics(metrics)
+        self.writer.save_history_to_csv()
         self.accumulator.reset()
         return metrics
 
@@ -287,7 +383,8 @@ class Trainer:
         self.ckpt_policy.update(
             metadata=metadata, val_auroc=metrics.get("val_AUROC"),
             val_acc=metrics.get("val_Balanced_Accuracy"),
-            val_loss=self.loss_history["val"][-1], **state)
+            val_loss=self.writer.loss_history.get(
+                "total_val_loss_history", [None])[-1], **state)
         if self.cfg.save_last_epoch and self.last_folder:
             # the rolling per-epoch file, after the BEST files: the newest
             # file, which a resume reads, is the last completed epoch

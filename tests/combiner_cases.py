@@ -36,6 +36,7 @@ from __graft_entry__ import _example_batch, _flagship_cfg
 from multimodal_neuroimage_tpu.models.registry import create_model as jcreate
 from multimodal_neuroimage_tpu.nn import unet as junet
 from multimodal_neuroimage_tpu.ops import attention as jatt
+from multimodal_neuroimage_tpu.train import losses as jlosses
 from multimodal_neuroimage_tpu.train.state import _cast_tree
 from multimodal_neuroimage_tpu_torch.config import Config
 from multimodal_neuroimage_tpu_torch.models.registry import create_model
@@ -117,15 +118,18 @@ def _bce(logits, target):
                     + jnp.log1p(jnp.exp(-jnp.abs(logits))))
 
 
-def jax_step(jmodel, params, batch, bf16: bool = False):
+def jax_step(jmodel, params, batch, bf16: bool = False, specs=None):
     """JAX's loss_fn (at bf16, ``_cast_tree`` of parameters and of the batch
     as device arrays, the outputs widened, the kernels interpreted) under
-    value_and_grad: loss, outputs, gradients as port state."""
+    value_and_grad: loss, outputs, gradients as port state. The loss is the
+    head's BCE, or with ``specs`` JAX's ``compute_losses`` total."""
     def f(p):
         b = jax.tree_util.tree_map(jnp.asarray, batch)
         if bf16:
             p, b = _cast_tree(p, jnp.bfloat16), _cast_tree(b, jnp.bfloat16)
         out = _cast_tree(jmodel.apply({"params": p}, b), jnp.float32)
+        if specs is not None:
+            return jlosses.compute_losses(out, b, specs)["total"], out
         logits = out["binary_classification"]
         return _bce(logits.squeeze(-1), jnp.asarray(batch["target"])), out
 
@@ -138,7 +142,7 @@ def jax_step(jmodel, params, batch, bf16: bool = False):
     return float(loss), out, jax_params_to_state_dict(grads)
 
 
-def jax_step64(jmodel, params, batch):
+def jax_step64(jmodel, params, batch, specs=None):
     """``jax_step`` in float64 (x64, parameters and batch widened) with the
     UNet's norm widened too (its module computes the statistics in float32
     whatever its input; here its ``jnp.float32`` reads float64): the float64
@@ -152,15 +156,17 @@ def jax_step64(jmodel, params, batch):
             widen = lambda a: (np.asarray(a, np.float64)
                                if np.asarray(a).dtype == np.float32 else a)
             return jax_step(jmodel, jax.tree_util.tree_map(widen, params),
-                            {k: widen(v) for k, v in batch.items()})
+                            {k: widen(v) for k, v in batch.items()},
+                            specs=specs)
     finally:
         junet.jnp = saved
 
 
-def port_step(cfg, port, batch, compute_dtype="float32"):
+def port_step(cfg, port, batch, compute_dtype="float32", specs=None):
     """The port's training forward and backward at ``compute_dtype`` (the
     train step's arithmetic without K5): loss, outputs, gradients (rounded
-    to bf16 under the bf16 policy)."""
+    to bf16 under the bf16 policy). The losses are ``specs``, by default
+    the task's head alone."""
     port.train()
     inputs = batch_to_device(batch, "cpu")
     port.zero_grad()
@@ -169,7 +175,7 @@ def port_step(cfg, port, batch, compute_dtype="float32"):
     with ctx:
         out = forward_at(port, inputs, compute_dtype,
                          torch.Generator().manual_seed(0))
-        loss = compute_losses(out, inputs, active_losses(
+        loss = compute_losses(out, inputs, specs or active_losses(
             cfg.task, cfg.fine_tune_task))["total"]
         loss.backward()
     # a parameter off the loss's path (the MulT net's unused stream under

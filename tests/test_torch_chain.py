@@ -308,7 +308,9 @@ def test_resume_equals_the_uninterrupted_run(tmp_path):
                            getattr(whole.optimizer, k)), k
     assert torch.equal(resumed.generator.get_state(),
                        whole.generator.get_state())
-    assert resumed.loss_history["train"] == whole.loss_history["train"][1:]
+    assert resumed.step_losses == whole.step_losses[3:]
+    key = "total_val_loss_history"
+    assert resumed.writer.loss_history[key] == whole.writer.loss_history[key][1:]
     a = tckpt.load_checkpoint(str(tmp_path / "a" / "t_last_epoch.ckpt"))
     b = tckpt.load_checkpoint(str(tmp_path / "b" / "t_last_epoch.ckpt"))
     assert a["epoch"] == b["epoch"] == 1 and a["step"] == b["step"] == 6

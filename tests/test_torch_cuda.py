@@ -69,8 +69,13 @@ def _ln(gen, c):
 
 
 @pytest.mark.parametrize("B,T,H,heads,F,t_valid", [
-    (2, 37, 28, 4, 64, 37), (3, 45, 28, 4, 96, 30), (1, 369, 84, 12, 3072, 369)])
+    (2, 37, 28, 4, 64, 37), (3, 45, 28, 4, 96, 30), (1, 369, 84, 12, 3072, 369),
+    (2, 45, 84, 4, 96, 40), (2, 70, 84, 3, 64, 66), (1, 45, 84, 1, 96, 45),
+    (2, 37, 48, 2, 64, 37)])
 def test_bert_layer_kernel(dev, B, T, H, heads, F, t_valid):
+    """The float32 inference forward, at the flagship's width and at head
+    dims 21, 28, 84 and 24 (above 16: the wide attention kernel, hd in
+    chunks of 32, keys in tiles of 32)."""
     gen = torch.Generator().manual_seed(T + H)
     p = tuple(t.to(dev) for t in sum((_lin(gen, H, H) for _ in range(4)), [])
               + _ln(gen, H) + _lin(gen, F, H) + _lin(gen, H, F) + _ln(gen, H))
@@ -168,7 +173,8 @@ RATES = (0.25, 0.2)
 @pytest.mark.parametrize("B,T,H,heads,F,t_valid", [
     (2, 37, 28, 4, 64, 37), (3, 45, 28, 4, 96, 30),
     (1, 369, 84, 12, 3072, 369), (16, 369, 84, 12, 3072, 369),
-    (3, 45, 84, 12, 3072, 30)])
+    (3, 45, 84, 12, 3072, 30), (3, 45, 84, 4, 96, 30), (2, 70, 84, 3, 64, 66),
+    (2, 37, 84, 1, 64, 37), (2, 37, 48, 2, 96, 33)])
 def test_bert_layer_backward_kernel(dev, B, T, H, heads, F, t_valid):
     gen = torch.Generator().manual_seed(T + H + 1)
     p = [t.to(dev).requires_grad_() for t in
@@ -1245,13 +1251,16 @@ def _k1_params16(gen, H, F, dev):
 @pytest.mark.parametrize("B,T,H,heads,F,t_valid", [
     (4, 369, 84, 12, 3072, 369), (16, 369, 84, 12, 3072, 369),
     (3, 45, 28, 4, 96, 30), (1, 369, 84, 12, 3072, 300),
-    (64, 369, 84, 12, 3072, 369), (2, 17, 96, 6, 64, 17)])
+    (64, 369, 84, 12, 3072, 369), (2, 17, 96, 6, 64, 17),
+    (3, 45, 84, 4, 96, 30), (2, 130, 84, 1, 64, 100), (2, 70, 48, 2, 64, 66),
+    (2, 70, 84, 3, 96, 70), (1, 45, 96, 2, 64, 45)])
 def test_bert_layer_mm16_kernels(dev, B, T, H, heads, F, t_valid):
     """K1's mm16 form forward (inference) and backward (dropout 0.1) against
     its plain versions: the flagship's full width at batches 1 (keys masked
     past t_valid), 4, 16 and 64, a ragged case (odd head dim, keys masked
-    past t_valid, partial tiles), and head dim 16 at the widest H with F
-    under one slice and T under one tile."""
+    past t_valid, partial tiles), head dim 16 at the widest H with F under
+    one slice and T under one tile, and head dims 21, 84, 24, 28 and 48
+    (2, 6, 2, 2 and 3 k16 steps)."""
     gen = torch.Generator().manual_seed(B * T)
     p = _k1_params16(gen, H, F, dev)
     x, g = (_rand(gen, B, T, H).to(dev) for _ in "xg")

@@ -365,7 +365,7 @@ def test_tiny_flagship_trains_tests_and_serves_from_disk(tiny_cohort,
     assert tester.checkpoint_path == last        # the JAX Trainer's rule
     metrics = tester.testing()
     assert "test_Balanced_Accuracy" in metrics
-    assert len(tester.loss_history["test"]) == 1
+    assert len(tester.writer.loss_history["total_test_loss_history"]) == 1
 
     scores = run_predict(cfg, device="cpu")
     records = tindex.build_subject_index(cfg, require_target=False)

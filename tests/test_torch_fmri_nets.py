@@ -180,9 +180,9 @@ def test_merge_loss_matches_jax(valid):
     got = tlosses.merge_loss(torch.from_numpy(raw), torch.from_numpy(merged),
                              valid=None if v is None else torch.from_numpy(v))
     cc.close(got, want, "merge loss", rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="M10"):
-        active_losses("FuncStruct", "binary_classification",
-                      use_unet_loss=True)
+    assert set(active_losses("FuncStruct", "binary_classification",
+                             use_unet_loss=True)) == {
+        "unet", "binary_classification"}
 
 
 ROUTES = [

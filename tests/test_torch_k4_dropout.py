@@ -145,7 +145,7 @@ def test_tiny_flagship_trains_with_swinv2_attention_dropout():
         step = make_train_step(model, active_losses(cfg.task,
                                                     cfg.fine_tune_task),
                                opt, "float32", "cpu")
-        out, _ = step(batch, torch.Generator().manual_seed(4))
+        out, _, _ = step(batch, torch.Generator().manual_seed(4))
         assert torch.isfinite(out["total"]) and opt.count == 1
         assert all(torch.isfinite(p.grad).all() for p in model.parameters()
                    if p.grad is not None)

@@ -171,9 +171,37 @@ step = make_train_step(model, active_losses("FuncStruct",
                        opt, "float32", "cpu")
 host = {k: v.numpy() for k, v in batch.items()}
 host["target"] = np.asarray([0.0, 1.0], np.float32)
-losses, _ = step(host, torch.Generator().manual_seed(0))
+losses, _, _ = step(host, torch.Generator().manual_seed(0))
 assert torch.isfinite(losses["total"]) and opt.count == 1
 assert metrics.auroc([0, 1, 1], [0.2, 0.9, 0.4]) == 1.0
+
+# one CPU training step of FuncStructUNetAdd with the UNet loss, its
+# losses and grad norms through the Writer into full_scores.csv
+import csv
+import tempfile
+from multimodal_neuroimage_tpu_torch.obs.writer import Writer
+ucfg = Config(task="FuncStruct", dataset_name="multimodal", use_unet=True,
+              multimodality_type="add", use_unet_loss=True,
+              transformer_hidden_layers=1, bert_intermediate_size=32,
+              num_heads_2DBert=4, intermediate_vec=48, size_of_model="small",
+              compute_dtype="float32", preprocess="host").validate()
+unet = init_random_weights(create_model(ucfg), torch.Generator().manual_seed(0))
+opt = create_optimizer("AdamW", unet.parameters(), lambda t: 1e-3, 1e-5)
+specs = active_losses("FuncStruct", "binary_classification",
+                      use_unet_loss=True)
+step = make_train_step(unet, specs, opt, "float32", "cpu", norms_every=1)
+losses, _, norms = step(host, torch.Generator().manual_seed(0))
+assert set(losses) == {"binary_classification", "total", "unet"}
+assert torch.isfinite(losses["unet"]) and "grad/unet" in norms
+with tempfile.TemporaryDirectory() as tmp:
+    w = Writer(tmp, ["train"])
+    w.write_losses(losses, "train")
+    w.write_norms(norms, 1)
+    w.loss_summary(1e-3)
+    with open(w.save_history_to_csv()) as fh:
+        header = next(csv.reader(fh))
+assert "unet_train_loss_history" in header and "norm/grad/global" in header
+del unet, opt
 
 # one CPU training step of the HCP TransformerNet (K6 route, T = 1201)
 from multimodal_neuroimage_tpu_torch.data.loader import collate, item_for
@@ -188,7 +216,7 @@ hbatch, _ = collate([item_for(hcp)({"subject": str(i),
                                     "fmri": rng.normal(size=(22, 1150))}, hcp)
                      for i in range(2)])
 hbatch["target"] = np.asarray([0.0, 1.0], np.float32)
-losses, _ = step(hbatch, torch.Generator().manual_seed(0))
+losses, _, _ = step(hbatch, torch.Generator().manual_seed(0))
 assert torch.isfinite(losses["total"]) and opt.count == 1
 
 # phase 2's nets: one CPU training step of the MulT net (plain torch
@@ -209,7 +237,7 @@ for kind in ("cross_attention", "two_channels"):
           for k in ("fmri_sequence", "fmri_lowfreq_sequence",
                     "fmri_ultralowfreq_sequence")}
     b2["target"] = np.asarray([0.0, 1.0], np.float32)
-    losses, _ = step(b2, torch.Generator().manual_seed(0))
+    losses, _, _ = step(b2, torch.Generator().manual_seed(0))
     assert torch.isfinite(losses["total"]) and opt.count == 1
 
 # an HCP cohort written to disk by the port's writer: one training step
@@ -288,6 +316,14 @@ with tempfile.TemporaryDirectory() as tmp:
     assert len(cli.main(["--step", "3", "--dataset_name", "DTI+sMRI",
                          "--exp_name", "serve", "--predict_only"]
                         + common)) == 16
+    # a 1-trial study (the fallback search; seed 0 draws batch 4) and a run
+    # on its best parameters
+    best = cli.main(["--step", "3", "--dataset_name", "DTI+sMRI",
+                     "--exp_name", "hpo", "--use_optuna", "--num_trials", "1",
+                     "--opt_num_epochs", "1", "--seed", "0"] + common)
+    assert best["batch_size"] == 4 and "best_value" in best
+    assert glob.glob(os.path.join(root, "experiments", "hpo_*",
+                                  "best_params.pkl"))
 print(sorted(m for m in sys.modules
              if m in ("jax", "flax", "pandas", "sklearn")
              or m == "multimodal_neuroimage_tpu"
@@ -297,12 +333,14 @@ print(sorted(m for m in sys.modules
 
 def test_port_imports_no_jax_flax_pandas_sklearn():
     """Serve (std and bp fusion layouts), take one flagship and one HCP
-    training step and one of each of phase 2's nets (the MulT and the
-    two-channel net), run one dot-shape chain, write an HCP cohort to disk,
+    training step, one ``FuncStructUNetAdd`` step with the UNet loss and
+    its norms through the ``Writer``, one of each of phase 2's nets (the
+    MulT and the two-channel net), run one dot-shape chain, write an HCP cohort to disk,
     train a step from it and serve it with ``run_predict``, train a step of
     ``SwinClassifier`` and of ``SwinFusionNet`` from a structural cohort on
     disk and serve the second with ``run_predict``, run the phase chain
-    3 -> 5 -> 4 and a ``--predict_only`` through the port's CLI, in a fresh
+    3 -> 5 -> 4, a ``--predict_only`` and a 1-trial ``--use_optuna`` study
+    through the port's CLI, in a fresh
     interpreter (this test process imported jax already,
     tests/conftest.py): none of jax, flax, pandas, sklearn or the JAX
     package ``multimodal_neuroimage_tpu`` (any of its modules) gets
@@ -335,7 +373,9 @@ def test_no_port_file_imports_the_jax_package():
         if f.endswith(".py")]
     assert len(files) > 20
     for new in ("nn/unet.py", "models/struct_nets.py",
-                "models/swinfusion_net.py", "nn/crossmodal.py"):
+                "models/swinfusion_net.py", "nn/crossmodal.py",
+                "nn/perceptual.py", "obs/writer.py", "obs/profiling.py",
+                "hpo/optuna_harness.py"):
         assert os.path.join(port, new) in files, new
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_modules(f)

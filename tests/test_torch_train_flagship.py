@@ -181,7 +181,7 @@ def test_one_cpu_training_step_updates_every_parameter():
     step = make_train_step(model, active_losses(cfg.task,
                                                 cfg.fine_tune_task), opt,
                            "float32", "cpu")
-    losses, preds = step(_batch(cfg), torch.Generator().manual_seed(0))
+    losses, preds, _ = step(_batch(cfg), torch.Generator().manual_seed(0))
     assert torch.isfinite(losses["total"]) and preds[
         "binary_classification"].shape == (2, 1)
     assert opt.count == 1
@@ -244,7 +244,7 @@ def test_train_step_runs_hcp_at_bf16(monkeypatch):
     real = att._MhaFunction.apply
     monkeypatch.setattr(att._MhaFunction, "apply", staticmethod(
         lambda q, *a: seen.append(q.dtype) or real(q, *a)))
-    losses, _ = step(batch, torch.Generator().manual_seed(0))
+    losses, _, _ = step(batch, torch.Generator().manual_seed(0))
     assert seen == [torch.bfloat16]
     assert torch.isfinite(losses["total"])
     for p in model.parameters():
