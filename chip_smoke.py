@@ -83,7 +83,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 6. The HCP phase-1 ``TransformerNet`` (22 ROIs x 1200 TRs + CLS, 16 layers,
    2 heads, FFN 3072; every layer on the K6 route) in float32: the same
    four phases on a synthetic HCP cohort (series of 900-1200 TRs, 16 train
-   and 8 val subjects, batch 8, 2 epochs). K6 forward must launch 16 times
+   and 8 val subjects, batch 8, 2 epochs), the card-vs-CPU step at
+   ``HCP_CPU_LAYERS`` (2) layers (the CPU's side at 16 took 35-50 s on the
+   host of an NVIDIA H100 80GB HBM3, 700 W). K6
+   forward must launch 16 times
    per forward pass and K6 backward 16 times per backward pass, K5 once
    per step, and no other kernel. Also times the predict step.
 7. HCP phase 1 at its default bf16 policy (``compute_dtype`` left at
@@ -97,8 +100,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    other products and the exponentials at the float32 rate; then the same
    cohort through a 2-epoch ``Trainer`` run and serving, exactly 16 bf16 K6
    forwards a pass, 16 bf16 K6 backwards and one K5 a step and no float32
-   K6; one step card vs CPU; float32 and bf16 steps timed in turns with
-   peak memory.
+   K6; one step card vs CPU at ``HCP_CPU_LAYERS`` layers; float32 and bf16
+   steps timed in turns with peak memory.
 8. The flagship at its full ``Config`` defaults (bf16 and the ``device``
    FIR gear): the card's band split of the val subjects against the host
    split within 2e-4 and both gears' times; a 1-epoch ``Trainer`` run
@@ -201,7 +204,25 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    one full-width float32 ``FuncStructUNetCross`` step with the UNet loss
    against the plain twins at ``GRAD_REL``; a reconstruction loss set
    card vs CPU; the phase's wall time.
-14. Prints one JSON line of per-kernel results (launches by path:
+14. The flagship's data-parallel step across ranks (``multi_gpu``,
+   parallel/mesh.py; full width, bf16 default, std layout): (a) NCCL at
+   world size 1 (a launcher's environment, ``RANK=0 WORLD_SIZE=1``): three
+   steps at batch 4 bitwise the steps without a process group (cuDNN's
+   deterministic algorithms on both sides; parameters,
+   K5's moments, losses) with equal launches, then ``--distributed --step
+   5`` through the CLI (batch 8, 1 epoch on the 40-subject cohort, exactly
+   the flagship's kernels a pass and a step); (b) two ranks on the one card
+   under gloo (``bench/dp_step.py`` a rank; NCCL refuses two ranks on one
+   device): batch 4 a rank, dropout off, two updates, the ranks'
+   parameters bitwise equal and rank 0's within ``MG_REL`` of one process
+   with ``accumulation_steps=2`` over the same rows (cuDNN's deterministic
+   algorithms on both sides; largest difference printed), each rank's
+   launches exact; (c) where the machine has two cards, K5 and K1 on
+   ``cuda:1`` tensors with ``cuda:0`` current bitwise their ``cuda:0``
+   launches and NCCL across the two as (b) (else printed as not run); the
+   all-reduce's time at
+   the flagship's K5 buffer under each backend; the phase's wall time.
+15. Prints one JSON line of per-kernel results (launches by path:
    flagship, flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, hcp_bf16,
    flagship_defaults, flagship_disk, hcp_disk, dot_shapes, smri_swin,
    smri_swin_vae, smri_swin_unet, swinfusion_struct, struct_disk,
@@ -211,7 +232,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    phase2_hcp_two_channels, phase2_two_channels_twin_step and
    phase2_mult_step, and the outer shell's outer_shell_study,
    outer_shell_best_params, outer_shell_heads4, outer_shell_unet_profiled
-   and outer_shell_unet_cross_twin_step; K5's and K2/K3's cases on the
+   and outer_shell_unet_cross_twin_step, and the multi-GPU phase's
+   multi_gpu_nccl1 (the CLI run), multi_gpu_gloo2_rank0 and _rank1 (and
+   multi_gpu_nccl2_rank* on two cards); K5's and K2/K3's cases on the
    structural paths, K1's at T = 129, at hd 21 and 14 and K5's at phase
    2's sizes under ``path_cases``) and, last, the ok line.
 
@@ -265,6 +288,7 @@ TPU = "multimodal_neuroimage_tpu/ops/"
 # dense TF32 on the tensor cores
 PEAK_F32_OPS, PEAK_BYTES, PEAK_TF32_OPS = 67e12, 3.35e12, 495e12
 HCP_BATCH = 8
+HCP_CPU_LAYERS = 2   # the HCP card-vs-CPU step's depth (16 at full width)
 FLAGSHIP_KERNELS = ("K1 bert_layer", "K2 fusion_block",
                     "K3 cross_fusion_block", "K4 window_attention",
                     "K1 bert_layer backward", "K2 fusion_block backward",
@@ -2670,10 +2694,13 @@ def hcp_bf16(card, train_records, val_records, keep):
                            os.path.join(keep, "hcp_bf16.ckpt"))
     batches = [b for b, _ in trainer.batches("train")]
     del trainer
-    step = _step_compare(cfg, batches[0], "HCP bf16",
-                         (("card", "cuda", "std"), ("CPU", "cpu", "std")))
-    want = {k: {fwd16: layers, bwd16: layers, "K5 fused_adam": 1}.get(k, 0)
-            for k in step["card"]}
+    # at a cut depth, as phase 6's HCP step (HCP_CPU_LAYERS)
+    step = _step_compare(
+        dataclasses.replace(cfg, transformer_hidden_layers=HCP_CPU_LAYERS),
+        batches[0], "HCP bf16 (cut depth)",
+        (("card", "cuda", "std"), ("CPU", "cpu", "std")))
+    want = {k: {fwd16: HCP_CPU_LAYERS, bwd16: HCP_CPU_LAYERS,
+                "K5 fused_adam": 1}.get(k, 0) for k in step["card"]}
     if step["card"] != want:
         raise AssertionError(f"one HCP bf16 training step launched "
                              f"{step['card']}, expected {want}")
@@ -4345,6 +4372,290 @@ def outer_shell(card, gen, res: Results):
     return launches
 
 
+# ---- phase 14: the flagship's data-parallel step across ranks ------------
+
+MG_REL = 1e-5   # two ranks vs accumulation_steps=2, each tensor's
+                # max|diff| against its max-abs
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _launcher_env(world, rank=0):
+    """A launcher's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``, ``MASTER_PORT`` on a free port) within the block."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(_free_port()))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _all_counts(counts):
+    """A launch-count dict with every kernel of the port, zeros included."""
+    from multimodal_neuroimage_tpu_torch import ops
+    return {k: counts.get(k, 0) for k in ops.kernels()}
+
+
+def _dp_ranks(backend, devices, tmp, label, card, timeout=600):
+    """``bench/dp_step.py`` as one process a rank on ``devices`` (a launcher's
+    environment each, cuDNN's deterministic algorithms on), every rank
+    within ``timeout`` s of the start (then all are killed and the phase
+    fails); each rank's result."""
+    out = os.path.join(tmp, label)
+    port = _free_port()
+    procs = []
+    for r, dev in enumerate(devices):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(len(devices)),
+                   LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        log = open(f"{out}.rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m",
+             "multimodal_neuroimage_tpu_torch.bench.dp_step", out,
+             "--backend", backend, "--device", dev],
+            stdout=log, stderr=subprocess.STDOUT, env=env), log))
+    t0 = time.perf_counter()
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=max(timeout - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    for r, (proc, _) in enumerate(procs):
+        text = open(f"{out}.rank{r}.log").read()
+        print(f"[{label} rank {r}, rc {proc.returncode}] "
+              + "\n".join(text.strip().splitlines()[-3:]))
+        if proc.returncode != 0:
+            raise AssertionError(f"{label}: rank {r} failed "
+                                 f"(rc {proc.returncode}):\n{text[-4000:]}")
+    print(f"{label}: {len(devices)} ranks in {wall:.1f} s; card: {card}")
+    return [torch.load(f"{out}.rank{r}.pt", weights_only=False)
+            for r in range(len(devices))]
+
+
+def _check_dp(ranks, reference, label, card):
+    """The ranks' parameters and K5 moments bitwise equal, each rank's
+    launches exactly the flagship's a step, and rank 0's parameters within
+    ``MG_REL`` of ``reference`` (one process, accumulation_steps=W) per
+    tensor; the largest difference printed."""
+    from multimodal_neuroimage_tpu_torch.bench.dp_step import (
+        STEPS, worst_difference)
+    first = ranks[0]
+    for res in ranks[1:]:
+        for k in ("params", "mu", "nu"):
+            if not torch.equal(res[k], first[k]):
+                d = (res[k] - first[k]).abs().max().item()
+                raise AssertionError(f"{label}: rank {res['rank']}'s {k} "
+                                     f"differ from rank 0's by {d:.3e}")
+        if res["losses"] != first["losses"]:
+            raise AssertionError(f"{label}: the ranks' losses differ")
+    for res in ranks:
+        counts = _all_counts(res["launches"])
+        _per_pass(counts, CROSS_FORWARD, CROSS_BACKWARD, STEPS, STEPS,
+                  f"{label} rank {res['rank']}")
+        print(f"{label} rank {res['rank']} ({res['backend']}, "
+              f"{res['device']}): launches over {STEPS} steps "
+              f"{res['launches']}; losses {res['losses']}")
+    worst = worst_difference(first, reference)
+    if worst[0] > MG_REL:
+        raise AssertionError(f"{label}: {worst[1]} differs from "
+                             f"accumulation_steps={len(ranks)} by "
+                             f"{worst[0]:.3e} of its max-abs (bound "
+                             f"{MG_REL})")
+    print(f"{label}: ranks bitwise equal; rank 0 vs one process at "
+          f"accumulation_steps={len(ranks)} over the same rows: largest "
+          f"max|diff| / max-abs {worst[0]:.3e} ({worst[1]}), bound "
+          f"{MG_REL}; card: {card}")
+
+
+def _launch_device_check(card):
+    """K5 and K1's mm16 forward on ``cuda:1`` tensors while ``cuda:0`` is
+    current, bitwise their launches on ``cuda:0`` (``KernelLibrary.call``
+    makes the first tensor's device current for a launch)."""
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    from multimodal_neuroimage_tpu_torch.ops import fused_update as fu
+    gen = torch.Generator().manual_seed(SEED)
+    n = 1 << 20
+    host = [torch.randn(n, generator=gen) for _ in range(2)] + [
+        torch.zeros(n), torch.zeros(n)]
+    x = torch.randn(4, 369, 84, generator=gen)
+    params = [p.cpu() for p in _k1_params16(gen)]
+    outs = {}
+    for dev in ("cuda:0", "cuda:1"):
+        p, g, mu, nu = (t.to(dev) for t in host)
+        with torch.cuda.device(0):
+            fu.fused_adam_update(p, g, mu, nu, None, 1e-3, 10.0, 1000.0)
+            y = bl.bert_layer_call16(x.to(dev), [q.to(dev) for q in params],
+                                     12, 369)
+        torch.cuda.synchronize(dev)
+        outs[dev] = (p.cpu(), mu.cpu(), y.cpu())
+    for a, b in zip(outs["cuda:0"], outs["cuda:1"]):
+        if not torch.equal(a, b):
+            raise AssertionError("a kernel launched on cuda:1 tensors with "
+                                 "cuda:0 current differs from its launch "
+                                 "on cuda:0")
+    print(f"launch device: K5 and K1 mm16 on cuda:1 tensors with cuda:0 "
+          f"current bitwise their cuda:0 launches; card: {card}")
+
+
+def multi_gpu(card):
+    """Phase 14 (``multi_gpu``): the flagship (full width, bf16 default,
+    std layout) as ranks of ``torch.distributed`` (parallel/mesh.py).
+    (a) NCCL at world size 1: three steps of the flagship at batch 4 with
+    and without the process group (cuDNN's deterministic algorithms on
+    both sides), bitwise equal (parameters, K5's moments, losses) with
+    equal launches; then the CLI under a launcher's environment
+    (``--distributed --step 5``, the 40-subject cohort on disk, batch 8,
+    1 epoch: exactly the flagship's kernels a pass and a step). (b) Two
+    ranks on the one card under gloo (``bench/dp_step.py``; NCCL refuses
+    two ranks on one device), batch 4 a rank, dropout off, two updates:
+    the ranks bitwise equal, rank 0 against one process with
+    ``accumulation_steps=2`` on the same rows at ``MG_REL`` (cuDNN's
+    deterministic algorithms on both sides), each rank's launches
+    printed. (c) Where the machine has two cards: the kernels on
+    ``cuda:1`` tensors with ``cuda:0`` current (``_launch_device_check``)
+    and two NCCL ranks as (b). The all-reduce's time at the flagship's K5
+    buffer under each backend. Returns the launch counts by path."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.bench import dp_step
+    from multimodal_neuroimage_tpu_torch.data import synthetic
+    from multimodal_neuroimage_tpu_torch.ops import build
+    from multimodal_neuroimage_tpu_torch.parallel import mesh
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, allreduce = {}, {}
+
+    # ---- (a) NCCL at world size 1: bitwise the step without a group ------
+    # under cuDNN's deterministic algorithms on both sides: its default
+    # weight-gradient algorithms of the backbone's convs vary run to run
+    # (two bf16 steps of one seed differ in conv_after_body_Fusion.weight's
+    # gradient by up to 1.9e-6; at float32 536 of 1542 tensors differ)
+    cfg = dp_step.flagship_config()
+    batches = dp_step.global_batches(1, dp_step.BATCH, 3)
+
+    def steps():
+        _, opt, step = dp_step.build_step(cfg, "cuda")
+        gen = torch.Generator().manual_seed(SEED)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        losses = [{k: float(v) for k, v in step(b, gen, i)[0].items()}
+                  for i, b in enumerate(batches)]
+        torch.cuda.synchronize()
+        return opt, losses, ops.launches()
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ref_opt, ref_losses, ref_counts = steps()
+    with _launcher_env(1):
+        device = mesh.maybe_initialize_distributed(
+            dataclasses.replace(cfg, distributed=True), "cuda")
+        import torch.distributed as dist
+        if (dist.get_backend(), mesh.world(), device) != ("nccl", 1,
+                                                          "cuda:0"):
+            raise AssertionError(f"NCCL world 1: {dist.get_backend()}, "
+                                 f"{mesh.world()}, {device}")
+        opt, losses, counts = steps()
+        torch.backends.cudnn.deterministic = saved
+        allreduce["NCCL, world 1"] = (dp_step.allreduce_ms(
+            opt.grads.clone()), 4 * opt.grads.numel())
+        mesh.shutdown()
+    for k in ("params", "mu", "nu"):
+        if not torch.equal(getattr(opt, k), getattr(ref_opt, k)):
+            raise AssertionError(f"NCCL world 1: K5's {k} differ from the "
+                                 f"step without a process group")
+    if losses != ref_losses or counts != ref_counts:
+        raise AssertionError(f"NCCL world 1: losses {losses} / launches "
+                             f"{counts} vs {ref_losses} / {ref_counts}")
+    _per_pass(_all_counts(counts), CROSS_FORWARD, CROSS_BACKWARD, 3, 3,
+              "NCCL world-1 steps")
+    print(f"multi-GPU (a) NCCL world 1: 3 flagship steps (batch 4, bf16, "
+          f"cuDNN deterministic on both sides) "
+          f"bitwise the steps without a process group (parameters, K5's "
+          f"moments, losses {[round(l['total'], 6) for l in losses]}); "
+          f"launches a step equal: "
+          f"{ {k: n // 3 for k, n in counts.items() if n} }")
+    del opt, ref_opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        root = synthetic.generate_synthetic_cohort(
+            os.path.join(tmp, "cohort"), n_subjects=DISK_SUBJECTS, seed=SEED)
+        argv = ["--distributed", "--step", "5", "--dataset_name",
+                "multimodal", "--exp_name", "dp1", "--base_path", root,
+                "--target", "sex", "--seed", str(SEED), "--nEpochs", "1",
+                "--dti_smri_path",
+                os.path.join(root, "data", "dti+smri_cortical_thickness")]
+        with _launcher_env(1):
+            metrics, counts, wall, _ = _cli(argv, "multi-GPU: NCCL world 1",
+                                            card)
+        if mesh.initialized() or "val_AUROC" not in metrics:
+            raise AssertionError(f"NCCL world-1 CLI run: group left "
+                                 f"{mesh.initialized()}, metrics {metrics}")
+        _per_pass(counts, CROSS_FORWARD, CROSS_BACKWARD, 3, 3 + 1,
+                  "NCCL world-1 CLI run")
+        launches["multi_gpu_nccl1"] = counts
+        print(f"multi-GPU (a) CLI --distributed at world size 1: 1 epoch x 3 "
+              f"steps at batch 8 in {wall:.1f} s, val_AUROC "
+              f"{metrics['val_AUROC']:.4f}")
+
+        # ---- (b) two gloo ranks on the one card -----------------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = _dp_ranks("gloo", ["cuda:0", "cuda:0"], tmp,
+                          "gloo_2_ranks_1_card", card)
+        reference = dp_step.accumulated_reference(2)
+        _check_dp(ranks, reference, "multi-GPU (b) gloo, 2 ranks, 1 card",
+                  card)
+        for res in ranks:
+            launches[f"multi_gpu_gloo2_rank{res['rank']}"] = _all_counts(
+                res["launches"])
+        allreduce["gloo, 2 ranks on 1 card"] = (ranks[0]["allreduce_ms"],
+                                                ranks[0]["allreduce_bytes"])
+
+        # ---- (c) NCCL across two cards ------------------------------------
+        if torch.cuda.device_count() >= 2:
+            _launch_device_check(card)
+            ranks = _dp_ranks("nccl", ["cuda", "cuda"], tmp,
+                              "nccl_2_cards", card)
+            _check_dp(ranks, reference, "multi-GPU (c) NCCL, 2 cards", card)
+            for res in ranks:
+                launches[f"multi_gpu_nccl2_rank{res['rank']}"] = _all_counts(
+                    res["launches"])
+            allreduce["NCCL, 2 cards"] = (ranks[0]["allreduce_ms"],
+                                          ranks[0]["allreduce_bytes"])
+        else:
+            print(f"multi-GPU (c) NCCL across two cards: not run, this "
+                  f"machine has {torch.cuda.device_count()} card")
+    for what, (ms, nbytes) in allreduce.items():
+        print(f"all-reduce mean of K5's flat gradient buffer ({nbytes} B), "
+              f"{what}: median {ms:.3f} ms; card: {card}")
+    print(f"multi-GPU phase: {time.perf_counter() - t_phase:.1f} s; "
+          f"card: {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4488,8 +4799,12 @@ def main() -> int:
                                  f"K6 forward {layers} x {passes} only")
 
     # ---- (d) one HCP training step on the card against the CPU -------------
+    # at a cut depth (HCP_CPU_LAYERS: the CPU's side at 16 layers took
+    # 35-50 s on the host of an NVIDIA H100 80GB HBM3, 700 W); K6 runs every
+    # layer alike, and the 2-epoch run above holds the full depth's launches
     batch, _ = next(htrainer.batches("train"))
-    _step_compare(hcp, batch, "HCP",
+    cut = dataclasses.replace(hcp, transformer_hidden_layers=HCP_CPU_LAYERS)
+    _step_compare(cut, batch, "HCP (cut depth)",
                   (("card", "cuda", "std"), ("CPU", "cpu", "std")))
 
     # ---- (e) HCP training-step time ----------------------------------------
@@ -4527,6 +4842,10 @@ def main() -> int:
     outer_counts = outer_shell(card, gen, results)
     elapsed("outer-shell phase")
 
+    # ---- the flagship's data-parallel step across ranks ---------------------
+    multi_counts = multi_gpu(card)
+    elapsed("multi-GPU phase")
+
     launches = {"flagship": train_counts, "flagship_bp": bp_counts,
                 "flagship_bf16": bf16_counts,
                 "flagship_bp_bf16": bp_bf16_counts,
@@ -4534,7 +4853,7 @@ def main() -> int:
                 "flagship_defaults": defaults_counts,
                 "flagship_disk": disk_counts, "hcp_disk": hcp_disk_counts,
                 "dot_shapes": dot_counts, **struct_counts, **chain_counts,
-                **phase2_counts, **outer_counts}
+                **phase2_counts, **outer_counts, **multi_counts}
     kernels = [results.line(key, launches) for key in ops.kernels()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

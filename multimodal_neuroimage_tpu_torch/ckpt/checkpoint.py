@@ -32,6 +32,8 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
+from multimodal_neuroimage_tpu_torch.parallel.mesh import rank
+
 State = Dict[str, torch.Tensor]
 
 
@@ -42,7 +44,12 @@ def save_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor],
                     generator: Optional[torch.Tensor] = None) -> str:
     """Write the train state atomically (a temporary file, then rename).
     ``optimizer``: ``FusedAdam.state()``; ``generator``: a
-    ``torch.Generator``'s ``get_state()``."""
+    ``torch.Generator``'s ``get_state()``. Across ranks (parallel/mesh.py)
+    rank 0 alone writes, since every rank holds the same state, and every
+    rank returns the path; a rank that reads the file waits at a barrier
+    first (train/trainer.py)."""
+    if rank() != 0:
+        return path
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {"state_dict": {k: v.detach().cpu()
                               for k, v in state_dict.items()},

@@ -22,6 +22,16 @@ runs under ``<base_path>/experiments``; the Trainer merges it with
 steps train; ``--predict_only`` serves the cohort into the run's
 ``predictions.csv``. The files are the JAX package's, so either package
 can read the other's ``experiments`` tree (not its checkpoints).
+
+Across GPUs, one process a GPU (parallel/mesh.py)::
+
+    torchrun --standalone --nproc_per_node N \
+        -m multimodal_neuroimage_tpu_torch.cli.main --distributed --step 5 ...
+
+Each rank computes on ``cuda:{LOCAL_RANK}`` (``--device cpu``: gloo on the
+CPU), ``--batch_size`` is per rank, rank 0's run folder and stamp are every
+rank's, and rank 0 writes the archived arguments. ``WORLD_SIZE`` > 1
+without ``--distributed`` raises.
 """
 
 from __future__ import annotations
@@ -36,6 +46,9 @@ from typing import List, Optional, Tuple
 
 from multimodal_neuroimage_tpu_torch.config import (Config, PHASE_TASKS,
                                                     config_for_phase)
+from multimodal_neuroimage_tpu_torch.parallel.mesh import (
+    broadcast_object, initialized, maybe_initialize_distributed, rank,
+    shutdown)
 
 CHAIN_FROM = {2: 1, 4: 3, 5: 3, 6: 3}
 
@@ -98,8 +111,8 @@ def setup_experiment_folder(cfg: Config) -> Config:
     if cfg.experiment_folder:
         return cfg
     title = f"{cfg.exp_name}_{cfg.target}"
-    folder = os.path.join(cfg.base_path, "experiments",
-                          f"{title}_{datestamp()}")
+    folder = broadcast_object(os.path.join(cfg.base_path, "experiments",
+                                           f"{title}_{datestamp()}"))
     os.makedirs(folder, exist_ok=True)
     return dataclasses.replace(cfg, experiment_folder=folder,
                                experiment_title=title)
@@ -107,7 +120,9 @@ def setup_experiment_folder(cfg: Config) -> Config:
 
 def args_logger(cfg: Config) -> None:
     """The resolved config as text and as a pickled dict (reference
-    utils.py:153-166)."""
+    utils.py:153-166), written by rank 0."""
+    if rank() != 0:
+        return
     folder = cfg.experiment_folder
     os.makedirs(folder, exist_ok=True)
     with open(os.path.join(folder, "argument_documentation.txt"), "w") as f:
@@ -196,8 +211,10 @@ def _best_checkpoint_for(want_task: str, cfg: Config,
 def run_phase(cfg: Config, device: str = "cuda") -> dict:
     """One experiment (reference main.py:340-535): the folder, the archived
     arguments, the chained weights, then serving (``predict_only``),
-    testing (step 4) or training."""
+    testing (step 4) or training; on this rank's device under
+    ``cfg.distributed`` (parallel/mesh.py)."""
     from multimodal_neuroimage_tpu_torch.train.trainer import Trainer
+    device = maybe_initialize_distributed(cfg, device)
     cfg = setup_experiment_folder(cfg)
     args_logger(cfg)
     weights = weight_loader(cfg)
@@ -240,12 +257,18 @@ def run_phase(cfg: Config, device: str = "cuda") -> dict:
 
 def main(argv=None, device: Optional[str] = None) -> dict:
     """Parse ``argv`` (``--device`` aside) and run the phase on ``device``
-    (the ``--device`` flag, else ``cuda``)."""
+    (the ``--device`` flag, else ``cuda``: ``cuda:{LOCAL_RANK}`` under
+    ``--distributed``); leave the process group that the run started."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default=None)
     known, rest = pre.parse_known_args(argv)
     cfg = config_from_args(rest)
-    metrics = run_phase(cfg, device=known.device or device or "cuda")
+    owns_group = not initialized()
+    try:
+        metrics = run_phase(cfg, device=known.device or device or "cuda")
+    finally:
+        if owns_group:
+            shutdown()
     print("final metrics:", metrics)
     return metrics
 

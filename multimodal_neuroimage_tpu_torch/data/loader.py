@@ -29,7 +29,7 @@ is the port's own ``data/filters.py`` (the host gear) or, where
   float16 (``ItemLoader.dti`` / ``smri`` / ``dti_smri`` / ``struct_pair``).
   They always stay on the host gear, as JAX's ``device_fmri`` leaves them.
 
-``DataPipeline`` batches the splits of one process: an on-disk cohort split
+``DataPipeline`` batches this rank's rows of the splits: an on-disk cohort split
 by ``SplitManager``, or the caller's per-split lists of in-memory requests.
 The native gear (``preprocess="native"``, data/native.py) loads whole
 on-disk batches in C++: the structural matrices z-scored, the fMRI series
@@ -53,6 +53,7 @@ from multimodal_neuroimage_tpu_torch.data.index import (SubjectRecord,
                                                         build_subject_index,
                                                         check_dataset)
 from multimodal_neuroimage_tpu_torch.data.splits import SplitManager
+from multimodal_neuroimage_tpu_torch.parallel.mesh import rank, world
 
 ABCD_SEQ_LEN = 368     # ABCD pad target
 HCP_SEQ_LEN = 1200     # HCP pad target
@@ -227,16 +228,19 @@ STRUCT_INPUTS = {"DTI": ("dti",), "sMRI": ("smri",), "DTI+sMRI": ("struct",),
 
 
 class DataPipeline:
-    """Split-aware batches of one process (JAX data/loader.py
-    ``DataPipeline`` without a mesh).
+    """Split-aware batches of this rank (JAX data/loader.py
+    ``DataPipeline`` without a mesh; parallel/mesh.py).
 
     ``splits`` gives the per-split lists (in-memory requests, or records);
     without it the cohort on disk is indexed (``build_subject_index``) and
     split by ``SplitManager``. Batches
     follow JAX's: the order from ``default_rng((cfg.seed, epoch))`` when
-    shuffled, the train split drops its last partial batch, and every other
-    split carries ``valid`` and pads its tail to ``batch_size`` with
-    repeated subjects, ``valid`` 0 and name None on the pad rows. Items load
+    shuffled; across W ranks (``torch.distributed``) a step's global batch
+    is ``order[step * bs * W:][:bs * W]`` and rank r takes its rows ``r *
+    bs`` to ``(r + 1) * bs``; the train split drops its last partial global
+    batch, and every other split carries ``valid`` and pads each rank's
+    share of its tail to ``batch_size`` with repeated subjects, ``valid`` 0
+    and name None on the pad rows. Items load
     on a pool of ``cfg.workers`` threads; at ``preprocess="native"`` whole
     batches of an on-disk cohort load in C++ (data/native.py) where the
     JAX gear covers them (FIR split, no augmentation), which raises rather
@@ -268,7 +272,8 @@ class DataPipeline:
         self.pool = ThreadPoolExecutor(max_workers=max(cfg.workers, 1))
 
     def steps_per_epoch(self, split: str = "train") -> int:
-        return len(self.splits[split]) // self.cfg.batch_size
+        """Full global batches of ``split``: ``batch_size`` rows a rank."""
+        return len(self.splits[split]) // (self.cfg.batch_size * world())
 
     def _native_supported(self, split: str) -> bool:
         cfg = self.cfg
@@ -321,6 +326,7 @@ class DataPipeline:
             self.eval_item_loader
         native = self._native_supported(split)
         bs = self.cfg.batch_size
+        global_bs, first = bs * world(), rank() * bs
 
         def load(idxs):
             if native:
@@ -328,15 +334,17 @@ class DataPipeline:
             return collate(list(self.pool.map(lambda i: loader(recs[i]),
                                               idxs)), self.cfg.target)
 
-        n_steps = len(recs) // bs
+        n_steps = len(recs) // global_bs
         for step in range(n_steps):
-            batch, names = load(order[step * bs:(step + 1) * bs])
+            start = step * global_bs + first
+            batch, names = load(order[start:start + bs])
             if split != "train":
                 batch["valid"] = np.ones(len(names), np.float32)
             yield batch, names
-        tail = len(recs) - n_steps * bs
+        tail = len(recs) - n_steps * global_bs
         if split != "train" and tail > 0:
-            ks = range(n_steps * bs, (n_steps + 1) * bs)
+            start = n_steps * global_bs + first
+            ks = range(start, start + bs)
             batch, names = load(np.asarray([order[k % len(recs)]
                                             for k in ks]))
             pad = [k >= len(recs) for k in ks]

@@ -5,8 +5,10 @@ Plain numpy, no sklearn (the card's machine has none): ``auroc`` is the
 Mann-Whitney statistic with ties counted a half (what sklearn's trapezoid
 over the ROC curve gives), ``roc_curve`` is sklearn's algorithm including
 its ``drop_intermediate`` thinning, and the accuracy, recall, F1 and R^2
-follow sklearn's definitions and zero-division conventions. Single process:
-no cross-host gather.
+follow sklearn's definitions and zero-division conventions. Across ranks
+(parallel/mesh.py) the subject rows are gathered before any metric
+(``gather_ragged``, JAX's): the metrics are global and the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -15,6 +17,10 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from multimodal_neuroimage_tpu_torch.parallel.mesh import (gather_objects,
+                                                           process_allgather,
+                                                           world)
 
 
 def sigmoid(x) -> np.ndarray:
@@ -119,6 +125,26 @@ def roc_threshold_metrics(truth, score, *,
     return best
 
 
+def gather_ragged(v) -> np.ndarray:
+    """Every rank's 1-D array, of lengths that may differ (each rank's
+    share of a padded eval tail), concatenated in rank order (JAX
+    ``gather_ragged``): the lengths are gathered first, the values padded
+    with NaN to the longest, gathered as float64 and trimmed. One process:
+    the array itself."""
+    v = np.asarray(v).reshape(-1)
+    if world() == 1:
+        return v
+    lengths = process_allgather(np.asarray([len(v)], np.int64)).reshape(-1)
+    m = int(lengths.max())
+    if m == 0:
+        return v
+    padded = np.full(m, np.nan, np.float64)
+    padded[:len(v)] = v
+    stacked = process_allgather(padded).reshape(len(lengths), m)
+    return np.concatenate([stacked[i, :int(n)]
+                           for i, n in enumerate(lengths)])
+
+
 def regression_metrics(truth, pred) -> Dict[str, float]:
     truth = np.asarray(truth, dtype=np.float64)
     pred = np.asarray(pred, dtype=np.float64)
@@ -165,7 +191,9 @@ class SubjectAccumulator:
 
     def per_subject(self, mode: str):
         """(subjects, mean scores, stds, truths) for one split; scores are
-        sigmoided per window before averaging for classification."""
+        sigmoided per window before averaging for classification. Across
+        ranks every rank's rows, in rank order (``gather_ragged``; a
+        collective, so every rank calls it)."""
         subjects, means, stds, truths = [], [], [], []
         for subj, vals in self.scores.items():
             if self.modes[subj] != mode:
@@ -177,11 +205,16 @@ class SubjectAccumulator:
             means.append(float(v.mean()))
             stds.append(float(v.std()))
             truths.append(self.truths[subj])
+        if world() > 1:
+            subjects = [s for part in gather_objects(subjects) for s in part]
+            means, stds, truths = (gather_ragged(np.asarray(a, np.float64))
+                                   for a in (means, stds, truths))
         return subjects, np.asarray(means), np.asarray(stds), np.asarray(
             truths)
 
     def summary(self, modes, *, val_threshold: Optional[float] = None
                 ) -> Dict[str, float]:
+        """The metrics of each split over every rank's subjects."""
         metrics: Dict[str, float] = {}
         for mode in modes:
             _, pred, _, truth = self.per_subject(mode)

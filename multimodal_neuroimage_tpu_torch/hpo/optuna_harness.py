@@ -14,8 +14,14 @@ One difference from the JAX harness: a trial that fails other than by
 pruning ends the study with its error. A study on the card must not count
 a kernel's or the device's fault as a failed trial and go on.
 
-One process only: under ``torch.distributed`` with a world size above 1
-the trial broadcasts raise, naming ROADMAP M11.
+Across ranks (parallel/mesh.py) rank 0 is the leader and owns the study,
+as in the JAX harness (reference main.py:440-460): it announces each trial's
+parameters, the followers train the same trial, every pruning decision is
+the leader's, and the end is a stop message. Every message is one pickled
+object in a fixed buffer broadcast over the host (gloo) group, and the
+ranks compare their counts of messages before each, so that a desync
+raises on every rank; an error on the leader mid-trial is relayed as an
+abort, so that every rank raises together and the study ends everywhere.
 """
 
 from __future__ import annotations
@@ -27,6 +33,10 @@ import pickle
 from typing import Any, Dict, Optional
 
 import numpy as np
+
+from multimodal_neuroimage_tpu_torch.parallel.mesh import (
+    broadcast_buffer, gather_objects, maybe_initialize_distributed, rank,
+    world)
 
 SEARCH_SPACE = {
     # (kind, low, high/choices, log) - reference main.py:399-422
@@ -40,35 +50,77 @@ SEARCH_SPACE = {
 }
 
 
-def _world_size() -> int:
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+_BCAST_BYTES = 4096
 
 
-def _single_process(what: str) -> None:
-    if _world_size() > 1:
-        raise NotImplementedError(
-            f"{what}: a study across processes (the leader's trial broadcast "
-            f"and the followers' loop) is not ported yet (ROADMAP M11)")
+class TrialAborted(Exception):
+    """The leader announced a failure of the running trial: every rank
+    raises it."""
+
+
+class _Channel:
+    """The leader's messages to the followers (JAX ``_broadcast_obj``):
+    rank 0's pickled object in one fixed ``_BCAST_BYTES`` buffer on every
+    rank, so no interleaving of messages can put the ranks into collectives
+    of different shapes. Before each message the ranks compare their counts
+    of messages taken, and all raise if any differs (JAX's sequence check,
+    which raises on the drifted process alone). A payload too large for the
+    buffer goes out as an error, which every rank raises together."""
+
+    def __init__(self):
+        self.seq = 0
+
+    def send(self, obj: Optional[Any]) -> Any:
+        counts = gather_objects(self.seq)
+        if len(set(counts)) > 1:
+            raise RuntimeError(f"study broadcast desync: the ranks have "
+                               f"taken {counts} messages")
+        buf = np.zeros(_BCAST_BYTES, np.uint8)
+        if rank() == 0:
+            raw = pickle.dumps(obj)
+            if len(raw) > _BCAST_BYTES - 4:
+                raw = pickle.dumps({
+                    "error": f"broadcast payload too large ({len(raw)} > "
+                             f"{_BCAST_BYTES - 4} bytes)"})
+            buf[:4] = np.frombuffer(len(raw).to_bytes(4, "little"), np.uint8)
+            buf[4:4 + len(raw)] = np.frombuffer(raw, np.uint8)
+        out = broadcast_buffer(buf)
+        n = int.from_bytes(out[:4].tobytes(), "little")
+        msg = pickle.loads(out[4:4 + n].tobytes())
+        self.seq += 1
+        if isinstance(msg, dict) and "error" in msg:
+            raise ValueError(msg["error"])
+        return msg
+
+
+_CHANNEL = _Channel()
 
 
 def broadcast_params(overrides: Optional[Dict[str, Any]]) -> Dict[str, Any]:
-    """The leader's trial parameters on every process: one process only."""
-    _single_process("broadcast_params")
-    return overrides or {}
+    """The leader's trial parameters on every rank (identity on one)."""
+    if world() == 1:
+        return overrides or {}
+    return _CHANNEL.send(overrides or {})
 
 
 def broadcast_flag(flag: bool) -> bool:
-    """The leader's pruning decision on every process: one process only."""
-    _single_process("broadcast_flag")
-    return flag
+    """The leader's pruning decision on every rank (identity on one). A
+    follower that receives an abort instead raises ``TrialAborted``."""
+    if world() == 1:
+        return flag
+    msg = _CHANNEL.send({"kind": "prune", "flag": bool(flag)})
+    if isinstance(msg, dict) and msg.get("kind") == "prune":
+        return msg["flag"]
+    if isinstance(msg, dict) and msg.get("kind") == "abort":
+        raise TrialAborted(msg.get("reason", "the leader's trial failed"))
+    raise RuntimeError(f"study broadcast desync: rank {rank()} expected a "
+                       f"pruning decision, the leader sent {msg!r}")
 
 
 class SyncedTrial:
-    """An optuna or fallback trial whose pruning decision would be the
-    leader's on every process (JAX ``SyncedTrial``); one process here."""
+    """An optuna or fallback trial whose pruning decision is the leader's
+    on every rank (JAX ``SyncedTrial``): every rank stops a pruned trial
+    after the same epoch. A follower holds no trial (``inner`` None)."""
 
     def __init__(self, inner=None):
         self.inner = inner
@@ -117,36 +169,86 @@ def _is_pruned(e: BaseException) -> bool:
 
 def run_study(cfg, device: str = "cuda") -> Dict[str, Any]:
     """Run ``cfg.num_trials`` trials, each a ``Trainer`` on ``device`` in
-    ``<experiment_folder>/trial_<n>``; dump and return the best."""
+    ``<experiment_folder>/trial_<n>``; dump and return the best. Across
+    ranks rank 0 runs the study and returns it; the followers train each
+    announced trial until the stop message and return {} (module
+    docstring)."""
     from multimodal_neuroimage_tpu_torch.train.trainer import Trainer
-    _single_process("run_study")
+    device = maybe_initialize_distributed(cfg, device)
+    multi = world() > 1
 
-    def train_trial(trial) -> float:
-        overrides = broadcast_params(_suggest(trial, cfg))
+    def run_trial(overrides, number, trial) -> float:
         trial_cfg = dataclasses.replace(
             cfg, nEpochs=cfg.opt_num_epochs, use_optuna=False,
             experiment_folder=os.path.join(
-                cfg.experiment_folder or ".", f"trial_{trial.number}"),
+                cfg.experiment_folder or ".", f"trial_{number}"),
             **overrides)
         trainer = Trainer(trial_cfg, device=device)
         trainer.optuna_trial = SyncedTrial(trial)
         metrics = trainer.training()
         return _objective_value(cfg, metrics, trainer)
 
+    aborted = []
+
+    def train_trial(trial) -> float:
+        overrides = _suggest(trial, cfg)
+        if multi:
+            overrides = _CHANNEL.send({"kind": "trial", "params": overrides,
+                                       "number": trial.number})["params"]
+        try:
+            return run_trial(overrides, trial.number, trial)
+        except Exception as e:
+            # a pruned trial stopped every rank at the same epoch already;
+            # any other error of the leader's reaches the followers at
+            # their next pruning decision and ends the study everywhere
+            if multi and not _is_pruned(e):
+                aborted.append(e)
+                _CHANNEL.send({"kind": "abort", "reason": repr(e)})
+            raise
+
+    if multi and rank() != 0:
+        while True:
+            msg = _CHANNEL.send(None)
+            if msg.get("kind") == "stop":
+                return {}
+            if msg.get("kind") == "abort":
+                raise TrialAborted(msg.get("reason"))
+            if msg.get("kind") != "trial":
+                raise RuntimeError(f"study broadcast desync: rank {rank()} "
+                                   f"expected a trial, got {msg!r}")
+            try:
+                run_trial(msg["params"], msg["number"], None)
+            except TrialAborted:
+                raise
+            except Exception as e:
+                if _is_pruned(e):
+                    continue
+                # the same error on the leader is relayed as an abort;
+                # wait for it, so that no rank is left in a collective
+                reply = _CHANNEL.send(None)
+                if reply.get("kind") == "abort":
+                    raise TrialAborted(reply.get("reason")) from e
+                raise
+
     try:
-        import optuna
-    except ImportError:
-        return _fallback_random_search(cfg, train_trial)
-    direction = ("maximize" if cfg.fine_tune_task == "binary_classification"
-                 else "minimize")
-    storage = f"sqlite:///{cfg.experiment_folder or '.'}/optuna.db"
-    study = optuna.create_study(
-        study_name=cfg.exp_name, direction=direction, storage=storage,
-        load_if_exists=True, sampler=optuna.samplers.TPESampler(),
-        pruner=optuna.pruners.MedianPruner())
-    study.optimize(train_trial, n_trials=cfg.num_trials)
-    _dump_best(cfg, study.best_params, study.best_value)
-    return {"best_value": study.best_value, **study.best_params}
+        try:
+            import optuna
+        except ImportError:
+            return _fallback_random_search(cfg, train_trial)
+        direction = ("maximize"
+                     if cfg.fine_tune_task == "binary_classification"
+                     else "minimize")
+        storage = f"sqlite:///{cfg.experiment_folder or '.'}/optuna.db"
+        study = optuna.create_study(
+            study_name=cfg.exp_name, direction=direction, storage=storage,
+            load_if_exists=True, sampler=optuna.samplers.TPESampler(),
+            pruner=optuna.pruners.MedianPruner())
+        study.optimize(train_trial, n_trials=cfg.num_trials)
+        _dump_best(cfg, study.best_params, study.best_value)
+        return {"best_value": study.best_value, **study.best_params}
+    finally:
+        if multi and not aborted:
+            _CHANNEL.send({"kind": "stop"})
 
 
 class _FallbackTrial:

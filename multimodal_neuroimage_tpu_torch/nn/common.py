@@ -14,7 +14,13 @@ Randomness is explicit: a training forward takes one ``torch.Generator`` on
 the host, from which every dropout seed and every DropPath factor is drawn
 in a fixed order, so that the same generator state gives the same step on
 the CPU and on the card. Dropout masks are the JAX kernels' coordinate hash
-(ops/fusion_block.py ``mix_keep``), not torch's RNG.
+(ops/fusion_block.py ``mix_keep``), not torch's RNG. Across ranks
+(parallel/mesh.py) each seed is mixed with the rank and each rank keeps its
+rows of the global batch's DropPath factors (``draw_seed``,
+``drop_path_factors``), which is JAX's fold of the axis index into each
+shard's key; rank 0 draws what one process draws. The perceptual loss's
+slice draw (nn/perceptual.py) is not folded: each rank scores the same
+slice positions of its own rows.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from typing import Optional
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from multimodal_neuroimage_tpu_torch.parallel.mesh import rank, world
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -97,8 +105,22 @@ def TorchConv(in_channels: int, out_channels: int,
 
 
 def draw_seed(generator: torch.Generator) -> int:
-    """One int32 dropout seed in [0, 2^31 - 1), as the JAX modules draw."""
-    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
+    """One int32 dropout seed in [0, 2^31 - 1), as the JAX modules draw,
+    mixed with this process's rank (``mix_rank``)."""
+    return mix_rank(int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                      generator=generator)))
+
+
+def mix_rank(seed: int) -> int:
+    """``seed`` mixed with this rank's index (parallel/mesh.py), the
+    counterpart of JAX's ``fold_in`` of the data axis index in its
+    ``shard_map`` step: each rank's masks differ, rank 0's (and a single
+    process's) seed is ``seed`` itself, and every rank's generator advances
+    alike, so one generator state in a checkpoint resumes any rank."""
+    r = rank()
+    if r == 0:
+        return seed
+    return (seed + (r * 0x9E3779B1) % (2 ** 31 - 1)) % (2 ** 31 - 1)
 
 
 def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
@@ -119,9 +141,17 @@ def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
 def drop_path_factors(shape, rate: float, generator: torch.Generator,
                       device=None) -> torch.Tensor:
     """DropPath factors bernoulli(1 - rate) / (1 - rate) of ``shape`` (the
-    fusion kernels' (B, 2)), drawn on the host and moved to ``device``."""
+    fusion kernels' (B, 2)), drawn on the host and moved to ``device``.
+    Across W ranks the global batch's ``(W * B, ...)`` factors are drawn
+    and this rank keeps its rows, as it keeps its rows of the batch
+    (data/loader.py): the generator advances alike on every rank, and rank
+    r's factors are rows ``r * B`` to ``(r + 1) * B`` of one process's at
+    the global batch."""
     keep = 1.0 - rate
-    u = torch.rand(tuple(shape), generator=generator)
+    shape = tuple(shape)
+    B, W = shape[0], world()
+    u = torch.rand((W * B,) + shape[1:], generator=generator)
+    u = u[rank() * B:(rank() + 1) * B]
     return ((u < keep).to(torch.float32) / keep).to(device)
 
 

@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from multimodal_neuroimage_tpu_torch.parallel.mesh import rank
+
 
 @contextlib.contextmanager
 def trace_annotation(name: str):
@@ -41,7 +43,8 @@ def trace_annotation(name: str):
 def profile_trace(log_dir: Optional[str], device: str = "cuda"):
     """Profile the enclosed region (CPU activity, and CUDA activity when
     ``device`` is a CUDA device) and write its Chrome trace,
-    ``trace_<pid>_<ns>.json``, into ``log_dir``, also when the region
+    ``trace_rank<r>_<pid>_<ns>.json`` (r this process's rank,
+    parallel/mesh.py), into ``log_dir``, also when the region
     raises; a no-op when ``log_dir`` is empty. The trace's kernel events name every kernel that ran."""
     if not log_dir:
         yield
@@ -57,8 +60,9 @@ def profile_trace(log_dir: Optional[str], device: str = "cuda"):
     finally:
         # written when the region raises too: a failing run's trace is the
         # one most worth reading
-        path = os.path.join(log_dir,
-                            f"trace_{os.getpid()}_{time.time_ns()}.json")
+        path = os.path.join(
+            log_dir, f"trace_rank{rank()}_{os.getpid()}_{time.time_ns()}"
+                     f".json")
         prof.export_chrome_trace(path)
         print(f"[profile] trace written to {path}")
 

@@ -12,6 +12,13 @@ wandb is imported only when asked for, and left out when its package is
 missing, as in the JAX package. JAX's TensorBoard sink has no counterpart:
 importing TensorBoard loads TensorFlow, and with it JAX where that is
 installed, and the port runs without JAX.
+
+Across ranks (parallel/mesh.py) the losses a step hands over are averaged
+already and the metrics are global, so rank 0 alone writes
+``full_scores.csv`` and ``per_subject_predictions/`` (every rank's
+subjects) and alone feeds wandb. This differs from the JAX Writer, which
+writes on every host into its own folder: the ranks of one node share the
+experiment folder.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from itertools import zip_longest
 from typing import Dict, List, Optional
 
 import torch
+
+from multimodal_neuroimage_tpu_torch.parallel.mesh import rank
 
 
 class Writer:
@@ -44,7 +53,7 @@ class Writer:
         os.makedirs(self.per_subject_dir, exist_ok=True)
 
         self.wandb = None
-        if use_wandb:
+        if use_wandb and rank() == 0:
             try:
                 import wandb
             except ImportError:
@@ -127,20 +136,27 @@ class Writer:
         self.eval_iter += 1
 
     def write_subject_predictions(self, accumulator) -> None:
-        """Per-subject prediction dump (loss_writer.py:91-93)."""
+        """Per-subject prediction dump (loss_writer.py:91-93): every rank
+        gathers the rows, rank 0 writes them."""
+        rows = {mode: accumulator.per_subject(mode) for mode in self.sets}
+        if rank() != 0:
+            return
         path = os.path.join(self.per_subject_dir,
                             f"iter_{self.eval_iter}.txt")
         with open(path, "a+") as f:
             for mode in self.sets:
-                subs, means, stds, truths = accumulator.per_subject(mode)
+                subs, means, stds, truths = rows[mode]
                 for s, m, sd, t in zip(subs, means, stds, truths):
                     f.write(f"subject:{s} ({mode})\n"
                             f"outputs: {m:.4f}±{sd:.4f}  -  truth: {t}\n")
 
     def save_history_to_csv(self) -> str:
-        """full_scores.csv via zip_longest (loss_writer.py:48-55)."""
+        """full_scores.csv via zip_longest (loss_writer.py:48-55), written
+        by rank 0; returns its path on every rank."""
         rows = {**self.loss_history, **self.metric_history}
         path = os.path.join(self.log_dir, "full_scores.csv")
+        if rank() != 0:
+            return path
         with open(path, "w", newline="") as f:
             w = csv.writer(f)
             keys = list(rows)

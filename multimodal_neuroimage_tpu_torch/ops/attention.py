@@ -90,7 +90,7 @@ def _launch_forward(q, k, v, bias, mask, seed=0, rate=0.0):
     B, nW, H, N, D = _check(q, k, v, bias, mask)
     out = torch.empty_like(q)
     build.library().call(
-        "window_attention_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        "window_attention_forward", q, k.data_ptr(), v.data_ptr(),
         bias.data_ptr(), None if mask is None else mask.data_ptr(),
         out.data_ptr(), B, nW, H, N, D, int(seed), float(rate),
         build.stream_of(q))
@@ -160,7 +160,7 @@ def window_attention_backward(g, q, k, v, bias, mask, out, seed: int = 0,
                              device=q.device).unbind(0)
     dbias = torch.empty_like(bias)
     build.library().call(
-        "window_attention_backward", q.data_ptr(), k.data_ptr(),
+        "window_attention_backward", q, k.data_ptr(),
         v.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -415,7 +415,7 @@ def _launch_mha_forward(q, k, v, seed, rate):
     out = torch.empty_like(q)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     build.library().call(
-        "mha_forward_simt" if _K6_SIMT else "mha_forward", q.data_ptr(),
+        "mha_forward_simt" if _K6_SIMT else "mha_forward", q,
         k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), B * H, T,
         D, int(seed), float(rate), build.stream_of(q))
     if not _K6_SIMT:
@@ -434,7 +434,7 @@ def _launch_mha_forward16(q, k, v, seed, rate, save: bool):
         out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     build.library().call(
-        "mha_forward16_simt" if _K6_SIMT else "mha_forward16", q.data_ptr(),
+        "mha_forward16_simt" if _K6_SIMT else "mha_forward16", q,
         k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if out32 is None else out32.data_ptr(),
         None if lse is None else lse.data_ptr(), B * H, T, D, int(seed),
@@ -459,7 +459,7 @@ def fused_attention_backward(g, q, k, v, out, lse, seed: int = 0,
     delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     build.library().call(
-        "mha_backward_simt" if _K6_SIMT else "mha_backward", q.data_ptr(),
+        "mha_backward_simt" if _K6_SIMT else "mha_backward", q,
         k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         delta.data_ptr(), B * H, T, D, int(seed), float(rate),
@@ -484,7 +484,7 @@ def fused_attention_backward16(g, q, k, v, out32, lse, seed: int = 0,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     build.library().call(
         "mha_backward16_simt" if _K6_SIMT else "mha_backward16",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out32.data_ptr(),
+        q, k.data_ptr(), v.data_ptr(), out32.data_ptr(),
         g.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), B * H, T, D, int(seed), float(rate),
         build.stream_of(q))

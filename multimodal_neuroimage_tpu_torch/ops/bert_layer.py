@@ -425,7 +425,7 @@ def _launch_forward(x, params, heads, t_valid, seed, rates, training,
     entry = ("bert_layer_forward16" if mm16 else "bert_layer_forward_simt"
              if _GEMM_SIMT else "bert_layer_forward")
     lib.call(entry,
-             x.data_ptr(), build.pointer_array(params),
+             x, build.pointer_array(params),
              scratch.data_ptr(), None if resid is None else resid.data_ptr(),
              out.data_ptr(), B, T, H, F_, heads, t_valid, round_up(T, 8),
              int(seed), float(attn_rate), float(hidden_rate),
@@ -457,7 +457,7 @@ def bert_layer_backward(g, x, params, resid, heads: int, t_valid: int,
                           dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dparams = tuple(torch.empty_like(p) for p in params)
-    args = (x.data_ptr(), resid.data_ptr(), g.data_ptr(),
+    args = (x, resid.data_ptr(), g.data_ptr(),
             build.pointer_array(params), build.pointer_array(dparams),
             dx.data_ptr(), scratch.data_ptr(), B, T, H, F_, heads, t_valid,
             round_up(T, 8), int(seed), float(attn_rate), float(hidden_rate))

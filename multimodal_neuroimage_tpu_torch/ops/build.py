@@ -13,6 +13,7 @@ module on a machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -105,8 +106,22 @@ class KernelLibrary:
         return self._fns[name](*args)
 
     def call(self, name: str, *args) -> None:
-        """Launch through entry point ``name``; raise on a CUDA error."""
-        err = self._fns[name](*args)
+        """Launch through entry point ``name``; raise on a CUDA error. A
+        tensor argument passes as its data pointer, and the first one's
+        device is made current for the launch: ``stream_of`` gives that
+        device's stream, and a kernel launched while another device is
+        current would run there (a rank's ``cuda:1``, ``--device
+        cuda:1``)."""
+        dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
+                   None)
+        args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        if (dev is not None and dev.type == "cuda"
+                and dev.index != torch.cuda.current_device()):
+            with torch.cuda.device(dev):
+                err = self._fns[name](*args)
+        else:
+            err = self._fns[name](*args)
         if err != 0:
             msg = self._lib.kernels_error_string(err).decode()
             raise RuntimeError(f"{name} failed: cudaError {err} ({msg})")
@@ -134,7 +149,12 @@ def _nvcc() -> str:
 
 def build() -> tuple:
     """Compile the sources if no library for their hash exists yet.
-    Returns (path, seconds spent compiling, compiler output)."""
+    Returns (path, seconds spent compiling, compiler output).
+
+    An exclusive ``fcntl`` lock on ``_build/build.lock`` makes the ranks of
+    one machine build once: the first compiles, the others wait and then
+    load its library. The kernel releases the lock when its holder exits,
+    so a build that was killed leaves no lock behind."""
     cu, cuh = _sources()
     digest = hashlib.sha256()
     for f in cu + cuh:
@@ -145,6 +165,18 @@ def build() -> tuple:
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if out.exists():             # another process built it
+                return out, 0.0, ""
+            return _compile(cu, out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _compile(cu, out: Path) -> tuple:
+    """nvcc every source at once and link ``out`` (``build``)."""
     nvcc = _nvcc()
     stem = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()

@@ -198,7 +198,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, alpha: float, mode: int,
                       else torch.float32)
     part = (torch.empty(splits * out.numel(), dtype=torch.float32,
                         device=a.device) if splits > 1 else None)
-    build.library().call("batched_matmul", a.data_ptr(), b.data_ptr(),
+    build.library().call("batched_matmul", a, b.data_ptr(),
                          out.data_ptr(),
                          None if part is None else part.data_ptr(), outer,
                          inner, M, N, K, sa0, sa1, sb0, sb1, float(alpha),

@@ -69,7 +69,7 @@ def fused_adam_update(p, g, mu, nu, clip: Optional[torch.Tensor], lr: float,
     if clip is not None:
         build.check_cuda_f32("clip", clip, (1,))
     build.library().call(
-        "fused_adam_update", p.data_ptr(), g.data_ptr(), mu.data_ptr(),
+        "fused_adam_update", p, g.data_ptr(), mu.data_ptr(),
         nu.data_ptr(), n, None if clip is None else clip.data_ptr(),
         _f32(lr), _f32(bc1), _f32(bc2), float(b1), float(b2), float(eps),
         float(wd), int(adamw), build.stream_of(p))

@@ -373,7 +373,7 @@ def _launch_forward(x, y, params, bias, mask, dp, seed, rates, training,
     out = torch.empty_like(x)
     x2r = torch.empty_like(x) if save else None
     build.library().call(
-        "fusion_block_forward", int(cross), x.data_ptr(), _ptr(y),
+        "fusion_block_forward", int(cross), x, _ptr(y),
         build.pointer_array(params), bias.data_ptr(), _ptr(mask),
         out.data_ptr(), B, nW, N, C, H, Ch, _ptr(dp), int(seed),
         float(attn_rate), float(drop_rate), round_up(N, 8), _ptr(x2r),
@@ -413,7 +413,7 @@ def launch_backward(entry, dims, g, x, y, params, bias, mask, dp, seed,
     dy = torch.empty_like(y) if cross else None
     flat = torch.empty(n_grad, dtype=torch.float32, device=x.device)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
-    lib.call(entry, int(cross), x.data_ptr(), _ptr(y),
+    lib.call(entry, int(cross), x, _ptr(y),
              build.pointer_array(params), bias.data_ptr(), _ptr(mask),
              x2r.data_ptr(), g.data_ptr(), dx.data_ptr(), _ptr(dy),
              flat.data_ptr(), scratch.data_ptr(), *dims, N, C, H, Ch,

@@ -376,7 +376,7 @@ def _launch_forward(x, y, params, bias, mask, dp, seed, rates, training,
     bf16 = x.dtype == torch.bfloat16
     build.library().call(
         "fusion_block_bp_forward16" if bf16 else "fusion_block_bp_forward",
-        int(cross), x.data_ptr(), _ptr(y),
+        int(cross), x, _ptr(y),
         build.pointer_array(params), bias.data_ptr(), _ptr(mask),
         out.data_ptr(), ng, G, nW, N, C, H, Ch, _ptr(dp), int(seed),
         float(attn_rate), float(drop_rate), round_up(N, 8), _ptr(x2r),

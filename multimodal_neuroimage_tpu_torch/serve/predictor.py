@@ -20,8 +20,12 @@ same batches (the same records in the same order). It
 sigmoids each window's logit and averages the probabilities per subject
 (the frozen ``val_threshold`` was fit on mean-of-sigmoids), labels subjects
 against that threshold, and can write ``predictions.csv``; ``run_predict``
-does so into the experiment folder. Single process: no mesh, no
-allgather.
+does so into the experiment folder.
+
+Across ranks (``cfg.distributed``, parallel/mesh.py) each rank scores its
+rows of the requests (data/loader.py), the per-request (sum, count) arrays
+are summed over the ranks (JAX ``_global_reduce``), every rank returns the
+whole cohort, and rank 0 alone writes the CSV.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import csv
 import os
 from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
@@ -39,6 +44,8 @@ from multimodal_neuroimage_tpu_torch.data.loader import (MODEL_INPUTS,
                                                           DataPipeline)
 from multimodal_neuroimage_tpu_torch.models.registry import create_model
 from multimodal_neuroimage_tpu_torch.nn.swinfusion import set_compute_policy
+from multimodal_neuroimage_tpu_torch.parallel.mesh import (
+    barrier, maybe_initialize_distributed, process_allgather, rank, world)
 from multimodal_neuroimage_tpu_torch.train.state import (check_compute_dtype,
                                                          flatten_parameters,
                                                          forward_at, weights_at)
@@ -68,16 +75,33 @@ def make_predict_step(model: torch.nn.Module, compute_dtype: str = "float32",
     return predict_step
 
 
+def _global_reduce(sums: np.ndarray, counts: np.ndarray):
+    """Sum the fixed-shape per-request (sum, count) arrays over the ranks
+    (JAX ``_global_reduce``; as they are on one process)."""
+    if world() > 1:
+        sums = process_allgather(sums).sum(axis=0)
+        counts = process_allgather(counts).sum(axis=0)
+    return sums, counts
+
+
+def _subject(record) -> str:
+    return str(record["subject"] if isinstance(record, Mapping)
+               else record.subject)
+
+
 class Predictor:
     """Load once, predict many."""
 
     def __init__(self, cfg, checkpoint: Optional[str] = None,
                  records: Optional[List[Mapping]] = None,
                  device: str = "cuda"):
+        device = maybe_initialize_distributed(cfg, device)
         if records is None:
             records = build_subject_index(cfg, require_target=False)
-        self.pipe = DataPipeline(cfg, splits={"predict": list(records)},
+        self.records = list(records)
+        self.pipe = DataPipeline(cfg, splits={"predict": self.records},
                                  device=device)
+        barrier()       # rank 0's last checkpoint write has ended
         checkpoint = checkpoint or default_checkpoint(cfg)
         if checkpoint is None:
             raise FileNotFoundError(
@@ -106,27 +130,35 @@ class Predictor:
 
     def predict(self, write_csv: Optional[str] = None
                 ) -> Dict[str, Dict[str, float]]:
-        """Score every request; returns {subject: {"score", "label"?}} with
-        repeated windows of a subject mean-ensembled. Classification scores
-        are sigmoid probabilities labelled at the frozen threshold."""
-        sums: Dict[str, float] = {}
-        counts: Dict[str, int] = {}
+        """Score every request; returns {subject: {"score", "label"?}} in
+        request order, with repeated windows of a subject mean-ensembled.
+        Classification scores are sigmoid probabilities labelled at the
+        frozen threshold. Across ranks each rank scores its rows and every
+        rank returns every subject (``_global_reduce``); rank 0 writes
+        ``write_csv``."""
+        names = [_subject(r) for r in self.records]
+        pos = {name: i for i, name in enumerate(names)}
+        sums = np.zeros(len(names), np.float64)
+        counts = np.zeros(len(names), np.float64)
         classify = self.head == "binary_classification"
-        for batch, names in self.batches():
+        for batch, batch_names in self.batches():
             vals = self.step(batch)[self.head].reshape(-1)
             if classify:
                 vals = torch.sigmoid(vals)
-            for name, v in zip(names, vals.cpu().tolist()):
+            for name, v in zip(batch_names, vals.cpu().tolist()):
                 if name is None:        # tail padding
                     continue
-                sums[name] = sums.get(name, 0.0) + v
-                counts[name] = counts.get(name, 0) + 1
+                sums[pos[name]] += v
+                counts[pos[name]] += 1.0
+        sums, counts = _global_reduce(sums, counts)
         out: Dict[str, Dict[str, float]] = {}
-        for name in sums:
-            mean = sums[name] / counts[name]
+        for i, name in enumerate(names):
+            if counts[i] == 0 or name in out:
+                continue
+            mean = float(sums[i] / counts[i])
             out[name] = ({"score": mean, "label": float(mean > self.threshold)}
                          if classify else {"score": mean})
-        if write_csv:
+        if write_csv and rank() == 0:
             self._write_csv(write_csv, out)
         return out
 

@@ -1,6 +1,9 @@
 """Optimizer factory and the train / eval steps (counterpart of multimodal_neuroimage_tpu/train/state.py).
 
-Single device: no mesh, no ``shard_map`` (multi-GPU is ROADMAP M11). The
+One device a process. Across ranks (parallel/mesh.py) the steps are
+JAX's ``shard_map`` steps: each rank's forward and backward on its own
+rows, then one ``all_reduce`` mean over K5's flat gradient buffer (JAX's
+``pmean`` of the gradients) and one over the stacked losses. The
 optimizer is K5 (ops/fused_update.py ``FusedAdam``) for adam / adamw:
 what the JAX ``create_optimizer`` fuses, and with ``accumulation_steps``
 k > 1 its ``optax.MultiSteps`` chain, K5 applied to the mean of k
@@ -28,6 +31,8 @@ import torch
 from multimodal_neuroimage_tpu_torch.nn.common import full_f32
 from multimodal_neuroimage_tpu_torch.nn.swinfusion import set_compute_policy
 from multimodal_neuroimage_tpu_torch.ops.fused_update import FusedAdam
+from multimodal_neuroimage_tpu_torch.parallel.mesh import (all_reduce_mean_,
+                                                           initialized)
 from multimodal_neuroimage_tpu_torch.train.losses import (LossSpec,
                                                           compute_losses)
 from multimodal_neuroimage_tpu_torch.train.schedules import build_schedule
@@ -241,7 +246,19 @@ def make_train_step(model: torch.nn.Module, loss_specs: Dict[str, LossSpec],
     under that policy) and the parameters before the update, reduced on the
     device only where ``norms_every`` > 0 and ``(step + 1) % norms_every ==
     0`` (JAX's ``lax.cond``; ``step`` the count of train steps before this
-    one), else None."""
+    one), else None.
+
+    Across ranks the order is JAX's ``shard_map`` step
+    (train/state.py ``grad_core``): the rank's backward, at bf16
+    ``round_grads`` on the rank's gradient (JAX's VJP of the per-shard
+    cast comes before its ``pmean``), one ``all_reduce`` mean of
+    ``optimizer.grads``, the norms of the averaged gradient, then K5, whose
+    clipping sees the global gradient. The losses are averaged in one
+    ``all_reduce`` of their stack. With ``accumulation_steps`` k > 1 each
+    micro-step's gradient is averaged before ``FusedAdam`` folds it into
+    its running mean, as JAX's ``pmean`` runs inside each micro-step of
+    ``optax.MultiSteps``; the mean over ranks of k means equals the mean
+    of the k averaged gradients up to float32 rounding."""
     check_compute_dtype(compute_dtype)
     segments = top_level_segments(model) if norms_every > 0 else None
 
@@ -258,24 +275,42 @@ def make_train_step(model: torch.nn.Module, loss_specs: Dict[str, LossSpec],
             losses["total"].backward()
         if compute_dtype == "bfloat16":
             round_grads(optimizer.grads)
+        all_reduce_mean_(optimizer.grads)
+        losses = mean_losses(losses)
         norms = None
         if norms_every > 0 and (step + 1) % norms_every == 0:
             with torch.no_grad():
                 norms = param_grad_norms(segments, optimizer.params,
                                          optimizer.grads)
         optimizer.step()
-        return ({k: v.detach() for k, v in sorted(losses.items())},
+        return (losses,
                 {k: outputs[k].detach() for k in HEADS if k in outputs},
                 norms)
 
     return train_step
 
 
+def mean_losses(losses: Mapping[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """The losses, detached and keyed in sorted order, averaged over the
+    ranks in one ``all_reduce`` of their stack (JAX's ``pmean`` of the loss
+    dict); as they are without a process group."""
+    losses = {k: v.detach() for k, v in sorted(losses.items())}
+    if not initialized():
+        return losses
+    stack = all_reduce_mean_(torch.stack(
+        [v.float().reshape(()) for v in losses.values()]))
+    return {k: s.to(v.dtype).reshape(v.shape)
+            for (k, v), s in zip(losses.items(), stack.unbind(0))}
+
+
 def make_eval_step(model: torch.nn.Module, loss_specs: Dict[str, LossSpec],
                    compute_dtype: str = "float32", device="cuda",
                    extra_loss_fns=None) -> Callable:
     """fn(batch) -> (losses, preds) with dropout off (the perceptual loss's
-    slices at its fixed seed, as JAX's eval step draws them)."""
+    slices at its fixed seed, as JAX's eval step draws them); across ranks
+    the losses are averaged (JAX's ``pmean``) and the predictions stay the
+    rank's own."""
     check_compute_dtype(compute_dtype)
 
     @torch.no_grad()
@@ -288,7 +323,7 @@ def make_eval_step(model: torch.nn.Module, loss_specs: Dict[str, LossSpec],
                 outputs = forward_at(model, inputs, compute_dtype)
             losses = compute_losses(outputs, inputs, loss_specs,
                                     extra_loss_fns)
-        return (dict(sorted(losses.items())),
+        return (mean_losses(losses),
                 {k: outputs[k] for k in HEADS if k in outputs})
 
     return eval_step

@@ -55,7 +55,19 @@ CUDA activity, a Chrome trace); the task's
 auxiliary losses all run, the perceptual one through
 nn/perceptual.py's ``PerceptualLoss``; ``optuna_trial`` (set by
 hpo/optuna_harness.py) is told each epoch's objective and may prune the
-run. Not here yet: multi-GPU (ROADMAP M11).
+run.
+
+Across GPUs (``cfg.distributed`` under ``torchrun``, parallel/mesh.py) the
+Trainer is one rank of JAX's multi-process Trainer: it joins the process
+group and takes ``cuda:{LOCAL_RANK}``; ``batch_size`` is per rank, so a
+step's global batch is ``batch_size * W`` and the loader gives each rank
+its rows; after the weights are restored every rank takes rank 0's flat
+parameters and K5 state; each step averages the gradients and losses
+(train/state.py); subject scores, NaN-audit subjects and metrics are
+gathered across ranks, so every rank keeps the same ``val_threshold``;
+rank 0 alone writes checkpoints, ``full_scores.csv`` and the per-subject
+predictions, and a barrier comes before any rank reads a checkpoint
+(resume, ``testing``).
 ``cfg.compute_dtype`` reaches the train, eval and predict steps (the bf16
 policy of train/state.py; HCP's K6 route keeps a bf16 stream through K6's
 bf16 form); the float32 masters, checkpoints and K5 are the same under
@@ -83,6 +95,9 @@ from multimodal_neuroimage_tpu_torch.models.registry import (
 from multimodal_neuroimage_tpu_torch.obs.profiling import (profile_trace,
                                                            trace_annotation)
 from multimodal_neuroimage_tpu_torch.obs.writer import Writer
+from multimodal_neuroimage_tpu_torch.parallel.mesh import (
+    barrier, broadcast_, gather_objects, initialized,
+    maybe_initialize_distributed, world)
 from multimodal_neuroimage_tpu_torch.train.losses import active_losses
 from multimodal_neuroimage_tpu_torch.train.state import (
     make_eval_step, make_train_step, optimizer_from_config)
@@ -97,6 +112,7 @@ class Trainer:
                  experiment_folder: Optional[str] = None,
                  sets: Optional[List[str]] = None):
         self.cfg = cfg
+        device = maybe_initialize_distributed(cfg, device)
         self.device = device
         self.sets = list(sets or ["train", "val"])
         if train_records is None and val_records is None:
@@ -110,8 +126,9 @@ class Trainer:
         if training and steps == 0:
             raise ValueError(
                 f"train split has {len(self.pipeline.splits['train'])} "
-                f"subjects but one batch needs {cfg.batch_size}: zero train "
-                f"steps")
+                f"subjects but one global batch needs "
+                f"{cfg.batch_size * world()} (batch_size={cfg.batch_size} x "
+                f"{world()} rank(s)): zero train steps")
         self.steps_per_epoch = steps
         self.last_folder = experiment_folder or cfg.experiment_folder
         folder = self.last_folder or cfg.log_dir
@@ -148,6 +165,7 @@ class Trainer:
                 cfg.log_grad_norms_every)
             if resumed is not None:
                 self._resume_optimizer(resumed)
+        self._sync_ranks()
         self.eval_step = make_eval_step(self.model, self.loss_specs,
                                         cfg.compute_dtype, device,
                                         self.extra_loss_fns)
@@ -180,7 +198,10 @@ class Trainer:
         """JAX ``Trainer._restore_weights``: resume from the newest
         checkpoint in ``folder`` (returned, for the optimizer and generator
         once they exist), else chain from ``cfg.model_weights_path`` by
-        ``partial_restore``, else keep the random weights."""
+        ``partial_restore``, else keep the random weights. Across ranks a
+        barrier first, so that no rank looks before rank 0's last write
+        ends."""
+        barrier()
         resume = latest_checkpoint(folder) if folder else None
         if resume:
             ckpt = load_checkpoint(resume)
@@ -206,6 +227,22 @@ class Trainer:
             print(f"[testing] WARNING: no checkpoint in {folder!r} and no "
                   f"model_weights_path: testing the random initial weights")
         return None
+
+    def _sync_ranks(self) -> None:
+        """Rank 0's weights and K5 state on every rank, once (the port's
+        ``replicate``): K5's flat parameters, moments and accumulated mean,
+        or, without an optimizer, each parameter."""
+        if not initialized():
+            return
+        with torch.no_grad():
+            if self.optimizer is None:
+                for p in self.model.parameters():
+                    broadcast_(p.data)
+                return
+            for t in (self.optimizer.params, self.optimizer.mu,
+                      self.optimizer.nu, self.optimizer.acc):
+                if t is not None:
+                    broadcast_(t)
 
     def _resume_optimizer(self, ckpt: Dict) -> None:
         if ckpt["optimizer"] is None:
@@ -242,9 +279,15 @@ class Trainer:
 
     def _flush_nan_audit(self) -> None:
         """Print, and keep in ``nan_subjects``, the subjects of every batch
-        whose loss of one kind was not finite."""
+        whose loss of one kind was not finite. The losses are averaged over
+        the ranks, so a batch's subjects are every rank's (gathered)."""
         if not self._audit_queue:
             return
+        if world() > 1:
+            parts = gather_objects([names for names, _ in self._audit_queue])
+            self._audit_queue = [
+                ([n for part in parts for n in part[i]], ls)
+                for i, (_, ls) in enumerate(self._audit_queue)]
         kinds = sorted({k for _, ls in self._audit_queue for k in ls})
         values = torch.stack([
             torch.stack([ls[k].detach().float().reshape(())
@@ -371,6 +414,12 @@ class Trainer:
         return metrics
 
     def _checkpoint(self, epoch: int, metrics: Dict[str, float]) -> None:
+        """The epoch's BEST and last-epoch files, written by rank 0
+        (``save_checkpoint``); every rank keeps the validation threshold,
+        since the metrics are global (JAX ``_checkpoint``). No barrier
+        here: a reader waits at its own (``_restore_weights``), and a study
+        relays a failed write at the next pruning decision
+        (hpo/optuna_harness.py)."""
         threshold = metrics.get("val_best_threshold")
         if threshold is not None:
             self.val_threshold = threshold

@@ -7,7 +7,9 @@
   fallback trial (JAX's giving the same answers);
 * a pruned trial is skipped, and any other failure ends the study with its
   error (the port's one difference: no fault of the device or a kernel
-  passes as a failed trial); more than one process raises, naming M11;
+  passes as a failed trial); across processes the trial parameters and
+  pruning decisions are the leader's, sent over one fixed-size buffer
+  (tests/test_torch_dist.py runs a study on two ranks);
 * a 2-trial ``run_study`` on an on-disk cohort writes ``best_params.pkl``
   with JAX's keys, and ``apply_best_params`` reads them back into the
   config (the CLI's ``--use_best_params_from_optuna``).
@@ -135,11 +137,25 @@ def test_trainer_reports_the_study_objective_and_prunes(task, objective):
 
 
 def test_more_than_one_process_names_m11(monkeypatch):
-    monkeypatch.setattr(toh, "_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="M11"):
-        toh.broadcast_params({"lr_init": 1e-4})
-    with pytest.raises(NotImplementedError, match="M11"):
-        toh.SyncedTrial(None).should_prune()
+    """More than one process (ROADMAP M11, ported): the leader's trial
+    parameters and pruning flag reach every rank through one fixed-size
+    buffer (here a leader's broadcast on one process, the ranks' message
+    counts agreeing); a payload too large for the buffer raises; on one
+    process both are the identity."""
+    sent = []
+    monkeypatch.setattr(toh, "world", lambda: 2)
+    monkeypatch.setattr(toh, "gather_objects", lambda n: [n, n])
+    monkeypatch.setattr(toh, "broadcast_buffer",
+                        lambda buf: sent.append(buf.shape) or buf)
+    monkeypatch.setattr(toh, "_CHANNEL", toh._Channel())
+    assert toh.broadcast_params({"lr_init": 1e-4}) == {"lr_init": 1e-4}
+    assert toh.SyncedTrial(None).should_prune() is False
+    assert sent == [(toh._BCAST_BYTES,)] * 2 and toh._CHANNEL.seq == 2
+    with pytest.raises(ValueError, match="payload too large"):
+        toh.broadcast_params({"x": "y" * toh._BCAST_BYTES})
+    monkeypatch.setattr(toh, "gather_objects", lambda n: [n, n + 1])
+    with pytest.raises(RuntimeError, match="desync"):
+        toh.broadcast_flag(True)
     monkeypatch.undo()
     assert toh.broadcast_params(None) == {} and toh.broadcast_flag(True)
 

@@ -324,6 +324,27 @@ with tempfile.TemporaryDirectory() as tmp:
     assert best["batch_size"] == 4 and "best_value" in best
     assert glob.glob(os.path.join(root, "experiments", "hpo_*",
                                   "best_params.pkl"))
+# one gloo rank (world size 1, a launcher's environment) through a training
+# step: the process group, the host group, the gradient and loss all-reduce
+import socket
+from multimodal_neuroimage_tpu_torch.parallel import mesh
+with socket.socket() as sock:
+    sock.bind(("127.0.0.1", 0))
+    free = sock.getsockname()[1]
+os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                  MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free))
+with tempfile.TemporaryDirectory() as tmp:
+    root = synthetic.generate_synthetic_cohort(tmp, n_subjects=8, seed=1)
+    disk = synthetic.synthetic_config(
+        root, task="VIT", dataset_name="sMRI", target="sex",
+        size_of_model="small", batch_size=4, nEpochs=1, workers=1,
+        distributed=True, experiment_folder=os.path.join(tmp, "exp"),
+        experiment_title="rank").validate()
+    tr = Trainer(disk, device="cpu")
+    assert mesh.initialized() and mesh.world() == 1 and mesh.rank() == 0
+    tr.training()
+    assert len(tr.step_losses) == 1 and np.isfinite(tr.step_losses).all()
+    mesh.shutdown()
 print(sorted(m for m in sys.modules
              if m in ("jax", "flax", "pandas", "sklearn")
              or m == "multimodal_neuroimage_tpu"
@@ -340,7 +361,9 @@ def test_port_imports_no_jax_flax_pandas_sklearn():
     ``SwinClassifier`` and of ``SwinFusionNet`` from a structural cohort on
     disk and serve the second with ``run_predict``, run the phase chain
     3 -> 5 -> 4, a ``--predict_only`` and a 1-trial ``--use_optuna`` study
-    through the port's CLI, in a fresh
+    through the port's CLI, take a training step as one gloo rank
+    (parallel/mesh.py, a launcher's environment at world size 1), in a
+    fresh
     interpreter (this test process imported jax already,
     tests/conftest.py): none of jax, flax, pandas, sklearn or the JAX
     package ``multimodal_neuroimage_tpu`` (any of its modules) gets
@@ -375,7 +398,7 @@ def test_no_port_file_imports_the_jax_package():
     for new in ("nn/unet.py", "models/struct_nets.py",
                 "models/swinfusion_net.py", "nn/crossmodal.py",
                 "nn/perceptual.py", "obs/writer.py", "obs/profiling.py",
-                "hpo/optuna_harness.py"):
+                "hpo/optuna_harness.py", "parallel/mesh.py"):
         assert os.path.join(port, new) in files, new
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_modules(f)
