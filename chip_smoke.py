@@ -222,7 +222,22 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    launches and NCCL across the two as (b) (else printed as not run); the
    all-reduce's time at
    the flagship's K5 buffer under each backend; the phase's wall time.
-15. Prints one JSON line of per-kernel results (launches by path:
+15. Repeatable steps (``reproducible_steps``, F16): two bf16 flagship
+   steps under the ``Trainer`` (which selects cuDNN's deterministic
+   algorithms) bitwise equal; the bf16 step at batch 16 and 64 with and
+   without those algorithms, timed in turns, and the ratio.
+16. The exported serving artifact (``export_phase``, serve/export.py): the
+   registered ops' host cost a call beside the direct call (K1 mm16, K4,
+   batch 4); the flagship (bf16, std), the flagship (float32, bp) and HCP
+   (bf16, float32) exported at full width (all but one flagship cut in
+   depth) with their registered ops and portable, served in one fresh
+   interpreter without a model module: scores within ``EXPORT_TOL`` of the
+   live Predictor's and launches a batch equal to its, the portable
+   artifacts within the serving tolerance and without a launch; sizes,
+   times; the flagship's weights mapped from the reference's layout
+   (torch_import, hf_import) served bitwise; an fMRI_image cohort in the
+   native gear equal to the host gear.
+17. Prints one JSON line of per-kernel results (launches by path:
    flagship, flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, hcp_bf16,
    flagship_defaults, flagship_disk, hcp_disk, dot_shapes, smri_swin,
    smri_swin_vae, smri_swin_unet, swinfusion_struct, struct_disk,
@@ -234,7 +249,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    outer_shell_best_params, outer_shell_heads4, outer_shell_unet_profiled
    and outer_shell_unet_cross_twin_step, and the multi-GPU phase's
    multi_gpu_nccl1 (the CLI run), multi_gpu_gloo2_rank0 and _rank1 (and
-   multi_gpu_nccl2_rank* on two cards); K5's and K2/K3's cases on the
+   multi_gpu_nccl2_rank* on two cards), and the export phase's
+   export_flagship_bf16, export_flagship_bf16_cut, export_flagship_bp,
+   export_hcp_bf16 and export_hcp_f32 (the artifacts' launches); K5's and
+   K2/K3's cases on the
    structural paths, K1's at T = 129, at hd 21 and 14 and K5's at phase
    2's sizes under ``path_cases``) and, last, the ok line.
 
@@ -289,6 +307,7 @@ TPU = "multimodal_neuroimage_tpu/ops/"
 PEAK_F32_OPS, PEAK_BYTES, PEAK_TF32_OPS = 67e12, 3.35e12, 495e12
 HCP_BATCH = 8
 HCP_CPU_LAYERS = 2   # the HCP card-vs-CPU step's depth (16 at full width)
+MULT_CPU_LEVELS = 2  # the MulT card-vs-CPU step's levels (12 at full depth)
 FLAGSHIP_KERNELS = ("K1 bert_layer", "K2 fusion_block",
                     "K3 cross_fusion_block", "K4 window_attention",
                     "K1 bert_layer backward", "K2 fusion_block backward",
@@ -3952,8 +3971,9 @@ def phase2_nets(card, gen, res: Results):
     bands are drawn): 32 bf16 K6 forwards and 32 backwards and K5 once. One
     float32 training step of each net at full width: the two-channel net's
     kernels against their plain twins on the card at ``GRAD_REL``, the MulT
-    net (no kernel to twin) on the card against the CPU from the same
-    weights, batch and generator state at ``GRAD_REL``. Last the training
+    net (no kernel to twin; cut to ``MULT_CPU_LEVELS`` levels) on the card
+    against the CPU from the same weights, batch and generator state at
+    ``GRAD_REL``. Last the training
     and predict steps of both nets at batch 8 and 64, bf16 and float32 in
     turns, with peak memory. Returns the launch counts by path."""
     from multimodal_neuroimage_tpu_torch import ops
@@ -4106,9 +4126,12 @@ def phase2_nets(card, gen, res: Results):
             or any(steps["plain twins on the card"].values())):
         raise AssertionError(f"two-channel twin step launches {steps}")
     launches["phase2_two_channels_twin_step"] = steps["card"]
-    cfg = dataclasses.replace(config_from_args(base), compute_dtype="float32")
-    steps = _step_compare(cfg, batch, "MulT net (full width, float32)",
-                          (("card", "cuda", "std"), ("CPU", "cpu", "std")))
+    # the MulT net at MULT_CPU_LEVELS (its CPU side at 12 levels took 27 s)
+    cfg = dataclasses.replace(config_from_args(base), compute_dtype="float32",
+                              nlevels=MULT_CPU_LEVELS)
+    steps = _step_compare(cfg, batch, "MulT net (full width, cut depth, "
+                          "float32)", (("card", "cuda", "std"),
+                                       ("CPU", "cpu", "std")))
     if steps["card"] != {k: int(k == "K5 fused_adam") for k in steps["card"]}:
         raise AssertionError(f"MulT step launches {steps['card']}")
     launches["phase2_mult_step"] = steps["card"]
@@ -4547,10 +4570,9 @@ def multi_gpu(card):
     launches, allreduce = {}, {}
 
     # ---- (a) NCCL at world size 1: bitwise the step without a group ------
-    # under cuDNN's deterministic algorithms on both sides: its default
-    # weight-gradient algorithms of the backbone's convs vary run to run
-    # (two bf16 steps of one seed differ in conv_after_body_Fusion.weight's
-    # gradient by up to 1.9e-6; at float32 536 of 1542 tensors differ)
+    # under cuDNN's deterministic algorithms on both sides, which
+    # dp_step.build_step selects as the Trainer does (F16: at cuDNN's
+    # default the backbone's conv gradients vary run to run)
     cfg = dp_step.flagship_config()
     batches = dp_step.global_batches(1, dp_step.BATCH, 3)
 
@@ -4564,8 +4586,6 @@ def multi_gpu(card):
         torch.cuda.synchronize()
         return opt, losses, ops.launches()
 
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
     ref_opt, ref_losses, ref_counts = steps()
     with _launcher_env(1):
         device = mesh.maybe_initialize_distributed(
@@ -4576,7 +4596,6 @@ def multi_gpu(card):
             raise AssertionError(f"NCCL world 1: {dist.get_backend()}, "
                                  f"{mesh.world()}, {device}")
         opt, losses, counts = steps()
-        torch.backends.cudnn.deterministic = saved
         allreduce["NCCL, world 1"] = (dp_step.allreduce_ms(
             opt.grads.clone()), 4 * opt.grads.numel())
         mesh.shutdown()
@@ -4653,6 +4672,468 @@ def multi_gpu(card):
               f"{what}: median {ms:.3f} ms; card: {card}")
     print(f"multi-GPU phase: {time.perf_counter() - t_phase:.1f} s; "
           f"card: {card}")
+    return launches
+
+
+# ---- phase 15: repeatable steps on the card (F16) ---------------------------
+
+F16_TIMED_BATCHES = (16, 64)
+
+
+def reproducible_steps(card, rng):
+    """Phase 15 (F16): (a) two ``Trainer``s of one seed (the flagship at
+    its bf16 default, batch 4, std layout) take one step each on the same
+    batch: the gradients, the updated parameters and the losses bitwise
+    equal, the Trainer having selected cuDNN's deterministic algorithms
+    (utils/reproducibility.py); (b) the same step at batch 16 and 64 with
+    and without them, timed in turns (with, without, without, with), each
+    side's median and the ratio: what F16's repair costs a step."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.data.loader import DataPipeline
+    from multimodal_neuroimage_tpu_torch.models.registry import (
+        create_model, init_random_weights)
+    from multimodal_neuroimage_tpu_torch.ops import build
+    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
+    from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
+                                                             make_train_step)
+    from multimodal_neuroimage_tpu_torch.train.trainer import Trainer
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _flagship_cfg(compute_dtype="bfloat16")
+    records = _cohort(rng, 2 * cfg.batch_size, 700)
+    runs = []
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        for i in range(2):
+            torch.backends.cudnn.deterministic = False
+            trainer = Trainer(cfg, records, records[:cfg.batch_size],
+                              device="cuda",
+                              experiment_folder=os.path.join(tmp, str(i)))
+            if not torch.backends.cudnn.deterministic:
+                raise AssertionError("the Trainer on the card did not select "
+                                     "cuDNN's deterministic algorithms")
+            batch, _ = next(trainer.batches("train"))
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            losses, _, _ = trainer.train_step(batch, trainer.generator)
+            torch.cuda.synchronize()
+            runs.append((trainer.optimizer.grads.clone(),
+                         trainer.optimizer.params.clone(),
+                         {k: float(v) for k, v in losses.items()},
+                         ops.launches()))
+            del trainer
+    (g0, p0, l0, c0), (g1, p1, l1, c1) = runs
+    if not (torch.equal(g0, g1) and torch.equal(p0, p1) and l0 == l1
+            and c0 == c1):
+        raise AssertionError(
+            f"F16: two bf16 flagship steps under the Trainer differ: "
+            f"gradients max|diff| {(g0 - g1).abs().max().item():.3e}, "
+            f"parameters {(p0 - p1).abs().max().item():.3e}, losses {l0} "
+            f"vs {l1}")
+    print(f"F16: two bf16 flagship training steps (batch 4, std layout) "
+          f"under the Trainer, cuDNN's deterministic algorithms selected by "
+          f"it: gradients ({g0.numel()} floats), updated parameters and "
+          f"losses ({l0['total']:.6f}) bitwise equal; launches equal")
+    del runs, g0, g1, p0, p1
+
+    for B in F16_TIMED_BATCHES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg_b = _flagship_cfg(compute_dtype="bfloat16", batch_size=B)
+        pipe = DataPipeline(cfg_b, splits={"train": _cohort(rng, B, 800)},
+                            device="cuda")
+        batch = next(pipe.epoch("train", to_device=False))[0]
+        model = init_random_weights(create_model(cfg_b),
+                                    torch.Generator().manual_seed(SEED + 9))
+        model.cuda()
+        opt = create_optimizer("AdamW", model.parameters(), lambda t: 1e-4,
+                               cfg_b.weight_decay)
+        step = make_train_step(model, active_losses(cfg_b.task,
+                                                    cfg_b.fine_tune_task),
+                               opt, "bfloat16", "cuda")
+        gen = torch.Generator().manual_seed(SEED + 10)
+        times = {True: [], False: []}
+        for det in (True, False, False, True):
+            torch.backends.cudnn.deterministic = det
+            for _ in range(2):
+                step(batch, gen)
+            torch.cuda.synchronize()
+            for _ in range(4):
+                t0 = time.perf_counter()
+                step(batch, gen)
+                torch.cuda.synchronize()
+                times[det].append(1e3 * (time.perf_counter() - t0))
+        torch.backends.cudnn.deterministic = True
+        on, off = (statistics.median(times[d]) for d in (True, False))
+        print(f"F16 cost: bf16 flagship training step at batch {B} (fwd + "
+              f"bwd + K5, std layout, timed in turns, 8 steps a side): "
+              f"deterministic cuDNN median {on:.3f} ms, cuDNN's default "
+              f"{off:.3f} ms, ratio {on / off:.4f}; card: {card}")
+        del model, opt, step
+    print(f"F16 phase: {time.perf_counter() - t_phase:.1f} s; card: {card}")
+
+
+# ---- phase 16: the exported serving artifact ---------------------------------
+
+# the artifacts of the export phase: (label, config, fusion layout, with a
+# portable twin). All at full width: the bf16 std flagship at full depth
+# (its launches a batch), the others cut in depth, which the portable
+# twins are held on (at full depth the flagship took 38-41 s to trace and
+# save, 57-61 s portable and 25 s to load); HCP at both dtypes, the same
+# weights (the bf16 artifact's bytes against the float32 one's)
+EXPORT_CUT = dict(transformer_hidden_layers=2, **CPU_STEP_DEPTH)
+EXPORTS = (("flagship_bf16", dict(compute_dtype="bfloat16"), "std", False),
+           ("flagship_bf16_cut", dict(compute_dtype="bfloat16", **EXPORT_CUT),
+            "std", True),
+           ("flagship_bp", dict(compute_dtype="float32", **EXPORT_CUT), "bp",
+            True),
+           ("hcp_bf16", dict(compute_dtype="bfloat16"), "std", True),
+           ("hcp_f32", dict(compute_dtype="float32"), "std", False))
+EXPORT_HCP_LAYERS = 4
+# an artifact's scores against the live Predictor's (atol, rtol) by compute
+# dtype: about one float32 ulp apart (1.2e-7, 2.4e-7 read), as the live
+# model on copies of its weights is (serve/export.py); at bf16 one such
+# difference may flip a bf16 rounding downstream
+EXPORT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 1e-3)}
+# one served batch of the bf16 std flagship (the live Predictor's too)
+EXPORT_STD16 = {"K1 bert_layer mm16": 32, "K2 fusion_block": 48,
+                "K3 cross_fusion_block": 12, "K4 window_attention": 10}
+
+# the artifacts served by a fresh interpreter that imports
+# serve/export.py and ops/library.py only: argv[1] is a JSON list of
+# (artifact, batches .npz) pairs; prints one JSON line of each's scores
+# file, launches a batch, median batch ms, and the port modules loaded
+_SERVE_ARTIFACTS = r"""
+import json, statistics, sys, time
+import numpy as np
+import torch
+# the numerics of this script's main, as the live Predictor ran under them
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from multimodal_neuroimage_tpu_torch.ops import library
+from multimodal_neuroimage_tpu_torch.serve.export import load_exported
+from multimodal_neuroimage_tpu_torch import ops
+out = []
+for path, batches in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    art = load_exported(path)
+    load_s = time.perf_counter() - t0
+    data = np.load(batches)
+    n = int(data["n"])
+    scores, counts = [], []
+    for i in range(n):
+        batch = {k.split("/", 1)[1]: data[k] for k in data.files
+                 if k.startswith(f"{i}/")}
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        scores.append(art(batch))
+        torch.cuda.synchronize()
+        counts.append({k: v for k, v in ops.launches().items() if v})
+    first = {k.split("/", 1)[1]: torch.as_tensor(data[k], device="cuda")
+             for k in data.files if k.startswith("0/")}
+    ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art(first)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    np.save(path + ".scores.npy", np.stack(scores))
+    out.append({"path": path, "counts": counts, "ms": statistics.median(ms[1:]),
+                "ops": art.meta["ops"], "load_s": load_s})
+model = [m for m in sys.modules if m.startswith("multimodal_neuroimage_tpu")
+         and not m.startswith("multimodal_neuroimage_tpu_torch.ops")
+         and m not in ("multimodal_neuroimage_tpu_torch",
+                       "multimodal_neuroimage_tpu_torch.serve",
+                       "multimodal_neuroimage_tpu_torch.serve.export")]
+print(json.dumps({"artifacts": out, "model_modules": sorted(model)}))
+"""
+
+
+def _host_cost(op, direct, rounds=6, calls=40):
+    """Host microseconds a call (the time until the call returns, launches
+    queued, CUDA-synchronised between rounds) of ``op`` and ``direct``, in
+    turns (op, direct, direct, op, ...), median over the rounds; and each
+    one's device ms (CUDA events)."""
+    host = {"op": [], "direct": []}
+    fns = {"op": op, "direct": direct}
+    order = ["op", "direct", "direct", "op"] * (rounds // 2)
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fns[name]()
+        host[name].append(1e6 * (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    dev_op, dev_direct = _turns([op, direct], iters=20)
+    return (statistics.median(host["op"]), statistics.median(host["direct"]),
+            dev_op, dev_direct)
+
+
+def _op_host_costs(card, gen):
+    """One call through a registered op beside the same direct wrapper
+    call (inference, no autograd): K1 mm16 and K4 at the flagship's batch
+    4. Prints the host cost a call."""
+    from multimodal_neuroimage_tpu_torch.ops import attention as att
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    from multimodal_neuroimage_tpu_torch.ops import library
+    x = torch.randn(4, 369, 84, generator=gen).cuda()
+    p = _k1_params16(gen)
+    q, k, v, b4, mask, label = _k4_inputs(gen, 4)[0]
+    cases = (
+        ("K1 bert_layer mm16 (batch 4, T 369, H 84, 12 heads)",
+         lambda: library.bert_layer_forward16(x, list(p), 12, 369),
+         lambda: bl.bert_layer_call16(x, p, 12, 369)),
+        (f"K4 window_attention (batch 4, {label})",
+         lambda: library.window_attention_forward(q, k, v, b4, mask),
+         lambda: att.fused_window_attention(q, k, v, b4, mask)))
+    with torch.no_grad():
+        for name, op, direct in cases:
+            if not torch.equal(op(), direct()):
+                raise AssertionError(f"{name}: the registered op and the "
+                                     f"direct call differ")
+            h_op, h_dir, d_op, d_dir = _host_cost(op, direct)
+            print(f"registered op vs direct call, {name}: host "
+                  f"{h_op:.1f} us vs {h_dir:.1f} us a call (op costs "
+                  f"{h_op - h_dir:+.1f} us), call time (CUDA events) "
+                  f"{d_op:.4f} ms vs {d_dir:.4f} ms; card: {card}")
+
+
+def _reference_sd(state):
+    """The reference's ``.pth`` layout of a flagship state: the BERTs and
+    the SwinFusion backbone at the top level, the classifier under
+    ``swin.``, HF's two token-type rows and word embeddings."""
+    sd = {}
+    for k, v in state.items():
+        for p in ("fmri_embed.", "fusion."):
+            if k.startswith(p):
+                k = k[len(p):]
+        sd[k] = v
+        if k.endswith("token_type_embeddings.weight"):
+            sd[k] = torch.cat([v, torch.randn_like(v)])
+            sd[k.replace("token_type", "word")] = torch.randn(3, v.shape[1])
+    return sd
+
+
+def export_phase(card, gen, rng):
+    """Phase 16 (``export``): serve/export.py on the card at full width.
+    Exports (``EXPORTS``) the flagship at its bf16 default on the std
+    layout at full depth and cut in depth, the flagship at float32 on
+    ``bp`` and HCP phase 1 at bf16 and float32 (both cut in depth), each
+    with its registered ops and, but for the full-depth flagship and HCP
+    at float32, ``portable=True``, from random weights of a seed; serves
+    every artifact in one fresh interpreter that imports serve/export.py
+    and ops/library.py only (checked: no model module of the port is
+    loaded there) on the live Predictor's batches: the artifacts' scores
+    within ``EXPORT_TOL`` of the Predictor's and their launches a batch
+    equal to its (the bf16 std flagship's K1 mm16 32, K2 48, K3 12, K4 10),
+    the portable ones within the serving tolerance of them and without a
+    launch. Prints the export, save and load times, the artifact sizes
+    (HCP's bf16 against float32), the served batch's time beside the live
+    step's, the
+    registered ops' host cost a call (``_op_host_costs``); maps the
+    flagship's weights from the reference's layout on the CPU
+    (utils/torch_import.py, its BERTs through utils/hf_import.py) and
+    serves them on the card bitwise the original's; loads a synthetic
+    ``fMRI_image`` cohort in the native gear, equal to the host gear.
+    Returns the artifacts' launches by path."""
+    from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from multimodal_neuroimage_tpu_torch.data import synthetic
+    from multimodal_neuroimage_tpu_torch.data.loader import DataPipeline
+    from multimodal_neuroimage_tpu_torch.models.registry import (
+        create_model, init_random_weights)
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.nn.swin2d import size_preset
+    from multimodal_neuroimage_tpu_torch.ops import build
+    from multimodal_neuroimage_tpu_torch.serve.export import export_model
+    from multimodal_neuroimage_tpu_torch.serve.predictor import Predictor
+    from multimodal_neuroimage_tpu_torch.utils import torch_import
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _op_host_costs(card, gen)
+    launches, jobs, live = {}, [], {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        for label, kw, lay, with_portable in EXPORTS:
+            if label.startswith("hcp"):
+                cfg = _hcp_cfg(transformer_hidden_layers=EXPORT_HCP_LAYERS,
+                               **kw)
+                requests = [{k: r[k] for k in ("subject", "fmri")}
+                            for r in _hcp_cohort(np.random.default_rng(SEED),
+                                                 2 * cfg.batch_size, 900)]
+            else:
+                cfg = _flagship_cfg(**kw)
+                requests = [{k: r[k] for k in ("subject", "fmri", "struct")}
+                            for r in _cohort(rng, 2 * cfg.batch_size, 900)]
+            model = init_random_weights(
+                create_model(cfg), torch.Generator().manual_seed(SEED))
+            ckpt = save_checkpoint(os.path.join(tmp, f"{label}.ckpt"),
+                                   model.state_dict(),
+                                   {"val_threshold": 0.5})
+            n_params = sum(p.numel() for p in model.parameters())
+            del model
+            with _layout(lay):
+                pred = Predictor(cfg, ckpt, requests, device="cuda")
+                batches = [b for b, _ in pred.batches()]
+                counts, scores = [], []
+                for b in batches:
+                    torch.cuda.synchronize()
+                    ops.reset_launches()
+                    scores.append(pred.step(b)[pred.head].reshape(-1).cpu()
+                                  .numpy())
+                    torch.cuda.synchronize()
+                    counts.append({k: v for k, v in ops.launches().items()
+                                   if v})
+                step_ms = events_ms(lambda: pred.step(batches[0]), iters=5)
+                paths = {}
+                for portable in (False, True)[:1 + with_portable]:
+                    dest = os.path.join(tmp, f"{label}_{portable}.pt2")
+                    t0 = time.perf_counter()
+                    export_model(pred, dest, portable=portable)
+                    paths[portable] = (dest, time.perf_counter() - t0)
+            npz = os.path.join(tmp, f"{label}_batches.npz")
+            np.savez(npz, n=len(batches), **{
+                f"{j}/{k}": v.cpu().numpy() for j, b in enumerate(batches)
+                for k, v in b.items() if torch.is_tensor(v)})
+            live[label] = (cfg, np.stack(scores), counts, step_ms, n_params,
+                           paths)
+            jobs += [(dest, npz) for dest, _ in paths.values()]
+            print(f"export {label}: traced and saved in " + " and ".join(
+                f"{t:.1f} s ({'portable' if p else 'registered ops'}, "
+                f"{os.path.getsize(d) / 2 ** 20:.2f} MiB)"
+                for p, (d, t) in paths.items())
+                + f"; {n_params} parameters at {cfg.compute_dtype}; live "
+                f"predict step {step_ms:.2f} ms a batch of {cfg.batch_size}")
+            del pred
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _SERVE_ARTIFACTS, json.dumps(jobs)],
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                os.path.abspath(__file__)) + os.pathsep
+                + os.environ.get("PYTHONPATH", "")))
+        if proc.returncode != 0:
+            raise AssertionError(f"serving the artifacts in a fresh "
+                                 f"interpreter failed:\n{proc.stderr[-4000:]}")
+        served = json.loads(proc.stdout.strip().splitlines()[-1])
+        if served["model_modules"]:
+            raise AssertionError(f"the artifacts' interpreter loaded model "
+                                 f"modules: {served['model_modules']}")
+        print(f"export: {len(jobs)} artifacts served in a fresh interpreter "
+              f"(serve/export.py and ops/library.py imported; no model "
+              f"module of the port loaded) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        by_path = {a["path"]: a for a in served["artifacts"]}
+        for label, (cfg, want, counts, step_ms, n_params, paths) in \
+                live.items():
+            art = by_path[paths[False][0]]
+            got = np.load(paths[False][0] + ".scores.npy")
+            tol = EXPORT_TOL[cfg.compute_dtype]
+            art_err = _close(f"export {label} scores vs the live Predictor",
+                             torch.from_numpy(got), torch.from_numpy(want),
+                             *tol)
+            if art["counts"] != counts:
+                raise AssertionError(f"export {label}: artifact launches "
+                                     f"{art['counts']} vs live {counts}")
+            if label == "flagship_bf16" and counts[0] != EXPORT_STD16:
+                raise AssertionError(f"export {label}: launches a batch "
+                                     f"{counts[0]}, expected {EXPORT_STD16}")
+            beside = ""
+            if True in paths:
+                port = by_path[paths[True][0]]
+                if any(port["counts"]):
+                    raise AssertionError(f"export {label}: the portable "
+                                         f"artifact launched "
+                                         f"{port['counts']}")
+                atol, rtol = ((LOGIT16, LOGIT16) if cfg.compute_dtype ==
+                              "bfloat16" else (LOGIT_ATOL, LOGIT_RTOL))
+                err = _close(f"export {label} portable scores",
+                             torch.from_numpy(np.load(
+                                 paths[True][0] + ".scores.npy")),
+                             torch.from_numpy(got), atol, rtol)
+                beside = (f"; portable artifact: no launch, scores vs the "
+                          f"artifact's max|err| {err:.3e} (atol {atol} + rtol "
+                          f"{rtol}), served batch {port['ms']:.2f} ms, loaded "
+                          f"in {port['load_s']:.1f} s")
+            total = {}
+            for c in art["counts"]:
+                for k, n in c.items():
+                    total[k] = total.get(k, 0) + n
+            launches[f"export_{label}"] = total
+            print(f"export {label}: {len(want)} batches of {cfg.batch_size}"
+                  f"; artifact scores vs the live Predictor's max|err| "
+                  f"{art_err:.3e} (atol {tol[0]} + rtol {tol[1]}), "
+                  f"launches a batch equal ({counts[0]}); ops {art['ops']}; "
+                  f"served batch {art['ms']:.2f} ms vs live predict step "
+                  f"{step_ms:.2f} ms; loaded in {art['load_s']:.1f} s"
+                  f"{beside}; card: {card}")
+        for label, (cfg, *_, n, paths) in live.items():
+            nbytes = n * (2 if cfg.compute_dtype == "bfloat16" else 4)
+            print(f"export artifact size, {label} ({n} parameters at "
+                  f"{cfg.compute_dtype}, {nbytes} B of weights): " + ", ".join(
+                      f"{os.path.getsize(d)} B "
+                      f"{'portable' if p else 'with registered ops'}"
+                      for p, (d, _) in paths.items()))
+        s16, s32 = (os.path.getsize(live[k][5][False][0])
+                    for k in ("hcp_bf16", "hcp_f32"))
+        print(f"export artifact size, HCP's model and weights: bf16 {s16} B "
+              f"vs float32 {s32} B, ratio {s16 / s32:.3f}")
+
+        # ---- weights from the reference's layout, mapped on the CPU -------
+        cfg, *_ = live["flagship_bf16"]
+        ckpt = os.path.join(tmp, "flagship_bf16.ckpt")
+        state = load_checkpoint(ckpt)["state_dict"]
+        mapped = torch_import.funcstruct_cross_state(
+            _reference_sd(state), cfg.transformer_hidden_layers,
+            cfg.fusion_ex_depths, cfg.fusion_depths, cfg.fusion_re_depths,
+            size_preset(cfg.size_of_model)[0])
+        if sorted(mapped) != sorted(state) or not all(
+                torch.equal(mapped[k], state[k]) for k in state):
+            raise AssertionError("torch_import / hf_import did not give back "
+                                 "the flagship's state")
+        mckpt = save_checkpoint(os.path.join(tmp, "mapped.ckpt"), mapped,
+                                {"val_threshold": 0.5})
+        requests = [{k: r[k] for k in ("subject", "fmri", "struct")}
+                    for r in _cohort(rng, cfg.batch_size, 950)]
+        a = Predictor(cfg, ckpt, requests, device="cuda").predict()
+        b = Predictor(cfg, mckpt, requests, device="cuda").predict()
+        if a != b:
+            raise AssertionError("the mapped weights serve otherwise on the "
+                                 "card")
+        print(f"export: the flagship's weights in the reference's layout "
+              f"(HF BERTs with two token types) mapped on the CPU by "
+              f"utils/torch_import.py funcstruct_cross_state (its BERTs by "
+              f"utils/hf_import.py) served on the card bitwise the "
+              f"original's ({len(a)} subjects)")
+
+        # ---- an fMRI_image cohort in the native gear ---------------------
+        root = synthetic.generate_synthetic_cohort(
+            os.path.join(tmp, "img"), n_subjects=12, seed=SEED,
+            include_fmri_image=True)
+        got = {}
+        for gear in ("native", "host"):
+            icfg = synthetic.synthetic_config(
+                root, dataset_name="fMRI_image", target="sex", batch_size=4,
+                preprocess=gear, workers=4).validate()
+            t0 = time.perf_counter()
+            got[gear] = list(DataPipeline(icfg, device="cuda").epoch(
+                "train", to_device=False))
+            got[gear + "_s"] = time.perf_counter() - t0
+        for (nb, nn_), (hb, hn) in zip(got["native"], got["host"]):
+            if nn_ != hn or not np.array_equal(nb["fmri_sequence"],
+                                               hb["fmri_sequence"]):
+                raise AssertionError("fMRI_image: the native gear's batch "
+                                     "differs from the host gear's")
+        shape = got["native"][0][0]["fmri_sequence"].shape
+        print(f"export: fMRI_image cohort (12 subjects, NIfTI volumes) in "
+              f"the native gear: {len(got['native'])} train batches of "
+              f"{shape} in {got['native_s']:.3f} s, equal to the host "
+              f"gear's ({got['host_s']:.3f} s)")
+    print(f"export phase: {time.perf_counter() - t_phase:.1f} s; card: "
+          f"{card}")
     return launches
 
 
@@ -4846,6 +5327,14 @@ def main() -> int:
     multi_counts = multi_gpu(card)
     elapsed("multi-GPU phase")
 
+    # ---- repeatable steps on the card (F16) and what they cost --------------
+    reproducible_steps(card, rng)
+    elapsed("F16 phase")
+
+    # ---- the exported serving artifact ---------------------------------------
+    export_counts = export_phase(card, gen, rng)
+    elapsed("export phase")
+
     launches = {"flagship": train_counts, "flagship_bp": bp_counts,
                 "flagship_bf16": bf16_counts,
                 "flagship_bp_bf16": bp_bf16_counts,
@@ -4853,7 +5342,8 @@ def main() -> int:
                 "flagship_defaults": defaults_counts,
                 "flagship_disk": disk_counts, "hcp_disk": hcp_disk_counts,
                 "dot_shapes": dot_counts, **struct_counts, **chain_counts,
-                **phase2_counts, **outer_counts, **multi_counts}
+                **phase2_counts, **outer_counts, **multi_counts,
+                **export_counts}
     kernels = [results.line(key, launches) for key in ops.kernels()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,8 @@ batch s (``global_batches``: W * BATCH subjects drawn from numpy).
 ``--backend gloo`` starts a gloo group, which two ranks on one card need
 (NCCL refuses two ranks on one device), with ``--device`` naming the card;
 the default is the port's own choice, NCCL on ``cuda:{LOCAL_RANK}``. cuDNN
-runs its deterministic algorithms throughout (``_deterministic``: its
+runs its deterministic algorithms, as under the Trainer
+(``build_step``: utils/reproducibility.py ``deterministic_algorithms``; its
 default weight- and input-gradient algorithms of the backbone's convs vary
 run to run, which the comparisons below would read as a difference). Each
 rank writes ``OUT.rank<r>.pt``: the flat parameters and K5's moments after
@@ -43,7 +44,6 @@ learning rate.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import statistics
 import time
@@ -95,25 +95,19 @@ def rows(batch: Dict[str, np.ndarray], r: int, size: int):
     return {k: v[r * size:(r + 1) * size] for k, v in batch.items()}
 
 
-@contextlib.contextmanager
-def _deterministic():
-    """cuDNN's deterministic algorithms within the block."""
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = saved
-
-
 def build_step(cfg, device, accumulation_steps: int = 1):
     """(model, K5 optimizer, train step) of ``cfg`` on ``device`` from
-    ``SEED``'s random weights, AdamW at the constant ``LR``."""
+    ``SEED``'s random weights, AdamW at the constant ``LR``, with cuDNN's
+    deterministic algorithms on a CUDA device (as the Trainer selects
+    them)."""
     from multimodal_neuroimage_tpu_torch.models.registry import (
         create_model, init_random_weights)
     from multimodal_neuroimage_tpu_torch.train.losses import active_losses
     from multimodal_neuroimage_tpu_torch.train.state import (
         create_optimizer, make_train_step)
+    from multimodal_neuroimage_tpu_torch.utils.reproducibility import (
+        deterministic_algorithms)
+    deterministic_algorithms(device)
     model = init_random_weights(create_model(cfg),
                                 torch.Generator().manual_seed(SEED))
     model.to(device)
@@ -131,10 +125,9 @@ def accumulated_reference(world: int, device="cuda") -> torch.Tensor:
     ``accumulation_steps`` = ``world`` on the ranks' rows in turn."""
     _, opt, step = build_step(flagship_config(), device, world)
     gen = torch.Generator().manual_seed(SEED + 2)
-    with _deterministic():
-        for s, b in enumerate(global_batches(world, BATCH, STEPS)):
-            for r in range(world):
-                step(rows(b, r, BATCH), gen, s * world + r)
+    for s, b in enumerate(global_batches(world, BATCH, STEPS)):
+        for r in range(world):
+            step(rows(b, r, BATCH), gen, s * world + r)
     if opt.count != STEPS:
         raise AssertionError(f"{opt.count} updates, expected {STEPS}")
     return opt.params.detach().cpu().clone()
@@ -149,10 +142,9 @@ def micro_gradients(world: int, device="cuda") -> List[torch.Tensor]:
     gen = torch.Generator().manual_seed(SEED + 2)
     b = global_batches(world, BATCH, 1)[0]
     out = []
-    with _deterministic():
-        for r in range(world):
-            step(rows(b, r, BATCH), gen, r)
-            out.append(opt.grads.detach().cpu().clone())
+    for r in range(world):
+        step(rows(b, r, BATCH), gen, r)
+        out.append(opt.grads.detach().cpu().clone())
     return out
 
 
@@ -208,12 +200,11 @@ def run_rank(out: str, backend: str, device: str) -> Dict:
     _sync(device)
     ops.reset_launches()
     losses, first_grads = [], None
-    with _deterministic():
-        for s, b in enumerate(batches):
-            got, _, _ = step(rows(b, r, BATCH), gen, s)
-            losses.append({k: float(v) for k, v in got.items()})
-            if first_grads is None:
-                first_grads = opt.grads.detach().cpu().clone()
+    for s, b in enumerate(batches):
+        got, _, _ = step(rows(b, r, BATCH), gen, s)
+        losses.append({k: float(v) for k, v in got.items()})
+        if first_grads is None:
+            first_grads = opt.grads.detach().cpu().clone()
     _sync(device)
     counts = {k: n for k, n in ops.launches().items() if n}
     result = {"rank": r, "world": world, "backend": dist.get_backend(),

@@ -6,7 +6,8 @@ in-memory request (``{subject, fmri, struct?, prs?, target?}``; the structural
 datasets' ``{subject, dti | smri | struct | smri and dti, target?}``). A
 record's arrays are loaded as the JAX loader loads them (``load``: the ABCD
 series without its first 20 TRs, transposed to (ROI, T); HCP's (22, T)
-series; each structural matrix as stored), then both kinds go through the
+series; each structural matrix as stored; an ``fMRI_image`` volume through
+data/nifti.py ``read_nifti``), then both kinds go through the
 same item
 function of data/loader.py (``item_for``), so the preprocessing of the
 host and device gears is one code for both. A record's item also carries
@@ -14,8 +15,9 @@ host and device gears is one code for both. A record's item also carries
 ``_base`` gives them.
 
 With ``augment`` and ``cfg.augment_prob > 0`` (the train split) the raw
-ABCD series takes ``BrainGaussian`` noise before the preprocessing, at the
-point of the JAX chain; HCP and structural items take none.
+ABCD series, or the fMRI_image volume, takes ``BrainGaussian`` noise before
+the preprocessing, at the point of the JAX chain; HCP and structural items
+take none.
 """
 
 from __future__ import annotations
@@ -28,10 +30,13 @@ from multimodal_neuroimage_tpu_torch.data.augmentations import BrainGaussian
 from multimodal_neuroimage_tpu_torch.data.index import (SubjectRecord,
                                                         check_dataset)
 from multimodal_neuroimage_tpu_torch.data.loader import item_for
+from multimodal_neuroimage_tpu_torch.data.nifti import read_nifti
 
 ABCD_SKIP_TR = 20      # first 20 TRs dropped
-AUGMENTED = ("fMRI_timeseries", "multimodal",
-             "multimodal_prs")                  # their raw ABCD series
+# the request key that takes the augmentation, by dataset: the raw ABCD
+# series, or the fMRI_image volume
+AUGMENTED = {"fMRI_timeseries": "fmri", "multimodal": "fmri",
+             "multimodal_prs": "fmri", "fMRI_image": "fmri_image"}
 
 
 def load_abcd_fmri(path: str) -> np.ndarray:
@@ -55,7 +60,9 @@ class ItemLoader:
         if record.prs is not None:
             request["prs"] = record.prs
         for key, path in record.paths.items():
-            if key != "fmri":
+            if key == "fmri_image":
+                request[key] = read_nifti(path)
+            elif key != "fmri":
                 request[key] = np.load(path)
             elif self.cfg.dataset_name == "hcp":
                 request[key] = np.load(path).astype(np.float64)
@@ -74,7 +81,8 @@ class ItemLoader:
                    if "target" in record else {})
             request = record
         if self.augment is not None:
-            request = {**request, "fmri": self.augment(
-                np.asarray(request["fmri"], dtype=np.float64))}
+            key = AUGMENTED[self.cfg.dataset_name]
+            request = {**request, key: self.augment(
+                np.asarray(request[key], dtype=np.float64))}
         out.update(self.item_fn(request, self.cfg))
         return out

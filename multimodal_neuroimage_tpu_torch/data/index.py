@@ -17,7 +17,9 @@ package (or for the reference) is read by both:
   ``<prs_dir>/ABCD_EUR_Multibased_PRScsx_PC1-10resid_scaled.csv`` (its
   ``subjectkey`` without ``_``), z-scored over the subjects the metadata and
   the PRS table share, in each record's ``prs``;
-* HCP: ``<hcp_dir>/<SUBJECT>_cortex.npy``.
+* HCP: ``<hcp_dir>/<SUBJECT>_cortex.npy``;
+* fMRI_image: ``<fmri_image_dir>/masked_image_sub-<KEY>.nii.gz`` (4-D
+  NIfTI volumes, read by data/nifti.py).
 
 Where the JAX index leans on pandas, this copy reproduces what pandas
 does: ``read_csv``'s default NA tokens (``NA_TOKENS``) and its integer /
@@ -27,9 +29,8 @@ float / string column types, ``dropna`` over the key and target columns,
 ``merge`` (one a pair of matching rows) and the last of a key's rows in a
 dict built from them.
 
-Only the datasets whose models the port runs are indexed (``PORTED``):
-``fMRI_image`` raises, naming the ROADMAP item that ports it
-(``WAITING``).
+Every dataset of the JAX package is indexed (``PORTED``); another name
+raises.
 """
 
 from __future__ import annotations
@@ -43,12 +44,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-PORTED = ("hcp", "fMRI_timeseries", "multimodal", "multimodal_prs", "DTI",
-          "sMRI", "struct", "DTI+sMRI")
+PORTED = ("hcp", "fMRI_timeseries", "fMRI_image", "multimodal",
+          "multimodal_prs", "DTI", "sMRI", "struct", "DTI+sMRI")
 MULTIMODAL = ("multimodal", "multimodal_prs")
-# the datasets still to load: what ports each, and its ROADMAP item
-WAITING = {"fMRI_image": ("its NIfTI reader (data/nifti.py) and the model "
-                          "that reads it", "N6")}
 PRS_FILE = "ABCD_EUR_Multibased_PRScsx_PC1-10resid_scaled.csv"
 PRS_COLUMNS = ("CPeur2", "EAeur1", "IQeur2")
 
@@ -70,12 +68,7 @@ class SubjectRecord:
 
 
 def check_dataset(dataset_name: str) -> None:
-    """Raise for a dataset the port does not load."""
-    if dataset_name in WAITING:
-        what, item = WAITING[dataset_name]
-        raise NotImplementedError(
-            f"dataset {dataset_name!r} is not loaded by the port yet: it "
-            f"waits for {what} (ROADMAP {item})")
+    """Raise for a dataset the port does not know."""
     if dataset_name not in PORTED:
         raise ValueError(f"unknown dataset {dataset_name!r}")
 
@@ -166,6 +159,10 @@ def resolve_paths(dataset_name: str, subject: str, cfg) -> Dict[str, str]:
         kind = _smri_kind(cfg.dti_smri_path)
         paths["struct"] = os.path.join(
             cfg.dti_smri_path, f"dti_count+smri_{kind}_{subject}.npy")
+    if dataset_name == "fMRI_image":
+        # 4-D NIfTI volumes (reference datasets.py:157)
+        paths["fmri_image"] = os.path.join(
+            cfg.fmri_image_path, f"masked_image_sub-{subject}.nii.gz")
     return paths
 
 

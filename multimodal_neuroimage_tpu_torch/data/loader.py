@@ -22,6 +22,9 @@ is the port's own ``data/filters.py`` (the host gear) or, where
   84)}`` band split (``ItemLoader.multimodal``); ``multimodal_prs_item``
   also carries the request's three polygenic scores ``prs`` as float32
   (``ItemLoader.multimodal_prs``).
+- ``fmri_image_item``: ``{subject, fmri_image}``, a 4-D volume as
+  ``read_nifti`` gives it, stored as float32 ``fmri_sequence``
+  (``ItemLoader.fmri_image``).
 - ``dti_item``, ``smri_item``, ``dti_smri_item``, ``struct_pair_item``: the
   structural requests ``{subject, dti}``, ``{subject, smri}``, ``{subject,
   struct}`` (DTI+sMRI) and ``{subject, smri, dti}`` (phase 6's pair), each
@@ -33,7 +36,7 @@ is the port's own ``data/filters.py`` (the host gear) or, where
 by ``SplitManager``, or the caller's per-split lists of in-memory requests.
 The native gear (``preprocess="native"``, data/native.py) loads whole
 on-disk batches in C++: the structural matrices z-scored, the fMRI series
-band-split.
+band-split, the fMRI_image volumes read.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from multimodal_neuroimage_tpu_torch.data.index import (SubjectRecord,
                                                         check_dataset)
 from multimodal_neuroimage_tpu_torch.data.splits import SplitManager
 from multimodal_neuroimage_tpu_torch.parallel.mesh import rank, world
+from multimodal_neuroimage_tpu_torch.utils.reproducibility import host_rng
 
 ABCD_SEQ_LEN = 368     # ABCD pad target
 HCP_SEQ_LEN = 1200     # HCP pad target
@@ -102,6 +106,14 @@ def fmri_timeseries_item(request: Mapping, cfg) -> Dict[str, np.ndarray]:
         ABCD_SEQ_LEN, cfg.filtering_type, cfg.fir_lb_hz, cfg.tr_seconds,
         cfg.fir_order, cfg.feature_map_gen, cfg.feature_map_size)
     return {"subject_name": str(request["subject"]), **item}
+
+
+def fmri_image_item(request: Mapping, cfg) -> Dict[str, np.ndarray]:
+    """{subject, fmri_image (X, Y, Z, T)} -> its float32 ``fmri_sequence``
+    (JAX ``ItemLoader.fmri_image``)."""
+    return {"subject_name": str(request["subject"]),
+            "fmri_sequence": np.asarray(request["fmri_image"]).astype(
+                np.float32)}
 
 
 def struct_matrix(matrix) -> np.ndarray:
@@ -156,10 +168,10 @@ def multimodal_prs_item(request: Mapping, cfg) -> Dict[str, np.ndarray]:
 
 def item_for(cfg) -> Callable[[Mapping, object], Dict[str, np.ndarray]]:
     """The item function of ``cfg.dataset_name`` (``ItemLoader``'s
-    dispatch); raises for the datasets the port does not load yet."""
+    dispatch); raises for a dataset the port does not know."""
     check_dataset(cfg.dataset_name)
     return {"hcp": hcp_item, "fMRI_timeseries": fmri_timeseries_item,
-            "multimodal": multimodal_item,
+            "fMRI_image": fmri_image_item, "multimodal": multimodal_item,
             "multimodal_prs": multimodal_prs_item, "DTI": dti_item,
             "sMRI": smri_item, "DTI+sMRI": dti_smri_item,
             "struct": struct_pair_item}[cfg.dataset_name]
@@ -234,7 +246,7 @@ class DataPipeline:
     ``splits`` gives the per-split lists (in-memory requests, or records);
     without it the cohort on disk is indexed (``build_subject_index``) and
     split by ``SplitManager``. Batches
-    follow JAX's: the order from ``default_rng((cfg.seed, epoch))`` when
+    follow JAX's: the order from ``host_rng(cfg.seed, epoch)`` when
     shuffled; across W ranks (``torch.distributed``) a step's global batch
     is ``order[step * bs * W:][:bs * W]`` and rank r takes its rows ``r *
     bs`` to ``(r + 1) * bs``; the train split drops its last partial global
@@ -280,7 +292,8 @@ class DataPipeline:
         if cfg.preprocess != "native" or (split == "train"
                                           and cfg.augment_prob > 0):
             return False      # augmentation runs in the item path
-        if cfg.dataset_name in ("DTI", "sMRI", "DTI+sMRI", "struct"):
+        if cfg.dataset_name in ("DTI", "sMRI", "DTI+sMRI", "struct",
+                                "fMRI_image"):
             return True
         if cfg.filtering_type != "FIR" or cfg.feature_map_gen == "resample":
             return False      # fastpipe implements only the FIR-taps split
@@ -291,13 +304,21 @@ class DataPipeline:
     def _native_batch(self, recs: List[SubjectRecord]
                       ) -> Tuple[Dict[str, np.ndarray], List[str]]:
         """One batch through native/fastpipe.cpp: the structural matrices
-        z-scored as float32, the three bands (n, t_max, R) float32."""
+        z-scored as float32, the three bands (n, t_max, R) float32, or the
+        fMRI_image volumes as float32 ``fmri_sequence``."""
         from multimodal_neuroimage_tpu_torch.data import native
         cfg = self.cfg
         R = cfg.intermediate_vec
         batch: Dict[str, np.ndarray] = {
             "subject": np.asarray([r.idx for r in recs], np.int64),
             "target": np.asarray([r.target for r in recs], np.float32)}
+        if cfg.dataset_name == "fMRI_image":
+            from multimodal_neuroimage_tpu_torch.data.nifti import (
+                read_nifti_header)
+            paths = [r.paths["fmri_image"] for r in recs]
+            batch["fmri_sequence"] = native.nifti_batch(
+                paths, read_nifti_header(paths[0]), cfg.workers)
+            return batch, [r.subject for r in recs]
         for key in STRUCT_INPUTS.get(cfg.dataset_name, ()):
             batch[key] = native.matrix_batch([r.paths[key] for r in recs],
                                              R, R, cfg.workers)
@@ -320,7 +341,7 @@ class DataPipeline:
     def _batches(self, split: str, epoch: int, shuffle: bool
                  ) -> Iterator[Tuple[Dict[str, np.ndarray], List]]:
         recs = self.splits[split]
-        order = (np.random.default_rng((self.cfg.seed, epoch)).permutation(
+        order = (host_rng(self.cfg.seed, epoch).permutation(
             len(recs)) if shuffle else np.arange(len(recs)))
         loader = self.item_loader if split == "train" else \
             self.eval_item_loader

@@ -9,7 +9,8 @@ keyed by a hash of the source, and loads it. There is no fallback: when the
 library cannot be built or loaded, ``library()`` raises with the
 compiler's or the loader's message, and so does every batch asked of the
 gear. The entry points take whole batches: parallel ``.npy`` parsing, the
-FIR band split, z-scoring and padding in C++ threads.
+FIR band split, z-scoring and padding in C++ threads, and the NIfTI
+volumes of ``fMRI_image``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ _SIGNATURES = {
         ctypes.c_int]),
     "fastpipe_matrix_batch": (ctypes.c_int, [
         ctypes.c_char_p, _P64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _PF,
+        ctypes.c_int, ctypes.c_char_p, ctypes.c_int]),
+    "fastpipe_nifti_batch": (ctypes.c_int, [
+        ctypes.c_char_p, _P64, ctypes.c_int, _P64, ctypes.c_int, _PF,
         ctypes.c_int, ctypes.c_char_p, ctypes.c_int]),
 }
 
@@ -137,4 +141,23 @@ def matrix_batch(paths: List[str], rows: int = 84, cols: int = 84,
         _ptr(out, ctypes.c_float), nthreads, err, len(err))
     if rc != 0:
         raise RuntimeError(f"fastpipe_matrix_batch: {err.value.decode()}")
+    return out
+
+
+def nifti_batch(paths: List[str], shape: Tuple[int, ...],
+                nthreads: int = 0) -> np.ndarray:
+    """Parallel NIfTI-1 (``.nii`` / ``.nii.gz``) load of equally shaped
+    volumes, as (n, *shape) float32: ``np.stack`` of data/nifti.py
+    ``read_nifti`` items cast to float32."""
+    lib = library()
+    n = len(paths)
+    blob, offsets = _pack_paths(paths)
+    dims = np.asarray(shape, dtype=np.int64)
+    out = np.empty((n,) + tuple(int(s) for s in shape), np.float32)
+    err = ctypes.create_string_buffer(512)
+    rc = lib.fastpipe_nifti_batch(
+        blob, _ptr(offsets, ctypes.c_int64), n, _ptr(dims, ctypes.c_int64),
+        len(dims), _ptr(out, ctypes.c_float), nthreads, err, len(err))
+    if rc != 0:
+        raise RuntimeError(f"fastpipe_nifti_batch: {err.value.decode()}")
     return out

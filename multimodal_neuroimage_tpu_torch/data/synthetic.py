@@ -13,13 +13,17 @@ their shortest round-trip repr), in the layout both packages index
   root/data/smri_cortical_thickness/smri_cortical_thickness_<K>.npy
   root/data/dti+smri_cortical_thickness/dti_count+smri_cortical_thickness_<K>.npy
   root/data/prs/ABCD_EUR_Multibased_PRScsx_PC1-10resid_scaled.csv
+  root/data/fmri_image/masked_image_sub-<K>.nii.gz   (include_fmri_image)
   root/data/hcp/<id>_cortex.npy, HCP_1200_gender.csv, HCP_1200_precise_age.csv
 
 Signals are planted to correlate with the binary target, so a short
 training run can show AUROC above 0.5. fMRI series are (20 + T, ROIs) with
 T in [350, 361] (the loader drops the first 20 TRs), HCP series (22, T)
-with T in [900, 1200]. The 4-D NIfTI volumes of ``fMRI_image`` are not
-written: that dataset waits with the model that reads it.
+with T in [900, 1200]. ``include_fmri_image`` adds each subject's 4-D
+NIfTI volume (12 x 14 x 12 voxels, 24 TRs: the reader contract of the
+reference's full-resolution volumes, at a small size), whose gzip header
+carries the time of writing: its data, not its bytes, equals the JAX
+writer's.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from multimodal_neuroimage_tpu_torch.data.nifti import write_nifti
 
 
 def _write_csv(path: str, columns: Dict[str, Sequence]) -> None:
@@ -53,11 +59,6 @@ def generate_synthetic_cohort(
     smri_strength_noise: float = 0.0,
 ) -> str:
     """Create an ABCD-layout cohort under ``root``; returns ``root``."""
-    if include_fmri_image:
-        raise NotImplementedError(
-            "include_fmri_image: the fMRI_image dataset (NIfTI volumes, "
-            "data/nifti.py) is not ported; it waits with the model that "
-            "reads it")
     targets = targets or ["sex", "ADHD_label", "age",
                           "nihtbx_totalcomp_uncorrected", "BMI"]
     rng = np.random.default_rng(seed)
@@ -111,6 +112,11 @@ def generate_synthetic_cohort(
         os.makedirs(sub_dir, exist_ok=True)
         np.save(os.path.join(sub_dir, f"desikankilliany_sub-{key}.npy"),
                 sig.astype(np.float32))
+
+        if include_fmri_image:
+            vol = srng.normal(0, 1.0, (12, 14, 12, 24)).astype(np.float32)
+            write_nifti(os.path.join(
+                img_dir, f"masked_image_sub-{key}.nii.gz"), vol)
 
         # DTI: symmetric nonneg counts with target-linked block strength
         base = srng.gamma(2.0, 50.0, (n_rois, n_rois))

@@ -208,6 +208,11 @@ class TemporalBert(nn.Module):
                                 intermediate, hidden_dropout, attn_dropout)
 
     def forward(self, x: torch.Tensor, generator=None):
+        if x.dim() != 3:
+            # JAX's concatenate of the CLS step raises TypeError here (a
+            # 4-D fMRI_image volume, phase 1 on that dataset)
+            raise TypeError(f"the temporal BERT takes (B, T, H) series, got "
+                            f"shape {tuple(x.shape)}")
         cls_const = torch.full((x.shape[0], 1, self.hidden), 0.5,
                                dtype=x.dtype, device=x.device)
         seq = torch.cat([self.cls_embedding(cls_const), x], dim=1)

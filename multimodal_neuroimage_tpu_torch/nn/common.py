@@ -32,17 +32,9 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from multimodal_neuroimage_tpu_torch.ops.fusion_block import (  # noqa: F401
+    layer_norm)
 from multimodal_neuroimage_tpu_torch.parallel.mesh import rank, world
-
-
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis with the exact two-pass variance (the
-    JAX package's ``use_fast_variance=False``)."""
-    mu = x.mean(dim=-1, keepdim=True)
-    xc = x - mu
-    var = (xc * xc).mean(dim=-1, keepdim=True)
-    return xc * torch.rsqrt(var + eps) * weight + bias
 
 
 class LayerNorm(nn.Module):

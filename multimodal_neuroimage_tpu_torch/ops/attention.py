@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from multimodal_neuroimage_tpu_torch.ops import build
+from multimodal_neuroimage_tpu_torch.ops import build, library
 from multimodal_neuroimage_tpu_torch.ops.bert_layer import matmul_3xtf32
 from multimodal_neuroimage_tpu_torch.ops.fusion_block import mix_keep
 
@@ -216,8 +216,11 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernels on CUDA tensors, the plain version on CPU tensors. Shapes and
     dropout as in :func:`attention_reference`. Where no gradient is asked
     for (inference, or no input requires one), the kernel launches without
-    the autograd Function around it."""
+    the autograd Function around it. Without dropout in a ``torch.export``
+    trace: the registered op (ops/library.py)."""
     _check_rate(rate)
+    if rate == 0.0 and torch.compiler.is_exporting():
+        return library.window_attention(q, k, v, bias, mask)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad or bias.requires_grad):
         return _WindowAttentionFunction.apply(q, k, v, bias, mask, int(seed),
@@ -530,11 +533,14 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dropout as in :func:`mha_reference`. float32 or bf16 q, k, v (all
     three of one dtype); a bf16 call is the bf16 form
     (:func:`mha_reference16`), whose launches count on
-    :func:`fused_attention16`."""
+    :func:`fused_attention16`. Without dropout in a ``torch.export``
+    trace: the registered op of the form (ops/library.py)."""
     _check_rate(rate)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
+    if rate == 0.0 and torch.compiler.is_exporting():
+        return library.mha(q, k, v)
     return _MhaFunction.apply(q, k, v, int(seed), float(rate))
 
 

@@ -42,10 +42,10 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from multimodal_neuroimage_tpu_torch.nn.common import layer_norm
-from multimodal_neuroimage_tpu_torch.ops import build
+from multimodal_neuroimage_tpu_torch.ops import build, library
 from multimodal_neuroimage_tpu_torch.ops.fusion_block import (
-    LOGIT_CAP, bf16_round, gelu_grad, ln_bwd, ln_parts, mix_keep, round_up)
+    LOGIT_CAP, bf16_round, gelu_grad, layer_norm, ln_bwd, ln_parts, mix_keep,
+    round_up)
 
 LN_EPS = 1e-12
 N_PARAMS = 16
@@ -504,7 +504,11 @@ def bert_layer_call(x: torch.Tensor, params: Sequence[torch.Tensor],
                     mm16: bool = False) -> torch.Tensor:
     """One BERT layer (differentiable): the CUDA kernels on a CUDA tensor,
     the plain version on a CPU tensor. x and the parameters are float32 in
-    either form (under the bf16 policy the parameters hold bf16 values)."""
+    either form (under the bf16 policy the parameters hold bf16 values).
+    At inference in a ``torch.export`` trace: the registered op
+    (ops/library.py)."""
+    if not training and torch.compiler.is_exporting():
+        return library.bert_layer(x, params, heads, t_valid, mm16)
     save = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, *params))
     return _BertLayerFunction.apply(x, heads, t_valid, int(seed),

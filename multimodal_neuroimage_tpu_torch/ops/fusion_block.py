@@ -36,8 +36,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from multimodal_neuroimage_tpu_torch.nn.common import layer_norm
-from multimodal_neuroimage_tpu_torch.ops import build
+from multimodal_neuroimage_tpu_torch.ops import build, library
 
 LN_EPS = 1e-5
 # dropout draws of the JAX kernels: 0 proj, 1/2 MLP, 3 attention
@@ -47,6 +46,16 @@ _M32 = 0xFFFFFFFF
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis with the exact two-pass variance (the
+    JAX package's ``use_fast_variance=False``); nn/common.py's too."""
+    mu = x.mean(dim=-1, keepdim=True)
+    xc = x - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    return xc * torch.rsqrt(var + eps) * weight + bias
 
 
 # ---- the dropout-mask hash (ops/fusion_block.py:173-203, 290-296) -----------
@@ -510,6 +519,9 @@ class _FusionBlockFunction(torch.autograd.Function):
 
 
 def _apply(x, y, params, bias, mask, dp, seed, rates, training, cross):
+    if not training and torch.compiler.is_exporting():
+        return library.fusion_block(x, y if cross else None, params, bias,
+                                    mask)
     tensors = [x, bias, *params] + ([y] if cross else [])
     save = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     return _FusionBlockFunction.apply(x, y, bias, mask, dp, int(seed),
@@ -524,7 +536,8 @@ def fused_fusion_block(x: torch.Tensor, params: Sequence[torch.Tensor],
                        rates: Tuple[float, float] = (0.0, 0.0),
                        training: bool = False) -> torch.Tensor:
     """Self block (differentiable): the CUDA kernels on CUDA tensors, the
-    plain version on CPU tensors."""
+    plain version on CPU tensors; at inference in a ``torch.export`` trace
+    the registered op (ops/library.py)."""
     return _apply(x, None, params, bias, mask, dp, seed, rates, training,
                   False)
 

@@ -50,7 +50,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from multimodal_neuroimage_tpu_torch.ops import build
+from multimodal_neuroimage_tpu_torch.ops import build, library
 from multimodal_neuroimage_tpu_torch.ops.fusion_block import (
     DRAW_ATTN, DRAW_MLP1, DRAW_MLP2, DRAW_PROJ, LOGIT_CAP,
     _block_reference, _check_params, _check_streams, _iota, _ptr,
@@ -477,6 +477,9 @@ class _FusionBlockBpFunction(torch.autograd.Function):
 def _apply(x, y, params, bias, mask, dp, seed, rates, training, cross,
            group):
     G = _group(x, dp, group)
+    if not training and torch.compiler.is_exporting():
+        return library.fusion_block_bp(x, y if cross else None, params, bias,
+                                       mask, G)
     tensors = [x, bias, *params] + ([y] if cross else [])
     save = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     return _FusionBlockBpFunction.apply(x, y, bias, mask, dp, int(seed),
@@ -492,7 +495,9 @@ def fused_fusion_block_bp(x: torch.Tensor, params: Sequence[torch.Tensor],
                           training: bool = False,
                           group: Optional[int] = None) -> torch.Tensor:
     """Self block over group-major windows (differentiable): the CUDA
-    kernels on CUDA tensors, the plain version on CPU tensors."""
+    kernels on CUDA tensors, the plain version on CPU tensors; at
+    inference in a ``torch.export`` trace the registered op of the
+    stream's form (ops/library.py)."""
     return _apply(x, None, params, bias, mask, dp, seed, rates, training,
                   False, group)
 

@@ -32,13 +32,17 @@ JAX ``_audit_nans``), read once an epoch. ``accumulation_steps`` k > 1
 applies K5 every k train batches to their mean gradient (JAX
 ``optax.MultiSteps``).
 
-Randomness is explicit: weights from ``init_random_weights`` seeded by
-``cfg.seed``, the train order from ``numpy.random.default_rng((cfg.seed,
-epoch))`` as in the JAX package, and every dropout seed / DropPath factor
-from one host ``torch.Generator`` seeded by ``cfg.seed`` and saved in every
+Randomness is explicit (utils/reproducibility.py): weights from
+``init_random_weights`` seeded by ``cfg.seed``, the train order from
+``host_rng(cfg.seed, epoch)`` as in the JAX package, and every dropout
+seed / DropPath factor from one host ``torch.Generator``
+(``root_generator(cfg.seed)``), saved in every
 checkpoint; a run repeats exactly, and a resumed run repeats the
 uninterrupted one (at ``augment_prob`` 0: the augmentation draws from its
-own generator in the loader's threads).
+own generator in the loader's threads). On a CUDA device the Trainer
+selects cuDNN's deterministic algorithms (utils/reproducibility.py
+``deterministic_algorithms``): at cuDNN's default choice the backbone's
+convolution gradients vary run to run, and a step would not repeat.
 
 The run's outer shell is the JAX Trainer's: the losses of every step go
 to a ``Writer`` (obs/writer.py) in the experiment folder (else
@@ -101,6 +105,8 @@ from multimodal_neuroimage_tpu_torch.parallel.mesh import (
 from multimodal_neuroimage_tpu_torch.train.losses import active_losses
 from multimodal_neuroimage_tpu_torch.train.state import (
     make_eval_step, make_train_step, optimizer_from_config)
+from multimodal_neuroimage_tpu_torch.utils.reproducibility import (
+    deterministic_algorithms, root_generator)
 
 PROFILING_MAX_BATCHES = 10  # --profiling cap (reference trainer.py:434-437)
 
@@ -114,6 +120,7 @@ class Trainer:
         self.cfg = cfg
         device = maybe_initialize_distributed(cfg, device)
         self.device = device
+        deterministic_algorithms(device)
         self.sets = list(sets or ["train", "val"])
         if train_records is None and val_records is None:
             self.pipeline = DataPipeline(cfg, device=device)
@@ -133,8 +140,8 @@ class Trainer:
         self.last_folder = experiment_folder or cfg.experiment_folder
         folder = self.last_folder or cfg.log_dir
         self.model = init_random_weights(
-            create_model(cfg), torch.Generator().manual_seed(cfg.seed))
-        self.generator = torch.Generator().manual_seed(cfg.seed)
+            create_model(cfg), root_generator(cfg.seed))
+        self.generator = root_generator(cfg.seed)
         self.epoch0 = 0
         self.global_step = 0
         self.val_threshold: Optional[float] = None

@@ -1635,3 +1635,158 @@ def test_fused_attention_bf16_launches_the_tensor_core_kernels(dev,
         assert names == want
         assert [c.launches for c in counters] == [
             n + (not simt) for n in before]
+
+
+# ---- the registered ops (ops/library.py) and the exported artifact ----------
+
+def _op_cases(dev):
+    """(name, op call, direct wrapper call, plain version, wrapper whose
+    count the op adds to, bf16 form) of each registered op at small
+    flagship-like shapes."""
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
+    from multimodal_neuroimage_tpu_torch.ops import library
+    gen = torch.Generator().manual_seed(20)
+    B, T, H, F, heads, t_valid = 2, 45, 84, 96, 4, 40
+    p1 = tuple(t.to(dev) for t in sum((_lin(gen, H, H) for _ in range(4)),
+                                      []) + _ln(gen, H) + _lin(gen, F, H)
+               + _lin(gen, H, F) + _ln(gen, H))
+    p16 = _k1_params16(gen, H, F, dev)
+    x1 = _rand(gen, B, T, H).to(dev)
+    C, nW, N, fh = 12, 4, 36, 6
+    selfp = tuple(t.to(dev) for t in _ln(gen, C) + _lin(gen, 3 * C, C)
+                  + _lin(gen, C, C) + _ln(gen, C) + _lin(gen, 4 * C, C)
+                  + _lin(gen, C, 4 * C))
+    crossp = tuple(t.to(dev) for t in _ln(gen, C) + _ln(gen, C)
+                   + _lin(gen, C, C) + _lin(gen, 2 * C, C) + _lin(gen, C, C)
+                   + _ln(gen, C) + _lin(gen, 4 * C, C) + _lin(gen, C, 4 * C))
+    m = shift_attn_mask(12, 12, 6, 3)
+    mask = torch.from_numpy(m).to(dev)
+    bias = _rand(gen, fh, N, N, scale=0.5).to(dev)
+    xw, yw = (_rand(gen, 4, nW, N, C).to(dev) for _ in "xy")
+    G = 2
+    xg, yg = (fbp.to_groups(t, G).contiguous() for t in (xw, yw))
+    q, k, v = (_rand(gen, B, nW, 3, N, 32).to(dev) for _ in "qkv")
+    kbias = _rand(gen, 3, N, N, scale=0.5).to(dev)
+    mq, mk, mv = (_rand(gen, B, 2, 97, 11).to(dev) for _ in "qkv")
+    hq, hk, hv = (t.to(torch.bfloat16) for t in (mq, mk, mv))
+    xg16, yg16 = xg.to(torch.bfloat16), yg.to(torch.bfloat16)
+    return [
+        ("bert_layer_forward",
+         lambda: library.bert_layer_forward(x1, list(p1), heads, t_valid),
+         lambda: bl.bert_layer_call(x1, p1, heads, t_valid),
+         lambda: bl.bert_layer_reference(x1, p1, heads, t_valid),
+         bl.bert_layer_call, False),
+        ("bert_layer_forward16",
+         lambda: library.bert_layer_forward16(x1, list(p16), heads, t_valid),
+         lambda: bl.bert_layer_call16(x1, p16, heads, t_valid),
+         lambda: bl.bert_layer_reference(x1, p16, heads, t_valid, mm16=True),
+         bl.bert_layer_call16, True),
+        ("fusion_block_forward (self)",
+         lambda: library.fusion_block_forward(xw, None, list(selfp), bias,
+                                              mask),
+         lambda: fb.fused_fusion_block(xw, selfp, bias, mask),
+         lambda: fb.fusion_block_reference(xw, selfp, bias, mask),
+         fb.fused_fusion_block, False),
+        ("fusion_block_forward (cross)",
+         lambda: library.fusion_block_forward(xw, yw, list(crossp), bias,
+                                              mask),
+         lambda: fb.fused_cross_fusion_block(xw, yw, crossp, bias, mask),
+         lambda: fb.cross_fusion_block_reference(xw, yw, crossp, bias, mask),
+         fb.fused_cross_fusion_block, False),
+        ("window_attention_forward",
+         lambda: library.window_attention_forward(q, k, v, kbias, mask),
+         lambda: att.fused_window_attention(q, k, v, kbias, mask),
+         lambda: att.attention_reference(q, k, v, kbias, mask),
+         att.fused_window_attention, False),
+        ("mha_forward",
+         lambda: library.mha_forward(mq, mk, mv),
+         lambda: att.fused_attention(mq, mk, mv),
+         lambda: att.mha_reference(mq, mk, mv), att.fused_attention, False),
+        ("mha_forward16",
+         lambda: library.mha_forward16(hq, hk, hv),
+         lambda: att.fused_attention16(hq, hk, hv),
+         lambda: att.mha_reference16(hq, hk, hv), att.fused_attention16,
+         True),
+        ("fusion_block_bp_forward (cross)",
+         lambda: library.fusion_block_bp_forward(xg, yg, list(crossp), bias,
+                                                 mask, G),
+         lambda: fbp.fused_cross_fusion_block_bp(xg, yg, crossp, bias, mask,
+                                                 group=G),
+         lambda: fbp.cross_fusion_block_bp_reference(xg, yg, crossp, bias,
+                                                     mask, group=G),
+         fbp.fused_cross_fusion_block_bp, False),
+        ("fusion_block_bp_forward16 (self)",
+         lambda: library.fusion_block_bp_forward16(xg16, None, list(selfp),
+                                                   bias, mask, G),
+         lambda: fbp.fused_fusion_block_bp16(xg16, selfp, bias, mask,
+                                             group=G),
+         lambda: fbp.fusion_block_bp_reference16(xg16, selfp, bias, mask,
+                                                 group=G)[0],
+         fbp.fused_fusion_block_bp16, True),
+    ]
+
+
+def test_registered_ops_match_their_plain_versions(dev):
+    """Each registered op on CUDA tensors launches its kernel once through
+    its wrapper's launcher (counted on that wrapper), equals the direct
+    wrapper call bit for bit, and is within the kernel's bound of its plain
+    version on the same card (float32: ``_close``; the bf16 forms:
+    ``_close_rel16``)."""
+    from multimodal_neuroimage_tpu_torch.ops import library
+    cases = _op_cases(dev)
+    assert len({c[0].split(" ")[0] for c in cases}) == len(library.ops())
+    with torch.no_grad():
+        for name, op, direct, plain, counter, bf16 in cases:
+            before = counter.launches
+            got = op()
+            assert counter.launches == before + 1, name
+            torch.cuda.synchronize()
+            assert torch.equal(got, direct()), name
+            want = plain()
+            assert got.dtype == want.dtype and got.shape == want.shape, name
+            if bf16:
+                _close_rel16(got, want, name)
+            else:
+                _close(got, want)
+
+
+def test_exported_tiny_flagship_launches_its_kernels(dev, tmp_path):
+    """The tiny flagship exported on the card: the artifact's graph calls
+    K1, K2/K3 and K4's registered ops; one served batch launches exactly
+    what the live Predictor's step launches, and the scores agree within
+    rtol / atol 1e-5 (about one float32 ulp apart: the live model on
+    copies of its weights moves as much, serve/export.py); the portable
+    artifact launches no kernel and agrees within the logits' bound."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import save_checkpoint
+    from multimodal_neuroimage_tpu_torch.serve.export import (export_model,
+                                                              load_exported)
+    from multimodal_neuroimage_tpu_torch.serve.predictor import Predictor
+    cfg = _tiny_cfg()
+    ckpt = save_checkpoint(str(tmp_path / "m.ckpt"),
+                           _tiny_model(cfg, "cpu").state_dict(),
+                           {"val_threshold": 0.5})
+    rng = np.random.default_rng(0)
+    reqs = [{"subject": f"s{i}", "fmri": rng.normal(size=(48, 360)),
+             "struct": rng.normal(size=(48, 48))} for i in range(2)]
+    pred = Predictor(cfg, ckpt, reqs, device="cuda")
+    batch, _ = next(pred.batches())
+    art = load_exported(export_model(pred, str(tmp_path / "a.pt2")))
+    portable = load_exported(export_model(pred, str(tmp_path / "p.pt2"),
+                                          portable=True))
+    assert len(art.meta["ops"]) == 3 and portable.meta["ops"] == []
+    counts = []
+    for fn in (lambda: pred.step(batch)[pred.head].reshape(-1).cpu().numpy(),
+               lambda: art(batch), lambda: portable(batch)):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts.append((ops.launches(), out))
+    (live_n, live), (art_n, got), (port_n, plain) = counts
+    assert art_n == live_n and sum(live_n.values()) > 0, (art_n, live_n)
+    assert all(live_n[k] > 0 for k in live_n if k.startswith(STD_PATH)
+               and "backward" not in k and _f32_form(k)), live_n
+    assert sum(port_n.values()) == 0, port_n
+    np.testing.assert_allclose(got, live, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(plain, live, rtol=1e-4, atol=1e-4)

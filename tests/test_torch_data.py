@@ -158,23 +158,21 @@ def test_hcp_index_matches_jax(tmp_path, target, require_target):
 def test_index_refuses_unported_datasets(meta_dir):
     """The structural datasets are indexed (M8, M9's SwinFusionNet), and
     ``multimodal_prs`` is (M9's PRS combiner: its index against JAX's is in
-    tests/test_torch_combiners.py); the dataset still waiting raises,
-    naming its ROADMAP item."""
+    tests/test_torch_combiners.py), and ``fMRI_image`` is (N6: its batches
+    against JAX's are in tests/test_torch_nifti.py); no dataset waits any
+    more, and a name the JAX package does not know raises."""
     kw = dict(metadata_csv=str(meta_dir / "meta.csv"),
               subject_list_path=str(meta_dir / "subs.txt"))
-    for dataset in ("DTI", "sMRI", "struct", "DTI+sMRI"):
+    for dataset in ("DTI", "sMRI", "struct", "DTI+sMRI", "fMRI_image"):
         jcfg, tcfg = _cfgs(str(meta_dir), dataset_name=dataset, **kw)
         got = tindex.build_subject_index(tcfg)
         assert got and [(r.idx, r.subject, r.paths) for r in got] == [
             (r.idx, r.subject, r.paths)
             for r in jindex.build_subject_index(jcfg)]
     assert "multimodal_prs" in tindex.PORTED
-    assert "multimodal_prs" not in tindex.WAITING
-    for dataset, item in (("fMRI_image", "N6"),):
-        cfg = tsyn.synthetic_config(str(meta_dir),
-                                    dataset_name=dataset).validate()
-        with pytest.raises(NotImplementedError, match=item):
-            tindex.build_subject_index(cfg)
+    assert not hasattr(tindex, "WAITING")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        tindex.check_dataset("fMRI_volume")
 
 
 # ---- (b) the cohort writer ---------------------------------------------------------
@@ -204,9 +202,19 @@ def test_writer_matches_jax(tmp_path, kind, kw):
 
 
 def test_writer_refuses_fmri_images(tmp_path):
-    with pytest.raises(NotImplementedError, match="fMRI_image"):
-        tsyn.generate_synthetic_cohort(str(tmp_path), n_subjects=2,
-                                       include_fmri_image=True)
+    """The writer no longer refuses ``include_fmri_image`` (N6): it writes
+    each subject's 4-D volume as the JAX writer does (the volumes against
+    JAX's are in tests/test_torch_nifti.py)."""
+    from multimodal_neuroimage_tpu_torch.data.nifti import read_nifti
+    root = tsyn.generate_synthetic_cohort(str(tmp_path), n_subjects=2,
+                                          include_fmri_image=True)
+    img_dir = os.path.join(root, "data", "fmri_image")
+    names = sorted(os.listdir(img_dir))
+    assert names == [f"masked_image_sub-NDARSYN00000{i}.nii.gz"
+                     for i in range(2)]
+    for name in names:
+        assert read_nifti(os.path.join(img_dir, name)).shape == (
+            12, 14, 12, 24)
 
 
 # ---- (c) splits ----------------------------------------------------------------------

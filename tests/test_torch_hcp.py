@@ -270,8 +270,12 @@ def test_abcd_fmri_item_matches_jax_item_loader(fmri_type, tmp_path):
     item = item_for(dti)({"subject": "s", "dti": y[:, :84]}, dti)
     assert set(item) == {"subject_name", "dti"}
     assert item["dti"].dtype == np.float16
-    with pytest.raises(NotImplementedError, match="N6"):
-        item_for(tconfig.Config(dataset_name="fMRI_image").validate())
+    image = tconfig.Config(dataset_name="fMRI_image").validate()
+    vol = np.random.default_rng(1).normal(size=(3, 4, 5, 6))
+    item = item_for(image)({"subject": "s", "fmri_image": vol}, image)
+    assert set(item) == {"subject_name", "fmri_sequence"}
+    np.testing.assert_array_equal(item["fmri_sequence"],
+                                  vol.astype(np.float32))
 
 
 def test_trainer_runs_an_hcp_epoch_and_serves_it(tmp_path):

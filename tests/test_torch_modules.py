@@ -117,6 +117,7 @@ def test_window_helpers_match_jax():
 
 
 _HYGIENE = r"""
+import dataclasses
 import sys
 import numpy as np
 import torch
@@ -345,8 +346,37 @@ with tempfile.TemporaryDirectory() as tmp:
     tr.training()
     assert len(tr.step_losses) == 1 and np.isfinite(tr.step_losses).all()
     mesh.shutdown()
+# the serving artifact: the tiny flagship exported (registered ops and
+# portable), loaded and run against its live Predictor; the weight
+# importers, the fMRI_image reader and the reproducibility helpers
+from multimodal_neuroimage_tpu_torch.data import nifti
+from multimodal_neuroimage_tpu_torch.serve import export
+from multimodal_neuroimage_tpu_torch.utils import (hf_import,
+                                                   reproducibility,
+                                                   torch_import)
+with tempfile.TemporaryDirectory() as tmp:
+    ckpt = checkpoint.save_checkpoint(os.path.join(tmp, "m.ckpt"),
+                                      model.state_dict(), {})
+    requests = [{"subject": f"s{i}", "fmri": rng.normal(size=(48, 360)),
+                 "struct": rng.normal(size=(48, 48))} for i in range(2)]
+    pred = predictor.Predictor(dataclasses.replace(cfg, batch_size=2), ckpt,
+                               requests, device="cpu")
+    first, _ = next(pred.batches())
+    live = pred.step(first)["binary_classification"].reshape(-1).numpy()
+    for portable in (False, True):
+        art = export.load_exported(export.export_model(
+            pred, os.path.join(tmp, f"{portable}.pt2"), portable=portable))
+        assert bool(art.meta["ops"]) != portable
+        assert np.array_equal(art(first), live)
+    volume = os.path.join(tmp, "v.nii.gz")
+    nifti.write_nifti(volume, np.ones((2, 3, 4, 5), np.float32))
+    assert nifti.read_nifti(volume).shape == (2, 3, 4, 5)
+assert reproducibility.host_rng(1, 2).integers(9) >= 0
+assert torch_import.vae_state({f"fc{i}.weight": np.ones((2, 2))
+                               for i in (1, 2, 31, 32, 4, 5, 6)})
+assert hf_import.tensor(np.zeros(3)).dtype == torch.float32
 print(sorted(m for m in sys.modules
-             if m in ("jax", "flax", "pandas", "sklearn")
+             if m in ("jax", "flax", "pandas", "sklearn", "transformers")
              or m == "multimodal_neuroimage_tpu"
              or m.startswith("multimodal_neuroimage_tpu.")))
 """
@@ -362,12 +392,14 @@ def test_port_imports_no_jax_flax_pandas_sklearn():
     disk and serve the second with ``run_predict``, run the phase chain
     3 -> 5 -> 4, a ``--predict_only`` and a 1-trial ``--use_optuna`` study
     through the port's CLI, take a training step as one gloo rank
-    (parallel/mesh.py, a launcher's environment at world size 1), in a
-    fresh
+    (parallel/mesh.py, a launcher's environment at world size 1), export
+    the flagship to an artifact (registered ops and portable) and serve it,
+    use the weight importers, the NIfTI reader and the reproducibility
+    helpers, in a fresh
     interpreter (this test process imported jax already,
-    tests/conftest.py): none of jax, flax, pandas, sklearn or the JAX
-    package ``multimodal_neuroimage_tpu`` (any of its modules) gets
-    loaded."""
+    tests/conftest.py): none of jax, flax, pandas, sklearn, transformers
+    or the JAX package ``multimodal_neuroimage_tpu`` (any of its modules)
+    gets loaded."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
@@ -389,7 +421,9 @@ def _imported_modules(path):
 def test_no_port_file_imports_the_jax_package():
     """Static check of every module of the port and of chip_smoke.py: no
     import names ``multimodal_neuroimage_tpu`` or one of its modules, nor
-    jax or flax (the port keeps its own copies of the host modules)."""
+    jax, flax or transformers (the port keeps its own copies of the host
+    modules; utils/hf_import.py takes an HF state dict, not the
+    package)."""
     port = os.path.join(REPO, "multimodal_neuroimage_tpu_torch")
     files = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(d, f) for d, _, fs in os.walk(port) for f in fs
@@ -398,9 +432,13 @@ def test_no_port_file_imports_the_jax_package():
     for new in ("nn/unet.py", "models/struct_nets.py",
                 "models/swinfusion_net.py", "nn/crossmodal.py",
                 "nn/perceptual.py", "obs/writer.py", "obs/profiling.py",
-                "hpo/optuna_harness.py", "parallel/mesh.py"):
+                "hpo/optuna_harness.py", "parallel/mesh.py",
+                "serve/export.py", "ops/library.py", "utils/hf_import.py",
+                "utils/torch_import.py", "utils/reproducibility.py",
+                "data/nifti.py"):
         assert os.path.join(port, new) in files, new
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_modules(f)
-           if m.split(".")[0] in ("multimodal_neuroimage_tpu", "jax", "flax")]
+           if m.split(".")[0] in ("multimodal_neuroimage_tpu", "jax", "flax",
+                                  "transformers")]
     assert not bad, bad
