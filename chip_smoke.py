@@ -229,14 +229,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 16. The exported serving artifact (``export_phase``, serve/export.py): the
    registered ops' host cost a call beside the direct call (K1 mm16, K4,
    batch 4); the flagship (bf16, std), the flagship (float32, bp) and HCP
-   (bf16, float32) exported at full width (all but one flagship cut in
-   depth) with their registered ops and portable, served in one fresh
-   interpreter without a model module: scores within ``EXPORT_TOL`` of the
-   live Predictor's and launches a batch equal to its, the portable
-   artifacts within the serving tolerance and without a launch; sizes,
-   times; the flagship's weights mapped from the reference's layout
-   (torch_import, hf_import) served bitwise; an fMRI_image cohort in the
-   native gear equal to the host gear.
+   (bf16) exported at full width and depth with their registered ops and
+   portable, six worker processes at once, each artifact served in a
+   fresh interpreter without a model module (TF32 at torch's defaults):
+   scores within ``EXPORT_TOL`` of the live Predictor's and launches a
+   batch equal to its, the portable artifacts within the serving
+   tolerance and without a launch; sizes, times; the flagship's weights
+   mapped from the reference's layout (torch_import) served bitwise; an
+   fMRI_image cohort in the native gear equal to the host gear.
 17. Prints one JSON line of per-kernel results (launches by path:
    flagship, flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, hcp_bf16,
    flagship_defaults, flagship_disk, hcp_disk, dot_shapes, smri_swin,
@@ -250,9 +250,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    and outer_shell_unet_cross_twin_step, and the multi-GPU phase's
    multi_gpu_nccl1 (the CLI run), multi_gpu_gloo2_rank0 and _rank1 (and
    multi_gpu_nccl2_rank* on two cards), and the export phase's
-   export_flagship_bf16, export_flagship_bf16_cut, export_flagship_bp,
-   export_hcp_bf16 and export_hcp_f32 (the artifacts' launches); K5's and
-   K2/K3's cases on the
+   export_flagship_bf16, export_flagship_bp and export_hcp_bf16 (the
+   artifacts' launches); K5's and K2/K3's cases on the
    structural paths, K1's at T = 129, at hd 21 and 14 and K5's at phase
    2's sizes under ``path_cases``) and, last, the ok line.
 
@@ -307,7 +306,6 @@ TPU = "multimodal_neuroimage_tpu/ops/"
 PEAK_F32_OPS, PEAK_BYTES, PEAK_TF32_OPS = 67e12, 3.35e12, 495e12
 HCP_BATCH = 8
 HCP_CPU_LAYERS = 2   # the HCP card-vs-CPU step's depth (16 at full width)
-MULT_CPU_LEVELS = 2  # the MulT card-vs-CPU step's levels (12 at full depth)
 FLAGSHIP_KERNELS = ("K1 bert_layer", "K2 fusion_block",
                     "K3 cross_fusion_block", "K4 window_attention",
                     "K1 bert_layer backward", "K2 fusion_block backward",
@@ -3971,9 +3969,8 @@ def phase2_nets(card, gen, res: Results):
     bands are drawn): 32 bf16 K6 forwards and 32 backwards and K5 once. One
     float32 training step of each net at full width: the two-channel net's
     kernels against their plain twins on the card at ``GRAD_REL``, the MulT
-    net (no kernel to twin; cut to ``MULT_CPU_LEVELS`` levels) on the card
-    against the CPU from the same weights, batch and generator state at
-    ``GRAD_REL``. Last the training
+    net (no kernel to twin) on the card against the CPU from the same
+    weights, batch and generator state at ``GRAD_REL``. Last the training
     and predict steps of both nets at batch 8 and 64, bf16 and float32 in
     turns, with peak memory. Returns the launch counts by path."""
     from multimodal_neuroimage_tpu_torch import ops
@@ -4126,12 +4123,9 @@ def phase2_nets(card, gen, res: Results):
             or any(steps["plain twins on the card"].values())):
         raise AssertionError(f"two-channel twin step launches {steps}")
     launches["phase2_two_channels_twin_step"] = steps["card"]
-    # the MulT net at MULT_CPU_LEVELS (its CPU side at 12 levels took 27 s)
-    cfg = dataclasses.replace(config_from_args(base), compute_dtype="float32",
-                              nlevels=MULT_CPU_LEVELS)
-    steps = _step_compare(cfg, batch, "MulT net (full width, cut depth, "
-                          "float32)", (("card", "cuda", "std"),
-                                       ("CPU", "cpu", "std")))
+    cfg = dataclasses.replace(config_from_args(base), compute_dtype="float32")
+    steps = _step_compare(cfg, batch, "MulT net (full width, float32)",
+                          (("card", "cuda", "std"), ("CPU", "cpu", "std")))
     if steps["card"] != {k: int(k == "K5 fused_adam") for k in steps["card"]}:
         raise AssertionError(f"MulT step launches {steps['card']}")
     launches["phase2_mult_step"] = steps["card"]
@@ -4775,79 +4769,152 @@ def reproducible_steps(card, rng):
 
 # ---- phase 16: the exported serving artifact ---------------------------------
 
-# the artifacts of the export phase: (label, config, fusion layout, with a
-# portable twin). All at full width: the bf16 std flagship at full depth
-# (its launches a batch), the others cut in depth, which the portable
-# twins are held on (at full depth the flagship took 38-41 s to trace and
-# save, 57-61 s portable and 25 s to load); HCP at both dtypes, the same
-# weights (the bf16 artifact's bytes against the float32 one's)
-EXPORT_CUT = dict(transformer_hidden_layers=2, **CPU_STEP_DEPTH)
-EXPORTS = (("flagship_bf16", dict(compute_dtype="bfloat16"), "std", False),
-           ("flagship_bf16_cut", dict(compute_dtype="bfloat16", **EXPORT_CUT),
-            "std", True),
-           ("flagship_bp", dict(compute_dtype="float32", **EXPORT_CUT), "bp",
-            True),
-           ("hcp_bf16", dict(compute_dtype="bfloat16"), "std", True),
-           ("hcp_f32", dict(compute_dtype="float32"), "std", False))
-EXPORT_HCP_LAYERS = 4
-# an artifact's scores against the live Predictor's (atol, rtol) by compute
-# dtype: about one float32 ulp apart (1.2e-7, 2.4e-7 read), as the live
-# model on copies of its weights is (serve/export.py); at bf16 one such
-# difference may flip a bf16 rounding downstream
-EXPORT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 1e-3)}
+# the artifacts of the export phase: (label, config, fusion layout), each at
+# full width and depth, exported with its registered ops and portable
+EXPORTS = (("flagship_bf16", dict(compute_dtype="bfloat16"), "std"),
+           ("flagship_bp", dict(compute_dtype="float32"), "bp"),
+           ("hcp_bf16", dict(compute_dtype="bfloat16"), "std"))
+# an artifact's scores against the live Predictor's (atol, rtol), at either
+# compute dtype: about one float32 ulp apart (read: at most 4.2e-7, bf16
+# and float32), as the live model on copies of its weights is
+# (serve/export.py)
+EXPORT_TOL = (1e-5, 1e-5)
 # one served batch of the bf16 std flagship (the live Predictor's too)
 EXPORT_STD16 = {"K1 bert_layer mm16": 32, "K2 fusion_block": 48,
                 "K3 cross_fusion_block": 12, "K4 window_attention": 10}
+# the export phase's worker processes, all started together (each traces
+# and saves one artifact, then serves it in a fresh interpreter)
+EXPORT_TIMEOUT = 900
 
-# the artifacts served by a fresh interpreter that imports
-# serve/export.py and ops/library.py only: argv[1] is a JSON list of
-# (artifact, batches .npz) pairs; prints one JSON line of each's scores
-# file, launches a batch, median batch ms, and the port modules loaded
-_SERVE_ARTIFACTS = r"""
-import json, statistics, sys, time
+
+def _export_cfg(label):
+    """The config of an ``EXPORTS`` label and its fusion layout."""
+    kw, lay = next((kw, lay) for name, kw, lay in EXPORTS if name == label)
+    return (_hcp_cfg(**kw) if label.startswith("hcp")
+            else _flagship_cfg(**kw)), lay
+
+
+# a worker: argv[1] is the JSON of _export_and_serve's arguments
+_EXPORT_WORKER = r"""
+import json, sys
+import chip_smoke
+chip_smoke._export_and_serve(*json.loads(sys.argv[1]))
+"""
+
+# serves one artifact in a fresh interpreter that imports serve/export.py
+# and ops/library.py only (argv: artifact, batches .npz, lock file): the
+# scores of each batch (to artifact.scores.npy) and its launches; then,
+# holding the lock (one artifact timed at a time), the median batch ms.
+# Writes artifact.served.json: launches a batch, ms, ops, load s and the
+# port modules loaded. torch's TF32 settings are left at their defaults,
+# as a user's process has them.
+_SERVE_ARTIFACT = r"""
+import fcntl, json, statistics, sys, time
 import numpy as np
 import torch
-# the numerics of this script's main, as the live Predictor ran under them
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-from multimodal_neuroimage_tpu_torch.ops import library
 from multimodal_neuroimage_tpu_torch.serve.export import load_exported
 from multimodal_neuroimage_tpu_torch import ops
-out = []
-for path, batches in json.loads(sys.argv[1]):
-    t0 = time.perf_counter()
-    art = load_exported(path)
-    load_s = time.perf_counter() - t0
-    data = np.load(batches)
-    n = int(data["n"])
-    scores, counts = [], []
-    for i in range(n):
-        batch = {k.split("/", 1)[1]: data[k] for k in data.files
-                 if k.startswith(f"{i}/")}
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        scores.append(art(batch))
-        torch.cuda.synchronize()
-        counts.append({k: v for k, v in ops.launches().items() if v})
-    first = {k.split("/", 1)[1]: torch.as_tensor(data[k], device="cuda")
-             for k in data.files if k.startswith("0/")}
-    ms = []
+path, batches, lock = sys.argv[1:4]
+t0 = time.perf_counter()
+art = load_exported(path)
+load_s = time.perf_counter() - t0
+data = np.load(batches)
+scores, counts = [], []
+for i in range(int(data["n"])):
+    batch = {k.split("/", 1)[1]: data[k] for k in data.files
+             if k.startswith(f"{i}/")}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    scores.append(art(batch))
+    torch.cuda.synchronize()
+    counts.append({k: v for k, v in ops.launches().items() if v})
+first = {k.split("/", 1)[1]: torch.as_tensor(data[k], device="cuda")
+         for k in data.files if k.startswith("0/")}
+ms = []
+with open(lock, "w") as f:
+    fcntl.flock(f, fcntl.LOCK_EX)
     for _ in range(6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         art(first)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
-    np.save(path + ".scores.npy", np.stack(scores))
-    out.append({"path": path, "counts": counts, "ms": statistics.median(ms[1:]),
-                "ops": art.meta["ops"], "load_s": load_s})
+np.save(path + ".scores.npy", np.stack(scores))
 model = [m for m in sys.modules if m.startswith("multimodal_neuroimage_tpu")
          and not m.startswith("multimodal_neuroimage_tpu_torch.ops")
          and m not in ("multimodal_neuroimage_tpu_torch",
                        "multimodal_neuroimage_tpu_torch.serve",
                        "multimodal_neuroimage_tpu_torch.serve.export")]
-print(json.dumps({"artifacts": out, "model_modules": sorted(model)}))
+with open(path + ".served.json", "w") as f:
+    json.dump({"counts": counts, "ms": statistics.median(ms[1:]),
+               "ops": art.meta["ops"], "load_s": load_s,
+               "model_modules": sorted(model)}, f)
 """
+
+
+def _export_and_serve(label, portable, tmp):
+    """A worker of the export phase: ``label``'s Predictor on the card from
+    the checkpoint and requests the phase left in ``tmp``, exported
+    (``portable`` or with its registered ops) to ``tmp/{label}_{portable}
+    .pt2``; then that artifact served by ``_SERVE_ARTIFACT`` in a fresh
+    interpreter on the phase's batches. Writes the export's seconds to
+    ``.pt2.export.json``; raises when either fails."""
+    import pickle
+    from multimodal_neuroimage_tpu_torch.serve.export import export_model
+    from multimodal_neuroimage_tpu_torch.serve.predictor import Predictor
+    cfg, lay = _export_cfg(label)
+    with open(os.path.join(tmp, f"{label}.requests.pkl"), "rb") as f:
+        requests = pickle.load(f)
+    dest = os.path.join(tmp, f"{label}_{portable}.pt2")
+    with _layout(lay):
+        pred = Predictor(cfg, os.path.join(tmp, f"{label}.ckpt"), requests,
+                         device="cuda")
+        t0 = time.perf_counter()
+        export_model(pred, dest, portable=portable)
+        with open(dest + ".export.json", "w") as f:
+            json.dump({"s": time.perf_counter() - t0}, f)
+    del pred
+    subprocess.run([sys.executable, "-c", _SERVE_ARTIFACT, dest,
+                    os.path.join(tmp, f"{label}_batches.npz"),
+                    os.path.join(tmp, "serve.lock")], check=True,
+                   timeout=EXPORT_TIMEOUT)
+
+
+def _export_workers(tmp, env):
+    """``_export_and_serve`` for every artifact (each ``EXPORTS`` label,
+    with its registered ops and portable) in worker processes started
+    together, each logging to ``tmp``; all within ``EXPORT_TIMEOUT`` s of
+    the start (then all are killed and the phase fails). Returns the wall
+    seconds."""
+    jobs = [(label, portable) for label, *_ in EXPORTS
+            for portable in (False, True)]
+    procs = []
+    for label, portable in jobs:
+        log = open(os.path.join(tmp, f"{label}_{portable}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", _EXPORT_WORKER,
+             json.dumps([label, portable, tmp])],
+            stdout=log, stderr=subprocess.STDOUT, env=env), log))
+    t0 = time.perf_counter()
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=max(EXPORT_TIMEOUT - (time.perf_counter() - t0),
+                                  1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for (label, portable), (proc, _) in zip(jobs, procs):
+        if proc.returncode != 0:
+            text = open(os.path.join(tmp, f"{label}_{portable}.log")).read()
+            raise AssertionError(f"export {label} (portable {portable}): "
+                                 f"the worker failed (rc {proc.returncode})"
+                                 f":\n{text[-4000:]}")
+    return time.perf_counter() - t0
 
 
 def _host_cost(op, direct, rounds=6, calls=40):
@@ -4882,7 +4949,7 @@ def _op_host_costs(card, gen):
     q, k, v, b4, mask, label = _k4_inputs(gen, 4)[0]
     cases = (
         ("K1 bert_layer mm16 (batch 4, T 369, H 84, 12 heads)",
-         lambda: library.bert_layer_forward16(x, list(p), 12, 369),
+         lambda: library.bert_layer_forward(x, list(p), 12, 369, True),
          lambda: bl.bert_layer_call16(x, p, 12, 369)),
         (f"K4 window_attention (batch 4, {label})",
          lambda: library.window_attention_forward(q, k, v, b4, mask),
@@ -4916,27 +4983,27 @@ def _reference_sd(state):
 
 
 def export_phase(card, gen, rng):
-    """Phase 16 (``export``): serve/export.py on the card at full width.
-    Exports (``EXPORTS``) the flagship at its bf16 default on the std
-    layout at full depth and cut in depth, the flagship at float32 on
-    ``bp`` and HCP phase 1 at bf16 and float32 (both cut in depth), each
-    with its registered ops and, but for the full-depth flagship and HCP
-    at float32, ``portable=True``, from random weights of a seed; serves
-    every artifact in one fresh interpreter that imports serve/export.py
-    and ops/library.py only (checked: no model module of the port is
-    loaded there) on the live Predictor's batches: the artifacts' scores
-    within ``EXPORT_TOL`` of the Predictor's and their launches a batch
-    equal to its (the bf16 std flagship's K1 mm16 32, K2 48, K3 12, K4 10),
-    the portable ones within the serving tolerance of them and without a
-    launch. Prints the export, save and load times, the artifact sizes
-    (HCP's bf16 against float32), the served batch's time beside the live
-    step's, the
-    registered ops' host cost a call (``_op_host_costs``); maps the
-    flagship's weights from the reference's layout on the CPU
-    (utils/torch_import.py, its BERTs through utils/hf_import.py) and
-    serves them on the card bitwise the original's; loads a synthetic
-    ``fMRI_image`` cohort in the native gear, equal to the host gear.
-    Returns the artifacts' launches by path."""
+    """Phase 16 (``export``): serve/export.py on the card at full width and
+    depth. Exports (``EXPORTS``) the flagship at its bf16 default on the std
+    layout, the flagship at float32 on ``bp`` and HCP phase 1 at its bf16
+    default, each with its registered ops and ``portable=True``, from
+    random weights of a seed; the six exports run at once in worker
+    processes, each serving its artifact in a fresh interpreter that
+    imports serve/export.py and ops/library.py only (checked: no model
+    module of the port is loaded there) on the live Predictor's batches:
+    the artifacts' scores within ``EXPORT_TOL`` of the Predictor's and
+    their launches a batch equal to its (the bf16 std flagship's K1 mm16
+    32, K2 48, K3 12, K4 10), the portable ones within the serving
+    tolerance of them and without a launch. Prints the export and load
+    times, the artifact sizes (the bf16 flagship's against the float32
+    one's), the served batch's time beside the live step's, the registered
+    ops' host cost a call (``_op_host_costs``); maps the flagship's weights
+    from the reference's layout on the CPU (utils/torch_import.py, its
+    BERTs' token-type rows as utils/hf_import.py) and serves them on the
+    card bitwise the original's; loads a synthetic ``fMRI_image`` cohort
+    in the native gear, equal to the host gear. Returns the artifacts'
+    launches by path."""
+    import pickle
     from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
         load_checkpoint, save_checkpoint)
     from multimodal_neuroimage_tpu_torch.data import synthetic
@@ -4944,28 +5011,27 @@ def export_phase(card, gen, rng):
     from multimodal_neuroimage_tpu_torch.models.registry import (
         create_model, init_random_weights)
     from multimodal_neuroimage_tpu_torch import ops
-    from multimodal_neuroimage_tpu_torch.nn.swin2d import size_preset
     from multimodal_neuroimage_tpu_torch.ops import build
-    from multimodal_neuroimage_tpu_torch.serve.export import export_model
     from multimodal_neuroimage_tpu_torch.serve.predictor import Predictor
     from multimodal_neuroimage_tpu_torch.utils import torch_import
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     _op_host_costs(card, gen)
-    launches, jobs, live = {}, [], {}
+    launches, live = {}, {}
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
-        for label, kw, lay, with_portable in EXPORTS:
+        # ---- the live Predictors: their scores, launches and step ------
+        for label, _, lay in EXPORTS:
+            cfg, _ = _export_cfg(label)
             if label.startswith("hcp"):
-                cfg = _hcp_cfg(transformer_hidden_layers=EXPORT_HCP_LAYERS,
-                               **kw)
                 requests = [{k: r[k] for k in ("subject", "fmri")}
                             for r in _hcp_cohort(np.random.default_rng(SEED),
                                                  2 * cfg.batch_size, 900)]
             else:
-                cfg = _flagship_cfg(**kw)
                 requests = [{k: r[k] for k in ("subject", "fmri", "struct")}
                             for r in _cohort(rng, 2 * cfg.batch_size, 900)]
+            with open(os.path.join(tmp, f"{label}.requests.pkl"), "wb") as f:
+                pickle.dump(requests, f)
             model = init_random_weights(
                 create_model(cfg), torch.Generator().manual_seed(SEED))
             ckpt = save_checkpoint(os.path.join(tmp, f"{label}.ckpt"),
@@ -4986,114 +5052,94 @@ def export_phase(card, gen, rng):
                     counts.append({k: v for k, v in ops.launches().items()
                                    if v})
                 step_ms = events_ms(lambda: pred.step(batches[0]), iters=5)
-                paths = {}
-                for portable in (False, True)[:1 + with_portable]:
-                    dest = os.path.join(tmp, f"{label}_{portable}.pt2")
-                    t0 = time.perf_counter()
-                    export_model(pred, dest, portable=portable)
-                    paths[portable] = (dest, time.perf_counter() - t0)
-            npz = os.path.join(tmp, f"{label}_batches.npz")
-            np.savez(npz, n=len(batches), **{
-                f"{j}/{k}": v.cpu().numpy() for j, b in enumerate(batches)
-                for k, v in b.items() if torch.is_tensor(v)})
-            live[label] = (cfg, np.stack(scores), counts, step_ms, n_params,
-                           paths)
-            jobs += [(dest, npz) for dest, _ in paths.values()]
-            print(f"export {label}: traced and saved in " + " and ".join(
-                f"{t:.1f} s ({'portable' if p else 'registered ops'}, "
-                f"{os.path.getsize(d) / 2 ** 20:.2f} MiB)"
-                for p, (d, t) in paths.items())
-                + f"; {n_params} parameters at {cfg.compute_dtype}; live "
-                f"predict step {step_ms:.2f} ms a batch of {cfg.batch_size}")
+            np.savez(os.path.join(tmp, f"{label}_batches.npz"),
+                     n=len(batches), **{
+                         f"{j}/{k}": v.cpu().numpy()
+                         for j, b in enumerate(batches)
+                         for k, v in b.items() if torch.is_tensor(v)})
+            live[label] = (cfg, np.stack(scores), counts, step_ms, n_params)
             del pred
             gc.collect()
             torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", _SERVE_ARTIFACTS, json.dumps(jobs)],
-            capture_output=True, text=True, timeout=600,
-            env=dict(os.environ, PYTHONPATH=os.path.dirname(
-                os.path.abspath(__file__)) + os.pathsep
-                + os.environ.get("PYTHONPATH", "")))
-        if proc.returncode != 0:
-            raise AssertionError(f"serving the artifacts in a fresh "
-                                 f"interpreter failed:\n{proc.stderr[-4000:]}")
-        served = json.loads(proc.stdout.strip().splitlines()[-1])
-        if served["model_modules"]:
-            raise AssertionError(f"the artifacts' interpreter loaded model "
-                                 f"modules: {served['model_modules']}")
-        print(f"export: {len(jobs)} artifacts served in a fresh interpreter "
-              f"(serve/export.py and ops/library.py imported; no model "
-              f"module of the port loaded) in "
-              f"{time.perf_counter() - t0:.1f} s")
-        by_path = {a["path"]: a for a in served["artifacts"]}
-        for label, (cfg, want, counts, step_ms, n_params, paths) in \
-                live.items():
-            art = by_path[paths[False][0]]
-            got = np.load(paths[False][0] + ".scores.npy")
-            tol = EXPORT_TOL[cfg.compute_dtype]
+
+        # ---- the six artifacts, exported and served at once ------------
+        wall = _export_workers(tmp, dict(
+            os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+                __file__)) + os.pathsep + os.environ.get("PYTHONPATH", "")))
+        print(f"export: {2 * len(EXPORTS)} artifacts exported and served at "
+              f"once in {wall:.1f} s (worker processes; each served in a "
+              f"fresh interpreter importing serve/export.py and "
+              f"ops/library.py, its batch times taken one artifact at a "
+              f"time)")
+        sizes = {}
+        for label, (cfg, want, counts, step_ms, n_params) in live.items():
+            got, art = {}, {}
+            for portable in (False, True):
+                dest = os.path.join(tmp, f"{label}_{portable}.pt2")
+                with open(dest + ".served.json") as f:
+                    art[portable] = json.load(f)
+                with open(dest + ".export.json") as f:
+                    art[portable]["export_s"] = json.load(f)["s"]
+                art[portable]["bytes"] = os.path.getsize(dest)
+                if art[portable]["model_modules"]:
+                    raise AssertionError(
+                        f"export {label}: the serving interpreter loaded "
+                        f"model modules {art[portable]['model_modules']}")
+                got[portable] = torch.from_numpy(np.load(
+                    dest + ".scores.npy"))
             art_err = _close(f"export {label} scores vs the live Predictor",
-                             torch.from_numpy(got), torch.from_numpy(want),
-                             *tol)
-            if art["counts"] != counts:
+                             got[False], torch.from_numpy(want), *EXPORT_TOL)
+            if art[False]["counts"] != counts:
                 raise AssertionError(f"export {label}: artifact launches "
-                                     f"{art['counts']} vs live {counts}")
+                                     f"{art[False]['counts']} vs live "
+                                     f"{counts}")
             if label == "flagship_bf16" and counts[0] != EXPORT_STD16:
                 raise AssertionError(f"export {label}: launches a batch "
                                      f"{counts[0]}, expected {EXPORT_STD16}")
-            beside = ""
-            if True in paths:
-                port = by_path[paths[True][0]]
-                if any(port["counts"]):
-                    raise AssertionError(f"export {label}: the portable "
-                                         f"artifact launched "
-                                         f"{port['counts']}")
-                atol, rtol = ((LOGIT16, LOGIT16) if cfg.compute_dtype ==
-                              "bfloat16" else (LOGIT_ATOL, LOGIT_RTOL))
-                err = _close(f"export {label} portable scores",
-                             torch.from_numpy(np.load(
-                                 paths[True][0] + ".scores.npy")),
-                             torch.from_numpy(got), atol, rtol)
-                beside = (f"; portable artifact: no launch, scores vs the "
-                          f"artifact's max|err| {err:.3e} (atol {atol} + rtol "
-                          f"{rtol}), served batch {port['ms']:.2f} ms, loaded "
-                          f"in {port['load_s']:.1f} s")
+            if any(art[True]["counts"]) or art[True]["ops"]:
+                raise AssertionError(f"export {label}: the portable artifact "
+                                     f"launched {art[True]['counts']}, ops "
+                                     f"{art[True]['ops']}")
+            atol, rtol = ((LOGIT16, LOGIT16) if cfg.compute_dtype ==
+                          "bfloat16" else (LOGIT_ATOL, LOGIT_RTOL))
+            port_err = _close(f"export {label} portable scores", got[True],
+                              got[False], atol, rtol)
             total = {}
-            for c in art["counts"]:
+            for c in art[False]["counts"]:
                 for k, n in c.items():
                     total[k] = total.get(k, 0) + n
             launches[f"export_{label}"] = total
-            print(f"export {label}: {len(want)} batches of {cfg.batch_size}"
-                  f"; artifact scores vs the live Predictor's max|err| "
-                  f"{art_err:.3e} (atol {tol[0]} + rtol {tol[1]}), "
-                  f"launches a batch equal ({counts[0]}); ops {art['ops']}; "
-                  f"served batch {art['ms']:.2f} ms vs live predict step "
-                  f"{step_ms:.2f} ms; loaded in {art['load_s']:.1f} s"
-                  f"{beside}; card: {card}")
-        for label, (cfg, *_, n, paths) in live.items():
-            nbytes = n * (2 if cfg.compute_dtype == "bfloat16" else 4)
-            print(f"export artifact size, {label} ({n} parameters at "
-                  f"{cfg.compute_dtype}, {nbytes} B of weights): " + ", ".join(
-                      f"{os.path.getsize(d)} B "
-                      f"{'portable' if p else 'with registered ops'}"
-                      for p, (d, _) in paths.items()))
-        s16, s32 = (os.path.getsize(live[k][5][False][0])
-                    for k in ("hcp_bf16", "hcp_f32"))
-        print(f"export artifact size, HCP's model and weights: bf16 {s16} B "
-              f"vs float32 {s32} B, ratio {s16 / s32:.3f}")
+            sizes[label] = (art[False]["bytes"], n_params, cfg.compute_dtype)
+            a, p = art[False], art[True]
+            print(f"export {label}: {n_params} parameters at "
+                  f"{cfg.compute_dtype}, {len(want)} batches of "
+                  f"{cfg.batch_size}; artifact scores vs the live "
+                  f"Predictor's max|err| {art_err:.3e} (atol {EXPORT_TOL[0]}"
+                  f" + rtol {EXPORT_TOL[1]}), launches a batch equal "
+                  f"({counts[0]}); ops {a['ops']}; traced and saved in "
+                  f"{a['export_s']:.1f} s, {a['bytes']} B, loaded in "
+                  f"{a['load_s']:.1f} s; served batch {a['ms']:.2f} ms vs "
+                  f"live predict step {step_ms:.2f} ms; portable artifact: "
+                  f"no launch, scores vs the artifact's max|err| "
+                  f"{port_err:.3e} (atol {atol} + rtol {rtol}), traced and "
+                  f"saved in {p['export_s']:.1f} s, {p['bytes']} B, loaded "
+                  f"in {p['load_s']:.1f} s, served batch {p['ms']:.2f} ms; "
+                  f"card: {card}")
+        (s16, n16, _), (s32, n32, _) = sizes["flagship_bf16"], \
+            sizes["flagship_bp"]
+        print(f"export artifact size, the flagship's model and weights "
+              f"({n16} and {n32} parameters): bf16 (std) {s16} B vs float32 "
+              f"(bp) {s32} B, ratio {s16 / s32:.3f}")
 
         # ---- weights from the reference's layout, mapped on the CPU -------
         cfg, *_ = live["flagship_bf16"]
         ckpt = os.path.join(tmp, "flagship_bf16.ckpt")
         state = load_checkpoint(ckpt)["state_dict"]
-        mapped = torch_import.funcstruct_cross_state(
-            _reference_sd(state), cfg.transformer_hidden_layers,
-            cfg.fusion_ex_depths, cfg.fusion_depths, cfg.fusion_re_depths,
-            size_preset(cfg.size_of_model)[0])
+        mapped = torch_import.reference_model_state(_reference_sd(state), cfg)
         if sorted(mapped) != sorted(state) or not all(
                 torch.equal(mapped[k], state[k]) for k in state):
-            raise AssertionError("torch_import / hf_import did not give back "
-                                 "the flagship's state")
+            raise AssertionError("torch_import did not give back the "
+                                 "flagship's state")
         mckpt = save_checkpoint(os.path.join(tmp, "mapped.ckpt"), mapped,
                                 {"val_threshold": 0.5})
         requests = [{k: r[k] for k in ("subject", "fmri", "struct")}
@@ -5105,9 +5151,8 @@ def export_phase(card, gen, rng):
                                  "card")
         print(f"export: the flagship's weights in the reference's layout "
               f"(HF BERTs with two token types) mapped on the CPU by "
-              f"utils/torch_import.py funcstruct_cross_state (its BERTs by "
-              f"utils/hf_import.py) served on the card bitwise the "
-              f"original's ({len(a)} subjects)")
+              f"utils/torch_import.py reference_model_state served on the "
+              f"card bitwise the original's ({len(a)} subjects)")
 
         # ---- an fMRI_image cohort in the native gear ---------------------
         root = synthetic.generate_synthetic_cohort(

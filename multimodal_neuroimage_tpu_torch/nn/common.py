@@ -25,7 +25,6 @@ slice positions of its own rows.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
@@ -34,6 +33,8 @@ import torch.nn.functional as F
 
 from multimodal_neuroimage_tpu_torch.ops.fusion_block import (  # noqa: F401
     layer_norm)
+from multimodal_neuroimage_tpu_torch.ops.library import (  # noqa: F401
+    full_f32)
 from multimodal_neuroimage_tpu_torch.parallel.mesh import rank, world
 
 
@@ -188,19 +189,3 @@ def window_reverse(windows: torch.Tensor, ws: int, H: int,
     B, C = windows.shape[0], windows.shape[-1]
     x = windows.reshape(B, H // ws, W // ws, ws, ws, C).transpose(2, 3)
     return x.reshape(B, H, W, C)
-
-
-@contextlib.contextmanager
-def full_f32():
-    """Run float32 matmuls and cuDNN convolutions in full float32 (no TF32),
-    restoring the previous settings on exit. cuDNN convs default to TF32,
-    which keeps about three decimal digits."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved

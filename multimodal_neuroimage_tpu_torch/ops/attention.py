@@ -220,7 +220,7 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     trace: the registered op (ops/library.py)."""
     _check_rate(rate)
     if rate == 0.0 and torch.compiler.is_exporting():
-        return library.window_attention(q, k, v, bias, mask)
+        return library.in_trace("window_attention", q, k, v, bias, mask)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad or bias.requires_grad):
         return _WindowAttentionFunction.apply(q, k, v, bias, mask, int(seed),
@@ -534,13 +534,13 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     three of one dtype); a bf16 call is the bf16 form
     (:func:`mha_reference16`), whose launches count on
     :func:`fused_attention16`. Without dropout in a ``torch.export``
-    trace: the registered op of the form (ops/library.py)."""
+    trace: the registered op (ops/library.py)."""
     _check_rate(rate)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     if rate == 0.0 and torch.compiler.is_exporting():
-        return library.mha(q, k, v)
+        return library.in_trace("mha", q, k, v)
     return _MhaFunction.apply(q, k, v, int(seed), float(rate))
 
 

@@ -508,7 +508,8 @@ def bert_layer_call(x: torch.Tensor, params: Sequence[torch.Tensor],
     At inference in a ``torch.export`` trace: the registered op
     (ops/library.py)."""
     if not training and torch.compiler.is_exporting():
-        return library.bert_layer(x, params, heads, t_valid, mm16)
+        return library.in_trace("bert_layer", x, list(params), heads,
+                                t_valid, mm16)
     save = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, *params))
     return _BertLayerFunction.apply(x, heads, t_valid, int(seed),

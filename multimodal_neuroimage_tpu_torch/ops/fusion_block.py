@@ -520,8 +520,8 @@ class _FusionBlockFunction(torch.autograd.Function):
 
 def _apply(x, y, params, bias, mask, dp, seed, rates, training, cross):
     if not training and torch.compiler.is_exporting():
-        return library.fusion_block(x, y if cross else None, params, bias,
-                                    mask)
+        return library.in_trace("fusion_block", x, y if cross else None,
+                                list(params), bias, mask)
     tensors = [x, bias, *params] + ([y] if cross else [])
     save = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     return _FusionBlockFunction.apply(x, y, bias, mask, dp, int(seed),

@@ -478,8 +478,8 @@ def _apply(x, y, params, bias, mask, dp, seed, rates, training, cross,
            group):
     G = _group(x, dp, group)
     if not training and torch.compiler.is_exporting():
-        return library.fusion_block_bp(x, y if cross else None, params, bias,
-                                       mask, G)
+        return library.in_trace("fusion_block_bp", x, y if cross else None,
+                                list(params), bias, mask, G)
     tensors = [x, bias, *params] + ([y] if cross else [])
     save = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     return _FusionBlockBpFunction.apply(x, y, bias, mask, dp, int(seed),
@@ -496,8 +496,8 @@ def fused_fusion_block_bp(x: torch.Tensor, params: Sequence[torch.Tensor],
                           group: Optional[int] = None) -> torch.Tensor:
     """Self block over group-major windows (differentiable): the CUDA
     kernels on CUDA tensors, the plain version on CPU tensors; at
-    inference in a ``torch.export`` trace the registered op of the
-    stream's form (ops/library.py)."""
+    inference in a ``torch.export`` trace the registered op
+    (ops/library.py)."""
     return _apply(x, None, params, bias, mask, dp, seed, rates, training,
                   False, group)
 

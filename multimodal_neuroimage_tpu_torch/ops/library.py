@@ -5,31 +5,36 @@ The wrappers launch their kernels through ``ctypes`` on data pointers
 (ops/build.py), which a tracer's fake tensors do not have, so
 ``torch.export`` cannot trace through them. Each inference forward that
 the serving path launches is therefore also a ``torch.library.custom_op``
-in the ``neuroimage`` namespace, with a fake implementation that gives its
-output's shape and dtype:
+in the ``neuroimage`` namespace, one a kernel, with a fake implementation
+that gives its output's shape and dtype (its first input's):
 
-  bert_layer_forward          K1, float32 (``bert_layer_call``)
-  bert_layer_forward16        K1, mm16 form (``bert_layer_call16``)
+  bert_layer_forward          K1 (``bert_layer_call``; ``mm16``: its
+                              bf16-product form, ``bert_layer_call16``)
   fusion_block_forward        K2 (y None) and K3 (``fused_fusion_block``,
                               ``fused_cross_fusion_block``)
   window_attention_forward    K4 (``fused_window_attention``)
-  mha_forward, mha_forward16  K6, float32 and bf16 (``fused_attention``)
-  fusion_block_bp_forward     K7 on float32 streams, self (y None) and
-                              cross (``fused_fusion_block_bp``)
-  fusion_block_bp_forward16   K7 on bf16 streams
+  mha_forward                 K6 (``fused_attention``), float32 or bf16
+  fusion_block_bp_forward     K7, self (y None) and cross
+                              (``fused_fusion_block_bp``), on float32 or
+                              bf16 streams
 
-An op's implementation dispatches on its input's device: a CUDA tensor
-launches the kernel through its wrapper's launcher (which counts the
-launch on that wrapper, so an exported program's kernels show in
-``ops.launches()``, and raises when the kernel cannot be built or
+An op's implementation dispatches on its input's device and dtype: a CUDA
+tensor launches the kernel of its form through the wrapper's launcher
+(which counts the launch on that wrapper, so an exported program's kernels
+show in ``ops.launches()``, and raises when the kernel cannot be built or
 launched); a CPU tensor runs the plain version. Dropout is off: these are
 the inference forms.
 
 The wrappers reach these ops only while a trace runs
-(``torch.compiler.is_exporting()``) and only at inference; the eager path
-keeps its direct launches. Within ``plain_versions()`` a trace takes the
-plain versions instead, so the exported graph holds no registered op and
-runs with ``torch`` alone (serve/export.py ``portable=True``).
+(``torch.compiler.is_exporting()``) and only at inference, through
+``in_trace``; the eager path keeps its direct launches. Within
+``plain_versions()`` a trace takes the plain versions instead, so the
+exported graph holds no registered op and runs with ``torch`` alone
+(serve/export.py ``portable=True``).
+
+``full_f32`` is the numerics the model's forwards run at (no TF32), which
+an exported program does not record: serve/export.py runs an artifact
+under it, as the live model runs its forward.
 
 This module imports nothing of the port at import time (the kernel modules
 load at an op's first call), so an exported program loads without any
@@ -40,7 +45,7 @@ and the backward kernels are not registered.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional, Sequence
+from typing import List, Optional
 
 import torch
 from torch import Tensor
@@ -48,6 +53,22 @@ from torch import Tensor
 NAMESPACE = "neuroimage"
 _NO_DROPOUT = (0.0, 0.0)
 _PLAIN = False
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Run float32 matmuls and cuDNN convolutions in full float32 (no TF32),
+    restoring the previous settings on exit. cuDNN convs default to TF32,
+    which keeps about three decimal digits."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 @contextlib.contextmanager
@@ -62,25 +83,12 @@ def plain_versions():
         _PLAIN = saved
 
 
-def ops() -> List[str]:
-    """The qualified names of the registered ops."""
-    return [f"{NAMESPACE}::{name}" for name in _OPS]
-
-
-# ---- each kernel's plain version and launch (its wrapper's) -------------------
+# ---- each kernel's plain version ---------------------------------------------
 
 def _plain_k1(x, params, heads, t_valid, mm16):
     from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
     return bl.bert_layer_reference(x, params, heads, t_valid, 0, _NO_DROPOUT,
                                    False, mm16)
-
-
-def _k1(x, params, heads, t_valid, mm16):
-    if x.device.type == "cpu":
-        return _plain_k1(x, params, heads, t_valid, mm16)
-    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
-    return bl._launch_forward(x, params, heads, t_valid, 0, _NO_DROPOUT,
-                              False, False, mm16)[0]
 
 
 def _plain_k2k3(x, y, params, bias, mask):
@@ -101,15 +109,6 @@ def _plain_k6(q, k, v):
     return plain(q, k, v)
 
 
-def _k6(q, k, v):
-    if q.device.type == "cpu":
-        return _plain_k6(q, k, v)
-    from multimodal_neuroimage_tpu_torch.ops import attention as att
-    if q.dtype == torch.bfloat16:
-        return att._launch_mha_forward16(q, k, v, 0, 0.0, False)[0]
-    return att._launch_mha_forward(q, k, v, 0, 0.0)[0]
-
-
 def _plain_k7(x, y, params, bias, mask, group):
     from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
     if x.dtype == torch.bfloat16:
@@ -119,27 +118,16 @@ def _plain_k7(x, y, params, bias, mask, group):
                              False, y is not None, group)
 
 
-def _k7(x, y, params, bias, mask, group):
-    if x.device.type == "cpu":
-        return _plain_k7(x, y, params, bias, mask, group)
-    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
-    return fbp._launch_forward(x, y, params, bias, mask, None, 0, _NO_DROPOUT,
-                               False, False, y is not None, group)[0]
-
-
-# ---- the ops -----------------------------------------------------------------
+# ---- the ops: the launch on a CUDA tensor, the plain version on the CPU ----
 
 @torch.library.custom_op(f"{NAMESPACE}::bert_layer_forward", mutates_args=())
 def bert_layer_forward(x: Tensor, params: List[Tensor], heads: int,
-                       t_valid: int) -> Tensor:
-    return _k1(x, params, heads, t_valid, False)
-
-
-@torch.library.custom_op(f"{NAMESPACE}::bert_layer_forward16",
-                         mutates_args=())
-def bert_layer_forward16(x: Tensor, params: List[Tensor], heads: int,
-                         t_valid: int) -> Tensor:
-    return _k1(x, params, heads, t_valid, True)
+                       t_valid: int, mm16: bool) -> Tensor:
+    if x.device.type == "cpu":
+        return _plain_k1(x, params, heads, t_valid, mm16)
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    return bl._launch_forward(x, params, heads, t_valid, 0, _NO_DROPOUT,
+                              False, False, mm16)[0]
 
 
 @torch.library.custom_op(f"{NAMESPACE}::fusion_block_forward",
@@ -166,12 +154,12 @@ def window_attention_forward(q: Tensor, k: Tensor, v: Tensor, bias: Tensor,
 
 @torch.library.custom_op(f"{NAMESPACE}::mha_forward", mutates_args=())
 def mha_forward(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
-    return _k6(q, k, v)
-
-
-@torch.library.custom_op(f"{NAMESPACE}::mha_forward16", mutates_args=())
-def mha_forward16(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
-    return _k6(q, k, v)
+    if q.device.type == "cpu":
+        return _plain_k6(q, k, v)
+    from multimodal_neuroimage_tpu_torch.ops import attention as att
+    if q.dtype == torch.bfloat16:
+        return att._launch_mha_forward16(q, k, v, 0, 0.0, False)[0]
+    return att._launch_mha_forward(q, k, v, 0, 0.0)[0]
 
 
 @torch.library.custom_op(f"{NAMESPACE}::fusion_block_bp_forward",
@@ -179,24 +167,19 @@ def mha_forward16(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
 def fusion_block_bp_forward(x: Tensor, y: Optional[Tensor],
                             params: List[Tensor], bias: Tensor,
                             mask: Optional[Tensor], group: int) -> Tensor:
-    return _k7(x, y, params, bias, mask, group)
+    if x.device.type == "cpu":
+        return _plain_k7(x, y, params, bias, mask, group)
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
+    return fbp._launch_forward(x, y, params, bias, mask, None, 0, _NO_DROPOUT,
+                               False, False, y is not None, group)[0]
 
 
-@torch.library.custom_op(f"{NAMESPACE}::fusion_block_bp_forward16",
-                         mutates_args=())
-def fusion_block_bp_forward16(x: Tensor, y: Optional[Tensor],
-                              params: List[Tensor], bias: Tensor,
-                              mask: Optional[Tensor], group: int) -> Tensor:
-    return _k7(x, y, params, bias, mask, group)
-
-
-_OPS = {"bert_layer_forward": bert_layer_forward,
-        "bert_layer_forward16": bert_layer_forward16,
-        "fusion_block_forward": fusion_block_forward,
-        "window_attention_forward": window_attention_forward,
-        "mha_forward": mha_forward, "mha_forward16": mha_forward16,
-        "fusion_block_bp_forward": fusion_block_bp_forward,
-        "fusion_block_bp_forward16": fusion_block_bp_forward16}
+# kernel: (its registered op, its plain version), called alike
+_OPS = {"bert_layer": (bert_layer_forward, _plain_k1),
+        "fusion_block": (fusion_block_forward, _plain_k2k3),
+        "window_attention": (window_attention_forward, _plain_k4),
+        "mha": (mha_forward, _plain_k6),
+        "fusion_block_bp": (fusion_block_bp_forward, _plain_k7)}
 
 
 def _like_first(x, *args):
@@ -204,53 +187,18 @@ def _like_first(x, *args):
     return torch.empty_like(x)
 
 
-for _op in _OPS.values():
+for _op, _ in _OPS.values():
     _op.register_fake(_like_first)
 
 
-# ---- the wrappers' entries while a trace runs ---------------------------------
-
-def bert_layer(x: Tensor, params: Sequence[Tensor], heads: int, t_valid: int,
-               mm16: bool) -> Tensor:
-    """K1's inference forward in a trace (``mm16``: its bf16-product
-    form)."""
-    if _PLAIN:
-        return _plain_k1(x, params, heads, t_valid, mm16)
-    op = bert_layer_forward16 if mm16 else bert_layer_forward
-    return op(x, list(params), heads, t_valid)
+def ops() -> List[str]:
+    """The qualified names of the registered ops."""
+    return [op._qualname for op, _ in _OPS.values()]
 
 
-def fusion_block(x: Tensor, y: Optional[Tensor], params: Sequence[Tensor],
-                 bias: Tensor, mask: Optional[Tensor]) -> Tensor:
-    """K2 (y None) or K3's inference forward in a trace."""
-    if _PLAIN:
-        return _plain_k2k3(x, y, params, bias, mask)
-    return fusion_block_forward(x, y, list(params), bias, mask)
-
-
-def window_attention(q: Tensor, k: Tensor, v: Tensor, bias: Tensor,
-                     mask: Optional[Tensor]) -> Tensor:
-    """K4's forward without dropout in a trace."""
-    if _PLAIN:
-        return _plain_k4(q, k, v, bias, mask)
-    return window_attention_forward(q, k, v, bias, mask)
-
-
-def mha(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
-    """K6's forward without dropout in a trace, its form by q's dtype."""
-    if _PLAIN:
-        return _plain_k6(q, k, v)
-    return (mha_forward16 if q.dtype == torch.bfloat16
-            else mha_forward)(q, k, v)
-
-
-def fusion_block_bp(x: Tensor, y: Optional[Tensor], params: Sequence[Tensor],
-                    bias: Tensor, mask: Optional[Tensor], group: int
-                    ) -> Tensor:
-    """K7's inference forward in a trace, its form by the stream's
-    dtype."""
-    if _PLAIN:
-        return _plain_k7(x, y, params, bias, mask, group)
-    op = (fusion_block_bp_forward16 if x.dtype == torch.bfloat16
-          else fusion_block_bp_forward)
-    return op(x, y, list(params), bias, mask, group)
+def in_trace(kernel: str, *args):
+    """``kernel``'s inference forward while a trace runs (a key of
+    ``_OPS``, the op's arguments): its registered op, or within
+    ``plain_versions()`` its plain version."""
+    op, plain = _OPS[kernel]
+    return plain(*args) if _PLAIN else op(*args)

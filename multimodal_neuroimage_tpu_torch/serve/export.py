@@ -27,12 +27,16 @@ device it was traced on; it serves there.
 ``dest + ".json"`` is JAX's sidecar: ``head``, the frozen ``threshold``,
 the ``checkpoint`` and the ``batch_contract`` (each input's shape and
 dtype), plus ``ops`` (the registered ops the graph calls), ``device``,
-``compute_dtype`` and ``portable``.
+``compute_dtype``, ``portable`` and ``tf32``.
 
 ``ExportedModel`` / ``load_exported`` import ops/library.py alone, no model
 module: they check a batch against the contract (a missing input raises
 ``KeyError``), return the head's raw values as float32 ``(B,)``, and
-``predict`` post-processes them as the Predictor does.
+``predict`` post-processes them as the Predictor does. A program does not
+record TF32's settings, which torch's default turns on for cuDNN's
+convolutions: ``ExportedModel`` runs it without TF32
+(``library.full_f32``), as the live model runs its forward, whatever the
+loading process has set (the sidecar's ``"tf32": false``).
 """
 
 from __future__ import annotations
@@ -144,6 +148,7 @@ def export_model(predictor, dest: str, portable: bool = False) -> str:
         "device": str(served.weights.device),
         "compute_dtype": cfg.compute_dtype,
         "portable": bool(portable),
+        "tf32": False,
     }
     with open(dest + _META_SUFFIX, "w") as f:
         json.dump(meta, f, indent=1)
@@ -171,7 +176,7 @@ class ExportedModel:
         b = {k: torch.as_tensor(batch[k], dtype=getattr(torch, c["dtype"]),
                                 device=self.device)
              for k, c in self._contract.items()}
-        with torch.no_grad():
+        with torch.no_grad(), library.full_f32():
             out = self._forward(b)
         return out.float().cpu().numpy()
 

@@ -15,10 +15,10 @@ things are left out or cut, as in the JAX map:
   is used), ``(1, H)``.
 
 Inside ``TemporalBert`` the encoder is ``bert.``: give the result that
-prefix (utils/torch_import.py ``transformer_block_state`` does, beside the
-CLS projection). This module does not import ``transformers``: it takes any
-mapping of names to tensors or arrays, a ``BertModel.state_dict()`` among
-them.
+prefix (utils/torch_import.py ``reference_state`` does for every
+``BertEncoder`` of a module). This module does not import
+``transformers``: it takes any mapping of names to tensors or arrays, a
+``BertModel.state_dict()`` among them.
 """
 
 from __future__ import annotations

@@ -6,396 +6,115 @@ layouts (ROADMAP "Weights cross by name"): ``patch_embed.* / layers.{i}
 .blocks.{j}.* / norm / head`` of the SwinV2 encoder, ``attn.qkv`` of a
 fusion block, ``fc1 ... fc6`` of the MLP VAE, Conv1d time projections
 ``(T_out, T_in, 1)``, ``ConvTranspose2d`` kernels ``(in, out, kh, kw)``.
-So a mapper here does what the JAX mapper of the same name does with its
-names and layouts, and has no layout to change: it selects the tensors the
-port's module holds, from under ``prefix``, as float32 copies, and moves
-them under the port's top-level names. What the JAX mappers leave out
-stays out:
+So the port's module says what to take, and no layout changes:
+``reference_state(sd, module, prefix)`` reads each key of
+``module.state_dict()`` from ``sd`` at ``prefix`` + its reference name, as
+a float32 copy. The reference name is the port's, but for a model's
+top-level members, which the reference holds elsewhere (``_TOP``: the
+flagship's BERTs and SwinFusion backbone at the reference model's top
+level, its classifier under ``swin.``). Two things differ:
 
-* buffers that the port computes itself (the SwinV2 ``relative_coords_table``
-  / ``relative_position_index`` / ``attn_mask``, the fusion blocks'
-  ``relative_position_index``, BERT's ``position_ids``) and BatchNorm's
-  running statistics (the UNet's norm uses its batch's statistics);
-* the reference's dead members (an RSTB's ``conv`` / ``patch_embed``, a
-  CRSTB's ``conv_A`` / ``conv_B``, the SwinFusion ``conv_first*_B`` stems,
-  BERT's ``word_embeddings``);
-* row 0 of BERT's token-type table only (utils/hf_import.py).
+* each HF BERT inside (nn/bert.BertEncoder) is read by utils/hf_import.py,
+  which keeps row 0 of the token-type table;
+* a fusion block the reference built without ``qkv`` (``q`` / ``kv``)
+  bias gets zero ones, the port's block always having them (JAX's
+  mappers' ``qkv_bias=False``).
 
-Each mapper takes a ``{name: tensor-or-ndarray}`` mapping (a torch state
-dict works directly) and returns the port module's state dict for
-``load_state_dict``. The model-level mappers give the whole port model's
-state: ``swinfusion_net_state`` (SwinFusionNet), ``swin_unet_classifier_
-state`` (SwinClassifierUNet), ``swin_vae_classifier_state``
-(SwinClassifierVAE), ``transformer_net_state``,
-``transformer_net_two_channels_state``,
-``transformer_net_cross_attention_state``, ``funcstruct_add_state``
-(FuncStructAdd / FuncStructTransfer) and ``funcstruct_cross_state``
-(FuncStructCross, the flagship).
+What the JAX mappers leave out stays out, since the port's modules do not
+hold it: buffers the port computes itself (the SwinV2 ``relative_coords_
+table`` / ``relative_position_index`` / ``attn_mask``, the fusion blocks'
+``relative_position_index``, BERT's ``position_ids``), BatchNorm's running
+statistics (the UNet's norm uses its batch's statistics), the reference's
+dead members (an RSTB's ``conv`` / ``patch_embed``, a CRSTB's ``conv_A`` /
+``conv_B``, the SwinFusion ``conv_first*_B`` stems, BERT's
+``word_embeddings``) and the encoders of a MulT branch the configuration
+does not build. A tensor the module holds and ``sd`` lacks raises
+``KeyError``.
+
+JAX's mappers and the port modules that stand for them here:
+``swin_encoder_tree`` / ``swin_block_tree`` (nn/swin2d
+``SwinTransformerV2`` / ``SwinTransformerBlock``), ``vae_tree``
+(models/struct_nets ``MlpVae``), ``fusion_block_tree`` and
+``cross_fusion_block_tree`` (nn/swinfusion ``FusionBlock`` /
+``CrossFusionBlock``), ``rstb_tree`` / ``crstb_tree`` (``RSTB`` /
+``CRSTB``), ``swinfusion_backbone_tree`` / ``swinfusion_net_tree``
+(models/swinfusion_net ``SwinFusionBackbone`` / ``SwinFusionNet``),
+``time_proj_tree``, ``mult_encoder_tree`` and
+``transformer_net_cross_attention_tree`` (models/fmri_nets ``TimeProj``,
+nn/crossmodal ``MultTransformerEncoder``, ``TransformerNetCrossAttention``),
+``unet_tree`` / ``swin_unet_classifier_tree`` (nn/unet ``UNet2D``,
+``SwinClassifierUNet``) and the model-level ones (``SwinClassifierVAE``,
+``TransformerNet``, ``TransformerNetTwoChannels``, ``FuncStructAdd`` /
+``FuncStructTransfer``, the flagship ``FuncStructCross``).
+``reference_model_state(sd, cfg)`` maps the whole model of a config.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Mapping, Sequence
+import re
+from typing import Any, Dict, Mapping
 
 import torch
+from torch import nn
 
+from multimodal_neuroimage_tpu_torch.nn.bert import BertEncoder
 from multimodal_neuroimage_tpu_torch.utils.hf_import import (
     bert_state_from_hf, tensor)
 
 SD = Mapping[str, Any]
 State = Dict[str, torch.Tensor]
 
-
-def _prefixed(prefix: str, state: State) -> State:
-    return {prefix + k: v for k, v in state.items()}
-
-
-def _take(sd: SD, prefix: str, names: Iterable[str]) -> State:
-    """The tensors ``prefix + name`` of ``sd`` under their port names."""
-    return {n: tensor(sd[prefix + n]) for n in names}
-
-
-def _with_bias(sd: SD, prefix: str, name: str) -> list:
-    """``name``'s weight and, where the reference has one, its bias."""
-    return [f"{name}.weight"] + ([f"{name}.bias"]
-                                 if f"{prefix}{name}.bias" in sd else [])
-
-
-def _ln(name: str) -> list:
-    return [f"{name}.weight", f"{name}.bias"]
+# a model's top-level members -> where the reference holds them, by the
+# port model's class (reference model.py: the SwinFusion backbone, the
+# dual BERTs, the UNet and the VAE at the model's top level beside the
+# SwinV2 members; the SwinFusion classifier under ``swin.``)
+_TOP = {
+    "SwinClassifier": {"swin.": ""},
+    "SwinClassifierVAE": {"vae.": "", "swin.": ""},
+    "SwinClassifierUNet": {"unet.": "", "swin.": ""},
+    "SwinFusionNet": {"fusion.": "", "swin.": "swin."},
+    "FuncStructAdd": {"fmri_embed.": "", "swin.": ""},
+    "FuncStructTransfer": {"fmri_embed.": "", "swin.": ""},
+    "FuncStructCross": {"fmri_embed.": "", "fusion.": "", "swin.": "swin."},
+}
+# the projection biases a reference fusion block may have been built
+# without
+_QKV_BIAS = re.compile(r"attn(_[AB])?\.(qkv|q|kv)\.bias$")
 
 
-# ---- SwinV2 (nn/swin2d.py) ------------------------------------------------------
-
-def swin_block_state(sd: SD, prefix: str = "") -> State:
-    """``SwinTransformerBlock`` (swin_v2_module.py:198-323): the cosine
-    attention (``qkv`` without bias, ``q_bias``, ``v_bias``,
-    ``logit_scale``, the cpb MLP, ``proj``), the two norms and the MLP."""
-    return _take(sd, prefix, [
-        "attn.qkv.weight", "attn.q_bias", "attn.v_bias", "attn.logit_scale",
-        "attn.cpb_mlp.0.weight", "attn.cpb_mlp.0.bias",
-        "attn.cpb_mlp.2.weight", "attn.proj.weight", "attn.proj.bias",
-        *_ln("norm1"), *_ln("norm2"), "mlp.fc1.weight", "mlp.fc1.bias",
-        "mlp.fc2.weight", "mlp.fc2.bias"])
+def _reference_name(module: nn.Module, key: str) -> str:
+    for port, ref in _TOP.get(type(module).__name__, {}).items():
+        if key.startswith(port):
+            return ref + key[len(port):]
+    return key
 
 
-def swin_encoder_state(sd: SD, depths: Sequence[int], prefix: str = "",
-                       with_head: bool = True) -> State:
-    """The SwinV2 encoder (reference model.py:557-728: ``patch_embed``,
-    ``layers.{i}`` with their ``downsample``, ``norm``, ``head``) ->
-    nn/swin2d.SwinTransformerV2."""
-    names = ["patch_embed.proj.weight", "patch_embed.proj.bias",
-             *_ln("norm")]
-    if prefix + "patch_embed.norm.weight" in sd:
-        names += _ln("patch_embed.norm")
-    out = _take(sd, prefix, names)
-    if with_head and prefix + "head.weight" in sd:
-        out.update(_take(sd, prefix, ["head.weight", "head.bias"]))
-    for i, depth in enumerate(depths):
-        base = f"layers.{i}."
-        for j in range(depth):
-            out.update(_prefixed(f"{base}blocks.{j}.", swin_block_state(
-                sd, f"{prefix}{base}blocks.{j}.")))
-        if f"{prefix}{base}downsample.reduction.weight" in sd:
-            out.update(_take(sd, prefix, [
-                *_with_bias(sd, prefix, f"{base}downsample.reduction"),
-                *_ln(f"{base}downsample.norm")]))
-    return out
-
-
-# ---- the struct nets' fronts --------------------------------------------------
-
-def vae_state(sd: SD, prefix: str = "") -> State:
-    """The MLP VAE (reference model.py:602-718: ``fc1``, ``fc2``,
-    ``fc31`` / ``fc32``, ``fc4`` ... ``fc6``) -> models/struct_nets.MlpVae,
-    whose layers carry the same names (the identity on them)."""
-    return _take(sd, prefix, [n for name in ("fc1", "fc2", "fc31", "fc32",
-                                             "fc4", "fc5", "fc6")
-                              for n in _with_bias(sd, prefix, name)])
-
-
-def _double_conv_state(sd: SD, prefix: str) -> State:
-    """``DoubleConv`` (model.py:731-749): the two bias-free 3x3 convs and
-    the two norms' scale and shift (their running statistics dropped)."""
-    return _take(sd, prefix, [
-        "double_conv.0.weight", *_ln("double_conv.1"),
-        "double_conv.3.weight", *_ln("double_conv.4")])
-
-
-def unet_state(sd: SD, prefix: str = "") -> State:
-    """The reference 4-down / 4-up UNet (model.py:731-800, 846-859) ->
-    nn/unet.UNet2D: ``inc``, ``down{i}.maxpool_conv.1``, ``up{i}.up`` (the
-    ``ConvTranspose2d``, in torch's layout on both sides) and
-    ``up{i}.conv``."""
-    out = _prefixed("inc.", _double_conv_state(sd, prefix + "inc."))
-    for i in range(1, 5):
-        down = f"down{i}.maxpool_conv.1."
-        out.update(_prefixed(down, _double_conv_state(sd, prefix + down)))
-        out.update(_take(sd, prefix, _with_bias(sd, prefix, f"up{i}.up")))
-        out.update(_prefixed(f"up{i}.conv.", _double_conv_state(
-            sd, f"{prefix}up{i}.conv.")))
-    return out
-
-
-def swin_unet_classifier_state(sd: SD, swin_depths: Sequence[int],
-                               prefix: str = "") -> State:
-    """``SwinTransformerV2_UNet`` (model.py:802-967: the UNet and the
-    SwinV2 members both at its top level) ->
-    models/struct_nets.SwinClassifierUNet (``unet.``, ``swin.``)."""
-    return {**_prefixed("unet.", unet_state(sd, prefix)),
-            **_prefixed("swin.", swin_encoder_state(sd, swin_depths,
-                                                    prefix))}
-
-
-def swin_vae_classifier_state(sd: SD, swin_depths: Sequence[int],
-                              prefix: str = "") -> State:
-    """``SwinTransformerV2_VAE`` (model.py:557-728: the VAE's ``fc*`` and
-    the SwinV2 members at its top level) ->
-    models/struct_nets.SwinClassifierVAE (``vae.``, ``swin.``)."""
-    return {**_prefixed("vae.", vae_state(sd, prefix)),
-            **_prefixed("swin.", swin_encoder_state(sd, swin_depths,
-                                                    prefix))}
-
-
-# ---- SwinFusion (nn/swinfusion.py) ------------------------------------------------
-
-def fusion_block_state(sd: SD, prefix: str = "",
-                       qkv_bias: bool = True) -> State:
-    """``SwinTransformerBlock_fusion`` (swinfusion_module.py:265-398) ->
-    nn/swinfusion.FusionBlock. A reference block without ``qkv`` bias
-    (``qkv_bias=False``) gets a zero one: the port's block always has it."""
-    out = _take(sd, prefix, [
-        *_ln("norm1"), "attn.qkv.weight", "attn.proj.weight",
-        "attn.proj.bias", "attn.relative_position_bias_table", *_ln("norm2"),
-        "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias"])
-    out["attn.qkv.bias"] = (tensor(sd[prefix + "attn.qkv.bias"]) if qkv_bias
-                            else torch.zeros(out["attn.qkv.weight"].shape[0]))
-    return out
-
-
-def cross_fusion_block_state(sd: SD, prefix: str = "",
-                             qkv_bias: bool = True) -> State:
-    """``Cross_SwinTransformerBlock`` (swinfusion_module.py:400-558) ->
-    nn/swinfusion.CrossFusionBlock, per stream A and B (zero ``q`` / ``kv``
-    biases where the reference has none)."""
+def reference_state(sd: SD, module: nn.Module, prefix: str = "") -> State:
+    """``module``'s state (every key of its ``state_dict``) from the
+    reference's state dict ``sd``, where ``module`` sits under ``prefix``;
+    for ``module.load_state_dict``."""
     out: State = {}
-    for s in ("A", "B"):
-        out.update(_take(sd, prefix, [
-            *_ln(f"norm1_{s}"), f"attn_{s}.q.weight", f"attn_{s}.kv.weight",
-            f"attn_{s}.proj.weight", f"attn_{s}.proj.bias",
-            f"attn_{s}.relative_position_bias_table", *_ln(f"norm2_{s}"),
-            f"mlp_{s}.fc1.weight", f"mlp_{s}.fc1.bias",
-            f"mlp_{s}.fc2.weight", f"mlp_{s}.fc2.bias"]))
-        for proj in ("q", "kv"):
-            name = f"attn_{s}.{proj}.bias"
-            out[name] = (tensor(sd[prefix + name]) if qkv_bias else
-                         torch.zeros(out[f"attn_{s}.{proj}.weight"].shape[0]))
+    for path, m in module.named_modules():
+        if isinstance(m, BertEncoder):
+            path = path + "." if path else ""
+            out.update({path + k: v for k, v in bert_state_from_hf(
+                sd, len(m.encoder["layer"]),
+                prefix + _reference_name(module, path)).items()})
+    for key, held in module.state_dict().items():
+        name = prefix + _reference_name(module, key)
+        if key in out:
+            continue
+        if name in sd:
+            out[key] = tensor(sd[name])
+        elif _QKV_BIAS.search(key):
+            out[key] = torch.zeros(held.shape)
+        else:
+            raise KeyError(f"{name}: not in the reference's state dict")
     return out
 
 
-def _blocks(sd: SD, prefix: str, depth: int, block_fn) -> State:
-    out: State = {}
-    for j in range(depth):
-        out.update(_prefixed(f"blocks.{j}.",
-                             block_fn(sd, f"{prefix}blocks.{j}.")))
-    return out
-
-
-def rstb_state(sd: SD, prefix: str, depth: int) -> State:
-    """``RSTB`` (swinfusion_module.py:750-824) -> nn/swinfusion.RSTB: its
-    residual group (``conv`` / ``patch_embed`` are dead in the reference's
-    forward and are skipped)."""
-    return _prefixed("residual_group.", _blocks(
-        sd, prefix + "residual_group.", depth, fusion_block_state))
-
-
-def crstb_state(sd: SD, prefix: str, depth: int) -> State:
-    """``CRSTB`` (swinfusion_module.py:826-939) -> nn/swinfusion.CRSTB: the
-    per-modality groups and the cross group (``conv_A`` / ``conv_B`` are
-    dead code)."""
-    return {
-        **_prefixed("residual_group_A.", _blocks(
-            sd, prefix + "residual_group_A.", depth, fusion_block_state)),
-        **_prefixed("residual_group_B.", _blocks(
-            sd, prefix + "residual_group_B.", depth, fusion_block_state)),
-        **_prefixed("residual_group.", _blocks(
-            sd, prefix + "residual_group.", depth,
-            cross_fusion_block_state))}
-
-
-def swinfusion_backbone_state(sd: SD, ex_depths: Sequence[int],
-                              fusion_depths: Sequence[int],
-                              re_depths: Sequence[int],
-                              prefix: str = "") -> State:
-    """The ``SwinFusion`` feature path (reference model.py:1131-1534, its
-    SwinV2 classifier aside) -> models/swinfusion_net.SwinFusionBackbone:
-    the shared A stem, the shared ``patch_embed.norm``, the Ex / Fusion /
-    Re stacks, their norms and the collapse convs (the unused
-    ``conv_first*_B`` stems skipped)."""
-    names = [*_ln("patch_embed.norm")]
-    for conv in ("conv_first1_A", "conv_first2_A", "conv_after_body_Fusion",
-                 "conv_last1", "conv_last2", "conv_last3"):
-        names += [f"{conv}.weight", f"{conv}.bias"]
-    for norm in ("norm_Ex_A", "norm_Ex_B", "norm_Fusion_A", "norm_Fusion_B",
-                 "norm_Re"):
-        names += _ln(norm)
-    out = _take(sd, prefix, names)
-    for stack, depths, fn in (("layers_Ex_A", ex_depths, rstb_state),
-                              ("layers_Ex_B", ex_depths, rstb_state),
-                              ("layers_Fusion", fusion_depths, crstb_state),
-                              ("layers_Re", re_depths, rstb_state)):
-        for i, d in enumerate(depths):
-            base = f"{stack}.{i}."
-            out.update(_prefixed(base, fn(sd, prefix + base, d)))
-    return out
-
-
-def swinfusion_net_state(sd: SD, ex_depths: Sequence[int],
-                         fusion_depths: Sequence[int],
-                         re_depths: Sequence[int],
-                         swin_depths: Sequence[int] = (2, 2, 6),
-                         prefix: str = "") -> State:
-    """The whole reference ``SwinFusion`` (model.py:1131-1555: the backbone
-    at its top level, the classifier under ``swin.``) ->
-    models/swinfusion_net.SwinFusionNet (``fusion.``, ``swin.``)."""
-    return {
-        **_prefixed("fusion.", swinfusion_backbone_state(
-            sd, ex_depths, fusion_depths, re_depths, prefix)),
-        **_prefixed("swin.", swin_encoder_state(sd, swin_depths,
-                                                prefix=prefix + "swin."))}
-
-
-# ---- the fMRI nets (models/fmri_nets.py, nn/crossmodal.py) ----------------------
-
-def time_proj_state(sd: SD, name: str) -> State:
-    """The reference's bias-free ``Conv1d(T, T_out, 1)`` over time
-    (model.py:376-383) -> models/fmri_nets.TimeProj, which keeps the
-    Conv1d weight ``(T_out, T_in, 1)``: the identity on ``{name}.weight``."""
-    return _take(sd, "", [f"{name}.weight"])
-
-
-def mult_encoder_state(sd: SD, prefix: str, num_layers: int) -> State:
-    """The fairseq-style ``TransformerEncoder``
-    (crossmodal_transformer.py:9-96) -> nn/crossmodal.MultTransformerEncoder
-    (the same names: ``layers.{i}.layer_norms.{0,1}``, ``self_attn``'s
-    packed in-projection and ``out_proj``, ``fc1``, ``fc2``,
-    ``layer_norm``)."""
-    names = _ln("layer_norm")
-    for i in range(num_layers):
-        pre = f"layers.{i}."
-        names += [*_ln(pre + "layer_norms.0"), *_ln(pre + "layer_norms.1"),
-                  pre + "self_attn.in_proj_weight",
-                  pre + "self_attn.in_proj_bias",
-                  pre + "self_attn.out_proj.weight",
-                  pre + "self_attn.out_proj.bias", pre + "fc1.weight",
-                  pre + "fc1.bias", pre + "fc2.weight", pre + "fc2.bias"]
-    return _take(sd, prefix, names)
-
-
-def transformer_net_cross_attention_state(
-        sd: SD, nlevels: int, prefix: str = "",
-        feature_map_size: str = "same",
-        feature_map_gen: str = "convolution_ul+l",
-        mixing: str = "U2L_and_L2U", concat_method: str = "concat",
-        fmri_type: str = "divided_frequency") -> State:
-    """``Transformer_Net_Cross_Attention`` (reference model.py:341-552) ->
-    models/fmri_nets.TransformerNetCrossAttention: only what the configured
-    branch builds (the reference builds every encoder; JAX's mapper maps
-    the same subset)."""
-    mem_layers = max(nlevels, 3)
-    p = prefix
-    out = {**_prefixed("trans_l_with_u.", mult_encoder_state(
-               sd, p + "trans_l_with_u.", nlevels)),
-           **_prefixed("trans_u_with_l.", mult_encoder_state(
-               sd, p + "trans_u_with_l.", nlevels)),
-           **_prefixed("out_layer2.", _take(sd, p + "out_layer2.",
-                                            ["weight", "bias"]))}
-    if feature_map_gen == "convolution_ul+l":
-        out.update(_take(sd, p, ["proj_l.weight"]))
-    if feature_map_size == "different":
-        out.update(_take(sd, p, ["proj_u.weight"]))
-    if feature_map_size == "different" or fmri_type == \
-            "timeseries_and_frequency":
-        out.update(_take(sd, p, ["deconv.weight"]))
-    if mixing == "U2L_and_L2U" and concat_method == "concat":
-        mem = "trans_mem"
-        out.update(_take(sd, p, ["out_layer1.weight", "out_layer1.bias"]))
-    elif mixing in ("U2L", "U2L_and_L2U"):
-        mem = "trans_l_mem"
-    else:
-        mem = "trans_u_mem"
-    out.update(_prefixed(f"{mem}.", mult_encoder_state(sd, f"{p}{mem}.",
-                                                       mem_layers)))
-    return out
-
-
-def transformer_block_state(sd: SD, prefix: str, num_layers: int) -> State:
-    """The reference ``Transformer_Block`` (model.py:154-192: the learned
-    CLS projection and an HF ``BertModel``) -> nn/bert.TemporalBert."""
-    return {**_take(sd, prefix, ["cls_embedding.0.weight",
-                                 "cls_embedding.0.bias"]),
-            **_prefixed("bert.", bert_state_from_hf(
-                sd, num_layers, prefix=prefix + "bert."))}
-
-
-def _dual_bert_embed_state(sd: SD, num_layers: int, prefix: str = "") -> State:
-    """The low / ultralow Transformer_Blocks and the CLS concat projection
-    (model.py:241-339, 1598-1628) -> models/func_struct.FmriDiagEmbed and
-    the front of TransformerNetTwoChannels."""
-    return {
-        **_prefixed("transformer_low.", transformer_block_state(
-            sd, prefix + "transformer_low.", num_layers)),
-        **_prefixed("transformer_ultralow.", transformer_block_state(
-            sd, prefix + "transformer_ultralow.", num_layers)),
-        **_take(sd, prefix, ["proj_layer.weight", "proj_layer.bias"])}
-
-
-def transformer_net_state(sd: SD, num_layers: int, prefix: str = "") -> State:
-    """``Transformer_Net`` (model.py:194-239) -> models/fmri_nets
-    .TransformerNet."""
-    return {**_prefixed("transformer.", transformer_block_state(
-                sd, prefix + "transformer.", num_layers)),
-            **_take(sd, prefix, ["regression_head.weight",
-                                 "regression_head.bias"])}
-
-
-def transformer_net_two_channels_state(sd: SD, num_layers: int,
-                                       prefix: str = "") -> State:
-    """``Transformer_Net_Two_Channels`` (model.py:241-339) ->
-    models/fmri_nets.TransformerNetTwoChannels."""
-    return {**_dual_bert_embed_state(sd, num_layers, prefix),
-            **_take(sd, prefix, ["regression_head.weight",
-                                 "regression_head.bias"])}
-
-
-# ---- the Func+Struct combiners (models/func_struct.py) -------------------------
-
-def funcstruct_add_state(sd: SD, num_layers: int,
-                         swin_depths: Sequence[int],
-                         prefix: str = "") -> State:
-    """``Func_Struct_Add`` / ``Func_Struct_Transfer`` (model.py:3187-3552;
-    the classes are the SwinV2 model, its members at their top level) ->
-    models/func_struct.FuncStruct{Add,Transfer}."""
-    return {**_prefixed("fmri_embed.", _dual_bert_embed_state(
-                sd, num_layers, prefix)),
-            **_prefixed("swin.", swin_encoder_state(sd, swin_depths,
-                                                    prefix=prefix))}
-
-
-def funcstruct_cross_state(sd: SD, num_layers: int,
-                           ex_depths: Sequence[int],
-                           fusion_depths: Sequence[int],
-                           re_depths: Sequence[int],
-                           swin_depths: Sequence[int],
-                           prefix: str = "") -> State:
-    """The flagship ``Func_Struct_Cross`` (reference model.py:1558-2020:
-    the dual temporal BERTs and the SwinFusion backbone at its top level,
-    the classifier under ``swin.``) -> models/func_struct.FuncStructCross
-    (``fmri_embed.``, ``fusion.``, ``swin.``)."""
-    return {
-        **_prefixed("fmri_embed.", _dual_bert_embed_state(sd, num_layers,
-                                                          prefix)),
-        **_prefixed("fusion.", swinfusion_backbone_state(
-            sd, ex_depths, fusion_depths, re_depths, prefix)),
-        **_prefixed("swin.", swin_encoder_state(sd, swin_depths,
-                                                prefix=prefix + "swin."))}
+def reference_model_state(sd: SD, cfg, prefix: str = "") -> State:
+    """The state of ``cfg``'s whole model (models/registry
+    ``create_model``) from the reference's state dict ``sd``."""
+    from multimodal_neuroimage_tpu_torch.models.registry import create_model
+    return reference_state(sd, create_model(cfg), prefix)

@@ -1672,12 +1672,14 @@ def _op_cases(dev):
     xg16, yg16 = xg.to(torch.bfloat16), yg.to(torch.bfloat16)
     return [
         ("bert_layer_forward",
-         lambda: library.bert_layer_forward(x1, list(p1), heads, t_valid),
+         lambda: library.bert_layer_forward(x1, list(p1), heads, t_valid,
+                                            False),
          lambda: bl.bert_layer_call(x1, p1, heads, t_valid),
          lambda: bl.bert_layer_reference(x1, p1, heads, t_valid),
          bl.bert_layer_call, False),
-        ("bert_layer_forward16",
-         lambda: library.bert_layer_forward16(x1, list(p16), heads, t_valid),
+        ("bert_layer_forward (mm16)",
+         lambda: library.bert_layer_forward(x1, list(p16), heads, t_valid,
+                                            True),
          lambda: bl.bert_layer_call16(x1, p16, heads, t_valid),
          lambda: bl.bert_layer_reference(x1, p16, heads, t_valid, mm16=True),
          bl.bert_layer_call16, True),
@@ -1702,8 +1704,8 @@ def _op_cases(dev):
          lambda: library.mha_forward(mq, mk, mv),
          lambda: att.fused_attention(mq, mk, mv),
          lambda: att.mha_reference(mq, mk, mv), att.fused_attention, False),
-        ("mha_forward16",
-         lambda: library.mha_forward16(hq, hk, hv),
+        ("mha_forward (bf16)",
+         lambda: library.mha_forward(hq, hk, hv),
          lambda: att.fused_attention16(hq, hk, hv),
          lambda: att.mha_reference16(hq, hk, hv), att.fused_attention16,
          True),
@@ -1715,9 +1717,9 @@ def _op_cases(dev):
          lambda: fbp.cross_fusion_block_bp_reference(xg, yg, crossp, bias,
                                                      mask, group=G),
          fbp.fused_cross_fusion_block_bp, False),
-        ("fusion_block_bp_forward16 (self)",
-         lambda: library.fusion_block_bp_forward16(xg16, None, list(selfp),
-                                                   bias, mask, G),
+        ("fusion_block_bp_forward (bf16, self)",
+         lambda: library.fusion_block_bp_forward(xg16, None, list(selfp),
+                                                 bias, mask, G),
          lambda: fbp.fused_fusion_block_bp16(xg16, selfp, bias, mask,
                                              group=G),
          lambda: fbp.fusion_block_bp_reference16(xg16, selfp, bias, mask,

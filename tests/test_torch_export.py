@@ -19,6 +19,7 @@ requests. Then:
 * the port's artifacts against JAX's ``export_model(..., portable=True)``
   artifact of the same weights on the same cohort;
 * the bf16 artifact is smaller than the float32 one and scores otherwise;
+* the artifact runs its program without TF32 whatever its caller set;
 * the registered ops against their plain versions, called eagerly.
 
 Tolerances: against the live Predictor rtol / atol 1e-5 (on the CPU both
@@ -66,16 +67,12 @@ TINY_FLAGSHIP = dict(
     fusion_re_heads=(2,), size_of_model="small", num_heads_2DBert=4,
     intermediate_vec=48, **cc.NO_DROPOUT)
 TINY_STRUCT = dict(task="VIT", dataset_name="DTI", size_of_model="small")
-OPS = {"flagship": {"float32": ["bert_layer_forward", "fusion_block_forward",
-                                "window_attention_forward"],
-                    "bfloat16": ["bert_layer_forward16",
-                                 "fusion_block_forward",
-                                 "window_attention_forward"]},
-       "flagship_bp": {"float32": ["bert_layer_forward",
-                                   "fusion_block_bp_forward",
-                                   "window_attention_forward"]},
-       "struct": {"float32": ["window_attention_forward"]},
-       "hcp": {"float32": ["mha_forward"], "bfloat16": ["mha_forward16"]}}
+OPS = {"flagship": ["bert_layer_forward", "fusion_block_forward",
+                    "window_attention_forward"],
+       "flagship_bp": ["bert_layer_forward", "fusion_block_bp_forward",
+                       "window_attention_forward"],
+       "struct": ["window_attention_forward"],
+       "hcp": ["mha_forward"]}
 
 
 @pytest.fixture(scope="module")
@@ -146,7 +143,7 @@ def _check_artifact(pred, path, kind, compute_dtype, portable):
     assert meta["threshold"] == pred.threshold
     assert meta["checkpoint"] == pred.checkpoint_path
     want_ops = [] if portable else sorted(
-        f"{library.NAMESPACE}::{o}" for o in OPS[kind][compute_dtype])
+        f"{library.NAMESPACE}::{o}" for o in OPS[kind])
     assert meta["ops"] == want_ops
     for batch, _ in pred.batches():
         want = pred.step(batch)[pred.head].reshape(-1).numpy()
@@ -244,6 +241,36 @@ def test_bf16_artifact_is_smaller_and_scores_otherwise(cohort, weights,
     assert np.abs(arts["bfloat16"](batch) - arts["float32"](batch)).max() > 0
 
 
+def test_artifact_runs_without_tf32(cohort, weights, tmp_path):
+    """A program does not record TF32's settings: the artifact runs it
+    with both off (as the live model runs its forward), whatever its
+    caller has set, and gives the caller's settings back."""
+    _, cfg = _configs(cohort["struct"], "struct", "float32")
+    pred = Predictor(cfg, weights["struct"][1], device="cpu")
+    art = load_exported(export_model(pred, str(tmp_path / "a.pt2")))
+    assert art.meta["tf32"] is False
+    seen, forward = [], art._forward
+
+    def spy(batch):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32))
+        return forward(batch)
+
+    art._forward = spy
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        art(_first_batch(pred))
+        after = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    assert seen == [(False, False)] and after == (True, True)
+
+
 def test_registered_ops_against_plain_versions():
     """Each op called eagerly on CPU tensors is its kernel's plain version
     bit for bit, with the output's shape and dtype its fake gives."""
@@ -272,9 +299,9 @@ def test_registered_ops_against_plain_versions():
     G = 2
     xg, yg = fbp.to_groups(xw, G), fbp.to_groups(yw, G)
     cases = [
-        (library.bert_layer_forward(x1, p1, 4, 7),
+        (library.bert_layer_forward(x1, p1, 4, 7, False),
          bl.bert_layer_reference(x1, p1, 4, 7)),
-        (library.bert_layer_forward16(x1, p1, 4, 7),
+        (library.bert_layer_forward(x1, p1, 4, 7, True),
          bl.bert_layer_reference(x1, p1, 4, 7, mm16=True)),
         (library.fusion_block_forward(xw, None, selfp, bias, mask),
          fb.fusion_block_reference(xw, selfp, bias, mask)),
@@ -283,17 +310,17 @@ def test_registered_ops_against_plain_versions():
         (library.window_attention_forward(q, k, v, bias, mask),
          att.attention_reference(q, k, v, bias, mask)),
         (library.mha_forward(mq, mk, mv), att.mha_reference(mq, mk, mv)),
-        (library.mha_forward16(*(t.bfloat16() for t in (mq, mk, mv))),
+        (library.mha_forward(*(t.bfloat16() for t in (mq, mk, mv))),
          att.mha_reference16(*(t.bfloat16() for t in (mq, mk, mv)))),
         (library.fusion_block_bp_forward(xg, yg, crossp, bias, mask, G),
          fbp.cross_fusion_block_bp_reference(xg, yg, crossp, bias, mask,
                                              group=G)),
-        (library.fusion_block_bp_forward16(xg.bfloat16(), None, selfp, bias,
-                                           mask, G),
+        (library.fusion_block_bp_forward(xg.bfloat16(), None, selfp, bias,
+                                         mask, G),
          fbp.fusion_block_bp_reference16(xg.bfloat16(), selfp, bias, mask,
                                          group=G)[0]),
     ]
-    assert len(cases) == len(library.ops()) + 1
+    assert len(cases) == len(library.ops()) + 4
     for i, (got, want) in enumerate(cases):
         assert got.dtype == want.dtype and got.shape == want.shape, i
         assert torch.equal(got, want), i

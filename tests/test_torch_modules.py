@@ -372,8 +372,9 @@ with tempfile.TemporaryDirectory() as tmp:
     nifti.write_nifti(volume, np.ones((2, 3, 4, 5), np.float32))
     assert nifti.read_nifti(volume).shape == (2, 3, 4, 5)
 assert reproducibility.host_rng(1, 2).integers(9) >= 0
-assert torch_import.vae_state({f"fc{i}.weight": np.ones((2, 2))
-                               for i in (1, 2, 31, 32, 4, 5, 6)})
+embed = model.fmri_embed.state_dict()
+assert torch_import.reference_state(embed, model.fmri_embed).keys() == \
+    embed.keys()
 assert hf_import.tensor(np.zeros(3)).dtype == torch.float32
 print(sorted(m for m in sys.modules
              if m in ("jax", "flax", "pandas", "sklearn", "transformers")

@@ -6,15 +6,16 @@ against the JAX package's mappers on the CPU.
   the port's ``BertEncoder`` carrying it against the HF model's sequence
   and pooled outputs, and the state equal to JAX's ``bert_params_from_hf``
   carried by ``jax_params_to_state_dict``.
-* Each ``torch_import`` mapper on a random state dict with the reference's
-  names: a model's JAX parameters carried into the port
+* ``torch_import`` on a random state dict with the reference's names: a
+  model's JAX parameters carried into the port
   (``jax_params_to_state_dict``), renamed to the reference's top-level
   layout and given what the reference's ``.pth`` holds beside them
   (buffers, BatchNorm statistics, dead members, BERT's word embeddings and
-  second token type). The port's mapper gives back exactly the port's
-  state; JAX's mapper followed by ``jax_params_to_state_dict`` gives the
-  same tensors; each block-level mapper equals JAX's on its block; and the
-  JAX model on JAX's mapped tree against the port model on the port's
+  second token type). ``reference_model_state`` gives back exactly the
+  port's state; JAX's mapper followed by ``jax_params_to_state_dict``
+  gives the same tensors; ``reference_state`` on each block's module
+  equals JAX's mapper of that block; a missing ``qkv`` bias maps to zeros
+  and any other missing tensor raises; and the JAX model on JAX's mapped tree against the port model on the port's
   mapped state (both on their plain paths).
 
 Tolerance: outputs float32 at the goldens' rtol 2e-4 / atol 1e-4; the
@@ -189,9 +190,9 @@ def _two_channels():
     return cfg, jmodel, params, batch
 
 
-# name: (setup, reference top-level prefixes, port mapper, JAX mapper);
-# each mapper is called as fn(sd, state) with the model's structure read
-# from its port state
+# name: (setup, reference top-level prefixes, JAX mapper); the JAX mapper
+# is called as fn(sd, state) with the model's structure read from its port
+# state, the port's as torch_import.reference_model_state(sd, cfg)
 MODELS = {
     "swinfusion_net": (
         lambda: _struct("SwinFusion", "struct", fusion_ex_depths=(2,),
@@ -199,10 +200,6 @@ MODELS = {
                         fusion_ex_heads=(2,), fusion_heads=(2,),
                         fusion_re_heads=(2,)),
         ("fusion.",),
-        lambda sd, s: torch_import.swinfusion_net_state(
-            sd, _depths(s, "fusion.layers_Ex_A"),
-            _depths(s, "fusion.layers_Fusion"), _depths(s, "fusion.layers_Re"),
-            _depths(s, "swin.layers")),
         lambda sd, s: jti.swinfusion_net_tree(
             sd, _depths(s, "fusion.layers_Ex_A"),
             _depths(s, "fusion.layers_Fusion"), _depths(s, "fusion.layers_Re"),
@@ -210,53 +207,40 @@ MODELS = {
     "swin_unet_classifier": (
         lambda: _struct("test", "DTI+sMRI", use_unet=True),
         ("unet.", "swin."),
-        lambda sd, s: torch_import.swin_unet_classifier_state(
-            sd, _depths(s, "swin.layers")),
         lambda sd, s: jti.swin_unet_classifier_tree(
             sd, _depths(s, "swin.layers"))),
     "swin_vae_classifier": (
         lambda: _struct("VIT", "DTI", use_vae=True),
         ("vae.", "swin."),
-        lambda sd, s: torch_import.swin_vae_classifier_state(
-            sd, _depths(s, "swin.layers")),
         lambda sd, s: {"vae": jti.vae_tree(sd), "swin": jti.swin_encoder_tree(
             sd, _depths(s, "swin.layers"))}),
     "funcstruct_cross": (
         _flagship, ("fmri_embed.", "fusion."),
-        lambda sd, s: torch_import.funcstruct_cross_state(
-            sd, 2, _depths(s, "fusion.layers_Ex_A"),
-            _depths(s, "fusion.layers_Fusion"), _depths(s, "fusion.layers_Re"),
-            _depths(s, "swin.layers")),
         lambda sd, s: jti.funcstruct_cross_tree(
             sd, 2, _depths(s, "fusion.layers_Ex_A"),
             _depths(s, "fusion.layers_Fusion"), _depths(s, "fusion.layers_Re"),
             _depths(s, "swin.layers"))),
     "funcstruct_add": (
         _add, ("fmri_embed.", "swin."),
-        lambda sd, s: torch_import.funcstruct_add_state(
-            sd, 2, _depths(s, "swin.layers")),
         lambda sd, s: jti.funcstruct_add_tree(sd, 2,
                                               _depths(s, "swin.layers"))),
     "transformer_net_cross_attention": (
         _mult, (),
-        lambda sd, s: torch_import.transformer_net_cross_attention_state(
-            sd, 2),
         lambda sd, s: jti.transformer_net_cross_attention_tree(sd, 2)),
     "transformer_net_two_channels": (
         _two_channels, (),
-        lambda sd, s: torch_import.transformer_net_two_channels_state(sd, 2),
         lambda sd, s: jti.transformer_net_two_channels_tree(sd, 2)),
 }
 
 
 @pytest.fixture(scope="module", params=list(MODELS))
 def mapped(request):
-    setup, top, port_map, jax_map = MODELS[request.param]
+    setup, top, jax_map = MODELS[request.param]
     cfg, jmodel, params, batch = setup()
     state = jax_import.jax_params_to_state_dict(params)
     sd = _reference_sd(state, top, np.random.default_rng(2))
     return (request.param, cfg, jmodel, batch, state, sd,
-            port_map(sd, state), jax_map(sd, state))
+            torch_import.reference_model_state(sd, cfg), jax_map(sd, state))
 
 
 def test_port_mapper_gives_the_port_state(mapped):
@@ -308,58 +292,73 @@ def _blocks_of(state, pattern):
                                    "swin_block", "mult_encoder", "time_proj",
                                    "unet", "vae"])
 def test_block_mappers_equal_jax(block):
-    """Each block-level mapper on a block of a reference-named state dict
-    against JAX's mapper of that block followed by the port's converter of
-    it (utils/jax_import.py)."""
+    """The port's mapper on each block of a reference-named state dict (the
+    block's port module saying what to take) against JAX's mapper of that
+    block followed by the port's converter of it (utils/jax_import.py)."""
     rng = np.random.default_rng(4)
     if block in ("fusion", "cross_fusion", "rstb", "crstb"):
-        *_, params, _ = _struct("SwinFusion", "struct")
-        state = jax_import.jax_params_to_state_dict(params)
+        cfg, _, params, _ = _struct("SwinFusion", "struct")
     elif block in ("swin_block", "vae"):
-        *_, params, _ = _struct("VIT", "DTI", use_vae=True)
-        state = jax_import.jax_params_to_state_dict(params)
+        cfg, _, params, _ = _struct("VIT", "DTI", use_vae=True)
     elif block == "unet":
-        *_, params, _ = _struct("test", "DTI+sMRI", use_unet=True)
-        state = jax_import.jax_params_to_state_dict(params)
+        cfg, _, params, _ = _struct("test", "DTI+sMRI", use_unet=True)
     else:
-        state = jax_import.jax_params_to_state_dict(_mult()[2])
-    sd = _reference_sd(state, (), rng)
+        cfg, _, params, _ = _mult()
+    model = create_model(cfg)
+    sd = _reference_sd(jax_import.jax_params_to_state_dict(params), (), rng)
+    def depth(p):
+        return len(model.get_submodule(p + "residual_group.blocks"))
+
+    # block: (its prefixes in sd, JAX's state of the block at prefix p)
     cases = {
         "fusion": (r"(.*residual_group_A\.blocks\.0\.)", lambda p:
-                   (torch_import.fusion_block_state(sd, p),
-                    jax_import.fusion_block_state(
-                        jti.fusion_block_tree(sd, p)))),
+                   jax_import.fusion_block_state(
+                       jti.fusion_block_tree(sd, p))),
         "cross_fusion": (r"(.*layers_Fusion\.0\.residual_group\.blocks\.0\.)",
-                         lambda p: (torch_import.cross_fusion_block_state(
-                             sd, p), jax_import.cross_fusion_block_state(
-                                 jti.cross_fusion_block_tree(sd, p)))),
-        "rstb": (r"(.*layers_Ex_A\.0\.)", lambda p: (
-            torch_import.rstb_state(sd, p, 1),
-            jax_import.rstb_state(jti.rstb_tree(sd, p, 1)))),
-        "crstb": (r"(.*layers_Fusion\.0\.)", lambda p: (
-            torch_import.crstb_state(sd, p, 1),
-            jax_import.crstb_state(jti.crstb_tree(sd, p, 1)))),
-        "swin_block": (r"(swin\.layers\.1\.blocks\.1\.)", lambda p: (
-            torch_import.swin_block_state(sd, p),
-            jax_import.swin_block_state(jti.swin_block_tree(sd, p)))),
-        "mult_encoder": (r"(trans_mem\.)", lambda p: (
-            torch_import.mult_encoder_state(sd, p, 3),
-            jax_import.mult_encoder_state(jti.mult_encoder_tree(sd, p, 3)))),
-        "time_proj": (r"()proj_l\.weight", lambda p: (
-            torch_import.time_proj_state(sd, "proj_l"),
-            jax_import.time_proj_state(jti.time_proj_tree(sd, "proj_l"),
-                                       "proj_l"))),
-        "unet": (r"(unet\.)", lambda p: (
-            torch_import.unet_state(sd, p),
-            jax_import.unet_state(jti.unet_tree(sd, p)))),
-        "vae": (r"(vae\.)", lambda p: (
-            torch_import.vae_state(sd, p),
-            jax_import.mlp_vae_state(jti.vae_tree(sd, p)))),
+                         lambda p: jax_import.cross_fusion_block_state(
+                             jti.cross_fusion_block_tree(sd, p))),
+        "rstb": (r"(.*layers_Ex_A\.0\.)", lambda p:
+                 jax_import.rstb_state(jti.rstb_tree(sd, p, depth(p)))),
+        "crstb": (r"(.*layers_Fusion\.0\.)", lambda p:
+                  jax_import.crstb_state(jti.crstb_tree(sd, p, depth(p)))),
+        "swin_block": (r"(swin\.layers\.1\.blocks\.1\.)", lambda p:
+                       jax_import.swin_block_state(
+                           jti.swin_block_tree(sd, p))),
+        "mult_encoder": (r"(trans_mem\.)", lambda p:
+                         jax_import.mult_encoder_state(
+                             jti.mult_encoder_tree(sd, p, 3))),
+        "time_proj": (r"(proj_l\.)weight", lambda p: {
+            k[len(p):]: v for k, v in jax_import.time_proj_state(
+                jti.time_proj_tree(sd, "proj_l"), "proj_l").items()}),
+        "unet": (r"(unet\.)", lambda p:
+                 jax_import.unet_state(jti.unet_tree(sd, p))),
+        "vae": (r"(vae\.)", lambda p:
+                jax_import.mlp_vae_state(jti.vae_tree(sd, p))),
     }
-    pattern, pair = cases[block]
+    pattern, want = cases[block]
     prefixes = _blocks_of(sd, pattern)
     assert prefixes, block
     for p in prefixes:
-        got, want = pair(p)
-        _same(got, want)
+        got = torch_import.reference_state(sd, model.get_submodule(p[:-1]), p)
+        _same(got, want(p))
         assert got and all(p + k in sd for k in got)
+
+
+def test_reference_state_zero_qkv_bias_and_missing_tensor():
+    """A reference fusion block built without ``qkv`` bias maps to zero
+    biases (JAX's ``qkv_bias=False``); any other tensor the port's module
+    holds and the state dict lacks raises ``KeyError``."""
+    cfg, _, params, _ = _struct("SwinFusion", "struct")
+    model = create_model(cfg)
+    p = "fusion.layers_Ex_A.0.residual_group.blocks.0."
+    block = model.get_submodule(p[:-1])
+    sd = {k: v for k, v in jax_import.jax_params_to_state_dict(
+        params).items() if k.startswith(p) and k != p + "attn.qkv.bias"}
+    got = torch_import.reference_state(sd, block, p)
+    assert torch.equal(got["attn.qkv.bias"],
+                       torch.zeros(block.attn.qkv.bias.shape))
+    _same({k: v for k, v in got.items() if k != "attn.qkv.bias"},
+          {k[len(p):]: v for k, v in sd.items()})
+    del sd[p + "norm1.weight"]
+    with pytest.raises(KeyError, match="norm1.weight"):
+        torch_import.reference_state(sd, block, p)
