@@ -193,7 +193,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ``Config.validate()`` admits beyond the flagship's 7 (hd 21 and 14 at
    T 369, batch 8, every entry timed beside its plain version and
    ``nn.TransformerEncoderLayer``; hd 28 and 84 at batch 4, checked
-   only); on the 40-subject cohort through the CLI a 3-trial study of
+   only); on the 40-subject cohort through the CLI a 4-trial study of
    step 1 (every trial completed or pruned, exactly the launches its
    drawn depths and batches need, ``best_params.pkl`` with the search
    space's keys), a run on its best parameters and a 4-head run (hd 21),
@@ -237,7 +237,27 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    tolerance and without a launch; sizes, times; the flagship's weights
    mapped from the reference's layout (torch_import) served bitwise; an
    fMRI_image cohort in the native gear equal to the host gear.
-17. Prints one JSON line of per-kernel results (launches by path:
+17. The count of a step's work (``work_counts``, obs/profiling.py): each
+   ``bench.py`` config at full width (the flagship at float32 and bf16 on
+   the std layout at batch 4, at float32 on std and at float32 and bf16
+   on ``bp`` at batch 8, G 8; ``smri_swin``,
+   ``fmri_bert``, ``swinfusion_struct`` and HCP phase 1 at their bf16
+   default, batch 4): ``traced_flops`` of one training and one predict
+   step on the kernel route (every kernel of the path launched, each
+   counted by its formula) equal to the products the same steps run on
+   the plain route (every kernel's plain forward on the card, autograd
+   through it; ``compiled_cost``, no formula), ``compiled_cost`` of the
+   kernel route lower by exactly the kernels' share, the flagship's forms
+   equal at one batch; each config's counts per subject printed
+   (JAX's analytic flagship estimate, bench.py, beside the flagship's),
+   and the phase's wall time. Phase 13's study also runs 4 trials twice,
+   the second with trial 1 under a cap on the card's memory: that trial
+   fails with ``torch.cuda.OutOfMemoryError``, is recorded as failed, and
+   the other trials' objectives and the best parameters equal those of the
+   uncapped study's other trials; phase 16's artifacts carry the count of
+   a batch (the sidecar's ``flops``, ``graph_flops``), equal to the live
+   predict step's ``traced_flops``.
+18. Prints one JSON line of per-kernel results (launches by path:
    flagship, flagship_bp, flagship_bf16, flagship_bp_bf16, hcp, hcp_bf16,
    flagship_defaults, flagship_disk, hcp_disk, dot_shapes, smri_swin,
    smri_swin_vae, smri_swin_unet, swinfusion_struct, struct_disk,
@@ -4221,16 +4241,117 @@ def _reconstruction_losses(card):
           f"{ATOL} + rtol {RTOL}); card: {card}")
 
 
+P13_TRIALS = 4
+P13_OOM_TRIAL = 1          # the trial of the second study run out of memory
+
+
+@contextlib.contextmanager
+def _objectives():
+    """Within the block: {trial number: objective} of every trial the
+    study (hpo/optuna_harness.py) completes."""
+    from multimodal_neuroimage_tpu_torch.hpo import optuna_harness as oh
+    values, real = {}, oh._objective_value
+
+    def record(cfg, metrics, trainer):
+        value = real(cfg, metrics, trainer)
+        trial = os.path.basename(trainer.cfg.experiment_folder)
+        values[int(trial.rsplit("_", 1)[1])] = value
+        return value
+
+    oh._objective_value = record
+    try:
+        yield values
+    finally:
+        oh._objective_value = real
+
+
+@contextlib.contextmanager
+def _memory_cap(trial: str):
+    """Within the block the ``Trainer`` of study trial ``trial`` runs with
+    the card's memory capped 16 MiB above what the process holds
+    (``torch.cuda.set_per_process_memory_fraction``), so that the trial
+    truly runs out of memory; the cap is lifted when it ends."""
+    from multimodal_neuroimage_tpu_torch.train import trainer as tmod
+    base = tmod.Trainer
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def uncap():
+        torch.cuda.set_per_process_memory_fraction(1.0)
+
+    class Capped(base):
+        def __init__(self, cfg, *args, **kwargs):
+            if os.path.basename(cfg.experiment_folder or "") == trial:
+                torch.cuda.empty_cache()
+                torch.cuda.set_per_process_memory_fraction(
+                    (torch.cuda.memory_reserved() + (16 << 20)) / total)
+            try:
+                super().__init__(cfg, *args, **kwargs)
+            except BaseException:
+                uncap()
+                raise
+
+        def training(self):
+            try:
+                return super().training()
+            finally:
+                uncap()
+
+    tmod.Trainer = Capped
+    try:
+        yield
+    finally:
+        tmod.Trainer = base
+        uncap()
+
+
+def _study_out_of_memory(argv, values, drawn, root, card):
+    """Phase 13's study again under another name, its trial
+    ``P13_OOM_TRIAL`` under ``_memory_cap``: that trial fails with
+    ``torch.cuda.OutOfMemoryError`` and is recorded as failed, the study
+    goes on, and the other trials' objectives and the best parameters
+    equal those of the uncapped study's other trials (``values``)."""
+    import pickle
+    # a name that the first study's globs (``*hpo*``) do not match
+    argv = [a if a != "hpo" else "capped" for a in argv]
+    held = torch.cuda.memory_allocated()
+    with _objectives() as got, _memory_cap(f"trial_{P13_OOM_TRIAL}"):
+        best, _, wall, out = _cli(argv, "outer shell: study, one trial out "
+                                  "of memory", card)
+    failed = [line for line in out.splitlines()
+              if line.startswith(f"trial {P13_OOM_TRIAL} failed: ")]
+    want = {n: v for n, v in values.items() if n != P13_OOM_TRIAL}
+    if not failed or "out of memory" not in failed[0]:
+        raise AssertionError(f"trial {P13_OOM_TRIAL} was not recorded as "
+                             f"failed out of memory: {failed}")
+    if got != want:
+        raise AssertionError(f"the other trials' objectives {got} differ "
+                             f"from the uncapped study's {want}")
+    top = max(want, key=lambda n: (want[n], -n))
+    with open(os.path.join(_experiment(root, "capped"),
+                           "best_params.pkl"), "rb") as f:
+        params = pickle.load(f)
+    if params != drawn[top] or best["best_value"] != want[top]:
+        raise AssertionError(f"best parameters {params} ({best}), expected "
+                             f"trial {top}'s {drawn[top]} at {want[top]}")
+    print(f"study with trial {P13_OOM_TRIAL} out of memory: recorded "
+          f"'{failed[0][:110]}', the other {len(got)} trials' objectives "
+          f"and the best (trial {top}) equal the uncapped study's, in "
+          f"{wall:.1f} s; memory held {held} B before, "
+          f"{torch.cuda.memory_allocated()} B after; card: {card}")
+
+
 def outer_shell(card, gen, res: Results):
     """Phase 13 (``outer_shell``): K1 at the head dims the HPO space and
     ``Config.validate()`` admit (hd 21 and 14 at heads 4 and 6: T 369
     padded to 376, batch 8, timed beside its plain version and
     ``nn.TransformerEncoderLayer``; hd 28 and 84 at batch 4 for correctness
-    only); then through the CLI on the 40-subject cohort on disk: a 3-trial
+    only); then through the CLI on the 40-subject cohort on disk: a 4-trial
     study (``--step 1 --use_optuna --opt_num_epochs 1``: the fallback
     search, every trial completed or pruned, K1 and K5 launched exactly as
     each trial's drawn depth and batch need, ``best_params.pkl`` with the
-    search space's keys), a ``--use_best_params_from_optuna`` run on them,
+    search space's keys), the same study with one trial out of memory
+    (``_study_out_of_memory``), a ``--use_best_params_from_optuna`` run on
+    them,
     a fixed ``--num_heads_2DBert 4`` run (hd 21 whatever the study drew);
     step 5's ``FuncStructUNetAdd`` with the UNet loss, grad norms every
     step, ``--profiling`` and ``--profile_dir`` (exactly 10 train batches,
@@ -4262,22 +4383,24 @@ def outer_shell(card, gen, res: Results):
                   str(SEED), "--nEpochs", "1", "--dti_smri_path",
                   os.path.join(root, "data", "dti+smri_cortical_thickness")]
 
-        # ---- the study: 3 trials of step 1, 1 epoch each -------------------
+        # ---- the study: P13_TRIALS trials of step 1, 1 epoch each ----------
         argv = ["--step", "1", "--exp_name", "hpo", "--use_optuna",
-                "--num_trials", "3", "--opt_num_epochs", "1"] + common
-        best, counts, wall, out = _cli(argv, "outer shell: study", card)
+                "--num_trials", str(P13_TRIALS), "--opt_num_epochs",
+                "1"] + common
+        with _objectives() as values:
+            best, counts, wall, out = _cli(argv, "outer shell: study", card)
         cfg = config_from_args(argv)
         if (cfg.batch_size, cfg.intermediate_vec, cfg.compute_dtype) != (
                 CHAIN_BATCH, 84, "bfloat16"):
             raise AssertionError(f"step 1 defaults: {cfg}")
         rng = np.random.default_rng(cfg.seed)     # the fallback's draws
         drawn = [oh._suggest(oh._FallbackTrial(n, rng, {}, True), cfg)
-                 for n in range(3)]
+                 for n in range(P13_TRIALS)]
         folder = _experiment(root, "hpo")
         done = [os.path.exists(os.path.join(folder, f"trial_{n}",
                                             "full_scores.csv"))
-                for n in range(3)]
-        pruned = [f"trial {n} pruned" in out for n in range(3)]
+                for n in range(P13_TRIALS)]
+        pruned = [f"trial {n} pruned" in out for n in range(P13_TRIALS)]
         if not all(d or p for d, p in zip(done, pruned)):
             raise AssertionError(f"trials neither completed nor pruned: "
                                  f"completed {done}, pruned {pruned}")
@@ -4292,13 +4415,17 @@ def outer_shell(card, gen, res: Results):
         if set(params) != set(oh.SEARCH_SPACE) or params not in drawn:
             raise AssertionError(f"best_params.pkl: {params}")
         launches["outer_shell_study"] = counts
-        print(f"study: 3 trials of step 1 in {wall:.1f} s (completed "
+        print(f"study: {P13_TRIALS} trials of step 1 in {wall:.1f} s "
+              f"(completed "
               f"{sum(done)}, pruned {sum(pruned)}), drawn heads "
               f"{[d['num_heads_2DBert'] for d in drawn]} (hd "
               f"{[84 // d['num_heads_2DBert'] for d in drawn]}), depths "
               f"{[d['transformer_hidden_layers'] for d in drawn]}, batches "
               f"{[d['batch_size'] for d in drawn]}; best {best}; card: "
               f"{card}")
+
+        # ---- the same study with trial 1 out of the card's memory ------------
+        _study_out_of_memory(argv, values, drawn, root, card)
 
         # ---- a run on the best parameters -----------------------------------
         _, counts, wall, out = _cli(
@@ -5011,6 +5138,7 @@ def export_phase(card, gen, rng):
     from multimodal_neuroimage_tpu_torch.models.registry import (
         create_model, init_random_weights)
     from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.obs.profiling import traced_flops
     from multimodal_neuroimage_tpu_torch.ops import build
     from multimodal_neuroimage_tpu_torch.serve.predictor import Predictor
     from multimodal_neuroimage_tpu_torch.utils import torch_import
@@ -5018,7 +5146,7 @@ def export_phase(card, gen, rng):
     gc.collect()
     torch.cuda.empty_cache()
     _op_host_costs(card, gen)
-    launches, live = {}, {}
+    launches, live, work = {}, {}, {}
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         # ---- the live Predictors: their scores, launches and step ------
         for label, _, lay in EXPORTS:
@@ -5052,6 +5180,7 @@ def export_phase(card, gen, rng):
                     counts.append({k: v for k, v in ops.launches().items()
                                    if v})
                 step_ms = events_ms(lambda: pred.step(batches[0]), iters=5)
+                work[label] = traced_flops(pred.step, batches[0])
             np.savez(os.path.join(tmp, f"{label}_batches.npz"),
                      n=len(batches), **{
                          f"{j}/{k}": v.cpu().numpy()
@@ -5080,6 +5209,14 @@ def export_phase(card, gen, rng):
                     art[portable] = json.load(f)
                 with open(dest + ".export.json") as f:
                     art[portable]["export_s"] = json.load(f)["s"]
+                with open(dest + ".json") as f:
+                    art[portable]["flops"] = json.load(f)["flops"]
+                if art[portable]["flops"] != work[label]:
+                    raise AssertionError(
+                        f"export {label} (portable {portable}): the "
+                        f"artifact's graph_flops {art[portable]['flops']} vs "
+                        f"the live predict step's traced_flops "
+                        f"{work[label]}")
                 art[portable]["bytes"] = os.path.getsize(dest)
                 if art[portable]["model_modules"]:
                     raise AssertionError(
@@ -5113,7 +5250,9 @@ def export_phase(card, gen, rng):
             a, p = art[False], art[True]
             print(f"export {label}: {n_params} parameters at "
                   f"{cfg.compute_dtype}, {len(want)} batches of "
-                  f"{cfg.batch_size}; artifact scores vs the live "
+                  f"{cfg.batch_size}; graph_flops of both artifacts "
+                  f"{work[label]} a batch, the live step's traced_flops; "
+                  f"artifact scores vs the live "
                   f"Predictor's max|err| {art_err:.3e} (atol {EXPORT_TOL[0]}"
                   f" + rtol {EXPORT_TOL[1]}), launches a batch equal "
                   f"({counts[0]}); ops {a['ops']}; traced and saved in "
@@ -5180,6 +5319,246 @@ def export_phase(card, gen, rng):
     print(f"export phase: {time.perf_counter() - t_phase:.1f} s; card: "
           f"{card}")
     return launches
+
+
+# ---- phase 17: the count of a step's work ---------------------------------------
+
+WORK_BATCH = 4
+WORK_BP_BATCH = 8          # the bp layout at G = 8
+
+
+@contextlib.contextmanager
+def _plain_route():
+    """Within the block every kernel's call site runs the kernel's plain
+    forward, on whatever device its tensors are, and autograd through it:
+    the step's products as the plain versions compute them, with no
+    formula and no recompute (unlike ``_plain_twins``, whose backwards
+    recompute their forward)."""
+    from multimodal_neuroimage_tpu_torch.nn import bert, swin2d, swinfusion
+    from multimodal_neuroimage_tpu_torch.ops import attention as att
+    from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
+    from multimodal_neuroimage_tpu_torch.ops import fused_update as fu
+
+    def k6(q, k, v, seed=0, rate=0.0):
+        plain = (att.mha_reference16 if q.dtype == torch.bfloat16
+                 else att.mha_reference)
+        return plain(q, k, v, seed, rate)
+
+    def k7(x, params, bias, mask=None, dp=None, seed=0, rates=(0.0, 0.0),
+           training=False, group=None):
+        if x.dtype == torch.bfloat16:
+            return fbp.fusion_block_bp_reference16(
+                x, params, bias, mask, dp, seed, rates, training, None,
+                group)[0]
+        return fbp.fusion_block_bp_reference(x, params, bias, mask, dp, seed,
+                                             rates, training, group)
+
+    def k7_cross(x, y, params, bias, mask=None, dp=None, seed=0,
+                 rates=(0.0, 0.0), training=False, group=None):
+        if x.dtype == torch.bfloat16:
+            return fbp.fusion_block_bp_reference16(
+                x, params, bias, mask, dp, seed, rates, training, y,
+                group)[0]
+        return fbp.cross_fusion_block_bp_reference(
+            x, y, params, bias, mask, dp, seed, rates, training, group)
+
+    patches = ((bert, "bert_layer_call", bl.bert_layer_reference),
+               (bert, "fused_attention", k6),
+               (swin2d, "fused_window_attention", att.attention_reference),
+               (swinfusion, "fused_fusion_block", fb.fusion_block_reference),
+               (swinfusion, "fused_cross_fusion_block",
+                fb.cross_fusion_block_reference),
+               (swinfusion, "fused_fusion_block_bp", k7),
+               (swinfusion, "fused_cross_fusion_block_bp", k7_cross),
+               (fu, "fused_adam_update", fu.fused_adam_reference))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _work_configs():
+    """(label, Config, fusion layout, numpy batch) of each ``bench.py``
+    config at full width (``bench.py`` ``_bench_setup``; the host gear)."""
+    from multimodal_neuroimage_tpu_torch.config import Config
+    rng = np.random.default_rng(SEED)
+
+    def f32(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    def flagship(B):
+        return {**{k: f32(B, 368, 84) for k in (
+            "fmri_raw_sequence", "fmri_lowfreq_sequence",
+            "fmri_ultralowfreq_sequence")}, "struct": f32(B, 84, 84),
+            "target": (np.arange(B) % 2).astype(np.float32)}
+
+    B = WORK_BATCH
+    target = (np.arange(B) % 2).astype(np.float32)
+    common = dict(fine_tune_task="binary_classification", batch_size=B,
+                  preprocess="host", seed=SEED)
+    bert_cfg = Config(task="2DBERT", dataset_name="fMRI_timeseries",
+                      target="ADHD_label", fmri_type="timeseries",
+                      **common).validate()
+    hcp = _hcp_cfg(batch_size=B, preprocess="host")
+    out = [("flagship", _flagship_cfg(batch_size=B), "std", flagship(B)),
+           ("flagship_bf16", _flagship_cfg(batch_size=B,
+                                           compute_dtype="bfloat16"),
+            "std", flagship(B)),
+           ("flagship_b8", _flagship_cfg(batch_size=WORK_BP_BATCH), "std",
+            flagship(WORK_BP_BATCH)),
+           ("flagship_bp", _flagship_cfg(batch_size=WORK_BP_BATCH), "bp",
+            flagship(WORK_BP_BATCH)),
+           ("flagship_bp_bf16", _flagship_cfg(batch_size=WORK_BP_BATCH,
+                                              compute_dtype="bfloat16"),
+            "bp", flagship(WORK_BP_BATCH)),
+           ("smri_swin", Config(task="VIT", dataset_name="sMRI",
+                                target="sex", **common).validate(), "std",
+            {"smri": f32(B, 84, 84), "target": target}),
+           ("fmri_bert", bert_cfg, "std",
+            {"fmri_sequence": f32(B, bert_cfg.sequence_length,
+                                  bert_cfg.intermediate_vec),
+             "target": target}),
+           ("swinfusion_struct", Config(task="SwinFusion",
+                                        dataset_name="struct", target="sex",
+                                        **common).validate(), "std",
+            {"smri": f32(B, 84, 84), "dti": f32(B, 84, 84),
+             "target": target}),
+           ("hcp", hcp, "std",
+            {"fmri_sequence": f32(B, hcp.sequence_length,
+                                  hcp.intermediate_vec), "target": target})]
+    return out
+
+
+def _count_steps(cfg, batch, layout, device: str = "cuda"):
+    """One predict and one training step of ``cfg`` from random weights of
+    a seed, counted on the kernel route and then on the plain route
+    (``_plain_route``): ({"predict", "train": Census with formulas,
+    "compiled": the training step's compiled_cost, "launches": the steps'
+    launches}, {"predict", "train": Census without, "launches"})."""
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.models.registry import (
+        create_model, init_random_weights)
+    from multimodal_neuroimage_tpu_torch.obs.profiling import (
+        Census, compiled_cost)
+    from multimodal_neuroimage_tpu_torch.serve.predictor import (
+        make_predict_step)
+    from multimodal_neuroimage_tpu_torch.train.state import (
+        create_optimizer, make_train_step)
+    routes = []
+    with _layout(layout):
+        model = init_random_weights(create_model(cfg),
+                                    torch.Generator().manual_seed(SEED))
+        model.to(device)
+        opt = create_optimizer(cfg.optim, model.parameters(),
+                               lambda t: 1e-3, cfg.weight_decay)
+        train = make_train_step(model, _loss_specs(cfg), opt,
+                                cfg.compute_dtype, device)
+        gen = torch.Generator().manual_seed(SEED)
+        for plain in (False, True):
+            with _plain_route() if plain else contextlib.nullcontext():
+                # the predict step puts the model in eval mode when built
+                predict = make_predict_step(model, cfg.compute_dtype, device)
+                ops.reset_launches()
+                out = {}
+                with Census(formulas=not plain) as out["predict"]:
+                    predict(batch)
+                with Census(formulas=not plain) as out["train"]:
+                    train(batch, gen)
+                out["launches"] = {k: n for k, n in ops.launches().items()
+                                   if n}
+                if not plain:
+                    out["compiled"] = compiled_cost(train, batch,
+                                                    gen)["flops"]
+            routes.append(out)
+    del model, opt, train, predict
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return routes
+
+
+def _jax_analytic_flagship(cfg) -> float:
+    """JAX's hand model of one flagship training step per subject
+    (bench.py:372-389): 3 x forward x 1.05 over the BERTs and the fusion
+    blocks."""
+    T = cfg.sequence_length + 1
+    Hd, I = cfg.intermediate_vec, cfg.bert_intermediate_size
+    L = int(cfg.transformer_hidden_layers)
+    bert = L * 2 * (2 * T * Hd * (4 * Hd + 2 * I) + 4 * T * T * Hd)
+    R, C = Hd * Hd, cfg.fusion_embed_dim
+    n_blocks = (2 * sum(cfg.fusion_ex_depths) + 4 * sum(cfg.fusion_depths)
+                + sum(cfg.fusion_re_depths))
+    nw, n2 = (Hd // 6) ** 2, (6 * 6) ** 2
+    fusion = n_blocks * (2 * R * C * 12 * C + 4 * nw * 6 * n2
+                         * max(C // 6, 1))
+    return 3 * (bert + fusion) * 1.05
+
+
+def work_counts(card):
+    """Phase 17 (``work_counts``; module docstring): the count of each
+    ``bench.py`` config's training and predict step at full width on the
+    kernel route against the plain route's products on the card. Returns
+    {label: (train, predict) per subject}."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_subject, totals = {}, {}
+    for label, cfg, layout, batch in _work_configs():
+        t0 = time.perf_counter()
+        B = cfg.batch_size
+        kern, plain = _count_steps(cfg, batch, layout)
+        train, predict = kern["train"].total, kern["predict"].total
+        share = sum(kern["train"].kernels.values())
+        if (plain["train"].total, plain["predict"].total) != (train,
+                                                              predict):
+            raise AssertionError(
+                f"{label}: the kernel route counts {train} (training step) "
+                f"and {predict} (predict step), the plain route's products "
+                f"are {plain['train'].total} and {plain['predict'].total}")
+        if kern["compiled"] != train - share:
+            raise AssertionError(
+                f"{label}: compiled_cost of the kernel route "
+                f"{kern['compiled']:.0f} is not the count {train} less the "
+                f"kernels' share {share}")
+        unlaunched = [k for k, n in {**kern["train"].kernels,
+                                     **kern["predict"].kernels}.items()
+                      if n and k not in kern["launches"]]
+        if unlaunched or not share or plain["launches"]:
+            raise AssertionError(
+                f"{label}: kernels counted but not launched {unlaunched}; "
+                f"launches on the plain route {plain['launches']}")
+        if train % B or predict % B:
+            raise AssertionError(f"{label}: counts {train}, {predict} not "
+                                 f"a multiple of the batch {B}")
+        per_subject[label] = (train // B, predict // B)
+        totals[label] = (train, predict)
+        print(f"work {label} (batch {B}, {layout}, {cfg.compute_dtype}): "
+              f"training step {train // B} products a subject, predict "
+              f"step {predict // B}; kernels' share of the training step "
+              f"{share / train:.4f} ({', '.join(sorted(kern['launches']))});"
+              f" plain route equal; compiled_cost {kern['compiled']:.0f} = "
+              f"count - kernels' share; {time.perf_counter() - t0:.1f} s")
+    # the same batch in every form (the SwinV2 head's relative-position
+    # MLP runs once a batch, so a count a subject depends on the batch)
+    for same in (("flagship", "flagship_bf16"),
+                 ("flagship_b8", "flagship_bp", "flagship_bp_bf16")):
+        if len({totals[k] for k in same}) != 1:
+            raise AssertionError(f"the flagship's forms count differently "
+                                 f"at one batch: "
+                                 f"{ {k: totals[k] for k in same} }")
+    analytic = _jax_analytic_flagship(_flagship_cfg())
+    print(f"work flagship: {per_subject['flagship'][0]} products a subject "
+          f"a training step against JAX's analytic {analytic:.0f} (bench.py"
+          f":372-389; ratio {per_subject['flagship'][0] / analytic:.4f})")
+    print(f"work phase: {len(per_subject)} configs in "
+          f"{time.perf_counter() - t_phase:.1f} s; card: {card}")
+    return per_subject
 
 
 def main() -> int:
@@ -5379,6 +5758,10 @@ def main() -> int:
     # ---- the exported serving artifact ---------------------------------------
     export_counts = export_phase(card, gen, rng)
     elapsed("export phase")
+
+    # ---- the count of a step's work -------------------------------------------
+    work_counts(card)
+    elapsed("work phase")
 
     launches = {"flagship": train_counts, "flagship_bp": bp_counts,
                 "flagship_bf16": bf16_counts,

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -63,16 +64,29 @@ def scratch_bytes(B: int, f32: bool = False) -> dict:
                                    HEADS)}
 
 
+# the profiler's window held open this long before the first call and
+# after the last call's end (``launch_split``)
+WINDOW_PAD_S = 0.005
+
+
 def launch_split(fn, iters: int = 10) -> dict:
     """{device item: (launches a call, device us a call)} of ``iters``
-    calls of ``fn``, from ``torch.profiler``."""
+    calls of ``fn``, from ``torch.profiler``. The profiler keeps only the
+    device activity that falls inside the window it recorded, so a window
+    opened right before the first launch and closed right after the
+    synchronize lost some launches, now and then all of them
+    (``bench/profiler_windows.py``: 3 of 400 windows of 10 K4 backward
+    calls); the window is held open ``WINDOW_PAD_S`` before the first
+    call and after the last one's end."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_PAD_S)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        time.sleep(WINDOW_PAD_S)
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)

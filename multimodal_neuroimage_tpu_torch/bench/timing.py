@@ -9,6 +9,7 @@ time another checkout's package with the same code.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -36,14 +37,19 @@ def events_ms(fn: Callable, iters: int = 20, windows: int = 1) -> float:
 
 def kernel_us(fn: Callable, iters: int = 20) -> Dict[str, float]:
     """{kernel name: device self-time per call, us} of ``iters`` calls,
-    from ``torch.profiler``."""
+    from ``torch.profiler``, its window held open as
+    ``bench/k1_split.launch_split`` holds it (its docstring says why)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_neuroimage_tpu_torch.bench.k1_split import WINDOW_PAD_S
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_PAD_S)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        time.sleep(WINDOW_PAD_S)
     times = ((e.key, getattr(e, "self_device_time_total", 0.0))
              for e in prof.key_averages())
     return {key: us / iters for key, us in times if us}

@@ -10,9 +10,17 @@ epochs that reports its objective every epoch and may be pruned
 imports; otherwise a built-in random search with the MedianPruner's rules
 runs the same search space and writes the same files.
 
-One difference from the JAX harness: a trial that fails other than by
-pruning ends the study with its error. A study on the card must not count
-a kernel's or the device's fault as a failed trial and go on.
+A trial that runs out of device memory (``torch.cuda.OutOfMemoryError``:
+a batch size of the space too large for the card) is recorded as failed,
+as JAX's harness records a trial that raises (``catch=(RuntimeError,)``
+for optuna, ``trial {n} failed: ...`` in the fallback), and the study goes
+on; the failed trial's model, optimizer and batches are dropped and the
+allocator's cache emptied before the next. Every other error ends the
+study, a kernel's build or launch error among them (ops/build.py raises
+``RuntimeError("... cudaError ...")``, which is not an out-of-memory
+error): unlike JAX's fallback, which passes over any ``Exception``, a study
+on the card must not count a kernel's or the device's fault as a failed
+trial and go on.
 
 Across ranks (parallel/mesh.py) rank 0 is the leader and owns the study,
 as in the JAX harness (reference main.py:440-460): it announces each trial's
@@ -22,17 +30,25 @@ object in a fixed buffer broadcast over the host (gloo) group, and the
 ranks compare their counts of messages before each, so that a desync
 raises on every rank; an error on the leader mid-trial is relayed as an
 abort, so that every rank raises together and the study ends everywhere.
+An error in a training or evaluation step on any rank raises on every
+rank at the same step (train/state.py, parallel/mesh.py ``agreed``). An
+out-of-memory error then fails the trial: the leader sends the trial's
+failure, which every follower awaits, and the study goes on with every
+rank's count of messages equal. Any other error ends the study on every
+rank, through the leader's abort.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import glob
 import os
 import pickle
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from multimodal_neuroimage_tpu_torch.parallel.mesh import (
     broadcast_buffer, gather_objects, maybe_initialize_distributed, rank,
@@ -167,6 +183,15 @@ def _is_pruned(e: BaseException) -> bool:
     return type(e).__name__ in ("TrialPruned", "_Pruned")
 
 
+def _release_device_memory() -> None:
+    """After a trial that ran out of memory: its trainer, model, optimizer
+    and batches went with its error; collect what cycles hold and return
+    the allocator's cached blocks to the card."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def run_study(cfg, device: str = "cuda") -> Dict[str, Any]:
     """Run ``cfg.num_trials`` trials, each a ``Trainer`` on ``device`` in
     ``<experiment_folder>/trial_<n>``; dump and return the best. Across
@@ -197,6 +222,8 @@ def run_study(cfg, device: str = "cuda") -> Dict[str, Any]:
                                        "number": trial.number})["params"]
         try:
             return run_trial(overrides, trial.number, trial)
+        except torch.cuda.OutOfMemoryError as e:
+            failure = str(e)
         except Exception as e:
             # a pruned trial stopped every rank at the same epoch already;
             # any other error of the leader's reaches the followers at
@@ -205,6 +232,12 @@ def run_study(cfg, device: str = "cuda") -> Dict[str, Any]:
                 aborted.append(e)
                 _CHANNEL.send({"kind": "abort", "reason": repr(e)})
             raise
+        # out of memory, on every rank at the same step: the error (and the
+        # trial's tensors with it) is gone; the study records it as failed
+        _release_device_memory()
+        if multi:
+            _CHANNEL.send({"kind": "failed", "number": trial.number})
+        raise torch.cuda.OutOfMemoryError(failure)
 
     if multi and rank() != 0:
         while True:
@@ -218,8 +251,11 @@ def run_study(cfg, device: str = "cuda") -> Dict[str, Any]:
                                    f"expected a trial, got {msg!r}")
             try:
                 run_trial(msg["params"], msg["number"], None)
+                continue
             except TrialAborted:
                 raise
+            except torch.cuda.OutOfMemoryError:
+                pass
             except Exception as e:
                 if _is_pruned(e):
                     continue
@@ -229,6 +265,15 @@ def run_study(cfg, device: str = "cuda") -> Dict[str, Any]:
                 if reply.get("kind") == "abort":
                     raise TrialAborted(reply.get("reason")) from e
                 raise
+            # out of memory on every rank: the leader records the failure
+            _release_device_memory()
+            reply = _CHANNEL.send(None)
+            if reply.get("kind") == "abort":
+                raise TrialAborted(reply.get("reason"))
+            if reply.get("kind") != "failed":
+                raise RuntimeError(f"study broadcast desync: rank {rank()} "
+                                   f"expected the trial's failure, got "
+                                   f"{reply!r}")
 
     try:
         try:
@@ -243,7 +288,8 @@ def run_study(cfg, device: str = "cuda") -> Dict[str, Any]:
             study_name=cfg.exp_name, direction=direction, storage=storage,
             load_if_exists=True, sampler=optuna.samplers.TPESampler(),
             pruner=optuna.pruners.MedianPruner())
-        study.optimize(train_trial, n_trials=cfg.num_trials)
+        study.optimize(train_trial, n_trials=cfg.num_trials,
+                       catch=(torch.cuda.OutOfMemoryError,))
         _dump_best(cfg, study.best_params, study.best_value)
         return {"best_value": study.best_value, **study.best_params}
     finally:
@@ -314,7 +360,8 @@ class _Pruned(Exception):
 def _fallback_random_search(cfg, train_trial) -> Dict[str, Any]:
     """The study without optuna: ``cfg.num_trials`` trials drawn from one
     numpy generator seeded by ``cfg.seed`` (JAX's draws, parameter for
-    parameter); a pruned trial is skipped, any other error raises."""
+    parameter); a pruned trial is skipped, one out of memory recorded as
+    failed, any other error raises."""
     maximize = cfg.fine_tune_task == "binary_classification"
     rng = np.random.default_rng(cfg.seed)
     history: Dict[int, Dict[int, float]] = {}
@@ -325,6 +372,9 @@ def _fallback_random_search(cfg, train_trial) -> Dict[str, Any]:
         trial = _FallbackTrial(n, rng, history, maximize, completed)
         try:
             value = train_trial(trial)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"trial {n} failed: {e}")
+            continue
         except Exception as e:
             if not _is_pruned(e):
                 raise

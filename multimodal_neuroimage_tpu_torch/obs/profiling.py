@@ -10,18 +10,25 @@ counts (counterpart of multimodal_neuroimage_tpu/obs/profiling.py).
     main.py:98);
   * the analytic operation counts of the attention stacks (the reference's
     per-module ``flops()``, swin_v2_module.py:184-195, 310-322,
-    model.py:1540-1555), exactly as the JAX package counts them.
+    model.py:1540-1555), exactly as the JAX package counts them;
+  * the count of a step's work, JAX's ``traced_flops``, ``jaxpr_flops``
+    and ``compiled_cost`` (below), the denominator of a utilization.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
+from multimodal_neuroimage_tpu_torch.ops import flops as kernel_flops
+from multimodal_neuroimage_tpu_torch.ops import library
 from multimodal_neuroimage_tpu_torch.parallel.mesh import rank
 
 
@@ -114,3 +121,192 @@ def bert_flops(seq: int, hidden: int, layers: int,
     per_layer = (attention_flops(seq, hidden, 1)
                  + 2 * seq * hidden * intermediate)
     return layers * per_layer
+
+
+# ---------------------------------------------------------------------------
+# The count of a step's work
+# ---------------------------------------------------------------------------
+#
+# JAX's census counts ``dot_general`` only, 2 * M * N * K a product with the
+# batch dimensions multiplied in. Its convolutions (the SwinFusion stems'
+# ``TorchConv`` and the SwinV2 patch embedding's ``nn.Conv``) are
+# ``conv_general_dilated``, which it does not count, and neither does this
+# one: the products counted are those of torch's flop formulas (mm, addmm,
+# bmm, baddbmm, _scaled_mm, the fused attentions) and of the registered
+# ops of ops/library.py (their kernels' formulas), never a convolution.
+
+_aten = torch.ops.aten
+
+PRODUCTS: Dict[object, Callable] = {
+    op: formula for op, formula in flop_registry.items()
+    if isinstance(op, torch._ops.OpOverloadPacket)
+    and "conv" not in op._qualified_op_name}
+
+
+def _library_op(func) -> Optional[str]:
+    """The name of a registered op of ops/library.py, else None."""
+    name = getattr(getattr(func, "_schema", None), "name", "")
+    prefix = library.NAMESPACE + "::"
+    return name[len(prefix):] if name.startswith(prefix) else None
+
+
+def _count(packet, args, kwargs, out) -> int:
+    """The products of one op by its formula."""
+    return int(PRODUCTS[packet](*args, **kwargs, out_val=out))
+
+
+class Census(TorchDispatchMode):
+    """Counts the products of what runs inside it (module comment above).
+
+    ``formulas=True``: every kernel call (ops/flops.py ``kernel``) and every
+    registered op counts by its formula, the products inside it skipped;
+    ``formulas=False``: only what torch itself runs, a kernel's launch being
+    opaque (its plain version on the CPU counts as it runs). ``total`` is
+    the count, ``kernels`` its kernels' share by kernel name."""
+
+    def __init__(self, formulas: bool = True):
+        super().__init__()
+        self.formulas = formulas
+        self.depth = 0
+        self.total = 0
+        self.kernels: Dict[str, int] = collections.Counter()
+
+    def add_kernel(self, name: str, n: int) -> None:
+        self.total += n
+        self.kernels[name] += n
+
+    def __enter__(self):
+        kernel_flops.CENSUSES.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        kernel_flops.CENSUSES.remove(self)
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        packet = getattr(func, "_overloadpacket", None)
+        if packet not in PRODUCTS:
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        out = func(*args, **kwargs)
+        if self.depth:
+            return out
+        lib = _library_op(func)
+        if lib is not None:
+            if self.formulas:
+                self.add_kernel(lib, _count(packet, args, kwargs, out))
+        elif packet in PRODUCTS:
+            self.total += _count(packet, args, kwargs, out)
+        return out
+
+
+def traced_flops(fn: Callable, *args) -> int:
+    """The products of one call of ``fn(*args)``, which runs once (its side
+    effects, an optimizer step's among them, happen): every product torch
+    runs, autograd's backward included, and every kernel by its formula
+    (ops/flops.py), so the count is the same on the CPU and on the card, at
+    either dtype and on either fusion layout. JAX counts the products of
+    the traced step and of its VJP alike; its counts hold no convolution,
+    and neither does this one."""
+    with Census(formulas=True) as census:
+        fn(*args)
+    return census.total
+
+
+def _prod(dims) -> int:
+    out = 1
+    for d in dims:
+        out *= int(d)
+    return out
+
+
+def _linear(x, w, *args, **kwargs) -> int:
+    return 2 * _prod(x.shape[:-1]) * _prod(w.shape)
+
+
+def _matmul(a, b, *args, **kwargs) -> int:
+    sa = tuple(a.shape) if a.dim() > 1 else (1,) + tuple(a.shape)
+    sb = tuple(b.shape) if b.dim() > 1 else tuple(b.shape) + (1,)
+    batch = torch.broadcast_shapes(sa[:-2], sb[:-2])
+    return 2 * _prod(batch) * sa[-2] * sa[-1] * sb[-1]
+
+
+def _einsum(equation, operands, *args, **kwargs) -> int:
+    """Two operands: 2 x the product of every index's size (each output
+    element sums over the contracted ones); one operand has no product.
+    An ellipsis stands for the operand's leading dimensions."""
+    if len(operands) == 1:
+        return 0
+    if len(operands) != 2:
+        raise ValueError(f"no census of a {len(operands)}-operand einsum "
+                         f"({equation!r})")
+    sizes = {}
+    terms = equation.replace(" ", "").split("->")[0].split(",")
+    for term, t in zip(terms, operands):
+        names = list(term.replace("...", ""))
+        if "..." in term:
+            at = term.index("...")
+            names[at:at] = [f"...{i}" for i in range(t.dim() - len(names))]
+        for name, n in zip(names, t.shape):
+            sizes[name] = max(sizes.get(name, 1), int(n))
+    return 2 * _prod(sizes.values())
+
+
+# the products of a captured graph's composite nodes (torch.export keeps
+# linear, matmul and einsum as they were called)
+_COMPOSITE = {_aten.linear: _linear, _aten.matmul: _matmul,
+              _aten.einsum: _einsum}
+
+
+def graph_flops(program) -> int:
+    """Static product census of a captured graph (JAX's ``jaxpr_flops``):
+    a ``torch.export.ExportedProgram`` or an ``fx.GraphModule`` whose
+    nodes carry their values (``meta["val"]``, as export records them).
+    Products are read from those shapes (linear, matmul and einsum nodes
+    as export keeps them, and the ATen products), each registered op of
+    ops/library.py counts by its formula, nested graphs are entered and a
+    ``cond`` counts its larger branch, as JAX's does."""
+    module = getattr(program, "graph_module", program)
+    total = 0
+    for node in module.graph.nodes:
+        if node.op != "call_function":
+            continue
+        target = node.target
+        if isinstance(target, torch._ops.HigherOrderOperator):
+            subs = [getattr(module, a.target) for a in node.args
+                    if isinstance(a, torch.fx.Node) and a.op == "get_attr"
+                    and isinstance(getattr(module, a.target),
+                                   torch.fx.GraphModule)]
+            counts = [graph_flops(g) for g in subs]
+            total += (max(counts, default=0) if target.name() == "cond"
+                      else sum(counts))
+            continue
+        args, kwargs = torch.fx.node.map_arg(
+            (node.args, node.kwargs),
+            lambda n: n.meta.get("val") if isinstance(n, torch.fx.Node)
+            else n)
+        packet = getattr(target, "_overloadpacket", None)
+        if packet in _COMPOSITE:
+            total += _COMPOSITE[packet](*args, **kwargs)
+        elif packet in PRODUCTS:
+            total += _count(packet, args, kwargs, node.meta.get("val"))
+    return total
+
+
+def compiled_cost(fn: Callable, *args) -> Dict[str, float]:
+    """The library's own count of one call of ``fn(*args)`` (XLA's
+    ``cost_analysis``): the products torch runs, each kernel's launch
+    opaque, as XLA cannot see inside a ``tpu_custom_call``. On the CPU,
+    where every kernel is its plain version, it counts those products as
+    they run: a forward's equal ``traced_flops``, a backward's hold in
+    addition the plain backwards' recompute of their forward. On the card
+    it is lower than ``traced_flops`` by exactly the kernels' share. Only
+    ``"flops"`` has a counterpart: XLA's ``bytes accessed``,
+    ``transcendentals``, ``optimal_seconds`` and ``utilization*`` keys have
+    none."""
+    with Census(formulas=False) as census:
+        fn(*args)
+    return {"flops": float(census.total)}

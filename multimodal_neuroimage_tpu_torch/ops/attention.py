@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from multimodal_neuroimage_tpu_torch.ops import build, library
+from multimodal_neuroimage_tpu_torch.ops import build, flops, library
 from multimodal_neuroimage_tpu_torch.ops.bert_layer import matmul_3xtf32
 from multimodal_neuroimage_tpu_torch.ops.fusion_block import mix_keep
 
@@ -193,9 +193,7 @@ class _WindowAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, seed, rate):
-        out = (attention_reference(q, k, v, bias, mask, seed, rate)
-               if q.device.type == "cpu"
-               else _launch_forward(q, k, v, bias, mask, seed, rate))
+        out = _window_attention(q, k, v, bias, mask, seed, rate)
         ctx.meta = (seed, rate)
         ctx.save_for_backward(q, k, v, bias, mask, out)
         return out
@@ -203,9 +201,24 @@ class _WindowAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, mask, out = ctx.saved_tensors
-        dq, dk, dv, dbias = window_attention_backward(
-            g.contiguous(), q, k, v, bias, mask, out, *ctx.meta)
+        with flops.kernel("K4 window_attention backward",
+                          _window_flops(q, k, backward=True)):
+            dq, dk, dv, dbias = window_attention_backward(
+                g.contiguous(), q, k, v, bias, mask, out, *ctx.meta)
         return dq, dk, dv, dbias, None, None, None
+
+
+def _window_flops(q, k, backward: bool = False) -> int:
+    B, nW, H, N, D = q.shape
+    return flops.attention(B * nW, H, N, k.shape[-2], D, backward)
+
+
+def _window_attention(q, k, v, bias, mask, seed, rate):
+    """K4's forward: the plain version on CPU tensors, else the launch."""
+    with flops.kernel("K4 window_attention", _window_flops(q, k)):
+        if q.device.type == "cpu":
+            return attention_reference(q, k, v, bias, mask, seed, rate)
+        return _launch_forward(q, k, v, bias, mask, seed, rate)
 
 
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -225,9 +238,7 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     or v.requires_grad or bias.requires_grad):
         return _WindowAttentionFunction.apply(q, k, v, bias, mask, int(seed),
                                               float(rate))
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, bias, mask, seed, rate)
-    return _launch_forward(q, k, v, bias, mask, seed, rate)
+    return _window_attention(q, k, v, bias, mask, seed, rate)
 
 
 fused_window_attention.launches = 0
@@ -503,16 +514,17 @@ class _MhaFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seed, rate):
         bf16 = q.dtype == torch.bfloat16
-        if q.device.type == "cpu":
-            out = (mha_reference16 if bf16 else mha_reference)(q, k, v, seed,
-                                                               rate)
-            saved = lse = None
-        elif bf16:
-            out, saved, lse = _launch_mha_forward16(
-                q, k, v, seed, rate, any(ctx.needs_input_grad[:3]))
-        else:
-            out, lse = _launch_mha_forward(q, k, v, seed, rate)
-            saved = out
+        with flops.kernel(_mha_name(q), _mha_flops(q, k)):
+            if q.device.type == "cpu":
+                out = (mha_reference16 if bf16 else mha_reference)(
+                    q, k, v, seed, rate)
+                saved = lse = None
+            elif bf16:
+                out, saved, lse = _launch_mha_forward16(
+                    q, k, v, seed, rate, any(ctx.needs_input_grad[:3]))
+            else:
+                out, lse = _launch_mha_forward(q, k, v, seed, rate)
+                saved = out
         ctx.meta = (seed, rate)
         ctx.save_for_backward(q, k, v, saved, lse)
         return out
@@ -522,8 +534,22 @@ class _MhaFunction(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         backward = (fused_attention_backward16 if q.dtype == torch.bfloat16
                     else fused_attention_backward)
-        dq, dk, dv = backward(g.contiguous(), q, k, v, out, lse, *ctx.meta)
+        with flops.kernel(_mha_name(q, " backward"),
+                          _mha_flops(q, k, backward=True)):
+            dq, dk, dv = backward(g.contiguous(), q, k, v, out, lse,
+                                  *ctx.meta)
         return dq, dk, dv, None, None
+
+
+def _mha_name(q, direction: str = "") -> str:
+    """The kernel's name in ``ops.kernels()``."""
+    return (f"K6 fused_attention{direction}"
+            + (" bf16" if q.dtype == torch.bfloat16 else ""))
+
+
+def _mha_flops(q, k, backward: bool = False) -> int:
+    B, H, T, D = q.shape
+    return flops.attention(B, H, T, k.shape[-2], D, backward)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -42,7 +42,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from multimodal_neuroimage_tpu_torch.ops import build, library
+from multimodal_neuroimage_tpu_torch.ops import build, flops, library
 from multimodal_neuroimage_tpu_torch.ops.fusion_block import (
     LOGIT_CAP, bf16_round, gelu_grad, layer_norm, ln_bwd, ln_parts, mix_keep,
     round_up)
@@ -471,18 +471,29 @@ def bert_layer_backward(g, x, params, resid, heads: int, t_valid: int,
     return dx, dparams
 
 
+def _name(mm16: bool, direction: str = "") -> str:
+    """The kernel's name in ``ops.kernels()``."""
+    return f"K1 bert_layer{direction}" + (" mm16" if mm16 else "")
+
+
+def _flops(x, params, backward: bool = False) -> int:
+    B, T, H = x.shape
+    return flops.bert_layer(B, T, H, params[10].shape[0], backward)
+
+
 class _BertLayerFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, heads, t_valid, seed, rates, training, save, mm16,
                 *params):
-        if x.device.type == "cpu":
-            out = bert_layer_reference(x, params, heads, t_valid, seed, rates,
-                                       training, mm16)
-            resid = None
-        else:
-            out, resid = _launch_forward(x, params, heads, t_valid, seed,
-                                         rates, training, save, mm16)
+        with flops.kernel(_name(mm16), _flops(x, params)):
+            if x.device.type == "cpu":
+                out = bert_layer_reference(x, params, heads, t_valid, seed,
+                                           rates, training, mm16)
+                resid = None
+            else:
+                out, resid = _launch_forward(x, params, heads, t_valid, seed,
+                                             rates, training, save, mm16)
         ctx.meta = (heads, t_valid, seed, rates, training, mm16)
         ctx.save_for_backward(x, resid, *params)
         return out
@@ -491,9 +502,11 @@ class _BertLayerFunction(torch.autograd.Function):
     def backward(ctx, g):
         heads, t_valid, seed, rates, training, mm16 = ctx.meta
         x, resid, *params = ctx.saved_tensors
-        dx, dparams = bert_layer_backward(g.contiguous(), x, params, resid,
-                                          heads, t_valid, seed, rates,
-                                          training, mm16)
+        with flops.kernel(_name(mm16, " backward"),
+                          _flops(x, params, backward=True)):
+            dx, dparams = bert_layer_backward(g.contiguous(), x, params,
+                                              resid, heads, t_valid, seed,
+                                              rates, training, mm16)
         return (dx, None, None, None, None, None, None, None, *dparams)
 
 

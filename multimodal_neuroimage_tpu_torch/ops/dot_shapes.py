@@ -28,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from multimodal_neuroimage_tpu_torch.ops import build
+from multimodal_neuroimage_tpu_torch.ops import build, flops
 
 # the flagship geometry of the script (G = 8 lane group)
 B, NW, NP, C, H = 8, 196, 40, 12, 6
@@ -155,8 +155,14 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, alpha: float = 1.0,
     :func:`choose_config`; on CPU tensors the plain version."""
     if a.device.type == "cpu":
         _check_shapes(a, b)
-        return torch.matmul(_round(a * alpha, bf16), _round(b, bf16))
+        with flops.kernel("K8 dot_shapes", _flops(a, b)):
+            return torch.matmul(_round(a * alpha, bf16), _round(b, bf16))
     return _launch(a, b, alpha, BF16 if bf16 else F32)
+
+
+def _flops(a: torch.Tensor, b: torch.Tensor) -> int:
+    return flops.batched_matmul(int(np.prod(a.shape[:-2], dtype=np.int64)),
+                                a.shape[-2], b.shape[-1], a.shape[-1])
 
 
 batched_matmul.launches = 0
@@ -198,12 +204,13 @@ def _launch(a: torch.Tensor, b: torch.Tensor, alpha: float, mode: int,
                       else torch.float32)
     part = (torch.empty(splits * out.numel(), dtype=torch.float32,
                         device=a.device) if splits > 1 else None)
-    build.library().call("batched_matmul", a, b.data_ptr(),
-                         out.data_ptr(),
-                         None if part is None else part.data_ptr(), outer,
-                         inner, M, N, K, sa0, sa1, sb0, sb1, float(alpha),
-                         float(out_scale), mode, tile, splits,
-                         build.stream_of(a))
+    with flops.kernel("K8 dot_shapes", _flops(a, b)):
+        build.library().call("batched_matmul", a, b.data_ptr(),
+                             out.data_ptr(),
+                             None if part is None else part.data_ptr(),
+                             outer, inner, M, N, K, sa0, sa1, sb0, sb1,
+                             float(alpha), float(out_scale), mode, tile,
+                             splits, build.stream_of(a))
     batched_matmul.launches += 1
     return out
 

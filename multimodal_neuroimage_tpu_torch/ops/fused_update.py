@@ -22,7 +22,7 @@ from typing import Callable, Dict, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
-from multimodal_neuroimage_tpu_torch.ops import build
+from multimodal_neuroimage_tpu_torch.ops import build, flops
 
 
 def _f32(v: float) -> float:
@@ -58,22 +58,23 @@ def fused_adam_update(p, g, mu, nu, clip: Optional[torch.Tensor], lr: float,
                       adamw: bool = True) -> None:
     """One K5 update of flat buffers, in place: the CUDA kernel on CUDA
     tensors, the plain version on CPU tensors. ``clip`` is a one-element
-    tensor (the clip factor) or None."""
-    if p.device.type == "cpu":
-        fused_adam_reference(p, g, mu, nu, clip, lr, bc1, bc2, b1, b2, eps,
-                             wd, adamw)
-        return
-    n = p.numel()
-    for name, t in (("p", p), ("g", g), ("mu", mu), ("nu", nu)):
-        build.check_cuda_f32(name, t, (n,))
-    if clip is not None:
-        build.check_cuda_f32("clip", clip, (1,))
-    build.library().call(
-        "fused_adam_update", p, g.data_ptr(), mu.data_ptr(),
-        nu.data_ptr(), n, None if clip is None else clip.data_ptr(),
-        _f32(lr), _f32(bc1), _f32(bc2), float(b1), float(b2), float(eps),
-        float(wd), int(adamw), build.stream_of(p))
-    fused_adam_update.launches += 1
+    tensor (the clip factor) or None. K5 does no product: it counts 0."""
+    with flops.kernel("K5 fused_adam", 0):
+        if p.device.type == "cpu":
+            fused_adam_reference(p, g, mu, nu, clip, lr, bc1, bc2, b1, b2,
+                                 eps, wd, adamw)
+            return
+        n = p.numel()
+        for name, t in (("p", p), ("g", g), ("mu", mu), ("nu", nu)):
+            build.check_cuda_f32(name, t, (n,))
+        if clip is not None:
+            build.check_cuda_f32("clip", clip, (1,))
+        build.library().call(
+            "fused_adam_update", p, g.data_ptr(), mu.data_ptr(),
+            nu.data_ptr(), n, None if clip is None else clip.data_ptr(),
+            _f32(lr), _f32(bc1), _f32(bc2), float(b1), float(b2),
+            float(eps), float(wd), int(adamw), build.stream_of(p))
+        fused_adam_update.launches += 1
 
 
 fused_adam_update.launches = 0

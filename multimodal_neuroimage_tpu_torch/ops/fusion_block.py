@@ -36,7 +36,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from multimodal_neuroimage_tpu_torch.ops import build, library
+from multimodal_neuroimage_tpu_torch.ops import build, flops, library
 
 LN_EPS = 1e-5
 # dropout draws of the JAX kernels: 0 proj, 1/2 MLP, 3 attention
@@ -484,6 +484,16 @@ def fused_cross_fusion_block_backward(g, x, y, params, bias, mask=None,
     return out
 
 
+def _name(cross: bool, direction: str = "") -> str:
+    """The kernel's name in ``ops.kernels()``."""
+    return ("K3 cross_fusion_block" if cross else "K2 fusion_block") + direction
+
+
+def _flops(x, params, backward: bool = False) -> int:
+    B, nW, N, C = x.shape
+    return flops.fusion_block(B, nW, N, C, params[-4].shape[0], backward)
+
+
 class _FusionBlockFunction(torch.autograd.Function):
     """Forward and backward of one block; CUDA kernels on CUDA tensors, the
     plain versions on CPU tensors."""
@@ -491,13 +501,14 @@ class _FusionBlockFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, bias, mask, dp, seed, rates, training, save,
                 cross, *params):
-        if x.device.type == "cpu":
-            out = _block_reference(x, y, params, bias, mask, dp, seed, rates,
-                                   training, cross)
-            x2r = None
-        else:
-            out, x2r = _launch_forward(x, y, params, bias, mask, dp, seed,
-                                       rates, training, save, cross)
+        with flops.kernel(_name(cross), _flops(x, params)):
+            if x.device.type == "cpu":
+                out = _block_reference(x, y, params, bias, mask, dp, seed,
+                                       rates, training, cross)
+                x2r = None
+            else:
+                out, x2r = _launch_forward(x, y, params, bias, mask, dp, seed,
+                                           rates, training, save, cross)
         ctx.meta = (seed, rates, training, cross)
         ctx.save_for_backward(x, y, bias, mask, dp, x2r, *params)
         return out
@@ -507,13 +518,16 @@ class _FusionBlockFunction(torch.autograd.Function):
         seed, rates, training, cross = ctx.meta
         x, y, bias, mask, dp, x2r, *params = ctx.saved_tensors
         g = g.contiguous()
-        if cross:
-            dx, dy, dbias, dparams = fused_cross_fusion_block_backward(
-                g, x, y, params, bias, mask, dp, seed, rates, training, x2r)
-        else:
-            dx, dbias, dparams = fused_fusion_block_backward(
-                g, x, params, bias, mask, dp, seed, rates, training, x2r)
-            dy = None
+        with flops.kernel(_name(cross, " backward"),
+                          _flops(x, params, backward=True)):
+            if cross:
+                dx, dy, dbias, dparams = fused_cross_fusion_block_backward(
+                    g, x, y, params, bias, mask, dp, seed, rates, training,
+                    x2r)
+            else:
+                dx, dbias, dparams = fused_fusion_block_backward(
+                    g, x, params, bias, mask, dp, seed, rates, training, x2r)
+                dy = None
         return (dx, dy, dbias, None, None, None, None, None, None, None,
                 *dparams)
 

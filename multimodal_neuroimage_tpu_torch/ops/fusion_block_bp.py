@@ -50,7 +50,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from multimodal_neuroimage_tpu_torch.ops import build, library
+from multimodal_neuroimage_tpu_torch.ops import build, flops, library
 from multimodal_neuroimage_tpu_torch.ops.fusion_block import (
     DRAW_ATTN, DRAW_MLP1, DRAW_MLP2, DRAW_PROJ, LOGIT_CAP,
     _block_reference, _check_params, _check_streams, _iota, _ptr,
@@ -435,6 +435,18 @@ def fused_cross_fusion_block_bp_backward(g, x, y, params, bias, mask=None,
                      x2r, True, _group(x, dp, group))
 
 
+def _name(x, cross: bool, direction: str = "") -> str:
+    """The kernel's name in ``ops.kernels()``."""
+    return (("K7 cross_fusion_block_bp" if cross else "K7 fusion_block_bp")
+            + direction + (" bf16" if x.dtype == torch.bfloat16 else ""))
+
+
+def _flops(x, params, G: int, backward: bool = False) -> int:
+    ng, nW, N, GC = x.shape
+    return flops.fusion_block(ng * G, nW, N, GC // G, params[-4].shape[0],
+                              backward)
+
+
 class _FusionBlockBpFunction(torch.autograd.Function):
     """Forward and backward of one group-major block; CUDA kernels on CUDA
     tensors, the plain versions on CPU tensors."""
@@ -442,17 +454,19 @@ class _FusionBlockBpFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, bias, mask, dp, seed, rates, training, save,
                 cross, G, *params):
-        if x.device.type == "cpu":
-            if x.dtype == torch.bfloat16:
-                out = fusion_block_bp_reference16(
-                    x, params, bias, mask, dp, seed, rates, training, y, G)[0]
+        with flops.kernel(_name(x, cross), _flops(x, params, G)):
+            if x.device.type == "cpu":
+                if x.dtype == torch.bfloat16:
+                    out = fusion_block_bp_reference16(
+                        x, params, bias, mask, dp, seed, rates, training, y,
+                        G)[0]
+                else:
+                    out = _bp_reference(x, y, params, bias, mask, dp, seed,
+                                        rates, training, cross, G)
+                x2r = None
             else:
-                out = _bp_reference(x, y, params, bias, mask, dp, seed,
-                                    rates, training, cross, G)
-            x2r = None
-        else:
-            out, x2r = _launch_forward(x, y, params, bias, mask, dp, seed,
-                                       rates, training, save, cross, G)
+                out, x2r = _launch_forward(x, y, params, bias, mask, dp, seed,
+                                           rates, training, save, cross, G)
         ctx.meta = (seed, rates, training, cross, G)
         ctx.save_for_backward(x, y, bias, mask, dp, x2r, *params)
         return out
@@ -462,14 +476,17 @@ class _FusionBlockBpFunction(torch.autograd.Function):
         seed, rates, training, cross, G = ctx.meta
         x, y, bias, mask, dp, x2r, *params = ctx.saved_tensors
         g = g.contiguous()
-        if cross:
-            dx, dy, dbias, dparams = fused_cross_fusion_block_bp_backward(
-                g, x, y, params, bias, mask, dp, seed, rates, training, x2r,
-                G)
-        else:
-            dx, dbias, dparams = fused_fusion_block_bp_backward(
-                g, x, params, bias, mask, dp, seed, rates, training, x2r, G)
-            dy = None
+        with flops.kernel(_name(x, cross, " backward"),
+                          _flops(x, params, G, backward=True)):
+            if cross:
+                dx, dy, dbias, dparams = fused_cross_fusion_block_bp_backward(
+                    g, x, y, params, bias, mask, dp, seed, rates, training,
+                    x2r, G)
+            else:
+                dx, dbias, dparams = fused_fusion_block_bp_backward(
+                    g, x, params, bias, mask, dp, seed, rates, training, x2r,
+                    G)
+                dy = None
         return (dx, dy, dbias, None, None, None, None, None, None, None,
                 None, *dparams)
 

@@ -36,10 +36,14 @@ exported graph holds no registered op and runs with ``torch`` alone
 an exported program does not record: serve/export.py runs an artifact
 under it, as the live model runs its forward.
 
-This module imports nothing of the port at import time (the kernel modules
-load at an op's first call), so an exported program loads without any
-model module (serve/export.py ``load_exported``). The training forwards
-and the backward kernels are not registered.
+Each op's products are its kernel's formula (ops/flops.py), registered
+with ``torch.utils.flop_counter``: torch's ``FlopCounterMode`` and the
+port's census (obs/profiling.py) read an op by it.
+
+This module imports nothing of the port at import time but ops/flops.py
+(the kernel modules load at an op's first call), so an exported program
+loads without any model module (serve/export.py ``load_exported``). The
+training forwards and the backward kernels are not registered.
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ from typing import List, Optional
 
 import torch
 from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
+
+from multimodal_neuroimage_tpu_torch.ops import flops
 
 NAMESPACE = "neuroimage"
 _NO_DROPOUT = (0.0, 0.0)
@@ -189,6 +196,43 @@ def _like_first(x, *args):
 
 for _op, _ in _OPS.values():
     _op.register_fake(_like_first)
+
+
+# ---- each op's products, from its arguments' shapes --------------------------
+
+def _k1_flops(x, params, heads, t_valid, mm16, out_shape=None):
+    B, T, H = x
+    return flops.bert_layer(B, T, H, params[10][0])
+
+
+def _k2k3_flops(x, y, params, bias, mask, out_shape=None):
+    B, nW, N, C = x
+    return flops.fusion_block(B, nW, N, C, params[-4][0])
+
+
+def _k4_flops(q, k, v, bias, mask, out_shape=None):
+    B, nW, H, N, D = q
+    return flops.attention(B * nW, H, N, k[-2], D)
+
+
+def _k6_flops(q, k, v, out_shape=None):
+    B, H, T, D = q
+    return flops.attention(B, H, T, k[-2], D)
+
+
+def _k7_flops(x, y, params, bias, mask, group, out_shape=None):
+    ngroups, nW, N, GC = x
+    return flops.fusion_block(ngroups * group, nW, N, GC // group,
+                              params[-4][0])
+
+
+for _op, _formula in ((bert_layer_forward, _k1_flops),
+                      (fusion_block_forward, _k2k3_flops),
+                      (window_attention_forward, _k4_flops),
+                      (mha_forward, _k6_flops),
+                      (fusion_block_bp_forward, _k7_flops)):
+    register_flop_formula(getattr(torch.ops.neuroimage,
+                                  _op._qualname.split("::")[1]))(_formula)
 
 
 def ops() -> List[str]:

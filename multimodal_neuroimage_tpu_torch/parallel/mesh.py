@@ -36,7 +36,7 @@ run under NCCL never copies host values to the card for them.
 from __future__ import annotations
 
 import os
-from typing import Any, List
+from typing import Any, Callable, List
 
 import numpy as np
 import torch
@@ -173,6 +173,40 @@ def all_reduce_mean_(t: torch.Tensor) -> torch.Tensor:
         dist.all_reduce(t, op=dist.ReduceOp.SUM)
         t.div_(world())
     return t
+
+
+def agreed(fn: Callable[[], Any]) -> Any:
+    """``fn()`` on every rank, an error of any rank raised on every rank
+    once all have ended ``fn``: the ranks take one host all-reduce of a
+    flag a rank a call (no device synchronisation: the allocator and the
+    launchers raise on the host), so that no rank is left in the step's
+    collectives after another failed. Where every failure is out of
+    memory, each rank raises ``torch.cuda.OutOfMemoryError`` naming the
+    ranks (the failed call's tensors go with its own error first);
+    otherwise a rank raises its own error, or a ``RuntimeError`` naming
+    the ranks that failed. Without a process group ``fn`` runs as it
+    is."""
+    if not initialized():
+        return fn()
+    own, oom = None, ""
+    try:
+        out = fn()
+    except torch.cuda.OutOfMemoryError as e:
+        oom, out = f": {e}", None
+    except Exception as e:
+        own, out = e, None
+    flags = torch.zeros(world(), dtype=torch.int32)
+    flags[rank()] = 2 if own is not None else int(bool(oom))
+    dist.all_reduce(flags, op=dist.ReduceOp.SUM, group=_HOST_GROUP)
+    failed = ", ".join(str(r) for r in flags.nonzero().flatten().tolist())
+    if own is not None:
+        raise own
+    if int(flags.max()) == 2:
+        raise RuntimeError(f"the step failed on rank {failed}")
+    if failed:
+        raise torch.cuda.OutOfMemoryError(
+            f"out of memory on rank {failed}{oom}")
+    return out
 
 
 def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:

@@ -27,7 +27,10 @@ device it was traced on; it serves there.
 ``dest + ".json"`` is JAX's sidecar: ``head``, the frozen ``threshold``,
 the ``checkpoint`` and the ``batch_contract`` (each input's shape and
 dtype), plus ``ops`` (the registered ops the graph calls), ``device``,
-``compute_dtype``, ``portable`` and ``tf32``.
+``compute_dtype``, ``portable``, ``tf32`` and ``flops``: the products of
+one batch through the graph (obs/profiling.py ``graph_flops``, each
+registered op by its kernel's formula), the count a served batch's
+utilization divides by, the same with the registered ops and portable.
 
 ``ExportedModel`` / ``load_exported`` import ops/library.py alone, no model
 module: they check a batch against the contract (a missing input raises
@@ -126,6 +129,7 @@ def export_model(predictor, dest: str, portable: bool = False) -> str:
     no registered op. Returns ``dest``."""
     from multimodal_neuroimage_tpu_torch.nn.swinfusion import (
         set_compute_policy)
+    from multimodal_neuroimage_tpu_torch.obs.profiling import graph_flops
     cfg = predictor.cfg
     example = _example_batch(predictor.pipe, predictor.records)
     served = _Served(predictor.model, cfg.compute_dtype, predictor.head)
@@ -149,6 +153,7 @@ def export_model(predictor, dest: str, portable: bool = False) -> str:
         "compute_dtype": cfg.compute_dtype,
         "portable": bool(portable),
         "tf32": False,
+        "flops": graph_flops(program),
     }
     with open(dest + _META_SUFFIX, "w") as f:
         json.dump(meta, f, indent=1)

@@ -31,7 +31,8 @@ import torch
 from multimodal_neuroimage_tpu_torch.nn.common import full_f32
 from multimodal_neuroimage_tpu_torch.nn.swinfusion import set_compute_policy
 from multimodal_neuroimage_tpu_torch.ops.fused_update import FusedAdam
-from multimodal_neuroimage_tpu_torch.parallel.mesh import (all_reduce_mean_,
+from multimodal_neuroimage_tpu_torch.parallel.mesh import (agreed,
+                                                           all_reduce_mean_,
                                                            initialized)
 from multimodal_neuroimage_tpu_torch.train.losses import (LossSpec,
                                                           compute_losses)
@@ -258,7 +259,10 @@ def make_train_step(model: torch.nn.Module, loss_specs: Dict[str, LossSpec],
     micro-step's gradient is averaged before ``FusedAdam`` folds it into
     its running mean, as JAX's ``pmean`` runs inside each micro-step of
     ``optax.MultiSteps``; the mean over ranks of k means equals the mean
-    of the k averaged gradients up to float32 rounding."""
+    of the k averaged gradients up to float32 rounding. The forward and
+    backward run under ``agreed``: an error on one rank raises on every
+    rank before the all-reduce, an out-of-memory error as one
+    (hpo/optuna_harness.py records that trial as failed on every rank)."""
     check_compute_dtype(compute_dtype)
     segments = top_level_segments(model) if norms_every > 0 else None
 
@@ -268,11 +272,16 @@ def make_train_step(model: torch.nn.Module, loss_specs: Dict[str, LossSpec],
         set_compute_policy(compute_dtype)
         inputs = batch_to_device(batch, device)
         optimizer.zero_grad()
-        with full_f32(), weights_at(model, compute_dtype):
-            outputs = forward_at(model, inputs, compute_dtype, generator)
-            losses = compute_losses(outputs, inputs, loss_specs,
-                                    extra_loss_fns, generator)
-            losses["total"].backward()
+
+        def forward_backward():
+            with full_f32(), weights_at(model, compute_dtype):
+                outputs = forward_at(model, inputs, compute_dtype, generator)
+                losses = compute_losses(outputs, inputs, loss_specs,
+                                        extra_loss_fns, generator)
+                losses["total"].backward()
+            return outputs, losses
+
+        outputs, losses = agreed(forward_backward)
         if compute_dtype == "bfloat16":
             round_grads(optimizer.grads)
         all_reduce_mean_(optimizer.grads)
@@ -318,11 +327,15 @@ def make_eval_step(model: torch.nn.Module, loss_specs: Dict[str, LossSpec],
         model.eval()
         set_compute_policy(compute_dtype)
         inputs = batch_to_device(batch, device)
-        with full_f32():
-            with weights_at(model, compute_dtype):
-                outputs = forward_at(model, inputs, compute_dtype)
-            losses = compute_losses(outputs, inputs, loss_specs,
-                                    extra_loss_fns)
+
+        def forward():
+            with full_f32():
+                with weights_at(model, compute_dtype):
+                    outputs = forward_at(model, inputs, compute_dtype)
+                return outputs, compute_losses(outputs, inputs, loss_specs,
+                                               extra_loss_fns)
+
+        outputs, losses = agreed(forward)
         return (mean_losses(losses),
                 {k: outputs[k] for k in HEADS if k in outputs})
 

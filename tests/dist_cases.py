@@ -13,7 +13,8 @@ Cases (``CASES``): ``step`` (train steps on a global batch's rows),
 run_predict), ``draws`` (dropout seeds, DropPath factors and a flagship
 forward with dropout on), ``gather`` (``gather_ragged`` and the subject
 metrics), ``study`` (a two-trial study), ``desync`` and ``abort`` (the
-study's channel raising on every rank).
+study's channel raising on every rank), ``fault`` (a study whose
+follower runs out of memory, or meets a kernel's error, in one trial).
 """
 
 import builtins
@@ -274,6 +275,43 @@ def case_study(p):
     return {"trained": trained, "result": oh.run_study(cfg, device="cpu")}
 
 
+def case_fault(p):
+    """A study whose follower meets ``p["fault"]`` in trial 1's first
+    training step: out of memory (each rank's trained trials,
+    ``run_study``'s result and its count of the channel's messages) or the
+    launcher's own error (each rank's error)."""
+    from multimodal_neuroimage_tpu_torch.hpo import optuna_harness as oh
+    from multimodal_neuroimage_tpu_torch.parallel.mesh import rank
+    from multimodal_neuroimage_tpu_torch.train import state as smod
+    from multimodal_neuroimage_tpu_torch.train import trainer as tmod
+    cfg = _study_cfg(p)
+    trained = []
+
+    class Recording(tmod.Trainer):
+        def __init__(self, c, *a, **k):
+            trained.append(os.path.basename(c.experiment_folder))
+            super().__init__(c, *a, **k)
+
+    losses = smod.compute_losses
+
+    def compute_losses(*a, **k):
+        if rank() == 1 and trained[-1] == "trial_1":
+            if p["fault"] == "oom":
+                raise torch.cuda.OutOfMemoryError(
+                    "CUDA out of memory (injected on rank 1)")
+            raise RuntimeError("bert_layer_forward failed: cudaError 2")
+        return losses(*a, **k)
+
+    tmod.Trainer = Recording
+    smod.compute_losses = compute_losses
+    try:
+        result = oh.run_study(cfg, device="cpu")
+    except Exception as e:
+        return {"trained": trained, "raised": f"{type(e).__name__}: {e}"}
+    return {"trained": trained, "result": result, "seq": oh._CHANNEL.seq,
+            "raised": None}
+
+
 def case_desync(p):
     """Rank 1 counts one message more than the leader; each rank's error
     on the next broadcast."""
@@ -312,7 +350,7 @@ def case_abort(p):
 
 CASES = {"step": case_step, "trainer": case_trainer, "draws": case_draws,
          "gather": case_gather, "study": case_study, "desync": case_desync,
-         "abort": case_abort}
+         "abort": case_abort, "fault": case_fault}
 
 
 if __name__ == "__main__":

@@ -1792,3 +1792,45 @@ def test_exported_tiny_flagship_launches_its_kernels(dev, tmp_path):
     assert sum(port_n.values()) == 0, port_n
     np.testing.assert_allclose(got, live, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(plain, live, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_step_count_on_the_card_equals_the_cpu(dev, compute_dtype):
+    """The tiny flagship's training and predict steps count the same
+    products on the card (the kernels by their formulas) as on the CPU
+    (their plain versions, by the same formulas), each kernel of the path
+    launched; ``compiled_cost`` on the card is the count less the kernels'
+    share, which the library cannot see."""
+    import dataclasses
+    from multimodal_neuroimage_tpu_torch import ops
+    from multimodal_neuroimage_tpu_torch.obs.profiling import (Census,
+                                                               compiled_cost)
+    from multimodal_neuroimage_tpu_torch.serve.predictor import (
+        make_predict_step)
+    from multimodal_neuroimage_tpu_torch.train.losses import active_losses
+    from multimodal_neuroimage_tpu_torch.train.state import (create_optimizer,
+                                                             make_train_step)
+    cfg = dataclasses.replace(_tiny_cfg(), compute_dtype=compute_dtype)
+    specs = active_losses(cfg.task, cfg.fine_tune_task)
+    batch = _tiny_batch(cfg)
+    counts = {}
+    for device in ("cpu", dev.type):
+        model = _tiny_model(cfg, device)
+        opt = create_optimizer("AdamW", model.parameters(), lambda t: 1e-3,
+                               cfg.weight_decay)
+        train = make_train_step(model, specs, opt, compute_dtype, device)
+        predict = make_predict_step(model, compute_dtype, device)
+        ops.reset_launches()
+        with Census() as p, torch.no_grad():
+            predict(batch)
+        with Census() as t:
+            train(batch, torch.Generator().manual_seed(3))
+        launched = {k for k, n in ops.launches().items() if n}
+        counts[device] = (p.total, t.total)
+        if device == "cuda":
+            assert {k for k, n in t.kernels.items() if n} <= launched
+            share = sum(t.kernels.values())
+            assert share > 0
+            assert compiled_cost(train, batch, torch.Generator().manual_seed(
+                3))["flops"] == t.total - share
+    assert counts["cuda"] == counts["cpu"]

@@ -393,6 +393,30 @@ def test_leader_failure_ends_the_study_on_every_rank(smri_cohort, tmp_path):
     assert "disk full" in follow["raised"]
 
 
+@pytest.mark.parametrize("fault", ["oom", "kernel"])
+def test_follower_fault_in_a_trial(smri_cohort, tmp_path, fault):
+    """The follower runs out of memory in trial 1: both ranks leave that
+    trial at the same step, the leader records it as failed, trial 2 runs
+    on both, and the ranks end with the same count of messages. The
+    launcher's own error there instead ends the study on both ranks."""
+    payload = _study_payload(smri_cohort, tmp_path)
+    payload["cfg"]["num_trials"] = 3
+    payload["fault"] = fault
+    lead, follow = dc.spawn("fault", payload, tmp_path, timeout=300)
+    if fault == "kernel":
+        assert lead["trained"] == follow["trained"] == ["trial_0", "trial_1"]
+        assert lead["raised"] == "RuntimeError: the step failed on rank 1"
+        assert follow["raised"].startswith("TrialAborted")
+        return
+    want = ["trial_0", "trial_1", "trial_2"]
+    assert lead["trained"] == follow["trained"] == want
+    assert lead["raised"] is follow["raised"] is None
+    assert lead["seq"] == follow["seq"] > 0
+    assert follow["result"] == {} and "best_value" in lead["result"]
+    with open(tmp_path / "fault.0.log") as f:
+        assert "trial 1 failed: out of memory on rank 1" in f.read()
+
+
 # ---- refusals, the launch guard, the build lock -------------------------------
 
 

@@ -5,11 +5,15 @@
   seed equal JAX's draw for draw;
 * the MedianPruner cases of tests/test_round3_hpo_cli.py, on the port's
   fallback trial (JAX's giving the same answers);
-* a pruned trial is skipped, and any other failure ends the study with its
-  error (the port's one difference: no fault of the device or a kernel
-  passes as a failed trial); across processes the trial parameters and
-  pruning decisions are the leader's, sent over one fixed-size buffer
-  (tests/test_torch_dist.py runs a study on two ranks);
+* a pruned trial is skipped; a trial out of device memory is recorded as
+  failed and the study goes on, as JAX's fallback records a trial that
+  raises (the same printed line, completed trials, best parameters and
+  files on the same seed), its memory released before the next trial;
+  any other failure ends the study with its error (the port's one
+  difference: no fault of the device or a kernel passes as a failed
+  trial); across processes the trial parameters and pruning decisions are
+  the leader's, sent over one fixed-size buffer (tests/test_torch_dist.py
+  runs a study on two ranks, and one whose follower runs out of memory);
 * a 2-trial ``run_study`` on an on-disk cohort writes ``best_params.pkl``
   with JAX's keys, and ``apply_best_params`` reads them back into the
   config (the CLI's ``--use_best_params_from_optuna``).
@@ -196,3 +200,86 @@ def test_two_trial_study_writes_jax_keys_and_round_trips(tmp_path,
         cfg, use_best_params_from_optuna=True))
     assert {k: getattr(tuned, k) for k in best} == best
     assert tuned.nEpochs == 5
+
+
+def _objective(mod, cfg, error, completed):
+    """A study's train_trial: the trial's draws, then trial 1 raising
+    ``error``, every other trial returning a value of its draws."""
+    def train_trial(trial):
+        params = mod._suggest(trial, cfg)
+        if trial.number == 1:
+            raise error("CUDA out of memory (trial 1)")
+        completed.append(trial.number)
+        return params["lr_init"] * 1e3 + params["transformer_dropout_rate"]
+    return train_trial
+
+
+def test_out_of_memory_trial_is_failed_as_jax_records_it(tmp_path, capsys):
+    """JAX's fallback (trial 1 raising RuntimeError) and the port's (trial 1
+    raising torch.cuda.OutOfMemoryError) on one seed: the same printed
+    line, completed trials, best parameters and files."""
+    from multimodal_neuroimage_tpu_torch.config import Config
+    jcfg = dataclasses.replace(_flagship_cfg(), num_trials=4, seed=7,
+                               experiment_folder=str(tmp_path / "jax"))
+    tcfg = Config(**{**dataclasses.asdict(jcfg),
+                     "experiment_folder": str(tmp_path / "port")})
+    os.makedirs(jcfg.experiment_folder)
+    os.makedirs(tcfg.experiment_folder)
+    jdone, tdone = [], []
+    jout = joh._fallback_random_search(jcfg, _objective(joh, jcfg,
+                                                        RuntimeError, jdone))
+    jtext = capsys.readouterr().out
+    tout = toh._fallback_random_search(tcfg, _objective(
+        toh, tcfg, torch.cuda.OutOfMemoryError, tdone))
+    ttext = capsys.readouterr().out
+    assert "trial 1 failed: CUDA out of memory (trial 1)" in ttext
+    assert ttext.splitlines() == jtext.splitlines()
+    assert tdone == jdone == [0, 2, 3]
+    assert tout == jout
+    for name in ("best_params.pkl", "best_params.txt"):
+        with open(os.path.join(jcfg.experiment_folder, name), "rb") as f:
+            want = f.read()
+        with open(os.path.join(tcfg.experiment_folder, name), "rb") as f:
+            assert f.read() == want, name
+
+
+@pytest.mark.parametrize("fault,ends", [
+    ("oom", False), ("kernel", True)])
+def test_run_study_goes_on_after_out_of_memory_only(fault, ends, tmp_path,
+                                                    monkeypatch, capsys):
+    """``run_study`` over Trainers whose trial 1 runs out of memory (the
+    study goes on: trials 0 and 2 complete, the memory is released once) or
+    meets the launcher's own error, ``RuntimeError("... cudaError ...")``
+    (ops/build.py), which ends the study."""
+    from multimodal_neuroimage_tpu_torch.config import Config
+    from multimodal_neuroimage_tpu_torch.train import trainer as tmod
+    cfg = Config(**{**dataclasses.asdict(_flagship_cfg()), "num_trials": 3,
+                    "seed": 3, "experiment_folder": str(tmp_path)})
+    trained, released = [], []
+
+    class Trainer:
+        def __init__(self, c, device):
+            self.number = int(c.experiment_folder.rsplit("_", 1)[1])
+            self.writer = None
+
+        def training(self):
+            if self.number == 1:
+                if fault == "oom":
+                    raise torch.cuda.OutOfMemoryError(
+                        "CUDA out of memory. Tried to allocate 2.00 GiB")
+                raise RuntimeError("bert_layer_forward failed: cudaError 2")
+            trained.append(self.number)
+            return {"val_AUROC": 0.5 + 0.1 * self.number}
+
+    monkeypatch.setattr(tmod, "Trainer", Trainer)
+    monkeypatch.setattr(toh, "_release_device_memory",
+                        lambda: released.append(True))
+    if ends:
+        with pytest.raises(RuntimeError, match="cudaError"):
+            toh.run_study(cfg, device="cpu")
+        assert trained == [0] and not released
+        return
+    out = toh.run_study(cfg, device="cpu")
+    assert "trial 1 failed: CUDA out of memory" in capsys.readouterr().out
+    assert trained == [0, 2] and released == [True]
+    assert out["best_value"] == pytest.approx(0.7)

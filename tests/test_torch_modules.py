@@ -368,6 +368,10 @@ with tempfile.TemporaryDirectory() as tmp:
             pred, os.path.join(tmp, f"{portable}.pt2"), portable=portable))
         assert bool(art.meta["ops"]) != portable
         assert np.array_equal(art(first), live)
+        # the count of the served step's work: the graph's and the live one's
+        from multimodal_neuroimage_tpu_torch.obs import profiling
+        assert profiling.graph_flops(art.program) == \
+            profiling.traced_flops(pred.step, first) > 0
     volume = os.path.join(tmp, "v.nii.gz")
     nifti.write_nifti(volume, np.ones((2, 3, 4, 5), np.float32))
     assert nifti.read_nifti(volume).shape == (2, 3, 4, 5)
@@ -434,7 +438,8 @@ def test_no_port_file_imports_the_jax_package():
                 "models/swinfusion_net.py", "nn/crossmodal.py",
                 "nn/perceptual.py", "obs/writer.py", "obs/profiling.py",
                 "hpo/optuna_harness.py", "parallel/mesh.py",
-                "serve/export.py", "ops/library.py", "utils/hf_import.py",
+                "serve/export.py", "ops/library.py", "ops/flops.py",
+                "utils/hf_import.py",
                 "utils/torch_import.py", "utils/reproducibility.py",
                 "data/nifti.py"):
         assert os.path.join(port, new) in files, new
