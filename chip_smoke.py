@@ -53,7 +53,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    at full depth took 83-100 s), and the full-depth step on the card
    against the port's plain twins there, and compares the loss, every
    gradient and the updated parameters. Times the training
-   step (CUDA-synchronised median of 12 steps after 3 of warm-up),
+   step (CUDA-synchronised median of 8 steps after 2 of warm-up),
    subjects/s and peak device memory.
 4. The same flagship on the bp fusion layout at batch 16 (G = 8, two
    groups): a 1-epoch ``Trainer`` run on 32 train and 16 val subjects (K1,
@@ -229,14 +229,16 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 16. The exported serving artifact (``export_phase``, serve/export.py): the
    registered ops' host cost a call beside the direct call (K1 mm16, K4,
    batch 4); the flagship (bf16, std), the flagship (float32, bp) and HCP
-   (bf16) exported at full width and depth with their registered ops and
-   portable, six worker processes at once, each artifact served in a
-   fresh interpreter without a model module (TF32 at torch's defaults):
-   scores within ``EXPORT_TOL`` of the live Predictor's and launches a
-   batch equal to its, the portable artifacts within the serving
-   tolerance and without a launch; sizes, times; the flagship's weights
-   mapped from the reference's layout (torch_import) served bitwise; an
-   fMRI_image cohort in the native gear equal to the host gear.
+   (bf16) exported at full width with their registered ops (the bf16
+   flagship and HCP at full depth, the bp flagship at a cut depth) and
+   portable at a cut depth, six worker processes at once while phase 17
+   runs here, each artifact served in a fresh interpreter without a model
+   module (TF32 at torch's defaults): scores within ``EXPORT_TOL`` of the
+   live Predictor's at their depth and launches a batch equal to its, the
+   portable artifacts within the serving tolerance of the live Predictor
+   at their depth and without a launch; sizes, times; the flagship's
+   weights mapped from the reference's layout (torch_import) served
+   bitwise; an fMRI_image cohort in the native gear equal to the host gear.
 17. The count of a step's work (``work_counts``, obs/profiling.py): each
    ``bench.py`` config at full width (the flagship at float32 and bf16 on
    the std layout at batch 4, at float32 on std and at float32 and bf16
@@ -282,6 +284,10 @@ without the package beside it, it fails at import.
 
 from __future__ import annotations
 
+import time
+
+T_IMPORT = time.perf_counter()   # the script's clock: from before its imports
+
 import contextlib
 import dataclasses
 import gc
@@ -294,7 +300,6 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
@@ -304,6 +309,14 @@ from multimodal_neuroimage_tpu_torch.bench.timing import events_ms, graph_ms
 
 SEED = 20261016
 BATCH = 4
+# warm-up steps before a timed turn: a path's first turn, then its second
+# (its work built; one step to refill the caches after the other turns)
+WARMUP = (2, 1)
+# timed steps a path (half a turn): the flagship's and HCP's, and phases
+# 10-12's models at their phase batch and at 64 (each timed again at every
+# run of the script; bench.py's cells are the measurement)
+TIMED_STEPS = 8
+PHASE_TIMED_STEPS = 4
 N_TRAIN, N_VAL = 16, 8
 # kernel vs plain version on the card: |got - want| <= ATOL + RTOL * |want|
 ATOL, RTOL = 1e-4, 2e-4
@@ -1921,10 +1934,14 @@ def bf16_kernels(gen, res: Results):
     batch-16 call into its launches (``bench/k1_split.py``); K7 on bf16
     streams at the bp flagship's shapes (B 16, two groups of 8, shifts 0 and
     3, dropout 0.1 and DropPath), beside K7 on float32 streams on the same
-    inputs. Bounds: products at the bf16 tensor rate, exponentials at the
+    inputs, after the registers and spills ptxas gave K7's bf16 backward
+    (its body on bf16 tensor cores) and its blocks an SM and windows in
+    flight. Bounds: products at the bf16 tensor rate, exponentials at the
     float32 rate."""
     from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
     from multimodal_neuroimage_tpu_torch.ops import bert_layer as bl
+    from multimodal_neuroimage_tpu_torch.ops import build
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
     from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
     dev = "cuda"
     rates, seed = (0.1, 0.1), 13579
@@ -1999,6 +2016,19 @@ def bf16_kernels(gen, res: Results):
 
     B, C, Hh, N, nW = BP_BATCH, 12, 6, 36, 196
     G = fbp.group_size(B)
+    # K7's bf16 backward (csrc/fusion_block_bp16.cuh, on bf16 tensor cores):
+    # its registers and spills as ptxas gave them, and how it runs here
+    for line in _ptxas_summary(build.library().build_log):
+        if "fusion_block_bp_backward16_kernel" in line:
+            print(f"K7 bf16 backward ptxas{line}")
+    for cross in (False, True):
+        occ = fb.backward_occupancy("fusion_block_bp_backward16", cross,
+                                    (B // G, G, nW), N, C, Hh, 4 * C)
+        print(f"K7 bf16 backward occupancy, {'cross' if cross else 'self'}, "
+              f"{B // G} groups of {G}: {occ['blocks_per_sm']} block(s) an "
+              f"SM, {occ['windows_per_block']} windows in flight a block, "
+              f"{occ['smem_bytes']} B of shared memory a block, "
+              f"{occ['grid_blocks']} blocks")
     self_p, cross_p, bias, _, _ = _fusion_inputs(gen)
     self_p = tuple(t.to(torch.bfloat16).float() for t in self_p)
     cross_p = tuple(t.to(torch.bfloat16).float() for t in cross_p)
@@ -2243,7 +2273,9 @@ def _serve(cfg, ckpt, requests, folder, label, card, reference="CPU",
     before the timed pass); logits must match the CPU through the plain
     versions or, with ``reference="std"`` (the caller runs the bp layout),
     the std fusion layout on the card, whose predict step is then timed in
-    turns beside the served layout's. ``f32_compute``: the model computes in
+    turns beside the served layout's. The CPU's side compares the first
+    batch (every batch of the model on the card against the std layout).
+    ``f32_compute``: the model computes in
     float32 under either policy, so the float32 tolerances hold. Returns
     the serving run's launch counts."""
     from multimodal_neuroimage_tpu_torch import ops
@@ -2288,12 +2320,14 @@ def _serve(cfg, ckpt, requests, folder, label, card, reference="CPU",
                   and not f32_compute else (LOGIT_ATOL, LOGIT_RTOL))
     logit_err = 0.0
     t_ref = time.perf_counter()
-    for batch, _ in pred.batches():
+    batches = [b for b, _ in pred.batches()]
+    compared = batches if reference == "std" else batches[:1]
+    for batch in compared:
         got = pred.step(batch)["binary_classification"].cpu()
         logit_err = max(logit_err, _close(f"{label} serving logits", got,
                                           ref_step(batch), atol, rtol))
     t_ref = time.perf_counter() - t_ref
-    first, _ = next(pred.batches())
+    first = batches[0]
     beside = ""
     if reference == "std":
         fwd, ref = _turns([lambda: pred.step(first),
@@ -2306,7 +2340,8 @@ def _serve(cfg, ckpt, requests, folder, label, card, reference="CPU",
           f"requests/s end to end (host preprocessing included); predict "
           f"step {fwd:.2f} ms per batch of {cfg.batch_size} "
           f"({cfg.batch_size / fwd * 1e3:.2f} subjects/s){beside}; logits vs "
-          f"{reference} max|err| {logit_err:.3e} (atol {atol} + rtol "
+          f"{reference} ({len(compared)} of {len(batches)} batches) max|err| "
+          f"{logit_err:.3e} (atol {atol} + rtol "
           f"{rtol}; the comparison took {t_ref:.1f} s); card: {card}")
     return counts
 
@@ -2451,19 +2486,20 @@ def _step_compare(cfg, batch, label, sides, optim="AdamW",
     return counts
 
 
-def _time_train_step(trainer, label, card, layouts=("std",), steps=12):
+def _time_train_step(trainer, label, card, layouts=("std",),
+                     steps=TIMED_STEPS):
     """CUDA-synchronised median of ``steps`` training steps of each fusion
-    layout, after 3 of warm-up; two layouts run in turns (a, b, b, a), half
-    the steps a turn."""
+    layout, after WARMUP steps of warm-up; two layouts run in turns (a, b,
+    b, a), half the steps a turn."""
     bs = trainer.cfg.batch_size
     batches = [b for b, _ in trainer.batches("train")]
     order = list(layouts) + (list(layouts[::-1]) if len(layouts) > 1 else [])
     per = steps * len(layouts) // len(order)
     times = {lay: [] for lay in layouts}
     peak = dict.fromkeys(layouts, 0.0)
-    for lay in order:
+    for n, lay in enumerate(order):
         with _layout(lay):
-            for i in range(3):
+            for i in range(WARMUP[order.index(lay) < n]):
                 trainer.train_step(batches[i % len(batches)],
                                    trainer.generator)
             torch.cuda.synchronize()
@@ -2534,11 +2570,11 @@ def flagship_bp(rng, card):
     return counts
 
 
-def _time_dtypes(cfg, batches, combos, label, card, steps=12,
+def _time_dtypes(cfg, batches, combos, label, card, steps=TIMED_STEPS,
                  optim="AdamW"):
     """Training steps of one model at each (fusion layout, compute dtype) of
     ``combos``, timed in turns (the combos, then again in reverse, half the
-    steps a turn) after 3 of warm-up each: CUDA-synchronised median and
+    steps a turn) after WARMUP steps of warm-up: CUDA-synchronised median and
     quartiles, subjects/s and peak device memory."""
     from multimodal_neuroimage_tpu_torch.models.registry import (
         create_model, init_random_weights)
@@ -2556,10 +2592,11 @@ def _time_dtypes(cfg, batches, combos, label, card, steps=12,
            for d in {d for _, d in combos}}
     times = {c: [] for c in combos}
     peak = dict.fromkeys(combos, 0.0)
-    for turn in list(combos) + list(combos)[::-1]:
+    order = list(combos) + list(combos)[::-1]
+    for n, turn in enumerate(order):
         lay, dtype = turn
         with _layout(lay):
-            for i in range(3):
+            for i in range(WARMUP[order.index(turn) < n]):
                 fns[dtype](batches[i % len(batches)], gen)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3186,9 +3223,9 @@ def _struct_batches(cfg, B, n=3):
             for _ in range(n)]
 
 
-def _time_predict(cfg, batches, dtypes, label, card, steps=12):
+def _time_predict(cfg, batches, dtypes, label, card, steps=TIMED_STEPS):
     """Predict steps of one model at each compute dtype, timed in turns (the
-    dtypes, then in reverse, half the steps a turn) after 3 of warm-up:
+    dtypes, then in reverse, half the steps a turn) after WARMUP steps:
     CUDA-synchronised median and quartiles, subjects/s, peak memory."""
     from multimodal_neuroimage_tpu_torch.models.registry import (
         create_model, init_random_weights)
@@ -3203,8 +3240,9 @@ def _time_predict(cfg, batches, dtypes, label, card, steps=12):
     fns = {d: make_predict_step(model, d, "cuda") for d in dtypes}
     times = {d: [] for d in dtypes}
     peak = dict.fromkeys(dtypes, 0.0)
-    for d in list(dtypes) + list(dtypes)[::-1]:
-        for i in range(3):
+    order = list(dtypes) + list(dtypes)[::-1]
+    for n, d in enumerate(order):
+        for i in range(WARMUP[order.index(d) < n]):
             fns[d](batches[i % len(batches)])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3425,9 +3463,10 @@ def struct_phases(card, gen, res: Results):
                 batches = _struct_batches(bcfg, B)
                 _time_dtypes(bcfg, batches, (("std", "bfloat16"),
                                              ("std", "float32")),
-                             name, card, optim=cfg.optim)
+                             name, card, steps=PHASE_TIMED_STEPS,
+                             optim=cfg.optim)
                 _time_predict(bcfg, batches, ("bfloat16", "float32"), name,
-                              card)
+                              card, steps=PHASE_TIMED_STEPS)
     print(f"structural phases took {time.perf_counter() - t_phase:.1f} s; "
           f"card: {card}")
     return launches
@@ -3714,9 +3753,9 @@ def phase_chain(card):
                 batches = _combiner_batches(B, cfg.use_prs)
                 _time_dtypes(bcfg, batches, (("std", "bfloat16"),
                                              ("std", "float32")),
-                             name, card, steps=6)
+                             name, card, steps=PHASE_TIMED_STEPS)
                 _time_predict(bcfg, batches, ("bfloat16", "float32"), name,
-                              card, steps=6)
+                              card, steps=PHASE_TIMED_STEPS)
     print(f"phase-chain phase took {time.perf_counter() - t_phase:.1f} s; "
           f"card: {card}")
     return launches
@@ -3954,9 +3993,9 @@ def _phase2_times(cfg, label, card):
                 batches = _phase2_batches(B)
                 _time_dtypes(bcfg, batches, (("std", "bfloat16"),
                                              ("std", "float32")),
-                             label, card, steps=6)
+                             label, card, steps=PHASE_TIMED_STEPS)
                 _time_predict(bcfg, batches, ("bfloat16", "float32"), label,
-                              card, steps=6)
+                              card, steps=PHASE_TIMED_STEPS)
                 break
             except torch.cuda.OutOfMemoryError as e:
                 why = str(e).splitlines()[0]
@@ -4876,10 +4915,10 @@ def reproducible_steps(card, rng):
         times = {True: [], False: []}
         for det in (True, False, False, True):
             torch.backends.cudnn.deterministic = det
-            for _ in range(2):
+            for _ in range(WARMUP[bool(times[det])]):
                 step(batch, gen)
             torch.cuda.synchronize()
-            for _ in range(4):
+            for _ in range(3):
                 t0 = time.perf_counter()
                 step(batch, gen)
                 torch.cuda.synchronize()
@@ -4887,7 +4926,7 @@ def reproducible_steps(card, rng):
         torch.backends.cudnn.deterministic = True
         on, off = (statistics.median(times[d]) for d in (True, False))
         print(f"F16 cost: bf16 flagship training step at batch {B} (fwd + "
-              f"bwd + K5, std layout, timed in turns, 8 steps a side): "
+              f"bwd + K5, std layout, timed in turns, 6 steps a side): "
               f"deterministic cuDNN median {on:.3f} ms, cuDNN's default "
               f"{off:.3f} ms, ratio {on / off:.4f}; card: {card}")
         del model, opt, step
@@ -4896,11 +4935,14 @@ def reproducible_steps(card, rng):
 
 # ---- phase 16: the exported serving artifact ---------------------------------
 
-# the artifacts of the export phase: (label, config, fusion layout), each at
-# full width and depth, exported with its registered ops and portable
-EXPORTS = (("flagship_bf16", dict(compute_dtype="bfloat16"), "std"),
-           ("flagship_bp", dict(compute_dtype="float32"), "bp"),
-           ("hcp_bf16", dict(compute_dtype="bfloat16"), "std"))
+# the artifacts of the export phase: (label, config, fusion layout, whether
+# its registered ops' artifact is traced at full depth), each at full width,
+# exported with its registered ops and portable (``_export_cfg``'s cut
+# depths). One full-depth flagship: the bp one's ops (K7's forward) trace
+# the same model at a cut depth.
+EXPORTS = (("flagship_bf16", dict(compute_dtype="bfloat16"), "std", True),
+           ("flagship_bp", dict(compute_dtype="float32"), "bp", False),
+           ("hcp_bf16", dict(compute_dtype="bfloat16"), "std", True))
 # an artifact's scores against the live Predictor's (atol, rtol), at either
 # compute dtype: about one float32 ulp apart (read: at most 4.2e-7, bf16
 # and float32), as the live model on copies of its weights is
@@ -4914,11 +4956,23 @@ EXPORT_STD16 = {"K1 bert_layer mm16": 32, "K2 fusion_block": 48,
 EXPORT_TIMEOUT = 900
 
 
-def _export_cfg(label):
-    """The config of an ``EXPORTS`` label and its fusion layout."""
-    kw, lay = next((kw, lay) for name, kw, lay in EXPORTS if name == label)
-    return (_hcp_cfg(**kw) if label.startswith("hcp")
-            else _flagship_cfg(**kw)), lay
+def _export_cfg(label, portable=False):
+    """The config of an ``EXPORTS`` label's artifact and its fusion layout:
+    the portable one's, and the registered ops' one where ``EXPORTS`` says
+    so, at a cut depth (tracing the full depth took 77-79 s a portable
+    flagship, 52-55 s with the registered ops, on the host of an NVIDIA
+    H100 80GB HBM3, 700 W): the flagship at 2 BERT layers a band and
+    CPU_STEP_DEPTH, HCP at HCP_CPU_LAYERS."""
+    kw, lay, full = next((kw, lay, full) for name, kw, lay, full in EXPORTS
+                         if name == label)
+    if label.startswith("hcp"):
+        cut = dict(transformer_hidden_layers=HCP_CPU_LAYERS)
+        cfg = _hcp_cfg(**kw)
+    else:
+        cut = dict(transformer_hidden_layers=2, **CPU_STEP_DEPTH)
+        cfg = _flagship_cfg(**kw)
+    return (dataclasses.replace(cfg, **cut) if portable or not full
+            else cfg), lay
 
 
 # a worker: argv[1] is the JSON of _export_and_serve's arguments
@@ -4989,13 +5043,13 @@ def _export_and_serve(label, portable, tmp):
     import pickle
     from multimodal_neuroimage_tpu_torch.serve.export import export_model
     from multimodal_neuroimage_tpu_torch.serve.predictor import Predictor
-    cfg, lay = _export_cfg(label)
+    cfg, lay = _export_cfg(label, portable)
     with open(os.path.join(tmp, f"{label}.requests.pkl"), "rb") as f:
         requests = pickle.load(f)
     dest = os.path.join(tmp, f"{label}_{portable}.pt2")
     with _layout(lay):
-        pred = Predictor(cfg, os.path.join(tmp, f"{label}.ckpt"), requests,
-                         device="cuda")
+        pred = Predictor(cfg, os.path.join(tmp, f"{label}_{portable}.ckpt"),
+                         requests, device="cuda")
         t0 = time.perf_counter()
         export_model(pred, dest, portable=portable)
         with open(dest + ".export.json", "w") as f:
@@ -5007,12 +5061,12 @@ def _export_and_serve(label, portable, tmp):
                    timeout=EXPORT_TIMEOUT)
 
 
-def _export_workers(tmp, env):
+def _export_workers(tmp, env, during):
     """``_export_and_serve`` for every artifact (each ``EXPORTS`` label,
     with its registered ops and portable) in worker processes started
-    together, each logging to ``tmp``; all within ``EXPORT_TIMEOUT`` s of
-    the start (then all are killed and the phase fails). Returns the wall
-    seconds."""
+    together, each logging to ``tmp``, while ``during()`` runs here; all
+    within ``EXPORT_TIMEOUT`` s of the start (then all are killed and the
+    phase fails). Returns the wall seconds and what ``during()`` returned."""
     jobs = [(label, portable) for label, *_ in EXPORTS
             for portable in (False, True)]
     procs = []
@@ -5024,6 +5078,7 @@ def _export_workers(tmp, env):
             stdout=log, stderr=subprocess.STDOUT, env=env), log))
     t0 = time.perf_counter()
     try:
+        beside = during()
         for proc, _ in procs:
             proc.wait(timeout=max(EXPORT_TIMEOUT - (time.perf_counter() - t0),
                                   1))
@@ -5041,7 +5096,7 @@ def _export_workers(tmp, env):
             raise AssertionError(f"export {label} (portable {portable}): "
                                  f"the worker failed (rc {proc.returncode})"
                                  f":\n{text[-4000:]}")
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, beside
 
 
 def _host_cost(op, direct, rounds=6, calls=40):
@@ -5109,27 +5164,29 @@ def _reference_sd(state):
     return sd
 
 
-def export_phase(card, gen, rng):
-    """Phase 16 (``export``): serve/export.py on the card at full width and
-    depth. Exports (``EXPORTS``) the flagship at its bf16 default on the std
-    layout, the flagship at float32 on ``bp`` and HCP phase 1 at its bf16
-    default, each with its registered ops and ``portable=True``, from
-    random weights of a seed; the six exports run at once in worker
-    processes, each serving its artifact in a fresh interpreter that
-    imports serve/export.py and ops/library.py only (checked: no model
+def export_phase(card, gen, rng, during):
+    """Phase 16 (``export``): serve/export.py on the card at full width.
+    Exports (``EXPORTS``) the flagship at its bf16 default on the std layout
+    (full depth), the flagship at float32 on ``bp`` and HCP phase 1 at its
+    bf16 default (full depth), each with its registered ops and
+    ``portable=True`` (``_export_cfg``'s cut depths), from random weights of
+    a seed; the six exports run at once in worker processes while
+    ``during()`` runs here, each serving its artifact in a fresh interpreter
+    that imports serve/export.py and ops/library.py only (checked: no model
     module of the port is loaded there) on the live Predictor's batches:
-    the artifacts' scores within ``EXPORT_TOL`` of the Predictor's and
-    their launches a batch equal to its (the bf16 std flagship's K1 mm16
-    32, K2 48, K3 12, K4 10), the portable ones within the serving
-    tolerance of them and without a launch. Prints the export and load
-    times, the artifact sizes (the bf16 flagship's against the float32
-    one's), the served batch's time beside the live step's, the registered
-    ops' host cost a call (``_op_host_costs``); maps the flagship's weights
-    from the reference's layout on the CPU (utils/torch_import.py, its
-    BERTs' token-type rows as utils/hf_import.py) and serves them on the
-    card bitwise the original's; loads a synthetic ``fMRI_image`` cohort
-    in the native gear, equal to the host gear. Returns the artifacts'
-    launches by path."""
+    the artifacts' scores within ``EXPORT_TOL`` of the Predictor's at their
+    depth and their launches a batch equal to its (the bf16 std flagship's
+    K1 mm16 32, K2 48, K3 12, K4 10), the portable ones within the serving
+    tolerance of the live Predictor at their depth and without a launch.
+    Prints the export and load times, the artifact bytes a parameter (the
+    bf16 flagship's against the float32 one's), the served batch's time
+    beside the live step's, the registered ops' host cost a call
+    (``_op_host_costs``); maps the flagship's weights from the reference's
+    layout on the CPU (utils/torch_import.py, its BERTs' token-type rows as
+    utils/hf_import.py) and serves them on the card bitwise the original's;
+    loads a synthetic ``fMRI_image`` cohort in the native gear, equal to
+    the host gear. Returns the artifacts' launches by path and what
+    ``during()`` returned."""
     import pickle
     from multimodal_neuroimage_tpu_torch.ckpt.checkpoint import (
         load_checkpoint, save_checkpoint)
@@ -5148,8 +5205,9 @@ def export_phase(card, gen, rng):
     _op_host_costs(card, gen)
     launches, live, work = {}, {}, {}
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
-        # ---- the live Predictors: their scores, launches and step ------
-        for label, _, lay in EXPORTS:
+        # ---- the live Predictors: their scores, launches and step (each
+        # artifact's: the portable one's at its cut depth) ----------------
+        for label, _, lay, _ in EXPORTS:
             cfg, _ = _export_cfg(label)
             if label.startswith("hcp"):
                 requests = [{k: r[k] for k in ("subject", "fmri")}
@@ -5160,48 +5218,59 @@ def export_phase(card, gen, rng):
                             for r in _cohort(rng, 2 * cfg.batch_size, 900)]
             with open(os.path.join(tmp, f"{label}.requests.pkl"), "wb") as f:
                 pickle.dump(requests, f)
-            model = init_random_weights(
-                create_model(cfg), torch.Generator().manual_seed(SEED))
-            ckpt = save_checkpoint(os.path.join(tmp, f"{label}.ckpt"),
-                                   model.state_dict(),
-                                   {"val_threshold": 0.5})
-            n_params = sum(p.numel() for p in model.parameters())
-            del model
-            with _layout(lay):
-                pred = Predictor(cfg, ckpt, requests, device="cuda")
-                batches = [b for b, _ in pred.batches()]
-                counts, scores = [], []
-                for b in batches:
-                    torch.cuda.synchronize()
-                    ops.reset_launches()
-                    scores.append(pred.step(b)[pred.head].reshape(-1).cpu()
-                                  .numpy())
-                    torch.cuda.synchronize()
-                    counts.append({k: v for k, v in ops.launches().items()
-                                   if v})
-                step_ms = events_ms(lambda: pred.step(batches[0]), iters=5)
-                work[label] = traced_flops(pred.step, batches[0])
-            np.savez(os.path.join(tmp, f"{label}_batches.npz"),
-                     n=len(batches), **{
-                         f"{j}/{k}": v.cpu().numpy()
-                         for j, b in enumerate(batches)
-                         for k, v in b.items() if torch.is_tensor(v)})
-            live[label] = (cfg, np.stack(scores), counts, step_ms, n_params)
-            del pred
-            gc.collect()
-            torch.cuda.empty_cache()
+            scores, counts, n_params = {}, {}, {}
+            for portable in (False, True):
+                pcfg, _ = _export_cfg(label, portable)
+                model = init_random_weights(
+                    create_model(pcfg), torch.Generator().manual_seed(SEED))
+                ckpt = save_checkpoint(
+                    os.path.join(tmp, f"{label}_{portable}.ckpt"),
+                    model.state_dict(), {"val_threshold": 0.5})
+                n_params[portable] = sum(p.numel() for p in model.parameters())
+                del model
+                with _layout(lay):
+                    pred = Predictor(pcfg, ckpt, requests, device="cuda")
+                    batches = [b for b, _ in pred.batches()]
+                    counts[portable], scores[portable] = [], []
+                    for b in batches:
+                        torch.cuda.synchronize()
+                        ops.reset_launches()
+                        scores[portable].append(
+                            pred.step(b)[pred.head].reshape(-1).cpu().numpy())
+                        torch.cuda.synchronize()
+                        counts[portable].append(
+                            {k: v for k, v in ops.launches().items() if v})
+                    if not portable:
+                        step_ms = events_ms(lambda: pred.step(batches[0]),
+                                            iters=5)
+                    work[label, portable] = traced_flops(pred.step,
+                                                         batches[0])
+                if not portable:
+                    np.savez(os.path.join(tmp, f"{label}_batches.npz"),
+                             n=len(batches), **{
+                                 f"{j}/{k}": v.cpu().numpy()
+                                 for j, b in enumerate(batches)
+                                 for k, v in b.items() if torch.is_tensor(v)})
+                del pred
+                gc.collect()
+                torch.cuda.empty_cache()
+            live[label] = (cfg, {k: np.stack(v) for k, v in scores.items()},
+                           counts[False], step_ms, n_params)
 
-        # ---- the six artifacts, exported and served at once ------------
-        wall = _export_workers(tmp, dict(
+        # ---- the six artifacts, exported and served at once (``during``
+        # runs here meanwhile) --------------------------------------------
+        wall, beside = _export_workers(tmp, dict(
             os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
-                __file__)) + os.pathsep + os.environ.get("PYTHONPATH", "")))
+                __file__)) + os.pathsep + os.environ.get("PYTHONPATH", "")),
+            during)
         print(f"export: {2 * len(EXPORTS)} artifacts exported and served at "
               f"once in {wall:.1f} s (worker processes; each served in a "
               f"fresh interpreter importing serve/export.py and "
               f"ops/library.py, its batch times taken one artifact at a "
-              f"time)")
+              f"time, while this process ran phase 17)")
         sizes = {}
         for label, (cfg, want, counts, step_ms, n_params) in live.items():
+            pcfg, _ = _export_cfg(label, True)
             got, art = {}, {}
             for portable in (False, True):
                 dest = os.path.join(tmp, f"{label}_{portable}.pt2")
@@ -5211,12 +5280,12 @@ def export_phase(card, gen, rng):
                     art[portable]["export_s"] = json.load(f)["s"]
                 with open(dest + ".json") as f:
                     art[portable]["flops"] = json.load(f)["flops"]
-                if art[portable]["flops"] != work[label]:
+                if art[portable]["flops"] != work[label, portable]:
                     raise AssertionError(
                         f"export {label} (portable {portable}): the "
                         f"artifact's graph_flops {art[portable]['flops']} vs "
                         f"the live predict step's traced_flops "
-                        f"{work[label]}")
+                        f"{work[label, portable]}")
                 art[portable]["bytes"] = os.path.getsize(dest)
                 if art[portable]["model_modules"]:
                     raise AssertionError(
@@ -5225,7 +5294,8 @@ def export_phase(card, gen, rng):
                 got[portable] = torch.from_numpy(np.load(
                     dest + ".scores.npy"))
             art_err = _close(f"export {label} scores vs the live Predictor",
-                             got[False], torch.from_numpy(want), *EXPORT_TOL)
+                             got[False], torch.from_numpy(want[False]),
+                             *EXPORT_TOL)
             if art[False]["counts"] != counts:
                 raise AssertionError(f"export {label}: artifact launches "
                                      f"{art[False]['counts']} vs live "
@@ -5240,39 +5310,46 @@ def export_phase(card, gen, rng):
             atol, rtol = ((LOGIT16, LOGIT16) if cfg.compute_dtype ==
                           "bfloat16" else (LOGIT_ATOL, LOGIT_RTOL))
             port_err = _close(f"export {label} portable scores", got[True],
-                              got[False], atol, rtol)
+                              torch.from_numpy(want[True]), atol, rtol)
             total = {}
             for c in art[False]["counts"]:
                 for k, n in c.items():
                     total[k] = total.get(k, 0) + n
             launches[f"export_{label}"] = total
-            sizes[label] = (art[False]["bytes"], n_params, cfg.compute_dtype)
+            sizes[label] = (art[False]["bytes"], n_params[False],
+                            cfg.compute_dtype)
             a, p = art[False], art[True]
-            print(f"export {label}: {n_params} parameters at "
-                  f"{cfg.compute_dtype}, {len(want)} batches of "
-                  f"{cfg.batch_size}; graph_flops of both artifacts "
-                  f"{work[label]} a batch, the live step's traced_flops; "
+            print(f"export {label}: {cfg.transformer_hidden_layers} BERT "
+                  f"layers, {n_params[False]} parameters at "
+                  f"{cfg.compute_dtype}, {len(want[False])} batches of "
+                  f"{cfg.batch_size}; graph_flops {work[label, False]} a "
+                  f"batch, the live step's traced_flops; "
                   f"artifact scores vs the live "
                   f"Predictor's max|err| {art_err:.3e} (atol {EXPORT_TOL[0]}"
                   f" + rtol {EXPORT_TOL[1]}), launches a batch equal "
                   f"({counts[0]}); ops {a['ops']}; traced and saved in "
                   f"{a['export_s']:.1f} s, {a['bytes']} B, loaded in "
                   f"{a['load_s']:.1f} s; served batch {a['ms']:.2f} ms vs "
-                  f"live predict step {step_ms:.2f} ms; portable artifact: "
-                  f"no launch, scores vs the artifact's max|err| "
-                  f"{port_err:.3e} (atol {atol} + rtol {rtol}), traced and "
+                  f"live predict step {step_ms:.2f} ms; portable artifact "
+                  f"at a cut depth ({pcfg.transformer_hidden_layers} BERT "
+                  f"layers, {n_params[True]} parameters; graph_flops "
+                  f"{work[label, True]} a batch, the live step's): no "
+                  f"launch, scores vs the live Predictor at that depth "
+                  f"max|err| {port_err:.3e} (atol {atol} + rtol {rtol}), "
+                  f"traced and "
                   f"saved in {p['export_s']:.1f} s, {p['bytes']} B, loaded "
                   f"in {p['load_s']:.1f} s, served batch {p['ms']:.2f} ms; "
                   f"card: {card}")
         (s16, n16, _), (s32, n32, _) = sizes["flagship_bf16"], \
             sizes["flagship_bp"]
         print(f"export artifact size, the flagship's model and weights "
-              f"({n16} and {n32} parameters): bf16 (std) {s16} B vs float32 "
-              f"(bp) {s32} B, ratio {s16 / s32:.3f}")
+              f"({n16} and {n32} parameters): bf16 (std) {s16 / n16:.3f} B "
+              f"vs float32 (bp) {s32 / n32:.3f} B a parameter, ratio "
+              f"{s16 / n16 / (s32 / n32):.3f}")
 
         # ---- weights from the reference's layout, mapped on the CPU -------
         cfg, *_ = live["flagship_bf16"]
-        ckpt = os.path.join(tmp, "flagship_bf16.ckpt")
+        ckpt = os.path.join(tmp, "flagship_bf16_False.ckpt")
         state = load_checkpoint(ckpt)["state_dict"]
         mapped = torch_import.reference_model_state(_reference_sd(state), cfg)
         if sorted(mapped) != sorted(state) or not all(
@@ -5318,7 +5395,7 @@ def export_phase(card, gen, rng):
               f"gear's ({got['host_s']:.3f} s)")
     print(f"export phase: {time.perf_counter() - t_phase:.1f} s; card: "
           f"{card}")
-    return launches
+    return launches, beside
 
 
 # ---- phase 17: the count of a step's work ---------------------------------------
@@ -5579,30 +5656,43 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t_start = time.perf_counter()
+    phases = []                 # (phase, its wall seconds)
 
     def elapsed(done):
-        print(f"[{time.perf_counter() - t_start:.1f} s] {done}")
+        now = time.perf_counter() - T_IMPORT
+        took = now - sum(s for _, s in phases)
+        phases.append((done, took))
+        print(f"[{now:.1f} s] {done}: {took:.1f} s")
 
     lib = build.library()
-    print(f"kernels built in {lib.build_seconds:.1f} s -> {lib.path.name}")
+    print(f"kernels built in {lib.build_seconds:.1f} s -> {lib.path.name} ("
+          + ", ".join(line[5:] for line in lib.build_log.splitlines()
+                      if line.startswith("nvcc ")) + ")")
     for line in _ptxas_summary(lib.build_log):
         print(line)
     _fusion_occupancy()
+    elapsed("start-up and build")
 
     cfg = _flagship_cfg()
     n_params = sum(p.numel() for p in create_model(cfg).parameters())
     gen = torch.Generator().manual_seed(SEED)
     results = Results()
     k1_forward_kernels(gen, results)
+    elapsed("K1 forward kernels")
     forward_kernels(gen, results)
+    elapsed("forward kernels")
     backward_kernels(gen, results, n_params)
+    elapsed("backward kernels")
     mha_kernels(gen, results)
+    elapsed("K6 kernels")
     mha16_kernels(gen, results)
+    elapsed("K6 bf16 kernels")
     bp_kernels(gen, results)
+    elapsed("K7 kernels")
     bf16_kernels(gen, results)
+    elapsed("bf16 kernels")
     dot_counts = dot_shape_kernels(results)
-    elapsed("kernel phases")
+    elapsed("K8 kernels")
 
     rng = np.random.default_rng(SEED)
     train_records = _cohort(rng, N_TRAIN, 0)
@@ -5755,13 +5845,11 @@ def main() -> int:
     reproducible_steps(card, rng)
     elapsed("F16 phase")
 
-    # ---- the exported serving artifact ---------------------------------------
-    export_counts = export_phase(card, gen, rng)
-    elapsed("export phase")
-
-    # ---- the count of a step's work -------------------------------------------
-    work_counts(card)
-    elapsed("work phase")
+    # ---- the exported serving artifact, its workers beside the count of a
+    # step's work (phase 17) ----------------------------------------------------
+    export_counts, _ = export_phase(card, gen, rng,
+                                    lambda: work_counts(card))
+    elapsed("export and work phases")
 
     launches = {"flagship": train_counts, "flagship_bp": bp_counts,
                 "flagship_bf16": bf16_counts,
@@ -5772,6 +5860,9 @@ def main() -> int:
                 "dot_shapes": dot_counts, **struct_counts, **chain_counts,
                 **phase2_counts, **outer_counts, **multi_counts,
                 **export_counts}
+    total = time.perf_counter() - T_IMPORT
+    print(f"phase times: " + ", ".join(f"{p} {t:.1f} s" for p, t in phases)
+          + f"; total {total:.1f} s; card: {card}")
     kernels = [results.line(key, launches) for key in ops.kernels()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -192,10 +192,17 @@ def _compile(cu, out: Path) -> tuple:
         with open(log, "w") as fh:
             jobs.append((cmd, obj, log, subprocess.Popen(
                 cmd, stdout=fh, stderr=subprocess.STDOUT, text=True)))
+    # each source's seconds, as the first line of its log ("nvcc <name>:
+    # <s> s"): the build takes as long as its slowest source
+    done = {}
+    while len(done) < len(jobs):
+        for i, (_, _, _, proc) in enumerate(jobs):
+            if i not in done and proc.poll() is not None:
+                done[i] = time.perf_counter() - t0
+        time.sleep(0.05)
     logs, failed = [], []
-    for cmd, obj, log, proc in jobs:
-        proc.wait()
-        logs.append(log.read_text())
+    for i, (f, (cmd, obj, log, proc)) in enumerate(zip(cu, jobs)):
+        logs.append(f"nvcc {f.name}: {done[i]:.1f} s\n" + log.read_text())
         log.unlink()
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)}\n{logs[-1]}")

@@ -60,26 +60,30 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 # ---- the dropout-mask hash (ops/fusion_block.py:173-203, 290-296) -----------
 
-def _mul32(u: torch.Tensor, c: int) -> torch.Tensor:
-    """(u * c) mod 2^32 for int64 u in [0, 2^32), without int64 overflow."""
-    return (u * (c & 0xFFFF) + (((u * (c >> 16)) & 0xFFFF) << 16)) & _M32
+def _s32(v: int) -> int:
+    """The int32 whose bits are v mod 2^32."""
+    v &= _M32
+    return v - (1 << 32) if v >= (1 << 31) else v
 
 
 def mix_keep(r: torch.Tensor, c: torch.Tensor, rate: float, seed: int,
              draw: int) -> torch.Tensor:
-    """keep/(1-rate) factors (float32) of int64 coordinates r and c
-    (broadcast): ``_mix_keep``'s int32 wrapping products and logical shifts,
-    computed in int64 masked to 32 bits (torch's >> on int32 is
-    arithmetic)."""
-    base = ((int(seed) * 0x9E3779B9) ^ ((draw + 1) * 0xCC9E2D51)) & _M32
-    u = _mul32(r, 461845907) ^ _mul32(c, 668265261) ^ base
-    u = u ^ (u >> 16)
-    u = _mul32(u, 0x85EBCA6B)
-    u = u ^ (u >> 13)
-    u = _mul32(u, 0xC2B2AE35)
-    u = u ^ (u >> 16)
+    """keep/(1-rate) factors (float32) of integer coordinates r and c
+    (broadcast): ``_mix_keep``'s int32 wrapping products, in int32 (torch's
+    products wrap; its >> on int32 is arithmetic, so each shift is masked
+    to a logical one, and the threshold test flips the sign bits to compare
+    as unsigned)."""
+    base = (int(seed) * 0x9E3779B9) ^ ((draw + 1) * 0xCC9E2D51)
+    r, c = r.to(torch.int32), c.to(torch.int32)
+    u = (r * _s32(461845907)).bitwise_xor_(_s32(base)) ^ (c * _s32(668265261))
+    u ^= (u >> 16) & 0xFFFF
+    u *= _s32(0x85EBCA6B)
+    u ^= (u >> 13) & 0x7FFFF
+    u *= _s32(0xC2B2AE35)
+    u ^= (u >> 16) & 0xFFFF
     thr = min(int(rate * (2 ** 32)), 2 ** 32 - 1)
-    return (u >= thr).to(torch.float32) * float(1.0 / (1.0 - rate))
+    keep = (u ^ -(1 << 31)) >= thr - (1 << 31)
+    return keep.to(torch.float32) * float(1.0 / (1.0 - rate))
 
 
 def _iota(n: int, device) -> torch.Tensor:
