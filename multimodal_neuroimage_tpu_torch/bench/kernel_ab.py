@@ -34,7 +34,8 @@ worker times, ``ROUNDS`` times:
   around back-to-back calls) and the device time (a CUDA graph's replay);
 - the fusion backward (``fusion``) at batch 16 and 64, dropout 0.1 and
   DropPath on, shift 0 and 3, self and cross: K2/K3 on (B, 196, 36, 12)
-  windows and K7 on groups of G = 8, 10 back-to-back calls;
+  windows and K7 on groups of G = 8, on float32 streams and on bf16
+  streams (bf16-valued weights), 10 back-to-back calls;
 - K6 (``k6``) at HCP's (8, 2, 1201, 11), dropout 0 and 0.1: the bf16 form
   (bf16 q/k/v/dO) and the float32 form, each the forward (20 back-to-back
   calls) and the backward (10);
@@ -263,9 +264,19 @@ def _fusion_batch(out, T, B, G, nW, N, C, params, bias, gen):
                 bp = (lambda p=p, mask=mask, x2g=x2g:
                       fbp.fused_fusion_block_bp_backward(
                           gg, xg, p, bias, mask, *train, x2g))
+            # K7's bf16 form on the same inputs: bf16 streams, bf16-valued
+            # weights
+            xb, yb, gb = (t.to(torch.bfloat16) for t in (xg, yg, gg))
+            yb = yb if cross else None
+            pb = tuple(t.to(torch.bfloat16).float() for t in p)
+            _, x2b = fbp._launch_forward(xb, yb, pb, bias, mask, *train,
+                                         True, cross, G)
+            bp16 = (lambda pb=pb, yb=yb, mask=mask, x2b=x2b, cross=cross:
+                    fbp._backward(gb, xb, yb, pb, bias, mask, *train, x2b,
+                                  cross, G))
             kind = "cross" if cross else "self"
             for name, fn in ((f"K{3 if cross else 2} {kind}", std),
-                             (f"K7 {kind}", bp)):
+                             (f"K7 {kind}", bp), (f"K7 bf16 {kind}", bp16)):
                 out["fusion backward"].setdefault(
                     f"{name} B{B} shift {shift}", []).append(
                         T.events_ms(fn, iters=10))

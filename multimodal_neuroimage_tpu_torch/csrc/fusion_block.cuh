@@ -12,13 +12,14 @@
 // See fusion_block.cu for the design notes of the forward and of the
 // backward.
 //
-// Both bodies are templated on the streams' element type S (float, or
+// The forward is templated on the streams' element type S (float, or
 // __nv_bfloat16 for K7's bf16 form) and on MM16, the bf16 policy's products
 // (JAX _mm_bp with mm16): every product of bf16-rounded operands with float32
 // sums, and the packed mm16 softmax (logits capped at 80, no max
 // subtraction, denominators summed from bf16(e), p = e * bf16(1 / den)).
-// The body computes in float32 either way; <false, float> is the float32
-// body of K2/K3 and K7.
+// It computes in float32 either way; <false, float> is the float32 forward
+// of K2/K3 and K7. The backward here is the float32 one of K2/K3 and K7;
+// K7's bf16 form has its own (fusion_block_bp16.cuh).
 #pragma once
 
 #include <float.h>
@@ -115,20 +116,17 @@ struct FusionLayout {
 
 // Global (rows x cols, row-major) -> shared with a padded row stride, by a
 // block of NT threads.
-// RND: each value rounded to bf16 (a weight matrix of the mm16 body, which
-// only ever enters products).
-template <int NT, bool RND = false>
+template <int NT>
 __device__ __forceinline__ void stage(float* dst, int stride, const float* __restrict__ src,
                                       int rows, int cols) {
 #pragma unroll 4
   for (int i = threadIdx.x; i < rows * cols; i += NT)
-    dst[(i / cols) * stride + i % cols] = RND ? bf16r(src[i]) : src[i];
+    dst[(i / cols) * stride + i % cols] = src[i];
 }
 
 // The weights and the bias table at the offsets of F from w (the same for
 // every window: a kernel stages them once).
-// MM16: the weight matrices rounded to bf16.
-template <int NT, bool MM16 = false>
+template <int NT>
 __device__ __forceinline__ void stage_weights(float* w, const FusionLayout& F, bool cross,
                                               const FusionParams& P, const float* bias, int N,
                                               int C, int H, int Ch) {
@@ -138,21 +136,21 @@ __device__ __forceinline__ void stage_weights(float* w, const FusionLayout& F, b
   if (cross) {
     stage<NT>(w + F.g1y, C, P.g1y, 1, C);
     stage<NT>(w + F.b1y, C, P.b1y, 1, C);
-    stage<NT, MM16>(w + F.wq, CS, P.wq, C, C);
+    stage<NT>(w + F.wq, CS, P.wq, C, C);
     stage<NT>(w + F.bq, C, P.bq, 1, C);
-    stage<NT, MM16>(w + F.wkv, CS, P.wkv, 2 * C, C);
+    stage<NT>(w + F.wkv, CS, P.wkv, 2 * C, C);
     stage<NT>(w + F.bkv, 2 * C, P.bkv, 1, 2 * C);
   } else {
-    stage<NT, MM16>(w + F.wq, CS, P.wq, 3 * C, C);
+    stage<NT>(w + F.wq, CS, P.wq, 3 * C, C);
     stage<NT>(w + F.bq, 3 * C, P.bq, 1, 3 * C);
   }
-  stage<NT, MM16>(w + F.wp, CS, P.wp, C, C);
+  stage<NT>(w + F.wp, CS, P.wp, C, C);
   stage<NT>(w + F.bp, C, P.bp, 1, C);
   stage<NT>(w + F.g2, C, P.g2, 1, C);
   stage<NT>(w + F.b2, C, P.b2, 1, C);
-  stage<NT, MM16>(w + F.w1, CS, P.w1, Ch, C);
+  stage<NT>(w + F.w1, CS, P.w1, Ch, C);
   stage<NT>(w + F.b1m, Ch, P.b1m, 1, Ch);
-  stage<NT, MM16>(w + F.w2, HS, P.w2, C, Ch);
+  stage<NT>(w + F.w2, HS, P.w2, C, Ch);
   stage<NT>(w + F.b2m, C, P.b2m, 1, C);
   stage<NT>(w + F.bias, BS, bias, H * N, N);
 }
@@ -1055,9 +1053,8 @@ struct FusionBwdLayout {
 // row-wise or transposed); `in` at offset in_off of each window's arena.
 // A thread owns OT consecutive outputs of one row: one load of the row's
 // element feeds OT FMAs, lanes on consecutive rows, so each weight element
-// is a broadcast. Each sum runs in the order c = 0, 1, ... RND: the input
-// element rounded to bf16 (the mm16 body, whose staged weights are rounded).
-template <bool RND = false, typename Store>
+// is a broadcast. Each sum runs in the order c = 0, 1, ...
+template <typename Store>
 __device__ __forceinline__ void dense_w(const float* win, int arena, int in_off, int in_stride,
                                         int K, const float* W, int wo, int wk, const float* b,
                                         int O, int N, int kw, Store store) {
@@ -1077,7 +1074,7 @@ __device__ __forceinline__ void dense_w(const float* win, int arena, int in_off,
     }
 #pragma unroll 4
     for (int c = 0; c < K; ++c) {
-      const float xv = RND ? bf16r(row[c]) : row[c];
+      const float xv = row[c];
 #pragma unroll
       for (int t = 0; t < OT; ++t) s[t] = fmaf(xv, wr[t][c * wk], s[t]);
     }
@@ -1090,8 +1087,6 @@ __device__ __forceinline__ void dense_w(const float* win, int arena, int in_off,
 // One weight-gradient element, acc[e] += sum_k sum_n A_k[n][o] B_k[n][j]
 // (e = o * J + j) over the windows in flight, in the order k, then n (two
 // chains, even and odd n, added at the end): the same order every run.
-// RND: both factors rounded to bf16 (the mm16 body).
-template <bool RND = false>
 __device__ __forceinline__ void outer_elem(float* acc, int e, const float* win, int arena,
                                            int a_off, int as, int b_off, int bs, int J,
                                            int N, int kw) {
@@ -1101,12 +1096,11 @@ __device__ __forceinline__ void outer_elem(float* acc, int e, const float* win, 
     const float* A = win + k * arena + a_off + o;
     const float* B = win + k * arena + b_off + j;
     int n = 0;
-    auto r = [](float v) { return RND ? bf16r(v) : v; };
     for (; n + 1 < N; n += 2) {
-      s0 = fmaf(r(A[n * as]), r(B[n * bs]), s0);
-      s1 = fmaf(r(A[(n + 1) * as]), r(B[(n + 1) * bs]), s1);
+      s0 = fmaf(A[n * as], B[n * bs], s0);
+      s1 = fmaf(A[(n + 1) * as], B[(n + 1) * bs], s1);
     }
-    if (n < N) s0 = fmaf(r(A[n * as]), r(B[n * bs]), s0);
+    if (n < N) s0 = fmaf(A[n * as], B[n * bs], s0);
   }
   acc[e] += s0 + s1;
 }
@@ -1126,13 +1120,12 @@ __device__ __forceinline__ void cols_elem(float* acc, int o, const float* win, i
 
 // Block-wide (threads t0, t0 + 1, ... of a team of nt): every element of an
 // O x J weight gradient / an O-wide column sum has one owner thread.
-template <bool RND = false>
 __device__ __forceinline__ void acc_outer_w(float* acc, const float* win, int arena, int a_off,
                                             int as, int O, int b_off, int bs, int J, int N,
                                             int kw, int t0 = 0,
                                             int nt = FUSION_BWD_THREADS) {
   for (int e = threadIdx.x - t0; e < O * J; e += nt)
-    outer_elem<RND>(acc, e, win, arena, a_off, as, b_off, bs, J, N, kw);
+    outer_elem(acc, e, win, arena, a_off, as, b_off, bs, J, N, kw);
 }
 
 __device__ __forceinline__ void acc_cols_w(float* acc, const float* win, int arena, int a_off,
@@ -1187,18 +1180,13 @@ __device__ __forceinline__ void ln_bwd_row(const float* dh, const float* xh, flo
 // accumulators at L.acc, in window order, and writes dx (and dy). Weights
 // and bias are staged at L.fwd + the FusionLayout offsets; the caller has
 // synchronised after staging wins and the mask; ends on a barrier.
-// MM16 (JAX's mm16 backward): weights staged rounded to bf16, every product
-// reads its activations rounded (dense_w / outer_elem with RND), q, k, v and
-// dL/do stored rounded for the attention, whose backward rebuilds the mm16
-// softmax: p = e * rden, seg = bf16(sum_j bf16(dp p)), ds = p (dp - seg),
-// with rden and seg kept where the float32 body keeps lse and D.
-template <bool CROSS, int MAXHD, bool MM16 = false, typename S = float>
+template <bool CROSS, int MAXHD>
 __device__ __forceinline__ void fusion_backward_windows(float* smem, const FusionBwdLayout& L,
                                                         const FusionLayout& F,
                                                         const FusionGrads& G, bool masked,
                                                         int N, int C, int H, int Ch,
                                                         const FusionTrain& T,
-                                                        const FusionWindowT<S>* wins, int kw) {
+                                                        const FusionWindow* wins, int kw) {
   constexpr int NT = FUSION_BWD_THREADS;
   const int CS = L.CS, HS = L.HS, BS = L.BS, QS = L.QS, AR = L.arena;
   const float* w = smem + L.fwd;    // + FusionLayout offset -> staged weight
@@ -1210,12 +1198,11 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
   const int hd = C / H;
   const float scale = 1.f / sqrtf((float)hd);
   const int rows = kw * N, HN = H * N;
-  auto rnd = [](float v) { return MM16 ? bf16r(v) : v; };
 
   // ---- MLP / LN2 side over the saved x2r ------------------------------------
   for (int e = tid; e < rows * C; e += NT) {
     const int r = e / C, c = e % C, k = r / N, n = r % N;
-    const FusionWindowT<S>& W = wins[k];
+    const FusionWindow& W = wins[k];
     float* a = win + k * AR + n * CS + c;
     const size_t src = (size_t)n * W.stride + c;
     a[L.p0] = ld_stream(W.g + src);
@@ -1229,13 +1216,13 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
   }
   for (int e = tid; e < rows * C; e += NT) {
     const int r = e / C, c = e % C, k = r / N, n = r % N;
-    const FusionWindowT<S>& W = wins[k];
+    const FusionWindow& W = wins[k];
     float* a = win + k * AR + n * CS + c;
     a[L.p3] = W.dp2 * a[L.p0] * keep(T.mlp2, W.row0 + n, W.colC + c);   // dz
   }
   __syncthreads();
   // u = fc1(h2) and GELU(u) * m1
-  dense_w<MM16>(win, AR, L.p2, CS, C, w + F.w1, CS, 1, w + F.b1m, Ch, N, kw,
+  dense_w(win, AR, L.p2, CS, C, w + F.w1, CS, 1, w + F.b1m, Ch, N, kw,
           [&](int k, int n, int o, float s) {
             float* a = win + k * AR + n * HS + o;
             a[L.us] = s;
@@ -1243,17 +1230,17 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
              });
   __syncthreads();
   // du = (dz W2) * m1 * GELU'(u), written over u
-  dense_w<MM16>(win, AR, L.p3, CS, C, w + F.w2, 1, HS, nullptr, Ch, N, kw,
+  dense_w(win, AR, L.p3, CS, C, w + F.w2, 1, HS, nullptr, Ch, N, kw,
           [&](int k, int n, int j, float s) {
             float* u = win + k * AR + L.us + n * HS + j;
             *u = s * keep(T.mlp1, wins[k].row0 + n, wins[k].colH + j) * gelu_erf_grad(*u);
              });
-  acc_outer_w<MM16>(acc + G.w2, win, AR, L.p3, CS, C, L.gus, HS, Ch, N, kw);
+  acc_outer_w(acc + G.w2, win, AR, L.p3, CS, C, L.gus, HS, Ch, N, kw);
   acc_cols_w(acc + G.b2m, win, AR, L.p3, CS, -1, 0, C, N, kw);
   __syncthreads();
-  acc_outer_w<MM16>(acc + G.w1, win, AR, L.us, HS, Ch, L.p2, CS, C, N, kw);
+  acc_outer_w(acc + G.w1, win, AR, L.us, HS, Ch, L.p2, CS, C, N, kw);
   acc_cols_w(acc + G.b1m, win, AR, L.us, HS, -1, 0, Ch, N, kw);
-  dense_w<MM16>(win, AR, L.us, HS, Ch, w + F.w1, 1, CS, nullptr, C, N, kw,
+  dense_w(win, AR, L.us, HS, Ch, w + F.w1, 1, CS, nullptr, C, N, kw,
           [&](int k, int n, int c, float s) { win[k * AR + L.p3 + n * CS + c] = s; });  // dh2
   __syncthreads();
   acc_cols_w(acc + G.g2, win, AR, L.p3, CS, L.p1, CS, C, N, kw);
@@ -1266,7 +1253,7 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
   __syncthreads();
   for (int e = tid; e < rows * C; e += NT) {
     const int r = e / C, c = e % C, k = r / N, n = r % N;
-    const FusionWindowT<S>& W = wins[k];
+    const FusionWindow& W = wins[k];
     float* a = win + k * AR + n * CS + c;
     const size_t src = (size_t)n * W.stride + c;
     a[L.p2] = W.dp1 * a[L.p0] * keep(T.proj, W.row0 + n, W.colC + c);   // da
@@ -1276,9 +1263,9 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
   __syncthreads();
 
   // ---- proj backward, LN1 and q/k/v recompute --------------------------------
-  dense_w<MM16>(win, AR, L.p2, CS, C, w + F.wp, 1, CS, nullptr, C, N, kw,
+  dense_w(win, AR, L.p2, CS, C, w + F.wp, 1, CS, nullptr, C, N, kw,
                 [&](int k, int n, int c, float s) {
-                  win[k * AR + L.p3 + n * CS + c] = rnd(s);   // dO
+                  win[k * AR + L.p3 + n * CS + c] = s;   // dO
                 });
   acc_cols_w(acc + G.bp, win, AR, L.p2, CS, -1, 0, C, N, kw);
   for (int r = tid; r < rows; r += NT) {
@@ -1292,23 +1279,23 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
   }
   __syncthreads();
   if (CROSS) {
-    dense_w<MM16>(win, AR, L.h1, CS, C, w + F.wq, CS, 1, w + F.bq, C, N, kw,
+    dense_w(win, AR, L.h1, CS, C, w + F.wq, CS, 1, w + F.bq, C, N, kw,
                   [&](int k, int n, int o, float s) {
-                    win[k * AR + L.qs + n * CS + o] = rnd(s * scale);
+                    win[k * AR + L.qs + n * CS + o] = s * scale;
                   });
-    dense_w<MM16>(win, AR, L.h1y, CS, C, w + F.wkv, CS, 1, w + F.bkv, 2 * C, N, kw,
+    dense_w(win, AR, L.h1y, CS, C, w + F.wkv, CS, 1, w + F.bkv, 2 * C, N, kw,
                   [&](int k, int n, int o, float s) {
                     float* a = win + k * AR + n * CS;
-                    if (o < C) a[L.ks + o] = rnd(s);
-                    else a[L.vs + o - C] = rnd(s);
+                    if (o < C) a[L.ks + o] = s;
+                    else a[L.vs + o - C] = s;
                   });
   } else {
-    dense_w<MM16>(win, AR, L.h1, CS, C, w + F.wq, CS, 1, w + F.bq, 3 * C, N, kw,
+    dense_w(win, AR, L.h1, CS, C, w + F.wq, CS, 1, w + F.bq, 3 * C, N, kw,
                   [&](int k, int n, int o, float s) {
                     float* a = win + k * AR + n * CS;
-                    if (o < C) a[L.qs + o] = rnd(s * scale);
-                    else if (o < 2 * C) a[L.ks + o - C] = rnd(s);
-                    else a[L.vs + o - 2 * C] = rnd(s);
+                    if (o < C) a[L.qs + o] = s * scale;
+                    else if (o < 2 * C) a[L.ks + o - C] = s;
+                    else a[L.vs + o - 2 * C] = s;
                   });
   }
   __syncthreads();
@@ -1316,7 +1303,7 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
   // ---- attention, row pass: one (window, head, query) per thread -------------
   for (int i = tid; i < kw * HN; i += NT) {
     const int k = i / HN, hi = i % HN, h = hi / N, n = hi % N, c0 = h * hd;
-    const FusionWindowT<S>& W = wins[k];
+    const FusionWindow& W = wins[k];
     float* a = win + k * AR;
     const float *ks = a + L.ks, *vs = a + L.vs;
     float qi[MAXHD], gi[MAXHD], oa[MAXHD];
@@ -1332,102 +1319,51 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
     float dq[MAXHD];
 #pragma unroll
     for (int d = 0; d < MAXHD; ++d) dq[d] = 0.f;
-    if constexpr (MM16) {
-      // p = e * rden; o = sum bf16(p keep) v; seg = bf16(sum bf16(dp p));
-      // dq = scale sum bf16(p (dp - seg)) k
-      float den = 0.f;
-      for (int j = 0; j < N; ++j) {
-        float s = brow[j] + (mrow ? mrow[j] : 0.f);
-#pragma unroll
-        for (int d = 0; d < MAXHD; ++d)
-          if (d < hd) s = fmaf(qi[d], ks[j * CS + c0 + d], s);
-        den += bf16r(expf(fminf(s, FUSION_LOGIT_CAP)));
-      }
-      const float rd = bf16r(1.f / fmaxf(den, 1e-38f));
-      float sacc = 0.f;
-      for (int j = 0; j < N; ++j) {
-        float s = brow[j] + (mrow ? mrow[j] : 0.f), dpd = 0.f;
-#pragma unroll
-        for (int d = 0; d < MAXHD; ++d)
-          if (d < hd) {
-            s = fmaf(qi[d], ks[j * CS + c0 + d], s);
-            dpd = fmaf(gi[d], vs[j * CS + c0 + d], dpd);
-          }
-        const float p = expf(fminf(s, FUSION_LOGIT_CAP)) * rd;
-        const float kp = keep(T.attn, rr, ca + j);
-        const float pb = bf16r(p * kp);
-        sacc += bf16r(dpd * kp * p);
-#pragma unroll
-        for (int d = 0; d < MAXHD; ++d)
-          if (d < hd) oa[d] = fmaf(pb, vs[j * CS + c0 + d], oa[d]);
-      }
-      const float seg = bf16r(sacc);
-      for (int j = 0; j < N; ++j) {
-        float s = brow[j] + (mrow ? mrow[j] : 0.f), dpd = 0.f;
-#pragma unroll
-        for (int d = 0; d < MAXHD; ++d)
-          if (d < hd) {
-            s = fmaf(qi[d], ks[j * CS + c0 + d], s);
-            dpd = fmaf(gi[d], vs[j * CS + c0 + d], dpd);
-          }
-        const float p = expf(fminf(s, FUSION_LOGIT_CAP)) * rd;
-        const float ds = bf16r(p * (dpd * keep(T.attn, rr, ca + j) - seg));
-#pragma unroll
-        for (int d = 0; d < MAXHD; ++d)
-          if (d < hd) dq[d] = fmaf(ds, ks[j * CS + c0 + d], dq[d]);
-      }
+    float m = -INFINITY;
+    for (int j = 0; j < N; ++j) {
+      float s = brow[j] + (mrow ? mrow[j] : 0.f);
 #pragma unroll
       for (int d = 0; d < MAXHD; ++d)
-        if (d < hd) a[L.os + n * CS + c0 + d] = oa[d];
-      a[L.lse + hi] = rd;
-      a[L.Dd + hi] = seg;
-    } else {
-      float m = -INFINITY;
-      for (int j = 0; j < N; ++j) {
-        float s = brow[j] + (mrow ? mrow[j] : 0.f);
+        if (d < hd) s = fmaf(qi[d], ks[j * CS + c0 + d], s);
+      m = fmaxf(m, s);
+    }
+    float l = 0.f;
+    for (int j = 0; j < N; ++j) {
+      float s = brow[j] + (mrow ? mrow[j] : 0.f);
 #pragma unroll
-        for (int d = 0; d < MAXHD; ++d)
-          if (d < hd) s = fmaf(qi[d], ks[j * CS + c0 + d], s);
-        m = fmaxf(m, s);
+      for (int d = 0; d < MAXHD; ++d)
+        if (d < hd) s = fmaf(qi[d], ks[j * CS + c0 + d], s);
+      const float p = expf(s - m);
+      l += p;
+      const float pk = p * keep(T.attn, rr, ca + j);
+#pragma unroll
+      for (int d = 0; d < MAXHD; ++d)
+        if (d < hd) oa[d] = fmaf(pk, vs[j * CS + c0 + d], oa[d]);
+    }
+    const float inv = 1.f / l;
+    float Di = 0.f;
+#pragma unroll
+    for (int d = 0; d < MAXHD; ++d)
+      if (d < hd) {
+        oa[d] *= inv;
+        a[L.os + n * CS + c0 + d] = oa[d];
+        Di = fmaf(gi[d], oa[d], Di);
       }
-      float l = 0.f;
-      for (int j = 0; j < N; ++j) {
-        float s = brow[j] + (mrow ? mrow[j] : 0.f);
-#pragma unroll
-        for (int d = 0; d < MAXHD; ++d)
-          if (d < hd) s = fmaf(qi[d], ks[j * CS + c0 + d], s);
-        const float p = expf(s - m);
-        l += p;
-        const float pk = p * keep(T.attn, rr, ca + j);
-#pragma unroll
-        for (int d = 0; d < MAXHD; ++d)
-          if (d < hd) oa[d] = fmaf(pk, vs[j * CS + c0 + d], oa[d]);
-      }
-      const float inv = 1.f / l;
-      float Di = 0.f;
+    a[L.lse + hi] = m + logf(l);
+    a[L.Dd + hi] = Di;
+    for (int j = 0; j < N; ++j) {
+      float s = brow[j] + (mrow ? mrow[j] : 0.f), dp = 0.f;
 #pragma unroll
       for (int d = 0; d < MAXHD; ++d)
         if (d < hd) {
-          oa[d] *= inv;
-          a[L.os + n * CS + c0 + d] = oa[d];
-          Di = fmaf(gi[d], oa[d], Di);
+          s = fmaf(qi[d], ks[j * CS + c0 + d], s);
+          dp = fmaf(gi[d], vs[j * CS + c0 + d], dp);
         }
-      a[L.lse + hi] = m + logf(l);
-      a[L.Dd + hi] = Di;
-      for (int j = 0; j < N; ++j) {
-        float s = brow[j] + (mrow ? mrow[j] : 0.f), dp = 0.f;
+      const float p = expf(s - m) * inv;
+      const float ds = p * (dp * keep(T.attn, rr, ca + j) - Di);
 #pragma unroll
-        for (int d = 0; d < MAXHD; ++d)
-          if (d < hd) {
-            s = fmaf(qi[d], ks[j * CS + c0 + d], s);
-            dp = fmaf(gi[d], vs[j * CS + c0 + d], dp);
-          }
-        const float p = expf(s - m) * inv;
-        const float ds = p * (dp * keep(T.attn, rr, ca + j) - Di);
-#pragma unroll
-        for (int d = 0; d < MAXHD; ++d)
-          if (d < hd) dq[d] = fmaf(ds, ks[j * CS + c0 + d], dq[d]);
-      }
+      for (int d = 0; d < MAXHD; ++d)
+        if (d < hd) dq[d] = fmaf(ds, ks[j * CS + c0 + d], dq[d]);
     }
 #pragma unroll
     for (int d = 0; d < MAXHD; ++d)
@@ -1441,9 +1377,9 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
   // q rows of the q (qkv) weight and bias.
   const int side_n = 2 * C * C + C;
   auto side = [&](int u) {
-    if (u < C * C) outer_elem<MM16>(acc + G.wp, u, win, AR, L.p2, CS, L.os, CS, C, N, kw);
+    if (u < C * C) outer_elem(acc + G.wp, u, win, AR, L.p2, CS, L.os, CS, C, N, kw);
     else if (u < 2 * C * C)
-      outer_elem<MM16>(acc + G.wq, u - C * C, win, AR, L.dqkv, QS, L.h1, CS, C, N, kw);
+      outer_elem(acc + G.wq, u - C * C, win, AR, L.dqkv, QS, L.h1, CS, C, N, kw);
     else cols_elem(acc + G.bq, u - 2 * C * C, win, AR, L.dqkv, QS, -1, 0, N, kw);
   };
   const bool beside = NT - HN >= 64;
@@ -1451,7 +1387,7 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
     const int h = i / N, j = i % N, c0 = h * hd;
     float* db = acc + G.bias + (size_t)h * N * N + j;
     for (int k = 0; k < kw; ++k) {
-      const FusionWindowT<S>& W = wins[k];
+      const FusionWindow& W = wins[k];
       float* a = win + k * AR;
       const float *qs = a + L.qs, *dO = a + L.p3, *lse = a + L.lse + h * N,
                   *Dd = a + L.Dd + h * N;
@@ -1471,17 +1407,15 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
             s = fmaf(qs[n * CS + c0 + d], kj[d], s);
             dp = fmaf(dO[n * CS + c0 + d], vj[d], dp);
           }
-        // lse / Dd hold rden / seg under MM16
-        const float p = MM16 ? expf(fminf(s, FUSION_LOGIT_CAP)) * lse[n] : expf(s - lse[n]);
+        const float p = expf(s - lse[n]);
         const float kp = keep(T.attn, W.row0 + n, ca);
         const float ds = p * (dp * kp - Dd[n]);
         db[n * N] += ds;
-        const float dsr = rnd(ds), pkr = rnd(p * kp);
 #pragma unroll
         for (int d = 0; d < MAXHD; ++d)
           if (d < hd) {
-            dk[d] = fmaf(dsr, qs[n * CS + c0 + d], dk[d]);
-            dv[d] = fmaf(pkr, dO[n * CS + c0 + d], dv[d]);
+            dk[d] = fmaf(ds, qs[n * CS + c0 + d], dk[d]);
+            dv[d] = fmaf(p * kp, dO[n * CS + c0 + d], dv[d]);
           }
       }
 #pragma unroll
@@ -1500,18 +1434,18 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
 
   // ---- k/v parameter gradients, dh1 (dh1y), LN1 backward ---------------------
   if (CROSS) {
-    acc_outer_w<MM16>(acc + G.wkv, win, AR, L.dqkv + C, QS, 2 * C, L.h1y, CS, C, N, kw);
+    acc_outer_w(acc + G.wkv, win, AR, L.dqkv + C, QS, 2 * C, L.h1y, CS, C, N, kw);
     acc_cols_w(acc + G.bkv, win, AR, L.dqkv + C, QS, -1, 0, 2 * C, N, kw);
-    dense_w<MM16>(win, AR, L.dqkv, QS, C, w + F.wq, 1, CS, nullptr, C, N, kw,
+    dense_w(win, AR, L.dqkv, QS, C, w + F.wq, 1, CS, nullptr, C, N, kw,
                   [&](int k, int n, int c, float s) { win[k * AR + L.p3 + n * CS + c] = s; });
-    dense_w<MM16>(win, AR, L.dqkv + C, QS, 2 * C, w + F.wkv, 1, CS, nullptr, C, N, kw,
+    dense_w(win, AR, L.dqkv + C, QS, 2 * C, w + F.wkv, 1, CS, nullptr, C, N, kw,
                   [&](int k, int n, int c, float s) {
                     win[k * AR + L.dh1y + n * CS + c] = s;
                   });
   } else {
-    acc_outer_w<MM16>(acc + G.wq + C * C, win, AR, L.dqkv + C, QS, 2 * C, L.h1, CS, C, N, kw);
+    acc_outer_w(acc + G.wq + C * C, win, AR, L.dqkv + C, QS, 2 * C, L.h1, CS, C, N, kw);
     acc_cols_w(acc + G.bq + C, win, AR, L.dqkv + C, QS, -1, 0, 2 * C, N, kw);
-    dense_w<MM16>(win, AR, L.dqkv, QS, 3 * C, w + F.wq, 1, CS, nullptr, C, N, kw,
+    dense_w(win, AR, L.dqkv, QS, 3 * C, w + F.wq, 1, CS, nullptr, C, N, kw,
                   [&](int k, int n, int c, float s) { win[k * AR + L.p3 + n * CS + c] = s; });
   }
   __syncthreads();
@@ -1523,7 +1457,7 @@ __device__ __forceinline__ void fusion_backward_windows(float* smem, const Fusio
   }
   for (int r = tid; r < rows; r += NT) {
     const int k = r / N, n = r % N;
-    const FusionWindowT<S>& W = wins[k];
+    const FusionWindow& W = wins[k];
     float* a = win + k * AR;
     ln_bwd_row(a + L.p3 + n * CS, a + L.p1 + n * CS, a[L.r1 + n], w + F.g1, a + L.p0 + n * CS,
                W.dx + (size_t)n * W.stride, C);

@@ -1,8 +1,10 @@
 // K7: the SwinFusion self and cross blocks on group-major streams, forward
-// and backward, one kernel each way templated on CROSS, the head-dim bound,
-// MM16 and the stream type (as K2/K3). The entry points are in
-// fusion_block_bp.cu (float32 streams) and fusion_block_bp16.cu (the bf16
-// form), two sources that nvcc compiles side by side.
+// and backward. The forward is one kernel templated on CROSS, the shape,
+// MM16 and the stream type (as K2/K3); the backward here is the float32
+// one, and the bf16 form's backward is fusion_block_bp16.cuh's. The entry
+// points are in fusion_block_bp.cu (float32 streams) and
+// fusion_block_bp16.cu (the bf16 form), two sources that nvcc compiles side
+// by side.
 //
 // Replaces multimodal_neuroimage_tpu/ops/fusion_block_bp.py _fwd_impl_bp
 // and _bwd_impl_bp (behind fused_fusion_block_bp and
@@ -29,20 +31,21 @@
 // writes one partial per block, and the ordered reduce_partials adds them:
 // no float atomics, bitwise-repeatable gradients.
 //
-// What bounds it on the H100: latency per window, as K2/K3 (the same work:
-// about 0.6 GFLOP a forward call at B = 16).
+// What bounds it on the H100: neither bytes nor operations (about 0.6
+// GFLOP a forward call at B = 16, 0.009 ms at the float32 rate) but the
+// latency of a work item's chain of phases, each ended by a block barrier,
+// times the items a block walks, as K2/K3.
 //
 // The bf16 form (fusion_block_bp_forward16 / _backward16) replaces the same
 // two functions under the bf16 policy, where JAX casts the bp stacks'
 // streams to bf16 and the kernels turn mm16 on (_fwd_impl_bp:721,
 // _bwd_impl_bp:773): x, y, out, x2r, the cotangent and dx, dy are bf16 in
-// device memory, the window body computes in float32 with mm16 products
-// (fusion_block.cuh, MM16 = true), and the parameter and bias gradients
-// come out float32 for the wrapper to cast to the parameters' dtype, as
-// JAX's d.astype(p.dtype). Same kernels, instantiated on the stream type;
-// latency per window bounds them as the float32 form, and the bf16 form
-// spends more instructions a window (the mm16 softmax's extra pass, operand
-// rounding on every product read) to halve the streams' bytes.
+// device memory, and the parameter and bias gradients come out float32 for
+// the wrapper to cast to the parameters' dtype, as JAX's d.astype(p.dtype).
+// Its forward is the forward kernel instantiated on bf16 streams with mm16
+// products (fusion_block.cuh, MM16 = true). Its backward is a body of its
+// own, on bf16 tensor cores with its operands staged once as bf16
+// (fusion_block_bp16.cuh, where its bound and design are set out).
 #pragma once
 
 #include "fusion_block.cuh"
@@ -90,24 +93,24 @@ struct FusionBpItems {
   }
 };
 
-template <bool CROSS, int MAXHD, bool MM16, typename S>
+template <bool CROSS, int MAXHD>
 __global__ void __launch_bounds__(FUSION_BWD_THREADS, 1)
-fusion_block_bp_backward_kernel(const S* __restrict__ x, const S* __restrict__ y,
-                                const S* __restrict__ x2r, const S* __restrict__ g,
+fusion_block_bp_backward_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                                const float* __restrict__ x2r, const float* __restrict__ g,
                                 FusionParams P, const float* __restrict__ bias,
                                 const float* __restrict__ mask, FusionTrain T,
-                                S* __restrict__ dx, S* __restrict__ dy,
+                                float* __restrict__ dx, float* __restrict__ dy,
                                 float* __restrict__ part, int ngroups, int G, int nW, int N,
                                 int C, int H, int Ch, int windows) {
   extern __shared__ float smem[];
-  __shared__ FusionWindowT<S> wins[FUSION_BWD_WINDOWS];
+  __shared__ FusionWindow wins[FUSION_BWD_WINDOWS];
   const FusionBwdLayout L(CROSS, N, C, H, Ch, windows);
   const FusionLayout F(CROSS, N, C, H, Ch);
   const FusionGrads Gr(CROSS, N, C, H, Ch);
   float* acc = smem + L.acc;
 
   for (int e = threadIdx.x; e < Gr.total; e += FUSION_BWD_THREADS) acc[e] = 0.f;
-  stage_weights<FUSION_BWD_THREADS, MM16>(smem + L.fwd, F, CROSS, P, bias, N, C, H, Ch);
+  stage_weights<FUSION_BWD_THREADS>(smem + L.fwd, F, CROSS, P, bias, N, C, H, Ch);
 
   // work item ((grp, w), chunk): subjects chunk * windows + k of group grp
   const int chunks = (G + windows - 1) / windows;
@@ -117,11 +120,11 @@ fusion_block_bp_backward_kernel(const S* __restrict__ x, const S* __restrict__ y
     const int kw = min(windows, G - j0);
     if (threadIdx.x < kw) {
       const int j = j0 + threadIdx.x;
-      FusionWindowT<S> W = bp_window<S>(grp, w, j, G, C, H, Ch, T);
+      FusionWindow W = bp_window<float>(grp, w, j, G, C, H, Ch, T);
       const size_t off = (size_t)gw * N * G * C + (size_t)j * C;
       W.x = x + off;
       W.y = CROSS ? y + off : nullptr;
-      W.x2r = const_cast<S*>(x2r) + off;
+      W.x2r = const_cast<float*>(x2r) + off;
       W.g = g + off;
       W.dx = dx + off;
       W.dy = CROSS ? dy + off : nullptr;
@@ -130,8 +133,8 @@ fusion_block_bp_backward_kernel(const S* __restrict__ x, const S* __restrict__ y
     if (mask)
       stage<FUSION_BWD_THREADS>(smem + L.fwd + F.mask, F.BS, mask + (size_t)w * N * N, N, N);
     __syncthreads();
-    fusion_backward_windows<CROSS, MAXHD, MM16>(smem, L, F, Gr, mask != nullptr, N, C, H, Ch, T,
-                                                wins, kw);
+    fusion_backward_windows<CROSS, MAXHD>(smem, L, F, Gr, mask != nullptr, N, C, H, Ch, T, wins,
+                                          kw);
   }
   float* mine = part + (size_t)blockIdx.x * Gr.total;
   for (int e = threadIdx.x; e < Gr.total; e += FUSION_BWD_THREADS) mine[e] = acc[e];
@@ -154,29 +157,30 @@ static cudaError_t launch_bp_forward(const S* x, const S* y, const FusionParams&
                                                        C, H, Ch, T, stream);
 }
 
-template <bool CROSS, int MAXHD, bool MM16 = false, typename S = float>
+template <bool CROSS, int MAXHD>
 static cudaError_t bp_backward_grid(int ngroups, int G, int nW, int N, int C, int H, int Ch,
                                     int* blocks, size_t* smem, int* windows,
                                     int* per_sm = nullptr) {
   cudaError_t err = backward_windows(CROSS, N, C, H, Ch, G, windows, smem);
   if (err != cudaSuccess) return err;
   const int items = ngroups * nW * ((G + *windows - 1) / *windows);
-  return persistent_grid(fusion_block_bp_backward_kernel<CROSS, MAXHD, MM16, S>, *smem, items,
-                         blocks, FUSION_BWD_THREADS, per_sm);
+  return persistent_grid(fusion_block_bp_backward_kernel<CROSS, MAXHD>, *smem, items, blocks,
+                         FUSION_BWD_THREADS, per_sm);
 }
 
-template <bool CROSS, int MAXHD, bool MM16 = false, typename S = float>
-static cudaError_t launch_bp_backward(const S* x, const S* y, const S* x2r, const S* g,
-                                      const FusionParams& P, const float* bias,
-                                      const float* mask, const FusionTrain& T, S* dx, S* dy,
-                                      float* grads, float* scratch, int ngroups, int G, int nW,
-                                      int N, int C, int H, int Ch, cudaStream_t stream) {
+template <bool CROSS, int MAXHD>
+static cudaError_t launch_bp_backward(const float* x, const float* y, const float* x2r,
+                                      const float* g, const FusionParams& P, const float* bias,
+                                      const float* mask, const FusionTrain& T, float* dx,
+                                      float* dy, float* grads, float* scratch, int ngroups,
+                                      int G, int nW, int N, int C, int H, int Ch,
+                                      cudaStream_t stream) {
   int blocks = 0, windows = 0;
   size_t smem = 0;
-  cudaError_t err = bp_backward_grid<CROSS, MAXHD, MM16, S>(ngroups, G, nW, N, C, H, Ch,
-                                                            &blocks, &smem, &windows);
+  cudaError_t err =
+      bp_backward_grid<CROSS, MAXHD>(ngroups, G, nW, N, C, H, Ch, &blocks, &smem, &windows);
   if (err != cudaSuccess) return err;
-  fusion_block_bp_backward_kernel<CROSS, MAXHD, MM16, S>
+  fusion_block_bp_backward_kernel<CROSS, MAXHD>
       <<<blocks, FUSION_BWD_THREADS, smem, stream>>>(
       x, y, x2r, g, P, bias, mask, T, dx, dy, scratch, ngroups, G, nW, N, C, H, Ch, windows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -1389,6 +1389,81 @@ def test_bf16_kernels_repeat_bitwise(dev):
     assert all(torch.equal(u, v) for u, v in zip(a[3], b[3]))
 
 
+def _bp16_backward_case(dev, B, G, shift, cross, rates, seed=5):
+    """K7's bf16 backward (its tensor-core body) and its plain version on
+    the same inputs at the flagship's window shapes: (kernel, plain, the
+    launches the kernel call counted, a second kernel call)."""
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
+    gen = torch.Generator().manual_seed(B * 10 + shift + cross)
+    C, H, N, nW = 12, 6, 36, 196
+    params = _fusion_params16(gen, C, cross, dev)
+    bias = _rand(gen, H, N, N, scale=0.5).to(dev)
+    m = shift_attn_mask(84, 84, 6, shift)
+    mask = None if m is None else torch.from_numpy(m).to(dev)
+    x, y, g = (fbp.to_groups(_rand(gen, B, nW, N, C), G).contiguous()
+               .to(dev).to(torch.bfloat16) for _ in range(3))
+    y = y if cross else None
+    dp = ((torch.rand(B, 2, generator=gen) > 0.2).float() * 1.25).to(dev)
+    _, x2r = fbp._launch_forward(x, y, params, bias, mask, dp, seed, rates,
+                                 True, True, cross, G)
+    counter = (fbp.fused_cross_fusion_block_bp_backward16 if cross
+               else fbp.fused_fusion_block_bp_backward16)
+    before = counter.launches
+
+    def call():
+        return fbp._backward(g, x, y, params, bias, mask, dp, seed, rates,
+                             True, x2r, cross, G)
+    got = call()
+    launched = counter.launches - before
+    ref = fbp.fusion_block_bp_reference_backward16(
+        g, x, y, params, bias, mask, dp, seed, rates, True, cross, G)
+    return got, ref, launched, call()
+
+
+@pytest.mark.parametrize("B,G,shift,rates", [
+    (16, 8, 0, (0.0, 0.0)), (16, 8, 3, (0.0, 0.0)), (16, 8, 0, (0.1, 0.1)),
+    (16, 8, 3, (0.1, 0.1)), (12, 6, 3, (0.1, 0.1)), (14, 7, 0, (0.1, 0.1)),
+    (11, 11, 3, (0.1, 0.1))])
+@pytest.mark.parametrize("cross", [False, True])
+def test_fusion_block_bp_bf16_backward_tensor_cores(dev, B, G, shift, rates,
+                                                    cross):
+    """K7's bf16 backward on bf16 tensor cores against its plain version at
+    chip_smoke.py's tolerances (every output and gradient within REL16 of
+    its max-abs): self and cross, shifts 0 and 3, dropout 0 and 0.1 with
+    DropPath, the bp flagship's B 16 (two groups of 8), groups of 6 and 7
+    (every subject in flight at once) and one group of 11 (more than the 8
+    windows a block holds: chunks of 6 and 5, which the windows in flight
+    do not divide); one launch counted a call, and a second call bitwise
+    equal."""
+    got, ref, launched, again = _bp16_backward_case(dev, B, G, shift, cross,
+                                                    rates)
+    assert launched == 1
+    assert got[0].dtype == torch.bfloat16
+    _close_rel16(got[0], ref[0], "dx")
+    if cross:
+        _close_rel16(got[1], ref[1], "dy")
+    _close_rel16(got[2], ref[2], "dbias")
+    for i, (a, b) in enumerate(zip(got[3], ref[3])):
+        _close_rel16(a, b, f"dparams[{i}]")
+    assert torch.equal(got[0], again[0]) and torch.equal(got[2], again[2])
+    if cross:
+        assert torch.equal(got[1], again[1])
+    assert all(torch.equal(u, v) for u, v in zip(got[3], again[3]))
+
+
+def test_fusion_block_bp_bf16_backward_occupancy(dev):
+    """The bf16 backward's launch plan at the bp flagship's shapes: all 8
+    windows of a group in flight a block, self and cross, within the
+    card's shared memory, a block an SM."""
+    from multimodal_neuroimage_tpu_torch.ops import fusion_block as fb
+    for cross in (False, True):
+        occ = fb.backward_occupancy("fusion_block_bp_backward16", cross,
+                                    (2, 8, 196), 36, 12, 6, 48)
+        assert occ["blocks_per_sm"] >= 1
+        assert occ["windows_per_block"] == 8, occ
+        assert occ["smem_bytes"] <= 232448 and occ["grid_blocks"] >= 132
+
+
 def test_bf16_calls_launch_or_raise(dev):
     """A bf16 call on the card launches its kernel or raises: K7 takes bf16
     streams (its bf16 form launches), K2/K3 and K1 take float32 streams only
