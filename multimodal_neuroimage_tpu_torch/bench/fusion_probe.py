@@ -1,8 +1,7 @@
-"""Where K2/K3's forward (or K7's bf16 backward) spends its cycles, phase by
-phase, on one CUDA card.
+"""Where K2/K3's forward spends its cycles, phase by phase, on one CUDA card.
 
     python -m multimodal_neuroimage_tpu_torch.bench.fusion_probe [--batch B]...
-        [--bwd16] [ROOT ...]
+        [ROOT ...]
 
 For each repository root (default: this checkout), the script compiles
 that root's ``csrc/fusion_block.cu`` with a ``clock64`` probe at the
@@ -21,11 +20,6 @@ one-window forward that ``fusion_forward_window`` ran before the
 multi-window one, the baseline that PERF.md's per-phase split compares
 with) is marked here: its i-th ``__syncthreads()`` becomes mark i, and
 mark 0 goes before its first staging.
-
-``--bwd16`` probes K7's backward on bf16 streams instead
-(``csrc/fusion_block_bp16.cuh``, marks ``FUSION_BWD16_MARK(i)`` at the
-barriers of a work item): the self and the cross block on groups of G = 8
-at the same shapes and rates, bf16 streams and bf16-valued weights.
 """
 
 from __future__ import annotations
@@ -45,11 +39,6 @@ from multimodal_neuroimage_tpu_torch.ops import build
 PHASES = 16
 NAMES = {1: "wait / stage x", 2: "LN1", 3: "q k v", 4: "attention",
          5: "proj", 6: "LN2", 7: "fc1 + GELU", 8: "fc2"}
-NAMES16 = {1: "windows", 2: "stage x2r, g; mask", 3: "LN2, dz",
-           4: "fc1, dz W2 (mma); GELU, du", 5: "dW2, dW1, dh2 (mma)",
-           6: "LN2 backward, LN1", 7: "dO, q k v (mma)",
-           8: "attention, row pass", 9: "attention, column pass; dWp, dWq",
-           10: "k/v grads, dh1 (mma); x, y staged", 11: "LN1 backward"}
 
 _PROBE = r"""
 #define FUSION_PROBE_PHASES %d
@@ -67,7 +56,6 @@ __device__ __forceinline__ void fusion_probe_mark(int i) {
   }
 }
 #define FUSION_FWD_MARK(i) fusion_probe_mark(i)
-#define FUSION_BWD16_MARK(i) fusion_probe_mark(i)
 #define FUSION_FWD_MARK_SYNC(i) \
   do {                          \
     __syncthreads();            \
@@ -105,14 +93,11 @@ def _mark_old_forward(src: str) -> str:
 
 
 class _ProbeLibrary:
-    """The probe build of one root's fusion_block.cu (or
-    fusion_block_bp16.cu), called as ``build.library()``'s KernelLibrary is
-    (only the entries it has; ``fallback``, if set, answers the size
-    queries it lacks)."""
+    """The probe build of one root's fusion_block.cu, called as
+    ``build.library()``'s KernelLibrary is (only the entries it has)."""
 
     def __init__(self, path: Path):
         self._lib = ctypes.CDLL(str(path))
-        self.fallback = None
 
     def _fn(self, name):
         fn = getattr(self._lib, name)
@@ -121,8 +106,6 @@ class _ProbeLibrary:
         return fn
 
     def value(self, name, *args):
-        if self.fallback is not None and not hasattr(self._lib, name):
-            return self.fallback.value(name, *args)
         return self._fn(name)(*args)
 
     def call(self, name, *args):
@@ -141,17 +124,15 @@ class _ProbeLibrary:
             raise RuntimeError("fusion_probe_reset failed")
 
 
-def start_build(root: Path, bwd16: bool = False):
-    """Start nvcc on the probe build of ``root`` (``bwd16``: of K7's bf16
-    source); returns (library path, process or None)."""
+def start_build(root: Path):
+    """Start nvcc on the probe build of ``root``; returns (library path,
+    process or None)."""
     csrc = root / "multimodal_neuroimage_tpu_torch" / "csrc"
-    main = "fusion_block_bp16.cu" if bwd16 else "fusion_block.cu"
-    names = ("common.cuh", "fusion_block.cuh") + (
-        ("fusion_block_bp.cuh", "fusion_block_bp16.cuh") if bwd16 else ())
-    files = {n: (csrc / n).read_text() for n in names + (main,)}
+    files = {n: (csrc / n).read_text()
+             for n in ("common.cuh", "fusion_block.cuh", "fusion_block.cu")}
     if "FUSION_FWD_MARK" not in files["fusion_block.cuh"]:
         files["fusion_block.cuh"] = _mark_old_forward(files["fusion_block.cuh"])
-    files[main] = _PROBE + files[main] + _READ
+    files["fusion_block.cu"] = _PROBE + files["fusion_block.cu"] + _READ
     digest = hashlib.sha1("".join(files.values()).encode()).hexdigest()[:12]
     out = build.BUILD_DIR / f"probe_{digest}"
     lib = out / "libfusion_probe.so"
@@ -163,7 +144,7 @@ def start_build(root: Path, bwd16: bool = False):
         (out / name).write_text(text)
     cmd = ([build._nvcc()] + build.ARCH_FLAGS
            + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-shared", "-o", str(lib), str(out / main)])
+              "-shared", "-o", str(lib), str(out / "fusion_block.cu")])
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
 
@@ -236,61 +217,9 @@ def probe(lib: _ProbeLibrary, label: str, B: int) -> None:
         build.library = saved
 
 
-def probe_bwd16(lib: _ProbeLibrary, label: str, B: int) -> None:
-    """``probe`` for K7's bf16 backward (groups of 8)."""
-    from multimodal_neuroimage_tpu_torch.nn.swin2d import shift_attn_mask
-    from multimodal_neuroimage_tpu_torch.ops import fusion_block_bp as fbp
-    mask = torch.from_numpy(shift_attn_mask(84, 84, 6, 3)).cuda()
-    gen = torch.Generator().manual_seed(3)
-    saved = build.library
-    lib.fallback = saved()
-    build.library = lambda: lib
-    try:
-        for cross in (False, True):
-            params, x, y, bias, dp = _inputs(B, cross, gen)
-            G = fbp.group_size(B)
-            params = tuple(t.to(torch.bfloat16).float() for t in params)
-            x, y, g = (fbp.to_groups(t, G).contiguous().to(torch.bfloat16)
-                       for t in (x, y, torch.randn_like(x)))
-            y = y if cross else None
-            train = (dp, 2468, (0.1, 0.1), True)
-            _, x2r = fbp._launch_forward(x, y, params, bias, mask, *train,
-                                         True, cross, G)
-
-            def call():
-                return fbp._backward(g, x, y, params, bias, mask, *train,
-                                     x2r, cross, G)
-            call()
-            torch.cuda.synchronize()
-            lib.reset()
-            iters = 10
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                call()
-            end.record()
-            torch.cuda.synchronize()
-            cycles, counts = lib.cycles()
-            total = sum(cycles)
-            print(f"{label} K7 bf16 {'cross' if cross else 'self'} backward, "
-                  f"B {B} (groups of {G}): "
-                  f"{start.elapsed_time(end) / iters:.4f} ms a call with the "
-                  f"probe; {total / iters:.0f} block-cycles a call; "
-                  f"{counts[1] // iters} block-items a call")
-            for i in range(1, PHASES):
-                if counts[i]:
-                    print(f"  phase {i} ({NAMES16.get(i, '?')}): "
-                          f"{cycles[i] / total:.3f} of the cycles, "
-                          f"{cycles[i] / counts[i]:.0f} cycles a block-item")
-    finally:
-        build.library = saved
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, action="append", default=None)
-    parser.add_argument("--bwd16", action="store_true")
     parser.add_argument("roots", nargs="*")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -298,11 +227,11 @@ def main(argv=None) -> int:
         return 2
     here = Path(__file__).resolve().parents[2]
     roots = [Path(root).resolve() for root in args.roots or [str(here)]]
-    builds = [start_build(root, args.bwd16) for root in roots]
+    builds = [start_build(root) for root in roots]
     for root, (path, proc) in zip(roots, builds):
         lib = finish_build(path, proc)
         for B in args.batch or [16]:
-            (probe_bwd16 if args.bwd16 else probe)(lib, str(root), B)
+            probe(lib, str(root), B)
     return 0
 
 

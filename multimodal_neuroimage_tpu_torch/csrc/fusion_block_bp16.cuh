@@ -41,9 +41,9 @@
 //   LayerNorm needs in float32 (dh2, dx2r, dq dk dv, dh1) stay float32 and
 //   are rounded by the fragment load that reads them. The row buffers of
 //   the MLP phase and of the attention phase share one region by
-//   liveness, and x and y are staged where nothing else lives at the time
-//   (Bwd16Layout): eight windows of a group fit a block's shared memory,
-//   self and cross alike, one block an SM.
+//   liveness, and x and y are read from device memory where LN1 and its
+//   backward need them: eight windows of a group fit a block's shared
+//   memory, self and cross alike, one block an SM.
 // - The bias table (once a block) and each work item's shift mask come by
 //   cp.async, the next item's mask issued as soon as the attention is done
 //   with the current one.
@@ -68,13 +68,6 @@
 #define FUSION_BWD16_WARPS (FUSION_BWD16_THREADS / 32)
 #define FUSION_BWD16_WINDOWS 8   // the most windows in flight a block
 
-// Probe hooks: a build that defines FUSION_BWD16_MARK (bench/fusion_probe.py
-// --bwd16) reads the cycles between the barriers of a work item; otherwise
-// they are empty.
-#ifndef FUSION_BWD16_MARK
-#define FUSION_BWD16_MARK(i)
-#endif
-
 typedef __nv_bfloat16 bw16_t;
 
 // Row pitches (elements) of the row buffers: a bf16 row holds an odd number
@@ -93,8 +86,8 @@ __host__ __device__ inline int bwd16_fpitch(int w) { return w | 1; }
 // parameters), the bias table and shift mask (rows N + 1 apart) and the
 // db1m partials. Then the row buffers of the R = windows * N stacked rows
 // (row r = k N + n: token n of window k): dx2r and LN1's statistics for
-// the whole item, and one region used twice by liveness, each view in two
-// parts:
+// the whole item (x and y are read from device memory where LN1 needs
+// them), and one region used twice by liveness, each view in two parts:
 //   MLP view        x2r, g, dh2, LN2's statistics | h2, dz, GELU(u) m1, du
 //   attention view  dO, qkv                        | da, h1, h1y, o, dqkv,
 //                                                    (rden, seg)
@@ -103,17 +96,13 @@ __host__ __device__ inline int bwd16_fpitch(int w) { return w | 1; }
 // weight-gradient products; da, h1, h1y, written beside the LayerNorm-2
 // backward, take its space. dh1 takes the space of dO and qkv and dh1y
 // that of da and h1 (each dead once the attention's column pass is done).
-// x and y are staged twice where nothing else lives: with the item's
-// streams into row r's dx2r slot (LN1, the row's thread reading them
-// before it writes dx2r), and beside the k/v gradients behind dh1, for the
-// LayerNorm-1 backward (xb, yb, rows C apart).
 struct Bwd16Layout {
   int PB, PH, PQ, PF, PQF, PRS, BS;
   size_t acc, g1, b1, g1y, b1y, bq, bkv, bp, g2, b2, b1m, b2m;
   size_t wq, wkv, wp, w1, w2, bias, mask, colpart;
   size_t dx2r, mu1, r1, mu1y, r1y, mu2, r2;
   size_t sx2r, sg, dh2, h2, dz, gu, du;
-  size_t dO, o, dh1, da, h1, h1y, qkv, dqkv, dh1y, rs, xb, yb;
+  size_t dO, o, dh1, da, h1, h1y, qkv, dqkv, dh1y, rs;
   size_t total;
 
   __host__ __device__ Bwd16Layout(bool cross, int N, int C, int H, int Ch, int windows) {
@@ -150,15 +139,10 @@ struct Bwd16Layout {
     off = u0;
     dO = take(B2 * R * PB); qkv = take(B2 * R * PQ);
     off = off > u1 ? off : u1;
-    const size_t p1 = off;
-    off = dO;    // dh1 (R PF floats), then x and y for the LN1 backward
-    take(F4 * R * PF);
-    xb = take(B2 * R * C); yb = take(X * B2 * R * C);
-    off = off > p1 ? off : p1;
     da = take(B2 * R * PB); h1 = take(B2 * R * PB); h1y = take(X * B2 * R * PB);
     o = take(B2 * R * PB); dqkv = take(F4 * R * PQF); rs = take(B2 * R * PRS);
-    dh1 = dO;
-    dh1y = da;   // cross: R PF floats in da and h1
+    dh1 = dO;    // needs R PF floats: dO and qkv hold more
+    dh1y = da;   // cross: da and h1
     total = off > mlp ? off : mlp;
   }
 };
@@ -277,8 +261,7 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
   float *bs = F32(L.bias), *ms = F32(L.mask), *colpart = F32(L.colpart);
   bw16_t *wq = B16(L.wq), *wkv = B16(L.wkv), *wp = B16(L.wp), *w1 = B16(L.w1),
          *w2 = B16(L.w2);
-  bw16_t *sx2r = B16(L.sx2r), *sg = B16(L.sg), *xb = B16(L.xb), *yb = B16(L.yb);
-  bw16_t* xd = B16(L.dx2r);   // x, y of row r at xd[r 2 PF ..], before dx2r
+  bw16_t *sx2r = B16(L.sx2r), *sg = B16(L.sg);
   bw16_t *h2 = B16(L.h2), *dzb = B16(L.dz), *gu = B16(L.gu), *du = B16(L.du);
   bw16_t *dOb = B16(L.dO), *ob = B16(L.o), *da = B16(L.da), *h1 = B16(L.h1),
          *h1y = B16(L.h1y), *qkv = B16(L.qkv), *rs = B16(L.rs);
@@ -320,7 +303,6 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
   wts(wq, P.wq, nq * C); wts(wp, P.wp, C * C); wts(w1, P.w1, Ch * C); wts(w2, P.w2, C * Ch);
 
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    FUSION_BWD16_MARK(0);
     const int gw = item / chunks, j0 = (item % chunks) * windows;
     const int grp = gw / nW, w = gw % nW;
     const int kw = min(windows, G - j0), R = kw * N, RT = (R + 15) / 16;
@@ -337,7 +319,6 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
       wins[tid] = W;
     }
     __syncthreads();
-    FUSION_BWD16_MARK(1);
 
     // ---- the item's streams -------------------------------------------------
     for (int e = tid; e < R * C; e += NT) {
@@ -346,12 +327,9 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
       const size_t src = (size_t)(r % N) * W.stride + c;
       sx2r[r * PB + c] = W.x2r[src];
       sg[r * PB + c] = W.g[src];
-      xd[r * 2 * PF + c] = W.x[src];
-      if (CROSS) xd[r * 2 * PF + C + c] = W.y[src];
     }
     cp_async_wait();
     __syncthreads();   // streams, this item's mask (and the bias table) in
-    FUSION_BWD16_MARK(2);
 
     // ---- LN2 over the saved x2r: h2; dz = dp2 g m2 --------------------------
     for (int r = tid; r < R; r += NT) {
@@ -366,7 +344,6 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
         dzb[r * PB + c] = f2b(W.dp2 * b2f(sg[r * PB + c]) * keep(T.mlp2, W.row0 + n, W.colC + c));
     }
     __syncthreads();
-    FUSION_BWD16_MARK(3);
 
     // ---- u = fc1(h2) and dz W2 on the same tile: GELU(u) m1, du -------------
     for (int job = warp; job < RT * NH; job += NW) {
@@ -404,7 +381,6 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
           if (n0 + t2 + e < Ch) colpart[m0 / 16 * Ch + n0 + t2 + e] = cs[e];
     }
     __syncthreads();
-    FUSION_BWD16_MARK(4);
 
     // ---- dW2 = dz^T GELU(u) m1, dW1 = du^T h2, dh2 = du W1; db2m, db1m -------
     {
@@ -451,25 +427,12 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
       }
     }
     __syncthreads();
-    FUSION_BWD16_MARK(5);
 
     // ---- LN2 backward: dx2r; da = dp1 dx2r m_proj; LN1 (h1, h1y); beside
     // it (warps from the last): dg2, db2 ------------------------------------
     for (int r = tid; r < R; r += NT) {
       const FusionWindowT<bw16_t>& W = wins[r / N];
       const int n = r % N;
-      // LN1 (h1, h1y) from x, y in the row's dx2r slot, before dx2r
-      float mu, rr;
-      bwd16_ln_stats(xd + r * 2 * PF, C, mu, rr);
-      mu1[r] = mu;
-      r1[r] = rr;
-      bwd16_ln_out(xd + r * 2 * PF, mu, rr, g1, b1, h1 + r * PB, C);
-      if (CROSS) {
-        bwd16_ln_stats(xd + r * 2 * PF + C, C, mu, rr);
-        mu1y[r] = mu;
-        r1y[r] = rr;
-        bwd16_ln_out(xd + r * 2 * PF + C, mu, rr, g1y, b1y, h1y + r * PB, C);
-      }
       float* d = dx2r + r * PF;
       // dx2r = g + LN2'(dh2)
       {
@@ -488,6 +451,19 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
           da[r * PB + c] = f2b(W.dp1 * d[c] * keep(T.proj, W.row0 + n, W.colC + c));
         }
       }
+      float mu, rr;
+      const bw16_t* xr = W.x + (size_t)n * W.stride;
+      bwd16_ln_stats(xr, C, mu, rr);
+      mu1[r] = mu;
+      r1[r] = rr;
+      bwd16_ln_out(xr, mu, rr, g1, b1, h1 + r * PB, C);
+      if (CROSS) {
+        const bw16_t* yr = W.y + (size_t)n * W.stride;
+        bwd16_ln_stats(yr, C, mu, rr);
+        mu1y[r] = mu;
+        r1y[r] = rr;
+        bwd16_ln_out(yr, mu, rr, g1y, b1y, h1y + r * PB, C);
+      }
     }
     for (int job = NW - 1 - warp; job < 2 * C; job += NW) {
       if (job < C)
@@ -498,7 +474,6 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
         bwd16_colsum(acc + Gr.b2, job - C, R, [&](int r, int c) { return dh2[r * PF + c]; });
     }
     __syncthreads();
-    FUSION_BWD16_MARK(6);
 
     // ---- dO = da Wp; q, k, v (q scaled); dbp -------------------------------
     {
@@ -540,7 +515,6 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
         });
     }
     __syncthreads();
-    FUSION_BWD16_MARK(7);
 
     // ---- attention, row pass: one (window, head, query) a thread -----------
     for (int i = tid; i < kw * HN; i += NT) {
@@ -610,7 +584,6 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
       rs[r * PRS + H + h] = f2b(seg);
     }
     __syncthreads();
-    FUSION_BWD16_MARK(8);
 
     // ---- attention, column pass: one (head, key) a thread over the windows in
     // order (it owns dbias[h][:, key]); beside it, on the warps the pass leaves
@@ -688,7 +661,6 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
       if (busy < NW && warp >= busy)
         for (int job = warp - busy; job < jobs; job += NW - busy) side(job);
       __syncthreads();
-      FUSION_BWD16_MARK(9);
       if (busy >= NW) {
         for (int job = warp; job < jobs; job += NW) side(job);
         __syncthreads();   // dh1 (dh1y) take the space side() reads
@@ -698,15 +670,7 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
     if (masked && item + (int)gridDim.x < items) prefetch_mask(item + gridDim.x);
     cp_async_commit();
 
-    // ---- k/v rows of the q (qkv) weight gradient, dbkv, dh1 (dh1y); x and
-    // y staged again for the LN1 backward (in qkv's dead space) -------------
-    for (int e = tid; e < R * C; e += NT) {
-      const int r = e / C, c = e % C;
-      const FusionWindowT<bw16_t>& W = wins[r / N];
-      const size_t src = (size_t)(r % N) * W.stride + c;
-      xb[e] = W.x[src];
-      if (CROSS) yb[e] = W.y[src];
-    }
+    // ---- k/v rows of the q (qkv) weight gradient, dbkv, dh1 (dh1y) ----------
     {
       const int MK = (2 * C + 15) / 16, jw = MK * NC, jb = jw + 2 * C, jh = jb + RT * NC;
       const int jobs = jh + (CROSS ? RT * NC : 0);
@@ -747,35 +711,35 @@ fusion_block_bp_backward16_kernel(const bw16_t* __restrict__ x, const bw16_t* __
       }
     }
     __syncthreads();
-    FUSION_BWD16_MARK(10);
 
     // ---- LN1 backward: dx = dx2r + LN1'(dh1) (dy = LN1y'(dh1y)); beside it
     // (warps from the last): dg1, db1 (dg1y, db1y) ----------------------------
     for (int r = tid; r < R; r += NT) {
       const FusionWindowT<bw16_t>& W = wins[r / N];
       const size_t n = r % N;
-      bwd16_ln_bwd(dh1 + r * PF, xb + r * C, mu1[r], r1[r], g1, dx2r + r * PF,
+      bwd16_ln_bwd(dh1 + r * PF, W.x + n * W.stride, mu1[r], r1[r], g1, dx2r + r * PF,
                    W.dx + n * W.stride, C);
       if (CROSS)
-        bwd16_ln_bwd(dh1y + r * PF, yb + r * C, mu1y[r], r1y[r], g1y, (const float*)nullptr,
-                     W.dy + n * W.stride, C);
+        bwd16_ln_bwd(dh1y + r * PF, W.y + n * W.stride, mu1y[r], r1y[r], g1y,
+                     (const float*)nullptr, W.dy + n * W.stride, C);
     }
     for (int job = NW - 1 - warp; job < (CROSS ? 4 : 2) * C; job += NW) {
       const int c = job % C, which = job / C;
       const float* dh = which < 2 ? dh1 : dh1y;
-      const bw16_t* xs = which < 2 ? xb : yb;
+      const bool ys = which >= 2;
       const float* mu = which < 2 ? mu1 : mu1y;
       const float* rr = which < 2 ? r1 : r1y;
       float* a = acc + (which == 0 ? Gr.g1 : which == 1 ? Gr.b1 : which == 2 ? Gr.g1y : Gr.b1y);
       if (which % 2 == 0)
         bwd16_colsum(a, c, R, [&](int r, int cc) {
-          return dh[r * PF + cc] * ((b2f(xs[r * C + cc]) - mu[r]) * rr[r]);
+          const FusionWindowT<bw16_t>& W = wins[r / N];
+          const bw16_t* xr = (ys ? W.y : W.x) + (size_t)(r % N) * W.stride;
+          return dh[r * PF + cc] * ((b2f(xr[cc]) - mu[r]) * rr[r]);
         });
       else
         bwd16_colsum(a, c, R, [&](int r, int cc) { return dh[r * PF + cc]; });
     }
     __syncthreads();   // the next item overwrites the row buffers and wins
-    FUSION_BWD16_MARK(11);
   }
   cp_async_wait();
   float* mine = part + (size_t)blockIdx.x * Gr.total;

@@ -46,6 +46,14 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
 
 RTOL, ATOL = 2e-4, 1e-4
 B, RES, WS, C, HEADS = 4, 12, 6, 12, 6
+
+
+@pytest.fixture(autouse=True)
+def _float32_streams(monkeypatch):
+    """The bp stacks at the float32 policy, as JAX runs them on the CPU: a
+    bf16 step built by an earlier test in this process leaves the port's
+    policy (``nn/swinfusion.py`` ``_POLICY16``, a module global) on."""
+    monkeypatch.setattr(tsf, "_POLICY16", False)
 N = WS * WS
 NP = jfb.round_up(N, 8)
 NW = (RES // WS) ** 2
